@@ -1,0 +1,375 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, one line each (every number beside the card's name and power limit):
+  1. device: the card as nvidia-smi reports it;
+  2. build: every CUDA kernel of the port, compiled from the sources in this
+     checkout (one nvcc per source, all started together);
+  3. kernel vs plain: each kernel against its plain PyTorch version on
+     seeded mixed batches at the serving shapes (bf16), with its time, the
+     plain version's, one PyTorch library call's (a yardstick the port never
+     calls) and the least time the card could take;
+  4. forward check: prefill plus one paged decode forward of the trained
+     checkpoint in float32, on the card (through the kernel) against the CPU
+     (plain path);
+  5. serve the trained checkpoint: 16 concurrent /plan requests through
+     ``ControlPlane.plan``, every plan LLM-authored and valid;
+  6. serve at full width: the 2b preset (random weights from seed 0), 8
+     concurrent /plan requests;
+then the kernels line, the card line and the result line. ``--profile`` adds,
+after each serving phase, one more pass of its requests under
+``torch.profiler`` with the device time by kernel and the idle share. Any failed phase
+exits non-zero before the result line. The kernel launch counters are set to
+0 just before each serving phase and read just after it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import dataclasses
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CKPT = os.path.join(HERE, "mcpx", "models", "checkpoints", "planner_test_bpe.npz")
+ATOL = RTOL = 2e-2  # bf16 inputs and output, fp32 accumulation
+HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+KERNELS = {
+    "ragged_paged_attention": {
+        "route": "cuda",
+        "source": "mcpx_torch/engine/kernels/csrc/ragged_paged_attention.cu",
+        "replaces": "mcpx/engine/kernels/paged_attention.py:151",
+    },
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def emit(phase: str, card: str, **fields) -> None:
+    print(json.dumps({"phase": phase, "card": card, **fields}), flush=True)
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# ------------------------------------------------------------ kernel phase
+def mixed_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype):
+    """Rows with q_len = S, 1, 1 < q_len < S and 0, then random; random
+    distinct pages and start offsets (the reference package's mixed-batch
+    property test, at serving shapes)."""
+    rng = random.Random(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n_pages = B * pmax + 1
+    q = torch.randn((B, S, K, G, hd), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((K, L, n_pages, psz, hd), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((K, L, n_pages, psz, hd), generator=gen, device="cuda").to(dtype)
+    pages = list(range(1, n_pages))
+    rng.shuffle(pages)
+    table = torch.tensor(pages[: B * pmax], dtype=torch.int32).reshape(B, pmax).cuda()
+    fixed = [S, 1, rng.randint(2, S - 1), 0]
+    q_lens = [fixed[b] if b < 4 else rng.randint(0, S) for b in range(B)]
+    starts = [rng.randint(0, pmax * psz - max(1, q_lens[b]) - 1) for b in range(B)]
+    as_i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
+    return q, kp, vp, table, as_i32(starts), as_i32(q_lens)
+
+
+def attention_bound(q, k_pages, table, starts, q_lens):
+    """(bound_ms, bound_by, bytes, flops): bytes = each live row's streamed
+    pages of K and V once, plus q, out and the int32 row data; flops = QK^T
+    and PV over each live query's visible positions, at the bf16 peak."""
+    from mcpx_torch.engine.kernels.paged_attention import ragged_n_pages
+
+    B, S, K, G, hd = q.shape
+    psz, elt = k_pages.shape[3], q.element_size()
+    n = ragged_n_pages(starts.cpu(), q_lens.cpu(), psz, table.shape[1])
+    nbytes = int(n.sum()) * K * psz * hd * 2 * elt + 2 * q.numel() * elt + 4 * (table.numel() + 2 * B)
+    flops = 0
+    for st, ql in zip(starts.tolist(), q_lens.tolist()):
+        for i in range(ql):
+            flops += K * G * 4 * hd * min(st + i + 1, table.shape[1] * psz)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def sdpa_yardstick(q, k_pages, v_pages, table, starts, layer):
+    """One scaled_dot_product_attention call on the pre-gathered dense K/V
+    with the boolean visibility mask (the port never calls it)."""
+    import torch.nn.functional as F
+
+    from mcpx_torch.engine.kernels.paged_attention import _gather_pages
+
+    B, S, K, G, hd = q.shape
+    k = _gather_pages(k_pages, table, layer)  # [B, K, Lk, hd]
+    v = _gather_pages(v_pages, table, layer)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, hd)
+    vis = starts.long()[:, None] + torch.arange(S, device=q.device) + 1
+    mask = (torch.arange(k.shape[2], device=q.device)[None, None, :] < vis[:, :, None])[:, None]
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def kernel_phase(card: str) -> list[dict]:
+    from mcpx_torch.engine.kernels.paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_reference,
+    )
+
+    rows = []
+    # (cell, G, hd, L): the trained `test` preset and the full-width `2b`
+    # preset, at the serving geometry B=64, S=speculate_k=8, Psz=64, Pmax=4.
+    for cell, G, hd, L in (("test", 4, 32, 2), ("2b", 8, 256, 18)):
+        worst = 0.0
+        for seed in range(3):
+            q, kp, vp, table, starts, q_lens = mixed_batch(
+                seed, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16
+            )
+            for layer in (0, L - 1):
+                out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, layer)
+                torch.cuda.synchronize()
+                ref = ragged_paged_attention_reference(q, kp, vp, table, starts, q_lens, layer)
+                err = (out.float() - ref.float()).abs()
+                worst = max(worst, float(err.max()))
+                if bool((err > ATOL + RTOL * ref.float().abs()).any()):
+                    raise SystemExit(f"{cell}: kernel disagrees with plain version (max {worst})")
+                for b, ql in enumerate(q_lens.tolist()):
+                    if bool((out[b, ql:] != 0).any()):
+                        raise SystemExit(f"{cell}: row {b} pads are not exact zeros")
+        q, kp, vp, table, starts, q_lens = mixed_batch(0, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16)
+        layers = iter(range(10**9))
+        run_k = lambda: ragged_paged_attention(  # noqa: E731
+            q, kp, vp, table, starts, q_lens, next(layers) % L
+        )
+        run_p = lambda: ragged_paged_attention_reference(  # noqa: E731
+            q, kp, vp, table, starts, q_lens, next(layers) % L
+        )
+        # plain, kernel, kernel, plain: compared inside one call, in turns.
+        p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), time_ms(run_p, 10)
+        library_ms = time_ms(sdpa_yardstick(q, kp, vp, table, starts, 0))
+        bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, table, starts, q_lens)
+        row = dict(
+            cell=cell, B=64, S=8, K=1, G=G, hd=hd, L=L, page_size=64, max_pages=4,
+            dtype="bfloat16", max_abs_err=worst, atol=ATOL, rtol=RTOL,
+            ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+        )
+        emit("kernel_vs_plain", card, kernel="ragged_paged_attention", **row)
+        rows.append(row)
+    return rows
+
+
+# ------------------------------------------------------------ serving
+def config(size: str, checkpoint: str, batch: int):
+    from mcpx_torch.core.config import MCPXConfig
+
+    return MCPXConfig.from_dict({
+        "model": {"size": size, "vocab": "bpe", "max_seq_len": 2048, "checkpoint_path": checkpoint},
+        # The reference bench's headline engine settings: 64-token pages,
+        # 4 pages a row, 64-token decode budget, greedy, fast-forward 8,
+        # homogeneous slab, no drafting, no prefix cache.
+        "engine": {
+            "max_batch_size": batch, "kv_page_size": 64, "max_pages_per_seq": 4,
+            "max_decode_len": 64, "temperature": 0.0, "speculate_k": 8,
+            "hetero_batch": False, "prefix_cache": False, "draft_mode": "off",
+        },
+        "planner": {"kind": "llm"},
+    })
+
+
+def forward_check(card: str) -> None:
+    """The trained checkpoint in float32: prefill, commit to pages and one
+    ragged paged decode forward, on the card against the CPU."""
+    from mcpx_torch.engine.kv_cache import commit_prefill_to_pages, init_paged_kv
+    from mcpx_torch.engine.paged_decode import decode_chunk_paged
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.gemma.model import init_kv_cache, prefill
+    from mcpx_torch.models.gemma.params import load_npz
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072), dtype="float32")
+    rng = torch.Generator().manual_seed(0)
+    B, T, psz, pmax = 4, 64, 64, 4
+    tokens = torch.randint(0, 3000, (B, T), generator=rng)
+    lens = torch.tensor([64, 17, 40, 5])
+    table = torch.arange(1, B * pmax + 1, dtype=torch.int32).reshape(B, pmax)
+    chunk = torch.randint(0, 3000, (B, 8), generator=rng)
+    q_lens = torch.tensor([8, 1, 3, 0], dtype=torch.int32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        params = load_npz(CKPT, dev, torch.float32)
+        pools = init_paged_kv(cfg, B * pmax + 1, psz, dev)
+        dense = init_kv_cache(cfg, B, T, device=dev)
+        first, dense = prefill(params, cfg, tokens.to(dev), lens.to(dev), dense, last_only=True)
+        commit_prefill_to_pages(pools, dense, table.to(dev), lens.to(dev), psz)
+        logits, _ = decode_chunk_paged(
+            params, cfg, chunk.to(dev), lens.to(dev), table.to(dev), pools,
+            logits_at=(q_lens.long() - 1).clamp(min=0).to(dev), q_lens=q_lens.to(dev),
+        )
+        outs.append((first.cpu(), logits.cpu()))
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    finite = all(bool(torch.isfinite(t).all()) for t in outs[0])
+    shapes = [list(t.shape) for t in outs[0]]
+    emit("forward_check", card, dtype="float32", max_abs_err=err, atol=1e-3, finite=finite, shapes=shapes)
+    if not finite or err > 1e-3 or shapes != [[B, 3072], [B, 3072]]:
+        raise SystemExit(f"forward check failed: err {err}, finite {finite}, shapes {shapes}")
+
+
+def _profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def device_breakdown(prof, wall_s: float, top: int = 8) -> dict:
+    """Device time by kernel over the profiled window: the busiest kernels,
+    their sum, and the device's idle share of the window's wall time."""
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    return dict(
+        wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
+        device_idle_share=max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
+        top=[{"name": k[:80], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:top]],
+    )
+
+
+async def serve(
+    size: str, checkpoint: str, n_intents: int, card: str, batch: int, profile: bool = False
+) -> tuple[dict, list]:
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    cp = build_control_plane(config(size, checkpoint, batch))  # device=None: the card
+    records = synth_registry(1000, seed=0)
+    for rec in records:
+        await cp.registry.put(rec)
+    try:
+        t0 = time.monotonic()
+        await cp.startup()
+        startup_s = time.monotonic() - t0
+        rng = random.Random(0)
+        intents = [intent_for(records, rng) for _ in range(n_intents)]
+        engine = cp.planner.engine
+        fwd0 = engine.queue_stats()["decode_forwards"]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.monotonic()
+        results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+        wall = time.monotonic() - t0
+        launches = kernel_launches()
+        plans = [p for p, _ in results]
+        lat = sorted(ms for _, ms in results)
+        for p in plans:
+            p.validate()
+        stats = dict(
+            model=size, intents=n_intents, wall_s=wall, plans_per_s=n_intents / wall,
+            p50_ms=lat[len(lat) // 2], max_ms=lat[-1], startup_s=startup_s,
+            decode_forwards=engine.queue_stats()["decode_forwards"] - fwd0,
+            origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
+            launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        )
+        emit(f"serve_{size}", card, **stats)
+        if profile:
+            # The same requests once more under the profiler, after the
+            # measured run, so the profiler's cost stays out of its numbers.
+            with _profiler() as prof:
+                t0 = time.monotonic()
+                await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            emit(f"profile_{size}", card, **device_breakdown(prof, wall))
+        return stats, plans
+    finally:
+        await cp.aclose()
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--profile", action="store_true",
+        help="after each serving phase, serve its requests once more under "
+        "torch.profiler and print device time by kernel and the idle share",
+    )
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on the GPU", file=sys.stderr)
+        return 2
+    from mcpx_torch.engine.kernels import build
+
+    card = card_line()
+    emit("device", card, kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.monotonic()
+    libs = build.build_all()
+    emit("build", card, seconds=time.monotonic() - t0, libraries=sorted(libs),
+         per_kernel_s={k: v["seconds"] for k, v in build.build_log.items()})
+
+    rows = kernel_phase(card)
+    forward_check(card)
+
+    trained, _ = asyncio.run(serve("test", CKPT, 16, card, batch=64, profile=args.profile))
+    if trained["origins"] != {"llm": 16}:
+        raise SystemExit(f"trained checkpoint: not every plan is LLM-authored: {trained['origins']}")
+    full, _ = asyncio.run(serve("2b", "", 8, card, batch=64, profile=args.profile))
+    for name in KERNELS:
+        for st in (trained, full):
+            if st["launches"][name] <= 0:
+                raise SystemExit(f"{name} was not launched while serving {st['model']}")
+
+    headline = rows[0]
+    kernels = [
+        {
+            "name": name, **meta,
+            "launches": trained["launches"][name] + full["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": headline["ms"], "plain_ms": headline["plain_ms"],
+            "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
+            "library_ms": headline["library_ms"],
+            "by_shape": rows,
+        }
+        for name, meta in KERNELS.items()
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, HERE)
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,326 @@
+"""Canonical DAG intermediate representation.
+
+The reference has *two contradictory* wire shapes (SURVEY.md §2.4): the
+orchestrator consumes ``{nodes:[{name,endpoint,inputs}], edges:[{from,to,
+fallback}]}`` (reference ``control_plane.py:96-107``) while the planner prompt
+asks the LLM for ``{service_name, input_keys, next_steps, fallback}`` steps
+(reference ``control_plane.py:61-62``) — the two never meet. This module is
+the single source of truth: one validated ``Plan`` IR used by the planner's
+grammar-constrained decoder, the ``/execute`` validator and the executor.
+
+Design decisions (vs the reference):
+  - endpoints are resolved from the registry by the control plane, never
+    trusted from LLM output;
+  - fallbacks are an *ordered per-node list* (reference ``README.md:49,94``),
+    not a single edge attribute (whose lookup crashes — bug B2,
+    ``control_plane.py:119``);
+  - validation (unique names, dangling edges, cycles) happens before any
+    execution, with precise error messages (bug B7: the reference
+    ``json.loads``'s LLM text with no validation, ``control_plane.py:74``);
+  - topological *generations* are first-class so independent nodes execute
+    concurrently (the reference walks serially, bug at
+    ``control_plane.py:104``).
+
+Pure Python, no third-party deps (networkx is not required: Kahn's algorithm
+is ~20 lines and gives us generations directly).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional
+
+from mcpx_torch.core.errors import MCPXError
+
+DEFAULT_TIMEOUT_S = 5.0  # matches the reference's per-node timeout, control_plane.py:109
+DEFAULT_RETRIES = 1
+
+
+class PlanValidationError(MCPXError):
+    """A plan failed structural validation; ``problems`` lists every issue."""
+
+    def __init__(self, problems: list[str]):
+        super().__init__("; ".join(problems))
+        self.problems = problems
+
+
+@dataclass
+class DagNode:
+    """One service invocation in a plan.
+
+    ``inputs`` maps each parameter name the service expects to a *source key*:
+    first looked up in accumulated upstream results, then in the request
+    payload (the reference's resolution order, ``control_plane.py:107``).
+    ``fallbacks`` is the ordered fallback endpoint chain tried after
+    ``retries`` attempts on the primary endpoint are exhausted.
+    """
+
+    name: str
+    service: str = ""
+    endpoint: str = ""
+    inputs: dict[str, str] = field(default_factory=dict)
+    fallbacks: list[str] = field(default_factory=list)
+    retries: int = DEFAULT_RETRIES
+    timeout_s: float = DEFAULT_TIMEOUT_S
+    params: dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if not self.service:
+            self.service = self.name
+
+
+@dataclass
+class DagEdge:
+    """Dependency: ``src`` must complete before ``dst`` starts.
+
+    ``fallback`` exists only for reference wire-format compatibility
+    (``control_plane.py:100``); at validation it is folded into the *dst*
+    node's ordered ``fallbacks`` list.
+    """
+
+    src: str
+    dst: str
+    fallback: Optional[str] = None
+
+
+@dataclass
+class Plan:
+    """A validated, executable service DAG plus planner metadata."""
+
+    nodes: list[DagNode] = field(default_factory=list)
+    edges: list[DagEdge] = field(default_factory=list)
+    intent: str = ""
+    explanation: str = ""
+    # Which planner actually produced this plan: "llm" | "heuristic" | "mock"
+    # | "" (unknown, e.g. /execute-supplied graphs). An LLM plan that fell
+    # back reads "heuristic" — this is what the bench's accept-rate and the
+    # ladder's llm_share report on.
+    origin: str = ""
+    # ------------------------------------------------------------------ build
+    @classmethod
+    def from_wire(cls, obj: Mapping[str, Any]) -> "Plan":
+        """Parse either wire shape the reference world produces.
+
+        Accepts the orchestrator envelope ``{"nodes": [...], "edges": [...]}``
+        (reference ``control_plane.py:96-100``) and the planner step-list shape
+        ``{"steps": [{"service_name", "input_keys", "next_steps",
+        "fallback"}]}`` (reference ``control_plane.py:61-62``), normalising
+        both into the canonical IR. Raises ``PlanValidationError`` on
+        malformed input.
+        """
+        if not isinstance(obj, Mapping):
+            raise PlanValidationError([f"plan must be an object, got {type(obj).__name__}"])
+        if "steps" in obj and "nodes" not in obj:
+            return cls._from_steps(obj)
+        problems: list[str] = []
+        nodes: list[DagNode] = []
+        for i, raw in enumerate(obj.get("nodes", []) or []):
+            if not isinstance(raw, Mapping):
+                problems.append(f"nodes[{i}] must be an object")
+                continue
+            name = raw.get("name") or raw.get("service") or raw.get("service_name")
+            if not name or not isinstance(name, str):
+                problems.append(f"nodes[{i}] missing 'name'")
+                continue
+            inputs = raw.get("inputs") or {}
+            if not isinstance(inputs, Mapping) or not all(
+                isinstance(k, str) and isinstance(v, str) for k, v in inputs.items()
+            ):
+                problems.append(f"node '{name}': 'inputs' must map str->str")
+                inputs = {}
+            fallbacks = raw.get("fallbacks") or raw.get("fallback") or []
+            if isinstance(fallbacks, str):
+                fallbacks = [fallbacks]
+            if not isinstance(fallbacks, list) or not all(isinstance(f, str) for f in fallbacks):
+                problems.append(f"node '{name}': 'fallbacks' must be a list of str")
+                fallbacks = []
+            try:
+                retries = int(raw.get("retries", DEFAULT_RETRIES))
+                timeout_s = float(raw.get("timeout_s", raw.get("timeout", DEFAULT_TIMEOUT_S)))
+            except (TypeError, ValueError):
+                problems.append(f"node '{name}': retries/timeout must be numeric")
+                retries, timeout_s = DEFAULT_RETRIES, DEFAULT_TIMEOUT_S
+            nodes.append(
+                DagNode(
+                    name=name,
+                    service=str(raw.get("service", "") or raw.get("service_name", "") or name),
+                    endpoint=str(raw.get("endpoint", "") or ""),
+                    inputs=dict(inputs),
+                    fallbacks=list(fallbacks),
+                    retries=retries,
+                    timeout_s=timeout_s,
+                    params=dict(raw.get("params", {}) or {}),
+                )
+            )
+        edges: list[DagEdge] = []
+        for i, raw in enumerate(obj.get("edges", []) or []):
+            if not isinstance(raw, Mapping):
+                problems.append(f"edges[{i}] must be an object")
+                continue
+            src = raw.get("from") or raw.get("src") or raw.get("source")
+            dst = raw.get("to") or raw.get("dst") or raw.get("target")
+            if not isinstance(src, str) or not isinstance(dst, str):
+                problems.append(f"edges[{i}] missing 'from'/'to'")
+                continue
+            fb = raw.get("fallback")
+            if fb is not None and not isinstance(fb, str):
+                problems.append(f"edges[{i}] 'fallback' must be a str")
+                fb = None
+            edges.append(DagEdge(src=src, dst=dst, fallback=fb))
+        if problems:
+            raise PlanValidationError(problems)
+        plan = cls(nodes=nodes, edges=edges, intent=str(obj.get("intent", "") or ""),
+                   explanation=str(obj.get("explanation", "") or ""),
+                   origin=str(obj.get("origin", "") or ""))
+        plan.validate()
+        return plan
+
+    @classmethod
+    def _from_steps(cls, obj: Mapping[str, Any]) -> "Plan":
+        """Normalise the planner step-list shape (reference prompt wire format,
+        ``control_plane.py:61-62``) into nodes+edges."""
+        problems: list[str] = []
+        nodes: list[DagNode] = []
+        edges: list[DagEdge] = []
+        steps = obj.get("steps") or []
+        if not isinstance(steps, list):
+            raise PlanValidationError(["'steps' must be a list"])
+        for i, raw in enumerate(steps):
+            if not isinstance(raw, Mapping):
+                problems.append(f"steps[{i}] must be an object")
+                continue
+            # Accepts the reference's field names (control_plane.py:61-62) and
+            # the compact grammar-constrained wire keys (planner/grammar.py).
+            name = raw.get("service_name") or raw.get("name") or raw.get("s")
+            if not isinstance(name, str) or not name:
+                problems.append(f"steps[{i}] missing 'service_name'")
+                continue
+            input_keys = raw.get("input_keys") or raw.get("in") or []
+            inputs: dict[str, str]
+            if isinstance(input_keys, Mapping):
+                inputs = {str(k): str(v) for k, v in input_keys.items()}
+            elif isinstance(input_keys, list):
+                inputs = {str(k): str(k) for k in input_keys}
+            else:
+                problems.append(f"step '{name}': 'input_keys' must be list or map")
+                inputs = {}
+            fb = raw.get("fallback")
+            fallbacks = [fb] if isinstance(fb, str) and fb else []
+            nodes.append(DagNode(name=name, inputs=inputs, fallbacks=fallbacks))
+            for nxt in raw.get("next_steps") or raw.get("next") or []:
+                if isinstance(nxt, str):
+                    edges.append(DagEdge(src=name, dst=nxt))
+                else:
+                    problems.append(f"step '{name}': next_steps entries must be str")
+        if problems:
+            raise PlanValidationError(problems)
+        plan = cls(nodes=nodes, edges=edges, intent=str(obj.get("intent", "") or ""))
+        plan.validate()
+        return plan
+
+    @classmethod
+    def from_json(cls, text: str) -> "Plan":
+        try:
+            obj = json.loads(text)
+        except json.JSONDecodeError as e:
+            raise PlanValidationError([f"invalid JSON: {e}"]) from e
+        return cls.from_wire(obj)
+
+    # -------------------------------------------------------------- validate
+    def validate(self) -> None:
+        """Structural validation; raises ``PlanValidationError`` listing every
+        problem found (duplicate names, dangling edges, self-loops, cycles)."""
+        problems: list[str] = []
+        seen: set[str] = set()
+        for n in self.nodes:
+            if n.name in seen:
+                problems.append(f"duplicate node name '{n.name}'")
+            seen.add(n.name)
+            if n.retries < 0:
+                problems.append(f"node '{n.name}': retries must be >= 0")
+            if n.timeout_s <= 0:
+                problems.append(f"node '{n.name}': timeout must be > 0")
+        for e in self.edges:
+            if e.src not in seen:
+                problems.append(f"edge references unknown node '{e.src}'")
+            if e.dst not in seen:
+                problems.append(f"edge references unknown node '{e.dst}'")
+            if e.src == e.dst:
+                problems.append(f"self-loop on node '{e.src}'")
+        if problems:
+            raise PlanValidationError(problems)
+        # Fold reference-style edge fallbacks into the dst node's ordered chain
+        # (fixes bugs B2/B3: the reference reads fallback only from the first
+        # in-edge, via an expression that KeyErrors, control_plane.py:116-119).
+        by_name = {n.name: n for n in self.nodes}
+        for e in self.edges:
+            if e.fallback and e.fallback not in by_name[e.dst].fallbacks:
+                by_name[e.dst].fallbacks.append(e.fallback)
+        self.topological_generations()
+
+    # ------------------------------------------------------------------ topo
+    def topological_generations(self) -> list[list[str]]:
+        """Kahn's algorithm, returning *generations*: each inner list is a set
+        of mutually independent nodes the executor may run concurrently
+        (replaces the reference's serial ``nx.topological_sort`` walk,
+        ``control_plane.py:104``)."""
+        indeg: dict[str, int] = {n.name: 0 for n in self.nodes}
+        succ: dict[str, list[str]] = {n.name: [] for n in self.nodes}
+        for e in self.edges:
+            indeg[e.dst] += 1
+            succ[e.src].append(e.dst)
+        frontier = sorted(name for name, d in indeg.items() if d == 0)
+        generations: list[list[str]] = []
+        emitted = 0
+        while frontier:
+            generations.append(frontier)
+            emitted += len(frontier)
+            nxt: list[str] = []
+            for name in frontier:
+                for s in succ[name]:
+                    indeg[s] -= 1
+                    if indeg[s] == 0:
+                        nxt.append(s)
+            frontier = sorted(nxt)
+        if emitted != len(self.nodes):
+            stuck = sorted(name for name, d in indeg.items() if d > 0)
+            raise PlanValidationError([f"cycle detected involving nodes: {', '.join(stuck)}"])
+        return generations
+
+    def node(self, name: str) -> DagNode:
+        for n in self.nodes:
+            if n.name == name:
+                return n
+        raise KeyError(name)
+
+    # ------------------------------------------------------------------ wire
+    def to_wire(self) -> dict[str, Any]:
+        """Serialise to the canonical envelope (a superset of the reference's
+        orchestrator wire format, ``control_plane.py:96-100``, so reference
+        clients can consume it)."""
+        return {
+            "nodes": [
+                {
+                    "name": n.name,
+                    "service": n.service,
+                    "endpoint": n.endpoint,
+                    "inputs": dict(n.inputs),
+                    "fallbacks": list(n.fallbacks),
+                    "retries": n.retries,
+                    "timeout_s": n.timeout_s,
+                    **({"params": n.params} if n.params else {}),
+                }
+                for n in self.nodes
+            ],
+            "edges": [
+                {"from": e.src, "to": e.dst, **({"fallback": e.fallback} if e.fallback else {})}
+                for e in self.edges
+            ],
+            **({"intent": self.intent} if self.intent else {}),
+            **({"explanation": self.explanation} if self.explanation else {}),
+            **({"origin": self.origin} if self.origin else {}),
+        }
+
+    def to_json(self, **kw: Any) -> str:
+        return json.dumps(self.to_wire(), **kw)

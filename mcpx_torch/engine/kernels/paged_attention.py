@@ -1,0 +1,212 @@
+"""Ragged mixed-phase paged attention: the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+PyTorch port of ``mcpx/engine/kernels/paged_attention.py``. One kernel
+serves every attention shape the engine dispatches against the shared page
+pools (``[K, L, N_pages, page_size, head_dim]``, every layer in one tensor):
+row ``b`` of the padded ``[B, S_max, ...]`` window holds ``q_lens[b]`` live
+queries — decode rows (1), fast-forward or verify windows (``1 < q_len <=
+S``), prefill rows (``S``) and idle rows (0). Query ``i < q_lens[b]`` attends
+cache positions ``< start_pos[b] + i + 1``; pad queries and idle rows output
+exact zeros.
+
+The route is the tensor's device, nothing else: on a CPU tensor the wrapper
+computes the plain version below; on a CUDA tensor it launches the kernel
+(``csrc/ragged_paged_attention.cu``) or raises. The plain versions gather
+pages exactly like the reference package's jnp references (same fp32 logits
+and softmax, weights cast to the value dtype before the value product), so
+CPU runs of the port match the reference package's ``use_pallas=False``
+path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from mcpx_torch.core.errors import EngineError
+from mcpx_torch.engine.kernels import build
+
+NEG_INF = -1e30
+MAX_ROWS = 64  # S * G rows one block holds
+MAX_HEAD_DIM = 256
+MAX_PAGE_SIZE = 64
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+
+# Launch counts by kernel name: the wrapper adds one where it launches the
+# kernel and nowhere else (the plain path never counts).
+LAUNCHES = {"ragged_paged_attention": 0}
+
+
+def kernel_launches() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def reset_kernel_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------- plain
+def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor, layer: int) -> torch.Tensor:
+    """[K, L, N, Psz, hd] pools -> [B, K, Pmax*Psz, hd] for one layer."""
+    K, _, _, psz, hd = pages.shape
+    B, p_max = page_table.shape
+    g = pages[:, layer][:, page_table.long()]  # [K, B, Pmax, Psz, hd]
+    return g.permute(1, 0, 2, 3, 4).reshape(B, K, p_max * psz, hd)
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens, layer: int = 0):
+    """Single-query semantics: q [B, K, G, hd]; ``seq_lens`` counts the
+    token just written. Returns [B, K, G, hd] in q.dtype."""
+    hd = q.shape[-1]
+    k = _gather_pages(k_pages, page_table, layer)
+    v = _gather_pages(v_pages, page_table, layer)
+    logits = torch.einsum("bkgh,bksh->bkgs", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(k.shape[2], device=q.device)
+    mask = pos[None, :] < seq_lens.long()[:, None]
+    logits = torch.where(mask[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgs,bksh->bkgh", w.to(v.dtype), v).to(q.dtype)
+
+
+def paged_attention_chunk_reference(q, k_pages, v_pages, page_table, start_pos, layer: int = 0):
+    """Chunk semantics, q [B, S, K, G, hd]: query i of row b attends cache
+    positions through ``start_pos[b] + i``; every window slot is computed.
+    Returns [B, S, K, G, hd] in q.dtype."""
+    S, hd = q.shape[1], q.shape[-1]
+    k = _gather_pages(k_pages, page_table, layer)
+    v = _gather_pages(v_pages, page_table, layer)
+    logits = torch.einsum("bskgh,bklh->bskgl", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    vis = start_pos.long()[:, None] + torch.arange(S, device=q.device) + 1  # [B, S]
+    mask = torch.arange(k.shape[2], device=q.device)[None, None, :] < vis[:, :, None]
+    logits = torch.where(
+        mask[:, :, None, None, :], logits, torch.full_like(logits, NEG_INF)
+    )
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bskgl,bklh->bskgh", w.to(v.dtype), v).to(q.dtype)
+
+
+def ragged_paged_attention_reference(
+    q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int = 0
+):
+    """Ragged semantics: the chunk reference with window slots past each
+    row's ``q_lens`` set to exact zeros. Returns [B, S, K, G, hd]."""
+    out = paged_attention_chunk_reference(q, k_pages, v_pages, page_table, start_pos, layer)
+    valid = torch.arange(q.shape[1], device=q.device)[None, :] < q_lens.long()[:, None]
+    return torch.where(valid[:, :, None, None, None], out, torch.zeros_like(out)).to(q.dtype)
+
+
+def ragged_n_pages(start, qn, page_size: int, p_max: int):
+    """Pages a row streams: through its last live query's visible position,
+    clamped to the table width; exactly zero for an idle row (``qn == 0``).
+    The kernel computes the same count per block."""
+    start = torch.as_tensor(start)
+    qn = torch.as_tensor(qn)
+    n = torch.clamp((start + qn + page_size - 1) // page_size, max=p_max)
+    return torch.where(qn > 0, n, torch.zeros_like(n))
+
+
+# ---------------------------------------------------------------- kernel
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int) -> None:
+    if q.dim() != 5 or k_pages.dim() != 5 or k_pages.shape != v_pages.shape:
+        raise EngineError(
+            f"ragged_paged_attention: q must be [B, S, K, G, hd] and the pools "
+            f"[K, L, N, Psz, hd]; got {tuple(q.shape)}, {tuple(k_pages.shape)}, "
+            f"{tuple(v_pages.shape)}"
+        )
+    B, S, K, G, hd = q.shape
+    Kp, L, _, psz, hdp = k_pages.shape
+    if Kp != K or hdp != hd:
+        raise EngineError("ragged_paged_attention: q and pools disagree on kv heads or head_dim")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise EngineError(
+            f"ragged_paged_attention: q and pools must share float32 or bfloat16; got "
+            f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}"
+        )
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise EngineError(f"ragged_paged_attention: page_table must be [B, Pmax], got {tuple(page_table.shape)}")
+    if tuple(start_pos.shape) != (B,) or tuple(q_lens.shape) != (B,):
+        raise EngineError("ragged_paged_attention: start_pos and q_lens must be [B]")
+    if any(t.dtype != torch.int32 for t in (page_table, start_pos, q_lens)):
+        raise EngineError("ragged_paged_attention: page_table, start_pos and q_lens must be int32")
+    tensors = (q, k_pages, v_pages, page_table, start_pos, q_lens)
+    if any(t.device != q.device for t in tensors):
+        raise EngineError("ragged_paged_attention: every tensor must be on the same CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise EngineError("ragged_paged_attention: every tensor must be contiguous")
+    if S * G > MAX_ROWS or hd > MAX_HEAD_DIM or hd % 8 or not 1 <= psz <= MAX_PAGE_SIZE:
+        raise EngineError(
+            f"ragged_paged_attention: unsupported shape S*G={S * G} (<= {MAX_ROWS}), "
+            f"hd={hd} (multiple of 8, <= {MAX_HEAD_DIM}), page_size={psz} (<= {MAX_PAGE_SIZE})"
+        )
+    if not 0 <= layer < L:
+        raise EngineError(f"ragged_paged_attention: layer {layer} outside [0, {L})")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ragged_paged_attention")
+    if not getattr(lib, "_mcpx_bound", False):
+        fn = lib.mcpx_ragged_paged_attention
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        smem = lib.mcpx_ragged_paged_attention_smem
+        smem.restype = ctypes.c_size_t
+        smem.argtypes = [ctypes.c_int] * 5
+        lib._mcpx_bound = True
+    return lib
+
+
+def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int = 0):
+    """The ragged kernel: q [B, S, K, G, hd]; pools [K, L, N, Psz, hd];
+    page_table [B, Pmax], start_pos [B], q_lens [B] (int32). Returns
+    [B, S, K, G, hd] in q.dtype. CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream."""
+    layer = int(layer)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_reference(
+            q, k_pages, v_pages, page_table, start_pos, q_lens, layer
+        )
+    if q.device.type != "cuda":
+        raise EngineError(f"ragged_paged_attention: no route for device {q.device}")
+    _check(q, k_pages, v_pages, page_table, start_pos, q_lens, layer)
+    B, S, K, G, hd = q.shape
+    _, L, N, psz, _ = k_pages.shape
+    dtype = _DTYPES[q.dtype]
+    lib = _lib()
+    smem = lib.mcpx_ragged_paged_attention_smem(S, G, hd, psz, dtype)
+    if smem > SMEM_LIMIT:
+        raise EngineError(f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})")
+    out = torch.empty_like(q)
+    rc = lib.mcpx_ragged_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
+        B, S, K, G, hd, L, N, psz, page_table.shape[1], layer, dtype,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")
+    LAUNCHES["ragged_paged_attention"] += 1
+    return out
+
+
+def paged_attention_chunk(q, k_pages, v_pages, page_table, start_pos, layer: int = 0):
+    """Dense-window chunk attention: the ``q_lens = S`` case of the kernel."""
+    B, S = q.shape[0], q.shape[1]
+    q_lens = torch.full((B,), S, dtype=torch.int32, device=q.device)
+    return ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, layer)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, layer: int = 0):
+    """Single-query paged attention, q [B, K, G, hd]: the ``S = 1`` case;
+    ``seq_lens`` counts the just-written token."""
+    out = paged_attention_chunk(
+        q[:, None].contiguous(), k_pages, v_pages, page_table,
+        (seq_lens - 1).to(torch.int32), layer,
+    )
+    return out[:, 0]

@@ -1,0 +1,85 @@
+"""Decode forward against the paged KV cache.
+
+Port of ``mcpx/engine/paged_decode.py::decode_chunk_paged``: the same math
+as ``models/gemma/model.py`` (shared RMSNorm, RoPE, projections), but each
+layer writes its chunk's K/V into the page pools with one scatter and
+attends through the ragged paged-attention wrapper, which launches the CUDA
+kernel for CUDA tensors and takes its plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from mcpx_torch.engine.kernels.paged_attention import (
+    paged_attention_chunk,
+    ragged_paged_attention,
+)
+from mcpx_torch.models.gemma.config import GemmaConfig
+from mcpx_torch.models.gemma.model import apply_rope, embed_tokens, mlp, qkv, rms_norm, unembed
+
+
+def decode_chunk_paged(
+    params: dict[str, Any],
+    cfg: GemmaConfig,
+    tokens: torch.Tensor,  # [B, S] chunk of new tokens per row
+    positions: torch.Tensor,  # [B] slot tokens[:, 0] is written to
+    page_table: torch.Tensor,  # [B, Pmax] int32
+    paged_kv: dict[str, torch.Tensor],  # k/v: [K, L, N, Psz, hd]
+    *,
+    logits_at: Optional[torch.Tensor] = None,  # [B] chunk slot per row
+    q_lens: Optional[torch.Tensor] = None,  # [B] live window slots per row
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """S new tokens per row in one forward. Query i of row b is written at
+    cache position ``positions[b] + i`` and sees the cache through it.
+    ``q_lens`` makes rows ragged: slots past a row's live width are pads
+    (their K/V writes are garbage the next chunk overwrites; their
+    attention outputs are zero), and ``q_lens = 0`` idles a row. None keeps
+    every slot live. Returns ([B, S, V] fp32 logits, pools) — or ([B, V],
+    pools) when ``logits_at`` names one slot per row. The pools are updated
+    in place."""
+    B, S = tokens.shape
+    K, L, N, psz, hd = paged_kv["k"].shape
+    p_max = page_table.shape[1]
+    dev = tokens.device
+    lp = params["layers"]
+    x = embed_tokens(params["embed"], tokens, cfg)  # [B, S, D]
+
+    pos_mat = positions.long()[:, None] + torch.arange(S, device=dev)  # [B, S]
+    chunk = pos_mat // psz
+    page = torch.gather(page_table.long(), 1, chunk.clamp(max=p_max - 1))
+    # A slot past the table width (never reached by the engine's page
+    # budget) goes to the null page rather than wrapping into a live page.
+    page = torch.where(chunk < p_max, page, torch.zeros_like(page))
+    flat_idx = page * psz + pos_mat % psz  # [B, S] slot in the [N*Psz] view
+    k_flat = paged_kv["k"].view(K, L, N * psz, hd)
+    v_flat = paged_kv["v"].view(K, L, N * psz, hd)
+    table32 = page_table.to(torch.int32).contiguous()
+    start32 = positions.to(torch.int32).contiguous()
+    qlen32 = None if q_lens is None else q_lens.to(torch.int32).contiguous()
+
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, lp["pre_attn_norm"][i], cfg.norm_eps)
+        q, k, v = qkv(h, lp, i)
+        q = apply_rope(q, pos_mat, cfg.rope_theta)
+        k = apply_rope(k, pos_mat, cfg.rope_theta)
+        k_flat[:, i, flat_idx] = k.permute(2, 0, 1, 3).to(k_flat.dtype)
+        v_flat[:, i, flat_idx] = v.permute(2, 0, 1, 3).to(v_flat.dtype)
+        qg = q.reshape(B, S, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim).contiguous()
+        if qlen32 is not None:
+            attn = ragged_paged_attention(
+                qg, paged_kv["k"], paged_kv["v"], table32, start32, qlen32, i
+            )
+        else:
+            attn = paged_attention_chunk(qg, paged_kv["k"], paged_kv["v"], table32, start32, i)
+        attn = attn.reshape(B, S, cfg.n_heads * cfg.head_dim)
+        wo = lp["wo"][i].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
+        x = x + torch.matmul(attn, wo)
+        h = rms_norm(x, lp["pre_mlp_norm"][i], cfg.norm_eps)
+        x = x + mlp(h, lp, i)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if logits_at is not None:
+        x = x[torch.arange(B, device=dev), logits_at.long()]  # [B, D]
+    return unembed(x, params["embed"]), paged_kv

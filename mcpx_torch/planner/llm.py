@@ -1,0 +1,582 @@
+"""LLM planner: intent → grammar-constrained on-device decode → validated Plan.
+
+PyTorch port of ``mcpx/planner/llm.py``: the same prompt rendering,
+retries, repair, resolution and dataflow normalisation over the port's
+``InferenceEngine``. Tracing spans and metrics are not ported; grammar
+degradations are logged.
+
+North-star replacement for the reference's OpenAI round-trip (reference
+``control_plane.py:57-75``). Differences that are the point:
+
+  - the "LLM call" is the in-tree ``InferenceEngine`` — batched, paged
+    GPU decode; concurrent intents coalesce into shared decode loops (the
+    reference blocks the event loop per request, bug B6);
+  - output is **grammar-constrained** at the token level (DFA mask inside
+    the decode loop), so the raw ``json.loads``-crashes-on-prose
+    failure mode (bug B7) is impossible by construction;
+  - the prompt is built from the retrieval *shortlist* + live telemetry
+    features, not the whole registry (bug B9);
+  - node endpoints are resolved from the registry by the control plane —
+    never trusted from model output (SURVEY.md §2.4 build decision);
+  - validation failures cost a bounded number of re-decodes, then fall back
+    to the deterministic ``HeuristicPlanner`` — planning always returns a
+    valid plan or raises ``PlannerError``, never a malformed one.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+from collections import OrderedDict
+from typing import Optional
+
+from mcpx_torch.core.config import MCPXConfig, PlannerConfig
+from mcpx_torch.core.dag import Plan, PlanValidationError
+from mcpx_torch.core.errors import PlannerError
+from mcpx_torch.engine.engine import InferenceEngine
+from mcpx_torch.planner.base import PlanContext
+from mcpx_torch.planner.grammar import PlanGrammar, build_plan_grammar
+from mcpx_torch.planner.heuristic import HeuristicPlanner
+from mcpx_torch.registry.base import ServiceRecord, stable_snapshot
+
+log = logging.getLogger("mcpx_torch.planner.llm")
+
+# Cache sentinel for "this registry version compiles to shape-only": the
+# grammar cache must remember FAILED builds as well (they cost minutes at
+# the registry sizes where they fail — BASELINE.md grammar-scale table).
+_SHAPE_ONLY = object()
+
+# Fixed prompt header — byte-identical for every request against any
+# registry, which is what makes it shareable as one prefilled KV prefix.
+_PROMPT_HEADER = (
+    'Compose a service DAG. JSON {"steps":[{"s":svc,"in":[keys],"next":[svcs]}]}'
+    "\nServices:\n"
+)
+
+
+def render_prompt(
+    intent: str,
+    services: list[ServiceRecord],
+    context: PlanContext,
+) -> tuple[str, int]:
+    """Compact prompt: shortlist + telemetry features + intent, rendered
+    for EXACTLY the given services — all length clamping is the caller's
+    token-exact loop (``build_prompt_ids``). Returns (text, header_chars)
+    where the first ``header_chars`` are the fixed instruction header
+    (``_PROMPT_HEADER``) shared verbatim by every request — the engine's
+    shared-prefix KV cache keys on it. Module-level (not a planner method)
+    so the reference's training corpus (``models/corpus.py``) renders
+    byte-identical prompts to the serving path."""
+    header = _PROMPT_HEADER[:-1]  # strip trailing \n; joined back below
+    lines = header.split("\n")
+    for s in services:
+        feat = ""
+        st = context.telemetry.get(s.name)
+        if st is not None:
+            feat = f" err={st.ewma_error_rate:.2f} p50={st.ewma_latency_ms:.0f}"
+        cost = s.cost_profile.get("cost")
+        if cost is not None:
+            feat += f" c={cost:g}"
+        # Compact per-service line — name, io keys, live features. Prose
+        # descriptions and tags stay OUT of the prompt (they feed the
+        # retrieval embedder instead): with a byte tokenizer every char
+        # is a prefill token, and prefill is the compute-bound side of
+        # the serving cost — trimming a 6-way shortlist from ~480 to
+        # ~400 chars moves it from the 768-token prefill bucket to 512,
+        # a 1.5x cut in prefill FLOPs per plan.
+        ins = ",".join(sorted(s.input_schema))
+        outs = ",".join(sorted(s.output_schema))
+        lines.append(f"{s.name} in:{ins} out:{outs}{feat}")
+    lines.append(f"Intent: {intent}")
+    lines.append("JSON:")
+    text = "\n".join(lines)
+    # Fixed header = the instruction + "Services:" lines INCLUDING the
+    # trailing newline, identical for every request against any registry.
+    header_chars = len(lines[0]) + 1 + len(lines[1]) + 1
+    return text, header_chars
+
+
+def build_prompt_ids(
+    tok,
+    intent: str,
+    services: list[ServiceRecord],
+    context: PlanContext,
+    budget: int,
+    prefix_ids: "list[int] | None" = None,
+) -> tuple[list[int], list[int], list[str]]:
+    """(prefix_ids, suffix_ids, kept_names) for the serving prompt, clamped
+    token-exactly to ``budget`` total. Token-exact (a char-level clamp is
+    exact only on the byte vocab; subword vocabs pack ~3-8 chars/token and
+    would starve the prompt of shortlist lines): render, encode, and cut the
+    kept service list proportionally to the token overshoot — monotone
+    shrink (tail-first), converges in ~2 render+encode passes (~0.1ms
+    each). The prefix is the fixed header, encoded separately so its ids
+    are identical across requests (subword tokenizers are not
+    concatenation-safe at the boundary); callers that already encoded it
+    pass ``prefix_ids``. ``kept_names`` is the rendered service order."""
+    if prefix_ids is None:
+        prefix_ids = tok.encode(_PROMPT_HEADER)
+    kept = services[: max(1, budget)]  # a line costs >=1 token
+    while True:
+        prompt, head_chars = render_prompt(intent, kept, context)
+        assert prompt[:head_chars] == _PROMPT_HEADER
+        suffix_ids = tok.encode(prompt[head_chars:], bos=False)
+        total = len(prefix_ids) + len(suffix_ids)
+        # Zero services is a legal floor: a header+intent prompt that
+        # FITS beats an over-budget one whose tail (the Intent/JSON:
+        # cue) the engine's head-keep safety trim would cut.
+        if total <= budget or not kept:
+            break
+        kept = kept[: min(len(kept) - 1, len(kept) * budget // total)]
+    return prefix_ids, suffix_ids, [s.name for s in kept]
+
+
+class LLMPlanner:
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        config: Optional[PlannerConfig] = None,
+        *,
+        fallback: Optional[HeuristicPlanner] = None,
+    ) -> None:
+        self.engine = engine
+        self.config = config or PlannerConfig()
+        self.fallback = fallback or HeuristicPlanner(self.config)
+        self._start_lock = asyncio.Lock()
+        # (registry_version, shortlist-or-None) → compiled PlanGrammar.
+        # Grammar identity is what lets concurrent requests share one fused
+        # decode batch (engine groups by grammar object), so cache hits
+        # matter for batching, not just build time.
+        self._grammar_cache: "OrderedDict[tuple, PlanGrammar]" = OrderedDict()
+        self._grammar_lock = asyncio.Lock()
+
+    @classmethod
+    def from_config(cls, config: MCPXConfig, retriever=None, *, device=None) -> "LLMPlanner":
+        # ``retriever`` intentionally unused: retrieval shortlists arrive via
+        # PlanContext.shortlist (built by ControlPlane._context).
+        del retriever
+        return cls(InferenceEngine(config, device=device), config.planner)
+
+    # -------------------------------------------------------------- lifecycle
+    async def ensure_ready(self) -> None:
+        if self.engine.state == "ready":
+            return
+        async with self._start_lock:
+            if self.engine.state in ("cold", "warming"):
+                # start() coalesces: if the server already launched startup
+                # in the background, this just waits for it to finish.
+                await self.engine.start()
+        if self.engine.state != "ready":
+            raise PlannerError(f"inference engine unavailable (state={self.engine.state})")
+
+    async def warm(self, registry) -> None:
+        """Compile the serving path for the CURRENT registry grammar: build
+        the trie grammar for the latest snapshot and push one minimal
+        generate through it, so the admit/segment executables for its pad
+        bucket exist before the first real request (the engine's own warmup
+        covers only the generic grammar — on big subword vocabs a registry
+        trie lands in a different column bucket). Called by
+        ControlPlane.startup; failures are non-fatal (first request then
+        pays the compile instead)."""
+        await self.ensure_ready()
+        if self.config.constrain_names == "shortlist":
+            # Per-shortlist grammars are keyed by the shortlist itself — the
+            # full-registry grammar warm() would build is never fed to the
+            # decode loop in this mode (column buckets are usually shared
+            # anyway, so the first request's compile risk is low).
+            return
+        version, all_services = await stable_snapshot(registry)
+        if not all_services:
+            return
+        context = PlanContext(registry=registry, registry_version=version)
+        grammar = await self._grammar(context, version, all_services)
+        if grammar is None:
+            return
+        prompt_ids = self.engine.tokenizer.encode("warm")
+        await self.engine.generate(
+            prompt_ids, max_new_tokens=1, constrained=True, grammar=grammar
+        )
+
+    # ------------------------------------------------------------------ plan
+    async def plan(self, intent: str, context: PlanContext) -> Plan:
+        await self.ensure_ready()
+        # Version + contents read atomically: the grammar cache is keyed by
+        # version, so its names must come from exactly that version.
+        version, all_services = await stable_snapshot(context.registry)
+        services = self._candidates(all_services, context)
+        if not services:
+            raise PlannerError("registry is empty; nothing to plan with")
+        # Resolution map spans the WHOLE registry: with constrain_names=
+        # "registry" the grammar guarantees emitted names exist somewhere in
+        # the registry, not necessarily in the shortlist — any registry name
+        # resolves (excluded services stay out; a replan must avoid them).
+        by_name = {
+            s.name: s for s in all_services if s.name not in context.exclude
+        }
+        grammar = await self._grammar(context, version, all_services)
+        # Tokenize the fixed header separately so its ids are IDENTICAL
+        # across requests whatever follows (subword tokenizers are not
+        # concatenation-safe at the boundary) — the engine then serves the
+        # header's KV from one shared read-only page set instead of
+        # re-prefilling it per request. The prompt budget is
+        # clamped against the PREFIX-path capacity, which bucket geometry
+        # can make smaller than the full-prefill one.
+        tok = self.engine.tokenizer
+        prefix_ids = tok.encode(_PROMPT_HEADER)
+        budget = self._token_budget(len(prefix_ids))
+        prefix_ids, suffix_ids, _kept = build_prompt_ids(
+            tok, intent, services, context, budget, prefix_ids=prefix_ids
+        )
+        prompt_ids = prefix_ids + suffix_ids
+
+        last_problems: list[str] = []
+        for attempt in range(self.config.max_plan_retries + 1):
+            res = await self.engine.generate(
+                prompt_ids,
+                constrained=True,
+                grammar=grammar,
+                shared_prefix_len=len(prefix_ids),
+                deadline_at=context.deadline_at,
+                tenant=context.tenant,
+            )
+            repaired = False
+            try:
+                plan = Plan.from_json(res.text)
+            except PlanValidationError as e:
+                plan = self._repair(res.text)
+                if plan is None:
+                    last_problems = e.problems
+                    log.info("plan attempt %d rejected: %s", attempt, e.problems[:3])
+                    continue
+                repaired = True
+            unknown = [n.service for n in plan.nodes if n.service not in by_name]
+            if unknown:
+                last_problems = [f"unknown service(s): {unknown}"]
+                log.info("plan attempt %d names unknown services %s", attempt, unknown)
+                continue
+            self._resolve(plan, by_name)
+            n_pruned = self._normalize_dataflow(plan, by_name)
+            plan.intent = intent
+            plan.origin = "llm"
+            if self.config.explain:
+                plan.explanation = self._explain(plan, attempt) + (
+                    " [repaired: dangling/backward next-references pruned]"
+                    if repaired
+                    else ""
+                ) + (
+                    f" [{n_pruned} dataflow-free edge(s) pruned]" if n_pruned else ""
+                )
+            return plan
+
+        log.warning(
+            "LLM planner exhausted %d attempts (%s); falling back to heuristic",
+            self.config.max_plan_retries + 1,
+            last_problems[:3],
+        )
+        plan = await self.fallback.plan(intent, context)
+        if self.config.explain:
+            plan.explanation = (
+                f"[heuristic fallback after {self.config.max_plan_retries + 1} "
+                f"constrained-decode attempts] " + plan.explanation
+            )
+        return plan
+
+    # -------------------------------------------------------------- internals
+    def _candidates(
+        self, all_services: list[ServiceRecord], context: PlanContext
+    ) -> list[ServiceRecord]:
+        services = all_services
+        if context.exclude:
+            services = [s for s in services if s.name not in context.exclude]
+        if context.shortlist:
+            order = {name: i for i, name in enumerate(context.shortlist)}
+            short = sorted(
+                (s for s in services if s.name in order), key=lambda s: order[s.name]
+            )
+            if short:
+                return short
+        return services
+
+    async def _grammar(
+        self, context: PlanContext, version: int, all_services: list[ServiceRecord]
+    ) -> Optional[PlanGrammar]:
+        """Grammar whose service-name positions are trie-constrained per
+        ``config.constrain_names``; None = the engine's shape-only default.
+        Cached per (registry version, shortlist) — the same object is
+        returned to every concurrent request so the engine can batch them
+        into one fused decode loop. ``version``/``all_services`` must be an
+        atomic observation (``stable_snapshot``)."""
+        mode = self.config.constrain_names
+        if mode == "off":
+            return None
+        if mode == "shortlist" and context.shortlist:
+            names = [n for n in context.shortlist if n not in context.exclude]
+            # Mode discriminator: a shortlist ('x','y') and an exclude set
+            # {'x','y'} at the same version must NOT share a cache slot —
+            # the collision would serve a trie admitting ONLY the excluded
+            # names to the very replan that must avoid them.
+            key = ("short", version, tuple(names))
+        else:
+            # Excluded (replanned-around) services must leave the TRIE, not
+            # just the resolution map: a greedy decode would otherwise
+            # deterministically re-emit the excluded name on every retry and
+            # fall back to the heuristic exactly when a replan matters most.
+            names = [s.name for s in all_services if s.name not in context.exclude]
+            key = ("excl", version, tuple(sorted(context.exclude)) or None)
+        if not names:
+            return None
+        # Typed dataflow is a SHORTLIST-tier feature (config.py: "only
+        # applies when constrain_names='shortlist'"): the registry-wide
+        # else-branch above (empty shortlist, or the replan/exclusion tier)
+        # must neither request it (a ~1000-service registry would spam the
+        # typed_off gate metric) nor get it (a <=24-service registry would
+        # silently serve a typed grammar to the replan tier, changing its
+        # semantics).
+        typed = (
+            mode == "shortlist"
+            and bool(context.shortlist)
+            and self.config.constrain_dataflow
+        )
+        cached = self._grammar_cache.get(key)
+        if cached is not None:
+            self._grammar_cache.move_to_end(key)
+            return cached if cached is not _SHAPE_ONLY else None
+        async with self._grammar_lock:
+            cached = self._grammar_cache.get(key)
+            if cached is not None:
+                return cached if cached is not _SHAPE_ONLY else None
+            grammar = await asyncio.to_thread(
+                self._build_grammar, names, all_services, version, typed
+            )
+            # A failed (shape-only) outcome is cached too: at the registry
+            # sizes where the build fails, the failing attempts themselves
+            # cost minutes (BASELINE.md grammar-scale table) — re-running
+            # them per request behind this lock would serialize serving to
+            # one plan per failure, and the grammar_fallbacks counter would
+            # count requests instead of builds.
+            self._grammar_cache[key] = _SHAPE_ONLY if grammar is None else grammar
+            while len(self._grammar_cache) > 16:
+                self._grammar_cache.popitem(last=False)
+            return grammar
+
+    def _build_grammar(self, names, all_services, version=None, typed=False):
+        """Tightest grammar that compiles within budget for this tokenizer.
+        With ``typed`` (shortlist tier + ``constrain_dataflow``), the first
+        attempt is the typed-dataflow grammar: per-service step bodies whose
+        "in"/"next" positions admit only schema-valid keys/successors —
+        incoherent edges are unrepresentable. With
+        ``constrain_input_keys="registry"`` (default) the "in" key
+        positions are trie'd over the union of the registry's schema keys —
+        better plans (only keys some service produces/consumes are
+        representable), compact tables on big subword vocabs (free strings
+        would make most of the vocab active), and roughly 2x
+        speculation fast-forward (trie'd key characters are mostly FORCED).
+        Fallback ladder on ValueError: typed -> with-keys -> without-keys
+        (byte-vocab dense always fits) -> shape-only (None -> the engine's
+        generic grammar)."""
+        keys: list[str] = []
+        if self.config.constrain_input_keys == "registry":
+            keys = sorted(
+                {
+                    k
+                    for s in all_services
+                    for k in (*s.input_schema.keys(), *s.output_schema.keys())
+                }
+            )
+        name_set = set(names)
+        records = [s for s in all_services if s.name in name_set]
+        # 24: per-service bodies multiply states by the candidate count —
+        # far past any shortlist width, far under registry scale.
+        do_typed = typed and records and len(records) <= 24
+        if typed and not do_typed:
+            # Typed dataflow was REQUESTED but the size gate disabled it
+            # (shortlist wider than 24, or no records matched): the
+            # operator must not read constrain_dataflow=True + zero
+            # fallbacks as "coherence is structurally guaranteed" while
+            # every served grammar is untyped. Same observability contract
+            # as a failed typed build below.
+            log.warning(
+                "grammar: typed-dataflow disabled by size gate (%d candidate "
+                "services, gate 24); serving untyped grammar for registry "
+                "version %s",
+                len(records), version,
+            )
+        attempts: list[tuple[str, object]] = []
+        if do_typed:
+            attempts.append(("typed", records))
+        if keys:
+            attempts.append(("keys", keys))
+        attempts.append(("free", None))
+        last_err: Exception | None = None
+        typed_err: Exception | None = None
+        for kind, arg in attempts:
+            try:
+                if kind == "typed":
+                    g = build_plan_grammar(self.engine.tokenizer, services=arg)
+                else:
+                    g = build_plan_grammar(
+                        self.engine.tokenizer, names, input_keys=arg
+                    )
+                if kind != "typed" and do_typed:
+                    # Typed grammar didn't compile for this tokenizer: the
+                    # dataflow guarantee is OFF for this shortlist — count
+                    # it like any other grammar degradation. typed_err, not
+                    # last_err: a failed keys attempt in between must not
+                    # masquerade as the typed failure reason.
+                    log.warning(
+                        "grammar: typed-dataflow build failed (%s); serving "
+                        "untyped %s grammar for registry version %s",
+                        typed_err, kind, version,
+                    )
+                if kind == "free" and keys:
+                    # Operator asked for key tries but they didn't fit: the
+                    # ~2x speculation win and key validation are OFF for
+                    # this registry version — say so, don't degrade mutely.
+                    log.warning(
+                        "grammar: %d trie'd schema keys exceeded budget (%s); "
+                        "'in' keys are free strings for registry version %s",
+                        len(keys), last_err, version,
+                    )
+                return g
+            except ValueError as e:
+                last_err = e
+                if kind == "typed":
+                    typed_err = e
+                continue
+        log.warning(
+            "registry grammar not compilable (%s); using shape-only grammar",
+            last_err,
+        )
+        return None
+
+    def _token_budget(self, prefix_len: int) -> int:
+        """Prompt token budget: config cap clamped to what the engine can
+        hold next to the decode budget (minus 1 for BOS). getattr: test
+        fakes implement only generate()/tokenizer."""
+        capacity_fn = getattr(self.engine, "prompt_capacity", None)
+        budget = self.config.max_prompt_tokens
+        if capacity_fn is not None:
+            try:
+                budget = min(budget, capacity_fn(0, prefix_len) - 1)
+            except TypeError:  # older/fake engines: no prefix parameter
+                budget = min(budget, capacity_fn() - 1)
+        return budget
+
+    def _repair(self, text: str) -> Optional[Plan]:
+        """Bounded, deterministic repair of a grammar-valid but
+        DAG-invalid decode: drop duplicate steps (keep first) and keep only
+        FORWARD next-references to surviving steps — a dangling or backward
+        "next" becomes no edge instead of discarding the whole LLM plan
+        (the cause of most heuristic fallbacks at large registries: the
+        trie guarantees names exist in the REGISTRY, not among the emitted
+        steps). Forward-only edges make the result acyclic by construction.
+        Returns None when the text isn't even parseable JSON (budget-
+        truncated prefix) or repair still fails validation."""
+        try:
+            obj = json.loads(text)
+        except json.JSONDecodeError:
+            return None
+        steps = obj.get("steps") if isinstance(obj, dict) else None
+        if not isinstance(steps, list):
+            return None
+        seen: dict[str, int] = {}
+        kept = []
+        for step in steps:
+            if not isinstance(step, dict) or step.get("s") in seen:
+                continue
+            seen[step.get("s")] = len(kept)
+            kept.append(dict(step))
+        # Stage 1 — minimal: drop duplicate steps and DANGLING references
+        # only; backward edges are legal (Plan.validate allows any acyclic
+        # orientation) and may encode real dependencies, so they survive.
+        for step in kept:
+            step["next"] = [n for n in (step.get("next") or []) if n in seen]
+        try:
+            return Plan.from_json(json.dumps({"steps": kept}))
+        except PlanValidationError:
+            pass
+        # Stage 2 — the remaining defect is a cycle/self-loop: keep only
+        # FORWARD references (emission order), acyclic by construction.
+        for idx, step in enumerate(kept):
+            step["next"] = [n for n in step["next"] if seen[n] > idx]
+        try:
+            return Plan.from_json(json.dumps({"steps": kept}))
+        except PlanValidationError:
+            return None
+
+    def _normalize_dataflow(
+        self, plan: Plan, by_name: dict[str, ServiceRecord]
+    ) -> int:
+        """Make the LLM plan's declared topology into real dataflow.
+
+        The step wire shape gives ``inputs = {key: key}``, but the executor
+        resolves an input's source against ``results`` — which is keyed by
+        NODE NAME (``executor.py``; same for the reference,
+        ``control_plane.py:102,107``) — before falling back to the request
+        payload. Left as-is, an LLM plan's downstream steps would read every
+        input from the payload and upstream outputs would never flow. So for
+        every emitted edge a->b, each input key of b that a's service
+        produces (per the registry's schemas — authoritative, SURVEY.md
+        §2.4) is rewired to read a's result (first producer wins, matching
+        the schema-chaining teacher ``heuristic.py:_chain``).
+
+        Edges left carrying NO dataflow after rewiring are then pruned when
+        ``config.prune_dataflow_free_edges`` (default on). Interpretation
+        choice, stated plainly: a dataflow-free edge still has executor
+        semantics (b waits for a; b is skipped if a fails), but the teacher
+        distribution this model imitates defines edges AS dataflow, so a
+        no-data edge from the student is an imitation error that serializes
+        — and failure-couples — services that share nothing. Operators whose
+        LLM plans intentionally encode control-flow-only ordering set the
+        flag off. Only LLM-authored plans are normalized; hand-authored
+        ``/execute`` graphs are never touched. Returns the number of edges
+        pruned; nodes left without in-edges become parallel roots."""
+        by_node = {n.name: n for n in plan.nodes}
+        unknown: set[tuple[str, str]] = set()
+        for e in plan.edges:
+            src_rec = by_name.get(by_node[e.src].service) if e.src in by_node else None
+            dst_node = by_node.get(e.dst)
+            dst_rec = by_name.get(dst_node.service) if dst_node else None
+            if src_rec is None or dst_rec is None:
+                unknown.add((e.src, e.dst))  # leave untouched
+                continue
+            shared = src_rec.output_schema.keys() & dst_rec.input_schema.keys()
+            for key in sorted(shared):
+                # Rewire payload-style self-references only; an earlier
+                # edge's producer (or an explicit mapping) is not clobbered.
+                if dst_node.inputs.get(key) == key:
+                    dst_node.inputs[key] = e.src
+        if not self.config.prune_dataflow_free_edges:
+            return 0
+        # Carrying = some input of dst actually READS src after rewiring —
+        # not mere schema overlap: a second producer of an already-wired key
+        # (first producer won) moves nothing and is pruned like any other
+        # no-data edge.
+        kept = [
+            e
+            for e in plan.edges
+            if (e.src, e.dst) in unknown
+            or any(v == e.src for v in by_node[e.dst].inputs.values())
+        ]
+        pruned = len(plan.edges) - len(kept)
+        if pruned:
+            plan.edges = kept
+        return pruned
+
+    def _resolve(self, plan: Plan, by_name: dict[str, ServiceRecord]) -> None:
+        """Fill endpoints/fallbacks/costs from the registry (LLM output is
+        never trusted for routing, SURVEY.md §2.4)."""
+        for node in plan.nodes:
+            rec = by_name[node.service]
+            node.endpoint = rec.endpoint
+            if not node.fallbacks:
+                node.fallbacks = list(rec.fallbacks)
+
+    def _explain(self, plan: Plan, attempt: int) -> str:
+        gens = plan.topological_generations()
+        stages = " -> ".join("[" + ", ".join(g) + "]" for g in gens)
+        return (
+            f"LLM-planned DAG ({len(plan.nodes)} node(s), decode attempt "
+            f"{attempt + 1}); stages: {stages}"
+        )

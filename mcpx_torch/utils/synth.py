@@ -1,0 +1,64 @@
+"""Synthetic registries and workloads for tests and benchmarks.
+
+Generates deterministic N-service registries whose schemas chain (each
+service's outputs feed plausible downstream inputs), mirroring the baseline
+ladder's 3/10/100/1k-service registries (BASELINE.md configs).
+"""
+
+from __future__ import annotations
+
+import random
+
+from mcpx_torch.registry.base import ServiceRecord
+
+_DOMAINS = [
+    "auth", "user", "order", "billing", "catalog", "search", "inventory",
+    "shipping", "payment", "fraud", "notify", "report", "analytics", "geo",
+    "translate", "summarize", "extract", "rank", "recommend", "audit",
+]
+_VERBS = ["fetch", "validate", "enrich", "score", "transform", "merge", "route", "sync"]
+_KEYS = [
+    "query", "user_id", "order_id", "document", "text", "items", "amount",
+    "address", "score", "status", "report", "features", "vector", "summary",
+]
+
+def synth_registry(n: int, seed: int = 0, local: bool = True) -> list[ServiceRecord]:
+    """``n`` services named ``<domain>-<verb>-<i>``. The RNG draw order
+    (both key counts, then both samples) is the reference package's: the
+    committed BPE vocab and checkpoint were fitted to these registries."""
+    rng = random.Random(seed)
+    records: list[ServiceRecord] = []
+    for i in range(n):
+        a = _DOMAINS[i % len(_DOMAINS)]
+        b = _VERBS[(i // len(_DOMAINS)) % len(_VERBS)]
+        name = f"{a}-{b}-{i:04d}"
+        n_in = rng.randint(1, 3)
+        n_out = rng.randint(1, 2)
+        input_keys = rng.sample(_KEYS, n_in)
+        output_keys = rng.sample(_KEYS, n_out)
+        scheme = "local" if local else "http"
+        records.append(
+            ServiceRecord(
+                name=name,
+                endpoint=f"{scheme}://{name}",
+                description=f"{b}s {a} data for downstream composition",
+                input_schema={k: "str" for k in input_keys},
+                output_schema={k: "str" for k in output_keys},
+                cost_profile={
+                    "latency_ms": round(rng.uniform(5, 80), 1),
+                    "cost": round(rng.uniform(0.1, 2.0), 2),
+                },
+                fallbacks=[f"{scheme}://{name}-fb"] if rng.random() < 0.3 else [],
+                tags=[a, b],
+            )
+        )
+    return records
+
+
+def intent_for(records: list[ServiceRecord], rng: random.Random, n_services: int = 3) -> str:
+    """An intent whose tokens mention a few concrete services' domains."""
+    picks = rng.sample(records, min(n_services, len(records)))
+    words = []
+    for r in picks:
+        words.extend(r.tags)
+    return "please " + " then ".join(f"{w}" for w in dict.fromkeys(words))

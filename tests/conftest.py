@@ -23,3 +23,9 @@ import jax  # noqa: E402
 
 assert jax.default_backend() == "cpu", "tests must run on CPU"
 assert len(jax.devices()) == 8, "tests expect an 8-device virtual CPU mesh"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit (skips without them)"
+    )

@@ -1,0 +1,80 @@
+"""The port stands alone: nothing in ``mcpx_torch`` or ``chip_smoke.py``
+imports JAX or the reference package, the package imports and builds a CPU
+control plane with both blocked, and its entry points never drop to the CPU
+on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from mcpx_torch.core.config import MCPXConfig
+from mcpx_torch.core.errors import EngineError
+from mcpx_torch.engine.engine import InferenceEngine
+from mcpx_torch.server.factory import build_control_plane
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources() -> list[str]:
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "mcpx_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "mcpx")
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_package_imports_and_serves_with_jax_and_reference_blocked():
+    script = f"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["mcpx"] = None
+sys.path.insert(0, {ROOT!r})
+import mcpx_torch
+for m in pkgutil.walk_packages(mcpx_torch.__path__, "mcpx_torch."):
+    importlib.import_module(m.name)
+from mcpx_torch.core.config import MCPXConfig
+from mcpx_torch.server.factory import build_control_plane
+cfg = MCPXConfig.from_dict({{"planner": {{"kind": "llm"}}, "model": {{"vocab": "bpe"}}}})
+cp = build_control_plane(cfg, device="cpu")
+assert cp.planner.engine.device.type == "cpu"
+assert not any(k == "jax" or k.startswith(("jax.", "mcpx.")) for k in sys.modules if sys.modules[k])
+print("ok")
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, cwd=ROOT, env=env, timeout=120
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = MCPXConfig.from_dict({"planner": {"kind": "llm"}, "model": {"vocab": "bpe"}})
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        build_control_plane(cfg)
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        InferenceEngine(cfg)
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        build_control_plane(MCPXConfig.from_dict({"planner": {"kind": "heuristic"}}))
