@@ -7,9 +7,12 @@ Phases, one line each (every number beside the card's name and power limit):
   2. build: every CUDA kernel of the port, compiled from the sources in this
      checkout (one nvcc per source, all started together);
   3. kernel vs plain: each kernel against its plain PyTorch version on
-     seeded mixed batches at the serving shapes (bf16), with its time, the
-     plain version's, one PyTorch library call's (a yardstick the port never
-     calls) and the least time the card could take;
+     seeded batches at the serving shapes (bf16): a mixed batch, and the
+     serving bursts' mix of a few live rows among idle ones; with its device
+     time (CUDA-graph replays), the plain version's, one PyTorch library
+     call's (a yardstick the port never calls), the least time the card
+     could take, and the eager per-call times with host work included. The
+     attention kernel's ticket counters must be back at 0 after the phase;
   4. forward check: prefill plus one paged decode forward of the trained
      checkpoint in float32, on the card (through the kernel) against the CPU
      (plain path);
@@ -77,11 +80,38 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 20, warm_s: float = 0.1) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph
+    and replayed, so the calls' host work (checks, allocation, the launch
+    itself) stays out of the number. The graph is replayed for ``warm_s``
+    first, so the card runs at its working clock when the timing starts."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < warm_s:
+        graph.replay()
+        torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (calls * replays)
+
+
 # ------------------------------------------------------------ kernel phase
-def mixed_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype):
-    """Rows with q_len = S, 1, 1 < q_len < S and 0, then random; random
-    distinct pages and start offsets (the reference package's mixed-batch
-    property test, at serving shapes)."""
+def mixed_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype, live=None):
+    """Random distinct pages and, with ``live=None``, rows with q_len = S,
+    1, 1 < q_len < S and 0, then random, at random start offsets (the
+    reference package's mixed-batch property test, at serving shapes).
+    With ``live=n``: the serving bursts' mix, n random live rows with q_len
+    uniform in 1..S and start uniform in [0, Pmax*Psz - S), the rest idle."""
     rng = random.Random(seed)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -92,9 +122,14 @@ def mixed_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype):
     pages = list(range(1, n_pages))
     rng.shuffle(pages)
     table = torch.tensor(pages[: B * pmax], dtype=torch.int32).reshape(B, pmax).cuda()
-    fixed = [S, 1, rng.randint(2, S - 1), 0]
-    q_lens = [fixed[b] if b < 4 else rng.randint(0, S) for b in range(B)]
-    starts = [rng.randint(0, pmax * psz - max(1, q_lens[b]) - 1) for b in range(B)]
+    if live is None:
+        fixed = [S, 1, rng.randint(2, S - 1), 0]
+        q_lens = [fixed[b] if b < 4 else rng.randint(0, S) for b in range(B)]
+        starts = [rng.randint(0, pmax * psz - max(1, q_lens[b]) - 1) for b in range(B)]
+    else:
+        rows = set(rng.sample(range(B), live))
+        q_lens = [rng.randint(1, S) if b in rows else 0 for b in range(B)]
+        starts = [rng.randint(0, pmax * psz - S - 1) for b in range(B)]
     as_i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
     return q, kp, vp, table, as_i32(starts), as_i32(q_lens)
 
@@ -140,14 +175,21 @@ def kernel_phase(card: str) -> list[dict]:
     )
 
     rows = []
-    # (cell, G, hd, L): the trained `test` preset and the full-width `2b`
-    # preset, at the serving geometry B=64, S=speculate_k=8, Psz=64, Pmax=4.
-    for cell, G, hd, L in (("test", 4, 32, 2), ("2b", 8, 256, 18)):
+    # (cell, G, hd, L, live): the trained `test` preset and the full-width
+    # `2b` preset, at the serving geometry B=64, S=speculate_k=8, Psz=64,
+    # Pmax=4; live=None is the mixed batch, live=n the serving bursts' mix
+    # (16 or 8 live rows of 64, the rest idle: where splitting pays).
+    cells = (
+        ("test", 4, 32, 2, None), ("2b", 8, 256, 18, None),
+        ("test/serve_mix", 4, 32, 2, 16), ("2b/serve_mix", 8, 256, 18, 8),
+    )
+    for cell, G, hd, L, live in cells:
+        batch = lambda seed: mixed_batch(  # noqa: E731
+            seed, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16, live
+        )
         worst = 0.0
         for seed in range(3):
-            q, kp, vp, table, starts, q_lens = mixed_batch(
-                seed, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16
-            )
+            q, kp, vp, table, starts, q_lens = batch(seed)
             for layer in (0, L - 1):
                 out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, layer)
                 torch.cuda.synchronize()
@@ -159,7 +201,7 @@ def kernel_phase(card: str) -> list[dict]:
                 for b, ql in enumerate(q_lens.tolist()):
                     if bool((out[b, ql:] != 0).any()):
                         raise SystemExit(f"{cell}: row {b} pads are not exact zeros")
-        q, kp, vp, table, starts, q_lens = mixed_batch(0, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16)
+        q, kp, vp, table, starts, q_lens = batch(0)
         layers = iter(range(10**9))
         run_k = lambda: ragged_paged_attention(  # noqa: E731
             q, kp, vp, table, starts, q_lens, next(layers) % L
@@ -167,19 +209,37 @@ def kernel_phase(card: str) -> list[dict]:
         run_p = lambda: ragged_paged_attention_reference(  # noqa: E731
             q, kp, vp, table, starts, q_lens, next(layers) % L
         )
-        # plain, kernel, kernel, plain: compared inside one call, in turns.
-        p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), time_ms(run_p, 10)
-        library_ms = time_ms(sdpa_yardstick(q, kp, vp, table, starts, 0))
+        # Device times from graph replays: plain, kernel, kernel, plain, in
+        # turns inside one call. call_ms: back-to-back eager calls, host
+        # work included.
+        p1, k1, k2, p2 = graph_ms(run_p), graph_ms(run_k), graph_ms(run_k), graph_ms(run_p)
+        call_ms = time_ms(run_k)
+        sdpa = sdpa_yardstick(q, kp, vp, table, starts, 0)
+        library_ms, library_call_ms = graph_ms(sdpa), time_ms(sdpa)
         bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, table, starts, q_lens)
+        ms = min(k1, k2)
         row = dict(
             cell=cell, B=64, S=8, K=1, G=G, hd=hd, L=L, page_size=64, max_pages=4,
-            dtype="bfloat16", max_abs_err=worst, atol=ATOL, rtol=RTOL,
-            ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+            live_rows=int((q_lens > 0).sum()), dtype="bfloat16", max_abs_err=worst,
+            atol=ATOL, rtol=RTOL, ms=ms, plain_ms=min(p1, p2), library_ms=library_ms,
+            call_ms=call_ms, library_call_ms=library_call_ms,
+            bound_ms=bound_ms, bound_by=bound_by, ms_over_bound=ms / bound_ms,
+            bytes=nbytes, flops=flops,
         )
         emit("kernel_vs_plain", card, kernel="ragged_paged_attention", **row)
         rows.append(row)
+    check_tickets("kernel phase")
     return rows
+
+
+def check_tickets(where: str) -> None:
+    """The kernel's ticket counters are all 0 between launches."""
+    from mcpx_torch.engine.kernels.paged_attention import ticket_counters
+
+    torch.cuda.synchronize()
+    left = sum(int(t.abs().sum()) for t in ticket_counters())
+    if left:
+        raise SystemExit(f"{where}: ticket counters not reset ({left})")
 
 
 # ------------------------------------------------------------ serving
@@ -348,6 +408,7 @@ def main(argv: list[str]) -> int:
         for st in (trained, full):
             if st["launches"][name] <= 0:
                 raise SystemExit(f"{name} was not launched while serving {st['model']}")
+    check_tickets("serving")
 
     headline = rows[0]
     kernels = [

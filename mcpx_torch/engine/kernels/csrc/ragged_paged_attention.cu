@@ -8,97 +8,183 @@
 //   page_table [B, Pmax] int32, start_pos [B] int32, q_lens [B] int32
 //   out      [B, S, K, G, hd]   in q's dtype
 // Row b's query i < q_lens[b] attends cache positions < start_pos[b]+i+1 of
-// layer `layer`; the row streams n = min(cdiv(start+q_len, Psz), Pmax) pages
-// (zero for an idle row). Pad queries (i >= q_len) and idle rows write exact
-// zeros: the same NEG_INF masking, the same `s <= NEG_INF/2 -> p = 0` guard
-// and the same `l > 0` select as the TPU kernel. Logits, softmax and the
-// accumulator are fp32; scale is 1/sqrt(hd).
+// layer `layer`, through position min(start+q_len, Pmax*Psz) at most. Pad
+// queries (i >= q_len) and idle rows write exact zeros: the same NEG_INF
+// masking, the same `s <= NEG_INF/2 -> p = 0` guard and the same `l > 0`
+// select as the TPU kernel. Logits, softmax and the accumulator are fp32;
+// scale is 1/sqrt(hd).
 //
-// Design. One block per (row b, kv-head kh); the TPU grid's sequential page
-// axis becomes a loop inside the block. Each page's K and V tiles [Psz, hd]
-// are staged in shared memory (K with an odd word stride, so the 32 lanes of
-// a warp reading 32 different positions hit 32 different banks); the live
-// query rows (q_len*G of them, the GQA group folded into the rows) sit in
-// shared memory as fp32; per-row running max m, sum l and rescale factor
-// live in shared memory; the [rows, hd] fp32 accumulator lives in
-// registers, at most 64 values a thread. Rows past q_len*G are never
-// computed, so a decode row costs G query rows, not S*G.
-//
-// What bounds it on the H100: it is bandwidth-bound. The least time is
-//   bytes / 3.35 TB/s, bytes = sum over live rows of
-//   n_pages * Psz * hd * 2 (K and V) * sizeof(elt) + q bytes + out bytes.
-// This simple version does not reach that bound: at the serving shapes only
-// B*K blocks exist (64 at batch 64 with one kv head) for 132 SMs, each block
-// loads a page and then computes on it with no overlap, and the scores and
-// P@V run on CUDA cores. Left for a later change: split each row's page
-// range across blocks and merge the partial softmax states (flash-decoding),
-// double-buffer the tiles with cp.async or TMA, and move the two products to
-// tensor cores.
+// What bounds it on the H100. The least time is bytes / 3.35 TB/s: each
+// live row's visible K and V positions once, plus q and out. The products
+// need far fewer operations than the tensor cores could do in that time
+// (2b shape: 3.8 us of bytes against 0.26 us of bf16 operations). At the
+// serving shapes, though, a launch moves only a few MB over few live rows,
+// so what sets its time is the longest dependent chain of one block: page
+// lookups, copy latency, the products of its tiles, the softmax, and the
+// merge. One block per (row, kv-head) would leave most SMs idle on a batch
+// with few live rows, and products on CUDA cores out of shared memory cost
+// two shared loads per FMA. The design shortens the chain:
+//   * Split positions (flash-decoding). The grid is (B*K, n_split) with
+//     n_split = cdiv(Pmax*Psz, kChunk), which depends on shapes only, so
+//     one launch still serves any phase mix. Block c of a live row attends
+//     positions [c*kChunk, (c+1)*kChunk); a block past the row's last
+//     visible position computes nothing. Short chunks keep each block's
+//     chain short: at 2b width a 64-row window over 256 positions is about
+//     17 MFLOP, tens of microseconds for one SM's mma.sync, and even at the
+//     test width a block walking a whole row pays a dependent chain of
+//     address math and softmax per tile.
+//   * Combine in the same launch. A row whose positions fit one chunk is
+//     written out by that block directly, and block 0 writes an idle row's
+//     zeros. Otherwise each block of the row with work writes its partial
+//     (m, l, unnormalised acc) in fp32 to scratch, fences, and takes a
+//     ticket on the row's counter; every block of the row takes one, empty
+//     ones too. The block that draws the last ticket merges the partials
+//     in split order (so the output does not depend on block timing),
+//     writes the whole [S, G, hd] window (zeros for pads) and resets the
+//     counter to 0. It keeps 16 loads of the partials in flight a thread,
+//     since one block reads them all. The counters assume launches
+//     that share them run one after another on one stream, which is how
+//     the engine calls it. A second combine launch would cost host time
+//     per layer on an engine the host already holds back.
+//   * Asynchronous copies. The block computes its positions' pool offsets
+//     once, a thread a position, from the page table. K and V arrive by
+//     cp.async.cg (16 B a lane, a warp a position, zero-filled past the
+//     visible end) into two stages of kTile positions, both in flight at
+//     once, so the second lands while the first is computed. q is loaded
+//     once per block. Tiles are XOR-swizzled in 16-byte chunks so that
+//     ldmatrix and 128-bit loads read without bank conflicts.
+//   * Tensor cores (bf16). Both products run as mma.sync m16n8k16 with
+//     fragments from ldmatrix (.trans for V) and fp32 accumulators in
+//     registers. The live query rows (q_len*G) are padded up to a multiple
+//     of 16 and never stored past q_len*G; the mask and the online softmax
+//     run on the accumulator fragments. P is rounded to bf16 for P.V, as
+//     the plain version rounds its weights to V's type. A head_dim with
+//     hd % 16 == 8 is zero-padded in shared memory to a whole k-step.
+//     A warp takes a 16-row tile whole (scores, softmax, and up to 128
+//     head_dim columns of P.V); two warps share it at hd 256. Redundant
+//     scores cost more than idle warps: the time of a tile is the
+//     instruction time of the warps that run it.
+//     mma.sync rather than wgmma: the work is bound by bytes, and wgmma's
+//     64-row tiles would waste 7/8 of each tile on decode rows.
+//   * fp32 keeps its products on CUDA cores (no TF32), so it matches the
+//     plain fp32 version to summation order; it shares the split, the
+//     combine and the copy pipeline.
+//   * The launch attribute for dynamic shared memory is set once per
+//     instantiation and size, not on every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 64;  // S * G
 constexpr int kMaxHd = 256;
-constexpr int kAccPerThread = kMaxRows * kMaxHd / kThreads;
+constexpr int kChunk = 64;  // positions one block attends (the split size)
+constexpr int kTile = 32;   // positions in one pipeline stage
+constexpr int kStages = kChunk / kTile;  // a chunk's tiles are all in flight at once
+// bf16: a warp holds at most kPairs 16-column pairs of head_dim, and a
+// wider head_dim is shared by two warps (at most 4 row tiles, so 8 warps
+// do). Two builds: kNarrowPairs for head_dim up to 128, within 128
+// registers so two blocks share an SM, and kWidePairs up to 256, whose
+// 64-value accumulator would spill under that cap.
+constexpr int kNarrowPairs = 4;
+constexpr int kWidePairs = 8;
+constexpr int kAccF32 = kMaxRows * kMaxHd / kThreads;     // fp32: acc values a thread holds
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// K tile in shared memory as 32-bit words with an odd row stride.
-template <typename T>
-struct KTile;
-
-template <>
-struct KTile<float> {
-  __host__ __device__ static int stride(int hd) { return hd + 1; }
-  __device__ static float2 pair(const uint32_t* ks, int p, int d, int st) {
-    const uint32_t* w = ks + p * st + d;
-    return make_float2(__uint_as_float(w[0]), __uint_as_float(w[1]));
-  }
-};
-
-template <>
-struct KTile<__nv_bfloat16> {
-  __host__ __device__ static int stride(int hd) { return hd / 2 + 1; }
-  __device__ static float2 pair(const uint32_t* ks, int p, int d, int st) {
-    uint32_t w = ks[p * st + d / 2];
-    __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&w);
-    return __bfloat1622float2(h);
-  }
-};
-
-struct Layout {
-  size_t q, p, m, l, a, k, v, total;  // byte offsets into dynamic shared memory
-};
-
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline size_t round_up(size_t x, size_t m) { return (x + m - 1) / m * m; }
 
-__host__ __device__ inline Layout smem_layout(int rows, int hd, int psz, int elt, int kstride) {
+// Byte offsets into dynamic shared memory. Rows are padded to 16 (one mma
+// tile); bf16 rows pad head_dim to a whole k-step of 16.
+struct Layout {
+  size_t off, q, k, v, p, m, l, a, w, total;
+  int rows, hdp, rc;  // padded rows, padded head_dim, 16-byte chunks a row
+  int sh;             // swizzle shift: log2 of the rows one 128-byte line holds
+};
+
+__host__ __device__ inline Layout smem_layout(int rows, int hd, int nsplit, int elt) {
   Layout s;
-  const size_t rp = round_up(rows, 4);
-  s.q = 0;
-  s.p = s.q + sizeof(float) * rp * hd;
-  s.m = s.p + sizeof(float) * rp * psz;
-  s.l = s.m + sizeof(float) * rp;
-  s.a = s.l + sizeof(float) * rp;
-  s.k = s.a + sizeof(float) * rp;
-  s.v = round_up(s.k + sizeof(uint32_t) * (size_t)psz * kstride, 16);
-  s.total = s.v + (size_t)elt * psz * hd;
+  s.rows = (int)round_up(rows, 16);
+  s.hdp = elt == 2 ? (int)round_up(hd, 16) : hd;
+  s.rc = s.hdp * elt / 16;
+  s.sh = s.rc == 1 ? 3 : s.rc == 2 ? 2 : s.rc == 4 ? 1 : 0;
+  s.off = 0;  // pool offset (in elements) of each of the block's positions
+  s.q = sizeof(long long) * kChunk;
+  s.k = s.q + (size_t)elt * s.rows * s.hdp;
+  s.v = s.k + (size_t)elt * kStages * kTile * s.hdp;
+  s.p = s.v + (size_t)elt * kStages * kTile * s.hdp;
+  size_t end = s.p;
+  if (elt == 4) {  // fp32: scores, running max, sum and rescale in shared memory
+    s.m = s.p + sizeof(float) * s.rows * kTile;
+    s.l = s.m + sizeof(float) * s.rows;
+    s.a = s.l + sizeof(float) * s.rows;
+    end = s.a + sizeof(float) * s.rows;
+  } else {
+    s.m = s.l = s.a = end;
+  }
+  // The merge's per-split max, sum and weight and per-row sums reuse the tiles.
+  s.w = s.k;
+  const size_t wend = s.w + sizeof(float) * s.rows * (3 * nsplit + 1);
+  s.total = end > wend ? end : wend;
   return s;
+}
+
+// Chunk c of row r in a tile of rc chunks a row, as a chunk index: the
+// flattened index with its low 3 bits XORed by the row's 128-byte line
+// number (row >> sh). Rows of a multiple of 8 chunks and rows of 1, 2 or 4
+// chunks put 8 consecutive rows at one chunk in 8 different bank groups;
+// other widths stay a permutation of the tile (whose chunk count is a
+// multiple of 8). Branch-free: it sits in every ldmatrix address.
+__device__ __forceinline__ int swz(int r, int c, int rc, int sh) {
+  return (r * rc + c) ^ ((r >> sh) & 7);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-fills when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// ldmatrix x4 at a shared-memory address (plain, and transposed for V).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += A(16x16, row) * B(16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -106,110 +192,367 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+// Reductions over the 4 lanes (a quad) that share an accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
 
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int* page_table;
+  const int* start_pos;
+  const int* q_lens;
+  void* out;
+  float* part;  // [B*K, n_split, S*G, hd] unnormalised partial accumulators
+  float* ml;    // [B*K, n_split, 2, S*G] partial running max, then sum
+  int* tickets; // [B*K] zero between launches
+  int S, K, G, hd, L, N, psz, pmax, layer, nsplit;
+};
+
+// What one block knows about its (row, kv-head) and its positions.
+struct Block {
+  int b, kh, start, live;  // live query rows: q_len * G
+  int total;               // Pmax * Psz: positions the table can name
+  int lim;                 // the row sees positions < lim = min(start + q_len, total)
+  int c0, c1;              // this block's positions [c0, c1)
+  float scale;
+  // Query row r (query r / G) sees positions below this; pad rows see none.
+  __device__ __forceinline__ int limit(int r, int G) const {
+    return r < live ? min(start + r / G + 1, total) : 0;
+  }
+};
+
+// q's live rows into shared memory, zero-filled past `live` and past hd:
+// a warp a row, a lane a 16-byte chunk.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ragged_paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                              const T* __restrict__ v_pages, const int* __restrict__ page_table,
-                              const int* __restrict__ start_pos, const int* __restrict__ q_lens,
-                              T* __restrict__ out, int S, int K, int G, int hd, int L, int N,
-                              int psz, int pmax, int layer) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int rows = S * G;
-  const int kstride = KTile<T>::stride(hd);
-  const Layout lay = smem_layout(rows, hd, psz, (int)sizeof(T), kstride);
-  float* q_s = reinterpret_cast<float*>(smem + lay.q);
-  float* p_s = reinterpret_cast<float*>(smem + lay.p);
-  float* m_s = reinterpret_cast<float*>(smem + lay.m);
-  float* l_s = reinterpret_cast<float*>(smem + lay.l);
-  float* a_s = reinterpret_cast<float*>(smem + lay.a);
-  uint32_t* k_s = reinterpret_cast<uint32_t*>(smem + lay.k);
-  T* v_s = reinterpret_cast<T*>(smem + lay.v);
-
-  const int start = start_pos[b];
-  const int qn = min(max(q_lens[b], 0), S);
-  const int live = qn * G;  // query rows that attend; the rest output zeros
-  const int n_pages = qn > 0 ? min((start + qn + psz - 1) / psz, pmax) : 0;
-  const float scale = rsqrtf((float)hd);
-
-  for (int r = tid; r < rows; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
+__device__ void load_q(const Args& a, const Layout& lay, unsigned char* smem, const Block& blk) {
+  constexpr int kPer = 16 / sizeof(T);  // elements in 16 bytes
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rc = lay.rc, sh = lay.sh, real = a.hd / kPer;
+  const T* q = static_cast<const T*>(a.q);
+  for (int r = warp; r < lay.rows; r += kWarps) {
+    const int s = r / a.G, g = r - s * a.G;
+    const T* row = q + ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd;
+    for (int ch = lane; ch < rc; ch += 32) {
+      const bool valid = r < blk.live && ch < real;
+      cp_async16(smem + lay.q + swz(r, ch, rc, sh) * 16, valid ? row + ch * kPer : q, valid);
+    }
   }
-  for (int e = tid; e < live * hd; e += kThreads) {
-    const int r = e / hd, d = e - (e / hd) * hd;
-    const int s = r / G, g = r - (r / G) * G;
-    q_s[e] = to_f32(q[((((size_t)b * S + s) * K + kh) * G + g) * hd + d]);
-  }
+}
 
-  float acc[kAccPerThread];
+// Tile t (kTile positions from c0 + t * kTile) of K and V into `stage`, at
+// the offsets the block computed: a warp a position, a lane a 16-byte chunk.
+// Positions past c1 and the head_dim pad are zero-filled.
+template <typename T>
+__device__ __forceinline__ void load_tile(const Args& a, const Layout& lay, unsigned char* smem,
+                                          const Block& blk, int t, int stage) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rc = lay.rc, sh = lay.sh, real = a.hd / kPer;
+  const T* kp = static_cast<const T*>(a.k_pages);
+  const T* vp = static_cast<const T*>(a.v_pages);
+  const long long* off = reinterpret_cast<const long long*>(smem + lay.off);
+  unsigned char* ks = smem + lay.k + (size_t)stage * kTile * rc * 16;
+  unsigned char* vs = smem + lay.v + (size_t)stage * kTile * rc * 16;
+  for (int p = warp; p < kTile; p += kWarps) {
+    const bool in = blk.c0 + t * kTile + p < blk.c1;
+    const long long row = in ? off[t * kTile + p] : 0;
+    for (int ch = lane; ch < rc; ch += 32) {
+      const bool valid = in && ch < real;
+      const long long o = valid ? row + ch * kPer : 0;
+      const int dst = swz(p, ch, rc, sh) * 16;
+      cp_async16(ks + dst, kp + o, valid);
+      cp_async16(vs + dst, vp + o, valid);
+    }
+  }
+}
+
+// Rows [from, S*G) of the (row, kv-head) window are exact zeros: a warp
+// a row, 16 bytes a lane.
+template <typename T>
+__device__ void zero_rows(const Args& a, const Block& blk, int from) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nvec = a.hd * (int)sizeof(T) / 16;
+  for (int r = from + warp; r < a.S * a.G; r += kWarps) {
+    const int s = r / a.G, g = r - s * a.G;
+    uint4* dst = reinterpret_cast<uint4*>(
+        static_cast<T*>(a.out) + ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd);
+    for (int v = lane; v < nvec; v += 32) dst[v] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Four output values, rounded to T, in one store.
+__device__ __forceinline__ void store4(float* dst, float4 v) { *reinterpret_cast<float4*>(dst) = v; }
+__device__ __forceinline__ void store4(bf16* dst, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// Calls f(std::integral_constant<int, np>) for np in [0, N], so that loops
+// over a warp's column pairs unroll with no guard.
+template <int N, typename F>
+__device__ __forceinline__ void by_pairs(int np, F&& f) {
+  if constexpr (N == 0) {
+    f(std::integral_constant<int, 0>());
+  } else if (np == N) {
+    f(std::integral_constant<int, N>());
+  } else {
+    by_pairs<N - 1>(np, f);
+  }
+}
+
+// bf16: both products on tensor cores. A warp owns one 16-row tile of the
+// live query rows and `np` 16-column pairs of head_dim; its scores, running
+// max and sum and its accumulator live in registers. Lane l holds rows
+// r0 = 16 * mi + l / 4 and r0 + 8.
+template <int kPairs>
+struct MmaRows {
+  float acc[kPairs][8];  // per pair: columns +0..7 (c0..c3), +8..15 (c0..c3)
+  float m[2], l[2];         // l: this lane's share, summed over the quad at the end
+  int mi, hs, p_lo, np, r0, lim0, lim1;
+  bool active;
+
+  __device__ __forceinline__ void init(const Args& a, const Layout& lay, unsigned char*,
+                                       const Block& blk) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int nmt = cdiv(blk.live, 16), npairs = lay.hdp / 16;
+    // Each warp computes its tile's scores and softmax in full, so a tile
+    // gets as few warps as its accumulator allows: one, or two that split
+    // head_dim above kPairs pairs. The other warps only copy.
+    const int nh = cdiv(npairs, kPairs);
+    mi = warp / nh;
+    hs = warp - mi * nh;
+    active = mi < nmt;
+    p_lo = hs * npairs / nh;
+    np = (hs + 1) * npairs / nh - p_lo;
+    r0 = mi * 16 + lane / 4;
+    lim0 = blk.limit(r0, a.G);
+    lim1 = blk.limit(r0 + 8, a.G);
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
 #pragma unroll
-  for (int j = 0; j < kAccPerThread; ++j) acc[j] = 0.f;
+    for (int i = 0; i < kPairs; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
 
-  const int row_words = hd * (int)sizeof(T) / 4;  // 32-bit words in one position
-  const int row_vec = row_words / 4;              // 16-byte vectors in one position
-  const int warp = tid / 32, lane = tid % 32;
+  __device__ __forceinline__ void tile(const Args& a, const Layout& lay, unsigned char* smem,
+                                       const Block& blk, int stage, int pos0) {
+    if (!active) return;
+    const int lane = threadIdx.x % 32, rc = lay.rc, sh = lay.sh;
+    const uint32_t tile_bytes = kTile * rc * 16;
+    const uint32_t qs = smem_u32(smem + lay.q);
+    const uint32_t ks = smem_u32(smem + lay.k) + stage * tile_bytes;
+    const uint32_t vs = smem_u32(smem + lay.v) + stage * tile_bytes;
 
-  for (int i = 0; i < n_pages; ++i) {
-    __syncthreads();  // the previous page's tiles and probabilities are consumed
-    const int page = page_table[b * pmax + i];
-    const size_t base = (((size_t)kh * L + layer) * N + page) * (size_t)psz * hd;
-    const uint4* kg = reinterpret_cast<const uint4*>(k_pages + base);
-    const uint4* vg = reinterpret_cast<const uint4*>(v_pages + base);
-    uint4* vs4 = reinterpret_cast<uint4*>(v_s);
-    for (int e = tid; e < psz * row_vec; e += kThreads) {
-      const int p = e / row_vec, c = e - (e / row_vec) * row_vec;
-      const uint4 kv = kg[e];
-      uint32_t* dst = k_s + p * kstride + c * 4;
-      dst[0] = kv.x;
-      dst[1] = kv.y;
-      dst[2] = kv.z;
-      dst[3] = kv.w;
-      vs4[e] = vg[e];
+    // S = q K^T over the tile: [16 rows, kTile positions] in kTile / 8 fragments.
+    float s[kTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    // ldmatrix rows and chunks of this lane: swz(r, c) = (r * rc + c) ^ x(r)
+    // with c = 2 * k-step + (0 or 1), so only the k-step moves in the loop.
+    const int qrow = mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int krow = (lane & 7) + (lane >> 4) * 8;
+    const int qc = qrow * rc + (lane >> 4), qx = (qrow >> sh) & 7;
+#pragma unroll 2
+    for (int kk = 0; kk < lay.hdp / 16; ++kk) {
+      uint32_t qa[4];
+      ldsm_x4(qa, qs + (((qc + 2 * kk) ^ qx) << 4));
+#pragma unroll
+      for (int j = 0; j < kTile / 16; ++j) {
+        const int r = j * 16 + krow;
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (((r * rc + ((lane >> 3) & 1) + 2 * kk) ^ ((r >> sh) & 7)) << 4));
+        mma_bf16(s[2 * j], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * j + 1], qa, kb[2], kb[3]);
+      }
     }
-    __syncthreads();
 
-    // Scores, masked: query row r (query r/G) sees positions < start + r/G + 1.
-    for (int e = tid; e < live * psz; e += kThreads) {
-      const int r = e / psz, p = e - (e / psz) * psz;
-      const float* qr = q_s + r * hd;
+    // Mask and online softmax on the fragments.
+    const int col = pos0 + 2 * (lane & 3);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pos = col + j * 8 + e;
+        s[j][e] = pos < lim0 ? s[j][e] * blk.scale : kNegInf;
+        s[j][2 + e] = pos < lim1 ? s[j][2 + e] * blk.scale : kNegInf;
+        mx0 = fmaxf(mx0, s[j][e]);
+        mx1 = fmaxf(mx1, s[j][2 + e]);
+      }
+    const float mn0 = fmaxf(m[0], quad_max(mx0)), mn1 = fmaxf(m[1], quad_max(mx1));
+    const float al0 = __expf(m[0] - mn0), al1 = __expf(m[1] - mn1);
+    m[0] = mn0;
+    m[1] = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = s[j][e] <= kNegInf * 0.5f ? 0.f : __expf(s[j][e] - mn0);
+        s[j][2 + e] = s[j][2 + e] <= kNegInf * 0.5f ? 0.f : __expf(s[j][2 + e] - mn1);
+        sum0 += s[j][e];
+        sum1 += s[j][2 + e];
+      }
+    l[0] = l[0] * al0 + sum0;
+    l[1] = l[1] * al1 + sum1;
+    by_pairs<kPairs>(np, [&](auto n) { this->template pv<decltype(n)::value>(s, al0, al1, vs, rc, sh); });
+  }
+
+  // acc = acc * alpha + P V over this warp's NP pairs: P's fragments become
+  // the A operand, V comes in transposed.
+  template <int NP>
+  __device__ __forceinline__ void pv(const float (&s)[kTile / 8][4], float al0, float al1,
+                                     uint32_t vs, int rc, int sh) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int h = 0; h < 8; h += 4) {
+        acc[i][h] *= al0;
+        acc[i][h + 1] *= al0;
+        acc[i][h + 2] *= al1;
+        acc[i][h + 3] *= al1;
+      }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const int r = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int vc = r * rc + 2 * p_lo + (lane >> 4), vx = (r >> sh) & 7;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vs + (((vc + 2 * i) ^ vx) << 4));
+        mma_bf16(acc[i], pa, vb[0], vb[1]);
+        mma_bf16(acc[i] + 4, pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // Calls f(value of row r0 + 8u, column d, u) over this lane's live,
+  // unpadded accumulator pairs (columns d, d + 1).
+  template <int NP, typename F>
+  __device__ __forceinline__ void each_pair(const Args& a, const Block& blk, F&& f) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = (p_lo + i) * 16 + h * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (d < a.hd && r0 + 8 * u < blk.live)
+            f(acc[i][4 * h + 2 * u], acc[i][4 * h + 2 * u + 1], r0 + 8 * u, d, u);
+      }
+  }
+
+  // This split's partial state for the live rows: m, l and the unnormalised acc.
+  __device__ __forceinline__ void finish(const Args& a, const Layout&, unsigned char*,
+                                         const Block& blk, float* part, float* ml) {
+    if (!active) return;
+    const int lane = threadIdx.x % 32, rows = a.S * a.G;
+    const float ls[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    by_pairs<kPairs>(np, [&](auto n) {
+      this->template each_pair<decltype(n)::value>(a, blk, [&](float x, float y, int r, int d, int) {
+        *reinterpret_cast<float2*>(part + (size_t)r * a.hd + d) = make_float2(x, y);
+      });
+    });
+    if (hs == 0 && (lane & 3) == 0)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        if (r0 + 8 * u < blk.live) {
+          ml[r0 + 8 * u] = m[u];
+          ml[rows + r0 + 8 * u] = ls[u];
+        }
+  }
+
+  // A row attended by one block: acc / l for the live rows.
+  __device__ __forceinline__ void store(const Args& a, const Layout&, unsigned char*,
+                                        const Block& blk) {
+    if (!active) return;
+    const float ls[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    bf16* out = static_cast<bf16*>(a.out);
+    by_pairs<kPairs>(np, [&](auto n) {
+      this->template each_pair<decltype(n)::value>(a, blk, [&](float x, float y, int r, int d, int u) {
+        const int s = r / a.G, g = r - s * a.G;
+        const float lv = ls[u], den = fmaxf(lv, 1e-30f);
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd + d) =
+            lv > 0.f ? __floats2bfloat162_rn(x / den, y / den) : __floats2bfloat162_rn(0.f, 0.f);
+      });
+    });
+  }
+};
+
+// fp32: both products on CUDA cores, no TF32. Scores and the per-row
+// running max, sum and rescale sit in shared memory; thread tid holds
+// accumulator values tid + j * kThreads of the [live, hd] block.
+struct SimtRows {
+  static_assert(kTile == 32, "the softmax gives one lane to each position of a tile");
+  float acc[kAccF32];
+
+  __device__ __forceinline__ void init(const Args&, const Layout& lay, unsigned char* smem,
+                                       const Block&) {
+    float* m_s = reinterpret_cast<float*>(smem + lay.m);
+    float* l_s = reinterpret_cast<float*>(smem + lay.l);
+    for (int r = threadIdx.x; r < lay.rows; r += kThreads) {
+      m_s[r] = kNegInf;
+      l_s[r] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAccF32; ++j) acc[j] = 0.f;
+  }
+
+  __device__ __forceinline__ void tile(const Args& a, const Layout& lay, unsigned char* smem,
+                                       const Block& blk, int stage, int pos0) {
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rc = lay.rc, sh = lay.sh;
+    const float4* q4 = reinterpret_cast<const float4*>(smem + lay.q);
+    const float4* k4 = reinterpret_cast<const float4*>(smem + lay.k) + (size_t)stage * kTile * rc;
+    const float* vs = reinterpret_cast<const float*>(smem + lay.v) + (size_t)stage * kTile * rc * 4;
+    float* p_s = reinterpret_cast<float*>(smem + lay.p);
+    float* m_s = reinterpret_cast<float*>(smem + lay.m);
+    float* l_s = reinterpret_cast<float*>(smem + lay.l);
+    float* a_s = reinterpret_cast<float*>(smem + lay.a);
+
+    // Scores, masked: 8 consecutive lanes read 8 rows of K at one chunk.
+    for (int e = tid; e < blk.live * kTile; e += kThreads) {
+      const int r = e / kTile, p = e % kTile;
       float s = 0.f;
-      for (int d = 0; d < hd; d += 2) {
-        const float2 kk = KTile<T>::pair(k_s, p, d, kstride);
-        const float2 qq = *reinterpret_cast<const float2*>(qr + d);
-        s = fmaf(qq.x, kk.x, s);
-        s = fmaf(qq.y, kk.y, s);
+      for (int ch = 0; ch < rc; ++ch) {
+        const float4 qv = q4[swz(r, ch, rc, sh)], kv = k4[swz(p, ch, rc, sh)];
+        s = fmaf(qv.x, kv.x, s);
+        s = fmaf(qv.y, kv.y, s);
+        s = fmaf(qv.z, kv.z, s);
+        s = fmaf(qv.w, kv.w, s);
       }
-      const int pos = i * psz + p;
-      p_s[r * psz + p] = pos < start + r / G + 1 ? s * scale : kNegInf;
+      p_s[e] = pos0 + p < blk.limit(r, a.G) ? s * blk.scale : kNegInf;
     }
     __syncthreads();
 
-    // Online softmax, one warp per query row.
-    for (int r = warp; r < live; r += kThreads / 32) {
-      float* pr = p_s + r * psz;
-      float mx = kNegInf;
-      for (int p = lane; p < psz; p += 32) mx = fmaxf(mx, pr[p]);
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int p = lane; p < psz; p += 32) {
-        const float sv = pr[p];
-        const float pv = sv <= kNegInf * 0.5f ? 0.f : expf(sv - m_new);
-        pr[p] = pv;
-        sum += pv;
-      }
-      sum = warp_sum(sum);
+    // Online softmax, one warp per query row, one lane per position.
+    for (int r = warp; r < blk.live; r += kWarps) {
+      const float sv = p_s[r * kTile + lane];
+      const float m_old = m_s[r], m_new = fmaxf(m_old, warp_max(sv));
+      const float pv = sv <= kNegInf * 0.5f ? 0.f : expf(sv - m_new);
+      p_s[r * kTile + lane] = pv;
+      const float sum = warp_sum(pv);
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
         a_s[r] = alpha;
@@ -221,45 +564,252 @@ ragged_paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
 
     // acc[r, d] = acc[r, d] * alpha[r] + sum_p P[r, p] * V[p, d]
 #pragma unroll
-    for (int j = 0; j < kAccPerThread; ++j) {
+    for (int j = 0; j < kAccF32; ++j) {
       const int e = tid + j * kThreads;
-      if (e < live * hd) {
-        const int r = e / hd, d = e - (e / hd) * hd;
-        const float* pr = p_s + r * psz;
-        float a = acc[j] * a_s[r];
-        for (int p = 0; p < psz; ++p) a = fmaf(pr[p], to_f32(v_s[p * hd + d]), a);
-        acc[j] = a;
+      if (e < blk.live * a.hd) {
+        const int r = e / a.hd, d = e - r * a.hd;
+        const float* pr = p_s + r * kTile;
+        float v = acc[j] * a_s[r];
+        for (int p = 0; p < kTile; ++p) v = fmaf(pr[p], vs[swz(p, d >> 2, rc, sh) * 4 + (d & 3)], v);
+        acc[j] = v;
       }
     }
   }
-  __syncthreads();
 
+  __device__ __forceinline__ void finish(const Args& a, const Layout& lay, unsigned char* smem,
+                                         const Block& blk, float* part, float* ml) {
+    const float* m_s = reinterpret_cast<const float*>(smem + lay.m);
+    const float* l_s = reinterpret_cast<const float*>(smem + lay.l);
+    const int rows = a.S * a.G;
 #pragma unroll
-  for (int j = 0; j < kAccPerThread; ++j) {
-    const int e = tid + j * kThreads;
-    if (e < rows * hd) {
-      const int r = e / hd, d = e - (e / hd) * hd;
-      const int s = r / G, g = r - (r / G) * G;
-      const float l = r < live ? l_s[r] : 0.f;
-      const float o = l > 0.f ? acc[j] / fmaxf(l, 1e-30f) : 0.f;
-      out[((((size_t)b * S + s) * K + kh) * G + g) * hd + d] = from_f32<T>(o);
+    for (int j = 0; j < kAccF32; ++j) {
+      const int e = threadIdx.x + j * kThreads;
+      if (e < blk.live * a.hd) part[e] = acc[j];
     }
+    for (int r = threadIdx.x; r < blk.live; r += kThreads) {
+      ml[r] = m_s[r];
+      ml[rows + r] = l_s[r];
+    }
+  }
+
+  // A row attended whole: acc / l for the live rows.
+  __device__ __forceinline__ void store(const Args& a, const Layout& lay, unsigned char* smem,
+                                        const Block& blk) {
+    const float* l_s = reinterpret_cast<const float*>(smem + lay.l);
+    float* out = static_cast<float*>(a.out);
+#pragma unroll
+    for (int j = 0; j < kAccF32; ++j) {
+      const int e = threadIdx.x + j * kThreads;
+      if (e < blk.live * a.hd) {
+        const int r = e / a.hd, d = e - r * a.hd;
+        const int s = r / a.G, g = r - s * a.G;
+        const float lv = l_s[r];
+        out[((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd + d] =
+            lv > 0.f ? acc[j] / fmaxf(lv, 1e-30f) : 0.f;
+      }
+    }
+  }
+};
+
+// The last block of a split row merges the splits that had work, in split
+// order, skipping those whose l is 0, and writes the whole window. Every
+// (m, l) load is in flight at once; then each thread starts its columns'
+// loads from every split before it uses one.
+template <typename T>
+__device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, const Block& blk,
+                      int nwork, const float* part, const float* ml) {
+  const int rows = a.S * a.G, ns = a.nsplit;
+  float* m_s = reinterpret_cast<float*>(smem + lay.w);  // [rows, ns]: each split's max
+  float* l_s = m_s + (size_t)lay.rows * ns;              // [rows, ns]: each split's sum
+  float* w_s = l_s + (size_t)lay.rows * ns;              // [rows, ns]: e^(m_i - m*), 0 if l_i = 0
+  float* sum_s = w_s + (size_t)lay.rows * ns;            // [rows]: sum_i l_i e^(m_i - m*)
+  for (int e = threadIdx.x; e < blk.live * nwork; e += kThreads) {
+    const int r = e / nwork, c = e - r * nwork;
+    m_s[r * ns + c] = __ldcg(ml + (size_t)c * 2 * rows + r);
+    l_s[r * ns + c] = __ldcg(ml + (size_t)c * 2 * rows + rows + r);
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < blk.live; r += kThreads) {
+    float mx = kNegInf;
+    for (int c = 0; c < nwork; ++c)
+      if (l_s[r * ns + c] > 0.f) mx = fmaxf(mx, m_s[r * ns + c]);
+    float sum = 0.f;
+    for (int c = 0; c < nwork; ++c) {
+      const float l = l_s[r * ns + c];
+      const float w = l > 0.f ? expf(m_s[r * ns + c] - mx) : 0.f;
+      w_s[r * ns + c] = w;
+      sum += l * w;
+    }
+    sum_s[r] = sum;
+  }
+  __syncthreads();
+  // Element e = r * nv + v (row r, 4-column group v) sits at float4 e of
+  // every split's [rows, hd] partial. A thread takes kElems elements a pass
+  // and starts their loads from kBatch splits before it uses one.
+  constexpr int kElems = 4, kBatch = 4;
+  const int nv = a.hd / 4, n = blk.live * nv;
+  const float4* src = reinterpret_cast<const float4*>(part);
+  const size_t split = (size_t)rows * nv;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kElems * kThreads) {
+    float4 acc[kElems];
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = 0; c0 < nwork; c0 += kBatch) {
+      float4 x[kElems][kBatch];
+#pragma unroll
+      for (int i = 0; i < kElems; ++i)
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int e = e0 + i * kThreads;
+          x[i][j] = e < n && c0 + j < nwork ? __ldcg(src + (c0 + j) * split + e)
+                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int i = 0; i < kElems; ++i) {
+        const int e = e0 + i * kThreads;
+        if (e < n) {
+          const float* wr = w_s + (e / nv) * ns;
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j) {
+            const float w = c0 + j < nwork ? wr[c0 + j] : 0.f;
+            if (w > 0.f) {
+              acc[i].x = fmaf(w, x[i][j].x, acc[i].x);
+              acc[i].y = fmaf(w, x[i][j].y, acc[i].y);
+              acc[i].z = fmaf(w, x[i][j].z, acc[i].z);
+              acc[i].w = fmaf(w, x[i][j].w, acc[i].w);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      const int e = e0 + i * kThreads;
+      if (e < n) {
+        const int r = e / nv, v = e - r * nv;
+        const float lv = sum_s[r], den = fmaxf(lv, 1e-30f);
+        const float4 o = lv > 0.f ? make_float4(acc[i].x / den, acc[i].y / den, acc[i].z / den,
+                                                acc[i].w / den)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int s = r / a.G, g = r - s * a.G;
+        store4(static_cast<T*>(a.out) +
+                   ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd + 4 * v,
+               o);
+      }
+    }
+  }
+  zero_rows<T>(a, blk, blk.live);
+}
+
+// Attend positions [blk.c0, blk.c1) of the row (at most kChunk): q once,
+// each position's pool offset once (a thread a position, through the page
+// table), then both tiles of K and V in flight at once, the second landing
+// while the first is computed.
+template <typename T, typename St>
+__device__ __forceinline__ void attend(const Args& a, const Layout& lay, unsigned char* smem,
+                                       const Block& blk, St& st) {
+  static_assert(kStages == 2, "the waits below assume two tiles");
+  st.init(a, lay, smem, blk);
+  load_q<T>(a, lay, smem, blk);
+  long long* off = reinterpret_cast<long long*>(smem + lay.off);
+  for (int p = threadIdx.x; p < blk.c1 - blk.c0; p += kThreads) {
+    const int pos = blk.c0 + p;
+    const int page = a.page_table[(size_t)blk.b * a.pmax + pos / a.psz];
+    off[p] = ((((long long)blk.kh * a.L + a.layer) * a.N + page) * a.psz + pos % a.psz) * a.hd;
+  }
+  __syncthreads();
+  const int nt = cdiv(blk.c1 - blk.c0, kTile);
+  for (int t = 0; t < nt; ++t) {
+    load_tile<T>(a, lay, smem, blk, t, t);
+    cp_commit();  // q rides in the first group
+  }
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt)
+      cp_wait<1>();  // tile t (and q) have landed
+    else
+      cp_wait<0>();
+    __syncthreads();
+    st.tile(a, lay, smem, blk, t, blk.c0 + t * kTile);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pages, const void* v_pages, const void* page_table,
-           const void* start_pos, const void* q_lens, void* out, int B, int S, int K, int G,
-           int hd, int L, int N, int psz, int pmax, int layer, cudaStream_t stream) {
-  const Layout lay = smem_layout(S * G, hd, psz, (int)sizeof(T), KTile<T>::stride(hd));
-  cudaError_t err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.total);
+template <typename T, int kPairs>
+__global__ void __launch_bounds__(kThreads, kPairs <= kNarrowPairs ? 2 : 1)
+ragged_paged_attention_kernel(const Args a) {
+  using St =
+      typename std::conditional<std::is_same<T, bf16>::value, MmaRows<kPairs>, SimtRows>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last;
+  const int bk = blockIdx.x, c = blockIdx.y;
+  Block blk;
+  blk.b = bk / a.K;
+  blk.kh = bk - blk.b * a.K;
+  blk.start = a.start_pos[blk.b];
+  const int qn = min(max(a.q_lens[blk.b], 0), a.S);
+  blk.live = qn * a.G;
+  blk.total = a.pmax * a.psz;
+  blk.lim = qn > 0 ? max(min(blk.start + qn, blk.total), 0) : 0;
+  blk.scale = rsqrtf((float)a.hd);
+  const int rows = a.S * a.G;
+  const Layout lay = smem_layout(rows, a.hd, a.nsplit, (int)sizeof(T));
+
+  if (blk.live == 0) {  // an idle row: block 0 writes its zeros
+    if (c == 0) zero_rows<T>(a, blk, 0);
+    return;
+  }
+  const int nwork = cdiv(blk.lim, kChunk);  // blocks of this row with work
+  blk.c0 = c * kChunk;
+  blk.c1 = min(blk.lim, blk.c0 + kChunk);
+  if (nwork == 1) {  // the row fits one block: no partials, no merge
+    if (c != 0) return;
+    St st;
+    attend<T>(a, lay, smem, blk, st);
+    st.store(a, lay, smem, blk);
+    zero_rows<T>(a, blk, blk.live);
+    return;
+  }
+
+  // Block c attends positions [c * kChunk, (c + 1) * kChunk) and leaves its
+  // partial state in scratch.
+  float* part = a.part + (size_t)bk * a.nsplit * rows * a.hd;
+  float* ml = a.ml + (size_t)bk * a.nsplit * 2 * rows;
+  if (c < nwork) {
+    St st;
+    attend<T>(a, lay, smem, blk, st);
+    st.finish(a, lay, smem, blk, part + (size_t)c * rows * a.hd, ml + (size_t)c * 2 * rows);
+  }
+
+  // Every block of a split row takes a ticket, empty ones too; the last one
+  // merges and resets the counter.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.tickets + bk, 1) == a.nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  merge<T>(a, lay, smem, blk, nwork, part, ml);
+  if (threadIdx.x == 0) a.tickets[bk] = 0;
+}
+
+int n_splits(int pmax, int psz) { return cdiv(pmax * psz, kChunk); }
+
+template <typename T, int kPairs>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_layout(a.S * a.G, a.hd, a.nsplit, (int)sizeof(T)).total;
+  // The attribute is set once per device and size for this instantiation
+  // (it only grows), not on every launch.
+  static size_t granted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  ragged_paged_attention_kernel<T><<<dim3(B, K), kThreads, lay.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      static_cast<const int*>(page_table), static_cast<const int*>(start_pos),
-      static_cast<const int*>(q_lens), static_cast<T*>(out), S, K, G, hd, L, N, psz, pmax, layer);
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > granted[dev]) {
+    err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, kPairs>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev] = smem;
+  }
+  ragged_paged_attention_kernel<T, kPairs><<<dim3(B * a.K, a.nsplit), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -267,28 +817,43 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
 
 extern "C" {
 
+// Splits (blocks) per (row, kv-head): the scratch's third dimension.
+int mcpx_ragged_paged_attention_splits(int pmax, int psz) { return n_splits(pmax, psz); }
+
 // Dynamic shared memory one block needs; the wrapper refuses shapes above
 // the card's per-block limit before launching.
-size_t mcpx_ragged_paged_attention_smem(int S, int G, int hd, int psz, int dtype) {
-  const int elt = dtype == 1 ? 2 : 4;
-  const int kstride = dtype == 1 ? KTile<__nv_bfloat16>::stride(hd) : KTile<float>::stride(hd);
-  return smem_layout(S * G, hd, psz, elt, kstride).total;
+size_t mcpx_ragged_paged_attention_smem(int S, int G, int hd, int psz, int pmax, int dtype) {
+  return smem_layout(S * G, hd, n_splits(pmax, psz), dtype == 1 ? 2 : 4).total;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched). Enqueues on `stream`; does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16. part [B, K, n_split, S*G, hd] and
+// ml [B, K, n_split, 2, S*G] are fp32 scratch (any contents); tickets [B*K]
+// int32 must be zero and are left zero. Returns cudaGetLastError() after
+// the launch (0 = launched). Enqueues on `stream`; does not synchronise.
 int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                 const void* page_table, const void* start_pos,
-                                const void* q_lens, void* out, int B, int S, int K, int G,
-                                int hd, int L, int N, int psz, int pmax, int layer, int dtype,
-                                void* stream) {
+                                const void* q_lens, void* out, void* part, void* ml,
+                                void* tickets, int B, int S, int K, int G, int hd, int L, int N,
+                                int psz, int pmax, int layer, int dtype, void* stream) {
   if (B == 0 || K == 0) return 0;
+  Args a;
+  a.q = q;
+  a.k_pages = k_pages;
+  a.v_pages = v_pages;
+  a.page_table = static_cast<const int*>(page_table);
+  a.start_pos = static_cast<const int*>(start_pos);
+  a.q_lens = static_cast<const int*>(q_lens);
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.ml = static_cast<float*>(ml);
+  a.tickets = static_cast<int*>(tickets);
+  a.S = S, a.K = K, a.G = G, a.hd = hd, a.L = L, a.N = N;
+  a.psz = psz, a.pmax = pmax, a.layer = layer, a.nsplit = n_splits(pmax, psz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, start_pos, q_lens, out, B, S,
-                                 K, G, hd, L, N, psz, pmax, layer, st);
-  return launch<float>(q, k_pages, v_pages, page_table, start_pos, q_lens, out, B, S, K, G, hd,
-                       L, N, psz, pmax, layer, st);
+  if (dtype != 1) return launch<float, kWidePairs>(a, B, st);  // kPairs unused by fp32
+  // The narrow build while two warps of kNarrowPairs pairs cover head_dim.
+  return hd <= 2 * 16 * kNarrowPairs ? launch<bf16, kNarrowPairs>(a, B, st)
+                                     : launch<bf16, kWidePairs>(a, B, st);
 }
 
 }  // extern "C"

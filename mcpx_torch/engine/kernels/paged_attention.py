@@ -154,12 +154,54 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_mcpx_bound", False):
         fn = lib.mcpx_ragged_paged_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         smem = lib.mcpx_ragged_paged_attention_smem
         smem.restype = ctypes.c_size_t
-        smem.argtypes = [ctypes.c_int] * 5
+        smem.argtypes = [ctypes.c_int] * 6
+        splits = lib.mcpx_ragged_paged_attention_splits
+        splits.restype = ctypes.c_int
+        splits.argtypes = [ctypes.c_int] * 2
         lib._mcpx_bound = True
     return lib
+
+
+# One int32 ticket counter per (row, kv-head), per device. The kernel's
+# last block of each (row, kv-head) resets its counter to 0, so the buffer
+# stays zero between launches. That holds while launches that share it run
+# one after another on one stream, which is how the engine calls the kernel.
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf
+
+
+_GEOMETRY: dict[tuple, int] = {}
+
+
+def _geometry(lib, S: int, G: int, hd: int, psz: int, p_max: int, dtype: int) -> int:
+    """Splits per (row, kv-head) for this shape, after checking once that a
+    block's shared memory fits the card."""
+    key = (S, G, hd, psz, p_max, dtype)
+    n_split = _GEOMETRY.get(key)
+    if n_split is None:
+        smem = lib.mcpx_ragged_paged_attention_smem(S, G, hd, psz, p_max, dtype)
+        if smem > SMEM_LIMIT:
+            raise EngineError(
+                f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})"
+            )
+        n_split = _GEOMETRY[key] = lib.mcpx_ragged_paged_attention_splits(p_max, psz)
+    return n_split
+
+
+def ticket_counters() -> list[torch.Tensor]:
+    """The kernel's ticket buffers, one per device it has run on; every
+    entry is 0 whenever no launch is in flight."""
+    return list(_TICKETS.values())
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int = 0):
@@ -178,15 +220,21 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     B, S, K, G, hd = q.shape
     _, L, N, psz, _ = k_pages.shape
     dtype = _DTYPES[q.dtype]
+    p_max = page_table.shape[1]
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise EngineError("ragged_paged_attention: q and the pools must start on 16-byte boundaries")
     lib = _lib()
-    smem = lib.mcpx_ragged_paged_attention_smem(S, G, hd, psz, dtype)
-    if smem > SMEM_LIMIT:
-        raise EngineError(f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})")
+    n_split = _geometry(lib, S, G, hd, psz, p_max, dtype)
     out = torch.empty_like(q)
+    # fp32 scratch: the per-split unnormalised accumulators [B, K, n_split,
+    # S*G, hd], then their (max, sum) [B, K, n_split, 2, S*G].
+    n_acc = B * K * n_split * S * G * hd
+    scratch = torch.empty(n_acc + B * K * n_split * 2 * S * G, dtype=torch.float32, device=q.device)
     rc = lib.mcpx_ragged_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-        B, S, K, G, hd, L, N, psz, page_table.shape[1], layer, dtype,
+        start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, B * K).data_ptr(),
+        B, S, K, G, hd, L, N, psz, p_max, layer, dtype,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

@@ -46,25 +46,87 @@ def cuda():
     return torch.device("cuda")
 
 
+DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+
+
+def _on_card(case, cuda, dtype):
+    q, kp, vp, table, starts, q_lens = [t.to(cuda) for t in as_torch(*case)]
+    return q.to(dtype), kp.to(dtype), vp.to(dtype), table, starts, q_lens
+
+
+def _check_case(case, cuda, dtype, atol, layers=(0, 1)):
+    """Kernel against plain on one case: within `atol`, one launch a call,
+    pads and idle rows exactly 0, and the ticket counters left at 0."""
+    args = _on_card(case, cuda, dtype)
+    for layer in layers:
+        n0 = tk.kernel_launches()["ragged_paged_attention"]
+        out = tk.ragged_paged_attention(*args, layer)
+        torch.cuda.synchronize()
+        assert tk.kernel_launches()["ragged_paged_attention"] == n0 + 1
+        ref = tk.ragged_paged_attention_reference(*args, layer)
+        np.testing.assert_allclose(
+            out.float().cpu().numpy(), ref.float().cpu().numpy(), rtol=atol, atol=atol
+        )
+        for b, ql in enumerate(case[5]):
+            assert bool((out[b, ql:] == 0).all())
+        assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,atol", DTYPES)
 @pytest.mark.parametrize("shape", [(4, 32), (8, 256)])
 def test_cuda_kernel_matches_plain(cuda, dtype, atol, shape):
     """The CUDA kernel against its plain version on the card: fp32 to
     summation order, bf16 to bf16 rounding of inputs and output."""
     G, hd = shape
     for seed in range(3):
-        case = mixed_case(seed, B=8, S=8, K=1, G=G, hd=hd, psz=64, p_max=4)
-        q, kp, vp, table, starts, q_lens = [t.to(cuda) for t in as_torch(*case)]
-        q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
-        for layer in (0, 1):
-            n0 = tk.kernel_launches()["ragged_paged_attention"]
-            out = tk.ragged_paged_attention(q, kp, vp, table, starts, q_lens, layer)
-            torch.cuda.synchronize()
-            assert tk.kernel_launches()["ragged_paged_attention"] == n0 + 1
-            ref = tk.ragged_paged_attention_reference(q, kp, vp, table, starts, q_lens, layer)
-            np.testing.assert_allclose(
-                out.float().cpu().numpy(), ref.float().cpu().numpy(), rtol=atol, atol=atol
-            )
-            for b, ql in enumerate(case[5]):
-                assert bool((out[b, ql:] == 0).all())
+        _check_case(mixed_case(seed, B=8, S=8, K=1, G=G, hd=hd, psz=64, p_max=4), cuda, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("geometry", [{}, dict(S=8, G=8, hd=128, psz=4, p_max=40)])
+def test_cuda_kernel_many_pages_per_split(cuda, dtype, atol, geometry):
+    """Many pages in one block, more than one kv-head: the default mixed
+    geometry (K 2, G 2, hd 16, Psz 4, Pmax 12), whose narrow rows one block
+    takes whole, and a wide one whose rows of two or more queries split
+    into chunks of 16 pages and merge."""
+    for seed in range(3):
+        _check_case(mixed_case(seed, **geometry), cuda, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("hd", [24, 40])
+def test_cuda_kernel_padded_head_dim(cuda, dtype, atol, hd):
+    """hd % 16 == 8: the bf16 path zero-pads the last k-step in shared memory."""
+    for seed in range(2):
+        case = mixed_case(seed, B=6, S=8, K=1, G=4, hd=hd, psz=16, p_max=6)
+        _check_case(case, cuda, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_cuda_kernel_all_idle_batch_is_zero(cuda, dtype, atol):
+    case = list(mixed_case(0, B=8, S=8, K=1, G=8, hd=256, psz=64, p_max=4))
+    case[5] = np.zeros_like(case[5])
+    args = _on_card(case, cuda, dtype)
+    out = tk.ragged_paged_attention(*args, 1)
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
+    assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_cuda_kernel_repeats_bit_identical(cuda, dtype, atol):
+    """Three launches back to back give the same bits: the counters reset
+    and the merge visits splits in a fixed order."""
+    args = _on_card(mixed_case(1, B=8, S=8, K=2, G=4, hd=64, psz=16, p_max=8), cuda, dtype)
+    outs = [tk.ragged_paged_attention(*args, 1) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    ref = tk.ragged_paged_attention_reference(*args, 1)
+    np.testing.assert_allclose(
+        outs[0].float().cpu().numpy(), ref.float().cpu().numpy(), rtol=atol, atol=atol
+    )

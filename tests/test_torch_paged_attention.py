@@ -3,6 +3,7 @@ package's Pallas kernel, run in interpret mode on the CPU as the reference
 tests run it. Same numpy-seeded inputs through both. fp32 throughout, so
 the tolerance (2e-5) only absorbs summation order."""
 
+import math
 import shutil
 
 import jax.numpy as jnp
@@ -41,6 +42,69 @@ def test_ragged_plain_matches_reference_jnp(seed):
     )
     out = tk.ragged_paged_attention_reference(*as_torch(q, kp, vp, table, starts, q_lens), 1)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def _split_and_merge(q, kp, vp, table, starts, q_lens, layer, chunk):
+    """The kernel's split arithmetic in plain PyTorch (fp32): each chunk of
+    `chunk` positions that starts before the row's last visible position
+    gives every query row a partial (m, l, unnormalised acc); the merge
+    skips partials with l == 0, rescales the rest to the largest m, and
+    writes acc / l where l > 0 and exact zeros elsewhere."""
+    B, S, K, G, hd = q.shape
+    rows = S * G
+    k = tk._gather_pages(kp, table, layer).float()  # [B, K, P, hd]
+    v = tk._gather_pages(vp, table, layer).float()
+    P = k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(B, K, rows, hd)  # row r: query r // G
+    s = torch.einsum("bkrh,bkph->bkrp", qf, k) * (1.0 / math.sqrt(hd))
+    qn = q_lens.long().clamp(0, S)
+    row_q = torch.arange(rows) // G
+    vis = torch.clamp(starts.long()[:, None] + row_q[None, :] + 1, max=P)  # [B, rows]
+    live = row_q[None, :] < qn[:, None]
+    mask = (torch.arange(P)[None, None, :] < vis[:, :, None]) & live[:, :, None]
+    s = torch.where(mask[:, None], s, torch.full_like(s, tk.NEG_INF))
+    lim = torch.where(qn > 0, torch.clamp(starts.long() + qn, max=P), torch.zeros_like(qn))
+    ms, ls, accs = [], [], []
+    for c0 in range(0, P, chunk):
+        sc = s[..., c0:c0 + chunk]
+        m = sc.max(-1).values
+        p = torch.where(sc <= tk.NEG_INF / 2, torch.zeros_like(sc), torch.exp(sc - m[..., None]))
+        work = (c0 < lim)[:, None, None]  # blocks past the last visible position compute nothing
+        ms.append(m)
+        ls.append(torch.where(work, p.sum(-1), torch.zeros_like(m)))
+        accs.append(torch.einsum("bkrp,bkph->bkrh", p, v[:, :, c0:c0 + chunk]))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    m_star = torch.where(l > 0, m, torch.full_like(m, tk.NEG_INF)).max(0).values
+    w = torch.where(l > 0, torch.exp(m - m_star), torch.zeros_like(m))
+    total = (l * w).sum(0)
+    merged = (w[..., None] * acc).sum(0)
+    out = torch.where(
+        total[..., None] > 0, merged / torch.clamp(total, min=1e-30)[..., None], torch.zeros_like(merged)
+    )
+    return out.reshape(B, K, S, G, hd).permute(0, 2, 1, 3, 4)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("chunk", ["half_page", "page", "table"])
+def test_split_merge_matches_reference_kernel_interpret(seed, chunk):
+    """Splitting a row's positions into chunks and merging the partials as
+    the CUDA kernel does gives the reference kernel's output (interpret
+    mode) and the plain version's, fp32 to 2e-5; pads and idle rows stay
+    exact zeros, and chunks that see nothing bring no NaN."""
+    q, kp, vp, table, starts, q_lens = mixed_case(seed)
+    psz, p_max = kp.shape[3], table.shape[1]
+    size = {"half_page": psz // 2, "page": psz, "table": p_max * psz}[chunk]
+    args = as_torch(q, kp, vp, table, starts, q_lens)
+    out = _split_and_merge(*args, 1, size)
+    assert bool(torch.isfinite(out).all())
+    ref = jref.ragged_paged_attention(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, starts, q_lens)), 1, interpret=True
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    plain = tk.ragged_paged_attention_reference(*args, 1)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **TOL)
+    for b, ql in enumerate(q_lens):
+        assert np.all(out[b, ql:].numpy() == 0.0), (seed, chunk, b)
 
 
 def test_ragged_n_pages_matches_reference():
