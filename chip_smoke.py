@@ -8,11 +8,12 @@ Phases, one line each (every number beside the card's name and power limit):
      checkout (one nvcc per source, all started together);
   3. kernel vs plain: each kernel against its plain PyTorch version on
      seeded batches at the serving shapes (bf16): a mixed batch, and the
-     serving bursts' mix of a few live rows among idle ones; with its device
-     time (CUDA-graph replays), the plain version's, one PyTorch library
-     call's (a yardstick the port never calls), the least time the card
-     could take, and the eager per-call times with host work included. The
-     attention kernel's ticket counters must be back at 0 after the phase;
+     serving bursts' mix of a few live rows among idle ones; with its time,
+     the plain version's and one PyTorch library call's (a yardstick the
+     port never calls), each by back-to-back eager calls (``ms``, host work
+     included) and as device time by CUDA-graph replays (``device_ms``),
+     and the least time the card could take (``bound_ms``). The attention
+     kernel's ticket counters must be back at 0 after the phase;
   4. forward check: prefill plus one paged decode forward of the trained
      checkpoint in float32, on the card (through the kernel) against the CPU
      (plain path);
@@ -83,13 +84,17 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def graph_ms(fn, calls: int = 20, replays: int = 20, warm_s: float = 0.1) -> float:
     """Device time of one call: ``calls`` calls captured in one CUDA graph
     and replayed, so the calls' host work (checks, allocation, the launch
-    itself) stays out of the number. The graph is replayed for ``warm_s``
-    first, so the card runs at its working clock when the timing starts."""
-    for _ in range(3):
-        fn()
+    itself) stays out of the number. The calls run eagerly first on the
+    stream that captures them, and the graph is replayed for ``warm_s``
+    before the timing, so the card runs at its working clock."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     t0 = time.monotonic()
@@ -135,19 +140,27 @@ def mixed_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype, live=None):
 
 
 def attention_bound(q, k_pages, table, starts, q_lens):
-    """(bound_ms, bound_by, bytes, flops): bytes = each live row's streamed
-    pages of K and V once, plus q, out and the int32 row data; flops = QK^T
-    and PV over each live query's visible positions, at the bf16 peak."""
-    from mcpx_torch.engine.kernels.paged_attention import ragged_n_pages
-
+    """(bound_ms, bound_by, bytes, flops) of what the function needs: the
+    live queries of q, each live row's visible K and V positions (through
+    min(start + q_len, Pmax*Psz)) and their page-table entries once, out in
+    full, and start_pos and q_lens; flops = QK^T and PV over each live
+    query's visible positions, at the bf16 peak."""
     B, S, K, G, hd = q.shape
-    psz, elt = k_pages.shape[3], q.element_size()
-    n = ragged_n_pages(starts.cpu(), q_lens.cpu(), psz, table.shape[1])
-    nbytes = int(n.sum()) * K * psz * hd * 2 * elt + 2 * q.numel() * elt + 4 * (table.numel() + 2 * B)
-    flops = 0
+    psz, elt, total = k_pages.shape[3], q.element_size(), table.shape[1] * k_pages.shape[3]
+    live_q = visible = pages = flops = 0
     for st, ql in zip(starts.tolist(), q_lens.tolist()):
+        if ql <= 0:
+            continue
+        lim = min(st + ql, total)
+        live_q += ql
+        visible += lim
+        pages += -(-lim // psz)
         for i in range(ql):
-            flops += K * G * 4 * hd * min(st + i + 1, table.shape[1] * psz)
+            flops += K * G * 4 * hd * min(st + i + 1, total)
+    nbytes = (
+        live_q * K * G * hd * elt + visible * K * hd * 2 * elt + q.numel() * elt
+        + 4 * (pages + 2 * B)
+    )
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
@@ -168,6 +181,49 @@ def sdpa_yardstick(q, k_pages, v_pages, table, starts, layer):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
 
 
+# (cell, G, hd, L, live): the trained `test` preset and the full-width `2b`
+# preset, at the serving geometry B=64, S=speculate_k=8, Psz=64, Pmax=4;
+# live=None is the mixed batch, live=n the serving bursts' mix (16 or 8
+# live rows of 64, the rest idle: where splitting pays).
+CELLS = (
+    ("test", 4, 32, 2, None), ("2b", 8, 256, 18, None),
+    ("test/serve_mix", 4, 32, 2, 16), ("2b/serve_mix", 8, 256, 18, 8),
+)
+
+
+def cell_batch(seed: int, G: int, hd: int, L: int, live):
+    return mixed_batch(seed, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16, live)
+
+
+def kernel_times(q, kp, vp, table, starts, q_lens, L) -> dict:
+    """The kernel, its plain version and one SDPA call on one batch (the
+    layer turning over on every call), by two methods in one call:
+      * ms, plain_ms, library_ms: back-to-back eager calls, host work
+        included (plain, kernel, kernel, plain; then SDPA);
+      * device_ms, plain_device_ms, library_device_ms: device time by
+        CUDA-graph replays, in the same order."""
+    from mcpx_torch.engine.kernels.paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_reference,
+    )
+
+    layers = iter(range(10**9))
+    run_k = lambda: ragged_paged_attention(  # noqa: E731
+        q, kp, vp, table, starts, q_lens, next(layers) % L
+    )
+    run_p = lambda: ragged_paged_attention_reference(  # noqa: E731
+        q, kp, vp, table, starts, q_lens, next(layers) % L
+    )
+    sdpa = sdpa_yardstick(q, kp, vp, table, starts, 0)
+    p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), time_ms(run_p, 10)
+    library_ms = time_ms(sdpa)
+    dp1, dk1, dk2, dp2 = graph_ms(run_p), graph_ms(run_k), graph_ms(run_k), graph_ms(run_p)
+    return dict(
+        ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=library_ms,
+        device_ms=min(dk1, dk2), plain_device_ms=min(dp1, dp2), library_device_ms=graph_ms(sdpa),
+    )
+
+
 def kernel_phase(card: str) -> list[dict]:
     from mcpx_torch.engine.kernels.paged_attention import (
         ragged_paged_attention,
@@ -175,21 +231,10 @@ def kernel_phase(card: str) -> list[dict]:
     )
 
     rows = []
-    # (cell, G, hd, L, live): the trained `test` preset and the full-width
-    # `2b` preset, at the serving geometry B=64, S=speculate_k=8, Psz=64,
-    # Pmax=4; live=None is the mixed batch, live=n the serving bursts' mix
-    # (16 or 8 live rows of 64, the rest idle: where splitting pays).
-    cells = (
-        ("test", 4, 32, 2, None), ("2b", 8, 256, 18, None),
-        ("test/serve_mix", 4, 32, 2, 16), ("2b/serve_mix", 8, 256, 18, 8),
-    )
-    for cell, G, hd, L, live in cells:
-        batch = lambda seed: mixed_batch(  # noqa: E731
-            seed, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16, live
-        )
+    for cell, G, hd, L, live in CELLS:
         worst = 0.0
         for seed in range(3):
-            q, kp, vp, table, starts, q_lens = batch(seed)
+            q, kp, vp, table, starts, q_lens = cell_batch(seed, G, hd, L, live)
             for layer in (0, L - 1):
                 out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, layer)
                 torch.cuda.synchronize()
@@ -201,30 +246,15 @@ def kernel_phase(card: str) -> list[dict]:
                 for b, ql in enumerate(q_lens.tolist()):
                     if bool((out[b, ql:] != 0).any()):
                         raise SystemExit(f"{cell}: row {b} pads are not exact zeros")
-        q, kp, vp, table, starts, q_lens = batch(0)
-        layers = iter(range(10**9))
-        run_k = lambda: ragged_paged_attention(  # noqa: E731
-            q, kp, vp, table, starts, q_lens, next(layers) % L
-        )
-        run_p = lambda: ragged_paged_attention_reference(  # noqa: E731
-            q, kp, vp, table, starts, q_lens, next(layers) % L
-        )
-        # Device times from graph replays: plain, kernel, kernel, plain, in
-        # turns inside one call. call_ms: back-to-back eager calls, host
-        # work included.
-        p1, k1, k2, p2 = graph_ms(run_p), graph_ms(run_k), graph_ms(run_k), graph_ms(run_p)
-        call_ms = time_ms(run_k)
-        sdpa = sdpa_yardstick(q, kp, vp, table, starts, 0)
-        library_ms, library_call_ms = graph_ms(sdpa), time_ms(sdpa)
+        q, kp, vp, table, starts, q_lens = cell_batch(0, G, hd, L, live)
+        times = kernel_times(q, kp, vp, table, starts, q_lens, L)
         bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, table, starts, q_lens)
-        ms = min(k1, k2)
         row = dict(
             cell=cell, B=64, S=8, K=1, G=G, hd=hd, L=L, page_size=64, max_pages=4,
             live_rows=int((q_lens > 0).sum()), dtype="bfloat16", max_abs_err=worst,
-            atol=ATOL, rtol=RTOL, ms=ms, plain_ms=min(p1, p2), library_ms=library_ms,
-            call_ms=call_ms, library_call_ms=library_call_ms,
-            bound_ms=bound_ms, bound_by=bound_by, ms_over_bound=ms / bound_ms,
-            bytes=nbytes, flops=flops,
+            atol=ATOL, rtol=RTOL, **times, bound_ms=bound_ms, bound_by=bound_by,
+            ms_over_bound=times["ms"] / bound_ms,
+            device_ms_over_bound=times["device_ms"] / bound_ms, bytes=nbytes, flops=flops,
         )
         emit("kernel_vs_plain", card, kernel="ragged_paged_attention", **row)
         rows.append(row)
@@ -416,9 +446,10 @@ def main(argv: list[str]) -> int:
             "name": name, **meta,
             "launches": trained["launches"][name] + full["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": headline["ms"], "plain_ms": headline["plain_ms"],
-            "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
-            "library_ms": headline["library_ms"],
+            **{k: headline[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "plain_device_ms", "library_device_ms",
+            )},
             "by_shape": rows,
         }
         for name, meta in KERNELS.items()

@@ -33,19 +33,18 @@
 //     17 MFLOP, tens of microseconds for one SM's mma.sync, and even at the
 //     test width a block walking a whole row pays a dependent chain of
 //     address math and softmax per tile.
-//   * Combine in the same launch. A row whose positions fit one chunk is
-//     written out by that block directly, and block 0 writes an idle row's
-//     zeros. Otherwise each block of the row with work writes its partial
-//     (m, l, unnormalised acc) in fp32 to scratch, fences, and takes a
-//     ticket on the row's counter; every block of the row takes one, empty
-//     ones too. The block that draws the last ticket merges the partials
-//     in split order (so the output does not depend on block timing),
-//     writes the whole [S, G, hd] window (zeros for pads) and resets the
-//     counter to 0. It keeps 16 loads of the partials in flight a thread,
-//     since one block reads them all. The counters assume launches
-//     that share them run one after another on one stream, which is how
-//     the engine calls it. A second combine launch would cost host time
-//     per layer on an engine the host already holds back.
+//   * Combine in the same launch. Block 0 writes an idle row's zeros. Each
+//     block of a live row with work writes its partial (m, l, unnormalised
+//     acc) in fp32 to scratch, fences, and takes a ticket on the row's
+//     counter; every block of the row takes one, empty ones too. The block
+//     that draws the last ticket merges the partials in split order (so
+//     the output does not depend on block timing), writes the whole
+//     [S, G, hd] window (zeros for pads) and resets the counter to 0. It
+//     keeps 16 loads of the partials in flight a thread, since one block
+//     reads them all. The counters assume that launches sharing them run
+//     one after another, so the wrapper keeps one buffer per stream. A
+//     second combine launch would cost host time per layer on an engine
+//     the host already holds back.
 //   * Asynchronous copies. The block computes its positions' pool offsets
 //     once, a thread a position, from the page table. K and V arrive by
 //     cp.async.cg (16 B a lane, a warp a position, zero-filled past the
@@ -446,10 +445,10 @@ struct MmaRows {
     }
   }
 
-  // Calls f(value of row r0 + 8u, column d, u) over this lane's live,
-  // unpadded accumulator pairs (columns d, d + 1).
-  template <int NP, typename F>
-  __device__ __forceinline__ void each_pair(const Args& a, const Block& blk, F&& f) {
+  // The unnormalised accumulator of this lane's live, unpadded pairs
+  // (columns d, d + 1 of rows r0 and r0 + 8) into the [rows, hd] partial.
+  template <int NP>
+  __device__ __forceinline__ void store_acc(const Args& a, const Block& blk, float* part) {
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int i = 0; i < NP; ++i)
@@ -459,7 +458,8 @@ struct MmaRows {
 #pragma unroll
         for (int u = 0; u < 2; ++u)
           if (d < a.hd && r0 + 8 * u < blk.live)
-            f(acc[i][4 * h + 2 * u], acc[i][4 * h + 2 * u + 1], r0 + 8 * u, d, u);
+            *reinterpret_cast<float2*>(part + (size_t)(r0 + 8 * u) * a.hd + d) =
+                make_float2(acc[i][4 * h + 2 * u], acc[i][4 * h + 2 * u + 1]);
       }
   }
 
@@ -469,11 +469,7 @@ struct MmaRows {
     if (!active) return;
     const int lane = threadIdx.x % 32, rows = a.S * a.G;
     const float ls[2] = {quad_sum(l[0]), quad_sum(l[1])};
-    by_pairs<kPairs>(np, [&](auto n) {
-      this->template each_pair<decltype(n)::value>(a, blk, [&](float x, float y, int r, int d, int) {
-        *reinterpret_cast<float2*>(part + (size_t)r * a.hd + d) = make_float2(x, y);
-      });
-    });
+    by_pairs<kPairs>(np, [&](auto n) { this->template store_acc<decltype(n)::value>(a, blk, part); });
     if (hs == 0 && (lane & 3) == 0)
 #pragma unroll
       for (int u = 0; u < 2; ++u)
@@ -481,23 +477,6 @@ struct MmaRows {
           ml[r0 + 8 * u] = m[u];
           ml[rows + r0 + 8 * u] = ls[u];
         }
-  }
-
-  // A row attended by one block: acc / l for the live rows.
-  __device__ __forceinline__ void store(const Args& a, const Layout&, unsigned char*,
-                                        const Block& blk) {
-    if (!active) return;
-    const float ls[2] = {quad_sum(l[0]), quad_sum(l[1])};
-    bf16* out = static_cast<bf16*>(a.out);
-    by_pairs<kPairs>(np, [&](auto n) {
-      this->template each_pair<decltype(n)::value>(a, blk, [&](float x, float y, int r, int d, int u) {
-        const int s = r / a.G, g = r - s * a.G;
-        const float lv = ls[u], den = fmaxf(lv, 1e-30f);
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd + d) =
-            lv > 0.f ? __floats2bfloat162_rn(x / den, y / den) : __floats2bfloat162_rn(0.f, 0.f);
-      });
-    });
   }
 };
 
@@ -589,24 +568,6 @@ struct SimtRows {
     for (int r = threadIdx.x; r < blk.live; r += kThreads) {
       ml[r] = m_s[r];
       ml[rows + r] = l_s[r];
-    }
-  }
-
-  // A row attended whole: acc / l for the live rows.
-  __device__ __forceinline__ void store(const Args& a, const Layout& lay, unsigned char* smem,
-                                        const Block& blk) {
-    const float* l_s = reinterpret_cast<const float*>(smem + lay.l);
-    float* out = static_cast<float*>(a.out);
-#pragma unroll
-    for (int j = 0; j < kAccF32; ++j) {
-      const int e = threadIdx.x + j * kThreads;
-      if (e < blk.live * a.hd) {
-        const int r = e / a.hd, d = e - r * a.hd;
-        const int s = r / a.G, g = r - s * a.G;
-        const float lv = l_s[r];
-        out[((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd + d] =
-            lv > 0.f ? acc[j] / fmaxf(lv, 1e-30f) : 0.f;
-      }
     }
   }
 };
@@ -760,14 +721,6 @@ ragged_paged_attention_kernel(const Args a) {
   const int nwork = cdiv(blk.lim, kChunk);  // blocks of this row with work
   blk.c0 = c * kChunk;
   blk.c1 = min(blk.lim, blk.c0 + kChunk);
-  if (nwork == 1) {  // the row fits one block: no partials, no merge
-    if (c != 0) return;
-    St st;
-    attend<T>(a, lay, smem, blk, st);
-    st.store(a, lay, smem, blk);
-    zero_rows<T>(a, blk, blk.live);
-    return;
-  }
 
   // Block c attends positions [c * kChunk, (c + 1) * kChunk) and leaves its
   // partial state in scratch.

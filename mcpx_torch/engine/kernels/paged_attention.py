@@ -165,42 +165,32 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# One int32 ticket counter per (row, kv-head), per device. The kernel's
-# last block of each (row, kv-head) resets its counter to 0, so the buffer
-# stays zero between launches. That holds while launches that share it run
-# one after another on one stream, which is how the engine calls the kernel.
-_TICKETS: dict[torch.device, torch.Tensor] = {}
+# One int32 ticket counter per (row, kv-head), per (device, stream). The
+# kernel's last block of each (row, kv-head) resets its counter to 0, so a
+# buffer is zero again when its launch ends. Launches on one stream run one
+# after another, so each finds its buffer zero; launches on different
+# streams may overlap, so each stream has a buffer of its own. The buffer
+# is made on its stream, so growing it is ordered with that stream's work.
+_TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    buf = _TICKETS.get(device)
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _TICKETS.get((device, stream))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # Its zeros would exist only when the graph replays.
+            raise EngineError(
+                "ragged_paged_attention: launch once on this stream, at this batch "
+                "size, before capturing it in a CUDA graph"
+            )
         buf = torch.zeros(n, dtype=torch.int32, device=device)
-        _TICKETS[device] = buf
+        _TICKETS[(device, stream)] = buf
     return buf
 
 
-_GEOMETRY: dict[tuple, int] = {}
-
-
-def _geometry(lib, S: int, G: int, hd: int, psz: int, p_max: int, dtype: int) -> int:
-    """Splits per (row, kv-head) for this shape, after checking once that a
-    block's shared memory fits the card."""
-    key = (S, G, hd, psz, p_max, dtype)
-    n_split = _GEOMETRY.get(key)
-    if n_split is None:
-        smem = lib.mcpx_ragged_paged_attention_smem(S, G, hd, psz, p_max, dtype)
-        if smem > SMEM_LIMIT:
-            raise EngineError(
-                f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})"
-            )
-        n_split = _GEOMETRY[key] = lib.mcpx_ragged_paged_attention_splits(p_max, psz)
-    return n_split
-
-
 def ticket_counters() -> list[torch.Tensor]:
-    """The kernel's ticket buffers, one per device it has run on; every
-    entry is 0 whenever no launch is in flight."""
+    """The kernel's ticket buffers, one per device and stream it has run on;
+    every entry is 0 whenever no launch is in flight."""
     return list(_TICKETS.values())
 
 
@@ -224,18 +214,21 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise EngineError("ragged_paged_attention: q and the pools must start on 16-byte boundaries")
     lib = _lib()
-    n_split = _geometry(lib, S, G, hd, psz, p_max, dtype)
+    smem = lib.mcpx_ragged_paged_attention_smem(S, G, hd, psz, p_max, dtype)
+    if smem > SMEM_LIMIT:
+        raise EngineError(f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})")
+    n_split = lib.mcpx_ragged_paged_attention_splits(p_max, psz)
     out = torch.empty_like(q)
     # fp32 scratch: the per-split unnormalised accumulators [B, K, n_split,
     # S*G, hd], then their (max, sum) [B, K, n_split, 2, S*G].
     n_acc = B * K * n_split * S * G * hd
     scratch = torch.empty(n_acc + B * K * n_split * 2 * S * G, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mcpx_ragged_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, B * K).data_ptr(),
-        B, S, K, G, hd, L, N, psz, p_max, layer, dtype,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, stream, B * K).data_ptr(),
+        B, S, K, G, hd, L, N, psz, p_max, layer, dtype, stream,
     )
     if rc != 0:
         raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")

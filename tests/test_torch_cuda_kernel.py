@@ -88,9 +88,9 @@ def test_cuda_kernel_matches_plain(cuda, dtype, atol, shape):
 @pytest.mark.parametrize("geometry", [{}, dict(S=8, G=8, hd=128, psz=4, p_max=40)])
 def test_cuda_kernel_many_pages_per_split(cuda, dtype, atol, geometry):
     """Many pages in one block, more than one kv-head: the default mixed
-    geometry (K 2, G 2, hd 16, Psz 4, Pmax 12), whose narrow rows one block
-    takes whole, and a wide one whose rows of two or more queries split
-    into chunks of 16 pages and merge."""
+    geometry (K 2, G 2, hd 16, Psz 4, Pmax 12), whose rows fit one split,
+    and a wide one whose rows of two or more queries split into chunks of
+    16 pages and merge."""
     for seed in range(3):
         _check_case(mixed_case(seed, **geometry), cuda, dtype, atol)
 
@@ -130,3 +130,27 @@ def test_cuda_kernel_repeats_bit_identical(cuda, dtype, atol):
     np.testing.assert_allclose(
         outs[0].float().cpu().numpy(), ref.float().cpu().numpy(), rtol=atol, atol=atol
     )
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_two_streams_keep_their_own_counters(cuda):
+    """Launches on two streams of one device may overlap; each stream has
+    its own ticket counters, so every output equals that of a launch alone
+    and every counter is back at 0."""
+    cases = [
+        _on_card(mixed_case(seed, B=8, S=8, K=1, G=8, hd=256, psz=64, p_max=4), cuda, torch.bfloat16)
+        for seed in (0, 1)
+    ]
+    alone = [tk.ragged_paged_attention(*args, 1) for args in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                outs[i].append(tk.ragged_paged_attention(*args, 1))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, alone[i]) for o in outs[i])
+    assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing in ``mcpx_torch`` or ``chip_smoke.py``
-imports JAX or the reference package, the package imports and builds a CPU
+"""The port stands alone: nothing in ``mcpx_torch``, ``chip_smoke.py`` or
+``kernel_ab.py`` imports JAX or the reference package, the package imports and builds a CPU
 control plane with both blocked, and its entry points never drop to the CPU
 on their own."""
 
@@ -20,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources() -> list[str]:
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_ab.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "mcpx_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
