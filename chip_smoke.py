@@ -7,8 +7,9 @@ Phases, one line each (every number beside the card's name and power limit):
   2. build: every CUDA kernel of the port, compiled from the sources in this
      checkout (one nvcc per source, all started together);
   3. kernel vs plain: each kernel against its plain PyTorch version on
-     seeded batches at the serving shapes (bf16): a mixed batch, and the
-     serving bursts' mix of a few live rows among idle ones; with its time,
+     seeded batches at the serving shapes (bf16): a mixed batch, the
+     serving bursts' mix of a few live rows among idle ones, and a
+     suffix-prefill cohort at prefill width (S 128); with its time,
      the plain version's and one PyTorch library call's (a yardstick the
      port never calls), each by back-to-back eager calls (``ms``, host work
      included) and as device time by CUDA-graph replays (``device_ms``),
@@ -21,11 +22,17 @@ Phases, one line each (every number beside the card's name and power limit):
      ``ControlPlane.plan``, every plan LLM-authored and valid;
   6. serve at full width: the 2b preset (random weights from seed 0), 8
      concurrent /plan requests;
+  7. serve with prefix reuse, on the engines of phases 5 and 6: a stream
+     that repeats its intents (8 x 4 on the trained checkpoint, 4 x 4 at
+     2b), 16 in flight, with the radix prefix cache off and then on (a live
+     flip on an idle slab). Every plan valid, the same plans in both modes,
+     tree hits and suffix prefills through the kernel, and fewer prefill
+     tokens per request with the cache on;
 then the kernels line, the card line and the result line. ``--profile`` adds,
-after each serving phase, one more pass of its requests under
+after each serving phase of 5 and 6, one more pass of its requests under
 ``torch.profiler`` with the device time by kernel and the idle share. Any failed phase
 exits non-zero before the result line. The kernel launch counters are set to
-0 just before each serving phase and read just after it.
+0 just before each serving run and read just after it.
 """
 
 from __future__ import annotations
@@ -139,6 +146,28 @@ def mixed_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype, live=None):
     return q, kp, vp, table, as_i32(starts), as_i32(q_lens)
 
 
+def prefill_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype, starts=(0, 64, 128), idle=2):
+    """A suffix-prefill cohort: random distinct pages, q_len uniform in
+    1..S, each row's start drawn from ``starts`` (those that leave room for
+    S queries), ``idle`` idle rows among them."""
+    rng = random.Random(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n_pages = B * pmax + 1
+    q = torch.randn((B, S, K, G, hd), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((K, L, n_pages, psz, hd), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((K, L, n_pages, psz, hd), generator=gen, device="cuda").to(dtype)
+    pages = list(range(1, n_pages))
+    rng.shuffle(pages)
+    table = torch.tensor(pages[: B * pmax], dtype=torch.int32).reshape(B, pmax).cuda()
+    fits = [s for s in starts if s + S <= pmax * psz]
+    idle_rows = set(rng.sample(range(B), idle))
+    q_lens = [0 if b in idle_rows else rng.randint(1, S) for b in range(B)]
+    st = [rng.choice(fits) for _ in range(B)]
+    as_i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
+    return q, kp, vp, table, as_i32(st), as_i32(q_lens)
+
+
 def attention_bound(q, k_pages, table, starts, q_lens):
     """(bound_ms, bound_by, bytes, flops) of what the function needs: the
     live queries of q, each live row's visible K and V positions (through
@@ -184,14 +213,19 @@ def sdpa_yardstick(q, k_pages, v_pages, table, starts, layer):
 # (cell, G, hd, L, live): the trained `test` preset and the full-width `2b`
 # preset, at the serving geometry B=64, S=speculate_k=8, Psz=64, Pmax=4;
 # live=None is the mixed batch, live=n the serving bursts' mix (16 or 8
-# live rows of 64, the rest idle: where splitting pays).
+# live rows of 64, the rest idle: where splitting pays). live="prefill" is
+# a suffix-prefill cohort at prefill width: B 16, S 128 (the prefill
+# bucket), starts 0, 64 or 128, two idle rows.
 CELLS = (
     ("test", 4, 32, 2, None), ("2b", 8, 256, 18, None),
     ("test/serve_mix", 4, 32, 2, 16), ("2b/serve_mix", 8, 256, 18, 8),
+    ("test/prefill", 4, 32, 2, "prefill"), ("2b/prefill", 8, 256, 18, "prefill"),
 )
 
 
 def cell_batch(seed: int, G: int, hd: int, L: int, live):
+    if live == "prefill":
+        return prefill_batch(seed, 16, 128, 1, G, hd, L, 64, 4, torch.bfloat16)
     return mixed_batch(seed, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16, live)
 
 
@@ -250,7 +284,7 @@ def kernel_phase(card: str) -> list[dict]:
         times = kernel_times(q, kp, vp, table, starts, q_lens, L)
         bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, table, starts, q_lens)
         row = dict(
-            cell=cell, B=64, S=8, K=1, G=G, hd=hd, L=L, page_size=64, max_pages=4,
+            cell=cell, B=q.shape[0], S=q.shape[1], K=1, G=G, hd=hd, L=L, page_size=64, max_pages=4,
             live_rows=int((q_lens > 0).sum()), dtype="bfloat16", max_abs_err=worst,
             atol=ATOL, rtol=RTOL, **times, bound_ms=bound_ms, bound_by=bound_by,
             ms_over_bound=times["ms"] / bound_ms,
@@ -354,8 +388,12 @@ def device_breakdown(prof, wall_s: float, top: int = 8) -> dict:
 
 
 async def serve(
-    size: str, checkpoint: str, n_intents: int, card: str, batch: int, profile: bool = False
-) -> tuple[dict, list]:
+    size: str, checkpoint: str, n_intents: int, card: str, batch: int, profile: bool = False,
+    after=None,
+) -> tuple[dict, list, object]:
+    """Serve ``n_intents`` concurrent /plan requests on a fresh control
+    plane; then, on the same engine, ``after(cp, records)`` when given.
+    Returns (stats, plans, what ``after`` returned)."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for, synth_registry
@@ -400,9 +438,78 @@ async def serve(
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
             emit(f"profile_{size}", card, **device_breakdown(prof, wall))
-        return stats, plans
+        extra = await after(cp, records) if after is not None else None
+        return stats, plans, extra
     finally:
         await cp.aclose()
+
+
+async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: str) -> dict:
+    """Serve a stream that repeats its intents (``n_unique`` intents,
+    ``reps`` times each, 16 in flight; the pool built as the reference
+    bench's prefix phase builds it) with the radix prefix cache off, then
+    on, on one engine (a live flip on an idle slab). Prints each mode's
+    line and fails unless every plan is valid, the two modes give the same
+    plans, the cache hits, suffix prefills run through the kernel, and the
+    prefill tokens per request fall with the cache on."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.utils.synth import intent_for
+
+    engine = cp.planner.engine
+    ecfg = engine.config.engine
+    rng = random.Random(23)
+    pool = [f"{intent_for(records, rng)} [pfx{i}]" for i in range(n_unique)]
+    intents = [pool[i % n_unique] for i in range(n_unique * reps)]
+    n = len(intents)
+
+    async def run(on: bool) -> tuple[dict, list]:
+        while engine.queue_stats()["active_rows"] or engine.queue_stats()["queue_depth"]:
+            await asyncio.sleep(0.05)
+        ecfg.prefix_cache = on
+        sem = asyncio.Semaphore(16)
+
+        async def one(intent: str):
+            async with sem:
+                return await cp.plan(intent, use_cache=False)
+
+        q0, c0 = engine.queue_stats(), engine.prefix_cache_stats()
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.monotonic()
+        results = await asyncio.gather(*(one(i) for i in intents))
+        wall = time.monotonic() - t0
+        launches = kernel_launches()
+        q1, c1 = engine.queue_stats(), engine.prefix_cache_stats()
+        plans = [p for p, _ in results]
+        lat = sorted(ms for _, ms in results)
+        for p in plans:
+            p.validate()
+        stats = dict(
+            model=size, prefix_cache=on, intents=n, unique=n_unique, in_flight=16, wall_s=wall,
+            plans_per_s=n / wall, p50_ms=lat[n // 2],
+            **{k: c1[k] - c0[k] for k in ("hits", "misses", "matched_tokens")},
+            prefill_tokens_per_request=(q1["prefill_tokens"] - q0["prefill_tokens"]) / n,
+            suffix_prefills=q1["suffix_prefills"] - q0["suffix_prefills"],
+            suffix_prefill_launches=q1["suffix_prefill_launches"] - q0["suffix_prefill_launches"],
+            origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
+            launches=launches,
+        )
+        emit(f"serve_prefix_{size}", card, **stats)
+        return stats, plans
+
+    try:
+        off, off_plans = await run(False)
+        on, on_plans = await run(True)
+    finally:
+        ecfg.prefix_cache = False
+    differ = [i for i, (a, b) in enumerate(zip(off_plans, on_plans)) if a.to_json() != b.to_json()]
+    if differ:
+        raise SystemExit(f"serve_prefix_{size}: plans differ between the modes at {differ}")
+    if on["hits"] <= 0 or on["suffix_prefills"] <= 0 or on["suffix_prefill_launches"] <= 0:
+        raise SystemExit(f"serve_prefix_{size}: no reuse through the kernel: {on}")
+    if not on["prefill_tokens_per_request"] < off["prefill_tokens_per_request"]:
+        raise SystemExit(f"serve_prefix_{size}: the cache did not cut prefill tokens: {off} {on}")
+    return {"off": off, "on": on}
 
 
 def main(argv: list[str]) -> int:
@@ -430,12 +537,22 @@ def main(argv: list[str]) -> int:
     rows = kernel_phase(card)
     forward_check(card)
 
-    trained, _ = asyncio.run(serve("test", CKPT, 16, card, batch=64, profile=args.profile))
+    trained, _, trained_pfx = asyncio.run(serve(
+        "test", CKPT, 16, card, batch=64, profile=args.profile,
+        after=lambda cp, recs: prefix_reuse(cp, recs, "test", 8, 4, card),
+    ))
     if trained["origins"] != {"llm": 16}:
         raise SystemExit(f"trained checkpoint: not every plan is LLM-authored: {trained['origins']}")
-    full, _ = asyncio.run(serve("2b", "", 8, card, batch=64, profile=args.profile))
+    for mode in ("off", "on"):
+        if trained_pfx[mode]["origins"] != {"llm": 32}:
+            raise SystemExit(f"serve_prefix_test {mode}: not every plan is LLM-authored")
+    full, _, full_pfx = asyncio.run(serve(
+        "2b", "", 8, card, batch=64, profile=args.profile,
+        after=lambda cp, recs: prefix_reuse(cp, recs, "2b", 4, 4, card),
+    ))
+    runs = [trained, full] + [r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")]
     for name in KERNELS:
-        for st in (trained, full):
+        for st in runs:
             if st["launches"][name] <= 0:
                 raise SystemExit(f"{name} was not launched while serving {st['model']}")
     check_tickets("serving")
@@ -444,7 +561,7 @@ def main(argv: list[str]) -> int:
     kernels = [
         {
             "name": name, **meta,
-            "launches": trained["launches"][name] + full["launches"][name],
+            "launches": sum(st["launches"][name] for st in runs),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

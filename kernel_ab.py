@@ -7,12 +7,13 @@ Each TREE is a checkout of this repository, for instance a ``git archive`` of
 an earlier commit unpacked into a gitignored directory. Every tree's kernels
 are built first, all at once. Then each tree's ``ragged_paged_attention`` is
 timed in a process of its own, in the order given and then reversed
-(A B B A), at the four batches of ``chip_smoke.py``'s kernel phase, by both
+(A B B A), at the batches of ``chip_smoke.py``'s kernel phase, by both
 of its methods: back-to-back eager calls (``ms``, host work included) and
 device time by CUDA-graph replays (``device_ms``), with the plain version and
 one SDPA call beside them. Each process first holds its kernel against the
 plain version (atol = rtol = 2e-2). One JSON line per tree and batch, with
-the card's name and power limit.
+the card's name and power limit; a batch whose shape a tree's kernel does
+not take (an older kernel's narrower domain) gets a line saying so.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ def child(tree: str, run: int) -> None:
     import chip_smoke as cs  # from this checkout; mcpx_torch from the tree
 
     sys.path.insert(0, tree)
+    from mcpx_torch.core.errors import EngineError
     from mcpx_torch.engine.kernels.paged_attention import (
         ragged_paged_attention,
         ragged_paged_attention_reference,
@@ -43,7 +45,13 @@ def child(tree: str, run: int) -> None:
     card = cs.card_line()
     for cell, G, hd, L, live in cs.CELLS:
         q, kp, vp, table, starts, q_lens = cs.cell_batch(0, G, hd, L, live)
-        out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, L - 1)
+        try:
+            out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, L - 1)
+        except EngineError as e:
+            if "unsupported shape" not in str(e):
+                raise
+            print(json.dumps({"tree": tree, "run": run, "cell": cell, "card": card, "refused": str(e)}))
+            continue
         ref = ragged_paged_attention_reference(q, kp, vp, table, starts, q_lens, L - 1)
         err = (out.float() - ref.float()).abs()
         if bool((err > cs.ATOL + cs.RTOL * ref.float().abs()).any()):

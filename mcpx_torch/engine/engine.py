@@ -8,9 +8,16 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
   - requests funnel through a thread-safe queue into one worker thread that
     owns a slab of ``max_batch_size`` decode rows;
   - admission takes a cohort of compatible requests (same constrained flag,
-    temperature and grammar object) into free rows: a dense prefill of the
-    padded prompts, a scatter of its K/V into the page pools, and the first
-    constrained sample under the budget mask;
+    temperature and grammar object) into free rows. With the radix prefix
+    cache on (``engine.prefix_cache``, the default) each prompt is matched
+    against the tree of resident prompt heads: the matched pages are pinned
+    and put first in the row's page table, and a cohort with any match
+    prefills only its suffixes in one ``decode_chunk_paged`` call at prefill
+    width (the ragged kernel with per-row start offsets). A cohort with no
+    match takes a dense prefill of the padded prompts and a scatter of its
+    K/V into the page pools. The page-aligned rest of every prompt is
+    inserted into the tree for the next request sharing it. Then comes the
+    first constrained sample under the budget mask;
   - decode runs in segments of up to ``decode_steps_per_tick *
     steps_per_dispatch`` forwards. Every forward is one ``decode_chunk_paged``
     call over the whole slab whose window is ``speculate_k`` wide: the
@@ -20,9 +27,9 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
   - between segments the worker retires finished rows and admits new ones.
 
 Left out for later slices: pipelined dispatch, the heterogeneous slab,
-prompt drafting and speculative decoding, the radix prefix cache (the
-``shared_prefix_len`` hint is accepted and ignored), spill and snapshots,
-multi-GPU, and telemetry. Greedy outputs do not depend on any of them.
+prompt drafting and speculative decoding, the KV tier (host spill, tenant
+governance, warm heads from snapshots), multi-GPU, and telemetry. Greedy
+outputs do not depend on any of them.
 
 The device is explicit: ``device=None`` means CUDA and raises when CUDA is
 absent; tests pass ``device="cpu"``. The tensors' device decides the
@@ -50,12 +57,15 @@ from mcpx_torch.device import resolve_device
 from mcpx_torch.engine.kernels.paged_attention import kernel_launches
 from mcpx_torch.engine.kv_cache import PageAllocator, commit_prefill_to_pages, init_paged_kv
 from mcpx_torch.engine.paged_decode import decode_chunk_paged
+from mcpx_torch.engine.prefix_cache import PrefixNode, RadixPrefixCache
 from mcpx_torch.engine.sampling import sample
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import init_kv_cache, prefill
 from mcpx_torch.models.gemma.params import load_or_init
 from mcpx_torch.models.tokenizer import make_tokenizer
 from mcpx_torch.planner.grammar import PlanGrammar, build_plan_grammar
+from mcpx_torch.scheduler.admission import ewma_update
+from mcpx_torch.scheduler.locality import locality_order
 
 log = logging.getLogger("mcpx_torch.engine")
 
@@ -72,6 +82,45 @@ class GenerateRequest:
     # Grammar to constrain with (None = the engine's generic plan grammar).
     # Requests sharing a grammar OBJECT share the slab.
     grammar: Optional[PlanGrammar] = None
+    # The first `shared_prefix_len` prompt ids are common to many requests
+    # (the planner's fixed header): with the prefix cache on, the engine
+    # builds that head into the radix tree before the cohort prefills, so
+    # even the first cohort shares it. Matching itself is per request
+    # against the whole tree. 0 disables the hint.
+    shared_prefix_len: int = 0
+    # EDF deadline (time.monotonic) from the serving scheduler: the
+    # locality sort never regroups a request that cannot afford the wait.
+    deadline_at: Optional[float] = None
+    # Tenant of the request; inert until cache governance is ported.
+    tenant: str = "default"
+
+    def prefix_key(self, page_size: int) -> Optional[tuple]:
+        """Page-aligned shared prefix as the cache key (None = no sharing).
+        Alignment truncates, and at least one token stays in the suffix
+        (the engine samples from the suffix prefill's last logit)."""
+        n = min(self.shared_prefix_len, len(self.prompt_ids) - 1)
+        n = (n // page_size) * page_size
+        if n < page_size:
+            return None
+        return tuple(self.prompt_ids[:n])
+
+
+@dataclasses.dataclass
+class _PinPrefixOp:
+    """Worker-queue op: pin the deepest resident radix node whose path
+    prefixes ``ids``; resolves ``future`` with the node, or None when
+    nothing is resident. The worker applies it between segments."""
+
+    ids: list[int]
+    future: "asyncio.Future[Optional[PrefixNode]]"
+    loop: asyncio.AbstractEventLoop
+
+
+@dataclasses.dataclass
+class _UnpinPrefixOp:
+    """Worker-queue op: release a ``_PinPrefixOp`` pin."""
+
+    node: PrefixNode
 
 
 @dataclasses.dataclass
@@ -104,6 +153,10 @@ class _Slab:
         self.steps = steps
         self.req: list[Optional[GenerateRequest]] = [None] * B
         self.sid: list[Optional[tuple]] = [None] * B
+        # Radix nodes each row pins (its matched and inserted runs) and its
+        # matched depth in tokens; released with the row.
+        self.prefix: list[tuple] = [()] * B
+        self.prefix_toks = np.zeros((B,), np.int64)
         self.queue_ms = np.zeros((B,), np.float64)
         self.prefill_ms = np.zeros((B,), np.float64)
         self.t_decode0 = np.zeros((B,), np.float64)
@@ -169,12 +222,24 @@ class InferenceEngine:
         self._seq_counter = 0
         self._last_admit_t = 0.0
         self._generator: Optional[torch.Generator] = None
-        # Worker-thread counters, read cross-thread by queue_stats().
-        self._stats = {"admissions": 0, "segments": 0, "decode_forwards": 0, "retired": 0}
+        # Worker-thread counters, read cross-thread by queue_stats():
+        # prefill_tokens counts the tokens every prefill computed (prefix
+        # builds included), suffix_prefills the prefills at a matched offset
+        # and suffix_prefill_launches the kernel launches they made.
+        self._stats = {
+            "admissions": 0, "segments": 0, "decode_forwards": 0, "retired": 0,
+            "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
+        }
+        # Service-time EWMA (s) of retired requests: the locality sort's
+        # deadline slack.
+        self._ewma_service_s = 0.0
         self._allocator = PageAllocator(
             n_pages=max(2, ecfg.max_batch_size * ecfg.max_pages_per_seq + 1),
             page_size=ecfg.kv_page_size,
             max_pages_per_seq=ecfg.max_pages_per_seq,
+        )
+        self._prefix_cache = RadixPrefixCache(
+            self._allocator, ecfg.kv_page_size, max_nodes=max(0, ecfg.prefix_cache_entries)
         )
         self._prefill_buckets = tuple(
             b
@@ -252,10 +317,10 @@ class InferenceEngine:
         deadline_at: Optional[float] = None,
         tenant: str = "default",
     ) -> GenerateResult:
-        """Decode a continuation of ``prompt_ids``. ``shared_prefix_len``,
-        ``deadline_at`` and ``tenant`` are accepted for the planner's call
-        shape; this engine has no prefix cache or locality sort to use them."""
-        del shared_prefix_len, deadline_at, tenant
+        """Decode a continuation of ``prompt_ids``. ``shared_prefix_len``
+        declares a head common to many requests (built into the prefix
+        cache before the cohort that needs it); ``deadline_at`` bounds what
+        the locality sort may reorder; ``tenant`` rides along."""
         if self.state != "ready":
             raise EngineError(f"engine not ready (state={self.state})")
         ecfg = self.config.engine
@@ -269,15 +334,41 @@ class InferenceEngine:
             loop=loop,
             enqueued_at=time.monotonic(),
             grammar=grammar,
+            shared_prefix_len=shared_prefix_len,
+            deadline_at=deadline_at,
+            tenant=tenant,
         )
         self._queue.put(req)
         return await req.future
 
+    async def pin_prefix(self, prompt_ids: list[int]) -> Optional[PrefixNode]:
+        """Pin the deepest resident radix node whose path prefixes
+        ``prompt_ids`` so eviction cannot reclaim it; returns a handle for
+        ``unpin_prefix`` (None when nothing is resident, the cache is off or
+        the engine is not serving). The worker applies the pin, as it
+        applies every change to the tree."""
+        if self.state != "ready" or not self.config.engine.prefix_cache:
+            return None
+        loop = asyncio.get_running_loop()
+        fut: "asyncio.Future[Optional[PrefixNode]]" = loop.create_future()
+        self._queue.put(_PinPrefixOp(list(prompt_ids), fut, loop))
+        return await fut
+
+    def unpin_prefix(self, handle: Optional[PrefixNode]) -> None:
+        """Release a ``pin_prefix`` pin (None is ignored); the worker
+        applies it at its next queue drain."""
+        if handle is None or self.state == "closed":
+            return
+        self._queue.put(_UnpinPrefixOp(handle))
+
     def prompt_capacity(self, max_new_tokens: int = 0, shared_prefix_len: int = 0) -> int:
         """Longest prompt (in tokens) the engine serves beside a
-        ``max_new_tokens`` decode budget — the page-capacity and
-        prefill-bucket geometry the planner trims its prompt to."""
-        del shared_prefix_len  # no prefix cache: the full-prefill geometry holds
+        ``max_new_tokens`` decode budget: the page-capacity and
+        prefill-bucket geometry the planner trims its prompt to. With a
+        shared prefix (and the cache on) the suffix must fit a prefill
+        bucket beside the prefix's pages, which can bring the capacity below
+        the full-prefill one; admission may still take the full path, so
+        the answer is the smaller of the two."""
         ecfg = self.config.engine
         capacity = ecfg.max_pages_per_seq * ecfg.kv_page_size
         chunk = self._spec_chunk(True)
@@ -286,15 +377,30 @@ class InferenceEngine:
             max_new_tokens or ecfg.max_decode_len,
             max(1, min(ecfg.max_decode_len, capacity - 1 - slack)),
         )
-        eligible = [b for b in self._prefill_buckets if b <= capacity]
-        if not eligible:
+        full_eligible = [b for b in self._prefill_buckets if b <= capacity]
+        if not full_eligible:
             return 1
-        return max(1, min(eligible[-1], capacity - budget - slack))
+        full_cap = max(1, min(full_eligible[-1], capacity - budget - slack))
+        P = 0
+        if ecfg.prefix_cache and shared_prefix_len:
+            P = (shared_prefix_len // ecfg.kv_page_size) * ecfg.kv_page_size
+        if not P:
+            return full_cap
+        eligible = [b for b in self._prefill_buckets if b + P <= capacity]
+        if not eligible:
+            return full_cap
+        prefix_cap = max(1, P + min(eligible[-1], capacity - P - budget - slack))
+        return min(full_cap, prefix_cap)
 
     def kernel_launches(self) -> dict[str, int]:
         """Launches of each CUDA kernel in this process (the wrappers' own
         counters; CPU runs take the plain versions and count nothing)."""
         return kernel_launches()
+
+    def prefix_cache_stats(self) -> dict:
+        """Counter snapshot of the radix prefix cache; ``enabled`` is the
+        live config flag."""
+        return {"enabled": bool(self.config.engine.prefix_cache), **self._prefix_cache.stats()}
 
     def queue_stats(self) -> dict:
         slab = self._slab
@@ -302,6 +408,7 @@ class InferenceEngine:
             "queue_depth": self._queue.qsize(),
             "active_rows": slab.n_active if slab is not None else 0,
             "kernel_launches": kernel_launches(),
+            "prefix_token_hit_rate": self._prefix_cache.stats()["token_hit_rate"],
             **dict(self._stats),
         }
 
@@ -392,6 +499,8 @@ class InferenceEngine:
                 except BaseException as e:  # keep the worker alive
                     log.exception("engine step failed; failing resident rows")
                     self._fail_rows(slab, e)
+                    # The pools may hold partial writes: serve no cached KV.
+                    self._prefix_cache.drop_all()
         closed = EngineError("engine closed")
         self._fail_rows(slab, closed)
         for r in pending:
@@ -401,8 +510,10 @@ class InferenceEngine:
                 r = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if r is not None:
+            if isinstance(r, GenerateRequest):
                 r.loop.call_soon_threadsafe(_resolve, r.future, None, closed)
+            elif isinstance(r, _PinPrefixOp):
+                r.loop.call_soon_threadsafe(_resolve, r.future, None, None)
 
     def _drain_queue(self, pending: "deque[GenerateRequest]", block: bool) -> None:
         """Move queued requests into ``pending``. When idle, wait for the
@@ -417,7 +528,8 @@ class InferenceEngine:
             if item is None:
                 self._stop = True
                 return
-            pending.append(item)
+            if not self._apply_prefix_op(item):
+                pending.append(item)
             try:
                 item = self._queue.get_nowait()
             except queue.Empty:
@@ -432,7 +544,24 @@ class InferenceEngine:
                 if item is None:
                     self._stop = True
                     return
-                pending.append(item)
+                if not self._apply_prefix_op(item):
+                    pending.append(item)
+
+    def _apply_prefix_op(self, item: Any) -> bool:
+        """Apply a pin or unpin riding the request queue; returns whether
+        ``item`` was one. Pins travel through the queue so that only the
+        worker changes the tree."""
+        if isinstance(item, _PinPrefixOp):
+            node = self._prefix_cache.lookup(item.ids)
+            if node is not None:
+                node.refs += 1
+            item.loop.call_soon_threadsafe(_resolve, item.future, node, None)
+            return True
+        if isinstance(item, _UnpinPrefixOp):
+            if item.node.refs > 0:
+                item.node.refs -= 1
+            return True
+        return False
 
     def _reap_cancelled(self, slab: _Slab) -> None:
         for i in range(slab.B):
@@ -441,9 +570,14 @@ class InferenceEngine:
                 self._release_row(slab, i)
 
     def _release_row(self, slab: _Slab, i: int) -> None:
-        """Pages back to the allocator, the row's device state cleared: its
-        page-table row zeroed (later writes land on the null page)."""
+        """Pages back to the allocator, the row's radix pins released, the
+        row's device state cleared: its page-table row zeroed (later writes
+        land on the null page)."""
         self._allocator.free(slab.sid[i])
+        for node in slab.prefix[i]:
+            node.refs -= 1
+        slab.prefix[i] = ()
+        slab.prefix_toks[i] = 0
         slab.req[i] = None
         slab.sid[i] = None
         d = slab.dev
@@ -469,7 +603,10 @@ class InferenceEngine:
         head request's sampling config; an incompatible head that has waited
         ``fairness_timeout_s`` stops admissions so the slab drains; a busy
         slab with few free rows waits (up to ``admit_max_wait_s``) for a
-        worthwhile cohort."""
+        worthwhile cohort. With the prefix cache on, the pending line is
+        sorted by resident prefix depth (EDF-safe) and the head request's
+        declared shared prefix is built into the tree first, held for the
+        whole admission."""
         ecfg = self.config.engine
         free = slab.free_rows()
         if slab.n_active == 0:
@@ -485,18 +622,169 @@ class InferenceEngine:
             time.monotonic() - self._last_admit_t < ecfg.admit_max_wait_s
         ):
             return
-        if not any(slab.compatible(r) for r in pending):
+        if ecfg.prefix_cache:
+            self._locality_sort(slab, pending)
+        head_req = next((r for r in pending if slab.compatible(r)), None)
+        if head_req is None:
             return
-        self._admit_cohort(slab, pending)
+        head_key = head_req.prefix_key(ecfg.kv_page_size) if ecfg.prefix_cache else None
+        hold: Optional[PrefixNode] = None
+        if head_key is not None:
+            try:
+                hold = self._ensure_prefix(head_key)
+            except BaseException as e:  # the build's failure fails the residents
+                log.exception("prefix build failed; failing resident rows")
+                self._fail_rows(slab, e)
+                self._prefix_cache.drop_all()
+                return
+        if hold is not None:
+            # Page-pressure eviction inside the cohort must not free the
+            # head this admission wires into page tables.
+            hold.refs += 1
+        try:
+            self._admit_cohort(slab, pending)
+        finally:
+            if hold is not None:
+                hold.refs -= 1
+
+    def _locality_sort(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
+        """Reorder the pending line by shared-prefix depth against the
+        resident tree, deepest first, through the EDF-safe sort: over-age
+        requests and requests whose deadline cannot afford a regroup keep
+        earliest-deadline-first order at the front. Stable, so an empty tree
+        keeps arrival order; bounded to four slabs' worth of requests."""
+        if len(pending) < 2 or not self._prefix_cache.n_nodes:
+            return
+        window = min(len(pending), 4 * slab.B)
+        items = list(pending)
+        head, tail = items[:window], items[window:]
+        cache = self._prefix_cache
+        ordered = locality_order(
+            head,
+            now=time.monotonic(),
+            depth_of=lambda r: cache.probe(r.prompt_ids),
+            enqueued_of=lambda r: r.enqueued_at,
+            deadline_of=lambda r: r.deadline_at,
+            age_cap_s=self.config.engine.fairness_timeout_s,
+            # A request that is not urgent tolerates about one regrouped
+            # cohort: two service intervals plus dispatch noise.
+            deadline_slack_s=2.0 * self._ewma_service_s + 0.05,
+        )
+        if any(a is not b for a, b in zip(ordered, head)):
+            pending.clear()
+            pending.extend(ordered)
+            pending.extend(tail)
+
+    def _ensure_prefix(self, key: tuple) -> Optional[PrefixNode]:
+        """Make the declared shared head ``key`` resident in the tree,
+        prefilling only what the tree does not hold yet (one row: a suffix
+        prefill from the matched depth, or a dense prefill from 0). Returns
+        the deepest node covering ``key`` (unpinned), or None when it cannot
+        be built now (pages, capacity); rows then reuse whatever is
+        resident."""
+        ecfg = self.config.engine
+        cache = self._prefix_cache
+        psz = ecfg.kv_page_size
+        P = len(key)
+        capacity = ecfg.max_pages_per_seq * psz
+        n, pages, mnode = cache.match(key, cap=P, record=False)
+        if n == P:
+            return mnode
+        # The head must leave room for a minimal suffix and decode budget,
+        # and its unmatched rest must fit a prefill bucket: checked before
+        # any page is allocated.
+        R = P - n
+        eligible = tuple(b for b in self._prefill_buckets if b + n <= capacity)
+        if (
+            not eligible
+            or R > eligible[-1]
+            or P + self._prefill_buckets[0] + ecfg.max_decode_len > capacity
+        ):
+            return None
+        T = _bucket(R, eligible)
+        if mnode is not None:
+            mnode.refs += 1  # the insert below may evict under pressure
+        node = cache.insert(key, n, R)
+        if mnode is not None:
+            mnode.refs -= 1
+        if node is None:
+            return None
+        table = np.zeros((1, ecfg.max_pages_per_seq), np.int32)
+        table[0, : n // psz] = pages
+        table[0, n // psz : P // psz] = node.pages
+        tokens = np.full((1, T), self.tokenizer.pad_id, np.int64)
+        tokens[0, :R] = key[n:]
+        dev = self.device
+        lens = torch.tensor([R], dtype=torch.int64, device=dev)
+        try:
+            if n > 0:
+                self._suffix_prefill(
+                    torch.from_numpy(tokens).to(dev), lens,
+                    torch.tensor([n], dtype=torch.int64, device=dev), torch.from_numpy(table).to(dev),
+                )
+            else:
+                self._dense_prefill(torch.from_numpy(tokens).to(dev), lens, torch.from_numpy(table).to(dev))
+        except BaseException:
+            cache.rollback(node)
+            raise
+        # The build is prefill work, counted once per resident head.
+        self._stats["prefill_tokens"] += R
+        cache.seal()
+        node.refs -= 1  # drop the insert's pin; callers pin again
+        return node
+
+    def _evict_prefixes(self, need_tokens: int = 0) -> None:
+        """Reclaim refcount-0 radix subtrees (LRU leaves first) while over
+        the node cap or until ``need_tokens`` worth of pages can be
+        allocated. The cap is read from the live config."""
+        self._prefix_cache.max_nodes = max(0, self.config.engine.prefix_cache_entries)
+        self._prefix_cache.evict(need_tokens)
+
+    def _dense_prefill(self, tokens_d, lens_d, table_d) -> torch.Tensor:
+        """Full prefill of [A, T] prompts from position 0, its K/V scattered
+        into the page pools; returns each row's last-token logits."""
+        A, T = tokens_d.shape
+        dense = init_kv_cache(self.model_cfg, A, T, device=self.device)
+        last, dense = prefill(self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True)
+        commit_prefill_to_pages(self._paged_kv, dense, table_d, lens_d, self.config.engine.kv_page_size)
+        return last
+
+    def _suffix_prefill(self, tokens_d, lens_d, pos_d, table_d) -> torch.Tensor:
+        """Prefill only the prompt suffixes: one ``decode_chunk_paged``
+        forward at prefill width whose queries start at each row's matched
+        depth and attend the tree's read-only pages and themselves. Per-row
+        suffix lengths are the kernel's ``q_lens``. Pad slots past a row's
+        suffix write K/V in the row's private pages or the null page, which
+        decode later overwrites or nothing reads. Returns each row's
+        last-suffix-token logits."""
+        n0 = kernel_launches()["ragged_paged_attention"]
+        last, _ = decode_chunk_paged(
+            self._params, self.model_cfg, tokens_d, pos_d, table_d, self._paged_kv,
+            logits_at=lens_d - 1, q_lens=lens_d,
+        )
+        self._stats["suffix_prefills"] += 1
+        self._stats["suffix_prefill_launches"] += kernel_launches()["ragged_paged_attention"] - n0
+        return last
 
     def _admit_cohort(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
+        """Admit a cohort in three stages: the candidate scan; the
+        prefill-bucket fix-point over matched depths (every row keeps
+        ``P + T <= capacity``, so a suffix window's pad slots index the page
+        table inside its width); then, row by row, match and pin, insert the
+        prompt's aligned rest, allocate the row's private pages (evicting
+        tree leaves under pressure) or push the row back. The cohort then
+        prefills in one call: the suffix prefill when any row matched, the
+        dense prefill otherwise."""
         ecfg = self.config.engine
         tok = self.tokenizer
         dev = self.device
         free = slab.free_rows()
+        cache = self._prefix_cache
+        use_prefix = bool(ecfg.prefix_cache)
+        psz = ecfg.kv_page_size
         chunk = self._spec_chunk(slab.constrained)
         slack = chunk if chunk > 1 else 0
-        capacity = ecfg.max_pages_per_seq * ecfg.kv_page_size
+        capacity = ecfg.max_pages_per_seq * psz
         eligible = tuple(b for b in self._prefill_buckets if b <= capacity)
         if min(slab.steps, capacity - 1 - slack) < 1 or not eligible:
             err = EngineError(
@@ -508,7 +796,7 @@ class InferenceEngine:
                 r.loop.call_soon_threadsafe(_resolve, r.future, None, err)
             return
 
-        # Candidates: compatible, not cancelled, up to the free rows.
+        # Stage 1: candidates, compatible and not cancelled, up to the free rows.
         cands: list[GenerateRequest] = []
         defer: list[GenerateRequest] = []
         while pending and len(cands) < len(free):
@@ -517,27 +805,108 @@ class InferenceEngine:
                 continue
             (cands if slab.compatible(r) else defer).append(r)
 
-        # Geometry: decode budget and the prompt head that fits beside it
-        # (the head is kept on overflow: the planner ranks its best
-        # candidates first).
-        planned = []
-        for r in cands:
-            budget = max(1, min(r.max_new_tokens, min(slab.steps, capacity - 1 - slack)))
-            longest = min(eligible[-1], capacity - budget - slack)
-            planned.append((budget, r.prompt_ids[:longest] or [tok.bos_id]))
-        T = _bucket(max([len(ids) for _, ids in planned] + [1]), eligible)
+        def geometry(r: GenerateRequest, P: int) -> tuple[int, list[int]]:
+            """(decode budget, suffix ids) of ``r`` admitted at matched
+            depth ``P``; the prompt head is kept on overflow (the planner
+            ranks its best candidates first)."""
+            budget = max(1, min(r.max_new_tokens, min(slab.steps, capacity - 1 - slack - P)))
+            last = max(b for b in eligible if b + P <= capacity)
+            longest = min(last, capacity - P - budget - slack)
+            return budget, r.prompt_ids[P : P + longest] or [tok.bos_id]
 
-        cohort: list[tuple[GenerateRequest, int, list[int], tuple, list[int]]] = []
+        def usable_depth(r: GenerateRequest, cap_tokens: int) -> int:
+            """Matched depth of ``r`` under ``cap_tokens``; 0 when that
+            depth leaves no room for a decode budget or a prefill bucket."""
+            if not use_prefix or cap_tokens <= 0:
+                return 0
+            P = cache.probe(r.prompt_ids, min(cap_tokens, cache.match_cap(len(r.prompt_ids))))
+            if P <= 0:
+                return 0
+            if min(slab.steps, capacity - 1 - slack - P) < 1 or not any(
+                b + P <= capacity for b in eligible
+            ):
+                return 0
+            return P
+
+        # Stage 2: per-row depths and the cohort's bucket T depend on each
+        # other (a shallower match grows the suffix, which can grow T).
+        # Plan under a T, recompute the T the plan needs, repeat while it
+        # grows: T only grows, so this ends within len(eligible) passes of
+        # read-only probes.
+        T = eligible[0]
+        while True:
+            planned = []
+            worst = 1
+            for r in cands:
+                P = usable_depth(r, capacity - T)
+                budget, ids = geometry(r, P)
+                planned.append((P, budget, ids))
+                worst = max(worst, len(ids))
+            need_T = _bucket(worst, eligible)
+            if need_T <= T:
+                break
+            T = need_T
+
+        # Stage 3: match and pin, insert, allocate.
+        cohort: list[tuple] = []  # (req, budget, ids, sid, pages, P, tree pages, mnode, inode)
         pushback: list[GenerateRequest] = []
-        for r, (budget, ids) in zip(cands, planned):
-            need = len(ids) + budget + slack
-            if pushback or not self._allocator.can_allocate(need):
+        for r, (P, budget, ids) in zip(cands, planned):
+            if pushback:
                 pushback.append(r)  # FIFO: wait for pages, order kept
                 continue
+            mnode: Optional[PrefixNode] = None
+            mpages: list[int] = []
+            if P > 0:
+                # record=False: hits and misses count only rows that admit.
+                P2, mpages, mnode = cache.match(
+                    r.prompt_ids, min(capacity - T, cache.match_cap(len(r.prompt_ids))), record=False
+                )
+                if P2 != P:
+                    # A cohort-mate's insert evicted a planned node: take the
+                    # depth actually matched (P only shrinks) and clamp the
+                    # regrown suffix to T, so every row keeps P + T <= capacity.
+                    P = P2 if P2 and min(slab.steps, capacity - 1 - slack - P2) >= 1 else 0
+                    if P == 0:
+                        mpages, mnode = [], None
+                    budget, ids = geometry(r, P)
+                    ids = ids[:T]
+            if mnode is not None:
+                mnode.refs += 1
+            # The prompt's page-aligned rest goes into the tree for the next
+            # request sharing it; a collision or budget pressure skips the
+            # caching, never the admission.
+            inode: Optional[PrefixNode] = None
+            ins = 0
+            if use_prefix:
+                want = ((P + len(ids)) // psz) * psz - P
+                if want > 0:
+                    inode = cache.insert(r.prompt_ids, P, want)
+                    if inode is not None:
+                        ins = want
+            need = len(ids) - ins + budget + slack
+            if not self._allocator.can_allocate(need):
+                self._evict_prefixes(need)
+                if not self._allocator.can_allocate(need):
+                    if inode is not None:
+                        cache.rollback(inode)
+                    if mnode is not None:
+                        mnode.refs -= 1
+                    pushback.append(r)
+                    continue
             self._seq_counter += 1
             sid = ("seq", self._seq_counter)
-            cohort.append((r, budget, ids, sid, self._allocator.allocate(sid, need)))
-        for r in reversed(pushback + defer):
+            pages = self._allocator.allocate(sid, need)
+            if use_prefix:
+                if P > 0:
+                    cache.hits += 1
+                    cache.matched_tokens += P
+                else:
+                    cache.misses += 1
+            tree_pages = mpages + (inode.pages if inode is not None else [])
+            cohort.append((r, budget, ids, sid, pages, P, tree_pages, mnode, inode))
+        for r in reversed(pushback):
+            pending.appendleft(r)
+        for r in reversed(defer):
             pending.appendleft(r)
         if not cohort:
             return
@@ -546,35 +915,57 @@ class InferenceEngine:
         n = len(cohort)
         tokens = np.full((A, T), tok.pad_id, np.int64)
         seq_lens = np.ones((A,), np.int64)
+        positions = np.zeros((A,), np.int64)  # each row's suffix start
         active = np.zeros((A,), bool)
         budgets = np.zeros((A,), np.int64)
         table = np.zeros((A, ecfg.max_pages_per_seq), np.int32)
-        for j, (r, budget, ids, _sid, pages) in enumerate(cohort):
+        for j, (r, budget, ids, _sid, pages, P, tree_pages, _m, _i) in enumerate(cohort):
+            ids = ids[:T]
             tokens[j, : len(ids)] = ids
             seq_lens[j] = len(ids)
+            positions[j] = P
             active[j] = True
             budgets[j] = budget
-            table[j, : len(pages)] = pages
+            # Page table: [matched tree pages][inserted tree pages][private
+            # pages]. Positions < P read the tree's run; the prefill writes
+            # [P, P + len) into the inserted and private pages; pads and
+            # decode land past the prompt, in private pages or the null page.
+            table[j, : len(tree_pages)] = tree_pages
+            table[j, len(tree_pages) : len(tree_pages) + len(pages)] = pages
 
         t0 = time.monotonic()
-        tokens_d = torch.from_numpy(tokens).to(dev)
-        lens_d = torch.from_numpy(seq_lens).to(dev)
-        table_d = torch.from_numpy(table).to(dev)
-        budgets_d = torch.from_numpy(budgets).to(dev)
-        active_d = torch.from_numpy(active).to(dev)
-        dense = init_kv_cache(self.model_cfg, A, T, device=dev)
-        last_logits, dense = prefill(self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True)
-        commit_prefill_to_pages(self._paged_kv, dense, table_d, lens_d, ecfg.kv_page_size)
-        del dense
-        cur0, st0, done0 = self._first_sample(slab, last_logits, budgets_d, active_d)
+        try:
+            tokens_d = torch.from_numpy(tokens).to(dev)
+            lens_d = torch.from_numpy(seq_lens).to(dev)
+            pos_d = torch.from_numpy(positions).to(dev)
+            table_d = torch.from_numpy(table).to(dev)
+            budgets_d = torch.from_numpy(budgets).to(dev)
+            active_d = torch.from_numpy(active).to(dev)
+            if bool(positions.any()):
+                last_logits = self._suffix_prefill(tokens_d, lens_d, pos_d, table_d)
+            else:
+                last_logits = self._dense_prefill(tokens_d, lens_d, table_d)
+            # The prefill writing this cohort's inserted nodes is launched:
+            # later launches on the stream run after it, so they may read them.
+            cache.seal()
+            cur0, st0, done0 = self._first_sample(slab, last_logits, budgets_d, active_d)
+        except BaseException as e:  # fail the cohort and the resident rows
+            log.exception("admission prefill failed; failing the cohort and resident rows")
+            self._fail_admission(slab, cohort, e)
+            return
         t1 = time.monotonic()
         self._last_admit_t = t1
         self._stats["admissions"] += 1
+        self._stats["prefill_tokens"] += int(seq_lens[:n].sum())
 
         rows = [free.pop(0) for _ in range(n)]
-        for i, (r, _budget, _ids, sid, _pages) in zip(rows, cohort):
+        for i, (r, _budget, _ids, sid, _pages, P, _tp, mnode, inode) in zip(rows, cohort):
             slab.req[i] = r
             slab.sid[i] = sid
+            # The row owns the pins taken at stage 3 (match +1, insert
+            # born pinned); _release_row drops them.
+            slab.prefix[i] = tuple(x for x in (mnode, inode) if x is not None)
+            slab.prefix_toks[i] = P
             slab.queue_ms[i] = (t0 - r.enqueued_at) * 1e3
             slab.prefill_ms[i] = (t1 - t0) * 1e3
             slab.t_decode0[i] = t1
@@ -583,7 +974,7 @@ class InferenceEngine:
         idx = torch.tensor(rows, dtype=torch.int64, device=dev)
         d = slab.dev
         d["cur"][idx] = cur0[:n]
-        d["pos"][idx] = lens_d[:n]
+        d["pos"][idx] = pos_d[:n] + lens_d[:n]
         d["st"][idx] = st0[:n]
         d["emitted"][idx] = torch.where(done0[:n], 0, 1)
         d["done"][idx] = done0[:n]
@@ -591,6 +982,23 @@ class InferenceEngine:
         d["page_table"][idx] = table_d[:n]
         d["out_buf"][idx] = tok.pad_id
         d["out_buf"][idx, 0] = cur0[:n]
+
+    def _fail_admission(self, slab: _Slab, cohort: list[tuple], error: BaseException) -> None:
+        """A failed admission prefill: the cohort's inserted nodes roll
+        back, its matched runs are unpinned, its pages freed and its
+        requests failed, then the resident rows fail too and the whole tree
+        drops, since the pools may hold partial writes. The pools are
+        written in place, so they need no re-creation."""
+        cache = self._prefix_cache
+        for r, _b, _ids, sid, _p, _P, _tp, mnode, inode in reversed(cohort):
+            if inode is not None:
+                cache.rollback(inode)
+            if mnode is not None:
+                mnode.refs -= 1
+            self._allocator.free(sid)
+            r.loop.call_soon_threadsafe(_resolve, r.future, None, error)
+        self._fail_rows(slab, error)
+        cache.drop_all()
 
     def _first_sample(self, slab: _Slab, first_logits, budgets, active):
         """Each admitted row's first emission from its prefill logits:
@@ -733,6 +1141,11 @@ class InferenceEngine:
                 queue_ms=float(slab.queue_ms[i]),
                 prefill_ms=float(slab.prefill_ms[i]),
                 decode_ms=(t1 - slab.t_decode0[i]) * 1e3,
+            )
+            self._ewma_service_s = ewma_update(
+                self._ewma_service_s,
+                (res.prefill_ms + res.decode_ms) / 1e3,
+                self.config.scheduler.ewma_alpha,
             )
             self._release_row(slab, i)
             self._stats["retired"] += 1

@@ -24,34 +24,48 @@
 // merge. One block per (row, kv-head) would leave most SMs idle on a batch
 // with few live rows, and products on CUDA cores out of shared memory cost
 // two shared loads per FMA. The design shortens the chain:
-//   * Split positions (flash-decoding). The grid is (B*K, n_split) with
-//     n_split = cdiv(Pmax*Psz, kChunk), which depends on shapes only, so
-//     one launch still serves any phase mix. Block c of a live row attends
-//     positions [c*kChunk, (c+1)*kChunk); a block past the row's last
-//     visible position computes nothing. Short chunks keep each block's
-//     chain short: at 2b width a 64-row window over 256 positions is about
-//     17 MFLOP, tens of microseconds for one SM's mma.sync, and even at the
-//     test width a block walking a whole row pays a dependent chain of
-//     address math and softmax per tile.
-//   * Combine in the same launch. Block 0 writes an idle row's zeros. Each
-//     block of a live row with work writes its partial (m, l, unnormalised
-//     acc) in fp32 to scratch, fences, and takes a ticket on the row's
-//     counter; every block of the row takes one, empty ones too. The block
-//     that draws the last ticket merges the partials in split order (so
-//     the output does not depend on block timing), writes the whole
-//     [S, G, hd] window (zeros for pads) and resets the counter to 0. It
-//     keeps 16 loads of the partials in flight a thread, since one block
-//     reads them all. The counters assume that launches sharing them run
-//     one after another, so the wrapper keeps one buffer per stream. A
-//     second combine launch would cost host time per layer on an engine
-//     the host already holds back.
+//   * Query tiles. A window's S*G query rows (the GQA group folded in) are
+//     cut into tiles of kMaxRows = 64 rows, so one launch serves any window
+//     the reference kernel does: decode and fast-forward windows are one
+//     tile, a suffix prefill at S = 256, G = 8 is 32. Each tile sees only
+//     positions below start + (its last live query) + 1, so the causal
+//     rule skips whole chunks for the early tiles of a prefill row.
+//   * Split positions (flash-decoding). The grid is (B*K*n_tiles, n_split).
+//     Block c of a live tile attends positions [c*span, (c+1)*span), span
+//     a multiple of kChunk; a block past the tile's last visible position
+//     computes nothing. Short spans keep each block's chain short: at 2b
+//     width a 64-row tile over 256 positions is about 17 MFLOP, tens of
+//     microseconds for one SM's mma.sync, and even at the test width a
+//     block walking a whole row pays a dependent chain of address math and
+//     softmax per tile. The split count falls as the tiles alone fill the
+//     card (about two blocks an SM): n_split = cdiv(Pmax*Psz, span) with
+//     span the least multiple of kChunk that keeps B*K*n_tiles*n_split
+//     near 2 * SMs, never above cdiv(Pmax*Psz, kChunk) splits. Decode
+//     windows (one tile a row) keep one split per kChunk; a wide prefill
+//     cohort falls to one split, which also bounds the fp32 scratch to
+//     twice the output. Tile and split counts depend on shapes (and the
+//     card's SM count) only, so one launch serves any phase mix.
+//   * Combine in the same launch. Block 0 writes the zeros of an idle row's
+//     tiles and of tiles that hold only pads. Each block of a live tile
+//     with work writes its partial (m, l, unnormalised acc) in fp32 to
+//     scratch, fences, and takes a ticket on the tile's counter; every
+//     block of the tile takes one, empty ones too. The block that draws the
+//     last ticket merges the partials in split order (so the output does
+//     not depend on block timing), writes the tile's rows (zeros for pads)
+//     and resets the counter to 0. It keeps 16 loads of the partials in
+//     flight a thread, since one block reads them all. The counters assume
+//     that launches sharing them run one after another, so the wrapper
+//     keeps one buffer per stream. A second combine launch would cost host
+//     time per layer on an engine the host already holds back.
 //   * Asynchronous copies. The block computes its positions' pool offsets
 //     once, a thread a position, from the page table. K and V arrive by
 //     cp.async.cg (16 B a lane, a warp a position, zero-filled past the
-//     visible end) into two stages of kTile positions, both in flight at
-//     once, so the second lands while the first is computed. q is loaded
-//     once per block. Tiles are XOR-swizzled in 16-byte chunks so that
-//     ldmatrix and 128-bit loads read without bank conflicts.
+//     visible end) into a ring of two stages of kTile positions: both are
+//     in flight at once, and a stage is refilled with the tile after next
+//     as soon as it has been computed, so a copy lands while the tile
+//     before it is computed. q is loaded once per block. Tiles are
+//     XOR-swizzled in 16-byte chunks so that ldmatrix and 128-bit loads
+//     read without bank conflicts.
 //   * Tensor cores (bf16). Both products run as mma.sync m16n8k16 with
 //     fragments from ldmatrix (.trans for V) and fp32 accumulators in
 //     registers. The live query rows (q_len*G) are padded up to a multiple
@@ -74,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -82,11 +97,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 64;  // S * G
+constexpr int kMaxRows = 64;  // query rows in one tile (a block's rows)
 constexpr int kMaxHd = 256;
-constexpr int kChunk = 64;  // positions one block attends (the split size)
+constexpr int kChunk = 64;  // split spans are multiples of this many positions
 constexpr int kTile = 32;   // positions in one pipeline stage
-constexpr int kStages = kChunk / kTile;  // a chunk's tiles are all in flight at once
+constexpr int kStages = 2;  // stages in the ring
 // bf16: a warp holds at most kPairs 16-column pairs of head_dim, and a
 // wider head_dim is shared by two warps (at most 4 row tiles, so 8 warps
 // do). Two builds: kNarrowPairs for head_dim up to 128, within 128
@@ -108,14 +123,15 @@ struct Layout {
   int sh;             // swizzle shift: log2 of the rows one 128-byte line holds
 };
 
-__host__ __device__ inline Layout smem_layout(int rows, int hd, int nsplit, int elt) {
+// rows: a tile's query rows; span: the positions one split attends.
+__host__ __device__ inline Layout smem_layout(int rows, int hd, int nsplit, int span, int elt) {
   Layout s;
   s.rows = (int)round_up(rows, 16);
   s.hdp = elt == 2 ? (int)round_up(hd, 16) : hd;
   s.rc = s.hdp * elt / 16;
   s.sh = s.rc == 1 ? 3 : s.rc == 2 ? 2 : s.rc == 4 ? 1 : 0;
   s.off = 0;  // pool offset (in elements) of each of the block's positions
-  s.q = sizeof(long long) * kChunk;
+  s.q = sizeof(long long) * span;
   s.k = s.q + (size_t)elt * s.rows * s.hdp;
   s.v = s.k + (size_t)elt * kStages * kTile * s.hdp;
   s.p = s.v + (size_t)elt * kStages * kTile * s.hdp;
@@ -214,22 +230,30 @@ struct Args {
   const int* start_pos;
   const int* q_lens;
   void* out;
-  float* part;  // [B*K, n_split, S*G, hd] unnormalised partial accumulators
-  float* ml;    // [B*K, n_split, 2, S*G] partial running max, then sum
-  int* tickets; // [B*K] zero between launches
-  int S, K, G, hd, L, N, psz, pmax, layer, nsplit;
+  float* part;  // [B*K*n_tiles, n_split, trows, hd] unnormalised partial accumulators
+  float* ml;    // [B*K*n_tiles, n_split, 2, trows] partial running max, then sum
+  int* tickets; // [B*K*n_tiles] zero between launches
+  int S, K, G, hd, L, N, psz, pmax, layer;
+  int ntiles, trows;  // query tiles a window, rows a tile: min(S*G, kMaxRows)
+  int nsplit, span;   // splits a tile, positions a split (a multiple of kChunk)
 };
 
-// What one block knows about its (row, kv-head) and its positions.
+// What one block knows about its (row, kv-head, query tile) and its positions.
 struct Block {
-  int b, kh, start, live;  // live query rows: q_len * G
-  int total;               // Pmax * Psz: positions the table can name
-  int lim;                 // the row sees positions < lim = min(start + q_len, total)
-  int c0, c1;              // this block's positions [c0, c1)
+  int b, kh, start;
+  int row0, rows, live;  // the tile's first window row, its rows, and its live rows
+  int total;             // Pmax * Psz: positions the table can name
+  int lim;               // the tile sees positions < lim (through its last live query)
+  int c0, c1;            // this block's positions [c0, c1)
   float scale;
-  // Query row r (query r / G) sees positions below this; pad rows see none.
+  // Tile row r (query (row0 + r) / G) sees positions below this; pad rows see none.
   __device__ __forceinline__ int limit(int r, int G) const {
-    return r < live ? min(start + r / G + 1, total) : 0;
+    return r < live ? min(start + (row0 + r) / G + 1, total) : 0;
+  }
+  // Element offset of tile row r in a [B, S, K, G, hd] tensor.
+  __device__ __forceinline__ size_t at(const Args& a, int r) const {
+    const int s = (row0 + r) / a.G, g = row0 + r - s * a.G;
+    return ((((size_t)b * a.S + s) * a.K + kh) * a.G + g) * a.hd;
   }
 };
 
@@ -242,8 +266,7 @@ __device__ void load_q(const Args& a, const Layout& lay, unsigned char* smem, co
   const int rc = lay.rc, sh = lay.sh, real = a.hd / kPer;
   const T* q = static_cast<const T*>(a.q);
   for (int r = warp; r < lay.rows; r += kWarps) {
-    const int s = r / a.G, g = r - s * a.G;
-    const T* row = q + ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd;
+    const T* row = r < blk.live ? q + blk.at(a, r) : q;
     for (int ch = lane; ch < rc; ch += 32) {
       const bool valid = r < blk.live && ch < real;
       cp_async16(smem + lay.q + swz(r, ch, rc, sh) * 16, valid ? row + ch * kPer : q, valid);
@@ -278,16 +301,13 @@ __device__ __forceinline__ void load_tile(const Args& a, const Layout& lay, unsi
   }
 }
 
-// Rows [from, S*G) of the (row, kv-head) window are exact zeros: a warp
-// a row, 16 bytes a lane.
+// Tile rows [from, rows) are exact zeros: a warp a row, 16 bytes a lane.
 template <typename T>
 __device__ void zero_rows(const Args& a, const Block& blk, int from) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nvec = a.hd * (int)sizeof(T) / 16;
-  for (int r = from + warp; r < a.S * a.G; r += kWarps) {
-    const int s = r / a.G, g = r - s * a.G;
-    uint4* dst = reinterpret_cast<uint4*>(
-        static_cast<T*>(a.out) + ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd);
+  for (int r = from + warp; r < blk.rows; r += kWarps) {
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<T*>(a.out) + blk.at(a, r));
     for (int v = lane; v < nvec; v += 32) dst[v] = make_uint4(0u, 0u, 0u, 0u);
   }
 }
@@ -467,7 +487,7 @@ struct MmaRows {
   __device__ __forceinline__ void finish(const Args& a, const Layout&, unsigned char*,
                                          const Block& blk, float* part, float* ml) {
     if (!active) return;
-    const int lane = threadIdx.x % 32, rows = a.S * a.G;
+    const int lane = threadIdx.x % 32, rows = a.trows;
     const float ls[2] = {quad_sum(l[0]), quad_sum(l[1])};
     by_pairs<kPairs>(np, [&](auto n) { this->template store_acc<decltype(n)::value>(a, blk, part); });
     if (hs == 0 && (lane & 3) == 0)
@@ -559,7 +579,7 @@ struct SimtRows {
                                          const Block& blk, float* part, float* ml) {
     const float* m_s = reinterpret_cast<const float*>(smem + lay.m);
     const float* l_s = reinterpret_cast<const float*>(smem + lay.l);
-    const int rows = a.S * a.G;
+    const int rows = a.trows;
 #pragma unroll
     for (int j = 0; j < kAccF32; ++j) {
       const int e = threadIdx.x + j * kThreads;
@@ -579,7 +599,7 @@ struct SimtRows {
 template <typename T>
 __device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, const Block& blk,
                       int nwork, const float* part, const float* ml) {
-  const int rows = a.S * a.G, ns = a.nsplit;
+  const int rows = a.trows, ns = a.nsplit;
   float* m_s = reinterpret_cast<float*>(smem + lay.w);  // [rows, ns]: each split's max
   float* l_s = m_s + (size_t)lay.rows * ns;              // [rows, ns]: each split's sum
   float* w_s = l_s + (size_t)lay.rows * ns;              // [rows, ns]: e^(m_i - m*), 0 if l_i = 0
@@ -652,24 +672,22 @@ __device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, con
         const float4 o = lv > 0.f ? make_float4(acc[i].x / den, acc[i].y / den, acc[i].z / den,
                                                 acc[i].w / den)
                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-        const int s = r / a.G, g = r - s * a.G;
-        store4(static_cast<T*>(a.out) +
-                   ((((size_t)blk.b * a.S + s) * a.K + blk.kh) * a.G + g) * a.hd + 4 * v,
-               o);
+        store4(static_cast<T*>(a.out) + blk.at(a, r) + 4 * v, o);
       }
     }
   }
   zero_rows<T>(a, blk, blk.live);
 }
 
-// Attend positions [blk.c0, blk.c1) of the row (at most kChunk): q once,
+// Attend positions [blk.c0, blk.c1) of the tile (at most a span): q once,
 // each position's pool offset once (a thread a position, through the page
-// table), then both tiles of K and V in flight at once, the second landing
-// while the first is computed.
-template <typename T, typename St>
+// table), then K and V tiles through the two stages: both in flight at
+// once, and with kRing (spans longer than two tiles) each stage refilled
+// with the tile after next once computed.
+template <typename T, bool kRing, typename St>
 __device__ __forceinline__ void attend(const Args& a, const Layout& lay, unsigned char* smem,
                                        const Block& blk, St& st) {
-  static_assert(kStages == 2, "the waits below assume two tiles");
+  static_assert(kStages == 2, "the waits below assume two stages");
   st.init(a, lay, smem, blk);
   load_q<T>(a, lay, smem, blk);
   long long* off = reinterpret_cast<long long*>(smem + lay.off);
@@ -680,7 +698,7 @@ __device__ __forceinline__ void attend(const Args& a, const Layout& lay, unsigne
   }
   __syncthreads();
   const int nt = cdiv(blk.c1 - blk.c0, kTile);
-  for (int t = 0; t < nt; ++t) {
+  for (int t = 0; t < nt && t < kStages; ++t) {
     load_tile<T>(a, lay, smem, blk, t, t);
     cp_commit();  // q rides in the first group
   }
@@ -690,65 +708,112 @@ __device__ __forceinline__ void attend(const Args& a, const Layout& lay, unsigne
     else
       cp_wait<0>();
     __syncthreads();
-    st.tile(a, lay, smem, blk, t, blk.c0 + t * kTile);
+    st.tile(a, lay, smem, blk, t & 1, blk.c0 + t * kTile);
+    if (kRing && t + kStages < nt) {
+      __syncthreads();  // every warp is done with stage t & 1
+      load_tile<T>(a, lay, smem, blk, t + kStages, t & 1);
+      cp_commit();
+    }
   }
 }
 
-template <typename T, int kPairs>
+// Grid (B*K*n_tiles, n_split): block (bkt, c) is split c of query tile
+// bkt % n_tiles of (row, kv-head) bkt / n_tiles. A row's tiles sit side by
+// side, so the costlier late tiles of a prefill row start early. The build
+// without kWide serves windows of one tile split in kChunk positions (the
+// decode and fast-forward windows): its tile, span and stages are fixed at
+// compile time, so its code is that of a one-tile kernel.
+template <typename T, int kPairs, bool kWide>
 __global__ void __launch_bounds__(kThreads, kPairs <= kNarrowPairs ? 2 : 1)
 ragged_paged_attention_kernel(const Args a) {
   using St =
       typename std::conditional<std::is_same<T, bf16>::value, MmaRows<kPairs>, SimtRows>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last;
-  const int bk = blockIdx.x, c = blockIdx.y;
+  const int bkt = blockIdx.x, c = blockIdx.y;
+  const int bk = kWide ? bkt / a.ntiles : bkt;
+  const int span = kWide ? a.span : kChunk;
   Block blk;
   blk.b = bk / a.K;
   blk.kh = bk - blk.b * a.K;
   blk.start = a.start_pos[blk.b];
   const int qn = min(max(a.q_lens[blk.b], 0), a.S);
-  blk.live = qn * a.G;
+  blk.row0 = kWide ? (bkt - bk * a.ntiles) * kMaxRows : 0;
+  blk.rows = min(kMaxRows, a.S * a.G - blk.row0);
+  blk.live = min(max(qn * a.G - blk.row0, 0), blk.rows);
   blk.total = a.pmax * a.psz;
-  blk.lim = qn > 0 ? max(min(blk.start + qn, blk.total), 0) : 0;
+  // The tile's last live query sees positions below start + its index + 1.
+  const int seen = kWide ? (blk.row0 + blk.live - 1) / a.G + 1 : qn;
+  blk.lim = blk.live > 0 ? max(min(blk.start + seen, blk.total), 0) : 0;
   blk.scale = rsqrtf((float)a.hd);
-  const int rows = a.S * a.G;
-  const Layout lay = smem_layout(rows, a.hd, a.nsplit, (int)sizeof(T));
+  const int rows = a.trows;
+  const Layout lay = smem_layout(rows, a.hd, a.nsplit, span, (int)sizeof(T));
 
-  if (blk.live == 0) {  // an idle row: block 0 writes its zeros
+  if (blk.live == 0) {  // an idle row or a tile of pads: block 0 writes its zeros
     if (c == 0) zero_rows<T>(a, blk, 0);
     return;
   }
-  const int nwork = cdiv(blk.lim, kChunk);  // blocks of this row with work
-  blk.c0 = c * kChunk;
-  blk.c1 = min(blk.lim, blk.c0 + kChunk);
+  const int nwork = cdiv(blk.lim, span);  // blocks of this tile with work
+  blk.c0 = c * span;
+  blk.c1 = min(blk.lim, blk.c0 + span);
 
-  // Block c attends positions [c * kChunk, (c + 1) * kChunk) and leaves its
+  // Block c attends positions [c * span, (c + 1) * span) and leaves its
   // partial state in scratch.
-  float* part = a.part + (size_t)bk * a.nsplit * rows * a.hd;
-  float* ml = a.ml + (size_t)bk * a.nsplit * 2 * rows;
+  float* part = a.part + (size_t)bkt * a.nsplit * rows * a.hd;
+  float* ml = a.ml + (size_t)bkt * a.nsplit * 2 * rows;
   if (c < nwork) {
     St st;
-    attend<T>(a, lay, smem, blk, st);
+    attend<T, kWide>(a, lay, smem, blk, st);
     st.finish(a, lay, smem, blk, part + (size_t)c * rows * a.hd, ml + (size_t)c * 2 * rows);
   }
 
-  // Every block of a split row takes a ticket, empty ones too; the last one
+  // Every block of a live tile takes a ticket, empty ones too; the last one
   // merges and resets the counter.
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.tickets + bk, 1) == a.nsplit - 1;
+  if (threadIdx.x == 0) last = atomicAdd(a.tickets + bkt, 1) == a.nsplit - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
   merge<T>(a, lay, smem, blk, nwork, part, ml);
-  if (threadIdx.x == 0) a.tickets[bk] = 0;
+  if (threadIdx.x == 0) a.tickets[bkt] = 0;
 }
 
-int n_splits(int pmax, int psz) { return cdiv(pmax * psz, kChunk); }
+// SMs of the current device, read once per device.
+int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = n > 0 ? n : 132;
+  }
+  return cached[dev];
+}
 
-template <typename T, int kPairs>
+// Query tiles a window, splits a tile and the positions a split attends,
+// from the shapes: as many splits of kChunk positions as the table names,
+// fewer once the (row, kv-head, tile) blocks alone make about two an SM.
+struct Grid {
+  int ntiles, trows, nsplit, span;
+};
+
+Grid grid_of(int B, int S, int K, int G, int pmax, int psz) {
+  Grid g;
+  g.ntiles = cdiv(S * G, kMaxRows);
+  g.trows = std::min(S * G, kMaxRows);
+  const int total = pmax * psz, work = B * K * g.ntiles;
+  const int want =
+      std::max(1, std::min(cdiv(total, kChunk), cdiv(2 * sm_count(), std::max(work, 1))));
+  g.span = cdiv(cdiv(total, want), kChunk) * kChunk;
+  g.nsplit = cdiv(total, g.span);
+  return g;
+}
+
+template <typename T, int kPairs, bool kWide>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_layout(a.S * a.G, a.hd, a.nsplit, (int)sizeof(T)).total;
+  const size_t smem = smem_layout(a.trows, a.hd, a.nsplit, a.span, (int)sizeof(T)).total;
   // The attribute is set once per device and size for this instantiation
   // (it only grows), not on every launch.
   static size_t granted[64] = {};
@@ -757,38 +822,51 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (smem > granted[dev]) {
-    err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, kPairs>,
+    err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, kPairs, kWide>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     granted[dev] = smem;
   }
-  ragged_paged_attention_kernel<T, kPairs><<<dim3(B * a.K, a.nsplit), kThreads, smem, stream>>>(a);
+  ragged_paged_attention_kernel<T, kPairs, kWide>
+      <<<dim3(B * a.K * a.ntiles, a.nsplit), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int kPairs>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  return a.ntiles > 1 || a.span > kChunk ? launch<T, kPairs, true>(a, B, stream)
+                                         : launch<T, kPairs, false>(a, B, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Splits (blocks) per (row, kv-head): the scratch's third dimension.
-int mcpx_ragged_paged_attention_splits(int pmax, int psz) { return n_splits(pmax, psz); }
+// Splits a query tile (tiles a window: cdiv(S*G, 64)): the scratch holds
+// B*K*tiles*splits partials and the tickets B*K*tiles counters.
+int mcpx_ragged_paged_attention_splits(int B, int S, int K, int G, int pmax, int psz) {
+  return grid_of(B, S, K, G, pmax, psz).nsplit;
+}
 
 // Dynamic shared memory one block needs; the wrapper refuses shapes above
 // the card's per-block limit before launching.
-size_t mcpx_ragged_paged_attention_smem(int S, int G, int hd, int psz, int pmax, int dtype) {
-  return smem_layout(S * G, hd, n_splits(pmax, psz), dtype == 1 ? 2 : 4).total;
+size_t mcpx_ragged_paged_attention_smem(int B, int S, int K, int G, int hd, int psz, int pmax,
+                                        int dtype) {
+  const Grid g = grid_of(B, S, K, G, pmax, psz);
+  return smem_layout(g.trows, hd, g.nsplit, g.span, dtype == 1 ? 2 : 4).total;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. part [B, K, n_split, S*G, hd] and
-// ml [B, K, n_split, 2, S*G] are fp32 scratch (any contents); tickets [B*K]
-// int32 must be zero and are left zero. Returns cudaGetLastError() after
-// the launch (0 = launched). Enqueues on `stream`; does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16. part [B*K*tiles, n_split, trows, hd]
+// and ml [B*K*tiles, n_split, 2, trows] are fp32 scratch (any contents),
+// trows = min(S*G, 64); tickets [B*K*tiles] int32 must be zero and are left
+// zero. Returns cudaGetLastError() after the launch (0 = launched).
+// Enqueues on `stream`; does not synchronise.
 int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                 const void* page_table, const void* start_pos,
                                 const void* q_lens, void* out, void* part, void* ml,
                                 void* tickets, int B, int S, int K, int G, int hd, int L, int N,
                                 int psz, int pmax, int layer, int dtype, void* stream) {
-  if (B == 0 || K == 0) return 0;
+  if (B == 0 || K == 0 || S == 0) return 0;
   Args a;
   a.q = q;
   a.k_pages = k_pages;
@@ -801,7 +879,9 @@ int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* 
   a.ml = static_cast<float*>(ml);
   a.tickets = static_cast<int*>(tickets);
   a.S = S, a.K = K, a.G = G, a.hd = hd, a.L = L, a.N = N;
-  a.psz = psz, a.pmax = pmax, a.layer = layer, a.nsplit = n_splits(pmax, psz);
+  a.psz = psz, a.pmax = pmax, a.layer = layer;
+  const Grid g = grid_of(B, S, K, G, pmax, psz);
+  a.ntiles = g.ntiles, a.trows = g.trows, a.nsplit = g.nsplit, a.span = g.span;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 1) return launch<float, kWidePairs>(a, B, st);  // kPairs unused by fp32
   // The narrow build while two warps of kNarrowPairs pairs cover head_dim.

@@ -30,7 +30,7 @@ from mcpx_torch.core.errors import EngineError
 from mcpx_torch.engine.kernels import build
 
 NEG_INF = -1e30
-MAX_ROWS = 64  # S * G rows one block holds
+TILE_ROWS = 64  # query rows (S * G, the GQA group folded in) one block holds
 MAX_HEAD_DIM = 256
 MAX_PAGE_SIZE = 64
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
@@ -140,10 +140,10 @@ def _check(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int) -> No
         raise EngineError("ragged_paged_attention: every tensor must be on the same CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise EngineError("ragged_paged_attention: every tensor must be contiguous")
-    if S * G > MAX_ROWS or hd > MAX_HEAD_DIM or hd % 8 or not 1 <= psz <= MAX_PAGE_SIZE:
+    if hd > MAX_HEAD_DIM or hd % 8 or not 1 <= psz <= MAX_PAGE_SIZE:
         raise EngineError(
-            f"ragged_paged_attention: unsupported shape S*G={S * G} (<= {MAX_ROWS}), "
-            f"hd={hd} (multiple of 8, <= {MAX_HEAD_DIM}), page_size={psz} (<= {MAX_PAGE_SIZE})"
+            f"ragged_paged_attention: unsupported shape hd={hd} (multiple of 8, "
+            f"<= {MAX_HEAD_DIM}), page_size={psz} (<= {MAX_PAGE_SIZE})"
         )
     if not 0 <= layer < L:
         raise EngineError(f"ragged_paged_attention: layer {layer} outside [0, {L})")
@@ -157,16 +157,16 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         smem = lib.mcpx_ragged_paged_attention_smem
         smem.restype = ctypes.c_size_t
-        smem.argtypes = [ctypes.c_int] * 6
+        smem.argtypes = [ctypes.c_int] * 8
         splits = lib.mcpx_ragged_paged_attention_splits
         splits.restype = ctypes.c_int
-        splits.argtypes = [ctypes.c_int] * 2
+        splits.argtypes = [ctypes.c_int] * 6
         lib._mcpx_bound = True
     return lib
 
 
-# One int32 ticket counter per (row, kv-head), per (device, stream). The
-# kernel's last block of each (row, kv-head) resets its counter to 0, so a
+# One int32 ticket counter per (row, kv-head, query tile), per (device,
+# stream). The kernel's last block of each resets its counter to 0, so a
 # buffer is zero again when its launch ends. Launches on one stream run one
 # after another, so each finds its buffer zero; launches on different
 # streams may overlap, so each stream has a buffer of its own. The buffer
@@ -214,20 +214,24 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise EngineError("ragged_paged_attention: q and the pools must start on 16-byte boundaries")
     lib = _lib()
-    smem = lib.mcpx_ragged_paged_attention_smem(S, G, hd, psz, p_max, dtype)
+    smem = lib.mcpx_ragged_paged_attention_smem(B, S, K, G, hd, psz, p_max, dtype)
     if smem > SMEM_LIMIT:
         raise EngineError(f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})")
-    n_split = lib.mcpx_ragged_paged_attention_splits(p_max, psz)
+    n_split = lib.mcpx_ragged_paged_attention_splits(B, S, K, G, p_max, psz)
+    n_tiles, t_rows = -(-S * G // TILE_ROWS), min(S * G, TILE_ROWS)
     out = torch.empty_like(q)
-    # fp32 scratch: the per-split unnormalised accumulators [B, K, n_split,
-    # S*G, hd], then their (max, sum) [B, K, n_split, 2, S*G].
-    n_acc = B * K * n_split * S * G * hd
-    scratch = torch.empty(n_acc + B * K * n_split * 2 * S * G, dtype=torch.float32, device=q.device)
+    # fp32 scratch: the per-split unnormalised accumulators [B*K*tiles,
+    # n_split, t_rows, hd], then their (max, sum) [B*K*tiles, n_split, 2,
+    # t_rows]. The kernel keeps n_split at 1 once the tiles fill the card,
+    # so a wide prefill needs about twice its output here.
+    blocks = B * K * n_tiles * n_split
+    n_acc = blocks * t_rows * hd
+    scratch = torch.empty(n_acc + blocks * 2 * t_rows, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mcpx_ragged_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, stream, B * K).data_ptr(),
+        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, stream, B * K * n_tiles).data_ptr(),
         B, S, K, G, hd, L, N, psz, p_max, layer, dtype, stream,
     )
     if rc != 0:

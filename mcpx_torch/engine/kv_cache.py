@@ -113,6 +113,9 @@ class PageAllocator:
                 raise EngineError(f"corrupt page id {p}")
             self._free.append(p)
 
+    def pages_of(self, seq_id) -> list[int]:
+        return list(self._seq_pages.get(seq_id, []))
+
     def stats(self) -> PageStats:
         return PageStats(
             total_pages=self.n_pages,

@@ -5,7 +5,7 @@ package, so they run where only PyTorch and the CUDA toolkit are:
     python -m pytest tests/test_torch_cuda_kernel.py -q --noconftest
 
 Elsewhere they skip: the kernel has no CPU mode. The seeded mixed-batch
-generator here is shared with the CPU parity tests."""
+and prefill-cohort generators here are shared with the CPU parity tests."""
 
 import random
 
@@ -33,6 +33,26 @@ def mixed_case(seed, B=6, S=5, K=2, G=2, hd=16, psz=4, p_max=12):
     q_lens = [S, 1, mid, 0, rng.randint(0, S), 1, rng.randint(0, S), S][:B]
     starts = [rng.randint(0, p_max * psz - max(1, q_lens[b]) - 1) for b in range(B)]
     return q, kp, vp, table, np.asarray(starts, np.int32), np.asarray(q_lens, np.int32)
+
+
+def prefill_case(seed, B=16, S=128, K=1, G=4, hd=32, psz=64, p_max=4, starts=(0, 64, 128), idle=2):
+    """A suffix-prefill cohort: q_len uniform in 1..S, each row's start
+    drawn from `starts` (those that leave room for S queries in the table),
+    and `idle` idle rows among them; numpy draws, as in `mixed_case`."""
+    rng = random.Random(seed)
+    npr = np.random.default_rng(seed)
+    n_pages = B * p_max + 2
+    q = npr.standard_normal((B, S, K, G, hd), np.float32)
+    kp = npr.standard_normal((K, 2, n_pages, psz, hd), np.float32)
+    vp = npr.standard_normal((K, 2, n_pages, psz, hd), np.float32)
+    pages = list(range(1, n_pages))
+    rng.shuffle(pages)
+    table = np.asarray(pages[: B * p_max], np.int32).reshape(B, p_max)
+    fits = [s for s in starts if s + S <= p_max * psz]
+    idle_rows = set(rng.sample(range(B), idle))
+    q_lens = [0 if b in idle_rows else rng.randint(1, S) for b in range(B)]
+    st = [rng.choice(fits) for _ in range(B)]
+    return q, kp, vp, table, np.asarray(st, np.int32), np.asarray(q_lens, np.int32)
 
 
 def as_torch(*arrays):
@@ -153,4 +173,48 @@ def test_cuda_kernel_two_streams_keep_their_own_counters(cuda):
     torch.cuda.synchronize()
     for i in range(2):
         assert all(torch.equal(o, alone[i]) for o in outs[i])
+    assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 32), (8, 256)])
+@pytest.mark.parametrize("S", [64, 128])
+def test_cuda_kernel_prefill_width(cuda, dtype, atol, shape, S):
+    """Suffix-prefill windows (S*G of 256 to 1,024 rows, cut into query
+    tiles) at both head-dim builds: starts at page offsets, idle rows
+    beside prefill rows."""
+    G, hd = shape
+    for seed in range(2):
+        _check_case(prefill_case(seed, S=S, G=G, hd=hd), cuda, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 32), (8, 256)])
+def test_cuda_kernel_prefill_off_page_starts(cuda, dtype, atol, shape):
+    """Starts inside a page: a tile's visible end and the split boundaries
+    fall mid-page."""
+    G, hd = shape
+    for seed in range(2):
+        case = prefill_case(seed, S=128, G=G, hd=hd, starts=(5, 37, 70, 127))
+        _check_case(case, cuda, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("B", [2, 64])
+def test_cuda_kernel_widest_window(cuda, dtype, atol, B):
+    """S*G = 2,048 (S 256, G 8, hd 256) in one launch: a small batch keeps
+    several splits a tile, a full one falls to one split."""
+    _check_case(prefill_case(0, B=B, S=256, G=8, hd=256, starts=(0,), idle=1), cuda, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol):
+    args = _on_card(prefill_case(3, S=128, G=8, hd=256), cuda, dtype)
+    outs = [tk.ragged_paged_attention(*args, 0) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
     assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())

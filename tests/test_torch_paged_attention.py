@@ -3,6 +3,7 @@ package's Pallas kernel, run in interpret mode on the CPU as the reference
 tests run it. Same numpy-seeded inputs through both. fp32 throughout, so
 the tolerance (2e-5) only absorbs summation order."""
 
+import functools
 import math
 import shutil
 
@@ -15,7 +16,7 @@ from mcpx.engine.kernels import paged_attention as jref
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.engine.kernels import build
 from mcpx_torch.engine.kernels import paged_attention as tk
-from tests.test_torch_cuda_kernel import as_torch, mixed_case
+from tests.test_torch_cuda_kernel import as_torch, mixed_case, prefill_case
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -107,6 +108,99 @@ def test_split_merge_matches_reference_kernel_interpret(seed, chunk):
         assert np.all(out[b, ql:].numpy() == 0.0), (seed, chunk, b)
 
 
+def _grid(B, S, K, G, p_max, psz, sms=132):
+    """The kernel's query tiles and splits (``grid_of`` in the CUDA source)
+    on a card with ``sms`` SMs: (tile rows, positions a split attends)."""
+    tiles, total = -(-S * G // tk.TILE_ROWS), p_max * psz
+    want = max(1, min(-(-total // 64), -(-2 * sms // max(1, B * K * tiles))))
+    return tk.TILE_ROWS, -(-(-(-total // want)) // 64) * 64
+
+
+def _tile_split_and_merge(q, kp, vp, table, starts, q_lens, layer, tile_rows, span):
+    """The kernel's query-tile and split arithmetic in plain PyTorch (fp32):
+    window rows (query r // G) are cut into tiles of `tile_rows`; a tile
+    sees positions below start + its last live query + 1 (`lim`), and split
+    c of `span` positions works only when it starts below that. Each
+    working split gives every row of the tile a partial (m, l, unnormalised
+    acc); the merge skips l == 0, rescales to the largest m, and writes
+    acc / l where l > 0 and exact zeros elsewhere."""
+    B, S, K, G, hd = q.shape
+    rows = S * G
+    k = tk._gather_pages(kp, table, layer).float()
+    v = tk._gather_pages(vp, table, layer).float()
+    P = k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(B, K, rows, hd)
+    s = torch.einsum("bkrh,bkph->bkrp", qf, k) * (1.0 / math.sqrt(hd))
+    qn = q_lens.long().clamp(0, S)
+    row_q = torch.arange(rows) // G
+    vis = torch.clamp(starts.long()[:, None] + row_q[None, :] + 1, max=P)
+    live = row_q[None, :] < qn[:, None]  # [B, rows]
+    mask = (torch.arange(P)[None, None, :] < vis[:, :, None]) & live[:, :, None]
+    s = torch.where(mask[:, None], s, torch.full_like(s, tk.NEG_INF))
+    tile = torch.arange(rows) // tile_rows
+    n_tiles = int(tile.max()) + 1
+    lim = torch.zeros((B, n_tiles), dtype=torch.long)
+    for t in range(n_tiles):
+        last = (live & (tile == t)[None, :]).long() * (torch.arange(rows) + 1)[None, :]
+        last_q = (last.max(1).values - 1) // G  # the tile's last live query
+        has = last.max(1).values > 0
+        lim[:, t] = torch.where(has, torch.clamp(starts.long() + last_q + 1, max=P), 0)
+    lim_row = lim[:, tile]  # [B, rows]
+    ms, ls, accs = [], [], []
+    for c0 in range(0, P, span):
+        sc = s[..., c0:c0 + span]
+        m = sc.max(-1).values
+        p = torch.where(sc <= tk.NEG_INF / 2, torch.zeros_like(sc), torch.exp(sc - m[..., None]))
+        work = (c0 < lim_row)[:, None, :]  # the tile's block c computes nothing past lim
+        ms.append(m)
+        ls.append(torch.where(work, p.sum(-1), torch.zeros_like(m)))
+        accs.append(torch.einsum("bkrp,bkph->bkrh", p, v[:, :, c0:c0 + span]))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    m_star = torch.where(l > 0, m, torch.full_like(m, tk.NEG_INF)).max(0).values
+    w = torch.where(l > 0, torch.exp(m - m_star), torch.zeros_like(m))
+    total = (l * w).sum(0)
+    merged = (w[..., None] * acc).sum(0)
+    out = torch.where(
+        total[..., None] > 0, merged / torch.clamp(total, min=1e-30)[..., None], torch.zeros_like(merged)
+    )
+    return out.reshape(B, K, S, G, hd).permute(0, 2, 1, 3, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _prefill_reference(S, G):
+    """A suffix-prefill cohort (starts 0, 64, 128; two idle rows) and the
+    reference kernel's output on it in interpret mode, layer 1."""
+    case = prefill_case(S + G, B=6, S=S, K=1, G=G, hd=16, psz=16, p_max=16)
+    ref = jref.ragged_paged_attention(*(jnp.asarray(a) for a in case), 1, interpret=True)
+    return case, np.asarray(ref)
+
+
+@pytest.mark.parametrize("S", [64, 128])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("span", ["grid", "table"])
+def test_query_tiles_match_reference_kernel_interpret(S, G, span):
+    """Prefill width (S*G of 256 to 1,024 rows): cutting the window into
+    64-row query tiles, each with its own causal limit and splits, and
+    merging as the CUDA kernel does gives the reference kernel's output
+    (interpret mode) and the plain version's, fp32 to 2e-5; pads and idle
+    rows stay exact zeros. `grid` takes the kernel's own split count for
+    this batch on a 132-SM card, `table` one split over the whole table."""
+    case, ref = _prefill_reference(S, G)
+    q, kp, vp, table, starts, q_lens = case
+    psz, p_max = kp.shape[3], table.shape[1]
+    tile_rows, size = _grid(6, S, 1, G, p_max, psz)
+    if span == "table":
+        size = p_max * psz
+    args = as_torch(*case)
+    out = _tile_split_and_merge(*args, 1, tile_rows, size)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    plain = tk.ragged_paged_attention_reference(*args, 1)
+    np.testing.assert_allclose(plain.numpy(), ref, **TOL)
+    for b, ql in enumerate(q_lens):
+        assert np.all(out[b, ql:].numpy() == 0.0) and np.all(plain[b, ql:].numpy() == 0.0)
+
+
 def test_ragged_n_pages_matches_reference():
     start = np.asarray([512, 5, 5, 19, 0, 63, 64, 250], np.int32)
     qn = np.asarray([0, 1, 4, 8, 0, 1, 1, 8], np.int32)
@@ -175,7 +269,13 @@ def test_kernel_rejects_shapes_it_does_not_take():
         tk._check(q.double(), kp, vp, table, starts, q_lens, 0)
     with pytest.raises(EngineError, match="layer"):
         tk._check(q, kp, vp, table, starts, q_lens, 2)
-    wide = torch.zeros((6, 9, 2, 8, 16))  # S*G = 72 rows > 64
+    # Prefill widths are in the domain: the kernel cuts S*G into query tiles.
+    tk._check(torch.zeros((6, 9, 2, 8, 16)), kp, vp, table, starts, q_lens, 0)  # S*G 72
+    tk._check(torch.zeros((6, 256, 2, 8, 16)), kp, vp, table, starts, q_lens, 0)  # S*G 2,048
+    wide_hd = [torch.zeros(t.shape[:-1] + (264,)) for t in (q, kp, vp)]
     with pytest.raises(EngineError, match="unsupported shape"):
-        tk._check(wide, kp, vp, table, starts, q_lens, 0)
+        tk._check(*wide_hd, table, starts, q_lens, 0)  # hd 264 > 256
+    odd_hd = [torch.zeros(t.shape[:-1] + (20,)) for t in (q, kp, vp)]
+    with pytest.raises(EngineError, match="unsupported shape"):
+        tk._check(*odd_hd, table, starts, q_lens, 0)  # hd 20, not a multiple of 8
     tk._check(q, kp, vp, table, starts, q_lens, 1)
