@@ -19,18 +19,29 @@ Phases, one line each (every number beside the card's name and power limit):
      checkpoint in float32, on the card (through the kernel) against the CPU
      (plain path);
   5. serve the trained checkpoint: 16 concurrent /plan requests through
-     ``ControlPlane.plan``, every plan LLM-authored and valid;
+     ``ControlPlane.plan``, every plan LLM-authored and valid, at the
+     reference's default decode loop (prompt drafting, pipeline depth 2,
+     prefix cache on);
   6. serve at full width: the 2b preset (random weights from seed 0), 8
-     concurrent /plan requests;
-  7. serve with prefix reuse, on the engines of phases 5 and 6: a stream
-     that repeats its intents (8 x 4 on the trained checkpoint, 4 x 4 at
-     2b), 16 in flight, with the radix prefix cache off and then on (a live
-     flip on an idle slab). Every plan valid, the same plans in both modes,
-     tree hits and suffix prefills through the kernel, and fewer prefill
-     tokens per request with the cache on;
+     concurrent /plan requests, the same settings;
+  7. decode-loop modes, on the engines of phases 5 and 6: the burst's
+     intents once more as (draft off, depth 1), (draft on, depth 1) and
+     (draft on, depth 2), live flips on an idle slab. Every plan valid, no
+     more live forwards with drafting on (on the trained checkpoint:
+     drafted tokens accepted and fewer live forwards), and the same plans
+     in every mode (at 2b a differing plan passes only as a near-tie: top-2
+     margin of the masked logits under 1e-3 at the first differing token,
+     printed with both plans);
+  8. serve with prefix reuse, on the same engines: a stream that repeats
+     its intents (8 x 4 on the trained checkpoint, 4 x 4 at 2b), 16 in
+     flight, with the radix prefix cache off and then on (a live flip on an
+     idle slab). Every plan valid, the same plans in both modes, tree hits
+     and suffix prefills through the kernel, and fewer prefill tokens per
+     request with the cache on;
 then the kernels line, the card line and the result line. ``--profile`` adds,
-after each serving phase of 5 and 6, one more pass of its requests under
-``torch.profiler`` with the device time by kernel and the idle share. Any failed phase
+after each serving phase of 5 and 6 and each mode of 7, one more pass of its
+requests under ``torch.profiler`` with the device time by kernel and the
+idle share. Any failed phase
 exits non-zero before the result line. The kernel launch counters are set to
 0 just before each serving run and read just after it.
 """
@@ -313,12 +324,12 @@ def config(size: str, checkpoint: str, batch: int):
     return MCPXConfig.from_dict({
         "model": {"size": size, "vocab": "bpe", "max_seq_len": 2048, "checkpoint_path": checkpoint},
         # The reference bench's headline engine settings: 64-token pages,
-        # 4 pages a row, 64-token decode budget, greedy, fast-forward 8,
-        # homogeneous slab, no drafting, no prefix cache.
+        # 4 pages a row, 64-token decode budget, greedy, window 8; the rest
+        # at the reference's defaults: the homogeneous slab, prompt drafting,
+        # pipeline depth 2, 4 x 4 forwards a segment, the prefix cache on.
         "engine": {
             "max_batch_size": batch, "kv_page_size": 64, "max_pages_per_seq": 4,
             "max_decode_len": 64, "temperature": 0.0, "speculate_k": 8,
-            "hetero_batch": False, "prefix_cache": False, "draft_mode": "off",
         },
         "planner": {"kind": "llm"},
     })
@@ -392,8 +403,8 @@ async def serve(
     after=None,
 ) -> tuple[dict, list, object]:
     """Serve ``n_intents`` concurrent /plan requests on a fresh control
-    plane; then, on the same engine, ``after(cp, records)`` when given.
-    Returns (stats, plans, what ``after`` returned)."""
+    plane; then, on the same engine, ``after(cp, records, intents)`` when
+    given. Returns (stats, plans, what ``after`` returned)."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for, synth_registry
@@ -409,7 +420,7 @@ async def serve(
         rng = random.Random(0)
         intents = [intent_for(records, rng) for _ in range(n_intents)]
         engine = cp.planner.engine
-        fwd0 = engine.queue_stats()["decode_forwards"]
+        q0 = engine.queue_stats()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_kernel_launches()
@@ -424,7 +435,7 @@ async def serve(
         stats = dict(
             model=size, intents=n_intents, wall_s=wall, plans_per_s=n_intents / wall,
             p50_ms=lat[len(lat) // 2], max_ms=lat[-1], startup_s=startup_s,
-            decode_forwards=engine.queue_stats()["decode_forwards"] - fwd0,
+            **loop_counts(q0, engine.queue_stats(), n_intents),
             origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
             launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
         )
@@ -438,10 +449,183 @@ async def serve(
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
             emit(f"profile_{size}", card, **device_breakdown(prof, wall))
-        extra = await after(cp, records) if after is not None else None
+        extra = await after(cp, records, intents) if after is not None else None
         return stats, plans, extra
     finally:
         await cp.aclose()
+
+
+async def idle(engine) -> None:
+    """Wait until no row is resident and nothing is queued: config flips
+    between runs land on an idle slab."""
+    while engine.queue_stats()["active_rows"] or engine.queue_stats()["queue_depth"]:
+        await asyncio.sleep(0.05)
+
+
+def loop_counts(q0: dict, q1: dict, n_plans: int) -> dict:
+    """The decode loop's counters over a run, from two ``queue_stats()``:
+    forwards dispatched and live, drafted and accepted tokens, generated
+    tokens per live forward and live forwards per plan."""
+    d = {k: q1[k] - q0[k] for k in ("decode_forwards", "live_forwards", "drafted", "accepted", "decode_tokens")}
+    return dict(
+        **d, tokens_per_live_forward=d["decode_tokens"] / max(1, d["live_forwards"]),
+        live_forwards_per_plan=d["live_forwards"] / n_plans,
+    )
+
+
+# ------------------------------------------------------------ decode-loop modes
+MODES = (("off", 1), ("prompt", 1), ("prompt", 2))  # (draft_mode, pipeline_depth)
+NEAR_TIE = 1e-3  # top-2 margin of masked logits under which greedy picks may flip
+
+
+def masked_margin(engine, prompt_ids: list, kw: dict, toks: list, k: int) -> float:
+    """Top-2 margin of the next token's logits after ``prompt_ids +
+    toks[:k]``, masked as the engine masks them (grammar-legal, and able to
+    finish within the decode budget), by one dense prefill on the card."""
+    import numpy as np
+
+    from mcpx_torch.models.gemma.model import init_kv_cache, prefill
+
+    grammar = kw.get("grammar") or engine.grammar
+    trans, mask, dist, active, eos, inv = grammar.device_tables(64)
+    s = 0
+    for t in toks[:k]:
+        s = int(trans[s, inv[t]])
+    legal = mask[s]
+    finish = legal & (eos | (dist[trans[s]] <= engine.config.engine.max_decode_len - k - 1))
+    allowed = finish if finish.any() else legal
+    ids = torch.tensor([list(prompt_ids) + list(toks[:k])], device="cuda")
+    cache = init_kv_cache(engine.model_cfg, 1, ids.shape[1], device="cuda")
+    with torch.inference_mode():
+        logits, _ = prefill(
+            engine._params, engine.model_cfg, ids,
+            torch.tensor([ids.shape[1]], device="cuda"), cache, last_only=True,
+        )
+    vals = logits[0].float().cpu().numpy()[active]
+    top = np.sort(np.where(allowed, vals, -np.inf))[-2:]
+    return float(top[1] - top[0])
+
+
+async def serve_modes(
+    cp, intents: list, size: str, card: str, trained: bool, profile: bool = False
+) -> list[dict]:
+    """The burst's intents once more in each of MODES, live flips on an
+    idle slab of the same engine, with the prefix cache off for the phase:
+    every mode then admits the same prompts by dense prefill and drafts from
+    the whole prompt, as from a cold tree (warm from the burst, a repeated
+    prompt's suffix is its last partial page, with little to draft from).
+    Each mode runs twice:
+      * through ``ControlPlane.plan``: plans/s, p50, the plans, origins and
+        kernel launches;
+      * a replay of the first mode's engine calls, submitted at once, so
+        that they form one cohort whatever the planner's timing: the
+        decode-loop counters (forwards dispatched and live, drafted and
+        accepted tokens, tokens per live forward) and the token streams.
+    With ``profile``, each mode's /plan pass runs once more under the
+    profiler (device time by kernel, idle share).
+    Prints each mode's line; fails unless every plan is valid, drafting
+    takes no more live forwards than the loop without it, and the plans and
+    replayed streams agree with the first mode's: exactly at test; at 2b a
+    differing stream passes only as a near-tie (its first differing token's
+    masked top-2 margin under NEAR_TIE, printed with both texts). With
+    ``trained`` weights, which copy service names from their prompt, it
+    also fails unless drafting accepts tokens and takes fewer live forwards;
+    random weights copy nothing, so the prompt lookup has no match to
+    propose from (the counts are printed all the same)."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+
+    engine = cp.planner.engine
+    ecfg = engine.config.engine
+    saved = (ecfg.draft_mode, ecfg.pipeline_depth, ecfg.prefix_cache)
+    real_generate = engine.generate
+    calls: dict = {}
+
+    async def recording(prompt_ids, **kw):
+        res = await real_generate(prompt_ids, **kw)
+        calls.setdefault(tuple(prompt_ids), (kw, res.token_ids))
+        return res
+
+    runs = []
+    replay_calls: list = []
+    try:
+        for draft, depth in MODES:
+            await idle(engine)
+            ecfg.draft_mode, ecfg.pipeline_depth, ecfg.prefix_cache = draft, depth, False
+            calls = {}
+            engine.generate = recording
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            t0 = time.monotonic()
+            results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+            wall = time.monotonic() - t0
+            launches = kernel_launches()
+            engine.generate = real_generate
+            plans = [p for p, _ in results]
+            lat = sorted(ms for _, ms in results)
+            for p in plans:
+                p.validate()
+            replay_calls = replay_calls or sorted(calls.items())
+            await idle(engine)
+            q0 = engine.queue_stats()
+            replayed = await asyncio.gather(*(
+                real_generate(list(prompt), **kw) for prompt, (kw, _) in replay_calls
+            ))
+            stats = dict(
+                model=size, draft_mode=draft, pipeline_depth=depth, prefix_cache=False,
+                intents=len(intents), wall_s=wall, plans_per_s=len(intents) / wall,
+                p50_ms=lat[len(lat) // 2],
+                origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
+                launches=launches, replayed_calls=len(replay_calls),
+                **loop_counts(q0, engine.queue_stats(), len(replay_calls)),
+            )
+            emit(f"serve_modes_{size}", card, **stats)
+            if profile:
+                with _profiler() as prof:
+                    t0 = time.monotonic()
+                    await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+                    torch.cuda.synchronize()
+                    wall = time.monotonic() - t0
+                emit(
+                    f"profile_modes_{size}", card, draft_mode=draft, pipeline_depth=depth,
+                    **device_breakdown(prof, wall),
+                )
+            streams = dict(calls)
+            streams.update({("replay",) + p: (kw, r.token_ids) for (p, (kw, _)), r in zip(replay_calls, replayed)})
+            runs.append((stats, plans, streams))
+    finally:
+        engine.generate = real_generate
+        await idle(engine)
+        ecfg.draft_mode, ecfg.pipeline_depth, ecfg.prefix_cache = saved
+
+    off, off_plans, off_streams = runs[0]
+    tok = engine.tokenizer
+    for stats, plans, streams in runs[1:]:
+        if trained and stats["accepted"] <= 0:
+            raise SystemExit(f"serve_modes_{size}: drafting accepted no token: {stats}")
+        if stats["live_forwards"] > off["live_forwards"]:
+            raise SystemExit(f"serve_modes_{size}: drafting cost live forwards: {off} {stats}")
+        differ = [i for i, (a, b) in enumerate(zip(off_plans, plans)) if a.to_json() != b.to_json()]
+        ties = []
+        for key, (kw, toks) in streams.items():
+            ref_toks = off_streams.get(key, (None, toks))[1]
+            if toks == ref_toks:
+                continue
+            k = next((j for j, (a, b) in enumerate(zip(toks, ref_toks)) if a != b), min(len(toks), len(ref_toks)))
+            prompt = [t for t in key if t != "replay"]
+            margin = masked_margin(engine, prompt, kw, toks, k)
+            emit(
+                f"near_tie_{size}", card, draft_mode=stats["draft_mode"],
+                pipeline_depth=stats["pipeline_depth"], replay=key[0] == "replay", position=k,
+                margin=margin, limit=NEAR_TIE, draft_off=tok.decode(ref_toks), this_mode=tok.decode(toks),
+            )
+            ties.append(margin)
+        if size == "test" and (differ or ties):
+            raise SystemExit(f"serve_modes_{size}: plans differ at {differ}, streams at {len(ties)}: {stats}")
+        if ties and max(ties) >= NEAR_TIE or differ and not ties:
+            raise SystemExit(f"serve_modes_{size}: plans differ at {differ}, not near-ties ({ties})")
+    if trained and not runs[1][0]["live_forwards"] < off["live_forwards"]:
+        raise SystemExit(f"serve_modes_{size}: drafting did not cut live forwards: {off} {runs[1][0]}")
+    return [st for st, _, _ in runs]
 
 
 async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: str) -> dict:
@@ -463,8 +647,7 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
     n = len(intents)
 
     async def run(on: bool) -> tuple[dict, list]:
-        while engine.queue_stats()["active_rows"] or engine.queue_stats()["queue_depth"]:
-            await asyncio.sleep(0.05)
+        await idle(engine)
         ecfg.prefix_cache = on
         sem = asyncio.Semaphore(16)
 
@@ -497,11 +680,13 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
         emit(f"serve_prefix_{size}", card, **stats)
         return stats, plans
 
+    saved = ecfg.prefix_cache
     try:
         off, off_plans = await run(False)
         on, on_plans = await run(True)
     finally:
-        ecfg.prefix_cache = False
+        await idle(engine)
+        ecfg.prefix_cache = saved
     differ = [i for i, (a, b) in enumerate(zip(off_plans, on_plans)) if a.to_json() != b.to_json()]
     if differ:
         raise SystemExit(f"serve_prefix_{size}: plans differ between the modes at {differ}")
@@ -537,20 +722,29 @@ def main(argv: list[str]) -> int:
     rows = kernel_phase(card)
     forward_check(card)
 
-    trained, _, trained_pfx = asyncio.run(serve(
+    async def modes_then_prefix(cp, recs, intents, size: str, n_unique: int):
+        modes = await serve_modes(cp, intents, size, card, trained=size == "test", profile=args.profile)
+        return modes, await prefix_reuse(cp, recs, size, n_unique, 4, card)
+
+    trained, _, (trained_modes, trained_pfx) = asyncio.run(serve(
         "test", CKPT, 16, card, batch=64, profile=args.profile,
-        after=lambda cp, recs: prefix_reuse(cp, recs, "test", 8, 4, card),
+        after=lambda cp, recs, intents: modes_then_prefix(cp, recs, intents, "test", 8),
     ))
     if trained["origins"] != {"llm": 16}:
         raise SystemExit(f"trained checkpoint: not every plan is LLM-authored: {trained['origins']}")
+    for st in trained_modes:
+        if st["origins"] != {"llm": 16}:
+            raise SystemExit(f"serve_modes_test {st['draft_mode']}: not every plan is LLM-authored")
     for mode in ("off", "on"):
         if trained_pfx[mode]["origins"] != {"llm": 32}:
             raise SystemExit(f"serve_prefix_test {mode}: not every plan is LLM-authored")
-    full, _, full_pfx = asyncio.run(serve(
+    full, _, (full_modes, full_pfx) = asyncio.run(serve(
         "2b", "", 8, card, batch=64, profile=args.profile,
-        after=lambda cp, recs: prefix_reuse(cp, recs, "2b", 4, 4, card),
+        after=lambda cp, recs, intents: modes_then_prefix(cp, recs, intents, "2b", 4),
     ))
-    runs = [trained, full] + [r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")]
+    runs = [trained, full, *trained_modes, *full_modes] + [
+        r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
+    ]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

@@ -20,16 +20,41 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
     first constrained sample under the budget mask;
   - decode runs in segments of up to ``decode_steps_per_tick *
     steps_per_dispatch`` forwards. Every forward is one ``decode_chunk_paged``
-    call over the whole slab whose window is ``speculate_k`` wide: the
-    sampled token plus the chain of grammar-forced tokens after it
-    (fast-forward). ``q_lens`` carries each row's live width, so decode,
-    fast-forward and idle rows (``q_lens = 0``) share one kernel launch;
+    call over the whole slab whose window is ``speculate_k`` wide.
+    ``q_lens`` carries each row's live width, so decode, drafted, forced and
+    idle rows (``q_lens = 0``) share one kernel launch. Two bodies fill the
+    window:
+      * prompt drafting (``draft_mode="prompt"``, the default; constrained
+        greedy rows): after the last (prev, cur) bigram match in the row's
+        own prompt suffix, the prompt's continuation is proposed wherever the
+        grammar does not force the token. The forward returns logits over the
+        grammar's active columns at every window slot (compact unembed), and
+        the proposals are verified against the budget-masked greedy argmax:
+        the accepted prefix plus one correction token are emitted, exactly
+        what one-token greedy decode would emit;
+      * fast-forward otherwise: the sampled token plus the chain of
+        grammar-forced tokens after it;
+  - segments are pipelined (``pipeline_depth``): a segment is enqueued with
+    no blocking call inside it. Its early exit reads an all-done flag one
+    forward late (copied to a pinned host slot without blocking), so at
+    most one extra forward runs, every row idle in it. At its end the
+    segment's flags, emitted counts and output buffer are packed into that
+    segment's own host buffer by one copy without blocking; the harvest
+    waits on the oldest segment only once ``pipeline_depth`` are in flight,
+    and retires only rows whose generation counter still matches the
+    segment's snapshot (a row released and re-admitted since is left to its
+    new request);
   - between segments the worker retires finished rows and admits new ones.
+    Every write to slab state is an operation on the device's stream, and
+    uploads go through fresh pinned blocks, so a queued segment always
+    reads the state its dispatch saw.
 
-Left out for later slices: pipelined dispatch, the heterogeneous slab,
-prompt drafting and speculative decoding, the KV tier (host spill, tenant
-governance, warm heads from snapshots), multi-GPU, and telemetry. Greedy
-outputs do not depend on any of them.
+Left out for later slices: the fused window captured as one CUDA graph, the
+heterogeneous slab, speculative decoding with the recurrent drafter, int8
+weights, ring prefill, the KV tier (host spill, tenant governance, warm
+heads from snapshots), multi-GPU, and telemetry. A config that asks for
+``hetero_batch``, ``speculative``, ``kv_tier``, ``ring_prefill_min_tokens``
+or ``quantize="int8"`` is refused at construction.
 
 The device is explicit: ``device=None`` means CUDA and raises when CUDA is
 absent; tests pass ``device="cpu"``. The tensors' device decides the
@@ -58,7 +83,7 @@ from mcpx_torch.engine.kernels.paged_attention import kernel_launches
 from mcpx_torch.engine.kv_cache import PageAllocator, commit_prefill_to_pages, init_paged_kv
 from mcpx_torch.engine.paged_decode import decode_chunk_paged
 from mcpx_torch.engine.prefix_cache import PrefixNode, RadixPrefixCache
-from mcpx_torch.engine.sampling import sample
+from mcpx_torch.engine.sampling import NEG_INF, sample
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import init_kv_cache, prefill
 from mcpx_torch.models.gemma.params import load_or_init
@@ -143,16 +168,24 @@ def _bucket(n: int, buckets: tuple[int, ...]) -> int:
 
 class _Slab:
     """The persistent decode batch. Host side: the request and page
-    bookkeeping per row. Device side (``dev``): cur, pos, st, emitted, done,
-    budgets, page_table and out_buf, mutated only by the worker thread.
-    ``out_buf`` has one spare column past ``steps``: scatters route slots
-    they must drop there, so no write ever wraps into a live slot."""
+    bookkeeping per row, and ``gen``, each row's generation counter, bumped
+    at every admission and release (an in-flight segment's snapshot of it
+    keeps a lagged done flag off the row's next request). Device side
+    (``dev``): cur, pos, st, emitted, done, budgets, page_table, out_buf
+    and the draft state (``prompt_toks`` [B, prompt_cap] and
+    ``prompt_lens``: the row's prompt suffix; ``prev``: the token before
+    ``cur``), mutated only by the worker thread, always by operations on
+    the device's stream. ``out_buf`` has one spare column past ``steps``:
+    scatters route slots they must drop there, so no write ever wraps into
+    a live slot."""
 
-    def __init__(self, B: int, steps: int, pmax: int, pad_id: int, device) -> None:
+    def __init__(self, B: int, steps: int, pmax: int, pad_id: int, prompt_cap: int, device) -> None:
         self.B = B
         self.steps = steps
+        self.prompt_cap = max(2, prompt_cap)
         self.req: list[Optional[GenerateRequest]] = [None] * B
         self.sid: list[Optional[tuple]] = [None] * B
+        self.gen = np.zeros((B,), np.int64)
         # Radix nodes each row pins (its matched and inserted runs) and its
         # matched depth in tokens; released with the row.
         self.prefix: list[tuple] = [()] * B
@@ -174,6 +207,9 @@ class _Slab:
             "budgets": torch.zeros((B,), **i64),
             "page_table": torch.zeros((B, pmax), dtype=torch.int32, device=device),
             "out_buf": torch.full((B, steps + 1), pad_id, **i64),
+            "prompt_toks": torch.full((B, self.prompt_cap), pad_id, **i64),
+            "prompt_lens": torch.zeros((B,), **i64),
+            "prev": torch.full((B,), pad_id, **i64),
         }
 
     @property
@@ -191,6 +227,24 @@ class _Slab:
         )
 
 
+@dataclasses.dataclass
+class _Inflight:
+    """A dispatched segment awaiting harvest: its end state packed into a
+    host buffer of its own (``out_buf`` rows, then emitted, then done, then
+    the segment's live forwards, drafted and accepted tokens), the event
+    after that copy (None on the CPU, where the copy is done when issued),
+    and the slab's generation counters at dispatch."""
+
+    host: torch.Tensor
+    event: Optional["torch.cuda.Event"]
+    gen: np.ndarray
+
+
+# Host slots of the segments' all-done flags: the flag of forward n is read
+# before forward n + 2 is issued, so four slots are never overwritten early.
+FLAG_SLOTS = 4
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -200,8 +254,18 @@ class InferenceEngine:
         device: "torch.device | str | None" = None,
     ) -> None:
         self.config = config or MCPXConfig()
-        self.device = resolve_device(device)
         ecfg = self.config.engine
+        refused = (
+            ("engine.hetero_batch", ecfg.hetero_batch),
+            ("engine.speculative.enabled", ecfg.speculative.enabled),
+            ("engine.kv_tier.enabled", ecfg.kv_tier.enabled),
+            ("engine.ring_prefill_min_tokens > 0", ecfg.ring_prefill_min_tokens > 0),
+            ("model.quantize='int8'", self.config.model.quantize == "int8"),
+        )
+        for name, asked in refused:
+            if asked:
+                raise EngineError(f"{name}: not served by the PyTorch port yet")
+        self.device = resolve_device(device)
         self.tokenizer = make_tokenizer(self.config.model.vocab)
         self.model_cfg = model_cfg or GemmaConfig.named(
             self.config.model.size,
@@ -226,10 +290,27 @@ class InferenceEngine:
         # prefill_tokens counts the tokens every prefill computed (prefix
         # builds included), suffix_prefills the prefills at a matched offset
         # and suffix_prefill_launches the kernel launches they made.
+        # decode_forwards counts the forwards dispatched; live_forwards those
+        # in which some row was live (counted on the device, fetched with
+        # the harvest: the reference's forward count); drafted and accepted
+        # the prompt-draft proposals (tokens the grammar did not force) put
+        # in a forward and those its verification accepted; decode_tokens
+        # the tokens retired requests generated.
         self._stats = {
-            "admissions": 0, "segments": 0, "decode_forwards": 0, "retired": 0,
+            "admissions": 0, "segments": 0, "decode_forwards": 0, "live_forwards": 0,
+            "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
             "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
         }
+        # Dispatched segments awaiting harvest, oldest first.
+        self._inflight: "deque[_Inflight]" = deque()
+        # The all-done flag ring (made in _setup): forwards issued so far,
+        # and the first forward whose flag may end a segment (flags from
+        # before an admission are stale).
+        self._fwd_seq = 0
+        self._flags_from = 0
+        self._flag_host: Optional[torch.Tensor] = None
+        self._flag_np: Optional[np.ndarray] = None
+        self._flag_events: list = []
         # Service-time EWMA (s) of retired requests: the locality sort's
         # deadline slack.
         self._ewma_service_s = 0.0
@@ -423,21 +504,30 @@ class InferenceEngine:
         budget_ceiling = min(ecfg.max_decode_len, capacity - 1)
         return max(1, min(want, capacity - budget_ceiling))
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the device, without waiting for the stream: on
+        CUDA through a fresh pinned block (the caching host allocator keeps
+        it until the copy has run), so an upload never waits for queued
+        segments and no queued kernel reads host memory written later. On
+        the CPU: a tensor over the array."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _dfa_for(self, grammar: PlanGrammar) -> tuple:
-        """(trans, mask, dist, active_ids, eos_cols) of ``grammar`` on the
-        device, cached per grammar object (the cache holds the grammar so
-        its id cannot be reused while cached)."""
+        """(trans, mask, dist, active_ids, eos_cols, inv_cols) of ``grammar``
+        on the device, cached per grammar object (the cache holds the
+        grammar so its id cannot be reused while cached). ``inv_cols`` maps
+        a token id to its compact column, -1 where it is active nowhere."""
         hit = self._dfa_cache.get(id(grammar))
         if hit is not None:
             return hit[1]
-        trans, mask, dist, ids, eos, _inv = grammar.device_tables(64)
-        dev = self.device
+        trans, mask, dist, ids, eos, inv = grammar.device_tables(64)
+        i64 = np.int64
         tables = (
-            torch.from_numpy(trans).to(dev, torch.int64),
-            torch.from_numpy(mask).to(dev),
-            torch.from_numpy(dist).to(dev, torch.int64),
-            torch.from_numpy(ids).to(dev, torch.int64),
-            torch.from_numpy(eos).to(dev),
+            self._upload(trans.astype(i64)), self._upload(mask), self._upload(dist.astype(i64)),
+            self._upload(ids.astype(i64)), self._upload(eos), self._upload(inv.astype(i64)),
         )
         self._dfa_cache[id(grammar)] = (grammar, tables)
         while len(self._dfa_cache) > 8:
@@ -450,7 +540,7 @@ class InferenceEngine:
         successor can still finish within ``rem`` more samples). When no
         column can finish in budget, degrade to the plain legal mask: the
         output is then a legal prefix, never garbage. [B, C] compact."""
-        trans, mask_tab, dist, _active, eos_cols = dfa
+        trans, mask_tab, dist, _active, eos_cols, _inv = dfa
         legal = mask_tab[st]
         finishable = legal & (eos_cols[None, :] | (dist[trans[st]] <= rem[:, None]))
         feasible = finishable.any(dim=-1, keepdim=True)
@@ -466,12 +556,20 @@ class InferenceEngine:
         self._paged_kv = init_paged_kv(
             self.model_cfg, self._allocator.n_pages, ecfg.kv_page_size, self.device
         )
+        # The draft buffer holds a row's prompt suffix: the largest prefill
+        # bucket within page capacity.
+        capacity = ecfg.max_pages_per_seq * ecfg.kv_page_size
+        fitting = [b for b in self._prefill_buckets if b <= capacity]
         self._slab = _Slab(
             ecfg.max_batch_size, ecfg.max_decode_len, ecfg.max_pages_per_seq,
-            self.tokenizer.pad_id, self.device,
+            self.tokenizer.pad_id, max(fitting, default=2), self.device,
         )
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(time.time_ns() & 0x7FFFFFFF)
+        cuda = self.device.type == "cuda"
+        self._flag_host = torch.zeros((FLAG_SLOTS,), dtype=torch.bool, pin_memory=cuda)
+        self._flag_np = self._flag_host.numpy()
+        self._flag_events = [torch.cuda.Event() if cuda else None for _ in range(FLAG_SLOTS)]
 
     def _worker(self) -> None:
         try:
@@ -486,7 +584,9 @@ class InferenceEngine:
         pending: "deque[GenerateRequest]" = deque()
         with torch.inference_mode():
             while True:
-                self._drain_queue(pending, block=not pending and slab.n_active == 0)
+                self._drain_queue(
+                    pending, block=not pending and slab.n_active == 0 and not self._inflight
+                )
                 if self._stop:
                     break
                 self._reap_cancelled(slab)
@@ -494,13 +594,32 @@ class InferenceEngine:
                     if pending and slab.n_active < slab.B:
                         self._admit(slab, pending)
                     if slab.n_active:
-                        self._segment(slab)
-                        self._harvest(slab)
+                        # Dispatch first, then harvest a lagged segment: its
+                        # wait overlaps the segment just enqueued.
+                        self._dispatch_segment(slab)
+                        self._harvest(slab, keep_inflight=max(0, self.config.engine.pipeline_depth - 1))
+                    elif self._inflight:
+                        # Nothing resident by the host's view: drain what is
+                        # in flight, so that blocking on the queue is safe.
+                        self._harvest(slab, keep_inflight=0)
                 except BaseException as e:  # keep the worker alive
                     log.exception("engine step failed; failing resident rows")
+                    self._inflight.clear()
                     self._fail_rows(slab, e)
                     # The pools may hold partial writes: serve no cached KV.
                     self._prefix_cache.drop_all()
+            self._shutdown(slab, pending)
+
+    def _shutdown(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
+        """Harvest what the device already finished (a request one lagged
+        harvest away from delivery resolves), then fail every resident,
+        pending and queued request."""
+        if self._inflight:
+            try:
+                self._harvest(slab, keep_inflight=0)
+            except Exception:  # closing anyway: the rows fail below
+                log.exception("final harvest failed during shutdown")
+            self._inflight.clear()
         closed = EngineError("engine closed")
         self._fail_rows(slab, closed)
         for r in pending:
@@ -570,9 +689,11 @@ class InferenceEngine:
                 self._release_row(slab, i)
 
     def _release_row(self, slab: _Slab, i: int) -> None:
-        """Pages back to the allocator, the row's radix pins released, the
-        row's device state cleared: its page-table row zeroed (later writes
-        land on the null page)."""
+        """Pages back to the allocator, the row's radix pins released, its
+        generation bumped, the row's device state cleared: its page-table
+        row zeroed (later writes land on the null page) and its draft state
+        emptied. A segment still in flight that wrote the freed pages ran
+        before any later owner's prefill, on the same stream."""
         self._allocator.free(slab.sid[i])
         for node in slab.prefix[i]:
             node.refs -= 1
@@ -580,7 +701,11 @@ class InferenceEngine:
         slab.prefix_toks[i] = 0
         slab.req[i] = None
         slab.sid[i] = None
+        slab.gen[i] += 1
         d = slab.dev
+        d["prompt_toks"][i] = self.tokenizer.pad_id
+        d["prompt_lens"][i] = 0
+        d["prev"][i] = self.tokenizer.pad_id
         d["done"][i] = True
         d["page_table"][i] = 0
         d["pos"][i] = 0
@@ -714,16 +839,13 @@ class InferenceEngine:
         table[0, n // psz : P // psz] = node.pages
         tokens = np.full((1, T), self.tokenizer.pad_id, np.int64)
         tokens[0, :R] = key[n:]
-        dev = self.device
-        lens = torch.tensor([R], dtype=torch.int64, device=dev)
+        up = self._upload
+        lens = up(np.asarray([R], np.int64))
         try:
             if n > 0:
-                self._suffix_prefill(
-                    torch.from_numpy(tokens).to(dev), lens,
-                    torch.tensor([n], dtype=torch.int64, device=dev), torch.from_numpy(table).to(dev),
-                )
+                self._suffix_prefill(up(tokens), lens, up(np.asarray([n], np.int64)), up(table))
             else:
-                self._dense_prefill(torch.from_numpy(tokens).to(dev), lens, torch.from_numpy(table).to(dev))
+                self._dense_prefill(up(tokens), lens, up(table))
         except BaseException:
             cache.rollback(node)
             raise
@@ -777,7 +899,6 @@ class InferenceEngine:
         dense prefill otherwise."""
         ecfg = self.config.engine
         tok = self.tokenizer
-        dev = self.device
         free = slab.free_rows()
         cache = self._prefix_cache
         use_prefix = bool(ecfg.prefix_cache)
@@ -933,14 +1054,18 @@ class InferenceEngine:
             table[j, : len(tree_pages)] = tree_pages
             table[j, len(tree_pages) : len(tree_pages) + len(pages)] = pages
 
+        # Draft seed: each row's suffix tokens (what it prefills after its
+        # radix match) and, as ``prev``, the last of them.
+        ptoks = np.full((A, slab.prompt_cap), tok.pad_id, np.int64)
+        ptoks[:, : min(T, slab.prompt_cap)] = tokens[:, : slab.prompt_cap]
+        prev = tokens[np.arange(A), seq_lens - 1]
+
         t0 = time.monotonic()
+        up = self._upload
         try:
-            tokens_d = torch.from_numpy(tokens).to(dev)
-            lens_d = torch.from_numpy(seq_lens).to(dev)
-            pos_d = torch.from_numpy(positions).to(dev)
-            table_d = torch.from_numpy(table).to(dev)
-            budgets_d = torch.from_numpy(budgets).to(dev)
-            active_d = torch.from_numpy(active).to(dev)
+            tokens_d, lens_d, pos_d = up(tokens), up(seq_lens), up(positions)
+            table_d, budgets_d, active_d = up(table), up(budgets), up(active)
+            ptoks_d, prev_d = up(ptoks), up(prev)
             if bool(positions.any()):
                 last_logits = self._suffix_prefill(tokens_d, lens_d, pos_d, table_d)
             else:
@@ -962,6 +1087,7 @@ class InferenceEngine:
         for i, (r, _budget, _ids, sid, _pages, P, _tp, mnode, inode) in zip(rows, cohort):
             slab.req[i] = r
             slab.sid[i] = sid
+            slab.gen[i] += 1
             # The row owns the pins taken at stage 3 (match +1, insert
             # born pinned); _release_row drops them.
             slab.prefix[i] = tuple(x for x in (mnode, inode) if x is not None)
@@ -971,7 +1097,7 @@ class InferenceEngine:
             slab.t_decode0[i] = t1
         # Scatter the cohort's rows into the slab; bucket-padding lanes
         # (j >= n) are dropped, never written.
-        idx = torch.tensor(rows, dtype=torch.int64, device=dev)
+        idx = up(np.asarray(rows, np.int64))
         d = slab.dev
         d["cur"][idx] = cur0[:n]
         d["pos"][idx] = pos_d[:n] + lens_d[:n]
@@ -982,6 +1108,12 @@ class InferenceEngine:
         d["page_table"][idx] = table_d[:n]
         d["out_buf"][idx] = tok.pad_id
         d["out_buf"][idx, 0] = cur0[:n]
+        d["prompt_toks"][idx] = ptoks_d[:n]
+        d["prompt_lens"][idx] = lens_d[:n]
+        d["prev"][idx] = prev_d[:n]
+        # New live rows: an all-done flag from before this admission must
+        # not end the next segment.
+        self._flags_from = self._fwd_seq
 
     def _fail_admission(self, slab: _Slab, cohort: list[tuple], error: BaseException) -> None:
         """A failed admission prefill: the cohort's inserted nodes roll
@@ -1012,7 +1144,7 @@ class InferenceEngine:
         start = torch.zeros((A,), dtype=torch.int64, device=self.device)
         if slab.constrained:
             dfa = self._dfa_for(slab.grammar or self.grammar)
-            trans, _mask, _dist, active_ids, eos_cols = dfa
+            trans, _mask, _dist, active_ids, eos_cols, _inv = dfa
             mask0 = self._budget_mask(dfa, start, budgets - 1)
             col = sample(
                 first_logits[:, active_ids], self._generator,
@@ -1032,124 +1164,310 @@ class InferenceEngine:
         return cur0, state0, done0
 
     # --------------------------------------------------------------- decode
-    def _segment(self, slab: _Slab) -> None:
-        """Up to ``decode_steps_per_tick * steps_per_dispatch`` forwards over
-        the whole slab, stopping early once every row is done."""
+    def _decode_iters(self) -> int:
+        """Forwards a segment may take: ``decode_steps_per_tick *
+        steps_per_dispatch`` (one dispatch and one harvest serve the whole
+        window; it ends early once every row is done)."""
         ecfg = self.config.engine
-        tok = self.tokenizer
-        cfg = self.model_cfg
-        dev = self.device
+        return max(1, ecfg.decode_steps_per_tick) * max(1, ecfg.steps_per_dispatch)
+
+    def _flag_says_all_done(self) -> bool:
+        """Whether the forward before the last one issued left every row
+        done. Its flag was copied to a host slot without blocking; waiting
+        on that forward's event alone keeps the last forward queued on the
+        card, so a segment's early exit runs at most one extra forward, with
+        every row idle in it. Flags from before the last admission are
+        stale."""
+        m = self._fwd_seq - 2
+        if m < self._flags_from:
+            return False
+        slot = m % FLAG_SLOTS
+        event = self._flag_events[slot]
+        if event is not None:
+            event.synchronize()
+        return bool(self._flag_np[slot])
+
+    def _note_forward(self, done: torch.Tensor) -> None:
+        """After a forward: its all-done flag into its host slot, without
+        blocking, and the event that marks the copy."""
+        slot = self._fwd_seq % FLAG_SLOTS
+        self._flag_host[slot].copy_(done.all(), non_blocking=True)
+        event = self._flag_events[slot]
+        if event is not None:
+            event.record()
+        self._fwd_seq += 1
+
+    def _dispatch_segment(self, slab: _Slab) -> None:
+        """Enqueue up to ``_decode_iters()`` forwards over the whole slab,
+        with no blocking call, and push the segment's in-flight record: its
+        end state packed into a host buffer of its own by one copy without
+        blocking. Rows of a segment dispatched later may already have moved
+        on; the record keeps what this one saw. The body is the prompt draft
+        for constrained greedy rows with ``draft_mode="prompt"`` (read from
+        the live config) and a window wider than one, else fast-forward."""
+        ecfg = self.config.engine
         d = slab.dev
-        B = slab.B
-        W = slab.steps  # out_buf column W is the drop slot
-        pad, eos = tok.pad_id, tok.eos_id
         constrained = slab.constrained
         chunk = self._spec_chunk(constrained)
         dfa = self._dfa_for(slab.grammar or self.grammar) if constrained else None
-        iters = max(1, ecfg.decode_steps_per_tick) * max(1, ecfg.steps_per_dispatch)
-        b_idx = torch.arange(B, device=dev)
-        cur, pos, st, e, done = d["cur"], d["pos"], d["st"], d["emitted"], d["done"]
-        budgets, page_table, buf = d["budgets"], d["page_table"], d["out_buf"]
-        pad_col = torch.full((B,), W, dtype=torch.int64, device=dev)
+        use_draft = (
+            ecfg.draft_mode == "prompt" and constrained and chunk > 1 and slab.temperature <= 0.0
+        )
+        body = self._draft_forward if use_draft else self._fast_forward
+        state = tuple(d[k] for k in ("cur", "pos", "st", "emitted", "done", "prev"))
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        live = drafted = accepted = zero
         n_fwd = 0
-        for _ in range(iters):
-            if bool(done.all()):
+        for _ in range(self._decode_iters()):
+            if self._flag_says_all_done():
                 break
-            if constrained and chunk > 1:
-                trans, mask_tab, _dist, active_ids, eos_cols = dfa
-                # Fast-forward: the chain of grammar-forced tokens after
-                # `cur`. Emission stops at the first state with more than
-                # one legal column, at a forced EOS, or when the row's
-                # budget runs out mid-chain (only reachable when the budget
-                # is below the grammar's shortest completion).
-                s, dd, er = st, done, e
-                ff_toks, ff_emit = [], []
-                for _ in range(chunk - 1):
-                    row = mask_tab[s]  # [B, C]
-                    t_c = torch.argmax(row.to(torch.uint8), dim=-1)
-                    forced = (row.sum(dim=-1) == 1) & ~dd
-                    is_eos = forced & eos_cols[t_c]
-                    emit = forced & ~is_eos & (er < budgets)
-                    over = forced & ~is_eos & (er >= budgets)
-                    s = torch.where(emit, trans[s, t_c], s)
-                    dd = dd | is_eos | over
-                    er = er + emit.long()
-                    ff_toks.append(torch.where(emit, active_ids[t_c], pad))
-                    ff_emit.append(emit)
-                st1, done1, e1 = s, dd, er
-                ff_toks_t = torch.stack(ff_toks, dim=1)  # [B, chunk-1]
-                ff_emit_t = torch.stack(ff_emit, dim=1)
-                slot = e[:, None] + torch.cumsum(ff_emit_t.long(), dim=1) - 1
-                buf[b_idx[:, None], torch.where(ff_emit_t, slot, W)] = ff_toks_t
-                chunk_toks = torch.cat([cur[:, None], ff_toks_t], dim=1)
-                adv_extra = ff_emit_t.long().sum(dim=1)
-            else:
-                st1, done1, e1 = st, done, e
-                chunk_toks = cur[:, None]
-                adv_extra = 0
-            # One forward consumes [cur, forced...]; `adv` is each row's
-            # live window (0 for done rows, which idle through the forward).
-            adv = torch.where(done, 0, 1) + adv_extra
-            logits, _ = decode_chunk_paged(
-                self._params, cfg, chunk_toks, pos, page_table, self._paged_kv,
-                logits_at=torch.clamp(adv - 1, min=0), q_lens=adv,
-            )
+            live = live + (~state[4]).any().long()
+            state, n_dr, n_ac = body(slab, dfa, chunk, *state)
+            if n_dr is not None:
+                drafted, accepted = drafted + n_dr, accepted + n_ac
+            self._note_forward(state[4])
             n_fwd += 1
-            if constrained:
-                trans, _mask, _dist, active_ids, eos_cols = dfa
-                mask = self._budget_mask(dfa, st1, budgets - e1 - 1)
-                col = sample(
-                    logits[:, active_ids], self._generator,
-                    temperature=slab.temperature, top_k=ecfg.top_k, mask=mask,
-                )
-                nxt_id = active_ids[col]
-                newly_done = done1 | eos_cols[col] | (e1 >= budgets)
-                st_next = torch.where(newly_done, st1, trans[st1, col])
-            else:
-                nxt_id = sample(
-                    logits, self._generator,
-                    temperature=slab.temperature, top_k=ecfg.top_k, mask=self._unconstrained_mask,
-                )
-                newly_done = done1 | (nxt_id == eos) | (e1 >= budgets)
-                st_next = st1
-            nxt = torch.where(newly_done, torch.full_like(nxt_id, pad), nxt_id)
-            buf[b_idx, torch.where(newly_done, pad_col, e1)] = nxt
-            cur, pos, st = nxt, pos + adv, st_next
-            e = e1 + torch.where(newly_done, 0, 1)
-            done = newly_done
-        d.update(cur=cur, pos=pos, st=st, emitted=e, done=done)
+        d.update(zip(("cur", "pos", "st", "emitted", "done", "prev"), state))
+        packed = torch.cat([
+            d["out_buf"].reshape(-1), d["emitted"], d["done"].long(),
+            torch.stack([live, drafted, accepted]),
+        ])
+        event = None
+        if self.device.type == "cuda":
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = packed
+        self._inflight.append(_Inflight(host, event, slab.gen.copy()))
         self._stats["segments"] += 1
         self._stats["decode_forwards"] += n_fwd
 
-    def _harvest(self, slab: _Slab) -> None:
-        """Retire rows whose requests finished: one fetch of the flags and
-        the output buffer, then the result to the request's event loop."""
-        done = slab.dev["done"].cpu().numpy()
-        e = slab.dev["emitted"].cpu().numpy()
-        buf = slab.dev["out_buf"].cpu().numpy()
-        t1 = time.monotonic()
-        for i in range(slab.B):
-            r = slab.req[i]
-            if r is None or not done[i]:
-                continue
-            ids = [int(t) for t in buf[i, : e[i]]]
-            res = GenerateResult(
-                token_ids=ids,
-                text=self.tokenizer.decode(ids),
-                prompt_tokens=len(r.prompt_ids),
-                generated_tokens=len(ids),
-                queue_ms=float(slab.queue_ms[i]),
-                prefill_ms=float(slab.prefill_ms[i]),
-                decode_ms=(t1 - slab.t_decode0[i]) * 1e3,
+    def _fast_forward(self, slab: _Slab, dfa, chunk: int, cur, pos, st, e, done, prev):
+        """One forward of the fast-forward body: ``cur`` plus, for
+        constrained rows, the chain of grammar-forced tokens after it, then
+        one sample at the chain's end. Returns the new (cur, pos, st,
+        emitted, done, prev) and no draft counts."""
+        ecfg = self.config.engine
+        tok = self.tokenizer
+        d = slab.dev
+        B, W = slab.B, slab.steps  # out_buf column W is the drop slot
+        pad, eos = tok.pad_id, tok.eos_id
+        budgets, buf = d["budgets"], d["out_buf"]
+        b_idx = torch.arange(B, device=self.device)
+        if dfa is not None and chunk > 1:
+            trans, mask_tab, _dist, active_ids, eos_cols, _inv = dfa
+            # Fast-forward: the chain of grammar-forced tokens after `cur`.
+            # Emission stops at the first state with more than one legal
+            # column, at a forced EOS, or when the row's budget runs out
+            # mid-chain (only reachable when the budget is below the
+            # grammar's shortest completion).
+            s, dd, er = st, done, e
+            ff_toks, ff_emit = [], []
+            for _ in range(chunk - 1):
+                row = mask_tab[s]  # [B, C]
+                t_c = torch.argmax(row.to(torch.uint8), dim=-1)
+                forced = (row.sum(dim=-1) == 1) & ~dd
+                is_eos = forced & eos_cols[t_c]
+                emit = forced & ~is_eos & (er < budgets)
+                over = forced & ~is_eos & (er >= budgets)
+                s = torch.where(emit, trans[s, t_c], s)
+                dd = dd | is_eos | over
+                er = er + emit.long()
+                ff_toks.append(torch.where(emit, active_ids[t_c], pad))
+                ff_emit.append(emit)
+            st1, done1, e1 = s, dd, er
+            ff_toks_t = torch.stack(ff_toks, dim=1)  # [B, chunk-1]
+            ff_emit_t = torch.stack(ff_emit, dim=1)
+            slot = e[:, None] + torch.cumsum(ff_emit_t.long(), dim=1) - 1
+            buf[b_idx[:, None], torch.where(ff_emit_t, slot, W)] = ff_toks_t
+            chunk_toks = torch.cat([cur[:, None], ff_toks_t], dim=1)
+            adv_extra = ff_emit_t.long().sum(dim=1)
+        else:
+            st1, done1, e1 = st, done, e
+            chunk_toks = cur[:, None]
+            adv_extra = 0
+        # One forward consumes [cur, forced...]; `adv` is each row's live
+        # window (0 for done rows, which idle through the forward).
+        adv = torch.where(done, 0, 1) + adv_extra
+        logits, _ = decode_chunk_paged(
+            self._params, self.model_cfg, chunk_toks, pos, d["page_table"], self._paged_kv,
+            logits_at=torch.clamp(adv - 1, min=0), q_lens=adv,
+        )
+        if dfa is not None:
+            trans, _mask, _dist, active_ids, eos_cols, _inv = dfa
+            mask = self._budget_mask(dfa, st1, budgets - e1 - 1)
+            col = sample(
+                logits[:, active_ids], self._generator,
+                temperature=slab.temperature, top_k=ecfg.top_k, mask=mask,
             )
-            self._ewma_service_s = ewma_update(
-                self._ewma_service_s,
-                (res.prefill_ms + res.decode_ms) / 1e3,
-                self.config.scheduler.ewma_alpha,
+            nxt_id = active_ids[col]
+            newly_done = done1 | eos_cols[col] | (e1 >= budgets)
+            st_next = torch.where(newly_done, st1, trans[st1, col])
+        else:
+            nxt_id = sample(
+                logits, self._generator,
+                temperature=slab.temperature, top_k=ecfg.top_k, mask=self._unconstrained_mask,
             )
-            self._release_row(slab, i)
-            self._stats["retired"] += 1
-            r.loop.call_soon_threadsafe(_resolve, r.future, res, None)
+            newly_done = done1 | (nxt_id == eos) | (e1 >= budgets)
+            st_next = st1
+        nxt = torch.where(newly_done, pad, nxt_id)
+        buf[b_idx, torch.where(newly_done, W, e1)] = nxt
+        # prev: the token just before the new cur, the chain's last.
+        prev2 = torch.where(done | newly_done, prev, chunk_toks[b_idx, torch.clamp(adv - 1, min=0)])
+        e2 = e1 + torch.where(newly_done, 0, 1)
+        return (nxt, pos + adv, st_next, e2, newly_done, prev2), None, None
+
+    def _draft_forward(self, slab: _Slab, dfa, chunk: int, cur, pos, st, e, done, prev):
+        """One forward of the prompt-draft body (constrained, greedy):
+          1. the continuation after the last (prev, cur) bigram match in the
+             row's own prompt suffix (the latest match is the most local);
+          2. a proposal chain of ``chunk - 1`` tokens: a forced token
+             always, a continuation token while the chain stays in step
+             with the continuation and the token is legal and not EOS;
+          3. one forward over [cur, proposals] with logits over the
+             grammar's active columns at every slot (``q_lens`` = 1 + the
+             proposals, 0 for done rows);
+          4. verification: the accepted prefix is where each proposal is the
+             budget-masked greedy argmax at its slot;
+          5. the correction token, sampled at the first unaccepted slot.
+        Emits the accepted prefix and the correction: what one-token greedy
+        decode would emit, in fewer forwards. Returns the new (cur, pos,
+        st, emitted, done, prev) and the forward's drafted and accepted
+        counts (proposals the grammar did not force)."""
+        trans, mask_tab, dist, active_ids, eos_cols, inv = dfa
+        ecfg = self.config.engine
+        d = slab.dev
+        dev = self.device
+        pad = self.tokenizer.pad_id
+        B, W = slab.B, slab.steps
+        budgets, buf = d["budgets"], d["out_buf"]
+        ptoks, plens = d["prompt_toks"], d["prompt_lens"]
+        J, Lp = chunk - 1, ptoks.shape[1]
+        b_idx = torch.arange(B, device=dev)
+        j_ar = torch.arange(J, device=dev)
+
+        # 1. The continuation after the last bigram match.
+        m = (ptoks[:, :-1] == prev[:, None]) & (ptoks[:, 1:] == cur[:, None])
+        m &= (torch.arange(Lp - 1, device=dev)[None, :] + 2) < plens[:, None]
+        has = m.any(dim=1)
+        last_i = (Lp - 2) - torch.argmax(m.flip(1).to(torch.uint8), dim=1)
+        cont_idx = last_i[:, None] + 2 + j_ar[None, :]
+        cont_ok = has[:, None] & (cont_idx < plens[:, None])
+        cont = torch.gather(ptoks, 1, cont_idx.clamp(0, Lp - 1))
+        cont = torch.where(cont_ok, cont, pad)  # [B, J]
+        cont_col = inv[cont]  # -1: active in no state
+
+        # 2. The proposal chain.
+        s, alive, in_step = st, ~done, torch.ones_like(done)
+        p_toks, p_cols, p_use, p_forced, s_before = [], [], [], [], []
+        for j in range(J):
+            row = mask_tab[s]  # [B, C]
+            f_col = torch.argmax(row.to(torch.uint8), dim=-1)
+            forced = row.sum(dim=-1) == 1
+            c_col = cont_col[:, j]
+            c_col_c = c_col.clamp(min=0)
+            legal = (
+                cont_ok[:, j] & (c_col >= 0)
+                & torch.gather(row, 1, c_col_c[:, None])[:, 0] & ~eos_cols[c_col_c]
+            )
+            col = torch.where(forced, f_col, c_col_c)
+            use = alive & torch.where(forced, ~eos_cols[f_col], in_step & legal)
+            tok_j = active_ids[col]
+            s_before.append(s)
+            p_toks.append(torch.where(use, tok_j, pad))
+            p_cols.append(col)
+            p_use.append(use)
+            p_forced.append(forced)
+            s = torch.where(use, trans[s, col], s)
+            alive = use
+            in_step = in_step & (tok_j == cont[:, j])
+        p_toks_t, p_cols_t = torch.stack(p_toks, 1), torch.stack(p_cols, 1)  # [B, J]
+        p_use_t, forced_t = torch.stack(p_use, 1), torch.stack(p_forced, 1)
+        s_bef = torch.stack(s_before, 1)
+
+        # 3. One forward, compact logits at every slot: [B, chunk, C].
+        chunk_toks = torch.cat([cur[:, None], p_toks_t], dim=1)
+        logits_c, _ = decode_chunk_paged(
+            self._params, self.model_cfg, chunk_toks, pos, d["page_table"], self._paged_kv,
+            active_cols=active_ids, q_lens=torch.where(done, 0, 1 + p_use_t.long().sum(dim=1)),
+        )
+
+        # 4. Verify: the budget mask of _budget_mask at every slot.
+        rem_j = budgets[:, None] - e[:, None] - j_ar[None, :] - 1
+        legal_j = mask_tab[s_bef]  # [B, J, C]
+        finish_j = legal_j & (eos_cols[None, None, :] | (dist[trans[s_bef]] <= rem_j[..., None]))
+        mask_j = torch.where(finish_j.any(dim=-1, keepdim=True), finish_j, legal_j)
+        greedy_j = torch.argmax(torch.where(mask_j, logits_c[:, :J], NEG_INF), dim=-1)
+        ok = p_use_t & (greedy_j == p_cols_t) & (e[:, None] + j_ar[None, :] < budgets[:, None])
+        acc = torch.cumprod(ok.long(), dim=1).bool()
+        a = acc.long().sum(dim=1)  # accepted count; 0 on done rows
+
+        # 5. The correction token at slot a.
+        st1 = torch.cat([s_bef, s[:, None]], dim=1)[b_idx, a]
+        e1 = e + a
+        mask = self._budget_mask(dfa, st1, budgets - e1 - 1)
+        col = sample(
+            logits_c[b_idx, a], self._generator,
+            temperature=slab.temperature, top_k=ecfg.top_k, mask=mask,
+        )
+        newly_done = done | eos_cols[col] | (e1 >= budgets)
+        st_next = torch.where(newly_done, st1, trans[st1, col])
+        nxt = torch.where(newly_done, pad, active_ids[col])
+        buf[b_idx[:, None], torch.where(acc, e[:, None] + j_ar[None, :], W)] = p_toks_t
+        buf[b_idx, torch.where(newly_done, W, e1)] = nxt
+        adv = torch.where(done, 0, 1) + a
+        prev2 = torch.where(done | newly_done, prev, chunk_toks[b_idx, a])
+        e2 = e1 + torch.where(newly_done, 0, 1)
+        drafted = (p_use_t & ~forced_t).long().sum()
+        accepted_n = (acc & ~forced_t).long().sum()
+        return (nxt, pos + adv, st_next, e2, newly_done, prev2), drafted, accepted_n
+
+    def _harvest(self, slab: _Slab, keep_inflight: int) -> None:
+        """Retire rows of in-flight segments, oldest first, until at most
+        ``keep_inflight`` remain: one wait a segment, on the copy of its
+        packed end state, then the rows it saw finish whose generation
+        still matches go back to their requests. Done rows stop emitting,
+        so a lagged out_buf row is final for a row it reports done."""
+        B, W1 = slab.B, slab.steps + 1
+        n_buf = B * W1
+        while len(self._inflight) > keep_inflight:
+            rec = self._inflight.popleft()
+            if rec.event is not None:
+                rec.event.synchronize()
+            flat = rec.host.numpy()
+            buf = flat[:n_buf].reshape(B, W1)
+            e = flat[n_buf : n_buf + B]
+            done = flat[n_buf + B : n_buf + 2 * B] != 0
+            live, drafted, accepted = (int(x) for x in flat[n_buf + 2 * B :])
+            self._stats["live_forwards"] += live
+            self._stats["drafted"] += drafted
+            self._stats["accepted"] += accepted
+            t1 = time.monotonic()
+            for i in range(B):
+                r = slab.req[i]
+                if r is None or not done[i] or rec.gen[i] != slab.gen[i]:
+                    continue
+                ids = [int(t) for t in buf[i, : e[i]]]
+                res = GenerateResult(
+                    token_ids=ids,
+                    text=self.tokenizer.decode(ids),
+                    prompt_tokens=len(r.prompt_ids),
+                    generated_tokens=len(ids),
+                    queue_ms=float(slab.queue_ms[i]),
+                    prefill_ms=float(slab.prefill_ms[i]),
+                    decode_ms=(t1 - slab.t_decode0[i]) * 1e3,
+                )
+                self._ewma_service_s = ewma_update(
+                    self._ewma_service_s,
+                    (res.prefill_ms + res.decode_ms) / 1e3,
+                    self.config.scheduler.ewma_alpha,
+                )
+                self._release_row(slab, i)
+                self._stats["retired"] += 1
+                self._stats["decode_tokens"] += len(ids)
+                r.loop.call_soon_threadsafe(_resolve, r.future, res, None)
 
 
 def _resolve(future: "asyncio.Future", result: Any, error: Optional[BaseException]) -> None:

@@ -30,6 +30,7 @@ def decode_chunk_paged(
     paged_kv: dict[str, torch.Tensor],  # k/v: [K, L, N, Psz, hd]
     *,
     logits_at: Optional[torch.Tensor] = None,  # [B] chunk slot per row
+    active_cols: Optional[torch.Tensor] = None,  # [C] token ids: compact unembed
     q_lens: Optional[torch.Tensor] = None,  # [B] live window slots per row
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """S new tokens per row in one forward. Query i of row b is written at
@@ -37,9 +38,11 @@ def decode_chunk_paged(
     ``q_lens`` makes rows ragged: slots past a row's live width are pads
     (their K/V writes are garbage the next chunk overwrites; their
     attention outputs are zero), and ``q_lens = 0`` idles a row. None keeps
-    every slot live. Returns ([B, S, V] fp32 logits, pools) — or ([B, V],
-    pools) when ``logits_at`` names one slot per row. The pools are updated
-    in place."""
+    every slot live. Returns ([B, S, V] fp32 logits, pools); with
+    ``active_cols``, ([B, S, C] logits over those token ids at every slot,
+    the draft verifier's input); else with ``logits_at``, ([B, V], pools)
+    at one slot per row. ``active_cols`` takes precedence over
+    ``logits_at``. The pools are updated in place."""
     B, S = tokens.shape
     K, L, N, psz, hd = paged_kv["k"].shape
     p_max = page_table.shape[1]
@@ -80,6 +83,8 @@ def decode_chunk_paged(
         h = rms_norm(x, lp["pre_mlp_norm"][i], cfg.norm_eps)
         x = x + mlp(h, lp, i)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if active_cols is not None:
+        return unembed(x, params["embed"], subset=active_cols), paged_kv
     if logits_at is not None:
         x = x[torch.arange(B, device=dev), logits_at.long()]  # [B, D]
     return unembed(x, params["embed"]), paged_kv

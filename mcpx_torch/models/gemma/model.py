@@ -114,9 +114,12 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: GemmaConfig) ->
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
 
 
-def unembed(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding, fp32 logits: x @ embed.T."""
-    return torch.matmul(x.float(), embed.float().t())
+def unembed(x: torch.Tensor, embed: torch.Tensor, subset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tied unembedding, fp32 logits: x @ embed.T. ``subset`` [C] (token
+    ids) restricts it to those rows of ``embed``: [..., C] logits, and the
+    full-vocabulary product is never formed."""
+    w = embed if subset is None else embed[subset.long()]
+    return torch.matmul(x.float(), w.float().t())
 
 
 def mlp(h: torch.Tensor, lp: dict[str, torch.Tensor], i: int) -> torch.Tensor:

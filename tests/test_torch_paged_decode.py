@@ -1,7 +1,8 @@
 """The port's decode_chunk_paged against the reference package's, with the
 reference's Pallas kernel in interpret mode, on the committed checkpoint in
-float32, a seeded page table and seeded pools. The tolerance (1e-4) absorbs
-summation order over two layers."""
+float32, a seeded page table and seeded pools: the last-slot, all-slot and
+compact (``active_cols``) unembeds. The tolerance (1e-4) absorbs summation
+order over two layers."""
 
 import dataclasses
 import os
@@ -18,6 +19,8 @@ from mcpx.models.train import load_npz as jload_npz
 from mcpx_torch.engine.paged_decode import decode_chunk_paged as tdecode
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.params import params_from_numpy
+from mcpx_torch.models.tokenizer import make_tokenizer
+from mcpx_torch.planner.grammar import build_plan_grammar
 
 CKPT = os.path.join(
     os.path.dirname(__file__), "..", "mcpx", "models", "checkpoints", "planner_test_bpe.npz"
@@ -81,3 +84,28 @@ def test_dense_chunk_decode_matches_reference(setup):
     )
     assert tuple(out.shape) == (3, 4, 3072)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compact_unembed_matches_reference(setup, seed):
+    """``active_cols``: logits over the plan grammar's active columns at
+    every window slot ([B, S, C], the draft verifier's input), against the
+    reference with its kernel in interpret mode; a ragged mix with an idle
+    row. The greedy column at every live slot must be the same."""
+    jcfg, tcfg, jparams, tparams = setup
+    tokens, positions, table, pools, q_lens = case(seed)
+    cols = build_plan_grammar(make_tokenizer("bpe")).device_tables(64)[3]
+    ref, _ = jdecode(
+        jparams, jcfg, jnp.asarray(tokens), jnp.asarray(positions), jnp.asarray(table),
+        {k: jnp.asarray(v) for k, v in pools.items()},
+        use_pallas=True, interpret=True, active_cols=jnp.asarray(cols), q_lens=jnp.asarray(q_lens),
+    )
+    out, _ = tdecode(
+        tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(positions),
+        torch.from_numpy(table), {k: torch.from_numpy(v.copy()) for k, v in pools.items()},
+        active_cols=torch.from_numpy(cols), q_lens=torch.from_numpy(q_lens),
+    )
+    assert tuple(out.shape) == (5, 8, len(cols)) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    live = np.arange(8)[None, :] < q_lens[:, None]
+    assert np.array_equal(out.numpy().argmax(-1)[live], np.asarray(ref).argmax(-1)[live])
