@@ -21,9 +21,15 @@ Phases, one line each (every number beside the card's name and power limit):
   5. serve the trained checkpoint: 16 concurrent /plan requests through
      ``ControlPlane.plan``, every plan LLM-authored and valid, at the
      reference's default decode loop (prompt drafting, pipeline depth 2,
-     prefix cache on);
+     prefix cache on), with the decode window captured at startup
+     (``warmup_compile``) and replayed; then the same requests once more,
+     which must capture no new window, and in that repeat, at its first
+     segment with live rows, ``graph_window``: from one snapshot of the
+     slab state and KV pools, the window run eagerly and by replay of its
+     graph in turns, every buffer and pool byte equal, with host ms and
+     device ms per window for both routes;
   6. serve at full width: the 2b preset (random weights from seed 0), 8
-     concurrent /plan requests, the same settings;
+     concurrent /plan requests, the same settings and checks;
   7. decode-loop modes, on the engines of phases 5 and 6: the burst's
      intents once more as (draft off, depth 1), (draft on, depth 1) and
      (draft on, depth 2), live flips on an idle slab. Every plan valid, no
@@ -43,7 +49,11 @@ after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
 idle share. Any failed phase
 exits non-zero before the result line. The kernel launch counters are set to
-0 just before each serving run and read just after it.
+0 just before each serving run and read just after it; they include the
+launches of every replayed window (``replay_launches``: replays times layers
+times forwards a window), and every serving line carries the windows
+captured in its run (``captures``), which must be 0 wherever the run repeats
+traffic already served.
 """
 
 from __future__ import annotations
@@ -330,6 +340,9 @@ def config(size: str, checkpoint: str, batch: int):
         "engine": {
             "max_batch_size": batch, "kv_page_size": 64, "max_pages_per_seq": 4,
             "max_decode_len": 64, "temperature": 0.0, "speculate_k": 8,
+            # As the reference bench: the hot decode window is captured at
+            # startup, so serving captures only what the warm-up missed.
+            "warmup_compile": True,
         },
         "planner": {"kind": "llm"},
     })
@@ -435,20 +448,29 @@ async def serve(
         stats = dict(
             model=size, intents=n_intents, wall_s=wall, plans_per_s=n_intents / wall,
             p50_ms=lat[len(lat) // 2], max_ms=lat[-1], startup_s=startup_s,
-            **loop_counts(q0, engine.queue_stats(), n_intents),
+            # Windows captured at startup: the engine's warm-up (the generic
+            # grammar's bucket) and the planner's warm request (the registry
+            # grammar's bucket, counted as serving).
+            warmup_captures=q0["warmup_captures"], startup_captures=q0["captures"],
+            capture_counts=engine.capture_counts(),
+            **loop_counts(engine, q0, engine.queue_stats(), n_intents),
             origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
             launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
         )
         emit(f"serve_{size}", card, **stats)
+        await repeat_with_graph_window(cp, intents, size, card)
         if profile:
             # The same requests once more under the profiler, after the
             # measured run, so the profiler's cost stays out of its numbers.
+            q1 = engine.queue_stats()
             with _profiler() as prof:
                 t0 = time.monotonic()
                 await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
-            emit(f"profile_{size}", card, **device_breakdown(prof, wall))
+            emit(f"profile_{size}", card, **device_breakdown(prof, wall),
+                 **loop_counts(engine, q1, engine.queue_stats(), n_intents))
+            no_new_captures(f"profile_{size}", q1, engine.queue_stats())
         extra = await after(cp, records, intents) if after is not None else None
         return stats, plans, extra
     finally:
@@ -462,15 +484,132 @@ async def idle(engine) -> None:
         await asyncio.sleep(0.05)
 
 
-def loop_counts(q0: dict, q1: dict, n_plans: int) -> dict:
+LOOP_COUNTERS = (
+    "segments", "windows", "decode_forwards", "live_forwards", "drafted", "accepted",
+    "decode_tokens", "captures", "replays",
+)
+
+
+def loop_counts(engine, q0: dict, q1: dict, n_plans: int) -> dict:
     """The decode loop's counters over a run, from two ``queue_stats()``:
-    forwards dispatched and live, drafted and accepted tokens, generated
-    tokens per live forward and live forwards per plan."""
-    d = {k: q1[k] - q0[k] for k in ("decode_forwards", "live_forwards", "drafted", "accepted", "decode_tokens")}
+    segments, windows, forwards dispatched and live, drafted and accepted
+    tokens, windows captured and replayed, the ragged-kernel launches the
+    replays made (one a layer a forward), generated tokens per live
+    forward and live forwards per plan."""
+    d = {k: q1[k] - q0[k] for k in LOOP_COUNTERS}
+    tick = max(1, engine.config.engine.decode_steps_per_tick)
     return dict(
-        **d, tokens_per_live_forward=d["decode_tokens"] / max(1, d["live_forwards"]),
+        **d, replay_launches=d["replays"] * engine.model_cfg.n_layers * tick,
+        tokens_per_live_forward=d["decode_tokens"] / max(1, d["live_forwards"]),
         live_forwards_per_plan=d["live_forwards"] / n_plans,
     )
+
+
+def no_new_captures(where: str, q0: dict, q1: dict) -> None:
+    """A run that repeats traffic already served captures no window."""
+    if q1["captures"] != q0["captures"]:
+        raise SystemExit(f"{where}: repeated traffic captured {q1['captures'] - q0['captures']} new windows")
+
+
+# ------------------------------------------------------------ graph window
+def window_state(engine) -> dict:
+    """Copies of everything a decode window reads or writes that a later
+    window can see: the slab's buffers and the KV pools."""
+    state = {f"slab.{k}": t.clone() for k, t in engine._slab.dev.items()}
+    state.update({f"kv.{k}": t.clone() for k, t in engine._paged_kv.items()})
+    return state
+
+
+def set_window_state(engine, state: dict) -> None:
+    """Write a ``window_state`` back into the engine's buffers in place."""
+    for name, t in state.items():
+        where, k = name.split(".", 1)
+        (engine._slab.dev if where == "slab" else engine._paged_kv)[k].copy_(t)
+
+
+def window_routes(engine, turns: int = 2):
+    """From one snapshot of the slab (it must have a live row and its
+    window a captured graph; else None), the window once eagerly and once
+    by replay, in turns (eager, replay, replay, eager) x ``turns``, each
+    from the snapshot. Per route: host ms (until the call returns, before
+    any wait) and ms between CUDA events around the call (the stream's time
+    for the window, which for the eager route includes the card's waits on
+    the host), least of the runs. ``differing`` lists the buffers whose end
+    states are not bitwise equal across runs and routes. The snapshot is
+    restored after, and the comparison's kernel launches are left out of
+    the launch counts."""
+    from mcpx_torch.engine.kernels.paged_attention import LAUNCHES
+
+    slab = engine._slab
+    key, dfa = engine._window_plan(slab)
+    graph = engine._graphs.get(key)
+    torch.cuda.synchronize()
+    if graph is None or bool(slab.dev["done"].all()):
+        return None
+    launches = dict(LAUNCHES)
+    snap = window_state(engine)
+    times: dict = {"eager": [], "replay": []}
+    first = None
+    differing: set = set()
+    for route in ("eager", "replay", "replay", "eager") * turns:
+        set_window_state(engine, snap)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        if route == "eager":
+            engine._window(slab, key, dfa)
+        else:
+            graph.replay()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        times[route].append((host_ms, a.elapsed_time(b)))
+        end = window_state(engine)
+        first = first or end
+        differing |= {k for k in first if not torch.equal(first[k], end[k])}
+    set_window_state(engine, snap)
+    torch.cuda.synchronize()
+    LAUNCHES.update(launches)
+    return dict(
+        key=repr(key), live_rows=int((~snap["slab.done"]).sum()), forwards=key[5],
+        emitted=int((first["slab.emitted"] - snap["slab.emitted"]).sum()),
+        host_ms_eager=min(h for h, _ in times["eager"]), host_ms_replay=min(h for h, _ in times["replay"]),
+        device_ms_eager=min(d for _, d in times["eager"]), device_ms_replay=min(d for _, d in times["replay"]),
+        runs=len(times["eager"]) + len(times["replay"]), differing=sorted(differing),
+    )
+
+
+async def repeat_with_graph_window(cp, intents: list, size: str, card: str) -> dict:
+    """The burst's requests once more on the same engine: no new window may
+    be captured. At the first segment with a live row, ``window_routes``
+    runs in the worker before the segment is dispatched; every buffer and
+    pool byte must agree between the routes (greedy: bitwise)."""
+    engine = cp.planner.engine
+    real = engine._dispatch_segment
+    found: dict = {}
+
+    def hooked(slab):
+        if "routes" not in found:
+            routes = window_routes(engine)
+            if routes is not None:
+                found["routes"] = routes
+        real(slab)
+
+    q0 = engine.queue_stats()
+    engine._dispatch_segment = hooked
+    try:
+        await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+    finally:
+        engine._dispatch_segment = real
+    q1 = engine.queue_stats()
+    counts = loop_counts(engine, q0, q1, len(intents))
+    routes = found.get("routes")
+    emit(f"graph_window_{size}", card, **(routes or {}), repeat=counts)
+    no_new_captures(f"graph_window_{size}", q0, q1)
+    if routes is None or routes["differing"] or routes["emitted"] <= 0:
+        raise SystemExit(f"graph_window_{size}: replay and eager disagree or never ran: {routes}")
+    return routes
 
 
 # ------------------------------------------------------------ decode-loop modes
@@ -522,8 +661,11 @@ async def serve_modes(
         decode-loop counters (forwards dispatched and live, drafted and
         accepted tokens, tokens per live forward) and the token streams.
     With ``profile``, each mode's /plan pass runs once more under the
-    profiler (device time by kernel, idle share).
-    Prints each mode's line; fails unless every plan is valid, drafting
+    profiler (device time by kernel, idle share). One unmeasured request
+    with drafting off comes first, so that the fast-forward window is
+    captured before any measured pass.
+    Prints each mode's line; fails unless no mode captures a window, every
+    plan is valid, drafting
     takes no more live forwards than the loop without it, and the plans and
     replayed streams agree with the first mode's: exactly at test; at 2b a
     differing stream passes only as a near-tie (its first differing token's
@@ -548,11 +690,20 @@ async def serve_modes(
     runs = []
     replay_calls: list = []
     try:
+        # One unmeasured request with drafting off first: its window key
+        # (the fast-forward body) is captured here, so no mode's measured
+        # pass pays a capture and every mode must capture nothing.
+        await idle(engine)
+        ecfg.draft_mode, ecfg.prefix_cache = "off", False
+        q_warm = engine.queue_stats()
+        await cp.plan(intents[0], use_cache=False)
+        warm_captures = engine.queue_stats()["captures"] - q_warm["captures"]
         for draft, depth in MODES:
             await idle(engine)
             ecfg.draft_mode, ecfg.pipeline_depth, ecfg.prefix_cache = draft, depth, False
             calls = {}
             engine.generate = recording
+            q_mode = engine.queue_stats()
             torch.cuda.synchronize()
             reset_kernel_launches()
             t0 = time.monotonic()
@@ -576,10 +727,16 @@ async def serve_modes(
                 p50_ms=lat[len(lat) // 2],
                 origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
                 launches=launches, replayed_calls=len(replay_calls),
-                **loop_counts(q0, engine.queue_stats(), len(replay_calls)),
+                **loop_counts(engine, q0, engine.queue_stats(), len(replay_calls)),
+                mode_captures=engine.queue_stats()["captures"] - q_mode["captures"],
+                warm_captures=warm_captures,
+                # The /plan pass's own counts: its launches are the line's.
+                plan_pass=loop_counts(engine, q_mode, q0, len(intents)),
             )
             emit(f"serve_modes_{size}", card, **stats)
+            no_new_captures(f"serve_modes_{size} {draft} {depth}", q_mode, engine.queue_stats())
             if profile:
+                q_prof = engine.queue_stats()
                 with _profiler() as prof:
                     t0 = time.monotonic()
                     await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
@@ -588,7 +745,9 @@ async def serve_modes(
                 emit(
                     f"profile_modes_{size}", card, draft_mode=draft, pipeline_depth=depth,
                     **device_breakdown(prof, wall),
+                    **loop_counts(engine, q_prof, engine.queue_stats(), len(intents)),
                 )
+                no_new_captures(f"profile_modes_{size}", q_prof, engine.queue_stats())
             streams = dict(calls)
             streams.update({("replay",) + p: (kw, r.token_ids) for (p, (kw, _)), r in zip(replay_calls, replayed)})
             runs.append((stats, plans, streams))
@@ -675,9 +834,10 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
             suffix_prefills=q1["suffix_prefills"] - q0["suffix_prefills"],
             suffix_prefill_launches=q1["suffix_prefill_launches"] - q0["suffix_prefill_launches"],
             origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
-            launches=launches,
+            launches=launches, **loop_counts(engine, q0, q1, n),
         )
         emit(f"serve_prefix_{size}", card, **stats)
+        no_new_captures(f"serve_prefix_{size}", q0, q1)
         return stats, plans
 
     saved = ecfg.prefix_cache
@@ -749,6 +909,13 @@ def main(argv: list[str]) -> int:
         for st in runs:
             if st["launches"][name] <= 0:
                 raise SystemExit(f"{name} was not launched while serving {st['model']}")
+    for st in runs:
+        # Every decode window of a run replays a graph (the first of a new
+        # key is its capture's eager warm-up), and the launch count holds
+        # the replays' launches.
+        counts = st.get("plan_pass", st)
+        if counts["replays"] <= 0 or st["launches"]["ragged_paged_attention"] < counts["replay_launches"]:
+            raise SystemExit(f"serving {st['model']}: replays missing from the launch count: {st}")
     check_tickets("serving")
 
     headline = rows[0]

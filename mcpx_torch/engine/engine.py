@@ -18,9 +18,10 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
     K/V into the page pools. The page-aligned rest of every prompt is
     inserted into the tree for the next request sharing it. Then comes the
     first constrained sample under the budget mask;
-  - decode runs in segments of up to ``decode_steps_per_tick *
-    steps_per_dispatch`` forwards. Every forward is one ``decode_chunk_paged``
-    call over the whole slab whose window is ``speculate_k`` wide.
+  - decode runs in segments of up to ``steps_per_dispatch`` windows of
+    ``decode_steps_per_tick`` forwards each. Every forward is one
+    ``decode_chunk_paged`` call over the whole slab whose window is
+    ``speculate_k`` wide.
     ``q_lens`` carries each row's live width, so decode, drafted, forced and
     idle rows (``q_lens = 0``) share one kernel launch. Two bodies fill the
     window:
@@ -34,10 +35,18 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
         what one-token greedy decode would emit;
       * fast-forward otherwise: the sampled token plus the chain of
         grammar-forced tokens after it;
+  - a window is one function over fixed device state (``_window``): on
+    CUDA it is captured once per key (body, temperature, window width,
+    batch, grammar-table bucket, forwards) into a CUDA graph and replayed,
+    so a window costs one host call; on the CPU the same function runs
+    eagerly. A captured window runs all its forwards, rows that are done
+    idling at ``q_lens = 0``; ``captures`` in ``queue_stats()`` counts the
+    captures made while serving, as the reference counts compiles;
   - segments are pipelined (``pipeline_depth``): a segment is enqueued with
     no blocking call inside it. Its early exit reads an all-done flag one
-    forward late (copied to a pinned host slot without blocking), so at
-    most one extra forward runs, every row idle in it. At its end the
+    window late (copied to a pinned host slot without blocking, outside the
+    graph), so a segment runs at most ``2 * decode_steps_per_tick - 1``
+    forwards in which every row is idle. At its end the
     segment's flags, emitted counts and output buffer are packed into that
     segment's own host buffer by one copy without blocking; the harvest
     waits on the oldest segment only once ``pipeline_depth`` are in flight,
@@ -49,10 +58,10 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
     uploads go through fresh pinned blocks, so a queued segment always
     reads the state its dispatch saw.
 
-Left out for later slices: the fused window captured as one CUDA graph, the
-heterogeneous slab, speculative decoding with the recurrent drafter, int8
-weights, ring prefill, the KV tier (host spill, tenant governance, warm
-heads from snapshots), multi-GPU, and telemetry. A config that asks for
+Left out for later slices: the heterogeneous slab, speculative decoding
+with the recurrent drafter, int8 weights, ring prefill, the KV tier (host
+spill, tenant governance, warm heads from snapshots), multi-GPU, and
+telemetry. A config that asks for
 ``hetero_batch``, ``speculative``, ``kv_tier``, ``ring_prefill_min_tokens``
 or ``quantize="int8"`` is refused at construction.
 
@@ -79,7 +88,14 @@ import torch
 from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.device import resolve_device
-from mcpx_torch.engine.kernels.paged_attention import kernel_launches
+from mcpx_torch.engine.kernels.paged_attention import (
+    captured_launches,
+    count_replay,
+    hold_tickets,
+    kernel_launches,
+    release_tickets,
+    ticket_count,
+)
 from mcpx_torch.engine.kv_cache import PageAllocator, commit_prefill_to_pages, init_paged_kv
 from mcpx_torch.engine.paged_decode import decode_chunk_paged
 from mcpx_torch.engine.prefix_cache import PrefixNode, RadixPrefixCache
@@ -88,7 +104,7 @@ from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import init_kv_cache, prefill
 from mcpx_torch.models.gemma.params import load_or_init
 from mcpx_torch.models.tokenizer import make_tokenizer
-from mcpx_torch.planner.grammar import PlanGrammar, build_plan_grammar
+from mcpx_torch.planner.grammar import _DIST_INF, PlanGrammar, _col_bucket, build_plan_grammar
 from mcpx_torch.scheduler.admission import ewma_update
 from mcpx_torch.scheduler.locality import locality_order
 
@@ -174,8 +190,13 @@ class _Slab:
     (``dev``): cur, pos, st, emitted, done, budgets, page_table, out_buf
     and the draft state (``prompt_toks`` [B, prompt_cap] and
     ``prompt_lens``: the row's prompt suffix; ``prev``: the token before
-    ``cur``), mutated only by the worker thread, always by operations on
-    the device's stream. ``out_buf`` has one spare column past ``steps``:
+    ``cur``), plus the segment's counters (``counts``: live forwards,
+    drafted and accepted tokens) and the last window's all-done flag
+    (``all_done``). Every one is a fixed buffer for the slab's lifetime,
+    since captured windows read and write them at their addresses: it is
+    written in place (windows by ``copy_``, admission and release by
+    indexed writes), only by the worker thread, always by operations on the
+    device's stream. ``out_buf`` has one spare column past ``steps``:
     scatters route slots they must drop there, so no write ever wraps into
     a live slot."""
 
@@ -210,6 +231,8 @@ class _Slab:
             "prompt_toks": torch.full((B, self.prompt_cap), pad_id, **i64),
             "prompt_lens": torch.zeros((B,), **i64),
             "prev": torch.full((B,), pad_id, **i64),
+            "counts": torch.zeros((3,), **i64),
+            "all_done": torch.ones((), dtype=torch.bool, device=device),
         }
 
     @property
@@ -227,6 +250,61 @@ class _Slab:
         )
 
 
+# The slab state a window advances, in the order the bodies take and return it.
+_STATE = ("cur", "pos", "st", "emitted", "done", "prev")
+
+
+class _Tables:
+    """One pad bucket's grammar tables on the device: ``trans`` [S, C]
+    int32, ``mask`` [S, C] bool, ``dist`` [S] int32, ``ids`` [C] and
+    ``eos`` [C] (token id and EOS flag per compact column) and ``inv`` [V]
+    (token id to column, -1 where active nowhere). Fixed buffers for the
+    engine's lifetime, so one captured window serves every grammar of the
+    bucket: ``load`` copies a grammar in, as stream operations. The rows
+    past the loaded grammar's states are never indexed (every state a
+    grammar's tables name is below its state count); the rows it covers,
+    and those the last grammar covered, hold the reference's padding
+    (transitions to the dead state, mask False, distance infinite)."""
+
+    def __init__(self, S: int, C: int, vocab: int, device) -> None:
+        self.trans = torch.empty((S, C), dtype=torch.int32, device=device)
+        self.mask = torch.empty((S, C), dtype=torch.bool, device=device)
+        self.dist = torch.empty((S,), dtype=torch.int32, device=device)
+        self.ids = torch.empty((C,), dtype=torch.int64, device=device)
+        self.eos = torch.empty((C,), dtype=torch.bool, device=device)
+        self.inv = torch.empty((vocab,), dtype=torch.int64, device=device)
+        self.grammar: Optional[PlanGrammar] = None
+        self.rows = 0  # state rows the last load wrote
+
+    @property
+    def dfa(self) -> tuple:
+        return self.trans, self.mask, self.dist, self.ids, self.eos, self.inv
+
+    def load(self, grammar: PlanGrammar, upload_into) -> None:
+        """Copy ``grammar``'s compact tables in: the rows either grammar
+        covers reset to padding, then its own block on top."""
+        n, c = grammar.ctrans.shape
+        C, V = self.ids.shape[0], self.inv.shape[0]
+        rows = max(n, self.rows)
+        self.trans[:rows].fill_(grammar.cdead)
+        self.mask[:rows].fill_(False)
+        self.dist[:rows].fill_(_DIST_INF)
+        upload_into(self.trans[:n, :c], grammar.ctrans)
+        upload_into(self.mask[:n, :c], grammar.cmask)
+        upload_into(self.dist[:n], grammar.dist)
+        ids = np.full((C,), grammar.tokenizer.pad_id, np.int64)
+        ids[:c] = grammar.active_ids
+        eos = np.zeros((C,), bool)
+        eos[:c] = grammar.eos_cols
+        inv = np.full((V,), -1, np.int64)
+        inv[grammar.active_ids] = np.arange(c)
+        upload_into(self.ids, ids)
+        upload_into(self.eos, eos)
+        upload_into(self.inv, inv)
+        self.grammar = grammar
+        self.rows = n
+
+
 @dataclasses.dataclass
 class _Inflight:
     """A dispatched segment awaiting harvest: its end state packed into a
@@ -240,8 +318,8 @@ class _Inflight:
     gen: np.ndarray
 
 
-# Host slots of the segments' all-done flags: the flag of forward n is read
-# before forward n + 2 is issued, so four slots are never overwritten early.
+# Host slots of the windows' all-done flags: the flag of window n is read
+# before window n + 2 is issued, so four slots are never overwritten early.
 FLAG_SLOTS = 4
 
 
@@ -282,7 +360,19 @@ class InferenceEngine:
         self._params = None
         self._paged_kv: Optional[dict] = None
         self._slab: Optional[_Slab] = None
-        self._dfa_cache: dict[int, tuple] = {}
+        # Grammar tables by pad bucket (state rows, columns), made at first
+        # use and kept: captured windows read them at their addresses.
+        self._tables: dict[tuple[int, int], _Tables] = {}
+        # Captured windows by key (CUDA only), the kernel launches each
+        # replay runs, and the captures made per key. The window's
+        # capturing stream, the graphs' one memory pool and whether that
+        # stream's ticket buffer is held are made in _setup.
+        self._graphs: dict[tuple, "torch.cuda.CUDAGraph"] = {}
+        self._graph_launches: dict[tuple, dict[str, int]] = {}
+        self._captures: dict[tuple, int] = {}
+        self._capture_stream = None
+        self._graph_pool = None
+        self._tickets_held = False
         self._seq_counter = 0
         self._last_admit_t = 0.0
         self._generator: Optional[torch.Generator] = None
@@ -292,21 +382,28 @@ class InferenceEngine:
         # and suffix_prefill_launches the kernel launches they made.
         # decode_forwards counts the forwards dispatched; live_forwards those
         # in which some row was live (counted on the device, fetched with
-        # the harvest: the reference's forward count); drafted and accepted
-        # the prompt-draft proposals (tokens the grammar did not force) put
-        # in a forward and those its verification accepted; decode_tokens
-        # the tokens retired requests generated.
+        # the harvest: the reference's forward count); windows the windows
+        # dispatched (decode_forwards = windows * decode_steps_per_tick);
+        # drafted and accepted the prompt-draft proposals (tokens the
+        # grammar did not force) put in a forward and those its
+        # verification accepted; decode_tokens the tokens retired requests
+        # generated. captures counts the windows captured into CUDA graphs
+        # while serving (the reference's retrace sentinel: a repeat of the
+        # same traffic adds none), warmup_captures those captured at
+        # startup under engine.warmup_compile, replays the windows run by
+        # replaying a captured graph (on the CPU none: windows run eagerly).
         self._stats = {
-            "admissions": 0, "segments": 0, "decode_forwards": 0, "live_forwards": 0,
-            "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
+            "admissions": 0, "segments": 0, "windows": 0, "decode_forwards": 0,
+            "live_forwards": 0, "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
             "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
+            "captures": 0, "warmup_captures": 0, "replays": 0,
         }
         # Dispatched segments awaiting harvest, oldest first.
         self._inflight: "deque[_Inflight]" = deque()
-        # The all-done flag ring (made in _setup): forwards issued so far,
-        # and the first forward whose flag may end a segment (flags from
+        # The all-done flag ring (made in _setup): windows issued so far,
+        # and the first window whose flag may end a segment (flags from
         # before an admission are stale).
-        self._fwd_seq = 0
+        self._window_seq = 0
         self._flags_from = 0
         self._flag_host: Optional[torch.Tensor] = None
         self._flag_np: Optional[np.ndarray] = None
@@ -383,7 +480,7 @@ class InferenceEngine:
             self._params = None
             self._paged_kv = None
             self._slab = None
-            self._dfa_cache.clear()
+            self._tables.clear()
 
     # ------------------------------------------------------------------ api
     async def generate(
@@ -493,6 +590,13 @@ class InferenceEngine:
             **dict(self._stats),
         }
 
+    def capture_counts(self) -> dict[str, int]:
+        """Captures of the decode window per key (body, temperature class,
+        window width, batch, grammar-table bucket, forwards), startup ones
+        included; more than one for a key, or a key new to repeated
+        traffic, is a recapture the serving path paid for."""
+        return {repr(k): n for k, n in self._captures.items()}
+
     # ------------------------------------------------------------- geometry
     def _spec_chunk(self, constrained: bool) -> int:
         """Fast-forward window width: ``speculate_k`` for constrained rows,
@@ -503,6 +607,14 @@ class InferenceEngine:
         want = ecfg.speculate_k if (constrained and ecfg.speculate_k > 1) else 1
         budget_ceiling = min(ecfg.max_decode_len, capacity - 1)
         return max(1, min(want, capacity - budget_ceiling))
+
+    def _upload_into(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy a host array into ``dst`` in place, as ``_upload`` does:
+        on CUDA from a fresh pinned block, without waiting for the stream."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the device, without waiting for the stream: on
@@ -515,24 +627,30 @@ class InferenceEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _grammar_pad(self) -> int:
+        """State-dim pad quantum of the grammar tables, the reference's
+        (``engine.grammar_state_budget``, or 64 where the budget times the
+        generic grammar's columns passes 64M): one bucket, one set of
+        table buffers, one captured window for every grammar that fits."""
+        budget = self.config.engine.grammar_state_budget
+        if budget * self.grammar.n_active > 64_000_000:
+            return 64
+        return budget
+
     def _dfa_for(self, grammar: PlanGrammar) -> tuple:
-        """(trans, mask, dist, active_ids, eos_cols, inv_cols) of ``grammar``
-        on the device, cached per grammar object (the cache holds the
-        grammar so its id cannot be reused while cached). ``inv_cols`` maps
-        a token id to its compact column, -1 where it is active nowhere."""
-        hit = self._dfa_cache.get(id(grammar))
-        if hit is not None:
-            return hit[1]
-        trans, mask, dist, ids, eos, inv = grammar.device_tables(64)
-        i64 = np.int64
-        tables = (
-            self._upload(trans.astype(i64)), self._upload(mask), self._upload(dist.astype(i64)),
-            self._upload(ids.astype(i64)), self._upload(eos), self._upload(inv.astype(i64)),
-        )
-        self._dfa_cache[id(grammar)] = (grammar, tables)
-        while len(self._dfa_cache) > 8:
-            self._dfa_cache.pop(next(iter(self._dfa_cache)))
-        return tables
+        """(trans, mask, dist, active_ids, eos_cols, inv_cols) of
+        ``grammar``: its pad bucket's table buffers, with ``grammar`` copied
+        in when another grammar holds them. The homogeneous slab changes
+        grammar only while it is empty, and the copy is a stream operation,
+        so it lands after every segment still in flight."""
+        pad = self._grammar_pad()
+        key = (-(-grammar.n_states // pad) * pad, _col_bucket(grammar.n_active))
+        tables = self._tables.get(key)
+        if tables is None:
+            tables = self._tables[key] = _Tables(*key, self.tokenizer.vocab_size, self.device)
+        if tables.grammar is not grammar:
+            tables.load(grammar, self._upload_into)
+        return tables.dfa
 
     @staticmethod
     def _budget_mask(dfa: tuple, st: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
@@ -570,6 +688,22 @@ class InferenceEngine:
         self._flag_host = torch.zeros((FLAG_SLOTS,), dtype=torch.bool, pin_memory=cuda)
         self._flag_np = self._flag_host.numpy()
         self._flag_events = [torch.cuda.Event() if cuda else None for _ in range(FLAG_SLOTS)]
+        if cuda:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            if ecfg.warmup_compile:
+                self._warm_windows()
+
+    def _warm_windows(self) -> None:
+        """Capture the hot window at startup: the generic grammar's bucket
+        at the configured temperature and draft mode, the body /plan
+        requests run. Its first run happens on the empty slab, where every
+        row idles (its writes land in the null page and the drop column).
+        Counted as warm-up, not as a serving capture."""
+        slab = self._slab
+        slab.constrained, slab.temperature, slab.grammar = True, self.config.engine.temperature, None
+        key, dfa = self._window_plan(slab)
+        self._capture(key, lambda: self._window(slab, key, dfa), serving=False)
 
     def _worker(self) -> None:
         try:
@@ -605,9 +739,11 @@ class InferenceEngine:
                 except BaseException as e:  # keep the worker alive
                     log.exception("engine step failed; failing resident rows")
                     self._inflight.clear()
-                    self._fail_rows(slab, e)
+                    failed = self._release_rows(slab)
                     # The pools may hold partial writes: serve no cached KV.
+                    # Every state change is made before a caller hears of it.
                     self._prefix_cache.drop_all()
+                    _fail(failed, e)
             self._shutdown(slab, pending)
 
     def _shutdown(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
@@ -620,8 +756,13 @@ class InferenceEngine:
             except Exception:  # closing anyway: the rows fail below
                 log.exception("final harvest failed during shutdown")
             self._inflight.clear()
+        self._graphs.clear()
+        self._graph_launches.clear()
+        if self._tickets_held:
+            release_tickets(self.device, self._capture_stream.cuda_stream)
+            self._tickets_held = False
         closed = EngineError("engine closed")
-        self._fail_rows(slab, closed)
+        _fail(self._release_rows(slab), closed)
         for r in pending:
             r.loop.call_soon_threadsafe(_resolve, r.future, None, closed)
         while True:
@@ -714,13 +855,16 @@ class InferenceEngine:
         d["budgets"][i] = 0
         d["cur"][i] = self.tokenizer.pad_id
 
-    def _fail_rows(self, slab: _Slab, error: BaseException) -> None:
+    def _release_rows(self, slab: _Slab) -> list[GenerateRequest]:
+        """Release every resident row; returns their requests, for the
+        caller to fail once it has finished its own state changes."""
+        released = []
         for i in range(slab.B):
             r = slab.req[i]
-            if r is None:
-                continue
-            self._release_row(slab, i)
-            r.loop.call_soon_threadsafe(_resolve, r.future, None, error)
+            if r is not None:
+                self._release_row(slab, i)
+                released.append(r)
+        return released
 
     # ------------------------------------------------------------ admission
     def _admit(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
@@ -759,8 +903,9 @@ class InferenceEngine:
                 hold = self._ensure_prefix(head_key)
             except BaseException as e:  # the build's failure fails the residents
                 log.exception("prefix build failed; failing resident rows")
-                self._fail_rows(slab, e)
+                failed = self._release_rows(slab)
                 self._prefix_cache.drop_all()
+                _fail(failed, e)
                 return
         if hold is not None:
             # Page-pressure eviction inside the cohort must not free the
@@ -1113,24 +1258,28 @@ class InferenceEngine:
         d["prev"][idx] = prev_d[:n]
         # New live rows: an all-done flag from before this admission must
         # not end the next segment.
-        self._flags_from = self._fwd_seq
+        self._flags_from = self._window_seq
 
     def _fail_admission(self, slab: _Slab, cohort: list[tuple], error: BaseException) -> None:
         """A failed admission prefill: the cohort's inserted nodes roll
-        back, its matched runs are unpinned, its pages freed and its
-        requests failed, then the resident rows fail too and the whole tree
-        drops, since the pools may hold partial writes. The pools are
-        written in place, so they need no re-creation."""
+        back, its matched runs are unpinned and its pages freed, the
+        resident rows are released and the whole tree drops, since the
+        pools may hold partial writes; only then are the cohort's and the
+        residents' requests failed, so a caller that hears of the failure
+        finds the engine's state whole. The pools are written in place, so
+        they need no re-creation."""
         cache = self._prefix_cache
+        failed = []
         for r, _b, _ids, sid, _p, _P, _tp, mnode, inode in reversed(cohort):
             if inode is not None:
                 cache.rollback(inode)
             if mnode is not None:
                 mnode.refs -= 1
             self._allocator.free(sid)
-            r.loop.call_soon_threadsafe(_resolve, r.future, None, error)
-        self._fail_rows(slab, error)
+            failed.append(r)
+        failed += self._release_rows(slab)
         cache.drop_all()
+        _fail(failed, error)
 
     def _first_sample(self, slab: _Slab, first_logits, budgets, active):
         """Each admitted row's first emission from its prefill logits:
@@ -1164,21 +1313,12 @@ class InferenceEngine:
         return cur0, state0, done0
 
     # --------------------------------------------------------------- decode
-    def _decode_iters(self) -> int:
-        """Forwards a segment may take: ``decode_steps_per_tick *
-        steps_per_dispatch`` (one dispatch and one harvest serve the whole
-        window; it ends early once every row is done)."""
-        ecfg = self.config.engine
-        return max(1, ecfg.decode_steps_per_tick) * max(1, ecfg.steps_per_dispatch)
-
     def _flag_says_all_done(self) -> bool:
-        """Whether the forward before the last one issued left every row
+        """Whether the window before the last one issued left every row
         done. Its flag was copied to a host slot without blocking; waiting
-        on that forward's event alone keeps the last forward queued on the
-        card, so a segment's early exit runs at most one extra forward, with
-        every row idle in it. Flags from before the last admission are
-        stale."""
-        m = self._fwd_seq - 2
+        on that window's event alone keeps the last window queued on the
+        card. Flags from before the last admission are stale."""
+        m = self._window_seq - 2
         if m < self._flags_from:
             return False
         slot = m % FLAG_SLOTS
@@ -1187,51 +1327,130 @@ class InferenceEngine:
             event.synchronize()
         return bool(self._flag_np[slot])
 
-    def _note_forward(self, done: torch.Tensor) -> None:
-        """After a forward: its all-done flag into its host slot, without
-        blocking, and the event that marks the copy."""
-        slot = self._fwd_seq % FLAG_SLOTS
-        self._flag_host[slot].copy_(done.all(), non_blocking=True)
+    def _note_window(self, all_done: torch.Tensor) -> None:
+        """After a window: its all-done flag into its host slot, without
+        blocking, and the event that marks the copy (both outside any
+        graph)."""
+        slot = self._window_seq % FLAG_SLOTS
+        self._flag_host[slot].copy_(all_done, non_blocking=True)
         event = self._flag_events[slot]
         if event is not None:
             event.record()
-        self._fwd_seq += 1
+        self._window_seq += 1
 
-    def _dispatch_segment(self, slab: _Slab) -> None:
-        """Enqueue up to ``_decode_iters()`` forwards over the whole slab,
-        with no blocking call, and push the segment's in-flight record: its
-        end state packed into a host buffer of its own by one copy without
-        blocking. Rows of a segment dispatched later may already have moved
-        on; the record keeps what this one saw. The body is the prompt draft
-        for constrained greedy rows with ``draft_mode="prompt"`` (read from
-        the live config) and a window wider than one, else fast-forward."""
+    def _window_plan(self, slab: _Slab) -> tuple[tuple, Optional[tuple]]:
+        """(key, grammar tables) of the slab's next window. The body is the
+        prompt draft for constrained greedy rows with
+        ``draft_mode="prompt"`` (read from the live config) and a window
+        wider than one, else fast-forward. The key holds everything a
+        captured window bakes in: the body, the temperature class (greedy,
+        or the temperature and top-k, constants of the graph), the window
+        width, the batch, the grammar-table bucket and the forwards."""
         ecfg = self.config.engine
-        d = slab.dev
         constrained = slab.constrained
         chunk = self._spec_chunk(constrained)
         dfa = self._dfa_for(slab.grammar or self.grammar) if constrained else None
         use_draft = (
             ecfg.draft_mode == "prompt" and constrained and chunk > 1 and slab.temperature <= 0.0
         )
-        body = self._draft_forward if use_draft else self._fast_forward
-        state = tuple(d[k] for k in ("cur", "pos", "st", "emitted", "done", "prev"))
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        live = drafted = accepted = zero
-        n_fwd = 0
-        for _ in range(self._decode_iters()):
-            if self._flag_says_all_done():
-                break
-            live = live + (~state[4]).any().long()
+        temp = ("greedy",) if slab.temperature <= 0.0 else ("sampled", slab.temperature, ecfg.top_k)
+        bucket = None if dfa is None else tuple(dfa[0].shape)
+        forwards = max(1, ecfg.decode_steps_per_tick)
+        return ("draft" if use_draft else "fast", temp, chunk, slab.B, bucket, forwards), dfa
+
+    def _window(self, slab: _Slab, key: tuple, dfa: Optional[tuple]) -> None:
+        """One window: ``key``'s forwards of its body over the slab's fixed
+        state, rows that are done idling. The state is read from the slab's
+        buffers and written back with ``copy_``; the forwards' live count
+        and draft counts add to ``counts``; ``all_done`` is set from the
+        last forward. Issues no blocking call and allocates only
+        temporaries, so a CUDA graph can capture it."""
+        body = self._draft_forward if key[0] == "draft" else self._fast_forward
+        chunk, forwards = key[2], key[5]
+        d = slab.dev
+        counts = d["counts"]
+        state = tuple(d[k] for k in _STATE)
+        for _ in range(forwards):
+            counts[0].add_((~state[4]).any().long())
             state, n_dr, n_ac = body(slab, dfa, chunk, *state)
             if n_dr is not None:
-                drafted, accepted = drafted + n_dr, accepted + n_ac
-            self._note_forward(state[4])
-            n_fwd += 1
-        d.update(zip(("cur", "pos", "st", "emitted", "done", "prev"), state))
-        packed = torch.cat([
-            d["out_buf"].reshape(-1), d["emitted"], d["done"].long(),
-            torch.stack([live, drafted, accepted]),
-        ])
+                counts[1:].add_(torch.stack([n_dr, n_ac]))
+        for k, v in zip(_STATE, state):
+            d[k].copy_(v)
+        d["all_done"].copy_(state[4].all())
+
+    def _run_window(self, slab: _Slab, key: tuple, dfa: Optional[tuple]) -> None:
+        """Run one window: on the CPU eagerly; on CUDA by replaying its
+        captured graph, capturing it first when the key is new (that first
+        run is the capture's warm-up, eager on the capturing stream)."""
+        if self.device.type != "cuda":
+            self._window(slab, key, dfa)
+            return
+        graph = self._graphs.get(key)
+        if graph is None:
+            self._capture(key, lambda: self._window(slab, key, dfa), serving=True)
+            return
+        graph.replay()
+        count_replay(self._graph_launches[key])
+        self._stats["replays"] += 1
+
+    def _capture(self, key: tuple, fn, serving: bool) -> None:
+        """Run ``fn`` once eagerly on the capturing stream (its real work,
+        and the warm-up that sizes every buffer), then capture it into a
+        CUDA graph in the engine's one memory pool. The stream's ticket
+        buffer is held for the widest window first, so no capture bakes in
+        a buffer that a later launch replaces. A sampled window's graph has
+        the engine's generator registered, so each replay draws anew. A
+        failed capture raises EngineError; there is no eager retry."""
+        stream = self._capture_stream
+        main = torch.cuda.current_stream(self.device)
+        stream.wait_stream(main)
+        try:
+            with torch.cuda.stream(stream):
+                if not self._tickets_held:
+                    cfg = self.model_cfg
+                    hold_tickets(
+                        self.device, stream.cuda_stream,
+                        ticket_count(self._slab.B, self._spec_chunk(True), cfg.n_kv_heads, cfg.q_per_kv),
+                    )
+                    self._tickets_held = True
+                fn()
+            graph = torch.cuda.CUDAGraph()
+            if key[1][0] == "sampled":
+                graph.register_generator_state(self._generator)
+            before = captured_launches()
+            with torch.cuda.graph(
+                graph, pool=self._graph_pool, stream=stream, capture_error_mode="thread_local"
+            ):
+                fn()
+        except Exception as e:
+            raise EngineError(f"capture of the decode window {key} failed: {e}") from e
+        finally:
+            main.wait_stream(stream)
+        self._graphs[key] = graph
+        self._graph_launches[key] = {k: n - before[k] for k, n in captured_launches().items()}
+        self._captures[key] = self._captures.get(key, 0) + 1
+        self._stats["captures" if serving else "warmup_captures"] += 1
+
+    def _dispatch_segment(self, slab: _Slab) -> None:
+        """Enqueue up to ``steps_per_dispatch`` windows over the whole slab,
+        with no blocking call, and push the segment's in-flight record: its
+        end state packed into a host buffer of its own by one copy without
+        blocking. Between windows, the early exit reads the all-done flag
+        of the window before the last one. Rows of a segment dispatched
+        later may already have moved on; the record keeps what this one
+        saw."""
+        key, dfa = self._window_plan(slab)
+        d = slab.dev
+        d["counts"].zero_()
+        n_win = 0
+        for _ in range(max(1, self.config.engine.steps_per_dispatch)):
+            if self._flag_says_all_done():
+                break
+            self._run_window(slab, key, dfa)
+            self._note_window(d["all_done"])
+            n_win += 1
+        packed = torch.cat([d["out_buf"].reshape(-1), d["emitted"], d["done"].long(), d["counts"]])
         event = None
         if self.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -1242,7 +1461,8 @@ class InferenceEngine:
             host = packed
         self._inflight.append(_Inflight(host, event, slab.gen.copy()))
         self._stats["segments"] += 1
-        self._stats["decode_forwards"] += n_fwd
+        self._stats["windows"] += n_win
+        self._stats["decode_forwards"] += n_win * key[5]
 
     def _fast_forward(self, slab: _Slab, dfa, chunk: int, cur, pos, st, e, done, prev):
         """One forward of the fast-forward body: ``cur`` plus, for
@@ -1468,6 +1688,11 @@ class InferenceEngine:
                 self._stats["retired"] += 1
                 self._stats["decode_tokens"] += len(ids)
                 r.loop.call_soon_threadsafe(_resolve, r.future, res, None)
+
+
+def _fail(requests: list[GenerateRequest], error: BaseException) -> None:
+    for r in requests:
+        r.loop.call_soon_threadsafe(_resolve, r.future, None, error)
 
 
 def _resolve(future: "asyncio.Future", result: Any, error: Optional[BaseException]) -> None:

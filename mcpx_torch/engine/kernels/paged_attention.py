@@ -36,8 +36,12 @@ MAX_PAGE_SIZE = 64
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 
 # Launch counts by kernel name: the wrapper adds one where it launches the
-# kernel and nowhere else (the plain path never counts).
+# kernel and nowhere else (the plain path never counts). A call made while
+# its stream is capturing a CUDA graph launches nothing: it adds one to
+# CAPTURED instead, and whoever replays the graph adds the launches its
+# capture recorded to LAUNCHES with ``count_replay``.
 LAUNCHES = {"ragged_paged_attention": 0}
+CAPTURED = {"ragged_paged_attention": 0}
 
 
 def kernel_launches() -> dict[str, int]:
@@ -47,6 +51,18 @@ def kernel_launches() -> dict[str, int]:
 def reset_kernel_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def captured_launches() -> dict[str, int]:
+    """Calls recorded into CUDA graphs so far, by kernel name: the
+    difference across one capture is what each replay of it launches."""
+    return dict(CAPTURED)
+
+
+def count_replay(launches: dict[str, int]) -> None:
+    """One replay of a captured graph ran ``launches`` (by kernel name)."""
+    for k, n in launches.items():
+        LAUNCHES[k] += n
 
 
 # ---------------------------------------------------------------- plain
@@ -171,12 +187,27 @@ def _lib() -> ctypes.CDLL:
 # after another, so each finds its buffer zero; launches on different
 # streams may overlap, so each stream has a buffer of its own. The buffer
 # is made on its stream, so growing it is ordered with that stream's work.
+# A CUDA graph captured on a stream bakes in the address of that stream's
+# buffer: ``hold_tickets`` sizes it for the largest launch the graphs will
+# hold and keeps it from being replaced until ``release_tickets``.
 _TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
+_HELD: dict[tuple[torch.device, int], int] = {}
+
+
+def ticket_count(B: int, S: int, K: int, G: int) -> int:
+    """Ticket counters a launch over a [B, S, K, G, hd] window uses."""
+    return B * K * -(-S * G // TILE_ROWS)
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    buf = _TICKETS.get((device, stream))
+    key = (device, stream)
+    buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if _HELD.get(key):
+            raise EngineError(
+                f"ragged_paged_attention: this stream's ticket buffer ({0 if buf is None else buf.numel()} "
+                f"counters) is held by captured CUDA graphs and cannot grow to {n}"
+            )
         if torch.cuda.is_current_stream_capturing():
             # Its zeros would exist only when the graph replays.
             raise EngineError(
@@ -184,13 +215,31 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
                 "size, before capturing it in a CUDA graph"
             )
         buf = torch.zeros(n, dtype=torch.int32, device=device)
-        _TICKETS[(device, stream)] = buf
+        _TICKETS[key] = buf
     return buf
 
 
+def hold_tickets(device: torch.device, stream: int, n: int) -> None:
+    """Make the ticket buffer of ``stream`` at least ``n`` counters (called
+    on that stream, before any capture on it) and keep it in place: a graph
+    captured on the stream reads it at the address it had then."""
+    _tickets(device, stream, n)
+    _HELD[(device, stream)] = _HELD.get((device, stream), 0) + 1
+
+
+def release_tickets(device: torch.device, stream: int) -> None:
+    """Undo one ``hold_tickets``: the graphs that read the buffer are gone."""
+    key = (device, stream)
+    if _HELD.get(key, 0) > 1:
+        _HELD[key] -= 1
+    else:
+        _HELD.pop(key, None)
+
+
 def ticket_counters() -> list[torch.Tensor]:
-    """The kernel's ticket buffers, one per device and stream it has run on;
-    every entry is 0 whenever no launch is in flight."""
+    """The kernel's ticket buffers, one per device and stream it has run on
+    (the streams that capture CUDA graphs included); every entry is 0
+    whenever no launch or replay is in flight."""
     return list(_TICKETS.values())
 
 
@@ -231,12 +280,12 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     rc = lib.mcpx_ragged_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, stream, B * K * n_tiles).data_ptr(),
+        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, stream, ticket_count(B, S, K, G)).data_ptr(),
         B, S, K, G, hd, L, N, psz, p_max, layer, dtype, stream,
     )
     if rc != 0:
         raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")
-    LAUNCHES["ragged_paged_attention"] += 1
+    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)["ragged_paged_attention"] += 1
     return out
 
 

@@ -4,7 +4,12 @@ Port of ``mcpx/engine/sampling.py::sample``. Masking happens on the logits
 before temperature and top-k, so constrained decoding composes with any
 sampling config. Greedy ``argmax`` returns the first maximum, as ``jnp``
 does. Temperature sampling draws from an explicit ``torch.Generator``; its
-draws differ from ``jax.random``'s for the same seed.
+draws differ from ``jax.random``'s for the same seed. The draw is
+``torch.multinomial``'s own one-sample path written out (the argmax of the
+probabilities over exponential noise), which gives its draws from the same
+generator state without its host-side check of the probabilities: no
+synchronisation, so a CUDA graph can capture it (with the generator
+registered to the graph).
 """
 
 from __future__ import annotations
@@ -37,4 +42,5 @@ def sample(
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
+    noise = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / noise, dim=-1)

@@ -111,7 +111,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
     x = embed[tokens.long()].to(torch_dtype(cfg.dtype))
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    # torch.full fills on the device: no host copy, so a CUDA graph can
+    # capture it. The scale is rounded to the model's dtype, as the
+    # reference multiplies.
+    return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
 
 
 def unembed(x: torch.Tensor, embed: torch.Tensor, subset: Optional[torch.Tensor] = None) -> torch.Tensor:

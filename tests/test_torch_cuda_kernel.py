@@ -5,9 +5,16 @@ package, so they run where only PyTorch and the CUDA toolkit are:
     python -m pytest tests/test_torch_cuda_kernel.py -q --noconftest
 
 Elsewhere they skip: the kernel has no CPU mode. The seeded mixed-batch
-and prefill-cohort generators here are shared with the CPU parity tests."""
+and prefill-cohort generators here are shared with the CPU parity tests.
+The last tests hold the engine's decode window as a captured CUDA graph:
+replay against eager from one snapshot, the ticket buffers after replays,
+the launch count of replays and a sampled window's capture."""
 
+import asyncio
+import os
 import random
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -218,3 +225,127 @@ def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol):
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
     assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+
+
+# ------------------------------------------------ the captured decode window
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
+
+@pytest.fixture
+def window_engine(cuda, request):
+    """An engine at the test preset (random weights, byte vocab) on the
+    card with three requests admitted by hand, greedy unless the test is
+    parametrised with a temperature; torn down through ``_shutdown``, which
+    drops its graphs and releases the capturing stream's ticket buffer."""
+    from collections import deque
+
+    from mcpx_torch.core.config import MCPXConfig
+    from mcpx_torch.engine.engine import InferenceEngine
+
+    temperature = getattr(request, "param", 0.0)
+    cfg = MCPXConfig.from_dict({
+        "model": {"size": "test", "max_seq_len": 256},
+        "engine": {
+            "max_batch_size": 8, "max_decode_len": 48, "kv_page_size": 16,
+            "max_pages_per_seq": 16, "temperature": temperature,
+        },
+    })
+    eng = InferenceEngine(cfg, device=cuda)
+    loop = asyncio.new_event_loop()
+    with torch.inference_mode():
+        eng._setup()
+        tok = eng.tokenizer
+        reqs = [
+            _request(loop, tok.encode(f"intent {i}: compose the services. JSON:"), 40, temperature)
+            for i in range(3)
+        ]
+        eng._admit(eng._slab, deque(reqs))
+        yield eng
+        eng._shutdown(eng._slab, deque())
+    loop.close()
+
+
+def _request(loop, prompt, budget, temperature):
+    from mcpx_torch.engine.engine import GenerateRequest
+
+    return GenerateRequest(
+        prompt_ids=prompt, max_new_tokens=budget, constrained=True, temperature=temperature,
+        future=loop.create_future(), loop=loop, enqueued_at=time.monotonic(),
+    )
+
+
+@pytest.mark.cuda
+def test_captured_window_replays_what_eager_runs(window_engine):
+    """From one snapshot: the window run eagerly, its capture's warm-up and
+    its replay end in bitwise equal slab buffers and KV pools, and the
+    rows advanced."""
+    eng = window_engine
+    slab = eng._slab
+    key, dfa = eng._window_plan(slab)
+    snap = chip_smoke.window_state(eng)
+    ends = []
+    for run in ("eager", "capture", "replay"):
+        chip_smoke.set_window_state(eng, snap)
+        if run == "eager":
+            eng._window(slab, key, dfa)
+        else:
+            eng._run_window(slab, key, dfa)
+        torch.cuda.synchronize()
+        ends.append(chip_smoke.window_state(eng))
+    assert eng._stats["captures"] == 1 and eng._stats["replays"] == 1 and key in eng._graphs
+    for name in snap:
+        assert torch.equal(ends[0][name], ends[1][name]), name
+        assert torch.equal(ends[0][name], ends[2][name]), name
+    assert bool((ends[2]["slab.emitted"] > snap["slab.emitted"]).any())
+
+
+@pytest.mark.cuda
+def test_ticket_buffers_are_zero_after_replays(window_engine):
+    eng = window_engine
+    slab = eng._slab
+    key, dfa = eng._window_plan(slab)
+    for _ in range(6):
+        eng._run_window(slab, key, dfa)
+    torch.cuda.synchronize()
+    held = (eng.device, eng._capture_stream.cuda_stream)
+    assert held in tk._TICKETS and tk._HELD.get(held, 0) >= 1
+    assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+
+
+@pytest.mark.cuda
+def test_launch_counts_include_replays(window_engine):
+    """The capture records its launches without counting them; each replay
+    adds one launch a layer a forward."""
+    eng = window_engine
+    slab = eng._slab
+    key, dfa = eng._window_plan(slab)
+    per_window = eng.model_cfg.n_layers * key[5]
+    n0, c0 = tk.kernel_launches()["ragged_paged_attention"], tk.captured_launches()["ragged_paged_attention"]
+    eng._run_window(slab, key, dfa)  # warm-up (counted: it launches) and capture (recorded)
+    assert tk.captured_launches()["ragged_paged_attention"] == c0 + per_window
+    assert tk.kernel_launches()["ragged_paged_attention"] == n0 + per_window
+    for _ in range(3):
+        eng._run_window(slab, key, dfa)
+    torch.cuda.synchronize()
+    assert tk.kernel_launches()["ragged_paged_attention"] == n0 + 4 * per_window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window_engine", [0.8], indirect=True)
+def test_sampled_window_captures_with_its_generator(window_engine):
+    """A sampled window is captured with the engine's generator registered:
+    replays draw anew and every emitted token is one the grammar allows."""
+    eng = window_engine
+    slab = eng._slab
+    key, dfa = eng._window_plan(slab)
+    assert key[1][0] == "sampled"
+    for _ in range(3):
+        eng._run_window(slab, key, dfa)
+    torch.cuda.synchronize()
+    assert eng._stats["captures"] == 1 and eng._stats["replays"] == 2
+    active = set(eng.grammar.active_ids.tolist())
+    d = slab.dev
+    for b in range(3):
+        toks = d["out_buf"][b, : int(d["emitted"][b])].tolist()
+        assert toks and set(toks) <= active

@@ -379,11 +379,15 @@ BLOCKING = ("__bool__", "__int__", "__float__", "item", "tolist", "cpu", "numpy"
 def test_no_blocking_tensor_method_inside_a_segment(monkeypatch):
     """With the tensor methods that wait for the device patched to raise on
     the worker thread while it is inside ``_dispatch_segment``, requests
-    complete with drafting on and off; the harvest may use them."""
+    complete with drafting on and off; the harvest may use them. Inside a
+    segment is the window loop: every window runs in it (on CUDA as a
+    replay of the captured window, here as the same function eagerly), up
+    to ``steps_per_dispatch`` a segment."""
     eng = make_engine(pipeline_depth=2, draft_mode="prompt")
     inside = threading.local()
-    calls = {"segments": 0}
+    calls = {"segments": 0, "windows": 0, "outside": 0}
     real_dispatch = eng._dispatch_segment
+    real_run_window = eng._run_window
 
     def dispatch(slab):
         inside.on = True
@@ -393,7 +397,12 @@ def test_no_blocking_tensor_method_inside_a_segment(monkeypatch):
         finally:
             inside.on = False
 
+    def run_window(slab, key, dfa):
+        calls["windows" if getattr(inside, "on", False) else "outside"] += 1
+        real_run_window(slab, key, dfa)
+
     monkeypatch.setattr(eng, "_dispatch_segment", dispatch)
+    monkeypatch.setattr(eng, "_run_window", run_window)
     for name in BLOCKING:
         real = getattr(torch.Tensor, name)
 
@@ -417,7 +426,11 @@ def test_no_blocking_tensor_method_inside_a_segment(monkeypatch):
             await eng.aclose()
 
     asyncio.run(go())
-    assert calls["segments"] > 0
+    assert calls["segments"] > 0 and calls["outside"] == 0
+    # A segment may run no window: its early exit can read a flag that a
+    # window of the segment before it set.
+    assert 0 < calls["windows"] <= calls["segments"] * eng.config.engine.steps_per_dispatch
+    assert eng.queue_stats()["windows"] == calls["windows"]
 
 
 @pytest.mark.parametrize(

@@ -15,6 +15,7 @@ on its jnp attention and one device), on the committed checkpoint.
 import asyncio
 import os
 import random
+import time
 
 import pytest
 import torch
@@ -25,6 +26,7 @@ from mcpx.server.factory import build_control_plane as jbuild
 from mcpx.utils.synth import intent_for, synth_registry as jsynth
 from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.engine.engine import InferenceEngine
+from mcpx_torch.engine.prefix_cache import RadixPrefixCache
 from mcpx_torch.server.factory import build_control_plane
 from mcpx_torch.utils.synth import synth_registry
 
@@ -184,6 +186,9 @@ def test_suffix_window_pads_never_write_a_tree_page(monkeypatch):
 
 
 def test_failed_admission_drops_the_tree_and_keeps_pages_whole(monkeypatch):
+    """The failure reaches the caller only once the engine's state is
+    whole: ``drop_all`` is slowed by 50 ms, so a worker that resolved the
+    futures before dropping the tree would be seen with nodes left."""
     eng = InferenceEngine(_config(MCPXConfig), device="cpu")
     real = eng._suffix_prefill
     calls = {"n": 0}
@@ -194,7 +199,14 @@ def test_failed_admission_drops_the_tree_and_keeps_pages_whole(monkeypatch):
             raise RuntimeError("injected prefill failure")
         return real(*args)
 
+    real_drop_all = RadixPrefixCache.drop_all
+
+    def slow_drop_all(self):
+        time.sleep(0.05)
+        real_drop_all(self)
+
     monkeypatch.setattr(eng, "_suffix_prefill", flaky)
+    monkeypatch.setattr(RadixPrefixCache, "drop_all", slow_drop_all)
 
     async def go():
         await eng.start()
