@@ -44,6 +44,12 @@ Phases, one line each (every number beside the card's name and power limit):
      idle slab). Every plan valid, the same plans in both modes, tree hits
      and suffix prefills through the kernel, and fewer prefill tokens per
      request with the cache on;
+  9. execute (``execute_test``, ``execute_2b``): ``plan_and_execute`` on
+     each configuration's intents at once, over in-process services of
+     which the first service of every other intent's plan always fails, so
+     that plans are replanned around them with the plan's prompt prefix
+     pinned; the reference bench's replan probe, warm against cold; and the
+     pass again with the telemetry store reset (see ``execute_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -62,8 +68,10 @@ import argparse
 import asyncio
 import dataclasses
 import json
+import math
 import os
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -857,6 +865,332 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
     return {"off": off, "on": on}
 
 
+# ------------------------------------------------------------ execute path
+def failing_transport(records, failing: set):
+    """A zero-latency in-process handler for every ``local://`` endpoint and
+    fallback of ``records``; every endpoint of a ``failing`` service raises.
+    Returns the transport and the list of endpoints called."""
+    from mcpx_torch.orchestrator.transport import LocalTransport, RouterTransport, TransportError
+
+    local = LocalTransport()
+    calls: list = []
+
+    def handler(name: str, endpoint: str, fail: bool):
+        async def call(payload):
+            calls.append(endpoint)
+            if fail:
+                raise TransportError(f"{name} is down", status=503)
+            return {"service": name, "inputs": sorted(payload)}
+
+        return call
+
+    for r in records:
+        for ep in [r.endpoint, *r.fallbacks]:
+            local.register(ep.removeprefix("local://"), handler(r.name, ep, r.name in failing))
+    return RouterTransport(local=local), calls
+
+
+def probe_exclusion(plan) -> tuple[str, bool]:
+    """The service a probe replan excludes, and whether it is the plan's
+    first service, as the reference bench takes it. A warm replan exists
+    for an exclusion inside the rendered services block: excluding a
+    service the prompt does not render leaves the cold re-render equal to
+    the original prompt, all of it cached, while the warm one adds an
+    Avoid line. Random 2b weights name services outside the block, so
+    there the plan's first service the block renders is excluded, else
+    the block's first."""
+    rendered = list(plan.prompt_services or ())
+    first = plan.nodes[0].service
+    if not rendered or first in rendered:
+        return first, True
+    return next((n.service for n in plan.nodes if n.service in rendered), rendered[0]), False
+
+
+def compare_passes(intents: list, calls1: dict, calls2: dict, differ: list) -> tuple[list, list]:
+    """Hold two passes' planner calls to each other, intent by intent and
+    call by call. A call whose prompt equals its counterpart's must return
+    the same plan. A prompt may differ only where the call's inputs did:
+    the exclusions, or the telemetry features of the services its prompt
+    renders (concurrent executions record in an order that the timing of
+    the pass decides, and the reference renders live telemetry); later
+    calls of that intent follow from a different plan and are not held.
+    Returns (indices of intents whose calls diverged that way, descriptions
+    of every difference with no such cause, differing outputs included)."""
+    diverged, unexplained = [], []
+    for i, intent in enumerate(intents):
+        a, b = calls1[intent], calls2[intent]
+        n_bad = len(unexplained)
+        cause = None
+        for k, ((ex1, f1, p1), (ex2, f2, p2)) in enumerate(zip(a, b)):
+            if p1.prompt_ids == p2.prompt_ids:
+                if p1.to_json() != p2.to_json():
+                    unexplained.append((i, k, "same prompt, another plan"))
+                continue
+            shown = set(p1.prompt_services or ()) | set(p2.prompt_services or ())
+            if ex1 == ex2 and {n: f1.get(n) for n in shown} == {n: f2.get(n) for n in shown}:
+                unexplained.append((i, k, "same inputs, another prompt"))
+            else:
+                cause = k
+            break
+        if cause is not None:
+            diverged.append(i)
+        elif len(unexplained) == n_bad and (len(a) != len(b) or i in differ):
+            unexplained.append((i, None, "outputs or planner calls differ with every prompt equal"))
+    return diverged, unexplained
+
+
+def evict_unpinned(engine) -> None:
+    """Drop every unpinned prompt run from the engine's radix tree. The
+    engine is idle (nothing queued, resident or in flight), so the worker
+    touches neither the tree nor the pages meanwhile."""
+    ecfg = engine.config.engine
+    saved, ecfg.prefix_cache_entries = ecfg.prefix_cache_entries, 0
+    try:
+        engine._evict_prefixes()
+    finally:
+        ecfg.prefix_cache_entries = saved
+        engine._evict_prefixes()  # the tree's cap back to the config's
+    if len(engine._prefix_cache):
+        raise SystemExit(f"{len(engine._prefix_cache)} tree nodes are still pinned on an idle engine")
+
+
+def common_prefix(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def extends_block(tok, original: list, replan: list) -> bool:
+    """Whether the replan prompt byte-extends ``original`` through its
+    services block, with the exclusions in an Avoid line after it."""
+    text1, text2 = tok.decode(original), tok.decode(replan)
+    end = text1.rindex("\nIntent:")
+    return text2[:end] == text1[:end] and "\nAvoid: " in text2[end:]
+
+
+def nearest_rank(sorted_ms: list, q: float) -> float:
+    return sorted_ms[max(0, math.ceil(q * len(sorted_ms)) - 1)]
+
+
+async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, batch: int, device=None) -> dict:
+    """``ControlPlane.plan_and_execute`` on the burst's intents, on an engine
+    of the serving phase's configuration with 16-token pages (the same
+    256-token row capacity): at 64-token pages the services block of a
+    /plan prompt (58-62 tokens at test) is shorter than one page, so no
+    page of it could be shared by a replan. Every registry endpoint answers
+    in process at zero latency, and retries do not back off; the first
+    service of every other intent's
+    /plan fails at every endpoint. Then:
+      * pass 1: every intent at once through ``plan_and_execute`` (plan
+        cache cleared, ``telemetry.max_replans`` at its default);
+      * the reference bench's replan probe over the same intents, one at a
+        time on a quiet slab: plan, exclude its first service, replan warm
+        (with ``replan_prior``) and cold (without), the replan's prefill
+        tokens and wall ms; a first warm round, which builds each
+        exclusion set's grammar, is reported apart;
+      * pass 2: pass 1 again from the same starting state (the telemetry
+        store reset), which must capture no window.
+    Prints one line; fails on no replan, a warm probe replan whose prompt
+    does not byte-extend its original through the services block, a replan
+    plan that names a service its context excluded, warm replans that
+    prefill no fewer tokens than cold ones or run no suffix prefill, a pin
+    left after a pass, a capture in pass 2, and at test any difference
+    between the two passes in graph, results, errors, status, replans or
+    planner calls that ``compare_passes`` does not trace to a different
+    telemetry snapshot.
+    A replan inside ``plan_and_execute`` renders the telemetry its
+    services gained in the execution (``err=``, ``p50=``), as the
+    reference's does, so its prompt parts from the original at the first
+    such line: the line reports how many tokens each shares."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    cfg = config(size, checkpoint, batch)
+    cfg.engine.kv_page_size, cfg.engine.max_pages_per_seq = 16, 16
+    # Retries do not back off: the full-jitter sleep (an unseeded draw up
+    # to 50 ms a retry) would decide which other executions a replan's
+    # telemetry snapshot holds, and with it the replan prompt.
+    cfg.orchestrator.retry_backoff_s = 0.0
+    records = synth_registry(1000, seed=0)
+    rng = random.Random(0)
+    intents = [intent_for(records, rng) for _ in range(n_intents)]
+    cp = build_control_plane(cfg, device=device)
+    for rec in records:
+        await cp.registry.put(rec)
+    cuda = cp.planner.engine.device.type == "cuda"
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize()
+
+    try:
+        await cp.startup()
+        engine = cp.planner.engine
+        tok = engine.tokenizer
+        firsts = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents[::2]))
+        failing = {p.nodes[0].service for p, _ in firsts}
+        transport, calls = failing_transport(records, failing)
+        xcp = build_control_plane(
+            cfg, registry=cp.registry, planner=cp.planner, retriever=cp.retriever,
+            transport=transport, device=device,
+        )
+        # (intent, context.exclude, the telemetry features as a prompt
+        # renders them, plan) of every planner call.
+        planned: list = []
+        real_plan = cp.planner.plan
+
+        async def recording(intent, context):
+            plan = await real_plan(intent, context)
+            features = {
+                name: f"err={st.ewma_error_rate:.2f} p50={st.ewma_latency_ms:.0f}"
+                for name, st in context.telemetry.items()
+            }
+            planned.append((intent, set(context.exclude), features, plan))
+            return plan
+
+        cp.planner.plan = recording
+
+        async def run_pass() -> tuple[dict, list]:
+            """Every intent through plan_and_execute at once, from the same
+            starting state each time: empty telemetry, plan cache and
+            grammar cache, no resident prompt in the tree (the captured
+            windows stay). Replans then meet the same tree and the same
+            grammar builds (about a second each on the host, serialized
+            by the planner's lock) in both passes."""
+            await idle(engine)
+            xcp.telemetry.reset()
+            xcp._plan_cache.clear()
+            cp.planner._grammar_cache.clear()
+            evict_unpinned(engine)
+            n0 = len(planned)
+            q0 = engine.queue_stats()
+            sync()
+            reset_kernel_launches()
+
+            async def one(intent: str):
+                t0 = time.monotonic()
+                out = await xcp.plan_and_execute(intent, {"query": "q", "text": "t"})
+                return out, (time.monotonic() - t0) * 1e3
+
+            t0 = time.monotonic()
+            results = await asyncio.gather(*(one(i) for i in intents))
+            wall = time.monotonic() - t0
+            sync()
+            launches = kernel_launches()
+            await idle(engine)  # the unpins ride the queue: drained here
+            q1 = engine.queue_stats()
+            outs = [o for o, _ in results]
+            lat = sorted(ms for _, ms in results)
+            bad_plans, shared, extends = [], [], 0
+            originals = {i: p for i, ex, _, p in planned[n0:] if not ex}
+            for intent, exclude, _, plan in planned[n0:]:
+                if any(n.service in exclude for n in plan.nodes):
+                    bad_plans.append((intent, sorted(exclude), plan.to_json()))
+                orig = originals.get(intent)
+                if exclude and orig is not None and orig.prompt_ids and plan.prompt_ids:
+                    # The replan renders the telemetry its services gained
+                    # in this execution, as the reference does: the prompts
+                    # part at the first service line whose features changed.
+                    shared.append(common_prefix(orig.prompt_ids, plan.prompt_ids))
+                    extends += extends_block(tok, orig.prompt_ids, plan.prompt_ids)
+            stats = dict(
+                model=size, intents=n_intents, failing=len(failing), wall_s=wall,
+                p50_ms=nearest_rank(lat, 0.5), p99_ms=nearest_rank(lat, 0.99),
+                status={s: sum(o["status"] == s for o in outs) for s in sorted({o["status"] for o in outs})},
+                replans=sum(o["replans"] for o in outs),
+                origins={o: sum(x["origin"] == o for x in outs) for o in sorted({x["origin"] for x in outs})},
+                planner_calls=len(planned) - n0,
+                **{k: q1[k] - q0[k] for k in ("suffix_prefills", "suffix_prefill_launches", "prefill_tokens")},
+                launches=launches, **loop_counts(engine, q0, q1, n_intents),
+                pins_left=q1["prefix_pins"], bad_plans=len(bad_plans),
+                replan_prompts=len(shared), replan_prompts_extending_block=extends,
+                replan_shared_prompt_tokens=shared,
+            )
+            if bad_plans:
+                raise SystemExit(f"execute_{size}: a replan named a service it excluded: {bad_plans[:2]}")
+            by_intent: dict = {i: [] for i in intents}
+            for intent, exclude, features, plan in planned[n0:]:
+                by_intent[intent].append((exclude, features, plan))
+            return stats, outs, by_intent
+
+        async def replan_probe(warm: bool) -> dict:
+            """The reference bench's replan sample (bench.py ``timed_replan``)
+            over every intent, one at a time: only the replan is timed, and
+            nothing else runs, so the engine's prefill counter moves by the
+            replan's own prefill. The excluded service is one the prompt
+            renders (``probe_exclusion``)."""
+            lats, d = [], {"prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0}
+            own_first = 0
+            broken = []
+            # No round may match the replan prompts an earlier round left.
+            await idle(engine)
+            evict_unpinned(engine)
+            for intent in intents:
+                await idle(engine)
+                plan, _ = await xcp.plan(intent, use_cache=False)
+                if not plan.nodes:
+                    continue
+                excluded, rendered_first = probe_exclusion(plan)
+                own_first += rendered_first
+                prior = tuple(plan.prompt_services) if warm and plan.prompt_services else None
+                ctx = await xcp._context(intent, {excluded}, replan_prior=prior)
+                await idle(engine)
+                q0 = engine.queue_stats()
+                t0 = time.monotonic()
+                replan = await xcp.planner.plan(intent, ctx)
+                lats.append((time.monotonic() - t0) * 1e3)
+                q1 = engine.queue_stats()
+                for k in d:
+                    d[k] += q1[k] - q0[k]
+                if prior and replan.prompt_ids and not extends_block(tok, plan.prompt_ids, replan.prompt_ids):
+                    broken.append((tok.decode(plan.prompt_ids), tok.decode(replan.prompt_ids)))
+            if broken:
+                raise SystemExit(f"execute_{size}: warm replan prompts do not extend their block: {broken[:2]}")
+            return dict(
+                replans=len(lats), p50_ms=statistics.median(lats),
+                prefill_tokens=d["prefill_tokens"] / len(lats),
+                suffix_prefills=d["suffix_prefills"], suffix_prefill_launches=d["suffix_prefill_launches"],
+                first_service_rendered=own_first,
+            )
+
+        pass1, outs1, calls1 = await run_pass()
+        # The probe's first round builds each exclusion set's grammar; the
+        # timed rounds after it find them cached.
+        probe = {"first": await replan_probe(True)}
+        probe.update(cold=await replan_probe(False), warm=await replan_probe(True))
+        pass2, outs2, calls2 = await run_pass()
+        keys = ("graph", "results", "errors", "status", "replans")
+        differ = [i for i, (a, b) in enumerate(zip(outs1, outs2)) if any(a[k] != b[k] for k in keys)]
+        diverged, unexplained = compare_passes(intents, calls1, calls2, differ)
+        stats = dict(
+            model=size, kv_page_size=16, max_pages_per_seq=16, failing_services=sorted(failing),
+            endpoints_called=len(calls), pass1=pass1, replan_probe=probe, pass2=pass2,
+            pass_differ=differ, telemetry_diverged=diverged, unexplained=unexplained,
+            differing=[
+                {k: [o[k] if k != "graph" else [n["service"] for n in o[k]["nodes"]] for o in (outs1[i], outs2[i])]
+                 for k in keys}
+                for i in differ
+            ],
+        )
+        emit(f"execute_{size}", card, **stats)
+        if pass1["replans"] <= 0 or pass2["replans"] <= 0:
+            raise SystemExit(f"execute_{size}: no replan happened")
+        if not probe["warm"]["prefill_tokens"] < probe["cold"]["prefill_tokens"]:
+            raise SystemExit(f"execute_{size}: warm replans prefilled no fewer tokens than cold: {probe}")
+        if probe["warm"]["suffix_prefills"] <= 0:
+            raise SystemExit(f"execute_{size}: no warm replan ran a suffix prefill: {probe}")
+        if cuda and probe["warm"]["suffix_prefill_launches"] <= 0:
+            raise SystemExit(f"execute_{size}: warm replans' suffix prefills launched no kernel: {probe}")
+        if pass1["pins_left"] or pass2["pins_left"]:
+            raise SystemExit(f"execute_{size}: pins left after a pass: {pass1['pins_left']} {pass2['pins_left']}")
+        if pass2["captures"]:
+            raise SystemExit(f"execute_{size}: the repeat captured {pass2['captures']} windows")
+        if size == "test" and unexplained:
+            raise SystemExit(f"execute_{size}: the two passes differ without cause: {unexplained}")
+        return stats
+    finally:
+        await cp.aclose()
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -902,9 +1236,13 @@ def main(argv: list[str]) -> int:
         "2b", "", 8, card, batch=64, profile=args.profile,
         after=lambda cp, recs, intents: modes_then_prefix(cp, recs, intents, "2b", 4),
     ))
+    executed = [
+        asyncio.run(execute_phase("test", CKPT, 16, card, batch=64)),
+        asyncio.run(execute_phase("2b", "", 8, card, batch=64)),
+    ]
     runs = [trained, full, *trained_modes, *full_modes] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
-    ]
+    ] + [ex[p] for ex in executed for p in ("pass1", "pass2")]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

@@ -6,3 +6,6 @@ module paths. It imports torch and numpy, never jax and nothing of
 ``device="cpu"``; there, every CUDA kernel's wrapper takes its plain
 PyTorch version.
 """
+
+# The API version served (the reference package's: the same wire format).
+__version__ = "0.1.0"

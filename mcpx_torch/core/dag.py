@@ -97,6 +97,20 @@ class Plan:
     # back reads "heuristic" — this is what the bench's accept-rate and the
     # ladder's llm_share report on.
     origin: str = ""
+    # LLM-planner provenance, NEVER serialized (to_wire omits both): the
+    # exact prompt token ids this plan was decoded from, and the service
+    # names in rendered order. ``plan_and_execute`` pins the prompt's
+    # radix-tree KV with the ids so a failure-triggered replan continues
+    # decoding from the cached prefix, and re-renders the replan prompt
+    # over the SAME service order (exclusions appended after the block)
+    # so the bytes — and therefore the KV pages — stay shared.
+    prompt_ids: Optional[list[int]] = field(
+        default=None, repr=False, compare=False
+    )
+    prompt_services: Optional[list[str]] = field(
+        default=None, repr=False, compare=False
+    )
+
     # ------------------------------------------------------------------ build
     @classmethod
     def from_wire(cls, obj: Mapping[str, Any]) -> "Plan":

@@ -392,11 +392,13 @@ class InferenceEngine:
         # same traffic adds none), warmup_captures those captured at
         # startup under engine.warmup_compile, replays the windows run by
         # replaying a captured graph (on the CPU none: windows run eagerly).
+        # prefix_pins counts the pin_prefix pins applied and not yet
+        # released (0 whenever no caller holds one).
         self._stats = {
             "admissions": 0, "segments": 0, "windows": 0, "decode_forwards": 0,
             "live_forwards": 0, "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
             "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
-            "captures": 0, "warmup_captures": 0, "replays": 0,
+            "captures": 0, "warmup_captures": 0, "replays": 0, "prefix_pins": 0,
         }
         # Dispatched segments awaiting harvest, oldest first.
         self._inflight: "deque[_Inflight]" = deque()
@@ -815,11 +817,15 @@ class InferenceEngine:
             node = self._prefix_cache.lookup(item.ids)
             if node is not None:
                 node.refs += 1
+                self._stats["prefix_pins"] += 1
             item.loop.call_soon_threadsafe(_resolve, item.future, node, None)
             return True
         if isinstance(item, _UnpinPrefixOp):
+            # A node dropped since the pin (drop_all after a failed
+            # admission) is detached: its count changes nothing.
             if item.node.refs > 0:
                 item.node.refs -= 1
+            self._stats["prefix_pins"] -= 1
             return True
         return False
 

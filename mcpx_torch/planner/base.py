@@ -11,19 +11,17 @@ responsible for their own retry/repair loops (bug B7).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional, Protocol, runtime_checkable
+from typing import Optional, Protocol, runtime_checkable
 
 from mcpx_torch.core.dag import Plan
 from mcpx_torch.registry.base import RegistryBackend
+from mcpx_torch.telemetry.stats import ServiceStats
 
 
 @dataclass
 class PlanContext:
     registry: RegistryBackend
-    # Per-service live statistics (objects with ``ewma_error_rate`` and
-    # ``ewma_latency_ms``); the port keeps no telemetry store yet, so the
-    # control plane passes an empty snapshot.
-    telemetry: dict[str, Any] = field(default_factory=dict)
+    telemetry: dict[str, ServiceStats] = field(default_factory=dict)
     # Services the retrieval layer shortlisted for this intent (names, ranked).
     shortlist: Optional[list[str]] = None
     # Services a replan must avoid (observed failing in this request).
@@ -42,6 +40,15 @@ class PlanContext:
     # weighted-fair cache quota (engine/cache_governor.py). "default" =
     # single-tenant traffic (no quota pressure).
     tenant: str = "default"
+    # Warm-replan rendering order (names, as originally rendered): when set
+    # alongside ``exclude``, the LLM planner keeps these services in the
+    # prompt IN THIS ORDER — excluded ones included — and splices the
+    # exclusions into the SUFFIX as an Avoid line, so the replan prompt
+    # shares every byte of the original services block and the engine's
+    # radix prefix cache serves its KV instead of re-prefilling.
+    # Exclusions still leave the grammar trie and the resolution map — only
+    # the rendering is stable.
+    replan_prior: Optional[tuple[str, ...]] = None
 
 
 @runtime_checkable

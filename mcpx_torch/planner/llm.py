@@ -59,6 +59,7 @@ def render_prompt(
     intent: str,
     services: list[ServiceRecord],
     context: PlanContext,
+    avoid: "list[str] | None" = None,
 ) -> tuple[str, int]:
     """Compact prompt: shortlist + telemetry features + intent, rendered
     for EXACTLY the given services — all length clamping is the caller's
@@ -88,6 +89,14 @@ def render_prompt(
         ins = ",".join(sorted(s.input_schema))
         outs = ",".join(sorted(s.output_schema))
         lines.append(f"{s.name} in:{ins} out:{outs}{feat}")
+    if avoid:
+        # Warm-replan splice: exclusions ride AFTER the services block (in
+        # the prompt SUFFIX), so a replan prompt shares every byte of the
+        # original block and the engine's radix prefix cache serves its KV
+        # instead of re-prefilling it. The grammar trie still excludes
+        # these names — the line is advisory context, the trie is the
+        # guarantee.
+        lines.append("Avoid: " + ",".join(avoid))
     lines.append(f"Intent: {intent}")
     lines.append("JSON:")
     text = "\n".join(lines)
@@ -104,22 +113,26 @@ def build_prompt_ids(
     context: PlanContext,
     budget: int,
     prefix_ids: "list[int] | None" = None,
+    avoid: "list[str] | None" = None,
 ) -> tuple[list[int], list[int], list[str]]:
     """(prefix_ids, suffix_ids, kept_names) for the serving prompt, clamped
     token-exactly to ``budget`` total. Token-exact (a char-level clamp is
     exact only on the byte vocab; subword vocabs pack ~3-8 chars/token and
     would starve the prompt of shortlist lines): render, encode, and cut the
     kept service list proportionally to the token overshoot — monotone
-    shrink (tail-first), converges in ~2 render+encode passes (~0.1ms
+    shrink (tail-first, which is also what keeps a warm-replan prompt's
+    shared head intact), converges in ~2 render+encode passes (~0.1ms
     each). The prefix is the fixed header, encoded separately so its ids
     are identical across requests (subword tokenizers are not
     concatenation-safe at the boundary); callers that already encoded it
-    pass ``prefix_ids``. ``kept_names`` is the rendered service order."""
+    pass ``prefix_ids``. ``kept_names`` is the rendered service order —
+    the warm-replan contract records it so a replan can re-render the
+    identical block."""
     if prefix_ids is None:
         prefix_ids = tok.encode(_PROMPT_HEADER)
     kept = services[: max(1, budget)]  # a line costs >=1 token
     while True:
-        prompt, head_chars = render_prompt(intent, kept, context)
+        prompt, head_chars = render_prompt(intent, kept, context, avoid=avoid)
         assert prompt[:head_chars] == _PROMPT_HEADER
         suffix_ids = tok.encode(prompt[head_chars:], bos=False)
         total = len(prefix_ids) + len(suffix_ids)
@@ -204,7 +217,27 @@ class LLMPlanner:
         # Version + contents read atomically: the grammar cache is keyed by
         # version, so its names must come from exactly that version.
         version, all_services = await stable_snapshot(context.registry)
-        services = self._candidates(all_services, context)
+        avoid: "list[str] | None" = None
+        if context.replan_prior and context.exclude:
+            # Warm replan: re-render the ORIGINAL services block byte-for-
+            # byte (excluded services included, original order) so the
+            # replan prompt extends the cached prefix instead of diverging
+            # at the first removed line; replacement candidates append
+            # AFTER the block and the exclusions ride in an Avoid suffix
+            # line. The grammar trie and resolution map still exclude —
+            # only the rendering is stable.
+            by = {s.name: s for s in all_services}
+            prior = [by[n] for n in context.replan_prior if n in by]
+            prior_set = {s.name for s in prior}
+            extras = [
+                s
+                for s in self._candidates(all_services, context)
+                if s.name not in prior_set
+            ]
+            services = prior + extras
+            avoid = sorted(context.exclude)
+        else:
+            services = self._candidates(all_services, context)
         if not services:
             raise PlannerError("registry is empty; nothing to plan with")
         # Resolution map spans the WHOLE registry: with constrain_names=
@@ -225,8 +258,9 @@ class LLMPlanner:
         tok = self.engine.tokenizer
         prefix_ids = tok.encode(_PROMPT_HEADER)
         budget = self._token_budget(len(prefix_ids))
-        prefix_ids, suffix_ids, _kept = build_prompt_ids(
-            tok, intent, services, context, budget, prefix_ids=prefix_ids
+        prefix_ids, suffix_ids, kept_names = build_prompt_ids(
+            tok, intent, services, context, budget, prefix_ids=prefix_ids,
+            avoid=avoid,
         )
         prompt_ids = prefix_ids + suffix_ids
 
@@ -259,6 +293,11 @@ class LLMPlanner:
             n_pruned = self._normalize_dataflow(plan, by_name)
             plan.intent = intent
             plan.origin = "llm"
+            # Prompt provenance (never serialized): plan_and_execute pins
+            # this prompt's radix-tree KV across execution and re-renders
+            # a warm replan over the same service order (core/dag.py).
+            plan.prompt_ids = list(prompt_ids)
+            plan.prompt_services = kept_names
             if self.config.explain:
                 plan.explanation = self._explain(plan, attempt) + (
                     " [repaired: dangling/backward next-references pruned]"

@@ -1,21 +1,32 @@
-"""ControlPlane: planner and retrieval tied together, independent of HTTP.
+"""ControlPlane: the use-case layer tying planner, orchestrator, retrieval
+and telemetry together, independent of HTTP.
 
-Trimmed PyTorch-port copy of ``mcpx/server/control.py``: ``plan`` with its
-LRU plan cache keyed by (intent, registry version) and the retrieval
-shortlist of ``_context`` — the call the ``/plan`` handler makes. Execution,
-replanning, tracing and telemetry are not in the port yet.
+PyTorch-port copy of ``mcpx/server/control.py``: ``plan`` with its two plan
+cache tiers (the in-process LRU keyed by (intent, registry version) and the
+optional Redis tier), ``execute``, and ``plan_and_execute`` with the
+telemetry-adaptive replan loop over a pinned prompt prefix. Not ported yet:
+the scheduler's degraded tier (``plan(degraded=)``), request tracing, decision
+provenance, metrics, the cost ledger, SLOs and the flight recorder.
 """
 
 from __future__ import annotations
 
+import asyncio
+import logging
 import time
 from collections import OrderedDict
 from typing import Any, Optional
 
 from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.core.dag import Plan
+from mcpx_torch.core.trace import ExecutionTrace
+from mcpx_torch.orchestrator.executor import ExecuteResult, Orchestrator
 from mcpx_torch.planner.base import PlanContext, Planner
 from mcpx_torch.registry.base import RegistryBackend
+from mcpx_torch.telemetry.replan import ReplanPolicy
+from mcpx_torch.telemetry.stats import TelemetryStore
+
+log = logging.getLogger("mcpx_torch.control")
 
 
 class ControlPlane:
@@ -25,14 +36,24 @@ class ControlPlane:
         config: Optional[MCPXConfig] = None,
         registry: RegistryBackend,
         planner: Planner,
+        orchestrator: Orchestrator,
+        telemetry: Optional[TelemetryStore] = None,
         retriever: Any = None,  # duck-typed: async shortlist(intent, k)
+        replan_policy: Optional[ReplanPolicy] = None,
+        redis_plan_cache: Any = None,  # mcpx_torch.server.plan_cache.RedisPlanCache
     ) -> None:
         self.config = config or MCPXConfig()
         self.registry = registry
         self.planner = planner
+        self.orchestrator = orchestrator
+        self.telemetry = telemetry or TelemetryStore(self.config.telemetry.ewma_alpha)
         self.retriever = retriever
+        self.replan_policy = replan_policy or ReplanPolicy(self.config.telemetry)
+        self.redis_plan_cache = redis_plan_cache
         self._plan_cache: OrderedDict[tuple[str, int], Plan] = OrderedDict()
-        self.plan_cache_stats = {"hits": 0, "misses": 0}
+        self._cache_writes: set = set()  # in-flight shared-tier writes
+        # Plain-int plan-cache counters for GET /cache.
+        self.plan_cache_stats = {"hits": 0, "redis_hits": 0, "misses": 0}
 
     # ------------------------------------------------------------- lifecycle
     async def startup(self) -> None:
@@ -44,11 +65,16 @@ class ControlPlane:
             await ensure()
         warm = getattr(self.planner, "warm", None)
         if warm is not None:
-            await warm(self.registry)
+            try:
+                await warm(self.registry)
+            except Exception:  # warm is best-effort, and logged
+                log.exception("registry-grammar warmup failed; first plan pays the capture")
 
     async def aclose(self) -> None:
+        """Release the transport's sessions and stop the engine."""
+        await self.orchestrator.aclose()
         engine = getattr(self.planner, "engine", None)
-        if engine is not None:
+        if engine is not None and engine.state in ("ready", "warming"):
             await engine.aclose()
 
     # ------------------------------------------------------------------ plan
@@ -60,7 +86,10 @@ class ControlPlane:
         deadline_at: Optional[float] = None,
         tenant: str = "default",
     ) -> tuple[Plan, float]:
-        """Plan an intent; returns (plan, latency_ms)."""
+        """Plan an intent; returns (plan, latency_ms). ``deadline_at``
+        (monotonic) rides the PlanContext to the engine so prefix-locality
+        admission never regroups a request whose deadline can't afford it;
+        ``tenant`` rides along to the engine."""
         t0 = time.monotonic()
         version = await self.registry.version()
         key = (intent, version)
@@ -71,14 +100,34 @@ class ControlPlane:
                 self._plan_cache.move_to_end(key)
                 self.plan_cache_stats["hits"] += 1
                 return cached, (time.monotonic() - t0) * 1e3
+        if use_cache and self.redis_plan_cache is not None:
+            # Second tier: shared across replicas/restarts, independent of
+            # the local LRU (plan_cache_size=0 disables only the local
+            # tier); a hit here still warms the LRU when enabled.
+            shared = await self.redis_plan_cache.get(intent, version)
+            if shared is not None:
+                if local_tier:
+                    self._cache_put(key, shared)
+                self.plan_cache_stats["redis_hits"] += 1
+                return shared, (time.monotonic() - t0) * 1e3
+        if use_cache and (local_tier or self.redis_plan_cache is not None):
             self.plan_cache_stats["misses"] += 1
-        context = await self._context(
-            intent, version=version, deadline_at=deadline_at, tenant=tenant
-        )
+        context = await self._context(intent, version=version, deadline_at=deadline_at, tenant=tenant)
         plan = await self.planner.plan(intent, context)
         if use_cache and local_tier:
             self._cache_put(key, plan)
+        if use_cache and self.redis_plan_cache is not None:
+            self._redis_cache_write(intent, version, plan)
         return plan, (time.monotonic() - t0) * 1e3
+
+    def _redis_cache_write(self, intent: str, version: int, plan: Plan) -> None:
+        """Fire-and-forget write to the shared tier: put() swallows its own
+        errors, and the plan response must not wait out a slow Redis. The
+        task set keeps references so the event loop can't GC in-flight
+        writes."""
+        task = asyncio.create_task(self.redis_plan_cache.put(intent, version, plan))
+        self._cache_writes.add(task)
+        task.add_done_callback(self._cache_writes.discard)
 
     def _cache_put(self, key: tuple[str, int], plan: Plan) -> None:
         self._plan_cache[key] = plan
@@ -93,6 +142,7 @@ class ControlPlane:
         version: Optional[int] = None,
         *,
         deadline_at: Optional[float] = None,
+        replan_prior: Optional[tuple[str, ...]] = None,
         tenant: str = "default",
     ) -> PlanContext:
         shortlist = None
@@ -101,7 +151,8 @@ class ControlPlane:
             refresh = getattr(self.retriever, "maybe_refresh", None)
             if refresh is not None:
                 await refresh(self.registry, version)
-            # Over-fetch so excluded services don't starve the shortlist.
+            # Over-fetch so excluded (replanned-around) services don't starve
+            # the shortlist of viable candidates.
             k = self.config.planner.shortlist_top_k
             names = await self.retriever.shortlist(intent, k + len(exclude))
             shortlist = [n for n in names if n not in exclude][:k]
@@ -109,9 +160,115 @@ class ControlPlane:
             version = await self.registry.version()
         return PlanContext(
             registry=self.registry,
+            telemetry=self.telemetry.snapshot(),
             shortlist=shortlist,
             exclude=exclude,
             registry_version=version,
             deadline_at=deadline_at,
+            replan_prior=replan_prior,
             tenant=tenant,
         )
+
+    # --------------------------------------------------------------- execute
+    async def execute(
+        self,
+        plan: Plan,
+        payload: dict[str, Any],
+        trace: Optional[ExecutionTrace] = None,
+    ) -> ExecuteResult:
+        return await self.orchestrator.execute(plan, payload, trace)
+
+    # ------------------------------------------------------- plan_and_execute
+    async def plan_and_execute(
+        self, intent: str, payload: dict[str, Any], *, tenant: str = "default"
+    ) -> dict[str, Any]:
+        """Plan, execute, and adaptively replan around observed failures
+        (bounded by ``telemetry.max_replans``).
+
+        With the engine's radix prefix cache this is a structured program,
+        not three independent calls: the plan's prompt KV is PINNED for the
+        whole execution (tool calls take seconds — long enough for eviction
+        to reclaim an unpinned prefix under load), and a failure-triggered
+        replan renders its prompt as the ORIGINAL prompt plus a spliced-in
+        suffix (an Avoid line carrying the exclusions), so the replan
+        continues from the cached prefix: only its suffix is prefilled.
+        The services block renders live telemetry, as the reference's
+        does, so a service line whose ``err=``/``p50=`` features the
+        execution changed parts the two prompts there."""
+        trace = ExecutionTrace()
+        plan, _ = await self.plan(intent, tenant=tenant)
+        engine = getattr(self.planner, "engine", None)
+        pin = None
+        if engine is not None and plan.prompt_ids:
+            try:
+                pin = await engine.pin_prefix(plan.prompt_ids)
+            except Exception:  # pinning is an optimisation
+                log.debug("prefix pin failed; replans run unpinned", exc_info=True)
+        try:
+            result = await self.execute(plan, payload, trace)
+            exclude: set[str] = set()
+            prior = tuple(plan.prompt_services or ())
+            while result.status != "ok" and trace.replans < self.replan_policy.max_replans:
+                records = {r.name: r for r in await self.registry.list_services()}
+                decision = self.replan_policy.assess(plan, result, self.telemetry, records)
+                if not decision.should_replan:
+                    break
+                exclude |= decision.exclude
+                trace.replans += 1
+                context = await self._context(
+                    intent, exclude, replan_prior=prior or None, tenant=tenant
+                )
+                try:
+                    plan = await self.planner.plan(intent, context)
+                except Exception:
+                    # Nothing viable left to route around; keep the last
+                    # result — but say so, or a planner crash mid-replan is
+                    # invisible.
+                    log.exception("replan attempt %d failed; keeping last result", trace.replans)
+                    break
+                result = await self.execute(plan, payload, trace)
+        finally:
+            if pin is not None:
+                engine.unpin_prefix(pin)
+        if trace.replans and result.status == "ok":
+            # The repaired plan is the one worth caching — in EVERY enabled
+            # tier; a stale failing plan left in Redis would keep re-warming
+            # every replica's LRU with the plan that triggers the
+            # fail->replan cycle.
+            version = await self.registry.version()
+            if self.config.planner.plan_cache_size > 0:
+                self._cache_put((intent, version), plan)
+            if self.redis_plan_cache is not None:
+                self._redis_cache_write(intent, version, plan)
+        return {
+            "graph": plan.to_wire(),
+            "results": result.results,
+            "errors": result.errors,
+            "status": result.status,
+            "replans": trace.replans,
+            # Which planner authored the final plan.
+            "origin": plan.origin,
+            "trace": result.trace.to_dict() if result.trace else None,
+        }
+
+    # ------------------------------------------------------------ cache stats
+    def cache_stats(self) -> dict[str, Any]:
+        """Combined cache observability for ``GET /cache``: the plan cache
+        and the engine's radix prefix KV cache in one JSON read."""
+        s = self.plan_cache_stats
+        lookups = s["hits"] + s["redis_hits"] + s["misses"]
+        out: dict[str, Any] = {
+            "plan_cache": {
+                "entries": len(self._plan_cache),
+                "capacity": self.config.planner.plan_cache_size,
+                "redis_tier": self.redis_plan_cache is not None,
+                **s,
+                "hit_rate": ((s["hits"] + s["redis_hits"]) / lookups if lookups else 0.0),
+            },
+            "prefix_cache": None,
+        }
+        engine = getattr(self.planner, "engine", None)
+        stats_fn = getattr(engine, "prefix_cache_stats", None)
+        if stats_fn is not None:
+            out["prefix_cache"] = stats_fn()
+        return out

@@ -1,9 +1,12 @@
 """Application factory: config -> wired ControlPlane on a device.
 
 Trimmed PyTorch-port copy of ``mcpx/server/factory.py`` for
-``planner.kind`` in {"llm", "heuristic"} over the in-memory registry.
-``device=None`` means the GPU and raises without CUDA; pass ``device="cpu"``
-for the plain PyTorch path.
+``planner.kind`` in {"llm", "heuristic"} over the in-memory registry: the
+telemetry store, the orchestrator over an injected transport, the replan
+policy and the optional Redis plan-cache tier. Options the reference
+factory reads that the port does not serve yet raise ``ConfigError``
+naming the option. ``device=None`` means the GPU and raises without CUDA;
+pass ``device="cpu"`` for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -15,12 +18,36 @@ import torch
 from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.core.errors import ConfigError
 from mcpx_torch.device import resolve_device
+from mcpx_torch.orchestrator.executor import Orchestrator
+from mcpx_torch.orchestrator.transport import RouterTransport, Transport
 from mcpx_torch.planner.base import Planner
 from mcpx_torch.planner.heuristic import HeuristicPlanner
 from mcpx_torch.registry import make_registry
 from mcpx_torch.registry.base import RegistryBackend
 from mcpx_torch.retrieval.index import RetrievalIndex
 from mcpx_torch.server.control import ControlPlane
+from mcpx_torch.server.plan_cache import RedisPlanCache
+from mcpx_torch.telemetry.replan import ReplanPolicy
+from mcpx_torch.telemetry.stats import TelemetryStore
+
+
+def _refuse_unserved(config: MCPXConfig) -> None:
+    """Raise for an option that asks the reference factory for a part the
+    port does not serve yet: serving without it would be another server."""
+    refused = (
+        ("cluster.enabled", config.cluster.enabled),
+        ("cluster.shard_registry", config.cluster.shard_registry),
+        ("scheduler.enabled", config.scheduler.enabled),
+        ("resilience.enabled", config.resilience.enabled),
+        ("resilience.chaos_profile", config.resilience.chaos_profile),
+        ("retrieval.snapshot_path", config.retrieval.snapshot_path),
+        # The telemetry mirror: built by the reference only while telemetry
+        # is enabled (the default).
+        ("telemetry.redis_url", config.telemetry.enabled and config.telemetry.redis_url),
+    )
+    for name, asked in refused:
+        if asked:
+            raise ConfigError(f"{name}: not served by the PyTorch port yet")
 
 
 def build_control_plane(
@@ -28,15 +55,25 @@ def build_control_plane(
     *,
     registry: Optional[RegistryBackend] = None,
     planner: Optional[Planner] = None,
+    transport: Optional[Transport] = None,
     retriever=None,
     device: "torch.device | str | None" = None,
 ) -> ControlPlane:
     config = config or MCPXConfig()
     config.validate()
+    _refuse_unserved(config)
     device = resolve_device(device)
     registry = registry if registry is not None else make_registry(config.registry)
+    transport = transport if transport is not None else RouterTransport()
     if retriever is None and config.retrieval.enabled:
         retriever = RetrievalIndex(config.retrieval)
+    telemetry = TelemetryStore(config.telemetry.ewma_alpha)
+    redis_plan_cache = None
+    if config.planner.plan_cache_redis_url:
+        redis_plan_cache = RedisPlanCache(
+            config.planner.plan_cache_redis_url, ttl_s=config.planner.plan_cache_redis_ttl_s
+        )
+    orchestrator = Orchestrator(transport, config.orchestrator, registry=registry, telemetry=telemetry)
     if planner is None:
         if config.planner.kind == "heuristic":
             planner = HeuristicPlanner(config.planner)
@@ -48,4 +85,13 @@ def build_control_plane(
             raise ConfigError(
                 f"planner.kind={config.planner.kind!r} is not ported to mcpx_torch yet"
             )
-    return ControlPlane(config=config, registry=registry, planner=planner, retriever=retriever)
+    return ControlPlane(
+        config=config,
+        registry=registry,
+        planner=planner,
+        orchestrator=orchestrator,
+        telemetry=telemetry,
+        retriever=retriever,
+        replan_policy=ReplanPolicy(config.telemetry),
+        redis_plan_cache=redis_plan_cache,
+    )

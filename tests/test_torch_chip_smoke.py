@@ -31,3 +31,104 @@ def test_attention_bound_counts_live_queries_and_visible_positions():
     assert nbytes == want and by == "bytes"
     visible = [71, 72, 73] + [min(250 + i + 1, 256) for i in range(8)]
     assert flops == K * G * 4 * hd * sum(visible)
+
+
+def test_execute_phase_prompt_checks():
+    """``extends_block`` accepts a replan prompt that keeps the original's
+    services block and adds an Avoid line, and refuses one whose block
+    changed; ``common_prefix`` and ``nearest_rank`` as the line reports them."""
+    from mcpx_torch.models.tokenizer import make_tokenizer
+
+    tok = make_tokenizer("bpe")
+    head = "Compose a service DAG.\nServices:\na-svc in:x out:y\nb-svc in:y out:z"
+    original = tok.encode(head + "\nIntent: do it\nJSON:")
+    warm = tok.encode(head + "\nc-svc in:x out:z\nAvoid: a-svc\nIntent: do it\nJSON:")
+    changed = tok.encode(head.replace("a-svc in:x out:y", "a-svc in:x out:y err=1.00 p50=0")
+                         + "\nAvoid: a-svc\nIntent: do it\nJSON:")
+    assert chip_smoke.extends_block(tok, original, warm)
+    assert not chip_smoke.extends_block(tok, original, changed)
+    assert not chip_smoke.extends_block(tok, original, original)  # no Avoid line
+    assert chip_smoke.common_prefix([1, 2, 3], [1, 2, 4]) == 2
+    assert chip_smoke.common_prefix([1, 2], [1, 2, 4]) == 2
+    lat = sorted(float(i) for i in range(1, 17))
+    assert (chip_smoke.nearest_rank(lat, 0.5), chip_smoke.nearest_rank(lat, 0.99)) == (8.0, 16.0)
+
+
+def test_failing_transport_fails_every_endpoint_of_a_failing_service():
+    import asyncio
+
+    from mcpx_torch.orchestrator.transport import TransportError
+    from mcpx_torch.utils.synth import synth_registry
+
+    records = synth_registry(20, seed=0)
+    bad = next(r for r in records if r.fallbacks)
+    transport, calls = chip_smoke.failing_transport(records, {bad.name})
+
+    async def go():
+        ok = await transport.post(records[0].endpoint if records[0] is not bad else records[1].endpoint, {"b": 1, "a": 2}, 1.0)
+        for ep in [bad.endpoint, *bad.fallbacks]:
+            try:
+                await transport.post(ep, {}, 1.0)
+            except TransportError:
+                continue
+            raise AssertionError(f"{ep} answered")
+        return ok
+
+    ok = asyncio.run(go())
+    assert ok["inputs"] == ["a", "b"] and len(calls) == 1 + 1 + len(bad.fallbacks)
+
+
+def test_compare_passes_traces_differences_to_telemetry():
+    """Two passes' planner calls: an equal prompt must give an equal plan;
+    a differing prompt passes only when its exclusions or the features of a
+    service it renders differed."""
+    from mcpx_torch.core.dag import Plan
+
+    def plan(service: str, ids: list, shown=("a", "b")) -> Plan:
+        p = Plan.from_wire({"nodes": [{"name": service}], "edges": []})
+        p.prompt_ids, p.prompt_services = ids, list(shown)
+        return p
+
+    f0 = {"a": "err=0.00 p50=0"}
+    f1 = {"a": "err=1.00 p50=0"}
+    same = [(set(), {}, plan("a", [1, 2])), ({"a"}, f0, plan("b", [1, 3]))]
+    cases = {
+        "equal": ([(set(), {}, plan("a", [1, 2])), ({"a"}, f0, plan("b", [1, 3]))], [], [], []),
+        "same prompt, another plan": (
+            [(set(), {}, plan("b", [1, 2])), ({"a"}, f0, plan("b", [1, 3]))], [0], [],
+            ["same prompt, another plan"],
+        ),
+        "same inputs, another prompt": (
+            [(set(), {}, plan("a", [1, 2])), ({"a"}, f0, plan("c", [1, 4]))], [0], [],
+            ["same inputs, another prompt"],
+        ),
+        "features of a shown service": (
+            [(set(), {}, plan("a", [1, 2])), ({"a"}, f1, plan("c", [1, 4]))], [0], [0], [],
+        ),
+        "features of a service not shown": (
+            [(set(), {}, plan("a", [1, 2])), ({"a"}, {**f0, "z": "err=1.00 p50=0"}, plan("c", [1, 4]))],
+            [0], [], ["same inputs, another prompt"],
+        ),
+        "exclusions": (
+            [(set(), {}, plan("a", [1, 2])), ({"a", "b"}, f0, plan("c", [1, 4]))], [0], [0], [],
+        ),
+        "outputs differ, prompts equal": (same, [0], [], ["outputs or planner calls differ with every prompt equal"]),
+    }
+    for name, (calls2, differ, want_diverged, want_reasons) in cases.items():
+        diverged, unexplained = chip_smoke.compare_passes(["x"], {"x": same}, {"x": calls2}, differ)
+        assert diverged == want_diverged, name
+        assert [r for _, _, r in unexplained] == want_reasons, name
+
+
+def test_probe_excludes_a_service_the_prompt_renders():
+    from mcpx_torch.core.dag import Plan
+
+    def plan(services, rendered):
+        p = Plan.from_wire({"nodes": [{"name": s} for s in services], "edges": []})
+        p.prompt_services = rendered
+        return p
+
+    assert chip_smoke.probe_exclusion(plan(["a", "b"], ["b", "a"])) == ("a", True)
+    assert chip_smoke.probe_exclusion(plan(["x", "b"], ["c", "b"])) == ("b", False)
+    assert chip_smoke.probe_exclusion(plan(["x", "y"], ["c", "b"])) == ("c", False)
+    assert chip_smoke.probe_exclusion(plan(["x"], None)) == ("x", True)

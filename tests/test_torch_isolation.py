@@ -1,7 +1,11 @@
 """The port stands alone: nothing in ``mcpx_torch``, ``chip_smoke.py`` or
 ``kernel_ab.py`` imports JAX or the reference package, the package imports and builds a CPU
 control plane with both blocked, and its entry points never drop to the CPU
-on their own."""
+on their own. The GPU machine has no aiohttp, prometheus_client or redis:
+only ``mcpx_torch.server.app`` imports aiohttp at module level (the HTTP
+transport imports it inside its methods, the Redis plan cache imports redis
+at its first use), and the control plane serves ``/plan`` and
+``/plan_and_execute`` with all three blocked."""
 
 import ast
 import os
@@ -78,3 +82,89 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         InferenceEngine(cfg)
     with pytest.raises(EngineError, match="CUDA is not available"):
         build_control_plane(MCPXConfig.from_dict({"planner": {"kind": "heuristic"}}))
+
+
+OPTIONAL = ("aiohttp", "prometheus_client", "redis")
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_optional_packages_are_imported_only_where_allowed(path):
+    """aiohttp at module level only in the app; inside functions only in the
+    HTTP transport; redis only inside functions; prometheus_client nowhere."""
+    rel = os.path.relpath(path, ROOT)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    in_function = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            in_function.update(id(n) for n in ast.walk(fn))
+    bad = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        for name in names:
+            top = name.split(".")[0]
+            if top not in OPTIONAL:
+                continue
+            lazy = id(node) in in_function
+            allowed = (
+                (top == "aiohttp" and rel == "mcpx_torch/server/app.py")
+                or (top == "aiohttp" and lazy and rel == "mcpx_torch/orchestrator/transport.py")
+                or (top == "redis" and lazy)
+            )
+            if not allowed:
+                bad.append((name, "in a function" if lazy else "at module level"))
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_control_plane_serves_with_optional_packages_blocked():
+    script = f"""
+import asyncio, sys
+for name in {OPTIONAL!r} + ("jax", "mcpx"):
+    sys.modules[name] = None
+sys.path.insert(0, {ROOT!r})
+from mcpx_torch.core.config import MCPXConfig
+from mcpx_torch.orchestrator.executor import Orchestrator
+from mcpx_torch.orchestrator.transport import LocalTransport, RouterTransport
+from mcpx_torch.registry import ServiceRecord
+from mcpx_torch.server.control import ControlPlane
+from mcpx_torch.server.factory import build_control_plane
+
+async def go():
+    local = LocalTransport()
+
+    async def ok(payload):
+        return {{"ok": True}}
+
+    local.register("svc-a", ok)
+    cfg = MCPXConfig.from_dict({{"planner": {{"kind": "heuristic"}}}})
+    cp = build_control_plane(cfg, transport=RouterTransport(local=local), device="cpu")
+    assert isinstance(cp, ControlPlane) and isinstance(cp.orchestrator, Orchestrator)
+    await cp.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a", description="do a"))
+    plan, _ = await cp.plan("do a")
+    out = await cp.plan_and_execute("do a", {{}})
+    assert plan.nodes and out["status"] == "ok", out
+    small = {{
+        "planner": {{"kind": "llm"}}, "model": {{"size": "test", "max_seq_len": 256}},
+        "engine": {{"max_batch_size": 2, "max_decode_len": 16, "kv_page_size": 16, "max_pages_per_seq": 16}},
+    }}
+    llm = build_control_plane(MCPXConfig.from_dict(small), device="cpu")
+    await llm.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a"))
+    await llm.startup()
+    plan, _ = await llm.plan("do a")
+    plan.validate()
+    await llm.aclose()
+
+asyncio.run(go())
+loaded = [k for k in sys.modules if sys.modules[k] and k.split(".")[0] in {OPTIONAL!r}]
+assert not loaded, loaded
+print("ok")
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, cwd=ROOT, env=env, timeout=300
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

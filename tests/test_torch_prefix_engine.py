@@ -241,7 +241,8 @@ def test_prompt_capacity_with_a_shared_prefix_matches_reference():
 
 def test_pin_api_holds_a_run_under_eviction_and_stats_report_reuse():
     """``pin_prefix`` keeps a resident run through full eviction pressure
-    until ``unpin_prefix``; ``queue_stats`` reports the reuse."""
+    until ``unpin_prefix``; ``queue_stats`` reports the reuse and the pins
+    held; an unpin after ``aclose`` is a no-op."""
     eng = InferenceEngine(_config(MCPXConfig), device="cpu")
 
     async def go():
@@ -256,6 +257,7 @@ def test_pin_api_holds_a_run_under_eviction_and_stats_report_reuse():
             assert qs["prefill_tokens"] < 2 * len(prompt)
             pin = await eng.pin_prefix(prompt)
             assert pin is not None and pin.refs == 1
+            assert eng.queue_stats()["prefix_pins"] == 1
             eng.config.engine.prefix_cache_entries = 0
             eng._evict_prefixes()
             assert eng._prefix_cache.probe(prompt) > 0
@@ -264,11 +266,16 @@ def test_pin_api_holds_a_run_under_eviction_and_stats_report_reuse():
                 await asyncio.sleep(0.02)
                 if pin.refs == 0:
                     break
-            assert pin.refs == 0
+            assert pin.refs == 0 and eng.queue_stats()["prefix_pins"] == 0
             eng._evict_prefixes()
             assert eng._prefix_cache.n_nodes == 0 and eng._allocator.stats().sequences == 0
             eng._allocator.check_invariants()
+            late = await eng.pin_prefix(prompt)  # nothing resident: no pin
+            assert late is None and eng.queue_stats()["prefix_pins"] == 0
         finally:
             await eng.aclose()
+        # An unpin after shutdown is a no-op: nothing is queued or changed.
+        eng.unpin_prefix(pin)
+        assert eng._queue.qsize() == 0 and pin.refs == 0
 
     asyncio.run(go())

@@ -1,0 +1,199 @@
+"""Three faults of the port found against the reference, held closed on the
+CPU:
+
+  - the factory serves no option it ignores: each option the reference
+    factory reads that the port does not serve raises ``ConfigError``
+    naming it; the default-on telemetry and the Redis plan-cache tier are
+    served;
+  - sampled decoding (the configs' default ``temperature=0.2``) draws from
+    the exact softmax of the masked, scaled and top-k-cut logits, in both
+    packages: many draws from fixed logits, their counts held to the exact
+    probabilities by a chi-square test at a false-failure rate of 1e-6 per
+    test, and no masked or cut column ever drawn (the two RNGs never agree
+    draw for draw, so the draws themselves are not compared);
+  - the plan divergence on the half registry with intents from
+    ``Random(0)``: in float32 on both sides the plans are byte-identical.
+"""
+
+import asyncio
+import dataclasses
+import os
+import random
+
+import jax
+import numpy as np
+import pytest
+import torch
+from scipy import stats
+
+from mcpx.core.config import MCPXConfig as JConfig
+from mcpx.engine import sampling as jsampling
+from mcpx.engine.engine import InferenceEngine as JEngine
+from mcpx.models.gemma.config import GemmaConfig as JGemmaConfig
+from mcpx.planner.llm import LLMPlanner as JPlanner
+from mcpx.server.factory import build_control_plane as jbuild
+from mcpx.utils.synth import intent_for, synth_registry as jsynth
+from mcpx_torch.core.config import MCPXConfig
+from mcpx_torch.core.errors import ConfigError
+from mcpx_torch.engine import sampling
+from mcpx_torch.engine.engine import InferenceEngine
+from mcpx_torch.models.gemma.config import GemmaConfig
+from mcpx_torch.planner.llm import LLMPlanner
+from mcpx_torch.server.factory import build_control_plane
+from mcpx_torch.server.plan_cache import RedisPlanCache
+from mcpx_torch.utils.synth import synth_registry
+
+CKPT = os.path.join(
+    os.path.dirname(__file__), "..", "mcpx", "models", "checkpoints", "planner_test_bpe.npz"
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------ refusals
+@pytest.mark.parametrize(
+    "section,key,value",
+    [
+        ("cluster", "enabled", True),
+        ("cluster", "shard_registry", True),
+        ("scheduler", "enabled", True),
+        ("resilience", "enabled", True),
+        ("resilience", "chaos_profile", "chaos.json"),
+        ("retrieval", "snapshot_path", "index.npz"),
+        ("telemetry", "redis_url", "redis://localhost:6379/0"),
+        (None, None, None),
+    ],
+)
+def test_factory_refuses_options_the_port_does_not_serve(section, key, value):
+    cfg = {"planner": {"kind": "heuristic"}}
+    if section is None:
+        # The defaults (telemetry on) and the Redis plan-cache tier are served.
+        cfg["planner"]["plan_cache_redis_url"] = "redis://localhost:6379/1"
+        cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert cp.config.telemetry.enabled
+        assert isinstance(cp.redis_plan_cache, RedisPlanCache)
+        # The mirror is the reference's only while telemetry is on.
+        cfg["telemetry"] = {"enabled": False, "redis_url": "redis://localhost:6379/0"}
+        build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        return
+    cfg[section] = {key: value}
+    with pytest.raises(ConfigError, match=f"{section}.{key}"):
+        build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+
+
+# ------------------------------------------------------------ sampling
+N_DRAWS, TEMPERATURE, FALSE_FAILURE = 20000, 0.2, 1e-6
+# Fixed logits: the two largest are masked (a draw of them would show),
+# the rest span 0.8 so that at T = 0.2 the least likely kept column still
+# expects about 100 of the draws.
+LOGITS = np.array([3.0, 2.5, 0.0, 0.1, 0.2, 0.3, 0.35, 0.45, 0.55, 0.6, 0.7, 0.8, -5.0, 0.05],
+                  np.float32)
+MASK = np.array([0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 1], bool)
+
+
+def _exact(top_k: int) -> np.ndarray:
+    z = np.where(MASK, LOGITS.astype(np.float64), -np.inf) / TEMPERATURE
+    if top_k:
+        kth = np.sort(z)[-top_k]
+        z = np.where(z < kth, -np.inf, z)
+    p = np.exp(z - z.max())
+    return p / p.sum()
+
+
+def _draw(package: str, top_k: int, seed: int) -> np.ndarray:
+    tiled = np.tile(LOGITS, (N_DRAWS, 1))
+    if package == "reference":
+        ids = jsampling.sample(
+            jax.numpy.asarray(tiled), jax.random.PRNGKey(seed),
+            temperature=TEMPERATURE, top_k=top_k, mask=jax.numpy.asarray(MASK),
+        )
+    else:
+        ids = sampling.sample(
+            torch.from_numpy(tiled), torch.Generator().manual_seed(seed),
+            temperature=TEMPERATURE, top_k=top_k, mask=torch.from_numpy(MASK),
+        )
+    return np.bincount(np.asarray(ids), minlength=LOGITS.size)
+
+
+@pytest.mark.parametrize("top_k", [0, 4], ids=["top_k_off", "top_k_4"])
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_sampled_draws_follow_the_masked_softmax(package, top_k):
+    p = _exact(top_k)
+    counts = _draw(package, top_k, seed=3)
+    assert counts.sum() == N_DRAWS
+    # Masked and cut columns: never drawn.
+    assert counts[p == 0].sum() == 0, counts
+    support = p > 0
+    expected = N_DRAWS * p[support]
+    assert expected.min() >= 50
+    chi2 = float(((counts[support] - expected) ** 2 / expected).sum())
+    limit = stats.chi2.ppf(1.0 - FALSE_FAILURE, df=int(support.sum()) - 1)
+    assert chi2 < limit, (chi2, limit, counts, p)
+
+
+# ------------------------------------------------------------ Random(0)
+N_SERVICES, N_INTENTS = 200, 4
+CONFIG = {
+    "model": {"size": "test", "vocab": "bpe", "max_seq_len": 2048, "checkpoint_path": CKPT},
+    "engine": {
+        "max_batch_size": 16, "max_decode_len": 64, "kv_page_size": 64, "max_pages_per_seq": 4,
+        "temperature": 0.0, "speculate_k": 8, "use_pallas": False, "data_axis": 1, "model_axis": 1,
+    },
+    "planner": {"kind": "llm"},
+    "tracing": {"enabled": False},
+}
+
+
+async def _serve_halves(cp, halves) -> list:
+    """Serve N_INTENTS intents of each registry half (from ``Random(h)``,
+    the first half's from ``Random(0)``), one half after the other."""
+    for rec in halves[0]:
+        await cp.registry.put(rec)
+    await cp.startup()
+    try:
+        plans = []
+        for h, records in enumerate(halves):
+            if h:
+                for rec in halves[h - 1]:
+                    await cp.registry.delete(rec.name)
+                for rec in records:
+                    await cp.registry.put(rec)
+            rng = random.Random(h)
+            intents = [intent_for(records, rng) for _ in range(N_INTENTS)]
+            plans += [p for p, _ in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
+        return plans
+    finally:
+        await cp.planner.engine.aclose()
+
+
+def test_random0_half_registry_plans_match_reference_in_float32():
+    """The ``Random(0)`` set whose bf16 plans differ in 2 of 8 (near-ties
+    under bf16 rounding) gives byte-identical plans with float32 forwards
+    on both sides. ``model.dtype`` is read by neither package's engine, so
+    both get a float32 model config; the checkpoint's bf16 weights are
+    exact in float32 on both."""
+    jcfg, cfg = JConfig.from_dict(CONFIG), MCPXConfig.from_dict(CONFIG)
+    jmodel = dataclasses.replace(JGemmaConfig.named("test", vocab_size=3072, max_seq_len=2048), dtype="float32")
+    model = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072, max_seq_len=2048), dtype="float32")
+    records = jsynth(N_SERVICES, seed=0)
+    port_records = synth_registry(N_SERVICES, seed=0)
+    half = N_SERVICES // 2
+    ref = asyncio.run(_serve_halves(
+        jbuild(jcfg, planner=JPlanner(JEngine(jcfg, model_cfg=jmodel), jcfg.planner)),
+        [records[:half], records[half:]],
+    ))
+    engine = InferenceEngine(cfg, model_cfg=model, device="cpu")
+    port = asyncio.run(_serve_halves(
+        build_control_plane(cfg, planner=LLMPlanner(engine, cfg.planner), device="cpu"),
+        [port_records[:half], port_records[half:]],
+    ))
+    assert engine.model_cfg.dtype == "float32"
+    assert sum(p.origin == "llm" for p in port) >= len(port) - 1
+    differ = [i for i, (a, b) in enumerate(zip(ref, port)) if a.to_json() != b.to_json()]
+    assert not differ, [(ref[i].to_json(), port[i].to_json()) for i in differ]
