@@ -9,7 +9,8 @@ Phases, one line each (every number beside the card's name and power limit):
   3. kernel vs plain: each kernel against its plain PyTorch version on
      seeded batches at the serving shapes (bf16): a mixed batch, the
      serving bursts' mix of a few live rows among idle ones, and a
-     suffix-prefill cohort at prefill width (S 128); with its time,
+     suffix-prefill cohort at prefill width (S 128), at 64-token pages and
+     again the last two at the execute phases' 16-token pages; with its time,
      the plain version's and one PyTorch library call's (a yardstick the
      port never calls), each by back-to-back eager calls (``ms``, host work
      included) and as device time by CUDA-graph replays (``device_ms``),
@@ -17,7 +18,7 @@ Phases, one line each (every number beside the card's name and power limit):
      kernel's ticket counters must be back at 0 after the phase;
   4. forward check: prefill plus one paged decode forward of the trained
      checkpoint in float32, on the card (through the kernel) against the CPU
-     (plain path);
+     (plain path), at 64-token and at 16-token pages;
   5. serve the trained checkpoint: 16 concurrent /plan requests through
      ``ControlPlane.plan``, every plan LLM-authored and valid, at the
      reference's default decode loop (prompt drafting, pipeline depth 2,
@@ -48,8 +49,10 @@ Phases, one line each (every number beside the card's name and power limit):
      each configuration's intents at once, over in-process services of
      which the first service of every other intent's plan always fails, so
      that plans are replanned around them with the plan's prompt prefix
-     pinned; the reference bench's replan probe, warm against cold; and the
-     pass again with the telemetry store reset (see ``execute_phase``);
+     pinned, the executions run in rounds (``Lockstep``); the reference
+     bench's replan probe, warm against cold; and the pass again with the
+     telemetry store reset, equal to the first at test (see
+     ``execute_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -66,11 +69,14 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextvars
 import dataclasses
+import gc
 import json
 import math
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -239,23 +245,26 @@ def sdpa_yardstick(q, k_pages, v_pages, table, starts, layer):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
 
 
-# (cell, G, hd, L, live): the trained `test` preset and the full-width `2b`
-# preset, at the serving geometry B=64, S=speculate_k=8, Psz=64, Pmax=4;
-# live=None is the mixed batch, live=n the serving bursts' mix (16 or 8
-# live rows of 64, the rest idle: where splitting pays). live="prefill" is
-# a suffix-prefill cohort at prefill width: B 16, S 128 (the prefill
-# bucket), starts 0, 64 or 128, two idle rows.
+# (cell, G, hd, L, live, Psz, Pmax): the trained `test` preset and the
+# full-width `2b` preset, at the serving geometry B=64, S=speculate_k=8,
+# Psz=64, Pmax=4; live=None is the mixed batch, live=n the serving bursts'
+# mix (16 or 8 live rows of 64, the rest idle: where splitting pays).
+# live="prefill" is a suffix-prefill cohort at prefill width: B 16, S 128
+# (the prefill bucket), starts 0, 64 or 128, two idle rows. The /p16 cells
+# are the execute phases' geometry: the same row capacity in 16-token pages.
 CELLS = (
-    ("test", 4, 32, 2, None), ("2b", 8, 256, 18, None),
-    ("test/serve_mix", 4, 32, 2, 16), ("2b/serve_mix", 8, 256, 18, 8),
-    ("test/prefill", 4, 32, 2, "prefill"), ("2b/prefill", 8, 256, 18, "prefill"),
+    ("test", 4, 32, 2, None, 64, 4), ("2b", 8, 256, 18, None, 64, 4),
+    ("test/serve_mix", 4, 32, 2, 16, 64, 4), ("2b/serve_mix", 8, 256, 18, 8, 64, 4),
+    ("test/prefill", 4, 32, 2, "prefill", 64, 4), ("2b/prefill", 8, 256, 18, "prefill", 64, 4),
+    ("test/serve_mix/p16", 4, 32, 2, 16, 16, 16), ("2b/serve_mix/p16", 8, 256, 18, 8, 16, 16),
+    ("test/prefill/p16", 4, 32, 2, "prefill", 16, 16), ("2b/prefill/p16", 8, 256, 18, "prefill", 16, 16),
 )
 
 
-def cell_batch(seed: int, G: int, hd: int, L: int, live):
+def cell_batch(seed: int, G: int, hd: int, L: int, live, psz: int, pmax: int):
     if live == "prefill":
-        return prefill_batch(seed, 16, 128, 1, G, hd, L, 64, 4, torch.bfloat16)
-    return mixed_batch(seed, 64, 8, 1, G, hd, L, 64, 4, torch.bfloat16, live)
+        return prefill_batch(seed, 16, 128, 1, G, hd, L, psz, pmax, torch.bfloat16)
+    return mixed_batch(seed, 64, 8, 1, G, hd, L, psz, pmax, torch.bfloat16, live)
 
 
 def kernel_times(q, kp, vp, table, starts, q_lens, L) -> dict:
@@ -294,10 +303,10 @@ def kernel_phase(card: str) -> list[dict]:
     )
 
     rows = []
-    for cell, G, hd, L, live in CELLS:
+    for cell, G, hd, L, live, psz, pmax in CELLS:
         worst = 0.0
         for seed in range(3):
-            q, kp, vp, table, starts, q_lens = cell_batch(seed, G, hd, L, live)
+            q, kp, vp, table, starts, q_lens = cell_batch(seed, G, hd, L, live, psz, pmax)
             for layer in (0, L - 1):
                 out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, layer)
                 torch.cuda.synchronize()
@@ -309,11 +318,11 @@ def kernel_phase(card: str) -> list[dict]:
                 for b, ql in enumerate(q_lens.tolist()):
                     if bool((out[b, ql:] != 0).any()):
                         raise SystemExit(f"{cell}: row {b} pads are not exact zeros")
-        q, kp, vp, table, starts, q_lens = cell_batch(0, G, hd, L, live)
+        q, kp, vp, table, starts, q_lens = cell_batch(0, G, hd, L, live, psz, pmax)
         times = kernel_times(q, kp, vp, table, starts, q_lens, L)
         bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, table, starts, q_lens)
         row = dict(
-            cell=cell, B=q.shape[0], S=q.shape[1], K=1, G=G, hd=hd, L=L, page_size=64, max_pages=4,
+            cell=cell, B=q.shape[0], S=q.shape[1], K=1, G=G, hd=hd, L=L, page_size=psz, max_pages=pmax,
             live_rows=int((q_lens > 0).sum()), dtype="bfloat16", max_abs_err=worst,
             atol=ATOL, rtol=RTOL, **times, bound_ms=bound_ms, bound_by=bound_by,
             ms_over_bound=times["ms"] / bound_ms,
@@ -358,7 +367,9 @@ def config(size: str, checkpoint: str, batch: int):
 
 def forward_check(card: str) -> None:
     """The trained checkpoint in float32: prefill, commit to pages and one
-    ragged paged decode forward, on the card against the CPU."""
+    ragged paged decode forward, on the card against the CPU, in the
+    serving phases' pages (64 tokens, 4 a row) and the execute phases'
+    (16 tokens, 16 a row)."""
     from mcpx_torch.engine.kv_cache import commit_prefill_to_pages, init_paged_kv
     from mcpx_torch.engine.paged_decode import decode_chunk_paged
     from mcpx_torch.models.gemma.config import GemmaConfig
@@ -368,30 +379,32 @@ def forward_check(card: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072), dtype="float32")
     rng = torch.Generator().manual_seed(0)
-    B, T, psz, pmax = 4, 64, 64, 4
+    B, T = 4, 64
     tokens = torch.randint(0, 3000, (B, T), generator=rng)
     lens = torch.tensor([64, 17, 40, 5])
-    table = torch.arange(1, B * pmax + 1, dtype=torch.int32).reshape(B, pmax)
     chunk = torch.randint(0, 3000, (B, 8), generator=rng)
     q_lens = torch.tensor([8, 1, 3, 0], dtype=torch.int32)
-    outs = []
-    for dev in ("cuda", "cpu"):
-        params = load_npz(CKPT, dev, torch.float32)
-        pools = init_paged_kv(cfg, B * pmax + 1, psz, dev)
-        dense = init_kv_cache(cfg, B, T, device=dev)
-        first, dense = prefill(params, cfg, tokens.to(dev), lens.to(dev), dense, last_only=True)
-        commit_prefill_to_pages(pools, dense, table.to(dev), lens.to(dev), psz)
-        logits, _ = decode_chunk_paged(
-            params, cfg, chunk.to(dev), lens.to(dev), table.to(dev), pools,
-            logits_at=(q_lens.long() - 1).clamp(min=0).to(dev), q_lens=q_lens.to(dev),
-        )
-        outs.append((first.cpu(), logits.cpu()))
-    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
-    finite = all(bool(torch.isfinite(t).all()) for t in outs[0])
-    shapes = [list(t.shape) for t in outs[0]]
-    emit("forward_check", card, dtype="float32", max_abs_err=err, atol=1e-3, finite=finite, shapes=shapes)
-    if not finite or err > 1e-3 or shapes != [[B, 3072], [B, 3072]]:
-        raise SystemExit(f"forward check failed: err {err}, finite {finite}, shapes {shapes}")
+    for psz, pmax in ((64, 4), (16, 16)):
+        table = torch.arange(1, B * pmax + 1, dtype=torch.int32).reshape(B, pmax)
+        outs = []
+        for dev in ("cuda", "cpu"):
+            params = load_npz(CKPT, dev, torch.float32)
+            pools = init_paged_kv(cfg, B * pmax + 1, psz, dev)
+            dense = init_kv_cache(cfg, B, T, device=dev)
+            first, dense = prefill(params, cfg, tokens.to(dev), lens.to(dev), dense, last_only=True)
+            commit_prefill_to_pages(pools, dense, table.to(dev), lens.to(dev), psz)
+            logits, _ = decode_chunk_paged(
+                params, cfg, chunk.to(dev), lens.to(dev), table.to(dev), pools,
+                logits_at=(q_lens.long() - 1).clamp(min=0).to(dev), q_lens=q_lens.to(dev),
+            )
+            outs.append((first.cpu(), logits.cpu()))
+        err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+        finite = all(bool(torch.isfinite(t).all()) for t in outs[0])
+        shapes = [list(t.shape) for t in outs[0]]
+        emit("forward_check", card, dtype="float32", page_size=psz, max_pages=pmax, max_abs_err=err,
+             atol=1e-3, finite=finite, shapes=shapes)
+        if not finite or err > 1e-3 or shapes != [[B, 3072], [B, 3072]]:
+            raise SystemExit(f"forward check ({psz}-token pages) failed: err {err}, finite {finite}, shapes {shapes}")
 
 
 def _profiler():
@@ -868,17 +881,18 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
 # ------------------------------------------------------------ execute path
 def failing_transport(records, failing: set):
     """A zero-latency in-process handler for every ``local://`` endpoint and
-    fallback of ``records``; every endpoint of a ``failing`` service raises.
-    Returns the transport and the list of endpoints called."""
+    fallback of ``records``; every endpoint of a service in ``failing`` (read
+    at each call, so the set may be filled later) raises. Returns the
+    transport and the list of endpoints called."""
     from mcpx_torch.orchestrator.transport import LocalTransport, RouterTransport, TransportError
 
     local = LocalTransport()
     calls: list = []
 
-    def handler(name: str, endpoint: str, fail: bool):
+    def handler(name: str, endpoint: str):
         async def call(payload):
             calls.append(endpoint)
-            if fail:
+            if name in failing:
                 raise TransportError(f"{name} is down", status=503)
             return {"service": name, "inputs": sorted(payload)}
 
@@ -886,72 +900,91 @@ def failing_transport(records, failing: set):
 
     for r in records:
         for ep in [r.endpoint, *r.fallbacks]:
-            local.register(ep.removeprefix("local://"), handler(r.name, ep, r.name in failing))
+            local.register(ep.removeprefix("local://"), handler(r.name, ep))
     return RouterTransport(local=local), calls
 
 
-def probe_exclusion(plan) -> tuple[str, bool]:
-    """The service a probe replan excludes, and whether it is the plan's
-    first service, as the reference bench takes it. A warm replan exists
-    for an exclusion inside the rendered services block: excluding a
-    service the prompt does not render leaves the cold re-render equal to
-    the original prompt, all of it cached, while the warm one adds an
-    Avoid line. Random 2b weights name services outside the block, so
-    there the plan's first service the block renders is excluded, else
-    the block's first."""
+class Lockstep:
+    """An orchestrator that runs the executions of concurrent
+    ``plan_and_execute`` calls (started by ``run``) in rounds: once every
+    call still running holds a plan to execute, and ``settle()`` has
+    returned, that round's executions run one at a time in the order the
+    calls were given, and each returns once the whole round has recorded
+    its telemetry. Every replan's exclusions and telemetry snapshot then
+    hold exactly the earlier rounds, recorded in a fixed order, whatever
+    order the engine finishes plans in. It keeps every execution's
+    (plan, result) by trace id."""
+
+    def __init__(self, inner, settle) -> None:
+        self.inner, self.settle = inner, settle
+        self.slot: contextvars.ContextVar = contextvars.ContextVar("lockstep_slot")
+        self.running = 0
+        self.waiting: dict = {}  # slot -> future resolved with the round's end
+        self.turns: list = []
+        self.executions: dict = {}
+
+    async def run(self, calls) -> list:
+        calls = list(calls)
+        self.running, self.executions = len(calls), {}
+
+        async def each(i: int, call):
+            self.slot.set(i)
+            try:
+                return await call
+            finally:
+                self.running -= 1
+                self._start_round()
+
+        return await asyncio.gather(*(each(i, c) for i, c in enumerate(calls)))
+
+    def _start_round(self) -> None:
+        if self.waiting and len(self.waiting) == self.running:
+            turns = [self.waiting[i] for i in sorted(self.waiting)]
+            self.waiting = {}
+            asyncio.ensure_future(self._round(turns))
+
+    async def _round(self, turns: list) -> None:
+        await self.settle()
+        self.end = asyncio.get_running_loop().create_future()
+        self.turns = turns
+        self._next_turn()
+
+    def _next_turn(self) -> None:
+        if self.turns:
+            self.turns.pop(0).set_result(self.end)
+        else:
+            self.end.set_result(None)
+
+    async def execute(self, plan, payload, trace=None):
+        turn = asyncio.get_running_loop().create_future()
+        self.waiting[self.slot.get()] = turn
+        self._start_round()
+        end = await turn
+        try:
+            result = await self.inner.execute(plan, payload, trace)
+        finally:
+            self._next_turn()
+        self.executions.setdefault(result.trace.trace_id, []).append((plan, result))
+        await end
+        return result
+
+    async def aclose(self) -> None:
+        await self.inner.aclose()
+
+
+def failed_services(plan, result) -> set:
+    return {plan.node(n).service for n, e in result.errors.items() if not e.startswith("skipped:")}
+
+
+def rendered_exclusion(plan) -> str:
+    """The plan's first service that its prompt's services block renders,
+    else the block's first service. Random 2b weights name services
+    outside the block, and excluding one of those leaves the cold
+    re-render equal to the original prompt, all of it cached."""
     rendered = list(plan.prompt_services or ())
-    first = plan.nodes[0].service
-    if not rendered or first in rendered:
-        return first, True
-    return next((n.service for n in plan.nodes if n.service in rendered), rendered[0]), False
-
-
-def compare_passes(intents: list, calls1: dict, calls2: dict, differ: list) -> tuple[list, list]:
-    """Hold two passes' planner calls to each other, intent by intent and
-    call by call. A call whose prompt equals its counterpart's must return
-    the same plan. A prompt may differ only where the call's inputs did:
-    the exclusions, or the telemetry features of the services its prompt
-    renders (concurrent executions record in an order that the timing of
-    the pass decides, and the reference renders live telemetry); later
-    calls of that intent follow from a different plan and are not held.
-    Returns (indices of intents whose calls diverged that way, descriptions
-    of every difference with no such cause, differing outputs included)."""
-    diverged, unexplained = [], []
-    for i, intent in enumerate(intents):
-        a, b = calls1[intent], calls2[intent]
-        n_bad = len(unexplained)
-        cause = None
-        for k, ((ex1, f1, p1), (ex2, f2, p2)) in enumerate(zip(a, b)):
-            if p1.prompt_ids == p2.prompt_ids:
-                if p1.to_json() != p2.to_json():
-                    unexplained.append((i, k, "same prompt, another plan"))
-                continue
-            shown = set(p1.prompt_services or ()) | set(p2.prompt_services or ())
-            if ex1 == ex2 and {n: f1.get(n) for n in shown} == {n: f2.get(n) for n in shown}:
-                unexplained.append((i, k, "same inputs, another prompt"))
-            else:
-                cause = k
-            break
-        if cause is not None:
-            diverged.append(i)
-        elif len(unexplained) == n_bad and (len(a) != len(b) or i in differ):
-            unexplained.append((i, None, "outputs or planner calls differ with every prompt equal"))
-    return diverged, unexplained
-
-
-def evict_unpinned(engine) -> None:
-    """Drop every unpinned prompt run from the engine's radix tree. The
-    engine is idle (nothing queued, resident or in flight), so the worker
-    touches neither the tree nor the pages meanwhile."""
-    ecfg = engine.config.engine
-    saved, ecfg.prefix_cache_entries = ecfg.prefix_cache_entries, 0
-    try:
-        engine._evict_prefixes()
-    finally:
-        ecfg.prefix_cache_entries = saved
-        engine._evict_prefixes()  # the tree's cap back to the config's
-    if len(engine._prefix_cache):
-        raise SystemExit(f"{len(engine._prefix_cache)} tree nodes are still pinned on an idle engine")
+    if not rendered:
+        return plan.nodes[0].service
+    return next((n.service for n in plan.nodes if n.service in rendered), rendered[0])
 
 
 def common_prefix(a: list, b: list) -> int:
@@ -976,26 +1009,29 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
     256-token row capacity): at 64-token pages the services block of a
     /plan prompt (58-62 tokens at test) is shorter than one page, so no
     page of it could be shared by a replan. Every registry endpoint answers
-    in process at zero latency, and retries do not back off; the first
-    service of every other intent's
+    in process at zero latency, retries do not back off, the plan cache is
+    off (every call plans), and the first service of every other intent's
     /plan fails at every endpoint. Then:
-      * pass 1: every intent at once through ``plan_and_execute`` (plan
-        cache cleared, ``telemetry.max_replans`` at its default);
+      * pass 1: every intent at once through ``plan_and_execute``
+        (``telemetry.max_replans`` at its default), the executions in
+        rounds (``Lockstep``);
       * the reference bench's replan probe over the same intents, one at a
-        time on a quiet slab: plan, exclude its first service, replan warm
-        (with ``replan_prior``) and cold (without), the replan's prefill
-        tokens and wall ms; a first warm round, which builds each
-        exclusion set's grammar, is reported apart;
+        time on a quiet slab: plan, exclude a service, replan warm (with
+        ``replan_prior``) and cold (without), the replan's prefill tokens
+        and wall ms. Twice: excluding a service the prompt renders
+        (``rendered_exclusion``, gated), and the plan's first service, as
+        the bench does (reported). A first warm round of each, which builds
+        each exclusion set's grammar, is reported apart;
       * pass 2: pass 1 again from the same starting state (the telemetry
-        store reset), which must capture no window.
+        store reset, no unpinned run in the tree), which must capture no
+        window.
     Prints one line; fails on no replan, a warm probe replan whose prompt
     does not byte-extend its original through the services block, a replan
-    plan that names a service its context excluded, warm replans that
-    prefill no fewer tokens than cold ones or run no suffix prefill, a pin
-    left after a pass, a capture in pass 2, and at test any difference
-    between the two passes in graph, results, errors, status, replans or
-    planner calls that ``compare_passes`` does not trace to a different
-    telemetry snapshot.
+    that names a service an earlier execution of its call saw fail, warm
+    replans that prefill no fewer tokens than cold ones or run no suffix
+    prefill, a pin or pinned tree node left after a pass, a capture in
+    pass 2, and at test any difference between the two passes in graph,
+    results, errors, status, replans or the plans executed.
     A replan inside ``plan_and_execute`` renders the telemetry its
     services gained in the execution (``err=``, ``p50=``), as the
     reference's does, so its prompt parts from the original at the first
@@ -1006,14 +1042,15 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
 
     cfg = config(size, checkpoint, batch)
     cfg.engine.kv_page_size, cfg.engine.max_pages_per_seq = 16, 16
-    # Retries do not back off: the full-jitter sleep (an unseeded draw up
-    # to 50 ms a retry) would decide which other executions a replan's
-    # telemetry snapshot holds, and with it the replan prompt.
+    # Retries do not back off (the full-jitter sleep is an unseeded draw).
     cfg.orchestrator.retry_backoff_s = 0.0
+    cfg.planner.plan_cache_size = 0
     records = synth_registry(1000, seed=0)
     rng = random.Random(0)
     intents = [intent_for(records, rng) for _ in range(n_intents)]
-    cp = build_control_plane(cfg, device=device)
+    failing: set = set()
+    transport, calls = failing_transport(records, failing)
+    cp = build_control_plane(cfg, transport=transport, device=device)
     for rec in records:
         await cp.registry.put(rec)
     cuda = cp.planner.engine.device.type == "cuda"
@@ -1026,117 +1063,105 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
         await cp.startup()
         engine = cp.planner.engine
         tok = engine.tokenizer
-        firsts = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents[::2]))
-        failing = {p.nodes[0].service for p, _ in firsts}
-        transport, calls = failing_transport(records, failing)
-        xcp = build_control_plane(
-            cfg, registry=cp.registry, planner=cp.planner, retriever=cp.retriever,
-            transport=transport, device=device,
-        )
-        # (intent, context.exclude, the telemetry features as a prompt
-        # renders them, plan) of every planner call.
-        planned: list = []
-        real_plan = cp.planner.plan
 
-        async def recording(intent, context):
-            plan = await real_plan(intent, context)
-            features = {
-                name: f"err={st.ewma_error_rate:.2f} p50={st.ewma_latency_ms:.0f}"
-                for name, st in context.telemetry.items()
-            }
-            planned.append((intent, set(context.exclude), features, plan))
-            return plan
-
-        cp.planner.plan = recording
-
-        async def run_pass() -> tuple[dict, list]:
-            """Every intent through plan_and_execute at once, from the same
-            starting state each time: empty telemetry, plan cache and
-            grammar cache, no resident prompt in the tree (the captured
-            windows stay). Replans then meet the same tree and the same
-            grammar builds (about a second each on the host, serialized
-            by the planner's lock) in both passes."""
+        async def settle() -> None:
+            """Before a round of executions: the engine idle, its trailing
+            segments harvested, and a full collection done, so that no tool
+            call is timed across another thread's turn or the collector
+            (prompts render each service's latency EWMA as ``p50=``)."""
             await idle(engine)
-            xcp.telemetry.reset()
-            xcp._plan_cache.clear()
-            cp.planner._grammar_cache.clear()
-            evict_unpinned(engine)
-            n0 = len(planned)
+            await asyncio.sleep(0.02)
+            gc.collect()
+
+        lockstep = cp.orchestrator = Lockstep(cp.orchestrator, settle)
+        firsts = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents[::2]))
+        failing.update(p.nodes[0].service for p, _ in firsts)
+
+        async def run_pass() -> tuple[dict, list, list]:
+            """Every intent through plan_and_execute at once, from the same
+            starting state each time: empty telemetry, no unpinned run in
+            the tree (the captured windows and the grammar cache stay)."""
+            await idle(engine)
+            cp.telemetry.reset()
+            await engine.drop_unpinned()
             q0 = engine.queue_stats()
             sync()
             reset_kernel_launches()
 
             async def one(intent: str):
                 t0 = time.monotonic()
-                out = await xcp.plan_and_execute(intent, {"query": "q", "text": "t"})
+                out = await cp.plan_and_execute(intent, {"query": "q", "text": "t"})
                 return out, (time.monotonic() - t0) * 1e3
 
             t0 = time.monotonic()
-            results = await asyncio.gather(*(one(i) for i in intents))
+            results = await lockstep.run(one(i) for i in intents)
             wall = time.monotonic() - t0
             sync()
             launches = kernel_launches()
             await idle(engine)  # the unpins ride the queue: drained here
             q1 = engine.queue_stats()
+            pinned_nodes = await engine.drop_unpinned()
             outs = [o for o, _ in results]
             lat = sorted(ms for _, ms in results)
+            # The plans each call executed, in order: its first plan, then
+            # one a replan.
+            executed = [lockstep.executions[o["trace"]["trace_id"]] for o in outs]
             bad_plans, shared, extends = [], [], 0
-            originals = {i: p for i, ex, _, p in planned[n0:] if not ex}
-            for intent, exclude, _, plan in planned[n0:]:
-                if any(n.service in exclude for n in plan.nodes):
-                    bad_plans.append((intent, sorted(exclude), plan.to_json()))
-                orig = originals.get(intent)
-                if exclude and orig is not None and orig.prompt_ids and plan.prompt_ids:
-                    # The replan renders the telemetry its services gained
-                    # in this execution, as the reference does: the prompts
-                    # part at the first service line whose features changed.
-                    shared.append(common_prefix(orig.prompt_ids, plan.prompt_ids))
-                    extends += extends_block(tok, orig.prompt_ids, plan.prompt_ids)
+            for intent, runs in zip(intents, executed):
+                seen_failing: set = set()
+                for k, (plan, result) in enumerate(runs):
+                    if k and {n.service for n in plan.nodes} & seen_failing:
+                        bad_plans.append((intent, sorted(seen_failing), plan.to_json()))
+                    seen_failing |= failed_services(plan, result)
+                    orig = runs[0][0]
+                    if k and orig.prompt_ids and plan.prompt_ids:
+                        shared.append(common_prefix(orig.prompt_ids, plan.prompt_ids))
+                        extends += extends_block(tok, orig.prompt_ids, plan.prompt_ids)
+            p50s = sorted({
+                m for runs in executed for plan, _ in runs[1:]
+                for m in re.findall(r"p50=\d+", tok.decode(plan.prompt_ids or []))
+            })
             stats = dict(
                 model=size, intents=n_intents, failing=len(failing), wall_s=wall,
                 p50_ms=nearest_rank(lat, 0.5), p99_ms=nearest_rank(lat, 0.99),
                 status={s: sum(o["status"] == s for o in outs) for s in sorted({o["status"] for o in outs})},
                 replans=sum(o["replans"] for o in outs),
                 origins={o: sum(x["origin"] == o for x in outs) for o in sorted({x["origin"] for x in outs})},
-                planner_calls=len(planned) - n0,
+                executions=sum(map(len, executed)),
                 **{k: q1[k] - q0[k] for k in ("suffix_prefills", "suffix_prefill_launches", "prefill_tokens")},
                 launches=launches, **loop_counts(engine, q0, q1, n_intents),
-                pins_left=q1["prefix_pins"], bad_plans=len(bad_plans),
+                pins_left=q1["prefix_pins"], pinned_nodes_left=pinned_nodes, bad_plans=len(bad_plans),
                 replan_prompts=len(shared), replan_prompts_extending_block=extends,
-                replan_shared_prompt_tokens=shared,
+                replan_shared_prompt_tokens=shared, replan_prompt_latency_features=p50s,
             )
             if bad_plans:
-                raise SystemExit(f"execute_{size}: a replan named a service it excluded: {bad_plans[:2]}")
-            by_intent: dict = {i: [] for i in intents}
-            for intent, exclude, features, plan in planned[n0:]:
-                by_intent[intent].append((exclude, features, plan))
-            return stats, outs, by_intent
+                raise SystemExit(f"execute_{size}: a replan named a service that failed before: {bad_plans[:2]}")
+            plans = [[(p.to_json(), p.prompt_ids) for p, _ in runs] for runs in executed]
+            return stats, outs, plans
 
-        async def replan_probe(warm: bool) -> dict:
-            """The reference bench's replan sample (bench.py ``timed_replan``)
+        async def replan_probe(warm: bool, exclusion) -> dict:
+            """The reference bench's replan sample (bench.py ``timed_replan``,
+            which builds the replan's context with ``_context`` as here)
             over every intent, one at a time: only the replan is timed, and
             nothing else runs, so the engine's prefill counter moves by the
-            replan's own prefill. The excluded service is one the prompt
-            renders (``probe_exclusion``)."""
+            replan's own prefill. ``exclusion(plan)`` names the excluded
+            service."""
             lats, d = [], {"prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0}
-            own_first = 0
-            broken = []
-            # No round may match the replan prompts an earlier round left.
+            own_first, broken = 0, []
             await idle(engine)
-            evict_unpinned(engine)
+            await engine.drop_unpinned()  # no round matches an earlier round's replans
             for intent in intents:
                 await idle(engine)
-                plan, _ = await xcp.plan(intent, use_cache=False)
+                plan, _ = await cp.plan(intent, use_cache=False)
                 if not plan.nodes:
                     continue
-                excluded, rendered_first = probe_exclusion(plan)
-                own_first += rendered_first
+                own_first += plan.nodes[0].service in (plan.prompt_services or ())
                 prior = tuple(plan.prompt_services) if warm and plan.prompt_services else None
-                ctx = await xcp._context(intent, {excluded}, replan_prior=prior)
+                ctx = await cp._context(intent, {exclusion(plan)}, replan_prior=prior)
                 await idle(engine)
                 q0 = engine.queue_stats()
                 t0 = time.monotonic()
-                replan = await xcp.planner.plan(intent, ctx)
+                replan = await cp.planner.plan(intent, ctx)
                 lats.append((time.monotonic() - t0) * 1e3)
                 q1 = engine.queue_stats()
                 for k in d:
@@ -1152,22 +1177,42 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
                 first_service_rendered=own_first,
             )
 
-        pass1, outs1, calls1 = await run_pass()
-        # The probe's first round builds each exclusion set's grammar; the
-        # timed rounds after it find them cached.
-        probe = {"first": await replan_probe(True)}
-        probe.update(cold=await replan_probe(False), warm=await replan_probe(True))
-        pass2, outs2, calls2 = await run_pass()
+        async def probe_rounds(exclusion) -> dict:
+            # The first round builds each exclusion set's grammar; the
+            # timed rounds after it find them cached.
+            out = {"first": await replan_probe(True, exclusion)}
+            out.update(cold=await replan_probe(False, exclusion), warm=await replan_probe(True, exclusion))
+            return out
+
+        pass1, outs1, plans1 = await run_pass()
+        probe = await probe_rounds(rendered_exclusion)
+        bench_probe = await probe_rounds(lambda plan: plan.nodes[0].service)
+        pass2, outs2, plans2 = await run_pass()
         keys = ("graph", "results", "errors", "status", "replans")
-        differ = [i for i, (a, b) in enumerate(zip(outs1, outs2)) if any(a[k] != b[k] for k in keys)]
-        diverged, unexplained = compare_passes(intents, calls1, calls2, differ)
+        differ = [
+            i for i, (a, b) in enumerate(zip(outs1, outs2))
+            if any(a[k] != b[k] for k in keys) or plans1[i] != plans2[i]
+        ]
+
+        def first_difference(i: int) -> dict:
+            """The first plan of call ``i`` that differs between the passes:
+            its index, whether the plan or only its prompt differs, and the
+            two prompts from 40 characters before they part."""
+            k = next((k for k, (a, b) in enumerate(zip(plans1[i], plans2[i])) if a != b), None)
+            if k is None:
+                return {"executions": [len(plans1[i]), len(plans2[i])]}
+            (j1, ids1), (j2, ids2) = plans1[i][k], plans2[i][k]
+            t1, t2 = tok.decode(ids1 or []), tok.decode(ids2 or [])
+            at = max(0, next((c for c, (x, y) in enumerate(zip(t1, t2)) if x != y), min(len(t1), len(t2))) - 40)
+            return {"execution": k, "plan_differs": j1 != j2, "prompts": [t1[at:at + 120], t2[at:at + 120]]}
+
         stats = dict(
             model=size, kv_page_size=16, max_pages_per_seq=16, failing_services=sorted(failing),
-            endpoints_called=len(calls), pass1=pass1, replan_probe=probe, pass2=pass2,
-            pass_differ=differ, telemetry_diverged=diverged, unexplained=unexplained,
+            endpoints_called=len(calls), pass1=pass1, replan_probe=probe,
+            replan_probe_first_service=bench_probe, pass2=pass2, pass_differ=differ,
             differing=[
-                {k: [o[k] if k != "graph" else [n["service"] for n in o[k]["nodes"]] for o in (outs1[i], outs2[i])]
-                 for k in keys}
+                {**{k: [o[k] if k != "graph" else [n["service"] for n in o[k]["nodes"]] for o in (outs1[i], outs2[i])]
+                    for k in keys}, "first_difference": first_difference(i)}
                 for i in differ
             ],
         )
@@ -1180,12 +1225,13 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
             raise SystemExit(f"execute_{size}: no warm replan ran a suffix prefill: {probe}")
         if cuda and probe["warm"]["suffix_prefill_launches"] <= 0:
             raise SystemExit(f"execute_{size}: warm replans' suffix prefills launched no kernel: {probe}")
-        if pass1["pins_left"] or pass2["pins_left"]:
-            raise SystemExit(f"execute_{size}: pins left after a pass: {pass1['pins_left']} {pass2['pins_left']}")
+        for p in (pass1, pass2):
+            if p["pins_left"] or p["pinned_nodes_left"]:
+                raise SystemExit(f"execute_{size}: pins left after a pass: {p['pins_left']} {p['pinned_nodes_left']}")
         if pass2["captures"]:
             raise SystemExit(f"execute_{size}: the repeat captured {pass2['captures']} windows")
-        if size == "test" and unexplained:
-            raise SystemExit(f"execute_{size}: the two passes differ without cause: {unexplained}")
+        if size == "test" and differ:
+            raise SystemExit(f"execute_{size}: the two passes differ at {differ}")
         return stats
     finally:
         await cp.aclose()

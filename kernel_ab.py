@@ -43,8 +43,8 @@ def child(tree: str, run: int) -> None:
     )
 
     card = cs.card_line()
-    for cell, G, hd, L, live in cs.CELLS:
-        q, kp, vp, table, starts, q_lens = cs.cell_batch(0, G, hd, L, live)
+    for cell, G, hd, L, live, psz, pmax in cs.CELLS:
+        q, kp, vp, table, starts, q_lens = cs.cell_batch(0, G, hd, L, live, psz, pmax)
         try:
             out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, L - 1)
         except EngineError as e:

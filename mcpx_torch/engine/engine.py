@@ -165,6 +165,15 @@ class _UnpinPrefixOp:
 
 
 @dataclasses.dataclass
+class _DropUnpinnedOp:
+    """Worker-queue op: evict every radix run no row or caller pins;
+    resolves ``future`` with the nodes left."""
+
+    future: "asyncio.Future[int]"
+    loop: asyncio.AbstractEventLoop
+
+
+@dataclasses.dataclass
 class GenerateResult:
     token_ids: list[int]
     text: str
@@ -541,6 +550,24 @@ class InferenceEngine:
             return
         self._queue.put(_UnpinPrefixOp(handle))
 
+    async def drop_unpinned(self) -> int:
+        """Evict every radix run that no resident row and no ``pin_prefix``
+        caller holds, and return the nodes left in the tree (the pinned
+        ones). The worker applies it between segments, as it applies every
+        change to the tree; with no worker running it applies at once."""
+        if self._thread is None or not self._thread.is_alive():
+            return self._drop_unpinned()
+        loop = asyncio.get_running_loop()
+        fut: "asyncio.Future[int]" = loop.create_future()
+        self._queue.put(_DropUnpinnedOp(fut, loop))
+        return await fut
+
+    def _drop_unpinned(self) -> int:
+        self._prefix_cache.max_nodes = 0
+        self._prefix_cache.evict()
+        self._evict_prefixes()  # the node cap back to the live config's
+        return self._prefix_cache.n_nodes
+
     def prompt_capacity(self, max_new_tokens: int = 0, shared_prefix_len: int = 0) -> int:
         """Longest prompt (in tokens) the engine serves beside a
         ``max_new_tokens`` decode budget: the page-capacity and
@@ -776,6 +803,8 @@ class InferenceEngine:
                 r.loop.call_soon_threadsafe(_resolve, r.future, None, closed)
             elif isinstance(r, _PinPrefixOp):
                 r.loop.call_soon_threadsafe(_resolve, r.future, None, None)
+            elif isinstance(r, _DropUnpinnedOp):
+                r.loop.call_soon_threadsafe(_resolve, r.future, self._drop_unpinned(), None)
 
     def _drain_queue(self, pending: "deque[GenerateRequest]", block: bool) -> None:
         """Move queued requests into ``pending``. When idle, wait for the
@@ -810,15 +839,18 @@ class InferenceEngine:
                     pending.append(item)
 
     def _apply_prefix_op(self, item: Any) -> bool:
-        """Apply a pin or unpin riding the request queue; returns whether
-        ``item`` was one. Pins travel through the queue so that only the
-        worker changes the tree."""
+        """Apply a pin, an unpin or a drop riding the request queue; returns
+        whether ``item`` was one. They travel through the queue so that only
+        the worker changes the tree."""
         if isinstance(item, _PinPrefixOp):
             node = self._prefix_cache.lookup(item.ids)
             if node is not None:
                 node.refs += 1
                 self._stats["prefix_pins"] += 1
             item.loop.call_soon_threadsafe(_resolve, item.future, node, None)
+            return True
+        if isinstance(item, _DropUnpinnedOp):
+            item.loop.call_soon_threadsafe(_resolve, item.future, self._drop_unpinned(), None)
             return True
         if isinstance(item, _UnpinPrefixOp):
             # A node dropped since the pin (drop_all after a failed

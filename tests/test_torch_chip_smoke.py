@@ -1,5 +1,7 @@
-"""The kernel phase's least-time count (``chip_smoke.attention_bound``):
-it charges what the function needs, no more."""
+"""Pieces of ``chip_smoke.py`` that run without a card: the kernel phase's
+least-time count (``attention_bound``: it charges what the function needs,
+no more), and the execute phase's prompt checks, failing transport,
+rounds of executions (``Lockstep``) and probe exclusion."""
 
 import os
 import sys
@@ -78,46 +80,59 @@ def test_failing_transport_fails_every_endpoint_of_a_failing_service():
     assert ok["inputs"] == ["a", "b"] and len(calls) == 1 + 1 + len(bad.fallbacks)
 
 
-def test_compare_passes_traces_differences_to_telemetry():
-    """Two passes' planner calls: an equal prompt must give an equal plan;
-    a differing prompt passes only when its exclusions or the features of a
-    service it renders differed."""
-    from mcpx_torch.core.dag import Plan
+def test_lockstep_runs_executions_in_rounds():
+    """Calls that plan for different times before each execution (the
+    slowest first): each round waits for every running call, runs its
+    executions one at a time in call order after ``settle``, and releases
+    none before all have run; each call's executions are kept under its
+    trace id."""
+    import asyncio
+    from types import SimpleNamespace
 
-    def plan(service: str, ids: list, shown=("a", "b")) -> Plan:
-        p = Plan.from_wire({"nodes": [{"name": service}], "edges": []})
-        p.prompt_ids, p.prompt_services = ids, list(shown)
-        return p
+    log = []
 
-    f0 = {"a": "err=0.00 p50=0"}
-    f1 = {"a": "err=1.00 p50=0"}
-    same = [(set(), {}, plan("a", [1, 2])), ({"a"}, f0, plan("b", [1, 3]))]
-    cases = {
-        "equal": ([(set(), {}, plan("a", [1, 2])), ({"a"}, f0, plan("b", [1, 3]))], [], [], []),
-        "same prompt, another plan": (
-            [(set(), {}, plan("b", [1, 2])), ({"a"}, f0, plan("b", [1, 3]))], [0], [],
-            ["same prompt, another plan"],
-        ),
-        "same inputs, another prompt": (
-            [(set(), {}, plan("a", [1, 2])), ({"a"}, f0, plan("c", [1, 4]))], [0], [],
-            ["same inputs, another prompt"],
-        ),
-        "features of a shown service": (
-            [(set(), {}, plan("a", [1, 2])), ({"a"}, f1, plan("c", [1, 4]))], [0], [0], [],
-        ),
-        "features of a service not shown": (
-            [(set(), {}, plan("a", [1, 2])), ({"a"}, {**f0, "z": "err=1.00 p50=0"}, plan("c", [1, 4]))],
-            [0], [], ["same inputs, another prompt"],
-        ),
-        "exclusions": (
-            [(set(), {}, plan("a", [1, 2])), ({"a", "b"}, f0, plan("c", [1, 4]))], [0], [0], [],
-        ),
-        "outputs differ, prompts equal": (same, [0], [], ["outputs or planner calls differ with every prompt equal"]),
-    }
-    for name, (calls2, differ, want_diverged, want_reasons) in cases.items():
-        diverged, unexplained = chip_smoke.compare_passes(["x"], {"x": same}, {"x": calls2}, differ)
-        assert diverged == want_diverged, name
-        assert [r for _, _, r in unexplained] == want_reasons, name
+    class Inner:
+        async def execute(self, plan, payload, trace=None):
+            log.append(("start", trace.trace_id, payload["round"]))
+            await asyncio.sleep(payload["hold"])
+            log.append(("end", trace.trace_id, payload["round"]))
+            return SimpleNamespace(trace=trace, errors={})
+
+        async def aclose(self):
+            pass
+
+    settled = []
+
+    async def settle():
+        settled.append(len(log))
+
+    lockstep = chip_smoke.Lockstep(Inner(), settle)
+
+    async def call(name: str, planning: list):
+        trace = SimpleNamespace(trace_id=name)
+        for r, t in enumerate(planning):
+            await asyncio.sleep(t)  # the plan or replan
+            await lockstep.execute(None, {"round": r, "hold": 0.01 * (len(name) % 3)}, trace)
+            log.append(("back", name, r))
+        return name
+
+    calls = {"a": [0.03], "bb": [0.02, 0.0], "ccc": [0.0, 0.05, 0.0]}
+    done = asyncio.run(lockstep.run(call(n, p) for n, p in calls.items()))
+    assert done == list(calls) and lockstep.running == 0
+    assert {k: len(v) for k, v in lockstep.executions.items()} == {"a": 1, "bb": 2, "ccc": 3}
+    # One round a settle; in a round the executions run one at a time in
+    # call order, and the next round starts after the whole round.
+    runs = [e for e in log if e[0] != "back"]
+    assert runs == [
+        ("start", "a", 0), ("end", "a", 0), ("start", "bb", 0), ("end", "bb", 0),
+        ("start", "ccc", 0), ("end", "ccc", 0),
+        ("start", "bb", 1), ("end", "bb", 1), ("start", "ccc", 1), ("end", "ccc", 1),
+        ("start", "ccc", 2), ("end", "ccc", 2),
+    ]
+    for r in range(3):
+        last_end = max(i for i, e in enumerate(log) if e[0] == "end" and e[2] == r)
+        assert all(i > last_end for i, e in enumerate(log) if e[0] == "back" and e[2] == r)
+        assert settled[r] == min(i for i, e in enumerate(log) if e[0] == "start" and e[2] == r)
 
 
 def test_probe_excludes_a_service_the_prompt_renders():
@@ -128,7 +143,7 @@ def test_probe_excludes_a_service_the_prompt_renders():
         p.prompt_services = rendered
         return p
 
-    assert chip_smoke.probe_exclusion(plan(["a", "b"], ["b", "a"])) == ("a", True)
-    assert chip_smoke.probe_exclusion(plan(["x", "b"], ["c", "b"])) == ("b", False)
-    assert chip_smoke.probe_exclusion(plan(["x", "y"], ["c", "b"])) == ("c", False)
-    assert chip_smoke.probe_exclusion(plan(["x"], None)) == ("x", True)
+    assert chip_smoke.rendered_exclusion(plan(["a", "b"], ["b", "a"])) == "a"
+    assert chip_smoke.rendered_exclusion(plan(["x", "b"], ["c", "b"])) == "b"
+    assert chip_smoke.rendered_exclusion(plan(["x", "y"], ["c", "b"])) == "c"
+    assert chip_smoke.rendered_exclusion(plan(["x"], None)) == "x"

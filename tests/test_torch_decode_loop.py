@@ -169,16 +169,9 @@ def make_engine(**engine):
     return InferenceEngine(cfg, device="cpu")
 
 
-def release_prefix_cache(eng) -> None:
-    cap = eng.config.engine.prefix_cache_entries
-    eng.config.engine.prefix_cache_entries = 0
-    eng._evict_prefixes()
-    eng.config.engine.prefix_cache_entries = cap
+async def assert_no_leak(eng) -> None:
+    await eng.drop_unpinned()
     eng._prefix_cache.check_invariants()
-
-
-def assert_no_leak(eng) -> None:
-    release_prefix_cache(eng)
     stats = eng._allocator.stats()
     assert stats.sequences == 0
     eng._allocator.check_invariants()
@@ -262,7 +255,7 @@ def test_draft_speculation_concurrent_rows_allocator_clean():
             results = await asyncio.gather(*(eng.generate(p, max_new_tokens=32) for p in prompts))
             for r in results:
                 assert eng.grammar.walk(r.text) != eng.grammar.dead_state
-            assert_no_leak(eng)
+            await assert_no_leak(eng)
         finally:
             await eng.aclose()
 
@@ -285,7 +278,7 @@ def test_pipeline_depths_agree():
                 tasks.append(asyncio.create_task(eng.generate(p, max_new_tokens=24 + 8 * (i % 3))))
                 await asyncio.sleep(0.03 * (i % 2))
             results = await asyncio.gather(*tasks)
-            assert_no_leak(eng)
+            await assert_no_leak(eng)
             return [r.text for r in results]
         finally:
             await eng.aclose()
@@ -345,7 +338,7 @@ def test_generation_guard_keeps_a_lagged_flag_off_the_next_request():
                 eng._harvest(slab, keep_inflight=1)
                 loop.run_until_complete(asyncio.sleep(0))
             assert b.future.result().text == want
-            assert_no_leak(eng)
+            loop.run_until_complete(assert_no_leak(eng))
     finally:
         loop.close()
 

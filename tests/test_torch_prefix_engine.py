@@ -258,8 +258,7 @@ def test_pin_api_holds_a_run_under_eviction_and_stats_report_reuse():
             pin = await eng.pin_prefix(prompt)
             assert pin is not None and pin.refs == 1
             assert eng.queue_stats()["prefix_pins"] == 1
-            eng.config.engine.prefix_cache_entries = 0
-            eng._evict_prefixes()
+            assert await eng.drop_unpinned() > 0  # the pinned run stays
             assert eng._prefix_cache.probe(prompt) > 0
             eng.unpin_prefix(pin)
             for _ in range(100):
@@ -267,7 +266,7 @@ def test_pin_api_holds_a_run_under_eviction_and_stats_report_reuse():
                 if pin.refs == 0:
                     break
             assert pin.refs == 0 and eng.queue_stats()["prefix_pins"] == 0
-            eng._evict_prefixes()
+            assert await eng.drop_unpinned() == 0
             assert eng._prefix_cache.n_nodes == 0 and eng._allocator.stats().sequences == 0
             eng._allocator.check_invariants()
             late = await eng.pin_prefix(prompt)  # nothing resident: no pin
