@@ -28,7 +28,10 @@ Phases, one line each (every number beside the card's name and power limit):
      segment with live rows, ``graph_window``: from one snapshot of the
      slab state and KV pools, the window run eagerly and by replay of its
      graph in turns, every buffer and pool byte equal, with host ms and
-     device ms per window for both routes;
+     device ms per window for both routes. The first burst is traced, runs
+     with a ``WorkerProfiler`` attached, and prints its latency
+     attribution, its worker-loop breakdown and the executable keys it ran
+     for the first time;
   6. serve at full width: the 2b preset (random weights from seed 0), 8
      concurrent /plan requests, the same settings and checks;
   7. decode-loop modes, on the engines of phases 5 and 6: the burst's
@@ -45,7 +48,22 @@ Phases, one line each (every number beside the card's name and power limit):
      idle slab). Every plan valid, the same plans in both modes, tree hits
      and suffix prefills through the kernel, and fewer prefill tokens per
      request with the cache on;
-  9. execute (``execute_test``, ``execute_2b``): ``plan_and_execute`` on
+  9. telemetry (``telemetry_test``, ``telemetry_2b``), on the same engines:
+     the burst's intents once more with a fresh ``Tracer`` (every trace
+     kept) and a ``WorkerProfiler`` attached live, each request under a
+     root span as the reference bench's traced rounds run it. Fails unless
+     every plan equals the burst's, every trace holds ``plan``,
+     ``engine.generate``, ``engine.queue_wait``, ``engine.prefill``,
+     ``engine.decode`` and an ``engine.segment``, nothing is captured, the
+     ``mcpx_engine_decode_forwards_total`` delta equals the live forwards',
+     the profile's phases tile the worker's wall within 5%, the metrics
+     exposition parses with the reference's 71 families, and the achieved
+     FLOP/s of the ``/costs`` totals over the phase wall is at or below the
+     card's datasheet peak. Prints the latency attribution by phase, the
+     planner's time outside the engine, the worker profile, the achieved
+     rates, the HBM gauges, and the burst's p50 with telemetry on and off
+     in three interleaved pairs;
+ 10. execute (``execute_test``, ``execute_2b``): ``plan_and_execute`` on
      each configuration's intents at once, over in-process services of
      which the first service of every other intent's plan always fails, so
      that plans are replanned around them with the plan's prompt prefix
@@ -437,10 +455,12 @@ async def serve(
     after=None,
 ) -> tuple[dict, list, object]:
     """Serve ``n_intents`` concurrent /plan requests on a fresh control
-    plane; then, on the same engine, ``after(cp, records, intents)`` when
-    given. Returns (stats, plans, what ``after`` returned)."""
+    plane; then, on the same engine, ``after(cp, records, intents, plans)``
+    when given. Returns (stats, plans, what ``after`` returned)."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.telemetry.flight import WorkerProfiler
+    from mcpx_torch.telemetry.tracing import Tracer
     from mcpx_torch.utils.synth import intent_for, synth_registry
 
     cp = build_control_plane(config(size, checkpoint, batch))  # device=None: the card
@@ -455,15 +475,23 @@ async def serve(
         intents = [intent_for(records, rng) for _ in range(n_intents)]
         engine = cp.planner.engine
         q0 = engine.queue_stats()
+        c0 = engine.costs.snapshot()["executables"]
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_kernel_launches()
+        # The first burst traced, with the worker-loop profiler attached
+        # (the telemetry phases print p50 with and without both).
+        tracer = Tracer(enabled=True, sample_rate=1.0, ring_size=max(256, n_intents))
+        engine._profiler = prof = WorkerProfiler()
         t0 = time.monotonic()
-        results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+        try:
+            plans, recs = await traced_burst(cp, intents, tracer)
+        finally:
+            engine._profiler = None
         wall = time.monotonic() - t0
         launches = kernel_launches()
-        plans = [p for p, _ in results]
-        lat = sorted(ms for _, ms in results)
+        await settle_profile()
+        lat = sorted(r.total_ms for r in recs)
         for p in plans:
             p.validate()
         stats = dict(
@@ -477,6 +505,11 @@ async def serve(
             **loop_counts(engine, q0, engine.queue_stats(), n_intents),
             origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
             launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
+            worker_profile=profile_summary(prof.snapshot()),
+            attribution=attribution(recs),
+            # Executable keys the burst ran for the first time (the
+            # sentinel's compiles): eager prefill and sampling shapes too.
+            first_sight=first_sight(c0, engine.costs.snapshot()["executables"]),
         )
         emit(f"serve_{size}", card, **stats)
         await repeat_with_graph_window(cp, intents, size, card)
@@ -492,7 +525,7 @@ async def serve(
             emit(f"profile_{size}", card, **device_breakdown(prof, wall),
                  **loop_counts(engine, q1, engine.queue_stats(), n_intents))
             no_new_captures(f"profile_{size}", q1, engine.queue_stats())
-        extra = await after(cp, records, intents) if after is not None else None
+        extra = await after(cp, records, intents, plans) if after is not None else None
         return stats, plans, extra
     finally:
         await cp.aclose()
@@ -876,6 +909,256 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
     if not on["prefill_tokens_per_request"] < off["prefill_tokens_per_request"]:
         raise SystemExit(f"serve_prefix_{size}: the cache did not cut prefill tokens: {off} {on}")
     return {"off": off, "on": on}
+
+
+# ------------------------------------------------------------ telemetry
+# Latency attribution phases: the reference bench's (span names whose
+# durations add up to each phase of a request).
+ATTR_PHASES = {
+    "sched_queue": ("sched.acquire",),
+    "engine_queue": ("engine.queue_wait",),
+    "prefill": ("engine.prefill",),
+    "decode": ("engine.decode",),
+    "tools": ("attempt",),
+}
+TRACE_SPANS = ("plan", "engine.generate", "engine.queue_wait", "engine.prefill", "engine.decode")
+METRIC_LINE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*\})? (\S+)$'
+)
+
+
+def quantile(vals: list, p: float) -> float:
+    """The bench's quantile: the element at ``p`` of the sorted values."""
+    vs = sorted(vals)
+    return vs[min(len(vs) - 1, int(p * (len(vs) - 1)))]
+
+
+def attribution(recs: list) -> dict:
+    """p50/p99 per phase of the traced requests and each phase's share of
+    the p50 request, as the reference bench attributes latency; plus the
+    planner's time outside the engine (``plan`` minus its
+    ``engine.generate`` spans) and, within it, the ``plan.context`` spans
+    (registry version, retrieval shortlist)."""
+    rows = []
+    for rec in recs:
+        phases = {k: 0.0 for k in ATTR_PHASES}
+        for sp in rec.spans:
+            for key, names in ATTR_PHASES.items():
+                if sp.name in names:
+                    phases[key] += sp.duration_ms
+        plan_ms = sum(sp.duration_ms for sp in rec.spans if sp.name == "plan")
+        gen_ms = sum(sp.duration_ms for sp in rec.spans if sp.name == "engine.generate")
+        phases["planner_outside_engine"] = plan_ms - gen_ms
+        phases["plan_context"] = sum(sp.duration_ms for sp in rec.spans if sp.name == "plan.context")
+        phases["total"] = rec.total_ms
+        rows.append(phases)
+    keys = [*ATTR_PHASES, "planner_outside_engine", "plan_context", "total"]
+    p50 = {k: quantile([r[k] for r in rows], 0.5) for k in keys}
+    p99 = {k: quantile([r[k] for r in rows], 0.99) for k in keys}
+    tot = max(1e-9, p50["total"])
+    return {"traces": len(rows), "p50_ms": p50, "p99_ms": p99,
+            "share_p50": {k: p50[k] / tot for k in keys[:-1]}}
+
+
+def parse_exposition(text: str) -> dict:
+    """The Prometheus text exposition as {(name, labels): value}; fails on
+    a line that is neither a comment nor a sample, and on a sample whose
+    family has no TYPE line."""
+    out: dict = {}
+    typed: set = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            typed.add(line.split()[2])
+            continue
+        if line.startswith("#") or not line:
+            continue
+        m = METRIC_LINE.match(line)
+        if m is None:
+            raise SystemExit(f"metrics exposition: unparsable line {line!r}")
+        name, labels, value = m.group(1), m.group(2) or "", m.group(3)
+        family = re.sub(r"_(bucket|count|sum)$", "", name)
+        if name not in typed and family not in typed:
+            raise SystemExit(f"metrics exposition: {name} has no TYPE line")
+        out[(name, labels)] = float(value)
+    return out
+
+
+def metric(parsed: dict, name: str, labels: str = "") -> float:
+    return parsed.get((name, labels), 0.0)
+
+
+def profile_summary(profile: dict) -> dict:
+    """A ``WorkerProfiler.snapshot()`` as one line: the worker's wall, the
+    attributed fraction, and each phase's total, share and p50 lap."""
+    from mcpx_torch.telemetry.flight import PROFILE_PHASES
+
+    ph = profile["phases"]
+    return {
+        "wall_s": profile["wall_s"], "attributed_frac": profile["attributed_frac"],
+        "iterations": profile["iterations"],
+        "total_s": {p: ph[p]["total_s"] for p in PROFILE_PHASES},
+        "share": {p: ph[p]["share"] for p in PROFILE_PHASES},
+        "p50_us": {p: ph[p]["p50_us"] for p in PROFILE_PHASES},
+    }
+
+
+def first_sight(before: dict, after: dict) -> dict:
+    """Executable keys seen for the first time between two ``/costs``
+    snapshots, by executable."""
+    out = {}
+    for name, e in after.items():
+        n = e["compiles"] - before.get(name, {}).get("compiles", 0)
+        if n:
+            out[name] = n
+    return out
+
+
+async def settle_profile() -> None:
+    """After a profiler's detach, let the worker end the iteration it was
+    in: every carve of an iteration is followed by a lap of the same
+    iteration, so a snapshot taken then has no carve outside its wall."""
+    await asyncio.sleep(0.2)
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+async def traced_burst(cp, intents: list, tracer) -> tuple[list, list]:
+    """Each intent through ``ControlPlane.plan`` under a root span of
+    ``tracer`` (as the reference bench's traced rounds: the card has no
+    aiohttp); returns (plans, trace records) in intent order."""
+    from mcpx_torch.telemetry import tracing
+
+    async def one(intent: str):
+        root = tracer.start_request("/plan", method="POST")
+        err = False
+        try:
+            with tracing.activate(root):
+                plan, _ = await cp.plan(intent, use_cache=False)
+            return plan, root.record
+        except Exception:
+            err = True
+            raise
+        finally:
+            tracer.finish(root, error=err)
+
+    out = await asyncio.gather(*(one(i) for i in intents))
+    return [p for p, _ in out], [r for _, r in out]
+
+
+async def timed_burst(cp, intents: list, telemetry: bool) -> float:
+    """p50 ms of one burst from an emptied tree, with a fresh tracer and
+    profiler attached (``telemetry``) or both detached."""
+    from mcpx_torch.telemetry.flight import WorkerProfiler
+    from mcpx_torch.telemetry.tracing import Tracer
+
+    engine = cp.planner.engine
+    await idle(engine)
+    await engine.drop_unpinned()
+    prev = cp.tracer, engine._profiler
+    try:
+        if telemetry:
+            cp.tracer, engine._profiler = Tracer(enabled=True, sample_rate=1.0), WorkerProfiler()
+            _, recs = await traced_burst(cp, intents, cp.tracer)
+            lat = [r.total_ms for r in recs]
+        else:
+            cp.tracer, engine._profiler = Tracer(enabled=False), None
+            lat = [ms for _, ms in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
+    finally:
+        cp.tracer, engine._profiler = prev
+    return statistics.median(lat)
+
+
+async def telemetry_phase(cp, intents: list, burst_plans: list, size: str, card: str) -> dict:
+    """The burst's intents once more, from an emptied tree, with a fresh
+    ``Tracer`` (every trace kept) and a ``WorkerProfiler`` attached to the
+    live control plane and engine. Fails unless every plan equals the
+    burst's, every trace holds the engine's spans, nothing is captured, the
+    decode-forward counter moves with ``live_forwards``, the profile's
+    phases tile the worker's wall within 5%, the exposition parses, and the
+    achieved FLOP/s of the ``/costs`` totals over the phase wall is at or
+    below the card's datasheet peak. Prints the latency attribution, the
+    planner's time outside the engine, the worker profile, the achieved
+    rates, the HBM gauges, and the burst's p50 with telemetry on and off in
+    three interleaved pairs (printed only: bursts spread about 60%)."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.telemetry.costs import device_peaks, rounded_roofline, update_hbm_gauges
+    from mcpx_torch.telemetry.flight import WorkerProfiler
+    from mcpx_torch.telemetry.tracing import Tracer
+
+    engine = cp.planner.engine
+    await idle(engine)
+    await engine.drop_unpinned()
+    prev = cp.tracer, engine._profiler
+    tracer = Tracer(enabled=True, sample_rate=1.0, ring_size=max(256, len(intents)))
+    prof = WorkerProfiler()
+    m0 = parse_exposition(cp.metrics.render().decode())
+    q0 = engine.queue_stats()
+    c0 = engine.costs.snapshot()["totals"]
+    sync()
+    reset_kernel_launches()
+    cp.tracer, engine._profiler = tracer, prof
+    try:
+        t0 = time.monotonic()
+        plans, recs = await traced_burst(cp, intents, tracer)
+        await idle(engine)
+        sync()
+        wall = time.monotonic() - t0
+    finally:
+        cp.tracer, engine._profiler = prev
+    await settle_profile()
+    profile = prof.snapshot()
+    launches = kernel_launches()
+    q1 = engine.queue_stats()
+    c1 = engine.costs.snapshot()["totals"]
+    update_hbm_gauges(cp.metrics)
+    m1 = parse_exposition(cp.metrics.render().decode())
+    families = sum(line.startswith("# TYPE ") for line in cp.metrics.render().decode().splitlines())
+    peaks = device_peaks()
+    flops = c1["flops_executed"] - c0["flops_executed"]
+    nbytes = c1["bytes_executed"] - c0["bytes_executed"]
+    rates = rounded_roofline(flops, nbytes, wall, peak_flops=peaks["flops_per_chip"],
+                             peak_bytes_s=peaks["hbm_bytes_s_per_chip"])
+    forwards_metric = (metric(m1, "mcpx_engine_decode_forwards_total")
+                       - metric(m0, "mcpx_engine_decode_forwards_total"))
+    hbm = {f"{n}{lb}": v for (n, lb), v in m1.items() if n.startswith("mcpx_hbm_bytes")}
+    pairs = []
+    for on in (True, False, False, True, True, False):
+        pairs.append((on, await timed_burst(cp, intents, on)))
+    q2 = engine.queue_stats()
+    span_names = [sorted({sp.name for sp in r.spans}) for r in recs]
+    segments = [sum(sp.name == "engine.segment" for sp in r.spans) for r in recs]
+    stats = dict(
+        model=size, intents=len(intents), wall_s=wall, plans_per_s=len(intents) / wall,
+        launches=launches, **loop_counts(engine, q0, q1, len(intents)),
+        decode_forwards_metric=forwards_metric, families=families,
+        attribution=attribution(recs),
+        worker_profile=profile_summary(profile),
+        flops=flops, bytes=nbytes, peaks={k: peaks[k] for k in ("flops_per_chip", "hbm_bytes_s_per_chip")},
+        roofline=rates, hbm=hbm, segment_spans=segments,
+        p50_ms_on=[ms for on, ms in pairs if on], p50_ms_off=[ms for on, ms in pairs if not on],
+        pair_captures=q2["captures"] - q1["captures"],
+    )
+    emit(f"telemetry_{size}", card, **stats)
+    differ = [i for i, (a, b) in enumerate(zip(burst_plans, plans)) if a.to_json() != b.to_json()]
+    if differ:
+        raise SystemExit(f"telemetry_{size}: plans differ from the burst's at {differ}")
+    missing = [i for i, names in enumerate(span_names) if not set(TRACE_SPANS) <= set(names)]
+    if missing or min(segments) < 1:
+        raise SystemExit(f"telemetry_{size}: incomplete traces at {missing}: {span_names}, segments {segments}")
+    no_new_captures(f"telemetry_{size}", q0, q2)
+    if forwards_metric != q1["live_forwards"] - q0["live_forwards"]:
+        raise SystemExit(f"telemetry_{size}: decode-forward counter {forwards_metric} "
+                         f"!= live forwards {q1['live_forwards'] - q0['live_forwards']}")
+    if not 0.95 <= profile["attributed_frac"] <= 1.05:
+        raise SystemExit(f"telemetry_{size}: the profile does not tile the worker wall: {profile}")
+    if families != 71:
+        raise SystemExit(f"telemetry_{size}: {families} metric families, expected the reference's 71")
+    if peaks["flops_per_chip"] is not None and not rates.get("mfu", 0.0) <= 1.0:
+        raise SystemExit(f"telemetry_{size}: achieved FLOP/s above the datasheet peak: {rates}")
+    return stats
 
 
 # ------------------------------------------------------------ execute path
@@ -1262,13 +1545,14 @@ def main(argv: list[str]) -> int:
     rows = kernel_phase(card)
     forward_check(card)
 
-    async def modes_then_prefix(cp, recs, intents, size: str, n_unique: int):
+    async def on_the_engine(cp, recs, intents, plans, size: str, n_unique: int):
         modes = await serve_modes(cp, intents, size, card, trained=size == "test", profile=args.profile)
-        return modes, await prefix_reuse(cp, recs, size, n_unique, 4, card)
+        pfx = await prefix_reuse(cp, recs, size, n_unique, 4, card)
+        return modes, pfx, await telemetry_phase(cp, intents, plans, size, card)
 
-    trained, _, (trained_modes, trained_pfx) = asyncio.run(serve(
+    trained, _, (trained_modes, trained_pfx, trained_tel) = asyncio.run(serve(
         "test", CKPT, 16, card, batch=64, profile=args.profile,
-        after=lambda cp, recs, intents: modes_then_prefix(cp, recs, intents, "test", 8),
+        after=lambda cp, recs, intents, plans: on_the_engine(cp, recs, intents, plans, "test", 8),
     ))
     if trained["origins"] != {"llm": 16}:
         raise SystemExit(f"trained checkpoint: not every plan is LLM-authored: {trained['origins']}")
@@ -1278,15 +1562,15 @@ def main(argv: list[str]) -> int:
     for mode in ("off", "on"):
         if trained_pfx[mode]["origins"] != {"llm": 32}:
             raise SystemExit(f"serve_prefix_test {mode}: not every plan is LLM-authored")
-    full, _, (full_modes, full_pfx) = asyncio.run(serve(
+    full, _, (full_modes, full_pfx, full_tel) = asyncio.run(serve(
         "2b", "", 8, card, batch=64, profile=args.profile,
-        after=lambda cp, recs, intents: modes_then_prefix(cp, recs, intents, "2b", 4),
+        after=lambda cp, recs, intents, plans: on_the_engine(cp, recs, intents, plans, "2b", 4),
     ))
     executed = [
         asyncio.run(execute_phase("test", CKPT, 16, card, batch=64)),
         asyncio.run(execute_phase("2b", "", 8, card, batch=64)),
     ]
-    runs = [trained, full, *trained_modes, *full_modes] + [
+    runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
     ] + [ex[p] for ex in executed for p in ("pass1", "pass2")]
     for name in KERNELS:

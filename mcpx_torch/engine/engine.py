@@ -58,10 +58,21 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
     uploads go through fresh pinned blocks, so a queued segment always
     reads the state its dispatch saw.
 
+Telemetry, at the reference's sites and names: the ``mcpx_engine_*`` and
+``mcpx_kv_prefix_*`` metrics (``metrics``, shared with the control plane),
+the worker thread's ``engine.queue_wait`` / ``engine.prefill`` /
+``engine.segment`` / ``engine.decode`` spans under the request's
+``engine.generate`` span (explicit timestamps, no contextvar crosses the
+thread), the cost registry (``costs``: analytic FLOPs and bytes per
+executable, and the capture sentinel) and the worker-loop profiler
+(``telemetry.flight.profile_worker``, attachable live). Every metric and
+span reads host values the worker already holds: telemetry adds no device
+synchronisation and nothing inside a captured window.
+
 Left out for later slices: the heterogeneous slab, speculative decoding
 with the recurrent drafter, int8 weights, ring prefill, the KV tier (host
-spill, tenant governance, warm heads from snapshots), multi-GPU, and
-telemetry. A config that asks for
+spill, tenant governance, warm heads from snapshots) and multi-GPU; their
+metric series exist and stay at 0. A config that asks for
 ``hetero_batch``, ``speculative``, ``kv_tier``, ``ring_prefill_min_tokens``
 or ``quantize="int8"`` is refused at construction.
 
@@ -107,6 +118,10 @@ from mcpx_torch.models.tokenizer import make_tokenizer
 from mcpx_torch.planner.grammar import _DIST_INF, PlanGrammar, _col_bucket, build_plan_grammar
 from mcpx_torch.scheduler.admission import ewma_update
 from mcpx_torch.scheduler.locality import locality_order
+from mcpx_torch.telemetry import tracing
+from mcpx_torch.telemetry.costs import CostRegistry, device_peaks, forward_cost, rounded_roofline
+from mcpx_torch.telemetry.flight import WorkerProfiler
+from mcpx_torch.telemetry.metrics import Metrics
 
 log = logging.getLogger("mcpx_torch.engine")
 
@@ -134,6 +149,11 @@ class GenerateRequest:
     deadline_at: Optional[float] = None
     # Tenant of the request; inert until cache governance is ported.
     tenant: str = "default"
+    # Tracing parent (telemetry/tracing.Span): the worker thread hangs the
+    # queue-wait / prefill / per-segment decode child spans off it with
+    # explicit timestamps. None (tracing off, no active trace) keeps the
+    # decode hot path free of tracing work.
+    span: Optional[Any] = None
 
     def prefix_key(self, page_size: int) -> Optional[tuple]:
         """Page-aligned shared prefix as the cache key (None = no sharing).
@@ -223,6 +243,15 @@ class _Slab:
         self.queue_ms = np.zeros((B,), np.float64)
         self.prefill_ms = np.zeros((B,), np.float64)
         self.t_decode0 = np.zeros((B,), np.float64)
+        # Traced rows only: tokens emitted as of the last harvest (the
+        # segment span's delta), the decode cost totals and the worker
+        # profile's phase totals at admission (the decode span's residency
+        # roofline and breakdown). n_traced counts the resident rows whose
+        # request carries a span: 0 keeps every tracing branch off.
+        self.emitted = np.zeros((B,), np.int64)
+        self.cost0 = np.zeros((B, 3), np.float64)
+        self.prof0: list[Optional[dict]] = [None] * B
+        self.n_traced = 0
         # The homogeneous slab's compatibility triple (reset when empty).
         self.constrained = True
         self.temperature = 0.0
@@ -320,11 +349,14 @@ class _Inflight:
     host buffer of its own (``out_buf`` rows, then emitted, then done, then
     the segment's live forwards, drafted and accepted tokens), the event
     after that copy (None on the CPU, where the copy is done when issued),
-    and the slab's generation counters at dispatch."""
+    the slab's generation counters at dispatch, and for segments with a
+    traced row the dispatch time and the segment's cost (FLOPs, bytes)."""
 
     host: torch.Tensor
     event: Optional["torch.cuda.Event"]
     gen: np.ndarray
+    t_disp: float = 0.0
+    cost: Optional[tuple[float, float]] = None
 
 
 # Host slots of the windows' all-done flags: the flag of window n is read
@@ -339,6 +371,7 @@ class InferenceEngine:
         model_cfg: Optional[GemmaConfig] = None,
         *,
         device: "torch.device | str | None" = None,
+        metrics: Optional[Metrics] = None,
     ) -> None:
         self.config = config or MCPXConfig()
         ecfg = self.config.engine
@@ -360,6 +393,34 @@ class InferenceEngine:
             vocab_size=self.tokenizer.vocab_size,
         )
         self.grammar: PlanGrammar = build_plan_grammar(self.tokenizer)
+        # The control plane's registry, so the engine's series land on the
+        # same /metrics surface as the API counters.
+        self.metrics = metrics or Metrics()
+        # Cost observatory (telemetry/costs.py): analytic costs per
+        # executable and the capture sentinel. Made here, not in _setup, so
+        # GET /costs can read an empty snapshot from a cold engine.
+        self.costs = CostRegistry(metrics=self.metrics, enabled=self.config.telemetry.cost_accounting)
+        # Datasheet peaks for span rooflines (None off a known card: spans
+        # then carry achieved rates without an mfu or bound claim).
+        self._peak_flops_total: Optional[float] = None
+        self._peak_bytes_total: Optional[float] = None
+        # Decode cost totals {flops, bytes, wall_s} of the segments
+        # harvested while a resident row was traced: the residency delta
+        # source of the engine.decode span's roofline. Worker thread only.
+        self._seg_cost_totals = {"flops": 0.0, "bytes": 0.0, "wall_s": 0.0}
+        # Worker-loop profiler (telemetry/flight.py). None = no clock reads
+        # on the loop; the worker re-reads the field every iteration, so a
+        # profiler can be attached to, or detached from, a live engine.
+        self._profiler: Optional[WorkerProfiler] = (
+            WorkerProfiler() if self.config.telemetry.flight.profile_worker else None
+        )
+        # The profiler the current iteration read: every lap and carve of
+        # one iteration goes to the same one, so an attach or detach in
+        # mid-iteration cannot carve time outside the laps' wall.
+        self._iter_prof: Optional[WorkerProfiler] = None
+        # Prefix-cache counters already published to the metrics (the cache
+        # itself stays metrics-free; the worker folds deltas).
+        self._prefix_seen = {"hits": 0, "misses": 0, "evictions": 0, "matched_tokens": 0}
         self.state = "cold"
         self._queue: "queue.Queue[Optional[GenerateRequest]]" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
@@ -384,6 +445,9 @@ class InferenceEngine:
         self._tickets_held = False
         self._seq_counter = 0
         self._last_admit_t = 0.0
+        # The cost entry of the last prefill run (worker thread only): the
+        # admission's engine.prefill spans read it.
+        self._pf_entry = None
         self._generator: Optional[torch.Generator] = None
         # Worker-thread counters, read cross-thread by queue_stats():
         # prefill_tokens counts the tokens every prefill computed (prefix
@@ -480,6 +544,9 @@ class InferenceEngine:
             self.state = "ready"
         if self.state != "ready":
             raise EngineError(f"engine not startable (state={self.state})")
+        # From here every new executable key is a capture in the serving
+        # path: the sentinel logs it at WARNING.
+        self.costs.arm()
 
     async def aclose(self) -> None:
         self.state = "closed"
@@ -514,21 +581,33 @@ class InferenceEngine:
             raise EngineError(f"engine not ready (state={self.state})")
         ecfg = self.config.engine
         loop = asyncio.get_running_loop()
-        req = GenerateRequest(
-            prompt_ids=list(prompt_ids),
-            max_new_tokens=max_new_tokens or ecfg.max_decode_len,
-            constrained=constrained,
-            temperature=ecfg.temperature if temperature is None else temperature,
-            future=loop.create_future(),
-            loop=loop,
-            enqueued_at=time.monotonic(),
-            grammar=grammar,
-            shared_prefix_len=shared_prefix_len,
-            deadline_at=deadline_at,
-            tenant=tenant,
-        )
-        self._queue.put(req)
-        return await req.future
+        with tracing.span(
+            "engine.generate", prompt_tokens=len(prompt_ids), constrained=constrained
+        ) as esp:
+            req = GenerateRequest(
+                prompt_ids=list(prompt_ids),
+                max_new_tokens=max_new_tokens or ecfg.max_decode_len,
+                constrained=constrained,
+                temperature=ecfg.temperature if temperature is None else temperature,
+                future=loop.create_future(),
+                loop=loop,
+                enqueued_at=time.monotonic(),
+                grammar=grammar,
+                shared_prefix_len=shared_prefix_len,
+                deadline_at=deadline_at,
+                tenant=tenant,
+                span=esp,
+            )
+            self._queue.put(req)
+            res = await req.future
+            if esp is not None:
+                esp.set(
+                    tokens=res.generated_tokens,
+                    queue_ms=round(res.queue_ms, 3),
+                    prefill_ms=round(res.prefill_ms, 3),
+                    decode_ms=round(res.decode_ms, 3),
+                )
+            return res
 
     async def pin_prefix(self, prompt_ids: list[int]) -> Optional[PrefixNode]:
         """Pin the deepest resident radix node whose path prefixes
@@ -604,6 +683,33 @@ class InferenceEngine:
         counters; CPU runs take the plain versions and count nothing)."""
         return kernel_launches()
 
+    def kernel_paths(self) -> dict:
+        """Per-path engagement of the ragged CUDA kernel, in the shape of
+        the reference's ``pallas_paths()`` (``GET /costs``): whether each
+        serving path that runs paged attention routes through the kernel
+        (the engine's device decides) and how often it ran, with the reason
+        where it does not or idles."""
+        on = self.device.type == "cuda"
+        blocked = None if on else f"device {self.device.type}: the plain PyTorch version"
+
+        def path(dispatches: int, idle: Optional[str]) -> dict:
+            return {"engaged": on, "dispatches": dispatches, "reason": blocked if not on else idle}
+
+        st = self._stats
+        return {
+            "enabled": on,
+            "interpret": False,
+            "reason": blocked,
+            "paths": {
+                "decode": path(st["segments"], None),
+                "prefill": path(
+                    st["suffix_prefills"],
+                    None if self.config.engine.prefix_cache else "idle: prefix_cache=off (no suffix prefills)",
+                ),
+                "spec_verify": path(0, "idle: speculative decoding off"),
+            },
+        }
+
     def prefix_cache_stats(self) -> dict:
         """Counter snapshot of the radix prefix cache; ``enabled`` is the
         live config flag."""
@@ -611,7 +717,12 @@ class InferenceEngine:
 
     def queue_stats(self) -> dict:
         slab = self._slab
+        # The worker-loop profile, present only while a profiler is
+        # attached (one read: a live detach must not race the use).
+        prof = self._profiler
+        extra = {"worker_profile": prof.snapshot()} if prof is not None else {}
         return {
+            **extra,
             "queue_depth": self._queue.qsize(),
             "active_rows": slab.n_active if slab is not None else 0,
             "kernel_launches": kernel_launches(),
@@ -714,6 +825,11 @@ class InferenceEngine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(time.time_ns() & 0x7FFFFFFF)
         cuda = self.device.type == "cuda"
+        if cuda:
+            # The span rooflines' denominators: one card's datasheet peaks.
+            pk = device_peaks()
+            self._peak_flops_total = pk["flops_per_chip"]
+            self._peak_bytes_total = pk["hbm_bytes_s_per_chip"]
         self._flag_host = torch.zeros((FLAG_SLOTS,), dtype=torch.bool, pin_memory=cuda)
         self._flag_np = self._flag_host.numpy()
         self._flag_events = [torch.cuda.Event() if cuda else None for _ in range(FLAG_SLOTS)]
@@ -732,6 +848,7 @@ class InferenceEngine:
         slab = self._slab
         slab.constrained, slab.temperature, slab.grammar = True, self.config.engine.temperature, None
         key, dfa = self._window_plan(slab)
+        self._record_window(key)
         self._capture(key, lambda: self._window(slab, key, dfa), serving=False)
 
     def _worker(self) -> None:
@@ -747,33 +864,79 @@ class InferenceEngine:
         pending: "deque[GenerateRequest]" = deque()
         with torch.inference_mode():
             while True:
+                # The profiler's laps tile each iteration into the
+                # reference's phases; it is re-read every iteration, so a
+                # live attach or detach lands at the next one.
+                prof = self._iter_prof = self._profiler
+                if prof is not None:
+                    prof.loop_tick()
                 self._drain_queue(
                     pending, block=not pending and slab.n_active == 0 and not self._inflight
                 )
+                if prof is not None:
+                    prof.lap("drain")
                 if self._stop:
                     break
+                self._refresh_queue_gauges(pending)
                 self._reap_cancelled(slab)
+                if prof is not None:
+                    prof.lap("host_bookkeeping")
                 try:
                     if pending and slab.n_active < slab.B:
                         self._admit(slab, pending)
+                        if prof is not None:
+                            prof.lap("admit")
                     if slab.n_active:
                         # Dispatch first, then harvest a lagged segment: its
                         # wait overlaps the segment just enqueued.
                         self._dispatch_segment(slab)
+                        if prof is not None:
+                            prof.lap("dispatch_submit")
                         self._harvest(slab, keep_inflight=max(0, self.config.engine.pipeline_depth - 1))
+                        if prof is not None:
+                            prof.lap("harvest")
                     elif self._inflight:
                         # Nothing resident by the host's view: drain what is
                         # in flight, so that blocking on the queue is safe.
                         self._harvest(slab, keep_inflight=0)
+                        if prof is not None:
+                            prof.lap("harvest")
                 except BaseException as e:  # keep the worker alive
                     log.exception("engine step failed; failing resident rows")
                     self._inflight.clear()
                     failed = self._release_rows(slab)
                     # The pools may hold partial writes: serve no cached KV.
                     # Every state change is made before a caller hears of it.
-                    self._prefix_cache.drop_all()
+                    self._drop_tree_after_failure()
                     _fail(failed, e)
             self._shutdown(slab, pending)
+
+    def _drop_tree_after_failure(self) -> None:
+        """After a failed device step: the pools may hold partial writes, so
+        the whole tree drops (the reference's pool reset, counted as one)."""
+        self._prefix_cache.drop_all()
+        self.metrics.engine_resets.inc()
+
+    def _refresh_queue_gauges(self, pending: "deque[GenerateRequest]") -> None:
+        """Publish the pending line's per-class depth and fold the prefix
+        cache's counters into the metrics as deltas. Worker thread only."""
+        m = self.metrics
+        n_cons = sum(1 for r in pending if r.constrained)
+        m.queue_depth_class.labels(cls="constrained").set(n_cons)
+        m.queue_depth_class.labels(cls="free").set(len(pending) - n_cons)
+        c = self._prefix_cache
+        seen = self._prefix_seen
+        for attr, metric in (
+            ("hits", m.prefix_hits),
+            ("misses", m.prefix_misses),
+            ("evictions", m.prefix_evictions),
+            ("matched_tokens", m.prefix_matched_tokens),
+        ):
+            cur = getattr(c, attr)
+            if cur > seen[attr]:
+                metric.inc(cur - seen[attr])
+            seen[attr] = cur
+        m.prefix_shared_pages.set(c.resident_tokens // max(1, c.page_size))
 
     def _shutdown(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
         """Harvest what the device already finished (a request one lagged
@@ -809,9 +972,18 @@ class InferenceEngine:
     def _drain_queue(self, pending: "deque[GenerateRequest]", block: bool) -> None:
         """Move queued requests into ``pending``. When idle, wait for the
         first arrival, then hold a 3 ms gather window so a burst forms one
-        admission cohort."""
+        admission cohort. The blocking waits are the profiler's ``idle``."""
+        prof = self._iter_prof
         try:
-            item = self._queue.get(timeout=0.05) if block else self._queue.get_nowait()
+            if block:
+                t_idle = prof.mark() if prof is not None else 0.0
+                try:
+                    item = self._queue.get(timeout=0.05)
+                finally:
+                    if prof is not None:
+                        prof.carve("idle", t_idle)
+            else:
+                item = self._queue.get_nowait()
         except queue.Empty:
             return
         first_arrival = item is not None and block
@@ -828,10 +1000,14 @@ class InferenceEngine:
         if first_arrival:
             deadline = time.monotonic() + 0.003
             while (remaining := deadline - time.monotonic()) > 0:
+                t_idle = prof.mark() if prof is not None else 0.0
                 try:
                     item = self._queue.get(timeout=remaining)
                 except queue.Empty:
                     return
+                finally:
+                    if prof is not None:
+                        prof.carve("idle", t_idle)
                 if item is None:
                     self._stop = True
                     return
@@ -866,6 +1042,7 @@ class InferenceEngine:
             r = slab.req[i]
             if r is not None and r.future.cancelled():
                 self._release_row(slab, i)
+                self.metrics.reaped_rows.inc()
 
     def _release_row(self, slab: _Slab, i: int) -> None:
         """Pages back to the allocator, the row's radix pins released, its
@@ -878,6 +1055,9 @@ class InferenceEngine:
             node.refs -= 1
         slab.prefix[i] = ()
         slab.prefix_toks[i] = 0
+        if slab.req[i] is not None and slab.req[i].span is not None:
+            slab.n_traced -= 1
+            slab.prof0[i] = None
         slab.req[i] = None
         slab.sid[i] = None
         slab.gen[i] += 1
@@ -892,6 +1072,8 @@ class InferenceEngine:
         d["emitted"][i] = 0
         d["budgets"][i] = 0
         d["cur"][i] = self.tokenizer.pad_id
+        self.metrics.kv_page_utilization.set(self._allocator.stats().utilization)
+        self.metrics.batch_occupancy.set(slab.n_active)
 
     def _release_rows(self, slab: _Slab) -> list[GenerateRequest]:
         """Release every resident row; returns their requests, for the
@@ -929,22 +1111,30 @@ class InferenceEngine:
             time.monotonic() - self._last_admit_t < ecfg.admit_max_wait_s
         ):
             return
+        prof = self._iter_prof
         if ecfg.prefix_cache:
+            t_ls = prof.mark() if prof is not None else 0.0
             self._locality_sort(slab, pending)
+            if prof is not None:
+                prof.carve("locality_sort", t_ls)
         head_req = next((r for r in pending if slab.compatible(r)), None)
         if head_req is None:
             return
         head_key = head_req.prefix_key(ecfg.kv_page_size) if ecfg.prefix_cache else None
         hold: Optional[PrefixNode] = None
         if head_key is not None:
+            t_pm = prof.mark() if prof is not None else 0.0
             try:
                 hold = self._ensure_prefix(head_key)
             except BaseException as e:  # the build's failure fails the residents
                 log.exception("prefix build failed; failing resident rows")
                 failed = self._release_rows(slab)
-                self._prefix_cache.drop_all()
+                self._drop_tree_after_failure()
                 _fail(failed, e)
                 return
+            finally:
+                if prof is not None:
+                    prof.carve("prefix_match", t_pm)
         if hold is not None:
             # Page-pressure eviction inside the cohort must not free the
             # head this admission wires into page tables.
@@ -1034,6 +1224,7 @@ class InferenceEngine:
             raise
         # The build is prefill work, counted once per resident head.
         self._stats["prefill_tokens"] += R
+        self.metrics.prefill_tokens.inc(R)
         cache.seal()
         node.refs -= 1  # drop the insert's pin; callers pin again
         return node
@@ -1049,6 +1240,10 @@ class InferenceEngine:
         """Full prefill of [A, T] prompts from position 0, its K/V scattered
         into the page pools; returns each row's last-token logits."""
         A, T = tokens_d.shape
+        cfg = self.model_cfg
+        self._pf_entry = self.costs.record("prefill", (A, T), lambda: forward_cost(
+            cfg, batch=A, width=T, context=T, unembed_rows=A, unembed_cols=cfg.vocab_size,
+        ))
         dense = init_kv_cache(self.model_cfg, A, T, device=self.device)
         last, dense = prefill(self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True)
         commit_prefill_to_pages(self._paged_kv, dense, table_d, lens_d, self.config.engine.kv_page_size)
@@ -1062,6 +1257,12 @@ class InferenceEngine:
         suffix write K/V in the row's private pages or the null page, which
         decode later overwrites or nothing reads. Returns each row's
         last-suffix-token logits."""
+        A, T = tokens_d.shape
+        cfg, ecfg = self.model_cfg, self.config.engine
+        self._pf_entry = self.costs.record("suffix_prefill", (A, T), lambda: forward_cost(
+            cfg, batch=A, width=T, context=ecfg.max_pages_per_seq * ecfg.kv_page_size,
+            unembed_rows=A, unembed_cols=cfg.vocab_size,
+        ))
         n0 = kernel_launches()["ragged_paged_attention"]
         last, _ = decode_chunk_paged(
             self._params, self.model_cfg, tokens_d, pos_d, table_d, self._paged_kv,
@@ -1137,6 +1338,8 @@ class InferenceEngine:
         # Plan under a T, recompute the T the plan needs, repeat while it
         # grows: T only grows, so this ends within len(eligible) passes of
         # read-only probes.
+        prof = self._iter_prof
+        t_pm = prof.mark() if prof is not None else 0.0
         T = eligible[0]
         while True:
             planned = []
@@ -1150,6 +1353,9 @@ class InferenceEngine:
             if need_T <= T:
                 break
             T = need_T
+        if prof is not None:
+            # The radix-probe fix-point is admission's prefix-matching cost.
+            prof.carve("prefix_match", t_pm)
 
         # Stage 3: match and pin, insert, allocate.
         cohort: list[tuple] = []  # (req, budget, ids, sid, pages, P, tree pages, mnode, inode)
@@ -1265,6 +1471,11 @@ class InferenceEngine:
         self._last_admit_t = t1
         self._stats["admissions"] += 1
         self._stats["prefill_tokens"] += int(seq_lens[:n].sum())
+        m = self.metrics
+        m.prefill_tokens.inc(int(seq_lens[:n].sum()))
+        m.admissions.inc()
+        m.admitted_rows.inc(n)
+        pf_entry = self._pf_entry
 
         rows = [free.pop(0) for _ in range(n)]
         for i, (r, _budget, _ids, sid, _pages, P, _tp, mnode, inode) in zip(rows, cohort):
@@ -1278,6 +1489,10 @@ class InferenceEngine:
             slab.queue_ms[i] = (t0 - r.enqueued_at) * 1e3
             slab.prefill_ms[i] = (t1 - t0) * 1e3
             slab.t_decode0[i] = t1
+            slab.emitted[i] = 0
+            m.hol_wait.observe(slab.queue_ms[i])
+            if r.span is not None:
+                self._trace_admission(slab, i, r, t0, t1, pf_entry)
         # Scatter the cohort's rows into the slab; bucket-padding lanes
         # (j >= n) are dropped, never written.
         idx = up(np.asarray(rows, np.int64))
@@ -1297,6 +1512,59 @@ class InferenceEngine:
         # New live rows: an all-done flag from before this admission must
         # not end the next segment.
         self._flags_from = self._window_seq
+        m.kv_page_utilization.set(self._allocator.stats().utilization)
+        m.batch_occupancy.set(slab.n_active)
+
+    def _trace_admission(self, slab: _Slab, i: int, r: GenerateRequest, t0: float, t1: float, pf_entry) -> None:
+        """A traced row's admission: its ``engine.queue_wait`` (enqueue to
+        admission start) and ``engine.prefill`` (admission start to the
+        cohort's first sample enqueued, with the cohort prefill's
+        roofline) spans, and the snapshots its ``engine.decode`` span will
+        delta against."""
+        slab.n_traced += 1
+        tot = self._seg_cost_totals
+        slab.cost0[i] = (tot["flops"], tot["bytes"], tot["wall_s"])
+        prof = self._iter_prof
+        if prof is not None:
+            slab.prof0[i] = prof.totals_copy()
+        r.span.child(
+            "engine.queue_wait", t0=r.enqueued_at, t1=t0,
+            cls="constrained" if r.constrained else "free", row=i,
+        )
+        pfx = (
+            {"prefix_matched_tokens": int(slab.prefix_toks[i]), "prefix_hit": bool(slab.prefix_toks[i] > 0)}
+            if self.config.engine.prefix_cache
+            else {}
+        )
+        r.span.child(
+            "engine.prefill", t0=t0, t1=t1, dfa_id=0, **pfx,
+            # The cohort prefill's roofline over the admission window: the
+            # whole cohort's cost, as the reference attributes it.
+            **self._span_roofline(
+                pf_entry.flops if pf_entry is not None else None,
+                pf_entry.bytes_accessed if pf_entry is not None else None,
+                t1 - t0,
+            ),
+        )
+
+    def _span_roofline(self, flops: Optional[float], nbytes: Optional[float], wall_s: float) -> dict:
+        """Rounded roofline attrs for engine spans: achieved FLOP/s and
+        bytes/s, arithmetic intensity and, with a known card's peaks, mfu,
+        bandwidth utilisation and the binding roof. Host-clock windows: with
+        pipelined segments they overlap, so per-span rates are upper
+        bounds; a phase's totals over its wall are the exact ones."""
+        rl = rounded_roofline(
+            flops, nbytes, wall_s,
+            peak_flops=self._peak_flops_total, peak_bytes_s=self._peak_bytes_total,
+        )
+        out: dict[str, Any] = {
+            k: rl[k]
+            for k in ("achieved_flops_s", "achieved_bytes_s", "arithmetic_intensity", "mfu", "hbm_bw_util")
+            if k in rl
+        }
+        if "bound" in rl:
+            out["roofline_bound"] = rl["bound"]
+        return out
 
     def _fail_admission(self, slab: _Slab, cohort: list[tuple], error: BaseException) -> None:
         """A failed admission prefill: the cohort's inserted nodes roll
@@ -1316,7 +1584,7 @@ class InferenceEngine:
             self._allocator.free(sid)
             failed.append(r)
         failed += self._release_rows(slab)
-        cache.drop_all()
+        self._drop_tree_after_failure()
         _fail(failed, error)
 
     def _first_sample(self, slab: _Slab, first_logits, budgets, active):
@@ -1328,6 +1596,9 @@ class InferenceEngine:
         tok = self.tokenizer
         ecfg = self.config.engine
         A = budgets.shape[0]
+        cols = first_logits.shape[-1]
+        # The first sample reads the cohort's logits: no matmul work.
+        self.costs.record("admit", (A, slab.constrained, cols), lambda: (0.0, 4.0 * A * cols))
         start = torch.zeros((A,), dtype=torch.int64, device=self.device)
         if slab.constrained:
             dfa = self._dfa_for(slab.grammar or self.grammar)
@@ -1362,7 +1633,11 @@ class InferenceEngine:
         slot = m % FLAG_SLOTS
         event = self._flag_events[slot]
         if event is not None:
+            prof = self._iter_prof
+            t_sync = prof.mark() if prof is not None else 0.0
             event.synchronize()
+            if prof is not None:
+                prof.carve("sync", t_sync)
         return bool(self._flag_np[slot])
 
     def _note_window(self, all_done: torch.Tensor) -> None:
@@ -1383,7 +1658,8 @@ class InferenceEngine:
         wider than one, else fast-forward. The key holds everything a
         captured window bakes in: the body, the temperature class (greedy,
         or the temperature and top-k, constants of the graph), the window
-        width, the batch, the grammar-table bucket and the forwards."""
+        width, the batch, the grammar-table bucket and the forwards. The
+        key is also the ``window`` executable's signature in ``costs``."""
         ecfg = self.config.engine
         constrained = slab.constrained
         chunk = self._spec_chunk(constrained)
@@ -1421,6 +1697,7 @@ class InferenceEngine:
         """Run one window: on the CPU eagerly; on CUDA by replaying its
         captured graph, capturing it first when the key is new (that first
         run is the capture's warm-up, eager on the capturing stream)."""
+        self._record_window(key)
         if self.device.type != "cuda":
             self._window(slab, key, dfa)
             return
@@ -1431,6 +1708,22 @@ class InferenceEngine:
         graph.replay()
         count_replay(self._graph_launches[key])
         self._stats["replays"] += 1
+
+    def _record_window(self, key: tuple) -> None:
+        """Count one run of the window ``key`` in ``costs``: the key's first
+        run is its capture on CUDA (its first eager run on the CPU). A
+        window's cost: its forwards over the whole slab at the window's
+        width, each row attending the page table's span; the draft body
+        unembeds every slot over the grammar's columns, the fast-forward
+        body one slot a row over the vocabulary."""
+        cfg, ecfg = self.model_cfg, self.config.engine
+        body, _temp, chunk, B, bucket, forwards = key
+        draft = body == "draft"
+        self.costs.record("window", key, lambda: forward_cost(
+            cfg, batch=B, width=chunk, context=ecfg.max_pages_per_seq * ecfg.kv_page_size,
+            unembed_rows=B * chunk if draft else B,
+            unembed_cols=bucket[1] if draft else cfg.vocab_size, forwards=forwards,
+        ))
 
     def _capture(self, key: tuple, fn, serving: bool) -> None:
         """Run ``fn`` once eagerly on the capturing stream (its real work,
@@ -1482,6 +1775,8 @@ class InferenceEngine:
         d = slab.dev
         d["counts"].zero_()
         n_win = 0
+        self.metrics.segments.inc()
+        self.metrics.segment_active_rows.inc(slab.n_active)
         for _ in range(max(1, self.config.engine.steps_per_dispatch)):
             if self._flag_says_all_done():
                 break
@@ -1497,7 +1792,15 @@ class InferenceEngine:
             event.record()
         else:
             host = packed
-        self._inflight.append(_Inflight(host, event, slab.gen.copy()))
+        rec = _Inflight(host, event, slab.gen.copy())
+        if slab.n_traced:
+            # Only a segment with a traced row reads the clock: its spans
+            # run from dispatch to harvest.
+            rec.t_disp = time.monotonic()
+            entry = self.costs.entry("window", key)
+            if entry is not None:
+                rec.cost = (entry.flops * n_win, entry.bytes_accessed * n_win)
+        self._inflight.append(rec)
         self._stats["segments"] += 1
         self._stats["windows"] += n_win
         self._stats["decode_forwards"] += n_win * key[5]
@@ -1690,10 +1993,15 @@ class InferenceEngine:
         so a lagged out_buf row is final for a row it reports done."""
         B, W1 = slab.B, slab.steps + 1
         n_buf = B * W1
+        m = self.metrics
         while len(self._inflight) > keep_inflight:
             rec = self._inflight.popleft()
             if rec.event is not None:
+                prof = self._iter_prof
+                t_sync = prof.mark() if prof is not None else 0.0
                 rec.event.synchronize()
+                if prof is not None:
+                    prof.carve("sync", t_sync)
             flat = rec.host.numpy()
             buf = flat[:n_buf].reshape(B, W1)
             e = flat[n_buf : n_buf + B]
@@ -1703,6 +2011,10 @@ class InferenceEngine:
             self._stats["drafted"] += drafted
             self._stats["accepted"] += accepted
             t1 = time.monotonic()
+            # The reference's forward count: forwards in which a row was live.
+            m.decode_forwards.inc(live)
+            if rec.t_disp:
+                self._trace_segment(slab, rec, e, done, live, t1)
             for i in range(B):
                 r = slab.req[i]
                 if r is None or not done[i] or rec.gen[i] != slab.gen[i]:
@@ -1722,10 +2034,64 @@ class InferenceEngine:
                     (res.prefill_ms + res.decode_ms) / 1e3,
                     self.config.scheduler.ewma_alpha,
                 )
+                m.decode_tokens.inc(len(ids))
+                m.engine_queue_seconds.observe(res.queue_ms / 1e3)
+                m.engine_prefill_seconds.observe(res.prefill_ms / 1e3)
+                exemplar = None
+                if r.span is not None:
+                    self._trace_decode(slab, i, r, len(ids), t1)
+                    if self.config.tracing.exemplars and r.span.record.sampled:
+                        exemplar = {"trace_id": r.span.trace_id}
+                m.engine_decode_seconds.observe(res.decode_ms / 1e3, exemplar=exemplar)
                 self._release_row(slab, i)
                 self._stats["retired"] += 1
                 self._stats["decode_tokens"] += len(ids)
                 r.loop.call_soon_threadsafe(_resolve, r.future, res, None)
+
+    def _trace_segment(self, slab: _Slab, rec: _Inflight, e: np.ndarray, done: np.ndarray,
+                       live: int, t1: float) -> None:
+        """A harvested segment with a traced row: its cost into the decode
+        totals, and an ``engine.segment`` span (dispatch to harvest, with
+        the tokens the row gained and the whole slab's segment roofline)
+        for each traced row that emitted or finished in it."""
+        wall = t1 - rec.t_disp
+        flops, nbytes = rec.cost if rec.cost is not None else (None, None)
+        if rec.cost is not None:
+            tot = self._seg_cost_totals
+            tot["flops"] += flops
+            tot["bytes"] += nbytes
+            tot["wall_s"] += wall
+        attrs = self._span_roofline(flops, nbytes, wall)
+        for i in range(slab.B):
+            r = slab.req[i]
+            if r is None or r.span is None or rec.gen[i] != slab.gen[i]:
+                continue
+            delta = int(e[i]) - int(slab.emitted[i])
+            slab.emitted[i] = e[i]
+            if delta <= 0 and not done[i]:
+                continue
+            r.span.child(
+                "engine.segment", t0=rec.t_disp, t1=t1, tokens=delta, dfa_id=0,
+                cls="constrained" if r.constrained else "free", forwards=live, **attrs,
+            )
+
+    def _trace_decode(self, slab: _Slab, i: int, r: GenerateRequest, tokens: int, t1: float) -> None:
+        """A traced row's ``engine.decode`` span: admission to delivery,
+        with the decode totals' delta over its residency as its roofline
+        and, with a profiler attached, the worker loop's phases over it."""
+        tot = self._seg_cost_totals
+        prof_attrs = {}
+        prof = self._iter_prof
+        if prof is not None and slab.prof0[i] is not None:
+            prof_attrs["worker_phases_ms"] = WorkerProfiler.delta_ms(slab.prof0[i], prof.totals)
+        r.span.child(
+            "engine.decode", t0=slab.t_decode0[i], t1=t1, tokens=tokens, row=i, **prof_attrs,
+            **self._span_roofline(
+                tot["flops"] - slab.cost0[i, 0] or None,
+                tot["bytes"] - slab.cost0[i, 1] or None,
+                t1 - slab.t_decode0[i],
+            ),
+        )
 
 
 def _fail(requests: list[GenerateRequest], error: BaseException) -> None:

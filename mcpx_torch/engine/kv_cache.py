@@ -30,6 +30,10 @@ class PageStats:
     free_pages: int
     sequences: int
 
+    @property
+    def utilization(self) -> float:
+        return 1.0 - self.free_pages / max(1, self.total_pages)
+
 
 class PageAllocator:
     """Free-list page allocator; page 0 is reserved as the null page.

@@ -2,10 +2,12 @@
 
 PyTorch-port copy of ``mcpx/orchestrator/executor.py`` without the
 resilience facade (circuit breakers, deadline budgets, hedged attempts),
-which the factory refuses until it is ported, and without the request
-tracing spine and decision provenance. ``metrics`` is an optional
-duck-typed hook (``service_calls`` and ``node_attempts`` label counters);
-the port's factory passes none.
+which the factory refuses until it is ported, and without decision
+provenance. The walk is recorded twice, as in the reference: the
+``ExecutionTrace`` of the response, and the request trace's ``execute``
+span with a ``node:<name>`` span per node and an ``attempt`` child per
+attempt. ``metrics`` (the control plane's) counts ``service_calls`` and
+``node_attempts``.
 
   - independent nodes in the same topological generation run concurrently
     under ``asyncio.gather``, bounded by one semaphore
@@ -36,6 +38,7 @@ from mcpx_torch.core.dag import DagNode, Plan
 from mcpx_torch.core.trace import ExecutionTrace, NodeAttempt, NodeTrace
 from mcpx_torch.orchestrator.transport import Transport, TransportError
 from mcpx_torch.registry.base import RegistryBackend
+from mcpx_torch.telemetry import tracing
 from mcpx_torch.telemetry.stats import TelemetryStore
 
 
@@ -91,7 +94,7 @@ class Orchestrator:
         for e in plan.edges:
             preds[e.dst].append(e.src)
 
-        with trace.span("execute"):
+        with trace.span("execute"), tracing.span("execute", nodes=len(plan.nodes)):
             for generation in plan.topological_generations():
                 runnable: list[DagNode] = []
                 for name in generation:
@@ -142,7 +145,8 @@ class Orchestrator:
         nt = trace.node(node.name, node.service)
         try:
             nt.started_at = asyncio.get_event_loop().time()
-            return await self._attempt_chain(node, results, payload, nt)
+            with tracing.span(f"node:{node.name}", service=node.service) as nsp:
+                return await self._attempt_chain(node, results, payload, nt, nsp)
         except Exception as e:  # per-node isolation boundary: the error lands in the result
             nt.status = "failed"
             nt.finished_at = asyncio.get_event_loop().time()
@@ -154,12 +158,16 @@ class Orchestrator:
         results: dict[str, Any],
         payload: dict[str, Any],
         nt: NodeTrace,
+        nsp: Optional[tracing.Span] = None,
     ) -> tuple[bool, Any]:
         loop = asyncio.get_event_loop()
         endpoint, fallbacks = await self._resolve_endpoints(node)
         if not endpoint:
             nt.status = "failed"
             nt.finished_at = loop.time()
+            if nsp is not None:
+                nsp.status = "error"
+                nsp.set(error=f"no endpoint for service '{node.service}'")
             return False, f"no endpoint for service '{node.service}'"
 
         body = dict(node.params)
@@ -176,8 +184,8 @@ class Orchestrator:
         attempts += [("fallback", fb) for fb in fallbacks]
 
         def record(url: str, kind: str, status: str, t0: float, t1: float, error: str = "") -> None:
-            """One attempt outcome into the trace, the telemetry EWMAs and
-            the attempt metrics."""
+            """One attempt outcome into the trace, the telemetry EWMAs, the
+            attempt metrics and the request trace's ``attempt`` span."""
             latency_ms = (t1 - t0) * 1e3
             nt.attempts.append(
                 NodeAttempt(endpoint=url, kind=kind, status=status, latency_ms=latency_ms, error=error)
@@ -185,6 +193,9 @@ class Orchestrator:
             self._record(node.service, latency_ms, ok=status == "ok")
             if self._metrics is not None:
                 self._metrics.node_attempts.labels(kind=kind, status=status).inc()
+            if nsp is not None:
+                extra = {"error": error} if error else {}
+                nsp.child("attempt", t0=t0, t1=t1, kind=kind, status=status, endpoint=url, **extra)
 
         last_error = ""
         backoff = self._cfg.retry_backoff_s

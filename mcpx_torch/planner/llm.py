@@ -2,8 +2,8 @@
 
 PyTorch port of ``mcpx/planner/llm.py``: the same prompt rendering,
 retries, repair, resolution and dataflow normalisation over the port's
-``InferenceEngine``. Tracing spans and metrics are not ported; grammar
-degradations are logged.
+``InferenceEngine``, with the reference's ``planner.grammar`` span and its
+``mcpx_grammar_fallbacks_total`` counts (on the engine's metrics).
 
 North-star replacement for the reference's OpenAI round-trip (reference
 ``control_plane.py:57-75``). Differences that are the point:
@@ -39,6 +39,7 @@ from mcpx_torch.planner.base import PlanContext
 from mcpx_torch.planner.grammar import PlanGrammar, build_plan_grammar
 from mcpx_torch.planner.heuristic import HeuristicPlanner
 from mcpx_torch.registry.base import ServiceRecord, stable_snapshot
+from mcpx_torch.telemetry import tracing
 
 log = logging.getLogger("mcpx_torch.planner.llm")
 
@@ -165,11 +166,15 @@ class LLMPlanner:
         self._grammar_lock = asyncio.Lock()
 
     @classmethod
-    def from_config(cls, config: MCPXConfig, retriever=None, *, device=None) -> "LLMPlanner":
+    def from_config(
+        cls, config: MCPXConfig, retriever=None, metrics=None, *, device=None
+    ) -> "LLMPlanner":
         # ``retriever`` intentionally unused: retrieval shortlists arrive via
-        # PlanContext.shortlist (built by ControlPlane._context).
+        # PlanContext.shortlist (built by ControlPlane._context). ``metrics``
+        # is the control plane's registry, so the engine's series land on
+        # the same /metrics surface as the API counters.
         del retriever
-        return cls(InferenceEngine(config, device=device), config.planner)
+        return cls(InferenceEngine(config, device=device, metrics=metrics), config.planner)
 
     # -------------------------------------------------------------- lifecycle
     async def ensure_ready(self) -> None:
@@ -247,7 +252,12 @@ class LLMPlanner:
         by_name = {
             s.name: s for s in all_services if s.name not in context.exclude
         }
-        grammar = await self._grammar(context, version, all_services)
+        with tracing.span("planner.grammar", mode=self.config.constrain_names) as gsp:
+            grammar = await self._grammar(context, version, all_services)
+            if gsp is not None:
+                # shape_only = the build ladder bottomed out (the engine
+                # serves its generic grammar).
+                gsp.set(shape_only=grammar is None, registry_version=version)
         # Tokenize the fixed header separately so its ids are IDENTICAL
         # across requests whatever follows (subword tokenizers are not
         # concatenation-safe at the boundary) — the engine then serves the
@@ -298,6 +308,9 @@ class LLMPlanner:
             # a warm replan over the same service order (core/dag.py).
             plan.prompt_ids = list(prompt_ids)
             plan.prompt_services = kept_names
+            sp = tracing.current_span()
+            if sp is not None:
+                sp.set(decode_attempts=attempt + 1, repaired=repaired)
             if self.config.explain:
                 plan.explanation = self._explain(plan, attempt) + (
                     " [repaired: dangling/backward next-references pruned]"
@@ -313,6 +326,9 @@ class LLMPlanner:
             self.config.max_plan_retries + 1,
             last_problems[:3],
         )
+        sp = tracing.current_span()
+        if sp is not None:
+            sp.set(decode_attempts=self.config.max_plan_retries + 1, heuristic_fallback=True)
         plan = await self.fallback.plan(intent, context)
         if self.config.explain:
             plan.explanation = (
@@ -441,6 +457,7 @@ class LLMPlanner:
                 "version %s",
                 len(records), version,
             )
+            self.engine.metrics.grammar_fallbacks.labels(kind="typed_off").inc()
         attempts: list[tuple[str, object]] = []
         if do_typed:
             attempts.append(("typed", records))
@@ -468,6 +485,7 @@ class LLMPlanner:
                         "untyped %s grammar for registry version %s",
                         typed_err, kind, version,
                     )
+                    self.engine.metrics.grammar_fallbacks.labels(kind="typed_off").inc()
                 if kind == "free" and keys:
                     # Operator asked for key tries but they didn't fit: the
                     # ~2x speculation win and key validation are OFF for
@@ -477,6 +495,7 @@ class LLMPlanner:
                         "'in' keys are free strings for registry version %s",
                         len(keys), last_err, version,
                     )
+                    self.engine.metrics.grammar_fallbacks.labels(kind="keys_free").inc()
                 return g
             except ValueError as e:
                 last_err = e
@@ -487,6 +506,7 @@ class LLMPlanner:
             "registry grammar not compilable (%s); using shape-only grammar",
             last_err,
         )
+        self.engine.metrics.grammar_fallbacks.labels(kind="shape_only").inc()
         return None
 
     def _token_budget(self, prefix_len: int) -> int:

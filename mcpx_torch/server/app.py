@@ -10,14 +10,24 @@ same bodies, status codes and JSON errors:
   GET  /cache      plan cache and radix prefix cache counters
   GET  /telemetry  per-service rolling stats snapshot
   GET  /healthz    liveness + engine readiness
+  GET  /metrics    Prometheus text exposition (OpenMetrics, with exemplar
+                   trace ids, on ``Accept: application/openmetrics-text``)
+  GET  /costs      per-executable analytic costs, the capture sentinel's
+                   compile counts, device peaks and HBM stats
+  GET  /traces, GET /traces/{trace_id}   retained request traces (JSON, or
+                   Chrome trace-event JSON with ``?format=chrome``)
+  POST /profile/start, /profile/stop   a torch.profiler trace of live
+                   serving, written as a Chrome trace into the directory
 
-The middleware keeps the reference's admission limit (429 at
+The ``observability`` middleware is the reference's: a root span per
+request (W3C ``traceparent`` in and out, ``X-Trace-Id`` equal to the
+trace's id), ``mcpx_requests_total`` and ``mcpx_request_latency_seconds``
+(an exemplar only for a kept trace), the admission limit (429 at
 ``server.max_concurrency`` on the three serving paths), the request timeout
 (504 at ``server.request_timeout_s``, which cancels the engine future so the
-worker frees the row), an ``X-Trace-Id`` header on every response and
-JSON-only 500s. Not ported yet: ``traceparent``, ``/metrics``, ``/costs``,
-``/traces``, ``/explain``, ``/usage``, ``/slo``, ``/cluster``, ``/debug/*``
-and ``/profile/*``.
+worker frees the row) and JSON-only 500s. Not ported yet: ``/explain``,
+``/usage``, ``/slo``, ``/cluster`` and ``/debug/*``, with the parts they
+read.
 
 This is the one module of the port that imports aiohttp; nothing on the
 ``ControlPlane`` path imports it. Serve with ``python -m
@@ -30,8 +40,12 @@ import argparse
 import asyncio
 import json
 import logging
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
+import torch
 from aiohttp import web
 
 from mcpx_torch import __version__
@@ -40,6 +54,9 @@ from mcpx_torch.core.errors import PlannerError, RegistryError
 from mcpx_torch.core.trace import new_trace_id
 from mcpx_torch.registry.base import ServiceRecord
 from mcpx_torch.server.control import ControlPlane
+from mcpx_torch.telemetry import metrics as metrics_mod
+from mcpx_torch.telemetry import tracing
+from mcpx_torch.telemetry.costs import device_peaks, hbm_stats, update_hbm_gauges
 
 log = logging.getLogger("mcpx_torch.server")
 
@@ -47,20 +64,24 @@ TRACE_ID_KEY = "mcpx_trace_id"
 
 # Endpoints subject to the server.max_concurrency admission limit (the
 # planning/execution paths; observability and CRUD stay always-available).
-_LIMITED = frozenset({"/plan", "/execute", "/plan_and_execute"})
+_LIMITED = metrics_mod.LIMITED_ENDPOINTS
 
-# Routes whose error bodies carry no trace id: the reference never opens a
-# request trace for its observability surfaces.
-_UNTRACED = frozenset({"/cache", "/healthz", "/telemetry"})
+# Observability surfaces are never traced (by route template): a scraper
+# polling /metrics or an operator paging through /traces would otherwise
+# flush the ring with traces of the observability itself. The reference's
+# set, routes it serves that the port does not yet included.
+_UNTRACED = frozenset({
+    "/metrics", "/costs", "/cache", "/traces", "/traces/{trace_id}",
+    "/healthz", "/telemetry", "/debug/anomalies",
+    "/debug/anomalies/{bundle_id}", "/usage", "/slo", "/cluster",
+    "/explain/{trace_id}",
+})
 
 
-def _json_error(
-    request: web.Request, status: int, message: str, **extra: Any
-) -> web.Response:
-    """Error envelope. Carries the request's trace id (the ``X-Trace-Id``
-    header's) wherever the reference would have an active request trace:
-    tracing on and a traced route."""
-    tid = request.get(TRACE_ID_KEY)
+def _json_error(status: int, message: str, **extra: Any) -> web.Response:
+    """Error envelope. Carries the active trace's id, so a reported failure
+    line leads straight to its trace at ``GET /traces/{id}``."""
+    tid = tracing.current_trace_id()
     if tid is not None and "trace_id" not in extra:
         extra["trace_id"] = tid
     return web.json_response({"error": message, **extra}, status=status)
@@ -83,6 +104,7 @@ async def _body(request: web.Request) -> dict[str, Any]:
 
 
 def build_app(cp: ControlPlane) -> web.Application:
+    metrics = cp.metrics
     server_cfg = cp.config.server
     inflight = {"n": 0}
 
@@ -93,46 +115,86 @@ def build_app(cp: ControlPlane) -> web.Application:
         return request.headers.get(cp.config.scheduler.tenant_header) or "default"
 
     @web.middleware
-    async def limits(request: web.Request, handler) -> web.StreamResponse:
-        """Every request: a trace ID, admission control (429) and a hard
-        request timeout (504); errors are always JSON."""
+    async def observability(request: web.Request, handler) -> web.StreamResponse:
+        """Every request: a root tracing span (W3C ``traceparent`` in and
+        out), a trace ID, the request counter and latency histogram (with an
+        exemplar trace id), admission control (429) and a hard request
+        timeout (504); errors are always JSON."""
+        # Label by route template, not raw path: bounded metric cardinality.
         resource = getattr(request.match_info.route, "resource", None)
         endpoint = resource.canonical if resource is not None else "unmatched"
-        trace_id = new_trace_id()
-        if cp.config.tracing.enabled and endpoint not in _UNTRACED and endpoint != "unmatched":
-            request[TRACE_ID_KEY] = trace_id
+        # Read per request, so a tracer can be swapped on a live server.
+        tracer = cp.tracer
+        root = (
+            tracer.start_request(
+                endpoint, traceparent=request.headers.get("traceparent"), method=request.method
+            )
+            if endpoint not in _UNTRACED
+            else None
+        )
+        trace_id = root.record.trace_id if root is not None else new_trace_id()
+        request[TRACE_ID_KEY] = trace_id
+        t0 = time.monotonic()
         limited = request.path in _LIMITED
-        if limited and inflight["n"] >= server_cfg.max_concurrency:
-            return _json_error(request, 429, "server at max concurrency, retry later")
-        if limited:
-            inflight["n"] += 1
+        status = "error"
+        # Only server faults (5xx, timeouts) are always kept: a stream of
+        # client 4xx must not flush the ring of the rare 5xx traces.
+        http_status = 500
         try:
-            resp = await asyncio.wait_for(handler(request), timeout=server_cfg.request_timeout_s)
-        except asyncio.TimeoutError:
-            return _json_error(request, 504, f"request exceeded {server_cfg.request_timeout_s}s")
-        except web.HTTPException:
-            raise
-        except Exception as e:  # errors must be JSON, never HTML
-            log.exception("unhandled error on %s", endpoint)
-            return _json_error(request, 500, f"{type(e).__name__}: {e}")
+            with tracing.activate(root):
+                if limited and inflight["n"] >= server_cfg.max_concurrency:
+                    status = "throttled"
+                    http_status = 429
+                    return _json_error(429, "server at max concurrency, retry later")
+                if limited:
+                    inflight["n"] += 1
+                try:
+                    resp = await asyncio.wait_for(handler(request), timeout=server_cfg.request_timeout_s)
+                except asyncio.TimeoutError:
+                    status = "timeout"
+                    http_status = 504
+                    return _json_error(504, f"request exceeded {server_cfg.request_timeout_s}s")
+                except web.HTTPException as he:
+                    status = "ok" if he.status < 400 else "error"
+                    http_status = he.status
+                    raise
+                except Exception as e:  # errors must be JSON, never HTML
+                    status = "error"
+                    http_status = 500
+                    log.exception("unhandled error on %s", endpoint)
+                    return _json_error(500, f"{type(e).__name__}: {e}")
+                finally:
+                    if limited:
+                        inflight["n"] -= 1
+                status = "ok" if resp.status < 400 else "error"
+                http_status = resp.status
+                resp.headers["X-Trace-Id"] = trace_id
+                if root is not None:
+                    resp.headers["traceparent"] = tracing.format_traceparent(root)
+                return resp
         finally:
-            if limited:
-                inflight["n"] -= 1
-        resp.headers["X-Trace-Id"] = trace_id
-        return resp
+            if root is not None:
+                root.set(status=status)
+            elapsed_s = time.monotonic() - t0
+            # Retention is decided before the histogram observation, so the
+            # exemplar only ever names a trace GET /traces/{id} can serve.
+            kept = tracer.finish(root, error=status == "timeout" or http_status >= 500)
+            metrics.requests.labels(endpoint=endpoint, status=status).inc()
+            exemplar = {"trace_id": trace_id} if kept and cp.config.tracing.exemplars else None
+            metrics.request_latency.labels(endpoint=endpoint).observe(elapsed_s, exemplar=exemplar)
 
-    app = web.Application(client_max_size=16 * 1024 * 1024, middlewares=[limits])
+    app = web.Application(client_max_size=16 * 1024 * 1024, middlewares=[observability])
 
     # ------------------------------------------------------------------ plan
     async def plan(request: web.Request) -> web.Response:
         body = await _body(request)
         intent = body.get("intent")
         if not isinstance(intent, str) or not intent.strip():
-            return _json_error(request, 400, "'intent' must be a non-empty string")
+            return _json_error(400, "'intent' must be a non-empty string")
         try:
             p, latency_ms = await cp.plan(intent, tenant=_tenant_of(request))
         except PlannerError as e:
-            return _json_error(request, 422, f"planning failed: {e}")
+            return _json_error(422, f"planning failed: {e}")
         return web.json_response({
             "graph": p.to_wire(),
             "explanation": p.explanation,
@@ -149,13 +211,13 @@ def build_app(cp: ControlPlane) -> web.Application:
         if payload is None:
             payload = {}
         if not isinstance(graph, dict):
-            return _json_error(request, 400, "'graph' must be an object")
+            return _json_error(400, "'graph' must be an object")
         if not isinstance(payload, dict):
-            return _json_error(request, 400, "'payload' must be an object")
+            return _json_error(400, "'payload' must be an object")
         try:
             plan_obj = Plan.from_wire(graph)
         except PlanValidationError as e:
-            return _json_error(request, 422, "invalid graph", problems=e.problems)
+            return _json_error(422, "invalid graph", problems=e.problems)
         result = await cp.execute(plan_obj, payload)
         return web.json_response(result.to_dict())
 
@@ -167,13 +229,13 @@ def build_app(cp: ControlPlane) -> web.Application:
         if payload is None:
             payload = {}
         if not isinstance(intent, str) or not intent.strip():
-            return _json_error(request, 400, "'intent' must be a non-empty string")
+            return _json_error(400, "'intent' must be a non-empty string")
         if not isinstance(payload, dict):
-            return _json_error(request, 400, "'payload' must be an object")
+            return _json_error(400, "'payload' must be an object")
         try:
             out = await cp.plan_and_execute(intent, payload, tenant=_tenant_of(request))
         except PlannerError as e:
-            return _json_error(request, 422, f"planning failed: {e}")
+            return _json_error(422, f"planning failed: {e}")
         return web.json_response(out)
 
     # -------------------------------------------------------------- registry
@@ -188,20 +250,20 @@ def build_app(cp: ControlPlane) -> web.Application:
         try:
             record = ServiceRecord.from_dict(body)
         except RegistryError as e:
-            return _json_error(request, 400, str(e))
+            return _json_error(400, str(e))
         await cp.registry.put(record)
         return web.json_response({"registered": record.name}, status=201)
 
     async def get_service(request: web.Request) -> web.Response:
         record = await cp.registry.get(request.match_info["name"])
         if record is None:
-            return _json_error(request, 404, f"no such service '{request.match_info['name']}'")
+            return _json_error(404, f"no such service '{request.match_info['name']}'")
         return web.json_response(record.to_dict())
 
     async def delete_service(request: web.Request) -> web.Response:
         existed = await cp.registry.delete(request.match_info["name"])
         if not existed:
-            return _json_error(request, 404, f"no such service '{request.match_info['name']}'")
+            return _json_error(404, f"no such service '{request.match_info['name']}'")
         return web.json_response({"deleted": request.match_info["name"]})
 
     # --------------------------------------------------------- observability
@@ -228,6 +290,139 @@ def build_app(cp: ControlPlane) -> web.Application:
             body["engine_error"] = f"{type(err).__name__}: {err}"
         return web.json_response(body)
 
+    async def metrics_handler(request: web.Request) -> web.Response:
+        # HBM gauges refresh at scrape time, only from a ready engine: a
+        # cold or warming one has not set its device up.
+        engine = getattr(cp.planner, "engine", None)
+        if engine is not None and getattr(engine, "state", None) == "ready":
+            update_hbm_gauges(cp.metrics)
+        # OpenMetrics on request (Accept negotiation): the exposition that
+        # renders the exemplar trace ids the latency histograms carry.
+        if "application/openmetrics-text" in request.headers.get("Accept", ""):
+            return web.Response(
+                body=cp.metrics.render(openmetrics=True),
+                headers={"Content-Type": metrics_mod.OPENMETRICS_CONTENT_TYPE},
+            )
+        return web.Response(body=cp.metrics.render(), content_type="text/plain", charset="utf-8")
+
+    async def traces_handler(request: web.Request) -> web.Response:
+        """Retained trace summaries, newest first."""
+        return web.json_response({"traces": [r.summary() for r in cp.tracer.traces()]})
+
+    async def trace_get(request: web.Request) -> web.Response:
+        tid = request.match_info["trace_id"]
+        rec = cp.tracer.get(tid)
+        if rec is None:
+            return _json_error(404, f"no trace '{tid}' (evicted, unsampled, or never existed)")
+        if request.query.get("format") == "chrome":
+            # Chrome trace-event JSON: loads in Perfetto / chrome://tracing.
+            return web.json_response(rec.to_chrome())
+        return web.json_response(rec.to_dict())
+
+    async def costs_handler(request: web.Request) -> web.Response:
+        """Cost observatory: per-executable analytic costs and compile
+        counts (the capture sentinel's data), the ragged kernel's per-path
+        engagement (under the reference's ``pallas`` key), device peaks and
+        per-device HBM stats. Device queries wait for a ready engine."""
+        engine = getattr(cp.planner, "engine", None)
+        if engine is None or getattr(engine, "costs", None) is None:
+            return web.json_response({
+                "engine": None,
+                "device": None,
+                "reason": "no inference engine attached "
+                "(heuristic/mock planner serves this control plane)",
+            })
+        if engine.state != "ready":
+            return web.json_response({
+                "engine": engine.costs.snapshot(materialize=False),
+                "engine_state": engine.state,
+                "pallas": engine.kernel_paths(),
+                "device": None,
+                "reason": "engine not ready; device stats deferred",
+            })
+
+        def _read():
+            update_hbm_gauges(cp.metrics)
+            return engine.costs.snapshot(), device_peaks(), hbm_stats()
+
+        snap, peaks, hbm = await asyncio.to_thread(_read)
+        return web.json_response({
+            "engine": snap,
+            "engine_state": engine.state,
+            "pallas": engine.kernel_paths(),
+            "device": {"peaks": peaks, "hbm": hbm},
+        })
+
+    # Device-side profiling: a torch.profiler trace of live serving,
+    # started and stopped without a restart. profile["dir"]: None = idle,
+    # _STARTING/_STOPPING = a transition in flight (a reservation no other
+    # handler may touch), any other str = the active trace directory. One
+    # thread runs every profiler call, so start and stop share its state.
+    _STARTING = "<starting>"
+    _STOPPING = "<stopping>"
+    profile: dict[str, Any] = {"dir": None, "prof": None}
+    profiler_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="mcpx-torch-profiler")
+
+    def _start_trace() -> Any:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = torch_profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(prof: Any, trace_dir: str) -> None:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, f"mcpx_torch_{time.time_ns()}.trace.json"))
+
+    async def profile_start(request: web.Request) -> web.Response:
+        body = await _body(request) if request.can_read_body else {}
+        if profile["dir"] is not None:
+            return _json_error(409, f"profiling already active (dir={profile['dir']})")
+        trace_dir = body.get("dir") or server_cfg.profile_dir
+        if not isinstance(trace_dir, str) or not trace_dir:
+            return _json_error(400, "'dir' must be a non-empty string")
+        # Reserve before the await: a concurrent start must hit the 409
+        # above, and a concurrent stop must see the sentinel and back off.
+        profile["dir"] = _STARTING
+        started = False
+        try:
+            loop = asyncio.get_running_loop()
+            profile["prof"] = await loop.run_in_executor(profiler_thread, _start_trace)
+            started = True
+        except Exception as e:  # profiler state errors -> client as 409
+            return _json_error(409, f"could not start trace: {e}")
+        finally:
+            # Always resolves the reservation, cancellation included.
+            profile["dir"] = trace_dir if started else None
+        return web.json_response({"profiling": "started", "dir": trace_dir})
+
+    async def profile_stop(request: web.Request) -> web.Response:
+        if profile["dir"] is None:
+            return _json_error(409, "profiling not active")
+        if profile["dir"] in (_STARTING, _STOPPING):
+            return _json_error(409, "profiler transition in progress; retry")
+        trace_dir, profile["dir"] = profile["dir"], _STOPPING
+        stopped = False
+        try:
+            # Off the event loop: writing the trace can take seconds.
+            loop = asyncio.get_running_loop()
+            await loop.run_in_executor(profiler_thread, _stop_trace, profile["prof"], trace_dir)
+            stopped = True
+        except Exception as e:  # error -> client as 500
+            return _json_error(500, f"could not stop trace: {e}")
+        finally:
+            # On failure the profiler's state is unknown: keep it active
+            # rather than wedge both endpoints behind 409s.
+            profile["dir"] = None if stopped else trace_dir
+            if stopped:
+                profile["prof"] = None
+        return web.json_response({"profiling": "stopped", "dir": trace_dir})
+
     app.router.add_post("/plan", plan)
     app.router.add_post("/execute", execute)
     app.router.add_post("/plan_and_execute", plan_and_execute)
@@ -235,6 +430,12 @@ def build_app(cp: ControlPlane) -> web.Application:
     app.router.add_post("/services", register_service)
     app.router.add_get("/services/{name}", get_service)
     app.router.add_delete("/services/{name}", delete_service)
+    app.router.add_get("/metrics", metrics_handler)
+    app.router.add_get("/costs", costs_handler)
+    app.router.add_get("/traces", traces_handler)
+    app.router.add_get("/traces/{trace_id}", trace_get)
+    app.router.add_post("/profile/start", profile_start)
+    app.router.add_post("/profile/stop", profile_stop)
     app.router.add_get("/cache", cache_handler)
     app.router.add_get("/telemetry", telemetry_handler)
     app.router.add_get("/healthz", healthz)
@@ -262,6 +463,7 @@ def build_app(cp: ControlPlane) -> web.Application:
                 # Startup failures already surface via engine.state and
                 # /healthz; debug-log so shutdown stays quiet but traceable.
                 log.debug("engine startup task ended with an error", exc_info=True)
+        profiler_thread.shutdown(wait=False)
         await cp.aclose()
 
     app.on_startup.append(on_startup)

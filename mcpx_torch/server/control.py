@@ -4,9 +4,13 @@ and telemetry together, independent of HTTP.
 PyTorch-port copy of ``mcpx/server/control.py``: ``plan`` with its two plan
 cache tiers (the in-process LRU keyed by (intent, registry version) and the
 optional Redis tier), ``execute``, and ``plan_and_execute`` with the
-telemetry-adaptive replan loop over a pinned prompt prefix. Not ported yet:
-the scheduler's degraded tier (``plan(degraded=)``), request tracing, decision
-provenance, metrics, the cost ledger, SLOs and the flight recorder.
+telemetry-adaptive replan loop over a pinned prompt prefix; the metrics
+registry (``metrics``, shared with the orchestrator, the planner and the
+engine) and the request tracer (``tracer``, built from ``config.tracing``
+and read per request by the HTTP middleware, so it can be swapped on a live
+server), with the ``plan`` and ``plan.context`` spans. Not ported yet: the
+scheduler's degraded tier (``plan(degraded=)``), decision provenance, the
+cost ledger, SLOs and the flight recorder.
 """
 
 from __future__ import annotations
@@ -17,16 +21,30 @@ import time
 from collections import OrderedDict
 from typing import Any, Optional
 
+import torch
+
+from mcpx_torch import __version__
 from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.core.dag import Plan
 from mcpx_torch.core.trace import ExecutionTrace
 from mcpx_torch.orchestrator.executor import ExecuteResult, Orchestrator
 from mcpx_torch.planner.base import PlanContext, Planner
 from mcpx_torch.registry.base import RegistryBackend
+from mcpx_torch.telemetry import tracing
+from mcpx_torch.telemetry.metrics import Metrics
 from mcpx_torch.telemetry.replan import ReplanPolicy
 from mcpx_torch.telemetry.stats import TelemetryStore
+from mcpx_torch.telemetry.tracing import Tracer
 
 log = logging.getLogger("mcpx_torch.control")
+
+
+def _backend_label(planner: Any) -> str:
+    """The device this build serves on: the engine's, or "none" without
+    one (a heuristic planner)."""
+    engine = getattr(planner, "engine", None)
+    device = getattr(engine, "device", None)
+    return device.type if device is not None else "none"
 
 
 class ControlPlane:
@@ -41,12 +59,21 @@ class ControlPlane:
         retriever: Any = None,  # duck-typed: async shortlist(intent, k)
         replan_policy: Optional[ReplanPolicy] = None,
         redis_plan_cache: Any = None,  # mcpx_torch.server.plan_cache.RedisPlanCache
+        metrics: Optional[Metrics] = None,
+        tracer: Optional[Tracer] = None,
     ) -> None:
         self.config = config or MCPXConfig()
         self.registry = registry
         self.planner = planner
         self.orchestrator = orchestrator
         self.telemetry = telemetry or TelemetryStore(self.config.telemetry.ewma_alpha)
+        self.metrics = metrics or Metrics()
+        # Read per request by the HTTP middleware, so a tracer can be
+        # attached to, or swapped on, a live server.
+        self.tracer = tracer if tracer is not None else Tracer(self.config.tracing)
+        self.metrics.set_build_info(
+            version=__version__, torch=torch.__version__, backend=_backend_label(planner)
+        )
         self.retriever = retriever
         self.replan_policy = replan_policy or ReplanPolicy(self.config.telemetry)
         self.redis_plan_cache = redis_plan_cache
@@ -91,34 +118,61 @@ class ControlPlane:
         admission never regroups a request whose deadline can't afford it;
         ``tenant`` rides along to the engine."""
         t0 = time.monotonic()
-        version = await self.registry.version()
-        key = (intent, version)
-        local_tier = self.config.planner.plan_cache_size > 0
-        if use_cache and local_tier:
-            cached = self._plan_cache.get(key)
-            if cached is not None:
-                self._plan_cache.move_to_end(key)
-                self.plan_cache_stats["hits"] += 1
-                return cached, (time.monotonic() - t0) * 1e3
-        if use_cache and self.redis_plan_cache is not None:
-            # Second tier: shared across replicas/restarts, independent of
-            # the local LRU (plan_cache_size=0 disables only the local
-            # tier); a hit here still warms the LRU when enabled.
-            shared = await self.redis_plan_cache.get(intent, version)
-            if shared is not None:
-                if local_tier:
-                    self._cache_put(key, shared)
-                self.plan_cache_stats["redis_hits"] += 1
-                return shared, (time.monotonic() - t0) * 1e3
-        if use_cache and (local_tier or self.redis_plan_cache is not None):
-            self.plan_cache_stats["misses"] += 1
-        context = await self._context(intent, version=version, deadline_at=deadline_at, tenant=tenant)
-        plan = await self.planner.plan(intent, context)
-        if use_cache and local_tier:
-            self._cache_put(key, plan)
-        if use_cache and self.redis_plan_cache is not None:
-            self._redis_cache_write(intent, version, plan)
-        return plan, (time.monotonic() - t0) * 1e3
+        with tracing.span("plan", path="primary") as sp:
+            version = await self.registry.version()
+            key = (intent, version)
+            local_tier = self.config.planner.plan_cache_size > 0
+            if use_cache and local_tier:
+                cached = self._plan_cache.get(key)
+                if cached is not None:
+                    self._plan_cache.move_to_end(key)
+                    self.plan_cache_stats["hits"] += 1
+                    self.metrics.plan_cache.labels(result="hit").inc()
+                    if sp is not None:
+                        sp.set(cache="hit", origin=cached.origin)
+                    return cached, (time.monotonic() - t0) * 1e3
+            if use_cache and self.redis_plan_cache is not None:
+                # Second tier: shared across replicas/restarts, independent of
+                # the local LRU (plan_cache_size=0 disables only the local
+                # tier); a hit here still warms the LRU when enabled.
+                shared = await self.redis_plan_cache.get(intent, version)
+                if shared is not None:
+                    if local_tier:
+                        self._cache_put(key, shared)
+                    self.plan_cache_stats["redis_hits"] += 1
+                    self.metrics.plan_cache.labels(result="redis_hit").inc()
+                    if sp is not None:
+                        sp.set(cache="redis_hit", origin=shared.origin)
+                    return shared, (time.monotonic() - t0) * 1e3
+            if use_cache and (local_tier or self.redis_plan_cache is not None):
+                self.plan_cache_stats["misses"] += 1
+                self.metrics.plan_cache.labels(result="miss").inc()
+                if sp is not None:
+                    sp.set(cache="miss")
+            planner = self.planner
+            if sp is not None:
+                sp.set(planner=type(planner).__name__)
+            with tracing.span("plan.context"):
+                context = await self._context(
+                    intent, version=version, deadline_at=deadline_at, tenant=tenant
+                )
+            try:
+                plan = await planner.plan(intent, context)
+                self.metrics.plans.labels(
+                    planner=type(planner).__name__, origin=plan.origin or "unknown", status="ok"
+                ).inc()
+            except Exception:
+                self.metrics.plans.labels(
+                    planner=type(planner).__name__, origin="none", status="error"
+                ).inc()
+                raise
+            if sp is not None:
+                sp.set(origin=plan.origin or "unknown")
+            if use_cache and local_tier:
+                self._cache_put(key, plan)
+            if use_cache and self.redis_plan_cache is not None:
+                self._redis_cache_write(intent, version, plan)
+            return plan, (time.monotonic() - t0) * 1e3
 
     def _redis_cache_write(self, intent: str, version: int, plan: Plan) -> None:
         """Fire-and-forget write to the shared tier: put() swallows its own
@@ -214,6 +268,7 @@ class ControlPlane:
                 if not decision.should_replan:
                     break
                 exclude |= decision.exclude
+                self.metrics.replans.inc()
                 trace.replans += 1
                 context = await self._context(
                     intent, exclude, replan_prior=prior or None, tenant=tenant

@@ -2,8 +2,10 @@
 
 Trimmed PyTorch-port copy of ``mcpx/server/factory.py`` for
 ``planner.kind`` in {"llm", "heuristic"} over the in-memory registry: the
-telemetry store, the orchestrator over an injected transport, the replan
-policy and the optional Redis plan-cache tier. Options the reference
+telemetry store, one ``Metrics`` registry shared by the orchestrator, the
+planner's engine and the control plane, the orchestrator over an injected
+transport, the replan policy and the optional Redis plan-cache tier. The
+control plane builds its tracer from ``config.tracing``. Options the reference
 factory reads that the port does not serve yet raise ``ConfigError``
 naming the option. ``device=None`` means the GPU and raises without CUDA;
 pass ``device="cpu"`` for the plain PyTorch path.
@@ -27,6 +29,7 @@ from mcpx_torch.registry.base import RegistryBackend
 from mcpx_torch.retrieval.index import RetrievalIndex
 from mcpx_torch.server.control import ControlPlane
 from mcpx_torch.server.plan_cache import RedisPlanCache
+from mcpx_torch.telemetry.metrics import Metrics
 from mcpx_torch.telemetry.replan import ReplanPolicy
 from mcpx_torch.telemetry.stats import TelemetryStore
 
@@ -44,6 +47,11 @@ def _refuse_unserved(config: MCPXConfig) -> None:
         # The telemetry mirror: built by the reference only while telemetry
         # is enabled (the default).
         ("telemetry.redis_url", config.telemetry.enabled and config.telemetry.redis_url),
+        # The reference's control plane builds these default-off parts.
+        ("telemetry.flight.enabled", config.telemetry.flight.enabled),
+        ("telemetry.ledger.enabled", config.telemetry.ledger.enabled),
+        ("telemetry.provenance.enabled", config.telemetry.provenance.enabled),
+        ("slo.enabled", config.slo.enabled),
     )
     for name, asked in refused:
         if asked:
@@ -73,14 +81,17 @@ def build_control_plane(
         redis_plan_cache = RedisPlanCache(
             config.planner.plan_cache_redis_url, ttl_s=config.planner.plan_cache_redis_ttl_s
         )
-    orchestrator = Orchestrator(transport, config.orchestrator, registry=registry, telemetry=telemetry)
+    metrics = Metrics()
+    orchestrator = Orchestrator(
+        transport, config.orchestrator, registry=registry, telemetry=telemetry, metrics=metrics
+    )
     if planner is None:
         if config.planner.kind == "heuristic":
             planner = HeuristicPlanner(config.planner)
         elif config.planner.kind == "llm":
             from mcpx_torch.planner.llm import LLMPlanner
 
-            planner = LLMPlanner.from_config(config, retriever=retriever, device=device)
+            planner = LLMPlanner.from_config(config, retriever=retriever, metrics=metrics, device=device)
         else:
             raise ConfigError(
                 f"planner.kind={config.planner.kind!r} is not ported to mcpx_torch yet"
@@ -91,6 +102,7 @@ def build_control_plane(
         planner=planner,
         orchestrator=orchestrator,
         telemetry=telemetry,
+        metrics=metrics,
         retriever=retriever,
         replan_policy=ReplanPolicy(config.telemetry),
         redis_plan_cache=redis_plan_cache,

@@ -1,0 +1,710 @@
+"""Prometheus-scrapeable metrics for the control plane.
+
+PyTorch-port counterpart of ``mcpx/telemetry/metrics.py``: the same 71
+families under the same names, label names and bucket edges, with the
+reference's help strings (less their history notes), so a scrape of the
+port reads like one of the reference. It is built on small thread-safe
+``Counter``/``Gauge``/``Histogram`` classes of its own instead of
+``prometheus_client``, which the GPU machine does not have: the engine's
+worker thread increments them on its hot path while the event loop
+renders them. One declared difference: ``mcpx_build_info`` carries the
+torch version under the label ``torch`` where the reference has ``jax``.
+
+``render()`` writes the Prometheus text format 0.0.4;
+``render(openmetrics=True)`` writes OpenMetrics 1.0.0, the only exposition
+that carries the exemplar trace ids attached to observations. Neither
+writes ``_created`` samples (optional in both formats).
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Optional
+
+LATENCY_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.15, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+# The rate-limited serving endpoints: the server's middleware gates these
+# (app.py). Kept beside the metrics, as in the reference, so every reader
+# of the latency series watches the same endpoint subset.
+LIMITED_ENDPOINTS = frozenset({"/plan", "/execute", "/plan_and_execute"})
+
+OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text; version=1.0.0; charset=utf-8"
+
+
+def _fmt(v: float) -> str:
+    """A sample value as Prometheus writes it (Go's float formatting)."""
+    v = float(v)
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    s = repr(v)
+    dot = s.find(".")
+    if v > 0 and dot > 6:
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _escape(s: str, quote: bool = True) -> str:
+    s = s.replace("\\", r"\\").replace("\n", r"\n")
+    return s.replace('"', r'\"') if quote else s
+
+
+def _labelstr(labels: list[tuple[str, str]]) -> str:
+    if not labels:
+        return ""
+    return "{" + ",".join(f'{k}="{_escape(v)}"' for k, v in sorted(labels)) + "}"
+
+
+class _Child:
+    """One labelled series. Every write takes its family's lock."""
+
+    __slots__ = ("_lock", "value", "buckets", "sum", "exemplars", "_bounds")
+
+    def __init__(self, lock: threading.Lock, bounds: Optional[tuple] = None) -> None:
+        self._lock = lock
+        self.value = 0.0
+        self._bounds = bounds
+        self.buckets = [0] * len(bounds) if bounds else None
+        self.sum = 0.0
+        # Exemplar per sample: (labels, value, unix time); the counter's at
+        # index 0, a histogram's per bucket.
+        self.exemplars: dict[int, tuple] = {}
+
+    def inc(self, amount: float = 1.0, exemplar: Optional[dict] = None) -> None:
+        with self._lock:
+            self.value += amount
+            if exemplar:
+                self.exemplars[0] = (dict(exemplar), amount, time.time())
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self.value = float(value)
+
+    def observe(self, amount: float, exemplar: Optional[dict] = None) -> None:
+        with self._lock:
+            self.sum += amount
+            for i, bound in enumerate(self._bounds):
+                if amount <= bound:
+                    self.buckets[i] += 1
+                    if exemplar:
+                        self.exemplars[i] = (dict(exemplar), amount, time.time())
+                    break
+
+
+class _Family:
+    """A metric family: its children by label values, one lock for all."""
+
+    kind = ""
+
+    def __init__(
+        self, name: str, documentation: str, labelnames=(), *, buckets: Optional[tuple] = None
+    ) -> None:
+        self.name = name
+        self.documentation = documentation
+        self.labelnames = tuple(labelnames)
+        self._bounds = None
+        if buckets is not None:
+            bounds = [float(b) for b in buckets]
+            if bounds[-1] != math.inf:
+                bounds.append(math.inf)
+            self._bounds = tuple(bounds)
+        self._lock = threading.Lock()
+        self._children: dict[tuple, _Child] = {}
+        if not self.labelnames:
+            self._children[()] = _Child(self._lock, self._bounds)
+
+    def labels(self, *values, **kw) -> _Child:
+        if kw:
+            if values or sorted(kw) != sorted(self.labelnames):
+                raise ValueError(f"{self.name}: label names are {self.labelnames}")
+            values = tuple(kw[k] for k in self.labelnames)
+        if not self.labelnames or len(values) != len(self.labelnames):
+            raise ValueError(f"{self.name}: label names are {self.labelnames}")
+        key = tuple(str(v) for v in values)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = _Child(self._lock, self._bounds)
+        return child
+
+    def _only(self) -> _Child:
+        if self.labelnames:
+            raise ValueError(f"{self.name}: a labelled family needs labels()")
+        return self._children[()]
+
+    def samples(self) -> list[tuple]:
+        """(suffix, labels, value, exemplar or None) of every series, read
+        under the family's lock."""
+        out = []
+        with self._lock:
+            for key, c in self._children.items():
+                labels = list(zip(self.labelnames, key))
+                out += self._series(labels, c)
+        return out
+
+    def _series(self, labels: list, c: _Child) -> list[tuple]:
+        raise NotImplementedError
+
+    def _lines(self, openmetrics: bool) -> list[str]:
+        raise NotImplementedError
+
+
+class Counter(_Family):
+    kind = "counter"
+
+    def __init__(self, name: str, documentation: str, labelnames=()) -> None:
+        # Like prometheus_client: the family is named without "_total" and
+        # its sample carries it.
+        super().__init__(name[: -len("_total")] if name.endswith("_total") else name,
+                         documentation, labelnames)
+
+    def inc(self, amount: float = 1.0, exemplar: Optional[dict] = None) -> None:
+        if amount < 0:
+            raise ValueError("counters can only be incremented by non-negative amounts")
+        self._only().inc(amount, exemplar)
+
+    def _series(self, labels, c):
+        return [("_total", labels, c.value, c.exemplars.get(0))]
+
+
+class Gauge(_Family):
+    kind = "gauge"
+
+    def __init__(self, name: str, documentation: str, labelnames=()) -> None:
+        super().__init__(name, documentation, labelnames)
+
+    def set(self, value: float) -> None:
+        self._only().set(value)
+
+    def _series(self, labels, c):
+        return [("", labels, c.value, None)]
+
+
+class Histogram(_Family):
+    kind = "histogram"
+
+    def __init__(
+        self, name: str, documentation: str, labelnames=(), *, buckets: tuple = LATENCY_BUCKETS
+    ) -> None:
+        super().__init__(name, documentation, labelnames, buckets=buckets)
+
+    def observe(self, amount: float, exemplar: Optional[dict] = None) -> None:
+        self._only().observe(amount, exemplar)
+
+    def _series(self, labels, c):
+        out, acc = [], 0
+        for i, (bound, n) in enumerate(zip(self._bounds, c.buckets)):
+            acc += n
+            out.append(("_bucket", labels + [("le", _fmt(bound))], acc, c.exemplars.get(i)))
+        return out + [("_count", labels, acc, None), ("_sum", labels, c.sum, None)]
+
+
+def _expose(families: list[_Family], openmetrics: bool) -> bytes:
+    out = []
+    for fam in families:
+        name = fam.name
+        if openmetrics:
+            out.append(f"# HELP {name} {_escape(fam.documentation)}\n")
+            out.append(f"# TYPE {name} {fam.kind}\n")
+        else:
+            shown = name + "_total" if fam.kind == "counter" else name
+            out.append(f"# HELP {shown} {_escape(fam.documentation, quote=False)}\n")
+            out.append(f"# TYPE {shown} {fam.kind}\n")
+        for suffix, labels, value, exemplar in fam.samples():
+            line = f"{name}{suffix}{_labelstr(labels)} {_fmt(value)}"
+            if openmetrics and exemplar is not None:
+                ex_labels, ex_value, ex_ts = exemplar
+                line += f" # {_labelstr(list(ex_labels.items()))} {_fmt(ex_value)} {ex_ts}"
+            out.append(line + "\n")
+    if openmetrics:
+        out.append("# EOF\n")
+    return "".join(out).encode("utf-8")
+
+
+class Metrics:
+    def __init__(self) -> None:
+        self._t_start = time.monotonic()
+        # Build identity + uptime: every scrape is attributable to a concrete
+        # build. The labels are set once by the
+        # control plane (set_build_info); uptime refreshes at render().
+        self.build_info = Gauge(
+            "mcpx_build_info",
+            "Constant 1; the labels carry the serving build's identity "
+            "(mcpx version, torch version, configured backend) so usage "
+            "reports and anomaly bundles attribute to a build",
+            ["version", "torch", "backend"],
+        )
+        self.process_uptime = Gauge(
+            "mcpx_process_uptime_seconds",
+            "Seconds since this process's Metrics registry was created "
+            "(monotonic-clock delta, refreshed at scrape) — restarts are "
+            "visible as a reset even where counters happen to match",
+        )
+        self.requests = Counter(
+            "mcpx_requests_total",
+            "API requests",
+            ["endpoint", "status"],
+        )
+        self.request_latency = Histogram(
+            "mcpx_request_latency_seconds",
+            "API request latency",
+            ["endpoint"],
+            buckets=LATENCY_BUCKETS,
+        )
+        self.plans = Counter(
+            "mcpx_plans_total",
+            "Plans produced. origin: which planner actually authored the plan "
+            "('llm' vs 'heuristic' exposes the LLM accept rate — an LLMPlanner "
+            "whose every plan reads origin='heuristic' is 100%-falling-back)",
+            ["planner", "origin", "status"],
+        )
+        self.service_calls = Counter(
+            "mcpx_service_calls_total",
+            "Microservice invocations",
+            ["service", "status"],
+        )
+        self.replans = Counter(
+            "mcpx_replans_total", "Telemetry-triggered replans"
+        )
+        self.node_attempts = Counter(
+            "mcpx_node_attempts_total",
+            "Per-node execution attempts by kind (the reference README.md:49 "
+            "promises retry/fallback accounting; fed from the executor's "
+            "span/attempt records). kind: primary | retry | fallback | hedge; "
+            "status: ok | error | timeout | open (circuit breaker refused) | "
+            "budget (deadline budget could not afford it) | cancelled "
+            "(hedge race lost)",
+            ["kind", "status"],
+        )
+        # Resilience (mcpx/resilience/, docs/resilience.md): breaker state,
+        # breaker transitions and hedge accounting.
+        self.breaker_state = Gauge(
+            "mcpx_breaker_state",
+            "Worst (most open) circuit-breaker state across the service's "
+            "consulted endpoints — a healthy fallback never masks an open "
+            "primary: 0 closed, 1 half-open (probing), 2 open (refusing)",
+            ["service"],
+        )
+        self.breaker_transitions = Counter(
+            "mcpx_breaker_transitions_total",
+            "Circuit-breaker state transitions, labeled by the state "
+            "ENTERED (open = a trip, closed = a recovery, half_open only "
+            "transitions on consult so it is not counted here)",
+            ["state"],
+        )
+        self.hedges = Counter(
+            "mcpx_hedges_total",
+            "Hedged-attempt accounting. outcome: launched (duplicate "
+            "dispatched) | denied (hedge budget refused) | win (hedge beat "
+            "the primary) | loss (hedge failed) | cancelled (primary won)",
+            ["outcome"],
+        )
+        self.plan_cache = Counter(
+            "mcpx_plan_cache_total", "Plan cache lookups", ["result"]
+        )
+        self.grammar_fallbacks = Counter(
+            "mcpx_grammar_fallbacks_total",
+            "Grammar builds that degraded below the requested constraint "
+            "level. kind='keys_free': the schema-key tries exceeded the "
+            "sparse-product budget, 'in' keys decode as free strings; "
+            "kind='shape_only': the registry-name trie itself did not fit — "
+            "the decode-time registry-name GUARANTEE is off for that "
+            "registry version (plans can name unknown services and only "
+            "post-validation catches them)",
+            ["kind"],
+        )
+        self.batch_occupancy = Gauge(
+            "mcpx_engine_batch_occupancy",
+            "Decode batch slots in use",
+        )
+        self.kv_page_utilization = Gauge(
+            "mcpx_engine_kv_page_utilization",
+            "Fraction of KV pages allocated",
+        )
+        self.decode_tokens = Counter(
+            "mcpx_engine_decode_tokens_total", "Tokens decoded"
+        )
+        self.decode_forwards = Counter(
+            "mcpx_engine_decode_forwards_total",
+            "Decode-loop model forwards (tokens/forwards > 1 under grammar "
+            "fast-forward speculation)",
+        )
+        self.admissions = Counter(
+            "mcpx_engine_admissions_total",
+            "Admission cohorts prefilled (admitted_rows/admissions = avg "
+            "cohort size; small cohorts mean prefill-amortisation is poor)",
+        )
+        self.admitted_rows = Counter(
+            "mcpx_engine_admitted_rows_total",
+            "Requests admitted into slab rows",
+        )
+        self.engine_resets = Counter(
+            "mcpx_engine_resets_total",
+            "KV-pool resets after a failed dispatch (_reset_pools): every "
+            "resident row was failed and fresh zeroed pools restored "
+            "service — a nonzero rate means the engine is surviving "
+            "device/runtime faults, a growing one means it is drowning in "
+            "them",
+        )
+        self.reaped_rows = Counter(
+            "mcpx_engine_reaped_rows_total",
+            "Slab rows freed early because their request was cancelled "
+            "(client disconnect / server timeout) — decode capacity a "
+            "non-reaping engine would waste finishing abandoned plans",
+        )
+        self.segment_active_rows = Counter(
+            "mcpx_engine_segment_active_rows_total",
+            "Sum of live slab rows at each decode segment "
+            "(/segments = average decode batch occupancy)",
+        )
+        self.segments = Counter(
+            "mcpx_engine_segments_total", "Decode segments run"
+        )
+        self.ring_prefills = Counter(
+            "mcpx_engine_ring_prefills_total",
+            "Full prefills routed through sequence-parallel ring attention",
+        )
+        # Radix-tree prefix KV cache (mcpx/engine/prefix_cache.py,
+        # docs/engine.md "Prefix KV reuse"): cross-request prompt-head
+        # sharing over the paged pool.
+        self.prefix_hits = Counter(
+            "mcpx_kv_prefix_hits_total",
+            "Admitted requests whose prompt matched a resident radix-tree "
+            "KV run (the suffix-only prefill path)",
+        )
+        self.prefix_misses = Counter(
+            "mcpx_kv_prefix_misses_total",
+            "Admitted requests whose prompt matched nothing resident "
+            "(full prefill; the page-aligned prompt is inserted so the "
+            "next sharer hits)",
+        )
+        self.prefix_matched_tokens = Counter(
+            "mcpx_kv_prefix_matched_tokens_total",
+            "Prompt tokens served from resident radix-tree KV instead of "
+            "being re-prefilled — with mcpx_engine_prefill_tokens_total "
+            "this is the token-level reuse rate",
+        )
+        self.prefix_shared_pages = Gauge(
+            "mcpx_kv_prefix_shared_pages",
+            "KV pages resident in the radix prefix tree (shareable prompt-"
+            "head KV; competes with row pages under the eviction budget)",
+        )
+        self.prefix_evictions = Counter(
+            "mcpx_kv_prefix_evictions_total",
+            "Radix-tree nodes reclaimed (refcount-0 LRU leaves dropped "
+            "under pool pressure or cache budget)",
+        )
+        # Tiered KV cache (mcpx/engine/spill.py, docs/engine.md "Tiered KV
+        # & cache governance"): host-RAM spill tier + per-tenant governance
+        # under the radix tree. All zero while engine.kv_tier is off.
+        self.kv_spills = Counter(
+            "mcpx_kv_spill_spills_total",
+            "Radix-tree KV runs migrated device->host under eviction "
+            "pressure (async gather; the destructive-eviction alternative)",
+        )
+        self.kv_readmits = Counter(
+            "mcpx_kv_spill_readmits_total",
+            "Spilled KV runs re-admitted host->device on a prefix match "
+            "(async page copy instead of re-prefilling the run)",
+        )
+        self.kv_destructive_evictions = Counter(
+            "mcpx_kv_spill_destructive_evictions_total",
+            "Evictions that DESTROYED KV despite the tier (host/copy "
+            "budget overrun, chaos host-alloc failure, unreachable spilled "
+            "subtree under a dropped parent) — the tier's visible "
+            "degradation path",
+        )
+        self.kv_host_evictions = Counter(
+            "mcpx_kv_spill_host_evictions_total",
+            "Spilled runs dropped from the host tier (LRU, under the "
+            "host byte budget)",
+        )
+        self.kv_denied_readmits = Counter(
+            "mcpx_kv_spill_denied_readmits_total",
+            "Prefix matches that ended at a spilled run because the "
+            "per-admission-cycle copy budget (or device budget) refused "
+            "the readmit — the request prefilled instead",
+        )
+        self.kv_host_tokens = Gauge(
+            "mcpx_kv_spill_host_tokens",
+            "Prompt tokens whose KV is resident in the host spill tier",
+        )
+        self.kv_host_bytes = Gauge(
+            "mcpx_kv_spill_host_bytes",
+            "Pinned host bytes held by the spill tier (vs its configured "
+            "budget, engine.kv_tier.host_mb)",
+        )
+        self.kv_tenant_resident_tokens = Gauge(
+            "mcpx_kv_tenant_resident_tokens",
+            "Device-resident radix-tree KV tokens per tenant (cache "
+            "governance; tenants past the governor's cardinality cap fold "
+            "into 'other', so the label space is bounded)",
+            ["tenant"],
+        )
+        # Grammar-aware speculative decoding (engine/speculative.py): how
+        # many tokens the recurrent drafter proposed and how many survived
+        # the batched verify, split by row class — constrained rows draft
+        # through their stacked grammar DFA (admissible-only proposals,
+        # forced chains accepted with certainty), free rows draft unmasked.
+        # accepted/drafted per class is the acceptance rate the design
+        # claims stays high exactly where decode is slowest.
+        self.spec_drafted = Counter(
+            "mcpx_engine_spec_drafted_total",
+            "Draft tokens proposed by the speculative decoder, by row "
+            "class (constrained = grammar-DFA pre-filtered, free = "
+            "unmasked drafter proposals)",
+            ["cls"],
+        )
+        self.spec_accepted = Counter(
+            "mcpx_engine_spec_accepted_total",
+            "Draft tokens accepted by the batched verification forward "
+            "(each accepted token is one full model forward the slab did "
+            "NOT run), by row class",
+            ["cls"],
+        )
+        self.spec_accept_rate = Gauge(
+            "mcpx_engine_spec_accept_rate",
+            "Running speculative accept rate (accepted/drafted) per row "
+            "class — the grammar pre-filter keeps the constrained rate "
+            "high independent of drafter quality (forced chains verify "
+            "with certainty); the free rate is all drafter",
+            ["cls"],
+        )
+        # Roofline cost observatory (mcpx/telemetry/costs.py,
+        # docs/observability.md): the retrace sentinel + HBM pressure.
+        self.engine_compiles = Counter(
+            "mcpx_engine_compiles_total",
+            "XLA compiles per engine executable (cost registry signature "
+            "misses). After warmup this series should be FLAT: a growing "
+            "rate for one executable is a recompile storm — a shape/dtype "
+            "leaking into a jitted call per request — previously only "
+            "catchable by compile-count tests; the paired log line names "
+            "the exact argument leaf that changed",
+            ["executable"],
+        )
+        self.hbm_bytes_in_use = Gauge(
+            "mcpx_hbm_bytes_in_use",
+            "Device memory in use (memory_stats), per local device — with "
+            "mcpx_engine_kv_page_utilization this splits HBM pressure into "
+            "weights+workspace vs KV pages. Absent on backends without "
+            "allocator stats (the CPU proxy); refreshed at /metrics and "
+            "/costs scrape time",
+            ["device"],
+        )
+        self.hbm_bytes_limit = Gauge(
+            "mcpx_hbm_bytes_limit",
+            "Device memory capacity (memory_stats), per local device",
+            ["device"],
+        )
+        self.resident_grammars = Gauge(
+            "mcpx_engine_resident_grammars",
+            "Distinct constrained grammars resident in the decode slab "
+            "(heterogeneous batching stacks their DFA tables; the trivial "
+            "all-accept DFA for unconstrained rows is not counted)",
+        )
+        # Milliseconds, matching what it measures: drain-to-switch waits are
+        # tens-to-hundreds of ms, far off the request-latency bucket grid.
+        self.hol_wait = Histogram(
+            "mcpx_engine_hol_wait_ms",
+            "Head-of-line wait: enqueue to admission-prefill start, per "
+            "admitted request (milliseconds). Under a mixed stream this is "
+            "where homogeneous-slab drain-to-switch shows up; heterogeneous "
+            "batching admits in queue order and flattens it",
+            buckets=(1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10000),
+        )
+        self.queue_depth_class = Gauge(
+            "mcpx_engine_queue_depth_class",
+            "Unadmitted engine requests by class (constrained vs free-form) "
+            "— a homogeneous slab starves one class while serving the other; "
+            "per-class depth makes that visible",
+            ["cls"],
+        )
+        self.prefill_tokens = Counter(
+            "mcpx_engine_prefill_tokens_total",
+            "Real (unpadded) prompt tokens prefilled — with decode_tokens this "
+            "gives goodput model-FLOPs for MFU accounting",
+        )
+        # Per-request cost ledger & per-tenant usage attribution
+        # (mcpx/telemetry/ledger.py, docs/observability.md "Cost ledger &
+        # SLO budgets"). All families stay empty while
+        # telemetry.ledger.enabled is false; tenant labels are bounded by
+        # the ledger's fold-at-max_tenants.
+        self.ledger_requests = Counter(
+            "mcpx_ledger_requests_total",
+            "Requests billed by the cost ledger, per tenant and final "
+            "status class",
+            ["tenant", "status"],
+        )
+        self.ledger_wall_ms = Counter(
+            "mcpx_ledger_wall_ms_total",
+            "Billed request wall time by phase (sched_queue / engine_queue "
+            "/ prefill / decode / plan_other / tool, milliseconds) per "
+            "tenant — the itemized where-did-the-latency-go ledger",
+            ["tenant", "phase"],
+        )
+        self.ledger_units = Counter(
+            "mcpx_ledger_units_total",
+            "Billed unit counts per tenant: prefill/decode/prefix-saved/"
+            "spec-accepted/spill-copy tokens, decode forwards, KV "
+            "page-seconds, tool attempts",
+            ["tenant", "item"],
+        )
+        self.ledger_flops = Counter(
+            "mcpx_ledger_flops_total",
+            "Achieved XLA FLOPs billed per tenant, apportioned from the "
+            "cost observatory's per-executable totals by row-residency "
+            "share (sums to those totals across tenants)",
+            ["tenant"],
+        )
+        self.ledger_hbm_bytes = Counter(
+            "mcpx_ledger_hbm_bytes_total",
+            "Achieved HBM bytes billed per tenant (same apportionment "
+            "contract as mcpx_ledger_flops_total)",
+            ["tenant"],
+        )
+        # SLO error-budget engine (mcpx/telemetry/slo.py): global budget
+        # state per objective; per-tenant detail lives at GET /slo.
+        self.slo_budget_remaining = Gauge(
+            "mcpx_slo_budget_remaining",
+            "Fraction of the objective's error budget left over the "
+            "budget period (slowest window); < 0 = overspent. Refreshed "
+            "at scrape",
+            ["objective"],
+        )
+        self.slo_burn_rate = Gauge(
+            "mcpx_slo_burn_rate",
+            "Error-budget burn rate per objective and window (1.0 = "
+            "spending exactly the budget); the fast pair feeds the "
+            "flight recorder's slo_burn detector and the burn-aware "
+            "degradation ladder",
+            ["objective", "window"],
+        )
+        # Cluster (mcpx/cluster/): per-replica scoreboard gauges refreshed
+        # by the pool's off-request-path scoreboard loop, plus routing
+        # counters incremented at grant-route time. The "replica" label is
+        # the pool slot index — bounded by cluster.replicas, never by
+        # traffic.
+        self.cluster_replicas_ready = Gauge(
+            "mcpx_cluster_replicas_ready",
+            "Engine replicas currently routable (pool state 'ready')",
+        )
+        self.cluster_replica_state = Gauge(
+            "mcpx_cluster_replica_state",
+            "Pool-side replica lifecycle (0=dead 1=spawning/warming "
+            "2=draining 3=ready)",
+            ["replica"],
+        )
+        self.cluster_replica_depth = Gauge(
+            "mcpx_cluster_replica_depth",
+            "Replica queue depth incl. pool-tracked in-flight routes",
+            ["replica"],
+        )
+        self.cluster_replica_eta = Gauge(
+            "mcpx_cluster_replica_eta_seconds",
+            "Replica admission ETA from its queue_stats snapshot",
+            ["replica"],
+        )
+        self.cluster_replica_skew = Gauge(
+            "mcpx_cluster_replica_skew",
+            "Max-over-mean queue load across routable replicas (1.0 = "
+            "balanced); the flight recorder's replica_skew signal",
+        )
+        self.cluster_routed = Counter(
+            "mcpx_cluster_routed_requests_total",
+            "Generate requests routed to each replica",
+            ["replica"],
+        )
+        self.cluster_affinity_hits = Counter(
+            "mcpx_cluster_affinity_hits_total",
+            "Routed requests that landed on their prefix-affinity replica",
+            ["replica"],
+        )
+        self.cluster_resteers = Counter(
+            "mcpx_cluster_resteers_total",
+            "Requests re-routed to a surviving replica after their first "
+            "choice died mid-request",
+        )
+        # Decision provenance (mcpx/telemetry/provenance.py): which policy
+        # decided routing, and how many "why" records each layer emits.
+        # policy_winner is the pipeline's bounded policy-name set; layer is
+        # provenance.LAYERS (unknown layers fold into "other") — neither
+        # grows with traffic. Routing decisions carry exemplar trace ids
+        # (OpenMetrics exposition only) like the latency histograms.
+        self.route_decisions = Counter(
+            "mcpx_route_decisions_total",
+            "Cluster routing decisions by the policy contributing most to "
+            "the winning replica's score",
+            ["policy_winner"],
+        )
+        self.provenance_records = Counter(
+            "mcpx_provenance_records_total",
+            "DecisionRecords emitted per layer "
+            "(sched/plan/route/resilience/replan/prefix)",
+            ["layer"],
+        )
+        # Scheduler (mcpx/scheduler/): admission decisions, queue wait, and
+        # ladder state. outcome: admitted | degraded (admitted but routed to
+        # the shortlist planner by the degradation ladder) | shed_rate |
+        # shed_queue | shed_deadline — mutually exclusive, so shares are
+        # ratios over the summed counter.
+        self.sched_decisions = Counter(
+            "mcpx_sched_decisions_total",
+            "Scheduler admission decisions (admitted/degraded/shed_*)",
+            ["outcome"],
+        )
+        self.sched_queue_wait = Histogram(
+            "mcpx_sched_queue_wait_seconds",
+            "Scheduler queue wait (enqueue to dispatch) for admitted requests",
+            buckets=LATENCY_BUCKETS,
+        )
+        self.sched_queue_depth = Gauge(
+            "mcpx_sched_queue_depth",
+            "Requests waiting in the scheduler's fair queue",
+        )
+        self.sched_degraded = Gauge(
+            "mcpx_sched_degraded_mode",
+            "1 while the degradation ladder is routing /plan to the "
+            "shortlist planner instead of the LLM",
+        )
+        # Per-request engine phase latencies, observed at retirement: where a
+        # request's wall time went (admission queue wait vs prefill vs decode)
+        # — the split the bench's attribution reads.
+        self.engine_queue_seconds = Histogram(
+            "mcpx_engine_queue_seconds",
+            "Time from enqueue to admission prefill start",
+            buckets=LATENCY_BUCKETS,
+        )
+        self.engine_prefill_seconds = Histogram(
+            "mcpx_engine_prefill_seconds",
+            "Admission-cohort prefill wall time attributed to each request",
+            buckets=LATENCY_BUCKETS,
+        )
+        self.engine_decode_seconds = Histogram(
+            "mcpx_engine_decode_seconds",
+            "Time from admission to final token",
+            buckets=LATENCY_BUCKETS,
+        )
+
+    def families(self) -> list[_Family]:
+        return [v for v in vars(self).values() if isinstance(v, _Family)]
+
+    def set_build_info(self, *, version: str, torch: str, backend: str) -> None:
+        """Stamp the build-identity labels (once, at control-plane build).
+        Idempotent: re-stamping with the same labels is a no-op series."""
+        self.build_info.labels(version=version, torch=torch, backend=backend).set(1)
+
+    def render(self, *, openmetrics: bool = False) -> bytes:
+        """Prometheus text exposition; ``openmetrics=True`` renders the
+        OpenMetrics format instead: the only exposition that includes the
+        exemplar trace ids attached to latency observations (the classic
+        text format drops them)."""
+        self.process_uptime.set(time.monotonic() - self._t_start)
+        return _expose(self.families(), openmetrics)

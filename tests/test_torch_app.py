@@ -9,6 +9,14 @@ reference's (``mcpx.server.app``) through aiohttp's test client, on the CPU:
     ``X-Trace-Id`` header;
   - the ``server.max_concurrency`` 429 and the ``server.request_timeout_s``
     504, in both apps;
+  - the observability surface: the session above includes ``/traces``,
+    ``/traces/{id}`` and ``/costs``; ``/metrics`` as text and as OpenMetrics
+    holds the same request, plan and attempt counters in both apps, with
+    the exemplar naming the request's trace; the ``traceparent`` round trip
+    (``X-Trace-Id`` equal to the trace's id); tail sampling keeps 5xx and
+    drops 4xx; tracing off leaves no ``traceparent`` and no trace ids in
+    error bodies; ``/profile/start`` and ``/profile/stop`` on
+    ``torch.profiler`` with their 409 paths; ``/costs`` of a CPU engine;
   - the 504 of a ``/plan`` frees the engine row the abandoned request held
     (the port of ``tests/test_server_limits.py``'s reaping test, on the
     port's CPU engine), and the engine serves again.
@@ -35,7 +43,7 @@ PORT = dict(
     build=lambda cfg, **kw: build_control_plane(cfg, device="cpu", **kw), app=build_app,
     Config=MCPXConfig, Local=LocalTransport, Router=RouterTransport, Error=TransportError,
 )
-WALL_CLOCK = ("latency_ms", "total_ms", "trace_id", "ewma_latency_ms")
+WALL_CLOCK = ("latency_ms", "total_ms", "trace_id", "ewma_latency_ms", "started_at")
 
 
 def masked(obj):
@@ -111,6 +119,9 @@ SESSION = [
     ("get", "/cache", None),
     ("get", "/telemetry", None),
     ("get", "/healthz", None),
+    ("get", "/traces", None),
+    ("get", "/traces/deadbeef", None),
+    ("get", "/costs", None),
     ("delete", "/services/summarize", None),
     ("delete", "/services/summarize", None),
     ("get", "/services", None),
@@ -270,3 +281,182 @@ def test_main_serves_the_configured_app(tmp_path, monkeypatch):
     routes = {(r.method, r.resource.canonical) for r in served["app"].router.routes()}
     assert {("POST", "/plan"), ("POST", "/execute"), ("POST", "/plan_and_execute"),
             ("GET", "/healthz"), ("DELETE", "/services/{name}")} <= routes
+
+
+# ------------------------------------------------------------ observability
+def _scrape(text: str, openmetrics: bool = False) -> dict:
+    from prometheus_client.openmetrics.parser import text_string_to_metric_families as parse_om
+    from prometheus_client.parser import text_string_to_metric_families as parse_text
+
+    out = {}
+    for fam in (parse_om if openmetrics else parse_text)(text):
+        for s in fam.samples:
+            out[(s.name, tuple(sorted(s.labels.items())))] = (s.value, s.exemplar)
+    return out
+
+
+COUNTED = ("mcpx_requests_total", "mcpx_plans_total", "mcpx_plan_cache_total",
+           "mcpx_node_attempts_total", "mcpx_service_calls_total", "mcpx_replans_total")
+
+
+async def _observe(ns):
+    cfg = ns["Config"].from_dict({
+        "planner": {"kind": "heuristic", "shortlist_top_k": 2},
+        "orchestrator": {"retry_backoff_s": 0.0, "default_retries": 0},
+    })
+    cp = ns["build"](cfg, transport=_transport(ns, failing={"rank-broken"}))
+    for rec in RECORDS:
+        await cp.registry.put(ns["Record"].from_dict(rec))
+    upstream_trace, upstream_span = "f" * 31 + "e", "a" * 16
+
+    async def drive(client):
+        r = await client.post("/plan", json={"intent": "search documents and summarize"})
+        tid = r.headers["X-Trace-Id"]
+        assert r.headers["traceparent"].split("-")[1] == tid and cp.tracer.get(tid) is not None
+        r2 = await client.post(
+            "/plan", json={"intent": "search documents"},
+            headers={"traceparent": f"00-{upstream_trace}-{upstream_span}-01"},
+        )
+        assert r2.headers["X-Trace-Id"] == upstream_trace
+        assert r2.headers["traceparent"].split("-")[1] == upstream_trace
+        assert cp.tracer.get(upstream_trace).remote_parent == upstream_span
+        await client.post("/plan_and_execute", json={"intent": "rank items by score quality", "payload": {"query": "q"}})
+        # The last observation of a bucket holds its exemplar: the 400 is
+        # the last /plan before the scrape, and its trace is kept.
+        bad = await client.post("/plan", json={"intent": " "})
+        bad_tid = bad.headers["X-Trace-Id"]
+        full = await (await client.get(f"/traces/{tid}")).json()
+        chrome = await (await client.get(f"/traces/{tid}?format=chrome")).json()
+        text = await client.get("/metrics")
+        om = await client.get("/metrics", headers={"Accept": "application/openmetrics-text"})
+        scraped = _scrape(await text.text())
+        om_scraped = _scrape(await om.text(), openmetrics=True)
+        exemplars = {ex.labels["trace_id"] for v, ex in om_scraped.values() if ex is not None}
+        counters = {k: v for k, (v, _) in scraped.items() if k[0] in COUNTED}
+        names = [s["name"] for s in full["tree"]]
+        n_listed = len((await (await client.get("/traces")).json())["traces"])
+        return dict(
+            text_type=text.headers["Content-Type"], om_type=om.headers["Content-Type"],
+            counters=counters, tid_exemplar=bad_tid in exemplars,
+            exemplars_kept=all(cp.tracer.get(t) is not None for t in exemplars), names=names,
+            chrome=sorted(e["name"] for e in chrome["traceEvents"] if e["ph"] == "X"),
+            n_listed=n_listed,
+        )
+
+    return await with_client(ns["app"](cp), drive)
+
+
+def test_metrics_traces_and_traceparent_match_reference():
+    from mcpx.registry.base import ServiceRecord as JRecord
+
+    ref = asyncio.run(_observe(dict(REF, Record=JRecord)))
+    port = asyncio.run(_observe(dict(PORT, Record=ServiceRecord)))
+    assert port == ref
+    assert port["text_type"].startswith("text/plain") and "openmetrics" in port["om_type"]
+    assert port["tid_exemplar"] and port["exemplars_kept"]
+    assert port["names"] == ["/plan", "plan", "plan.context"]
+    assert port["counters"][("mcpx_requests_total", (("endpoint", "/plan"), ("status", "ok")))] == 2
+    assert port["counters"][("mcpx_replans_total", ())] == 1
+    assert port["n_listed"] == 4  # the 400 is kept: head sampling keeps everything
+
+
+async def _tail_sampling(ns):
+    cfg = ns["Config"].from_dict({"planner": {"kind": "heuristic"}, "tracing": {"sample_rate": 0.0}})
+    cp = ns["build"](cfg, transport=_transport(ns))
+
+    async def drive(client):
+        bad = await client.post("/plan", json={"intent": "   "})
+        missing = await client.post("/no-such-route", json={})
+        kept_before = len(cp.tracer.traces())
+        cp.orchestrator.execute = None  # the handler fails with a 500
+        boom = await client.post("/execute", json={"graph": GRAPH})
+        return bad.status, missing.status, kept_before, boom.status, len(cp.tracer.traces())
+
+    return await with_client(ns["app"](cp), drive)
+
+
+def test_tail_sampling_keeps_5xx_and_drops_4xx_as_reference():
+    ref = asyncio.run(_tail_sampling(REF))
+    port = asyncio.run(_tail_sampling(PORT))
+    assert port == ref == (400, 404, 0, 500, 1)
+
+
+async def _untraced(ns):
+    cfg = ns["Config"].from_dict({"planner": {"kind": "heuristic"}, "tracing": {"enabled": False}})
+    cp = ns["build"](cfg, transport=_transport(ns))
+    await cp.registry.put(ns["Record"].from_dict(RECORDS[0]))
+
+    async def drive(client):
+        ok = await client.post("/plan", json={"intent": "search documents"})
+        bad = await client.post("/plan", json={"intent": "   "})
+        listing = await (await client.get("/traces")).json()
+        return ("traceparent" in ok.headers, bool(ok.headers["X-Trace-Id"]), await bad.json(), listing)
+
+    return await with_client(ns["app"](cp), drive)
+
+
+def test_tracing_disabled_surface_matches_reference():
+    from mcpx.registry.base import ServiceRecord as JRecord
+
+    ref = asyncio.run(_untraced(dict(REF, Record=JRecord)))
+    port = asyncio.run(_untraced(dict(PORT, Record=ServiceRecord)))
+    assert port == ref == (False, True, {"error": "'intent' must be a non-empty string"}, {"traces": []})
+
+
+def test_profile_routes_write_a_torch_profiler_trace(tmp_path):
+    cfg = MCPXConfig.from_dict({"planner": {"kind": "heuristic"}, "server": {"profile_dir": str(tmp_path / "d")}})
+    cp = build_control_plane(cfg, device="cpu", transport=_transport(PORT))
+
+    async def drive(client):
+        out = [await client.post("/profile/stop")]
+        out.append(await client.post("/profile/start", json={"dir": 5}))
+        out.append(await client.post("/profile/start"))
+        out.append(await client.post("/profile/start"))
+        out.append(await client.post("/execute", json={"graph": GRAPH, "payload": {"query": "q"}}))
+        out.append(await client.post("/profile/stop"))
+        out.append(await client.post("/profile/stop"))
+        return [(r.status, await r.json()) for r in out]
+
+    res = asyncio.run(with_client(build_app(cp), drive))
+    d = str(tmp_path / "d")
+    assert [s for s, _ in res] == [409, 400, 200, 409, 200, 200, 409]
+    assert res[0][1]["error"] == "profiling not active"
+    assert res[2][1] == {"profiling": "started", "dir": d}
+    assert res[3][1]["error"] == f"profiling already active (dir={d})"
+    assert res[5][1] == {"profiling": "stopped", "dir": d}
+    traces = list((tmp_path / "d").glob("*.json"))
+    assert len(traces) == 1 and '"traceEvents"' in traces[0].read_text()
+
+
+def test_costs_and_metrics_of_a_cpu_engine():
+    cfg = MCPXConfig.from_dict({
+        "model": {"size": "test", "max_seq_len": 256},
+        "planner": {"kind": "llm"},
+        "engine": {"max_batch_size": 2, "max_decode_len": 16, "kv_page_size": 16, "max_pages_per_seq": 16},
+    })
+    cp = build_control_plane(cfg, device="cpu")
+
+    async def drive(client):
+        await cp.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a"))
+        cold = await (await client.get("/costs")).json()
+        await cp.startup()
+        r = await client.post("/plan", json={"intent": "do a"})
+        assert r.status == 200
+        costs = await (await client.get("/costs")).json()
+        text = await (await client.get("/metrics")).text()
+        rec = cp.tracer.get(r.headers["X-Trace-Id"])
+        return cold, costs, text, sorted({s.name for s in rec.spans})
+
+    cold, costs, text, names = asyncio.run(with_client(build_app(cp), drive))
+    assert cold["device"] is None and cold["reason"] == "engine not ready; device stats deferred"
+    assert set(costs) == {"engine", "engine_state", "pallas", "device"}
+    assert costs["engine_state"] == "ready"
+    assert {"prefill", "admit", "window"} <= set(costs["engine"]["executables"])
+    assert costs["engine"]["totals"]["flops_executed"] > 0
+    assert costs["pallas"]["paths"]["decode"]["dispatches"] > 0
+    assert costs["pallas"]["paths"]["decode"]["engaged"] is False  # CPU tensors: the plain version
+    assert costs["device"]["peaks"]["flops_per_chip"] is None
+    assert costs["device"]["hbm"] == [{"device": "cpu", "available": False}]
+    assert 'mcpx_engine_compiles_total{executable="window"}' in text
+    assert 'mcpx_build_info{backend="cpu",torch="' in text
+    assert {"engine.generate", "engine.queue_wait", "engine.prefill", "engine.decode", "engine.segment"} <= set(names)

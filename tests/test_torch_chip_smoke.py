@@ -1,7 +1,9 @@
 """Pieces of ``chip_smoke.py`` that run without a card: the kernel phase's
 least-time count (``attention_bound``: it charges what the function needs,
-no more), and the execute phase's prompt checks, failing transport,
-rounds of executions (``Lockstep``) and probe exclusion."""
+no more), the execute phase's prompt checks, failing transport, rounds of
+executions (``Lockstep``) and probe exclusion, and the telemetry phase: its
+exposition parser, its latency attribution against the reference bench's,
+and the phase itself on a CPU control plane."""
 
 import os
 import sys
@@ -147,3 +149,117 @@ def test_probe_excludes_a_service_the_prompt_renders():
     assert chip_smoke.rendered_exclusion(plan(["x", "b"], ["c", "b"])) == "b"
     assert chip_smoke.rendered_exclusion(plan(["x", "y"], ["c", "b"])) == "c"
     assert chip_smoke.rendered_exclusion(plan(["x"], None)) == "x"
+
+
+def test_parse_exposition_reads_the_port_metrics_and_refuses_garbage():
+    import pytest
+
+    from mcpx_torch.telemetry.metrics import Metrics
+
+    m = Metrics()
+    m.requests.labels(endpoint="/plan", status="ok").inc(3)
+    m.grammar_fallbacks.labels(kind='a "quoted" \\ kind').inc()
+    m.hol_wait.observe(7.0)
+    parsed = chip_smoke.parse_exposition(m.render().decode())
+    assert chip_smoke.metric(parsed, "mcpx_requests_total", '{endpoint="/plan",status="ok"}') == 3.0
+    assert chip_smoke.metric(parsed, "mcpx_engine_hol_wait_ms_bucket", '{le="10.0"}') == 1.0
+    assert chip_smoke.metric(parsed, "mcpx_engine_decode_forwards_total") == 0.0
+    with pytest.raises(SystemExit, match="unparsable"):
+        chip_smoke.parse_exposition("# TYPE x counter\nx{bad} 1\n")
+    with pytest.raises(SystemExit, match="no TYPE line"):
+        chip_smoke.parse_exposition("mcpx_orphan 1.0\n")
+
+
+def test_attribution_matches_the_reference_bench():
+    import bench
+
+    from mcpx_torch.telemetry.tracing import Tracer
+
+    tr = Tracer(enabled=True)
+    recs = []
+    for i in range(5):
+        root = tr.start_request("/plan")
+        t0 = root.t0
+        plan = root.child("plan", t0=t0 + 0.001, t1=t0 + 0.099)
+        plan.child("engine.generate", t0=t0 + 0.002, t1=t0 + 0.090 + 0.001 * i)
+        root.child("engine.queue_wait", t0=t0 + 0.004, t1=t0 + 0.010)
+        root.child("engine.prefill", t0=t0 + 0.010, t1=t0 + 0.030 + 0.002 * i)
+        root.child("engine.decode", t0=t0 + 0.030, t1=t0 + 0.090)
+        root.end(t0 + 0.100)
+        tr.finish(root)
+        recs.append(tr.get(root.trace_id))
+    got = chip_smoke.attribution(recs)
+    want = bench._attribution_from_traces(recs)
+    assert got["traces"] == want["traces"] == 5
+    for q in ("p50_ms", "p99_ms"):
+        for k, v in want[q].items():
+            assert round(got[q][k], 2) == v, (q, k)
+    for k, v in want["share_p50"].items():
+        assert round(got["share_p50"][k], 4) == v, k
+    assert abs(got["p50_ms"]["planner_outside_engine"] - 8.0) < 0.1  # 98 ms less 88-92 ms
+
+
+def test_telemetry_phase_runs_on_a_cpu_control_plane():
+    import asyncio
+    import random
+    import threading
+
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    async def go():
+        cfg = chip_smoke.config("test", chip_smoke.CKPT, 8)
+        cfg.engine.warmup_compile = False
+        cp = build_control_plane(cfg, device="cpu")
+        records = synth_registry(100, seed=0)
+        for rec in records:
+            await cp.registry.put(rec)
+        await cp.startup()
+        # Every burst's three requests reach the engine together, so each
+        # burst is one cohort whatever the host's timing: its plans then
+        # equal the first burst's, as the phase requires. A request held
+        # alone (a planner retry) is let through after a second.
+        q = cp.planner.engine._queue
+        real_put, held, lock, timer = q.put, [], threading.Lock(), []
+
+        def flush():
+            with lock:
+                for it in held:
+                    real_put(it)
+                held.clear()
+                for t in timer:
+                    t.cancel()
+                timer.clear()
+
+        def put(item, *args, **kwargs):
+            if not hasattr(item, "prompt_ids"):
+                return real_put(item, *args, **kwargs)
+            with lock:
+                held.append(item)
+                if len(held) == 1:
+                    timer.append(threading.Timer(1.0, flush))
+                    timer[0].start()
+                full = len(held) == 3
+            if full:
+                flush()
+
+        q.put = put
+        try:
+            rng = random.Random(0)
+            intents = [intent_for(records, rng) for _ in range(3)]
+            plans = [p for p, _ in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
+            return await chip_smoke.telemetry_phase(cp, intents, plans, "test", "cpu")
+        finally:
+            await cp.aclose()
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        stats = asyncio.run(go())
+    finally:
+        torch.set_num_threads(n)
+    assert stats["captures"] == 0 and stats["families"] == 71
+    assert stats["decode_forwards_metric"] == stats["live_forwards"] > 0
+    assert stats["worker_profile"]["attributed_frac"] >= 0.95
+    assert len(stats["p50_ms_on"]) == len(stats["p50_ms_off"]) == 3
+    assert stats["roofline"]["achieved_flops_s"] > 0 and "mfu" not in stats["roofline"]

@@ -4,8 +4,9 @@ control plane with both blocked, and its entry points never drop to the CPU
 on their own. The GPU machine has no aiohttp, prometheus_client or redis:
 only ``mcpx_torch.server.app`` imports aiohttp at module level (the HTTP
 transport imports it inside its methods, the Redis plan cache imports redis
-at its first use), and the control plane serves ``/plan`` and
-``/plan_and_execute`` with all three blocked."""
+at its first use), nothing imports prometheus_client (the port's metrics are
+its own), and the control plane serves ``/plan`` and ``/plan_and_execute``,
+traced, and renders its metrics with all three blocked."""
 
 import ast
 import os
@@ -54,6 +55,7 @@ def test_package_imports_and_serves_with_jax_and_reference_blocked():
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["mcpx"] = None
+sys.modules["prometheus_client"] = None
 sys.path.insert(0, {ROOT!r})
 import mcpx_torch
 for m in pkgutil.walk_packages(mcpx_torch.__path__, "mcpx_torch."):
@@ -63,7 +65,10 @@ from mcpx_torch.server.factory import build_control_plane
 cfg = MCPXConfig.from_dict({{"planner": {{"kind": "llm"}}, "model": {{"vocab": "bpe"}}}})
 cp = build_control_plane(cfg, device="cpu")
 assert cp.planner.engine.device.type == "cpu"
-assert not any(k == "jax" or k.startswith(("jax.", "mcpx.")) for k in sys.modules if sys.modules[k])
+assert not any(
+    k in ("jax", "prometheus_client") or k.startswith(("jax.", "mcpx.", "prometheus_client."))
+    for k in sys.modules if sys.modules[k]
+)
 print("ok")
 """
     env = dict(os.environ, JAX_PLATFORMS="cpu")
@@ -132,6 +137,7 @@ from mcpx_torch.orchestrator.transport import LocalTransport, RouterTransport
 from mcpx_torch.registry import ServiceRecord
 from mcpx_torch.server.control import ControlPlane
 from mcpx_torch.server.factory import build_control_plane
+from mcpx_torch.telemetry import tracing
 
 async def go():
     local = LocalTransport()
@@ -145,8 +151,14 @@ async def go():
     assert isinstance(cp, ControlPlane) and isinstance(cp.orchestrator, Orchestrator)
     await cp.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a", description="do a"))
     plan, _ = await cp.plan("do a")
-    out = await cp.plan_and_execute("do a", {{}})
+    root = cp.tracer.start_request("/plan_and_execute")
+    with tracing.activate(root):
+        out = await cp.plan_and_execute("do a", {{}})
+    cp.tracer.finish(root)
     assert plan.nodes and out["status"] == "ok", out
+    assert {{"plan", "execute", "node:svc-a", "attempt"}} <= {{s.name for s in root.record.spans}}
+    text = cp.metrics.render().decode() + cp.metrics.render(openmetrics=True).decode()
+    assert 'mcpx_node_attempts_total{{kind="primary",status="ok"}} 1.0' in text
     small = {{
         "planner": {{"kind": "llm"}}, "model": {{"size": "test", "max_seq_len": 256}},
         "engine": {{"max_batch_size": 2, "max_decode_len": 16, "kv_page_size": 16, "max_pages_per_seq": 16}},

@@ -19,6 +19,7 @@ import asyncio
 import dataclasses
 import os
 import random
+import re
 
 import jax
 import numpy as np
@@ -67,6 +68,11 @@ def one_cpu_thread():
         ("resilience", "chaos_profile", "chaos.json"),
         ("retrieval", "snapshot_path", "index.npz"),
         ("telemetry", "redis_url", "redis://localhost:6379/0"),
+        # The reference's control plane builds these default-off parts.
+        ("telemetry", "flight.enabled", True),
+        ("telemetry", "ledger.enabled", True),
+        ("telemetry", "provenance.enabled", True),
+        ("slo", "enabled", True),
         (None, None, None),
     ],
 )
@@ -78,12 +84,21 @@ def test_factory_refuses_options_the_port_does_not_serve(section, key, value):
         cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
         assert cp.config.telemetry.enabled
         assert isinstance(cp.redis_plan_cache, RedisPlanCache)
+        # Default-on observability: one metrics registry, a tracer from
+        # the config; the worker-loop profiler is served too.
+        assert cp.orchestrator._metrics is cp.metrics and cp.tracer.enabled
+        cfg["telemetry"] = {"flight": {"profile_worker": True}}
+        build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
         # The mirror is the reference's only while telemetry is on.
         cfg["telemetry"] = {"enabled": False, "redis_url": "redis://localhost:6379/0"}
         build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
         return
-    cfg[section] = {key: value}
-    with pytest.raises(ConfigError, match=f"{section}.{key}"):
+    node = cfg.setdefault(section, {})
+    *parents, leaf = key.split(".")
+    for name in parents:
+        node = node.setdefault(name, {})
+    node[leaf] = value
+    with pytest.raises(ConfigError, match=re.escape(f"{section}.{key}")):
         build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
 
 
