@@ -28,8 +28,9 @@ Phases, one line each (every number beside the card's name and power limit):
      segment with live rows, ``graph_window``: from one snapshot of the
      slab state and KV pools, the window run eagerly and by replay of its
      graph in turns, every buffer and pool byte equal, with host ms and
-     device ms per window for both routes. The first burst is traced, runs
-     with a ``WorkerProfiler`` attached, and prints its latency
+     device ms per window for both routes. The first burst starts from an
+     emptied tree, reaches the engine as one cohort (``one_cohort``), is
+     traced, runs with a ``WorkerProfiler`` attached, and prints its latency
      attribution, its worker-loop breakdown and the executable keys it ran
      for the first time;
   6. serve at full width: the 2b preset (random weights from seed 0), 8
@@ -49,7 +50,8 @@ Phases, one line each (every number beside the card's name and power limit):
      and suffix prefills through the kernel, and fewer prefill tokens per
      request with the cache on;
   9. telemetry (``telemetry_test``, ``telemetry_2b``), on the same engines:
-     the burst's intents once more with a fresh ``Tracer`` (every trace
+     the burst's intents once more, from an emptied tree and as one cohort
+     as the burst ran, with a fresh ``Tracer`` (every trace
      kept) and a ``WorkerProfiler`` attached live, each request under a
      root span as the reference bench's traced rounds run it. Fails unless
      every plan equals the burst's, every trace holds ``plan``,
@@ -87,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import contextvars
 import dataclasses
 import gc
@@ -98,6 +101,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -474,18 +478,22 @@ async def serve(
         rng = random.Random(0)
         intents = [intent_for(records, rng) for _ in range(n_intents)]
         engine = cp.planner.engine
+        # The first burst from an emptied tree and as one cohort, as the
+        # telemetry phase serves these intents again and requires the same
+        # plans; traced, with the worker-loop profiler attached (the
+        # telemetry phases print p50 with and without both).
+        await engine.drop_unpinned()
         q0 = engine.queue_stats()
         c0 = engine.costs.snapshot()["executables"]
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_kernel_launches()
-        # The first burst traced, with the worker-loop profiler attached
-        # (the telemetry phases print p50 with and without both).
         tracer = Tracer(enabled=True, sample_rate=1.0, ring_size=max(256, n_intents))
         engine._profiler = prof = WorkerProfiler()
         t0 = time.monotonic()
         try:
-            plans, recs = await traced_burst(cp, intents, tracer)
+            with one_cohort(engine, n_intents):
+                plans, recs = await traced_burst(cp, intents, tracer)
         finally:
             engine._profiler = None
         wall = time.monotonic() - t0
@@ -1025,6 +1033,60 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
+@contextlib.contextmanager
+def one_cohort(engine, n: int, timeout_s: float = 10.0):
+    """Hold the engine's next ``n`` generate requests and enqueue them at
+    once, in prompt order, so that a burst forms one admission cohort
+    whatever the planner's host timing: the rows that prefill densely or
+    from the tree, and the companions each decode window runs with, are then
+    the same in every pass of the burst, and so are its greedy plans (at 2b
+    random weights leave near-ties that another cohort split flips). A
+    request beyond the ``n`` (a planner retry) passes straight through;
+    held requests are let through after ``timeout_s`` whatever their
+    count. Each held request's ``enqueued_at`` restarts at its release: the
+    hold is the harness's, not the engine queue's."""
+    q = engine._queue
+    real_put, held, lock = q.put, [], threading.Lock()
+    state = {"taken": 0, "timer": None}
+
+    def release() -> None:
+        with lock:
+            state["taken"] = n  # released once: later requests pass through
+            items = sorted(held, key=lambda r: r.prompt_ids)
+            held.clear()
+            if state["timer"] is not None:
+                state["timer"].cancel()
+        now = time.monotonic()
+        with q.not_full:  # all at once: the worker's drain sees every one
+            for r in items:
+                r.enqueued_at = now
+                q._put(r)
+                q.unfinished_tasks += 1
+            q.not_empty.notify()
+
+    def put(item, *args, **kwargs):
+        with lock:
+            take = hasattr(item, "prompt_ids") and state["taken"] < n
+            if take:
+                state["taken"] += 1
+                held.append(item)
+                if state["timer"] is None:
+                    state["timer"] = threading.Timer(timeout_s, release)
+                    state["timer"].start()
+            full = take and state["taken"] == n
+        if not take:
+            return real_put(item, *args, **kwargs)
+        if full:
+            release()
+
+    q.put = put
+    try:
+        yield
+    finally:
+        q.put = real_put
+        release()
+
+
 async def traced_burst(cp, intents: list, tracer) -> tuple[list, list]:
     """Each intent through ``ControlPlane.plan`` under a root span of
     ``tracer`` (as the reference bench's traced rounds: the card has no
@@ -1072,7 +1134,8 @@ async def timed_burst(cp, intents: list, telemetry: bool) -> float:
 
 
 async def telemetry_phase(cp, intents: list, burst_plans: list, size: str, card: str) -> dict:
-    """The burst's intents once more, from an emptied tree, with a fresh
+    """The burst's intents once more, from an emptied tree and as one
+    cohort (``one_cohort``), as the burst ran, with a fresh
     ``Tracer`` (every trace kept) and a ``WorkerProfiler`` attached to the
     live control plane and engine. Fails unless every plan equals the
     burst's, every trace holds the engine's spans, nothing is captured, the
@@ -1102,7 +1165,8 @@ async def telemetry_phase(cp, intents: list, burst_plans: list, size: str, card:
     cp.tracer, engine._profiler = tracer, prof
     try:
         t0 = time.monotonic()
-        plans, recs = await traced_burst(cp, intents, tracer)
+        with one_cohort(engine, len(intents)):
+            plans, recs = await traced_burst(cp, intents, tracer)
         await idle(engine)
         sync()
         wall = time.monotonic() - t0

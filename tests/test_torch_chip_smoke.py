@@ -199,10 +199,39 @@ def test_attribution_matches_the_reference_bench():
     assert abs(got["p50_ms"]["planner_outside_engine"] - 8.0) < 0.1  # 98 ms less 88-92 ms
 
 
+def test_one_cohort_holds_a_burst_and_releases_it_at_once():
+    import queue
+    import time
+    import types
+
+    engine = types.SimpleNamespace(_queue=queue.Queue())
+    req = lambda ids: types.SimpleNamespace(prompt_ids=ids, enqueued_at=0.0)  # noqa: E731
+    q = engine._queue
+    with chip_smoke.one_cohort(engine, 3):
+        q.put(req([5, 1]))
+        q.put("pin")  # not a generate request: passes straight through
+        q.put(req([2]))
+        assert [q.get_nowait()] == ["pin"] and q.empty()
+        t = time.monotonic()
+        q.put(req([3, 9]))  # the third: all three at once, in prompt order
+        assert [q.get_nowait().prompt_ids for _ in range(3)] == [[2], [3, 9], [5, 1]]
+        q.put(req([0]))  # a retry beyond the cohort passes through
+        got = q.get_nowait()
+        assert got.prompt_ids == [0] and got.enqueued_at == 0.0
+    assert q.empty() and q.put.__self__ is q
+    # Fewer than n: the timer lets the held ones through, and later ones pass.
+    with chip_smoke.one_cohort(engine, 3, timeout_s=0.05):
+        q.put(req([1]))
+        assert q.empty()
+        first = q.get(timeout=5)
+        assert first.prompt_ids == [1] and first.enqueued_at >= t
+        q.put(req([4]))
+        assert q.get_nowait().prompt_ids == [4]
+
+
 def test_telemetry_phase_runs_on_a_cpu_control_plane():
     import asyncio
     import random
-    import threading
 
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for, synth_registry
@@ -215,39 +244,14 @@ def test_telemetry_phase_runs_on_a_cpu_control_plane():
         for rec in records:
             await cp.registry.put(rec)
         await cp.startup()
-        # Every burst's three requests reach the engine together, so each
-        # burst is one cohort whatever the host's timing: its plans then
-        # equal the first burst's, as the phase requires. A request held
-        # alone (a planner retry) is let through after a second.
-        q = cp.planner.engine._queue
-        real_put, held, lock, timer = q.put, [], threading.Lock(), []
-
-        def flush():
-            with lock:
-                for it in held:
-                    real_put(it)
-                held.clear()
-                for t in timer:
-                    t.cancel()
-                timer.clear()
-
-        def put(item, *args, **kwargs):
-            if not hasattr(item, "prompt_ids"):
-                return real_put(item, *args, **kwargs)
-            with lock:
-                held.append(item)
-                if len(held) == 1:
-                    timer.append(threading.Timer(1.0, flush))
-                    timer[0].start()
-                full = len(held) == 3
-            if full:
-                flush()
-
-        q.put = put
+        # The first burst as one cohort from an emptied tree, as the chip
+        # script serves it; the phase serves it again the same way.
+        await cp.planner.engine.drop_unpinned()
         try:
             rng = random.Random(0)
             intents = [intent_for(records, rng) for _ in range(3)]
-            plans = [p for p, _ in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
+            with chip_smoke.one_cohort(cp.planner.engine, len(intents)):
+                plans = [p for p, _ in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
             return await chip_smoke.telemetry_phase(cp, intents, plans, "test", "cpu")
         finally:
             await cp.aclose()
