@@ -10,7 +10,9 @@ Phases, one line each (every number beside the card's name and power limit):
      seeded batches at the serving shapes (bf16): a mixed batch, the
      serving bursts' mix of a few live rows among idle ones, and a
      suffix-prefill cohort at prefill width (S 128), at 64-token pages and
-     again the last two at the execute phases' 16-token pages; with its time,
+     again the last two at the execute phases' 16-token pages, and the
+     speculative verify window (S 5, q_len 5 on the live rows, 0 on the
+     rest) at 64-token pages; with its time,
      the plain version's and one PyTorch library call's (a yardstick the
      port never calls), each by back-to-back eager calls (``ms``, host work
      included) and as device time by CUDA-graph replays (``device_ms``),
@@ -73,6 +75,18 @@ Phases, one line each (every number beside the card's name and power limit):
      bench's replan probe, warm against cold; and the pass again with the
      telemetry store reset, equal to the first at test (see
      ``execute_phase``);
+ 11. mixed traffic (``mixed_test``, ``mixed_2b``), on the serving engines
+     after phase 9: the reference bench's five request classes by direct
+     ``engine.generate`` calls with the homogeneous slab, then with the
+     heterogeneous one (``mixed_phase``);
+ 12. the heterogeneous slab with speculative decoding through ``/plan``
+     (``serve_hetero_test``, after phase 5): the first burst's intents on a
+     control plane with ``hetero_batch`` and speculation (k 4) on, whose
+     plans must equal phase 5's (``serve_hetero``);
+ 13. speculation (``spec_test``, ``spec_2b``), after phase 10: the reference
+     bench's speculation scenario on a dedicated heterogeneous engine, off
+     (one token a forward) against on (k 4, the recurrent drafter) in
+     interleaved rounds (``spec_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -225,6 +239,19 @@ def prefill_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype, starts=(0, 64, 128)
     return q, kp, vp, table, as_i32(st), as_i32(q_lens)
 
 
+def verify_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype, live):
+    """The speculative verify window: ``live`` random rows at q_len S (the
+    current token and S - 1 drafts), the rest idle, random distinct pages,
+    starts uniform in [0, Pmax*Psz - S)."""
+    rng = random.Random(seed)
+    q, kp, vp, table, _starts, _q_lens = mixed_batch(seed, B, S, K, G, hd, L, psz, pmax, dtype, live=B)
+    rows = set(rng.sample(range(B), live))
+    as_i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
+    q_lens = [S if b in rows else 0 for b in range(B)]
+    starts = [rng.randint(0, pmax * psz - S - 1) for _ in range(B)]
+    return q, kp, vp, table, as_i32(starts), as_i32(q_lens)
+
+
 def attention_bound(q, k_pages, table, starts, q_lens):
     """(bound_ms, bound_by, bytes, flops) of what the function needs: the
     live queries of q, each live row's visible K and V positions (through
@@ -274,18 +301,24 @@ def sdpa_yardstick(q, k_pages, v_pages, table, starts, layer):
 # live="prefill" is a suffix-prefill cohort at prefill width: B 16, S 128
 # (the prefill bucket), starts 0, 64 or 128, two idle rows. The /p16 cells
 # are the execute phases' geometry: the same row capacity in 16-token pages.
+# live=("verify", n) is the speculative verify window at k 4: B 64, S 5,
+# q_len 5 on n live rows (the spec phases' requests in flight: 32 at test,
+# 16 at 2b) and 0 on the rest.
 CELLS = (
     ("test", 4, 32, 2, None, 64, 4), ("2b", 8, 256, 18, None, 64, 4),
     ("test/serve_mix", 4, 32, 2, 16, 64, 4), ("2b/serve_mix", 8, 256, 18, 8, 64, 4),
     ("test/prefill", 4, 32, 2, "prefill", 64, 4), ("2b/prefill", 8, 256, 18, "prefill", 64, 4),
     ("test/serve_mix/p16", 4, 32, 2, 16, 16, 16), ("2b/serve_mix/p16", 8, 256, 18, 8, 16, 16),
     ("test/prefill/p16", 4, 32, 2, "prefill", 16, 16), ("2b/prefill/p16", 8, 256, 18, "prefill", 16, 16),
+    ("test/verify", 4, 32, 2, ("verify", 32), 64, 4), ("2b/verify", 8, 256, 18, ("verify", 16), 64, 4),
 )
 
 
 def cell_batch(seed: int, G: int, hd: int, L: int, live, psz: int, pmax: int):
     if live == "prefill":
         return prefill_batch(seed, 16, 128, 1, G, hd, L, psz, pmax, torch.bfloat16)
+    if isinstance(live, tuple):
+        return verify_batch(seed, 64, 5, 1, G, hd, L, psz, pmax, torch.bfloat16, live[1])
     return mixed_batch(seed, 64, 8, 1, G, hd, L, psz, pmax, torch.bfloat16, live)
 
 
@@ -682,19 +715,26 @@ NEAR_TIE = 1e-3  # top-2 margin of masked logits under which greedy picks may fl
 def masked_margin(engine, prompt_ids: list, kw: dict, toks: list, k: int) -> float:
     """Top-2 margin of the next token's logits after ``prompt_ids +
     toks[:k]``, masked as the engine masks them (grammar-legal, and able to
-    finish within the decode budget), by one dense prefill on the card."""
+    finish within the decode budget: the call's ``max_new_tokens``, else
+    ``max_decode_len``; a free call's mask is the real vocabulary), by one
+    dense prefill on the card."""
     import numpy as np
 
     from mcpx_torch.models.gemma.model import init_kv_cache, prefill
 
-    grammar = kw.get("grammar") or engine.grammar
-    trans, mask, dist, active, eos, inv = grammar.device_tables(64)
-    s = 0
-    for t in toks[:k]:
-        s = int(trans[s, inv[t]])
-    legal = mask[s]
-    finish = legal & (eos | (dist[trans[s]] <= engine.config.engine.max_decode_len - k - 1))
-    allowed = finish if finish.any() else legal
+    if kw.get("constrained", True):
+        grammar = kw.get("grammar") or engine.grammar
+        trans, mask, dist, active, eos, inv = grammar.device_tables(64)
+        s = 0
+        for t in toks[:k]:
+            s = int(trans[s, inv[t]])
+        legal = mask[s]
+        budget = kw.get("max_new_tokens") or engine.config.engine.max_decode_len
+        finish = legal & (eos | (dist[trans[s]] <= budget - k - 1))
+        allowed = finish if finish.any() else legal
+    else:
+        active = np.arange(engine.tokenizer.vocab_size)
+        allowed = engine._unconstrained_mask.cpu().numpy()
     ids = torch.tensor([list(prompt_ids) + list(toks[:k])], device="cuda")
     cache = init_kv_cache(engine.model_cfg, 1, ids.shape[1], device="cuda")
     with torch.inference_mode():
@@ -1226,6 +1266,293 @@ async def telemetry_phase(cp, intents: list, burst_plans: list, size: str, card:
 
 
 # ------------------------------------------------------------ execute path
+# ------------------------------------------------------------ heterogeneous slab and speculation
+HOT = 0.7  # the reference bench's sampled temperature
+
+
+def stream_classes(tok, prefix: str, spec: bool) -> list:
+    """The reference bench's five request classes (constrained, temperature,
+    grammar), with its second grammar over three ``prefix`` services:
+    ``_mixed_phase``'s order, or ``_spec_phase``'s with ``spec``."""
+    from mcpx_torch.planner.grammar import build_plan_grammar
+
+    alt = build_plan_grammar(tok, [f"{prefix}-rank-svc", f"{prefix}-sum-svc", f"{prefix}-etl-svc"])
+    if spec:
+        return [(True, 0.0, None), (True, 0.0, alt), (False, 0.0, None), (True, HOT, None), (False, HOT, None)]
+    return [(True, 0.0, None), (False, HOT, None), (True, 0.0, alt), (True, HOT, None), (False, 0.0, None)]
+
+
+async def serve_stream(engine, classes: list, prefix: str, ids, budget: int, concurrency: int) -> dict:
+    """Direct ``engine.generate`` calls, request i of class ``i % 5`` with
+    the prompt ``"<prefix> intent i: compose the services. JSON:"``, at most
+    ``concurrency`` in flight; returns {i: (prompt, kwargs, result)}."""
+    tok = engine.tokenizer
+    sem = asyncio.Semaphore(concurrency)
+    out: dict = {}
+
+    async def one(i: int) -> None:
+        constrained, temperature, grammar = classes[i % len(classes)]
+        kw = dict(max_new_tokens=budget, constrained=constrained, temperature=temperature, grammar=grammar)
+        prompt = tok.encode(f"{prefix} intent {i}: compose the services. JSON:")
+        async with sem:
+            out[i] = (prompt, kw, await engine.generate(prompt, **kw))
+
+    await asyncio.gather(*(one(i) for i in ids))
+    return out
+
+
+def check_walks(where: str, engine, served: dict) -> None:
+    """Every constrained output is a legal prefix of its grammar."""
+    for i, (_, kw, res) in served.items():
+        g = kw["grammar"] or engine.grammar
+        if kw["constrained"] and g.walk(res.text) == g.dead_state:
+            raise SystemExit(f"{where}: request {i} left its grammar: {res.text!r}")
+
+
+def greedy_differences(where: str, size: str, card: str, engine, a: dict, b: dict) -> list:
+    """The greedy requests whose token streams differ between two runs of a
+    stream: at test a failure; at 2b each is printed with the top-2 margin
+    of the masked logits at its first differing token (a ``near_tie``
+    line). Returns the margins."""
+    margins = []
+    for i, (prompt, kw, res) in a.items():
+        if kw["temperature"] > 0.0 or res.token_ids == b[i][2].token_ids:
+            continue
+        if size == "test":
+            raise SystemExit(f"{where}: greedy request {i} differs: {res.text!r} against {b[i][2].text!r}")
+        toks, other = res.token_ids, b[i][2].token_ids
+        k = next((j for j, (x, y) in enumerate(zip(toks, other)) if x != y), min(len(toks), len(other)))
+        margin = masked_margin(engine, prompt, kw, toks, k)
+        emit(f"near_tie_{size}", card, phase_of=where, request=i, position=k, margin=margin,
+             constrained=kw["constrained"], a=res.text, b=b[i][2].text)
+        margins.append(margin)
+    return margins
+
+
+async def mixed_phase(cp, size: str, card: str, n: int = 96) -> dict:
+    """The reference bench's ``_mixed_phase`` on the serving engine: the five
+    classes round-robin by direct ``engine.generate`` calls, budget
+    ``max(8, min(24, max_decode_len))``, ``n`` requests at concurrency
+    ``min(2 B, 64)``, once with ``hetero_batch`` off (the homogeneous slab,
+    which drains to switch configuration) and once on (live flips on an idle
+    slab), each after an untimed warm round of the same classes. Prints each
+    mode's plans/s, ``hol_wait`` p50/p99 (the admission waits the histogram
+    observes), windows captured and kernel launches. Fails unless the timed
+    run captures nothing, every constrained output walks its grammar and,
+    at test, the greedy rows are the same token for token in both modes
+    (at 2b each difference is printed with its top-2 margin)."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+
+    engine = cp.planner.engine
+    ecfg = engine.config.engine
+    classes = stream_classes(engine.tokenizer, "mixed", spec=False)
+    budget = max(8, min(24, ecfg.max_decode_len))
+    concurrency = min(2 * ecfg.max_batch_size, 64)
+    saved = ecfg.hetero_batch
+    runs = {}
+    try:
+        for hetero in (False, True):
+            await idle(engine)
+            ecfg.hetero_batch = hetero
+            await serve_stream(engine, classes, "mixed", range(max(len(classes), concurrency)), budget, concurrency)
+            await idle(engine)
+            q0 = engine.queue_stats()
+            sync()
+            reset_kernel_launches()
+            t0 = time.monotonic()
+            served = await serve_stream(engine, classes, "mixed", range(n), budget, concurrency)
+            wall = time.monotonic() - t0
+            launches = kernel_launches()
+            q1 = engine.queue_stats()
+            hol = [res.queue_ms for _, _, res in served.values()]
+            stats = dict(
+                model=size, hetero_batch=hetero, requests=n, concurrency=concurrency, budget=budget,
+                wall_s=wall, plans_per_s=n / wall, hol_wait_p50_ms=quantile(hol, 0.5),
+                hol_wait_p99_ms=quantile(hol, 0.99), launches=launches, **loop_counts(engine, q0, q1, n),
+            )
+            emit(f"mixed_{size}", card, **stats)
+            no_new_captures(f"mixed_{size} hetero_batch={hetero}", q0, q1)
+            check_walks(f"mixed_{size}", engine, served)
+            runs[hetero] = (stats, served)
+    finally:
+        await idle(engine)
+        ecfg.hetero_batch = saved
+    margins = greedy_differences(f"mixed_{size}", size, card, engine, runs[True][1], runs[False][1])
+    emit(f"mixed_{size}_parity", card, greedy_requests=sum(c[1] <= 0 for c in classes) * n // len(classes),
+         differing=len(margins), margins=margins)
+    return {"drain": runs[False][0], "hetero": runs[True][0], "differing": len(margins)}
+
+
+def spec_counts(engine) -> dict:
+    """The speculative counters of the engine's metrics, by row class."""
+    m = engine.metrics
+    return {
+        f"{kind}_{cls}": getattr(m, f"spec_{kind}").labels(cls=cls).value
+        for kind in ("drafted", "accepted") for cls in ("constrained", "free")
+    }
+
+
+async def spec_phase(
+    size: str, checkpoint: str, card: str, n: int, rounds: int = 3, batch: int = 64, device=None
+) -> dict:
+    """The reference bench's ``_spec_phase`` on a dedicated engine
+    (heterogeneous slab, batch 64, ``admit_min_free=1``,
+    ``admit_max_wait_s=0``): *off* is ``speculative.enabled=false`` with
+    ``speculate_k=1`` (one token a forward), *on* is k 4 with the recurrent
+    drafter. The five classes of that phase, budget
+    ``max(8, min(48, max_decode_len))``; ``n`` requests in ``rounds``
+    interleaved rounds (off, on), each mode warmed by an untimed round of
+    its own first. Prints each mode's tokens per live forward, decode
+    tokens/s (its best round) and wall; for *on* the accept rate overall
+    and by class (from the metrics series), the verify windows and the
+    kernel launches. Fails unless the timed rounds capture nothing, the
+    verify path ran, ``mcpx_engine_spec_drafted_total`` equals
+    ``queue_stats()["drafted"]``, every constrained output walks its
+    grammar and, at test, the greedy rows are the same in both modes (at
+    2b each difference is printed with its top-2 margin). ``batch`` and
+    ``device`` shrink it for a CPU rehearsal."""
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+
+    cfg = config(size, checkpoint, batch)
+    e = cfg.engine
+    e.hetero_batch, e.warmup_compile, e.admit_min_free, e.admit_max_wait_s = True, False, 1, 0.0
+    e.speculative.k, e.speculative.draft = 4, "recurrent"
+    engine = InferenceEngine(cfg, device=device)  # device=None: the card
+    await engine.start()
+    try:
+        classes = stream_classes(engine.tokenizer, "spec", spec=True)
+        budget = max(8, min(48, e.max_decode_len))
+        chunk_n = max(1, n // rounds)
+        concurrency = min(2 * e.max_batch_size, 64, chunk_n)
+        speculate_k = e.speculate_k
+        acc = {m: {"rounds": [], "served": {}, "launches": 0, "wall_s": 0.0, "q": None, "spec0": None}
+               for m in (False, True)}
+        warmed = set()
+        for r in range(rounds):
+            for on in (False, True):
+                await idle(engine)
+                e.speculative.enabled, e.speculate_k = on, speculate_k if on else 1
+                if on not in warmed:
+                    await serve_stream(engine, classes, "spec", range(10**6, 10**6 + max(5, concurrency)),
+                                       budget, concurrency)
+                    await idle(engine)
+                    warmed.add(on)
+                a = acc[on]
+                q0, s0 = engine.queue_stats(), spec_counts(engine)
+                sync()
+                reset_kernel_launches()
+                t0 = time.monotonic()
+                a["served"].update(await serve_stream(
+                    engine, classes, "spec", range(r * chunk_n, (r + 1) * chunk_n), budget, concurrency
+                ))
+                wall = time.monotonic() - t0
+                a["launches"] += kernel_launches()["ragged_paged_attention"]
+                q1, s1 = engine.queue_stats(), spec_counts(engine)
+                d = loop_counts(engine, q0, q1, chunk_n)
+                d["spec_verify"] = q1["spec_verify"] - q0["spec_verify"]
+                d.update({k: s1[k] - s0[k] for k in s1})
+                d["wall_s"], d["decode_tok_s"] = wall, d["decode_tokens"] / wall
+                a["rounds"].append(d)
+                no_new_captures(f"spec_{size} round {r} on={on}", q0, q1)
+        lines = {}
+        for on in (False, True):
+            a = acc[on]
+            tot = {k: sum(rd[k] for rd in a["rounds"]) for k in (
+                "decode_tokens", "live_forwards", "wall_s", "captures", "replays", "replay_launches",
+                "spec_verify", "drafted_constrained", "drafted_free", "accepted_constrained", "accepted_free",
+            )}
+            stats = dict(
+                model=size, speculative=on, k=4 if on else 0, speculate_k=speculate_k if on else 1,
+                requests=chunk_n * rounds, rounds=rounds, concurrency=concurrency, budget=budget,
+                tokens_per_live_forward=tot["decode_tokens"] / max(1, tot["live_forwards"]),
+                decode_tok_s=max(rd["decode_tok_s"] for rd in a["rounds"]), wall_s=tot["wall_s"],
+                live_forwards=tot["live_forwards"], decode_tokens=tot["decode_tokens"],
+                captures=tot["captures"], replays=tot["replays"], replay_launches=tot["replay_launches"],
+                spec_verify=tot["spec_verify"], launches={"ragged_paged_attention": a["launches"]},
+            )
+            if on:
+                dr = {c: tot[f"drafted_{c}"] for c in ("constrained", "free")}
+                ac = {c: tot[f"accepted_{c}"] for c in ("constrained", "free")}
+                stats.update(
+                    drafted=sum(dr.values()), accepted=sum(ac.values()),
+                    accept_rate=sum(ac.values()) / max(1, sum(dr.values())),
+                    accept_rate_constrained=ac["constrained"] / max(1, dr["constrained"]),
+                    accept_rate_free=ac["free"] / max(1, dr["free"]),
+                )
+            emit(f"spec_{size}", card, **stats)
+            check_walks(f"spec_{size}", engine, a["served"])
+            lines[on] = stats
+        q = engine.queue_stats()
+        drafted_metric = sum(spec_counts(engine)[f"drafted_{c}"] for c in ("constrained", "free"))
+        if lines[True]["spec_verify"] <= 0 or drafted_metric != q["drafted"]:
+            raise SystemExit(f"spec_{size}: verify windows {lines[True]['spec_verify']}, "
+                             f"drafted metric {drafted_metric} against queue_stats {q['drafted']}")
+        margins = greedy_differences(f"spec_{size}", size, card, engine, acc[True]["served"], acc[False]["served"])
+        emit(f"spec_{size}_parity", card, differing=len(margins), margins=margins,
+             tokens_per_live_forward_ratio=lines[True]["tokens_per_live_forward"]
+             / lines[False]["tokens_per_live_forward"])
+        return {"off": lines[False], "on": lines[True], "differing": len(margins)}
+    finally:
+        await engine.aclose()
+
+
+async def serve_hetero(
+    size: str, checkpoint: str, n_intents: int, card: str, ref_plans: list, batch: int = 64, device=None
+) -> dict:
+    """One ``/plan`` burst through ``ControlPlane.plan`` on a control plane
+    with ``hetero_batch`` and speculation (k 4) on: ``serve``'s intents, from
+    an emptied tree and as one cohort, as ``serve`` sends them. Fails unless
+    every plan is LLM-authored and equal to ``ref_plans`` and the verify
+    path ran. ``batch`` and ``device`` shrink it for a CPU rehearsal."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    cfg = config(size, checkpoint, batch)
+    cfg.engine.hetero_batch = True
+    cfg.engine.speculative.enabled, cfg.engine.speculative.k = True, 4
+    cp = build_control_plane(cfg, device=device)  # device=None: the card
+    records = synth_registry(1000, seed=0)
+    for rec in records:
+        await cp.registry.put(rec)
+    try:
+        await cp.startup()
+        rng = random.Random(0)
+        intents = [intent_for(records, rng) for _ in range(n_intents)]
+        engine = cp.planner.engine
+        await engine.drop_unpinned()
+        q0 = engine.queue_stats()
+        sync()
+        reset_kernel_launches()
+        t0 = time.monotonic()
+        with one_cohort(engine, n_intents):
+            results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+        wall = time.monotonic() - t0
+        launches = kernel_launches()
+        q1 = engine.queue_stats()
+        plans = [p for p, _ in results]
+        for p in plans:
+            p.validate()
+        differ = [i for i, (a, b) in enumerate(zip(plans, ref_plans)) if a.to_json() != b.to_json()]
+        lat = sorted(ms for _, ms in results)
+        stats = dict(
+            model=size, intents=n_intents, wall_s=wall, plans_per_s=n_intents / wall, p50_ms=lat[len(lat) // 2],
+            origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
+            differing_from_serve=differ, warmup_captures=q0["warmup_captures"],
+            spec_verify=q1["spec_verify"] - q0["spec_verify"], launches=launches,
+            accept_rate=q1["spec_accept_rate"], capture_counts=engine.capture_counts(),
+            **loop_counts(engine, q0, q1, n_intents),
+        )
+        emit(f"serve_hetero_{size}", card, **stats)
+        if differ or stats["origins"] != {"llm": n_intents} or stats["spec_verify"] <= 0:
+            raise SystemExit(f"serve_hetero_{size}: plans differ at {differ}, origins {stats['origins']}, "
+                             f"verify windows {stats['spec_verify']}")
+        return stats
+    finally:
+        await cp.aclose()
+
+
 def failing_transport(records, failing: set):
     """A zero-latency in-process handler for every ``local://`` endpoint and
     fallback of ``records``; every endpoint of a service in ``failing`` (read
@@ -1612,9 +1939,10 @@ def main(argv: list[str]) -> int:
     async def on_the_engine(cp, recs, intents, plans, size: str, n_unique: int):
         modes = await serve_modes(cp, intents, size, card, trained=size == "test", profile=args.profile)
         pfx = await prefix_reuse(cp, recs, size, n_unique, 4, card)
-        return modes, pfx, await telemetry_phase(cp, intents, plans, size, card)
+        tel = await telemetry_phase(cp, intents, plans, size, card)
+        return modes, pfx, tel, await mixed_phase(cp, size, card)
 
-    trained, _, (trained_modes, trained_pfx, trained_tel) = asyncio.run(serve(
+    trained, trained_plans, (trained_modes, trained_pfx, trained_tel, trained_mixed) = asyncio.run(serve(
         "test", CKPT, 16, card, batch=64, profile=args.profile,
         after=lambda cp, recs, intents, plans: on_the_engine(cp, recs, intents, plans, "test", 8),
     ))
@@ -1626,7 +1954,8 @@ def main(argv: list[str]) -> int:
     for mode in ("off", "on"):
         if trained_pfx[mode]["origins"] != {"llm": 32}:
             raise SystemExit(f"serve_prefix_test {mode}: not every plan is LLM-authored")
-    full, _, (full_modes, full_pfx, full_tel) = asyncio.run(serve(
+    hetero = asyncio.run(serve_hetero("test", CKPT, 16, card, trained_plans))
+    full, _, (full_modes, full_pfx, full_tel, full_mixed) = asyncio.run(serve(
         "2b", "", 8, card, batch=64, profile=args.profile,
         after=lambda cp, recs, intents, plans: on_the_engine(cp, recs, intents, plans, "2b", 4),
     ))
@@ -1634,9 +1963,12 @@ def main(argv: list[str]) -> int:
         asyncio.run(execute_phase("test", CKPT, 16, card, batch=64)),
         asyncio.run(execute_phase("2b", "", 8, card, batch=64)),
     ]
+    specs = [asyncio.run(spec_phase("test", CKPT, card, 96)), asyncio.run(spec_phase("2b", "", card, 48))]
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
-    ] + [ex[p] for ex in executed for p in ("pass1", "pass2")]
+    ] + [ex[p] for ex in executed for p in ("pass1", "pass2")] + [
+        mx[m] for mx in (trained_mixed, full_mixed) for m in ("drain", "hetero")
+    ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

@@ -3,45 +3,59 @@ the GPU.
 
 A small PyTorch counterpart of ``mcpx/engine/engine.py`` with the surface the
 LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
-``prompt_capacity``) and the reference's homogeneous-slab semantics:
+``prompt_capacity``) and both of the reference's slabs:
 
   - requests funnel through a thread-safe queue into one worker thread that
     owns a slab of ``max_batch_size`` decode rows;
-  - admission takes a cohort of compatible requests (same constrained flag,
-    temperature and grammar object) into free rows. With the radix prefix
-    cache on (``engine.prefix_cache``, the default) each prompt is matched
-    against the tree of resident prompt heads: the matched pages are pinned
-    and put first in the row's page table, and a cohort with any match
-    prefills only its suffixes in one ``decode_chunk_paged`` call at prefill
-    width (the ragged kernel with per-row start offsets). A cohort with no
-    match takes a dense prefill of the padded prompts and a scatter of its
-    K/V into the page pools. The page-aligned rest of every prompt is
-    inserted into the tree for the next request sharing it. Then comes the
-    first constrained sample under the budget mask;
+  - admission takes a cohort into free rows. The homogeneous slab (the
+    default) admits requests compatible with the slab (same constrained
+    flag, temperature and grammar object); the heterogeneous slab
+    (``engine.hetero_batch``) admits in strict queue order, each row with
+    its own temperature, constrained flag and grammar slot. With the radix
+    prefix cache on (``engine.prefix_cache``, the default) each prompt is
+    matched against the tree of resident prompt heads: the matched pages
+    are pinned and put first in the row's page table, and a cohort with any
+    match prefills only its suffixes in one ``decode_chunk_paged`` call at
+    prefill width (the ragged kernel with per-row start offsets). A cohort
+    with no match takes a dense prefill of the padded prompts and a scatter
+    of its K/V into the page pools. The page-aligned rest of every prompt
+    is inserted into the tree for the next request sharing it. Then comes
+    the first sample under the budget mask;
   - decode runs in segments of up to ``steps_per_dispatch`` windows of
     ``decode_steps_per_tick`` forwards each. Every forward is one
-    ``decode_chunk_paged`` call over the whole slab whose window is
-    ``speculate_k`` wide.
+    ``decode_chunk_paged`` call over the whole slab.
     ``q_lens`` carries each row's live width, so decode, drafted, forced and
-    idle rows (``q_lens = 0``) share one kernel launch. Two bodies fill the
+    idle rows (``q_lens = 0``) share one kernel launch. Four bodies fill the
     window:
-      * prompt drafting (``draft_mode="prompt"``, the default; constrained
-        greedy rows): after the last (prev, cur) bigram match in the row's
-        own prompt suffix, the prompt's continuation is proposed wherever the
-        grammar does not force the token. The forward returns logits over the
-        grammar's active columns at every window slot (compact unembed), and
-        the proposals are verified against the budget-masked greedy argmax:
-        the accepted prefix plus one correction token are emitted, exactly
-        what one-token greedy decode would emit;
-      * fast-forward otherwise: the sampled token plus the chain of
-        grammar-forced tokens after it;
+      * prompt drafting (homogeneous, ``draft_mode="prompt"``, the default;
+        constrained greedy rows): after the last (prev, cur) bigram match in
+        the row's own prompt suffix, the prompt's continuation is proposed
+        wherever the grammar does not force the token. The forward returns
+        logits over the grammar's active columns at every window slot
+        (compact unembed), and the proposals are verified against the
+        budget-masked greedy argmax: the accepted prefix plus one correction
+        token are emitted, exactly what one-token greedy decode would emit;
+      * fast-forward (homogeneous otherwise): the sampled token plus the
+        chain of grammar-forced tokens after it;
+      * the heterogeneous fast-forward: the same per row, through the row's
+        slot of the stacked grammar tables, with per-row temperature (every
+        row draws compact-column and full-vocabulary; a select keeps the one
+        that applies);
+      * speculative (heterogeneous, ``engine.speculative``): the recurrent
+        drafter (``engine/speculative.py``) proposes K tokens a row through
+        its grammar, one ``[B, K+1]`` verify forward samples every position,
+        and the longest draft prefix the samples reproduce is accepted with
+        the first mismatch as the correction. A speculative segment is one
+        window of ``decode_steps_per_tick`` forwards;
   - a window is one function over fixed device state (``_window``): on
-    CUDA it is captured once per key (body, temperature, window width,
-    batch, grammar-table bucket, forwards) into a CUDA graph and replayed,
-    so a window costs one host call; on the CPU the same function runs
-    eagerly. A captured window runs all its forwards, rows that are done
-    idling at ``q_lens = 0``; ``captures`` in ``queue_stats()`` counts the
-    captures made while serving, as the reference counts compiles;
+    CUDA it is captured once per key into a CUDA graph and replayed, so a
+    window costs one host call; on the CPU the same function runs eagerly.
+    The key holds what the graph bakes in: the body, the temperature class
+    (per-row temperature is data, so no heterogeneous key holds one), the
+    window width, the batch, the grammar-table shape and the forwards. A
+    captured window runs all its forwards, rows that are done idling at
+    ``q_lens = 0``; ``captures`` in ``queue_stats()`` counts the captures
+    made while serving, as the reference counts compiles;
   - segments are pipelined (``pipeline_depth``): a segment is enqueued with
     no blocking call inside it. Its early exit reads an all-done flag one
     window late (copied to a pinned host slot without blocking, outside the
@@ -58,6 +72,10 @@ LLM planner uses (``start``/``aclose``, ``tokenizer``, ``generate``,
     uploads go through fresh pinned blocks, so a queued segment always
     reads the state its dispatch saw.
 
+The slab latches its batching mode and speculation settings when it refills
+from empty: a live flip of ``hetero_batch`` or ``speculative`` pauses
+admission until the rows admitted under the old mode drain.
+
 Telemetry, at the reference's sites and names: the ``mcpx_engine_*`` and
 ``mcpx_kv_prefix_*`` metrics (``metrics``, shared with the control plane),
 the worker thread's ``engine.queue_wait`` / ``engine.prefill`` /
@@ -69,12 +87,11 @@ executable, and the capture sentinel) and the worker-loop profiler
 span reads host values the worker already holds: telemetry adds no device
 synchronisation and nothing inside a captured window.
 
-Left out for later slices: the heterogeneous slab, speculative decoding
-with the recurrent drafter, int8 weights, ring prefill, the KV tier (host
+Left out for later slices: int8 weights, ring prefill, the KV tier (host
 spill, tenant governance, warm heads from snapshots) and multi-GPU; their
-metric series exist and stay at 0. A config that asks for
-``hetero_batch``, ``speculative``, ``kv_tier``, ``ring_prefill_min_tokens``
-or ``quantize="int8"`` is refused at construction.
+metric series exist and stay at 0. A config that asks for ``kv_tier``,
+``ring_prefill_min_tokens`` or ``quantize="int8"`` is refused at
+construction.
 
 The device is explicit: ``device=None`` means CUDA and raises when CUDA is
 absent; tests pass ``device="cpu"``. The tensors' device decides the
@@ -110,16 +127,31 @@ from mcpx_torch.engine.kernels.paged_attention import (
 from mcpx_torch.engine.kv_cache import PageAllocator, commit_prefill_to_pages, init_paged_kv
 from mcpx_torch.engine.paged_decode import decode_chunk_paged
 from mcpx_torch.engine.prefix_cache import PrefixNode, RadixPrefixCache
-from mcpx_torch.engine.sampling import NEG_INF, sample
+from mcpx_torch.engine.sampling import (
+    NEG_INF,
+    accept_rows,
+    exponential_noise,
+    sample,
+    sample_rows,
+    sample_window_rows,
+)
+from mcpx_torch.engine.speculative import advance_drafter_state, draft_window
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import init_kv_cache, prefill
 from mcpx_torch.models.gemma.params import load_or_init
 from mcpx_torch.models.tokenizer import make_tokenizer
-from mcpx_torch.planner.grammar import _DIST_INF, PlanGrammar, _col_bucket, build_plan_grammar
+from mcpx_torch.planner.grammar import (
+    _DIST_INF,
+    PlanGrammar,
+    _col_bucket,
+    build_plan_grammar,
+    build_trivial_grammar,
+    stack_shape,
+)
 from mcpx_torch.scheduler.admission import ewma_update
 from mcpx_torch.scheduler.locality import locality_order
 from mcpx_torch.telemetry import tracing
-from mcpx_torch.telemetry.costs import CostRegistry, device_peaks, forward_cost, rounded_roofline
+from mcpx_torch.telemetry.costs import CostRegistry, device_peaks, forward_cost, rounded_roofline, window_cost
 from mcpx_torch.telemetry.flight import WorkerProfiler
 from mcpx_torch.telemetry.metrics import Metrics
 
@@ -219,17 +251,21 @@ class _Slab:
     (``dev``): cur, pos, st, emitted, done, budgets, page_table, out_buf
     and the draft state (``prompt_toks`` [B, prompt_cap] and
     ``prompt_lens``: the row's prompt suffix; ``prev``: the token before
-    ``cur``), plus the segment's counters (``counts``: live forwards,
-    drafted and accepted tokens) and the last window's all-done flag
-    (``all_done``). Every one is a fixed buffer for the slab's lifetime,
-    since captured windows read and write them at their addresses: it is
-    written in place (windows by ``copy_``, admission and release by
-    indexed writes), only by the worker thread, always by operations on the
-    device's stream. ``out_buf`` has one spare column past ``steps``:
+    ``cur``), the heterogeneous slab's per-row ``temp``, ``cons``, ``dfa``
+    and ``hstate`` (the drafter's state), plus the segment's counters
+    (``counts``: live forwards, drafted and accepted tokens, and the
+    drafted and accepted tokens of constrained rows) and the last window's
+    all-done flag (``all_done``). Every one is a fixed buffer for the slab's
+    lifetime, since captured windows read and write them at their
+    addresses: it is written in place (windows by ``copy_``, admission and
+    release by indexed writes), only by the worker thread, always by
+    operations on the device's stream. ``out_buf`` has one spare column past ``steps``:
     scatters route slots they must drop there, so no write ever wraps into
     a live slot."""
 
-    def __init__(self, B: int, steps: int, pmax: int, pad_id: int, prompt_cap: int, device) -> None:
+    def __init__(
+        self, B: int, steps: int, pmax: int, pad_id: int, prompt_cap: int, draft_dim: int, device
+    ) -> None:
         self.B = B
         self.steps = steps
         self.prompt_cap = max(2, prompt_cap)
@@ -256,6 +292,19 @@ class _Slab:
         self.constrained = True
         self.temperature = 0.0
         self.grammar: Optional[PlanGrammar] = None
+        # Host mirror of each row's grammar slot (heterogeneous slab; slot 0
+        # = the trivial grammar of free rows): its reference is dropped at
+        # release.
+        self.dfa = np.zeros((B,), np.int64)
+        # The batching mode and speculation settings the current occupancy
+        # was admitted under, latched when the slab refills from empty: the
+        # rows carry that mode's page slack and decode under it, so a live
+        # flip waits for them to drain. Dispatch reads these, never the
+        # live config.
+        self.hetero = False
+        self.spec = False
+        self.spec_k = 0
+        self.spec_draft = "recurrent"
         i64 = dict(dtype=torch.int64, device=device)
         self.dev = {
             "cur": torch.full((B,), pad_id, **i64),
@@ -269,7 +318,14 @@ class _Slab:
             "prompt_toks": torch.full((B, self.prompt_cap), pad_id, **i64),
             "prompt_lens": torch.zeros((B,), **i64),
             "prev": torch.full((B,), pad_id, **i64),
-            "counts": torch.zeros((3,), **i64),
+            # Per-row sampling config of the heterogeneous slab:
+            # temperature, constrained flag, grammar slot; and the recurrent
+            # drafter's state (zeros for a fresh row).
+            "temp": torch.zeros((B,), dtype=torch.float32, device=device),
+            "cons": torch.zeros((B,), dtype=torch.bool, device=device),
+            "dfa": torch.zeros((B,), **i64),
+            "hstate": torch.zeros((B, max(1, draft_dim)), dtype=torch.float32, device=device),
+            "counts": torch.zeros((5,), **i64),
             "all_done": torch.ones((), dtype=torch.bool, device=device),
         }
 
@@ -343,18 +399,103 @@ class _Tables:
         self.rows = n
 
 
+class _Stack:
+    """The heterogeneous slab's grammar tables on the device, one slot per
+    resident grammar (slot 0: the trivial grammar of free rows), padded to
+    one shape: ``trans`` [G, S, C] int32, ``mask`` [G, S, C] bool, ``dist``
+    [G, S] int32, ``ids`` and ``eos`` [G, C] (token id and EOS flag per
+    column) and, once speculation is armed, ``dist_succ`` [G, S, C] int32
+    (the distance after each transition) and ``inv`` [G, V] (token id to
+    column, -1 where inactive): ``planner/grammar.py``'s ``stacked_tables``
+    and ``stacked_spec_tables``, laid out on the card. Fixed buffers for the
+    engine's lifetime, as ``_Tables`` are: a slot that changes owner is
+    rewritten in place by stream operations, and no other slot is
+    touched."""
+
+    def __init__(self, G: int, S: int, C: int, vocab: int, device) -> None:
+        self.trans = torch.empty((G, S, C), dtype=torch.int32, device=device)
+        self.mask = torch.empty((G, S, C), dtype=torch.bool, device=device)
+        self.dist = torch.empty((G, S), dtype=torch.int32, device=device)
+        self.ids = torch.empty((G, C), dtype=torch.int64, device=device)
+        self.eos = torch.empty((G, C), dtype=torch.bool, device=device)
+        self.dist_succ: Optional[torch.Tensor] = None
+        self.inv: Optional[torch.Tensor] = None
+        self.vocab = vocab
+        self.grammars: list[Optional[PlanGrammar]] = [None] * G  # what each slot holds
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.trans.shape)
+
+    @property
+    def dfa(self) -> tuple:
+        return self.trans, self.mask, self.dist, self.ids, self.eos
+
+    @property
+    def spec_dfa(self) -> tuple:
+        return self.dfa + (self.dist_succ, self.inv)
+
+    def load(self, k: int, grammar: PlanGrammar, upload_into, resident: "Optional[_Tables]") -> None:
+        """Write ``grammar`` into slot ``k``: the slot reset to padding, then
+        the grammar's block, copied on the card from ``resident`` (its
+        ``_Tables``, where it is loaded) or uploaded from the host."""
+        n, c = grammar.ctrans.shape
+        C = self.ids.shape[1]
+        self.trans[k].fill_(grammar.cdead)
+        self.mask[k].fill_(False)
+        self.dist[k].fill_(_DIST_INF)
+        if resident is not None:
+            self.trans[k, :n, :c].copy_(resident.trans[:n, :c])
+            self.mask[k, :n, :c].copy_(resident.mask[:n, :c])
+            self.dist[k, :n].copy_(resident.dist[:n])
+        else:
+            upload_into(self.trans[k, :n, :c], grammar.ctrans)
+            upload_into(self.mask[k, :n, :c], grammar.cmask)
+            upload_into(self.dist[k, :n], grammar.dist)
+        ids = np.full((C,), grammar.tokenizer.pad_id, np.int64)
+        ids[:c] = grammar.active_ids
+        eos = np.zeros((C,), bool)
+        eos[:c] = grammar.eos_cols
+        upload_into(self.ids[k], ids)
+        upload_into(self.eos[k], eos)
+        self.grammars[k] = grammar
+        if self.dist_succ is not None:
+            self._load_spec(k, grammar, upload_into)
+
+    def arm_spec(self, upload_into) -> None:
+        """Allocate the speculative companions (once) and fill them for every
+        loaded slot."""
+        if self.dist_succ is not None:
+            return
+        G, S, C = self.shape
+        self.dist_succ = torch.empty((G, S, C), dtype=torch.int32, device=self.trans.device)
+        self.inv = torch.empty((G, self.vocab), dtype=torch.int64, device=self.trans.device)
+        for k, g in enumerate(self.grammars):
+            if g is not None:
+                self._load_spec(k, g, upload_into)
+
+    def _load_spec(self, k: int, grammar: PlanGrammar, upload_into) -> None:
+        # dist_succ[k][s, c] = dist[k][trans[k][s, c]], gathered on the card.
+        torch.index_select(self.dist[k], 0, self.trans[k].reshape(-1), out=self.dist_succ[k].reshape(-1))
+        inv = np.full((self.vocab,), -1, np.int64)
+        inv[grammar.active_ids] = np.arange(grammar.n_active)
+        upload_into(self.inv[k], inv)
+
+
 @dataclasses.dataclass
 class _Inflight:
     """A dispatched segment awaiting harvest: its end state packed into a
     host buffer of its own (``out_buf`` rows, then emitted, then done, then
-    the segment's live forwards, drafted and accepted tokens), the event
-    after that copy (None on the CPU, where the copy is done when issued),
-    the slab's generation counters at dispatch, and for segments with a
-    traced row the dispatch time and the segment's cost (FLOPs, bytes)."""
+    the segment's ``counts``), the event after that copy (None on the CPU,
+    where the copy is done when issued), the slab's generation counters at
+    dispatch, whether it was speculative (its drafted and accepted counts
+    feed the ``mcpx_engine_spec_*`` series), and for segments with a traced
+    row the dispatch time and the segment's cost (FLOPs, bytes)."""
 
     host: torch.Tensor
     event: Optional["torch.cuda.Event"]
     gen: np.ndarray
+    spec: bool = False
     t_disp: float = 0.0
     cost: Optional[tuple[float, float]] = None
 
@@ -376,8 +517,6 @@ class InferenceEngine:
         self.config = config or MCPXConfig()
         ecfg = self.config.engine
         refused = (
-            ("engine.hetero_batch", ecfg.hetero_batch),
-            ("engine.speculative.enabled", ecfg.speculative.enabled),
             ("engine.kv_tier.enabled", ecfg.kv_tier.enabled),
             ("engine.ring_prefill_min_tokens > 0", ecfg.ring_prefill_min_tokens > 0),
             ("model.quantize='int8'", self.config.model.quantize == "int8"),
@@ -433,6 +572,15 @@ class InferenceEngine:
         # Grammar tables by pad bucket (state rows, columns), made at first
         # use and kept: captured windows read them at their addresses.
         self._tables: dict[tuple[int, int], _Tables] = {}
+        # The heterogeneous slab's grammar slots (seeded in _setup: slot 0
+        # the trivial grammar, slot 1 the generic plan grammar), the rows
+        # holding each, and the stacked tables by shape (slots, state
+        # rows, columns), made at first use and kept, as _tables are.
+        self._trivial_grammar = build_trivial_grammar(self.tokenizer)
+        self._dfa_slots: list[Optional[PlanGrammar]] = []
+        self._dfa_slot_refs: list[int] = []
+        self._stacks: dict[tuple[int, int, int], _Stack] = {}
+        self._spec_degraded_logged = False
         # Captured windows by key (CUDA only), the kernel launches each
         # replay runs, and the captures made per key. The window's
         # capturing stream, the graphs' one memory pool and whether that
@@ -466,12 +614,20 @@ class InferenceEngine:
         # startup under engine.warmup_compile, replays the windows run by
         # replaying a captured graph (on the CPU none: windows run eagerly).
         # prefix_pins counts the pin_prefix pins applied and not yet
-        # released (0 whenever no caller holds one).
+        # released (0 whenever no caller holds one). Speculative windows
+        # count their drafts (every proposal, forced ones included, as the
+        # reference's speculative counters do) in drafted and accepted, and
+        # spec_verify counts those windows: the verify path's dispatches.
         self._stats = {
             "admissions": 0, "segments": 0, "windows": 0, "decode_forwards": 0,
             "live_forwards": 0, "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
             "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
-            "captures": 0, "warmup_captures": 0, "replays": 0, "prefix_pins": 0,
+            "captures": 0, "warmup_captures": 0, "replays": 0, "prefix_pins": 0, "spec_verify": 0,
+        }
+        # Speculative drafted and accepted tokens by row class (worker
+        # writes, queue_stats reads; swapped in whole).
+        self._spec_totals = {
+            "drafted_constrained": 0, "accepted_constrained": 0, "drafted_free": 0, "accepted_free": 0,
         }
         # Dispatched segments awaiting harvest, oldest first.
         self._inflight: "deque[_Inflight]" = deque()
@@ -522,6 +678,10 @@ class InferenceEngine:
         um[:n_real] = True
         um[self.tokenizer.pad_id] = False
         self._unconstrained_mask = um.to(self.device)
+        # What a free row may draft: the same, less EOS (a stop comes from
+        # the verified sample, never from a draft).
+        self._draft_free_mask = self._unconstrained_mask.clone()
+        self._draft_free_mask[self.tokenizer.eos_id] = False
 
     # ------------------------------------------------------------- lifecycle
     async def start(self) -> None:
@@ -657,7 +817,10 @@ class InferenceEngine:
         the answer is the smaller of the two."""
         ecfg = self.config.engine
         capacity = ecfg.max_pages_per_seq * ecfg.kv_page_size
-        chunk = self._spec_chunk(True)
+        # The widest garbage-write slack either decode path needs: the
+        # fast-forward window or the speculative verify window, whichever
+        # the live config arms wider (the slab may serve either).
+        chunk = max(self._spec_chunk(True), self._spec_k() + 1)
         slack = chunk if chunk > 1 else 0
         budget = min(
             max_new_tokens or ecfg.max_decode_len,
@@ -706,7 +869,9 @@ class InferenceEngine:
                     st["suffix_prefills"],
                     None if self.config.engine.prefix_cache else "idle: prefix_cache=off (no suffix prefills)",
                 ),
-                "spec_verify": path(0, "idle: speculative decoding off"),
+                "spec_verify": path(
+                    st["spec_verify"], None if self._spec_k() > 0 else "idle: speculative decoding off"
+                ),
             },
         }
 
@@ -721,18 +886,29 @@ class InferenceEngine:
         # attached (one read: a live detach must not race the use).
         prof = self._profiler
         extra = {"worker_profile": prof.snapshot()} if prof is not None else {}
+        # Speculative acceptance overall and by row class (zeros while
+        # speculation is off).
+        sp = self._spec_totals
+        drafted = sp["drafted_constrained"] + sp["drafted_free"]
+        accepted = sp["accepted_constrained"] + sp["accepted_free"]
         return {
             **extra,
             "queue_depth": self._queue.qsize(),
             "active_rows": slab.n_active if slab is not None else 0,
             "kernel_launches": kernel_launches(),
             "prefix_token_hit_rate": self._prefix_cache.stats()["token_hit_rate"],
+            "resident_grammars": sum(1 for n in self._dfa_slot_refs[1:] if n > 0),
+            "spec_accept_rate": accepted / drafted if drafted else 0.0,
+            "spec_accept_rate_constrained": (
+                sp["accepted_constrained"] / sp["drafted_constrained"] if sp["drafted_constrained"] else 0.0
+            ),
+            "spec_accept_rate_free": sp["accepted_free"] / sp["drafted_free"] if sp["drafted_free"] else 0.0,
             **dict(self._stats),
         }
 
     def capture_counts(self) -> dict[str, int]:
         """Captures of the decode window per key (body, temperature class,
-        window width, batch, grammar-table bucket, forwards), startup ones
+        window width, batch, grammar-table shape, forwards), startup ones
         included; more than one for a key, or a key new to repeated
         traffic, is a recapture the serving path paid for."""
         return {repr(k): n for k, n in self._captures.items()}
@@ -747,6 +923,37 @@ class InferenceEngine:
         want = ecfg.speculate_k if (constrained and ecfg.speculate_k > 1) else 1
         budget_ceiling = min(ecfg.max_decode_len, capacity - 1)
         return max(1, min(want, capacity - budget_ceiling))
+
+    def _spec_k(self) -> int:
+        """Draft tokens per verify forward under speculative decoding: 0
+        when it is off, when ``hetero_batch`` is off (the drafter's grammar
+        pre-filter needs the per-row stacked tables), or when page capacity
+        leaves no slack for the ``K+1``-wide window's garbage writes
+        (degraded toward 0, logged once)."""
+        ecfg = self.config.engine
+        if not (ecfg.hetero_batch and ecfg.speculative.enabled):
+            return 0
+        capacity = ecfg.max_pages_per_seq * ecfg.kv_page_size
+        budget_ceiling = min(ecfg.max_decode_len, capacity - 1)
+        window = max(1, min(ecfg.speculative.k + 1, capacity - budget_ceiling))
+        if window - 1 < ecfg.speculative.k and not self._spec_degraded_logged:
+            self._spec_degraded_logged = True
+            log.warning(
+                "speculative window degraded k=%d -> %d: page capacity %d leaves no slack past "
+                "max_decode_len=%d (raise max_pages_per_seq/kv_page_size or lower max_decode_len)",
+                ecfg.speculative.k, window - 1, capacity, ecfg.max_decode_len,
+            )
+        return window - 1
+
+    def _decode_iters(self, spec: bool) -> int:
+        """Forwards a segment dispatches: ``decode_steps_per_tick`` times
+        ``steps_per_dispatch`` (windows of ``decode_steps_per_tick`` each),
+        except a speculative segment, which is one window: each of its
+        forwards already covers a ``[B, K+1]`` window, and a longer one
+        would pay verify compute on the drain tail."""
+        ecfg = self.config.engine
+        base = max(1, ecfg.decode_steps_per_tick)
+        return base if spec else base * max(1, ecfg.steps_per_dispatch)
 
     def _upload_into(self, dst: torch.Tensor, arr: np.ndarray) -> None:
         """Copy a host array into ``dst`` in place, as ``_upload`` does:
@@ -792,6 +999,70 @@ class InferenceEngine:
             tables.load(grammar, self._upload_into)
         return tables.dfa
 
+    # ---------------------------------------- heterogeneous grammar slots
+    def _stacked_dfa(self) -> _Stack:
+        """The stacked tables of the resident grammar slots (free slots hold
+        the trivial grammar), at the shape the slots need: that shape's fixed
+        buffers, with each slot whose grammar changed rewritten in place
+        (copied on the card where the grammar is loaded in ``_Tables``) and
+        the speculative companions armed while speculation is. A slot changes
+        owner only at refs 0, so no resident row reads a slot being
+        rewritten; the writes are stream operations, after every segment in
+        flight. Worker thread only."""
+        pad = self._grammar_pad()
+        slots = [g if g is not None else self._trivial_grammar for g in self._dfa_slots]
+        key = (len(slots), *stack_shape(slots, pad))
+        stack = self._stacks.get(key)
+        if stack is None:
+            stack = self._stacks[key] = _Stack(*key, self.tokenizer.vocab_size, self.device)
+        if self._spec_k() > 0 or self._slab.spec:
+            # The slab's latch keeps the companions through a live flip-off
+            # drain: resident speculative rows still run their window.
+            stack.arm_spec(self._upload_into)
+        for k, g in enumerate(slots):
+            if stack.grammars[k] is not g:
+                resident = next((t for t in self._tables.values() if t.grammar is g), None)
+                stack.load(k, g, self._upload_into, resident)
+        return stack
+
+    def _grammar_slot_for(self, grammar: PlanGrammar, reserved: set) -> Optional[int]:
+        """The stacked slot for ``grammar``: the slot holding it, a free one,
+        or a reclaimed one whose grammar no row holds; None when every slot
+        past 0 holds a live grammar (the request then waits for one to
+        drain). ``reserved`` protects the slots a cohort claimed earlier in
+        the same admission (refs are taken at row assignment)."""
+        for k, g in enumerate(self._dfa_slots):
+            if g is grammar:
+                return k
+        for k in range(1, len(self._dfa_slots)):
+            if self._dfa_slots[k] is None and k not in reserved:
+                self._dfa_slots[k] = grammar
+                return k
+        for k in range(1, len(self._dfa_slots)):
+            if self._dfa_slot_refs[k] == 0 and k not in reserved:
+                self._dfa_slots[k] = grammar
+                return k
+        return None
+
+    def _drop_row_grammar(self, slab: _Slab, i: int) -> None:
+        """Release row ``i``'s slot reference (free rows hold none). The slot
+        keeps its grammar, warm for the next admission, until another
+        grammar reclaims it."""
+        k = int(slab.dfa[i])
+        if 0 < k < len(self._dfa_slot_refs) and self._dfa_slot_refs[k] > 0:
+            self._dfa_slot_refs[k] -= 1
+        self.metrics.resident_grammars.set(sum(1 for n in self._dfa_slot_refs[1:] if n > 0))
+
+    @staticmethod
+    def _stacked_budget_mask(sdfa: tuple, dfa_id, st, rem) -> torch.Tensor:
+        """``_budget_mask`` per row over the stacked tables: row b's mask
+        comes from slot ``dfa_id[b]``, in the stack's column space [B, C]."""
+        strans, smask, sdist, _sactive, seos = sdfa[:5]
+        legal = smask[dfa_id, st]  # [B, C]
+        succ = strans[dfa_id, st]  # [B, C]
+        finishable = legal & (seos[dfa_id] | (sdist[dfa_id[:, None], succ] <= rem[:, None]))
+        return torch.where(finishable.any(dim=-1, keepdim=True), finishable, legal)
+
     @staticmethod
     def _budget_mask(dfa: tuple, st: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
         """Column c is allowed iff grammar-legal AND (c is EOS or its
@@ -820,8 +1091,23 @@ class InferenceEngine:
         fitting = [b for b in self._prefill_buckets if b <= capacity]
         self._slab = _Slab(
             ecfg.max_batch_size, ecfg.max_decode_len, ecfg.max_pages_per_seq,
-            self.tokenizer.pad_id, max(fitting, default=2), self.device,
+            self.tokenizer.pad_id, max(fitting, default=2), self.model_cfg.d_model, self.device,
         )
+        if ecfg.speculative.enabled and not ecfg.hetero_batch:
+            log.warning(
+                "speculative.enabled without hetero_batch has no effect: the grammar-aware drafter "
+                "needs the per-row stacked grammar tables; set engine.hetero_batch=true to speculate"
+            )
+        if ecfg.hetero_batch and ecfg.draft_mode == "prompt":
+            log.warning(
+                "hetero_batch=on disables draft_mode='prompt' (its proposal chain is single-grammar); "
+                "grammar fast-forward still applies per row; set draft_mode='off' to silence"
+            )
+        # Slot 0: the trivial grammar (free rows); slot 1: the generic plan
+        # grammar, so the warm-up's stack is the common serving stack.
+        n_slots = max(2, ecfg.hetero_grammar_slots)
+        self._dfa_slots = [self._trivial_grammar, self.grammar] + [None] * (n_slots - 2)
+        self._dfa_slot_refs = [0] * n_slots
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(time.time_ns() & 0x7FFFFFFF)
         cuda = self.device.type == "cuda"
@@ -840,16 +1126,23 @@ class InferenceEngine:
                 self._warm_windows()
 
     def _warm_windows(self) -> None:
-        """Capture the hot window at startup: the generic grammar's bucket
-        at the configured temperature and draft mode, the body /plan
-        requests run. Its first run happens on the empty slab, where every
-        row idles (its writes land in the null page and the drop column).
-        Counted as warm-up, not as a serving capture."""
+        """Capture the hot windows at startup. Homogeneous: the generic
+        grammar's bucket at the configured temperature and draft mode, the
+        body /plan requests run. Heterogeneous: its window over the seeded
+        stack (one key for every request mix) and, with speculation armed,
+        the speculative window too. Their first run happens on the empty
+        slab, where every row idles (its writes land in the null page and
+        the drop column). Counted as warm-up, not as serving captures."""
+        ecfg = self.config.engine
         slab = self._slab
-        slab.constrained, slab.temperature, slab.grammar = True, self.config.engine.temperature, None
-        key, dfa = self._window_plan(slab)
-        self._record_window(key)
-        self._capture(key, lambda: self._window(slab, key, dfa), serving=False)
+        slab.constrained, slab.temperature, slab.grammar = True, ecfg.temperature, None
+        slab.hetero, slab.spec_k, slab.spec_draft = ecfg.hetero_batch, self._spec_k(), ecfg.speculative.draft
+        specs = (False, True) if slab.hetero and slab.spec_k > 0 else (False,)
+        for spec in specs:
+            slab.spec = spec
+            key, dfa = self._window_plan(slab)
+            self._record_window(key)
+            self._capture(key, lambda: self._window(slab, key, dfa), serving=False)
 
     def _worker(self) -> None:
         try:
@@ -1048,9 +1341,12 @@ class InferenceEngine:
         """Pages back to the allocator, the row's radix pins released, its
         generation bumped, the row's device state cleared: its page-table
         row zeroed (later writes land on the null page) and its draft state
-        emptied. A segment still in flight that wrote the freed pages ran
-        before any later owner's prefill, on the same stream."""
+        emptied, its grammar slot reference dropped and its sampling config
+        and drafter state zeroed. A segment still in flight that wrote the
+        freed pages ran before any later owner's prefill, on the same
+        stream."""
         self._allocator.free(slab.sid[i])
+        self._drop_row_grammar(slab, i)
         for node in slab.prefix[i]:
             node.refs -= 1
         slab.prefix[i] = ()
@@ -1061,6 +1357,7 @@ class InferenceEngine:
         slab.req[i] = None
         slab.sid[i] = None
         slab.gen[i] += 1
+        slab.dfa[i] = 0
         d = slab.dev
         d["prompt_toks"][i] = self.tokenizer.pad_id
         d["prompt_lens"][i] = 0
@@ -1072,6 +1369,10 @@ class InferenceEngine:
         d["emitted"][i] = 0
         d["budgets"][i] = 0
         d["cur"][i] = self.tokenizer.pad_id
+        d["temp"][i] = 0.0
+        d["cons"][i] = False
+        d["dfa"][i] = 0
+        d["hstate"][i] = 0.0
         self.metrics.kv_page_utilization.set(self._allocator.stats().utilization)
         self.metrics.batch_occupancy.set(slab.n_active)
 
@@ -1088,26 +1389,40 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ admission
     def _admit(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
-        """Admission gate of the homogeneous slab: an empty slab takes the
-        head request's sampling config; an incompatible head that has waited
-        ``fairness_timeout_s`` stops admissions so the slab drains; a busy
-        slab with few free rows waits (up to ``admit_max_wait_s``) for a
-        worthwhile cohort. With the prefix cache on, the pending line is
-        sorted by resident prefix depth (EDF-safe) and the head request's
-        declared shared prefix is built into the tree first, held for the
-        whole admission."""
+        """Admission gate. An empty slab latches the batching mode and the
+        speculation settings from the live config; while rows admitted under
+        other settings are resident, admission waits for them to drain.
+        Homogeneous: an empty slab takes the head request's sampling config;
+        an incompatible head that has waited ``fairness_timeout_s`` stops
+        admissions so the slab drains. Heterogeneous: any request fits any
+        free row, in strict queue order. Either way a busy slab with few free
+        rows waits (up to ``admit_max_wait_s``) for a worthwhile cohort.
+        With the prefix cache on, the pending line is sorted by resident
+        prefix depth (EDF-safe) and the head request's declared shared
+        prefix is built into the tree first, held for the whole
+        admission."""
         ecfg = self.config.engine
         free = slab.free_rows()
         if slab.n_active == 0:
+            slab.hetero = ecfg.hetero_batch
+            slab.spec_k = self._spec_k()
+            slab.spec = slab.spec_k > 0
+            slab.spec_draft = ecfg.speculative.draft
+        elif slab.hetero != ecfg.hetero_batch or slab.spec_k != self._spec_k() or (
+            slab.spec and slab.spec_draft != ecfg.speculative.draft
+        ):
+            return
+        hetero = slab.hetero
+        if not hetero and slab.n_active == 0:
             head = pending[0]
             slab.constrained = head.constrained
             slab.temperature = head.temperature
             slab.grammar = head.grammar
-        elif not slab.compatible(pending[0]) and (
+        elif not hetero and not slab.compatible(pending[0]) and (
             time.monotonic() - pending[0].enqueued_at > ecfg.fairness_timeout_s
         ):
             return
-        elif len(free) < (ecfg.admit_min_free or max(1, slab.B // 4)) and (
+        elif slab.n_active and len(free) < (ecfg.admit_min_free or max(1, slab.B // 4)) and (
             time.monotonic() - self._last_admit_t < ecfg.admit_max_wait_s
         ):
             return
@@ -1117,7 +1432,10 @@ class InferenceEngine:
             self._locality_sort(slab, pending)
             if prof is not None:
                 prof.carve("locality_sort", t_ls)
-        head_req = next((r for r in pending if slab.compatible(r)), None)
+        if hetero:
+            head_req = next((r for r in pending if not r.future.cancelled()), None)
+        else:
+            head_req = next((r for r in pending if slab.compatible(r)), None)
         if head_req is None:
             return
         head_key = head_req.prefix_key(ecfg.kv_page_size) if ecfg.prefix_cache else None
@@ -1280,14 +1598,24 @@ class InferenceEngine:
         prompt's aligned rest, allocate the row's private pages (evicting
         tree leaves under pressure) or push the row back. The cohort then
         prefills in one call: the suffix prefill when any row matched, the
-        dense prefill otherwise."""
+        dense prefill otherwise. On the heterogeneous slab every constrained
+        candidate takes a grammar slot at the scan, and one that finds none
+        waits (and, once it has waited ``fairness_timeout_s``, holds back
+        everything behind it until a slot drains)."""
         ecfg = self.config.engine
         tok = self.tokenizer
         free = slab.free_rows()
         cache = self._prefix_cache
         use_prefix = bool(ecfg.prefix_cache)
         psz = ecfg.kv_page_size
-        chunk = self._spec_chunk(slab.constrained)
+        hetero = slab.hetero  # the latched mode, not the live flag
+        # Every row's pages carry its window's garbage-write slack: the
+        # speculative window's K+1, else the fast-forward chunk (the
+        # heterogeneous slab always runs the constrained width).
+        if hetero and slab.spec:
+            chunk = slab.spec_k + 1
+        else:
+            chunk = self._spec_chunk(True if hetero else slab.constrained)
         slack = chunk if chunk > 1 else 0
         capacity = ecfg.max_pages_per_seq * psz
         eligible = tuple(b for b in self._prefill_buckets if b <= capacity)
@@ -1301,14 +1629,30 @@ class InferenceEngine:
                 r.loop.call_soon_threadsafe(_resolve, r.future, None, err)
             return
 
-        # Stage 1: candidates, compatible and not cancelled, up to the free rows.
+        # Stage 1: candidates, not cancelled, up to the free rows: compatible
+        # ones (homogeneous), or each with its grammar slot (heterogeneous).
         cands: list[GenerateRequest] = []
+        slots: list[int] = []
+        reserved: set = set()
         defer: list[GenerateRequest] = []
         while pending and len(cands) < len(free):
             r = pending.popleft()
             if r.future.cancelled():
                 continue
-            (cands if slab.compatible(r) else defer).append(r)
+            slot = 0
+            if hetero and r.constrained:
+                slot = self._grammar_slot_for(r.grammar or self.grammar, reserved)
+                if slot is None:
+                    defer.append(r)
+                    if time.monotonic() - r.enqueued_at > ecfg.fairness_timeout_s:
+                        break
+                    continue
+                reserved.add(slot)
+            elif not hetero and not slab.compatible(r):
+                defer.append(r)
+                continue
+            cands.append(r)
+            slots.append(slot)
 
         def geometry(r: GenerateRequest, P: int) -> tuple[int, list[int]]:
             """(decode budget, suffix ids) of ``r`` admitted at matched
@@ -1359,8 +1703,9 @@ class InferenceEngine:
 
         # Stage 3: match and pin, insert, allocate.
         cohort: list[tuple] = []  # (req, budget, ids, sid, pages, P, tree pages, mnode, inode)
+        cohort_slots: list[int] = []
         pushback: list[GenerateRequest] = []
-        for r, (P, budget, ids) in zip(cands, planned):
+        for r, slot, (P, budget, ids) in zip(cands, slots, planned):
             if pushback:
                 pushback.append(r)  # FIFO: wait for pages, order kept
                 continue
@@ -1414,6 +1759,7 @@ class InferenceEngine:
                     cache.misses += 1
             tree_pages = mpages + (inode.pages if inode is not None else [])
             cohort.append((r, budget, ids, sid, pages, P, tree_pages, mnode, inode))
+            cohort_slots.append(slot)
         for r in reversed(pushback):
             pending.appendleft(r)
         for r in reversed(defer):
@@ -1428,6 +1774,12 @@ class InferenceEngine:
         positions = np.zeros((A,), np.int64)  # each row's suffix start
         active = np.zeros((A,), bool)
         budgets = np.zeros((A,), np.int64)
+        # Per-row sampling config: each request's own on the heterogeneous
+        # slab, the slab's on the homogeneous one (pad lanes stay inert).
+        temp = np.zeros((A,), np.float32)
+        cons = np.zeros((A,), bool)
+        dfa = np.zeros((A,), np.int64)
+        dfa[:n] = cohort_slots
         table = np.zeros((A, ecfg.max_pages_per_seq), np.int32)
         for j, (r, budget, ids, _sid, pages, P, tree_pages, _m, _i) in enumerate(cohort):
             ids = ids[:T]
@@ -1436,6 +1788,8 @@ class InferenceEngine:
             positions[j] = P
             active[j] = True
             budgets[j] = budget
+            temp[j] = r.temperature if hetero else slab.temperature
+            cons[j] = r.constrained if hetero else slab.constrained
             # Page table: [matched tree pages][inserted tree pages][private
             # pages]. Positions < P read the tree's run; the prefill writes
             # [P, P + len) into the inserted and private pages; pads and
@@ -1455,6 +1809,7 @@ class InferenceEngine:
             tokens_d, lens_d, pos_d = up(tokens), up(seq_lens), up(positions)
             table_d, budgets_d, active_d = up(table), up(budgets), up(active)
             ptoks_d, prev_d = up(ptoks), up(prev)
+            temp_d, cons_d, dfa_d = up(temp), up(cons), up(dfa)
             if bool(positions.any()):
                 last_logits = self._suffix_prefill(tokens_d, lens_d, pos_d, table_d)
             else:
@@ -1462,7 +1817,12 @@ class InferenceEngine:
             # The prefill writing this cohort's inserted nodes is launched:
             # later launches on the stream run after it, so they may read them.
             cache.seal()
-            cur0, st0, done0 = self._first_sample(slab, last_logits, budgets_d, active_d)
+            if hetero:
+                cur0, st0, done0 = self._hetero_first_sample(
+                    last_logits, budgets_d, active_d, temp_d, cons_d, dfa_d
+                )
+            else:
+                cur0, st0, done0 = self._first_sample(slab, last_logits, budgets_d, active_d)
         except BaseException as e:  # fail the cohort and the resident rows
             log.exception("admission prefill failed; failing the cohort and resident rows")
             self._fail_admission(slab, cohort, e)
@@ -1478,7 +1838,8 @@ class InferenceEngine:
         pf_entry = self._pf_entry
 
         rows = [free.pop(0) for _ in range(n)]
-        for i, (r, _budget, _ids, sid, _pages, P, _tp, mnode, inode) in zip(rows, cohort):
+        slab.dfa[rows] = dfa[:n]
+        for j, (i, (r, _budget, _ids, sid, _pages, P, _tp, mnode, inode)) in enumerate(zip(rows, cohort)):
             slab.req[i] = r
             slab.sid[i] = sid
             slab.gen[i] += 1
@@ -1490,6 +1851,8 @@ class InferenceEngine:
             slab.prefill_ms[i] = (t1 - t0) * 1e3
             slab.t_decode0[i] = t1
             slab.emitted[i] = 0
+            if dfa[j] > 0:
+                self._dfa_slot_refs[int(dfa[j])] += 1
             m.hol_wait.observe(slab.queue_ms[i])
             if r.span is not None:
                 self._trace_admission(slab, i, r, t0, t1, pf_entry)
@@ -1509,6 +1872,12 @@ class InferenceEngine:
         d["prompt_toks"][idx] = ptoks_d[:n]
         d["prompt_lens"][idx] = lens_d[:n]
         d["prev"][idx] = prev_d[:n]
+        d["temp"][idx] = temp_d[:n]
+        d["cons"][idx] = cons_d[:n]
+        d["dfa"][idx] = dfa_d[:n]
+        d["hstate"][idx] = 0.0
+        if hetero:
+            m.resident_grammars.set(sum(1 for k in self._dfa_slot_refs[1:] if k > 0))
         # New live rows: an all-done flag from before this admission must
         # not end the next segment.
         self._flags_from = self._window_seq
@@ -1537,7 +1906,7 @@ class InferenceEngine:
             else {}
         )
         r.span.child(
-            "engine.prefill", t0=t0, t1=t1, dfa_id=0, **pfx,
+            "engine.prefill", t0=t0, t1=t1, dfa_id=int(slab.dfa[i]), **pfx,
             # The cohort prefill's roofline over the admission window: the
             # whole cohort's cost, as the reference attributes it.
             **self._span_roofline(
@@ -1621,6 +1990,36 @@ class InferenceEngine:
         cur0 = torch.where(done0, torch.full_like(first, tok.pad_id), first)
         return cur0, state0, done0
 
+    def _hetero_first_sample(self, first_logits, budgets, active, temp_v, cons_v, dfa_id):
+        """The first emission of a heterogeneous cohort: (cur0, state0,
+        done0). Every row draws two ways from one noise tensor:
+        compact-column under its slot's budget mask, and full-vocabulary;
+        the constrained flag selects. Temperature is a per-row vector
+        (``sample_rows``), so one body serves every request mix."""
+        tok = self.tokenizer
+        A, V = first_logits.shape
+        self.costs.record("admit", ("hetero", A, V), lambda: (0.0, 4.0 * A * V))
+        sdfa = self._stacked_dfa().dfa
+        strans, _smask, _sdist, sactive, seos = sdfa
+        start = torch.zeros((A,), dtype=torch.int64, device=self.device)
+        act_rows = sactive[dfa_id]  # [A, C]
+        mask0 = self._stacked_budget_mask(sdfa, dfa_id, start, budgets - 1)
+        top_k = self.config.engine.top_k
+        noise = exponential_noise((A, V), self._generator, self.device)
+        col = sample_rows(
+            torch.gather(first_logits, 1, act_rows), self._generator, temp_v,
+            top_k=top_k, mask=mask0, noise=torch.gather(noise, 1, act_rows),
+        )
+        u_first = sample_rows(
+            first_logits, self._generator, temp_v, top_k=top_k, mask=self._unconstrained_mask, noise=noise
+        )
+        first = torch.where(cons_v, act_rows[torch.arange(A, device=self.device), col], u_first)
+        ended = torch.where(cons_v, seos[dfa_id, col], u_first == tok.eos_id)
+        done0 = ended | ~active | (budgets < 1)
+        state0 = torch.where(done0 | ~cons_v, start, strans[dfa_id, start, col])
+        cur0 = torch.where(done0, torch.full_like(first, tok.pad_id), first)
+        return cur0, state0, done0
+
     # --------------------------------------------------------------- decode
     def _flag_says_all_done(self) -> bool:
         """Whether the window before the last one issued left every row
@@ -1652,15 +2051,26 @@ class InferenceEngine:
         self._window_seq += 1
 
     def _window_plan(self, slab: _Slab) -> tuple[tuple, Optional[tuple]]:
-        """(key, grammar tables) of the slab's next window. The body is the
-        prompt draft for constrained greedy rows with
+        """(key, grammar tables) of the slab's next window. Heterogeneous
+        slab: the speculative body while the slab's latch says so, else the
+        heterogeneous fast-forward, over the stacked tables. Homogeneous:
+        the prompt draft for constrained greedy rows with
         ``draft_mode="prompt"`` (read from the live config) and a window
         wider than one, else fast-forward. The key holds everything a
         captured window bakes in: the body, the temperature class (greedy,
-        or the temperature and top-k, constants of the graph), the window
-        width, the batch, the grammar-table bucket and the forwards. The
-        key is also the ``window`` executable's signature in ``costs``."""
+        or the temperature and top-k, constants of the graph; ``("rows",
+        ...)`` where temperature is per-row data, with the speculative
+        draft mode), the window width, the batch, the grammar-table bucket
+        (the stack's shape, heterogeneous) and the forwards. The key is also
+        the ``window`` executable's signature in ``costs``."""
         ecfg = self.config.engine
+        forwards = max(1, ecfg.decode_steps_per_tick)
+        if slab.hetero:
+            stack = self._stacked_dfa()
+            if slab.spec:
+                key = ("spec", ("rows", slab.spec_draft), slab.spec_k + 1, slab.B, stack.shape, forwards)
+                return key, stack.spec_dfa
+            return ("hetero", ("rows",), self._spec_chunk(True), slab.B, stack.shape, forwards), stack.dfa
         constrained = slab.constrained
         chunk = self._spec_chunk(constrained)
         dfa = self._dfa_for(slab.grammar or self.grammar) if constrained else None
@@ -1669,7 +2079,6 @@ class InferenceEngine:
         )
         temp = ("greedy",) if slab.temperature <= 0.0 else ("sampled", slab.temperature, ecfg.top_k)
         bucket = None if dfa is None else tuple(dfa[0].shape)
-        forwards = max(1, ecfg.decode_steps_per_tick)
         return ("draft" if use_draft else "fast", temp, chunk, slab.B, bucket, forwards), dfa
 
     def _window(self, slab: _Slab, key: tuple, dfa: Optional[tuple]) -> None:
@@ -1679,16 +2088,19 @@ class InferenceEngine:
         and draft counts add to ``counts``; ``all_done`` is set from the
         last forward. Issues no blocking call and allocates only
         temporaries, so a CUDA graph can capture it."""
-        body = self._draft_forward if key[0] == "draft" else self._fast_forward
+        body = {
+            "draft": self._draft_forward, "fast": self._fast_forward,
+            "hetero": self._hetero_forward, "spec": self._spec_forward,
+        }[key[0]]
         chunk, forwards = key[2], key[5]
         d = slab.dev
         counts = d["counts"]
         state = tuple(d[k] for k in _STATE)
         for _ in range(forwards):
             counts[0].add_((~state[4]).any().long())
-            state, n_dr, n_ac = body(slab, dfa, chunk, *state)
-            if n_dr is not None:
-                counts[1:].add_(torch.stack([n_dr, n_ac]))
+            state, drafts = body(slab, dfa, chunk, *state)
+            if drafts is not None:
+                counts[1 : 1 + drafts.shape[0]].add_(drafts)
         for k, v in zip(_STATE, state):
             d[k].copy_(v)
         d["all_done"].copy_(state[4].all())
@@ -1711,18 +2123,14 @@ class InferenceEngine:
 
     def _record_window(self, key: tuple) -> None:
         """Count one run of the window ``key`` in ``costs``: the key's first
-        run is its capture on CUDA (its first eager run on the CPU). A
-        window's cost: its forwards over the whole slab at the window's
-        width, each row attending the page table's span; the draft body
-        unembeds every slot over the grammar's columns, the fast-forward
-        body one slot a row over the vocabulary."""
+        run is its capture on CUDA (its first eager run on the CPU). Its
+        cost is ``telemetry.costs.window_cost`` of the body at the key's
+        width, batch, grammar columns and forwards."""
         cfg, ecfg = self.model_cfg, self.config.engine
         body, _temp, chunk, B, bucket, forwards = key
-        draft = body == "draft"
-        self.costs.record("window", key, lambda: forward_cost(
-            cfg, batch=B, width=chunk, context=ecfg.max_pages_per_seq * ecfg.kv_page_size,
-            unembed_rows=B * chunk if draft else B,
-            unembed_cols=bucket[1] if draft else cfg.vocab_size, forwards=forwards,
+        self.costs.record("window", key, lambda: window_cost(
+            cfg, body, batch=B, width=chunk, context=ecfg.max_pages_per_seq * ecfg.kv_page_size,
+            columns=bucket[-1] if bucket is not None else cfg.vocab_size, forwards=forwards,
         ))
 
     def _capture(self, key: tuple, fn, serving: bool) -> None:
@@ -1731,7 +2139,8 @@ class InferenceEngine:
         CUDA graph in the engine's one memory pool. The stream's ticket
         buffer is held for the widest window first, so no capture bakes in
         a buffer that a later launch replaces. A sampled window's graph has
-        the engine's generator registered, so each replay draws anew. A
+        the engine's generator registered, so each replay draws anew; so has
+        every heterogeneous window's, whose temperature is per-row data. A
         failed capture raises EngineError; there is no eager retry."""
         stream = self._capture_stream
         main = torch.cuda.current_stream(self.device)
@@ -1740,14 +2149,15 @@ class InferenceEngine:
             with torch.cuda.stream(stream):
                 if not self._tickets_held:
                     cfg = self.model_cfg
+                    widest = max(self._spec_chunk(True), self.config.engine.speculative.k + 1)
                     hold_tickets(
                         self.device, stream.cuda_stream,
-                        ticket_count(self._slab.B, self._spec_chunk(True), cfg.n_kv_heads, cfg.q_per_kv),
+                        ticket_count(self._slab.B, widest, cfg.n_kv_heads, cfg.q_per_kv),
                     )
                     self._tickets_held = True
                 fn()
             graph = torch.cuda.CUDAGraph()
-            if key[1][0] == "sampled":
+            if key[1][0] in ("sampled", "rows"):
                 graph.register_generator_state(self._generator)
             before = captured_launches()
             with torch.cuda.graph(
@@ -1764,25 +2174,29 @@ class InferenceEngine:
         self._stats["captures" if serving else "warmup_captures"] += 1
 
     def _dispatch_segment(self, slab: _Slab) -> None:
-        """Enqueue up to ``steps_per_dispatch`` windows over the whole slab,
-        with no blocking call, and push the segment's in-flight record: its
+        """Enqueue up to ``steps_per_dispatch`` windows over the whole slab
+        (one speculative window: ``_decode_iters``), with no blocking call,
+        and push the segment's in-flight record: its
         end state packed into a host buffer of its own by one copy without
         blocking. Between windows, the early exit reads the all-done flag
         of the window before the last one. Rows of a segment dispatched
         later may already have moved on; the record keeps what this one
         saw."""
         key, dfa = self._window_plan(slab)
+        spec = key[0] == "spec"
         d = slab.dev
         d["counts"].zero_()
         n_win = 0
         self.metrics.segments.inc()
         self.metrics.segment_active_rows.inc(slab.n_active)
-        for _ in range(max(1, self.config.engine.steps_per_dispatch)):
+        for _ in range(self._decode_iters(spec) // key[5]):
             if self._flag_says_all_done():
                 break
             self._run_window(slab, key, dfa)
             self._note_window(d["all_done"])
             n_win += 1
+        if spec:
+            self._stats["spec_verify"] += n_win
         packed = torch.cat([d["out_buf"].reshape(-1), d["emitted"], d["done"].long(), d["counts"]])
         event = None
         if self.device.type == "cuda":
@@ -1792,7 +2206,7 @@ class InferenceEngine:
             event.record()
         else:
             host = packed
-        rec = _Inflight(host, event, slab.gen.copy())
+        rec = _Inflight(host, event, slab.gen.copy(), spec=spec)
         if slab.n_traced:
             # Only a segment with a traced row reads the clock: its spans
             # run from dispatch to harvest.
@@ -1878,7 +2292,7 @@ class InferenceEngine:
         # prev: the token just before the new cur, the chain's last.
         prev2 = torch.where(done | newly_done, prev, chunk_toks[b_idx, torch.clamp(adv - 1, min=0)])
         e2 = e1 + torch.where(newly_done, 0, 1)
-        return (nxt, pos + adv, st_next, e2, newly_done, prev2), None, None
+        return (nxt, pos + adv, st_next, e2, newly_done, prev2), None
 
     def _draft_forward(self, slab: _Slab, dfa, chunk: int, cur, pos, st, e, done, prev):
         """One forward of the prompt-draft body (constrained, greedy):
@@ -1896,7 +2310,7 @@ class InferenceEngine:
         Emits the accepted prefix and the correction: what one-token greedy
         decode would emit, in fewer forwards. Returns the new (cur, pos,
         st, emitted, done, prev) and the forward's drafted and accepted
-        counts (proposals the grammar did not force)."""
+        counts (proposals the grammar did not force), stacked."""
         trans, mask_tab, dist, active_ids, eos_cols, inv = dfa
         ecfg = self.config.engine
         d = slab.dev
@@ -1983,7 +2397,150 @@ class InferenceEngine:
         e2 = e1 + torch.where(newly_done, 0, 1)
         drafted = (p_use_t & ~forced_t).long().sum()
         accepted_n = (acc & ~forced_t).long().sum()
-        return (nxt, pos + adv, st_next, e2, newly_done, prev2), drafted, accepted_n
+        return (nxt, pos + adv, st_next, e2, newly_done, prev2), torch.stack([drafted, accepted_n])
+
+    def _hetero_forward(self, slab: _Slab, sdfa, chunk: int, cur, pos, st, e, done, prev):
+        """One forward of the heterogeneous body: each row's ``cur`` plus,
+        for constrained rows, the chain of tokens its grammar slot forces
+        after it (the trivial slot 0 has two legal columns everywhere, so a
+        free row never forces), then one sample at the chain's end. Every
+        row draws two ways from one noise tensor, compact-column under its
+        slot's budget mask and full-vocabulary, at its own temperature; the
+        constrained flag selects. Greedy rows mask and take the argmax as
+        the homogeneous bodies do, so their outputs equal a homogeneous
+        run's. Returns the new (cur, pos, st, emitted, done, prev) and no
+        draft counts."""
+        tok = self.tokenizer
+        d = slab.dev
+        B, W = slab.B, slab.steps  # out_buf column W is the drop slot
+        pad, eos = tok.pad_id, tok.eos_id
+        budgets, buf = d["budgets"], d["out_buf"]
+        temp_v, cons_v, dfa_id = d["temp"], d["cons"], d["dfa"]
+        strans, smask, _sdist, sactive, seos = sdfa
+        b_idx = torch.arange(B, device=self.device)
+        if chunk > 1:
+            s, dd, er = st, done, e
+            ff_toks, ff_emit = [], []
+            for _ in range(chunk - 1):
+                row = smask[dfa_id, s]  # [B, C]
+                t_c = torch.argmax(row.to(torch.uint8), dim=-1)
+                forced = cons_v & (row.sum(dim=-1) == 1) & ~dd
+                is_eos = forced & seos[dfa_id, t_c]
+                emit = forced & ~is_eos & (er < budgets)
+                over = forced & ~is_eos & (er >= budgets)
+                s = torch.where(emit, strans[dfa_id, s, t_c], s)
+                dd = dd | is_eos | over
+                er = er + emit.long()
+                ff_toks.append(torch.where(emit, sactive[dfa_id, t_c], pad))
+                ff_emit.append(emit)
+            st1, done1, e1 = s, dd, er
+            ff_toks_t = torch.stack(ff_toks, dim=1)  # [B, chunk-1]
+            ff_emit_t = torch.stack(ff_emit, dim=1)
+            slot = e[:, None] + torch.cumsum(ff_emit_t.long(), dim=1) - 1
+            buf[b_idx[:, None], torch.where(ff_emit_t, slot, W)] = ff_toks_t
+            chunk_toks = torch.cat([cur[:, None], ff_toks_t], dim=1)
+            adv_extra = ff_emit_t.long().sum(dim=1)
+        else:
+            st1, done1, e1 = st, done, e
+            chunk_toks = cur[:, None]
+            adv_extra = 0
+        adv = torch.where(done, 0, 1) + adv_extra
+        logits, _ = decode_chunk_paged(
+            self._params, self.model_cfg, chunk_toks, pos, d["page_table"], self._paged_kv,
+            logits_at=torch.clamp(adv - 1, min=0), q_lens=adv,
+        )
+        act_rows = sactive[dfa_id]  # [B, C]
+        mask = self._stacked_budget_mask(sdfa, dfa_id, st1, budgets - e1 - 1)
+        top_k = self.config.engine.top_k
+        noise = exponential_noise(logits.shape, self._generator, self.device)
+        col = sample_rows(
+            torch.gather(logits, 1, act_rows), self._generator, temp_v,
+            top_k=top_k, mask=mask, noise=torch.gather(noise, 1, act_rows),
+        )
+        u_tok = sample_rows(
+            logits, self._generator, temp_v, top_k=top_k, mask=self._unconstrained_mask, noise=noise
+        )
+        nxt_id = torch.where(cons_v, act_rows[b_idx, col], u_tok)
+        ended = torch.where(cons_v, seos[dfa_id, col], u_tok == eos)
+        newly_done = done1 | ended | (e1 >= budgets)
+        st_next = torch.where(newly_done | ~cons_v, st1, strans[dfa_id, st1, col])
+        nxt = torch.where(newly_done, pad, nxt_id)
+        buf[b_idx, torch.where(newly_done, W, e1)] = nxt
+        e2 = e1 + torch.where(newly_done, 0, 1)
+        return (nxt, pos + adv, st_next, e2, newly_done, prev), None
+
+    def _spec_forward(self, slab: _Slab, sdfa, chunk: int, cur, pos, st, e, done, prev):
+        """One forward of the speculative body (``chunk`` = K + 1):
+          1. draft: the drafter proposes up to K tokens a row through the
+             row's grammar slot (``draft_window``), which also gives the
+             verify window's admissibility masks;
+          2. verify: one forward over the ``[B, K+1]`` window ``[cur,
+             drafts]`` (``q_lens`` = 1 + the row's drafts, 0 for done rows:
+             the ragged kernel's verify path), logits at every position;
+             every position of every row is sampled in one vocabulary-space
+             pass (``sample_window_rows``, one Gumbel draw per position) under
+             its mask, gathered from column space through ``inv``;
+          3. accept: the longest draft prefix the samples reproduce, then
+             the sample at the first mismatch as the correction
+             (``accept_rows``): what token-by-token decode would emit.
+        Rejected positions wrote K/V past the accepted end, which the next
+        window overwrites (admission reserves K + 1 tokens of slack). The
+        drafter state advances over the accepted tokens. Returns the new
+        (cur, pos, st, emitted, done, prev) and the forward's drafted and
+        accepted tokens, all rows and constrained rows."""
+        K = chunk - 1
+        tok = self.tokenizer
+        d = slab.dev
+        B, W = slab.B, slab.steps
+        pad, eos = tok.pad_id, tok.eos_id
+        budgets, buf, h = d["budgets"], d["out_buf"], d["hstate"]
+        temp_v, cons_v, dfa_id = d["temp"], d["cons"], d["dfa"]
+        strans, smask, _sdist, sactive, seos, sdist_succ, sinv = sdfa
+        embed = self._params["embed"]
+        b_idx = torch.arange(B, device=self.device)
+        j_ar = torch.arange(K, device=self.device)
+
+        # 1. Draft K tokens a row through the grammar pre-filter.
+        p_toks, p_use, s_before, s_fin, masks_w = draft_window(
+            embed, (strans, smask, sdist_succ, sactive, seos), dfa_id, st, cur, h, e, budgets,
+            done, cons_v, self._draft_free_mask, pad, k=K, mode=slab.spec_draft,
+        )
+        # 2. One verify forward, then every position sampled at once.
+        window = torch.cat([cur[:, None], p_toks], dim=1)
+        n_drafted = p_use.long().sum(dim=1)
+        logits_w, _ = decode_chunk_paged(
+            self._params, self.model_cfg, window, pos, d["page_table"], self._paged_kv,
+            q_lens=torch.where(done, 0, 1 + n_drafted),
+        )  # [B, K+1, V]
+        V = logits_w.shape[-1]
+        col_of = sinv[dfa_id]  # [B, V] token -> column, -1 inactive
+        vmask = torch.gather(
+            masks_w, 2, torch.clamp(col_of, min=0)[:, None, :].expand(B, K + 1, V)
+        ) & (col_of >= 0)[:, None, :]
+        mask_w = torch.where(cons_v[:, None, None], vmask, self._unconstrained_mask[None, None, :])
+        gumbel = -torch.log(exponential_noise(logits_w.shape, self._generator, self.device))
+        tok_w = sample_window_rows(
+            logits_w, temp_v, top_k=self.config.engine.top_k, mask=mask_w, gumbel=gumbel
+        )  # [B, K+1]
+        # 3. Accept; the sample at the first mismatch is the correction.
+        acc, a = accept_rows(tok_w[:, :K], p_toks, p_use)
+        e1 = e + a
+        nxt_tok = tok_w[b_idx, a]
+        col_a = torch.clamp(col_of[b_idx, nxt_tok], min=0)
+        st1 = torch.cat([s_before, s_fin[:, None]], dim=1)[b_idx, a]
+        ended = torch.where(cons_v, seos[dfa_id, col_a], nxt_tok == eos)
+        newly_done = done | ended | (e1 >= budgets)
+        st_next = torch.where(newly_done | ~cons_v, st1, strans[dfa_id, st1, col_a])
+        nxt = torch.where(newly_done, pad, nxt_tok)
+        buf[b_idx[:, None], torch.where(acc, e[:, None] + j_ar[None, :], W)] = p_toks
+        buf[b_idx, torch.where(newly_done, W, e1)] = nxt
+        adv = torch.where(done, 0, 1) + a  # done rows drafted nothing
+        if slab.spec_draft == "recurrent":
+            h.copy_(torch.where(done[:, None], h, advance_drafter_state(h, embed, window, a + 1)))
+        e2 = e1 + torch.where(newly_done, 0, 1)
+        cons_l = cons_v.long()
+        drafts = torch.stack([n_drafted.sum(), a.sum(), (n_drafted * cons_l).sum(), (a * cons_l).sum()])
+        return (nxt, pos + adv, st_next, e2, newly_done, prev), drafts
 
     def _harvest(self, slab: _Slab, keep_inflight: int) -> None:
         """Retire rows of in-flight segments, oldest first, until at most
@@ -2006,10 +2563,12 @@ class InferenceEngine:
             buf = flat[:n_buf].reshape(B, W1)
             e = flat[n_buf : n_buf + B]
             done = flat[n_buf + B : n_buf + 2 * B] != 0
-            live, drafted, accepted = (int(x) for x in flat[n_buf + 2 * B :])
+            live, drafted, accepted, dr_cons, ac_cons = (int(x) for x in flat[n_buf + 2 * B :])
             self._stats["live_forwards"] += live
             self._stats["drafted"] += drafted
             self._stats["accepted"] += accepted
+            if rec.spec:
+                self._account_speculation(dr_cons, ac_cons, drafted - dr_cons, accepted - ac_cons)
             t1 = time.monotonic()
             # The reference's forward count: forwards in which a row was live.
             m.decode_forwards.inc(live)
@@ -2048,6 +2607,30 @@ class InferenceEngine:
                 self._stats["decode_tokens"] += len(ids)
                 r.loop.call_soon_threadsafe(_resolve, r.future, res, None)
 
+    def _account_speculation(self, dc: int, acc_c: int, df: int, acc_f: int) -> None:
+        """Fold one harvested speculative segment's drafted and accepted
+        tokens, by row class, into the running totals, the
+        ``mcpx_engine_spec_*`` counters and the accept-rate gauges."""
+        if not (dc or df):
+            return
+        t = self._spec_totals
+        t = {
+            "drafted_constrained": t["drafted_constrained"] + dc,
+            "accepted_constrained": t["accepted_constrained"] + acc_c,
+            "drafted_free": t["drafted_free"] + df,
+            "accepted_free": t["accepted_free"] + acc_f,
+        }
+        self._spec_totals = t
+        m = self.metrics
+        for cls, n_dr, n_ac in (("constrained", dc, acc_c), ("free", df, acc_f)):
+            if n_dr:
+                m.spec_drafted.labels(cls=cls).inc(n_dr)
+                m.spec_accepted.labels(cls=cls).inc(n_ac)
+                m.spec_accept_rate.labels(cls=cls).set(t[f"accepted_{cls}"] / t[f"drafted_{cls}"])
+        m.spec_accept_rate.labels(cls="overall").set(
+            (t["accepted_constrained"] + t["accepted_free"]) / (t["drafted_constrained"] + t["drafted_free"])
+        )
+
     def _trace_segment(self, slab: _Slab, rec: _Inflight, e: np.ndarray, done: np.ndarray,
                        live: int, t1: float) -> None:
         """A harvested segment with a traced row: its cost into the decode
@@ -2071,7 +2654,7 @@ class InferenceEngine:
             if delta <= 0 and not done[i]:
                 continue
             r.span.child(
-                "engine.segment", t0=rec.t_disp, t1=t1, tokens=delta, dfa_id=0,
+                "engine.segment", t0=rec.t_disp, t1=t1, tokens=delta, dfa_id=int(slab.dfa[i]),
                 cls="constrained" if r.constrained else "free", forwards=live, **attrs,
             )
 

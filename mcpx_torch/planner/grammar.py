@@ -220,6 +220,11 @@ class PlanGrammar:
     def n_active(self) -> int:
         return self.active_ids.shape[0]
 
+    @property
+    def min_len(self) -> int:
+        """Fewest sampled tokens (including EOS) of any accepted output."""
+        return int(self.dist[self.start_state])
+
     def device_tables(self, pad_multiple: int = 512):
         """(ctrans, cmask, dist, active_ids, eos_cols, inv_cols) as host
         numpy arrays, state dim padded to a multiple of ``pad_multiple`` and
@@ -259,6 +264,114 @@ class PlanGrammar:
         for b in text.encode("utf-8"):
             s = int(self.byte_transitions[s, b])
         return s
+
+
+def build_trivial_grammar(tokenizer=None) -> PlanGrammar:
+    """The all-accept DFA of stacked slot 0 in the heterogeneous engine:
+    every unconstrained row carries ``dfa_id == 0``, so the per-row table
+    gathers stay in range. Its compact tables are shaped like any grammar's
+    but inert: two legal columns in the live state (fast-forward forces a
+    token only where exactly one column is legal), self-looping transitions
+    (the state stays 0), and its sampled column is never read (free rows
+    keep the full-vocabulary draw). ``walk``/``is_accept`` accept every
+    byte string."""
+    tok = tokenizer or ByteTokenizer()
+    byte_trans = np.zeros((2, 256), np.int32)
+    byte_trans[1, :] = 1
+    return PlanGrammar(
+        ctrans=np.asarray([[0, 0], [1, 1]], np.int32),  # state 1 = dead
+        cmask=np.asarray([[True, True], [False, False]], bool),
+        dist=np.asarray([1, _DIST_INF], np.int32),
+        active_ids=np.asarray([tok.eos_id, tok.bos_id], np.int32),
+        eos_cols=np.asarray([True, False], bool),
+        cdead=1,
+        start_state=0,
+        byte_transitions=byte_trans,
+        dead_state=1,
+        accept_states=frozenset({0}),
+        tokenizer=tok,
+    )
+
+
+def stack_shape(grammars: "list[PlanGrammar]", pad_multiple: int) -> tuple[int, int]:
+    """(S, C) of a stack: the largest state pad bucket and the largest
+    column bucket over the stacked grammars."""
+    S = max(-(-g.n_states // pad_multiple) * pad_multiple for g in grammars)
+    return S, max(_col_bucket(g.n_active) for g in grammars)
+
+
+def stacked_tables(grammars: "list[PlanGrammar]", pad_multiple: int = 512) -> tuple[np.ndarray, ...]:
+    """Several grammars' compact tables stacked on a new leading axis, so a
+    per-row ``dfa_id`` indexes them inside one decode window. Every grammar
+    pads to the common shape (:func:`stack_shape`) with ``device_tables``'s
+    inert padding (mask False, transitions to that grammar's dead state,
+    active id PAD, dist infinite). Returns host arrays ``(trans [G,S,C],
+    mask [G,S,C], dist [G,S], active_ids [G,C], eos_cols [G,C])``."""
+    if not grammars:
+        raise ValueError("stacked_tables needs at least one grammar")
+    S, C = stack_shape(grammars, pad_multiple)
+    G = len(grammars)
+    trans = np.empty((G, S, C), np.int32)
+    mask = np.zeros((G, S, C), bool)
+    dist = np.full((G, S), _DIST_INF, np.int32)
+    ids = np.full((G, C), grammars[0].tokenizer.pad_id, np.int32)
+    eos = np.zeros((G, C), bool)
+    for gi, g in enumerate(grammars):
+        n, c = g.ctrans.shape
+        trans[gi, :, :] = g.cdead
+        trans[gi, :n, :c] = g.ctrans
+        mask[gi, :n, :c] = g.cmask
+        dist[gi, :n] = g.dist
+        ids[gi, :c] = g.active_ids
+        eos[gi, :c] = g.eos_cols
+    return trans, mask, dist, ids, eos
+
+
+def stacked_spec_tables(grammars: "list[PlanGrammar]", pad_multiple: int = 512) -> tuple[np.ndarray, np.ndarray]:
+    """Speculative decoding's companions to :func:`stacked_tables`, in the
+    same stack order and pad geometry:
+
+      - ``dist_succ [G, S, C]`` int32: the fewest samples to finish after
+        taking column c from state s (``dist[g, trans[g, s, c]]``), so a
+        budget-finishability check is one gather;
+      - ``inv_cols [G, V]`` int32: token id to compact column, -1 where the
+        token is active nowhere in that grammar. It lets the verify sample
+        run once in vocabulary space and map the winner back to its column.
+        ``active_ids`` strictly increase per grammar, so a vocabulary-space
+        argmax breaks ties as the compact-space argmax does."""
+    if not grammars:
+        raise ValueError("stacked_spec_tables needs at least one grammar")
+    S, C = stack_shape(grammars, pad_multiple)
+    G = len(grammars)
+    dist_succ = np.full((G, S, C), _DIST_INF, np.int32)
+    inv = np.full((G, grammars[0].tokenizer.vocab_size), -1, np.int32)
+    for gi, g in enumerate(grammars):
+        n, c = g.ctrans.shape
+        d = np.full((S,), _DIST_INF, np.int32)
+        d[:n] = g.dist
+        tr = np.full((S, C), g.cdead, np.int32)
+        tr[:n, :c] = g.ctrans
+        dist_succ[gi] = d[tr]
+        inv[gi, g.active_ids] = np.arange(c, dtype=np.int32)
+    return dist_succ, inv
+
+
+def stacked_window_admissibility(sdfa_tables, dfa_id, states, rem):
+    """Admissibility masks of a K-token speculation window over stacked
+    grammar tables (torch tensors). ``states`` [B, W] is the DFA state
+    before each window position, ``rem`` [B, W] the sample budget left
+    there. Returns [B, W, C]: column c is admissible at (b, w) iff it is
+    legal from ``states[b, w]`` in grammar slot ``dfa_id[b]`` and (it is
+    EOS or its successor can still finish within ``rem[b, w]``); where no
+    column can finish, the plain legal set. The spelled-out semantics of
+    the masks the drafter's walk emits (``speculative.draft_window``)."""
+    import torch
+
+    strans, smask, sdist, _sactive, seos = sdfa_tables
+    legal = smask[dfa_id[:, None], states]  # [B, W, C]
+    succ = strans[dfa_id[:, None], states]  # [B, W, C]
+    finishable = legal & (seos[dfa_id][:, None, :] | (sdist[dfa_id[:, None, None], succ] <= rem[..., None]))
+    return torch.where(finishable.any(dim=-1, keepdim=True), finishable, legal)
 
 
 def _validate_trie_names(names, what: str) -> list[bytes]:

@@ -10,8 +10,9 @@ first seen. The device is never read for them.
 
   - An *executable* is one body of the engine: ``prefill`` (dense
     prefill), ``suffix_prefill``, ``admit`` (the first sample) and
-    ``window`` (a decode window, plain or drafted: the body is part of its
-    key). A *signature* is its capture or shape key.
+    ``window`` (a decode window, plain, drafted, heterogeneous or
+    speculative: the body is part of its key; :func:`window_cost`). A
+    *signature* is its capture or shape key.
   - **Capture sentinel**: a key seen for the first time is a compile: on
     CUDA a decode window is captured into a CUDA graph exactly then, on
     the CPU it is its first eager run; the eager executables (prefill,
@@ -52,6 +53,7 @@ __all__ = [
     "roofline",
     "rounded_roofline",
     "update_hbm_gauges",
+    "window_cost",
 ]
 
 # bf16 dense FLOP/s and HBM bytes/s per card, by device-name substring:
@@ -226,6 +228,38 @@ def forward_cost(
         + 4.0 * unembed_rows * unembed_cols
     )
     return forwards * flops, forwards * nbytes
+
+
+def window_cost(
+    cfg: Any, body: str, *, batch: int, width: int, context: int, columns: int, forwards: int
+) -> tuple[float, float]:
+    """(FLOPs, bytes) of one decode window of ``body`` (the engine's window
+    key): :func:`forward_cost` of its ``forwards`` forwards over the whole
+    slab at the window's ``width``, each row attending ``context``
+    positions, with the body's unembedding:
+
+      - ``draft`` (prompt drafting): every slot over the grammar's
+        ``columns`` (the compact unembed);
+      - ``fast`` and ``hetero`` (fast-forward, homogeneous or per row): one
+        slot a row over the vocabulary;
+      - ``spec`` (speculative, ``width`` = K + 1): every slot over the
+        vocabulary, plus the drafter's K scoring products a row and
+        forward (``drafter_flops_per_token`` each), each reading the
+        embedding table and writing [batch, V] fp32 scores."""
+    from mcpx_torch.engine.speculative import drafter_flops_per_token
+
+    V, D = cfg.vocab_size, cfg.d_model
+    every_slot = body in ("draft", "spec")
+    flops, nbytes = forward_cost(
+        cfg, batch=batch, width=width, context=context,
+        unembed_rows=batch * width if every_slot else batch,
+        unembed_cols=columns if body == "draft" else V, forwards=forwards,
+    )
+    if body == "spec":
+        drafts = forwards * (width - 1)
+        flops += drafts * batch * drafter_flops_per_token(D, V)
+        nbytes += drafts * (V * D * 2 + 4.0 * batch * V)
+    return flops, nbytes
 
 
 # ------------------------------------------------------------ registry

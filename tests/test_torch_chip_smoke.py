@@ -1,9 +1,10 @@
 """Pieces of ``chip_smoke.py`` that run without a card: the kernel phase's
 least-time count (``attention_bound``: it charges what the function needs,
 no more), the execute phase's prompt checks, failing transport, rounds of
-executions (``Lockstep``) and probe exclusion, and the telemetry phase: its
+executions (``Lockstep``) and probe exclusion, the telemetry phase (its
 exposition parser, its latency attribution against the reference bench's,
-and the phase itself on a CPU control plane."""
+and the phase itself on a CPU control plane), and the mixed, speculation
+and heterogeneous ``/plan`` phases on CPU engines."""
 
 import os
 import sys
@@ -267,3 +268,52 @@ def test_telemetry_phase_runs_on_a_cpu_control_plane():
     assert stats["worker_profile"]["attributed_frac"] >= 0.95
     assert len(stats["p50_ms_on"]) == len(stats["p50_ms_off"]) == 3
     assert stats["roofline"]["achieved_flops_s"] > 0 and "mfu" not in stats["roofline"]
+
+
+def test_mixed_spec_and_hetero_phases_run_on_a_cpu_engine():
+    """The heterogeneous slab's phases on the CPU at a small size: the mixed
+    phase on a serving control plane (both slabs, greedy rows equal), the
+    ``/plan`` burst with the heterogeneous slab and speculation (plans equal
+    the homogeneous burst's) and the speculation phase (off and on, greedy
+    rows equal, the verify path run, the drafted counter equal to
+    ``queue_stats``), each gating as on the card."""
+    import asyncio
+    import random
+
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    async def serving():
+        cfg = chip_smoke.config("test", chip_smoke.CKPT, 8)
+        cfg.engine.warmup_compile = False
+        cp = build_control_plane(cfg, device="cpu")
+        records = synth_registry(1000, seed=0)
+        for rec in records:
+            await cp.registry.put(rec)
+        await cp.startup()
+        await cp.planner.engine.drop_unpinned()
+        try:
+            rng = random.Random(0)
+            intents = [intent_for(records, rng) for _ in range(4)]
+            with chip_smoke.one_cohort(cp.planner.engine, len(intents)):
+                plans = [p for p, _ in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
+            return plans, await chip_smoke.mixed_phase(cp, "test", "cpu", n=20)
+        finally:
+            await cp.aclose()
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plans, mixed = asyncio.run(serving())
+        hetero = asyncio.run(
+            chip_smoke.serve_hetero("test", chip_smoke.CKPT, 4, "cpu", plans, batch=8, device="cpu")
+        )
+        spec = asyncio.run(chip_smoke.spec_phase("test", chip_smoke.CKPT, "cpu", 12, batch=8, device="cpu"))
+    finally:
+        torch.set_num_threads(n)
+    assert mixed["differing"] == 0 and mixed["hetero"]["captures"] == mixed["drain"]["captures"] == 0
+    assert mixed["hetero"]["live_forwards"] > 0 and mixed["drain"]["decode_tokens"] > 0
+    assert hetero["origins"] == {"llm": 4} and hetero["spec_verify"] > 0
+    assert spec["differing"] == 0 and spec["on"]["spec_verify"] > 0 and spec["off"]["spec_verify"] == 0
+    assert spec["on"]["tokens_per_live_forward"] > spec["off"]["tokens_per_live_forward"]
+    assert 0 < spec["on"]["accept_rate"] <= 1

@@ -7,8 +7,10 @@ package, so they run where only PyTorch and the CUDA toolkit are:
 Elsewhere they skip: the kernel has no CPU mode. The seeded mixed-batch
 and prefill-cohort generators here are shared with the CPU parity tests.
 The last tests hold the engine's decode window as a captured CUDA graph:
-replay against eager from one snapshot, the ticket buffers after replays,
-the launch count of replays and a sampled window's capture."""
+replay against eager from one snapshot (the heterogeneous and speculative
+windows too), the ticket buffers after replays, the launch count of replays,
+a sampled window's capture, a sampled speculative window's draws from the
+registered generator, and the first-maximum tie-break on the card."""
 
 import asyncio
 import os
@@ -60,6 +62,25 @@ def prefill_case(seed, B=16, S=128, K=1, G=4, hd=32, psz=64, p_max=4, starts=(0,
     q_lens = [0 if b in idle_rows else rng.randint(1, S) for b in range(B)]
     st = [rng.choice(fits) for _ in range(B)]
     return q, kp, vp, table, np.asarray(st, np.int32), np.asarray(q_lens, np.int32)
+
+
+def verify_case(seed, B=64, S=5, K=1, G=4, hd=32, psz=64, p_max=4, live=32):
+    """The speculative verify window: ``live`` random rows at q_len S = K+1
+    (the current token and K drafts), the rest idle, random distinct pages
+    and start offsets that leave room for S queries; numpy draws."""
+    rng = random.Random(seed)
+    npr = np.random.default_rng(seed)
+    n_pages = B * p_max + 2
+    q = npr.standard_normal((B, S, K, G, hd), np.float32)
+    kp = npr.standard_normal((K, 2, n_pages, psz, hd), np.float32)
+    vp = npr.standard_normal((K, 2, n_pages, psz, hd), np.float32)
+    pages = list(range(1, n_pages))
+    rng.shuffle(pages)
+    table = np.asarray(pages[: B * p_max], np.int32).reshape(B, p_max)
+    rows = set(rng.sample(range(B), live))
+    q_lens = [S if b in rows else 0 for b in range(B)]
+    starts = [rng.randint(0, p_max * psz - S - 1) for _ in range(B)]
+    return q, kp, vp, table, np.asarray(starts, np.int32), np.asarray(q_lens, np.int32)
 
 
 def as_torch(*arrays):
@@ -219,6 +240,18 @@ def test_cuda_kernel_widest_window(cuda, dtype, atol, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape,live", [((4, 32), 32), ((8, 256), 16)])
+def test_cuda_kernel_verify_shape(cuda, dtype, atol, shape, live):
+    """The speculative verify window at the serving geometry: B 64, S 5
+    (k 4), q_len 5 on the live rows and 0 on the rest, 64-token pages, at
+    the test and the 2b widths."""
+    G, hd = shape
+    for seed in range(2):
+        _check_case(verify_case(seed, G=G, hd=hd, live=live), cuda, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
 def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol):
     args = _on_card(prefill_case(3, S=128, G=8, hd=256), cuda, dtype)
     outs = [tk.ragged_paged_attention(*args, 0) for _ in range(3)]
@@ -236,19 +269,28 @@ import chip_smoke  # noqa: E402
 def window_engine(cuda, request):
     """An engine at the test preset (random weights, byte vocab) on the
     card with three requests admitted by hand, greedy unless the test is
-    parametrised with a temperature; torn down through ``_shutdown``, which
-    drops its graphs and releases the capturing stream's ticket buffer."""
+    parametrised with a temperature (or with "hetero", "spec", "spec_hot"
+    or "spec_grammar": the heterogeneous slab, speculation off or on, with
+    rows at 0.8, or with the grammar draft mode); torn down through
+    ``_shutdown``, which drops its graphs and releases the capturing
+    stream's ticket buffer."""
     from collections import deque
 
     from mcpx_torch.core.config import MCPXConfig
     from mcpx_torch.engine.engine import InferenceEngine
 
-    temperature = getattr(request, "param", 0.0)
+    param = getattr(request, "param", 0.0)
+    slab = param if isinstance(param, str) else None  # the heterogeneous slab
+    temperature = 0.8 if slab == "spec_hot" else 0.0 if slab else param
     cfg = MCPXConfig.from_dict({
         "model": {"size": "test", "max_seq_len": 256},
         "engine": {
             "max_batch_size": 8, "max_decode_len": 48, "kv_page_size": 16,
-            "max_pages_per_seq": 16, "temperature": temperature,
+            "max_pages_per_seq": 16, "temperature": temperature, "hetero_batch": slab is not None,
+            "speculative": {
+                "enabled": slab in ("spec", "spec_hot", "spec_grammar"),
+                "draft": "grammar" if slab == "spec_grammar" else "recurrent",
+            },
         },
     })
     eng = InferenceEngine(cfg, device=cuda)
@@ -349,3 +391,87 @@ def test_sampled_window_captures_with_its_generator(window_engine):
     for b in range(3):
         toks = d["out_buf"][b, : int(d["emitted"][b])].tolist()
         assert toks and set(toks) <= active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window_engine", ["hetero", "spec", "spec_grammar"], indirect=True)
+def test_heterogeneous_windows_replay_what_eager_runs(window_engine):
+    """The heterogeneous and the speculative window (per-row state, stacked
+    grammar tables, the drafter's state, the verify window through the
+    kernel): from one snapshot, eager, the capture's warm-up and the replay
+    end bitwise equal (greedy rows), the rows advanced, and a speculative
+    window verified drafts."""
+    eng = window_engine
+    slab = eng._slab
+    key, dfa = eng._window_plan(slab)
+    assert key[0] == ("spec" if slab.spec else "hetero") and key[1][0] == "rows"
+    snap = chip_smoke.window_state(eng)
+    ends = []
+    for run in ("eager", "capture", "replay"):
+        chip_smoke.set_window_state(eng, snap)
+        if run == "eager":
+            eng._window(slab, key, dfa)
+        else:
+            eng._run_window(slab, key, dfa)
+        torch.cuda.synchronize()
+        ends.append(chip_smoke.window_state(eng))
+    assert eng._stats["captures"] == 1 and eng._stats["replays"] == 1
+    for name in snap:
+        assert torch.equal(ends[0][name], ends[1][name]), name
+        assert torch.equal(ends[0][name], ends[2][name]), name
+    assert bool((ends[2]["slab.emitted"] > snap["slab.emitted"]).any())
+    if slab.spec:
+        assert int(ends[2]["slab.counts"][1]) > int(snap["slab.counts"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window_engine", ["spec_hot"], indirect=True)
+def test_sampled_speculative_window_draws_from_the_registered_generator(window_engine):
+    """Sampled rows in the speculative window: from one snapshot (the rows
+    at their first sampled positions) and one ``manual_seed`` of the
+    engine's generator, the window run eagerly, its capture's warm-up and
+    two replays end bitwise equal (every draw comes from that generator,
+    once a position, in the same order), a replay after another seed
+    differs, and every emitted token is one the grammar allows."""
+    eng = window_engine
+    slab = eng._slab
+    key, dfa = eng._window_plan(slab)
+    snap = chip_smoke.window_state(eng)
+    ends = []
+    for run, seed in (("eager", 1234), ("capture", 1234), ("replay", 1234), ("replay", 1234), ("replay", 99)):
+        chip_smoke.set_window_state(eng, snap)
+        eng._generator.manual_seed(seed)
+        if run == "eager":
+            eng._window(slab, key, dfa)
+        else:
+            eng._run_window(slab, key, dfa)
+        torch.cuda.synchronize()
+        ends.append(chip_smoke.window_state(eng))
+    assert eng._stats["captures"] == 1 and eng._stats["replays"] == 3
+    for end in ends[1:4]:
+        assert all(torch.equal(ends[0][k], end[k]) for k in snap)
+    assert not torch.equal(ends[0]["slab.out_buf"], ends[4]["slab.out_buf"])
+    active = set(eng.grammar.active_ids.tolist())
+    d = slab.dev
+    for b in range(3):
+        toks = d["out_buf"][b, : int(d["emitted"][b])].tolist()
+        assert toks and set(toks) <= active
+
+
+@pytest.mark.cuda
+def test_argmax_breaks_ties_at_the_first_maximum_on_the_card(cuda):
+    """On the card too, vocabulary-space and compact-space greedy picks
+    agree on a tie (the first maximum), over a [64, 5, 3072] window."""
+    from mcpx_torch.engine import sampling
+
+    B, W, V = 64, 5, 3072
+    logits = torch.zeros((B, W, V), device=cuda)
+    logits[..., [7, 11, 2900]] = 5.0
+    active = torch.tensor([2, 7, 11, 20, 2900], device=cuda)
+    mask = torch.zeros((V,), dtype=torch.bool, device=cuda)
+    mask[active] = True
+    temps = torch.zeros((B,), device=cuda)
+    window = sampling.sample_window_rows(logits, temps, mask=mask, gumbel=torch.zeros_like(logits))
+    vocab = sampling.sample_rows(logits[:, 0], None, temps, mask=mask)
+    compact = active[sampling.sample_rows(logits[:, 0][:, active], None, temps)]
+    assert bool((window == 7).all()) and bool((vocab == 7).all()) and bool((compact == 7).all())

@@ -11,7 +11,8 @@ against a compact unembed, and pipelined segments.
     fewer forwards, and the port accepts drafted tokens;
   - ports of the reference engine's draft and pipelining tests;
   - the generation guard, shutdown with a segment in flight, no blocking
-    tensor method inside a segment, and the options the port refuses.
+    tensor method inside a segment, and the options the port refuses (and
+    the heterogeneous slab and speculation, which it now serves).
 """
 
 import asyncio
@@ -439,10 +440,19 @@ def test_no_blocking_tensor_method_inside_a_segment(monkeypatch):
     ids=["hetero_batch", "speculative", "kv_tier", "ring_prefill", "int8", "defaults"],
 )
 def test_options_the_port_does_not_serve_are_refused(section, key, value):
+    """The options the port does not serve yet are refused by name; the
+    heterogeneous slab and speculative decoding are served (speculation on
+    the heterogeneous slab, where its drafter has the stacked grammars)."""
     cfg = {"model": {"size": "test", "max_seq_len": 256}, "engine": {}}
     if section is None:
         assert InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu").config.engine.draft_mode == "prompt"
         return
     cfg[section][key] = value
+    if key in ("hetero_batch", "speculative"):
+        cfg["engine"]["hetero_batch"] = True
+        eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
+        assert eng.config.engine.hetero_batch
+        assert eng._spec_k() == (eng.config.engine.speculative.k if key == "speculative" else 0)
+        return
     with pytest.raises(EngineError, match=key):
         InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
