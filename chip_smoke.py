@@ -10,9 +10,10 @@ Phases, one line each (every number beside the card's name and power limit):
      seeded batches at the serving shapes (bf16): a mixed batch, the
      serving bursts' mix of a few live rows among idle ones, and a
      suffix-prefill cohort at prefill width (S 128), at 64-token pages and
-     again the last two at the execute phases' 16-token pages, and the
+     again the last two at the execute phases' 16-token pages, the
      speculative verify window (S 5, q_len 5 on the live rows, 0 on the
-     rest) at 64-token pages; with its time,
+     rest) at 64-token pages, and the tier phases' suffix prefill over
+     readmitted prefixes and decode (B 4, 16-token pages); with its time,
      the plain version's and one PyTorch library call's (a yardstick the
      port never calls), each by back-to-back eager calls (``ms``, host work
      included) and as device time by CUDA-graph replays (``device_ms``),
@@ -87,6 +88,14 @@ Phases, one line each (every number beside the card's name and power limit):
      bench's speculation scenario on a dedicated heterogeneous engine, off
      (one token a forward) against on (k 4, the recurrent drafter) in
      interleaved rounds (``spec_phase``);
+ 14. the tiered KV cache (``tier_test``, ``tier_2b``): the reference bench's
+     tier scenario on dedicated engines at its geometry, single tier,
+     tiered with a warm restart from its snapshot, a thrash tenant against
+     a victim, and a seeded chaos profile (``tier_phase``);
+ 15. the tier's copies held bit for bit (``tier_roundtrip_test``,
+     ``tier_roundtrip_2b``): spill, page reuse, readmit into other pages and
+     the kernel over them, alone and beside a replaying graph
+     (``tier_roundtrip``); phase 3 times the kernel at the tier's shapes;
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -303,7 +312,8 @@ def sdpa_yardstick(q, k_pages, v_pages, table, starts, layer):
 # are the execute phases' geometry: the same row capacity in 16-token pages.
 # live=("verify", n) is the speculative verify window at k 4: B 64, S 5,
 # q_len 5 on n live rows (the spec phases' requests in flight: 32 at test,
-# 16 at 2b) and 0 on the rest.
+# 16 at 2b) and 0 on the rest. live="tier_prefill"/"tier_decode" are the
+# tier phases' shapes (``tier_batch``): B 4, 16-token pages, 16 a row.
 CELLS = (
     ("test", 4, 32, 2, None, 64, 4), ("2b", 8, 256, 18, None, 64, 4),
     ("test/serve_mix", 4, 32, 2, 16, 64, 4), ("2b/serve_mix", 8, 256, 18, 8, 64, 4),
@@ -311,10 +321,14 @@ CELLS = (
     ("test/serve_mix/p16", 4, 32, 2, 16, 16, 16), ("2b/serve_mix/p16", 8, 256, 18, 8, 16, 16),
     ("test/prefill/p16", 4, 32, 2, "prefill", 16, 16), ("2b/prefill/p16", 8, 256, 18, "prefill", 16, 16),
     ("test/verify", 4, 32, 2, ("verify", 32), 64, 4), ("2b/verify", 8, 256, 18, ("verify", 16), 64, 4),
+    ("test/tier_prefill", 4, 32, 2, "tier_prefill", 16, 16), ("2b/tier_prefill", 8, 256, 18, "tier_prefill", 16, 16),
+    ("test/tier_decode", 4, 32, 2, "tier_decode", 16, 16), ("2b/tier_decode", 8, 256, 18, "tier_decode", 16, 16),
 )
 
 
 def cell_batch(seed: int, G: int, hd: int, L: int, live, psz: int, pmax: int):
+    if live in ("tier_prefill", "tier_decode"):
+        return tier_batch(seed, live, G, hd, L, psz, pmax)
     if live == "prefill":
         return prefill_batch(seed, 16, 128, 1, G, hd, L, psz, pmax, torch.bfloat16)
     if isinstance(live, tuple):
@@ -1553,6 +1567,397 @@ async def serve_hetero(
         await cp.aclose()
 
 
+# ------------------------------------------------------------ tiered KV cache
+TIER_CHAOS = {"seed": 7, "host_alloc_fail_p": 0.3, "copy_delay_p": 0.3, "copy_delay_s": 0.02}
+TIER_SPILL = ("spills", "readmits", "destructive_evictions", "host_evictions", "denied_readmits",
+              "host_tokens", "host_bytes", "chaos_alloc_failures")
+
+
+def tier_config(size: str, checkpoint: str, *, enabled: bool, chaos: str = "", snapshot: str = ""):
+    """The reference bench's tier geometry (``bench.py::_tier_phase``) on
+    the serving config: batch 4, 16 pages of 16 tokens a row, an 8-token
+    decode budget, the homogeneous slab without warm-up or speculation,
+    4096 tree nodes; the tier with 256 MB of host memory and 4096 copy
+    tokens a cycle."""
+    cfg = config(size, checkpoint, 4)
+    e = cfg.engine
+    e.max_pages_per_seq, e.kv_page_size, e.max_decode_len = 16, 16, 8
+    e.prefix_cache, e.prefix_cache_entries = True, 4096
+    e.warmup_compile, e.hetero_batch, e.speculative.enabled = False, False, False
+    t = e.kv_tier
+    t.enabled, t.host_mb, t.copy_tokens_per_cycle = enabled, 256.0, 4096
+    t.snapshot_path, t.chaos_profile = snapshot, chaos
+    return cfg
+
+
+def tier_prompts(tok, n: int) -> list:
+    """The reference bench's tier workload: ``n`` prompts of up to 128
+    tokens that share no page with each other."""
+    return [tok.encode(f"tier workload {i}: " + "compose rank fetch join " * 12)[:128] for i in range(n)]
+
+
+async def tier_phase(size: str, checkpoint: str, card: str, n_prompts: int = 64, rounds: int = 3,
+                     device=None) -> dict:
+    """The reference bench's ``_tier_phase`` on dedicated engines at its
+    geometry (``tier_config``): ``n_prompts`` prompts served one at a time
+    (greedy, two new tokens), ``rounds`` times, in the reference's order:
+      1. *single*: ``kv_tier`` off, eviction destroys what the resident cap
+         (half the pool: 512 tokens) cannot hold;
+      2. *tiered*: evicted runs spill to pinned host memory and readmit at
+         their next match; its clean close writes a snapshot, and a
+         successor engine serves its first request from it (*warm*);
+      3. *thrash*: a tenant of unique prompts against a victim tenant
+         repeating 4, 4 + 4 a burst, ``4 * rounds`` bursts, governed;
+      4. *chaos*: the seeded profile ``TIER_CHAOS``, two rounds.
+    Each mode's line: the token hit rate (matched over matched plus
+    prefilled) and prefill tokens a request, the tier's counters, the
+    victim's and thrash's hit rates, the ``spill_copy`` share of the worker
+    profile, the kernel launches, captures a round and seconds; the summary
+    line: the warm first request's prefill tokens against the cold
+    page-aligned prompt's. Fails unless tiered and chaos outputs equal the
+    single tier's (round 1, as the reference gates; a later round's
+    difference is printed with its top-2 margin: a readmitted prefix and a
+    suffix prefill through the kernel against a dense prefill), the warm
+    first output equals round 1's, the tiered hit
+    rate beats the single tier's, the clean tiered run destroys nothing,
+    chaos faults are counted, the warm first request prefills less than the
+    cold one, no round after the first captures, every engine's host tier
+    is empty after ``aclose`` and, on the card, the warm request launched
+    the kernel. ``device`` and fewer prompts make a CPU rehearsal."""
+    import shutil
+    import tempfile
+
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.telemetry.flight import WorkerProfiler
+
+    t_phase = time.monotonic()
+    snap_dir = tempfile.mkdtemp(prefix="mcpx-tier-")
+    snap = os.path.join(snap_dir, "kv.snap")
+
+    async def start(enabled: bool, chaos: str = "", snapshot: str = ""):
+        cfg = tier_config(size, checkpoint, enabled=enabled, chaos=chaos, snapshot=snapshot)
+        engine = InferenceEngine(cfg, device=device)  # device=None: the card
+        await engine.start()
+        return engine
+
+    async def close(engine, mode: str) -> None:
+        tier = engine._spill_tier
+        await engine.aclose()
+        if tier is not None and (tier.host_bytes_used or tier.host_tokens or tier.pending_copies()):
+            raise SystemExit(f"tier_{size} {mode}: the host tier is not empty after aclose: {tier.stats()}")
+
+    async def drive(engine, stream: list, tenants=None) -> list:
+        outs = []
+        for j, p in enumerate(stream):
+            r = await engine.generate(p, max_new_tokens=2, constrained=False, temperature=0.0,
+                                      tenant=tenants[j] if tenants else "default")
+            outs.append(r.token_ids)
+        await idle(engine)
+        return outs
+
+    async def run(mode: str, engine, streams: list, tenants=None) -> tuple[dict, list]:
+        q0, c0 = engine.queue_stats(), engine.prefix_cache_stats()
+        sync()
+        reset_kernel_launches()
+        engine._profiler = prof = WorkerProfiler()
+        outs, captures = [], []
+        t0 = time.monotonic()
+        for stream in streams:
+            before = engine.queue_stats()["captures"]
+            outs.append(await drive(engine, stream, tenants))
+            captures.append(engine.queue_stats()["captures"] - before)
+        wall = time.monotonic() - t0
+        engine._profiler = None
+        sync()
+        launches = kernel_launches()
+        await settle_profile()
+        q1, c1 = engine.queue_stats(), engine.prefix_cache_stats()
+        n = sum(len(s) for s in streams)
+        prefilled = q1["prefill_tokens"] - q0["prefill_tokens"]
+        matched = c1["matched_tokens"] - c0["matched_tokens"]
+        line = dict(
+            model=size, mode=mode, requests=n, rounds=len(streams), seconds=wall, requests_per_s=n / wall,
+            token_hit_rate=matched / max(1, matched + prefilled), prefill_tokens_per_request=prefilled / n,
+            spill_copy_share=prof.snapshot()["phases"]["spill_copy"]["share"], captures_per_round=captures,
+            launches=launches, **loop_counts(engine, q0, q1, n),
+        )
+        if c1["tier"] is not None:
+            line.update({k: c1["tier"][k] for k in TIER_SPILL})
+        else:
+            line["evictions"] = c1["evictions"]
+        if any(captures[1:]):
+            raise SystemExit(f"tier_{size} {mode}: a repeated round captured windows: {captures}")
+        return line, outs
+
+    lines: dict = {}
+    try:
+        engine = await start(False)
+        tok = engine.tokenizer
+        prompts = tier_prompts(tok, n_prompts)
+        cap_tokens = engine._prefix_cache.max_tokens
+        lines["single"], single = await run("single", engine, [prompts] * rounds)
+        await close(engine, "single")
+
+        engine = await start(True, snapshot=snap)
+        lines["tiered"], tiered = await run("tiered", engine, [prompts] * rounds)
+        # Later rounds: a readmitted prefix and a suffix prefill through the
+        # kernel against the single tier's dense prefill. Each difference is
+        # printed with the top-2 margin at its first differing token.
+        later = []
+        for r in range(1, rounds):
+            for i, (a, b) in enumerate(zip(tiered[r], single[r])):
+                if a != b:
+                    k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+                    margin = masked_margin(engine, prompts[i], {"constrained": False}, a, k) if device is None else None
+                    later.append({"round": r + 1, "prompt": i, "position": k, "margin": margin})
+        await close(engine, "tiered")  # a clean close: writes the snapshot
+        engine = await start(True, snapshot=snap)
+        restored = engine.prefix_cache_stats()["spilled_nodes"]
+        q0 = engine.queue_stats()
+        sync()
+        reset_kernel_launches()
+        t0 = time.monotonic()
+        warm = (await drive(engine, [prompts[0]]))[0]
+        warm_ms = (time.monotonic() - t0) * 1e3
+        warm_launches = kernel_launches()["ragged_paged_attention"]
+        warm_prefill = engine.queue_stats()["prefill_tokens"] - q0["prefill_tokens"]
+        warm_readmits = engine.prefix_cache_stats()["tier"]["readmits"]
+        await close(engine, "warm")
+
+        engine = await start(True)
+        victim = prompts[:4]
+        thrash = [tok.encode(f"thrash {i}: " + "spam flood churn " * 14)[:128] for i in range(2 * n_prompts)]
+        stream, tenants = [], []
+        for burst in range(rounds * 4):
+            stream += [thrash[(burst * 4 + j) % len(thrash)] for j in range(4)] + victim
+            tenants += ["thrash"] * 4 + ["victim"] * 4
+        lines["thrash"], _ = await run("thrash", engine, [stream], tenants)
+        gov = engine.prefix_cache_stats()["governor"]
+        lines["thrash"].update(victim_token_hit_rate=gov["victim"]["token_hit_rate"],
+                               thrash_token_hit_rate=gov["thrash"]["token_hit_rate"])
+        await close(engine, "thrash")
+
+        engine = await start(True, chaos=json.dumps(TIER_CHAOS))
+        lines["chaos"], chaos = await run("chaos", engine, [prompts, prompts])
+        lines["chaos"]["profile"] = TIER_CHAOS
+        await close(engine, "chaos")
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    for mode in ("single", "tiered", "thrash", "chaos"):
+        emit(f"tier_{size}", card, **lines[mode])
+    cold_first = (len(prompts[0]) // 16) * 16
+    working_set = sum((len(p) // 16) * 16 for p in prompts)
+    t, s = lines["tiered"], lines["single"]
+    summary = dict(
+        model=size, mode="summary", requests=n_prompts * rounds, working_set_tokens=working_set,
+        resident_cap_tokens=cap_tokens, working_set_ratio=working_set / max(1, cap_tokens),
+        tier_token_hit_rate=t["token_hit_rate"], single_token_hit_rate=s["token_hit_rate"],
+        tier_hit_ratio=t["token_hit_rate"] / max(s["token_hit_rate"], 0.01),
+        victim_token_hit_rate=lines["thrash"]["victim_token_hit_rate"],
+        thrash_token_hit_rate=lines["thrash"]["thrash_token_hit_rate"],
+        restored_runs=restored, warm_readmits=warm_readmits, warm_launches=warm_launches,
+        cold_first_prefill_tokens=cold_first, warm_first_prefill_tokens=warm_prefill,
+        warm_restart_prefill_ratio=cold_first / warm_prefill if warm_prefill else None,
+        warm_first_ms=warm_ms, later_rounds_differing=len(later), later_rounds_margins=later,
+        round1_equal={"tiered": tiered[0] == single[0], "chaos": chaos[0] == single[0], "warm": warm == tiered[0][0]},
+        seconds=time.monotonic() - t_phase,
+    )
+    emit(f"tier_{size}", card, **summary)
+    problems = [k for k, ok in summary["round1_equal"].items() if not ok]
+    if t["token_hit_rate"] <= s["token_hit_rate"]:
+        problems.append(f"tiered hit rate {t['token_hit_rate']} <= single {s['token_hit_rate']}")
+    if t["destructive_evictions"]:
+        problems.append(f"{t['destructive_evictions']} destructive evictions in the clean tiered run")
+    if lines["chaos"]["chaos_alloc_failures"] <= 0:
+        problems.append("no chaos fault counted")
+    if warm_prefill >= cold_first:
+        problems.append(f"warm first request prefilled {warm_prefill} >= cold {cold_first}")
+    if device is None and warm_launches <= 0:
+        problems.append("the warm request launched no kernel")
+    if problems:
+        raise SystemExit(f"tier_{size}: {problems}")
+    return {**lines, "summary": summary}
+
+
+def tier_batch(seed: int, kind: str, G: int, hd: int, L: int, psz: int, pmax: int):
+    """The tier phases' attention shapes (B 4, 16-token pages, 16 a row):
+    ``tier_prefill`` is a suffix prefill at the smallest prefill bucket (S
+    64) over readmitted prefixes of 64, 80, 96 and 112 tokens, each row's
+    suffix the rest of its 128-token prompt; ``tier_decode`` one token a row
+    at positions 128-135. Random distinct pages."""
+    rng = random.Random(seed)
+    B = 4
+    q, kp, vp, table, _s, _q = mixed_batch(seed, B, 64 if kind == "tier_prefill" else 1, 1, G, hd, L,
+                                            psz, pmax, torch.bfloat16, live=B)
+    if kind == "tier_prefill":
+        starts = [64, 80, 96, 112]
+        q_lens = [128 - s for s in starts]
+    else:
+        starts = [128 + rng.randint(0, 7) for _ in range(B)]
+        q_lens = [1] * B
+    as_i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
+    return q, kp, vp, table, as_i32(starts), as_i32(q_lens)
+
+
+def tier_roundtrip(size: str, card: str, run_pages=(4, 7, 8)) -> dict:
+    """The tier's two copies held against the truth, bit for bit, at the
+    tier geometry and ``size``'s full width, through the engine's own copy
+    functions and a ``HostSpillTier`` bound to them (the engine is not
+    started: its pools are filled from a seed here). For each run length in
+    pages, once alone and once while a captured window replays on the same
+    stream around every step: a long device sleep is queued first, so the
+    copy is in flight; the run's pages are cloned (the truth), spilled, and
+    overwritten at once as the next prefill would write them; ``poll()``
+    must return while the copy is in flight (its longest call is printed)
+    and is called until the run lands; the landed host run must equal the
+    clone; the run is readmitted into other pages, which must then equal
+    the clone, the pools' addresses unchanged; and ``ragged_paged_attention``
+    over a table naming the readmitted pages (suffix prefill and decode
+    rows) must give exactly what it gives over the clone."""
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import ragged_paged_attention
+
+    t0 = time.monotonic()
+    engine = InferenceEngine(tier_config(size, "", enabled=True))
+    mc, psz = engine.model_cfg, engine.config.engine.kv_page_size
+    K, L, hd = mc.n_kv_heads, mc.n_layers, mc.head_dim
+    n_pages = engine._allocator.n_pages
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    pools = {k: torch.randn((K, L, n_pages, psz, hd), generator=gen, device="cuda").to(torch.bfloat16)
+             for k in ("k", "v")}
+    engine._paged_kv = pools
+    ptrs = {k: t.data_ptr() for k, t in pools.items()}
+    tier = engine._spill_tier
+    tier.bind(engine._spill_gather, engine._spill_readmit, 2 * K * L * hd * 2)
+    G = mc.n_heads // K
+    S = 16
+    q = torch.randn((4, S, K, G, hd), generator=gen, device="cuda").to(torch.bfloat16)
+
+    # A captured "window": the kernel over pages no run uses, and a K/V
+    # write into two pages of its own, as a decode window reads and writes.
+    w_table = torch.zeros((4, engine.config.engine.max_pages_per_seq), dtype=torch.int32, device="cuda")
+    w_table[:, :2] = torch.tensor([n_pages - 4, n_pages - 3], dtype=torch.int32)
+    w_starts = torch.full((4,), 20, dtype=torch.int32, device="cuda")
+    w_lens = torch.ones((4,), dtype=torch.int32, device="cuda")
+    scratch = torch.tensor([n_pages - 2, n_pages - 1], device="cuda")
+    w_q = q[:, :1].clone()
+
+    def window():
+        ragged_paged_attention(w_q, pools["k"], pools["v"], w_table, w_starts, w_lens, 0)
+        pools["k"].index_add_(2, scratch, pools["v"].index_select(2, scratch))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        window()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        window()
+
+    class Node:
+        def __init__(self, n_tokens: int):
+            self.tokens, self.tenant, self.host = tuple(range(n_tokens)), "default", None
+
+    def overwrite(pages_i):  # as the next prefill writes freed pages
+        for k in ("k", "v"):
+            pools[k].index_copy_(2, pages_i, torch.randn(
+                (K, L, len(pages_i), psz, hd), generator=gen, device="cuda").to(torch.bfloat16))
+
+    def settle():
+        # No copy in flight, and the pinned sources of finished readmits
+        # back in the caching host allocator for the next spill to reuse.
+        torch.cuda.synchronize()
+        engine._prune_readmit_holds()
+
+    # Every step once per run length first, unchecked: a kernel's first
+    # launch (lazy module loading) and a new pinned block (cudaHostAlloc)
+    # wait for the device, so a first spill would land before its poll.
+    for n in run_pages:
+        node = Node(n * psz)
+        tier.begin_cycle()
+        tier.spill(node, list(range(1, n + 1)))
+        overwrite(torch.arange(1, n + 1, device="cuda"))
+        tier.drain()
+        tier.readmit(node, list(range(1, n + 1)))
+        settle()
+    rng = random.Random(0)
+    cases = []
+    for n in run_pages:
+        for replaying in (False, True):
+            free = list(range(1, n_pages - 4))
+            rng.shuffle(free)
+            src, dst = free[:n], free[n : 2 * n]
+            src_i, dst_i = torch.tensor(src, device="cuda"), torch.tensor(dst, device="cuda")
+            settle()
+            truth = [pools[k].index_select(2, src_i).clone() for k in ("k", "v")]
+            node = Node(n * psz)
+            tier.begin_cycle()
+            torch.cuda._sleep(50_000_000)  # the gather waits behind this: in flight
+            if not tier.spill(node, src):
+                raise SystemExit(f"tier_roundtrip_{size}: spill refused")
+            if replaying:
+                graph.replay()
+            overwrite(src_i)
+            polls, worst_ms, in_flight = 0, 0.0, None
+            while not tier.readmit_usable(node):
+                t = time.perf_counter()
+                tier.poll()
+                worst_ms = max(worst_ms, (time.perf_counter() - t) * 1e3)
+                if in_flight is None:
+                    in_flight = tier.pending_copies() == 1
+                polls += 1
+                if replaying:
+                    graph.replay()
+                time.sleep(0.001)
+            landed = all(torch.equal(h, t.cpu()) for h, t in zip((node.host.k, node.host.v), truth))
+            pinned = node.host.k.is_pinned() and node.host.v.is_pinned()
+            tier.begin_cycle()
+            if not tier.readmit(node, dst):
+                raise SystemExit(f"tier_roundtrip_{size}: readmit refused")
+            if replaying:
+                graph.replay()
+            back = [pools[k].index_select(2, dst_i) for k in ("k", "v")]
+            exact = all(torch.equal(a, b) for a, b in zip(back, truth))
+            # The kernel over the readmitted pages against the clone laid out
+            # in a pool of its own (page 0 null, the run at 1..n).
+            clone = {k: torch.zeros((K, L, n + 1, psz, hd), dtype=torch.bfloat16, device="cuda") for k in ("k", "v")}
+            for k, t in zip(("k", "v"), truth):
+                clone[k][:, :, 1:] = t
+            live_t = torch.zeros((4, engine.config.engine.max_pages_per_seq), dtype=torch.int32, device="cuda")
+            clone_t = torch.zeros_like(live_t)
+            live_t[:, :n] = dst_i.to(torch.int32)
+            clone_t[:, :n] = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")
+            end = n * psz
+            starts = torch.tensor([end - 16, end - 1, end - 8, 0], dtype=torch.int32, device="cuda")
+            q_lens = torch.tensor([16, 1, 8, 0], dtype=torch.int32, device="cuda")
+            kernel_exact = all(
+                torch.equal(
+                    ragged_paged_attention(q, pools["k"], pools["v"], live_t, starts, q_lens, layer),
+                    ragged_paged_attention(q, clone["k"], clone["v"], clone_t, starts, q_lens, layer),
+                )
+                for layer in (0, L - 1)
+            )
+            torch.cuda.synchronize()
+            case = dict(pages=n, tokens=n * psz, replaying=replaying, in_flight_at_first_poll=in_flight,
+                        polls=polls, max_poll_ms=worst_ms, landed_equal=landed, pinned=pinned,
+                        readmitted_equal=exact, kernel_equal=kernel_exact,
+                        pools_kept=all(pools[k].data_ptr() == p for k, p in ptrs.items()))
+            cases.append(case)
+            if not (in_flight and landed and pinned and exact and kernel_exact and case["pools_kept"]):
+                raise SystemExit(f"tier_roundtrip_{size}: {case}")
+    check_tickets(f"tier_roundtrip_{size}")
+    out = dict(model=size, K=K, L=L, hd=hd, page_size=psz, cases=cases, bytes_per_token=2 * K * L * hd * 2,
+               spills=tier.spills, readmits=tier.readmits, host_bytes_after=tier.host_bytes_used,
+               max_poll_ms=max(c["max_poll_ms"] for c in cases), seconds=time.monotonic() - t0)
+    emit(f"tier_roundtrip_{size}", card, **out)
+    if tier.host_bytes_used or tier.pending_copies():
+        raise SystemExit(f"tier_roundtrip_{size}: host tier not empty: {tier.stats()}")
+    return out
+
+
 def failing_transport(records, failing: set):
     """A zero-latency in-process handler for every ``local://`` endpoint and
     fallback of ``records``; every endpoint of a service in ``failing`` (read
@@ -1964,11 +2369,16 @@ def main(argv: list[str]) -> int:
         asyncio.run(execute_phase("2b", "", 8, card, batch=64)),
     ]
     specs = [asyncio.run(spec_phase("test", CKPT, card, 96)), asyncio.run(spec_phase("2b", "", card, 48))]
+    tiers = [asyncio.run(tier_phase("test", CKPT, card)), asyncio.run(tier_phase("2b", "", card))]
+    for size in ("test", "2b"):
+        tier_roundtrip(size, card)
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
     ] + [ex[p] for ex in executed for p in ("pass1", "pass2")] + [
         mx[m] for mx in (trained_mixed, full_mixed) for m in ("drain", "hetero")
-    ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero]
+    ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero] + [
+        t[m] for t in tiers for m in ("single", "tiered", "thrash", "chaos")
+    ]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

@@ -1,0 +1,237 @@
+"""Per-tenant cache governance for the radix prefix KV cache.
+
+Copy of ``mcpx/engine/cache_governor.py`` (pure Python).
+
+The reference's serving scheduler (mcpx/scheduler/) already runs weighted-fair queuing
+over tenants at admission; this module applies the same idea one layer
+down, at the CACHE: resident KV tokens are accounted per tenant, each
+tenant's fair share of the tree budget is its weight's fraction, and the
+two enforcement points are
+
+  - **insert time**: an over-quota tenant's new insert first evicts/spills
+    that tenant's OWN coldest refcount-0 subtrees (its pressure lands on
+    its own residency), and is refused — never the admission, only the
+    caching — if the tenant's pinned residency still exceeds its quota;
+  - **eviction time**: cross-tenant reclaim is deficit-weighted LRU —
+    victims come from tenants over their fair share first, LRU within a
+    bucket — so an adversarial cache-thrash tenant (unbounded unique
+    prompts at volume) can displace only its own share, and a victim
+    tenant's token hit rate keeps its fair-share floor (tested, and bench
+    phase 9's thrash scenario measures it end to end).
+
+Per-tenant lookup accounting (hits / matched vs prefilled tokens) rides
+along so ``GET /cache`` and the bench can report the per-tenant hit-rate
+spread — isolation as a number, not a claim. Tenant cardinality is capped:
+past ``max_tenants`` distinct names, new tenants fold into ``"other"`` so
+an adversarial tenant-id stream cannot grow this table or the
+``mcpx_kv_tenant_resident_tokens`` label space unboundedly.
+
+Worker-thread single-writer, like the tree it governs (the ``owned_by``
+marks put every mutation under mcpxlint's thread-ownership pass);
+cross-thread readers see GIL-atomic counter snapshots.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from mcpx_torch.utils.ownership import owned_by
+
+OTHER = "other"
+
+
+@owned_by("engine-worker")
+class CacheGovernor:
+    def __init__(
+        self,
+        weights: Optional[dict] = None,
+        *,
+        default_weight: float = 1.0,
+        max_tenants: int = 64,
+    ) -> None:
+        self._weights = {str(k): float(v) for k, v in (weights or {}).items()}
+        self._default_weight = float(default_weight)
+        self.max_tenants = max(1, int(max_tenants))
+        # tenant -> plain-int accounting dict (GIL-atomic int fields):
+        #   device / host: resident tokens per tier
+        #   hits / misses / matched / prefilled: lookup outcomes
+        self._tenants: dict[str, dict] = {}
+
+    # ------------------------------------------------------------ accounts
+    def _acct(self, tenant: str) -> dict:
+        t = tenant if tenant in self._tenants else self.fold(tenant)
+        acct = self._tenants.get(t)
+        if acct is None:
+            acct = {
+                "device": 0, "host": 0,
+                "hits": 0, "misses": 0, "matched": 0, "prefilled": 0,
+            }
+            self._tenants[t] = acct
+        return acct
+
+    def fold(self, tenant: str) -> str:
+        """The accounting name for ``tenant``: itself while the table has
+        room, ``"other"`` past the cardinality cap."""
+        if tenant in self._tenants or len(self._tenants) < self.max_tenants:
+            return tenant
+        return OTHER
+
+    def weight(self, tenant: str) -> float:
+        return self._weights.get(tenant, self._default_weight)
+
+    # ------------------------------------------------------------- events
+    @owned_by("engine-worker")
+    def on_insert(self, tenant: str, tokens: int) -> None:
+        self._acct(tenant)["device"] += tokens
+
+    @owned_by("engine-worker")
+    def on_drop(self, tenant: str, tokens: int) -> None:
+        self._acct(tenant)["device"] -= tokens
+
+    @owned_by("engine-worker")
+    def on_spill(self, tenant: str, tokens: int) -> None:
+        acct = self._acct(tenant)
+        acct["device"] -= tokens
+        acct["host"] += tokens
+
+    @owned_by("engine-worker")
+    def on_readmit(self, tenant: str, tokens: int) -> None:
+        acct = self._acct(tenant)
+        acct["host"] -= tokens
+        acct["device"] += tokens
+
+    @owned_by("engine-worker")
+    def on_host_drop(self, tenant: str, tokens: int) -> None:
+        self._acct(tenant)["host"] -= tokens
+
+    @owned_by("engine-worker")
+    def on_adopt(self, tenant: str, tokens: int) -> None:
+        """Snapshot-restored host residency (no device tier involved)."""
+        self._acct(tenant)["host"] += tokens
+
+    @owned_by("engine-worker")
+    def reset_residency(self) -> None:
+        """Zero residency accounting (pool reset / drop_all); lookup
+        history survives — hit rates describe served traffic, not pools."""
+        for a in self._tenants.values():
+            a["device"] = 0
+            a["host"] = 0
+
+    @owned_by("engine-worker")
+    def on_lookup(self, tenant: str, matched: int, prefilled: int) -> None:
+        acct = self._acct(tenant)
+        if matched > 0:
+            acct["hits"] += 1
+        else:
+            acct["misses"] += 1
+        acct["matched"] += matched
+        acct["prefilled"] += prefilled
+
+    # -------------------------------------------------------------- quotas
+    def _weighted_share(self, tenant: str, budget_tokens: int, key: str) -> int:
+        """The one WFQ computation both tiers use: ``tenant``'s weighted
+        slice of ``budget_tokens`` over the tenants active in the
+        residency column ``key`` ('device' counts host residency too —
+        any presence keeps a device quota; 'host' is host-only). The
+        asker always joins the active set, so a lone tenant owns the
+        whole budget and a newcomer gets a real quote."""
+        # Snapshot the table (one C-level op) — GET /cache reads this
+        # cross-thread while the worker may be inserting a new tenant.
+        tenants = list(self._tenants.items())
+        if key == "host":
+            active = [t for t, a in tenants if a["host"] > 0]
+        else:
+            active = [t for t, a in tenants if a["device"] > 0 or a["host"] > 0]
+        me = self.fold(tenant)
+        if me not in active:
+            active.append(me)
+        total_w = sum(self.weight(t) for t in active)
+        if total_w <= 0:
+            return budget_tokens
+        return int(budget_tokens * self.weight(me) / total_w)
+
+    def fair_share_tokens(self, tenant: str, budget_tokens: int) -> int:
+        """``tenant``'s weighted-fair slice of the device budget, over the
+        tenants currently holding residency (a lone tenant owns the whole
+        budget — single-tenant deployments see no quota at all)."""
+        return self._weighted_share(tenant, budget_tokens, "device")
+
+    def over_share(self, tenant: str, budget_tokens: int, extra: int = 0) -> bool:
+        """Whether ``tenant``'s device residency (plus ``extra`` tokens it
+        wants to insert) exceeds its current fair share."""
+        acct = self._tenants.get(self.fold(tenant))
+        used = acct["device"] if acct else 0
+        return used + extra > self.fair_share_tokens(tenant, budget_tokens)
+
+    def device_tokens(self, tenant: str) -> int:
+        acct = self._tenants.get(self.fold(tenant))
+        return acct["device"] if acct else 0
+
+    # ----------------------------------------------------------- host tier
+    def host_tokens(self, tenant: str) -> int:
+        acct = self._tenants.get(self.fold(tenant))
+        return acct["host"] if acct else 0
+
+    def host_fair_share_tokens(self, tenant: str, budget_tokens: int) -> int:
+        """``tenant``'s weighted-fair slice of the HOST-tier budget, over
+        the tenants currently holding host residency — the same WFQ math
+        as the device quota, one tier down. Host reclaim orders victims by
+        this (deficit-weighted LRU in ``evict_host``), so a spill-heavy
+        tenant cannot flush other tenants' spilled working sets out of
+        host RAM either."""
+        return self._weighted_share(tenant, budget_tokens, "host")
+
+    def over_host_share(self, tenant: str, budget_tokens: int) -> bool:
+        return self.host_tokens(tenant) > self.host_fair_share_tokens(
+            tenant, budget_tokens
+        )
+
+    # --------------------------------------------------------------- stats
+    def token_hit_rate(self, tenant: str) -> float:
+        acct = self._tenants.get(self.fold(tenant))
+        if not acct:
+            return 0.0
+        touched = acct["matched"] + acct["prefilled"]
+        return acct["matched"] / touched if touched else 0.0
+
+    def stats(self, budget_tokens: int) -> dict:
+        """Per-tenant residency + hit accounting snapshot for GET /cache
+        (plain int reads; cross-thread safe)."""
+        out: dict = {}
+        for t, a in sorted(list(self._tenants.items())):
+            touched = a["matched"] + a["prefilled"]
+            lookups = a["hits"] + a["misses"]
+            out[t] = {
+                "weight": self.weight(t),
+                "resident_tokens": a["device"],
+                "host_tokens": a["host"],
+                "quota_tokens": self.fair_share_tokens(t, budget_tokens),
+                "hits": a["hits"],
+                "misses": a["misses"],
+                "hit_rate": a["hits"] / lookups if lookups else 0.0,
+                "token_hit_rate": a["matched"] / touched if touched else 0.0,
+            }
+        return out
+
+    def resident_by_tenant(self) -> dict[str, int]:
+        """tenant -> device-resident tokens (the /metrics gauge feed)."""
+        return {t: a["device"] for t, a in list(self._tenants.items())}
+
+    # ------------------------------------------------------------ snapshot
+    def snapshot(self) -> dict:
+        """Serializable governor state for the warm-restart snapshot:
+        weights only — residency restarts from what the snapshot's heads
+        actually restore."""
+        return {"weights": dict(self._weights)}
+
+    @owned_by("engine-worker")
+    def restore(self, state: dict) -> None:
+        w = state.get("weights")
+        if isinstance(w, dict):
+            for k, v in w.items():
+                try:
+                    fv = float(v)
+                except (TypeError, ValueError):
+                    continue
+                if fv > 0:
+                    self._weights[str(k)] = fv

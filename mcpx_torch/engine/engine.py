@@ -87,9 +87,22 @@ executable, and the capture sentinel) and the worker-loop profiler
 span reads host values the worker already holds: telemetry adds no device
 synchronisation and nothing inside a captured window.
 
-Left out for later slices: int8 weights, ring prefill, the KV tier (host
-spill, tenant governance, warm heads from snapshots) and multi-GPU; their
-metric series exist and stay at 0. A config that asks for ``kv_tier``,
+The tiered KV cache (``engine.kv_tier``, off by default): a host spill
+tier (``engine/spill.py``) and per-tenant governance
+(``engine/cache_governor.py``) under the radix tree, and a warm-restart
+snapshot. Eviction spills a victim run's pages to pinned host memory (a
+gather into a fresh device tensor, then a copy to the host completed by an
+event the worker polls, never waits on); a match against a spilled run
+copies it back into fresh pages in place, before the prefill that reads
+them. Both copies run on the worker's stream, so device order protects the
+pages, and neither rebinds a pool. A clean ``aclose`` writes the resident
+and spilled runs, the declared heads and the governor's weights to
+``snapshot_path``; the next engine restores them as spilled nodes (or, when
+its weights differ, the declared heads as ids to rebuild on first use).
+With the tier off the tree is the single-tier one, byte for byte.
+
+Left out for later slices: int8 weights, ring prefill and multi-GPU; their
+metric series exist and stay at 0. A config that asks for
 ``ring_prefill_min_tokens`` or ``quantize="int8"`` is refused at
 construction.
 
@@ -103,11 +116,13 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import json
 import logging
+import os
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Any, Optional
 
 import numpy as np
@@ -124,6 +139,7 @@ from mcpx_torch.engine.kernels.paged_attention import (
     release_tickets,
     ticket_count,
 )
+from mcpx_torch.engine.cache_governor import CacheGovernor
 from mcpx_torch.engine.kv_cache import PageAllocator, commit_prefill_to_pages, init_paged_kv
 from mcpx_torch.engine.paged_decode import decode_chunk_paged
 from mcpx_torch.engine.prefix_cache import PrefixNode, RadixPrefixCache
@@ -136,8 +152,9 @@ from mcpx_torch.engine.sampling import (
     sample_window_rows,
 )
 from mcpx_torch.engine.speculative import advance_drafter_state, draft_window
+from mcpx_torch.engine.spill import HostSpillTier, SpillChaos, nbytes_of
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.model import init_kv_cache, prefill
+from mcpx_torch.models.gemma.model import init_kv_cache, prefill, torch_dtype
 from mcpx_torch.models.gemma.params import load_or_init
 from mcpx_torch.models.tokenizer import make_tokenizer
 from mcpx_torch.planner.grammar import (
@@ -151,7 +168,14 @@ from mcpx_torch.planner.grammar import (
 from mcpx_torch.scheduler.admission import ewma_update
 from mcpx_torch.scheduler.locality import locality_order
 from mcpx_torch.telemetry import tracing
-from mcpx_torch.telemetry.costs import CostRegistry, device_peaks, forward_cost, rounded_roofline, window_cost
+from mcpx_torch.telemetry.costs import (
+    CostRegistry,
+    device_peaks,
+    forward_cost,
+    rounded_roofline,
+    spill_copy_cost,
+    window_cost,
+)
 from mcpx_torch.telemetry.flight import WorkerProfiler
 from mcpx_torch.telemetry.metrics import Metrics
 
@@ -179,7 +203,8 @@ class GenerateRequest:
     # EDF deadline (time.monotonic) from the serving scheduler: the
     # locality sort never regroups a request that cannot afford the wait.
     deadline_at: Optional[float] = None
-    # Tenant of the request; inert until cache governance is ported.
+    # Tenant of the request (cache governance): radix-tree insertions are
+    # charged to it, and its weighted-fair quota bounds its resident KV.
     tenant: str = "default"
     # Tracing parent (telemetry/tracing.Span): the worker thread hangs the
     # queue-wait / prefill / per-segment decode child spans off it with
@@ -517,7 +542,6 @@ class InferenceEngine:
         self.config = config or MCPXConfig()
         ecfg = self.config.engine
         refused = (
-            ("engine.kv_tier.enabled", ecfg.kv_tier.enabled),
             ("engine.ring_prefill_min_tokens > 0", ecfg.ring_prefill_min_tokens > 0),
             ("model.quantize='int8'", self.config.model.quantize == "int8"),
         )
@@ -647,9 +671,45 @@ class InferenceEngine:
             page_size=ecfg.kv_page_size,
             max_pages_per_seq=ecfg.max_pages_per_seq,
         )
+        # Tiered KV cache (engine.kv_tier): the host spill tier and the
+        # per-tenant governor under the radix tree; None when off, and the
+        # tree is then the single-tier one. Worker thread only after start;
+        # other threads read their counters.
+        self._spill_tier: Optional[HostSpillTier] = None
+        self._governor: Optional[CacheGovernor] = None
+        if ecfg.kv_tier.enabled:
+            chaos = None
+            if ecfg.kv_tier.chaos_profile:
+                try:
+                    chaos = SpillChaos.from_config(ecfg.kv_tier.chaos_profile)
+                except Exception as e:  # a bad profile must not stop serving
+                    log.warning("spill chaos profile unusable: %s", e)
+            self._spill_tier = HostSpillTier(
+                host_bytes=int(ecfg.kv_tier.host_mb * 1024 * 1024),
+                copy_tokens_per_cycle=ecfg.kv_tier.copy_tokens_per_cycle,
+                chaos=chaos,
+            )
+            if ecfg.kv_tier.governor:
+                self._governor = CacheGovernor(ecfg.kv_tier.tenant_weights)
         self._prefix_cache = RadixPrefixCache(
-            self._allocator, ecfg.kv_page_size, max_nodes=max(0, ecfg.prefix_cache_entries)
+            self._allocator, ecfg.kv_page_size, max_nodes=max(0, ecfg.prefix_cache_entries),
+            spill=self._spill_tier, governor=self._governor,
         )
+        # Declared shared-prefix heads served (token tuple -> tenant), an LRU
+        # of 64: the warm-restart snapshot records them.
+        self._declared_heads: "OrderedDict[tuple, str]" = OrderedDict()
+        # Snapshot heads waiting for their lazy rebuild (when a snapshot's
+        # ids restored but its KV could not): (ids, tenant), each consumed
+        # by the first request it prefixes.
+        self._warm_heads: list[tuple[tuple, str]] = []
+        # Spill counters already published to the metrics (delta fold, as
+        # _prefix_seen).
+        self._spill_seen = {
+            "spills": 0, "readmits": 0, "destructive_evictions": 0, "host_evictions": 0, "denied_readmits": 0,
+        }
+        # Readmits whose host-to-device copy may still read its pinned
+        # source: (event, source tensors), dropped once the event passes.
+        self._readmit_holds: "deque[tuple[Any, tuple]]" = deque()
         self._prefill_buckets = tuple(
             b
             for b in (64, 128, 256, 512, 768, 1024, 1536, 2048)
@@ -715,10 +775,37 @@ class InferenceEngine:
         if self._thread is not None:
             await asyncio.to_thread(self._thread.join, 30.0)
         if self._thread is None or not self._thread.is_alive():
+            # The worker is gone: nothing else writes the tree, the tier or
+            # the pools from here.
+            tier = self._spill_tier
+            if (
+                tier is not None
+                and self.config.engine.kv_tier.snapshot_path
+                and self._started.is_set()
+                and self._startup_error is None
+                and self._params is not None
+            ):
+                # A clean close writes the warm-restart snapshot before the
+                # pools drop; the tier's drain completes the copies in
+                # flight first. A failed save is logged: a close never
+                # hangs on its snapshot.
+                try:
+                    with torch.inference_mode():
+                        self._save_snapshot()
+                except Exception:
+                    log.warning("KV snapshot save failed", exc_info=True)
+            if tier is not None:
+                # Copies in flight and host runs drop after the snapshot:
+                # no pinned buffer outlives the engine.
+                tier.reset()
+                self._readmit_holds.clear()
             self._params = None
             self._paged_kv = None
             self._slab = None
             self._tables.clear()
+            if tier is not None:
+                # The tree's spilled nodes lost their runs with the reset.
+                self._prefix_cache.drop_all()
 
     # ------------------------------------------------------------------ api
     async def generate(
@@ -802,10 +889,14 @@ class InferenceEngine:
         return await fut
 
     def _drop_unpinned(self) -> int:
-        self._prefix_cache.max_nodes = 0
-        self._prefix_cache.evict()
+        cache = self._prefix_cache
+        cache.max_nodes = 0
+        cache.evict()
+        if cache.spill is not None:
+            # Evicted runs spilled: drop every unpinned host run too.
+            cache.evict_host(cache.spill.host_bytes + 1)
         self._evict_prefixes()  # the node cap back to the live config's
-        return self._prefix_cache.n_nodes
+        return cache.n_nodes
 
     def prompt_capacity(self, max_new_tokens: int = 0, shared_prefix_len: int = 0) -> int:
         """Longest prompt (in tokens) the engine serves beside a
@@ -876,9 +967,22 @@ class InferenceEngine:
         }
 
     def prefix_cache_stats(self) -> dict:
-        """Counter snapshot of the radix prefix cache; ``enabled`` is the
-        live config flag."""
-        return {"enabled": bool(self.config.engine.prefix_cache), **self._prefix_cache.stats()}
+        """Counter snapshot of the radix prefix cache (the ``GET /cache``
+        block); ``enabled`` is the live config flag. With the tiered cache
+        on, ``tier`` holds the spill tier's accounting (host tokens and
+        bytes, spills, readmits, destructive evictions) and ``governor``
+        each tenant's residency and hit rates; both are None single-tier."""
+        out = {
+            "enabled": bool(self.config.engine.prefix_cache),
+            **self._prefix_cache.stats(),
+            "tier": None,
+            "governor": None,
+        }
+        if self._spill_tier is not None:
+            out["tier"] = {"enabled": True, **self._spill_tier.stats()}
+        if self._governor is not None:
+            out["governor"] = self._governor.stats(self._prefix_cache.max_tokens)
+        return out
 
     def queue_stats(self) -> dict:
         slab = self._slab
@@ -891,12 +995,19 @@ class InferenceEngine:
         sp = self._spec_totals
         drafted = sp["drafted_constrained"] + sp["drafted_free"]
         accepted = sp["accepted_constrained"] + sp["accepted_free"]
+        ps = self._prefix_cache.stats()
+        tier = self._spill_tier
         return {
             **extra,
             "queue_depth": self._queue.qsize(),
             "active_rows": slab.n_active if slab is not None else 0,
             "kernel_launches": kernel_launches(),
-            "prefix_token_hit_rate": self._prefix_cache.stats()["token_hit_rate"],
+            "prefix_token_hit_rate": ps["token_hit_rate"],
+            # The tiered cache's tallies (zeros single-tier).
+            "prefix_host_pages": ps["host_pages"],
+            "prefix_spills": tier.spills if tier is not None else 0,
+            "prefix_readmits": tier.readmits if tier is not None else 0,
+            "prefix_destructive_evictions": tier.destructive_evictions if tier is not None else 0,
             "resident_grammars": sum(1 for n in self._dfa_slot_refs[1:] if n > 0),
             "spec_accept_rate": accepted / drafted if drafted else 0.0,
             "spec_accept_rate_constrained": (
@@ -1119,6 +1230,14 @@ class InferenceEngine:
         self._flag_host = torch.zeros((FLAG_SLOTS,), dtype=torch.bool, pin_memory=cuda)
         self._flag_np = self._flag_host.numpy()
         self._flag_events = [torch.cuda.Event() if cuda else None for _ in range(FLAG_SLOTS)]
+        if self._spill_tier is not None:
+            # The tier's device copies, and its per-token KV footprint
+            # (2 pools x K x L x hd x itemsize) for the spill decision.
+            mc = self.model_cfg
+            kv_bytes_per_token = 2 * mc.n_kv_heads * mc.n_layers * mc.head_dim * self._paged_kv["k"].element_size()
+            self._spill_tier.bind(self._spill_gather, self._spill_readmit, kv_bytes_per_token)
+            if ecfg.kv_tier.snapshot_path:
+                self._load_snapshot()
         if cuda:
             self._capture_stream = torch.cuda.Stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -1171,6 +1290,16 @@ class InferenceEngine:
                 if self._stop:
                     break
                 self._refresh_queue_gauges(pending)
+                if self._spill_tier is not None:
+                    # Complete the spill copies that have landed, and
+                    # release finished readmits' sources (event queries,
+                    # never a wait).
+                    if prof is not None:
+                        prof.lap("host_bookkeeping")
+                    self._spill_tier.poll()
+                    self._prune_readmit_holds()
+                    if prof is not None:
+                        prof.lap("spill_copy")
                 self._reap_cancelled(slab)
                 if prof is not None:
                     prof.lap("host_bookkeeping")
@@ -1212,7 +1341,8 @@ class InferenceEngine:
 
     def _refresh_queue_gauges(self, pending: "deque[GenerateRequest]") -> None:
         """Publish the pending line's per-class depth and fold the prefix
-        cache's counters into the metrics as deltas. Worker thread only."""
+        cache's counters (and the spill tier's, and each tenant's resident
+        tokens) into the metrics as deltas. Worker thread only."""
         m = self.metrics
         n_cons = sum(1 for r in pending if r.constrained)
         m.queue_depth_class.labels(cls="constrained").set(n_cons)
@@ -1230,6 +1360,27 @@ class InferenceEngine:
                 metric.inc(cur - seen[attr])
             seen[attr] = cur
         m.prefix_shared_pages.set(c.resident_tokens // max(1, c.page_size))
+        tier = self._spill_tier
+        if tier is not None:
+            seen = self._spill_seen
+            for attr, metric in (
+                ("spills", m.kv_spills),
+                ("readmits", m.kv_readmits),
+                ("destructive_evictions", m.kv_destructive_evictions),
+                ("host_evictions", m.kv_host_evictions),
+                ("denied_readmits", m.kv_denied_readmits),
+            ):
+                cur = getattr(tier, attr)
+                if cur > seen[attr]:
+                    metric.inc(cur - seen[attr])
+                    seen[attr] = cur
+            m.kv_host_tokens.set(tier.host_tokens)
+            m.kv_host_bytes.set(tier.host_bytes_used)
+        if self._governor is not None:
+            # The governor folds tenants past its cardinality cap into
+            # "other", so the label space is bounded.
+            for tenant, tokens in self._governor.resident_by_tenant().items():
+                m.kv_tenant_resident_tokens.labels(tenant=tenant).set(tokens)
 
     def _shutdown(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
         """Harvest what the device already finished (a request one lagged
@@ -1403,6 +1554,10 @@ class InferenceEngine:
         admission."""
         ecfg = self.config.engine
         free = slab.free_rows()
+        if self._spill_tier is not None:
+            # A new admission cycle: the tier's copy budget resets (spills
+            # and readmits share it; past it they degrade, never wait).
+            self._spill_tier.begin_cycle()
         if slab.n_active == 0:
             slab.hetero = ecfg.hetero_batch
             slab.spec_k = self._spec_k()
@@ -1439,12 +1594,28 @@ class InferenceEngine:
         if head_req is None:
             return
         head_key = head_req.prefix_key(ecfg.kv_page_size) if ecfg.prefix_cache else None
+        warm_head = self._pop_warm_head(head_req) if ecfg.prefix_cache and self._warm_heads else None
+        if head_key is not None and self._spill_tier is not None:
+            # The snapshot records the declared heads served (an LRU of 64).
+            self._declared_heads[head_key] = head_req.tenant
+            self._declared_heads.move_to_end(head_key)
+            while len(self._declared_heads) > 64:
+                self._declared_heads.popitem(last=False)
         hold: Optional[PrefixNode] = None
-        if head_key is not None:
+        if head_key is not None or warm_head is not None:
+            # A snapshot head whose KV could not be restored is rebuilt
+            # here, at the first request it prefixes.
             t_pm = prof.mark() if prof is not None else 0.0
             try:
-                hold = self._ensure_prefix(head_key)
+                if warm_head is not None and self._ensure_prefix(warm_head[0], tenant=warm_head[1]) is None:
+                    # Refused (pages, geometry): it waits for the next
+                    # request it prefixes.
+                    self._warm_heads.append(warm_head)
+                if head_key is not None:
+                    hold = self._ensure_prefix(head_key, tenant=head_req.tenant)
             except BaseException as e:  # the build's failure fails the residents
+                if warm_head is not None:
+                    self._warm_heads.append(warm_head)
                 log.exception("prefix build failed; failing resident rows")
                 failed = self._release_rows(slab)
                 self._drop_tree_after_failure()
@@ -1491,13 +1662,14 @@ class InferenceEngine:
             pending.extend(ordered)
             pending.extend(tail)
 
-    def _ensure_prefix(self, key: tuple) -> Optional[PrefixNode]:
+    def _ensure_prefix(self, key: tuple, tenant: str = "default") -> Optional[PrefixNode]:
         """Make the declared shared head ``key`` resident in the tree,
-        prefilling only what the tree does not hold yet (one row: a suffix
-        prefill from the matched depth, or a dense prefill from 0). Returns
-        the deepest node covering ``key`` (unpinned), or None when it cannot
-        be built now (pages, capacity); rows then reuse whatever is
-        resident."""
+        charged to ``tenant``, prefilling only what the tree does not hold
+        yet (one row: a suffix prefill from the matched depth, or a dense
+        prefill from 0; a spilled part of the match is readmitted first).
+        Returns the deepest node covering ``key`` (unpinned), or None when
+        it cannot be built now (pages, capacity); rows then reuse whatever
+        is resident."""
         ecfg = self.config.engine
         cache = self._prefix_cache
         psz = ecfg.kv_page_size
@@ -1520,7 +1692,7 @@ class InferenceEngine:
         T = _bucket(R, eligible)
         if mnode is not None:
             mnode.refs += 1  # the insert below may evict under pressure
-        node = cache.insert(key, n, R)
+        node = cache.insert(key, n, R, tenant=tenant)
         if mnode is not None:
             mnode.refs -= 1
         if node is None:
@@ -1589,6 +1761,253 @@ class InferenceEngine:
         self._stats["suffix_prefills"] += 1
         self._stats["suffix_prefill_launches"] += kernel_launches()["ragged_paged_attention"] - n0
         return last
+
+    # ------------------------------------------ tiered KV cache: page copies
+    def _copy_cost(self, n_pages: int):
+        """The cost function of one tier copy of ``n_pages`` pages."""
+        psz, elt = self.config.engine.kv_page_size, self._paged_kv["k"].element_size()
+        return lambda: spill_copy_cost(self.model_cfg, pages=n_pages, page_size=psz, elt_bytes=elt)
+
+    def _spill_gather(self, pages: list[int]) -> tuple:
+        """The tier's gather: ``pages`` of both pools copied into a fresh
+        device tensor (the run as it is now: a later write to the freed
+        pages is ordered after this copy on the stream), then into pinned
+        host tensors without blocking, with an event recorded after that
+        copy. Returns (k, v, event, what the copy reads); on the CPU the
+        gathered tensors themselves, ready at once. Counted in ``costs`` as
+        ``spill_gather`` by the bytes it moves (eager: never a capture)."""
+        n = len(pages)
+        self.costs.record("spill_gather", (n,), self._copy_cost(n))
+        idx = self._upload(np.asarray(pages, np.int64))
+        k_dev = self._paged_kv["k"].index_select(2, idx)
+        v_dev = self._paged_kv["v"].index_select(2, idx)
+        if self.device.type != "cuda":
+            return k_dev, v_dev, None, None
+        k_host = torch.empty(k_dev.shape, dtype=k_dev.dtype, pin_memory=True)
+        v_host = torch.empty(v_dev.shape, dtype=v_dev.dtype, pin_memory=True)
+        k_host.copy_(k_dev, non_blocking=True)
+        v_host.copy_(v_dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return k_host, v_host, event, (k_dev, v_dev, idx)
+
+    def _spill_readmit(self, k_host: torch.Tensor, v_host: torch.Tensor, pages: list[int]) -> None:
+        """The tier's readmit: a landed run copied to the device without
+        blocking, then into ``pages`` of the pools in place (a pool is never
+        rebound: captured windows read them at their addresses), ahead of
+        the prefill that reads them on the same stream. The pinned source
+        is held until an event after the copy has passed. The run must
+        cover exactly ``pages``: the reference pads both copies to a page
+        bucket whose pad lanes drop, the port copies the run as it is."""
+        n = len(pages)
+        if k_host.shape[2] != n or v_host.shape != k_host.shape:
+            raise EngineError(f"readmit of a {tuple(k_host.shape)} run into {n} pages")
+        self.costs.record("spill_readmit", (n,), self._copy_cost(n))
+        idx = self._upload(np.asarray(pages, np.int64))
+        if self.device.type != "cuda":
+            self._paged_kv["k"].index_copy_(2, idx, k_host)
+            self._paged_kv["v"].index_copy_(2, idx, v_host)
+            return
+        self._prune_readmit_holds()
+        k_dev = k_host.to(self.device, non_blocking=True)
+        v_dev = v_host.to(self.device, non_blocking=True)
+        self._paged_kv["k"].index_copy_(2, idx, k_dev)
+        self._paged_kv["v"].index_copy_(2, idx, v_dev)
+        event = torch.cuda.Event()
+        event.record()
+        self._readmit_holds.append((event, (k_host, v_host)))
+
+    def _prune_readmit_holds(self) -> None:
+        """Release the pinned sources of readmits whose copies are done
+        (an ``event.query()`` each, never a wait)."""
+        holds = self._readmit_holds
+        while holds and holds[0][0].query():
+            holds.popleft()
+
+    # --------------------------------- tiered KV cache: warm-restart snapshot
+    _SNAPSHOT_VERSION = 1
+
+    def _snapshot_meta(self) -> dict:
+        """What a snapshot must agree on to be restored, as the reference
+        writes it (``dtype`` by its numpy name, "bfloat16"), so a snapshot
+        written by either package validates in the other."""
+        mc = self.model_cfg
+        return {
+            "version": self._SNAPSHOT_VERSION,
+            "page_size": self.config.engine.kv_page_size,
+            "n_kv_heads": mc.n_kv_heads,
+            "n_layers": mc.n_layers,
+            "head_dim": mc.head_dim,
+            "dtype": str(torch_dtype(mc.dtype)).removeprefix("torch."),
+            "vocab_size": self.tokenizer.vocab_size,
+        }
+
+    def _params_fingerprint(self) -> Optional[float]:
+        """The reference's identity check of the weights a snapshot's KV was
+        computed under: the position-weighted fp32 abs-sum over the leaves
+        in ``jax.tree_util.tree_leaves`` order (sorted dict keys at every
+        level), so the same weights give the same number in both packages
+        (within the restore's 1e-3 relative tolerance). Snapshot path
+        only."""
+        try:
+            total = 0.0
+            for i, leaf in enumerate(_tree_leaves(self._params)):
+                total += (i + 1.0) * float(leaf.abs().float().sum())
+            return total
+        except Exception:  # no fingerprint: no KV restore
+            log.debug("params fingerprint unavailable", exc_info=True)
+            return None
+
+    def _save_snapshot(self) -> None:
+        """Write the warm-restart snapshot: a versioned JSON manifest (tree
+        structure root first, declared heads, governor weights, model
+        identity) and a sidecar ``.npz`` of the runs' raw KV bytes, within
+        the tier's host byte budget, each file replaced atomically. Called
+        by ``aclose`` once the worker has joined, before the pools drop."""
+        ecfg = self.config.engine
+        path = os.path.expanduser(ecfg.kv_tier.snapshot_path)
+        tier = self._spill_tier
+        cache = self._prefix_cache
+        tier.drain()
+        nodes_out: list[dict] = []
+        arrays: dict[str, np.ndarray] = {}
+        budget = tier.host_bytes or (256 << 20)
+        total = 0
+        # Root-first BFS: every entry's parent precedes it, the order
+        # RadixPrefixCache.restore_spilled needs.
+        todo = deque([(cache.root, ())])
+        while todo:
+            node, prefix = todo.popleft()
+            for child in node.children.values():
+                cpath = prefix + child.tokens
+                if child.pending:
+                    continue
+                if child.host is not None and child.host.ready:
+                    k, v = child.host.k, child.host.v
+                elif child.pages:
+                    idx = torch.as_tensor(child.pages, dtype=torch.int64, device=self.device)
+                    k = self._paged_kv["k"].index_select(2, idx).cpu()
+                    v = self._paged_kv["v"].index_select(2, idx).cpu()
+                else:
+                    continue
+                nbytes = nbytes_of(k) + nbytes_of(v)
+                if total + nbytes > budget:
+                    continue  # keep walking: a smaller sibling may fit
+                total += nbytes
+                key = f"n{len(nodes_out)}"
+                arrays[f"{key}_k"] = _raw_bytes(k)
+                arrays[f"{key}_v"] = _raw_bytes(v)
+                nodes_out.append({
+                    "path": [int(t) for t in cpath],
+                    "edge": len(child.tokens),
+                    "tenant": child.tenant,
+                    "key": key,
+                    "shape": list(k.shape),
+                })
+                todo.append((child, cpath))
+        manifest = {
+            **self._snapshot_meta(),
+            "fingerprint": self._params_fingerprint(),
+            "governor": self._governor.snapshot() if self._governor is not None else {},
+            "declared_heads": [{"ids": [int(t) for t in k], "tenant": t} for k, t in self._declared_heads.items()],
+            "nodes": nodes_out,
+        }
+        chaos = tier.chaos
+        with open(path + ".npz.tmp", "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(path + ".npz.tmp", path + ".npz")
+        with open(path + ".tmp", "w") as f:
+            if chaos is not None and chaos.snapshot_corrupt:
+                f.write(json.dumps(manifest)[:40] + "...TRUNCATED")
+            else:
+                json.dump(manifest, f)
+        os.replace(path + ".tmp", path)
+        log.info(
+            "KV snapshot saved: %d runs, %.1f MiB, %d declared heads -> %s",
+            len(nodes_out), total / (1 << 20), len(self._declared_heads), path,
+        )
+
+    def _load_snapshot(self) -> None:
+        """Restore a snapshot written by a clean ``aclose`` (of either
+        package): its runs become spilled nodes, readmitted by the standard
+        page copy at their first match. A corrupt, stale or mismatched
+        snapshot is logged and skipped, never fatal; when the weights'
+        fingerprint differs, only the declared heads' ids are kept, rebuilt
+        lazily by the first request each prefixes. Worker thread, at
+        setup."""
+        path = os.path.expanduser(self.config.engine.kv_tier.snapshot_path)
+        if not os.path.exists(path):
+            return
+        try:
+            with open(path) as f:
+                manifest = json.load(f)
+            for k, want in self._snapshot_meta().items():
+                if manifest.get(k) != want:
+                    raise ValueError(f"snapshot {k}={manifest.get(k)!r} != engine {want!r}")
+        except Exception as e:  # corrupt or stale: start cold
+            log.warning("KV snapshot unusable, starting cold: %s", e)
+            return
+        if self._governor is not None:
+            try:
+                self._governor.restore(manifest.get("governor") or {})
+            except Exception:  # the governor's weights are advisory
+                log.warning("snapshot governor state unusable", exc_info=True)
+        heads = [
+            (tuple(int(t) for t in h.get("ids", ())), str(h.get("tenant", "default")))
+            for h in manifest.get("declared_heads", ())
+            if h.get("ids")
+        ]
+        fp_then = manifest.get("fingerprint")
+        fp_now = self._params_fingerprint()
+        kv_ok = fp_then is not None and fp_now is not None and abs(fp_then - fp_now) <= 1e-3 * max(1.0, abs(fp_then))
+        restored = 0
+        if kv_ok:
+            try:
+                dtype = torch_dtype(self.model_cfg.dtype)
+                with np.load(path + ".npz") as npz:
+                    for ent in manifest.get("nodes", ()):
+                        shape = tuple(int(x) for x in ent["shape"])
+                        k = self._host_run(npz[ent["key"] + "_k"], shape, dtype)
+                        v = self._host_run(npz[ent["key"] + "_v"], shape, dtype)
+                        if self._prefix_cache.restore_spilled(
+                            [int(t) for t in ent["path"]], int(ent["edge"]), k, v, str(ent.get("tenant", "default"))
+                        ):
+                            restored += 1
+            except Exception as e:  # a partial restore still serves; the rest rebuilds
+                log.warning("KV snapshot arrays unusable past %d runs: %s", restored, e)
+        if not kv_ok or restored == 0:
+            self._warm_heads = [h for h in heads if h[0]]
+            log.info(
+                "KV snapshot ids-only restore: %d heads queued for lazy re-prefill (kv_ok=%s)",
+                len(self._warm_heads), kv_ok,
+            )
+        else:
+            log.info("KV snapshot restored %d runs into the host tier", restored)
+        for k, t in heads:
+            self._declared_heads[k] = t
+
+    def _host_run(self, raw: np.ndarray, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """A snapshot run's raw bytes as a host tensor of ``dtype`` (bf16
+        read as 16-bit integers and viewed as bf16: the same bits), pinned
+        on CUDA so its readmit is an asynchronous copy."""
+        store = {torch.bfloat16: np.int16, torch.float16: np.float16, torch.float32: np.float32}[dtype]
+        t = torch.from_numpy(np.frombuffer(raw.tobytes(), store).reshape(shape).copy())
+        if dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _pop_warm_head(self, req: GenerateRequest) -> Optional[tuple]:
+        """The longest snapshot head strictly prefixing ``req``'s prompt
+        (ids-only restore), popped for its one lazy rebuild."""
+        best = None
+        best_i = -1
+        for i, (ids, tenant) in enumerate(self._warm_heads):
+            if len(ids) < len(req.prompt_ids) and tuple(req.prompt_ids[: len(ids)]) == ids:
+                if best is None or len(ids) > len(best[0]):
+                    best, best_i = (ids, tenant), i
+        if best is not None:
+            self._warm_heads.pop(best_i)
+        return best
 
     def _admit_cohort(self, slab: _Slab, pending: "deque[GenerateRequest]") -> None:
         """Admit a cohort in three stages: the candidate scan; the
@@ -1735,7 +2154,7 @@ class InferenceEngine:
             if use_prefix:
                 want = ((P + len(ids)) // psz) * psz - P
                 if want > 0:
-                    inode = cache.insert(r.prompt_ids, P, want)
+                    inode = cache.insert(r.prompt_ids, P, want, tenant=r.tenant)
                     if inode is not None:
                         ins = want
             need = len(ids) - ins + budget + slack
@@ -1757,6 +2176,9 @@ class InferenceEngine:
                     cache.matched_tokens += P
                 else:
                     cache.misses += 1
+                if self._governor is not None:
+                    # Per-tenant reuse: matched against prefilled tokens.
+                    self._governor.on_lookup(r.tenant, P, len(ids))
             tree_pages = mpages + (inode.pages if inode is not None else [])
             cohort.append((r, budget, ids, sid, pages, P, tree_pages, mnode, inode))
             cohort_slots.append(slot)
@@ -2689,3 +3111,22 @@ def _resolve(future: "asyncio.Future", result: Any, error: Optional[BaseExceptio
         future.set_exception(error)
     else:
         future.set_result(result)
+
+
+def _tree_leaves(tree: Any) -> list:
+    """The leaves of a nested parameter tree in ``jax.tree_util.tree_leaves``
+    order: dict keys sorted, lists in order, None empty."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in _tree_leaves(x)]
+    return [] if tree is None else [tree]
+
+
+def _raw_bytes(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's bytes as uint8 (bf16 through its 16-bit pattern):
+    the snapshot's storage, the same bytes the reference writes."""
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return np.frombuffer(t.numpy().tobytes(), np.uint8)

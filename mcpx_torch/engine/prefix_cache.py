@@ -1,14 +1,16 @@
 """Radix-tree prefix KV cache: cross-request reuse of prompt-head KV pages.
 
-Port of ``mcpx/engine/prefix_cache.py``, trimmed to the single-tier,
-ungoverned cache: no host spill tier and no per-tenant governor (both wait
-for the KV tier). A radix tree over token-id sequences whose nodes own runs
-of KV pages in the engine's page pools. On admission the engine matches
-each request's prompt against the tree, pins the matched run (refcount),
-and prefills only the unmatched suffix through the ragged paged-attention
-kernel, whose per-row start offsets are data. The page-aligned remainder of
-every admitted prompt is inserted back into the tree, so the next request
-sharing that head re-prefills none of it.
+Port of ``mcpx/engine/prefix_cache.py``, with the reference's tiered
+residency: a host spill tier under the tree (``spill``, engine/spill.py)
+and per-tenant governance (``governor``, engine/cache_governor.py), both
+optional and off unless the engine's ``kv_tier`` is enabled. A radix tree
+over token-id sequences whose nodes own runs of KV pages in the engine's
+page pools. On admission the engine matches each request's prompt against
+the tree, pins the matched run (refcount), and prefills only the unmatched
+suffix through the ragged paged-attention kernel, whose per-row start
+offsets are data. The page-aligned remainder of every admitted prompt is
+inserted back into the tree, so the next request sharing that head
+re-prefills none of it.
 
 What the module holds to:
 
@@ -22,8 +24,8 @@ What the module holds to:
     in row-private pages, so tree pages are written once (by the prefill
     that inserted them) and then only read.
   - **Single writer.** The engine's worker thread owns the tree, as it owns
-    the page allocator: no locks. Other threads (``queue_stats``) read only
-    plain integer counters.
+    the page allocator: no locks. Other threads (``queue_stats``,
+    ``GET /cache``) read only plain integer counters.
   - **Pending epoch.** Nodes inserted for an admission cohort are
     ``pending`` until that cohort's prefill has been launched: a row of the
     same cohort must not attend pages the same launch is still writing.
@@ -34,6 +36,18 @@ What the module holds to:
     used first, under pool pressure or over budget, so a pinned run is never
     reclaimed from under a reader and interior nodes are protected by their
     children.
+  - **Tiered residency** (``spill``). With a host tier attached, eviction
+    spills a victim's KV run to pinned host buffers instead of destroying
+    it (budget-bounded; it degrades to the destructive path, counted); a
+    later match readmits the run by a host-to-device page copy. Every
+    device-resident node's ancestors are device-resident (spill is bottom
+    up, readmit top down along the match path), so a matched prefix always
+    attends a contiguous resident run.
+  - **Tenant governance** (``governor``). Inserts are charged to the
+    inserting tenant; an over-quota tenant reclaims its own coldest
+    subtrees first, and cross-tenant eviction is deficit-weighted LRU
+    (tenants over their fair share first), so one thrashing tenant cannot
+    flush everyone's KV.
 """
 
 from __future__ import annotations
@@ -42,16 +56,26 @@ import heapq
 from typing import Any, Optional, Sequence
 
 from mcpx_torch.engine.kv_cache import PageAllocator
+from mcpx_torch.utils.ownership import owned_by
 
 
+@owned_by("engine-worker")
 class PrefixNode:
-    """One radix edge: ``tokens`` (a positive multiple of the page size
-    long) backed by ``pages`` of the pools, allocated under the node's own
-    ``sid``. ``refs`` counts live pinners (resident slab rows and external
-    pins); ``stamp`` is the LRU clock; ``pending`` marks a node whose prefill
-    has not been launched yet."""
+    """One radix edge: ``tokens`` (length a positive multiple of the page
+    size) backed by ``pages`` in the paged pool, allocated under this
+    node's own ``sid``. ``refs`` counts live pinners (resident slab rows +
+    external pins); ``stamp`` is the LRU clock; ``pending`` marks a node
+    whose prefill has not been dispatched yet. ``host`` non-None marks a
+    SPILLED node: ``pages`` is empty, the KV run lives in the host tier
+    (engine/spill.py HostRun) until a match re-admits it; spilled nodes
+    are always refcount-0 (only refcount-0 victims spill, and a readmit
+    precedes any new pin). ``tenant`` is the inserting tenant (cache
+    governance; "default" when governance is off)."""
 
-    __slots__ = ("tokens", "pages", "children", "parent", "refs", "stamp", "pending", "sid")
+    __slots__ = (
+        "tokens", "pages", "children", "parent", "refs", "stamp", "pending",
+        "sid", "host", "tenant",
+    )
 
     def __init__(
         self,
@@ -61,12 +85,17 @@ class PrefixNode:
         sid: Any,
         *,
         pending: bool = False,
+        tenant: str = "default",
     ) -> None:
         self.tokens = tokens
+        self.host = None
+        self.tenant = tenant
         self.pages = pages
-        # Children keyed by their edge's first PAGE of tokens: two branches
-        # that diverge inside a page share nothing, so they must coexist as
-        # siblings (a first-token key would collide them).
+        # Children keyed by their edge's FIRST PAGE of tokens (a tuple):
+        # page-granularity sharing means two branches diverging INSIDE a
+        # page share nothing, so they must coexist as siblings -- a
+        # first-token key would collide them (vLLM-style page-content
+        # keying; first-token radix keys only work at token granularity).
         self.children: dict[tuple, PrefixNode] = {}
         self.parent = parent
         self.refs = 0
@@ -74,32 +103,63 @@ class PrefixNode:
         self.pending = pending
         self.sid = sid
 
+    def __repr__(self) -> str:  # debugging/test aid only
+        return (
+            f"PrefixNode(len={len(self.tokens)}, pages={len(self.pages)}, "
+            f"refs={self.refs}, pending={self.pending}, "
+            f"children={len(self.children)})"
+        )
 
+
+@owned_by("engine-worker")
 class RadixPrefixCache:
     """Radix tree over page-aligned prompt heads. Every method that changes
-    the tree is called by the engine's worker thread only."""
+    the tree is called by the engine's worker thread only (the
+    ``owned_by`` marks say so for a later lint pass)."""
 
     def __init__(
-        self, allocator: PageAllocator, page_size: int, *, max_nodes: int = 512, max_tokens: int = 0
+        self,
+        allocator: PageAllocator,
+        page_size: int,
+        *,
+        max_nodes: int = 512,
+        max_tokens: int = 0,
+        spill: Any = None,  # engine/spill.HostSpillTier (None = single tier)
+        governor: Any = None,  # engine/cache_governor.CacheGovernor
     ) -> None:
         self._alloc = allocator
         self.page_size = page_size
+        self.spill = spill
+        self.governor = governor
         self.max_nodes = max(0, max_nodes)
-        # 0 = auto: at most half the pool, so a warm tree never starves the
-        # slab of row pages beyond what one eviction pass reclaims.
-        self.max_tokens = max_tokens if max_tokens > 0 else (allocator.n_pages // 2) * page_size
+        # 0 = auto: cap tree residency at half the pool, so a fully-warm
+        # tree can never starve the slab of row pages beyond what one
+        # eviction pass reclaims.
+        self.max_tokens = (
+            max_tokens
+            if max_tokens > 0
+            else (allocator.n_pages // 2) * page_size
+        )
         self.root = PrefixNode((), [], None, None)
         self._clock = 0
         self._sid_counter = 0
-        # Counters other threads may read.
+        # Cross-thread-readable counters (GIL-atomic ints; queue_stats /
+        # GET /cache snapshot them without touching the tree).
         self.n_nodes = 0
         self.resident_tokens = 0
+        # Spilled (host-tier) nodes/tokens: counted separately so the
+        # device node/token caps govern DEVICE residency only (the host
+        # tier has its own byte budget).
+        self.n_spilled = 0
+        self.spilled_tokens = 0
         self.hits = 0
         self.misses = 0
         self.matched_tokens = 0
         self.inserted_tokens = 0
         self.evictions = 0
-        # Nodes inserted since the last seal().
+        # Nodes inserted since the last seal(): sealing clears exactly
+        # these instead of walking the whole (up to max_nodes) tree on
+        # every admission.
         self._pending_nodes: list[PrefixNode] = []
 
     def __len__(self) -> int:
@@ -119,25 +179,26 @@ class RadixPrefixCache:
 
     def match_cap(self, n_prompt: int) -> int:
         """Longest usable match for an ``n_prompt``-token prompt: page
-        aligned, leaving at least one suffix token to prefill (the engine
-        samples from the suffix's last logit)."""
+        aligned, and at least one suffix token must remain to prefill (the
+        engine samples from the suffix's last logit)."""
         return self._aligned(max(0, n_prompt - 1))
-
-    def _limit(self, ids: Sequence[int], cap: Optional[int]) -> int:
-        if cap is None:
-            return self.match_cap(len(ids))
-        return min(self._aligned(cap), self._aligned(len(ids)))
 
     # ------------------------------------------------------------- descent
     def _descend(
         self, ids: Sequence[int], limit: int, *, mutate: bool
-    ) -> tuple[int, list[int], Optional[PrefixNode]]:
-        """The radix walk probe() and match() share: follow ready children
-        by first-page key, scan edge tokens, stop at ``limit``. With
-        ``mutate`` a partial edge match splits at the page boundary (so the
-        returned node covers exactly the match) and the path is stamped for
-        LRU; without it the walk only reads. Returns (depth, pages, deepest
-        node)."""
+    ) -> tuple[int, list[int], Optional["PrefixNode"]]:
+        """The one radix walk probe() and match() share: follow ready
+        children by first-page key, scan edge tokens, stop at ``limit``.
+        With ``mutate`` a partial edge match SPLITS at the page boundary
+        (so the returned node covers exactly the match) and the path is
+        stamped for LRU; without it the walk is read-only and the partial
+        depth is just arithmetic. A SPILLED child extends the walk only
+        when its whole edge matches within the limit: with ``mutate`` it
+        is re-admitted (host→device copy) first — a denied readmit
+        (copy budget, pages, data still in flight) just ends the match
+        there, the request prefills the rest; read-only walks count it
+        when its run could serve a readmit right now. Returns (depth,
+        pages, deepest node)."""
         depth = 0
         node = self.root
         pages: list[int] = []
@@ -147,6 +208,46 @@ class RadixPrefixCache:
             child = node.children.get(tuple(ids[depth : depth + psz]))
             if child is None or child.pending:
                 break
+            if child.host is not None:  # spilled edge
+                if self.spill is None or not self.spill.readmit_usable(child):
+                    break
+                el = child.tokens
+                span = min(len(el), limit - depth)
+                common = psz
+                while common < span and el[common] == ids[depth + common]:
+                    common += 1
+                full = common == len(el)
+                k = common if full else self._aligned(common)
+                if k <= 0:
+                    break
+                if not mutate:
+                    depth += k
+                    if not full:
+                        break
+                    node = child
+                    continue
+                # A partial match splits the HOST run at the page boundary
+                # (host copies, no device work), mirroring the device-edge
+                # split; the matched head then readmits.
+                target = child if full else self._split_spilled(child, k)
+                # Readmission may run an eviction pass; pin the current
+                # path head so the pass can never spill/drop a node whose
+                # pages this very walk already collected (every higher
+                # ancestor is protected by having this device child).
+                if node is not self.root:
+                    node.refs += 1
+                ok = self._try_readmit(target)
+                if node is not self.root:
+                    node.refs -= 1
+                if not ok:
+                    break
+                target.stamp = tick
+                pages.extend(target.pages)
+                depth += k
+                node = target
+                if not full:
+                    break
+                continue
             el = child.tokens
             span = min(len(el), limit - depth)
             common = psz
@@ -168,20 +269,38 @@ class RadixPrefixCache:
             break
         return depth, pages, (node if node is not self.root else None)
 
+    # --------------------------------------------------------------- probe
     def probe(self, ids: Sequence[int], cap: Optional[int] = None) -> int:
-        """Read-only matched depth (tokens) for ``ids``: never splits,
-        never stamps (the locality sort's key). An explicit ``cap`` replaces
-        the leave-a-suffix default."""
-        return self._descend(ids, self._limit(ids, cap), mutate=False)[0]
+        """Read-only matched depth (tokens) for ``ids``: the page-aligned
+        length of the longest READY path sharing a prefix with ``ids``,
+        capped to leave a suffix token. Never splits, never stamps — the
+        locality-sort key for admission ordering. An explicit ``cap``
+        replaces the leave-a-suffix default entirely (callers compose
+        their own reserve)."""
+        limit = self.match_cap(len(ids)) if cap is None else min(
+            self._aligned(cap), self._aligned(len(ids))
+        )
+        return self._descend(ids, limit, mutate=False)[0]
 
+    # --------------------------------------------------------------- match
+    @owned_by("engine-worker")
     def match(
-        self, ids: Sequence[int], cap: Optional[int] = None, *, record: bool = True
+        self,
+        ids: Sequence[int],
+        cap: Optional[int] = None,
+        *,
+        record: bool = True,
     ) -> tuple[int, list[int], Optional[PrefixNode]]:
-        """Longest ready page-aligned match for ``ids``: ``(n_tokens,
-        pages, deepest_node)``. Counts a hit or a miss when ``record`` and
-        stamps the path. The caller pins ``deepest_node`` (refs += 1) for as
-        long as a page table names ``pages``."""
-        depth, pages, node = self._descend(ids, self._limit(ids, cap), mutate=True)
+        """Longest ready page-aligned match for ``ids``: returns
+        ``(n_tokens, pages, deepest_node)``. A partial edge match splits
+        the edge at the matched page boundary so the returned node covers
+        exactly the match. Counts a hit (n>0) or miss and stamps the path
+        for LRU. The caller pins ``deepest_node`` (refs += 1) for as long
+        as any page table references ``pages``."""
+        limit = self.match_cap(len(ids)) if cap is None else min(
+            self._aligned(cap), self._aligned(len(ids))
+        )
+        depth, pages, node = self._descend(ids, limit, mutate=True)
         if record:
             if depth > 0:
                 self.hits += 1
@@ -190,14 +309,19 @@ class RadixPrefixCache:
                 self.misses += 1
         return depth, pages, node
 
+    @owned_by("engine-worker")
     def _split(self, child: PrefixNode, k: int) -> PrefixNode:
-        """Split ``child``'s edge at ``k`` tokens (a page boundary): a new
-        node owns the first ``k`` tokens and their pages, ``child`` keeps
-        the tail. Page ids do not change, so live page tables stay valid."""
+        """Split ``child``'s edge at ``k`` tokens (a page boundary):
+        insert an intermediate node owning the first ``k`` tokens/pages;
+        ``child`` keeps the tail. Page ownership moves via
+        ``PageAllocator.split`` — no device work, page ids unchanged, so
+        every live page table naming them stays valid."""
         psz = self.page_size
         kp = k // psz
         parent = child.parent
-        mid = PrefixNode(child.tokens[:k], [], parent, self._new_sid())
+        mid = PrefixNode(
+            child.tokens[:k], [], parent, self._new_sid(), tenant=child.tenant
+        )
         mid.pages = self._alloc.split(child.sid, mid.sid, kp)
         mid.stamp = child.stamp
         mid.children = {child.tokens[k : k + psz]: child}
@@ -208,20 +332,47 @@ class RadixPrefixCache:
         self.n_nodes += 1
         return mid
 
+    @owned_by("engine-worker")
+    def _split_spilled(self, child: PrefixNode, k: int) -> PrefixNode:
+        """Split a SPILLED edge at ``k`` tokens (a page boundary): both
+        sides stay host-resident: the tier copies the run's halves along the
+        page axis, no device work, no pages. Returns the
+        intermediate head node, ready for readmit."""
+        psz = self.page_size
+        parent = child.parent
+        mid = PrefixNode(
+            child.tokens[:k], [], parent, None, tenant=child.tenant
+        )
+        mid.stamp = child.stamp
+        mid.children = {child.tokens[k : k + psz]: child}
+        parent.children[child.tokens[:psz]] = mid
+        self.spill.split_host(child, mid, k // psz, k)
+        child.tokens = child.tokens[k:]
+        child.parent = mid
+        self.n_nodes += 1
+        self.n_spilled += 1
+        return mid
+
+    # -------------------------------------------------------------- lookup
     def lookup(self, ids: Sequence[int]) -> Optional[PrefixNode]:
-        """Deepest ready node whose whole path prefixes ``ids`` (no
-        splitting): the handle an external pin holds. None when nothing
-        matches."""
+        """Deepest READY node whose full path is a prefix of ``ids``
+        (whole edges only — no splitting): the external-pin handle for
+        ``/plan_and_execute`` holding its plan's prompt warm. None when
+        nothing matches."""
         depth = 0
         node = self.root
         psz = self.page_size
         limit = self.match_cap(len(ids))
         while depth + psz <= limit:
             child = node.children.get(tuple(ids[depth : depth + psz]))
-            if child is None or child.pending:
+            if child is None or child.pending or child.host is not None:
+                # Spilled nodes are not pinnable: a pin promises resident
+                # KV, which only a real match (readmitting) can restore.
                 break
             el = child.tokens
-            if depth + len(el) > limit or tuple(ids[depth : depth + len(el)]) != el:
+            if depth + len(el) > limit or tuple(
+                ids[depth : depth + len(el)]
+            ) != el:
                 break
             depth += len(el)
             node = child
@@ -230,22 +381,29 @@ class RadixPrefixCache:
     # -------------------------------------------------------------- insert
     def can_insert(self, ids: Sequence[int], depth: int) -> int:
         """Tokens insertable at ``depth`` (the end of a match): the
-        page-aligned remainder of ``ids``, or 0 when a sibling edge has the
-        same first page (a pending cohort-mate's branch)."""
+        page-aligned remainder of ``ids``, or 0 when a sibling edge
+        collides (an IDENTICAL first page: only a pending cohort-mate's
+        not-yet-readable branch — a ready identical page would have been
+        matched or split into instead)."""
         end = self._aligned(len(ids))
         if depth >= end:
             return 0
         node = self._node_at(ids, depth)
         if node is None:
             return 0
-        if node.children.get(tuple(ids[depth : depth + self.page_size])) is not None:
+        key = tuple(ids[depth : depth + self.page_size])
+        if node.children.get(key) is not None:
             return 0
         return end - depth
 
-    def _node_at(self, ids: Sequence[int], depth: int) -> Optional[PrefixNode]:
-        """The node whose path ends exactly at ``depth`` along ``ids``,
-        pending edges included (an insert must see cohort-mates' branches
-        to refuse colliding with them)."""
+    def _node_at(
+        self, ids: Sequence[int], depth: int, *, allow_spilled: bool = False
+    ) -> Optional[PrefixNode]:
+        """The node whose path ends exactly at ``depth`` along ``ids``
+        (pending edges included — an insert right after a match must see
+        cohort-mates' branches to refuse colliding with them).
+        ``allow_spilled`` walks through spilled nodes too (warm-restart
+        restore attaches spilled children below spilled parents)."""
         d = 0
         node = self.root
         psz = self.page_size
@@ -255,31 +413,75 @@ class RadixPrefixCache:
                 return None
             if tuple(ids[d : d + len(child.tokens)]) != child.tokens:
                 return None
+            if child.host is not None and not allow_spilled:
+                # A device-resident node may never hang below a spilled
+                # ancestor (matching through it could not attend the
+                # ancestor's positions); the commit-time match readmits
+                # the path first, so refusing here only blocks inserts
+                # that skipped the match.
+                return None
             d += len(child.tokens)
             node = child
         return node
 
-    def insert(self, ids: Sequence[int], depth: int, n_tokens: int) -> Optional[PrefixNode]:
-        """Attach a pending node covering ``ids[depth : depth + n_tokens]``
-        (page aligned) and allocate its pages: the caller puts
-        ``node.pages`` in the admitting row's page table and the cohort
-        prefill writes the KV. Returns None, allocating nothing, on a
-        collision, or when one eviction pass cannot make room. The node is
-        born pinned (refs = 1) by its inserting row; call ``seal()`` once
-        the prefill is launched."""
+    @property
+    def n_device_nodes(self) -> int:
+        return self.n_nodes - self.n_spilled
+
+    @owned_by("engine-worker")
+    def insert(
+        self,
+        ids: Sequence[int],
+        depth: int,
+        n_tokens: int,
+        tenant: str = "default",
+    ) -> Optional[PrefixNode]:
+        """Attach a PENDING node covering ``ids[depth : depth+n_tokens]``
+        (page aligned), allocating its pages from the pool — the caller
+        wires ``node.pages`` into the admitting row's page table and the
+        cohort prefill writes the KV. Returns None (allocating nothing)
+        on collision, page exhaustion, or budget breach after one eviction
+        pass. The node is born pinned (refs=1) by its inserting row; call
+        ``seal()`` once the prefill is dispatched. With a governor,
+        ``tenant`` is charged for the residency and an over-quota tenant
+        reclaims its OWN coldest subtrees first — still over (everything
+        pinned) skips caching, never the admission."""
         if n_tokens <= 0 or n_tokens % self.page_size:
             return None
+        if self.governor is not None:
+            # Nodes carry the FOLDED accounting name: evict_tenant filters
+            # victims by node.tenant, and a raw name past the governor's
+            # cardinality cap would never match its "other" bucket's
+            # over-share pressure (folded tenants could then starve).
+            tenant = self.governor.fold(tenant)
         if self.can_insert(ids, depth) < n_tokens:
             return None
         parent = self._node_at(ids, depth)
         if parent is None:
             return None
-        # Budget consult before growing: the eviction pass makes headroom
-        # (refcount-0 LRU subtrees first); if the tree is still over (all
-        # pinned), skip caching. Serving never waits on the cache.
-        if self.resident_tokens + n_tokens > self.max_tokens or self.n_nodes + 1 > self.max_nodes:
+        if self.governor is not None and self.governor.over_share(
+            tenant, self.max_tokens, extra=n_tokens
+        ):
+            # WFQ at the cache layer: the over-quota tenant's pressure
+            # lands on its own residency (spill-first, like any reclaim).
+            self.evict_tenant(tenant, n_tokens)
+            if self.governor.over_share(tenant, self.max_tokens, extra=n_tokens):
+                return None
+        # Budget consult BEFORE growing: the eviction pass makes HEADROOM
+        # for this insert —
+        # refcount-0 LRU subtrees go first (spilled to the host tier when
+        # one is attached, destroyed single-tier); if the tree is still
+        # over (everything resident is pinned), skip caching — serving
+        # never blocks on the cache.
+        if (
+            self.resident_tokens + n_tokens > self.max_tokens
+            or self.n_device_nodes + 1 > self.max_nodes
+        ):
             self.evict(need_resident=n_tokens)
-        if self.resident_tokens + n_tokens > self.max_tokens or self.n_nodes + 1 > self.max_nodes:
+        if (
+            self.resident_tokens + n_tokens > self.max_tokens
+            or self.n_device_nodes + 1 > self.max_nodes
+        ):
             return None
         if not self._alloc.can_allocate(n_tokens):
             self.evict(n_tokens)
@@ -287,51 +489,153 @@ class RadixPrefixCache:
                 return None
         sid = self._new_sid()
         pages = self._alloc.allocate(sid, n_tokens)
-        node = PrefixNode(tuple(ids[depth : depth + n_tokens]), pages, parent, sid, pending=True)
+        node = PrefixNode(
+            tuple(ids[depth : depth + n_tokens]), pages, parent, sid,
+            pending=True, tenant=tenant,
+        )
         node.stamp = self._tick()
         node.refs = 1
         parent.children[node.tokens[: self.page_size]] = node
         self.n_nodes += 1
         self.resident_tokens += n_tokens
         self.inserted_tokens += n_tokens
+        if self.governor is not None:
+            self.governor.on_insert(tenant, n_tokens)
         self._pending_nodes.append(node)
         return node
 
+    # -------------------------------------------------------------- readmit
+    @owned_by("engine-worker")
+    def _try_readmit(self, node: PrefixNode) -> bool:
+        """Re-admit a spilled node's KV run into freshly-allocated device
+        pages (host→device copy through the tier, launched before
+        anything that will read the pages — device program order makes the
+        data visible). Consults the device budgets exactly like an insert
+        (one eviction pass, then give up: the match just ends one node
+        shorter). Returns True when the node is device-resident again."""
+        tier = self.spill
+        if tier is None or not tier.readmit_usable(node):
+            return False
+        n = len(node.tokens)
+
+        def blocked() -> bool:
+            return (
+                self.resident_tokens + n > self.max_tokens
+                or self.n_device_nodes + 1 > self.max_nodes
+                or not self._alloc.can_allocate(n)
+            )
+
+        if blocked():
+            self.evict(
+                n if not self._alloc.can_allocate(n) else 0, need_resident=n
+            )
+            if blocked():
+                tier.denied_readmits += 1
+                return False
+        sid = self._new_sid()
+        pages = self._alloc.allocate(sid, n)
+        tenant = node.tenant
+        if not tier.readmit(node, pages):
+            self._alloc.free(sid)
+            return False
+        node.sid = sid
+        node.pages = pages
+        self.n_spilled -= 1
+        self.spilled_tokens -= n
+        self.resident_tokens += n
+        if self.governor is not None:
+            self.governor.on_readmit(tenant, n)
+        return True
+
+    @owned_by("engine-worker")
     def seal(self) -> None:
-        """End the pending epoch of everything inserted since the last
-        seal: the prefill writing those nodes' KV has been launched."""
+        """Clear the pending flags of everything inserted since the last
+        seal: the cohort prefill that writes those nodes' KV has been
+        dispatched, so later dispatches (device ordered behind it) may
+        read them. O(inserted-this-cohort), not O(tree)."""
         for n in self._pending_nodes:
             n.pending = False
         self._pending_nodes.clear()
 
     # ------------------------------------------------------------ eviction
-    @staticmethod
-    def _leaf(c: PrefixNode) -> bool:
-        """Reclaimable: unpinned, sealed, and childless."""
-        return c.refs == 0 and not c.pending and not c.children
+    def _device_leaf(self, c: PrefixNode) -> bool:
+        """Reclaimable-from-device: resident, unpinned, sealed, and no
+        device-resident child (spill/eviction is bottom-up so the top-down
+        residency invariant survives)."""
+        return (
+            bool(c.pages)
+            and c.refs == 0
+            and not c.pending
+            and not any(cc.pages for cc in c.children.values())
+        )
 
+    @owned_by("engine-worker")
     def evict(self, need_tokens: int = 0, need_resident: int = 0) -> int:
-        """Reclaim refcount-0 leaf subtrees, least recently used first,
-        until the tree is within its node and token budgets, the allocator
-        can satisfy ``need_tokens``, and ``need_resident`` more tokens fit
-        the token budget. Returns tokens reclaimed."""
+        """Reclaim refcount-0 device leaf subtrees, LRU-first, until the
+        tree is within its node/token budgets and (when ``need_tokens`` is
+        given) the allocator can satisfy it; ``need_resident`` additionally
+        makes HEADROOM for that many incoming device tokens (insert /
+        readmit under the tiered cache — spill-LRU-to-make-room instead of
+        refuse-when-full). With a host tier attached each victim SPILLS
+        (KV run to pinned host buffers, without blocking) instead of being destroyed,
+        degrading to the destructive drop — counted — only when the tier's
+        budgets refuse it; with a governor, victims come from tenants over
+        their fair share first (deficit-weighted LRU). Returns device
+        tokens reclaimed. ONE tree walk gathers the candidates into an
+        ordered heap; a reclaimed leaf that exposes its parent pushes it
+        as the next candidate — so a k-leaf pressure cascade costs
+        O(n + k log n), not k full rescans."""
 
         def over() -> bool:
             return (
-                self.n_nodes + (1 if need_resident else 0) > self.max_nodes
+                self.n_device_nodes + (1 if need_resident else 0) > self.max_nodes
                 or self.resident_tokens + need_resident > self.max_tokens
                 or (need_tokens > 0 and not self._alloc.can_allocate(need_tokens))
             )
 
         return self._reclaim(over)
 
-    def _reclaim(self, over) -> int:
-        """One tree walk gathers the reclaimable leaves into a heap by LRU
-        stamp; a reclaimed leaf that leaves its parent reclaimable pushes
-        the parent, so a cascade of k leaves costs O(n + k log n)."""
+    @owned_by("engine-worker")
+    def evict_tenant(self, tenant: str, need_tokens: int = 0) -> int:
+        """Tenant-scoped reclaim (cache governance): spill/drop ``tenant``'s
+        own coldest refcount-0 subtrees until its device residency plus
+        ``need_tokens`` fits its weighted-fair quota (or nothing of its
+        remains unpinned). Other tenants' residency is never touched."""
+        gov = self.governor
+        if gov is None:
+            return 0
+
+        def over() -> bool:
+            return gov.over_share(tenant, self.max_tokens, extra=need_tokens)
+
+        return self._reclaim(over, tenant=tenant)
+
+    @owned_by("engine-worker")
+    def _reclaim(self, over, *, tenant: Optional[str] = None) -> int:
         if not over():
             return 0
-        heap: list[tuple[int, int, PrefixNode]] = []
+        gov = self.governor
+        tier = self.spill
+        # Fair shares computed at most once per tenant PER PASS (the
+        # weighted-share sum is O(tenants); recomputing it per heap push
+        # would make every at-budget insert O(candidates x tenants)).
+        # Usage only shrinks during the pass, so a cached share keeps the
+        # lazy demotion sound: over-share can only flip to false.
+        shares: dict[str, int] = {}
+
+        def prio(c: PrefixNode) -> int:
+            # Deficit-weighted LRU: cross-tenant pressure takes over-share
+            # tenants' nodes first (bucket 0), LRU within a bucket. A
+            # tenant-scoped pass has one tenant — no bucketing.
+            if gov is None or tenant is not None:
+                return 0
+            s = shares.get(c.tenant)
+            if s is None:
+                s = gov.fair_share_tokens(c.tenant, self.max_tokens)
+                shares[c.tenant] = s
+            return 0 if gov.device_tokens(c.tenant) > s else 1
+
+        heap: list[tuple[int, int, int, PrefixNode]] = []
         seq = 0
         stack = [self.root]
         while stack:
@@ -339,35 +643,171 @@ class RadixPrefixCache:
             for c in n.children.values():
                 if c.children:
                     stack.append(c)
-                if self._leaf(c):
+                if (tenant is None or c.tenant == tenant) and self._device_leaf(c):
                     seq += 1
-                    heapq.heappush(heap, (c.stamp, seq, c))
+                    heapq.heappush(heap, (prio(c), c.stamp, seq, c))
         freed = 0
         while heap and over():
-            _stamp, _seq, victim = heapq.heappop(heap)
-            if victim.parent is None or not self._leaf(victim):
-                continue  # dropped, re-pinned, or grew a child
-            parent = victim.parent
-            freed += len(victim.tokens)
-            self._drop(victim)
-            if parent is not self.root and self._leaf(parent):
+            pr, _stamp, _seq, victim = heapq.heappop(heap)
+            if victim.parent is None or not self._device_leaf(victim):
+                continue  # dropped, re-pinned, or grew a device child
+            if pr == 0 and prio(victim) != 0:
+                # Its tenant fell under fair share while earlier victims
+                # drained — demote behind every still-over-share candidate.
                 seq += 1
-                heapq.heappush(heap, (parent.stamp, seq, parent))
+                heapq.heappush(heap, (1, victim.stamp, seq, victim))
+                continue
+            parent = victim.parent
+            n_tok = len(victim.tokens)
+            if tier is not None and not tier.host_room(
+                n_tok * tier.bytes_per_token
+            ):
+                # Host budget full: LRU-reclaim spilled leaves before
+                # degrading this victim to a destructive drop.
+                self.evict_host(n_tok * tier.bytes_per_token)
+            if tier is not None and tier.spill(victim, victim.pages):
+                # The gather copied the pages ahead of any later write on
+                # the stream: the device pages free at once.
+                self._alloc.free(victim.sid)
+                victim.sid = None
+                victim.pages = []
+                self.n_spilled += 1
+                self.spilled_tokens += n_tok
+                self.resident_tokens -= n_tok
+                if gov is not None:
+                    gov.on_spill(victim.tenant, n_tok)
+            else:
+                if tier is not None:
+                    tier.destructive_evictions += 1
+                self._drop(victim)
+            freed += n_tok
+            if parent is not self.root and self._device_leaf(parent):
+                seq += 1
+                heapq.heappush(heap, (prio(parent), parent.stamp, seq, parent))
         return freed
 
+    @owned_by("engine-worker")
+    def evict_host(self, need_bytes: int = 0) -> int:
+        """Host-tier reclaim: drop spilled leaf runs until ``need_bytes``
+        more fit the tier's byte budget. With a governor the ordering is
+        deficit-weighted LRU exactly like the device tier's ``_reclaim``
+        — victims come from tenants over their weighted-fair HOST share
+        first, LRU within a bucket, with the same lazy demotion when a
+        tenant drains under its share mid-pass — so a spill-heavy tenant
+        reclaims its own host residency before touching anyone else's.
+        Spilled nodes are refcount-0
+        by invariant — the consult (``refs == 0``) is kept anyway so a
+        future pinnable-host design cannot silently reclaim a pinned run.
+        Returns tokens dropped."""
+        tier = self.spill
+        if tier is None:
+            return 0
+
+        def over() -> bool:
+            return not tier.host_room(need_bytes)
+
+        if not over():
+            return 0
+        gov = self.governor
+        # Host budget in tokens for the fair-share math (the tier budgets
+        # bytes; shares are token-denominated like the device tier's).
+        host_budget = tier.host_bytes // max(1, tier.bytes_per_token)
+        over_cache: dict[str, bool] = {}
+
+        def prio(c: PrefixNode, fresh: bool = False) -> int:
+            if gov is None:
+                return 0
+            if fresh or c.tenant not in over_cache:
+                over_cache[c.tenant] = gov.over_host_share(c.tenant, host_budget)
+            return 0 if over_cache[c.tenant] else 1
+
+        heap: list[tuple[int, int, int, PrefixNode]] = []
+        seq = 0
+        stack = [self.root]
+        while stack:
+            n = stack.pop()
+            for c in n.children.values():
+                if c.children:
+                    stack.append(c)
+                elif c.host is not None and c.refs == 0:
+                    seq += 1
+                    heapq.heappush(heap, (prio(c), c.stamp, seq, c))
+        freed = 0
+        while heap and over():
+            pr, _s, _q, victim = heapq.heappop(heap)
+            if victim.parent is None or victim.children or victim.host is None:
+                continue
+            if pr == 0 and prio(victim, fresh=True) != 0:
+                # Its tenant fell under fair host share while earlier
+                # victims drained. The re-check recomputes over-share
+                # FRESH: as tenants drain out of the host-active set,
+                # every remaining share GROWS (usage only shrinks,
+                # weights only leave), so the cached verdict can
+                # misclassify a now-under-share tenant as still over.
+                # Bucket-1 entries never need the re-check: under-share
+                # cannot become over-share mid-pass.
+                seq += 1
+                heapq.heappush(heap, (1, victim.stamp, seq, victim))
+                continue
+            parent = victim.parent
+            parent.children.pop(victim.tokens[: self.page_size], None)
+            freed += len(victim.tokens)
+            self._drop_host_node(victim)
+            if (
+                parent is not self.root
+                and parent.host is not None
+                and parent.refs == 0
+                and not parent.children
+            ):
+                seq += 1
+                heapq.heappush(heap, (prio(parent), parent.stamp, seq, parent))
+        return freed
+
+    @owned_by("engine-worker")
+    def _drop_host_node(self, node: PrefixNode, *, destructive: bool = False) -> None:
+        """Release a SPILLED node's host run + tree accounting (caller
+        detaches it from its parent)."""
+        n_tok = len(node.tokens)
+        if self.spill is not None:
+            self.spill.drop_host(node)
+            if destructive:
+                self.spill.destructive_evictions += 1
+            else:
+                self.spill.host_evictions += 1
+        if self.governor is not None:
+            self.governor.on_host_drop(node.tenant, n_tok)
+        node.parent = None
+        self.n_nodes -= 1
+        self.n_spilled -= 1
+        self.spilled_tokens -= n_tok
+        self.evictions += 1
+
+    @owned_by("engine-worker")
     def _drop(self, node: PrefixNode) -> None:
-        """Remove a leaf node and free its pages."""
+        """Destructive removal of a DEVICE node. Its spilled descendants
+        become unreachable (their paths include this node), so their host
+        runs drop with it — counted as destructive evictions."""
+        stack = list(node.children.values())
+        while stack:
+            c = stack.pop()
+            stack.extend(c.children.values())
+            self._drop_host_node(c, destructive=True)
+        node.children.clear()
         self._alloc.free(node.sid)
         node.parent.children.pop(node.tokens[: self.page_size], None)
         node.parent = None
         self.n_nodes -= 1
         self.resident_tokens -= len(node.tokens)
         self.evictions += 1
+        if self.governor is not None:
+            self.governor.on_drop(node.tenant, len(node.tokens))
 
+    @owned_by("engine-worker")
     def rollback(self, node: PrefixNode) -> None:
-        """Detach a node whose prefill never completed (an admission
-        unwound by page pressure or a failed prefill): pages back to the
-        pool, insertion accounting reversed; not an eviction."""
+        """Detach a pending node whose prefill was never dispatched (an
+        admission unwound by page pressure or a dispatch failure): pages
+        back to the pool, insertion accounting reversed — not an
+        eviction."""
         node.refs = 0
         self._drop(node)
         self.evictions -= 1
@@ -375,28 +815,100 @@ class RadixPrefixCache:
         if node in self._pending_nodes:
             self._pending_nodes.remove(node)
 
+    @owned_by("engine-worker")
     def drop_all(self) -> None:
-        """Free every node: after a failed prefill the pools may hold
-        partial writes, so no cached KV may be served from them."""
+        """Free every node (engine pool reset / shutdown): cached KV lived
+        in the old pools and must not be served against new ones. Host
+        runs drop with the tree — they describe KV positions the new
+        pools will never reproduce."""
         stack = list(self.root.children.values())
         while stack:
             n = stack.pop()
             stack.extend(n.children.values())
-            self._alloc.free(n.sid)
+            if n.pages:
+                self._alloc.free(n.sid)
+        if self.spill is not None:
+            self.spill.reset()
+        if self.governor is not None:
+            self.governor.reset_residency()
         self.root.children.clear()
         self.n_nodes = 0
         self.resident_tokens = 0
+        self.n_spilled = 0
+        self.spilled_tokens = 0
         self._pending_nodes.clear()
 
+    # ------------------------------------------------------ warm restart
+    @owned_by("engine-worker")
+    def restore_spilled(
+        self,
+        path: Sequence[int],
+        edge_len: int,
+        k_host: Any,
+        v_host: Any,
+        tenant: str = "default",
+    ) -> bool:
+        """Warm-restart restore: attach a SPILLED node covering the last
+        ``edge_len`` tokens of ``path``, its KV run already host-resident
+        (snapshot bytes — no prefill, no device pages; the first match
+        re-admits it through the standard page copy). Parent-first
+        restore order is the caller's contract (snapshot manifests are
+        written root-first); a missing parent, key collision or host-
+        budget refusal skips the node — never fails the restore."""
+        tier = self.spill
+        if (
+            tier is None
+            or edge_len <= 0
+            or edge_len % self.page_size
+            or edge_len > len(path)
+        ):
+            return False
+        if self.governor is not None:
+            tenant = self.governor.fold(tenant)
+        depth = len(path) - edge_len
+        parent = self._node_at(path, depth, allow_spilled=True)
+        if parent is None:
+            return False
+        key = tuple(path[depth : depth + self.page_size])
+        if parent.children.get(key) is not None:
+            return False
+        node = PrefixNode(
+            tuple(path[depth:]), [], parent, None, tenant=tenant
+        )
+        if not tier.adopt(node, k_host, v_host, tenant):
+            return False
+        node.stamp = self._tick()
+        parent.children[key] = node
+        self.n_nodes += 1
+        self.n_spilled += 1
+        self.spilled_tokens += edge_len
+        if self.governor is not None:
+            self.governor.on_adopt(tenant, edge_len)
+        return True
+
     # --------------------------------------------------------------- stats
+    def pinned_nodes(self) -> int:
+        count = 0
+        stack = [self.root]
+        while stack:
+            n = stack.pop()
+            for c in n.children.values():
+                if c.refs > 0:
+                    count += 1
+                stack.append(c)
+        return count
+
     def stats(self) -> dict:
-        """Counter snapshot (plain integer reads; safe from any thread)."""
+        """Counter snapshot (safe to call cross-thread: plain int reads)."""
         lookups = self.hits + self.misses
         touched = self.matched_tokens + self.inserted_tokens
         return {
             "nodes": self.n_nodes,
             "resident_tokens": self.resident_tokens,
             "resident_pages": self.resident_tokens // self.page_size,
+            "spilled_nodes": self.n_spilled,
+            "host_tokens": self.spilled_tokens,
+            "host_pages": self.spilled_tokens // self.page_size,
             "hits": self.hits,
             "misses": self.misses,
             "hit_rate": self.hits / lookups if lookups else 0.0,
@@ -406,23 +918,45 @@ class RadixPrefixCache:
             "evictions": self.evictions,
         }
 
+    # ------------------------------------------------------------ checking
     def check_invariants(self) -> None:
         """Test hook: edge alignment, page/token consistency, child keys,
-        parent links, and the node and token counters."""
+        parent links, the node/token counters, and the tiered-residency
+        invariants (spilled ⇒ no pages + refcount-0; device ⇒ device
+        ancestors)."""
         n_nodes = 0
+        n_spilled = 0
         tokens = 0
+        host_tokens = 0
         stack = [self.root]
         while stack:
             node = stack.pop()
             for first_page, child in node.children.items():
                 assert child.tokens, "empty edge"
-                assert child.tokens[: self.page_size] == first_page, "child key != first page"
+                assert child.tokens[: self.page_size] == first_page, (
+                    "child key != first page"
+                )
                 assert len(child.tokens) % self.page_size == 0, "unaligned edge"
                 assert child.parent is node, "broken parent link"
                 assert child.refs >= 0, "negative refcount"
-                assert len(child.pages) == len(child.tokens) // self.page_size, "page/token mismatch"
-                tokens += len(child.tokens)
+                if child.host is not None:
+                    assert not child.pages, "spilled node still owns pages"
+                    assert child.refs == 0, "pinned node was spilled"
+                    n_spilled += 1
+                    host_tokens += len(child.tokens)
+                else:
+                    assert (
+                        len(child.pages) == len(child.tokens) // self.page_size
+                    ), "page/token mismatch"
+                    assert node is self.root or node.host is None, (
+                        "device node below spilled ancestor"
+                    )
+                    tokens += len(child.tokens)
                 n_nodes += 1
                 stack.append(child)
         assert n_nodes == self.n_nodes, (n_nodes, self.n_nodes)
+        assert n_spilled == self.n_spilled, (n_spilled, self.n_spilled)
         assert tokens == self.resident_tokens, (tokens, self.resident_tokens)
+        assert host_tokens == self.spilled_tokens, (
+            host_tokens, self.spilled_tokens,
+        )

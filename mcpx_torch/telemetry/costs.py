@@ -9,10 +9,12 @@ call's shape (:func:`forward_cost`), computed on the host when a key is
 first seen. The device is never read for them.
 
   - An *executable* is one body of the engine: ``prefill`` (dense
-    prefill), ``suffix_prefill``, ``admit`` (the first sample) and
+    prefill), ``suffix_prefill``, ``admit`` (the first sample),
     ``window`` (a decode window, plain, drafted, heterogeneous or
-    speculative: the body is part of its key; :func:`window_cost`). A
-    *signature* is its capture or shape key.
+    speculative: the body is part of its key; :func:`window_cost`) and,
+    with the tiered KV cache on, ``spill_gather`` and ``spill_readmit``
+    (the page-run copies, eager, keyed by their page count;
+    :func:`spill_copy_cost`). A *signature* is its capture or shape key.
   - **Capture sentinel**: a key seen for the first time is a compile: on
     CUDA a decode window is captured into a CUDA graph exactly then, on
     the CPU it is its first eager run; the eager executables (prefill,
@@ -52,6 +54,7 @@ __all__ = [
     "hbm_stats",
     "roofline",
     "rounded_roofline",
+    "spill_copy_cost",
     "update_hbm_gauges",
     "window_cost",
 ]
@@ -228,6 +231,15 @@ def forward_cost(
         + 4.0 * unembed_rows * unembed_cols
     )
     return forwards * flops, forwards * nbytes
+
+
+def spill_copy_cost(cfg: Any, *, pages: int, page_size: int, elt_bytes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one tier copy of a ``pages``-page run (a spill's
+    gather to the host or a readmit's copy back into the pools): no
+    arithmetic, and the run's K and V, every layer, read once and written
+    once."""
+    run = 2.0 * cfg.n_kv_heads * cfg.n_layers * pages * page_size * cfg.head_dim * elt_bytes
+    return 0.0, 2.0 * run
 
 
 def window_cost(

@@ -17,6 +17,8 @@ reference's (``mcpx.server.app``) through aiohttp's test client, on the CPU:
     drops 4xx; tracing off leaves no ``traceparent`` and no trace ids in
     error bodies; ``/profile/start`` and ``/profile/stop`` on
     ``torch.profiler`` with their 409 paths; ``/costs`` of a CPU engine;
+  - ``/cache`` with ``engine.kv_tier`` on carries the spill tier's and the
+    governor's blocks under the reference's keys;
   - the 504 of a ``/plan`` frees the engine row the abandoned request held
     (the port of ``tests/test_server_limits.py``'s reaping test, on the
     port's CPU engine), and the engine serves again.
@@ -460,3 +462,44 @@ def test_costs_and_metrics_of_a_cpu_engine():
     assert 'mcpx_engine_compiles_total{executable="window"}' in text
     assert 'mcpx_build_info{backend="cpu",torch="' in text
     assert {"engine.generate", "engine.queue_wait", "engine.prefill", "engine.decode", "engine.segment"} <= set(names)
+
+
+def test_cache_route_shows_the_tier_and_governor_blocks():
+    """``GET /cache`` with ``engine.kv_tier`` on: the prefix-cache block
+    carries the spill tier's counters and the governor's per-tenant block
+    under the reference's keys (its control plane read cold, the port's
+    after its start-up generations and again after a few plans)."""
+    raw = {
+        "model": {"size": "test", "max_seq_len": 256},
+        "planner": {"kind": "llm"},
+        "engine": {
+            "max_batch_size": 2, "max_decode_len": 16, "kv_page_size": 16, "max_pages_per_seq": 16,
+            "kv_tier": {"enabled": True, "host_mb": 8.0},
+        },
+    }
+    ref = jbuild(JConfig.from_dict(raw)).cache_stats()["prefix_cache"]
+    cp = build_control_plane(MCPXConfig.from_dict(raw), device="cpu")
+
+    async def drive(client):
+        await cp.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a", description="do a"))
+        await cp.startup()
+        try:
+            cold = await (await client.get("/cache")).json()
+            for intent in ("do a", "do a now", "please do a"):
+                assert (await client.post("/plan", json={"intent": intent})).status == 200
+            return cold, await (await client.get("/cache")).json()
+        finally:
+            await cp.planner.engine.aclose()
+
+    cold, warm = asyncio.run(with_client(build_app(cp), drive))
+    assert set(cold["prefix_cache"]) == set(ref)
+    assert cold["prefix_cache"]["tier"] == ref["tier"]
+    assert ref["tier"]["enabled"] is True and ref["governor"] == {}
+    tenant = warm["prefix_cache"]["governor"]["default"]
+    assert set(tenant) == {"weight", "resident_tokens", "host_tokens", "quota_tokens", "hits", "misses",
+                           "hit_rate", "token_hit_rate"}
+    lookups = tenant["hits"] + tenant["misses"]
+    assert tenant["resident_tokens"] > 0 and lookups > sum(
+        cold["prefix_cache"]["governor"].get("default", {}).get(k, 0) for k in ("hits", "misses")
+    )
+    assert warm["prefix_cache"]["tier"]["host_bytes_budget"] == 8 << 20

@@ -3,8 +3,8 @@ least-time count (``attention_bound``: it charges what the function needs,
 no more), the execute phase's prompt checks, failing transport, rounds of
 executions (``Lockstep``) and probe exclusion, the telemetry phase (its
 exposition parser, its latency attribution against the reference bench's,
-and the phase itself on a CPU control plane), and the mixed, speculation
-and heterogeneous ``/plan`` phases on CPU engines."""
+and the phase itself on a CPU control plane), the mixed, speculation and
+heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines."""
 
 import os
 import sys
@@ -317,3 +317,30 @@ def test_mixed_spec_and_hetero_phases_run_on_a_cpu_engine():
     assert spec["differing"] == 0 and spec["on"]["spec_verify"] > 0 and spec["off"]["spec_verify"] == 0
     assert spec["on"]["tokens_per_live_forward"] > spec["off"]["tokens_per_live_forward"]
     assert 0 < spec["on"]["accept_rate"] <= 1
+
+
+def test_tier_phase_runs_on_a_cpu_engine():
+    """The tier phase on the CPU at 16 prompts (the card runs 64): single,
+    tiered with its warm restart, thrash against victim and chaos, with
+    every gate of the card (greedy round 1 equal across modes and for the
+    warm request, a higher tiered hit rate, no destructive eviction in the
+    clean run, chaos faults counted, a cheaper warm first request, no
+    capture after round 1, empty host tiers after ``aclose``)."""
+    import asyncio
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tier = asyncio.run(chip_smoke.tier_phase("test", chip_smoke.CKPT, "cpu", n_prompts=16, device="cpu"))
+    finally:
+        torch.set_num_threads(n)
+    s = tier["summary"]
+    assert s["round1_equal"] == {"tiered": True, "chaos": True, "warm": True}
+    assert s["restored_runs"] > 0 and s["warm_readmits"] > 0
+    assert s["warm_first_prefill_tokens"] < s["cold_first_prefill_tokens"]
+    assert tier["tiered"]["spills"] > 0 and tier["tiered"]["readmits"] > 0
+    assert tier["tiered"]["destructive_evictions"] == 0 and tier["single"]["evictions"] > 0
+    assert tier["thrash"]["victim_token_hit_rate"] > tier["thrash"]["thrash_token_hit_rate"]
+    assert tier["chaos"]["chaos_alloc_failures"] > 0
+    assert all(tier[m]["captures_per_round"][1:] == [0] * (len(tier[m]["captures_per_round"]) - 1)
+               for m in ("single", "tiered", "chaos"))

@@ -442,7 +442,8 @@ def test_no_blocking_tensor_method_inside_a_segment(monkeypatch):
 def test_options_the_port_does_not_serve_are_refused(section, key, value):
     """The options the port does not serve yet are refused by name; the
     heterogeneous slab and speculative decoding are served (speculation on
-    the heterogeneous slab, where its drafter has the stacked grammars)."""
+    the heterogeneous slab, where its drafter has the stacked grammars), and
+    so is the tiered KV cache (its spill tier and governor under the tree)."""
     cfg = {"model": {"size": "test", "max_seq_len": 256}, "engine": {}}
     if section is None:
         assert InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu").config.engine.draft_mode == "prompt"
@@ -453,6 +454,11 @@ def test_options_the_port_does_not_serve_are_refused(section, key, value):
         eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
         assert eng.config.engine.hetero_batch
         assert eng._spec_k() == (eng.config.engine.speculative.k if key == "speculative" else 0)
+        return
+    if key == "kv_tier":
+        eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
+        assert eng._prefix_cache.spill is eng._spill_tier is not None
+        assert eng._prefix_cache.governor is eng._governor is not None
         return
     with pytest.raises(EngineError, match=key):
         InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
