@@ -96,6 +96,20 @@ Phases, one line each (every number beside the card's name and power limit):
      ``tier_roundtrip_2b``): spill, page reuse, readmit into other pages and
      the kernel over them, alone and beside a replaying graph
      (``tier_roundtrip``); phase 3 times the kernel at the tier's shapes;
+ 16. weight-only int8 (``int8_test`` after phase 12, ``int8_2b`` after
+     phase 6): the first burst on a control plane with
+     ``model.quantize="int8"`` at the same settings, then a repeat that
+     captures nothing with ``graph_window_int8_*``; the weights' bytes, p50,
+     plans/s, live forwards, peak memory and device ms a window against the
+     bf16 burst's, and how many plans equal its (``int8_phase``); phase 4
+     runs again on the int8 tree of the checkpoint;
+ 17. overload (``overload_test``, ``overload_2b``), on the serving engines
+     after phase 11: the reference bench's overload scenario, an admission
+     scheduler attached live and unique intents offered open loop at four
+     times the width's burst rate (``overload_phase``);
+ 18. chaos (``chaos_test``), on phase 16's test control plane: the
+     reference bench's chaos scenario, ``/execute`` over seeded faulty
+     in-process tools with resilience off, then on (``chaos_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -434,16 +448,19 @@ def config(size: str, checkpoint: str, batch: int):
     })
 
 
-def forward_check(card: str) -> None:
+def forward_check(card: str, quantize: bool = False) -> None:
     """The trained checkpoint in float32: prefill, commit to pages and one
     ragged paged decode forward, on the card against the CPU, in the
     serving phases' pages (64 tokens, 4 a row) and the execute phases'
-    (16 tokens, 16 a row)."""
+    (16 tokens, 16 a row). With ``quantize`` the weights are the int8 tree
+    (``quantize_params`` of the same checkpoint), dequantized to float32
+    layer by layer inside the forwards."""
     from mcpx_torch.engine.kv_cache import commit_prefill_to_pages, init_paged_kv
     from mcpx_torch.engine.paged_decode import decode_chunk_paged
     from mcpx_torch.models.gemma.config import GemmaConfig
     from mcpx_torch.models.gemma.model import init_kv_cache, prefill
     from mcpx_torch.models.gemma.params import load_npz
+    from mcpx_torch.models.gemma.quant import quantize_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072), dtype="float32")
@@ -458,6 +475,8 @@ def forward_check(card: str) -> None:
         outs = []
         for dev in ("cuda", "cpu"):
             params = load_npz(CKPT, dev, torch.float32)
+            if quantize:
+                params = quantize_params(params)
             pools = init_paged_kv(cfg, B * pmax + 1, psz, dev)
             dense = init_kv_cache(cfg, B, T, device=dev)
             first, dense = prefill(params, cfg, tokens.to(dev), lens.to(dev), dense, last_only=True)
@@ -470,10 +489,11 @@ def forward_check(card: str) -> None:
         err = max(float((a - b).abs().max()) for a, b in zip(*outs))
         finite = all(bool(torch.isfinite(t).all()) for t in outs[0])
         shapes = [list(t.shape) for t in outs[0]]
-        emit("forward_check", card, dtype="float32", page_size=psz, max_pages=pmax, max_abs_err=err,
-             atol=1e-3, finite=finite, shapes=shapes)
+        emit("forward_check", card, dtype="float32", weights="int8" if quantize else "float32", page_size=psz,
+             max_pages=pmax, max_abs_err=err, atol=1e-3, finite=finite, shapes=shapes)
         if not finite or err > 1e-3 or shapes != [[B, 3072], [B, 3072]]:
-            raise SystemExit(f"forward check ({psz}-token pages) failed: err {err}, finite {finite}, shapes {shapes}")
+            raise SystemExit(f"forward check ({psz}-token pages, quantize {quantize}) failed: err {err}, "
+                             f"finite {finite}, shapes {shapes}")
 
 
 def _profiler():
@@ -506,9 +526,11 @@ async def serve(
     after=None,
 ) -> tuple[dict, list, object]:
     """Serve ``n_intents`` concurrent /plan requests on a fresh control
-    plane; then, on the same engine, ``after(cp, records, intents, plans)``
-    when given. Returns (stats, plans, what ``after`` returned)."""
+    plane; then, on the same engine, ``after(cp, records, intents, plans,
+    stats)`` when given. Returns (stats, plans, what ``after`` returned);
+    the stats carry the weights' bytes and the repeat's ``graph_window``."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.models.gemma.params import n_bytes
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.telemetry.flight import WorkerProfiler
     from mcpx_torch.telemetry.tracing import Tracer
@@ -560,6 +582,7 @@ async def serve(
             **loop_counts(engine, q0, engine.queue_stats(), n_intents),
             origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
             launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
+            weight_bytes=n_bytes(engine._params),
             worker_profile=profile_summary(prof.snapshot()),
             attribution=attribution(recs),
             # Executable keys the burst ran for the first time (the
@@ -567,7 +590,7 @@ async def serve(
             first_sight=first_sight(c0, engine.costs.snapshot()["executables"]),
         )
         emit(f"serve_{size}", card, **stats)
-        await repeat_with_graph_window(cp, intents, size, card)
+        stats["graph_window"] = await repeat_with_graph_window(cp, intents, size, card)
         if profile:
             # The same requests once more under the profiler, after the
             # measured run, so the profiler's cost stays out of its numbers.
@@ -580,7 +603,7 @@ async def serve(
             emit(f"profile_{size}", card, **device_breakdown(prof, wall),
                  **loop_counts(engine, q1, engine.queue_stats(), n_intents))
             no_new_captures(f"profile_{size}", q1, engine.queue_stats())
-        extra = await after(cp, records, intents, plans) if after is not None else None
+        extra = await after(cp, records, intents, plans, stats) if after is not None else None
         return stats, plans, extra
     finally:
         await cp.aclose()
@@ -1567,6 +1590,334 @@ async def serve_hetero(
         await cp.aclose()
 
 
+# ------------------------------------------------------------ int8 weights
+async def int8_phase(
+    size: str, checkpoint: str, n_intents: int, card: str, bf16: dict, batch: int = 64, device=None,
+    after=None,
+) -> dict:
+    """``serve``'s first burst on a control plane with ``model.quantize=
+    "int8"`` at the same settings and full width: from an emptied tree and
+    as one cohort, then the burst once more, which must capture nothing,
+    with ``graph_window`` on the card (eager against replay from one
+    snapshot). ``bf16`` is ``serve``'s stats of the same configuration with
+    its ``plans``. Prints the weights' bytes int8 against bf16 and
+    ``quantized_param_bytes`` of the test, 2b and 7b presets; p50, plans/s,
+    live forwards, llm share and how many plans equal the bf16 burst's; peak
+    memory of both bursts; device ms a window and a forward by replay, int8
+    against bf16 (each from its own engine's ``graph_window``). Then, on the
+    same control plane, ``after(cp)`` when given. ``batch`` and ``device``
+    shrink it for a CPU rehearsal."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.gemma.params import n_bytes
+    from mcpx_torch.models.gemma.quant import is_quantized, quantized_param_bytes
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    t_phase = time.monotonic()
+    cfg = config(size, checkpoint, batch)
+    cfg.model.quantize = "int8"
+    cuda = torch.cuda.is_available() and device is None
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    cp = build_control_plane(cfg, device=device)  # device=None: the card
+    records = synth_registry(1000, seed=0)
+    for rec in records:
+        await cp.registry.put(rec)
+    try:
+        t0 = time.monotonic()
+        await cp.startup()
+        startup_s = time.monotonic() - t0
+        engine = cp.planner.engine
+        if not is_quantized(engine._params):
+            raise SystemExit(f"int8_{size}: the engine's weights are not int8")
+        rng = random.Random(0)
+        intents = [intent_for(records, rng) for _ in range(n_intents)]
+        await engine.drop_unpinned()
+        q0 = engine.queue_stats()
+        resident = torch.cuda.memory_allocated() if cuda else None
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        reset_kernel_launches()
+        t0 = time.monotonic()
+        with one_cohort(engine, n_intents):
+            results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+        sync()
+        wall = time.monotonic() - t0
+        launches = kernel_launches()
+        q1 = engine.queue_stats()
+        plans = [p for p, _ in results]
+        for p in plans:
+            p.validate()
+        same = [a.to_json() == b.to_json() for a, b in zip(plans, bf16["plans"])]
+        lat = sorted(ms for _, ms in results)
+        vocab = engine.tokenizer.vocab_size
+        stats = dict(
+            model=size, quantize="int8", intents=n_intents, wall_s=wall, plans_per_s=n_intents / wall,
+            p50_ms=lat[len(lat) // 2], startup_s=startup_s,
+            origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
+            llm_share=sum(p.origin == "llm" for p in plans) / n_intents,
+            same_plans_as_bf16=sum(same), differing_from_bf16=[i for i, ok in enumerate(same) if not ok],
+            weight_bytes={"int8": n_bytes(engine._params), "bf16": bf16["weight_bytes"]},
+            quantized_param_bytes={
+                s: quantized_param_bytes(GemmaConfig.named(s, vocab_size=vocab)) for s in ("test", "2b", "7b")
+            },
+            max_memory_allocated={"int8": torch.cuda.max_memory_allocated() if cuda else None,
+                                  "bf16": bf16["max_memory_allocated"]},
+            allocated_at_burst_start=resident, warmup_captures=q0["warmup_captures"],
+            startup_captures=q0["captures"], capture_counts=engine.capture_counts(), launches=launches,
+            **loop_counts(engine, q0, q1, n_intents),
+        )
+        emit(f"int8_{size}", card, **stats)
+        if cuda:
+            routes = await repeat_with_graph_window(cp, intents, f"int8_{size}", card)
+            bf = bf16["graph_window"]
+            stats["window"] = dict(
+                int8_device_ms_replay=routes["device_ms_replay"], bf16_device_ms_replay=bf["device_ms_replay"],
+                int8_device_ms_a_forward=routes["device_ms_replay"] / routes["forwards"],
+                bf16_device_ms_a_forward=bf["device_ms_replay"] / bf["forwards"],
+                int8_over_bf16=routes["device_ms_replay"] / bf["device_ms_replay"],
+                int8_key=routes["key"], bf16_key=bf["key"], int8_live_rows=routes["live_rows"],
+                bf16_live_rows=bf["live_rows"],
+            )
+        else:
+            q2 = engine.queue_stats()
+            await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+            no_new_captures(f"int8_{size} repeat", q2, engine.queue_stats())
+            stats["window"] = None
+        stats["after"] = await after(cp) if after is not None else None
+        stats["seconds"] = time.monotonic() - t_phase
+        emit(f"int8_{size}_window", card, window=stats["window"], seconds=stats["seconds"])
+        return stats
+    finally:
+        await cp.aclose()
+
+
+# ------------------------------------------------------------ overload
+async def overload_phase(cp, records, size: str, card: str, plans_per_s: float, n: int) -> dict:
+    """The reference bench's overload scenario (``bench.py::_overload_phase``)
+    on a live serving control plane: an admission ``Scheduler`` attached as
+    ``cp.scheduler`` with the bench's ``SchedulerConfig`` (a 1000 ms SLO and
+    deadline, the ladder engaging at a quarter of it), ``n`` unique intents
+    offered open loop at four times ``plans_per_s`` (the width's own
+    burst). Each request runs as the ``/plan`` handler runs it: acquire,
+    ``plan(degraded=, deadline_at=, tenant=)``, release; a ``ShedError`` is
+    a 429. Fails unless every request is admitted, degraded or shed with no
+    error, the overload engaged (some shed or degraded), no degraded plan
+    sits in the plan cache, and no pin or queued request is left."""
+    from mcpx_torch.core.config import SchedulerConfig
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.scheduler import Scheduler, ShedError
+    from mcpx_torch.utils.synth import intent_for
+
+    t_phase = time.monotonic()
+    slo_ms = 1000.0
+    rate = max(1.0, plans_per_s * 4)
+    scfg = SchedulerConfig(
+        enabled=True, slo_ms=slo_ms, default_deadline_ms=slo_ms,
+        max_parallel=max(4, cp.config.engine.max_batch_size // 8), max_queue_depth=max(64, int(rate)),
+        degrade_threshold=0.25, recover_threshold=0.1, degrade_min_hold_s=0.5, ewma_alpha=0.5,
+    )
+    engine = cp.planner.engine
+    sched = Scheduler(scfg, cp.metrics, engine_stats=engine.queue_stats)
+    prev_scfg = cp.config.scheduler
+    cp.scheduler, cp.config.scheduler = sched, scfg
+    rng = random.Random(5)
+    intents = [f"{intent_for(records, rng)} [ovl{i}]" for i in range(n)]
+    outcomes = {"admitted": 0, "degraded": 0, "shed": 0, "error": 0}
+    lat: dict = {"admitted": [], "degraded": []}
+    degraded_intents: set = set()
+    errors: list = []
+
+    async def one(intent: str, delay: float) -> None:
+        await asyncio.sleep(delay)
+        t0 = time.monotonic()
+        s = cp.scheduler
+        try:
+            try:
+                slot = await s.acquire(s.context_from_headers({}))
+            except ShedError:
+                outcomes["shed"] += 1
+                return
+            try:
+                plan, _ = await cp.plan(intent, degraded=slot.degraded, deadline_at=slot.ctx.deadline_at,
+                                        tenant=slot.ctx.tenant)
+            finally:
+                s.release(slot)
+            plan.validate()
+        except Exception as e:  # counted and printed: the gate refuses any
+            outcomes["error"] += 1
+            errors.append(repr(e)[:200])
+            return
+        tier = "degraded" if slot.degraded else "admitted"
+        outcomes[tier] += 1
+        lat[tier].append((time.monotonic() - t0) * 1e3)
+        if slot.degraded:
+            degraded_intents.add(intent)
+
+    q0 = engine.queue_stats()
+    sync()
+    reset_kernel_launches()
+    try:
+        await asyncio.gather(*(one(x, i / rate) for i, x in enumerate(intents)))
+    finally:
+        cp.scheduler, cp.config.scheduler = None, prev_scfg
+    sync()
+    launches = kernel_launches()
+    await idle(engine)
+    q1 = engine.queue_stats()
+    served = sorted(lat["admitted"] + lat["degraded"])
+
+    def p50(xs):
+        return statistics.median(xs) if xs else None
+
+    cached_degraded = sum(1 for intent, _ in cp._plan_cache if intent in degraded_intents)
+    stats = dict(
+        model=size, requests=n, offered_rate=rate, factor=4.0, slo_ms=slo_ms, **outcomes,
+        shed_rate=outcomes["shed"] / n,
+        degraded_share=outcomes["degraded"] / max(1, outcomes["admitted"] + outcomes["degraded"]),
+        served_p50_ms=p50(served), served_p99_ms=served[int(0.99 * (len(served) - 1))] if served else None,
+        primary_p50_ms=p50(lat["admitted"]), degraded_p50_ms=p50(lat["degraded"]),
+        degraded_plans_cached=cached_degraded, pins_left=q1["prefix_pins"],
+        scheduler_queue_left=sched._queue.depth(), scheduler_inflight_left=sched._inflight,
+        launches=launches, errors_seen=errors[:3], seconds=time.monotonic() - t_phase,
+        **loop_counts(engine, q0, q1, max(1, outcomes["admitted"])),
+    )
+    emit(f"overload_{size}", card, **stats)
+    if outcomes["admitted"] + outcomes["degraded"] + outcomes["shed"] != n or outcomes["error"]:
+        raise SystemExit(f"overload_{size}: requests unaccounted for or failed: {outcomes} {errors[:3]}")
+    if outcomes["shed"] + outcomes["degraded"] <= 0:
+        raise SystemExit(f"overload_{size}: the overload never engaged: {outcomes}")
+    if cached_degraded or q1["prefix_pins"] or sched._queue.depth() or sched._inflight:
+        raise SystemExit(f"overload_{size}: {cached_degraded} degraded plans cached, {q1['prefix_pins']} pins, "
+                         f"{sched._queue.depth()} queued and {sched._inflight} in flight left")
+    return stats
+
+
+# ------------------------------------------------------------ chaos
+CHAOS_PROFILE = {
+    # The reference bench's chaos profile (``bench.py::_chaos_phase``): the
+    # primaries badly degraded (one flapping hard-down on a cycle, both
+    # erroring and timing out), the fallbacks nearly healthy.
+    "seed": 1234,
+    "endpoints": {
+        "local://chaos-a": {"error_rate": 0.2, "timeout_rate": 0.55, "latency_ms": 5, "flap_period_s": 4.0,
+                            "flap_down_s": 2.0},
+        "local://chaos-b": {"error_rate": 0.2, "timeout_rate": 0.5, "latency_ms": 5},
+        "local://chaos-*-fb": {"error_rate": 0.05, "latency_ms": 10},
+    },
+}
+CHAOS_GRAPH = {
+    "nodes": [
+        {"name": "a", "service": "chaos-a", "endpoint": "local://chaos-a", "retries": 2, "timeout_s": 0.15,
+         "fallbacks": ["local://chaos-a-fb"]},
+        {"name": "b", "service": "chaos-b", "endpoint": "local://chaos-b", "retries": 2, "timeout_s": 0.15,
+         "fallbacks": ["local://chaos-b-fb"], "inputs": {"x": "a"}},
+    ],
+    "edges": [{"src": "a", "dst": "b"}],
+}
+
+
+async def chaos_phase(cp, size: str, card: str, n: int = 160, deadline_ms: float = 400.0) -> dict:
+    """The reference bench's chaos scenario (``bench.py::_chaos_phase``) on a
+    live control plane: in-process tools behind a seeded ``ChaosTransport``
+    (``CHAOS_PROFILE``), ``n`` executions of ``CHAOS_GRAPH``, 16 at a time,
+    each with a ``deadline_ms`` deadline, first with resilience off, then on
+    (the default ``ResilienceConfig``: breakers, budgets, hedges), each
+    round on a fresh transport from the same seed. A request succeeds when
+    it returns "ok" within its deadline. Prints per mode the successes, p50
+    and p99, breaker transitions and hedge outcomes. Fails unless every
+    request returns, and with resilience on a breaker opened and a hedge
+    was launched."""
+    from mcpx_torch.core.config import ResilienceConfig
+    from mcpx_torch.core.dag import Plan
+    from mcpx_torch.resilience import Resilience
+    from mcpx_torch.resilience.chaos import ChaosProfile, ChaosTransport
+
+    t_phase = time.monotonic()
+    orch = cp.orchestrator
+    prev_transport, prev_resilience = orch._transport, orch._resilience
+
+    async def healthy(payload):
+        return {"ok": True}
+
+    for name in ("chaos-a", "chaos-a-fb", "chaos-b", "chaos-b-fb"):
+        prev_transport.local.register(name, healthy)
+    profile = ChaosProfile.from_dict(CHAOS_PROFILE)
+
+    async def run_round(resilient: bool) -> dict:
+        orch._transport = ChaosTransport(prev_transport, profile)
+        orch._resilience = (
+            Resilience(ResilienceConfig(enabled=True), telemetry=cp.telemetry, metrics=cp.metrics)
+            if resilient else None
+        )
+        m0 = parse_exposition(cp.metrics.render().decode())
+        counts = {"ok_within": 0, "ok_late": 0, "failed": 0, "error": 0, "overrun": 0}
+        lat: list = []
+        sem = asyncio.Semaphore(16)
+
+        async def one() -> None:
+            async with sem:
+                t0 = time.monotonic()
+                try:
+                    # As the /execute handler: the deadline is read only
+                    # while resilience is wired.
+                    result = await cp.execute(
+                        Plan.from_wire(CHAOS_GRAPH), {},
+                        deadline_ms=deadline_ms if orch.resilience is not None else None,
+                    )
+                except Exception:  # counted: the gate refuses any
+                    counts["error"] += 1
+                    return
+                ms = (time.monotonic() - t0) * 1e3
+                lat.append(ms)
+                counts["overrun"] += ms > deadline_ms
+                if result.status == "ok":
+                    counts["ok_within" if ms <= deadline_ms else "ok_late"] += 1
+                else:
+                    counts["failed"] += 1
+
+        t0 = time.monotonic()
+        await asyncio.gather(*(one() for _ in range(n)))
+        wall = time.monotonic() - t0
+        m1 = parse_exposition(cp.metrics.render().decode())
+
+        def delta(name: str, label: str, value: str) -> float:
+            key = f'{{{label}="{value}"}}'
+            return metric(m1, name, key) - metric(m0, name, key)
+
+        lat.sort()
+        return dict(
+            **counts, returned=len(lat), success_rate=counts["ok_within"] / n,
+            overrun_share=counts["overrun"] / n, p50_ms=quantile(lat, 0.5) if lat else None,
+            p99_ms=lat[int(0.99 * (len(lat) - 1))] if lat else None, wall_s=wall,
+            breaker_transitions={s: delta("mcpx_breaker_transitions_total", "state", s) for s in ("open", "closed")},
+            hedges={o: delta("mcpx_hedges_total", "outcome", o)
+                    for o in ("launched", "denied", "win", "loss", "cancelled")},
+        )
+
+    try:
+        # Resilience off first: its completions also warm the telemetry
+        # EWMAs the hedge delays of the resilient round derive from.
+        baseline = await run_round(False)
+        resilient = await run_round(True)
+    finally:
+        orch._transport, orch._resilience = prev_transport, prev_resilience
+    stats = dict(model=size, requests=n, deadline_ms=deadline_ms, seed=profile.seed, baseline=baseline,
+                 resilient=resilient, seconds=time.monotonic() - t_phase)
+    emit(f"chaos_{size}", card, **stats)
+    for mode, r in (("off", baseline), ("on", resilient)):
+        if r["returned"] != n or r["error"]:
+            raise SystemExit(f"chaos_{size}: resilience {mode}: {r['returned']} of {n} requests returned, "
+                             f"{r['error']} raised")
+    if resilient["breaker_transitions"]["open"] < 1 or resilient["hedges"]["launched"] < 1:
+        raise SystemExit(f"chaos_{size}: with resilience on no breaker opened or no hedge was launched: "
+                         f"{resilient['breaker_transitions']} {resilient['hedges']}")
+    return stats
+
+
 # ------------------------------------------------------------ tiered KV cache
 TIER_CHAOS = {"seed": 7, "host_alloc_fail_p": 0.3, "copy_delay_p": 0.3, "copy_delay_s": 0.02}
 TIER_SPILL = ("spills", "readmits", "destructive_evictions", "host_evictions", "denied_readmits",
@@ -2034,13 +2385,18 @@ class Lockstep:
         else:
             self.end.set_result(None)
 
-    async def execute(self, plan, payload, trace=None):
+    @property
+    def resilience(self):
+        return self.inner.resilience
+
+    async def execute(self, plan, payload, trace=None, *, deadline_ms=None):
         turn = asyncio.get_running_loop().create_future()
         self.waiting[self.slot.get()] = turn
         self._start_round()
         end = await turn
         try:
-            result = await self.inner.execute(plan, payload, trace)
+            kw = {} if deadline_ms is None else {"deadline_ms": deadline_ms}
+            result = await self.inner.execute(plan, payload, trace, **kw)
         finally:
             self._next_turn()
         self.executions.setdefault(result.trace.trace_id, []).append((plan, result))
@@ -2338,19 +2694,33 @@ def main(argv: list[str]) -> int:
     emit("build", card, seconds=time.monotonic() - t0, libraries=sorted(libs),
          per_kernel_s={k: v["seconds"] for k, v in build.build_log.items()})
 
-    rows = kernel_phase(card)
-    forward_check(card)
+    seconds: dict = {"build": time.monotonic() - t0}
 
-    async def on_the_engine(cp, recs, intents, plans, size: str, n_unique: int):
+    def timed(name: str, fn, *a, **kw):
+        """``fn(*a, **kw)``, its wall seconds added to ``seconds[name]``."""
+        t = time.monotonic()
+        try:
+            return fn(*a, **kw)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.monotonic() - t
+
+    rows = timed("kernel", kernel_phase, card)
+    timed("forward_check", forward_check, card)
+    timed("forward_check_int8", forward_check, card, quantize=True)
+
+    async def on_the_engine(cp, recs, intents, plans, stats, size: str, n_unique: int, n_overload: int):
         modes = await serve_modes(cp, intents, size, card, trained=size == "test", profile=args.profile)
         pfx = await prefix_reuse(cp, recs, size, n_unique, 4, card)
         tel = await telemetry_phase(cp, intents, plans, size, card)
-        return modes, pfx, tel, await mixed_phase(cp, size, card)
+        mixed = await mixed_phase(cp, size, card)
+        overload = await overload_phase(cp, recs, size, card, stats["plans_per_s"], n_overload)
+        return modes, pfx, tel, mixed, overload
 
-    trained, trained_plans, (trained_modes, trained_pfx, trained_tel, trained_mixed) = asyncio.run(serve(
-        "test", CKPT, 16, card, batch=64, profile=args.profile,
-        after=lambda cp, recs, intents, plans: on_the_engine(cp, recs, intents, plans, "test", 8),
-    ))
+    trained, trained_plans, (trained_modes, trained_pfx, trained_tel, trained_mixed, trained_ovl) = timed(
+        "serve_test..overload_test", asyncio.run,
+        serve("test", CKPT, 16, card, batch=64, profile=args.profile,
+              after=lambda cp, recs, intents, plans, st: on_the_engine(cp, recs, intents, plans, st, "test", 8, 256))
+    )
     if trained["origins"] != {"llm": 16}:
         raise SystemExit(f"trained checkpoint: not every plan is LLM-authored: {trained['origins']}")
     for st in trained_modes:
@@ -2359,26 +2729,34 @@ def main(argv: list[str]) -> int:
     for mode in ("off", "on"):
         if trained_pfx[mode]["origins"] != {"llm": 32}:
             raise SystemExit(f"serve_prefix_test {mode}: not every plan is LLM-authored")
-    hetero = asyncio.run(serve_hetero("test", CKPT, 16, card, trained_plans))
-    full, _, (full_modes, full_pfx, full_tel, full_mixed) = asyncio.run(serve(
-        "2b", "", 8, card, batch=64, profile=args.profile,
-        after=lambda cp, recs, intents, plans: on_the_engine(cp, recs, intents, plans, "2b", 4),
+    hetero = timed("serve_hetero_test", asyncio.run, serve_hetero("test", CKPT, 16, card, trained_plans))
+    int8_test = timed("int8_test, chaos_test", asyncio.run, int8_phase(
+        "test", CKPT, 16, card, {**trained, "plans": trained_plans}, after=lambda cp: chaos_phase(cp, "test", card),
     ))
+    full, full_plans, (full_modes, full_pfx, full_tel, full_mixed, full_ovl) = timed(
+        "serve_2b..overload_2b", asyncio.run, serve(
+            "2b", "", 8, card, batch=64, profile=args.profile,
+            after=lambda cp, recs, intents, plans, st: on_the_engine(cp, recs, intents, plans, st, "2b", 4, 128),
+        ))
+    int8_2b = timed("int8_2b", asyncio.run, int8_phase("2b", "", 8, card, {**full, "plans": full_plans}))
     executed = [
-        asyncio.run(execute_phase("test", CKPT, 16, card, batch=64)),
-        asyncio.run(execute_phase("2b", "", 8, card, batch=64)),
+        timed("execute_test", asyncio.run, execute_phase("test", CKPT, 16, card, batch=64)),
+        timed("execute_2b", asyncio.run, execute_phase("2b", "", 8, card, batch=64)),
     ]
-    specs = [asyncio.run(spec_phase("test", CKPT, card, 96)), asyncio.run(spec_phase("2b", "", card, 48))]
-    tiers = [asyncio.run(tier_phase("test", CKPT, card)), asyncio.run(tier_phase("2b", "", card))]
+    specs = [timed("spec_test", asyncio.run, spec_phase("test", CKPT, card, 96)),
+             timed("spec_2b", asyncio.run, spec_phase("2b", "", card, 48))]
+    tiers = [timed("tier_test", asyncio.run, tier_phase("test", CKPT, card)),
+             timed("tier_2b", asyncio.run, tier_phase("2b", "", card))]
     for size in ("test", "2b"):
-        tier_roundtrip(size, card)
+        timed(f"tier_roundtrip_{size}", tier_roundtrip, size, card)
+    emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
     ] + [ex[p] for ex in executed for p in ("pass1", "pass2")] + [
         mx[m] for mx in (trained_mixed, full_mixed) for m in ("drain", "hetero")
     ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero] + [
         t[m] for t in tiers for m in ("single", "tiered", "thrash", "chaos")
-    ]
+    ] + [int8_test, int8_2b]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:
@@ -2396,7 +2774,10 @@ def main(argv: list[str]) -> int:
     kernels = [
         {
             "name": name, **meta,
-            "launches": sum(st["launches"][name] for st in runs),
+            # The overload runs launch the kernel too (their primary tier),
+            # but a run served mostly degraded may replay no window, so they
+            # count here without the replay gate above.
+            "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl]),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

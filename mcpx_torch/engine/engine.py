@@ -101,10 +101,16 @@ and spilled runs, the declared heads and the governor's weights to
 its weights differ, the declared heads as ids to rebuild on first use).
 With the tier off the tree is the single-tier one, byte for byte.
 
-Left out for later slices: int8 weights, ring prefill and multi-GPU; their
-metric series exist and stay at 0. A config that asks for
-``ring_prefill_min_tokens`` or ``quantize="int8"`` is refused at
-construction.
+``model.quantize="int8"`` serves weight-only int8 (``models/gemma/
+quant.py``): int8 weights with f32 per-channel scales, each layer
+dequantized inside the forwards' layer loop (in the captured windows too,
+whose dequantized temporaries come from the graph's pool), the embedding
+gathered and the unembedding scaled per row; the KV pools stay in the
+model's dtype, so attention still goes through the ragged kernel.
+
+Left out for later slices: ring prefill and multi-GPU; their metric series
+exist and stay at 0. A config that asks for ``ring_prefill_min_tokens`` is
+refused at construction.
 
 The device is explicit: ``device=None`` means CUDA and raises when CUDA is
 absent; tests pass ``device="cpu"``. The tensors' device decides the
@@ -118,6 +124,7 @@ import asyncio
 import dataclasses
 import json
 import logging
+import math
 import os
 import queue
 import threading
@@ -541,13 +548,11 @@ class InferenceEngine:
     ) -> None:
         self.config = config or MCPXConfig()
         ecfg = self.config.engine
-        refused = (
-            ("engine.ring_prefill_min_tokens > 0", ecfg.ring_prefill_min_tokens > 0),
-            ("model.quantize='int8'", self.config.model.quantize == "int8"),
-        )
-        for name, asked in refused:
-            if asked:
-                raise EngineError(f"{name}: not served by the PyTorch port yet")
+        if ecfg.ring_prefill_min_tokens > 0:
+            raise EngineError("engine.ring_prefill_min_tokens > 0: not served by the PyTorch port yet")
+        # Weight-only int8 (models/gemma/quant.py): the forwards dequantize
+        # one layer at a time; the costs bill one byte a weight.
+        self._quantized = self.config.model.quantize == "int8"
         self.device = resolve_device(device)
         self.tokenizer = make_tokenizer(self.config.model.vocab)
         self.model_cfg = model_cfg or GemmaConfig.named(
@@ -997,10 +1002,21 @@ class InferenceEngine:
         accepted = sp["accepted_constrained"] + sp["accepted_free"]
         ps = self._prefix_cache.stats()
         tier = self._spill_tier
+        # The serving scheduler's floor (the reference's estimate): queued
+        # requests that fit the slab's free rows admit at the next segment
+        # boundary; only the overflow waits out service drains, a batch at a
+        # time.
+        active = slab.n_active if slab is not None else 0
+        depth = self._queue.qsize()
+        B = max(1, self.config.engine.max_batch_size)
+        svc = self._ewma_service_s
+        eta = math.ceil(max(0, depth - max(0, B - active)) / B) * svc + (svc if active >= B else 0.0)
         return {
             **extra,
-            "queue_depth": self._queue.qsize(),
-            "active_rows": slab.n_active if slab is not None else 0,
+            "queue_depth": depth,
+            "active_rows": active,
+            "service_ewma_s": svc,
+            "eta_s": eta,
             "kernel_launches": kernel_launches(),
             "prefix_token_hit_rate": ps["token_hit_rate"],
             # The tiered cache's tallies (zeros single-tier).
@@ -1190,7 +1206,8 @@ class InferenceEngine:
     def _setup(self) -> None:
         ecfg = self.config.engine
         self._params, source = load_or_init(
-            self.model_cfg, self.config.model.checkpoint_path, device=self.device
+            self.model_cfg, self.config.model.checkpoint_path, device=self.device,
+            quantize=self.config.model.quantize,
         )
         log.info("weights: %s on %s", source, self.device)
         self._paged_kv = init_paged_kv(
@@ -1733,6 +1750,7 @@ class InferenceEngine:
         cfg = self.model_cfg
         self._pf_entry = self.costs.record("prefill", (A, T), lambda: forward_cost(
             cfg, batch=A, width=T, context=T, unembed_rows=A, unembed_cols=cfg.vocab_size,
+            quantized=self._quantized,
         ))
         dense = init_kv_cache(self.model_cfg, A, T, device=self.device)
         last, dense = prefill(self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True)
@@ -1751,7 +1769,7 @@ class InferenceEngine:
         cfg, ecfg = self.model_cfg, self.config.engine
         self._pf_entry = self.costs.record("suffix_prefill", (A, T), lambda: forward_cost(
             cfg, batch=A, width=T, context=ecfg.max_pages_per_seq * ecfg.kv_page_size,
-            unembed_rows=A, unembed_cols=cfg.vocab_size,
+            unembed_rows=A, unembed_cols=cfg.vocab_size, quantized=self._quantized,
         ))
         n0 = kernel_launches()["ragged_paged_attention"]
         last, _ = decode_chunk_paged(
@@ -2553,6 +2571,7 @@ class InferenceEngine:
         self.costs.record("window", key, lambda: window_cost(
             cfg, body, batch=B, width=chunk, context=ecfg.max_pages_per_seq * ecfg.kv_page_size,
             columns=bucket[-1] if bucket is not None else cfg.vocab_size, forwards=forwards,
+            quantized=self._quantized,
         ))
 
     def _capture(self, key: tuple, fn, serving: bool) -> None:

@@ -4,7 +4,11 @@ Port of ``mcpx/engine/paged_decode.py::decode_chunk_paged``: the same math
 as ``models/gemma/model.py`` (shared RMSNorm, RoPE, projections), but each
 layer writes its chunk's K/V into the page pools with one scatter and
 attends through the ragged paged-attention wrapper, which launches the CUDA
-kernel for CUDA tensors and takes its plain version for CPU tensors.
+kernel for CUDA tensors and takes its plain version for CPU tensors. On
+int8 weights each layer is dequantized inside the layer loop, the
+embedding rows are gathered as int8 with their scales, and the unembedding
+(compact or not) scales its fp32 output; the KV pools stay in the model's
+dtype.
 """
 
 from __future__ import annotations
@@ -18,7 +22,15 @@ from mcpx_torch.engine.kernels.paged_attention import (
     ragged_paged_attention,
 )
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.model import apply_rope, embed_tokens, mlp, qkv, rms_norm, unembed
+from mcpx_torch.models.gemma.model import (
+    apply_rope,
+    embed_tokens,
+    layer_weights,
+    mlp,
+    qkv,
+    rms_norm,
+    unembed,
+)
 
 
 def decode_chunk_paged(
@@ -47,7 +59,6 @@ def decode_chunk_paged(
     K, L, N, psz, hd = paged_kv["k"].shape
     p_max = page_table.shape[1]
     dev = tokens.device
-    lp = params["layers"]
     x = embed_tokens(params["embed"], tokens, cfg)  # [B, S, D]
 
     pos_mat = positions.long()[:, None] + torch.arange(S, device=dev)  # [B, S]
@@ -64,8 +75,9 @@ def decode_chunk_paged(
     qlen32 = None if q_lens is None else q_lens.to(torch.int32).contiguous()
 
     for i in range(cfg.n_layers):
-        h = rms_norm(x, lp["pre_attn_norm"][i], cfg.norm_eps)
-        q, k, v = qkv(h, lp, i)
+        w = layer_weights(params, i, cfg)
+        h = rms_norm(x, w["pre_attn_norm"], cfg.norm_eps)
+        q, k, v = qkv(h, w)
         q = apply_rope(q, pos_mat, cfg.rope_theta)
         k = apply_rope(k, pos_mat, cfg.rope_theta)
         k_flat[:, i, flat_idx] = k.permute(2, 0, 1, 3).to(k_flat.dtype)
@@ -78,10 +90,10 @@ def decode_chunk_paged(
         else:
             attn = paged_attention_chunk(qg, paged_kv["k"], paged_kv["v"], table32, start32, i)
         attn = attn.reshape(B, S, cfg.n_heads * cfg.head_dim)
-        wo = lp["wo"][i].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
+        wo = w["wo"].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
         x = x + torch.matmul(attn, wo)
-        h = rms_norm(x, lp["pre_mlp_norm"][i], cfg.norm_eps)
-        x = x + mlp(h, lp, i)
+        h = rms_norm(x, w["pre_mlp_norm"], cfg.norm_eps)
+        x = x + mlp(h, w)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if active_cols is not None:
         return unembed(x, params["embed"], subset=active_cols), paged_kv

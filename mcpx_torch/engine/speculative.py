@@ -13,7 +13,8 @@ The drafter adds no parameters:
     ``h <- DRAFT_DECAY * h + embed(token)`` over the row's emitted tokens;
   - each of the K draft steps scores ``h`` against the tied unembedding
     (``h @ embed.T``, one plain product per step, left to ``torch.matmul``
-    as the reference leaves it to XLA), takes the best-scoring
+    as the reference leaves it to XLA; on int8 weights the per-row scales
+    multiply the fp32 scores, ``quant.unembed``), takes the best-scoring
     grammar-admissible non-EOS token from the row's current draft state,
     advances the automaton and chains ``h`` over its own proposal;
   - after verification, ``h`` advances over the accepted tokens in closed
@@ -35,7 +36,10 @@ from __future__ import annotations
 
 import torch
 
+from typing import Any
+
 from mcpx_torch.engine.sampling import NEG_INF
+from mcpx_torch.models.gemma.quant import embed_lookup, unembed
 
 # Embedding-EWMA decay of the drafter state. A constant, not a knob: the
 # drafter is untrained by design, and the grammar pre-filter carries the
@@ -51,7 +55,7 @@ def drafter_flops_per_token(d_model: int, vocab_size: int) -> float:
 
 def advance_drafter_state(
     hstate: torch.Tensor,  # [B, H] fp32
-    embed: torch.Tensor,  # [V, H]
+    embed: Any,  # [V, H], or its int8 leaf
     window: torch.Tensor,  # [B, W] current token + drafts
     n_absorb: torch.Tensor,  # [B] accepted count + 1
 ) -> torch.Tensor:
@@ -65,7 +69,7 @@ def advance_drafter_state(
     current token and is absorbed in the next window."""
     B, W = window.shape
     dt = hstate.dtype
-    emb = embed[window.long()].to(dt)  # [B, W, H]
+    emb = embed_lookup(embed, window, dt)  # [B, W, H]
     i_ar = torch.arange(W, dtype=dt, device=hstate.device)
     # prefix[m] = sum_{i<=m} decay^-i · emb[i]: every candidate end at once,
     # then decay^(n-1) renormalises the selected one.
@@ -79,7 +83,7 @@ def advance_drafter_state(
 
 
 def draft_window(
-    embed: torch.Tensor,  # [V, H] model embedding (tied unembedding)
+    embed: Any,  # [V, H] model embedding (tied unembedding), or its int8 leaf
     sdfa: tuple,  # stacked (trans, mask, dist_succ, active_ids, eos_cols)
     dfa_id: torch.Tensor,  # [B] grammar slot per row
     st: torch.Tensor,  # [B] DFA state after the current token
@@ -124,8 +128,7 @@ def draft_window(
     eos_rows = seos[dfa_id]  # [B, C]
     recurrent = mode == "recurrent"
     if recurrent:
-        w = embed.float()
-        h = DRAFT_DECAY * hstate + embed[cur.long()].to(hstate.dtype)
+        h = DRAFT_DECAY * hstate + embed_lookup(embed, cur, hstate.dtype)
         free_ok = ~done
     else:
         h = hstate  # grammar mode never scores
@@ -145,7 +148,7 @@ def draft_window(
         m_prop = support & ~eos_rows  # EOS is sampled at verify, never drafted
         has_prop = m_prop.any(dim=-1)
         if recurrent:
-            scores = torch.matmul(h.float(), w.t())  # [B, V]
+            scores = unembed(h, embed)  # [B, V] fp32
             c_scores = torch.gather(scores, 1, act_rows)
             col = torch.argmax(torch.where(m_prop, c_scores, NEG_INF), dim=-1)
             free_tok = torch.argmax(torch.where(free_mask, scores, NEG_INF), dim=-1)
@@ -162,7 +165,7 @@ def draft_window(
         p_use.append(use)
         s = torch.where(use & cons_v, strans[dfa_id, s, col].long(), s)
         if recurrent:
-            h = torch.where(use[:, None], DRAFT_DECAY * h + embed[p_tok.long()].to(h.dtype), h)
+            h = torch.where(use[:, None], DRAFT_DECAY * h + embed_lookup(embed, p_tok, h.dtype), h)
         alive = use
         ej = ej + use.long()
     m_fin, _ = admissible(s, budgets - emitted - k - 1)

@@ -6,7 +6,8 @@ layouts (``embed`` [V, D]; ``layers/wq`` [L, D, H, hd], ``wk``/``wv``
 [L, D, K, hd], ``wo`` [L, H, hd, D], ``w_gate``/``w_up`` [L, D, F],
 ``w_down`` [L, F, D], norms [L, D]; ``final_norm`` [D]), so weights carry
 across one-to-one (``params.params_from_numpy``). The layer stack is a
-Python loop over the leading axis. Numerics follow the reference: RMSNorm in
+Python loop over the leading axis; on int8 weights (``quant.py``) each
+layer is dequantized inside that loop, one layer at a time. Numerics follow the reference: RMSNorm in
 fp32 with scale ``1 + w``; half-split RoPE; tanh-approximate GeLU; the
 embedding scaled by ``sqrt(d_model)`` cast to the activation dtype first;
 attention logits and softmax in fp32; the tied unembedding with fp32 output.
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from mcpx_torch.models.gemma.config import GemmaConfig
+from mcpx_torch.models.gemma.quant import _CONTRACT_AXES, dequant_layer, embed_lookup, unembed
 
 Params = dict[str, Any]
 KVCache = dict[str, torch.Tensor]
@@ -33,48 +35,72 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 # --------------------------------------------------------------------- init
-def init_params(
-    cfg: GemmaConfig,
-    generator: torch.Generator,
-    device: "torch.device | str" = "cpu",
-) -> Params:
-    """Random-init parameters in ``cfg.dtype``, layer-stacked: normal draws
-    scaled by 1/sqrt(fan_in) from ``generator`` (a seeded ``torch.Generator``
-    on ``device``); norms start at zero (scale 1). The draws differ from the
-    reference package's ``jax.random`` ones; carry weights across with
-    ``params_from_numpy`` where equality matters."""
-    dtype = torch_dtype(cfg.dtype)
+def param_shapes(cfg: GemmaConfig) -> dict[str, tuple[int, ...]]:
+    """Each parameter's shape by leaf name (the layer leaves stacked over
+    ``n_layers``)."""
     L, D, H, K, hd, Fd, V = (
         cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
         cfg.head_dim, cfg.d_ff, cfg.vocab_size,
     )
+    return {
+        "embed": (V, D),
+        "pre_attn_norm": (L, D),
+        "pre_mlp_norm": (L, D),
+        "wq": (L, D, H, hd),
+        "wk": (L, D, K, hd),
+        "wv": (L, D, K, hd),
+        "wo": (L, H, hd, D),
+        "w_gate": (L, D, Fd),
+        "w_up": (L, D, Fd),
+        "w_down": (L, Fd, D),
+        "final_norm": (D,),
+    }
 
-    def normal(shape, fan_in):
+
+def init_params(
+    cfg: GemmaConfig,
+    generator: torch.Generator,
+    device: "torch.device | str" = "cpu",
+    leaf_transform=None,
+) -> Params:
+    """Random-init parameters in ``cfg.dtype``, layer-stacked: normal draws
+    scaled by 1/sqrt(fan_in) from ``generator`` (a seeded ``torch.Generator``
+    on ``device``); norms start at zero (scale 1). ``leaf_transform(name,
+    tensor)`` is applied to each leaf as it is created (``quant.
+    leaf_quantizer`` for int8 serving), so the untransformed tree never
+    exists at once. The draws differ from the reference package's
+    ``jax.random`` ones; carry weights across with ``params_from_numpy``
+    where equality matters."""
+    dtype = torch_dtype(cfg.dtype)
+    t = leaf_transform or (lambda _name, w: w)
+    shapes = param_shapes(cfg)
+
+    def normal(name):
         # Layer-stacked weights are drawn one layer at a time so the fp32
         # staging buffer stays one layer wide at full width.
+        shape = shapes[name]
+        # A weight's fan-in is the product of its contraction axes.
+        fan_in = math.prod(shape[a] for a in _CONTRACT_AXES[name])
         if len(shape) == 2:
             w = torch.randn(shape, generator=generator, device=device)
-            return (w / math.sqrt(fan_in)).to(dtype)
+            return t(name, (w / math.sqrt(fan_in)).to(dtype))
         out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(shape[0]):
             w = torch.randn(shape[1:], generator=generator, device=device)
             out[i] = (w / math.sqrt(fan_in)).to(dtype)
-        return out
+        return t(name, out)
+
+    def zeros(name):
+        return t(name, torch.zeros(shapes[name], dtype=dtype, device=device))
 
     return {
-        "embed": normal((V, D), D),
+        "embed": normal("embed"),
         "layers": {
-            "pre_attn_norm": torch.zeros((L, D), dtype=dtype, device=device),
-            "pre_mlp_norm": torch.zeros((L, D), dtype=dtype, device=device),
-            "wq": normal((L, D, H, hd), D),
-            "wk": normal((L, D, K, hd), D),
-            "wv": normal((L, D, K, hd), D),
-            "wo": normal((L, H, hd, D), H * hd),
-            "w_gate": normal((L, D, Fd), D),
-            "w_up": normal((L, D, Fd), D),
-            "w_down": normal((L, Fd, D), Fd),
+            "pre_attn_norm": zeros("pre_attn_norm"),
+            "pre_mlp_norm": zeros("pre_mlp_norm"),
+            **{name: normal(name) for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")},
         },
-        "final_norm": torch.zeros((D,), dtype=dtype, device=device),
+        "final_norm": zeros("final_norm"),
     }
 
 
@@ -109,33 +135,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
-    x = embed[tokens.long()].to(torch_dtype(cfg.dtype))
+def embed_tokens(embed: Any, tokens: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
+    """Embedding rows (int8 rows times their scales on a quantized table),
+    scaled by sqrt(d_model)."""
+    x = embed_lookup(embed, tokens, torch_dtype(cfg.dtype))
     # torch.full fills on the device: no host copy, so a CUDA graph can
     # capture it. The scale is rounded to the model's dtype, as the
     # reference multiplies.
     return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
 
 
-def unembed(x: torch.Tensor, embed: torch.Tensor, subset: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Tied unembedding, fp32 logits: x @ embed.T. ``subset`` [C] (token
-    ids) restricts it to those rows of ``embed``: [..., C] logits, and the
-    full-vocabulary product is never formed."""
-    w = embed if subset is None else embed[subset.long()]
-    return torch.matmul(x.float(), w.float().t())
+def layer_weights(params: Params, i: int, cfg: GemmaConfig) -> dict[str, torch.Tensor]:
+    """Layer ``i``'s weights: slices of the stacked tree, dequantized to the
+    model's dtype on int8 weights (the counterpart of the reference's
+    ``dequant_layer`` in its scan body)."""
+    return dequant_layer(params["layers"], i, torch_dtype(cfg.dtype))
 
 
-def mlp(h: torch.Tensor, lp: dict[str, torch.Tensor], i: int) -> torch.Tensor:
-    gate = torch.matmul(h, lp["w_gate"][i])
-    up = torch.matmul(h, lp["w_up"][i])
-    return torch.matmul(F.gelu(gate, approximate="tanh") * up, lp["w_down"][i])
+def mlp(h: torch.Tensor, w: dict[str, torch.Tensor]) -> torch.Tensor:
+    gate = torch.matmul(h, w["w_gate"])
+    up = torch.matmul(h, w["w_up"])
+    return torch.matmul(F.gelu(gate, approximate="tanh") * up, w["w_down"])
 
 
-def qkv(h: torch.Tensor, lp: dict[str, torch.Tensor], i: int):
-    """[B, T, D] -> q [B, T, H, hd], k/v [B, T, K, hd]."""
-    q = torch.einsum("btd,dkh->btkh", h, lp["wq"][i])
-    k = torch.einsum("btd,dkh->btkh", h, lp["wk"][i])
-    v = torch.einsum("btd,dkh->btkh", h, lp["wv"][i])
+def qkv(h: torch.Tensor, w: dict[str, torch.Tensor]):
+    """[B, T, D] -> q [B, T, H, hd], k/v [B, T, K, hd] with one layer's
+    weights ``w``."""
+    q = torch.einsum("btd,dkh->btkh", h, w["wq"])
+    k = torch.einsum("btd,dkh->btkh", h, w["wk"])
+    v = torch.einsum("btd,dkh->btkh", h, w["wv"])
     return q, k, v
 
 
@@ -164,12 +192,12 @@ def forward(
     that position per row -> [B, V]. The cache is updated in place and
     returned."""
     B, T = tokens.shape
-    lp = params["layers"]
     x = embed_tokens(params["embed"], tokens, cfg)
     b_idx = torch.arange(B, device=tokens.device)[:, None]
     for i in range(cfg.n_layers):
-        h = rms_norm(x, lp["pre_attn_norm"][i], cfg.norm_eps)
-        q, k, v = qkv(h, lp, i)
+        w = layer_weights(params, i, cfg)
+        h = rms_norm(x, w["pre_attn_norm"], cfg.norm_eps)
+        q, k, v = qkv(h, w)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         kv_cache["k"][i][b_idx, positions] = k.to(kv_cache["k"].dtype)
@@ -177,10 +205,10 @@ def forward(
         qg = q.reshape(B, T, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
         attn = _attend(qg, kv_cache["k"][i], kv_cache["v"][i], mask)
         attn = attn.reshape(B, T, cfg.n_heads * cfg.head_dim)
-        wo = lp["wo"][i].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
+        wo = w["wo"].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
         x = x + torch.matmul(attn, wo)
-        h = rms_norm(x, lp["pre_mlp_norm"][i], cfg.norm_eps)
-        x = x + mlp(h, lp, i)
+        h = rms_norm(x, w["pre_mlp_norm"], cfg.norm_eps)
+        x = x + mlp(h, w)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_at is not None:
         x = x[torch.arange(B, device=x.device), logits_at.long()]  # [B, D]

@@ -4,8 +4,11 @@
 flat with ``"layers/wq"`` keys as ``.npz`` checkpoints store them, bf16
 either as a numpy bfloat16 dtype or as ``uint16`` bit patterns under a
 ``bf16:`` key prefix — and returns the port's nested dict of tensors with
-the same keys and layouts. ``load_or_init`` reads an ``.npz`` checkpoint
-through it, or draws random weights from a seed.
+the same keys and layouts. A quantized tree (``quant.py``: ``{"int8",
+"scale"}`` leaves) carries across as it is: its int8 codes and f32 scales
+keep their types whatever ``dtype`` asks. ``load_or_init`` reads an
+``.npz`` checkpoint through it, or draws random weights from a seed, in
+int8 with ``quantize="int8"``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.model import Params, init_params, torch_dtype
+from mcpx_torch.models.gemma.model import Params, init_params, param_shapes, torch_dtype
+from mcpx_torch.models.gemma.quant import _is_qleaf, leaf_quantizer, quantize_params
 
 
 def _tensor(arr: Any, bf16_bits: bool) -> torch.Tensor:
@@ -34,7 +38,8 @@ def params_from_numpy(
     dtype: "torch.dtype | str | None" = None,
 ) -> Params:
     """Numpy parameter tree -> nested dict of tensors on ``device``, cast to
-    ``dtype`` (None keeps each array's own type)."""
+    ``dtype`` (None keeps each array's own type). The ``int8`` and ``scale``
+    leaves of a quantized weight are never cast."""
     if isinstance(dtype, str):
         dtype = torch_dtype(dtype)
     out: Params = {}
@@ -43,7 +48,8 @@ def params_from_numpy(
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = value.to(device=device, dtype=dtype or value.dtype)
+        keep = path[-1] in ("int8", "scale")
+        node[path[-1]] = value.to(device=device, dtype=value.dtype if keep else dtype or value.dtype)
 
     def walk(node: dict[str, Any], prefix: list[str]) -> None:
         for key, value in node.items():
@@ -60,28 +66,18 @@ def params_from_numpy(
 
 
 def expected_shapes(cfg: GemmaConfig) -> dict[str, tuple[int, ...]]:
-    L, D, H, K, hd, F, V = (
-        cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-        cfg.head_dim, cfg.d_ff, cfg.vocab_size,
-    )
     return {
-        "embed": (V, D),
-        "final_norm": (D,),
-        "layers/pre_attn_norm": (L, D),
-        "layers/pre_mlp_norm": (L, D),
-        "layers/wq": (L, D, H, hd),
-        "layers/wk": (L, D, K, hd),
-        "layers/wv": (L, D, K, hd),
-        "layers/wo": (L, H, hd, D),
-        "layers/w_gate": (L, D, F),
-        "layers/w_up": (L, D, F),
-        "layers/w_down": (L, F, D),
+        name if name in ("embed", "final_norm") else f"layers/{name}": shape
+        for name, shape in param_shapes(cfg).items()
     }
 
 
 def _check_shapes(params: Params, cfg: GemmaConfig, path: str) -> None:
+    """A full-precision or quantized tree of ``cfg``'s shapes (an int8 leaf
+    is checked by its codes)."""
     flat = {"embed": params.get("embed"), "final_norm": params.get("final_norm")}
     flat.update({f"layers/{k}": v for k, v in params.get("layers", {}).items()})
+    flat = {k: v["int8"] if _is_qleaf(v) else v for k, v in flat.items()}
     exp = expected_shapes(cfg)
     problems = [f"missing {k}" for k in exp if flat.get(k) is None]
     problems += [
@@ -105,9 +101,15 @@ def load_or_init(
     *,
     device: "torch.device | str" = "cpu",
     seed: int = 0,
+    quantize: str = "none",
 ) -> tuple[Params, str]:
     """(params, "checkpoint" | "random"): an ``.npz`` checkpoint cast to
-    ``cfg.dtype``, or random weights drawn from ``seed``."""
+    ``cfg.dtype``, or random weights drawn from ``seed``. With
+    ``quantize="int8"`` the checkpoint is quantized after it is loaded, and
+    the random path quantizes each leaf as it is created, so its
+    full-precision tree never exists."""
+    if quantize not in ("none", "int8"):
+        raise EngineError(f"unknown quantize mode {quantize!r}")
     if checkpoint_path:
         path = os.path.abspath(checkpoint_path)
         if not os.path.exists(path):
@@ -116,10 +118,11 @@ def load_or_init(
             raise EngineError(f"the PyTorch port reads .npz checkpoints only, not {path}")
         params = load_npz(path, device, torch_dtype(cfg.dtype))
         _check_shapes(params, cfg, path)
-        return params, "checkpoint"
+        return (quantize_params(params) if quantize == "int8" else params), "checkpoint"
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return init_params(cfg, gen, device), "random"
+    transform = leaf_quantizer if quantize == "int8" else None
+    return init_params(cfg, gen, device, leaf_transform=transform), "random"
 
 
 def n_bytes(params: Optional[Params]) -> int:

@@ -1,8 +1,6 @@
 """Concurrent DAG executor with retry budgets, ordered fallbacks and traces.
 
-PyTorch-port copy of ``mcpx/orchestrator/executor.py`` without the
-resilience facade (circuit breakers, deadline budgets, hedged attempts),
-which the factory refuses until it is ported, and without decision
+PyTorch-port copy of ``mcpx/orchestrator/executor.py`` without decision
 provenance. The walk is recorded twice, as in the reference: the
 ``ExecutionTrace`` of the response, and the request trace's ``execute``
 span with a ``node:<name>`` span per node and an ``attempt`` child per
@@ -21,6 +19,16 @@ attempt. ``metrics`` (the control plane's) counts ``service_calls`` and
     the structured trace;
   - a failed node *skips* its dependents but never aborts the walk: the
     response reports partial results.
+
+With a ``Resilience`` facade wired (``mcpx_torch/resilience/``) the attempt
+chain also consults per-endpoint circuit breakers (an open endpoint is
+skipped straight to the next fallback), draws every attempt timeout from
+the request's deadline budget (retries and backoffs the budget cannot
+afford are skipped as ``status="budget"`` attempts; exhaustion fails the
+node with a distinct error), and races tail-latency primaries against one
+hedged duplicate to a fallback endpoint (first success wins, the loser is
+cancelled, the outcome counted in ``mcpx_hedges_total``). Resilience off is
+this module's attempt chain as it was, byte for byte.
 
 Each declared input key resolves from accumulated upstream ``results``
 first, then the request ``payload``.
@@ -67,6 +75,7 @@ class Orchestrator:
         registry: Optional[RegistryBackend] = None,
         telemetry: Optional[TelemetryStore] = None,
         metrics: Any = None,
+        resilience: Any = None,  # mcpx_torch.resilience.Resilience (None = pass-through)
         rng: Optional[random.Random] = None,
     ) -> None:
         self._transport = transport
@@ -74,18 +83,31 @@ class Orchestrator:
         self._registry = registry
         self._telemetry = telemetry
         self._metrics = metrics
+        self._resilience = resilience
         # Injectable RNG: full-jitter backoff stays deterministic in tests.
         self._rng = rng or random.Random()
         self._sem = asyncio.Semaphore(self._cfg.max_node_concurrency)
+
+    @property
+    def resilience(self) -> Any:
+        """The wired Resilience facade, or None (pass-through). Read by the
+        /execute handler to decide whether the deadline header is live."""
+        return self._resilience
 
     async def execute(
         self,
         plan: Plan,
         payload: dict[str, Any],
         trace: Optional[ExecutionTrace] = None,
+        *,
+        deadline_ms: Optional[float] = None,
     ) -> ExecuteResult:
         plan.validate()
         trace = trace or ExecutionTrace()
+        # One monotonic budget per request, shared by every node's attempt
+        # chain; None unless resilience is wired and a deadline applies
+        # (the header or the configured default).
+        budget = self._resilience.budget(deadline_ms) if self._resilience is not None else None
         results: dict[str, Any] = {}
         errors: dict[str, str] = {}
         failed: set[str] = set()  # failed or skipped node names
@@ -110,7 +132,7 @@ class Orchestrator:
                 if not runnable:
                     continue
                 outcomes = await asyncio.gather(
-                    *(self._run_node(node, results, payload, trace) for node in runnable)
+                    *(self._run_node(node, results, payload, trace, budget) for node in runnable)
                 )
                 for node, (ok, value) in zip(runnable, outcomes):
                     if ok:
@@ -135,6 +157,7 @@ class Orchestrator:
         results: dict[str, Any],
         payload: dict[str, Any],
         trace: ExecutionTrace,
+        budget: Any = None,
     ) -> tuple[bool, Any]:
         """Returns ``(True, response)`` or ``(False, final_error_message)``.
 
@@ -146,7 +169,7 @@ class Orchestrator:
         try:
             nt.started_at = asyncio.get_event_loop().time()
             with tracing.span(f"node:{node.name}", service=node.service) as nsp:
-                return await self._attempt_chain(node, results, payload, nt, nsp)
+                return await self._attempt_chain(node, results, payload, nt, nsp, budget)
         except Exception as e:  # per-node isolation boundary: the error lands in the result
             nt.status = "failed"
             nt.finished_at = asyncio.get_event_loop().time()
@@ -159,7 +182,9 @@ class Orchestrator:
         payload: dict[str, Any],
         nt: NodeTrace,
         nsp: Optional[tracing.Span] = None,
+        budget: Any = None,
     ) -> tuple[bool, Any]:
+        res = self._resilience
         loop = asyncio.get_event_loop()
         endpoint, fallbacks = await self._resolve_endpoints(node)
         if not endpoint:
@@ -184,13 +209,18 @@ class Orchestrator:
         attempts += [("fallback", fb) for fb in fallbacks]
 
         def record(url: str, kind: str, status: str, t0: float, t1: float, error: str = "") -> None:
-            """One attempt outcome into the trace, the telemetry EWMAs, the
-            attempt metrics and the request trace's ``attempt`` span."""
+            """One attempt outcome into the trace, the telemetry EWMAs and
+            the breaker window (real outcomes only: a skip or a cancellation
+            observed nothing), the attempt metrics and the request trace's
+            ``attempt`` span."""
             latency_ms = (t1 - t0) * 1e3
             nt.attempts.append(
                 NodeAttempt(endpoint=url, kind=kind, status=status, latency_ms=latency_ms, error=error)
             )
-            self._record(node.service, latency_ms, ok=status == "ok")
+            if status in ("ok", "error", "timeout"):
+                self._record(node.service, latency_ms, ok=status == "ok")
+                if res is not None:
+                    res.breakers.record(url, status == "ok", service=node.service)
             if self._metrics is not None:
                 self._metrics.node_attempts.labels(kind=kind, status=status).inc()
             if nsp is not None:
@@ -202,24 +232,74 @@ class Orchestrator:
         retry_after_s: Optional[float] = None
         no_retry = False  # a non-retryable 4xx condemned the primary endpoint
         for kind, url in attempts:
+            if kind == "retry" and no_retry:
+                continue
+            # Circuit breaker consult: an open endpoint is skipped straight
+            # to the next attempt in the chain (usually the first fallback).
+            # A refused primary condemns its queued retries too.
+            if res is not None and not res.breakers.allow(url, service=node.service):
+                now = loop.time()
+                record(url, kind, "open", now, now, error="circuit breaker open")
+                last_error = f"circuit breaker open for {url}"
+                if kind == "primary":
+                    no_retry = True
+                continue
             if kind == "retry":
-                if no_retry:
-                    continue
                 # Full jitter (uniform over [0, backoff]): synchronized
                 # failures must not produce synchronized retry storms. A
-                # 429's Retry-After floors the draw.
+                # 429's Retry-After floors the draw; a wait the deadline
+                # budget cannot afford (plus one minimum useful attempt)
+                # skips this retry instead of sleeping through the SLO.
                 delay = self._rng.uniform(0.0, backoff) if backoff > 0 else 0.0
                 backoff *= self._cfg.retry_backoff_multiplier
                 if retry_after_s is not None:
                     delay = max(delay, retry_after_s)
+                if budget is not None and not budget.affords(delay + res.config.min_attempt_s):
+                    now = loop.time()
+                    record(
+                        url, kind, "budget", now, now,
+                        error="skipped: deadline budget cannot afford the retry backoff",
+                    )
+                    last_error = budget.exhausted_error()
+                    continue
                 if delay > 0:
                     await asyncio.sleep(delay)
             retry_after_s = None
+            # Deadline budget: the attempt timeout is min(node timeout,
+            # remaining budget); with less than one minimum attempt left the
+            # node fails with the distinct budget error.
+            timeout_s = node.timeout_s
+            if budget is not None:
+                remaining = budget.remaining_s()
+                if remaining < res.config.min_attempt_s:
+                    now = loop.time()
+                    record(url, kind, "budget", now, now, error=budget.exhausted_error())
+                    last_error = budget.exhausted_error()
+                    break
+                timeout_s = min(timeout_s, remaining)
+            # Hedge eligibility: a primary attempt, resilience wired, a delay
+            # from the service's telemetry, and a fallback endpoint whose
+            # breaker is not open to duplicate to.
+            hedge_url = hedge_delay = None
+            if res is not None and kind == "primary":
+                hedge_delay = res.hedge.delay_s(node.service)
+                res.hedge.note_primary()
+                if hedge_delay is not None and hedge_delay < timeout_s:
+                    hedge_url = next((fb for fb in fallbacks if not res.breakers.is_open(fb)), None)
             t0 = loop.time()
             try:
-                response = await self._post(url, body, node.timeout_s)
+                if hedge_url is not None:
+                    response = await self._race_hedge(
+                        url, hedge_url, body, timeout_s, hedge_delay, budget, record
+                    )
+                else:
+                    try:
+                        response = await self._post(url, body, timeout_s)
+                    except TransportError as e:
+                        record(url, kind, "timeout" if e.timeout else "error", t0, loop.time(), error=str(e))
+                        raise
+                    record(url, kind, "ok", t0, loop.time())
             except TransportError as e:
-                record(url, kind, "timeout" if e.timeout else "error", t0, loop.time(), error=str(e))
                 last_error = str(e)
                 if kind in ("primary", "retry") and not e.retryable:
                     # Deterministic 4xx rejection (not 408/429): replaying
@@ -228,7 +308,6 @@ class Orchestrator:
                 if e.status == 429 and e.retry_after_s is not None:
                     retry_after_s = e.retry_after_s
                 continue
-            record(url, kind, "ok", t0, loop.time())
             nt.status = "ok"
             nt.finished_at = loop.time()
             return True, response
@@ -240,6 +319,96 @@ class Orchestrator:
     async def _post(self, url: str, body: dict[str, Any], timeout_s: float):
         async with self._sem:
             return await self._transport.post(url, body, timeout_s)
+
+    async def _race_hedge(
+        self,
+        url: str,
+        hedge_url: str,
+        body: dict[str, Any],
+        timeout_s: float,
+        hedge_delay: float,
+        budget: Any,
+        record,
+    ) -> dict[str, Any]:
+        """Race the primary attempt against one delayed duplicate to a
+        fallback endpoint. The first success wins; the loser is cancelled
+        (recorded as ``status="cancelled"``). The duplicate launches only
+        once ``hedge_delay`` passes with the primary still in flight and the
+        hedge budget grants it. Both legs failing raises the primary's error
+        (else the hedge's) into the attempt chain."""
+        res = self._resilience
+        loop = asyncio.get_event_loop()
+        flight: dict[asyncio.Task, tuple[str, str, float]] = {}
+
+        def launch(u: str, kind: str) -> asyncio.Task:
+            # Re-capped at launch: the hedge starts hedge_delay into the
+            # attempt, and the full pre-race timeout would let the node
+            # outlive the deadline by two capped attempts.
+            to = timeout_s
+            if budget is not None:
+                to = min(to, max(res.config.min_attempt_s, budget.remaining_s()))
+            t = asyncio.ensure_future(self._post(u, body, to))
+            flight[t] = (u, kind, loop.time())
+            return t
+
+        primary_t0 = flight[launch(url, "primary")][2]
+        hedge_decided = False
+        primary_exc: Optional[TransportError] = None
+        last_exc: Optional[TransportError] = None
+        try:
+            while flight:
+                timeout = None if hedge_decided else max(0.0, hedge_delay - (loop.time() - primary_t0))
+                done, _ = await asyncio.wait(set(flight), timeout=timeout, return_when=asyncio.FIRST_COMPLETED)
+                if not done:
+                    # The hedge delay passed with the primary in flight:
+                    # launch the one duplicate, if the budgets allow.
+                    hedge_decided = True
+                    if budget is not None and not budget.affords(res.config.min_attempt_s):
+                        continue
+                    if res.hedge.try_acquire():
+                        res.record_hedge("launched")
+                        launch(hedge_url, "hedge")
+                    else:
+                        res.record_hedge("denied")
+                    continue
+                for t in done:
+                    u, kind, t0 = flight.pop(t)
+                    exc = t.exception()
+                    t1 = loop.time()
+                    if exc is None:
+                        record(u, kind, "ok", t0, t1)
+                        if kind == "hedge":
+                            res.record_hedge("win")
+                        return t.result()
+                    if not isinstance(exc, TransportError):
+                        raise exc  # a transport bug: the node-isolation boundary reports it
+                    record(u, kind, "timeout" if exc.timeout else "error", t0, t1, error=str(exc))
+                    if kind == "hedge":
+                        res.record_hedge("loss")
+                    else:
+                        primary_exc = exc
+                    last_exc = exc
+            raise primary_exc or last_exc or TransportError("hedged attempt produced no outcome")
+        finally:
+            t1 = loop.time()
+            for t, (u, kind, t0) in flight.items():
+                if t.done() and not t.cancelled():
+                    # A loser that completed in the winner's tick: its
+                    # outcome is real, so it feeds the breaker window and
+                    # telemetry like any other attempt.
+                    exc2 = t.exception()
+                    if exc2 is None:
+                        record(u, kind, "ok", t0, t1)
+                    else:
+                        timed_out = isinstance(exc2, TransportError) and exc2.timeout
+                        record(u, kind, "timeout" if timed_out else "error", t0, t1, error=str(exc2))
+                    if kind == "hedge":
+                        res.record_hedge("loss" if exc2 is not None else "cancelled")
+                    continue
+                t.cancel()
+                if kind == "hedge":
+                    res.record_hedge("cancelled")
+                record(u, kind, "cancelled", t0, t1, error="hedge race: the other attempt won")
 
     async def _resolve_endpoints(self, node: DagNode) -> tuple[str, list[str]]:
         """Endpoint resolution: the plan's endpoint if set, else the registry

@@ -1,0 +1,236 @@
+"""ChaosTransport: a seeded, scriptable fault-injecting ``Transport`` wrapper.
+
+The port's copy of ``mcpx/resilience/chaos.py`` over the port's
+``orchestrator/transport.py``. Wraps any transport and injects faults per
+endpoint according to a profile (JSON file or dict). Usable from tests, via
+``resilience.chaos_profile`` (the factory wraps the real transport), and by
+``chip_smoke.py``'s chaos phase (the same fault profile served with
+resilience off and on).
+
+Profile schema:
+
+    {
+      "seed": 42,                      // RNG seed; same seed + same call
+                                       // sequence = same fault sequence
+      "endpoints": {                   // fnmatch patterns over endpoint URLs;
+        "local://svc-a": {             // first (insertion-order) match wins
+          "error_rate": 0.3,           // P(injected error) per call
+          "error_status": 500,         // HTTP status carried by the error
+          "timeout_rate": 0.1,         // P(hang until the caller's timeout)
+          "latency_ms": 5,             // added base latency per call
+          "spike_ms": 500,             // extra latency on a spike...
+          "spike_rate": 0.05,          // ...with this probability
+          "flap_period_s": 10,         // endpoint flaps: every period...
+          "flap_down_s": 3             // ...it is DOWN for this long
+        }
+      },
+      "default": { ... },              // faults for unmatched endpoints
+      "cluster": {                     // replica-pool faults (the cluster layer;
+                                       // parsed, read only with cluster.enabled):
+        "replica": 1,                  // pool slot to kill (clamped to pool)
+        "at_s": 2.0,                   // kill this long after pool start
+        "down_s": 3.0,                 // stay dead this long...
+        "rejoin": true                 // ...then rejoin (warm-restart path)
+      }
+    }
+
+Determinism: all draws come from one seeded RNG consumed in a fixed order
+(flap check is clock-based, draws are error → timeout → spike), so a
+SEQUENTIAL call sequence replays exactly under the same seed. Concurrent
+callers interleave their draws nondeterministically — the marginal fault
+rates still hold, which is what an A/B comparison of modes needs.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import fnmatch
+import json
+import random
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+from mcpx_torch.core.errors import ConfigError
+from mcpx_torch.orchestrator.transport import Transport, TransportError
+
+
+@dataclass
+class EndpointFaults:
+    error_rate: float = 0.0
+    error_status: int = 500
+    timeout_rate: float = 0.0
+    latency_ms: float = 0.0
+    spike_ms: float = 0.0
+    spike_rate: float = 0.0
+    flap_period_s: float = 0.0
+    flap_down_s: float = 0.0
+
+    @classmethod
+    def from_dict(cls, obj: dict[str, Any], where: str) -> "EndpointFaults":
+        known = set(cls.__dataclass_fields__)
+        for k in obj:
+            if k not in known:
+                raise ConfigError(f"chaos profile: unknown key '{k}' in {where}")
+        f = cls(**obj)
+        for rate in ("error_rate", "timeout_rate", "spike_rate"):
+            v = getattr(f, rate)
+            if not 0.0 <= v <= 1.0:
+                raise ConfigError(f"chaos profile: {where}.{rate}={v} not in [0, 1]")
+        if f.flap_period_s > 0 and not 0 < f.flap_down_s <= f.flap_period_s:
+            raise ConfigError(
+                f"chaos profile: {where}.flap_down_s must be in (0, flap_period_s]"
+            )
+        return f
+
+
+@dataclass
+class ClusterFaults:
+    """Kill-a-replica / rejoin schedule for an engine pool (the cluster
+    layer, not ported: ``cluster.enabled`` is refused) — the ChaosTransport
+    never sees it; replica loss is an ENGINE fault, not a microservice
+    fault."""
+
+    replica: int = 0
+    at_s: float = 0.0
+    down_s: float = 0.0
+    rejoin: bool = True
+
+    @classmethod
+    def from_dict(cls, obj: dict[str, Any]) -> "ClusterFaults":
+        known = set(cls.__dataclass_fields__)
+        for k in obj:
+            if k not in known:
+                raise ConfigError(f"chaos profile: unknown key '{k}' in cluster")
+        f = cls(**obj)
+        if f.replica < 0:
+            raise ConfigError("chaos profile: cluster.replica must be >= 0")
+        if f.at_s < 0 or f.down_s < 0:
+            raise ConfigError(
+                "chaos profile: cluster.at_s and cluster.down_s must be >= 0"
+            )
+        return f
+
+
+class ChaosProfile:
+    def __init__(
+        self,
+        *,
+        seed: int = 0,
+        endpoints: Optional[dict[str, EndpointFaults]] = None,
+        default: Optional[EndpointFaults] = None,
+        cluster: Optional[ClusterFaults] = None,
+    ) -> None:
+        self.seed = seed
+        self.endpoints = endpoints or {}
+        self.default = default
+        self.cluster = cluster
+
+    @classmethod
+    def from_dict(cls, obj: dict[str, Any]) -> "ChaosProfile":
+        if not isinstance(obj, dict):
+            raise ConfigError("chaos profile must be a JSON object")
+        known = {"seed", "endpoints", "default", "cluster"}
+        for k in obj:
+            if k not in known:
+                raise ConfigError(f"chaos profile: unknown top-level key '{k}'")
+        endpoints = {
+            pattern: EndpointFaults.from_dict(faults, f"endpoints[{pattern!r}]")
+            for pattern, faults in (obj.get("endpoints") or {}).items()
+        }
+        default = (
+            EndpointFaults.from_dict(obj["default"], "default")
+            if obj.get("default")
+            else None
+        )
+        cluster = (
+            ClusterFaults.from_dict(obj["cluster"]) if obj.get("cluster") else None
+        )
+        return cls(
+            seed=int(obj.get("seed", 0)),
+            endpoints=endpoints,
+            default=default,
+            cluster=cluster,
+        )
+
+    @classmethod
+    def from_file(cls, path: str) -> "ChaosProfile":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def match(self, url: str) -> Optional[EndpointFaults]:
+        for pattern, faults in self.endpoints.items():
+            if fnmatch.fnmatchcase(url, pattern):
+                return faults
+        return self.default
+
+
+class ChaosTransport(Transport):
+    """Fault-injecting wrapper; unmatched endpoints pass straight through."""
+
+    def __init__(
+        self,
+        inner: Transport,
+        profile: ChaosProfile,
+        *,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self._inner = inner
+        self._profile = profile
+        self._clock = clock
+        self._rng = random.Random(profile.seed)
+        self._t0 = clock()
+
+    def reseed(self) -> None:
+        """Rewind the fault stream (fresh RNG from the profile seed, flap
+        phase restarted), so A/B rounds face the same fault profile from the
+        same starting state."""
+        self._rng = random.Random(self._profile.seed)
+        self._t0 = self._clock()
+
+    async def post(
+        self, url: str, payload: dict[str, Any], timeout_s: float
+    ) -> dict[str, Any]:
+        f = self._profile.match(url)
+        if f is None:
+            return await self._inner.post(url, payload, timeout_s)
+        if f.flap_period_s > 0:
+            phase = (self._clock() - self._t0) % f.flap_period_s
+            if phase < f.flap_down_s:
+                raise TransportError(
+                    f"chaos: {url} is flapped down "
+                    f"({f.flap_down_s:g}s of every {f.flap_period_s:g}s)",
+                    status=503,
+                )
+        # Fixed draw order (error, timeout, spike) keeps a sequential call
+        # sequence bit-reproducible under one seed.
+        if self._rng.random() < f.error_rate:
+            raise TransportError(
+                f"chaos: injected HTTP {f.error_status} from {url}",
+                status=f.error_status,
+            )
+        if self._rng.random() < f.timeout_rate:
+            # A hang, as the caller experiences it: burn the caller's whole
+            # timeout, then fail as a timeout — injected timeouts that
+            # return instantly would make deadline overruns unmeasurable.
+            await asyncio.sleep(timeout_s)
+            raise TransportError(
+                f"chaos: injected timeout after {timeout_s}s calling {url}",
+                timeout=True,
+            )
+        delay_s = f.latency_ms / 1e3
+        if f.spike_rate > 0 and self._rng.random() < f.spike_rate:
+            delay_s += f.spike_ms / 1e3
+        if delay_s > 0:
+            if delay_s >= timeout_s:
+                await asyncio.sleep(timeout_s)
+                raise TransportError(
+                    f"chaos: latency spike outlived the {timeout_s}s timeout "
+                    f"calling {url}",
+                    timeout=True,
+                )
+            await asyncio.sleep(delay_s)
+        return await self._inner.post(url, payload, timeout_s)
+
+    async def close(self) -> None:
+        await self._inner.close()

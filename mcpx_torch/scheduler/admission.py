@@ -1,14 +1,109 @@
-"""Admission primitives the engine shares with the serving scheduler.
+"""Admission primitives: request context, token-bucket rate limiting, and
+the shed decision carried back to the HTTP layer.
 
-The port's copy of ``mcpx/scheduler/admission.py``, trimmed to the one
-estimator the engine reads: the service-time EWMA behind ``queue_stats``
-and the locality sort's deadline slack.
+The port's copy of ``mcpx/scheduler/admission.py``. Everything here is
+host-side bookkeeping measured in microseconds: the point of the subsystem
+is to spend this instead of engine queue slots when the answer would arrive
+after the caller stopped caring (a request whose queue ETA already blows its
+deadline is pure wasted decode). ``ewma_update`` is also the engine's
+service-time estimator behind ``queue_stats``.
 """
 
 from __future__ import annotations
 
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
 
 def ewma_update(prev: float, sample: float, alpha: float) -> float:
-    """Seed-on-zero EWMA step: 0.0 means "no observation yet", so the
-    first sample seeds rather than averaging against the optimistic zero."""
+    """Seed-on-zero EWMA step shared by every service-time estimator in
+    the admission path (scheduler per-tier EWMAs, the engine's
+    ``queue_stats`` feed): 0.0 means "no observation yet", so the first
+    sample seeds rather than averaging against the optimistic zero."""
     return sample if prev == 0.0 else alpha * sample + (1.0 - alpha) * prev
+
+
+class ShedError(Exception):
+    """Request refused at admission. ``retry_after_s`` is the server's
+    honest estimate of when capacity returns — surfaced as the 429
+    response's ``Retry-After`` header so well-behaved clients back off to
+    exactly the point where retrying could succeed."""
+
+    def __init__(self, message: str, *, retry_after_s: float, outcome: str) -> None:
+        super().__init__(message)
+        self.retry_after_s = max(0.0, retry_after_s)
+        # Which admission gate refused: "shed_rate" | "shed_queue" |
+        # "shed_deadline" — the mcpx_sched_decisions_total outcome label.
+        self.outcome = outcome
+
+    def retry_after_header(self) -> str:
+        # Retry-After is integer seconds on the wire; always >= 1 so a
+        # client honoring it cannot hot-loop.
+        return str(max(1, math.ceil(self.retry_after_s)))
+
+
+@dataclass
+class RequestContext:
+    """Per-request scheduling identity, parsed from HTTP headers by the
+    server layer (config: ``scheduler.tenant_header`` etc.)."""
+
+    tenant: str = "default"
+    # Absolute monotonic deadline (None = no deadline: never deadline-shed).
+    deadline_at: Optional[float] = None
+    # Fair-queuing weight (the priority header, clamped): 2.0 gets twice
+    # the dispatch share of 1.0 under contention, never starvation.
+    weight: float = 1.0
+    enqueued_at: float = field(default_factory=time.monotonic)
+
+    def remaining_s(self, now: float) -> float:
+        if self.deadline_at is None:
+            return math.inf
+        return self.deadline_at - now
+
+
+class TokenBucket:
+    """Classic token bucket: ``rate`` tokens/s refill up to ``burst``
+    capacity; each admission costs one token. Lazy refill on the injected
+    monotonic ``clock`` — no background task to leak."""
+
+    def __init__(
+        self,
+        rate: float,
+        burst: int,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        if rate <= 0:
+            raise ValueError(f"token bucket rate must be > 0, got {rate}")
+        self.rate = float(rate)
+        self.burst = max(1, int(burst))
+        self._clock = clock
+        self._tokens = float(self.burst)
+        self._refilled_at = clock()
+
+    def _refill(self) -> None:
+        now = self._clock()
+        self._tokens = min(
+            float(self.burst), self._tokens + (now - self._refilled_at) * self.rate
+        )
+        self._refilled_at = now
+
+    def try_acquire(self, n: float = 1.0) -> bool:
+        self._refill()
+        if self._tokens >= n:
+            self._tokens -= n
+            return True
+        return False
+
+    def eta_s(self, n: float = 1.0) -> float:
+        """Seconds until ``n`` tokens will be available (0 when they already
+        are) — the honest Retry-After for a rate-shed request."""
+        self._refill()
+        deficit = n - self._tokens
+        return max(0.0, deficit / self.rate)
+
+    @property
+    def tokens(self) -> float:
+        self._refill()
+        return self._tokens

@@ -1,0 +1,78 @@
+"""Degradation ladder: sustained overload routes /plan to the shortlist
+planner instead of the LLM, with hysteresis on the way back.
+
+Signal: an EWMA of observed scheduler queue waits (seconds), compared to
+fractions of the configured SLO. Engage when the EWMA crosses
+``slo * degrade_threshold`` — the queue alone is already eating most of
+the latency budget, so paying LLM decode on top guarantees SLO misses.
+Disengage only when the EWMA has fallen below ``slo * recover_threshold``
+AND the ladder has been engaged at least ``min_hold_s`` — the asymmetric
+thresholds plus the hold are what stop the ladder oscillating at the
+boundary (degrading instantly empties the queue, which would instantly
+"recover", re-saturate, and flap every few requests).
+
+The tier this degrades to is the model-free schema-chaining shortlist
+planner (``planner/heuristic.py``), the teacher algorithm the trained
+checkpoint imitates, so degraded service is teacher-grade plans at
+microsecond cost, not garbage. The port's copy of
+``mcpx/scheduler/degrade.py``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+
+class DegradeController:
+    def __init__(
+        self,
+        *,
+        slo_s: float,
+        degrade_threshold: float,
+        recover_threshold: float,
+        ewma_alpha: float = 0.2,
+        min_hold_s: float = 2.0,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        if not 0.0 < recover_threshold < degrade_threshold:
+            raise ValueError(
+                f"need 0 < recover_threshold ({recover_threshold}) < "
+                f"degrade_threshold ({degrade_threshold})"
+            )
+        self._slo_s = slo_s
+        self._hi = slo_s * degrade_threshold
+        self._lo = slo_s * recover_threshold
+        self._alpha = ewma_alpha
+        self._min_hold_s = min_hold_s
+        self._clock = clock
+        self._ewma_wait_s = 0.0
+        self._engaged = False
+        self._engaged_at = 0.0
+
+    @property
+    def engaged(self) -> bool:
+        return self._engaged
+
+    @property
+    def ewma_wait_s(self) -> float:
+        return self._ewma_wait_s
+
+    def observe_wait(self, wait_s: float) -> bool:
+        """Feed one observed queue wait; returns the (possibly updated)
+        engaged state. Called on every scheduler dispatch — degraded-mode
+        dispatches too, which is what lets the EWMA fall and recovery
+        trigger."""
+        a = self._alpha
+        self._ewma_wait_s = a * wait_s + (1.0 - a) * self._ewma_wait_s
+        now = self._clock()
+        if not self._engaged:
+            if self._ewma_wait_s > self._hi:
+                self._engaged = True
+                self._engaged_at = now
+        elif (
+            self._ewma_wait_s < self._lo
+            and now - self._engaged_at >= self._min_hold_s
+        ):
+            self._engaged = False
+        return self._engaged

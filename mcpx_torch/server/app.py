@@ -3,7 +3,8 @@
 PyTorch-port copy of the serving routes of ``mcpx/server/app.py``, with the
 same bodies, status codes and JSON errors:
 
-  POST /plan              {"intent": str} -> {"graph", "explanation", "origin", "latency_ms"}
+  POST /plan              {"intent": str} -> {"graph", "explanation", "origin", "latency_ms"
+                          [, "planner": "primary" | "degraded" with a scheduler]}
   POST /execute           {"graph": {...}, "payload": {...}} -> {"results", "errors", "status", "trace"}
   POST /plan_and_execute  {"intent": str, "payload": {...}} -> plan + execution + replans
   GET/POST /services, GET/DELETE /services/{name}   registry CRUD
@@ -25,7 +26,12 @@ trace's id), ``mcpx_requests_total`` and ``mcpx_request_latency_seconds``
 (an exemplar only for a kept trace), the admission limit (429 at
 ``server.max_concurrency`` on the three serving paths), the request timeout
 (504 at ``server.request_timeout_s``, which cancels the engine future so the
-worker frees the row) and JSON-only 500s. Not ported yet: ``/explain``,
+worker frees the row) and JSON-only 500s. With a scheduler attached
+(``cp.scheduler``, read per request) ``/plan`` acquires a slot under a
+``sched.acquire`` span first: a shed is a 429 with ``Retry-After``, and a
+degraded grant is served by the shortlist planner. With resilience wired
+``/execute`` reads the deadline header into the request's budget. Not
+ported yet: ``/explain``,
 ``/usage``, ``/slo``, ``/cluster`` and ``/debug/*``, with the parts they
 read.
 
@@ -53,6 +59,7 @@ from mcpx_torch.core.dag import Plan, PlanValidationError
 from mcpx_torch.core.errors import PlannerError, RegistryError
 from mcpx_torch.core.trace import new_trace_id
 from mcpx_torch.registry.base import ServiceRecord
+from mcpx_torch.scheduler.admission import ShedError
 from mcpx_torch.server.control import ControlPlane
 from mcpx_torch.telemetry import metrics as metrics_mod
 from mcpx_torch.telemetry import tracing
@@ -78,13 +85,13 @@ _UNTRACED = frozenset({
 })
 
 
-def _json_error(status: int, message: str, **extra: Any) -> web.Response:
+def _json_error(status: int, message: str, *, headers: Any = None, **extra: Any) -> web.Response:
     """Error envelope. Carries the active trace's id, so a reported failure
     line leads straight to its trace at ``GET /traces/{id}``."""
     tid = tracing.current_trace_id()
     if tid is not None and "trace_id" not in extra:
         extra["trace_id"] = tid
-    return web.json_response({"error": message, **extra}, status=status)
+    return web.json_response({"error": message, **extra}, status=status, headers=headers)
 
 
 async def _body(request: web.Request) -> dict[str, Any]:
@@ -191,17 +198,59 @@ def build_app(cp: ControlPlane) -> web.Application:
         intent = body.get("intent")
         if not isinstance(intent, str) or not intent.strip():
             return _json_error(400, "'intent' must be a non-empty string")
+        # The admission scheduler, read per request so it can be attached
+        # to a live server. None is the pass-through path, responses
+        # included (no "planner" field).
+        sched = cp.scheduler
+        slot = None
+        if sched is not None:
+            ctx = sched.context_from_headers(request.headers)
+            with tracing.span("sched.acquire", tenant=ctx.tenant, weight=ctx.weight) as ssp:
+                try:
+                    slot = await sched.acquire(ctx)
+                except ShedError as e:
+                    # The trace says which gate refused (rate, queue or
+                    # deadline).
+                    if ssp is not None:
+                        ssp.set(verdict=e.outcome, retry_after_s=e.retry_after_s)
+                    return _json_error(
+                        429, f"admission refused: {e}", retry_after_s=e.retry_after_s,
+                        headers={"Retry-After": e.retry_after_header()},
+                    )
+                if ssp is not None:
+                    # The queue wait and the ladder's tier, picked at grant
+                    # time.
+                    ssp.set(
+                        verdict="degraded" if slot.degraded else "admitted",
+                        queue_wait_ms=round(slot.queue_wait_s * 1e3, 3),
+                    )
         try:
-            p, latency_ms = await cp.plan(intent, tenant=_tenant_of(request))
+            p, latency_ms = await cp.plan(
+                intent,
+                degraded=slot.degraded if slot is not None else False,
+                # The grant's EDF deadline rides to the engine's locality
+                # sort; its tenant (else the tenant header) to the cache
+                # governor.
+                deadline_at=slot.ctx.deadline_at if slot is not None else None,
+                tenant=slot.ctx.tenant if slot is not None else _tenant_of(request),
+            )
         except PlannerError as e:
             return _json_error(422, f"planning failed: {e}")
-        return web.json_response({
+        finally:
+            if slot is not None:
+                sched.release(slot)
+        resp = {
             "graph": p.to_wire(),
             "explanation": p.explanation,
             # Which planner authored the plan ("llm" | "heuristic").
             "origin": p.origin,
             "latency_ms": round(latency_ms, 3),
-        })
+        }
+        if slot is not None:
+            # The ladder's tier: "primary" (the configured planner) or
+            # "degraded" (the shortlist planner under sustained overload).
+            resp["planner"] = "degraded" if slot.degraded else "primary"
+        return web.json_response(resp)
 
     # --------------------------------------------------------------- execute
     async def execute(request: web.Request) -> web.Response:
@@ -218,7 +267,18 @@ def build_app(cp: ControlPlane) -> web.Application:
             plan_obj = Plan.from_wire(graph)
         except PlanValidationError as e:
             return _json_error(422, "invalid graph", problems=e.problems)
-        result = await cp.execute(plan_obj, payload)
+        # The deadline header becomes the request's attempt budget, read
+        # only while resilience is wired: without it the header is not
+        # parsed and this path is the pass-through.
+        deadline_ms = None
+        if cp.orchestrator.resilience is not None:
+            raw = request.headers.get(cp.config.resilience.deadline_header)
+            if raw:
+                try:
+                    deadline_ms = float(raw)
+                except ValueError:
+                    pass  # scheduling hints never 400 a valid graph
+        result = await cp.execute(plan_obj, payload, deadline_ms=deadline_ms)
         return web.json_response(result.to_dict())
 
     # ------------------------------------------------------ plan_and_execute

@@ -8,9 +8,14 @@ telemetry-adaptive replan loop over a pinned prompt prefix; the metrics
 registry (``metrics``, shared with the orchestrator, the planner and the
 engine) and the request tracer (``tracer``, built from ``config.tracing``
 and read per request by the HTTP middleware, so it can be swapped on a live
-server), with the ``plan`` and ``plan.context`` spans. Not ported yet: the
-scheduler's degraded tier (``plan(degraded=)``), decision provenance, the
-cost ledger, SLOs and the flight recorder.
+server), with the ``plan`` and ``plan.context`` spans; the admission
+scheduler (``scheduler``, read per request by the ``/plan`` handler, so it
+can be attached to a live control plane) and its degraded tier
+(``plan(degraded=)`` serves ``degraded_planner``, a ``HeuristicPlanner``
+over the retrieval shortlist, and never writes a plan cache tier); the
+``/execute`` deadline (``execute(deadline_ms=)``), a budget inside the
+orchestrator's attempt chains while resilience is wired. Not ported yet:
+decision provenance, the cost ledger, SLOs and the flight recorder.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from mcpx_torch.core.dag import Plan
 from mcpx_torch.core.trace import ExecutionTrace
 from mcpx_torch.orchestrator.executor import ExecuteResult, Orchestrator
 from mcpx_torch.planner.base import PlanContext, Planner
+from mcpx_torch.planner.heuristic import HeuristicPlanner
 from mcpx_torch.registry.base import RegistryBackend
 from mcpx_torch.telemetry import tracing
 from mcpx_torch.telemetry.metrics import Metrics
@@ -61,6 +67,7 @@ class ControlPlane:
         redis_plan_cache: Any = None,  # mcpx_torch.server.plan_cache.RedisPlanCache
         metrics: Optional[Metrics] = None,
         tracer: Optional[Tracer] = None,
+        scheduler: Any = None,  # mcpx_torch.scheduler.Scheduler (None = pass-through)
     ) -> None:
         self.config = config or MCPXConfig()
         self.registry = registry
@@ -77,6 +84,14 @@ class ControlPlane:
         self.retriever = retriever
         self.replan_policy = replan_policy or ReplanPolicy(self.config.telemetry)
         self.redis_plan_cache = redis_plan_cache
+        # The /plan admission scheduler: read per request by the handler,
+        # so it can be attached to or detached from a live control plane.
+        # ``scheduler.burn_aware`` has nothing to read while ``slo.enabled``
+        # is refused, as in the reference without an SLO tracker.
+        self.scheduler = scheduler
+        # Degradation target: the model-free shortlist planner, still over
+        # the retrieval shortlist through ``_context``.
+        self.degraded_planner = HeuristicPlanner(self.config.planner)
         self._plan_cache: OrderedDict[tuple[str, int], Plan] = OrderedDict()
         self._cache_writes: set = set()  # in-flight shared-tier writes
         # Plain-int plan-cache counters for GET /cache.
@@ -110,15 +125,21 @@ class ControlPlane:
         intent: str,
         *,
         use_cache: bool = True,
+        degraded: bool = False,
         deadline_at: Optional[float] = None,
         tenant: str = "default",
     ) -> tuple[Plan, float]:
-        """Plan an intent; returns (plan, latency_ms). ``deadline_at``
-        (monotonic) rides the PlanContext to the engine so prefix-locality
-        admission never regroups a request whose deadline can't afford it;
-        ``tenant`` rides along to the engine."""
+        """Plan an intent; returns (plan, latency_ms). ``degraded=True`` (the
+        scheduler's degradation ladder) serves ``degraded_planner`` instead
+        of the configured planner: cache reads stay on (a hit returns an
+        earlier LLM plan at heuristic cost), but a degraded plan is never
+        written to either cache tier, or it would go on serving after the
+        ladder recovers. ``deadline_at`` (monotonic) rides the PlanContext
+        to the engine so prefix-locality admission never regroups a request
+        whose deadline can't afford it; ``tenant`` rides along to the
+        engine's cache governor."""
         t0 = time.monotonic()
-        with tracing.span("plan", path="primary") as sp:
+        with tracing.span("plan", path="degraded" if degraded else "primary") as sp:
             version = await self.registry.version()
             key = (intent, version)
             local_tier = self.config.planner.plan_cache_size > 0
@@ -149,7 +170,7 @@ class ControlPlane:
                 self.metrics.plan_cache.labels(result="miss").inc()
                 if sp is not None:
                     sp.set(cache="miss")
-            planner = self.planner
+            planner = self.degraded_planner if degraded else self.planner
             if sp is not None:
                 sp.set(planner=type(planner).__name__)
             with tracing.span("plan.context"):
@@ -168,9 +189,9 @@ class ControlPlane:
                 raise
             if sp is not None:
                 sp.set(origin=plan.origin or "unknown")
-            if use_cache and local_tier:
+            if use_cache and not degraded and local_tier:
                 self._cache_put(key, plan)
-            if use_cache and self.redis_plan_cache is not None:
+            if use_cache and not degraded and self.redis_plan_cache is not None:
                 self._redis_cache_write(intent, version, plan)
             return plan, (time.monotonic() - t0) * 1e3
 
@@ -229,8 +250,13 @@ class ControlPlane:
         plan: Plan,
         payload: dict[str, Any],
         trace: Optional[ExecutionTrace] = None,
+        *,
+        deadline_ms: Optional[float] = None,
     ) -> ExecuteResult:
-        return await self.orchestrator.execute(plan, payload, trace)
+        """``deadline_ms`` (the /execute deadline header, parsed by the
+        handler only while resilience is wired) becomes the request's
+        deadline budget inside the orchestrator's attempt chains."""
+        return await self.orchestrator.execute(plan, payload, trace, deadline_ms=deadline_ms)
 
     # ------------------------------------------------------- plan_and_execute
     async def plan_and_execute(

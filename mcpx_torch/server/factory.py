@@ -4,8 +4,13 @@ Trimmed PyTorch-port copy of ``mcpx/server/factory.py`` for
 ``planner.kind`` in {"llm", "heuristic"} over the in-memory registry: the
 telemetry store, one ``Metrics`` registry shared by the orchestrator, the
 planner's engine and the control plane, the orchestrator over an injected
-transport, the replan policy and the optional Redis plan-cache tier. The
-control plane builds its tracer from ``config.tracing``. Options the reference
+transport, the replan policy and the optional Redis plan-cache tier; the
+``/plan`` admission scheduler (``scheduler.enabled``, over the engine's
+``queue_stats``), the resilience facade (``resilience.enabled``: breakers,
+deadline budgets, hedges, breaker-fed replan exclusions) and the seeded
+chaos transport (``resilience.chaos_profile``, wrapped outside the
+resilience gate). The control plane builds its tracer from
+``config.tracing``. Options the reference
 factory reads that the port does not serve yet raise ``ConfigError``
 naming the option. ``device=None`` means the GPU and raises without CUDA;
 pass ``device="cpu"`` for the plain PyTorch path.
@@ -26,7 +31,10 @@ from mcpx_torch.planner.base import Planner
 from mcpx_torch.planner.heuristic import HeuristicPlanner
 from mcpx_torch.registry import make_registry
 from mcpx_torch.registry.base import RegistryBackend
+from mcpx_torch.resilience import Resilience
+from mcpx_torch.resilience.chaos import ChaosProfile, ChaosTransport
 from mcpx_torch.retrieval.index import RetrievalIndex
+from mcpx_torch.scheduler import Scheduler
 from mcpx_torch.server.control import ControlPlane
 from mcpx_torch.server.plan_cache import RedisPlanCache
 from mcpx_torch.telemetry.metrics import Metrics
@@ -40,9 +48,6 @@ def _refuse_unserved(config: MCPXConfig) -> None:
     refused = (
         ("cluster.enabled", config.cluster.enabled),
         ("cluster.shard_registry", config.cluster.shard_registry),
-        ("scheduler.enabled", config.scheduler.enabled),
-        ("resilience.enabled", config.resilience.enabled),
-        ("resilience.chaos_profile", config.resilience.chaos_profile),
         ("retrieval.snapshot_path", config.retrieval.snapshot_path),
         # The telemetry mirror: built by the reference only while telemetry
         # is enabled (the default).
@@ -82,8 +87,20 @@ def build_control_plane(
             config.planner.plan_cache_redis_url, ttl_s=config.planner.plan_cache_redis_ttl_s
         )
     metrics = Metrics()
+    if config.resilience.chaos_profile:
+        # Every service call crosses the seeded fault injector, wrapped
+        # outside the resilience gate, so the same fault profile can be
+        # served with resilience on and off. A profile's "cluster" section
+        # is an engine-pool fault, read only with cluster.enabled (refused).
+        transport = ChaosTransport(transport, ChaosProfile.from_file(config.resilience.chaos_profile))
+    resilience = (
+        Resilience(config.resilience, telemetry=telemetry, metrics=metrics)
+        if config.resilience.enabled
+        else None
+    )
     orchestrator = Orchestrator(
-        transport, config.orchestrator, registry=registry, telemetry=telemetry, metrics=metrics
+        transport, config.orchestrator, registry=registry, telemetry=telemetry, metrics=metrics,
+        resilience=resilience,
     )
     if planner is None:
         if config.planner.kind == "heuristic":
@@ -96,6 +113,15 @@ def build_control_plane(
             raise ConfigError(
                 f"planner.kind={config.planner.kind!r} is not ported to mcpx_torch yet"
             )
+    scheduler = None
+    if config.scheduler.enabled:
+        # The engine's queue ETA floors the scheduler's own estimate; a
+        # heuristic planner has no engine, and the scheduler then estimates
+        # from its own grant and release accounting alone.
+        engine = getattr(planner, "engine", None)
+        scheduler = Scheduler(
+            config.scheduler, metrics, engine_stats=engine.queue_stats if engine is not None else None
+        )
     return ControlPlane(
         config=config,
         registry=registry,
@@ -104,6 +130,11 @@ def build_control_plane(
         telemetry=telemetry,
         metrics=metrics,
         retriever=retriever,
-        replan_policy=ReplanPolicy(config.telemetry),
+        # Breaker state feeds replan exclusions: a learned-down endpoint is
+        # routed around at plan time, not rediscovered per execute.
+        replan_policy=ReplanPolicy(
+            config.telemetry, breakers=resilience.breakers if resilience is not None else None
+        ),
         redis_plan_cache=redis_plan_cache,
+        scheduler=scheduler,
     )

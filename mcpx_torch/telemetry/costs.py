@@ -198,6 +198,7 @@ def forward_cost(
     unembed_cols: int,
     forwards: int = 1,
     elt_bytes: int = 2,
+    quantized: bool = False,
 ) -> tuple[float, float]:
     """(FLOPs, bytes) of ``forwards`` model forwards over ``batch`` rows of
     ``width`` token slots each, as the port computes them:
@@ -214,7 +215,10 @@ def forward_cost(
     and bytes: the layer weights and the unembedded embedding rows read
     once, every slot's embedding row read, each row's K and V over
     ``context`` read and every slot's K and V written, the fp32 logits
-    written, at ``elt_bytes`` per weight and cache element."""
+    written, at ``elt_bytes`` per weight and cache element. With
+    ``quantized`` (int8 weights, ``models/gemma/quant.py``) a weight is one
+    byte, plus a 4-byte scale per output channel of each matrix and per
+    embedding row read; the cache stays at ``elt_bytes``."""
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L, Fd = cfg.n_layers, cfg.d_ff
     slots = batch * width
@@ -224,8 +228,16 @@ def forward_cost(
         + 4.0 * slots * H * hd * context * L
         + 2.0 * unembed_rows * unembed_cols * D
     )
+    embed_rows = unembed_cols + slots
+    if quantized:
+        # Output channels: wq H*hd, wk and wv K*hd, wo D, w_gate and w_up F,
+        # w_down D.
+        layer_scales = H * hd + 2 * K * hd + 2 * D + 2 * Fd
+        weight_bytes = layer_weights * L + 4.0 * layer_scales * L + embed_rows * (D + 4.0)
+    else:
+        weight_bytes = (layer_weights * L + embed_rows * D) * elt_bytes
     nbytes = (
-        (layer_weights * L + unembed_cols * D + slots * D) * elt_bytes
+        weight_bytes
         + 2.0 * batch * context * K * hd * L * elt_bytes
         + 2.0 * slots * K * hd * L * elt_bytes
         + 4.0 * unembed_rows * unembed_cols
@@ -243,7 +255,8 @@ def spill_copy_cost(cfg: Any, *, pages: int, page_size: int, elt_bytes: int) -> 
 
 
 def window_cost(
-    cfg: Any, body: str, *, batch: int, width: int, context: int, columns: int, forwards: int
+    cfg: Any, body: str, *, batch: int, width: int, context: int, columns: int, forwards: int,
+    quantized: bool = False,
 ) -> tuple[float, float]:
     """(FLOPs, bytes) of one decode window of ``body`` (the engine's window
     key): :func:`forward_cost` of its ``forwards`` forwards over the whole
@@ -257,7 +270,8 @@ def window_cost(
       - ``spec`` (speculative, ``width`` = K + 1): every slot over the
         vocabulary, plus the drafter's K scoring products a row and
         forward (``drafter_flops_per_token`` each), each reading the
-        embedding table and writing [batch, V] fp32 scores."""
+        embedding table (int8 rows and their scales with ``quantized``) and
+        writing [batch, V] fp32 scores."""
     from mcpx_torch.engine.speculative import drafter_flops_per_token
 
     V, D = cfg.vocab_size, cfg.d_model
@@ -265,12 +279,13 @@ def window_cost(
     flops, nbytes = forward_cost(
         cfg, batch=batch, width=width, context=context,
         unembed_rows=batch * width if every_slot else batch,
-        unembed_cols=columns if body == "draft" else V, forwards=forwards,
+        unembed_cols=columns if body == "draft" else V, forwards=forwards, quantized=quantized,
     )
     if body == "spec":
         drafts = forwards * (width - 1)
+        table = V * (D + 4.0) if quantized else V * D * 2
         flops += drafts * batch * drafter_flops_per_token(D, V)
-        nbytes += drafts * (V * D * 2 + 4.0 * batch * V)
+        nbytes += drafts * (table + 4.0 * batch * V)
     return flops, nbytes
 
 

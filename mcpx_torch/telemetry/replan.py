@@ -1,15 +1,16 @@
 """Telemetry-adaptive replanning policy.
 
-PyTorch-port copy of ``mcpx/telemetry/replan.py`` without the circuit-breaker
-exclusions, which come with the resilience facade (refused by the factory
-until it is ported). After an execution, a plan is re-attempted (bounded by
-``max_replans``) when
+PyTorch-port copy of ``mcpx/telemetry/replan.py``. After an execution, a
+plan is re-attempted (bounded by ``max_replans``) when
 
   - a node finally failed (its service goes on the exclusion list), or
   - a planned service's live EWMA error-rate breaches
     ``replan_error_rate``, or
   - its observed EWMA latency exceeds ``replan_latency_factor`` × the
-    registry's declared ``cost_profile.latency_ms``.
+    registry's declared ``cost_profile.latency_ms``, or
+  - its primary endpoint's circuit breaker is open (``resilience/``): the
+    executor has already learned the endpoint is down, so the replan
+    routes around it instead of rediscovering the outage.
 
 The excluded services feed ``PlanContext.exclude`` so the next plan routes
 around them.
@@ -18,7 +19,7 @@ around them.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 from mcpx_torch.core.config import TelemetryConfig
 from mcpx_torch.core.dag import Plan
@@ -35,8 +36,14 @@ class ReplanDecision:
 
 
 class ReplanPolicy:
-    def __init__(self, config: Optional[TelemetryConfig] = None) -> None:
+    def __init__(
+        self,
+        config: Optional[TelemetryConfig] = None,
+        *,
+        breakers: Any = None,  # mcpx_torch.resilience.breaker.BreakerRegistry
+    ) -> None:
         self._cfg = config or TelemetryConfig()
+        self._breakers = breakers
 
     @property
     def max_replans(self) -> int:
@@ -59,6 +66,14 @@ class ReplanPolicy:
                 service = name
             decision.exclude.add(service)
             decision.reasons.append(f"node '{name}' failed: {error}")
+        if self._breakers is not None and records:
+            # Circuit-breaker exclusions: a service whose primary endpoint is
+            # inside an open cool-down is known-down right now; exclude it
+            # even if its EWMA (dominated by older successes) looks healthy.
+            for service in sorted(self._breakers.open_services(records)):
+                if any(n.service == service for n in plan.nodes):
+                    decision.exclude.add(service)
+                    decision.reasons.append(f"service '{service}' primary endpoint circuit breaker open")
         for node in plan.nodes:
             stats = telemetry.get(node.service)
             if stats is None:

@@ -4,7 +4,8 @@ no more), the execute phase's prompt checks, failing transport, rounds of
 executions (``Lockstep``) and probe exclusion, the telemetry phase (its
 exposition parser, its latency attribution against the reference bench's,
 and the phase itself on a CPU control plane), the mixed, speculation and
-heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines."""
+heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines, and
+the int8, overload and chaos phases on CPU control planes."""
 
 import os
 import sys
@@ -344,3 +345,60 @@ def test_tier_phase_runs_on_a_cpu_engine():
     assert tier["chaos"]["chaos_alloc_failures"] > 0
     assert all(tier[m]["captures_per_round"][1:] == [0] * (len(tier[m]["captures_per_round"]) - 1)
                for m in ("single", "tiered", "chaos"))
+
+
+def test_int8_overload_and_chaos_phases_run_on_cpu_control_planes():
+    """The int8, overload and chaos phases on the CPU: ``int8_phase`` at the
+    test width (batch 8, four intents) against a bf16 burst of the same
+    intents, with the chaos phase (the bench's profile, 160 requests, the
+    400 ms deadline) on its control plane; ``overload_phase`` with three
+    dozen requests on a serving control plane. Each gates as on the card."""
+    import asyncio
+    import random
+    import time
+
+    from mcpx_torch.models.gemma.params import n_bytes
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    async def bf16_burst():
+        cfg = chip_smoke.config("test", chip_smoke.CKPT, 8)
+        cfg.engine.warmup_compile = False
+        cp = build_control_plane(cfg, device="cpu")
+        records = synth_registry(1000, seed=0)
+        for rec in records:
+            await cp.registry.put(rec)
+        await cp.startup()
+        engine = cp.planner.engine
+        await engine.drop_unpinned()
+        try:
+            rng = random.Random(0)
+            intents = [intent_for(records, rng) for _ in range(4)]
+            t0 = time.monotonic()
+            with chip_smoke.one_cohort(engine, len(intents)):
+                plans = [p for p, _ in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
+            rate = len(intents) / (time.monotonic() - t0)
+            ovl = await chip_smoke.overload_phase(cp, records, "test", "cpu", rate, 36)
+            return {"plans": plans, "weight_bytes": n_bytes(engine._params), "max_memory_allocated": None}, ovl
+        finally:
+            await cp.aclose()
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        bf16, ovl = asyncio.run(bf16_burst())
+        int8 = asyncio.run(chip_smoke.int8_phase(
+            "test", chip_smoke.CKPT, 4, "cpu", bf16, batch=8, device="cpu",
+            after=lambda cp: chip_smoke.chaos_phase(cp, "test", "cpu"),
+        ))
+    finally:
+        torch.set_num_threads(n)
+    assert ovl["admitted"] + ovl["degraded"] + ovl["shed"] == 36 and ovl["error"] == 0
+    assert ovl["shed"] + ovl["degraded"] > 0 and ovl["pins_left"] == 0
+    assert int8["weight_bytes"]["int8"] < 0.75 * int8["weight_bytes"]["bf16"]
+    assert int8["quantized_param_bytes"]["2b"] < int8["quantized_param_bytes"]["7b"]
+    assert int8["live_forwards"] > 0 and int8["origins"].get("llm", 0) > 0
+    chaos = int8["after"]
+    assert chaos["baseline"]["returned"] == chaos["resilient"]["returned"] == 160
+    assert chaos["resilient"]["breaker_transitions"]["open"] >= 1
+    assert chaos["resilient"]["hedges"]["launched"] >= 1

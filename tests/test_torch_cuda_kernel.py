@@ -271,7 +271,8 @@ def window_engine(cuda, request):
     card with three requests admitted by hand, greedy unless the test is
     parametrised with a temperature (or with "hetero", "spec", "spec_hot"
     or "spec_grammar": the heterogeneous slab, speculation off or on, with
-    rows at 0.8, or with the grammar draft mode); torn down through
+    rows at 0.8, or with the grammar draft mode; "int8" and "int8_spec":
+    int8 weights, homogeneous or speculative); torn down through
     ``_shutdown``, which drops its graphs and releases the capturing
     stream's ticket buffer."""
     from collections import deque
@@ -280,10 +281,15 @@ def window_engine(cuda, request):
     from mcpx_torch.engine.engine import InferenceEngine
 
     param = getattr(request, "param", 0.0)
+    # "int8" and "int8_spec": int8 weights, the homogeneous slab or the
+    # speculative one.
+    quantize = "int8" if isinstance(param, str) and param.startswith("int8") else "none"
+    if quantize == "int8":
+        param = "spec" if param == "int8_spec" else 0.0
     slab = param if isinstance(param, str) else None  # the heterogeneous slab
     temperature = 0.8 if slab == "spec_hot" else 0.0 if slab else param
     cfg = MCPXConfig.from_dict({
-        "model": {"size": "test", "max_seq_len": 256},
+        "model": {"size": "test", "max_seq_len": 256, "quantize": quantize},
         "engine": {
             "max_batch_size": 8, "max_decode_len": 48, "kv_page_size": 16,
             "max_pages_per_seq": 16, "temperature": temperature, "hetero_batch": slab is not None,
@@ -475,3 +481,53 @@ def test_argmax_breaks_ties_at_the_first_maximum_on_the_card(cuda):
     vocab = sampling.sample_rows(logits[:, 0], None, temps, mask=mask)
     compact = active[sampling.sample_rows(logits[:, 0][:, active], None, temps)]
     assert bool((window == 7).all()) and bool((vocab == 7).all()) and bool((compact == 7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window_engine", ["int8", "int8_spec"], indirect=True)
+def test_int8_windows_replay_what_eager_runs(window_engine):
+    """Int8 weights dequantized per layer inside a captured window (the
+    temporaries from the graph's pool): from one snapshot, eager, the
+    capture's warm-up and the replay end bitwise equal, the rows advanced,
+    and the replay launched the ragged kernel once a layer a forward."""
+    from mcpx_torch.models.gemma.quant import is_quantized
+
+    eng = window_engine
+    assert is_quantized(eng._params) and eng._params["layers"]["wq"]["int8"].dtype == torch.int8
+    slab = eng._slab
+    key, dfa = eng._window_plan(slab)
+    snap = chip_smoke.window_state(eng)
+    ends = []
+    for run in ("eager", "capture", "replay"):
+        chip_smoke.set_window_state(eng, snap)
+        n0 = tk.kernel_launches()["ragged_paged_attention"]
+        if run == "eager":
+            eng._window(slab, key, dfa)
+        else:
+            eng._run_window(slab, key, dfa)
+        torch.cuda.synchronize()
+        if run == "replay":
+            assert tk.kernel_launches()["ragged_paged_attention"] - n0 == eng.model_cfg.n_layers * key[5]
+        ends.append(chip_smoke.window_state(eng))
+    assert eng._stats["captures"] == 1 and eng._stats["replays"] == 1
+    for name in snap:
+        assert torch.equal(ends[0][name], ends[1][name]), name
+        assert torch.equal(ends[0][name], ends[2][name]), name
+    assert bool((ends[2]["slab.emitted"] > snap["slab.emitted"]).any())
+
+
+@pytest.mark.cuda
+def test_int8_quantize_on_the_card_is_bit_equal_to_the_cpu(cuda):
+    """The committed checkpoint quantized on the card and on the CPU: equal
+    int8 codes and f32 scales, bit for bit (a scale divided by a host
+    scalar on CUDA is multiplied by its reciprocal, an ulp off, and flips
+    codes)."""
+    from mcpx_torch.models.gemma.params import load_npz
+    from mcpx_torch.models.gemma.quant import quantize_params
+
+    q = {d: quantize_params(load_npz(chip_smoke.CKPT, d, torch.float32)) for d in (cuda, "cpu")}
+    for name in ("embed", "wq", "wo", "w_down"):
+        a = q[cuda]["embed"] if name == "embed" else q[cuda]["layers"][name]
+        b = q["cpu"]["embed"] if name == "embed" else q["cpu"]["layers"][name]
+        assert torch.equal(a["int8"].cpu(), b["int8"]), name
+        assert torch.equal(a["scale"].cpu().view(torch.int32), b["scale"].view(torch.int32)), name

@@ -443,7 +443,9 @@ def test_options_the_port_does_not_serve_are_refused(section, key, value):
     """The options the port does not serve yet are refused by name; the
     heterogeneous slab and speculative decoding are served (speculation on
     the heterogeneous slab, where its drafter has the stacked grammars), and
-    so is the tiered KV cache (its spill tier and governor under the tree)."""
+    so are the tiered KV cache (its spill tier and governor under the tree)
+    and weight-only int8 (an int8 tree after start-up,
+    ``tests/test_torch_quant.py``)."""
     cfg = {"model": {"size": "test", "max_seq_len": 256}, "engine": {}}
     if section is None:
         assert InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu").config.engine.draft_mode == "prompt"
@@ -454,6 +456,10 @@ def test_options_the_port_does_not_serve_are_refused(section, key, value):
         eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
         assert eng.config.engine.hetero_batch
         assert eng._spec_k() == (eng.config.engine.speculative.k if key == "speculative" else 0)
+        return
+    if key == "quantize":
+        eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
+        assert eng._quantized and eng.config.model.quantize == "int8"
         return
     if key == "kv_tier":
         eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")

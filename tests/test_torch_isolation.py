@@ -6,7 +6,9 @@ only ``mcpx_torch.server.app`` imports aiohttp at module level (the HTTP
 transport imports it inside its methods, the Redis plan cache imports redis
 at its first use), nothing imports prometheus_client (the port's metrics are
 its own), and the control plane serves ``/plan`` and ``/plan_and_execute``,
-traced, and renders its metrics with all three blocked."""
+traced, renders its metrics, admits through the scheduler, executes through
+the resilience facade over the chaos transport, and serves an int8 engine,
+with all three blocked."""
 
 import ast
 import os
@@ -34,6 +36,18 @@ def _port_sources() -> list[str]:
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in ("jax", "jaxlib", "flax", "mcpx")
+
+
+def test_walk_covers_every_module_of_the_port():
+    """The walk sees every module, the int8, scheduler and resilience ones
+    among them."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in (
+        "models/gemma/quant.py", "scheduler/admission.py", "scheduler/fairness.py",
+        "scheduler/degrade.py", "scheduler/scheduler.py", "resilience/__init__.py",
+        "resilience/breaker.py", "resilience/budget.py", "resilience/hedge.py", "resilience/chaos.py",
+    ):
+        assert f"mcpx_torch/{module}" in rel, module
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -156,11 +170,31 @@ async def go():
         out = await cp.plan_and_execute("do a", {{}})
     cp.tracer.finish(root)
     assert plan.nodes and out["status"] == "ok", out
+    # The admission scheduler, the resilience facade and the chaos
+    # transport, with the optional packages blocked.
+    import json, os, tempfile
+    with tempfile.TemporaryDirectory() as d:
+        profile = os.path.join(d, "chaos.json")
+        with open(profile, "w") as f:
+            json.dump({{"seed": 1, "endpoints": {{"local://none": {{"error_rate": 1.0}}}}}}, f)
+        cfg = MCPXConfig.from_dict({{
+            "planner": {{"kind": "heuristic"}}, "scheduler": {{"enabled": True}},
+            "resilience": {{"enabled": True, "chaos_profile": profile}},
+        }})
+        res = build_control_plane(cfg, transport=RouterTransport(local=local), device="cpu")
+    await res.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a", description="do a"))
+    slot = await res.scheduler.acquire(res.scheduler.context_from_headers({{}}))
+    try:
+        plan, _ = await res.plan("do a", degraded=slot.degraded, deadline_at=slot.ctx.deadline_at)
+    finally:
+        res.scheduler.release(slot)
+    result = await res.execute(plan, {{}}, deadline_ms=500.0)
+    assert result.status == "ok" and res.orchestrator.resilience is not None
     assert {{"plan", "execute", "node:svc-a", "attempt"}} <= {{s.name for s in root.record.spans}}
     text = cp.metrics.render().decode() + cp.metrics.render(openmetrics=True).decode()
     assert 'mcpx_node_attempts_total{{kind="primary",status="ok"}} 1.0' in text
     small = {{
-        "planner": {{"kind": "llm"}}, "model": {{"size": "test", "max_seq_len": 256}},
+        "planner": {{"kind": "llm"}}, "model": {{"size": "test", "max_seq_len": 256, "quantize": "int8"}},
         "engine": {{"max_batch_size": 2, "max_decode_len": 16, "kv_page_size": 16, "max_pages_per_seq": 16}},
     }}
     llm = build_control_plane(MCPXConfig.from_dict(small), device="cpu")

@@ -3,8 +3,9 @@ CPU:
 
   - the factory serves no option it ignores: each option the reference
     factory reads that the port does not serve raises ``ConfigError``
-    naming it; the default-on telemetry and the Redis plan-cache tier are
-    served;
+    naming it; the default-on telemetry, the Redis plan-cache tier, the
+    admission scheduler, the resilience facade and the chaos transport are
+    served and wired;
   - sampled decoding (the configs' default ``temperature=0.2``) draws from
     the exact softmax of the masked, scaled and top-k-cut logits, in both
     packages: many draws from fixed logits, their counts held to the exact
@@ -63,9 +64,6 @@ def one_cpu_thread():
     [
         ("cluster", "enabled", True),
         ("cluster", "shard_registry", True),
-        ("scheduler", "enabled", True),
-        ("resilience", "enabled", True),
-        ("resilience", "chaos_profile", "chaos.json"),
         ("retrieval", "snapshot_path", "index.npz"),
         ("telemetry", "redis_url", "redis://localhost:6379/0"),
         # The reference's control plane builds these default-off parts.
@@ -100,6 +98,47 @@ def test_factory_refuses_options_the_port_does_not_serve(section, key, value):
     node[leaf] = value
     with pytest.raises(ConfigError, match=re.escape(f"{section}.{key}")):
         build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["scheduler.enabled", "resilience.enabled", "resilience.chaos_profile"])
+def test_factory_serves_and_wires_scheduler_resilience_and_chaos(tmp_path, option):
+    """The three options the factory refused until the scheduler and the
+    resilience layer were ported are served and wired as the reference's
+    factory wires them: the scheduler over the engine's queue stats, the
+    resilience facade into the orchestrator with its breakers feeding the
+    replan policy, the chaos transport around the transport (also with
+    resilience off)."""
+    from mcpx_torch.resilience import Resilience
+    from mcpx_torch.resilience.chaos import ChaosTransport
+    from mcpx_torch.scheduler import Scheduler
+
+    cfg = {"planner": {"kind": "heuristic"}}
+    if option == "scheduler.enabled":
+        cfg["scheduler"] = {"enabled": True}
+    elif option == "resilience.enabled":
+        cfg["resilience"] = {"enabled": True}
+    else:
+        profile = tmp_path / "chaos.json"
+        profile.write_text('{"seed": 3, "endpoints": {"local://x": {"error_rate": 0.5}}, '
+                           '"cluster": {"replica": 1, "at_s": 1.0, "down_s": 1.0}}')
+        cfg["resilience"] = {"chaos_profile": str(profile)}
+    cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+    res = cp.orchestrator.resilience
+    if option == "scheduler.enabled":
+        assert isinstance(cp.scheduler, Scheduler) and cp.scheduler._engine_stats is None
+        assert res is None
+    elif option == "resilience.enabled":
+        assert isinstance(res, Resilience) and cp.scheduler is None
+        assert cp.replan_policy._breakers is res.breakers
+        assert not isinstance(cp.orchestrator._transport, ChaosTransport)
+    else:
+        assert isinstance(cp.orchestrator._transport, ChaosTransport) and res is None
+        assert cp.orchestrator._transport._profile.seed == 3
+        assert cp.replan_policy._breakers is None
+    # The option's off state is the pass-through.
+    plain = build_control_plane(MCPXConfig.from_dict({"planner": {"kind": "heuristic"}}), device="cpu")
+    assert plain.scheduler is None and plain.orchestrator.resilience is None
+    assert not isinstance(plain.orchestrator._transport, ChaosTransport)
 
 
 # ------------------------------------------------------------ sampling
