@@ -110,6 +110,17 @@ Phases, one line each (every number beside the card's name and power limit):
  18. chaos (``chaos_test``), on phase 16's test control plane: the
      reference bench's chaos scenario, ``/execute`` over seeded faulty
      in-process tools with resilience off, then on (``chaos_phase``);
+ 19. the observatory (``observatory_test``, ``observatory_2b`` on the
+     serving engines after phase 9, ``observatory_spec_test`` on phase 12's
+     speculative control plane): telemetry's default-off parts (the cost
+     ledger, the SLO tracker, decision provenance, the flight recorder)
+     attached live, the burst served with them off and on in three
+     interleaved rounds, each request wrapped as the HTTP middleware wraps
+     it. Fails unless the plans are equal, nothing is captured, the ``sync``
+     waits are as many, the bills add up exactly to the ledger's and the
+     ``/costs`` totals, the explanations and a bundle are valid and the
+     kernel matches its plain version at the engine's pages; prints the
+     overhead fractions and p50 by arm (``observatory_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -1302,6 +1313,302 @@ async def telemetry_phase(cp, intents: list, burst_plans: list, size: str, card:
     return stats
 
 
+# ------------------------------------------------------------ observatory
+OBS_TENANT = "observatory"
+# The observatory's arms and the parts each attaches: ``ledger`` is the
+# reference bench's ledger phase (the ledger and the SLO tracker), ``flight``
+# its flight phase (the recorder; the worker profiler runs in every arm
+# here), ``all`` every part at once.
+OBS_ARMS = {
+    "off": (),
+    "ledger": ("ledger", "slo"),
+    "flight": ("flight",),
+    "all": ("ledger", "slo", "provenance", "flight"),
+}
+SLO_OBJECTIVES = ("latency_p99", "availability", "plan_quality")
+
+
+def kernel_at_pages(engine, width: int, live: int, where: str) -> float:
+    """The kernel against its plain version on seeded batches at an
+    engine's geometry (its heads, layers, page size and pages a row, its
+    window width, ``live`` rows live among the slab's): the largest
+    absolute error; fails on a disagreement or a pad that is not an exact
+    zero. None off the card (the plain version is the CPU's route)."""
+    if engine.device.type != "cuda":
+        return None
+    from mcpx_torch.engine.kernels.paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_reference,
+    )
+
+    mc, ecfg = engine.model_cfg, engine.config.engine
+    worst = 0.0
+    for seed in range(3):
+        q, kp, vp, table, starts, q_lens = mixed_batch(
+            seed, ecfg.max_batch_size, width, mc.n_kv_heads, mc.n_heads // mc.n_kv_heads, mc.head_dim,
+            mc.n_layers, ecfg.kv_page_size, ecfg.max_pages_per_seq, torch.bfloat16, live,
+        )
+        for layer in (0, mc.n_layers - 1):
+            out = ragged_paged_attention(q, kp, vp, table, starts, q_lens, layer)
+            torch.cuda.synchronize()
+            ref = ragged_paged_attention_reference(q, kp, vp, table, starts, q_lens, layer)
+            err = (out.float() - ref.float()).abs()
+            worst = max(worst, float(err.max()))
+            if bool((err > ATOL + RTOL * ref.float().abs()).any()):
+                raise SystemExit(f"{where}: kernel disagrees with plain version at the phase's pages (max {worst})")
+            for b, ql in enumerate(q_lens.tolist()):
+                if bool((out[b, ql:] != 0).any()):
+                    raise SystemExit(f"{where}: row {b} pads are not exact zeros")
+    return worst
+
+
+async def observatory_burst(cp, intents: list, tracer, gens: list, bills: list) -> tuple[list, list, list]:
+    """Each intent through ``ControlPlane.plan`` under a root span, wrapped
+    as the HTTP middleware wraps a request (the card has no aiohttp): a
+    ``RequestBill`` activated while a ledger is attached (finalized onto the
+    root span and into ``ledger.observe``, appended to ``bills`` in
+    completion order), a provenance trail begun and ended, an SLO observe.
+    Every engine result lands in ``gens``. Returns (plans, trace records,
+    latencies in ms) in intent order."""
+    from mcpx_torch.telemetry import ledger as ledger_mod
+    from mcpx_torch.telemetry import provenance, tracing
+
+    async def one(intent: str):
+        t0 = time.monotonic()
+        root = tracer.start_request("/plan", method="POST")
+        led, slo = cp.ledger, cp.slo
+        bill = token = None
+        if led is not None:
+            bill = ledger_mod.RequestBill(tenant=OBS_TENANT, endpoint="/plan", t0=t0)
+            token = ledger_mod.activate(bill)
+        trail = provenance.begin(cp.provenance) if root is not None else None
+        err = False
+        try:
+            with tracing.activate(root):
+                eng0 = bill.engine_wall_ms() if bill is not None else 0.0
+                plan, latency_ms = await cp.plan(intent, use_cache=False, tenant=OBS_TENANT)
+                if bill is not None:
+                    bill.note_plan(latency_ms, bill.engine_wall_ms() - eng0)
+                    bill.origin = plan.origin or ""
+            return plan, root.record
+        except Exception:
+            err = True
+            raise
+        finally:
+            provenance.end(trail)
+            elapsed_ms = (time.monotonic() - t0) * 1e3
+            if bill is not None:
+                ledger_mod.deactivate(token)
+                bill.finalize(status="error" if err else "ok", total_ms=elapsed_ms)
+                root.set(bill=bill.to_dict())
+                led.observe(bill)
+                bills.append(bill)
+            if slo is not None:
+                slo.observe(tenant=OBS_TENANT, endpoint="/plan", latency_ms=elapsed_ms, error=err)
+            tracer.finish(root, error=err)
+
+    engine = cp.planner.engine
+    real = engine.generate
+
+    async def counted(*a, **kw):
+        res = await real(*a, **kw)
+        gens.append(res)
+        return res
+
+    engine.generate = counted
+    try:
+        out = await asyncio.gather(*(one(i) for i in intents))
+    finally:
+        del engine.generate
+    return [p for p, _ in out], [r for _, r in out], [r.total_ms for _, r in out]
+
+
+async def observatory_phase(cp, intents: list, burst_plans: list, name: str, card: str) -> dict:
+    """Telemetry's default-off parts on a live serving control plane (the
+    reference bench's ledger and flight phases): the burst's intents from an
+    emptied tree and as one cohort, in three interleaved rounds of the
+    ``OBS_ARMS``: ``off`` (every part detached), ``ledger`` (the cost ledger
+    and the SLO tracker attached live), ``flight`` (a flight recorder
+    sampling at 4 Hz into a temporary bundle directory) and ``all`` (those
+    and a provenance recorder). Every run has a fresh tracer (every trace
+    kept) and a ``WorkerProfiler`` attached, which counts the worker's
+    blocking device waits (``sync``). Fails unless every run's plans equal
+    the ``off`` runs' and the burst's and its ``sync`` count theirs, and
+    unless, on every run with parts on, nothing is captured; with the
+    ledger, the bills' FLOPs and bytes folded with ``+=`` in completion
+    order equal the ``ledger_totals()`` delta and the ``/costs``
+    executed-totals delta exactly, each engine bill's ``decode_tokens``
+    equals its result's ``generated_tokens``, and the bills' accepted
+    speculative tokens equal the engine's ``accepted`` delta on the
+    speculative plane (0 on the homogeneous one, whose prompt drafts are no
+    speculation); with provenance, every trace's explanation is valid and
+    not empty; and unless the flight recorder sampled, a bundle captured
+    from a synthetic trip is valid, ``/usage`` and ``/slo``
+    (``ledger.snapshot()``, ``slo.status()``) name the tenant and the
+    objectives, and the kernel launched and matches its plain version at
+    the engine's pages. Prints ``ledger_overhead_frac`` and
+    ``flight_overhead_frac`` (1 - plans/s of that arm over ``off``, as the
+    reference bench reports them) and ``all_overhead_frac``, best of three
+    each, and p50 by arm."""
+    import shutil
+    import tempfile
+
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.telemetry.flight import WorkerProfiler, build_flight_recorder, validate_bundle
+    from mcpx_torch.telemetry.ledger import UsageLedger
+    from mcpx_torch.telemetry.provenance import ProvenanceRecorder, build_explanation, validate_explanation
+    from mcpx_torch.telemetry.slo import SLOTracker
+    from mcpx_torch.telemetry.tracing import Tracer
+
+    engine = cp.planner.engine
+    tcfg = cp.config.telemetry
+    fcfg = tcfg.flight
+    saved = (cp.tracer, cp.ledger, cp.slo, cp.flight, cp.provenance, engine._profiler, tcfg.ledger.enabled,
+             fcfg.enabled, fcfg.interval_s, fcfg.bundle_dir)
+    usage = UsageLedger(tcfg.ledger, metrics=cp.metrics)
+    slo = SLOTracker(cp.config.slo)
+    recorder = ProvenanceRecorder(tcfg.provenance, metrics=cp.metrics)
+    bundle_dir = tempfile.mkdtemp(prefix="mcpx-torch-flight-")
+    runs: dict = {arm: [] for arm in OBS_ARMS}
+    flight = None
+    await idle(engine)
+    q_start = engine.queue_stats()
+    sync()
+    reset_kernel_launches()
+    try:
+        for arm in list(OBS_ARMS) * 3:
+            await idle(engine)
+            await engine.drop_unpinned()
+            parts = OBS_ARMS[arm]
+            cp.ledger = usage if "ledger" in parts else None
+            cp.slo = slo if "slo" in parts else None
+            cp.provenance = recorder if "provenance" in parts else None
+            tcfg.ledger.enabled = "ledger" in parts
+            task = None
+            if "flight" in parts:
+                fcfg.enabled, fcfg.interval_s, fcfg.bundle_dir = True, 0.25, bundle_dir
+                flight = cp.flight = build_flight_recorder(cp)
+                task = asyncio.create_task(flight.run())
+            else:
+                cp.flight = None
+            cp.tracer = tracer = Tracer(enabled=True, sample_rate=1.0, ring_size=max(256, len(intents)))
+            engine._profiler = prof = WorkerProfiler()
+            gens, bills = [], []
+            q0, c0, lt0 = engine.queue_stats(), engine.costs.snapshot()["totals"], engine.ledger_totals()
+            t0 = time.monotonic()
+            try:
+                with one_cohort(engine, len(intents)):
+                    plans, recs, lat = await observatory_burst(cp, intents, tracer, gens, bills)
+                await idle(engine)
+                sync()
+                wall = time.monotonic() - t0
+            finally:
+                engine._profiler = None
+                if task is not None:
+                    task.cancel()
+                    with contextlib.suppress(asyncio.CancelledError):
+                        await task
+            await settle_profile()
+            q1, c1, lt1 = engine.queue_stats(), engine.costs.snapshot()["totals"], engine.ledger_totals()
+            flops = nbytes = 0.0
+            for b in bills:  # completion order
+                flops += b.flops
+                nbytes += b.hbm_bytes
+            runs[arm].append(dict(
+                plans=[p.to_json() for p in plans], wall_s=wall, plans_per_s=len(intents) / wall,
+                p50_ms=statistics.median(lat), captures=q1["captures"] - q0["captures"],
+                sync_waits=prof.snapshot()["phases"]["sync"]["count"],
+                bills=(flops, nbytes), ledger_totals=(lt1["flops"] - lt0["flops"], lt1["bytes"] - lt0["bytes"]),
+                costs=(c1["flops_executed"] - c0["flops_executed"], c1["bytes_executed"] - c0["bytes_executed"]),
+                engine_bills=[(r.generated_tokens, r.bill) for r in gens],
+                request_bills=len(bills), spec_accepted=sum(b.spec_accepted_tokens for b in bills),
+                accepted=q1["accepted"] - q0["accepted"],
+                explanations=[validate_explanation(build_explanation(r)) for r in recs],
+                decisions=sum(len(build_explanation(r)["decisions"]) for r in recs),
+            ))
+        launches = kernel_launches()
+        q_end = engine.queue_stats()
+        samples = flight.samples if flight is not None else 0
+        if flight is not None:
+            await flight.tick()
+            samples = flight.samples
+            trip = {"detector": "synthetic", "signal": "request_p99_ms", "direction": "high",
+                    "value": 1e9, "mean": 0.0, "band": 1.0}
+            bundle = await flight.load_bundle(await flight.capture_bundle(trip))
+            bundle_problems = validate_bundle(bundle)
+        else:
+            bundle_problems = ["no flight recorder"]
+        usage_body, slo_body = usage.snapshot(), slo.status()
+    finally:
+        (cp.tracer, cp.ledger, cp.slo, cp.flight, cp.provenance, engine._profiler, tcfg.ledger.enabled,
+         fcfg.enabled, fcfg.interval_s, fcfg.bundle_dir) = saved
+        shutil.rmtree(bundle_dir, ignore_errors=True)
+    width = engine._spec_k() + 1 if engine.config.engine.hetero_batch else engine._spec_chunk(True)
+    max_abs_err = kernel_at_pages(engine, width, len(intents), f"observatory_{name}")
+    best = {arm: max(r["plans_per_s"] for r in runs[arm]) for arm in OBS_ARMS}
+    on_runs = [r for arm in OBS_ARMS if arm != "off" for r in runs[arm]]
+    billed = [r for arm in OBS_ARMS if "ledger" in OBS_ARMS[arm] for r in runs[arm]]
+    objectives = [o["name"] for o in slo_body["global"]["objectives"]]
+    stats = dict(
+        model=name, intents=len(intents), launches=launches,
+        **loop_counts(engine, q_start, q_end, 3 * len(OBS_ARMS) * len(intents)),
+        ledger_overhead_frac=1.0 - best["ledger"] / best["off"],
+        flight_overhead_frac=1.0 - best["flight"] / best["off"],
+        all_overhead_frac=1.0 - best["all"] / best["off"],
+        plans_per_s={arm: [r["plans_per_s"] for r in runs[arm]] for arm in OBS_ARMS},
+        p50_ms={arm: [r["p50_ms"] for r in runs[arm]] for arm in OBS_ARMS},
+        sync_waits={arm: [r["sync_waits"] for r in runs[arm]] for arm in OBS_ARMS},
+        captures_on=[r["captures"] for r in on_runs],
+        conservation=[dict(bills=r["bills"], ledger_totals=r["ledger_totals"], costs=r["costs"]) for r in billed],
+        spec_accepted=[(r["spec_accepted"], r["accepted"]) for r in billed],
+        decisions=[r["decisions"] for r in runs["all"]], flight_samples=samples,
+        usage_tenants=sorted(usage_body["tenants"]), usage_requests=usage_body["requests"],
+        slo_objectives=objectives, slo_tenants=sorted(slo_body["tenants"]),
+        max_abs_err=max_abs_err, atol=ATOL, rtol=RTOL,
+    )
+    emit(f"observatory_{name}", card, **stats)
+    want = [p.to_json() for p in burst_plans]
+    off_plans = runs["off"][0]["plans"]
+    spec_plane = engine.config.engine.hetero_batch and engine._spec_k() > 0
+    sync_off = runs["off"][0]["sync_waits"]
+    for arm in OBS_ARMS:
+        for k, r in enumerate(runs[arm]):
+            where = f"observatory_{name} {arm} run {k}"
+            if r["plans"] != off_plans or r["plans"] != want:
+                raise SystemExit(f"{where}: plans differ from the parts-off run's or the burst's")
+            if r["sync_waits"] != sync_off:
+                raise SystemExit(f"{where}: {r['sync_waits']} sync waits, {sync_off} with the parts off")
+            parts = OBS_ARMS[arm]
+            if parts and r["captures"]:
+                raise SystemExit(f"{where}: {r['captures']} windows captured with the parts on")
+            if "provenance" in parts and (any(r["explanations"]) or r["decisions"] <= 0):
+                raise SystemExit(f"{where}: explanations invalid or empty: {r['explanations']}")
+            if "ledger" not in parts:
+                continue
+            if not (r["bills"] == r["ledger_totals"] == r["costs"]) or r["bills"][0] <= 0:
+                raise SystemExit(f"{where}: bills {r['bills']} != ledger_totals delta {r['ledger_totals']} "
+                                 f"!= /costs executed delta {r['costs']}")
+            if r["request_bills"] != len(intents) or any(
+                b is None or b["decode_tokens"] != n for n, b in r["engine_bills"]
+            ):
+                raise SystemExit(f"{where}: a bill's decode tokens differ from its result's: {r['engine_bills']}")
+            # The speculative plane's accepted tokens are all on bills; the
+            # homogeneous plane's prompt drafts are no speculative tokens
+            # (the reference bills only its verify segments').
+            if r["spec_accepted"] != (r["accepted"] if spec_plane else 0):
+                raise SystemExit(f"{where}: bills accepted {r['spec_accepted']} speculative tokens, "
+                                 f"the engine {r['accepted']} (speculative plane: {spec_plane})")
+    if samples < 1 or bundle_problems:
+        raise SystemExit(f"observatory_{name}: flight samples {samples}, bundle problems {bundle_problems}")
+    if OBS_TENANT not in usage_body["tenants"] or OBS_TENANT not in slo_body["tenants"] or (
+        tuple(objectives) != SLO_OBJECTIVES
+    ):
+        raise SystemExit(f"observatory_{name}: /usage or /slo misses the tenant or the objectives")
+    if launches.get("ragged_paged_attention", 0) <= 0 and engine.device.type == "cuda":
+        raise SystemExit(f"observatory_{name}: the ragged kernel was not launched")
+    return stats
+
+
 # ------------------------------------------------------------ execute path
 # ------------------------------------------------------------ heterogeneous slab and speculation
 HOT = 0.7  # the reference bench's sampled temperature
@@ -1535,13 +1842,16 @@ async def spec_phase(
 
 
 async def serve_hetero(
-    size: str, checkpoint: str, n_intents: int, card: str, ref_plans: list, batch: int = 64, device=None
-) -> dict:
+    size: str, checkpoint: str, n_intents: int, card: str, ref_plans: list, batch: int = 64, device=None,
+    after=None,
+) -> tuple[dict, object]:
     """One ``/plan`` burst through ``ControlPlane.plan`` on a control plane
     with ``hetero_batch`` and speculation (k 4) on: ``serve``'s intents, from
     an emptied tree and as one cohort, as ``serve`` sends them. Fails unless
     every plan is LLM-authored and equal to ``ref_plans`` and the verify
-    path ran. ``batch`` and ``device`` shrink it for a CPU rehearsal."""
+    path ran; then ``after(cp, intents, plans)`` on the same control plane
+    when given. Returns (stats, what ``after`` returned). ``batch`` and
+    ``device`` shrink it for a CPU rehearsal."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for, synth_registry
@@ -1585,7 +1895,8 @@ async def serve_hetero(
         if differ or stats["origins"] != {"llm": n_intents} or stats["spec_verify"] <= 0:
             raise SystemExit(f"serve_hetero_{size}: plans differ at {differ}, origins {stats['origins']}, "
                              f"verify windows {stats['spec_verify']}")
-        return stats
+        extra = await after(cp, intents, plans) if after is not None else None
+        return stats, extra
     finally:
         await cp.aclose()
 
@@ -2712,9 +3023,10 @@ def main(argv: list[str]) -> int:
         modes = await serve_modes(cp, intents, size, card, trained=size == "test", profile=args.profile)
         pfx = await prefix_reuse(cp, recs, size, n_unique, 4, card)
         tel = await telemetry_phase(cp, intents, plans, size, card)
+        obs = await observatory_phase(cp, intents, plans, size, card)
         mixed = await mixed_phase(cp, size, card)
         overload = await overload_phase(cp, recs, size, card, stats["plans_per_s"], n_overload)
-        return modes, pfx, tel, mixed, overload
+        return modes, pfx, (tel, obs), mixed, overload
 
     trained, trained_plans, (trained_modes, trained_pfx, trained_tel, trained_mixed, trained_ovl) = timed(
         "serve_test..overload_test", asyncio.run,
@@ -2729,7 +3041,11 @@ def main(argv: list[str]) -> int:
     for mode in ("off", "on"):
         if trained_pfx[mode]["origins"] != {"llm": 32}:
             raise SystemExit(f"serve_prefix_test {mode}: not every plan is LLM-authored")
-    hetero = timed("serve_hetero_test", asyncio.run, serve_hetero("test", CKPT, 16, card, trained_plans))
+    hetero, spec_obs = timed("serve_hetero_test, observatory_spec_test", asyncio.run, serve_hetero(
+        "test", CKPT, 16, card, trained_plans,
+        after=lambda cp, intents, plans: observatory_phase(cp, intents, plans, "spec_test", card),
+    ))
+    trained_tel, trained_obs = trained_tel
     int8_test = timed("int8_test, chaos_test", asyncio.run, int8_phase(
         "test", CKPT, 16, card, {**trained, "plans": trained_plans}, after=lambda cp: chaos_phase(cp, "test", card),
     ))
@@ -2738,6 +3054,7 @@ def main(argv: list[str]) -> int:
             "2b", "", 8, card, batch=64, profile=args.profile,
             after=lambda cp, recs, intents, plans, st: on_the_engine(cp, recs, intents, plans, st, "2b", 4, 128),
         ))
+    full_tel, full_obs = full_tel
     int8_2b = timed("int8_2b", asyncio.run, int8_phase("2b", "", 8, card, {**full, "plans": full_plans}))
     executed = [
         timed("execute_test", asyncio.run, execute_phase("test", CKPT, 16, card, batch=64)),
@@ -2756,7 +3073,7 @@ def main(argv: list[str]) -> int:
         mx[m] for mx in (trained_mixed, full_mixed) for m in ("drain", "hetero")
     ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero] + [
         t[m] for t in tiers for m in ("single", "tiered", "thrash", "chaos")
-    ] + [int8_test, int8_2b]
+    ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

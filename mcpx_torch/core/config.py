@@ -8,9 +8,12 @@ plain dataclass tree with no import-time side effects, validated explicitly by
 application factory, never at import.
 
 A copy of the reference package's config tree, so the same dicts load in
-both packages. The port reads only what its slice runs; fields for parts
-not ported yet (the HTTP server, telemetry, the mesh, ``use_pallas`` and
-``interpret``, which the port never reads: the tensor's device picks the
+both packages. The port reads what its slices serve (the HTTP server, the
+engine, the planner, the scheduler, resilience and telemetry, its
+default-off parts included); the factory refuses by name the options of
+parts not ported yet (``cluster.enabled``, ``cluster.shard_registry``,
+``retrieval.snapshot_path``), and fields the port has no use for (the
+mesh, ``use_pallas`` and ``interpret``: the tensor's device picks the
 attention route) are accepted and ignored.
 """
 

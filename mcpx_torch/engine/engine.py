@@ -82,10 +82,17 @@ the worker thread's ``engine.queue_wait`` / ``engine.prefill`` /
 ``engine.segment`` / ``engine.decode`` spans under the request's
 ``engine.generate`` span (explicit timestamps, no contextvar crosses the
 thread), the cost registry (``costs``: analytic FLOPs and bytes per
-executable, and the capture sentinel) and the worker-loop profiler
-(``telemetry.flight.profile_worker``, attachable live). Every metric and
-span reads host values the worker already holds: telemetry adds no device
-synchronisation and nothing inside a captured window.
+executable, and the capture sentinel), the worker-loop profiler
+(``telemetry.flight.profile_worker``, attachable live) and the cost ledger
+(``telemetry.ledger``, switchable live): the slab's per-row accumulators
+bill each request its suffix tokens, matched prefix, forwards, accepted
+speculative tokens, readmit copies, page-seconds and integer shares of the
+executed FLOPs and bytes (an admission's over its cohort, a segment's over
+the rows resident at its dispatch), returned as ``GenerateResult.bill``.
+Every metric, span and bill item reads host values the worker already
+holds (the per-row accepted tokens ride the segment's one packed copy,
+ledger on or off): telemetry adds no device synchronisation and nothing
+that changes a captured window.
 
 The tiered KV cache (``engine.kv_tier``, off by default): a host spill
 tier (``engine/spill.py``) and per-tenant governance
@@ -174,6 +181,7 @@ from mcpx_torch.planner.grammar import (
 )
 from mcpx_torch.scheduler.admission import ewma_update
 from mcpx_torch.scheduler.locality import locality_order
+from mcpx_torch.telemetry import ledger as ledger_mod
 from mcpx_torch.telemetry import tracing
 from mcpx_torch.telemetry.costs import (
     CostRegistry,
@@ -266,6 +274,11 @@ class GenerateResult:
     queue_ms: float
     prefill_ms: float
     decode_ms: float
+    # The engine's part of the request's cost-ledger bill
+    # (telemetry/ledger.py): a fresh dict built by the worker at retirement,
+    # handed across the thread by value and folded into the request's bill
+    # by generate(). None while telemetry.ledger is off.
+    bill: Optional[dict] = None
 
 
 def _bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -286,7 +299,8 @@ class _Slab:
     ``cur``), the heterogeneous slab's per-row ``temp``, ``cons``, ``dfa``
     and ``hstate`` (the drafter's state), plus the segment's counters
     (``counts``: live forwards, drafted and accepted tokens, and the
-    drafted and accepted tokens of constrained rows) and the last window's
+    drafted and accepted tokens of constrained rows; ``acc_rows``: the
+    accepted speculative tokens of each row) and the last window's
     all-done flag (``all_done``). Every one is a fixed buffer for the slab's
     lifetime, since captured windows read and write them at their
     addresses: it is written in place (windows by ``copy_``, admission and
@@ -320,6 +334,18 @@ class _Slab:
         self.cost0 = np.zeros((B, 3), np.float64)
         self.prof0: list[Optional[dict]] = [None] * B
         self.n_traced = 0
+        # Per-row cost-ledger accumulators (telemetry/ledger.py), written
+        # only while the ledger is on and cleared with the row; the
+        # retirement bill reads them. FLOPs and bytes hold whole numbers
+        # (integer shares of the executed costs).
+        self.bill_flops = np.zeros((B,), np.float64)
+        self.bill_bytes = np.zeros((B,), np.float64)
+        self.bill_fwd = np.zeros((B,), np.int64)     # live forwards while resident
+        self.bill_spec = np.zeros((B,), np.int64)    # accepted speculative tokens
+        self.bill_copy = np.zeros((B,), np.int64)    # readmit copy tokens
+        self.bill_pages = np.zeros((B,), np.int32)   # row-private KV pages
+        self.suffix_toks = np.zeros((B,), np.int32)  # suffix tokens prefilled
+        self.admit_t = np.zeros((B,), np.float64)    # admission time (0: unbilled)
         # The homogeneous slab's compatibility triple (reset when empty).
         self.constrained = True
         self.temperature = 0.0
@@ -358,6 +384,11 @@ class _Slab:
             "dfa": torch.zeros((B,), **i64),
             "hstate": torch.zeros((B, max(1, draft_dim)), dtype=torch.float32, device=device),
             "counts": torch.zeros((5,), **i64),
+            # The segment's accepted speculative tokens per row: written by
+            # the speculative body whether the ledger is on or off, so a
+            # live flip of the ledger changes nothing a captured window
+            # writes; harvested in the segment's one packed copy.
+            "acc_rows": torch.zeros((B,), **i64),
             "all_done": torch.ones((), dtype=torch.bool, device=device),
         }
 
@@ -518,16 +549,18 @@ class _Stack:
 class _Inflight:
     """A dispatched segment awaiting harvest: its end state packed into a
     host buffer of its own (``out_buf`` rows, then emitted, then done, then
-    the segment's ``counts``), the event after that copy (None on the CPU,
-    where the copy is done when issued), the slab's generation counters at
-    dispatch, whether it was speculative (its drafted and accepted counts
-    feed the ``mcpx_engine_spec_*`` series), and for segments with a traced
-    row the dispatch time and the segment's cost (FLOPs, bytes)."""
+    the segment's ``counts``, then ``acc_rows``), the event after that copy
+    (None on the CPU, where the copy is done when issued), the slab's
+    generation counters at dispatch, whether it was speculative (its
+    drafted and accepted counts feed the ``mcpx_engine_spec_*`` series),
+    the forwards it dispatched, and for segments with a traced row the
+    dispatch time and the segment's cost (FLOPs, bytes)."""
 
     host: torch.Tensor
     event: Optional["torch.cuda.Event"]
     gen: np.ndarray
     spec: bool = False
+    forwards: int = 0
     t_disp: float = 0.0
     cost: Optional[tuple[float, float]] = None
 
@@ -586,6 +619,16 @@ class InferenceEngine:
         # one iteration goes to the same one, so an attach or detach in
         # mid-iteration cannot carve time outside the laps' wall.
         self._iter_prof: Optional[WorkerProfiler] = None
+        # Cost ledger (telemetry/ledger.py), read from the live config once
+        # every worker iteration, so it can be switched on a live engine. While on, the worker fills the slab's per-row bill
+        # accumulators and attaches a bill to every GenerateResult.
+        # _ledger_seen is the cost registry's executed totals as of the
+        # last apportionment (None while off); every apportionment hands
+        # out the whole delta since then, so the bills add up exactly to
+        # the executed totals. _ledger_totals is what was handed out
+        # (swapped in whole: ledger_totals() reads it cross-thread).
+        self._ledger_seen: Optional[dict] = None
+        self._ledger_totals: dict = {"flops": 0, "bytes": 0, "by_executable": {}}
         # Prefix-cache counters already published to the metrics (the cache
         # itself stays metrics-free; the worker folds deltas).
         self._prefix_seen = {"hits": 0, "misses": 0, "evictions": 0, "matched_tokens": 0}
@@ -852,6 +895,12 @@ class InferenceEngine:
             )
             self._queue.put(req)
             res = await req.future
+            if res.bill is not None:
+                # The worker's engine bill folds into the request's ledger
+                # bill here, back on the request task.
+                bill = ledger_mod.current_bill()
+                if bill is not None:
+                    bill.add_engine(res.bill)
             if esp is not None:
                 esp.set(
                     tokens=res.generated_tokens,
@@ -1032,6 +1081,44 @@ class InferenceEngine:
             "spec_accept_rate_free": sp["accepted_free"] / sp["drafted_free"] if sp["drafted_free"] else 0.0,
             **dict(self._stats),
         }
+
+    @property
+    def _ledger_on(self) -> bool:
+        return bool(self.config.telemetry.ledger.enabled)
+
+    def ledger_totals(self) -> dict:
+        """What the cost ledger has apportioned to request bills: total
+        FLOPs and bytes, and FLOPs per executable (a cross-thread read of a
+        dict the worker swaps in whole). Over a run that ends with the slab
+        empty, the bills retired in it add up exactly to its delta, which
+        equals the cost registry's executed-totals delta."""
+        t = self._ledger_totals
+        return {"flops": t["flops"], "bytes": t["bytes"], "by_executable": dict(t["by_executable"])}
+
+    def _ledger_account(self, slab: _Slab, rows: list[int]) -> None:
+        """Apportion everything the cost registry executed since the last
+        apportionment over ``rows`` (the cohort just admitted, or the rows
+        resident at a segment's dispatch): per executable, integer shares
+        of the FLOPs and bytes, the remainder to the first rows, into the
+        rows' bill accumulators and the handed-out totals. Work no row was
+        there to take (an admission that admitted none) waits for the next
+        apportionment. Worker thread only; ``rows`` is never empty."""
+        now = self.costs.executed()
+        seen, self._ledger_seen = self._ledger_seen, now
+        t = self._ledger_totals
+        flops, nbytes, by = t["flops"], t["bytes"], dict(t["by_executable"])
+        idx = np.asarray(rows)
+        for name, (f1, b1) in now.items():
+            f0, b0 = seen.get(name, (0, 0))
+            df, db = f1 - f0, b1 - b0
+            if not (df or db):
+                continue
+            slab.bill_flops[idx] += _shares(df, len(rows))
+            slab.bill_bytes[idx] += _shares(db, len(rows))
+            by[name] = by.get(name, 0) + df
+            flops += df
+            nbytes += db
+        self._ledger_totals = {"flops": flops, "bytes": nbytes, "by_executable": by}
 
     def capture_counts(self) -> dict[str, int]:
         """Captures of the decode window per key (body, temperature class,
@@ -1302,6 +1389,14 @@ class InferenceEngine:
                 self._drain_queue(
                     pending, block=not pending and slab.n_active == 0 and not self._inflight
                 )
+                # The ledger switches here, after the (possibly blocking)
+                # drain, so the requests that woke the worker are billed:
+                # switched on, it bills from the cost registry's totals as
+                # they stand.
+                if not self._ledger_on:
+                    self._ledger_seen = None
+                elif self._ledger_seen is None:
+                    self._ledger_seen = self.costs.executed()
                 if prof is not None:
                     prof.lap("drain")
                 if self._stop:
@@ -1519,6 +1614,14 @@ class InferenceEngine:
             node.refs -= 1
         slab.prefix[i] = ()
         slab.prefix_toks[i] = 0
+        slab.bill_flops[i] = 0.0
+        slab.bill_bytes[i] = 0.0
+        slab.bill_fwd[i] = 0
+        slab.bill_spec[i] = 0
+        slab.bill_copy[i] = 0
+        slab.bill_pages[i] = 0
+        slab.suffix_toks[i] = 0
+        slab.admit_t[i] = 0.0
         if slab.req[i] is not None and slab.req[i].span is not None:
             slab.n_traced -= 1
             slab.prof0[i] = None
@@ -2142,10 +2245,17 @@ class InferenceEngine:
         cohort: list[tuple] = []  # (req, budget, ids, sid, pages, P, tree pages, mnode, inode)
         cohort_slots: list[int] = []
         pushback: list[GenerateRequest] = []
+        # Cost ledger: the readmit copy tokens each admitted row's match
+        # pulled host-to-device (the tier's counter delta around it).
+        ledger_on = self._ledger_seen is not None
+        tier = self._spill_tier
+        copy_toks: list[int] = []
+        readmitted = lambda: tier.readmit_tokens if tier is not None else 0  # noqa: E731
         for r, slot, (P, budget, ids) in zip(cands, slots, planned):
             if pushback:
                 pushback.append(r)  # FIFO: wait for pages, order kept
                 continue
+            copy0 = readmitted()
             mnode: Optional[PrefixNode] = None
             mpages: list[int] = []
             if P > 0:
@@ -2200,6 +2310,7 @@ class InferenceEngine:
             tree_pages = mpages + (inode.pages if inode is not None else [])
             cohort.append((r, budget, ids, sid, pages, P, tree_pages, mnode, inode))
             cohort_slots.append(slot)
+            copy_toks.append(readmitted() - copy0)
         for r in reversed(pushback):
             pending.appendleft(r)
         for r in reversed(defer):
@@ -2279,7 +2390,7 @@ class InferenceEngine:
 
         rows = [free.pop(0) for _ in range(n)]
         slab.dfa[rows] = dfa[:n]
-        for j, (i, (r, _budget, _ids, sid, _pages, P, _tp, mnode, inode)) in enumerate(zip(rows, cohort)):
+        for j, (i, (r, _budget, _ids, sid, pages, P, _tp, mnode, inode)) in enumerate(zip(rows, cohort)):
             slab.req[i] = r
             slab.sid[i] = sid
             slab.gen[i] += 1
@@ -2294,8 +2405,20 @@ class InferenceEngine:
             if dfa[j] > 0:
                 self._dfa_slot_refs[int(dfa[j])] += 1
             m.hol_wait.observe(slab.queue_ms[i])
+            if ledger_on:
+                # Ledger admission facts: the suffix tokens the row
+                # prefills, its private pages (the page-seconds base), the
+                # readmit copy tokens its match pulled, the residency start.
+                slab.suffix_toks[i] = int(seq_lens[j])
+                slab.bill_pages[i] = len(pages)
+                slab.bill_copy[i] = copy_toks[j]
+                slab.admit_t[i] = t1
             if r.span is not None:
                 self._trace_admission(slab, i, r, t0, t1, pf_entry)
+        if ledger_on:
+            # The admission's executed work (a declared head's build, tier
+            # copies, the prefill and the first sample) over its cohort.
+            self._ledger_account(slab, rows)
         # Scatter the cohort's rows into the slab; bucket-padding lanes
         # (j >= n) are dropped, never written.
         idx = up(np.asarray(rows, np.int64))
@@ -2627,6 +2750,7 @@ class InferenceEngine:
         spec = key[0] == "spec"
         d = slab.dev
         d["counts"].zero_()
+        d["acc_rows"].zero_()
         n_win = 0
         self.metrics.segments.inc()
         self.metrics.segment_active_rows.inc(slab.n_active)
@@ -2638,7 +2762,7 @@ class InferenceEngine:
             n_win += 1
         if spec:
             self._stats["spec_verify"] += n_win
-        packed = torch.cat([d["out_buf"].reshape(-1), d["emitted"], d["done"].long(), d["counts"]])
+        packed = torch.cat([d["out_buf"].reshape(-1), d["emitted"], d["done"].long(), d["counts"], d["acc_rows"]])
         event = None
         if self.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -2647,7 +2771,7 @@ class InferenceEngine:
             event.record()
         else:
             host = packed
-        rec = _Inflight(host, event, slab.gen.copy(), spec=spec)
+        rec = _Inflight(host, event, slab.gen.copy(), spec=spec, forwards=n_win * key[5])
         if slab.n_traced:
             # Only a segment with a traced row reads the clock: its spans
             # run from dispatch to harvest.
@@ -2656,6 +2780,11 @@ class InferenceEngine:
             if entry is not None:
                 rec.cost = (entry.flops * n_win, entry.bytes_accessed * n_win)
         self._inflight.append(rec)
+        if self._ledger_seen is not None:
+            # The segment's windows over the rows resident at dispatch:
+            # every one of them is billed before it retires, since its
+            # retirement comes at a later harvest.
+            self._ledger_account(slab, [i for i in range(slab.B) if slab.req[i] is not None])
         self._stats["segments"] += 1
         self._stats["windows"] += n_win
         self._stats["decode_forwards"] += n_win * key[5]
@@ -2979,6 +3108,7 @@ class InferenceEngine:
         if slab.spec_draft == "recurrent":
             h.copy_(torch.where(done[:, None], h, advance_drafter_state(h, embed, window, a + 1)))
         e2 = e1 + torch.where(newly_done, 0, 1)
+        d["acc_rows"].add_(a)
         cons_l = cons_v.long()
         drafts = torch.stack([n_drafted.sum(), a.sum(), (n_drafted * cons_l).sum(), (a * cons_l).sum()])
         return (nxt, pos + adv, st_next, e2, newly_done, prev), drafts
@@ -3004,7 +3134,8 @@ class InferenceEngine:
             buf = flat[:n_buf].reshape(B, W1)
             e = flat[n_buf : n_buf + B]
             done = flat[n_buf + B : n_buf + 2 * B] != 0
-            live, drafted, accepted, dr_cons, ac_cons = (int(x) for x in flat[n_buf + 2 * B :])
+            live, drafted, accepted, dr_cons, ac_cons = (int(x) for x in flat[n_buf + 2 * B : n_buf + 2 * B + 5])
+            acc_rows = flat[n_buf + 2 * B + 5 :]
             self._stats["live_forwards"] += live
             self._stats["drafted"] += drafted
             self._stats["accepted"] += accepted
@@ -3015,6 +3146,17 @@ class InferenceEngine:
             m.decode_forwards.inc(live)
             if rec.t_disp:
                 self._trace_segment(slab, rec, e, done, live, t1)
+            ledger_on = self._ledger_seen is not None
+            if ledger_on:
+                # Every row live in this segment was resident for its
+                # forwards and keeps the speculative tokens it accepted.
+                # The forwards are the reference's count for the body: the
+                # live ones, but every dispatched one of a speculative
+                # window (the reference's verify segment has no early exit).
+                rows = np.fromiter((r is not None for r in slab.req), bool, B) & (rec.gen == slab.gen)
+                slab.bill_fwd[rows] += rec.forwards if rec.spec else live
+                if rec.spec:
+                    slab.bill_spec[rows] += acc_rows[rows]
             for i in range(B):
                 r = slab.req[i]
                 if r is None or not done[i] or rec.gen[i] != slab.gen[i]:
@@ -3029,6 +3171,25 @@ class InferenceEngine:
                     prefill_ms=float(slab.prefill_ms[i]),
                     decode_ms=(t1 - slab.t_decode0[i]) * 1e3,
                 )
+                if ledger_on:
+                    # A row admitted before the ledger switched on has no
+                    # residency start: its residency items stay 0.
+                    resident_s = t1 - slab.admit_t[i] if slab.admit_t[i] > 0 else 0.0
+                    res.bill = {
+                        "engine_queue_ms": float(res.queue_ms),
+                        "prefill_ms": float(res.prefill_ms),
+                        "decode_ms": float(res.decode_ms),
+                        "prefill_tokens": int(slab.suffix_toks[i]),
+                        "prefix_saved_tokens": int(slab.prefix_toks[i]),
+                        "decode_tokens": len(ids),
+                        "decode_forwards": int(slab.bill_fwd[i]),
+                        "spec_accepted_tokens": int(slab.bill_spec[i]),
+                        "spill_copy_tokens": int(slab.bill_copy[i]),
+                        "kv_pages": int(slab.bill_pages[i]),
+                        "kv_page_seconds": float(int(slab.bill_pages[i]) * resident_s),
+                        "flops": float(slab.bill_flops[i]),
+                        "hbm_bytes": float(slab.bill_bytes[i]),
+                    }
                 self._ewma_service_s = ewma_update(
                     self._ewma_service_s,
                     (res.prefill_ms + res.decode_ms) / 1e3,
@@ -3116,6 +3277,16 @@ class InferenceEngine:
                 t1 - slab.t_decode0[i],
             ),
         )
+
+
+def _shares(total: float, n: int) -> np.ndarray:
+    """``total`` split over ``n`` rows: integer shares (the remainder to the
+    first rows) for an integral total, so the shares add up to it exactly;
+    equal float shares otherwise."""
+    if isinstance(total, int):
+        q, r = divmod(total, n)
+        return q + (np.arange(n) < r)
+    return np.full(n, total / n)
 
 
 def _fail(requests: list[GenerateRequest], error: BaseException) -> None:

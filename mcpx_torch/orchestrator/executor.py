@@ -1,10 +1,12 @@
 """Concurrent DAG executor with retry budgets, ordered fallbacks and traces.
 
-PyTorch-port copy of ``mcpx/orchestrator/executor.py`` without decision
-provenance. The walk is recorded twice, as in the reference: the
-``ExecutionTrace`` of the response, and the request trace's ``execute``
-span with a ``node:<name>`` span per node and an ``attempt`` child per
-attempt. ``metrics`` (the control plane's) counts ``service_calls`` and
+PyTorch-port copy of ``mcpx/orchestrator/executor.py``. The walk is
+recorded three times, as in the reference: the ``ExecutionTrace`` of the
+response, the request trace's ``execute`` span with a ``node:<name>`` span
+per node and an ``attempt`` child per attempt, and, while a provenance
+trail is active (``telemetry/provenance.py``), the ``resilience``
+decisions: a breaker-open or budget-refused skip, a fallback that rescued
+a node, a hedge launched and a hedge that won. ``metrics`` (the control plane's) counts ``service_calls`` and
 ``node_attempts``.
 
   - independent nodes in the same topological generation run concurrently
@@ -46,7 +48,7 @@ from mcpx_torch.core.dag import DagNode, Plan
 from mcpx_torch.core.trace import ExecutionTrace, NodeAttempt, NodeTrace
 from mcpx_torch.orchestrator.transport import Transport, TransportError
 from mcpx_torch.registry.base import RegistryBackend
-from mcpx_torch.telemetry import tracing
+from mcpx_torch.telemetry import provenance, tracing
 from mcpx_torch.telemetry.stats import TelemetryStore
 
 
@@ -226,6 +228,18 @@ class Orchestrator:
             if nsp is not None:
                 extra = {"error": error} if error else {}
                 nsp.child("attempt", t0=t0, t1=t1, kind=kind, status=status, endpoint=url, **extra)
+            # A resilience skip is a decision, not an outcome: the chain
+            # chose not to spend an attempt (no-op without a trail).
+            if status == "open":
+                provenance.emit(
+                    "resilience", f"circuit breaker open: skipped {url}",
+                    signals={"service": node.service}, kind=kind,
+                )
+            elif status == "budget":
+                provenance.emit(
+                    "resilience", f"deadline budget refused {kind} attempt at {url}",
+                    signals={"service": node.service}, kind=kind,
+                )
 
         last_error = ""
         backoff = self._cfg.retry_backoff_s
@@ -310,6 +324,11 @@ class Orchestrator:
                 continue
             nt.status = "ok"
             nt.finished_at = loop.time()
+            if kind == "fallback":
+                # The fallback chain rescuing a node: why it succeeded anyway.
+                provenance.emit(
+                    "resilience", f"fallback to {url} succeeded", signals={"service": node.service}
+                )
             return True, response
 
         nt.status = "failed"
@@ -367,6 +386,10 @@ class Orchestrator:
                         continue
                     if res.hedge.try_acquire():
                         res.record_hedge("launched")
+                        provenance.emit(
+                            "resilience", f"hedge launched to {hedge_url}",
+                            signals={"hedge_delay_s": round(hedge_delay, 4)},
+                        )
                         launch(hedge_url, "hedge")
                     else:
                         res.record_hedge("denied")
@@ -379,6 +402,7 @@ class Orchestrator:
                         record(u, kind, "ok", t0, t1)
                         if kind == "hedge":
                             res.record_hedge("win")
+                            provenance.emit("resilience", f"hedge to {u} won the race")
                         return t.result()
                     if not isinstance(exc, TransportError):
                         raise exc  # a transport bug: the node-isolation boundary reports it

@@ -158,6 +158,21 @@ class RetrievalIndex:
             residual -= self._word_sets[r]
         return picked
 
+    def scores_for(self, intent: str, names: list[str]) -> dict[str, float]:
+        """Embedding similarity of an already-chosen shortlist: the scores a
+        plan decision record carries (``telemetry/provenance.py``), on the
+        host. Unknown names are skipped."""
+        if self._table_np is None or not names:
+            return {}
+        q = self.embedder.embed(intent)
+        rows = {name: i for i, name in enumerate(self._names)}
+        out: dict[str, float] = {}
+        for n in names:
+            i = rows.get(n)
+            if i is not None:
+                out[n] = round(float(self._table_np[i] @ q), 4)
+        return out
+
     async def maybe_refresh(
         self, registry: RegistryBackend, version: Optional[int] = None
     ) -> None:

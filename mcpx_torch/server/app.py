@@ -19,6 +19,12 @@ same bodies, status codes and JSON errors:
                    Chrome trace-event JSON with ``?format=chrome``)
   POST /profile/start, /profile/stop   a torch.profiler trace of live
                    serving, written as a Chrome trace into the directory
+  GET  /explain/{trace_id}   a retained trace's decision trail (structured
+                   and as a narrative)
+  GET  /debug/anomalies, GET /debug/anomalies/{bundle_id}   the flight
+                   recorder's detectors, bundle index and bundles
+  GET  /usage      the cost ledger's per-tenant usage and recent bills
+  GET  /slo        the SLO error budgets, global and per tenant
 
 The ``observability`` middleware is the reference's: a root span per
 request (W3C ``traceparent`` in and out, ``X-Trace-Id`` equal to the
@@ -30,10 +36,16 @@ worker frees the row) and JSON-only 500s. With a scheduler attached
 (``cp.scheduler``, read per request) ``/plan`` acquires a slot under a
 ``sched.acquire`` span first: a shed is a 429 with ``Retry-After``, and a
 degraded grant is served by the shortlist planner. With resilience wired
-``/execute`` reads the deadline header into the request's budget. Not
-ported yet: ``/explain``,
-``/usage``, ``/slo``, ``/cluster`` and ``/debug/*``, with the parts they
-read.
+``/execute`` reads the deadline header into the request's budget. On the
+three serving paths the middleware also runs telemetry's default-off
+parts, each read per request so it can be attached live: it activates a
+``RequestBill`` (the handlers and the engine add their items; the bill is
+finalized onto the root span and into ``ledger.observe``), begins and ends
+a provenance trail, and feeds ``slo.observe`` (not for a 429). A disabled
+part's route answers ``{"enabled": false}`` (``/usage``, ``/slo``,
+``/debug/anomalies``) or 404 (a bundle). The mirror's sync loop and the
+flight recorder's sampling loop run from startup to cleanup. The
+reference's ``/cluster`` is not ported.
 
 This is the one module of the port that imports aiohttp; nothing on the
 ``ControlPlane`` path imports it. Serve with ``python -m
@@ -61,8 +73,9 @@ from mcpx_torch.core.trace import new_trace_id
 from mcpx_torch.registry.base import ServiceRecord
 from mcpx_torch.scheduler.admission import ShedError
 from mcpx_torch.server.control import ControlPlane
+from mcpx_torch.telemetry import ledger as ledger_mod
 from mcpx_torch.telemetry import metrics as metrics_mod
-from mcpx_torch.telemetry import tracing
+from mcpx_torch.telemetry import provenance, tracing
 from mcpx_torch.telemetry.costs import device_peaks, hbm_stats, update_hbm_gauges
 
 log = logging.getLogger("mcpx_torch.server")
@@ -76,13 +89,18 @@ _LIMITED = metrics_mod.LIMITED_ENDPOINTS
 # Observability surfaces are never traced (by route template): a scraper
 # polling /metrics or an operator paging through /traces would otherwise
 # flush the ring with traces of the observability itself. The reference's
-# set, routes it serves that the port does not yet included.
+# set, its /cluster route included.
 _UNTRACED = frozenset({
     "/metrics", "/costs", "/cache", "/traces", "/traces/{trace_id}",
     "/healthz", "/telemetry", "/debug/anomalies",
     "/debug/anomalies/{bundle_id}", "/usage", "/slo", "/cluster",
     "/explain/{trace_id}",
 })
+
+
+# Request key the /plan handler sets to tell the middleware's SLO observe
+# of a degraded grant when no ledger bill is active.
+DEGRADED_KEY = "mcpx_degraded"
 
 
 def _json_error(status: int, message: str, *, headers: Any = None, **extra: Any) -> web.Response:
@@ -143,6 +161,16 @@ def build_app(cp: ControlPlane) -> web.Application:
         request[TRACE_ID_KEY] = trace_id
         t0 = time.monotonic()
         limited = request.path in _LIMITED
+        # One bill per serving-path request while a ledger is attached: it
+        # rides a contextvar through the handler's task, and the finalize
+        # below folds it into the usage ledger and the root span.
+        ledger = cp.ledger
+        bill = bill_token = None
+        if ledger is not None and limited:
+            bill = ledger_mod.RequestBill(tenant=_tenant_of(request), endpoint=endpoint, t0=t0)
+            bill_token = ledger_mod.activate(bill)
+        # The provenance trail (begin() is None while the recorder is off).
+        prov_token = provenance.begin(cp.provenance) if root is not None and limited else None
         status = "error"
         # Only server faults (5xx, timeouts) are always kept: a stream of
         # client 4xx must not flush the ring of the rare 5xx traces.
@@ -180,9 +208,29 @@ def build_app(cp: ControlPlane) -> web.Application:
                     resp.headers["traceparent"] = tracing.format_traceparent(root)
                 return resp
         finally:
+            provenance.end(prov_token)
             if root is not None:
                 root.set(status=status)
             elapsed_s = time.monotonic() - t0
+            if bill is not None:
+                ledger_mod.deactivate(bill_token)
+                bill.finalize(status=status, total_ms=elapsed_s * 1e3)
+                if root is not None:
+                    # The itemized bill rides the root span (set before
+                    # finish, so a retained trace carries it).
+                    root.set(bill=bill.to_dict())
+                ledger.observe(bill)
+            slo = cp.slo
+            if slo is not None and limited and http_status != 429:
+                # Served requests only: a shed or throttled 429 is the load
+                # shedder doing its job, not served quality.
+                slo.observe(
+                    tenant=bill.tenant if bill is not None else _tenant_of(request),
+                    endpoint=endpoint,
+                    latency_ms=elapsed_s * 1e3,
+                    error=status == "timeout" or http_status >= 500,
+                    degraded=bill.degraded if bill is not None else bool(request.get(DEGRADED_KEY, False)),
+                )
             # Retention is decided before the histogram observation, so the
             # exemplar only ever names a trace GET /traces/{id} can serve.
             kept = tracer.finish(root, error=status == "timeout" or http_status >= 500)
@@ -213,6 +261,10 @@ def build_app(cp: ControlPlane) -> web.Application:
                     # deadline).
                     if ssp is not None:
                         ssp.set(verdict=e.outcome, retry_after_s=e.retry_after_s)
+                    provenance.emit(
+                        "sched", f"shed ({e.outcome})", signals={"retry_after_s": e.retry_after_s},
+                        tenant=ctx.tenant, weight=ctx.weight,
+                    )
                     return _json_error(
                         429, f"admission refused: {e}", retry_after_s=e.retry_after_s,
                         headers={"Retry-After": e.retry_after_header()},
@@ -224,6 +276,29 @@ def build_app(cp: ControlPlane) -> web.Application:
                         verdict="degraded" if slot.degraded else "admitted",
                         queue_wait_ms=round(slot.queue_wait_s * 1e3, 3),
                     )
+                provenance.emit(
+                    "sched",
+                    "admitted to degraded tier (shortlist planner)" if slot.degraded else "admitted (primary tier)",
+                    alternatives=["admitted", "degraded", "shed"],
+                    signals={"queue_wait_ms": round(slot.queue_wait_s * 1e3, 3)},
+                    tenant=slot.ctx.tenant,
+                    weight=ctx.weight,
+                )
+        bill = ledger_mod.current_bill()
+        if slot is not None:
+            if bill is not None:
+                # The grant's queue wait, tenant (what every downstream quota
+                # charges) and tier become bill items.
+                bill.sched_queue_ms += slot.queue_wait_s * 1e3
+                bill.tenant = slot.ctx.tenant
+                bill.degraded = slot.degraded
+            if slot.degraded:
+                # The SLO plan-quality observe needs the verdict without a
+                # ledger too.
+                request[DEGRADED_KEY] = True
+        # The engine wall before the plan: the plan latency less what the
+        # engine billed meanwhile is the planner's own overhead.
+        eng0 = bill.engine_wall_ms() if bill is not None else 0.0
         try:
             p, latency_ms = await cp.plan(
                 intent,
@@ -239,6 +314,9 @@ def build_app(cp: ControlPlane) -> web.Application:
         finally:
             if slot is not None:
                 sched.release(slot)
+        if bill is not None:
+            bill.note_plan(latency_ms, bill.engine_wall_ms() - eng0)
+            bill.origin = p.origin or ""
         resp = {
             "graph": p.to_wire(),
             "explanation": p.explanation,
@@ -278,7 +356,12 @@ def build_app(cp: ControlPlane) -> web.Application:
                     deadline_ms = float(raw)
                 except ValueError:
                     pass  # scheduling hints never 400 a valid graph
+        bill = ledger_mod.current_bill()
+        t_ex = time.monotonic() if bill is not None else 0.0
         result = await cp.execute(plan_obj, payload, deadline_ms=deadline_ms)
+        if bill is not None:
+            # The DAG's wall and the attempt counts by kind.
+            bill.add_tools(result.trace.to_dict() if result.trace else None, (time.monotonic() - t_ex) * 1e3)
         return web.json_response(result.to_dict())
 
     # ------------------------------------------------------ plan_and_execute
@@ -292,10 +375,20 @@ def build_app(cp: ControlPlane) -> web.Application:
             return _json_error(400, "'intent' must be a non-empty string")
         if not isinstance(payload, dict):
             return _json_error(400, "'payload' must be an object")
+        bill = ledger_mod.current_bill()
+        eng0 = bill.engine_wall_ms() if bill is not None else 0.0
+        t_ex = time.monotonic() if bill is not None else 0.0
         try:
             out = await cp.plan_and_execute(intent, payload, tenant=_tenant_of(request))
         except PlannerError as e:
             return _json_error(422, f"planning failed: {e}")
+        if bill is not None:
+            # One program: the engine items folded in while planning and
+            # replanning; the rest of its wall (tools, replan overhead) is
+            # the tool item, with the trace's attempt counts.
+            bill.origin = str(out.get("origin") or "")
+            wall_ms = (time.monotonic() - t_ex) * 1e3
+            bill.add_tools(out.get("trace"), max(0.0, wall_ms - (bill.engine_wall_ms() - eng0)))
         return web.json_response(out)
 
     # -------------------------------------------------------------- registry
@@ -356,6 +449,9 @@ def build_app(cp: ControlPlane) -> web.Application:
         engine = getattr(cp.planner, "engine", None)
         if engine is not None and getattr(engine, "state", None) == "ready":
             update_hbm_gauges(cp.metrics)
+        if cp.slo is not None:
+            # The mcpx_slo_* gauges refresh at scrape time too.
+            cp.slo.update_gauges(cp.metrics)
         # OpenMetrics on request (Accept negotiation): the exposition that
         # renders the exemplar trace ids the latency histograms carry.
         if "application/openmetrics-text" in request.headers.get("Accept", ""):
@@ -378,6 +474,48 @@ def build_app(cp: ControlPlane) -> web.Application:
             # Chrome trace-event JSON: loads in Perfetto / chrome://tracing.
             return web.json_response(rec.to_chrome())
         return web.json_response(rec.to_dict())
+
+    async def explain_handler(request: web.Request) -> web.Response:
+        """A retained trace's decision trail (``telemetry/provenance.py``):
+        its ``decision.*`` spans as structured JSON and a narrative, in
+        request order. A trace recorded with provenance off answers with an
+        empty trail and says so."""
+        tid = request.match_info["trace_id"]
+        rec = cp.tracer.get(tid)
+        if rec is None:
+            return _json_error(404, f"no trace '{tid}' (evicted, unsampled, or never existed)")
+        return web.json_response(provenance.build_explanation(rec))
+
+    async def anomalies_handler(request: web.Request) -> web.Response:
+        """The flight recorder's status: detector states, bundle index, the
+        latest snapshot; ``enabled: false`` while it is off."""
+        if cp.flight is None:
+            return web.json_response({"enabled": False, "detectors": {}, "bundles": []})
+        return web.json_response(cp.flight.status())
+
+    async def anomaly_bundle_handler(request: web.Request) -> web.Response:
+        """One diagnostic bundle by id, read off the event loop."""
+        if cp.flight is None:
+            return _json_error(404, "flight recorder disabled")
+        bid = request.match_info["bundle_id"]
+        bundle = await cp.flight.load_bundle(bid)
+        if bundle is None:
+            return _json_error(404, f"no bundle '{bid}' (pruned or never captured)")
+        return web.json_response(bundle)
+
+    async def usage_handler(request: web.Request) -> web.Response:
+        """The cost ledger's per-tenant usage and recent bills."""
+        if cp.ledger is None:
+            return web.json_response({"enabled": False})
+        return web.json_response(cp.ledger.snapshot())
+
+    async def slo_handler(request: web.Request) -> web.Response:
+        """The SLO error budgets, with a gauge refresh so ``/metrics``
+        agrees with what this served."""
+        if cp.slo is None:
+            return web.json_response({"enabled": False})
+        cp.slo.update_gauges(cp.metrics)
+        return web.json_response(cp.slo.status())
 
     async def costs_handler(request: web.Request) -> web.Response:
         """Cost observatory: per-executable analytic costs and compile
@@ -494,6 +632,11 @@ def build_app(cp: ControlPlane) -> web.Application:
     app.router.add_get("/costs", costs_handler)
     app.router.add_get("/traces", traces_handler)
     app.router.add_get("/traces/{trace_id}", trace_get)
+    app.router.add_get("/explain/{trace_id}", explain_handler)
+    app.router.add_get("/debug/anomalies", anomalies_handler)
+    app.router.add_get("/debug/anomalies/{bundle_id}", anomaly_bundle_handler)
+    app.router.add_get("/usage", usage_handler)
+    app.router.add_get("/slo", slo_handler)
     app.router.add_post("/profile/start", profile_start)
     app.router.add_post("/profile/stop", profile_stop)
     app.router.add_get("/cache", cache_handler)
@@ -502,6 +645,18 @@ def build_app(cp: ControlPlane) -> web.Application:
 
     startup_task: dict[str, asyncio.Task] = {}
 
+    async def _mirror_loop() -> None:
+        # The telemetry mirror: export local stats, import the peers'.
+        interval = cp.config.telemetry.mirror_interval_s
+        while True:
+            try:
+                await cp.telemetry_mirror.sync()
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # losing the mirror must not stop serving
+                log.exception("telemetry mirror sync failed; retrying next interval")
+            await asyncio.sleep(interval)
+
     async def on_startup(app: web.Application) -> None:
         # Engine bring-up runs as a background task, not inline: on_startup
         # fires before the listening socket binds, so awaiting it here would
@@ -509,8 +664,33 @@ def build_app(cp: ControlPlane) -> web.Application:
         # arrive while warming wait inside engine.start(), which coalesces
         # concurrent callers.
         startup_task["t"] = asyncio.create_task(cp.startup())
+        if cp.telemetry_mirror is not None:
+            startup_task["mirror"] = asyncio.create_task(_mirror_loop())
+        if cp.flight is not None:
+            # The flight recorder's sampling loop; its bundle writes run off
+            # the loop (asyncio.to_thread).
+            startup_task["flight"] = asyncio.create_task(cp.flight.run())
+
+    async def _stop_loop(key: str, what: str) -> None:
+        task = startup_task.pop(key, None)
+        if task is None:
+            return
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass  # the cancel above landing, not a failure
+        except Exception:
+            log.exception("%s loop died with an error", what)
 
     async def on_cleanup(app: web.Application) -> None:
+        await _stop_loop("flight", "flight recorder")
+        if "mirror" in startup_task:
+            await _stop_loop("mirror", "telemetry mirror")
+            try:
+                await cp.telemetry_mirror.aclose()
+            except Exception:  # best effort at shutdown, and logged
+                log.exception("telemetry mirror close failed")
         t = startup_task.pop("t", None)
         if t is not None:
             if not t.done():

@@ -14,8 +14,17 @@ can be attached to a live control plane) and its degraded tier
 (``plan(degraded=)`` serves ``degraded_planner``, a ``HeuristicPlanner``
 over the retrieval shortlist, and never writes a plan cache tier); the
 ``/execute`` deadline (``execute(deadline_ms=)``), a budget inside the
-orchestrator's attempt chains while resilience is wired. Not ported yet:
-decision provenance, the cost ledger, SLOs and the flight recorder.
+orchestrator's attempt chains while resilience is wired; and telemetry's
+default-off parts, each None while its option is off and read per request
+by the HTTP middleware, so each can be attached to a live control plane:
+the cost ledger (``ledger``, ``telemetry.ledger``), the SLO error-budget
+tracker (``slo``, ``slo.enabled``; with ``scheduler.burn_aware`` its
+``burning`` feeds the scheduler's degradation ladder), the flight recorder
+(``flight``, ``telemetry.flight``, built after the SLO tracker, whose fast
+burn it watches), decision provenance (``provenance``,
+``telemetry.provenance``: the ``plan``, ``prefix`` and ``replan``
+decisions are emitted here) and the Redis telemetry mirror
+(``telemetry_mirror``, built by the factory).
 """
 
 from __future__ import annotations
@@ -36,9 +45,12 @@ from mcpx_torch.orchestrator.executor import ExecuteResult, Orchestrator
 from mcpx_torch.planner.base import PlanContext, Planner
 from mcpx_torch.planner.heuristic import HeuristicPlanner
 from mcpx_torch.registry.base import RegistryBackend
-from mcpx_torch.telemetry import tracing
+from mcpx_torch.telemetry import provenance, tracing
+from mcpx_torch.telemetry.flight import build_flight_recorder
+from mcpx_torch.telemetry.ledger import build_ledger
 from mcpx_torch.telemetry.metrics import Metrics
 from mcpx_torch.telemetry.replan import ReplanPolicy
+from mcpx_torch.telemetry.slo import build_slo_tracker
 from mcpx_torch.telemetry.stats import TelemetryStore
 from mcpx_torch.telemetry.tracing import Tracer
 
@@ -64,6 +76,7 @@ class ControlPlane:
         telemetry: Optional[TelemetryStore] = None,
         retriever: Any = None,  # duck-typed: async shortlist(intent, k)
         replan_policy: Optional[ReplanPolicy] = None,
+        telemetry_mirror: Any = None,  # mcpx_torch.telemetry.mirror.RedisTelemetryMirror
         redis_plan_cache: Any = None,  # mcpx_torch.server.plan_cache.RedisPlanCache
         metrics: Optional[Metrics] = None,
         tracer: Optional[Tracer] = None,
@@ -83,12 +96,26 @@ class ControlPlane:
         )
         self.retriever = retriever
         self.replan_policy = replan_policy or ReplanPolicy(self.config.telemetry)
+        self.telemetry_mirror = telemetry_mirror
         self.redis_plan_cache = redis_plan_cache
         # The /plan admission scheduler: read per request by the handler,
         # so it can be attached to or detached from a live control plane.
-        # ``scheduler.burn_aware`` has nothing to read while ``slo.enabled``
-        # is refused, as in the reference without an SLO tracker.
         self.scheduler = scheduler
+        # The cost ledger and the SLO tracker (None while off: the serving
+        # path then carries no bill and no SLO observe).
+        self.ledger = build_ledger(self.config, self.metrics)
+        self.slo = build_slo_tracker(self.config)
+        if self.scheduler is not None and self.slo is not None and self.config.scheduler.burn_aware:
+            # Burn-aware degradation: the ladder consults the error budget's
+            # global fast burn, so overload sheds burn-aware, not blind.
+            attach = getattr(self.scheduler, "attach_slo", None)
+            if attach is not None:
+                attach(self.slo.burning)
+        # The flight recorder (None while off), after the SLO tracker: its
+        # slo_burn detector watches the fast-burn signal.
+        self.flight = build_flight_recorder(self)
+        # Decision provenance (None while off: no trail ever begins).
+        self.provenance = provenance.build_provenance(self)
         # Degradation target: the model-free shortlist planner, still over
         # the retrieval shortlist through ``_context``.
         self.degraded_planner = HeuristicPlanner(self.config.planner)
@@ -151,6 +178,7 @@ class ControlPlane:
                     self.metrics.plan_cache.labels(result="hit").inc()
                     if sp is not None:
                         sp.set(cache="hit", origin=cached.origin)
+                    provenance.emit("plan", "plan-cache hit (local tier)", origin=cached.origin or "unknown")
                     return cached, (time.monotonic() - t0) * 1e3
             if use_cache and self.redis_plan_cache is not None:
                 # Second tier: shared across replicas/restarts, independent of
@@ -164,6 +192,7 @@ class ControlPlane:
                     self.metrics.plan_cache.labels(result="redis_hit").inc()
                     if sp is not None:
                         sp.set(cache="redis_hit", origin=shared.origin)
+                    provenance.emit("plan", "plan-cache hit (redis tier)", origin=shared.origin or "unknown")
                     return shared, (time.monotonic() - t0) * 1e3
             if use_cache and (local_tier or self.redis_plan_cache is not None):
                 self.plan_cache_stats["misses"] += 1
@@ -177,6 +206,8 @@ class ControlPlane:
                 context = await self._context(
                     intent, version=version, deadline_at=deadline_at, tenant=tenant
                 )
+            n_spans0 = len(sp.record.spans) if sp is not None else 0
+            tier0 = self._tier_counts() if provenance.active() else None
             try:
                 plan = await planner.plan(intent, context)
                 self.metrics.plans.labels(
@@ -189,11 +220,83 @@ class ControlPlane:
                 raise
             if sp is not None:
                 sp.set(origin=plan.origin or "unknown")
+            if provenance.active():
+                self._emit_plan_provenance(intent, plan, planner, context, degraded=degraded)
+                self._emit_prefix_provenance(sp.record.spans[n_spans0:] if sp is not None else [], tier0)
             if use_cache and not degraded and local_tier:
                 self._cache_put(key, plan)
             if use_cache and not degraded and self.redis_plan_cache is not None:
                 self._redis_cache_write(intent, version, plan)
             return plan, (time.monotonic() - t0) * 1e3
+
+    # ------------------------------------------------------------ provenance
+    def _emit_plan_provenance(
+        self, intent: str, plan: Plan, planner: Any, context: PlanContext, *, degraded: bool
+    ) -> None:
+        """The planner outcome's decision record (active trail only): the
+        origin, the grammar mode, and the retrieval shortlist that formed
+        the planner's universe, with its embedding scores where the
+        retriever gives them (``contributions``)."""
+        scores: dict[str, float] = {}
+        sf = getattr(self.retriever, "scores_for", None)
+        if sf is not None and context.shortlist:
+            try:
+                scores = sf(intent, list(context.shortlist))
+            except Exception:  # a record without scores, never a failed plan
+                scores = {}
+        provenance.emit(
+            "plan",
+            f"planned via {type(planner).__name__} (origin={plan.origin or 'unknown'})",
+            alternatives=list(context.shortlist or []),
+            contributions=scores,
+            origin=plan.origin or "unknown",
+            grammar_mode=self.config.planner.constrain_names,
+            degraded=degraded,
+            shortlist_k=self.config.planner.shortlist_top_k,
+            excluded=sorted(context.exclude) if context.exclude else [],
+        )
+
+    def _tier_counts(self) -> Optional[dict]:
+        """Cumulative KV spill and readmit counts of a ready engine (a
+        provenance-only read): the plan window's delta attributes tier churn
+        to the request that saw it."""
+        engine = getattr(self.planner, "engine", None)
+        if engine is None or getattr(engine, "state", None) != "ready":
+            return None
+        try:
+            qs = engine.queue_stats()
+        except Exception:  # a record without tier signals, never a failed plan
+            return None
+        return {"spills": int(qs.get("prefix_spills", 0)), "readmits": int(qs.get("prefix_readmits", 0))}
+
+    def _emit_prefix_provenance(self, new_spans: list, tier0: Optional[dict]) -> None:
+        """Prefix-cache and tier decision records from the engine worker's
+        spans the plan just added. The worker thread cannot emit
+        (contextvars do not cross threads), so the loop re-emits from the
+        span tree after generate returns; spill and readmit churn over the
+        plan window rides as signals."""
+        for s in list(new_spans):
+            if s.name != "engine.prefill":
+                continue
+            a = s.attrs
+            if "prefix_matched_tokens" not in a:
+                continue
+            matched = int(a.get("prefix_matched_tokens", 0))
+            provenance.emit(
+                "prefix",
+                "prefix cache " + (f"hit ({matched} tokens)" if a.get("prefix_hit") else "miss"),
+                signals={"matched_tokens": matched},
+            )
+        tier1 = self._tier_counts() if tier0 is not None else None
+        if tier0 is not None and tier1 is not None:
+            d_spill = tier1["spills"] - tier0["spills"]
+            d_readmit = tier1["readmits"] - tier0["readmits"]
+            if d_spill > 0 or d_readmit > 0:
+                provenance.emit(
+                    "prefix",
+                    f"kv tier churn during plan window ({d_spill} spill(s), {d_readmit} readmit(s))",
+                    signals={"spills": d_spill, "readmits": d_readmit},
+                )
 
     def _redis_cache_write(self, intent: str, version: int, plan: Plan) -> None:
         """Fire-and-forget write to the shared tier: put() swallows its own
@@ -296,6 +399,13 @@ class ControlPlane:
                 exclude |= decision.exclude
                 self.metrics.replans.inc()
                 trace.replans += 1
+                provenance.emit(
+                    "replan",
+                    f"replan attempt {trace.replans}: " + ("; ".join(decision.reasons) or "policy"),
+                    alternatives=sorted(decision.exclude),
+                    signals={"status": result.status},
+                    excluded=sorted(exclude),
+                )
                 context = await self._context(
                     intent, exclude, replan_prior=prior or None, tenant=tenant
                 )
@@ -307,6 +417,10 @@ class ControlPlane:
                     # invisible.
                     log.exception("replan attempt %d failed; keeping last result", trace.replans)
                     break
+                if provenance.active():
+                    # The repaired plan's origin (the replan loop calls the
+                    # planner directly, not through plan()).
+                    self._emit_plan_provenance(intent, plan, self.planner, context, degraded=False)
                 result = await self.execute(plan, payload, trace)
         finally:
             if pin is not None:

@@ -9,11 +9,15 @@ transport, the replan policy and the optional Redis plan-cache tier; the
 ``queue_stats``), the resilience facade (``resilience.enabled``: breakers,
 deadline budgets, hedges, breaker-fed replan exclusions) and the seeded
 chaos transport (``resilience.chaos_profile``, wrapped outside the
-resilience gate). The control plane builds its tracer from
-``config.tracing``. Options the reference
-factory reads that the port does not serve yet raise ``ConfigError``
-naming the option. ``device=None`` means the GPU and raises without CUDA;
-pass ``device="cpu"`` for the plain PyTorch path.
+resilience gate); the Redis telemetry mirror (``telemetry.redis_url``
+while ``telemetry.enabled``). The control plane builds its tracer from
+``config.tracing`` and telemetry's default-off parts (the cost ledger, the
+SLO tracker, the flight recorder, decision provenance) from their options.
+Options the reference factory reads that the port does not serve yet
+(``cluster.enabled``, ``cluster.shard_registry``,
+``retrieval.snapshot_path``) raise ``ConfigError`` naming the option.
+``device=None`` means the GPU and raises without CUDA; pass
+``device="cpu"`` for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from mcpx_torch.scheduler import Scheduler
 from mcpx_torch.server.control import ControlPlane
 from mcpx_torch.server.plan_cache import RedisPlanCache
 from mcpx_torch.telemetry.metrics import Metrics
+from mcpx_torch.telemetry.mirror import RedisTelemetryMirror
 from mcpx_torch.telemetry.replan import ReplanPolicy
 from mcpx_torch.telemetry.stats import TelemetryStore
 
@@ -49,14 +54,6 @@ def _refuse_unserved(config: MCPXConfig) -> None:
         ("cluster.enabled", config.cluster.enabled),
         ("cluster.shard_registry", config.cluster.shard_registry),
         ("retrieval.snapshot_path", config.retrieval.snapshot_path),
-        # The telemetry mirror: built by the reference only while telemetry
-        # is enabled (the default).
-        ("telemetry.redis_url", config.telemetry.enabled and config.telemetry.redis_url),
-        # The reference's control plane builds these default-off parts.
-        ("telemetry.flight.enabled", config.telemetry.flight.enabled),
-        ("telemetry.ledger.enabled", config.telemetry.ledger.enabled),
-        ("telemetry.provenance.enabled", config.telemetry.provenance.enabled),
-        ("slo.enabled", config.slo.enabled),
     )
     for name, asked in refused:
         if asked:
@@ -81,6 +78,10 @@ def build_control_plane(
     if retriever is None and config.retrieval.enabled:
         retriever = RetrievalIndex(config.retrieval)
     telemetry = TelemetryStore(config.telemetry.ewma_alpha)
+    telemetry_mirror = None
+    if config.telemetry.enabled and config.telemetry.redis_url:
+        # Built here, connected at its first sync (the app's mirror loop).
+        telemetry_mirror = RedisTelemetryMirror(telemetry, config.telemetry.redis_url)
     redis_plan_cache = None
     if config.planner.plan_cache_redis_url:
         redis_plan_cache = RedisPlanCache(
@@ -135,6 +136,7 @@ def build_control_plane(
         replan_policy=ReplanPolicy(
             config.telemetry, breakers=resilience.breakers if resilience is not None else None
         ),
+        telemetry_mirror=telemetry_mirror,
         redis_plan_cache=redis_plan_cache,
         scheduler=scheduler,
     )

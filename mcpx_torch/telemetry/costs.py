@@ -290,6 +290,14 @@ def window_cost(
 
 
 # ------------------------------------------------------------ registry
+def _exact(v: Optional[float]) -> float:
+    """A cost as an exact integer when it is integral (None counts 0), so
+    executed totals sum without rounding past 2**53."""
+    if v is None:
+        return 0
+    return int(v) if float(v).is_integer() else v
+
+
 def _sig_delta(old: tuple, new: tuple) -> str:
     """Which elements of a key changed: the sentinel's log payload."""
     if len(old) != len(new):
@@ -335,6 +343,12 @@ class CostRegistry:
         # executable -> {key: ExecCost}, in first-seen order; last key seen.
         self._entries: dict[str, dict[tuple, ExecCost]] = {}
         self._last: dict[str, tuple] = {}
+        # executable -> (FLOPs, bytes) executed, Σ cost × calls, kept as
+        # exact integers while the costs are integral (the analytic ones
+        # always are): the cost ledger apportions these deltas, so its
+        # bills add up exactly to the executed totals. A tuple is swapped
+        # in whole per record (a GIL-atomic write; any thread may copy).
+        self._executed: dict[str, tuple] = {}
         # Before arm(), at startup, new keys are the expected cold path and
         # log at INFO; after it every new key is a capture in the serving
         # path and logs at WARNING. The counter increments either way.
@@ -356,6 +370,8 @@ class CostRegistry:
         if entry is None:
             entry = self._on_compile(name, key, cost)
         entry.calls += 1
+        f, b = self._executed.get(name, (0, 0))
+        self._executed[name] = (f + _exact(entry.flops), b + _exact(entry.bytes_accessed))
         return entry
 
     def _on_compile(self, name: str, key: tuple, cost: Callable[[], tuple[float, float]]) -> ExecCost:
@@ -387,14 +403,18 @@ class CostRegistry:
         entries = self._entries.get(name)
         return entries.get(key) if entries is not None else None
 
+    def executed(self) -> dict[str, tuple]:
+        """(FLOPs, bytes) executed so far per executable, Σ cost × calls:
+        exact integers while the costs are integral."""
+        return dict(self._executed)
+
     def totals(self) -> tuple[float, float]:
-        """(FLOPs, bytes) executed so far: Σ cost × calls."""
-        flops = nbytes = 0.0
-        with self._lock:
-            entries = [e for es in self._entries.values() for e in es.values()]
-        for e in entries:
-            flops += (e.flops or 0.0) * e.calls
-            nbytes += (e.bytes_accessed or 0.0) * e.calls
+        """(FLOPs, bytes) executed so far: Σ cost × calls over every
+        executable (exact integers while the costs are integral)."""
+        flops = nbytes = 0
+        for f, b in self.executed().values():
+            flops += f
+            nbytes += b
         return flops, nbytes
 
     def snapshot(self, materialize: bool = True) -> dict:

@@ -1,23 +1,68 @@
-"""The decode-loop host profiler (``WorkerProfiler``).
+"""Flight recorder & anomaly observatory, and the decode-loop host profiler.
 
-PyTorch-port copy of the profiler part of ``mcpx/telemetry/flight.py``
-(``PROFILE_PHASES``, the histogram edges and ``WorkerProfiler``). It tiles
-the engine worker thread's wall time into named phases (admit /
-locality-sort / prefix-match / dispatch / sync / harvest / host
-bookkeeping / idle) with ``lap()`` timestamps between loop sections and
-``carve()`` for nested sub-phases, aggregated into streaming log-bucketed
-histograms. Because laps tile the loop, attribution is ~100% by
-construction. Detached (the default) the worker loop takes no clock reads
-at all. The flight recorder, its detectors and bundles are not ported yet.
+PyTorch-port copy of ``mcpx/telemetry/flight.py``. Three pieces watch the
+serving system over time:
+
+  - **FlightRecorder**: a bounded ring of periodic snapshots (default
+    ~1 s) of the signals the stack already exposes: ``queue_stats()``
+    with the speculative accept counts and the prefix/tier scoreboards,
+    the capture counters, breaker states, scheduler shed rates, the SLO
+    fast burn, and latency quantiles from the request-latency histogram's
+    bucket deltas per window (no new instrumentation).
+  - **AnomalyDetector**: EWMA + mean-absolute-deviation bands per signal.
+    The baseline freezes while a sample is out of band (the detector must
+    not chase the anomaly it detects), and hysteresis gates both the trip
+    (N consecutive out-of-band samples) and the re-arm (N in band), so one
+    noisy sample neither fires nor resets an excursion. Each excursion
+    trips once.
+  - **Diagnostic bundles**: on a trip, a versioned JSON bundle (the flight
+    window around the trigger, tail-sampled trace summaries, a ``/costs``
+    snapshot, breaker and scheduler state, the SLO and usage state when
+    those parts run, the recent log tail) is assembled from in-memory
+    reads on the loop and written off it (``asyncio.to_thread`` around a
+    sync writer; atomic tmp+rename; bounded retention). A write that fails
+    is logged and the sampler goes on; the recorder stays on.
+
+The reference's cluster sources (replica skew, routing-journal counts and
+the pool's scoreboard) read ``cp.cluster``, which the port does not have:
+they stay absent, as they are in the reference without a pool, and their
+detectors skip.
+
+The **decode-loop host profiler** (``WorkerProfiler``) tiles the engine
+worker thread's wall time into named phases (admit / locality-sort /
+prefix-match / dispatch / sync / harvest / host bookkeeping / idle) with
+``lap()`` timestamps between loop sections and ``carve()`` for nested
+sub-phases, aggregated into streaming log-bucketed histograms. Because
+laps tile the loop, attribution is ~100% by construction. Detached (the
+default) the worker loop takes no clock reads at all.
 """
 
 from __future__ import annotations
 
+import asyncio
 import bisect
+import collections
+import json
+import logging
+import os
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
-__all__ = ["PROFILE_PHASES", "WorkerProfiler"]
+from mcpx_torch.telemetry.metrics import LIMITED_ENDPOINTS
+from mcpx_torch.utils.ownership import owned_by
+
+log = logging.getLogger("mcpx_torch.telemetry.flight")
+
+BUNDLE_VERSION = 1
+
+__all__ = [
+    "PROFILE_PHASES",
+    "AnomalyDetector",
+    "FlightRecorder",
+    "WorkerProfiler",
+    "build_flight_recorder",
+    "validate_bundle",
+]
 
 
 # Worker-loop phases. Names are the contract surfaced in queue_stats(),
@@ -159,3 +204,807 @@ class WorkerProfiler:
             "attributed_frac": round(attributed / wall, 4) if wall else 0.0,
             "iterations": self.iterations,
         }
+
+
+# ==================================================================== detector
+class AnomalyDetector:
+    """One signal's SPC-style detector: EWMA mean + EWMA mean-absolute-
+    deviation band, directional ('high' alarms above the band, 'low'
+    below), hysteresis on both trip and re-arm, baseline frozen while out
+    of band. ``observe()`` returns True exactly once per excursion."""
+
+    def __init__(
+        self,
+        name: str,
+        signal: str,
+        *,
+        direction: str = "high",
+        alpha: float = 0.3,
+        k: float = 5.0,
+        min_samples: int = 10,
+        hysteresis: int = 3,
+        floor: float = 0.0,
+    ) -> None:
+        if direction not in ("high", "low"):
+            raise ValueError(f"detector direction {direction!r} not in high|low")
+        self.name = name
+        self.signal = signal
+        self.direction = direction
+        self.alpha = alpha
+        self.k = k
+        self.min_samples = max(2, int(min_samples))
+        self.hysteresis = max(1, int(hysteresis))
+        # Band half-width floor: near-constant baselines (MAD ~ 0) must
+        # not alarm on trivia — e.g. one stray compile or a 1 ms p99
+        # wiggle. Every default spec sets a signal-appropriate floor.
+        self.floor = floor
+        self.mean: Optional[float] = None
+        self.dev = 0.0
+        self.n = 0
+        self.out_streak = 0
+        self.in_streak = 0
+        self.active = False
+        self.trips = 0
+        self.suppressed_trips = 0
+        self.last_value: Optional[float] = None
+
+    def band(self) -> float:
+        return max(self.k * self.dev, self.floor)
+
+    def _out_of_band(self, x: float) -> bool:
+        b = self.band()
+        if self.direction == "high":
+            return x > self.mean + b
+        return x < self.mean - b
+
+    def _update(self, x: float) -> None:
+        a = self.alpha
+        self.mean = x if self.mean is None else (1 - a) * self.mean + a * x
+        self.dev = (1 - a) * self.dev + a * abs(x - self.mean)
+
+    def observe(self, x: Optional[float]) -> bool:
+        """Feed one sample; returns True on the sample that TRIPS the
+        detector (exactly once per excursion). None samples (signal not
+        derivable this window — no traffic, subsystem off) are skipped
+        entirely: they neither advance the baseline nor the streaks."""
+        if x is None:
+            return False
+        self.last_value = x
+        if self.n < self.min_samples or self.mean is None:
+            self._update(x)
+            self.n += 1
+            return False
+        if self._out_of_band(x):
+            self.in_streak = 0
+            self.out_streak += 1
+            # Baseline frozen: adapting to the anomaly would dissolve the
+            # band under a sustained shift and silently re-arm mid-incident.
+            if not self.active and self.out_streak >= self.hysteresis:
+                self.active = True
+                self.trips += 1
+                return True
+            return False
+        self.out_streak = 0
+        if self.active:
+            self.in_streak += 1
+            if self.in_streak >= self.hysteresis:
+                self.active = False
+                self.in_streak = 0
+        self._update(x)
+        self.n += 1
+        return False
+
+    def state(self) -> dict:
+        return {
+            "signal": self.signal,
+            "direction": self.direction,
+            "active": self.active,
+            "trips": self.trips,
+            "suppressed_trips": self.suppressed_trips,
+            "samples": self.n,
+            "mean": round(self.mean, 6) if self.mean is not None else None,
+            "band": round(self.band(), 6),
+            "last_value": (
+                round(self.last_value, 6) if self.last_value is not None else None
+            ),
+        }
+
+
+# The default detector set, the reference's. Floors are
+# absolute in each signal's unit (ms, ratios, events/s) so a flat baseline
+# (MAD ~ 0) still needs a material move to alarm.
+_DETECTOR_SPECS: tuple[dict, ...] = (
+    # End-to-end latency shift over the limited endpoints' histograms.
+    # Retirement is quantised to a segment (plus the pipeline's lag), so
+    # per-request latency steps by up to about two segments when the
+    # dispatch knobs flip; the 50 ms floor sits above that quantum and the
+    # detector needs `hysteresis` consecutive out-of-band windows, while a
+    # real p99 excursion (hundreds of ms) clears it easily.
+    dict(name="p99_shift", signal="request_p99_ms", direction="high", floor=50.0),
+    # Speculative accept-rate drop (drafter regression / grammar change).
+    dict(name="accept_rate_drop", signal="spec_accept_rate", direction="low",
+         floor=0.1),
+    # Prefix-cache token-hit-rate collapse (a tree that stopped taking
+    # inserts).
+    dict(name="token_hit_collapse", signal="prefix_token_hit_rate",
+         direction="low", floor=0.15),
+    # Recompile burst: any sustained compile rate after warmup is a storm.
+    dict(name="recompile_burst", signal="compile_rate", direction="high",
+         floor=0.4),
+    # Spill thrash: sustained device<->host churn + destructive evictions.
+    dict(name="spill_thrash", signal="spill_thrash_rate", direction="high",
+         floor=3.0),
+    # Scheduler shed-rate spike (admission refusing a burst it used to take).
+    dict(name="shed_spike", signal="shed_rate", direction="high", floor=0.1),
+    # SLO fast-burn (telemetry/slo.py): the error-budget engine's
+    # multi-window fast-burn signal (worst objective, min over the fast
+    # window pair — already AND-gated against blips). The floor is the
+    # SRE-workbook page threshold: a healthy baseline sits near 0, so a
+    # trip means the budget is being spent >= 14.4x its sustainable rate
+    # in BOTH fast windows. Signal absent (SLO engine off / no traffic in
+    # a window) = sample skipped, recorder-off parity untouched.
+    dict(name="slo_burn", signal="slo_fast_burn", direction="high",
+         floor=14.4),
+    # One hot replica (mcpx/cluster/): max-over-mean queue load across the
+    # pool's routable replicas. A balanced pool sits at ~1.0 whatever the
+    # offered load, so the floor demands the hottest replica carry at
+    # least 2x the mean before a bundle can trip (affinity legitimately
+    # concentrates a little; a wedged replica concentrates a lot). Signal
+    # absent while no pool serves (cluster.enabled=false) = sample
+    # skipped — recorder-off parity untouched.
+    dict(name="replica_skew", signal="replica_skew", direction="high",
+         floor=2.0),
+    # Cluster decision-outcome signals (per-window deltas of the
+    # pool's routing-journal counts; absent without a pool = skipped):
+    # affinity hit rate collapsing means repeat traffic stopped landing on
+    # its KV-warm replica (replica churn, imbalance hatch stuck open).
+    dict(name="affinity_collapse", signal="affinity_hit_rate",
+         direction="low", floor=0.25),
+    # Sustained mid-request re-steers = replicas dying under load.
+    dict(name="resteer_storm", signal="resteer_rate", direction="high",
+         floor=0.5),
+    # Share of routes where affinity preferred a replica but the summed
+    # score placed the request elsewhere — the pool trading KV reuse for
+    # queueing relief; a surge means placement quality degraded.
+    dict(name="degraded_route_surge", signal="degraded_route_share",
+         direction="high", floor=0.35),
+)
+
+
+# ==================================================================== recorder
+class _LogTail(logging.Handler):
+    """Bounded in-memory tail of formatted log lines for bundles."""
+
+    def __init__(self, maxlen: int) -> None:
+        super().__init__(level=logging.INFO)
+        self.lines: "collections.deque[str]" = collections.deque(maxlen=max(1, maxlen))
+
+    def emit(self, record: logging.LogRecord) -> None:
+        try:
+            self.lines.append(
+                f"{record.levelname} {record.name} {record.getMessage()}"
+            )
+        except Exception:  # mcpx: ignore[broad-except] - a log hook must never raise; dropping one tail line is the correct degradation
+            pass
+
+
+def _quantile_from_buckets(
+    edges: list[float], counts: list[float], q: float
+) -> Optional[float]:
+    """q-quantile (seconds) from cumulative histogram bucket counts —
+    an upper-edge estimate; None
+    when the window saw no observations."""
+    total = counts[-1] if counts else 0.0
+    if total <= 0:
+        return None
+    target = q * total
+    for le, c in zip(edges, counts):
+        if c >= target:
+            return le if le != float("inf") else edges[-2] if len(edges) > 1 else None
+    return None
+
+
+@owned_by("event_loop")
+class FlightRecorder:
+    """The always-on telemetry timeseries + anomaly observatory.
+
+    Loop-confined (the class-level mark): the ring, detector state and
+    bundle index are mutated only by the sampler task; cross-task readers
+    (``status()``) get GIL-atomic snapshots. Disk I/O runs via
+    ``asyncio.to_thread`` targets that touch no recorder state.
+
+    ``collect`` returns one RAW sample (cheap GIL-atomic reads — counter
+    values, gauge snapshots, histogram bucket vectors); the recorder
+    derives window signals (rates from counter deltas, quantiles from
+    bucket deltas), appends to the bounded ring, and runs the detectors.
+    ``tick()`` does one full cycle and captures bundles for any trips;
+    ``run()`` loops ``tick()`` on the configured interval. The ring, the
+    detector states and the bundle index are all readable cross-task via
+    ``status()`` (GET /debug/anomalies)."""
+
+    def __init__(
+        self,
+        config: Any,
+        collect: Callable[[], dict],
+        *,
+        bundle_sources: Optional[dict[str, Callable[[], Any]]] = None,
+        detector_specs: Optional[tuple] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self.config = config
+        self._collect = collect
+        self._sources = dict(bundle_sources or {})
+        self._clock = clock
+        self.interval_s = float(config.interval_s)
+        self.ring: "collections.deque[dict]" = collections.deque(
+            maxlen=int(config.ring_size)
+        )
+        self.detectors: list[AnomalyDetector] = []
+        if config.detectors:
+            self.detectors = [
+                AnomalyDetector(
+                    alpha=config.ewma_alpha,
+                    k=config.band_k,
+                    min_samples=config.min_samples,
+                    hysteresis=config.hysteresis,
+                    **spec,
+                )
+                for spec in (detector_specs or _DETECTOR_SPECS)
+            ]
+        self._prev_raw: Optional[dict] = None
+        self._prev_t: Optional[float] = None
+        self._last_bundle_t: dict[str, float] = {}
+        self._bundle_seq = 0
+        # Newest-last bundle index: (id, path, trigger summary, wall ts).
+        self.bundles: list[dict] = []
+        self.samples = 0
+        self.log_tail = _LogTail(int(config.log_tail))
+        self._log_attached = False
+
+    # ------------------------------------------------------------ lifecycle
+    def attach_log_tail(self) -> None:
+        if not self._log_attached:
+            logging.getLogger().addHandler(self.log_tail)
+            self._log_attached = True
+
+    def detach_log_tail(self) -> None:
+        if self._log_attached:
+            logging.getLogger().removeHandler(self.log_tail)
+            self._log_attached = False
+
+    async def run(self) -> None:
+        """The sampling loop (one asyncio task, started by the server).
+        Sampling itself is cheap sync reads; bundle WRITES go through
+        ``asyncio.to_thread`` inside ``tick()``."""
+        self.attach_log_tail()
+        try:
+            while True:
+                await asyncio.sleep(self.interval_s)
+                try:
+                    await self.tick()
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001 - the recorder must never kill serving
+                    log.exception("flight sample failed; continuing")
+        finally:
+            self.detach_log_tail()
+
+    # ------------------------------------------------------------- sampling
+    def sample(self) -> list[dict]:
+        """One sampling cycle: collect raw, derive window signals, append
+        to the ring, run detectors. Returns the trigger records for any
+        detectors that tripped outside their cooldown (bundle capture is
+        the caller's — ``tick()``'s — async job)."""
+        now = self._clock()
+        raw = self._collect()
+        signals = self._derive(raw, now)
+        self.ring.append({"ts": round(time.time(), 3), "signals": signals})
+        self._prev_raw = raw
+        self._prev_t = now
+        self.samples += 1
+        trips: list[dict] = []
+        for det in self.detectors:
+            if not det.observe(signals.get(det.signal)):
+                continue
+            last = self._last_bundle_t.get(det.name)
+            if last is not None and now - last < self.config.cooldown_s:
+                det.suppressed_trips += 1
+                log.warning(
+                    "flight detector %s re-tripped inside cooldown "
+                    "(signal=%s value=%s); bundle suppressed",
+                    det.name, det.signal, signals.get(det.signal),
+                )
+                continue
+            self._last_bundle_t[det.name] = now
+            trips.append(
+                {
+                    "detector": det.name,
+                    "signal": det.signal,
+                    "direction": det.direction,
+                    "value": signals.get(det.signal),
+                    "mean": det.mean,
+                    "band": det.band(),
+                    "ts": round(time.time(), 3),
+                }
+            )
+        return trips
+
+    async def tick(self) -> list[str]:
+        """sample() + bundle capture for each trip; returns bundle ids."""
+        ids = []
+        for trip in self.sample():
+            bid = await self.capture_bundle(trip)
+            if bid is not None:
+                ids.append(bid)
+        return ids
+
+    def _derive(self, raw: dict, now: float) -> dict:
+        """Window signals from two consecutive raw samples: counters
+        become rates over the interval, histogram buckets become window
+        quantiles, gauges pass through. None = not derivable this window
+        (first sample, no traffic, subsystem off) — detectors skip it."""
+        prev = self._prev_raw
+        dt = (now - self._prev_t) if self._prev_t is not None else None
+        signals: dict[str, Optional[float]] = {}
+
+        def rate(key: str) -> Optional[float]:
+            if prev is None or not dt or dt <= 0:
+                return None
+            d = raw.get(key, 0.0) - prev.get(key, 0.0)
+            return max(0.0, d) / dt
+
+        # Gauges straight through (present only when their source is).
+        for key in (
+            "queue_depth", "active_rows", "eta_s", "hol_wait_ms",
+            "prefix_hit_rate", "breakers_open", "sched_degraded",
+            "slo_fast_burn", "replica_skew",
+        ):
+            if key in raw:
+                signals[key] = raw[key]
+
+        def window_ratio(num_key: str, den_keys: "tuple[str, ...]") -> Optional[float]:
+            """num/denominator over THIS window's counter deltas — the
+            detector-watched ratios must be per-window: a lifetime ratio
+            (queue_stats' cumulative accept/hit rates) moves ~1e-4 per
+            window on a long-running server, so a total collapse (the
+            frozen-tree shape) would never leave the band. None
+            when the window saw no denominator events."""
+            if prev is None:
+                return None
+            dn = raw.get(num_key, 0.0) - prev.get(num_key, 0.0)
+            dd = sum(raw.get(k, 0.0) - prev.get(k, 0.0) for k in den_keys)
+            if dd <= 0:
+                return None
+            return max(0.0, min(1.0, dn / dd))
+
+        signals["spec_accept_rate"] = window_ratio(
+            "spec_accepted_total", ("spec_drafted_total",)
+        )
+        signals["prefix_token_hit_rate"] = window_ratio(
+            "prefix_matched_tokens_total",
+            ("prefix_matched_tokens_total", "prefill_tokens_total"),
+        )
+        # Worker-loop phase shares over THIS window (deltas of the
+        # profiler's cumulative per-phase seconds between samples).
+        cur_wp = raw.get("worker_phase_totals")
+        prev_wp = prev.get("worker_phase_totals") if prev else None
+        if cur_wp is not None and prev_wp is not None:
+            deltas = {
+                p: max(0.0, v - prev_wp.get(p, 0.0)) for p, v in cur_wp.items()
+            }
+            attributed = sum(deltas.values())
+            if attributed > 0:
+                signals["worker_idle_share"] = round(
+                    deltas.get("idle", 0.0) / attributed, 4
+                )
+                # The submit half of the old "dispatch" phase (host-side
+                # enqueue); the legacy key
+                # keeps pre-split profiler snapshots readable.
+                signals["worker_dispatch_share"] = round(
+                    (
+                        deltas.get("dispatch_submit", 0.0)
+                        + deltas.get("dispatch", 0.0)
+                    )
+                    / attributed,
+                    4,
+                )
+        # Counter-derived rates.
+        signals["plan_rate"] = rate("plans_total")
+        signals["compile_rate"] = rate("compiles_total")
+        signals["decode_tok_rate"] = rate("decode_tokens_total")
+        # Dispatch cadence over THIS window:
+        # decode dispatches per emitted token. Per-step dispatch sits near
+        # 1/tokens-per-tick; the fused window divides it by
+        # steps_per_dispatch — a sustained climb back up means the fused
+        # path stopped engaging (config rollback, spec-latch drain, a
+        # regression). Informational ring signal, no default detector:
+        # the cadence is config-stepped by design, and a config flip
+        # tripping an anomaly detector would train operators to ignore it.
+        if prev is not None:
+            d_seg = raw.get("segments_total", 0.0) - prev.get(
+                "segments_total", 0.0
+            )
+            d_tok = raw.get("decode_tokens_total", 0.0) - prev.get(
+                "decode_tokens_total", 0.0
+            )
+            signals["decode_dispatches_per_token"] = (
+                round(d_seg / d_tok, 4) if d_tok > 0 else None
+            )
+        else:
+            signals["decode_dispatches_per_token"] = None
+        spill_rate = rate("spill_events_total")
+        signals["spill_thrash_rate"] = spill_rate
+        # Cluster decision-outcome signals: window deltas of
+        # the pool's routing-journal counts. Keys absent without a pool —
+        # every signal stays None and the cluster detectors skip.
+        if "cluster_routed_total" in raw:
+            signals["affinity_hit_rate"] = window_ratio(
+                "cluster_affinity_hit_total", ("cluster_routed_total",)
+            )
+            signals["degraded_route_share"] = window_ratio(
+                "cluster_degraded_route_total", ("cluster_routed_total",)
+            )
+            signals["resteer_rate"] = rate("cluster_resteer_total")
+        # Shed rate: share of scheduler decisions this window that shed.
+        if prev is not None:
+            d_all = raw.get("sched_decisions_total", 0.0) - prev.get(
+                "sched_decisions_total", 0.0
+            )
+            d_shed = raw.get("sched_shed_total", 0.0) - prev.get(
+                "sched_shed_total", 0.0
+            )
+            signals["shed_rate"] = (d_shed / d_all) if d_all > 0 else None
+        else:
+            signals["shed_rate"] = None
+        # Streaming latency quantiles from the request-latency histogram
+        # bucket DELTAS over this window (limited endpoints combined).
+        edges = raw.get("latency_edges")
+        counts = raw.get("latency_buckets")
+        if edges and counts is not None:
+            if prev is not None and prev.get("latency_buckets") is not None:
+                window = [
+                    c - p for c, p in zip(counts, prev["latency_buckets"])
+                ]
+            else:
+                window = None
+            for q, key in ((0.5, "request_p50_ms"), (0.99, "request_p99_ms")):
+                v = (
+                    _quantile_from_buckets(edges, window, q)
+                    if window is not None
+                    else None
+                )
+                signals[key] = round(v * 1e3, 3) if v is not None else None
+        return signals
+
+    # -------------------------------------------------------------- bundles
+    def _assemble(self, trip: dict) -> dict:
+        """Build the bundle dict from in-memory reads (event loop safe:
+        every source is a GIL-atomic snapshot; the expensive part — disk —
+        happens in ``_write_bundle`` off the loop)."""
+        self._bundle_seq += 1
+        bid = f"{trip['detector']}-{self._bundle_seq:04d}"
+        bundle: dict[str, Any] = {
+            "version": BUNDLE_VERSION,
+            "bundle_id": bid,
+            "captured_at": round(time.time(), 3),
+            "trigger": trip,
+            "detectors": {d.name: d.state() for d in self.detectors},
+            # The flight window AROUND the trigger: the whole ring is the
+            # window (bounded by ring_size); the trigger is its tail.
+            "window": list(self.ring),
+            "log_tail": list(self.log_tail.lines),
+        }
+        for key, fn in self._sources.items():
+            try:
+                bundle[key] = fn()
+            except Exception as e:  # mcpx: ignore[broad-except] - error recorded IN the bundle; one broken source must not lose the capture
+                bundle[key] = {"error": f"{type(e).__name__}: {e}"}
+        return bundle
+
+    def _write_bundle(self, bundle: dict) -> str:
+        """Sync bundle writer (runs in a thread via asyncio.to_thread):
+        atomic tmp+rename, then prune past max_bundles."""
+        d = self.config.bundle_dir
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"bundle-{bundle['bundle_id']}.json")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(bundle, f)
+        os.replace(tmp, path)
+        return path
+
+    async def capture_bundle(self, trip: dict) -> Optional[str]:
+        bundle = self._assemble(trip)
+        try:
+            path = await asyncio.to_thread(self._write_bundle, bundle)
+        except Exception:  # noqa: BLE001 - a full disk must not kill the sampler
+            log.exception("flight bundle write failed")
+            return None
+        self.bundles.append(
+            {
+                "bundle_id": bundle["bundle_id"],
+                "path": path,
+                "trigger": trip,
+                "captured_at": bundle["captured_at"],
+                "trace_ids": _bundle_trace_ids(bundle),
+            }
+        )
+        while len(self.bundles) > self.config.max_bundles:
+            old = self.bundles.pop(0)
+            try:
+                await asyncio.to_thread(os.remove, old["path"])
+            except OSError:
+                pass
+        log.warning(
+            "flight detector %s tripped (signal=%s value=%s mean=%s band=%s); "
+            "bundle %s written to %s",
+            trip["detector"], trip["signal"], trip["value"],
+            trip["mean"], trip["band"], bundle["bundle_id"], path,
+        )
+        return bundle["bundle_id"]
+
+    def _read_bundle(self, bundle_id: str) -> Optional[dict]:
+        for b in self.bundles:
+            if b["bundle_id"] == bundle_id:
+                try:
+                    with open(b["path"]) as f:
+                        return json.load(f)
+                except (OSError, json.JSONDecodeError):
+                    return None
+        return None
+
+    async def load_bundle(self, bundle_id: str) -> Optional[dict]:
+        return await asyncio.to_thread(self._read_bundle, bundle_id)
+
+    # --------------------------------------------------------------- status
+    def status(self) -> dict:
+        """GET /debug/anomalies: detector states + bundle index + the
+        latest flight snapshot (not the whole ring — that ships only
+        inside bundles)."""
+        return {
+            "enabled": True,
+            "interval_s": self.interval_s,
+            "samples": self.samples,
+            "ring_len": len(self.ring),
+            "detectors": {d.name: d.state() for d in self.detectors},
+            "bundles": [
+                {k: v for k, v in b.items() if k != "path"}
+                for b in self.bundles
+            ],
+            "latest": self.ring[-1] if self.ring else None,
+        }
+
+
+def _bundle_trace_ids(bundle: dict) -> list:
+    """Trace ids from a bundle's ``traces`` block. A failed traces source
+    leaves ``{"error": ...}`` there instead of a list (_assemble keeps the
+    capture); that shape must yield [] — not crash the indexer/CLI."""
+    traces = bundle.get("traces")
+    if not isinstance(traces, list):
+        return []
+    return [t.get("trace_id") for t in traces if isinstance(t, dict)]
+
+
+# ============================================================ control wiring
+def _scrape_metrics(metrics: Any) -> dict:
+    """The metrics-registry portion of a raw sample: counter totals and the
+    combined limited-endpoint latency histogram buckets, from one pass over
+    the port's own families (``Metrics.families()``, read under each
+    family's lock), by the sample names the reference reads."""
+    out: dict[str, Any] = {}
+    plans = compiles = decode = spill = sched_all = sched_shed = 0.0
+    matched = prefilled = drafted = accepted = segments = 0.0
+    buckets: dict[float, float] = {}
+    limited = LIMITED_ENDPOINTS
+    for family in metrics.families():
+        name = family.name
+        for suffix, label_pairs, value, _exemplar in family.samples():
+            sname = name + suffix
+            labels = dict(label_pairs)
+            if sname == "mcpx_plans_total":
+                plans += value
+            elif sname == "mcpx_engine_compiles_total":
+                compiles += value
+            elif sname == "mcpx_engine_decode_tokens_total":
+                decode += value
+            elif sname == "mcpx_engine_segments_total":
+                segments += value
+            elif sname == "mcpx_kv_prefix_matched_tokens_total":
+                matched += value
+            elif sname == "mcpx_engine_prefill_tokens_total":
+                prefilled += value
+            elif sname == "mcpx_engine_spec_drafted_total":
+                drafted += value
+            elif sname == "mcpx_engine_spec_accepted_total":
+                accepted += value
+            elif sname in (
+                "mcpx_kv_spill_spills_total",
+                "mcpx_kv_spill_readmits_total",
+                "mcpx_kv_spill_destructive_evictions_total",
+            ):
+                spill += value
+            elif sname == "mcpx_sched_decisions_total":
+                sched_all += value
+                if str(labels.get("outcome", "")).startswith("shed"):
+                    sched_shed += value
+            elif sname == "mcpx_sched_degraded_mode":
+                out["sched_degraded"] = value
+            elif sname == "mcpx_request_latency_seconds_bucket":
+                if labels.get("endpoint") in limited:
+                    le = float(labels["le"])
+                    buckets[le] = buckets.get(le, 0.0) + value
+    out["plans_total"] = plans
+    out["compiles_total"] = compiles
+    out["decode_tokens_total"] = decode
+    # Dispatch-cadence numerator (decode_dispatches_per_token signal).
+    out["segments_total"] = segments
+    out["spill_events_total"] = spill
+    out["sched_decisions_total"] = sched_all
+    out["sched_shed_total"] = sched_shed
+    # Counter totals behind the WINDOW ratio signals (_derive): a
+    # lifetime ratio barely moves during an excursion on a long-running
+    # server, so the ratio detectors must see per-window ratios.
+    out["prefix_matched_tokens_total"] = matched
+    out["prefill_tokens_total"] = prefilled
+    out["spec_drafted_total"] = drafted
+    out["spec_accepted_total"] = accepted
+    if buckets:
+        edges = sorted(buckets)
+        out["latency_edges"] = edges
+        out["latency_buckets"] = [buckets[e] for e in edges]
+    return out
+
+
+def build_flight_recorder(cp: Any) -> Optional["FlightRecorder"]:
+    """Wire a FlightRecorder to a ControlPlane (None when disabled). The
+    collector and bundle sources close over ``cp`` and read the same
+    cross-thread-safe snapshots the HTTP observability endpoints serve:
+    the recorder adds no instrumentation to the serving path. The
+    reference's cluster sources (``cp.cluster``) have no counterpart in
+    the port and are absent, as they are there without a pool."""
+    fcfg = cp.config.telemetry.flight
+    if not fcfg.enabled:
+        return None
+
+    def _engine():
+        eng = getattr(cp.planner, "engine", None)
+        if eng is not None and getattr(eng, "state", None) == "ready":
+            return eng
+        return None
+
+    def collect() -> dict:
+        raw = _scrape_metrics(cp.metrics)
+        eng = _engine()
+        if eng is not None:
+            qs = eng.queue_stats()
+            # The port's queue_stats names (queue_depth, active_rows); it
+            # keeps no head-of-line gauge, so hol_wait_ms stays absent.
+            raw["queue_depth"] = float(qs["queue_depth"])
+            raw["active_rows"] = float(qs["active_rows"])
+            raw["eta_s"] = float(qs["eta_s"])
+            # Informational lifetime gauge only; the detector-watched
+            # spec_accept_rate / prefix_token_hit_rate signals are
+            # derived per-window from the counter deltas.
+            raw["prefix_hit_rate"] = float(eng.prefix_cache_stats()["hit_rate"])
+            wp = qs.get("worker_profile")
+            if wp:
+                # Cumulative per-phase seconds since profiler attach; the
+                # recorder deltas consecutive samples into WINDOW shares
+                # (a lifetime share barely moves during an excursion —
+                # useless to the over-time watch).
+                raw["worker_phase_totals"] = {
+                    p: ph["total_s"] for p, ph in wp["phases"].items()
+                }
+        res = cp.orchestrator.resilience
+        breakers = getattr(res, "breakers", None) if res is not None else None
+        if breakers is not None:
+            raw["breakers_open"] = float(
+                sum(1 for st in breakers.snapshot().values() if st != "closed")
+            )
+        slo = getattr(cp, "slo", None)
+        if slo is not None:
+            # The error-budget engine's multi-window fast-burn signal
+            # (telemetry/slo.py) — the slo_burn detector's watch. None
+            # (no traffic in a fast window) is left absent: detectors
+            # skip, never alarm on an idle server.
+            fb = slo.fast_burn()
+            if fb is not None:
+                raw["slo_fast_burn"] = float(fb)
+        return raw
+
+    def traces_source() -> list[dict]:
+        # Newest-first summaries of whatever the tail-sampling ring kept —
+        # the trigger window's error/SLO traces are exactly what it keeps.
+        return [r.summary() for r in cp.tracer.traces()[:32]]
+
+    def costs_source() -> Optional[dict]:
+        eng = getattr(cp.planner, "engine", None)
+        costs = getattr(eng, "costs", None) if eng is not None else None
+        if costs is None:
+            return None
+        # The capture history and the analytic costs read so far.
+        return costs.snapshot(materialize=False)
+
+    def breakers_source() -> Optional[dict]:
+        res = cp.orchestrator.resilience
+        breakers = getattr(res, "breakers", None) if res is not None else None
+        return breakers.snapshot() if breakers is not None else None
+
+    def queue_source() -> Optional[dict]:
+        eng = _engine()
+        if eng is None:
+            return None
+        # numpy scalars (service_ewma_s) are not JSON-serializable.
+        out: dict[str, Any] = {}
+        for k, v in eng.queue_stats().items():
+            out[k] = float(v) if isinstance(v, float) else v
+        return out
+
+    sources: dict[str, Callable[[], Any]] = {
+        "traces": traces_source,
+        "costs": costs_source,
+        "breakers": breakers_source,
+        "queue_stats": queue_source,
+        "cache": cp.cache_stats,
+    }
+    # Budget + usage state ride the bundle when their engines are on: an
+    # slo_burn bundle then carries WHICH objective burned and WHO spent
+    # the budget, not just the signal that tripped.
+    slo = getattr(cp, "slo", None)
+    if slo is not None:
+        sources["slo"] = slo.status
+    ledger = getattr(cp, "ledger", None)
+    if ledger is not None:
+        sources["usage"] = ledger.snapshot
+    specs = _DETECTOR_SPECS
+    if slo is not None:
+        # The slo_burn floor follows the CONFIGURED page threshold — a
+        # lowered slo.fast_burn_threshold must trip bundles at the same
+        # level it breaches /slo and engages the burn-aware ladder.
+        specs = tuple(
+            dict(s, floor=float(cp.config.slo.fast_burn_threshold))
+            if s["name"] == "slo_burn"
+            else s
+            for s in _DETECTOR_SPECS
+        )
+    return FlightRecorder(
+        fcfg, collect, bundle_sources=sources, detector_specs=specs
+    )
+
+
+# =================================================================== validation
+_BUNDLE_REQUIRED = (
+    "version", "bundle_id", "captured_at", "trigger", "detectors", "window",
+    "log_tail", "traces",
+)
+_TRIGGER_REQUIRED = ("detector", "signal", "direction", "value", "mean", "band")
+
+
+def validate_bundle(bundle: Any) -> list[str]:
+    """Schema check for a diagnostic bundle (the round-trip contract the
+    CLI and tests gate on). Returns a list of problems; empty = valid."""
+    problems: list[str] = []
+    if not isinstance(bundle, dict):
+        return ["bundle is not an object"]
+    if bundle.get("version") != BUNDLE_VERSION:
+        problems.append(
+            f"version {bundle.get('version')!r} != {BUNDLE_VERSION}"
+        )
+    for key in _BUNDLE_REQUIRED:
+        if key not in bundle:
+            problems.append(f"missing key '{key}'")
+    trig = bundle.get("trigger")
+    if not isinstance(trig, dict):
+        problems.append("'trigger' is not an object")
+    else:
+        for key in _TRIGGER_REQUIRED:
+            if key not in trig:
+                problems.append(f"missing trigger key '{key}'")
+    window = bundle.get("window")
+    if not isinstance(window, list) or not window:
+        problems.append("'window' is not a non-empty list")
+    elif not all(
+        isinstance(s, dict) and "ts" in s and "signals" in s for s in window
+    ):
+        problems.append("window snapshots must carry ts + signals")
+    return problems

@@ -1,0 +1,312 @@
+"""Decision-provenance spine: per-request "why" records and ``GET
+/explain``.
+
+PyTorch-port copy of ``mcpx/telemetry/provenance.py``. Every consequential
+choice point emits a **DecisionRecord** (layer, choice, alternatives
+considered, per-factor contributions, triggering signal values) as a
+zero-duration ``decision.<layer>`` child of the current span, so the
+tracer's tail sampling applies unchanged and an error request keeps its
+whole decision trail. ``GET /explain/{trace_id}`` renders a retained
+trace's trail as structured JSON and a narrative.
+
+Activation mirrors the cost ledger: the server middleware ``begin()``s a
+per-request trail on a contextvar while ``telemetry.provenance.enabled``;
+``emit()`` anywhere below is a no-op unless a trail is active and a span is
+current. Off (the default) no trail ever exists, and span trees and
+responses are those of a run without this module. Emission is host-side
+dict writes on the event loop; the engine worker never emits (contextvars
+do not cross threads): its prefix-cache outcomes are re-emitted on the loop
+from the spans it recorded.
+
+Canonical layers (the ``mcpx_provenance_records_total{layer}`` label set):
+
+  - ``sched``       admission verdict and degradation-ladder tier
+  - ``plan``        plan origin (cache, redis, LLM, shortlist)
+  - ``route``       cluster routing (no emitter in the port: it has no
+                    cluster layer)
+  - ``resilience``  breaker-open skip, hedge fire/win, budget refusal,
+                    fallback rescue
+  - ``replan``      replan cause and exclusions
+  - ``prefix``      prefix-cache and KV-tier events (match depth, spill,
+                    readmit)
+"""
+
+from __future__ import annotations
+
+import contextvars
+import time
+from typing import Any, Optional
+
+from mcpx_torch.telemetry import tracing
+from mcpx_torch.utils.ownership import owned_by
+
+__all__ = [
+    "ProvenanceRecorder",
+    "active",
+    "begin",
+    "build_explanation",
+    "build_provenance",
+    "emit",
+    "end",
+    "validate_explanation",
+]
+
+# Span-name prefix the /explain extractor keys on.
+DECISION_PREFIX = "decision."
+
+# The bounded layer vocabulary (metrics label set). emit() folds anything
+# else into "other" so a typo'd call site cannot mint label cardinality.
+LAYERS = ("sched", "plan", "route", "resilience", "replan", "prefix")
+
+# Attr keys with first-class columns in the /explain schema; everything
+# else an emitter passes lands under "detail".
+_STRUCTURED_KEYS = ("seq", "choice", "alternatives", "contributions", "signals")
+
+
+class _Trail:
+    """One request's emission state (contextvar payload): the record cap
+    and the monotonic seq that makes trail order deterministic even when
+    two decisions land inside the same clock tick."""
+
+    __slots__ = ("recorder", "count", "dropped")
+
+    def __init__(self, recorder: "ProvenanceRecorder") -> None:
+        self.recorder = recorder
+        self.count = 0
+        self.dropped = 0
+
+
+_ACTIVE: "contextvars.ContextVar[Optional[_Trail]]" = contextvars.ContextVar(
+    "mcpx_provenance_trail", default=None
+)
+
+
+@owned_by("event_loop")
+class ProvenanceRecorder:
+    """Per-control-plane decision recorder. Holds the knobs + the metrics
+    handle; per-request state lives on the contextvar so multiple control
+    planes in one process (tests) never cross-talk. Loop-confined: trails
+    begin/end in the server middleware and every emitter runs on the
+    event loop (engine-worker prefix/tier events are re-emitted loop-side
+    after generate returns — contextvars do not cross threads)."""
+
+    def __init__(self, config: Any, metrics: Any = None) -> None:
+        self.config = config
+        self.metrics = metrics
+        self.records_emitted = 0  # mcpx: owner[event_loop]
+
+    # ------------------------------------------------------- request scope
+    def begin(self) -> "contextvars.Token":
+        """Activate a trail for the current request context; the returned
+        token MUST be passed to ``end()`` in a finally."""
+        return _ACTIVE.set(_Trail(self))
+
+    def end(self, token: "contextvars.Token") -> None:
+        _ACTIVE.reset(token)
+
+
+# Module-level aliases so call sites read ``provenance.begin(recorder)``
+# symmetrically with the ledger's activate/deactivate idiom.
+def begin(recorder: Optional[ProvenanceRecorder]) -> Optional["contextvars.Token"]:
+    if recorder is None:
+        return None
+    return recorder.begin()
+
+
+def end(token: Optional["contextvars.Token"]) -> None:
+    if token is not None:
+        _ACTIVE.reset(token)
+
+
+def active() -> bool:
+    """True when an emit() here would record something — call sites use
+    this to skip building alternatives/contribution dicts on the off
+    path (byte-identical pass-through is the contract)."""
+    return _ACTIVE.get() is not None and tracing.current_span() is not None
+
+
+def emit(
+    layer: str,
+    choice: str,
+    *,
+    alternatives: Optional[list] = None,
+    contributions: Optional[dict] = None,
+    signals: Optional[dict] = None,
+    **attrs: Any,
+) -> bool:
+    """Record one DecisionRecord as a zero-duration ``decision.<layer>``
+    child of the current span. No-op (False) unless a trail is active and
+    a span is current; past the per-trace cap the drop is counted on the
+    root span's ``provenance_dropped`` attr instead of growing the tree."""
+    trail = _ACTIVE.get()
+    if trail is None:
+        return False
+    sp = tracing.current_span()
+    if sp is None:
+        return False
+    rec = trail.recorder
+    if trail.count >= int(rec.config.max_records_per_trace):
+        trail.dropped += 1
+        sp.record.root.attrs["provenance_dropped"] = trail.dropped
+        return False
+    trail.count += 1
+    now = time.monotonic()
+    d = sp.child(f"{DECISION_PREFIX}{layer}", t0=now, t1=now)
+    d.attrs["seq"] = trail.count
+    d.attrs["choice"] = choice
+    if alternatives:
+        d.attrs["alternatives"] = list(alternatives)
+    if contributions:
+        d.attrs["contributions"] = dict(contributions)
+    if signals:
+        d.attrs["signals"] = dict(signals)
+    if attrs:
+        d.attrs.update(attrs)
+    rec.records_emitted += 1
+    m = rec.metrics
+    counter = getattr(m, "provenance_records", None) if m is not None else None
+    if counter is not None:
+        counter.labels(layer=layer if layer in LAYERS else "other").inc()
+    return True
+
+
+# ================================================================== /explain
+def build_explanation(record: "tracing.TraceRecord") -> dict:
+    """The /explain payload for one retained trace: the decision trail in
+    emission order (structured) + a human-readable narrative. Traces
+    recorded with provenance off explain honestly: empty trail, a
+    narrative saying so."""
+    root_t0 = record.root.t0
+    decisions: list[dict] = []
+    for s in record.spans:
+        if not s.name.startswith(DECISION_PREFIX):
+            continue
+        a = s.attrs
+        entry: dict[str, Any] = {
+            "seq": a.get("seq", 0),
+            "layer": s.name[len(DECISION_PREFIX):],
+            "choice": a.get("choice", ""),
+            "t_ms": round((s.t0 - root_t0) * 1e3, 3),
+        }
+        for key in ("alternatives", "contributions", "signals"):
+            if key in a:
+                entry[key] = a[key]
+        detail = {k: v for k, v in a.items() if k not in _STRUCTURED_KEYS}
+        if detail:
+            entry["detail"] = detail
+        decisions.append(entry)
+    # seq is the authoritative order: zero-duration spans emitted in one
+    # tight loop can share a monotonic-clock tick.
+    decisions.sort(key=lambda d: d["seq"])
+    layers = sorted({d["layer"] for d in decisions})
+    return {
+        **record.summary(),
+        "layers": layers,
+        "decisions": decisions,
+        "dropped": record.root.attrs.get("provenance_dropped", 0),
+        "narrative": _narrative(record, decisions),
+    }
+
+
+def _fmt_num(v: Any) -> str:
+    return f"{v:+.4f}" if isinstance(v, float) else str(v)
+
+
+def _narrate_one(d: dict) -> str:
+    bits: list[str] = []
+    if d.get("contributions"):
+        bits.append(
+            "contributions "
+            + ", ".join(f"{k}={_fmt_num(v)}" for k, v in d["contributions"].items())
+        )
+    if d.get("alternatives"):
+        bits.append(
+            "alternatives " + ", ".join(str(a) for a in d["alternatives"])
+        )
+    if d.get("signals"):
+        bits.append(
+            "signals "
+            + ", ".join(f"{k}={v}" for k, v in d["signals"].items())
+        )
+    for k, v in (d.get("detail") or {}).items():
+        bits.append(f"{k}={v}")
+    head = f"{d['seq']:>3}. +{d['t_ms']:.1f}ms [{d['layer']}] {d['choice']}"
+    return head + (" (" + "; ".join(bits) + ")" if bits else "")
+
+
+def _narrative(record: "tracing.TraceRecord", decisions: list[dict]) -> list[str]:
+    status = "errored" if record.error else "completed"
+    lines = [
+        f"request '{record.name}' ({record.trace_id[:12]}) {status} in "
+        f"{record.total_ms:.1f} ms with {len(decisions)} recorded "
+        f"decision{'s' if len(decisions) != 1 else ''}."
+    ]
+    if not decisions:
+        lines.append(
+            "no decision records on this trace — it predates provenance "
+            "or telemetry.provenance.enabled was false when it ran."
+        )
+        return lines
+    lines.extend(_narrate_one(d) for d in decisions)
+    dropped = record.root.attrs.get("provenance_dropped", 0)
+    if dropped:
+        lines.append(
+            f"({dropped} further decision(s) dropped past the "
+            "max_records_per_trace cap.)"
+        )
+    return lines
+
+
+# ================================================================ validation
+_EXPLAIN_REQUIRED = (
+    "trace_id", "name", "total_ms", "error", "layers", "decisions",
+    "narrative",
+)
+_DECISION_REQUIRED = ("seq", "layer", "choice", "t_ms")
+
+
+def validate_explanation(obj: Any) -> list[str]:
+    """Schema check for a /explain payload (the round-trip contract the
+    CLI and tests gate on). Returns a list of problems; empty = valid."""
+    problems: list[str] = []
+    if not isinstance(obj, dict):
+        return ["explanation is not an object"]
+    for key in _EXPLAIN_REQUIRED:
+        if key not in obj:
+            problems.append(f"missing key '{key}'")
+    decisions = obj.get("decisions")
+    if not isinstance(decisions, list):
+        problems.append("'decisions' is not a list")
+    else:
+        for i, d in enumerate(decisions):
+            if not isinstance(d, dict):
+                problems.append(f"decisions[{i}] is not an object")
+                continue
+            for key in _DECISION_REQUIRED:
+                if key not in d:
+                    problems.append(f"decisions[{i}] missing key '{key}'")
+        seqs = [
+            d.get("seq") for d in decisions
+            if isinstance(d, dict) and isinstance(d.get("seq"), int)
+        ]
+        if seqs != sorted(seqs):
+            problems.append("decisions are not in seq order")
+    narrative = obj.get("narrative")
+    if not isinstance(narrative, list) or not all(
+        isinstance(x, str) for x in narrative
+    ):
+        problems.append("'narrative' is not a list of strings")
+    elif not narrative:
+        problems.append("'narrative' is empty")
+    return problems
+
+
+# ============================================================ control wiring
+def build_provenance(cp: Any) -> Optional[ProvenanceRecorder]:
+    """Wire a ProvenanceRecorder to a ControlPlane (None when disabled —
+    the middleware then never begins a trail and every emit() below stays
+    a two-load no-op)."""
+    pcfg = cp.config.telemetry.provenance
+    if not pcfg.enabled:
+        return None
+    return ProvenanceRecorder(pcfg, metrics=cp.metrics)

@@ -5,7 +5,7 @@ executions (``Lockstep``) and probe exclusion, the telemetry phase (its
 exposition parser, its latency attribution against the reference bench's,
 and the phase itself on a CPU control plane), the mixed, speculation and
 heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines, and
-the int8, overload and chaos phases on CPU control planes."""
+the int8, overload, chaos and observatory phases on CPU control planes."""
 
 import os
 import sys
@@ -306,7 +306,7 @@ def test_mixed_spec_and_hetero_phases_run_on_a_cpu_engine():
     torch.set_num_threads(1)
     try:
         plans, mixed = asyncio.run(serving())
-        hetero = asyncio.run(
+        hetero, _ = asyncio.run(
             chip_smoke.serve_hetero("test", chip_smoke.CKPT, 4, "cpu", plans, batch=8, device="cpu")
         )
         spec = asyncio.run(chip_smoke.spec_phase("test", chip_smoke.CKPT, "cpu", 12, batch=8, device="cpu"))
@@ -318,6 +318,62 @@ def test_mixed_spec_and_hetero_phases_run_on_a_cpu_engine():
     assert spec["differing"] == 0 and spec["on"]["spec_verify"] > 0 and spec["off"]["spec_verify"] == 0
     assert spec["on"]["tokens_per_live_forward"] > spec["off"]["tokens_per_live_forward"]
     assert 0 < spec["on"]["accept_rate"] <= 1
+
+
+def test_observatory_phase_runs_on_cpu_control_planes():
+    """Phase 19 on the CPU at a small size, on a serving control plane and
+    on the heterogeneous slab with speculation (through ``serve_hetero``'s
+    ``after``): three rounds of off, ledger, flight and all, the parts
+    attached live, each gating as on the card (plans equal, nothing
+    captured, the bills equal to the ledger and ``/costs`` deltas exactly,
+    a valid bundle and explanations); the parts are detached again
+    afterwards."""
+    import asyncio
+    import random
+
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    async def serving():
+        cfg = chip_smoke.config("test", chip_smoke.CKPT, 8)
+        cfg.engine.warmup_compile = False
+        cp = build_control_plane(cfg, device="cpu")
+        records = synth_registry(1000, seed=0)
+        for rec in records:
+            await cp.registry.put(rec)
+        await cp.startup()
+        await cp.planner.engine.drop_unpinned()
+        try:
+            rng = random.Random(0)
+            intents = [intent_for(records, rng) for _ in range(3)]
+            with chip_smoke.one_cohort(cp.planner.engine, len(intents)):
+                plans = [p for p, _ in await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))]
+            stats = await chip_smoke.observatory_phase(cp, intents, plans, "test", "cpu")
+            parts = (cp.ledger, cp.slo, cp.flight, cp.provenance, cp.config.telemetry.ledger.enabled)
+            return plans, stats, parts
+        finally:
+            await cp.aclose()
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plans, stats, parts = asyncio.run(serving())
+        _, spec = asyncio.run(chip_smoke.serve_hetero(
+            "test", chip_smoke.CKPT, 3, "cpu", plans, batch=8, device="cpu",
+            after=lambda cp, intents, p: chip_smoke.observatory_phase(cp, intents, p, "spec_test", "cpu"),
+        ))
+    finally:
+        torch.set_num_threads(n)
+    assert parts == (None, None, None, None, False)
+    for st in (stats, spec):
+        assert st["captures_on"] == [0] * 9 and len(st["plans_per_s"]["off"]) == 3
+        assert set(st["plans_per_s"]) == {"off", "ledger", "flight", "all"} and len(st["decisions"]) == 3
+        for c in st["conservation"]:
+            assert c["bills"] == c["ledger_totals"] == c["costs"] and c["bills"][0] > 0
+        assert st["usage_tenants"] == ["observatory"] and st["usage_requests"] == 6 * 3
+        assert st["slo_objectives"] == ["latency_p99", "availability", "plan_quality"]
+        assert st["flight_samples"] >= 1 and min(st["decisions"]) > 0
+    assert all(ours > 0 and ours == engine for ours, engine in spec["spec_accepted"])
 
 
 def test_tier_phase_runs_on_a_cpu_engine():

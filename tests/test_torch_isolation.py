@@ -7,8 +7,9 @@ transport imports it inside its methods, the Redis plan cache imports redis
 at its first use), nothing imports prometheus_client (the port's metrics are
 its own), and the control plane serves ``/plan`` and ``/plan_and_execute``,
 traced, renders its metrics, admits through the scheduler, executes through
-the resilience facade over the chaos transport, and serves an int8 engine,
-with all three blocked."""
+the resilience facade over the chaos transport, and serves an int8 engine
+with telemetry's default-off parts on (its mirror refusing to sync without
+redis, by name), with all three blocked."""
 
 import ast
 import os
@@ -39,13 +40,15 @@ def _forbidden(module: str) -> bool:
 
 
 def test_walk_covers_every_module_of_the_port():
-    """The walk sees every module, the int8, scheduler and resilience ones
-    among them."""
+    """The walk sees every module, the int8, scheduler, resilience and
+    default-off telemetry ones among them."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in (
         "models/gemma/quant.py", "scheduler/admission.py", "scheduler/fairness.py",
         "scheduler/degrade.py", "scheduler/scheduler.py", "resilience/__init__.py",
         "resilience/breaker.py", "resilience/budget.py", "resilience/hedge.py", "resilience/chaos.py",
+        "telemetry/ledger.py", "telemetry/slo.py", "telemetry/provenance.py", "telemetry/flight.py",
+        "telemetry/mirror.py", "utils/redis_client.py",
     ):
         assert f"mcpx_torch/{module}" in rel, module
 
@@ -197,12 +200,42 @@ async def go():
         "planner": {{"kind": "llm"}}, "model": {{"size": "test", "max_seq_len": 256, "quantize": "int8"}},
         "engine": {{"max_batch_size": 2, "max_decode_len": 16, "kv_page_size": 16, "max_pages_per_seq": 16}},
     }}
-    llm = build_control_plane(MCPXConfig.from_dict(small), device="cpu")
-    await llm.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a"))
-    await llm.startup()
-    plan, _ = await llm.plan("do a")
-    plan.validate()
-    await llm.aclose()
+    # Telemetry's default-off parts, all on: a billed, explained plan on
+    # the int8 engine, an SLO observe, a flight sample, and the mirror's
+    # sync refused by name without redis.
+    from mcpx_torch.telemetry import ledger, provenance
+    with tempfile.TemporaryDirectory() as d:
+        small["telemetry"] = {{
+            "ledger": {{"enabled": True}}, "provenance": {{"enabled": True}}, "redis_url": "redis://unused",
+            "flight": {{"enabled": True, "bundle_dir": d}},
+        }}
+        small["slo"] = {{"enabled": True}}
+        llm = build_control_plane(MCPXConfig.from_dict(small), device="cpu")
+        await llm.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a"))
+        await llm.startup()
+        bill = ledger.RequestBill(endpoint="/plan")
+        token, trail = ledger.activate(bill), provenance.begin(llm.provenance)
+        root = llm.tracer.start_request("/plan")
+        try:
+            with tracing.activate(root):
+                plan, _ = await llm.plan("do a")
+        finally:
+            provenance.end(trail)
+            ledger.deactivate(token)
+        llm.tracer.finish(root)
+        plan.validate()
+        bill.finalize(status="ok", total_ms=1.0)
+        llm.ledger.observe(bill)
+        llm.slo.observe(tenant="default", endpoint="/plan", latency_ms=1.0, error=False)
+        assert bill.generates >= 1 and bill.decode_tokens > 0 and bill.flops > 0
+        assert provenance.build_explanation(root.record)["decisions"]
+        assert llm.flight.sample() == [] and llm.flight.samples == 1
+        try:
+            await llm.telemetry_mirror.sync()
+            raise AssertionError("the mirror synced without redis")
+        except RuntimeError as e:
+            assert "telemetry.redis_url" in str(e)
+        await llm.aclose()
 
 asyncio.run(go())
 loaded = [k for k in sys.modules if sys.modules[k] and k.split(".")[0] in {OPTIONAL!r}]

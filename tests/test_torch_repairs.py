@@ -4,7 +4,9 @@ CPU:
   - the factory serves no option it ignores: each option the reference
     factory reads that the port does not serve raises ``ConfigError``
     naming it; the default-on telemetry, the Redis plan-cache tier, the
-    admission scheduler, the resilience facade and the chaos transport are
+    admission scheduler, the resilience facade, the chaos transport and
+    telemetry's default-off parts (the Redis telemetry mirror, the flight
+    recorder, the cost ledger, decision provenance, the SLO tracker) are
     served and wired;
   - sampled decoding (the configs' default ``temperature=0.2``) draws from
     the exact softmax of the masked, scaled and top-k-cut logits, in both
@@ -59,6 +61,14 @@ def one_cpu_thread():
 
 
 # ------------------------------------------------------------ refusals
+# The three options the port still refuses, and the five it served once
+# telemetry's default-off parts were ported.
+SERVED = {
+    ("telemetry", "redis_url"), ("telemetry", "flight.enabled"), ("telemetry", "ledger.enabled"),
+    ("telemetry", "provenance.enabled"), ("slo", "enabled"),
+}
+
+
 @pytest.mark.parametrize(
     "section,key,value",
     [
@@ -74,7 +84,7 @@ def one_cpu_thread():
         (None, None, None),
     ],
 )
-def test_factory_refuses_options_the_port_does_not_serve(section, key, value):
+def test_factory_refuses_options_the_port_does_not_serve(section, key, value, tmp_path):
     cfg = {"planner": {"kind": "heuristic"}}
     if section is None:
         # The defaults (telemetry on) and the Redis plan-cache tier are served.
@@ -85,19 +95,60 @@ def test_factory_refuses_options_the_port_does_not_serve(section, key, value):
         # Default-on observability: one metrics registry, a tracer from
         # the config; the worker-loop profiler is served too.
         assert cp.orchestrator._metrics is cp.metrics and cp.tracer.enabled
+        # The default-off parts are off: none is built.
+        assert (cp.ledger, cp.slo, cp.flight, cp.provenance, cp.telemetry_mirror) == (None,) * 5
         cfg["telemetry"] = {"flight": {"profile_worker": True}}
         build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
         # The mirror is the reference's only while telemetry is on.
         cfg["telemetry"] = {"enabled": False, "redis_url": "redis://localhost:6379/0"}
-        build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert build_control_plane(MCPXConfig.from_dict(cfg), device="cpu").telemetry_mirror is None
         return
     node = cfg.setdefault(section, {})
     *parents, leaf = key.split(".")
     for name in parents:
         node = node.setdefault(name, {})
     node[leaf] = value
-    with pytest.raises(ConfigError, match=re.escape(f"{section}.{key}")):
-        build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+    if (section, key) not in SERVED:
+        with pytest.raises(ConfigError, match=re.escape(f"{section}.{key}")):
+            build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        return
+    # A served option builds its part and wires it as the reference does.
+    from mcpx_torch.scheduler import Scheduler
+    from mcpx_torch.telemetry.flight import FlightRecorder
+    from mcpx_torch.telemetry.ledger import UsageLedger
+    from mcpx_torch.telemetry.mirror import FakeAsyncRedis, RedisTelemetryMirror
+    from mcpx_torch.telemetry.provenance import ProvenanceRecorder
+    from mcpx_torch.telemetry.slo import SLOTracker
+
+    if key == "flight.enabled":
+        node["bundle_dir"] = str(tmp_path)
+    if section == "slo":
+        cfg["scheduler"] = {"enabled": True, "burn_aware": True}
+    cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+    built = {
+        "redis_url": cp.telemetry_mirror, "flight.enabled": cp.flight, "ledger.enabled": cp.ledger,
+        "provenance.enabled": cp.provenance, "enabled": cp.slo,
+    }
+    for name, part in built.items():
+        assert (part is not None) == (name == key), name
+    if key == "redis_url":
+        assert isinstance(cp.telemetry_mirror, RedisTelemetryMirror)
+        assert cp.telemetry_mirror.store is cp.telemetry
+        # The client is injectable: one sync over the in-memory Redis.
+        cp.telemetry.record("svc", latency_ms=5.0, ok=True)
+        cp.telemetry_mirror._client = FakeAsyncRedis()
+        assert asyncio.run(cp.telemetry_mirror.sync()) == 0
+    elif key == "flight.enabled":
+        assert isinstance(cp.flight, FlightRecorder) and cp.flight.config.bundle_dir == str(tmp_path)
+        assert "slo_burn" in {d.name for d in cp.flight.detectors}
+    elif key == "ledger.enabled":
+        assert isinstance(cp.ledger, UsageLedger) and cp.ledger._metrics is cp.metrics
+    elif key == "provenance.enabled":
+        assert isinstance(cp.provenance, ProvenanceRecorder) and cp.provenance.metrics is cp.metrics
+    else:
+        # slo.enabled: the tracker's burning() feeds a burn_aware scheduler.
+        assert isinstance(cp.slo, SLOTracker) and isinstance(cp.scheduler, Scheduler)
+        assert cp.scheduler._slo_burning == cp.slo.burning
 
 
 @pytest.mark.parametrize("option", ["scheduler.enabled", "resilience.enabled", "resilience.chaos_profile"])
