@@ -121,6 +121,21 @@ Phases, one line each (every number beside the card's name and power limit):
      ``/costs`` totals, the explanations and a bundle are valid and the
      kernel matches its plain version at the engine's pages; prints the
      overhead fractions and p50 by arm (``observatory_phase``);
+ 20. a 100k-service deployment (``registry_index``, ``registry_100k_test``,
+     ``registry_100k_2b``, ``registry_snapshot``): ``gen-registry``'s file of
+     100,000 services (seed 7) served by the file backend, the retrieval
+     table built once (its host seconds printed) and placed on the card at
+     ``compute="auto"`` (102.4 MB, float32), shared by a control plane at
+     each width with shortlist-constrained names; a burst of 16 (test) or 8
+     (2b) ``/plan``s, a repeat that captures nothing, the shortlist's device
+     ranking against host numpy timed during the repeat and on an idle card,
+     and equal to the host's on every intent but near-ties (printed); the
+     table saved and reloaded onto the card with equal shortlists
+     (``config_surface``);
+ 21. a SentencePiece vocabulary (``sp_2b``): the 2b preset with
+     ``model.vocab="sp:<path>"`` (``tiny_model()``'s file), random weights,
+     8 ``/plan``s and a repeat that captures nothing; every plan
+     LLM-authored, valid, and its steps JSON parses (``sp_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -2983,6 +2998,378 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
         await cp.aclose()
 
 
+# ------------------------------------------------------------ the config surface
+# Phase 20: an operator's 100k-service deployment. The reference names 100k
+# services as the scale where the table belongs in device memory, and its
+# default ``device_threshold`` (65,536) puts that many rows on the device;
+# seed 7 is the reference bench's registry seed.
+REGISTRY_N, REGISTRY_SEED = 100_000, 7
+SCORE_NEAR_TIE = 1e-5  # host and device fp32 products may order rows this close either way
+
+
+def registry_config(size: str, checkpoint: str, batch: int, path: str):
+    """Phases 5-6's settings over the file registry at ``path`` with
+    shortlist-constrained names: the default ``"registry"`` tier builds one
+    trie over every name, out of reach at 100k. (The retrieval index is
+    built once and passed in, at ``compute="auto"``.)"""
+    cfg = config(size, checkpoint, batch)
+    cfg.registry.backend, cfg.registry.file_path = "file", path
+    cfg.planner.constrain_names = "shortlist"
+    cfg.validate()
+    return cfg
+
+
+async def registry_index(path: str, card: str, n: int = REGISTRY_N, device=None, threshold: int = 65536):
+    """``gen-registry``'s file of ``n`` services, read by the file backend,
+    and the retrieval index built from it once at ``compute="auto"`` (the
+    table on ``device``, the card unless the caller asks for the CPU, at
+    ``threshold`` rows or more: the default's 65,536 on the card, fewer in a
+    small rehearsal). Prints the host seconds of each step and the table's
+    bytes."""
+    from mcpx_torch.cli.main import cmd_gen_registry
+    from mcpx_torch.core.config import RetrievalConfig
+    from mcpx_torch.registry import FileRegistry
+    from mcpx_torch.retrieval.index import RetrievalIndex
+
+    t0 = time.monotonic()
+    cmd_gen_registry(argparse.Namespace(n=n, seed=REGISTRY_SEED, out=path))
+    gen_s = time.monotonic() - t0
+    registry = FileRegistry(path)
+    t0 = time.monotonic()
+    records = await registry.list_services()
+    load_s = time.monotonic() - t0
+    index = RetrievalIndex(RetrievalConfig(compute="auto", device_threshold=threshold), device=device)
+    t0 = time.monotonic()
+    await index.refresh(registry)
+    build_s = time.monotonic() - t0
+    table = index._table
+    table_bytes = table.numel() * table.element_size() if table is not None else 0
+    info = dict(services=len(records), gen_registry_s=gen_s, file_bytes=os.path.getsize(path),
+                record_load_s=load_s, index_build_s=build_s, table_bytes=table_bytes,
+                table_device=str(table.device) if table is not None else None, embed_dim=index.config.embed_dim)
+    emit("registry_index", card, **info)
+    if table is None or table.device.type != index.device.type or table.dtype != torch.float32:
+        raise SystemExit(f"registry index: the table is not a float32 tensor on {index.device}: {info}")
+    if table_bytes != len(records) * index.config.embed_dim * 4:
+        raise SystemExit(f"registry index: table bytes {table_bytes} for {len(records)} services")
+    return index, records
+
+
+async def timed_plans(cp, intents: list) -> list:
+    """(plan, ms) of each intent's ``/plan``, all sent at once."""
+
+    async def one(intent: str):
+        t = time.perf_counter()
+        plan, _ = await cp.plan(intent, use_cache=False)
+        return plan, (time.perf_counter() - t) * 1e3
+
+    return await asyncio.gather(*(one(i) for i in intents))
+
+
+def quantiles_ms(vals: list) -> dict:
+    vals = sorted(vals)
+    return dict(p50=nearest_rank(vals, 0.5), p99=nearest_rank(vals, 0.99), n=len(vals))
+
+
+def rank_ms(index, q, k: int) -> tuple[float, float]:
+    """Host ms of the shortlist's plain ranking of one query: the device
+    table (``_device_topk``: product, top-k and read-back on the index's
+    stream), then host numpy on the same table (``_host_order``)."""
+    t = time.perf_counter()
+    index._device_topk(q, k)
+    t1 = time.perf_counter()
+    index._host_order(q, k)
+    return (t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def rank_quantiles(pairs: list) -> dict:
+    return dict(device=quantiles_ms([d for d, _ in pairs]), host=quantiles_ms([h for _, h in pairs]))
+
+
+async def shortlists_while(index, queries: list, k: int, stop: asyncio.Event) -> dict:
+    """``rank_ms`` in rounds over ``queries`` on the event loop until
+    ``stop``, yielding after each query, so the burst's requests run
+    meanwhile."""
+    pairs = []
+    while not stop.is_set():
+        for q in queries:
+            pairs.append(rank_ms(index, q, k))
+            await asyncio.sleep(0)
+            if stop.is_set():
+                break
+    return rank_quantiles(pairs)
+
+
+def shortlist_agreement(index, intents: list, k: int) -> tuple[list, list]:
+    """The device ranking against the host's on the same table, per intent:
+    (near-ties, faults). Where the two orders part, the two rows' host
+    scores must differ by less than ``SCORE_NEAR_TIE``."""
+    near, bad = [], []
+    for intent in intents:
+        q = index.embedder.embed(intent)
+        dev, host = index._device_topk(q, k)[1], index._host_order(q, k)
+        if dev == host:
+            continue
+        scores = index._table_np @ q
+        gaps = [float(abs(scores[a] - scores[b])) for a, b in zip(dev, host) if a != b]
+        row = dict(intent=intent, device=dev, host=host, max_gap=max(gaps))
+        (near if max(gaps) < SCORE_NEAR_TIE else bad).append(row)
+    return near, bad
+
+
+async def registry_phase(size: str, checkpoint: str, n_intents: int, card: str, index, path: str,
+                         batch: int = 64, device=None) -> dict:
+    """Phase 20 on one width: a control plane over the file registry at
+    ``path``, sharing the built ``index`` (``retriever=``). A timed burst of
+    ``n_intents`` concurrent ``/plan``s; a repeat, which must capture
+    nothing, with the shortlist's device and host ranking timed on the event
+    loop while it runs; then both timed on an idle card. Every plan valid
+    and naming only registry services; the device ranking equal to the
+    host's on every intent but near-ties (printed); the kernel launched in
+    the burst and its tickets back at 0."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for
+
+    cfg = registry_config(size, checkpoint, batch, path)
+    cp = build_control_plane(cfg, retriever=index, device=device)  # device=None: the card
+    cuda = cp.planner.engine.device.type == "cuda"
+    try:
+        t0 = time.monotonic()
+        records = await cp.registry.list_services()
+        load_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        await cp.startup()
+        startup_s = time.monotonic() - t0
+        engine, planner = cp.planner.engine, cp.planner
+        names = {r.name for r in records}
+        k = cfg.planner.shortlist_top_k
+        rng = random.Random(0)
+        intents = [intent_for(records, rng) for _ in range(n_intents)]
+        rng = random.Random(1)
+        probe_intents = [intent_for(records, rng) for _ in range(64)]
+        probes = [index.embedder.embed(i) for i in probe_intents]
+        # Grammar builds (one a new shortlist) and admission scans that
+        # deferred a request for its grammar (the homogeneous slab serves one
+        # grammar at a time), counted around the planner and the slab.
+        counts = {"grammar_builds": 0, "grammar_build_s": 0.0, "slot_deferrals": 0}
+        build, compatible = planner._build_grammar, engine._slab.compatible
+
+        def counted_build(*a, **kw):
+            t = time.monotonic()
+            try:
+                return build(*a, **kw)
+            finally:
+                counts["grammar_builds"] += 1
+                counts["grammar_build_s"] += time.monotonic() - t
+
+        def counted_compatible(r) -> bool:
+            ok = compatible(r)
+            counts["slot_deferrals"] += not ok
+            return ok
+
+        planner._build_grammar, engine._slab.compatible = counted_build, counted_compatible
+
+        try:
+            q0 = engine.queue_stats()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            reset_kernel_launches()
+            t0 = time.monotonic()
+            served = await timed_plans(cp, intents)
+            wall = time.monotonic() - t0
+            launches = kernel_launches()
+            if cuda:
+                check_tickets(f"registry_100k_{size}")
+            q1 = engine.queue_stats()
+            burst_counts = dict(counts)
+            stop = asyncio.Event()
+            during = asyncio.create_task(shortlists_while(index, probes, k, stop))
+            try:
+                await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+            finally:
+                stop.set()
+                busy = await during
+            q2 = engine.queue_stats()
+            await idle(engine)
+            sync()
+            quiet = rank_quantiles([rank_ms(index, q, k) for q in probes])
+        finally:
+            planner._build_grammar, engine._slab.compatible = build, compatible
+        plans = [p for p, _ in served]
+        lat = sorted(ms for _, ms in served)
+        for p in plans:
+            p.validate()
+        foreign = sorted({n.service for p in plans for n in p.nodes} - names)
+        near, bad = shortlist_agreement(index, intents + probe_intents, k)
+        stats = dict(
+            model=size, services=len(records), intents=n_intents, record_load_s=load_s, startup_s=startup_s,
+            wall_s=wall, plans_per_s=n_intents / wall, p50_ms=nearest_rank(lat, 0.5), max_ms=lat[-1],
+            origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
+            launches=launches, **loop_counts(engine, q0, q1, n_intents), **burst_counts,
+            repeat_captures=q2["captures"] - q1["captures"],
+            repeat_grammar_builds=counts["grammar_builds"] - burst_counts["grammar_builds"],
+            shortlist_ms={"during_burst": busy, "idle": quiet, "k": k},
+            table_bytes=index._table.numel() * index._table.element_size(),
+            max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None,
+            near_ties=near, unknown_services=foreign,
+        )
+        emit(f"registry_100k_{size}", card, **stats)
+        no_new_captures(f"registry_100k_{size}", q1, q2)
+        if foreign:
+            raise SystemExit(f"registry_100k_{size}: plans name services outside the registry: {foreign[:5]}")
+        if bad:
+            raise SystemExit(f"registry_100k_{size}: device and host shortlists differ beyond a near-tie: {bad[:3]}")
+        if cuda and launches["ragged_paged_attention"] <= 0:
+            raise SystemExit(f"registry_100k_{size}: the kernel was not launched in the burst")
+        return stats
+    finally:
+        await cp.aclose()
+
+
+async def snapshot_phase(index, intents: list, card: str, path: str, device=None) -> dict:
+    """The built index saved, then loaded into a fresh one of the same
+    config (``compute="auto"``): the table on the index's device again, ``version`` -1, and
+    every intent's shortlist equal to the built index's."""
+    from mcpx_torch.core.config import PlannerConfig, RetrievalConfig
+    from mcpx_torch.retrieval.index import RetrievalIndex
+
+    k = PlannerConfig().shortlist_top_k
+    t0 = time.monotonic()
+    index.save(path)
+    save_s = time.monotonic() - t0
+    fresh = RetrievalIndex(index.config, device=device)
+    t0 = time.monotonic()
+    fresh.load(path)
+    load_s = time.monotonic() - t0
+    differ = [i for i in intents if await fresh.shortlist(i, k) != await index.shortlist(i, k)]
+    table = fresh._table
+    stats = dict(file_bytes=os.path.getsize(path), save_s=save_s, load_s=load_s, version=fresh.version,
+                 table_device=str(table.device) if table is not None else None, intents=len(intents),
+                 differing=differ[:5])
+    emit("registry_snapshot", card, **stats)
+    if table is None or table.device.type != index.device.type or fresh.version != -1 or differ:
+        raise SystemExit(f"registry snapshot: reload not on {index.device}, not provisional or different: {stats}")
+    return stats
+
+
+def sp_backends(path: str, texts: list) -> dict:
+    """Where the ``sentencepiece`` package is installed (``backend="auto"``
+    takes it), the package against the in-tree codec on one model file:
+    the texts whose ids are equal, whose decoded ids are equal, and whether
+    the per-id surfaces (``token_bytes``) are the same list."""
+    from mcpx_torch.models.tokenizer import SentencePieceTokenizer
+
+    intree = SentencePieceTokenizer(path, backend="intree")
+    try:
+        pkg = SentencePieceTokenizer(path, backend="package")
+    except ImportError:
+        return {"package": None}
+    ids = [(pkg.encode(t), intree.encode(t)) for t in texts]
+    differ = [t for t, (a, b) in zip(texts, ids) if a != b]
+    return dict(
+        package=True, texts=len(texts), ids_equal=len(texts) - len(differ),
+        decode_equal=sum(pkg.decode(b) == intree.decode(b) for _, b in ids),
+        token_bytes_equal=pkg.token_bytes() == intree.token_bytes(), first_differing=differ[:2],
+    )
+
+
+async def sp_phase(size: str, checkpoint: str, n_intents: int, card: str, batch: int = 64, device=None,
+                   n_services: int = 1000) -> dict:
+    """Phase 21: ``model.vocab="sp:<path>"`` with ``tiny_model()``'s file,
+    random weights (seed 0) over ``n_services`` services: a burst of
+    ``n_intents`` concurrent ``/plan``s, then a repeat that captures nothing.
+    Every plan LLM-authored and valid, its steps JSON parses, and the kernel
+    launched."""
+    import tempfile
+
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.models.sp_model import tiny_model
+    from mcpx_torch.models.tokenizer import SentencePieceTokenizer
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    with tempfile.TemporaryDirectory() as d:
+        vocab = os.path.join(d, "tiny.model")
+        tiny_model().save(vocab)
+        cfg = config(size, checkpoint, batch)
+        cfg.model.vocab = f"sp:{vocab}"
+        cp = build_control_plane(cfg, device=device)  # device=None: the card
+        cuda = cp.planner.engine.device.type == "cuda"
+        records = synth_registry(n_services, seed=0)
+        for rec in records:
+            await cp.registry.put(rec)
+        try:
+            t0 = time.monotonic()
+            await cp.startup()
+            startup_s = time.monotonic() - t0
+            engine = cp.planner.engine
+            rng = random.Random(0)
+            intents = [intent_for(records, rng) for _ in range(n_intents)]
+            q0 = engine.queue_stats()
+            sync()
+            reset_kernel_launches()
+            t0 = time.monotonic()
+            served = await timed_plans(cp, intents)
+            wall = time.monotonic() - t0
+            launches = kernel_launches()
+            plans = [p for p, _ in served]
+            lat = sorted(ms for _, ms in served)
+            q1 = engine.queue_stats()
+            await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+            q2 = engine.queue_stats()
+            steps_json = []
+            for p in plans:
+                p.validate()
+                steps_json.append(json.loads(p.to_steps_json()))
+            texts = intents + [p.to_steps_json() for p in plans] + [r.name for r in records[:32]]
+            stats = dict(
+                backend="package" if engine.tokenizer._sp is not None else "intree",
+                backends=sp_backends(vocab, texts),
+                model=size, vocab="sp:tiny_model", vocab_size=engine.tokenizer.vocab_size, services=n_services,
+                intents=n_intents, startup_s=startup_s, wall_s=wall, plans_per_s=n_intents / wall,
+                p50_ms=nearest_rank(lat, 0.5), max_ms=lat[-1],
+                origins={o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}},
+                launches=launches, **loop_counts(engine, q0, q1, n_intents),
+                repeat_captures=q2["captures"] - q1["captures"], steps=[len(s["steps"]) for s in steps_json],
+            )
+            emit(f"sp_{size}", card, **stats)
+            no_new_captures(f"sp_{size}", q1, q2)
+            if not isinstance(engine.tokenizer, SentencePieceTokenizer):
+                raise SystemExit(f"sp_{size}: the engine's tokenizer is {type(engine.tokenizer).__name__}")
+            if stats["origins"] != {"llm": n_intents}:
+                raise SystemExit(f"sp_{size}: not every plan is LLM-authored: {stats['origins']}")
+            b = stats["backends"]
+            if b["package"] and not (b["ids_equal"] == b["decode_equal"] == b["texts"] and b["token_bytes_equal"]):
+                raise SystemExit(f"sp_{size}: the sentencepiece package and the in-tree codec disagree: {b}")
+            if cuda and launches["ragged_paged_attention"] <= 0:
+                raise SystemExit(f"sp_{size}: the kernel was not launched")
+            return stats
+        finally:
+            await cp.aclose()
+
+
+async def config_surface(card: str, sizes=(("test", CKPT, 16), ("2b", "", 8)), n: int = REGISTRY_N,
+                         batch: int = 64, device=None, threshold: int = 65536) -> list:
+    """Phase 20 (``registry_index``, then ``registry_100k_<size>`` for each
+    width on the one index, then ``registry_snapshot``) in a temporary
+    directory the phase removes."""
+    import tempfile
+
+    from mcpx_torch.utils.synth import intent_for
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "registry.json")
+        index, records = await registry_index(path, card, n, device=device, threshold=threshold)
+        runs = [await registry_phase(size, ckpt, m, card, index, path, batch=batch, device=device)
+                for size, ckpt, m in sizes]
+        rng = random.Random(0)
+        await snapshot_phase(index, [intent_for(records, rng) for _ in range(32)], card,
+                             os.path.join(d, "index.snap"), device=device)
+        return runs
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -3066,6 +3453,8 @@ def main(argv: list[str]) -> int:
              timed("tier_2b", asyncio.run, tier_phase("2b", "", card))]
     for size in ("test", "2b"):
         timed(f"tier_roundtrip_{size}", tier_roundtrip, size, card)
+    surface = timed("registry_100k", asyncio.run, config_surface(card))
+    sp = timed("sp_2b", asyncio.run, sp_phase("2b", "", 8, card))
     emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
@@ -3073,7 +3462,7 @@ def main(argv: list[str]) -> int:
         mx[m] for mx in (trained_mixed, full_mixed) for m in ("drain", "hetero")
     ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero] + [
         t[m] for t in tiers for m in ("single", "tiered", "thrash", "chaos")
-    ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs]
+    ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs, *surface, sp]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

@@ -1,0 +1,4 @@
+from mcpx_torch.cli.main import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

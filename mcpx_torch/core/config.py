@@ -20,8 +20,10 @@ attention route) are accepted and ignored.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
 
 from mcpx_torch.core.errors import ConfigError
 
@@ -817,6 +819,39 @@ class MCPXConfig:
                     except (TypeError, ValueError) as e:
                         raise ConfigError(f"bad value for {section_name}.{k}={v!r}: {e}") from e
                 setattr(section, k, v)
+        cfg.validate()
+        return cfg
+
+    @classmethod
+    def from_file(cls, path: str) -> "MCPXConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    @classmethod
+    def from_env(cls, env: Optional[dict[str, str]] = None) -> "MCPXConfig":
+        """Environment overrides use ``MCPX_<SECTION>_<KEY>`` naming (and
+        ``MCPX_<SECTION>_<FIELD>_<SUB>`` for a nested section); ``REDIS_URL``
+        sets ``registry.redis_url``, as in the reference."""
+        env = dict(os.environ if env is None else env)
+        cfg = cls()
+        if env.get("REDIS_URL"):
+            cfg.registry.redis_url = env["REDIS_URL"]
+        for section_field in dataclasses.fields(cfg):
+            section = getattr(cfg, section_field.name)
+            for f in dataclasses.fields(section):
+                sub = getattr(section, f.name)
+                prefix = f"MCPX_{section_field.name.upper()}_{f.name.upper()}"
+                targets = (
+                    [(sub, sf, f"{prefix}_{sf.name.upper()}") for sf in dataclasses.fields(sub)]
+                    if dataclasses.is_dataclass(sub)
+                    else [(section, f, prefix)]
+                )
+                for obj, fld, key in targets:
+                    if key in env:
+                        try:
+                            setattr(obj, fld.name, _coerce(env[key], fld.type))
+                        except (TypeError, ValueError) as e:
+                            raise ConfigError(f"bad value for {key}={env[key]!r}: {e}") from e
         cfg.validate()
         return cfg
 

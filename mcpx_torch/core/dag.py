@@ -338,3 +338,18 @@ class Plan:
 
     def to_json(self, **kw: Any) -> str:
         return json.dumps(self.to_wire(), **kw)
+
+    def to_steps_json(self) -> str:
+        """Serialise to the compact grammar wire shape the constrained
+        decoder emits (``planner/grammar.py``):
+
+            {"steps":[{"s":svc,"in":[keys],"next":[svcs]},...]}
+
+        Byte-compatible with the plan grammar's DFA (no whitespace, fixed
+        key order), so a round trip through ``from_json`` is exact on the
+        step structure."""
+        succ: dict[str, list[str]] = {n.name: [] for n in self.nodes}
+        for e in self.edges:
+            succ[e.src].append(e.dst)
+        steps = [{"s": n.name, "in": sorted(n.inputs), "next": succ[n.name]} for n in self.nodes]
+        return json.dumps({"steps": steps}, separators=(",", ":"))

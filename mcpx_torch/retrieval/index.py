@@ -1,21 +1,33 @@
-"""Service-embedding table with a host-side (numpy) top-k shortlist.
+"""Service-embedding table with a top-k shortlist, on the device or the host.
 
-The PyTorch port of ``mcpx.retrieval.index``: the same refresh, coverage-
-greedy shortlist and snapshot logic, scoring on the host. The reference
-package scores on the host too below ``RetrievalConfig.device_threshold``
-rows (``compute="auto"``); its on-device table (``lax.top_k``) is not
-ported yet, so this index scores every registry size on the host.
+The PyTorch port of ``mcpx.retrieval.index``. The ``[N, d]`` table is
+rebuilt when ``registry.version()`` changes, under an asyncio lock, and
+kept as a host (numpy) mirror. ``RetrievalConfig.compute`` decides where
+the shortlist's plain ranking is scored: ``"device"``, or ``"auto"`` at or
+above ``device_threshold`` rows, places a float32 copy on the index's
+device once per refresh and scores it with ``torch.mv`` and ``torch.topk``
+there (the reference's jitted ``einsum`` and ``lax.top_k``); ``"host"``,
+or ``"auto"`` below the threshold, scores with numpy. On CUDA the scoring
+runs on a stream of the index's own, so a shortlist never queues behind
+the engine's decode windows on the default stream, and only that stream
+is waited on. The coverage-greedy picks and ``scores_for`` read the host
+mirror. ``save``/``load`` write and read the reference's snapshot file
+(table, names, per-record words), so a snapshot crosses between the two
+packages.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import re
 from typing import Optional
 
 import numpy as np
+import torch
 
 from mcpx_torch.core.config import RetrievalConfig
+from mcpx_torch.device import resolve_device
 from mcpx_torch.registry.base import RegistryBackend
 from mcpx_torch.retrieval.embed import HashedNGramEmbedder
 
@@ -28,12 +40,20 @@ class RetrievalIndex:
         config: Optional[RetrievalConfig] = None,
         *,
         embedder: Optional[HashedNGramEmbedder] = None,
+        device: "torch.device | str | None" = None,
     ) -> None:
+        """``device``: where a device table lives (the control plane's
+        resolved device; the factory passes it). ``None`` is CUDA, as for
+        every entry point of the port; it is only touched when ``compute``
+        puts the table on the device."""
         self.config = config or RetrievalConfig()
         self.embedder = embedder or HashedNGramEmbedder(self.config.embed_dim)
+        self.device = torch.device("cuda" if device is None else device)
         self._lock = asyncio.Lock()
         self._names: list[str] = []
-        self._table_np: Optional[np.ndarray] = None  # [N, d]
+        self._table: Optional[torch.Tensor] = None  # [N, d] float32 on the device
+        self._table_np: Optional[np.ndarray] = None  # [N, d] host mirror
+        self._stream: "Optional[torch.cuda.Stream]" = None  # the index's own, on CUDA
         self._version: int = -1
         # Coverage-greedy shortlist support (see ``shortlist``): per-record
         # word sets and an inverted word -> row-ids index over schema text.
@@ -62,7 +82,9 @@ class RetrievalIndex:
             names = [s.name for s in services]
             texts = [s.schema_text() for s in services]
             table = await asyncio.to_thread(self.embedder.embed_texts, texts)
+            placed = await asyncio.to_thread(self._place, table) if self._on_device(len(names)) else None
             self._table_np = table
+            self._table = placed
             self._names = names
             self._build_word_index([s.topic_text() for s in services])
             self._version = version
@@ -77,13 +99,40 @@ class RetrievalIndex:
         self._word_sets = word_sets
         self._word_index = index
 
+    def _on_device(self, n_rows: int) -> bool:
+        mode = self.config.compute
+        if mode == "device":
+            return True
+        if mode == "host":
+            return False
+        return n_rows >= self.config.device_threshold
+
+    def _place(self, table: np.ndarray) -> torch.Tensor:
+        """The table as float32 on the index's device, copied once per
+        refresh; on CUDA on the index's stream, which the copy finishes on
+        before this returns. A device without a card raises here."""
+        resolve_device(self.device)
+        host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            placed = host.pin_memory().to(self.device, non_blocking=True)
+        self._stream.synchronize()
+        return placed
+
     # ---------------------------------------------------------------- query
     async def shortlist(self, intent: str, k: int) -> list[str]:
         """Top-k service names for an intent.
 
         Two modes (``RetrievalConfig.shortlist_mode``):
 
-        - ``"topk"``: plain embedding similarity, scored on the host.
+        - ``"topk"``: plain embedding similarity. Scored on the device
+          table when ``compute`` placed one (``"device"``, or ``"auto"`` at
+          or above ``device_threshold`` rows), else on the host: below the
+          threshold the product is microseconds there, while a device
+          dispatch per request would wait on a busy card.
         - ``"residual"`` (default): coverage-greedy. Plain top-k ranks a
           multi-clause intent's services by similarity to the WHOLE intent,
           so dominant clauses crowd out minority ones and the shortlist —
@@ -112,9 +161,43 @@ class RetrievalIndex:
         return [self._names[i] for i in picked]
 
     def _base_order(self, q: np.ndarray, k: int) -> list[int]:
+        if self._table is not None:
+            return self._device_topk(q, k)[1]
+        return self._host_order(q, k)
+
+    def _host_order(self, q: np.ndarray, k: int) -> list[int]:
         scores = self._table_np @ q
         part = np.argpartition(scores, -k)[-k:]
         return [int(i) for i in part[np.argsort(scores[part])[::-1]]]
+
+    def _device_topk(self, q: np.ndarray, k: int) -> tuple[list[float], list[int]]:
+        """The ``k`` best rows of the device table and their scores, by score
+        descending then index ascending: ``lax.top_k``'s order, which
+        ``torch.topk`` does not promise for equal scores. ``k + 1`` are
+        taken, so a tie across the ``k``-th place shows; such a query ranks
+        the whole score vector by a stable sort instead. On CUDA the work
+        runs on the index's stream, and only its event is waited on. The
+        product is strict fp32: TF32 must be off."""
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("retrieval scores in strict fp32; torch.backends.cuda.matmul.allow_tf32 is on")
+        table = self._table
+        cuda = table.device.type == "cuda"
+        take = min(k + 1, table.shape[0])
+        with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():
+            scores = torch.mv(table, torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(table.device))
+            vals, idx = torch.topk(scores, take)
+            vals, idx = vals.to("cpu", non_blocking=cuda), idx.to("cpu", non_blocking=cuda)
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(self._stream)
+        if cuda:
+            done.synchronize()
+        top = sorted(zip((-vals).tolist(), idx.tolist()))
+        if take > k and top[k - 1][0] == top[k][0]:
+            with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():
+                vals, idx = torch.sort(scores, descending=True, stable=True)
+                return vals[:k].tolist(), idx[:k].tolist()
+        return [-v for v, _ in top[:k]], [i for _, i in top[:k]]
 
     def _cover_greedy(self, intent: str, q: np.ndarray, k: int) -> list[int]:
         """Greedy weighted set cover of the intent's discriminative words.
@@ -186,3 +269,42 @@ class RetrievalIndex:
     @property
     def version(self) -> int:
         return self._version
+
+    # ------------------------------------------------------------- snapshot
+    def save(self, path: str) -> None:
+        """Write the reference's snapshot file at exactly ``path``: the
+        host table, the names and each record's topic words."""
+        if self._table_np is None:
+            raise ValueError("nothing to snapshot: table not built")
+        words = (
+            np.asarray([" ".join(sorted(ws)) for ws in self._word_sets], dtype=object)
+            if self._word_sets is not None
+            else None
+        )
+        with open(path, "wb") as f:  # exact path (np.savez would append .npz)
+            payload = dict(table=self._table_np, names=np.asarray(self._names, dtype=object))
+            if words is not None:
+                payload["words"] = words
+            np.savez(f, **payload)
+
+    def load(self, path: str) -> None:
+        """Load a table snapshot, placed by ``compute`` as a refresh places
+        it. The snapshot is provisional: the registry version counter is not
+        comparable across registry instances, so ``_version`` stays -1 and
+        the first ``maybe_refresh`` revalidates against the live registry
+        (the snapshot covers the window between process start and that
+        first refresh)."""
+        with np.load(path, allow_pickle=True) as z:
+            table = z["table"].astype(np.float32)
+            names = [str(n) for n in z["names"]]
+            word_texts = [str(w) for w in z["words"]] if "words" in z.files else None
+        self._table = self._place(table) if self._on_device(len(names)) else None
+        self._table_np = table
+        self._names = names
+        if word_texts is not None:
+            self._build_word_index(word_texts)
+        else:
+            # A snapshot without words: the coverage-greedy data is missing
+            # until the first refresh, and shortlist ranks by plain top-k.
+            self._word_sets = self._word_index = None
+        self._version = -1

@@ -1,8 +1,10 @@
 """Application factory: config -> wired ControlPlane on a device.
 
-Trimmed PyTorch-port copy of ``mcpx/server/factory.py`` for
-``planner.kind`` in {"llm", "heuristic"} over the in-memory registry: the
-telemetry store, one ``Metrics`` registry shared by the orchestrator, the
+PyTorch-port copy of ``mcpx/server/factory.py``: the configured registry
+backend (memory, file or Redis) and planner (llm, heuristic or mock), the
+retrieval index on the control plane's device, loaded from
+``retrieval.snapshot_path`` when one is set (an unusable snapshot is logged
+and rebuilt from the registry, as in the reference), the telemetry store, one ``Metrics`` registry shared by the orchestrator, the
 planner's engine and the control plane, the orchestrator over an injected
 transport, the replan policy and the optional Redis plan-cache tier; the
 ``/plan`` admission scheduler (``scheduler.enabled``, over the engine's
@@ -13,15 +15,16 @@ resilience gate); the Redis telemetry mirror (``telemetry.redis_url``
 while ``telemetry.enabled``). The control plane builds its tracer from
 ``config.tracing`` and telemetry's default-off parts (the cost ledger, the
 SLO tracker, the flight recorder, decision provenance) from their options.
-Options the reference factory reads that the port does not serve yet
-(``cluster.enabled``, ``cluster.shard_registry``,
-``retrieval.snapshot_path``) raise ``ConfigError`` naming the option.
+The options of the reference's cluster layer, which the port does not
+serve yet (``cluster.enabled``, ``cluster.shard_registry``), raise
+``ConfigError`` naming the option.
 ``device=None`` means the GPU and raises without CUDA; pass
 ``device="cpu"`` for the plain PyTorch path.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
@@ -33,6 +36,7 @@ from mcpx_torch.orchestrator.executor import Orchestrator
 from mcpx_torch.orchestrator.transport import RouterTransport, Transport
 from mcpx_torch.planner.base import Planner
 from mcpx_torch.planner.heuristic import HeuristicPlanner
+from mcpx_torch.planner.mock import MockPlanner
 from mcpx_torch.registry import make_registry
 from mcpx_torch.registry.base import RegistryBackend
 from mcpx_torch.resilience import Resilience
@@ -53,7 +57,6 @@ def _refuse_unserved(config: MCPXConfig) -> None:
     refused = (
         ("cluster.enabled", config.cluster.enabled),
         ("cluster.shard_registry", config.cluster.shard_registry),
-        ("retrieval.snapshot_path", config.retrieval.snapshot_path),
     )
     for name, asked in refused:
         if asked:
@@ -76,7 +79,15 @@ def build_control_plane(
     registry = registry if registry is not None else make_registry(config.registry)
     transport = transport if transport is not None else RouterTransport()
     if retriever is None and config.retrieval.enabled:
-        retriever = RetrievalIndex(config.retrieval)
+        retriever = RetrievalIndex(config.retrieval, device=device)
+        if config.retrieval.snapshot_path:
+            try:
+                retriever.load(config.retrieval.snapshot_path)
+            except Exception as e:  # noqa: BLE001 - the snapshot is rebuildable
+                logging.getLogger("mcpx_torch.factory").warning(
+                    "retrieval snapshot %s unusable (%s); will rebuild from registry",
+                    config.retrieval.snapshot_path, e,
+                )
     telemetry = TelemetryStore(config.telemetry.ewma_alpha)
     telemetry_mirror = None
     if config.telemetry.enabled and config.telemetry.redis_url:
@@ -106,19 +117,17 @@ def build_control_plane(
     if planner is None:
         if config.planner.kind == "heuristic":
             planner = HeuristicPlanner(config.planner)
-        elif config.planner.kind == "llm":
+        elif config.planner.kind == "mock":
+            planner = MockPlanner()
+        else:  # "llm"
             from mcpx_torch.planner.llm import LLMPlanner
 
             planner = LLMPlanner.from_config(config, retriever=retriever, metrics=metrics, device=device)
-        else:
-            raise ConfigError(
-                f"planner.kind={config.planner.kind!r} is not ported to mcpx_torch yet"
-            )
     scheduler = None
     if config.scheduler.enabled:
-        # The engine's queue ETA floors the scheduler's own estimate; a
-        # heuristic planner has no engine, and the scheduler then estimates
-        # from its own grant and release accounting alone.
+        # The engine's queue ETA floors the scheduler's own estimate; the
+        # heuristic and mock planners have no engine, and the scheduler then
+        # estimates from its own grant and release accounting alone.
         engine = getattr(planner, "engine", None)
         scheduler = Scheduler(
             config.scheduler, metrics, engine_stats=engine.queue_stats if engine is not None else None

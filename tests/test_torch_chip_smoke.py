@@ -5,7 +5,8 @@ executions (``Lockstep``) and probe exclusion, the telemetry phase (its
 exposition parser, its latency attribution against the reference bench's,
 and the phase itself on a CPU control plane), the mixed, speculation and
 heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines, and
-the int8, overload, chaos and observatory phases on CPU control planes."""
+the int8, overload, chaos, observatory, 100k-registry (at a small size) and
+SentencePiece phases on CPU control planes."""
 
 import os
 import sys
@@ -458,3 +459,43 @@ def test_int8_overload_and_chaos_phases_run_on_cpu_control_planes():
     assert chaos["baseline"]["returned"] == chaos["resilient"]["returned"] == 160
     assert chaos["resilient"]["breaker_transitions"]["open"] >= 1
     assert chaos["resilient"]["hedges"]["launched"] >= 1
+
+
+def test_config_surface_phases_run_on_cpu_control_planes():
+    """Phase 20 at a small size (3,000 services, a table on the CPU from
+    1,000 rows, one 4-intent burst at test) and phase 21 at test with random
+    weights over 200 services: every gate passes, and the near-tie gate
+    refuses a ranking that departs from the host's by more than a tie."""
+    import asyncio
+
+    import numpy as np
+
+    runs = asyncio.run(chip_smoke.config_surface(
+        "cpu", sizes=(("test", chip_smoke.CKPT, 4),), n=3000, batch=8, device="cpu", threshold=1000,
+    ))
+    (run,) = runs
+    assert run["origins"] == {"llm": 4} and run["services"] == 3000 and not run["unknown_services"]
+    assert run["table_bytes"] == 3000 * 256 * 4 and run["repeat_captures"] == 0
+    assert run["grammar_builds"] >= 1 and run["repeat_grammar_builds"] == 0
+    assert run["shortlist_ms"]["idle"]["device"]["n"] == 64
+    sp = asyncio.run(chip_smoke.sp_phase("test", "", 8, "cpu", batch=8, device="cpu", n_services=200))
+    assert sp["origins"] == {"llm": 8} and sp["vocab_size"] == 384 and sp["repeat_captures"] == 0
+
+    class Index:
+        embedder = type("E", (), {"embed": staticmethod(lambda s: np.ones(2, np.float32))})()
+        _table_np = np.array([[1.0, 0.0], [1.0, 0.0], [0.0, 0.0]], np.float32)
+
+        def __init__(self, device_order):
+            self.device_order = device_order
+
+        def _device_topk(self, q, k):
+            return None, self.device_order
+
+        def _host_order(self, q, k):
+            return [0, 1]
+
+    assert chip_smoke.shortlist_agreement(Index([0, 1]), ["a"], 2) == ([], [])
+    near, bad = chip_smoke.shortlist_agreement(Index([1, 0]), ["a"], 2)
+    assert len(near) == 1 and not bad
+    near, bad = chip_smoke.shortlist_agreement(Index([0, 2]), ["a"], 2)
+    assert not near and bad[0]["max_gap"] == 1.0

@@ -10,7 +10,9 @@ The last tests hold the engine's decode window as a captured CUDA graph:
 replay against eager from one snapshot (the heterogeneous and speculative
 windows too), the ticket buffers after replays, the launch count of replays,
 a sampled window's capture, a sampled speculative window's draws from the
-registered generator, and the first-maximum tie-break on the card."""
+registered generator, and the first-maximum tie-break on the card. The last
+holds the retrieval index's device table: its ranking against host numpy,
+exact ties, and its own stream beside a busy default stream."""
 
 import asyncio
 import os
@@ -531,3 +533,43 @@ def test_int8_quantize_on_the_card_is_bit_equal_to_the_cpu(cuda):
         b = q["cpu"]["embed"] if name == "embed" else q["cpu"]["layers"][name]
         assert torch.equal(a["int8"].cpu(), b["int8"]), name
         assert torch.equal(a["scale"].cpu().view(torch.int32), b["scale"].view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_retrieval_table_on_the_card_ranks_as_the_host_and_keeps_its_stream(cuda):
+    """``compute="device"`` on CUDA: the table is float32 on the card, the
+    shortlist's ranking equals host numpy's on a seeded table (exact ties
+    lowest index first, as ``lax.top_k``), its work runs on the index's own
+    stream, and a snapshot reloads onto the card with the same rankings."""
+    import tempfile
+
+    from mcpx_torch.core.config import RetrievalConfig
+    from mcpx_torch.retrieval.index import RetrievalIndex
+
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(4096, 256)).astype(np.float32)
+    table /= np.linalg.norm(table, axis=1, keepdims=True)
+    table[[5, 9, 4000]] = table[7]  # one vector four times
+    names = np.asarray([f"svc-{i}" for i in range(len(table))], dtype=object)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "index.snap")
+        with open(path, "wb") as f:
+            np.savez(f, table=table, names=names)
+        index = RetrievalIndex(RetrievalConfig(compute="device"), device=cuda)
+        index.load(path)
+    assert index._table.is_cuda and index._table.dtype == torch.float32
+    assert index._stream is not None and index._stream != torch.cuda.current_stream()
+    queries = [rng.normal(size=256).astype(np.float32) for _ in range(32)] + [table[7]]
+    for q in queries:
+        vals, idx = index._device_topk(q, 8)
+        host = index._host_order(q, 8)
+        scores = table @ q
+        assert all(abs(scores[a] - scores[b]) < 1e-5 for a, b in zip(idx, host)), (idx, host)
+        np.testing.assert_allclose(vals, scores[idx], rtol=0, atol=1e-5)
+    assert index._device_topk(table[7], 3)[1] == [5, 7, 9]
+    # The default stream is untouched: a shortlist waits on its own stream only.
+    torch.cuda._sleep(400_000_000)  # the default stream busy for about 0.2 s
+    t = time.perf_counter()
+    index._device_topk(queries[0], 8)
+    assert (time.perf_counter() - t) < 0.1
+    torch.cuda.synchronize()

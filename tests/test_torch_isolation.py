@@ -40,15 +40,17 @@ def _forbidden(module: str) -> bool:
 
 
 def test_walk_covers_every_module_of_the_port():
-    """The walk sees every module, the int8, scheduler, resilience and
-    default-off telemetry ones among them."""
+    """The walk sees every module, the int8, scheduler, resilience,
+    default-off telemetry and config-surface ones among them."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in (
         "models/gemma/quant.py", "scheduler/admission.py", "scheduler/fairness.py",
         "scheduler/degrade.py", "scheduler/scheduler.py", "resilience/__init__.py",
         "resilience/breaker.py", "resilience/budget.py", "resilience/hedge.py", "resilience/chaos.py",
         "telemetry/ledger.py", "telemetry/slo.py", "telemetry/provenance.py", "telemetry/flight.py",
-        "telemetry/mirror.py", "utils/redis_client.py",
+        "telemetry/mirror.py", "utils/redis_client.py", "planner/mock.py", "registry/file.py",
+        "registry/redis_backend.py", "models/sp_model.py", "ops/__init__.py", "cli/__init__.py",
+        "cli/__main__.py", "cli/main.py",
     ):
         assert f"mcpx_torch/{module}" in rel, module
 

@@ -11,21 +11,26 @@ version. Plans are compared as ``Plan.to_json()`` strings: no tolerance.
 """
 
 import asyncio
+import dataclasses
 import os
 import random
 
 import pytest
 
 from mcpx.core.config import MCPXConfig as JConfig
+from mcpx.engine.engine import InferenceEngine as JEngine
+from mcpx.models.gemma.config import GemmaConfig as JGemmaConfig
 from mcpx.models.tokenizer import make_tokenizer as jmake_tokenizer
 from mcpx.planner.base import PlanContext as JPlanContext
-from mcpx.planner.llm import build_prompt_ids as jbuild_prompt_ids
+from mcpx.planner.llm import LLMPlanner as JPlanner, build_prompt_ids as jbuild_prompt_ids
 from mcpx.server.factory import build_control_plane as jbuild
 from mcpx.utils.synth import intent_for, synth_registry as jsynth
 from mcpx_torch.core.config import MCPXConfig
+from mcpx_torch.engine.engine import InferenceEngine
+from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.tokenizer import make_tokenizer
 from mcpx_torch.planner.base import PlanContext
-from mcpx_torch.planner.llm import build_prompt_ids
+from mcpx_torch.planner.llm import LLMPlanner, build_prompt_ids
 from mcpx_torch.registry.base import ServiceRecord
 from mcpx_torch.server.factory import build_control_plane
 from mcpx_torch.utils.synth import synth_registry
@@ -115,3 +120,28 @@ def test_planner_direct_matches_control_plane(plans):
     assert [p.to_json() for p in port_direct] == [p.to_json() for p in port_cp]
     for p in port_cp:
         p.validate()
+
+
+def test_shortlist_constrained_plans_match_reference_in_float32():
+    """``planner.constrain_names="shortlist"``: the grammar admits only the
+    retrieval shortlist's names (a trie per shortlist, not one over the
+    registry). Greedy plans on the committed checkpoint, float32 forwards
+    on both sides, are byte-identical."""
+    cfg = {**CONFIG, "planner": {"kind": "llm", "constrain_names": "shortlist"}}
+    records = jsynth(N_SERVICES, seed=0)
+    rng = random.Random(5)
+    intents = [intent_for(records, rng) for _ in range(N_INTENTS)]
+    jcfg, tcfg = JConfig.from_dict(cfg), MCPXConfig.from_dict(cfg)
+    jmodel = dataclasses.replace(JGemmaConfig.named("test", vocab_size=3072, max_seq_len=2048), dtype="float32")
+    model = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072, max_seq_len=2048), dtype="float32")
+    ref, _ = asyncio.run(_serve(
+        jbuild(jcfg, planner=JPlanner(JEngine(jcfg, model_cfg=jmodel), jcfg.planner)), records, intents
+    ))
+    engine = InferenceEngine(tcfg, model_cfg=model, device="cpu")
+    port, _ = asyncio.run(_serve(
+        build_control_plane(tcfg, planner=LLMPlanner(engine, tcfg.planner), device="cpu"),
+        synth_registry(N_SERVICES, seed=0), intents,
+    ))
+    assert engine.model_cfg.dtype == "float32"
+    assert sum(p.origin == "llm" for p in ref) >= N_INTENTS - 1
+    assert [p.to_json() for p in port] == [p.to_json() for p in ref]

@@ -2,8 +2,10 @@
 CPU:
 
   - the factory serves no option it ignores: each option the reference
-    factory reads that the port does not serve raises ``ConfigError``
-    naming it; the default-on telemetry, the Redis plan-cache tier, the
+    factory reads that the port does not serve (the cluster's) raises
+    ``ConfigError`` naming it; the retrieval snapshot, the mock planner,
+    the file and Redis registries, SentencePiece vocabularies, the
+    default-on telemetry, the Redis plan-cache tier, the
     admission scheduler, the resilience facade, the chaos transport and
     telemetry's default-off parts (the Redis telemetry mirror, the flight
     recorder, the cost ledger, decision provenance, the SLO tracker) are
@@ -20,6 +22,7 @@ CPU:
 
 import asyncio
 import dataclasses
+import json
 import os
 import random
 import re
@@ -61,12 +64,16 @@ def one_cpu_thread():
 
 
 # ------------------------------------------------------------ refusals
-# The three options the port still refuses, and the five it served once
-# telemetry's default-off parts were ported.
-SERVED = {
+# The two options the port still refuses (the cluster's), the five it served
+# once telemetry's default-off parts were ported, and the retrieval snapshot,
+# the mock planner, the file and Redis registries and SentencePiece vocabs
+# it served with the rest of the config surface.
+TELEMETRY_PARTS = {
     ("telemetry", "redis_url"), ("telemetry", "flight.enabled"), ("telemetry", "ledger.enabled"),
     ("telemetry", "provenance.enabled"), ("slo", "enabled"),
 }
+MAKERS = {("retrieval", "snapshot_path"), ("planner", "kind"), ("registry", "backend"), ("model", "vocab")}
+SERVED = TELEMETRY_PARTS | MAKERS
 
 
 @pytest.mark.parametrize(
@@ -81,6 +88,10 @@ SERVED = {
         ("telemetry", "ledger.enabled", True),
         ("telemetry", "provenance.enabled", True),
         ("slo", "enabled", True),
+        ("planner", "kind", "mock"),
+        ("registry", "backend", "file"),
+        ("registry", "backend", "redis"),
+        ("model", "vocab", "sp"),
         (None, None, None),
     ],
 )
@@ -111,6 +122,9 @@ def test_factory_refuses_options_the_port_does_not_serve(section, key, value, tm
     if (section, key) not in SERVED:
         with pytest.raises(ConfigError, match=re.escape(f"{section}.{key}")):
             build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        return
+    if (section, key) in MAKERS:
+        _check_served_maker(cfg, section, value, tmp_path)
         return
     # A served option builds its part and wires it as the reference does.
     from mcpx_torch.scheduler import Scheduler
@@ -149,6 +163,60 @@ def test_factory_refuses_options_the_port_does_not_serve(section, key, value, tm
         # slo.enabled: the tracker's burning() feeds a burn_aware scheduler.
         assert isinstance(cp.slo, SLOTracker) and isinstance(cp.scheduler, Scheduler)
         assert cp.scheduler._slo_burning == cp.slo.burning
+
+
+def _check_served_maker(cfg: dict, section: str, value, tmp_path) -> None:
+    """A served maker builds the part the reference's factory builds."""
+    from mcpx_torch.models.sp_model import tiny_model
+    from mcpx_torch.models.tokenizer import SentencePieceTokenizer
+    from mcpx_torch.planner.mock import MockPlanner
+    from mcpx_torch.registry import FileRegistry
+    from mcpx_torch.registry.redis_backend import RedisRegistry
+    from mcpx_torch.retrieval.index import RetrievalIndex
+    from mcpx_torch.telemetry.mirror import FakeAsyncRedis
+
+    records = synth_registry(12, seed=0)
+    if section == "retrieval":
+        # A snapshot written by the index is loaded at build time.
+        index = RetrievalIndex(device="cpu")
+        asyncio.run(_refreshed(index, records))
+        cfg["retrieval"]["snapshot_path"] = path = str(tmp_path / value)
+        index.save(path)
+        cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert cp.retriever.size == 12 and cp.retriever.version == -1
+    elif section == "planner":
+        cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert isinstance(cp.planner, MockPlanner)
+    elif value == "file":
+        path = tmp_path / "reg.json"
+        path.write_text(json.dumps([r.to_dict() for r in records]))
+        cfg["registry"]["file_path"] = str(path)
+        cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert isinstance(cp.registry, FileRegistry)
+        assert len(asyncio.run(cp.registry.list_services())) == 12
+    elif value == "redis":
+        cfg["registry"]["redis_url"] = "redis://localhost:6379/2"
+        cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert isinstance(cp.registry, RedisRegistry)
+        cp.registry._client = FakeAsyncRedis()
+        asyncio.run(cp.registry.put(records[0]))
+        assert asyncio.run(cp.registry.version()) == 1
+    else:  # an sp: vocab, read by the LLM planner's engine
+        tiny_model().save(str(tmp_path / "tiny.model"))
+        cfg["planner"]["kind"] = "llm"
+        cfg["model"]["vocab"] = f"sp:{tmp_path / 'tiny.model'}"
+        cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert isinstance(cp.planner.engine.tokenizer, SentencePieceTokenizer)
+        assert cp.planner.engine.model_cfg.vocab_size == cp.planner.engine.tokenizer.vocab_size == 384
+
+
+async def _refreshed(index, records):
+    from mcpx_torch.registry.memory import InMemoryRegistry
+
+    registry = InMemoryRegistry()
+    for rec in records:
+        await registry.put(rec)
+    await index.refresh(registry)
 
 
 @pytest.mark.parametrize("option", ["scheduler.enabled", "resilience.enabled", "resilience.chaos_profile"])
