@@ -130,12 +130,20 @@ Phases, one line each (every number beside the card's name and power limit):
      (2b) ``/plan``s, a repeat that captures nothing, the shortlist's device
      ranking against host numpy timed during the repeat and on an idle card,
      and equal to the host's on every intent but near-ties (printed); the
-     table saved and reloaded onto the card with equal shortlists
+     table saved and reloaded onto the card with equal shortlists, and
+     loaded into a sharded index of two row shards whose shortlists equal
+     the unsharded one's but near-ties (``registry_sharded``)
      (``config_surface``);
  21. a SentencePiece vocabulary (``sp_2b``): the 2b preset with
      ``model.vocab="sp:<path>"`` (``tiny_model()``'s file), random weights,
      8 ``/plan``s and a repeat that captures nothing; every plan
      LLM-authored, valid, and its steps JSON parses (``sp_phase``);
+ 22. the cluster (``cluster_test``, ``cluster_2b``): ``cluster.enabled``
+     with two engine replicas on the card behind the pool, prefix affinity,
+     burn-aware placement, the sharded registry and warm-restart snapshots;
+     phases 5-6's intents, their repeat, a burst during which the busy
+     replica is killed, its warm rejoin, a burst during which the other
+     drains, its rejoin (``cluster_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -3254,6 +3262,50 @@ async def snapshot_phase(index, intents: list, card: str, path: str, device=None
     return stats
 
 
+async def sharded_phase(index, intents: list, card: str, path: str, device=None, rounds: int = 4) -> dict:
+    """``registry_sharded``: ``registry_snapshot``'s file loaded into a
+    ``ShardedRetrievalIndex`` of two row shards on the index's device. Every
+    intent's shortlist must equal the unsharded device index's, but where
+    their plain rankings part on a near-tie (printed); both rankings timed
+    on an idle card, p50 and p99 (the sharded one: a top-k a shard and the
+    merge on the host)."""
+    from mcpx_torch.cluster.sharding import ShardedRetrievalIndex
+    from mcpx_torch.core.config import PlannerConfig
+
+    k = PlannerConfig().shortlist_top_k
+    sharded = ShardedRetrievalIndex(index.config, n_shards=2, device=device)
+    t0 = time.monotonic()
+    sharded.load(path)
+    load_s = time.monotonic() - t0
+    near, bad = [], []
+    for intent in intents:
+        if await sharded.shortlist(intent, k) == await index.shortlist(intent, k):
+            continue
+        q = index.embedder.embed(intent)
+        a, b = sharded._base_order(q, k), index._device_topk(q, k)[1]
+        scores = index._table_np @ q
+        gap = max([float(abs(scores[x] - scores[y])) for x, y in zip(a, b) if x != y] or [0.0])
+        (near if a != b and gap < SCORE_NEAR_TIE else bad).append(dict(intent=intent, sharded=a, unsharded=b,
+                                                                        max_gap=gap))
+    probes = [index.embedder.embed(i) for i in intents]
+    timed = {"sharded": [], "unsharded": []}
+    for _ in range(rounds):
+        for q in probes:
+            t = time.perf_counter()
+            sharded._base_order(q, k)
+            t1 = time.perf_counter()
+            index._device_topk(q, k)
+            timed["sharded"].append((t1 - t) * 1e3)
+            timed["unsharded"].append((time.perf_counter() - t1) * 1e3)
+    stats = dict(shards=sharded.shard_sizes, shard_devices=sorted({str(t.device) for t in sharded._shards}),
+                 load_s=load_s, intents=len(intents), near_ties=near, differing=bad[:3],
+                 rank_ms={name: quantiles_ms(v) for name, v in timed.items()})
+    emit("registry_sharded", card, **stats)
+    if bad or not sharded._shards or stats["shard_devices"] != [str(index._table.device)]:
+        raise SystemExit(f"registry sharded: shortlists differ from the unsharded index's or shards misplaced: {stats}")
+    return stats
+
+
 def sp_backends(path: str, texts: list) -> dict:
     """Where the ``sentencepiece`` package is installed (``backend="auto"``
     takes it), the package against the in-tree codec on one model file:
@@ -3353,8 +3405,8 @@ async def sp_phase(size: str, checkpoint: str, n_intents: int, card: str, batch:
 async def config_surface(card: str, sizes=(("test", CKPT, 16), ("2b", "", 8)), n: int = REGISTRY_N,
                          batch: int = 64, device=None, threshold: int = 65536) -> list:
     """Phase 20 (``registry_index``, then ``registry_100k_<size>`` for each
-    width on the one index, then ``registry_snapshot``) in a temporary
-    directory the phase removes."""
+    width on the one index, then ``registry_snapshot`` and
+    ``registry_sharded``) in a temporary directory the phase removes."""
     import tempfile
 
     from mcpx_torch.utils.synth import intent_for
@@ -3365,9 +3417,307 @@ async def config_surface(card: str, sizes=(("test", CKPT, 16), ("2b", "", 8)), n
         runs = [await registry_phase(size, ckpt, m, card, index, path, batch=batch, device=device)
                 for size, ckpt, m in sizes]
         rng = random.Random(0)
-        await snapshot_phase(index, [intent_for(records, rng) for _ in range(32)], card,
-                             os.path.join(d, "index.snap"), device=device)
+        intents = [intent_for(records, rng) for _ in range(32)]
+        snap = os.path.join(d, "index.snap")
+        await snapshot_phase(index, intents, card, snap, device=device)
+        await sharded_phase(index, intents, card, snap, device=device)
         return runs
+
+
+# ------------------------------------------------------------ cluster
+CLUSTER_FAMILIES = (
+    "mcpx_cluster_replicas_ready", "mcpx_cluster_replica_state", "mcpx_cluster_replica_depth",
+    "mcpx_cluster_replica_eta_seconds", "mcpx_cluster_replica_skew", "mcpx_cluster_routed_requests_total",
+    "mcpx_cluster_affinity_hits_total", "mcpx_cluster_resteers_total",
+)
+
+
+def cluster_config(size: str, checkpoint: str, batch: int, snapshot_dir: str):
+    """Phases 5-6's settings served by a pool of two replicas: prefix
+    affinity, burn-aware placement (with the SLO tracker and the ledger),
+    the retrieval index sharded one shard a replica (host mode at 1k rows),
+    the tiered KV cache with each replica's warm-restart snapshot in
+    ``snapshot_dir``."""
+    cfg = config(size, checkpoint, batch)
+    cfg.cluster.enabled, cfg.cluster.replicas = True, 2
+    cfg.cluster.affinity = cfg.cluster.burn_aware = cfg.cluster.shard_registry = True
+    cfg.cluster.warm_snapshot_dir = snapshot_dir
+    cfg.engine.kv_tier.enabled = True
+    cfg.slo.enabled = True
+    cfg.telemetry.ledger.enabled = True
+    cfg.validate()
+    return cfg
+
+
+def settled_memory() -> int:
+    """Bytes allocated on the card once its work is done and Python's
+    garbage is collected, read while no engine's worker holds the device."""
+    from mcpx_torch.engine.engine import DEVICE_LOCK
+
+    with DEVICE_LOCK:
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+
+async def steered_plan(cp, index: int, intent: str):
+    """``intent``'s ``/plan`` served by replica ``index`` alone: the other
+    replicas are taken out of routing (as a drain does) for the request."""
+    others = [r for r in cp.cluster.replicas if r.index != index and r.state == "ready"]
+    for r in others:
+        r.state = "draining"
+    try:
+        plan, _ = await cp.plan(intent, use_cache=False)
+    finally:
+        for r in others:
+            r.state = "ready"
+    return plan
+
+
+def per_replica(pool, key: str) -> list:
+    return [r.engine.queue_stats()[key] for r in pool.replicas]
+
+
+def routed_by_trace(pool) -> dict:
+    """trace id -> replica of every routing decision in the pool's ring."""
+    return {d["trace_id"]: d["replica"] for d in pool._pipeline.recent_decisions() if d["trace_id"]}
+
+
+async def busiest_replica(pool, timeout_s: float = 20.0) -> int:
+    """The replica with rows on its slab (the most pool-side in-flight
+    requests among them), once one has."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        busy = [r for r in pool.replicas if r.routable and r.inflight and r.engine.queue_stats()["active_rows"]]
+        if busy:
+            return max(busy, key=lambda r: r.inflight).index
+        await asyncio.sleep(0.001)
+    raise SystemExit("cluster: no replica had rows in flight during the kill burst")
+
+
+async def cluster_phase(size: str, checkpoint: str, n_intents: int, card: str, single: dict, single_plans: list,
+                        batch: int = 64, device=None) -> dict:
+    """Phase 22 at one width (``cluster_<size>``): ``build_control_plane``
+    with ``cluster.enabled`` (two replicas on the card), its scoreboard
+    refreshed by the pool's loop as the app runs it. Traffic: the width's
+    intents (phase 5's or 6's) from emptied trees; their repeat, which
+    captures nothing on either replica; a burst during which the replica
+    with rows on its slab is killed (its requests resteer to the survivor);
+    the rejoin, restoring its snapshot, and one intent it served before
+    the kill, sent to it alone; a burst during which the other replica
+    drains, and its rejoin. Every plan LLM-authored (at test) and valid,
+    naming only registry services; at test the first burst's plans equal
+    ``single_plans`` (phase 5's), at 2b a differing plan is printed. Gates:
+    a resteer, 0 pins and 0 tickets after, generation 1 and restored runs
+    on each rejoined replica, its warm request prefilling fewer tokens than
+    its prompt, allocated bytes after each rejoin within 2% of before its
+    replica went, the replicas' own launches adding up to the process's,
+    the journal's kill, resteer, drain and rejoin, the ``mcpx_cluster_*``
+    families in the exposition."""
+    import tempfile
+
+    from mcpx_torch.cluster.sharding import ShardedRetrievalIndex
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.telemetry.tracing import Tracer
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as snap_dir:
+        cp = build_control_plane(cluster_config(size, checkpoint, batch, snap_dir), device=device)
+        pool = cp.cluster
+        cuda = pool.device.type == "cuda"
+        records = synth_registry(1000, seed=0)
+        names = {r.name for r in records}
+        for rec in records:
+            await cp.registry.put(rec)
+        scoreboard = None
+        try:
+            t0 = time.monotonic()
+            await cp.startup()  # both replicas start together: their warm captures overlap
+            startup_s = time.monotonic() - t0
+            scoreboard = asyncio.create_task(pool.run_scoreboard())
+            rng = random.Random(0)
+            intents = [intent_for(records, rng) for _ in range(n_intents)]
+            tracer = Tracer(enabled=True, sample_rate=1.0, ring_size=max(256, 8 * n_intents))
+            checked: list = []
+
+            def check(where: str, plans: list) -> None:
+                for p in plans:
+                    p.validate()
+                foreign = sorted({n.service for p in plans for n in p.nodes} - names)
+                origins = {o: sum(p.origin == o for p in plans) for o in {p.origin for p in plans}}
+                checked.append((where, origins))
+                if foreign:
+                    raise SystemExit(f"cluster_{size} {where}: plans name services outside the registry: {foreign}")
+                if size == "test" and origins != {"llm": len(plans)}:
+                    raise SystemExit(f"cluster_{size} {where}: not every plan is LLM-authored: {origins}")
+
+            await pool.drop_unpinned()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            reset_kernel_launches()
+            n0, own0 = kernel_launches(), pool.replica_launches()
+            resteers0 = pool.resteers
+            # 1. the width's intents, from emptied trees; the pool's engine
+            # calls recorded, for the near-ties against one engine below
+            calls: list = []
+            real_generate = pool.generate
+
+            async def recording(prompt_ids, **kw):
+                res = await real_generate(prompt_ids, **kw)
+                calls.append((tuple(prompt_ids), kw, res))
+                return res
+
+            pool.generate = recording
+            try:
+                t0 = time.monotonic()
+                plans, recs = await traced_burst(cp, intents, tracer)
+                wall = time.monotonic() - t0
+            finally:
+                del pool.generate
+            check("burst", plans)
+            lat = sorted(r.total_ms for r in recs)
+            where = routed_by_trace(pool)
+            served_by = [where.get(r.trace_id) for r in recs]
+            differ = [i for i, (a, b) in enumerate(zip(plans, single_plans)) if a.to_json() != b.to_json()]
+            if size == "test" and differ:
+                raise SystemExit(f"cluster_test: plans {differ} differ from serve_test's")
+            margins = await pool_near_ties(pool, calls, size, card)
+            # 2. the repeat captures nothing on either replica
+            c0 = per_replica(pool, "captures")
+            repeat, _ = await traced_burst(cp, intents, tracer)
+            check("repeat", repeat)
+            repeat_captures = [b - a for a, b in zip(c0, per_replica(pool, "captures"))]
+            # 3. kill the replica with rows on its slab, mid-burst
+            mem_before_kill = settled_memory() if cuda else 0
+            tasks = [asyncio.create_task(traced_burst(cp, [i], tracer)) for i in intents]
+            victim = await busiest_replica(pool)
+            inflight_at_kill = pool.replicas[victim].inflight
+            await pool.kill(victim)
+            killed = [(await t)[0][0] for t in tasks]
+            check("kill_burst", killed)
+            resteers = pool.resteers - resteers0
+            # 4. rejoin from its snapshot; one intent it served, alone on it
+            t0 = time.monotonic()
+            await pool.rejoin(victim)
+            rejoin_s = time.monotonic() - t0
+            back = pool.replicas[victim]
+            restored_pages = back.engine.queue_stats()["prefix_host_pages"]
+            mine = [i for i, r in zip(intents, served_by) if r == victim] or intents[:1]
+            other = pool.replicas[1 - victim]
+            p0 = back.engine.queue_stats()["prefill_tokens"]
+            warm_plan = await steered_plan(cp, victim, mine[0])
+            warm_prefill = back.engine.queue_stats()["prefill_tokens"] - p0
+            check("warm", [warm_plan])
+            mem_after_rejoin = settled_memory() if cuda else 0
+            # 5. drain the other replica under a burst, then rejoin it
+            mem_before_drain = mem_after_rejoin
+            tasks = [asyncio.create_task(traced_burst(cp, [i], tracer)) for i in intents]
+            t0 = time.monotonic()
+            while not other.inflight and time.monotonic() - t0 < 20.0:
+                await asyncio.sleep(0.001)
+            inflight_at_drain = other.inflight
+            await pool.drain(other.index)
+            drained = [(await t)[0][0] for t in tasks]
+            check("drain_burst", drained)
+            await pool.rejoin(other.index)
+            await steered_plan(cp, other.index, intents[0])  # its grammar tables, as before it drained
+            mem_after_drain_rejoin = settled_memory() if cuda else 0
+            await idle(pool)
+            sync()
+            launches = kernel_launches()
+            own = pool.replica_launches()
+            own_delta = {i: own[i]["ragged_paged_attention"] - own0[i].get("ragged_paged_attention", 0) for i in own}
+            global_delta = launches["ragged_paged_attention"] - n0["ragged_paged_attention"]
+            if cuda:
+                check_tickets(f"cluster_{size}")
+            pins = per_replica(pool, "prefix_pins")
+            snap = pool.scoreboard_snapshot()
+            text = cp.metrics.render().decode()
+            missing = [f for f in CLUSTER_FAMILIES if f not in text]
+            rows = {r["replica"]: r for r in snap["replicas"]}
+            stats = dict(
+                model=size, replicas=len(pool.replicas), intents=n_intents, startup_s=startup_s,
+                wall_s=wall, plans_per_s=n_intents / wall, p50_ms=lat[len(lat) // 2], max_ms=lat[-1],
+                single_plans_per_s=single["plans_per_s"], single_p50_ms=single["p50_ms"],
+                served_by=served_by, plans_differing_from_single=differ, near_tie_margins=margins,
+                checked=checked,
+                routed={i: rows[i]["routed"] for i in rows}, affinity_hits={i: rows[i]["affinity_hits"] for i in rows},
+                skew=snap["skew"], journal_counts=snap["journal_counts"], repeat_captures=repeat_captures,
+                capture_counts={i: len(c) for i, c in pool.capture_counts().items()},
+                victim=victim, inflight_at_kill=inflight_at_kill, inflight_at_drain=inflight_at_drain,
+                resteers=resteers, rejoin_s=rejoin_s,
+                generations=[r.generation for r in pool.replicas], restored_host_pages=restored_pages,
+                warm_prefill_tokens=warm_prefill, warm_prompt_tokens=len(warm_plan.prompt_ids),
+                memory_before_kill=mem_before_kill, memory_after_rejoin=mem_after_rejoin,
+                memory_before_drain=mem_before_drain, memory_after_drain_rejoin=mem_after_drain_rejoin,
+                max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None,
+                weight_bytes=[n_bytes_of(r.engine) for r in pool.replicas],
+                launches=launches, launches_delta=global_delta, own_launches_delta=own_delta,
+                ledger_totals={k: v for k, v in pool.ledger_totals().items() if k != "by_executable"},
+                pins=pins, retriever=type(cp.retriever).__name__, shards=getattr(cp.retriever, "shard_sizes", None),
+                seconds=time.monotonic() - t_phase,
+            )
+            emit(f"cluster_{size}", card, **stats)
+            if size != "test" and differ:
+                emit(f"cluster_{size}_differing", card, plans=[
+                    dict(intent=i, pool=plans[i].to_json(), single=single_plans[i].to_json()) for i in differ])
+            journal = {k for k in ("kill", "resteer", "drain", "rejoin") if snap["journal_counts"].get(k)}
+            failures = [
+                (any(repeat_captures), f"the repeat captured {repeat_captures}"),
+                (resteers < 1, "no request resteered in the kill burst"),
+                (any(pins), f"pins left {pins}"),
+                (stats["generations"] != [1, 1], f"generations {stats['generations']}"),
+                (restored_pages <= 0, "the rejoined replica restored no run"),
+                (not 0 < warm_prefill < len(warm_plan.prompt_ids),
+                 f"warm request prefilled {warm_prefill} of {len(warm_plan.prompt_ids)} tokens"),
+                (cuda and abs(mem_after_rejoin - mem_before_kill) > 0.02 * mem_before_kill,
+                 f"allocated {mem_after_rejoin} after the rejoin against {mem_before_kill} before the kill"),
+                (cuda and abs(mem_after_drain_rejoin - mem_before_drain) > 0.02 * mem_before_drain,
+                 f"allocated {mem_after_drain_rejoin} after the rejoin against {mem_before_drain} before the drain"),
+                (sum(own_delta.values()) != global_delta, f"own launches {own_delta} against {global_delta}"),
+                (cuda and global_delta <= 0, "the kernel was not launched"),
+                (journal != {"kill", "resteer", "drain", "rejoin"}, f"journal holds {sorted(journal)}"),
+                (bool(missing), f"exposition lacks {missing}"),
+                (not isinstance(cp.retriever, ShardedRetrievalIndex), "the registry is not sharded"),
+            ]
+            bad = [why for failed, why in failures if failed]
+            if bad:
+                raise SystemExit(f"cluster_{size}: " + "; ".join(bad))
+            return stats
+        finally:
+            if scoreboard is not None:
+                scoreboard.cancel()
+                with contextlib.suppress(asyncio.CancelledError):
+                    await scoreboard
+            await cp.aclose()
+
+
+async def pool_near_ties(pool, calls: list, size: str, card: str) -> list:
+    """The pool's recorded engine calls served again by replica 0's engine
+    alone, from an emptied tree and as one cohort (as the single engine
+    served its burst): each greedy stream that differs is printed with the
+    top-2 margin of its masked logits at the first differing token
+    (``greedy_differences``; at test a difference fails). Returns the
+    margins."""
+    engine = pool.replicas[0].engine
+    # The planner leaves the sampling settings at the engine's defaults.
+    default = {"temperature": engine.config.engine.temperature, "constrained": True}
+    a = {i: (p, {**default, **kw}, res) for i, (p, kw, res) in enumerate(sorted(calls, key=lambda c: c[0]))}
+    await idle(pool)
+    await engine.drop_unpinned()
+    with one_cohort(engine, len(a)):
+        alone = await asyncio.gather(*(engine.generate(list(p), **kw) for p, kw, _ in a.values()))
+    b = {i: (p, kw, res) for (i, (p, kw, _)), res in zip(a.items(), alone)}
+    return greedy_differences(f"cluster_{size}", size, card, engine, a, b)
+
+
+def n_bytes_of(engine) -> int:
+    from mcpx_torch.models.gemma.params import n_bytes
+
+    return n_bytes(engine._params) if engine._params is not None else 0
 
 
 def main(argv: list[str]) -> int:
@@ -3455,6 +3805,10 @@ def main(argv: list[str]) -> int:
         timed(f"tier_roundtrip_{size}", tier_roundtrip, size, card)
     surface = timed("registry_100k", asyncio.run, config_surface(card))
     sp = timed("sp_2b", asyncio.run, sp_phase("2b", "", 8, card))
+    clusters = [
+        timed("cluster_test", asyncio.run, cluster_phase("test", CKPT, 16, card, trained, trained_plans)),
+        timed("cluster_2b", asyncio.run, cluster_phase("2b", "", 8, card, full, full_plans)),
+    ]
     emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
@@ -3482,8 +3836,10 @@ def main(argv: list[str]) -> int:
             "name": name, **meta,
             # The overload runs launch the kernel too (their primary tier),
             # but a run served mostly degraded may replay no window, so they
-            # count here without the replay gate above.
-            "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl]),
+            # count here without the replay gate above; so do the cluster
+            # runs, whose killed replicas' replays went with them (phase 22
+            # gates its own launches).
+            "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl] + clusters),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

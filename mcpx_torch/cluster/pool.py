@@ -1,0 +1,782 @@
+"""EnginePool: N engine replicas behind one engine-shaped facade.
+
+A copy of ``mcpx/cluster/pool.py`` for the port. The pool implements the
+duck-typed surface every consumer reaches through ``getattr(planner,
+"engine", None)`` — ``generate`` / ``queue_stats`` / ``state`` / ``start``
+/ ``aclose`` / ``tokenizer`` / ``pin_prefix`` / ``prefix_cache_stats`` /
+``prompt_capacity`` / ``metrics`` / ``costs`` — and the port engine's own:
+``device`` and ``kernel_paths()`` (replica 0's; the reference's
+``pallas_paths``), ``kernel_launches()`` (the process's), ``capture_counts()``
+and ``replica_launches()`` (per replica), ``ledger_totals()`` (summed over
+every replica and every generation of it, so the bills a killed replica
+handed out stay in the sum) and ``drop_unpinned()``. The scheduler, the
+API layer, the flight recorder and the planner wire up to a cluster with no
+call-site changes. With ``cluster.enabled=false`` the factory never builds
+a pool and the single bare engine serves exactly as before.
+
+By default every replica is an ``InferenceEngine`` on the control plane's
+device: on one card the replicas share it, each with its own weights, KV
+pools, worker thread and captured windows, as the reference's replicas share
+one mesh. Their eager launches and replays go to the default stream and take
+turns on the card; their captures take the engine's process-wide capture
+lock one at a time.
+
+Lifecycle (pool-side states on :class:`ReplicaHandle`):
+
+    spawning -> warming -> ready <-> draining -> dead -> (rejoin) warming
+
+- **kill** — immediate close: the replica's in-flight rows fail inside
+  the engine; requests racing the close are RE-STEERED to a surviving
+  replica (one retry, full re-prefill there), so nothing beyond the dead
+  replica's resident rows surfaces an error.
+- **drain** — stop routing, wait for pool-tracked in-flight requests up
+  to ``cluster.drain_timeout_s``, then close cleanly.
+- **rejoin** — a dead slot gets a FRESH engine. When
+  ``cluster.warm_snapshot_dir`` is set, every replica's config points
+  ``engine.kv_tier.snapshot_path`` at ``<dir>/replica-<i>.json``: the
+  close that killed it saved a warm-restart manifest, and the rejoining
+  engine restores it inside ``start()`` — the replica comes back holding
+  its KV before it takes its first request. A closed engine holds nothing
+  on the card.
+
+The port's engine publishes ``queue_depth`` and ``active_rows``; the
+scoreboard stores them under the reference's names (``depth``,
+``active``), which the routing policies read. ``queue_stats()`` aggregates
+as the reference's does, less ``hol_wait_ms``: the port keeps no
+head-of-line gauge.
+
+All pool state is event-loop-confined (no locks): routing, lifecycle
+and the scoreboard refresh all run on the serving loop; only GIL-atomic
+engine reads (``queue_stats``) cross the worker-thread boundary, which
+is the engine's own published contract.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import copy
+import logging
+import os
+import time
+from typing import Any, Optional, Sequence
+
+import torch
+
+from mcpx_torch.cluster.replica import ReplicaHandle
+from mcpx_torch.cluster.routing import (
+    CostBurnPolicy,
+    RouteRequest,
+    RoutingPipeline,
+    affinity_key,
+    build_pipeline,
+    rendezvous_choice,
+)
+from mcpx_torch.core.config import MCPXConfig
+from mcpx_torch.core.errors import EngineError
+from mcpx_torch.engine.kernels.paged_attention import kernel_launches
+from mcpx_torch.telemetry import provenance, tracing
+from mcpx_torch.utils.ownership import owned_by
+
+log = logging.getLogger("mcpx_torch.cluster")
+
+# queue_stats() keys the pool sums and averages over its ready replicas
+# (the reference's lists, under the port engine's names where they differ;
+# its other keys come from the first ready replica).
+_SUMMED = (
+    "queue_depth", "active_rows", "resident_grammars", "prefix_host_pages", "prefix_spills",
+    "prefix_readmits", "prefix_destructive_evictions",
+)
+_AVERAGED = (
+    "service_ewma_s", "prefix_token_hit_rate", "spec_accept_rate", "spec_accept_rate_constrained",
+    "spec_accept_rate_free",
+)
+
+
+def _scoreboard(qs: dict) -> dict:
+    """A replica's ``queue_stats()`` as the scoreboard holds it: the port
+    engine's ``queue_depth`` and ``active_rows`` under the reference's
+    ``depth`` and ``active``, which the routing policies read."""
+    return dict(qs, depth=int(qs.get("queue_depth", 0)), active=int(qs.get("active_rows", 0)))
+
+
+def _add(into: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        into[k] = into.get(k, 0) + n
+
+
+@owned_by("event_loop")
+class RoutingJournal:
+    """Bounded routing/failover event journal: every pool
+    lifecycle decision — routed / affinity_hit / degraded_route / resteer
+    / kill / drain / rejoin — lands here with a timestamp and sequence
+    number, so a cluster anomaly bundle can replay WHICH decisions put
+    load where. Events are bounded (oldest evicted); the per-kind counts
+    are cumulative and feed the flight recorder's window-delta signals
+    (affinity hit rate, resteer rate, degraded-route share). Loop-confined
+    like the pool that writes it."""
+
+    def __init__(self, maxlen: int) -> None:
+        self.events: "collections.deque[dict]" = collections.deque(  # mcpx: owner[event_loop]
+            maxlen=max(1, int(maxlen))
+        )
+        self.counts: dict[str, int] = {}  # mcpx: owner[event_loop]
+        self.seq = 0  # mcpx: owner[event_loop]
+
+    def bump(self, kind: str) -> None:
+        """Count a decision outcome without journaling an event (the
+        high-rate per-route outcomes that would otherwise drown the
+        lifecycle tail)."""
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+
+    def note(self, kind: str, replica: int, **extra: Any) -> None:
+        self.bump(kind)
+        self.seq += 1
+        self.events.append(
+            {
+                "seq": self.seq,
+                "ts": round(time.time(), 3),
+                "kind": kind,
+                "replica": replica,
+                **extra,
+            }
+        )
+
+    def tail(self, n: Optional[int] = None) -> list[dict]:
+        evs = list(self.events)
+        return evs if n is None else evs[-n:]
+
+
+@owned_by("event_loop")
+class ReplicaSignalRing:
+    """Per-replica signal ring behind the pool: a bounded
+    history of one replica slot's scoreboard snapshots (state, queue
+    depth, ETA, error rate, in-flight), appended by the scoreboard
+    refresh loop — the per-replica timeline an anomaly bundle needs to
+    show load concentrating before a trip."""
+
+    def __init__(self, index: int, maxlen: int) -> None:
+        self.index = index
+        self.ring: "collections.deque[dict]" = collections.deque(  # mcpx: owner[event_loop]
+            maxlen=max(1, int(maxlen))
+        )
+
+    def append(self, r: ReplicaHandle) -> None:
+        st = r.stats
+        self.ring.append(
+            {
+                "ts": round(time.time(), 3),
+                "state": r.state,
+                "depth": int(st.get("depth", 0)) + r.inflight,
+                "eta_s": round(float(st.get("eta_s", 0.0)), 4),
+                "error_rate": round(r.error_rate(), 4),
+                "inflight": r.inflight,
+            }
+        )
+
+    def tail(self, n: int = 32) -> list[dict]:
+        return list(self.ring)[-n:]
+
+
+class ClusterPin:
+    """A prefix pin plus which replica holds it, so unpin lands on the
+    same tree the pin did (control.py round-trips this opaquely). It keeps
+    the engine the pin was applied on: once that engine has closed (its
+    replica killed or rejoined since), the unpin is a no-op."""
+
+    __slots__ = ("replica", "handle", "engine")
+
+    def __init__(self, replica: int, handle: Any, engine: Any) -> None:
+        self.replica = replica
+        self.handle = handle
+        self.engine = engine
+
+
+@owned_by("event_loop")
+class EnginePool:
+    """Pool state is event-loop-confined (docstring above): the class-level
+    mark lets the ``loop-confinement`` pass prove every post-construction
+    mutation of pool/replica state is reachable only from loop-side entry
+    points (coroutines and loop callbacks, never ``to_thread``/executor
+    targets)."""
+
+    def __init__(
+        self,
+        config: MCPXConfig,
+        *,
+        metrics=None,
+        engine_factory=None,
+        pipeline: Optional[RoutingPipeline] = None,
+        chaos=None,
+        device: "torch.device | str | None" = None,
+    ) -> None:
+        """``device``: where the default factory's engines run (the control
+        plane's resolved device); ``None`` is CUDA, as for every entry point
+        of the port."""
+        self.config = config
+        self._metrics = metrics
+        self._pipeline: RoutingPipeline = pipeline or build_pipeline(config)
+        self._chaos = chaos  # ClusterFaults (resilience/chaos.py) or None
+        self._chaos_task: Optional[asyncio.Task] = None
+        self._closed = False  # mcpx: owner[event_loop]
+        self.resteers = 0  # mcpx: owner[event_loop]
+        pv = config.telemetry.provenance
+        self.journal = RoutingJournal(pv.journal_size)
+        self._rings: dict[int, ReplicaSignalRing] = {
+            i: ReplicaSignalRing(i, pv.replica_ring)
+            for i in range(config.cluster.replicas)
+        }
+        # What each slot's closed engines did: their kernel launches and
+        # the ledger totals they handed out, folded in when a rejoin
+        # replaces the engine.
+        self._retired: dict[int, dict[str, Any]] = {
+            i: {"launches": {}, "flops": 0, "bytes": 0, "by_executable": {}}
+            for i in range(config.cluster.replicas)
+        }
+        if engine_factory is None:
+            from mcpx_torch.engine.engine import InferenceEngine
+
+            def engine_factory(i: int, cfg: MCPXConfig):
+                return InferenceEngine(cfg, metrics=metrics, device=device)
+
+        self._engine_factory = engine_factory
+        self._replicas: list[ReplicaHandle] = [
+            ReplicaHandle(
+                i,
+                engine_factory(i, self.replica_config(i)),
+                error_window=config.cluster.error_window,
+            )
+            for i in range(config.cluster.replicas)
+        ]
+
+    # ------------------------------------------------------------ construction
+    def replica_config(self, i: int) -> MCPXConfig:
+        """Per-replica config: a deep copy so replicas never share mutable
+        sections, with the warm-restart snapshot path made replica-private
+        (each slot saves/restores ITS OWN manifest across kill/rejoin)."""
+        cfg = copy.deepcopy(self.config)
+        d = cfg.cluster.warm_snapshot_dir
+        if d and cfg.engine.kv_tier.enabled:
+            cfg.engine.kv_tier.snapshot_path = os.path.join(d, f"replica-{i}.json")
+        return cfg
+
+    def attach_signals(self, *, slo=None, ledger=None) -> None:
+        """Late-bind the burn-placement inputs: the ControlPlane builds the
+        SLO tracker and ledger AFTER the planner (and therefore after this
+        pool), so the factory wires them in a second pass."""
+        for p in self._pipeline.policies:
+            if isinstance(p, CostBurnPolicy):
+                if slo is not None:
+                    p.slo = slo
+                if ledger is not None:
+                    p.ledger = ledger
+
+    # ------------------------------------------------------------ engine facade
+    @property
+    def replicas(self) -> Sequence[ReplicaHandle]:
+        return tuple(self._replicas)
+
+    @property
+    def state(self) -> str:
+        if self._closed:
+            return "closed"
+        states = [getattr(r.engine, "state", "cold") for r in self._replicas]
+        if any(r.routable for r in self._replicas):
+            return "ready"
+        if "warming" in states:
+            return "warming"
+        if all(s in ("closed", "failed") for s in states):
+            return "closed"
+        return "cold"
+
+    @property
+    def tokenizer(self):
+        return self._replicas[0].engine.tokenizer
+
+    @property
+    def device(self):
+        return getattr(self._replicas[0].engine, "device", None)
+
+    @property
+    def metrics(self):
+        # The shared registry: every replica's engine counters land on the
+        # same families (sums across the pool); per-replica truth lives on
+        # the mcpx_cluster_* families instead.
+        m = self._metrics
+        return m if m is not None else self._replicas[0].engine.metrics
+
+    @property
+    def costs(self):
+        # Compile/cost observatory of replica 0 (replicas share model and
+        # geometry, so one replica's executables describe all of them).
+        return getattr(self._replicas[0].engine, "costs", None)
+
+    @property
+    def _startup_error(self):
+        for r in self._replicas:
+            if r._startup_error is not None:
+                return r._startup_error
+        return None
+
+    async def start(self) -> None:
+        for r in self._replicas:
+            if r.state == "spawning":
+                r.state = "warming"
+        results = await asyncio.gather(
+            *(r.engine.start() for r in self._replicas if r.state == "warming"),
+            return_exceptions=True,
+        )
+        warming = [r for r in self._replicas if r.state == "warming"]
+        first_err: Optional[BaseException] = None
+        for r, res in zip(warming, results):
+            if isinstance(res, BaseException):
+                r.state = "dead"
+                r._startup_error = res
+                first_err = first_err or res
+                log.warning("replica %d failed to start: %s", r.index, res)
+            else:
+                r.state = "ready"
+        if not any(r.routable for r in self._replicas):
+            assert first_err is not None
+            raise first_err
+        self.refresh_scoreboard()
+        if self._chaos is not None and self._chaos_task is None:
+            self._chaos_task = asyncio.get_running_loop().create_task(
+                self._run_chaos()
+            )
+
+    async def aclose(self) -> None:
+        self._closed = True
+        if self._chaos_task is not None:
+            self._chaos_task.cancel()
+            self._chaos_task = None
+        for r in self._replicas:
+            if getattr(r.engine, "state", None) in ("ready", "warming"):
+                try:
+                    await r.engine.aclose()
+                except Exception:  # noqa: BLE001 - best-effort teardown
+                    log.exception("replica %d close failed", r.index)
+            r.state = "dead"
+
+    async def generate(self, prompt_ids, **kw):
+        grammar = kw.get("grammar")
+        req = RouteRequest(
+            prompt_ids=tuple(prompt_ids),
+            grammar_key=id(grammar) if grammar is not None else None,
+            tenant=str(kw.get("tenant", "default")),
+        )
+        tried: set[int] = set()
+        last_err: Optional[EngineError] = None
+        for attempt in range(2):
+            cands = [
+                r for r in self._replicas if r.routable and r.index not in tried
+            ]
+            r = self._pipeline.route(req, cands)
+            if r is None:
+                if last_err is not None:
+                    raise last_err
+                raise EngineError("no ready replica in pool")
+            tried.add(r.index)
+            self._note_route(r, req)
+            r.inflight += 1
+            try:
+                res = await r.engine.generate(prompt_ids, **kw)
+            except EngineError as e:
+                r.inflight -= 1
+                r.note_result(False)
+                if attempt == 0 and getattr(r.engine, "state", None) != "ready":
+                    # The replica died under this request (kill/chaos):
+                    # re-steer to a survivor. The retry re-prefills there —
+                    # slower, but the request does not fail.
+                    if r.state == "ready":
+                        r.state = "dead"
+                    self.resteers += 1
+                    r.resteered_away += 1
+                    self._inc("cluster_resteers")
+                    self.journal.note(
+                        "resteer", r.index,
+                        trace_id=tracing.current_trace_id() or "",
+                        error=f"{type(e).__name__}: {e}",
+                    )
+                    if provenance.active():
+                        provenance.emit(
+                            "route",
+                            f"resteer away from replica {r.index}",
+                            signals={"replica_state": r.state},
+                            error=f"{type(e).__name__}: {e}",
+                        )
+                    last_err = e
+                    continue
+                raise
+            except BaseException:
+                r.inflight -= 1
+                r.note_result(False)
+                raise
+            r.inflight -= 1
+            r.note_result(True)
+            r.note_grammar(req.grammar_key)
+            return res
+        raise last_err  # pragma: no cover - loop always returns or raises
+
+    def queue_stats(self) -> dict:
+        ready = [r for r in self._replicas if r.routable]
+        if not ready:
+            base = dict(self._replicas[0].engine.queue_stats())
+            base.pop("worker_profile", None)
+            base["cluster"] = {"replicas": len(self._replicas), "ready": 0}
+            return base
+        per = [r.engine.queue_stats() for r in ready]
+        base = dict(per[0])
+        # Per-replica-only blocks don't aggregate meaningfully.
+        base.pop("worker_profile", None)
+        n = len(per)
+        for k in _SUMMED:
+            base[k] = sum(int(s.get(k, 0)) for s in per)
+        for k in _AVERAGED:
+            base[k] = float(sum(float(s.get(k, 0.0)) for s in per)) / n
+        # A joiner goes to the BEST replica, so the pool's admission ETA is
+        # the min, not the mean (the scheduler floors its estimate on this).
+        base["eta_s"] = min(float(s.get("eta_s", 0.0)) for s in per)
+        base["cluster"] = {"replicas": len(self._replicas), "ready": n}
+        return base
+
+    def prefix_cache_stats(self) -> dict:
+        ready = [r for r in self._replicas if r.routable]
+        if not ready:
+            return {"replicas": []}
+        base = dict(ready[0].engine.prefix_cache_stats())
+        base["replicas"] = [
+            dict(r.engine.prefix_cache_stats(), replica=r.index) for r in ready
+        ]
+        return base
+
+    def prompt_capacity(self, max_new_tokens: int = 0, shared_prefix_len: int = 0) -> int:
+        ready = [r for r in self._replicas if r.routable]
+        pool = ready or self._replicas[:1]
+        return min(
+            r.engine.prompt_capacity(max_new_tokens, shared_prefix_len)
+            for r in pool
+        )
+
+    def kernel_paths(self) -> dict:
+        return self._replicas[0].engine.kernel_paths()
+
+    def kernel_launches(self) -> dict[str, int]:
+        """Launches of each CUDA kernel in this process (every replica's)."""
+        return kernel_launches()
+
+    def replica_launches(self) -> dict[int, dict[str, int]]:
+        """Each slot's kernel launches, over every generation of it: its
+        engines' own counts (``own_launches``), which add up to the
+        process's while the pool's engines are the only ones launching."""
+        out: dict[int, dict[str, int]] = {}
+        for r in self._replicas:
+            counts = dict(self._retired[r.index]["launches"])
+            own = getattr(r.engine, "own_launches", None)
+            if own is not None:
+                _add(counts, own())
+            out[r.index] = counts
+        return out
+
+    def capture_counts(self) -> dict[int, dict[str, int]]:
+        """Each replica's current engine's window captures by key."""
+        return {
+            r.index: r.engine.capture_counts()
+            for r in self._replicas
+            if hasattr(r.engine, "capture_counts")
+        }
+
+    def ledger_totals(self) -> dict:
+        """What the cost ledger has apportioned to bills, summed over every
+        replica and every generation of it: a killed replica's bills were
+        handed out and stay in the sum."""
+        flops = nbytes = 0
+        by: dict[str, int] = {}
+        for r in self._replicas:
+            parts = [self._retired[r.index]]
+            totals = getattr(r.engine, "ledger_totals", None)
+            if totals is not None:
+                parts.append(totals())
+            for t in parts:
+                flops += t["flops"]
+                nbytes += t["bytes"]
+                _add(by, t["by_executable"])
+        return {"flops": flops, "bytes": nbytes, "by_executable": by}
+
+    async def drop_unpinned(self) -> int:
+        """``drop_unpinned`` on every ready replica: the nodes left (the
+        pinned ones), summed."""
+        left = 0
+        for r in self._replicas:
+            if r.routable:
+                left += await r.engine.drop_unpinned()
+        return left
+
+    async def pin_prefix(self, prompt_ids) -> Optional[ClusterPin]:
+        r = self._affinity_replica(prompt_ids)
+        if r is None:
+            return None
+        handle = await r.engine.pin_prefix(list(prompt_ids))
+        if handle is None:
+            return None
+        return ClusterPin(r.index, handle, r.engine)
+
+    def unpin_prefix(self, pin: Optional[ClusterPin]) -> None:
+        if pin is None:
+            return
+        if getattr(pin.engine, "state", None) != "ready":
+            return  # the replica died since: its tree went with it
+        pin.engine.unpin_prefix(pin.handle)
+
+    # ---------------------------------------------------------------- routing
+    def _affinity_replica(self, prompt_ids) -> Optional[ReplicaHandle]:
+        """Deterministic affinity target (no load terms): where repeat
+        traffic for this prefix lands, and therefore where a pin belongs."""
+        cands = [r for r in self._replicas if r.routable]
+        if not cands:
+            return None
+        aff = self._pipeline.affinity
+        if aff is None or not prompt_ids:
+            return cands[0]
+        key = affinity_key(
+            tuple(prompt_ids),
+            prefix_tokens=aff.prefix_tokens,
+            page_size=aff.page_size,
+        )
+        return rendezvous_choice(key, cands)
+
+    def _note_route(self, r: ReplicaHandle, req: RouteRequest) -> None:
+        r.routed += 1
+        self._inc("cluster_routed", replica=str(r.index))
+        trace_id = tracing.current_trace_id() or ""
+        self.journal.note("routed", r.index, trace_id=trace_id)
+        aff = self._pipeline.affinity
+        if aff is not None and aff.last_preferred == r.index:
+            r.affinity_hits += 1
+            self._inc("cluster_affinity_hits", replica=str(r.index))
+            self.journal.bump("affinity_hit")
+        elif aff is not None and aff.last_preferred is not None:
+            # Affinity preferred a (KV-warm) replica but the summed score
+            # sent the request elsewhere — a degraded placement. A surging
+            # share is the flight recorder's degraded_route_share signal.
+            self.journal.bump("degraded_route")
+        # Routing attribution counter (+ exemplar trace id, like the
+        # latency histograms): which policy decided this placement.
+        decision = self._pipeline.last_decision
+        pw = decision.get("policy_winner")
+        if pw:
+            m = self._metrics
+            fam = getattr(m, "route_decisions", None) if m is not None else None
+            if fam is not None:
+                fam.labels(policy_winner=pw).inc(
+                    exemplar={"trace_id": trace_id} if trace_id else None
+                )
+
+    def _inc(self, family: str, **labels) -> None:
+        m = self._metrics
+        fam = getattr(m, family, None) if m is not None else None
+        if fam is None:
+            return
+        (fam.labels(**labels) if labels else fam).inc()
+
+    # -------------------------------------------------------------- lifecycle
+    async def kill(self, index: int) -> None:
+        """Abrupt replica loss (chaos: a lost card or process). The close
+        still runs the engine's clean shutdown — which is what SAVES the
+        warm-restart manifest the rejoin restores — but no drain wait:
+        in-flight rows on this replica fail now."""
+        r = self._replicas[index]
+        r.state = "dead"
+        self.journal.note("kill", index, generation=r.generation)
+        if getattr(r.engine, "state", None) in ("ready", "warming"):
+            await r.engine.aclose()
+
+    async def drain(self, index: int) -> None:
+        """Graceful removal: stop routing, let pool-tracked in-flight
+        requests finish (bounded), then close."""
+        r = self._replicas[index]
+        if r.state == "ready":
+            r.state = "draining"
+        self.journal.note("drain", index, inflight=r.inflight)
+        deadline = time.monotonic() + self.config.cluster.drain_timeout_s
+        while r.inflight > 0 and time.monotonic() < deadline:
+            await asyncio.sleep(0.02)
+        r.state = "dead"
+        if getattr(r.engine, "state", None) in ("ready", "warming"):
+            await r.engine.aclose()
+
+    async def rejoin(self, index: int) -> None:
+        """A dead slot comes back: fresh engine, same replica config —
+        including the slot's private warm-restart snapshot path, so the
+        engine restores its manifest inside start() and is KV-warm before
+        the router sees it as a candidate."""
+        r = self._replicas[index]
+        if r.state not in ("dead",):
+            raise EngineError(f"replica {index} not rejoinable (state={r.state})")
+        self._retire(r)
+        r.engine = self._engine_factory(index, self.replica_config(index))
+        r.generation += 1
+        r.state = "warming"
+        r._startup_error = None
+        try:
+            await r.engine.start()
+        except BaseException as e:
+            r.state = "dead"
+            r._startup_error = e
+            raise
+        r.state = "ready"
+        r.stats = {}
+        self.journal.note("rejoin", index, generation=r.generation)
+        self.refresh_scoreboard()
+
+    def _retire(self, r: ReplicaHandle) -> None:
+        """Fold a dead slot's engine's launches and ledger totals into the
+        slot's before a rejoin replaces it."""
+        acc = self._retired[r.index]
+        own = getattr(r.engine, "own_launches", None)
+        if own is not None:
+            _add(acc["launches"], own())
+        totals = getattr(r.engine, "ledger_totals", None)
+        if totals is not None:
+            t = totals()
+            acc["flops"] += t["flops"]
+            acc["bytes"] += t["bytes"]
+            _add(acc["by_executable"], t["by_executable"])
+
+    async def _run_chaos(self) -> None:
+        f = self._chaos
+        try:
+            await asyncio.sleep(max(0.0, f.at_s))
+            idx = min(max(0, f.replica), len(self._replicas) - 1)
+            log.warning("chaos: killing replica %d for %.2fs", idx, f.down_s)
+            await self.kill(idx)
+            await asyncio.sleep(max(0.0, f.down_s))
+            if f.rejoin and not self._closed:
+                await self.rejoin(idx)
+                log.warning("chaos: replica %d rejoined", idx)
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 - chaos must never kill the server
+            log.exception("cluster chaos schedule failed")
+
+    # -------------------------------------------------------------- scoreboard
+    def refresh_scoreboard(self) -> None:
+        """Pull per-replica health OFF the request path: queue_stats snapshots
+        (GIL-atomic reads of worker-owned scalars) cached onto the handles
+        the routing policies score from."""
+        for r in self._replicas:
+            if getattr(r.engine, "state", None) == "ready":
+                try:
+                    r.stats = _scoreboard(r.engine.queue_stats())
+                    r.stats_at = time.monotonic()
+                except Exception:  # noqa: BLE001 - a dying replica's stats
+                    log.debug("scoreboard refresh failed for replica %d", r.index)
+            self._rings[r.index].append(r)
+        self.update_gauges()
+
+    async def run_scoreboard(self) -> None:
+        """Background refresh loop (started from the app's on_startup,
+        cancelled at cleanup — same ownership as the flight recorder)."""
+        interval = self.config.cluster.scoreboard_interval_s
+        while True:
+            await asyncio.sleep(interval)
+            if self._closed:
+                return
+            self.refresh_scoreboard()
+
+    def replica_skew(self) -> float:
+        """Hot-replica signal for the flight recorder: max over mean queue
+        load across routable replicas (1.0 = perfectly balanced, 0.0 while
+        fewer than two replicas serve)."""
+        loads = [
+            int(r.stats.get("depth", 0)) + int(r.stats.get("active", 0)) + r.inflight
+            for r in self._replicas
+            if r.routable
+        ]
+        if len(loads) < 2:
+            return 0.0
+        mean = sum(loads) / len(loads)
+        if mean <= 0:
+            return 1.0 if max(loads) == 0 else float(max(loads))
+        return max(loads) / mean
+
+    def scoreboard_snapshot(self) -> dict:
+        rows = [r.snapshot() for r in self._replicas]
+        return {
+            "enabled": True,
+            "replicas": rows,
+            "ready": sum(1 for r in self._replicas if r.routable),
+            "total": len(self._replicas),
+            "skew": self.replica_skew(),
+            "resteers": self.resteers,
+            "policies": [p.name for p in self._pipeline.policies],
+            "last_decision": self._pipeline.last_decision,
+            # The rings: recent routing decisions (each with the
+            # requesting trace_id) + the failover journal tail.
+            "decisions": self._pipeline.recent_decisions(),
+            "journal": self.journal.tail(64),
+            "journal_counts": dict(self.journal.counts),
+        }
+
+    def journal_counts(self) -> dict[str, int]:
+        """Cumulative decision-outcome counts (routed / affinity_hit /
+        degraded_route / resteer / ...) — the flight recorder deltas
+        consecutive samples into its window-delta cluster signals."""
+        return dict(self.journal.counts)
+
+    def attribution(self) -> dict:
+        """Per-replica decision attribution for anomaly bundles: which
+        decisions put load where. Each replica row carries its lifetime
+        route/affinity/resteer counts, how many of the RECENT routing
+        decisions (the pipeline ring) picked it — with the trace ids to
+        chase — which policy won those placements, and its signal-ring
+        tail; the journal tail replays the failover timeline."""
+        recent = self._pipeline.recent_decisions()
+        per: dict[str, dict] = {}
+        for r in self._replicas:
+            mine = [d for d in recent if d.get("replica") == r.index]
+            winners: dict[str, int] = {}
+            for d in mine:
+                pw = d.get("policy_winner") or ""
+                if pw:
+                    winners[pw] = winners.get(pw, 0) + 1
+            per[str(r.index)] = {
+                "state": r.state,
+                "routed": r.routed,
+                "affinity_hits": r.affinity_hits,
+                "resteered_away": r.resteered_away,
+                "inflight": r.inflight,
+                "recent_decisions": len(mine),
+                "policy_winners": winners,
+                "recent_trace_ids": [
+                    d["trace_id"] for d in mine if d.get("trace_id")
+                ][-8:],
+                "signals": self._rings[r.index].tail(16),
+            }
+        return {
+            "replicas": per,
+            "journal": self.journal.tail(64),
+            "journal_counts": dict(self.journal.counts),
+        }
+
+    def update_gauges(self) -> None:
+        m = self._metrics
+        if m is None or getattr(m, "cluster_replica_depth", None) is None:
+            return
+        ready = 0
+        for r in self._replicas:
+            lbl = str(r.index)
+            st = r.stats
+            m.cluster_replica_depth.labels(replica=lbl).set(
+                int(st.get("depth", 0)) + r.inflight
+            )
+            m.cluster_replica_eta.labels(replica=lbl).set(float(st.get("eta_s", 0.0)))
+            m.cluster_replica_state.labels(replica=lbl).set(
+                {"dead": 0, "spawning": 1, "warming": 1, "draining": 2, "ready": 3}.get(
+                    r.state, 0
+                )
+            )
+            if r.routable:
+                ready += 1
+        m.cluster_replicas_ready.set(ready)
+        m.cluster_replica_skew.set(self.replica_skew())

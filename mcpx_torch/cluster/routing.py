@@ -1,0 +1,350 @@
+"""Scored routing pipeline: every grant picks one replica.
+
+A copy of ``mcpx/cluster/routing.py`` for the port: the same policies,
+scores, tie rules, decision ring and ``route`` provenance records.
+
+Policies are additive scorers over the routable candidate set — each
+returns a per-replica contribution in SECONDS-equivalent units (the
+queue/ETA baseline literally is seconds; bonuses are calibrated against
+it), the pipeline sums them and the max wins, ties broken by lowest
+replica index so routing is deterministic under equal load.
+
+Three production policies compose the default pipeline:
+
+- ``QueueDepthPolicy`` — the baseline: prefer the replica a request
+  would finish soonest on (negated queue ETA, depth as a micro-tiebreak).
+- ``PrefixAffinityPolicy`` — rendezvous (highest-random-weight) hash
+  over the page-aligned radix prefix of the rendered prompt ids, so
+  repeat traffic lands on the replica whose tree already holds its KV.
+  HRW means a dead replica only moves ITS keys (to their second choice);
+  everyone else's placement is untouched. Grammar-slot residency breaks
+  near-ties, and a load-imbalance escape hatch drops the bonus when the
+  preferred replica's queue is ``imbalance_ratio`` x deeper than the
+  emptiest candidate's.
+- ``CostBurnPolicy`` — reads the per-tenant ledger + SLO budget state:
+  a fast-burning tenant is steered toward the pool's most degraded
+  routable replica (deepest queue / worst error rate), protecting the
+  healthy replicas for budget-healthy traffic before queues feel it.
+
+``RoundRobinPolicy`` exists for the bench A/B (routed vs round-robin
+prefix hit rate) and as a null hypothesis in tests.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
+
+from mcpx_torch.cluster.replica import ReplicaHandle
+from mcpx_torch.telemetry import provenance, tracing
+from mcpx_torch.utils.ownership import owned_by
+
+
+@dataclass
+class RouteRequest:
+    """What a routing decision may look at (all optional but prompt_ids)."""
+
+    prompt_ids: Sequence[int] = field(default_factory=tuple)
+    grammar_key: Optional[int] = None
+    tenant: str = "default"
+
+
+def affinity_key(
+    prompt_ids: Sequence[int], *, prefix_tokens: int, page_size: int
+) -> bytes:
+    """Stable affinity key: the leading prompt ids truncated DOWN to a
+    KV-page boundary (the radix tree shares whole pages, so two prompts
+    differing only inside the last partial page hash identically)."""
+    k = min(len(prompt_ids), max(1, prefix_tokens))
+    aligned = (k // max(1, page_size)) * max(1, page_size)
+    if aligned > 0:
+        k = aligned
+    ids = tuple(prompt_ids[:k])
+    return hashlib.blake2b(
+        b",".join(str(i).encode() for i in ids), digest_size=16
+    ).digest()
+
+
+def rendezvous_choice(key: bytes, candidates: Sequence[ReplicaHandle]) -> ReplicaHandle:
+    """Highest-random-weight choice: hash(key, replica index), max wins."""
+    best, best_w = candidates[0], -1
+    for r in candidates:
+        w = int.from_bytes(
+            hashlib.blake2b(
+                key + b"|%d" % r.index, digest_size=8
+            ).digest(),
+            "big",
+        )
+        if w > best_w or (w == best_w and r.index < best.index):
+            best, best_w = r, w
+    return best
+
+
+class QueueDepthPolicy:
+    name = "queue"
+
+    def score(
+        self, req: RouteRequest, candidates: Sequence[ReplicaHandle]
+    ) -> dict[int, float]:
+        out = {}
+        for r in candidates:
+            st = r.stats
+            # Pool-side inflight covers the window between routing and the
+            # engine's own queue seeing the request (the scoreboard snapshot
+            # is refreshed off-path and can be a beat stale).
+            depth = int(st.get("depth", 0)) + int(st.get("active", 0)) + r.inflight
+            out[r.index] = -float(st.get("eta_s", 0.0)) - 0.001 * depth
+        return out
+
+
+@owned_by("event_loop")
+class PrefixAffinityPolicy:
+    name = "affinity"
+
+    def __init__(
+        self,
+        *,
+        prefix_tokens: int,
+        page_size: int,
+        weight: float = 1.0,
+        imbalance_ratio: float = 4.0,
+    ) -> None:
+        self.prefix_tokens = prefix_tokens
+        self.page_size = page_size
+        self.weight = weight
+        self.imbalance_ratio = imbalance_ratio
+        # Exposed for the pool's affinity-hit accounting: the replica this
+        # policy preferred on the LAST score() call (None = hatch fired).
+        self.last_preferred: Optional[int] = None  # mcpx: owner[event_loop]
+
+    @owned_by("event_loop")
+    def score(
+        self, req: RouteRequest, candidates: Sequence[ReplicaHandle]
+    ) -> dict[int, float]:
+        self.last_preferred = None
+        out = {r.index: 0.0 for r in candidates}
+        if not req.prompt_ids or self.weight <= 0:
+            return out
+        key = affinity_key(
+            req.prompt_ids,
+            prefix_tokens=self.prefix_tokens,
+            page_size=self.page_size,
+        )
+        target = rendezvous_choice(key, candidates)
+        depths = {
+            r.index: int(r.stats.get("depth", 0)) + r.inflight for r in candidates
+        }
+        # Load-imbalance escape hatch: a hot shard must not pile onto one
+        # replica while others idle — past the ratio the KV reuse is worth
+        # less than the queueing it buys, so the bonus is dropped and the
+        # queue baseline spreads the overflow.
+        if depths[target.index] > self.imbalance_ratio * (min(depths.values()) + 1):
+            return out
+        self.last_preferred = target.index
+        # Bonus in ETA-units: one mean service interval (floored so cold
+        # scoreboards still steer) — approximately what a full-prefix KV
+        # hit saves versus re-prefilling on a cold replica.
+        svc = [float(r.stats.get("service_ewma_s", 0.0)) for r in candidates]
+        bonus = self.weight * max(0.05, sum(svc) / max(1, len(svc)))
+        out[target.index] += bonus
+        # Grammar-slot residency as tiebreak only (epsilon-scale): between
+        # near-equal candidates, prefer one already holding the DFA slot.
+        for r in candidates:
+            if r.holds_grammar(req.grammar_key):
+                out[r.index] += 0.001
+        return out
+
+
+@owned_by("event_loop")
+class CostBurnPolicy:
+    name = "burn"
+
+    def __init__(self, *, slo=None, ledger=None, weight: float = 2.0) -> None:
+        self.slo = slo
+        self.ledger = ledger
+        self.weight = weight
+
+    def _burning(self, tenant: str) -> bool:
+        if self.slo is None:
+            return False
+        try:
+            thr = float(getattr(self.slo, "fast_burn_threshold", 0.0))
+            if self.slo.fast_burn(tenant=tenant) >= thr > 0:
+                return True
+        except Exception:  # mcpx: ignore[broad-except] - a broken burn read must never fail routing; the policy abstains
+            return False
+        return False
+
+    def _top_spender(self, tenant: str) -> bool:
+        """Ledger check: is this tenant the pool's dominant spender? Burn
+        alone can blame a tenant for platform-wide slowness; spend share
+        confirms the traffic is actually theirs."""
+        if self.ledger is None:
+            return True  # no ledger -> burn signal stands alone
+        try:
+            snap = self.ledger.snapshot()
+            tenants = snap.get("tenants", {})
+            mine = tenants.get(tenant, {}).get("decode_tokens", 0)
+            total = sum(t.get("decode_tokens", 0) for t in tenants.values())
+            return total <= 0 or mine * 2 >= total / max(1, len(tenants))
+        except Exception:  # mcpx: ignore[broad-except] - a broken ledger read must never fail routing; burn signal stands alone
+            return True
+
+    def score(
+        self, req: RouteRequest, candidates: Sequence[ReplicaHandle]
+    ) -> dict[int, float]:
+        out = {r.index: 0.0 for r in candidates}
+        if len(candidates) < 2 or not self._burning(req.tenant):
+            return out
+        if not self._top_spender(req.tenant):
+            return out
+        # Degradation rank: deepest queue + worst error window. If the pool
+        # is perfectly healthy (all equal) there is no degraded tail to
+        # steer toward and the policy stays out of the decision.
+        def rank(r: ReplicaHandle) -> float:
+            return (
+                10.0 * r.error_rate()
+                + int(r.stats.get("depth", 0))
+                + r.inflight
+            )
+
+        ranks = {r.index: rank(r) for r in candidates}
+        worst = max(ranks.values())
+        if worst <= min(ranks.values()):
+            return out
+        for r in candidates:
+            if ranks[r.index] >= worst:
+                out[r.index] += self.weight
+        return out
+
+
+@owned_by("event_loop")
+class RoundRobinPolicy:
+    """Null-hypothesis router for the bench A/B: ignores everything and
+    rotates. Strong enough (weight >> baseline) to dominate the pipeline
+    when used alone with QueueDepthPolicy absent."""
+
+    name = "round_robin"
+
+    def __init__(self) -> None:
+        self._next = 0  # mcpx: owner[event_loop]
+
+    @owned_by("event_loop")
+    def score(
+        self, req: RouteRequest, candidates: Sequence[ReplicaHandle]
+    ) -> dict[int, float]:
+        chosen = candidates[self._next % len(candidates)].index
+        self._next += 1
+        return {r.index: (1000.0 if r.index == chosen else 0.0) for r in candidates}
+
+
+@owned_by("event_loop")
+class RoutingPipeline:
+    """Routing is loop-confined like the pool that drives it: ``route``
+    runs inside ``EnginePool.generate`` (a coroutine) and mutates policy
+    state (round-robin cursors, affinity last-preferred, the last-decision
+    echo) without locks. The method-level marks assert the loop domain at
+    the unresolved ``p.score(...)`` dispatch boundary."""
+
+    def __init__(self, policies: Sequence[Any], *, ring_size: int = 128) -> None:
+        self.policies = list(policies)
+        # Recent decisions, newest last, for GET /cluster ("why did this
+        # land there"): a ring, so more than the newest request in the pool
+        # is explainable. Each entry carries the requesting trace_id so
+        # routing and tracing cross-reference.
+        self.decisions: "collections.deque[dict]" = collections.deque(  # mcpx: owner[event_loop]
+            maxlen=max(1, int(ring_size))
+        )
+
+    @property
+    def last_decision(self) -> dict[str, Any]:
+        """Newest decision (back-compat for the pre-ring readers)."""
+        return self.decisions[-1] if self.decisions else {}
+
+    @owned_by("event_loop")
+    def route(
+        self, req: RouteRequest, candidates: Sequence[ReplicaHandle]
+    ) -> Optional[ReplicaHandle]:
+        if not candidates:
+            return None
+        scores = {r.index: 0.0 for r in candidates}
+        contributions: dict[str, dict[int, float]] = {}
+        for p in self.policies:
+            contrib = p.score(req, candidates)
+            contributions[p.name] = contrib
+            for idx, s in contrib.items():
+                scores[idx] += s
+        winner = min(
+            candidates, key=lambda r: (-scores[r.index], r.index)
+        )
+        # Attribution: the policy contributing most to the winner's score
+        # (ties break by pipeline order — the baseline wins a dead heat).
+        policy_winner = max(
+            contributions,
+            key=lambda name: contributions[name].get(winner.index, 0.0),
+        ) if contributions else ""
+        decision = {
+            "ts": round(time.time(), 3),
+            "replica": winner.index,
+            "policy_winner": policy_winner,
+            "trace_id": tracing.current_trace_id() or "",
+            "scores": {str(k): round(v, 6) for k, v in scores.items()},
+            "policies": {
+                name: {str(k): round(v, 6) for k, v in c.items()}
+                for name, c in contributions.items()
+            },
+        }
+        self.decisions.append(decision)
+        if provenance.active():
+            provenance.emit(
+                "route",
+                f"routed to replica {winner.index}",
+                alternatives=[
+                    f"replica {r.index}" for r in candidates
+                    if r.index != winner.index
+                ],
+                contributions={
+                    name: round(c.get(winner.index, 0.0), 6)
+                    for name, c in contributions.items()
+                },
+                signals={
+                    str(r.index): round(scores[r.index], 6) for r in candidates
+                },
+                policy_winner=policy_winner,
+            )
+        return winner
+
+    def recent_decisions(self) -> list[dict]:
+        """The ring, oldest first (GET /cluster)."""
+        return list(self.decisions)
+
+    @property
+    def affinity(self) -> Optional[PrefixAffinityPolicy]:
+        for p in self.policies:
+            if isinstance(p, PrefixAffinityPolicy):
+                return p
+        return None
+
+
+def build_pipeline(config, *, slo=None, ledger=None) -> RoutingPipeline:
+    """Default pipeline from MCPXConfig: queue baseline always; affinity
+    and burn-aware placement behind their knobs."""
+    cl = config.cluster
+    policies: list[Any] = [QueueDepthPolicy()]
+    if cl.affinity:
+        policies.append(
+            PrefixAffinityPolicy(
+                prefix_tokens=cl.affinity_prefix_tokens,
+                page_size=config.engine.kv_page_size,
+                weight=cl.affinity_weight,
+                imbalance_ratio=cl.imbalance_ratio,
+            )
+        )
+    if cl.burn_aware:
+        policies.append(CostBurnPolicy(slo=slo, ledger=ledger))
+    return RoutingPipeline(
+        policies, ring_size=config.telemetry.provenance.route_ring
+    )

@@ -10,10 +10,10 @@ application factory, never at import.
 A copy of the reference package's config tree, so the same dicts load in
 both packages. The port reads what its slices serve (the HTTP server, the
 engine, the planner, the scheduler, resilience and telemetry, its
-default-off parts included); the factory refuses by name the options of
-parts not ported yet (``cluster.enabled``, ``cluster.shard_registry``,
-``retrieval.snapshot_path``), and fields the port has no use for (the
-mesh, ``use_pallas`` and ``interpret``: the tensor's device picks the
+default-off parts included, retrieval and the cluster layer); the engine
+refuses by name the one option of a part not ported yet
+(``engine.ring_prefill_min_tokens``), and fields the port has no use for
+(the mesh, ``use_pallas`` and ``interpret``: the tensor's device picks the
 attention route) are accepted and ignored.
 """
 

@@ -147,6 +147,7 @@ from mcpx_torch.core.errors import EngineError
 from mcpx_torch.device import resolve_device
 from mcpx_torch.engine.kernels.paged_attention import (
     captured_launches,
+    count_into,
     count_replay,
     hold_tickets,
     kernel_launches,
@@ -195,6 +196,34 @@ from mcpx_torch.telemetry.flight import WorkerProfiler
 from mcpx_torch.telemetry.metrics import Metrics
 
 log = logging.getLogger("mcpx_torch.engine")
+
+# One engine's device work at a time in the process. Engines in one process
+# (a replica pool) each run a worker thread; every worker iteration's device
+# work, its setup and shutdown, and every CUDA-graph capture hold this lock.
+# The card runs their kernels on one stream in turn anyway; the lock keeps
+# two threads out of PyTorch's and cuBLAS's host-side launch paths at once,
+# which corrupted device memory at the 2b width on an H100 (an illegal
+# memory access or a device-side assert), and makes a capture's launch
+# record hold that capture's launches alone. Re-entrant: a capture happens
+# inside an iteration.
+DEVICE_LOCK = threading.RLock()
+
+# Capturing streams of closed engines, for the next engines to take: PyTorch
+# keeps a 32 MiB cuBLAS workspace for every (handle, stream) a thread has run
+# a product on, so a new stream for every engine (a pool's every rejoin)
+# would add one each time.
+_SPARE_STREAMS: list = []
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The most recently closed engine's capturing stream on ``device``, or
+    a new one."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with DEVICE_LOCK:
+        for i in reversed(range(len(_SPARE_STREAMS))):
+            if _SPARE_STREAMS[i].device.index == index:
+                return _SPARE_STREAMS.pop(i)
+    return torch.cuda.Stream(device)
 
 
 @dataclasses.dataclass
@@ -660,6 +689,10 @@ class InferenceEngine:
         self._graphs: dict[tuple, "torch.cuda.CUDAGraph"] = {}
         self._graph_launches: dict[tuple, dict[str, int]] = {}
         self._captures: dict[tuple, int] = {}
+        # The kernel launches this engine's worker thread made, replays
+        # included (``own_launches``): the process-wide counts less other
+        # engines'.
+        self._launches: dict[str, int] = dict.fromkeys(kernel_launches(), 0)
         self._capture_stream = None
         self._graph_pool = None
         self._tickets_held = False
@@ -847,10 +880,23 @@ class InferenceEngine:
                 # no pinned buffer outlives the engine.
                 tier.reset()
                 self._readmit_holds.clear()
+            # Nothing of the engine stays on the card, even while a
+            # reference to the closed engine lives on (a replica pool's
+            # killed slot): weights, pools, slab, grammar tables, masks,
+            # generator, flag ring, capturing stream and graph pool.
             self._params = None
             self._paged_kv = None
             self._slab = None
             self._tables.clear()
+            self._stacks.clear()
+            self._unconstrained_mask = self._draft_free_mask = None
+            self._generator = None
+            self._flag_host = self._flag_np = None
+            self._flag_events = []
+            if self._capture_stream is not None:
+                with DEVICE_LOCK:
+                    _SPARE_STREAMS.append(self._capture_stream)
+            self._capture_stream = self._graph_pool = None
             if tier is not None:
                 # The tree's spilled nodes lost their runs with the reset.
                 self._prefix_cache.drop_all()
@@ -990,6 +1036,12 @@ class InferenceEngine:
         """Launches of each CUDA kernel in this process (the wrappers' own
         counters; CPU runs take the plain versions and count nothing)."""
         return kernel_launches()
+
+    def own_launches(self) -> dict[str, int]:
+        """Launches of each CUDA kernel made by this engine's worker thread,
+        the replays of its graphs included; over engines that share the
+        process they add up to ``kernel_launches()``."""
+        return dict(self._launches)
 
     def kernel_paths(self) -> dict:
         """Per-path engagement of the ragged CUDA kernel, in the shape of
@@ -1343,7 +1395,7 @@ class InferenceEngine:
             if ecfg.kv_tier.snapshot_path:
                 self._load_snapshot()
         if cuda:
-            self._capture_stream = torch.cuda.Stream(self.device)
+            self._capture_stream = _capture_stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
             if ecfg.warmup_compile:
                 self._warm_windows()
@@ -1368,8 +1420,9 @@ class InferenceEngine:
             self._capture(key, lambda: self._window(slab, key, dfa), serving=False)
 
     def _worker(self) -> None:
+        count_into(self._launches)
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), DEVICE_LOCK:
                 self._setup()
         except BaseException as e:  # surfaced by start()
             self._startup_error = e
@@ -1401,49 +1454,51 @@ class InferenceEngine:
                     prof.lap("drain")
                 if self._stop:
                     break
-                self._refresh_queue_gauges(pending)
-                if self._spill_tier is not None:
-                    # Complete the spill copies that have landed, and
-                    # release finished readmits' sources (event queries,
-                    # never a wait).
+                with DEVICE_LOCK:
+                    self._refresh_queue_gauges(pending)
+                    if self._spill_tier is not None:
+                        # Complete the spill copies that have landed, and
+                        # release finished readmits' sources (event queries,
+                        # never a wait).
+                        if prof is not None:
+                            prof.lap("host_bookkeeping")
+                        self._spill_tier.poll()
+                        self._prune_readmit_holds()
+                        if prof is not None:
+                            prof.lap("spill_copy")
+                    self._reap_cancelled(slab)
                     if prof is not None:
                         prof.lap("host_bookkeeping")
-                    self._spill_tier.poll()
-                    self._prune_readmit_holds()
-                    if prof is not None:
-                        prof.lap("spill_copy")
-                self._reap_cancelled(slab)
-                if prof is not None:
-                    prof.lap("host_bookkeeping")
-                try:
-                    if pending and slab.n_active < slab.B:
-                        self._admit(slab, pending)
-                        if prof is not None:
-                            prof.lap("admit")
-                    if slab.n_active:
-                        # Dispatch first, then harvest a lagged segment: its
-                        # wait overlaps the segment just enqueued.
-                        self._dispatch_segment(slab)
-                        if prof is not None:
-                            prof.lap("dispatch_submit")
-                        self._harvest(slab, keep_inflight=max(0, self.config.engine.pipeline_depth - 1))
-                        if prof is not None:
-                            prof.lap("harvest")
-                    elif self._inflight:
-                        # Nothing resident by the host's view: drain what is
-                        # in flight, so that blocking on the queue is safe.
-                        self._harvest(slab, keep_inflight=0)
-                        if prof is not None:
-                            prof.lap("harvest")
-                except BaseException as e:  # keep the worker alive
-                    log.exception("engine step failed; failing resident rows")
-                    self._inflight.clear()
-                    failed = self._release_rows(slab)
-                    # The pools may hold partial writes: serve no cached KV.
-                    # Every state change is made before a caller hears of it.
-                    self._drop_tree_after_failure()
-                    _fail(failed, e)
-            self._shutdown(slab, pending)
+                    try:
+                        if pending and slab.n_active < slab.B:
+                            self._admit(slab, pending)
+                            if prof is not None:
+                                prof.lap("admit")
+                        if slab.n_active:
+                            # Dispatch first, then harvest a lagged segment: its
+                            # wait overlaps the segment just enqueued.
+                            self._dispatch_segment(slab)
+                            if prof is not None:
+                                prof.lap("dispatch_submit")
+                            self._harvest(slab, keep_inflight=max(0, self.config.engine.pipeline_depth - 1))
+                            if prof is not None:
+                                prof.lap("harvest")
+                        elif self._inflight:
+                            # Nothing resident by the host's view: drain what is
+                            # in flight, so that blocking on the queue is safe.
+                            self._harvest(slab, keep_inflight=0)
+                            if prof is not None:
+                                prof.lap("harvest")
+                    except BaseException as e:  # keep the worker alive
+                        log.exception("engine step failed; failing resident rows")
+                        self._inflight.clear()
+                        failed = self._release_rows(slab)
+                        # The pools may hold partial writes: serve no cached KV.
+                        # Every state change is made before a caller hears of it.
+                        self._drop_tree_after_failure()
+                        _fail(failed, e)
+            with DEVICE_LOCK:
+                self._shutdown(slab, pending)
 
     def _drop_tree_after_failure(self) -> None:
         """After a failed device step: the pools may hold partial writes, so
@@ -2705,37 +2760,40 @@ class InferenceEngine:
         a buffer that a later launch replaces. A sampled window's graph has
         the engine's generator registered, so each replay draws anew; so has
         every heterogeneous window's, whose temperature is per-row data. A
-        failed capture raises EngineError; there is no eager retry."""
-        stream = self._capture_stream
-        main = torch.cuda.current_stream(self.device)
-        stream.wait_stream(main)
-        try:
-            with torch.cuda.stream(stream):
-                if not self._tickets_held:
-                    cfg = self.model_cfg
-                    widest = max(self._spec_chunk(True), self.config.engine.speculative.k + 1)
-                    hold_tickets(
-                        self.device, stream.cuda_stream,
-                        ticket_count(self._slab.B, widest, cfg.n_kv_heads, cfg.q_per_kv),
-                    )
-                    self._tickets_held = True
-                fn()
-            graph = torch.cuda.CUDAGraph()
-            if key[1][0] in ("sampled", "rows"):
-                graph.register_generator_state(self._generator)
-            before = captured_launches()
-            with torch.cuda.graph(
-                graph, pool=self._graph_pool, stream=stream, capture_error_mode="thread_local"
-            ):
-                fn()
-        except Exception as e:
-            raise EngineError(f"capture of the decode window {key} failed: {e}") from e
-        finally:
-            main.wait_stream(stream)
-        self._graphs[key] = graph
-        self._graph_launches[key] = {k: n - before[k] for k, n in captured_launches().items()}
-        self._captures[key] = self._captures.get(key, 0) + 1
-        self._stats["captures" if serving else "warmup_captures"] += 1
+        failed capture raises EngineError; there is no eager retry. The
+        whole of it holds ``DEVICE_LOCK``, so the launch record holds this
+        capture's launches alone."""
+        with DEVICE_LOCK:
+            stream = self._capture_stream
+            main = torch.cuda.current_stream(self.device)
+            stream.wait_stream(main)
+            try:
+                with torch.cuda.stream(stream):
+                    if not self._tickets_held:
+                        cfg = self.model_cfg
+                        widest = max(self._spec_chunk(True), self.config.engine.speculative.k + 1)
+                        hold_tickets(
+                            self.device, stream.cuda_stream,
+                            ticket_count(self._slab.B, widest, cfg.n_kv_heads, cfg.q_per_kv),
+                        )
+                        self._tickets_held = True
+                    fn()
+                graph = torch.cuda.CUDAGraph()
+                if key[1][0] in ("sampled", "rows"):
+                    graph.register_generator_state(self._generator)
+                before = captured_launches()
+                with torch.cuda.graph(
+                    graph, pool=self._graph_pool, stream=stream, capture_error_mode="thread_local"
+                ):
+                    fn()
+            except Exception as e:
+                raise EngineError(f"capture of the decode window {key} failed: {e}") from e
+            finally:
+                main.wait_stream(stream)
+            self._graphs[key] = graph
+            self._graph_launches[key] = {k: n - before[k] for k, n in captured_launches().items()}
+            self._captures[key] = self._captures.get(key, 0) + 1
+            self._stats["captures" if serving else "warmup_captures"] += 1
 
     def _dispatch_segment(self, slab: _Slab) -> None:
         """Enqueue up to ``steps_per_dispatch`` windows over the whole slab

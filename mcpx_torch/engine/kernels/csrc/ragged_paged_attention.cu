@@ -89,6 +89,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -815,17 +816,23 @@ template <typename T, int kPairs, bool kWide>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_layout(a.trows, a.hd, a.nsplit, a.span, (int)sizeof(T)).total;
   // The attribute is set once per device and size for this instantiation
-  // (it only grows), not on every launch.
+  // (it only grows), not on every launch. Several host threads launch at
+  // once (engines in one process): the check and the set are one step, or
+  // a smaller size set last would shrink the limit a larger launch needs.
   static size_t granted[64] = {};
+  static std::mutex granting;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > granted[dev]) {
-    err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, kPairs, kWide>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    granted[dev] = smem;
+  {
+    std::lock_guard<std::mutex> hold(granting);
+    if (smem > granted[dev]) {
+      err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, kPairs, kWide>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      granted[dev] = smem;
+    }
   }
   ragged_paged_attention_kernel<T, kPairs, kWide>
       <<<dim3(B * a.K * a.ntiles, a.nsplit), kThreads, smem, stream>>>(a);

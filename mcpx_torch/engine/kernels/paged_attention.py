@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from typing import Optional
 
 import torch
 
@@ -39,30 +41,52 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 # kernel and nowhere else (the plain path never counts). A call made while
 # its stream is capturing a CUDA graph launches nothing: it adds one to
 # CAPTURED instead, and whoever replays the graph adds the launches its
-# capture recorded to LAUNCHES with ``count_replay``.
+# capture recorded to LAUNCHES with ``count_replay``. Several engines may
+# launch from their worker threads at once: the counts, the thread's own
+# count (``count_into``) and the ticket registry below change under _LOCK.
 LAUNCHES = {"ragged_paged_attention": 0}
 CAPTURED = {"ragged_paged_attention": 0}
+_LOCK = threading.Lock()
+_THREAD = threading.local()
 
 
 def kernel_launches() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _LOCK:
+        return dict(LAUNCHES)
 
 
 def reset_kernel_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def captured_launches() -> dict[str, int]:
     """Calls recorded into CUDA graphs so far, by kernel name: the
     difference across one capture is what each replay of it launches."""
-    return dict(CAPTURED)
+    with _LOCK:
+        return dict(CAPTURED)
+
+
+def count_into(counts: Optional[dict[str, int]]) -> None:
+    """Add what this thread launches from now on (replays counted here
+    included) to ``counts`` too, by kernel name; None stops it. An engine's
+    worker thread counts its own launches so."""
+    _THREAD.counts = counts
+
+
+def _count(table: dict[str, int], launches: dict[str, int]) -> None:
+    own = getattr(_THREAD, "counts", None) if table is LAUNCHES else None
+    with _LOCK:
+        for k, n in launches.items():
+            table[k] += n
+            if own is not None:
+                own[k] = own.get(k, 0) + n
 
 
 def count_replay(launches: dict[str, int]) -> None:
     """One replay of a captured graph ran ``launches`` (by kernel name)."""
-    for k, n in launches.items():
-        LAUNCHES[k] += n
+    _count(LAUNCHES, launches)
 
 
 # ---------------------------------------------------------------- plain
@@ -200,47 +224,59 @@ def ticket_count(B: int, S: int, K: int, G: int) -> int:
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The ticket buffer of ``stream``, grown to ``n`` counters if it is
+    smaller. Under _LOCK: engines on several threads share the buffer of a
+    stream they all launch on (the legacy default stream)."""
     key = (device, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        if _HELD.get(key):
-            raise EngineError(
-                f"ragged_paged_attention: this stream's ticket buffer ({0 if buf is None else buf.numel()} "
-                f"counters) is held by captured CUDA graphs and cannot grow to {n}"
-            )
-        if torch.cuda.is_current_stream_capturing():
-            # Its zeros would exist only when the graph replays.
-            raise EngineError(
-                "ragged_paged_attention: launch once on this stream, at this batch "
-                "size, before capturing it in a CUDA graph"
-            )
-        buf = torch.zeros(n, dtype=torch.int32, device=device)
-        _TICKETS[key] = buf
-    return buf
+    with _LOCK:
+        buf = _TICKETS.get(key)
+        if buf is None or buf.numel() < n:
+            if _HELD.get(key):
+                raise EngineError(
+                    f"ragged_paged_attention: this stream's ticket buffer ({0 if buf is None else buf.numel()} "
+                    f"counters) is held by captured CUDA graphs and cannot grow to {n}"
+                )
+            if torch.cuda.is_current_stream_capturing():
+                # Its zeros would exist only when the graph replays.
+                raise EngineError(
+                    "ragged_paged_attention: launch once on this stream, at this batch "
+                    "size, before capturing it in a CUDA graph"
+                )
+            buf = torch.zeros(n, dtype=torch.int32, device=device)
+            _TICKETS[key] = buf
+        return buf
 
 
 def hold_tickets(device: torch.device, stream: int, n: int) -> None:
     """Make the ticket buffer of ``stream`` at least ``n`` counters (called
     on that stream, before any capture on it) and keep it in place: a graph
     captured on the stream reads it at the address it had then."""
+    key = (device, stream)
     _tickets(device, stream, n)
-    _HELD[(device, stream)] = _HELD.get((device, stream), 0) + 1
+    with _LOCK:
+        _HELD[key] = _HELD.get(key, 0) + 1
 
 
 def release_tickets(device: torch.device, stream: int) -> None:
-    """Undo one ``hold_tickets``: the graphs that read the buffer are gone."""
+    """Undo one ``hold_tickets``: the graphs that read the buffer are gone.
+    The last release drops the buffer too (a later launch on the stream
+    makes a new one), so a closed engine's capturing stream keeps nothing
+    on the card."""
     key = (device, stream)
-    if _HELD.get(key, 0) > 1:
-        _HELD[key] -= 1
-    else:
-        _HELD.pop(key, None)
+    with _LOCK:
+        if _HELD.get(key, 0) > 1:
+            _HELD[key] -= 1
+        else:
+            _HELD.pop(key, None)
+            _TICKETS.pop(key, None)
 
 
 def ticket_counters() -> list[torch.Tensor]:
     """The kernel's ticket buffers, one per device and stream it has run on
     (the streams that capture CUDA graphs included); every entry is 0
     whenever no launch or replay is in flight."""
-    return list(_TICKETS.values())
+    with _LOCK:
+        return list(_TICKETS.values())
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int = 0):
@@ -277,15 +313,19 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     n_acc = blocks * t_rows * hd
     scratch = torch.empty(n_acc + blocks * 2 * t_rows, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # Held until the launch is enqueued: another thread may replace the
+    # stream's buffer meanwhile, and a freed buffer's memory is handed to
+    # the next allocation on the stream, which would then run before it.
+    tickets = _tickets(q.device, stream, ticket_count(B, S, K, G))
     rc = lib.mcpx_ragged_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 4 * n_acc, _tickets(q.device, stream, ticket_count(B, S, K, G)).data_ptr(),
+        scratch.data_ptr() + 4 * n_acc, tickets.data_ptr(),
         B, S, K, G, hd, L, N, psz, p_max, layer, dtype, stream,
     )
     if rc != 0:
         raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")
-    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)["ragged_paged_attention"] += 1
+    _count(CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES, {"ragged_paged_attention": 1})
     return out
 
 

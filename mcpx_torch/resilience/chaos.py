@@ -25,8 +25,8 @@ Profile schema:
         }
       },
       "default": { ... },              // faults for unmatched endpoints
-      "cluster": {                     // replica-pool faults (the cluster layer;
-                                       // parsed, read only with cluster.enabled):
+      "cluster": {                     // replica-pool faults (the cluster layer,
+                                       // read by the pool with cluster.enabled):
         "replica": 1,                  // pool slot to kill (clamped to pool)
         "at_s": 2.0,                   // kill this long after pool start
         "down_s": 3.0,                 // stay dead this long...
@@ -86,10 +86,10 @@ class EndpointFaults:
 
 @dataclass
 class ClusterFaults:
-    """Kill-a-replica / rejoin schedule for an engine pool (the cluster
-    layer, not ported: ``cluster.enabled`` is refused) — the ChaosTransport
-    never sees it; replica loss is an ENGINE fault, not a microservice
-    fault."""
+    """Kill-a-replica / rejoin schedule for an engine pool
+    (``mcpx_torch/cluster/pool.py``, with ``cluster.enabled``) — the
+    ChaosTransport never sees it; replica loss is an ENGINE fault, not a
+    microservice fault."""
 
     replica: int = 0
     at_s: float = 0.0

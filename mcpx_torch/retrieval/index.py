@@ -170,17 +170,20 @@ class RetrievalIndex:
         part = np.argpartition(scores, -k)[-k:]
         return [int(i) for i in part[np.argsort(scores[part])[::-1]]]
 
-    def _device_topk(self, q: np.ndarray, k: int) -> tuple[list[float], list[int]]:
-        """The ``k`` best rows of the device table and their scores, by score
-        descending then index ascending: ``lax.top_k``'s order, which
-        ``torch.topk`` does not promise for equal scores. ``k + 1`` are
-        taken, so a tie across the ``k``-th place shows; such a query ranks
-        the whole score vector by a stable sort instead. On CUDA the work
-        runs on the index's stream, and only its event is waited on. The
-        product is strict fp32: TF32 must be off."""
+    def _device_topk(
+        self, q: np.ndarray, k: int, table: Optional[torch.Tensor] = None
+    ) -> tuple[list[float], list[int]]:
+        """The ``k`` best rows of the device table (or of ``table``, a
+        placed part of it) and their scores, by score descending then index
+        ascending: ``lax.top_k``'s order, which ``torch.topk`` does not
+        promise for equal scores. ``k + 1`` are taken, so a tie across the
+        ``k``-th place shows; such a query ranks the whole score vector by a
+        stable sort instead. On CUDA the work runs on the index's stream,
+        and only its event is waited on. The product is strict fp32: TF32
+        must be off."""
         if torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("retrieval scores in strict fp32; torch.backends.cuda.matmul.allow_tf32 is on")
-        table = self._table
+        table = self._table if table is None else table
         cuda = table.device.type == "cuda"
         take = min(k + 1, table.shape[0])
         with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():

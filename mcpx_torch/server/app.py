@@ -25,6 +25,7 @@ same bodies, status codes and JSON errors:
                    recorder's detectors, bundle index and bundles
   GET  /usage      the cost ledger's per-tenant usage and recent bills
   GET  /slo        the SLO error budgets, global and per tenant
+  GET  /cluster    the replica pool's scoreboard, decision ring and journal
 
 The ``observability`` middleware is the reference's: a root span per
 request (W3C ``traceparent`` in and out, ``X-Trace-Id`` equal to the
@@ -43,9 +44,10 @@ parts, each read per request so it can be attached live: it activates a
 finalized onto the root span and into ``ledger.observe``), begins and ends
 a provenance trail, and feeds ``slo.observe`` (not for a 429). A disabled
 part's route answers ``{"enabled": false}`` (``/usage``, ``/slo``,
-``/debug/anomalies``) or 404 (a bundle). The mirror's sync loop and the
-flight recorder's sampling loop run from startup to cleanup. The
-reference's ``/cluster`` is not ported.
+``/debug/anomalies``, ``/cluster``) or 404 (a bundle). ``GET /cluster``
+serves the replica pool's scoreboard. The mirror's sync loop, the flight
+recorder's sampling loop and the pool's scoreboard refresh run from startup
+to cleanup.
 
 This is the one module of the port that imports aiohttp; nothing on the
 ``ControlPlane`` path imports it. Serve with ``python -m
@@ -517,6 +519,16 @@ def build_app(cp: ControlPlane) -> web.Application:
         cp.slo.update_gauges(cp.metrics)
         return web.json_response(cp.slo.status())
 
+    async def cluster_handler(request: web.Request) -> web.Response:
+        """The replica pool's scoreboard: per-replica lifecycle, depth, ETA
+        and error-rate rows, routing tallies, the recent-decision ring
+        (entries carry trace ids) and the routing and failover journal;
+        ``enabled: false`` without a pool."""
+        pool = getattr(cp, "cluster", None)
+        if pool is None:
+            return web.json_response({"enabled": False})
+        return web.json_response(pool.scoreboard_snapshot())
+
     async def costs_handler(request: web.Request) -> web.Response:
         """Cost observatory: per-executable analytic costs and compile
         counts (the capture sentinel's data), the ragged kernel's per-path
@@ -637,6 +649,7 @@ def build_app(cp: ControlPlane) -> web.Application:
     app.router.add_get("/debug/anomalies/{bundle_id}", anomaly_bundle_handler)
     app.router.add_get("/usage", usage_handler)
     app.router.add_get("/slo", slo_handler)
+    app.router.add_get("/cluster", cluster_handler)
     app.router.add_post("/profile/start", profile_start)
     app.router.add_post("/profile/stop", profile_stop)
     app.router.add_get("/cache", cache_handler)
@@ -670,6 +683,10 @@ def build_app(cp: ControlPlane) -> web.Application:
             # The flight recorder's sampling loop; its bundle writes run off
             # the loop (asyncio.to_thread).
             startup_task["flight"] = asyncio.create_task(cp.flight.run())
+        if getattr(cp, "cluster", None) is not None:
+            # The pool's scoreboard refresh: per-replica health pulled off
+            # the request path (routing scores read the cached snapshots).
+            startup_task["cluster"] = asyncio.create_task(cp.cluster.run_scoreboard())
 
     async def _stop_loop(key: str, what: str) -> None:
         task = startup_task.pop(key, None)
@@ -684,6 +701,7 @@ def build_app(cp: ControlPlane) -> web.Application:
             log.exception("%s loop died with an error", what)
 
     async def on_cleanup(app: web.Application) -> None:
+        await _stop_loop("cluster", "cluster scoreboard")
         await _stop_loop("flight", "flight recorder")
         if "mirror" in startup_task:
             await _stop_loop("mirror", "telemetry mirror")

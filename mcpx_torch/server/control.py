@@ -24,7 +24,9 @@ tracker (``slo``, ``slo.enabled``; with ``scheduler.burn_aware`` its
 burn it watches), decision provenance (``provenance``,
 ``telemetry.provenance``: the ``plan``, ``prefix`` and ``replan``
 decisions are emitted here) and the Redis telemetry mirror
-(``telemetry_mirror``, built by the factory).
+(``telemetry_mirror``, built by the factory); the replica pool
+(``cluster``: the planner's engine when it is an ``EnginePool``, None
+otherwise), whose burn-aware routing reads the ledger and the SLO tracker.
 """
 
 from __future__ import annotations
@@ -111,6 +113,14 @@ class ControlPlane:
             attach = getattr(self.scheduler, "attach_slo", None)
             if attach is not None:
                 attach(self.slo.burning)
+        # The replica pool, present iff the factory wrapped the planner's
+        # engine in an EnginePool. Its burn-aware placement reads the ledger
+        # and the SLO tracker built just above, which did not exist when the
+        # factory built the pool: they bind here.
+        engine = getattr(self.planner, "engine", None)
+        self.cluster = engine if hasattr(engine, "scoreboard_snapshot") else None
+        if self.cluster is not None:
+            self.cluster.attach_signals(slo=self.slo, ledger=self.ledger)
         # The flight recorder (None while off), after the SLO tracker: its
         # slo_burn detector watches the fast-burn signal.
         self.flight = build_flight_recorder(self)

@@ -15,11 +15,12 @@ resilience gate); the Redis telemetry mirror (``telemetry.redis_url``
 while ``telemetry.enabled``). The control plane builds its tracer from
 ``config.tracing`` and telemetry's default-off parts (the cost ledger, the
 SLO tracker, the flight recorder, decision provenance) from their options.
-The options of the reference's cluster layer, which the port does not
-serve yet (``cluster.enabled``, ``cluster.shard_registry``), raise
-``ConfigError`` naming the option.
-``device=None`` means the GPU and raises without CUDA; pass
-``device="cpu"`` for the plain PyTorch path.
+With ``cluster.enabled`` the LLM planner's engine is an ``EnginePool`` of
+``cluster.replicas`` engines on the control plane's device, which reads a
+chaos profile's ``cluster`` section; with ``cluster.shard_registry`` too the
+retrieval index is a ``ShardedRetrievalIndex`` of ``registry_shards`` (0:
+one per replica) row shards. ``device=None`` means the GPU and raises
+without CUDA; pass ``device="cpu"`` for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from typing import Optional
 
 import torch
 
+from mcpx_torch.cluster import EnginePool
+from mcpx_torch.cluster.sharding import ShardedRetrievalIndex
 from mcpx_torch.core.config import MCPXConfig
-from mcpx_torch.core.errors import ConfigError
 from mcpx_torch.device import resolve_device
 from mcpx_torch.orchestrator.executor import Orchestrator
 from mcpx_torch.orchestrator.transport import RouterTransport, Transport
@@ -51,18 +53,6 @@ from mcpx_torch.telemetry.replan import ReplanPolicy
 from mcpx_torch.telemetry.stats import TelemetryStore
 
 
-def _refuse_unserved(config: MCPXConfig) -> None:
-    """Raise for an option that asks the reference factory for a part the
-    port does not serve yet: serving without it would be another server."""
-    refused = (
-        ("cluster.enabled", config.cluster.enabled),
-        ("cluster.shard_registry", config.cluster.shard_registry),
-    )
-    for name, asked in refused:
-        if asked:
-            raise ConfigError(f"{name}: not served by the PyTorch port yet")
-
-
 def build_control_plane(
     config: Optional[MCPXConfig] = None,
     *,
@@ -74,12 +64,19 @@ def build_control_plane(
 ) -> ControlPlane:
     config = config or MCPXConfig()
     config.validate()
-    _refuse_unserved(config)
     device = resolve_device(device)
     registry = registry if registry is not None else make_registry(config.registry)
     transport = transport if transport is not None else RouterTransport()
     if retriever is None and config.retrieval.enabled:
-        retriever = RetrievalIndex(config.retrieval, device=device)
+        if config.cluster.enabled and config.cluster.shard_registry:
+            # Registry sharding: row-partitioned table, shard-local top-k
+            # merged on the host.
+            retriever = ShardedRetrievalIndex(
+                config.retrieval, n_shards=config.cluster.registry_shards or config.cluster.replicas,
+                device=device,
+            )
+        else:
+            retriever = RetrievalIndex(config.retrieval, device=device)
         if config.retrieval.snapshot_path:
             try:
                 retriever.load(config.retrieval.snapshot_path)
@@ -99,12 +96,15 @@ def build_control_plane(
             config.planner.plan_cache_redis_url, ttl_s=config.planner.plan_cache_redis_ttl_s
         )
     metrics = Metrics()
+    chaos_profile = None
     if config.resilience.chaos_profile:
         # Every service call crosses the seeded fault injector, wrapped
         # outside the resilience gate, so the same fault profile can be
         # served with resilience on and off. A profile's "cluster" section
-        # is an engine-pool fault, read only with cluster.enabled (refused).
-        transport = ChaosTransport(transport, ChaosProfile.from_file(config.resilience.chaos_profile))
+        # is not a transport fault: the engine pool reads it below (the
+        # kill-a-replica and rejoin schedule).
+        chaos_profile = ChaosProfile.from_file(config.resilience.chaos_profile)
+        transport = ChaosTransport(transport, chaos_profile)
     resilience = (
         Resilience(config.resilience, telemetry=telemetry, metrics=metrics)
         if config.resilience.enabled
@@ -122,7 +122,17 @@ def build_control_plane(
         else:  # "llm"
             from mcpx_torch.planner.llm import LLMPlanner
 
-            planner = LLMPlanner.from_config(config, retriever=retriever, metrics=metrics, device=device)
+            if config.cluster.enabled:
+                # N engine replicas behind the surface a bare engine
+                # exposes, so the scheduler, app and flight wiring below is
+                # the same.
+                pool = EnginePool(
+                    config, metrics=metrics, chaos=chaos_profile.cluster if chaos_profile else None,
+                    device=device,
+                )
+                planner = LLMPlanner(pool, config.planner)
+            else:
+                planner = LLMPlanner.from_config(config, retriever=retriever, metrics=metrics, device=device)
     scheduler = None
     if config.scheduler.enabled:
         # The engine's queue ETA floors the scheduler's own estimate; the

@@ -23,10 +23,10 @@ serving system over time:
     sync writer; atomic tmp+rename; bounded retention). A write that fails
     is logged and the sampler goes on; the recorder stays on.
 
-The reference's cluster sources (replica skew, routing-journal counts and
-the pool's scoreboard) read ``cp.cluster``, which the port does not have:
-they stay absent, as they are in the reference without a pool, and their
-detectors skip.
+With a replica pool (``cp.cluster``) the recorder samples its replica
+skew and routing-journal counts, and its bundles carry the pool's
+scoreboard and per-replica decision attribution; without one those signals
+stay absent and their detectors skip.
 
 The **decode-loop host profiler** (``WorkerProfiler``) tiles the engine
 worker thread's wall time into named phases (admit / locality-sort /
@@ -859,9 +859,9 @@ def build_flight_recorder(cp: Any) -> Optional["FlightRecorder"]:
     """Wire a FlightRecorder to a ControlPlane (None when disabled). The
     collector and bundle sources close over ``cp`` and read the same
     cross-thread-safe snapshots the HTTP observability endpoints serve:
-    the recorder adds no instrumentation to the serving path. The
-    reference's cluster sources (``cp.cluster``) have no counterpart in
-    the port and are absent, as they are there without a pool."""
+    the recorder adds no instrumentation to the serving path. The cluster
+    signals and sources read ``cp.cluster`` and are absent without a
+    pool."""
     fcfg = cp.config.telemetry.flight
     if not fcfg.enabled:
         return None
@@ -910,6 +910,20 @@ def build_flight_recorder(cp: Any) -> Optional["FlightRecorder"]:
             fb = slo.fast_burn()
             if fb is not None:
                 raw["slo_fast_burn"] = float(fb)
+        pool = getattr(cp, "cluster", None)
+        if pool is not None:
+            # Replica-pool balance: the replica_skew detector's watch — one
+            # hot replica trips a bundle carrying the scoreboard that names
+            # it.
+            raw["replica_skew"] = float(pool.replica_skew())
+            # Routing-journal counts: the cumulative decision outcomes the
+            # recorder deltas into affinity_hit_rate / resteer_rate /
+            # degraded_route_share (window-delta signals).
+            counts = pool.journal_counts()
+            raw["cluster_routed_total"] = float(counts.get("routed", 0))
+            raw["cluster_affinity_hit_total"] = float(counts.get("affinity_hit", 0))
+            raw["cluster_degraded_route_total"] = float(counts.get("degraded_route", 0))
+            raw["cluster_resteer_total"] = float(counts.get("resteer", 0))
         return raw
 
     def traces_source() -> list[dict]:
@@ -956,6 +970,15 @@ def build_flight_recorder(cp: Any) -> Optional["FlightRecorder"]:
     ledger = getattr(cp, "ledger", None)
     if ledger is not None:
         sources["usage"] = ledger.snapshot
+    pool = getattr(cp, "cluster", None)
+    if pool is not None:
+        # A replica_skew bundle names the hot replica: the scoreboard rides
+        # along (per-replica depth/ETA/error-rate/lifecycle rows), with the
+        # per-replica decision attribution: which decisions put load where
+        # (recent routing decisions and trace ids per replica, policy
+        # winners, signal-ring tails, the failover journal).
+        sources["cluster"] = pool.scoreboard_snapshot
+        sources["cluster_attribution"] = pool.attribution
     specs = _DETECTOR_SPECS
     if slo is not None:
         # The slo_burn floor follows the CONFIGURED page threshold — a

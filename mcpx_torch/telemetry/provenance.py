@@ -22,8 +22,8 @@ Canonical layers (the ``mcpx_provenance_records_total{layer}`` label set):
 
   - ``sched``       admission verdict and degradation-ladder tier
   - ``plan``        plan origin (cache, redis, LLM, shortlist)
-  - ``route``       cluster routing (no emitter in the port: it has no
-                    cluster layer)
+  - ``route``       cluster routing winner + per-policy contributions, and
+                    a resteer away from a replica that died
   - ``resilience``  breaker-open skip, hedge fire/win, budget refusal,
                     fallback rescue
   - ``replan``      replan cause and exclusions

@@ -9,8 +9,8 @@ assumptions.
 Pure in-process and lock-free under asyncio (single event loop writer).
 Peer replicas' snapshots are held SEPARATELY from local observations and
 blended call-weighted at read time, so re-importing a peer snapshot is
-idempotent. The Redis mirror that feeds them (``telemetry.redis_url``) is
-not ported yet, and the factory refuses it.
+idempotent. The Redis mirror that feeds them (``telemetry.redis_url``,
+``mcpx_torch/telemetry/mirror.py``) imports them.
 """
 
 from __future__ import annotations

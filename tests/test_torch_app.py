@@ -21,10 +21,15 @@ reference's (``mcpx.server.app``) through aiohttp's test client, on the CPU:
     governor's blocks under the reference's keys;
   - the 504 of a ``/plan`` frees the engine row the abandoned request held
     (the port of ``tests/test_server_limits.py``'s reaping test, on the
-    port's CPU engine), and the engine serves again.
+    port's CPU engine), and the engine serves again;
+  - ``/cluster``: ``{"enabled": false}`` without a pool; with one (over the
+    fake engines of ``tests/test_torch_cluster.py``) the same scoreboard as
+    the reference's, refreshed by a loop that runs from the app's startup
+    to its cleanup.
 """
 
 import asyncio
+import threading
 
 from aiohttp.test_utils import TestClient, TestServer
 
@@ -437,10 +442,16 @@ def test_costs_and_metrics_of_a_cpu_engine():
         "engine": {"max_batch_size": 2, "max_decode_len": 16, "kv_page_size": 16, "max_pages_per_seq": 16},
     })
     cp = build_control_plane(cfg, device="cpu")
+    # The app starts the engine in the background: its setup waits until the
+    # cold read is made, so the read cannot race a fast startup.
+    engine, cold_read = cp.planner.engine, threading.Event()
+    setup = engine._setup
+    engine._setup = lambda: (cold_read.wait(30), setup())
 
     async def drive(client):
         await cp.registry.put(ServiceRecord(name="svc-a", endpoint="local://svc-a"))
         cold = await (await client.get("/costs")).json()
+        cold_read.set()
         await cp.startup()
         r = await client.post("/plan", json={"intent": "do a"})
         assert r.status == 200
@@ -503,3 +514,46 @@ def test_cache_route_shows_the_tier_and_governor_blocks():
         cold["prefix_cache"]["governor"].get("default", {}).get(k, 0) for k in ("hits", "misses")
     )
     assert warm["prefix_cache"]["tier"]["host_bytes_budget"] == 8 << 20
+
+
+async def _cluster_route(ns, pkg: str):
+    from tests.test_torch_cluster import PKGS as CLUSTER, _pool, _strip
+
+    out = {}
+    cp = ns["build"](ns["Config"].from_dict({"planner": {"kind": "heuristic"}}), transport=_transport(ns))
+
+    async def get(client):
+        return (await client.get("/cluster")).status, await (await client.get("/cluster")).json()
+
+    out["disabled"] = await with_client(ns["app"](cp), get)
+    pool, _ = _pool(CLUSTER[pkg], 2)
+    await pool.start()
+    for ids in ([1, 2, 3], [4, 5], [1, 2, 3]):
+        await pool.generate(ids)
+    await pool.kill(1)
+    cp = ns["build"](ns["Config"].from_dict({"planner": {"kind": "heuristic"}}), transport=_transport(ns))
+    cp.cluster = pool
+
+    async def refreshed(client):
+        before = len(pool._rings[0].ring)
+        await asyncio.sleep(0.3)  # the loop refreshes every 0.05 s
+        status, body = await get(client)
+        return status, body, len(pool._rings[0].ring) > before
+
+    status, body, grew = await with_client(ns["app"](cp), refreshed)
+    after = len(pool._rings[0].ring)
+    await asyncio.sleep(0.15)
+    out["enabled"] = (status, _strip(body), grew, len(pool._rings[0].ring) == after)
+    await pool.aclose()
+    return out
+
+
+def test_cluster_route_matches_reference():
+    port = asyncio.run(_cluster_route(PORT, "port"))
+    ref = asyncio.run(_cluster_route(REF, "reference"))
+    assert port["disabled"] == ref["disabled"] == (200, {"enabled": False})
+    status, body, grew, stopped = port["enabled"]
+    assert status == 200 and grew and stopped
+    assert body["enabled"] is True and body["ready"] == 1 and body["total"] == 2
+    assert [e["kind"] for e in body["journal"]] == ["routed", "routed", "routed", "kill"]
+    assert port["enabled"][:2] == ref["enabled"][:2]

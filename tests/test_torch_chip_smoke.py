@@ -499,3 +499,36 @@ def test_config_surface_phases_run_on_cpu_control_planes():
     assert len(near) == 1 and not bad
     near, bad = chip_smoke.shortlist_agreement(Index([0, 2]), ["a"], 2)
     assert not near and bad[0]["max_gap"] == 1.0
+
+
+def test_cluster_phase_runs_on_cpu_control_planes():
+    """Phase 22 at a small size (the test preset, batch 8, 4 intents): the
+    single engine's burst, then the pool's phase against its plans; every
+    gate passes (the memory and launch gates read 0 on the CPU)."""
+    import asyncio
+    import random
+
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    async def single(n):
+        cp = build_control_plane(chip_smoke.config("test", chip_smoke.CKPT, 8), device="cpu")
+        records = synth_registry(1000, seed=0)
+        for rec in records:
+            await cp.registry.put(rec)
+        await cp.startup()
+        try:
+            rng = random.Random(0)
+            served = await chip_smoke.timed_plans(cp, [intent_for(records, rng) for _ in range(n)])
+        finally:
+            await cp.aclose()
+        return dict(plans_per_s=1.0, p50_ms=sorted(ms for _, ms in served)[n // 2]), [p for p, _ in served]
+
+    stats, plans = asyncio.run(single(4))
+    run = asyncio.run(chip_smoke.cluster_phase("test", chip_smoke.CKPT, 4, "cpu", stats, plans, batch=8,
+                                               device="cpu"))
+    assert run["plans_differing_from_single"] == [] and run["resteers"] >= 1
+    assert run["generations"] == [1, 1] and run["pins"] == [0, 0] and run["repeat_captures"] == [0, 0]
+    assert 0 < run["warm_prefill_tokens"] < run["warm_prompt_tokens"] and run["restored_host_pages"] > 0
+    assert {"kill", "resteer", "drain", "rejoin"} <= set(run["journal_counts"])
+    assert run["retriever"] == "ShardedRetrievalIndex" and run["shards"] == [500, 500]

@@ -10,9 +10,13 @@ The last tests hold the engine's decode window as a captured CUDA graph:
 replay against eager from one snapshot (the heterogeneous and speculative
 windows too), the ticket buffers after replays, the launch count of replays,
 a sampled window's capture, a sampled speculative window's draws from the
-registered generator, and the first-maximum tie-break on the card. The last
-holds the retrieval index's device table: its ranking against host numpy,
-exact ties, and its own stream beside a busy default stream."""
+registered generator, and the first-maximum tie-break on the card. Then
+the retrieval index's device table: its ranking against host numpy, exact
+ties, and its own stream beside a busy default stream. The last hold the
+engines of a replica pool sharing the card: two engines started together
+capture as one started alone, serving from two worker threads leaves the
+ticket buffers at 0 and their own launches add up to the process's, and a
+closed engine leaves nothing allocated."""
 
 import asyncio
 import os
@@ -573,3 +577,116 @@ def test_retrieval_table_on_the_card_ranks_as_the_host_and_keeps_its_stream(cuda
     index._device_topk(queries[0], 8)
     assert (time.perf_counter() - t) < 0.1
     torch.cuda.synchronize()
+
+
+def _pool_config(hetero: bool = False):
+    from mcpx_torch.core.config import MCPXConfig
+
+    return MCPXConfig.from_dict({
+        "model": {"size": "test", "max_seq_len": 256},
+        "engine": {
+            "max_batch_size": 8, "max_decode_len": 32, "kv_page_size": 16, "max_pages_per_seq": 16,
+            "temperature": 0.0, "warmup_compile": True, "hetero_batch": hetero,
+        },
+    })
+
+
+async def _serve_few(engine, n: int = 6):
+    tok = engine.tokenizer
+    return await asyncio.gather(*(
+        engine.generate(tok.encode(f"intent {i}: compose the services. JSON:"), max_new_tokens=24,
+                        constrained=i % 3 != 2)
+        for i in range(n)
+    ))
+
+
+def _record(engine):
+    # The capture counts and each graph's launch record, by key.
+    return engine.capture_counts(), {repr(k): dict(v) for k, v in engine._graph_launches.items()}
+
+
+@pytest.mark.cuda
+def test_engines_started_together_capture_as_one_alone(cuda):
+    """Two engines started at once (a pool's gather) capture their warm-up
+    windows from two worker threads: each one's capture counts and launch
+    records equal those of the same engine started alone."""
+    from mcpx_torch.engine.engine import InferenceEngine
+
+    async def go():
+        alone = InferenceEngine(_pool_config(), device=cuda)
+        await alone.start()
+        await _serve_few(alone)
+        want = _record(alone)
+        await alone.aclose()
+        pair = [InferenceEngine(_pool_config(), device=cuda) for _ in range(2)]
+        await asyncio.gather(*(e.start() for e in pair))
+        await asyncio.gather(*(_serve_few(e) for e in pair))
+        got = [_record(e) for e in pair]
+        await asyncio.gather(*(e.aclose() for e in pair))
+        return want, got
+
+    want, got = asyncio.run(go())
+    assert want[0] and all(sum(r.values()) > 0 for r in want[1].values())
+    assert got == [want, want]
+
+
+@pytest.mark.cuda
+def test_concurrent_serving_leaves_tickets_at_zero_and_counts_each_engine(cuda):
+    """Two engines serve at once from their worker threads, both eager
+    launches and replays on the legacy default stream: every ticket buffer
+    is back at 0, and the engines' own launches add up to the process's."""
+    from mcpx_torch.engine.engine import InferenceEngine
+
+    async def go():
+        pair = [InferenceEngine(_pool_config(hetero=h), device=cuda) for h in (False, True)]
+        await asyncio.gather(*(e.start() for e in pair))
+        n0 = tk.kernel_launches()["ragged_paged_attention"]
+        own0 = [e.own_launches()["ragged_paged_attention"] for e in pair]
+        for _ in range(3):
+            await asyncio.gather(*(_serve_few(e, 8) for e in pair))
+        torch.cuda.synchronize()
+        delta = tk.kernel_launches()["ragged_paged_attention"] - n0
+        own = [e.own_launches()["ragged_paged_attention"] - o for e, o in zip(pair, own0)]
+        left = sum(int(t.abs().sum()) for t in tk.ticket_counters())
+        await asyncio.gather(*(e.aclose() for e in pair))
+        return delta, own, left
+
+    delta, own, left = asyncio.run(go())
+    assert left == 0 and all(n > 0 for n in own) and sum(own) == delta
+
+
+@pytest.mark.cuda
+def test_a_closed_engine_leaves_nothing_allocated(cuda):
+    """With a reference to the closed engine kept (a pool's dead slot keeps
+    its engine until the rejoin), a second engine serving the same requests
+    allocates what the first did, and once it closes too the card holds
+    what it held after the first closed, within 2% of an engine's
+    footprint: nothing accumulates from one engine to the next. (The first
+    close may leave process caches an engine's thread filled, such as
+    cuBLAS's workspaces; the next engine reuses them.)"""
+    import gc
+
+    from mcpx_torch.engine.engine import InferenceEngine
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    async def run():
+        engine = InferenceEngine(_pool_config(hetero=True), device=cuda)
+        await engine.start()
+        await _serve_few(engine)
+        used = allocated()
+        await engine.aclose()
+        return engine, used
+
+    base = allocated()
+    first, used1 = asyncio.run(run())
+    after1 = allocated()
+    second, used2 = asyncio.run(run())
+    after2 = allocated()
+    footprint = used1 - after1
+    assert footprint > 0 and first.state == second.state == "closed"
+    assert abs(used2 - used1) <= 0.02 * footprint, (used1, used2)
+    assert abs(after2 - after1) <= 0.02 * footprint, (after1, after2, base)

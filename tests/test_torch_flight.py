@@ -1,7 +1,5 @@
 """The flight recorder in the port, held against the reference package on
-the CPU (the cases of the reference's ``tests/test_flight.py``; its two
-cluster cases, ``:476`` and ``:516``, need the reference's replica pool,
-which the port does not have):
+the CPU (the cases of the reference's ``tests/test_flight.py``):
 
   - ``AnomalyDetector`` on seeded synthetic series (``random.Random``):
     the same trips, states and baselines sample for sample;
@@ -17,7 +15,12 @@ which the port does not have):
     package's app; ``p99_shift`` trips at the same sample in both, the
     bundle is valid, names the slow requests' traces and is served over
     ``/debug/anomalies``; off, the recorder is absent and the routes answer
-    as the reference's; ``validate_bundle`` rejects the same payloads.
+    as the reference's; ``validate_bundle`` rejects the same payloads;
+  - the cluster: the routing journal's window deltas become the same
+    decision-outcome signals, and with a replica pool attached (over the
+    fake engines of ``tests/test_torch_cluster.py``) the recorder samples
+    its skew and journal counts and a bundle carries the same scoreboard
+    and per-replica attribution as the reference's.
 """
 
 import asyncio
@@ -425,3 +428,66 @@ def test_bundle_schema_validator_rejects_malformed(bundle):
     problems = flight.validate_bundle(bundle)
     assert problems == jflight.validate_bundle(bundle)
     assert problems
+
+
+# -------------------------------------------------------------------- cluster
+def _cluster_signals(pkg: str, tmp_path) -> list:
+    raw = {}
+    clock = {"now": 0.0}
+    rec = PKGS[pkg].flight.FlightRecorder(_flight_cfg(pkg, tmp_path), lambda: dict(raw), clock=lambda: clock["now"])
+    rec.sample()
+    # A pool appears, then a window of 100 more routes: 20 affinity hits,
+    # 30 degraded placements, 2 resteers.
+    for counts in ((100.0, 80.0, 10.0, 0.0), (200.0, 100.0, 40.0, 2.0)):
+        raw.update(zip(("cluster_routed_total", "cluster_affinity_hit_total", "cluster_degraded_route_total",
+                        "cluster_resteer_total"), counts))
+        clock["now"] += 1.0
+        rec.sample()
+    return _ring(rec), sorted(d.signal for d in rec.detectors)
+
+
+def test_recorder_derives_cluster_decision_outcome_signals(tmp_path):
+    port = _cluster_signals("port", tmp_path)
+    assert port == _cluster_signals("reference", tmp_path)
+    ring, watched = port
+    assert "affinity_hit_rate" not in ring[0]
+    assert ring[-1]["affinity_hit_rate"] == 0.2 and ring[-1]["degraded_route_share"] == 0.3
+    assert ring[-1]["resteer_rate"] == 2.0
+    assert {"affinity_hit_rate", "resteer_rate", "degraded_route_share", "replica_skew"} <= set(watched)
+
+
+async def _cluster_bundle(pkg: str, tmp_path) -> dict:
+    from tests.test_torch_cluster import PKGS as CLUSTER, _pool, _strip
+
+    p = PKGS[pkg]
+    local = p.local()
+    local.register("svc", _Svc())
+    cfg = p.config.from_dict(
+        {"telemetry": {"flight": {"enabled": True, "interval_s": 3600.0, "bundle_dir": str(tmp_path / pkg)}}}
+    )
+    cp = p.build(cfg, transport=p.router(local=local))
+    pool, _ = _pool(CLUSTER[pkg], 2)
+    await pool.start()
+    for _ in range(3):
+        await pool.generate([1, 2, 3])
+    await pool.kill(1)
+    cp.cluster = pool
+    fl = p.flight.build_flight_recorder(cp)
+    fl.sample()
+    bundle = fl._assemble({"detector": "replica_skew", "signal": "replica_skew", "direction": "high",
+                           "value": 3.0, "mean": 1.0, "band": 0.2})
+    await pool.aclose()
+    return _strip({
+        "signals": _ring(fl)[-1], "attribution": bundle["cluster_attribution"], "cluster": bundle["cluster"],
+        "problems": p.flight.validate_bundle(bundle),
+    })
+
+
+def test_bundle_carries_cluster_attribution(tmp_path):
+    port = asyncio.run(_cluster_bundle("port", tmp_path))
+    assert port == asyncio.run(_cluster_bundle("reference", tmp_path))
+    attr = port["attribution"]
+    assert set(attr["replicas"]) == {"0", "1"} and sum(r["routed"] for r in attr["replicas"].values()) == 3
+    assert attr["journal_counts"]["kill"] == 1 and any(e["kind"] == "kill" for e in attr["journal"])
+    assert "journal_counts" in port["cluster"] and port["problems"] == []
+    assert "replica_skew" in port["signals"]

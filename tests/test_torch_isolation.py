@@ -1,7 +1,7 @@
 """The port stands alone: nothing in ``mcpx_torch``, ``chip_smoke.py`` or
 ``kernel_ab.py`` imports JAX or the reference package, the package imports and builds a CPU
 control plane with both blocked, and its entry points never drop to the CPU
-on their own. The GPU machine has no aiohttp, prometheus_client or redis:
+on their own (a replica pool's engines neither). The GPU machine has no aiohttp, prometheus_client or redis:
 only ``mcpx_torch.server.app`` imports aiohttp at module level (the HTTP
 transport imports it inside its methods, the Redis plan cache imports redis
 at its first use), nothing imports prometheus_client (the port's metrics are
@@ -19,6 +19,7 @@ import sys
 import pytest
 import torch
 
+from mcpx_torch.cluster import EnginePool
 from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.engine.engine import InferenceEngine
@@ -41,7 +42,7 @@ def _forbidden(module: str) -> bool:
 
 def test_walk_covers_every_module_of_the_port():
     """The walk sees every module, the int8, scheduler, resilience,
-    default-off telemetry and config-surface ones among them."""
+    default-off telemetry, config-surface and cluster ones among them."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in (
         "models/gemma/quant.py", "scheduler/admission.py", "scheduler/fairness.py",
@@ -50,7 +51,8 @@ def test_walk_covers_every_module_of_the_port():
         "telemetry/ledger.py", "telemetry/slo.py", "telemetry/provenance.py", "telemetry/flight.py",
         "telemetry/mirror.py", "utils/redis_client.py", "planner/mock.py", "registry/file.py",
         "registry/redis_backend.py", "models/sp_model.py", "ops/__init__.py", "cli/__init__.py",
-        "cli/__main__.py", "cli/main.py",
+        "cli/__main__.py", "cli/main.py", "cluster/__init__.py", "cluster/pool.py", "cluster/replica.py",
+        "cluster/routing.py", "cluster/sharding.py",
     ):
         assert f"mcpx_torch/{module}" in rel, module
 
@@ -84,6 +86,10 @@ from mcpx_torch.server.factory import build_control_plane
 cfg = MCPXConfig.from_dict({{"planner": {{"kind": "llm"}}, "model": {{"vocab": "bpe"}}}})
 cp = build_control_plane(cfg, device="cpu")
 assert cp.planner.engine.device.type == "cpu"
+cfg = MCPXConfig.from_dict({{"planner": {{"kind": "llm"}}, "model": {{"vocab": "bpe"}},
+                            "cluster": {{"enabled": True, "shard_registry": True}}}})
+cp = build_control_plane(cfg, device="cpu")
+assert cp.cluster.device.type == "cpu" and cp.retriever.n_shards == 2
 assert not any(
     k in ("jax", "prometheus_client") or k.startswith(("jax.", "mcpx.", "prometheus_client."))
     for k in sys.modules if sys.modules[k]
@@ -104,6 +110,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         build_control_plane(cfg)
     with pytest.raises(EngineError, match="CUDA is not available"):
         InferenceEngine(cfg)
+    cfg.cluster.enabled = True
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        build_control_plane(cfg)
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        EnginePool(cfg)
     with pytest.raises(EngineError, match="CUDA is not available"):
         build_control_plane(MCPXConfig.from_dict({"planner": {"kind": "heuristic"}}))
 

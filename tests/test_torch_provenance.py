@@ -1,6 +1,5 @@
 """Decision provenance in the port, held against the reference package on
-the CPU (the cases of the reference's ``tests/test_provenance.py``, the
-cluster routing leg left out: the port has no cluster layer):
+the CPU (the cases of the reference's ``tests/test_provenance.py``):
 
   - ``emit`` needs a trail and a span, the per-trace cap drops and says so,
     an empty trail explains honestly, ``validate_explanation`` rejects the
@@ -11,7 +10,10 @@ cluster routing leg left out: the port has no cluster layer):
     ``/execute`` (a fallback that rescued a node) and
     ``/plan_and_execute`` (a breaker opening inside the attempt chain,
     then a replan around it) are equal field by field in both packages,
-    apart from times and ids, narratives included;
+    apart from times and ids, narratives included; and the chaos case's
+    routing leg: on a replica pool whose first generate kills its replica,
+    the route, the resteer and the re-route lead the same trail, the
+    decision ring and the failover journal name the request's trace;
   - off is a pass-through: no recorder, the same response, and the span
     tree with provenance on less its ``decision.*`` spans; tail sampling
     keeps the trail of a timed-out request.
@@ -414,3 +416,118 @@ def test_tail_sampling_keeps_decision_trail_on_error():
     assert port == asyncio.run(_timed_out("reference"))
     unsampled, problems, error, layers = port
     assert unsampled == 404 and problems == [] and error is True and "plan" in layers
+
+
+# ------------------------------------------------------------ cluster routing
+class _DyingEngine:
+    """A pool replica (the reference test's ``DyingClusterEngine``): the
+    first generate anywhere in the pool kills its replica mid-request, so
+    the pool resteers; every later generate succeeds at once."""
+
+    def __init__(self, index, first, port):
+        self.index, self.first, self.port = index, first, port
+        self.state = "cold"
+        self.tokenizer = self.metrics = self.costs = None
+
+    async def start(self):
+        self.state = "ready"
+
+    async def aclose(self):
+        self.state = "closed"
+
+    async def generate(self, prompt_ids, **kw):
+        if self.state != "ready":
+            raise self.first["error"](f"engine not ready (state={self.state})")
+        if self.first["pending"]:
+            self.first["pending"] = False
+            self.state = "failed"
+            raise self.first["error"]("chaos: replica killed mid-request")
+        return {"replica": self.index}
+
+    def queue_stats(self):
+        names = ("queue_depth", "active_rows") if self.port else ("depth", "active")
+        return {names[0]: 0, names[1]: 0, "service_ewma_s": 0.01, "eta_s": 0.0}
+
+
+async def _routing_story(pkg: str) -> dict:
+    from mcpx.cluster import EnginePool as JPool
+    from mcpx.core.errors import EngineError as JEngineError
+    from mcpx_torch.cluster import EnginePool
+    from mcpx_torch.core.errors import EngineError
+
+    p = PKGS[pkg]
+    port = pkg == "port"
+    base = p.router(local=_services(pkg))
+    profile_cls, chaos_cls = p.chaos
+    chaos = chaos_cls(base, profile_cls.from_dict(
+        {"seed": 42, "endpoints": {"local://flaky": {"error_rate": 1.0, "error_status": 500}}}
+    ))
+    config = p.config.from_dict({
+        "telemetry": {"provenance": {"enabled": True}},
+        "resilience": {"enabled": True, "breaker_consecutive_failures": 2, "breaker_min_samples": 50,
+                       "hedge_enabled": False},
+    })
+    flaky, stable = p.plan.from_wire(FLAKY), p.plan.from_wire(STABLE)
+    holder = {}
+
+    async def factory(intent, context):
+        # One pool generate per plan (the decode an LLM planner would run),
+        # then a canned plan around the excluded services.
+        await holder["pool"].generate([1, 2, 3, 4], max_new_tokens=4)
+        return stable if "flaky" in context.exclude else flaky
+
+    cp = p.build(config, transport=chaos, planner=p.mock(factory=factory))
+    pool_cfg = p.config()
+    pool_cfg.cluster.replicas = 2
+    pool_cfg.telemetry.provenance.enabled = True
+    first = {"pending": True, "error": EngineError if port else JEngineError}
+    pool = (EnginePool if port else JPool)(
+        pool_cfg, metrics=cp.metrics, engine_factory=lambda i, _cfg: _DyingEngine(i, first, port)
+    )
+    holder["pool"] = pool
+    await pool.start()
+    client = TestClient(TestServer(p.app(cp)))
+    await client.start_server()
+    try:
+        resp = await client.post("/plan_and_execute", json={"intent": "compose flaky then recover", "payload": {}})
+        assert resp.status == 200, await resp.text()
+        body = await resp.json()
+        tid = resp.headers["X-Trace-Id"]
+        exp = await (await client.get(f"/explain/{tid}")).json()
+        ring = pool._pipeline.recent_decisions()
+        journal = pool.journal.tail()
+        resteer = next(e for e in journal if e["kind"] == "resteer")
+        text = cp.metrics.render().decode()
+        return {
+            "reply": (body["status"], body["replans"]), "problems": p.prov.validate_explanation(exp),
+            "explanation": _norm(exp), "ring_names_trace": any(d["trace_id"] == tid for d in ring),
+            "journal": [(e["kind"], e["replica"]) for e in journal], "resteer_names_trace": resteer["trace_id"] == tid,
+            "resteered_away": pool.attribution()["replicas"][str(resteer["replica"])]["resteered_away"],
+            "route_lines": sorted(
+                line for line in text.splitlines()
+                if line.startswith(("mcpx_route_decisions_total", 'mcpx_provenance_records_total{layer="route"}'))
+            ),
+        }
+    finally:
+        await client.close()
+        await pool.aclose()
+
+
+def test_chaos_request_explains_its_routing_as_reference():
+    port = asyncio.run(_routing_story("port"))
+    assert port == asyncio.run(_routing_story("reference"))
+    assert port["reply"] == ("ok", 1) and port["problems"] == []
+    exp = port["explanation"]
+    assert {"plan", "route", "resilience", "replan"} <= set(exp["layers"])
+    choices = [d["choice"] for d in exp["decisions"]]
+
+    def at(substr):
+        return next(i for i, c in enumerate(choices) if substr in c)
+
+    # route -> the replica dies -> resteer -> plan -> breaker -> replan
+    assert at("routed to replica") < at("resteer away from replica") < at("planned via MockPlanner")
+    assert at("planned via MockPlanner") < at("circuit breaker open: skipped local://flaky") < at("replan attempt 1")
+    assert "queue" in "".join(exp["decisions"][at("routed to replica")]["contributions"])
+    assert port["ring_names_trace"] and port["resteer_names_trace"] and port["resteered_away"] == 1
+    assert ("resteer", 0) in port["journal"] or ("resteer", 1) in port["journal"]
+    assert any(line.startswith("mcpx_route_decisions_total") for line in port["route_lines"])

@@ -2,10 +2,10 @@
 CPU:
 
   - the factory serves no option it ignores: each option the reference
-    factory reads that the port does not serve (the cluster's) raises
-    ``ConfigError`` naming it; the retrieval snapshot, the mock planner,
-    the file and Redis registries, SentencePiece vocabularies, the
-    default-on telemetry, the Redis plan-cache tier, the
+    factory reads is served and wired as the reference wires it: the
+    cluster's engine pool and sharded registry, the retrieval snapshot,
+    the mock planner, the file and Redis registries, SentencePiece
+    vocabularies, the default-on telemetry, the Redis plan-cache tier, the
     admission scheduler, the resilience facade, the chaos transport and
     telemetry's default-off parts (the Redis telemetry mirror, the flight
     recorder, the cost ledger, decision provenance, the SLO tracker) are
@@ -64,15 +64,19 @@ def one_cpu_thread():
 
 
 # ------------------------------------------------------------ refusals
-# The two options the port still refuses (the cluster's), the five it served
-# once telemetry's default-off parts were ported, and the retrieval snapshot,
-# the mock planner, the file and Redis registries and SentencePiece vocabs
-# it served with the rest of the config surface.
+# The five options the port served once telemetry's default-off parts were
+# ported; the retrieval snapshot, the mock planner, the file and Redis
+# registries and SentencePiece vocabs it served with the rest of the config
+# surface; the cluster's two, served with the cluster layer. An option the
+# port refused would raise ConfigError naming it.
 TELEMETRY_PARTS = {
     ("telemetry", "redis_url"), ("telemetry", "flight.enabled"), ("telemetry", "ledger.enabled"),
     ("telemetry", "provenance.enabled"), ("slo", "enabled"),
 }
-MAKERS = {("retrieval", "snapshot_path"), ("planner", "kind"), ("registry", "backend"), ("model", "vocab")}
+MAKERS = {
+    ("retrieval", "snapshot_path"), ("planner", "kind"), ("registry", "backend"), ("model", "vocab"),
+    ("cluster", "enabled"), ("cluster", "shard_registry"),
+}
 SERVED = TELEMETRY_PARTS | MAKERS
 
 
@@ -176,7 +180,23 @@ def _check_served_maker(cfg: dict, section: str, value, tmp_path) -> None:
     from mcpx_torch.telemetry.mirror import FakeAsyncRedis
 
     records = synth_registry(12, seed=0)
-    if section == "retrieval":
+    if section == "cluster":
+        # The pool of cluster.replicas engines behind the LLM planner, on
+        # the control plane's device; shard_registry (with the pool) makes
+        # the retrieval index row-sharded, one shard per replica.
+        from mcpx_torch.cluster import EnginePool
+        from mcpx_torch.cluster.sharding import ShardedRetrievalIndex
+
+        cfg["planner"]["kind"] = "llm"
+        cfg["cluster"]["enabled"] = True
+        cfg["cluster"]["replicas"] = 3
+        cp = build_control_plane(MCPXConfig.from_dict(cfg), device="cpu")
+        assert isinstance(cp.planner.engine, EnginePool) and cp.cluster is cp.planner.engine
+        assert [r.engine.device.type for r in cp.cluster.replicas] == ["cpu"] * 3
+        sharded = isinstance(cp.retriever, ShardedRetrievalIndex)
+        assert sharded == bool(cfg["cluster"].get("shard_registry"))
+        assert not sharded or cp.retriever.n_shards == 3
+    elif section == "retrieval":
         # A snapshot written by the index is loaded at build time.
         index = RetrievalIndex(device="cpu")
         asyncio.run(_refreshed(index, records))
