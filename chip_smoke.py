@@ -144,6 +144,20 @@ Phases, one line each (every number beside the card's name and power limit):
      phases 5-6's intents, their repeat, a burst during which the busy
      replica is killed, its warm rejoin, a burst during which the other
      drains, its rejoin (``cluster_phase``);
+ 23. the offline path (``offline_phase``): the planner corpus (512 rows over
+     1,000 services, ``corpus``); the test preset trained from the committed
+     checkpoint in float32 on the card and on the CPU, every step's loss
+     within 1e-3 relative (``train_parity_test``); trained from random init,
+     200 steps, the final loss under 0.7 of the first, with host ms against
+     device ms a step (``train_test``); the 2b preset at full width from
+     random float32 weights, 6 steps at batch 8, finite and falling losses,
+     peak memory and achieved FLOP/s against the float32 peak
+     (``train_2b``); the parity run's weights saved, loaded and served
+     through the kernel, 16 ``/plan``s and a repeat that captures nothing
+     (``train_serve_test``); and ``evaluate_planner`` over the committed
+     checkpoint, 48 intents at the registry and shortlist tiers and int8,
+     each within 0.05 of the reference's own CPU quality (``eval_test``,
+     with the plans whose least top-2 margin is a near-tie);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -175,6 +189,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -557,12 +572,14 @@ def device_breakdown(prof, wall_s: float, top: int = 8) -> dict:
 
 async def serve(
     size: str, checkpoint: str, n_intents: int, card: str, batch: int, profile: bool = False,
-    after=None,
+    after=None, name: str = "",
 ) -> tuple[dict, list, object]:
     """Serve ``n_intents`` concurrent /plan requests on a fresh control
     plane; then, on the same engine, ``after(cp, records, intents, plans,
     stats)`` when given. Returns (stats, plans, what ``after`` returned);
-    the stats carry the weights' bytes and the repeat's ``graph_window``."""
+    the stats carry the weights' bytes and the repeat's ``graph_window``.
+    The lines are ``serve_<size>`` and ``graph_window_<size>``, or ``name``
+    and ``graph_window_<name>``."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
     from mcpx_torch.models.gemma.params import n_bytes
     from mcpx_torch.server.factory import build_control_plane
@@ -623,8 +640,8 @@ async def serve(
             # sentinel's compiles): eager prefill and sampling shapes too.
             first_sight=first_sight(c0, engine.costs.snapshot()["executables"]),
         )
-        emit(f"serve_{size}", card, **stats)
-        stats["graph_window"] = await repeat_with_graph_window(cp, intents, size, card)
+        emit(name or f"serve_{size}", card, **stats)
+        stats["graph_window"] = await repeat_with_graph_window(cp, intents, name or size, card)
         if profile:
             # The same requests once more under the profiler, after the
             # measured run, so the profiler's cost stays out of its numbers.
@@ -783,39 +800,66 @@ MODES = (("off", 1), ("prompt", 1), ("prompt", 2))  # (draft_mode, pipeline_dept
 NEAR_TIE = 1e-3  # top-2 margin of masked logits under which greedy picks may flip
 
 
-def masked_margin(engine, prompt_ids: list, kw: dict, toks: list, k: int) -> float:
-    """Top-2 margin of the next token's logits after ``prompt_ids +
-    toks[:k]``, masked as the engine masks them (grammar-legal, and able to
-    finish within the decode budget: the call's ``max_new_tokens``, else
-    ``max_decode_len``; a free call's mask is the real vocabulary), by one
-    dense prefill on the card."""
-    import numpy as np
+def _allowed(engine, kw: dict, toks: list, k: int, tables) -> tuple:
+    """(active ids, allowed columns) of the next token after ``toks[:k]``,
+    masked as the engine masks them (grammar-legal, and able to finish
+    within the decode budget: the call's ``max_new_tokens``, else
+    ``max_decode_len``; a free call's mask is the real vocabulary)."""
+    if not kw.get("constrained", True):
+        return np.arange(engine.tokenizer.vocab_size), engine._unconstrained_mask.cpu().numpy()
+    trans, mask, dist, active, eos, inv = tables
+    s = 0
+    for t in toks[:k]:
+        s = int(trans[s, inv[t]])
+    legal = mask[s]
+    budget = kw.get("max_new_tokens") or engine.config.engine.max_decode_len
+    finish = legal & (eos | (dist[trans[s]] <= budget - k - 1))
+    return active, finish if finish.any() else legal
 
+
+def _grammar_tables(engine, kw: dict):
+    if not kw.get("constrained", True):
+        return None
+    return (kw.get("grammar") or engine.grammar).device_tables(64)
+
+
+def _top2_margin(vals, active, allowed) -> float:
+    top = np.sort(np.where(allowed, vals[active], -np.inf))[-2:]
+    return float(top[1] - top[0])
+
+
+def _dense_logits(engine, ids: list, last_only: bool):
     from mcpx_torch.models.gemma.model import init_kv_cache, prefill
 
-    if kw.get("constrained", True):
-        grammar = kw.get("grammar") or engine.grammar
-        trans, mask, dist, active, eos, inv = grammar.device_tables(64)
-        s = 0
-        for t in toks[:k]:
-            s = int(trans[s, inv[t]])
-        legal = mask[s]
-        budget = kw.get("max_new_tokens") or engine.config.engine.max_decode_len
-        finish = legal & (eos | (dist[trans[s]] <= budget - k - 1))
-        allowed = finish if finish.any() else legal
-    else:
-        active = np.arange(engine.tokenizer.vocab_size)
-        allowed = engine._unconstrained_mask.cpu().numpy()
-    ids = torch.tensor([list(prompt_ids) + list(toks[:k])], device="cuda")
-    cache = init_kv_cache(engine.model_cfg, 1, ids.shape[1], device="cuda")
+    dev = engine.device
+    t = torch.tensor([list(ids)], device=dev)
+    cache = init_kv_cache(engine.model_cfg, 1, t.shape[1], device=dev)
     with torch.inference_mode():
-        logits, _ = prefill(
-            engine._params, engine.model_cfg, ids,
-            torch.tensor([ids.shape[1]], device="cuda"), cache, last_only=True,
-        )
-    vals = logits[0].float().cpu().numpy()[active]
-    top = np.sort(np.where(allowed, vals, -np.inf))[-2:]
-    return float(top[1] - top[0])
+        logits, _ = prefill(engine._params, engine.model_cfg, t, torch.tensor([t.shape[1]], device=dev), cache,
+                            last_only=last_only)
+    return logits[0].float().cpu().numpy()
+
+
+def masked_margin(engine, prompt_ids: list, kw: dict, toks: list, k: int) -> float:
+    """Top-2 margin of the next token's logits after ``prompt_ids +
+    toks[:k]``, masked as the engine masks them (``_allowed``), by one dense
+    prefill on the engine's device."""
+    active, allowed = _allowed(engine, kw, toks, k, _grammar_tables(engine, kw))
+    return _top2_margin(_dense_logits(engine, list(prompt_ids) + list(toks[:k]), True), active, allowed)
+
+
+def stream_margin(engine, prompt_ids: list, kw: dict, toks: list) -> tuple[float, int]:
+    """(least top-2 margin, its position) of the masked logits over every
+    token of a greedy stream: one dense prefill of prompt and stream on the
+    engine's device, each position masked as ``masked_margin`` masks it."""
+    logits = _dense_logits(engine, list(prompt_ids) + list(toks), False)
+    tables = _grammar_tables(engine, kw)
+    margins = [
+        _top2_margin(logits[len(prompt_ids) - 1 + k], *_allowed(engine, kw, toks, k, tables))
+        for k in range(len(toks))
+    ]
+    k = int(np.argmin(margins)) if margins else 0
+    return (margins[k] if margins else math.inf), k
 
 
 async def serve_modes(
@@ -3714,6 +3758,204 @@ async def pool_near_ties(pool, calls: list, size: str, card: str) -> list:
     return greedy_differences(f"cluster_{size}", size, card, engine, a, b)
 
 
+# ------------------------------------------------------------ offline path
+FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores (NVIDIA datasheet)
+# The reference package's own plan-quality figures (README.md: its CPU
+# ``eval-planner`` runs of the committed checkpoint), not the port's.
+EVAL_REFERENCE = {
+    "registry": {"constrain_names": "registry", "quantize": "none", "score": 0.86, "node_f1": 0.75},
+    "shortlist": {"constrain_names": "shortlist", "quantize": "none", "score": 0.956, "node_f1": 0.861},
+    "shortlist_int8": {"constrain_names": "shortlist", "quantize": "int8", "score": 0.949, "node_f1": 0.854},
+}
+EVAL_TOLERANCE = 0.05
+
+
+def timed_train(size: str, corpus, tcfg, device, init=None) -> tuple:
+    """``models.train.train`` at ``size`` (the BPE vocab), with the wall
+    time at each logged step: ``log_fn`` runs after the step's loss is read
+    back, so consecutive stamps bracket the steps between them. Returns
+    (params, report, stamps, wall seconds)."""
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.train import train
+
+    cfg = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
+    stamps: list = []
+    t0 = time.monotonic()
+    params, report = train(cfg, corpus, tcfg, device=device, init=init,
+                           log_fn=lambda _m: stamps.append(time.monotonic()))
+    return params, report, stamps, time.monotonic() - t0
+
+
+def per_step_ms(stamps: list, steps_between: int) -> float:
+    return (stamps[-1] - stamps[0]) * 1e3 / steps_between if len(stamps) > 1 else math.nan
+
+
+@contextlib.contextmanager
+def recording_margins(out: list):
+    """While open, every plan generation of any engine appends (least top-2
+    margin of its masked logits, its position, its text), computed when the
+    call returns, on the engine's weights (``stream_margin``)."""
+    from mcpx_torch.engine.engine import DEVICE_LOCK, InferenceEngine
+
+    real = InferenceEngine.generate
+
+    async def generate(self, prompt_ids, **kw):
+        res = await real(self, prompt_ids, **kw)
+        if kw.get("max_new_tokens") != 1:  # not the planner's one-token warm-up
+            with DEVICE_LOCK:
+                out.append((*stream_margin(self, prompt_ids, kw, res.token_ids), res.text))
+        return res
+
+    InferenceEngine.generate = generate
+    try:
+        yield
+    finally:
+        InferenceEngine.generate = real
+
+
+def offline_phase(card: str, device="cuda", *, n_examples: int = 512, registry_size: int = 1000,
+                  parity_steps: int = 20, test_steps: int = 200, big: str = "2b", big_steps: int = 6,
+                  eval_intents: int = 48, eval_registry: int = 1000, serve_trained: bool = True) -> dict:
+    """Phase 23, the offline path on ``device``: the planner corpus; the
+    test preset trained from the committed checkpoint on the device and on
+    the CPU, step for step (``train_parity_test``); trained from random
+    init (``train_test``); ``big`` (the 2b preset) at full width from
+    random float32 weights (``train_<big>``); the parity run's weights saved,
+    loaded and served through the kernel (``train_serve_test``); and the
+    committed checkpoint's plan quality at each tier (``eval_test``)."""
+    import tempfile
+
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.corpus import CorpusConfig, build_corpus_sync
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.gemma.params import load_npz
+    from mcpx_torch.models.train import TrainConfig, flatten_params, save_npz
+    from mcpx_torch.planner.evaluate import evaluate_planner
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("offline: TF32 matmuls are on; the trainer runs in full float32")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out: dict = {}
+    t0 = time.monotonic()
+    corpus = build_corpus_sync(BPETokenizer(), CorpusConfig(n_examples=n_examples, registry_size=registry_size, seed=0),
+                               device=device)
+    L = corpus.tokens.shape[1]
+    emit("corpus", card, rows=corpus.tokens.shape[0], seq_len=L, dropped=corpus.n_dropped,
+         filtered=corpus.n_filtered, teacher_coverage=corpus.teacher_coverage, host_s=time.monotonic() - t0)
+
+    # The committed checkpoint, cast to float32, trained on the device and on
+    # the CPU over the same rows.
+    tcfg = TrainConfig(steps=parity_steps, batch_size=24, lr=3e-3, warmup_steps=5, log_every=1)
+    runs = {}
+    for dev in (device, "cpu"):
+        params, report, stamps, _ = timed_train("test", corpus, tcfg, dev, init=load_npz(CKPT, "cpu", torch.float32))
+        runs[dev] = (params, report, per_step_ms(stamps, parity_steps - 1))
+    (p_dev, r_dev, ms_dev), (p_cpu, r_cpu, ms_cpu) = runs[device], runs["cpu"]
+    rel = [abs(a - b) / abs(b) for (_, a), (_, b) in zip(r_dev["loss_log"], r_cpu["loss_log"])]
+    flat_dev, flat_cpu = flatten_params(p_dev), flatten_params(p_cpu)
+    param_err = max(float((flat_dev[k].cpu() - flat_cpu[k]).abs().max()) for k in flat_cpu)
+    emit("train_parity_test", card, steps=parity_steps, batch=24, lr=3e-3, warmup=5,
+         losses=[x for _, x in r_dev["loss_log"]], cpu_losses=[x for _, x in r_cpu["loss_log"]],
+         max_rel_loss_err=max(rel), rtol=1e-3, max_abs_param_err=param_err, step_ms=ms_dev, cpu_step_ms=ms_cpu,
+         eval_token_accuracy=r_dev.get("eval_token_accuracy"), cpu_eval_token_accuracy=r_cpu.get("eval_token_accuracy"))
+    if len(rel) != parity_steps or max(rel) > 1e-3:
+        raise SystemExit(f"train_parity_test: the device's losses leave the CPU's by {max(rel)} (rtol 1e-3)")
+
+    # The test preset from the port's random init: the reference's own gate.
+    B = 24
+    tcfg = TrainConfig(steps=test_steps, batch_size=B, warmup_steps=20, log_every=50)
+    _, report, stamps, wall = timed_train("test", corpus, tcfg, device)
+    host_ms = per_step_ms(stamps, test_steps - 1)
+    prof_steps = 20
+    with (_profiler() if cuda else contextlib.nullcontext()) as prof:
+        t1 = time.monotonic()
+        timed_train("test", corpus, TrainConfig(steps=prof_steps, batch_size=B, warmup_steps=5, log_every=0), device)
+        sync()
+        prof_wall = time.monotonic() - t1
+    breakdown = device_breakdown(prof, prof_wall) if cuda else {}
+    device_ms = breakdown["device_busy_ms"] / prof_steps if cuda else math.nan
+    out["train_test"] = dict(
+        steps=test_steps, batch=B, seq_len=L, warmup=20, first_loss=report["first_loss"],
+        final_loss=report["final_loss"], eval_token_accuracy=report.get("eval_token_accuracy"),
+        steps_per_s=1e3 / host_ms, tokens_per_s=B * L * 1e3 / host_ms, host_ms_per_step=host_ms,
+        device_ms_per_step=device_ms, device_idle_share=1.0 - device_ms / host_ms if cuda else math.nan,
+        wall_s=wall, profiled=dict(steps=prof_steps, top=breakdown.get("top", [])[:5]),
+    )
+    emit("train_test", card, **out["train_test"])
+    if not report["final_loss"] < 0.7 * report["first_loss"]:
+        raise SystemExit(f"train_test: final loss {report['final_loss']} not below 0.7 x first {report['first_loss']}")
+
+    # The big preset at full width, random float32 weights.
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    allocated0 = torch.cuda.memory_allocated() if cuda else 0
+    Bb = 8
+    cfg = GemmaConfig.named(big, vocab_size=BPETokenizer().vocab_size)
+    tcfg = TrainConfig(steps=big_steps, batch_size=Bb, lr=3e-4, warmup_steps=2, log_every=1)
+    params, report, stamps, wall = timed_train(big, corpus, tcfg, device)
+    del params
+    losses = [x for _, x in report["loss_log"]]
+    step_ms = per_step_ms(stamps, big_steps - 1)  # the steps after the first
+    flops = 6 * cfg.n_params * Bb * L
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    card_bytes = torch.cuda.get_device_properties(0).total_memory if cuda else 0
+    out["train_big"] = dict(
+        layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+        n_params=cfg.n_params, batch=Bb, seq_len=L, steps=big_steps, warmup=2, lr=3e-4, losses=losses,
+        step_ms=step_ms, flop_per_step=flops, achieved_flop_s=flops * 1e3 / step_ms,
+        fp32_peak_flop_s=FP32_FLOPS, fp32_peak_share=flops * 1e3 / step_ms / FP32_FLOPS,
+        max_memory_allocated=peak, memory_allocated_before=allocated0, card_memory=card_bytes,
+        eval_token_accuracy=report.get("eval_token_accuracy"), wall_s=wall,
+    )
+    emit(f"train_{big}", card, **out["train_big"])
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] or (cuda and peak >= card_bytes):
+        raise SystemExit(f"train_{big}: losses {losses}, peak {peak} of {card_bytes} bytes")
+
+    if serve_trained:
+        # The parity run's weights, saved and loaded, served through the kernel.
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trained.npz")
+            save_npz(path, p_dev)
+            stats, _, _ = asyncio.run(serve("test", path, 16, card, batch=64, name="train_serve_test"))
+        if stats["origins"] != {"llm": 16}:
+            raise SystemExit(f"train_serve_test: not every plan is LLM-authored: {stats['origins']}")
+        out["train_serve_test"] = stats
+
+    evals = {}
+    for tier, ref in EVAL_REFERENCE.items():
+        margins: list = []
+        reset_kernel_launches()
+        t1 = time.monotonic()
+        with recording_margins(margins):
+            q = asyncio.run(evaluate_planner(
+                checkpoint=CKPT, n_intents=eval_intents, registry_size=eval_registry, device=device,
+                constrain_names=ref["constrain_names"], quantize=ref["quantize"]))
+        launches = kernel_launches()
+        near = [dict(plan=i, margin=m, position=k, text=t) for i, (m, k, t) in enumerate(margins) if m < NEAR_TIE]
+        evals[tier] = dict(**q, launches=launches, seconds=time.monotonic() - t1, near_ties=near,
+                           least_margin=min((m for m, _, _ in margins), default=math.nan))
+        emit("eval_test", card, tier=tier, port=evals[tier],
+             reference_cpu=dict(score=ref["score"], node_f1=ref["node_f1"]), tolerance=EVAL_TOLERANCE)
+    out["eval_test"] = evals
+    if cuda:
+        bad = [t for t, ref in EVAL_REFERENCE.items()
+               if abs(evals[t]["score"] - ref["score"]) > EVAL_TOLERANCE or evals[t]["quantize"] != ref["quantize"]
+               or evals[t]["launches"].get("ragged_paged_attention", 0) <= 0]
+        if bad:
+            raise SystemExit(f"eval_test: tiers {bad} leave the reference's quality by more than {EVAL_TOLERANCE}: "
+                             f"{ {t: evals[t]['score'] for t in bad} }")
+    return out
+
+
 def n_bytes_of(engine) -> int:
     from mcpx_torch.models.gemma.params import n_bytes
 
@@ -3809,6 +4051,7 @@ def main(argv: list[str]) -> int:
         timed("cluster_test", asyncio.run, cluster_phase("test", CKPT, 16, card, trained, trained_plans)),
         timed("cluster_2b", asyncio.run, cluster_phase("2b", "", 8, card, full, full_plans)),
     ]
+    offline = timed("offline", offline_phase, card)
     emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
@@ -3816,7 +4059,7 @@ def main(argv: list[str]) -> int:
         mx[m] for mx in (trained_mixed, full_mixed) for m in ("drain", "hetero")
     ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero] + [
         t[m] for t in tiers for m in ("single", "tiered", "thrash", "chaos")
-    ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs, *surface, sp]
+    ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs, *surface, sp, offline["train_serve_test"]]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:
@@ -3839,7 +4082,10 @@ def main(argv: list[str]) -> int:
             # count here without the replay gate above; so do the cluster
             # runs, whose killed replicas' replays went with them (phase 22
             # gates its own launches).
-            "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl] + clusters),
+            # So do phase 23's evaluations (one request at a time, windows
+            # captured as they first run), gated in ``offline_phase``.
+            "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl] + clusters
+                            + list(offline["eval_test"].values())),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,13 +1,15 @@
 """CLI: ``python -m mcpx_torch.cli`` — serve the port's control plane, read a
 running server's traces, bundles, explanations, usage and SLO budgets,
-validate plans and generate registries.
+validate plans, generate registries, train and evaluate the planner model,
+and report on the bench series.
 
 The PyTorch port's copy of ``mcpx/cli/main.py``, with the reference's
-arguments and output. ``serve`` takes ``--device`` (default: the GPU; it
-raises without one) and needs aiohttp. The reference's offline commands
-(``train-planner``, ``eval-planner``, ``bench report``, ``lint``) are not
-ported yet: each is refused by name, naming the ROADMAP item that ports
-it, and exits 2.
+arguments and output. ``serve``, ``train-planner`` and ``eval-planner`` take
+``--device`` (default: the GPU; they raise without one) where the reference
+takes ``--platform``; ``serve`` needs aiohttp. ``train-planner`` writes
+``planner_test_bpe.npz`` in the working directory by default, never into the
+reference package's committed checkpoint. ``lint`` is not ported yet: it is
+refused by name, naming the ROADMAP item that ports it, and exits 2.
 """
 
 from __future__ import annotations
@@ -21,9 +23,6 @@ from mcpx_torch.core.config import MCPXConfig
 # Commands of the reference CLI that the port refuses, and the ROADMAP
 # (Queue A) item that ports each.
 REFUSED = {
-    "train-planner": "item 6, offline tooling",
-    "eval-planner": "item 6, offline tooling",
-    "bench report": "item 6, offline tooling",
     "lint": "item 7, static analysis",
 }
 
@@ -263,6 +262,79 @@ def cmd_gen_registry(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_train_planner(args: argparse.Namespace) -> int:
+    """Train the in-tree planner model on the synthetic workload corpus and
+    write a single-file .npz checkpoint (models/train.py)."""
+    import time
+
+    from mcpx_torch.device import resolve_device
+    from mcpx_torch.models.corpus import CorpusConfig, build_corpus_sync
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.tokenizer import make_tokenizer
+    from mcpx_torch.models.train import TrainConfig, load_npz, save_npz, train
+
+    device = resolve_device(args.device)
+    tok = make_tokenizer(args.vocab)
+    ccfg = CorpusConfig(
+        n_examples=args.examples,
+        registry_size=args.registry,
+        seed=args.seed,
+        intent_seed=args.intent_seed,
+    )
+    t0 = time.time()
+    corpus = build_corpus_sync(tok, ccfg, device=device)
+    print(
+        f"corpus: {corpus.tokens.shape[0]} rows (dropped {corpus.n_dropped}, "
+        f"filtered {corpus.n_filtered}, teacher coverage "
+        f"{corpus.teacher_coverage:.3f}) in {time.time() - t0:.1f}s"
+    )
+    cfg = GemmaConfig.named(args.size, vocab_size=tok.vocab_size)
+    tcfg = TrainConfig(steps=args.steps, batch_size=args.batch, lr=args.lr, seed=args.seed)
+    # Warm start (fine-tune): e.g. extend intent coverage over the same
+    # registry with --intent-seed, at a lower --lr.
+    init = load_npz(args.init, device, "float32") if args.init else None
+    t0 = time.time()
+    params, report = train(cfg, corpus, tcfg, device=device, init=init, log_fn=lambda m: print(m, flush=True))
+    print(f"trained {args.steps} steps in {time.time() - t0:.0f}s: {report}")
+    save_npz(args.out, params)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_eval_planner(args: argparse.Namespace) -> int:
+    """Serve a planner checkpoint through the real stack (engine +
+    grammar-constrained decode + retrieval shortlist) and print its
+    plan-quality metrics as one JSON line (planner/evaluate.py)."""
+    import asyncio
+
+    from mcpx_torch.planner.evaluate import evaluate_planner
+
+    out = asyncio.run(
+        evaluate_planner(
+            checkpoint=args.checkpoint,
+            size=args.size,
+            vocab=args.vocab,
+            registry_size=args.registry,
+            registry_seed=args.registry_seed,
+            n_intents=args.intents,
+            seed=args.seed,
+            device=args.device,
+            constrain_names=args.constrain_names,
+            quantize=args.quantize,
+        )
+    )
+    print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in out.items()}))
+    return 0
+
+
+def cmd_bench_report(args: argparse.Namespace) -> int:
+    """Regression report over the BENCH_r*.json series (cli/bench_report.py):
+    scenario-keyed per-metric deltas with noise bands and a verdict."""
+    from mcpx_torch.cli.bench_report import run_report
+
+    return run_report(args.paths, fmt=args.format, fail_on_regression=args.fail_on_regression)
+
+
 def _url_option(p: argparse.ArgumentParser) -> None:
     p.add_argument("--url", default="http://127.0.0.1:8000", help="server base URL (default: %(default)s)")
 
@@ -334,16 +406,54 @@ def main(argv: list[str] | None = None) -> int:
     p_gen.add_argument("--seed", type=int, default=0)
     p_gen.set_defaults(func=cmd_gen_registry)
 
-    # The refused commands parse whatever follows them, so each refusal
-    # names the command whatever arguments it was given.
-    for name in ("train-planner", "eval-planner", "lint"):
-        sub.add_parser(name, help=f"not served by the PyTorch port yet (ROADMAP {REFUSED[name]})")
-    p_bench = sub.add_parser("bench", help="bench artifact tooling (not served by the PyTorch port yet)")
+    p_train = sub.add_parser("train-planner", help="train the in-tree planner model (synthetic corpus)")
+    p_train.add_argument("--out", default="planner_test_bpe.npz",
+                         help="checkpoint to write (default: %(default)s in the working directory)")
+    p_train.add_argument("--size", default="test")
+    p_train.add_argument("--vocab", default="bpe")
+    p_train.add_argument("--examples", type=int, default=4096)
+    p_train.add_argument("--registry", type=int, default=1000)
+    p_train.add_argument("--steps", type=int, default=2500)
+    p_train.add_argument("--batch", type=int, default=24)
+    p_train.add_argument("--lr", type=float, default=3e-3)
+    p_train.add_argument("--seed", type=int, default=0)
+    p_train.add_argument("--intent-seed", type=int, default=None, help="fresh intent draws over the same registry")
+    p_train.add_argument("--init", default="", help="warm-start from an existing .npz checkpoint")
+    p_train.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p_train.set_defaults(func=cmd_train_planner)
+
+    p_eval = sub.add_parser("eval-planner", help="score a planner checkpoint's plan quality")
+    p_eval.add_argument("--checkpoint", default="mcpx/models/checkpoints/planner_test_bpe.npz")
+    p_eval.add_argument("--size", default="test")
+    p_eval.add_argument("--vocab", default="bpe")
+    p_eval.add_argument("--registry", type=int, default=1000)
+    p_eval.add_argument("--registry-seed", type=int, default=0)
+    p_eval.add_argument("--intents", type=int, default=48)
+    p_eval.add_argument("--seed", type=int, default=1234)
+    p_eval.add_argument("--quantize", choices=["none", "int8"], default="none",
+                        help="serve the checkpoint weight-only quantized (models/gemma/quant.py)")
+    p_eval.add_argument("--constrain-names", choices=["registry", "shortlist"], default="registry",
+                        help="grammar tier: registry-wide name trie (serving default) or shortlist-only "
+                        "(tightest constraint)")
+    p_eval.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p_eval.set_defaults(func=cmd_eval_planner)
+
+    p_bench = sub.add_parser("bench", help="bench artifact tooling (regression tracking)")
     bench_sub = p_bench.add_subparsers(dest="bench_command", required=True)
-    bench_sub.add_parser("report", help=f"not served by the PyTorch port yet (ROADMAP {REFUSED['bench report']})")
+    p_breport = bench_sub.add_parser("report", help="per-metric regression verdict over the BENCH_r*.json series")
+    p_breport.add_argument("paths", nargs="*",
+                           help="bench artifacts in series order (default: ./BENCH_r*.json sorted)")
+    p_breport.add_argument("--format", choices=["text", "json"], default="text", help="report format")
+    p_breport.add_argument("--fail-on-regression", action="store_true",
+                           help="exit 1 when any tracked metric regressed beyond its noise band")
+    p_breport.set_defaults(func=cmd_bench_report)
+
+    # A refused command parses whatever follows it, so its refusal names the
+    # command whatever arguments it was given.
+    sub.add_parser("lint", help=f"not served by the PyTorch port yet (ROADMAP {REFUSED['lint']})")
 
     args, extra = parser.parse_known_args(argv)
-    command = args.command + (f" {args.bench_command}" if args.command == "bench" else "")
+    command = args.command
     if command in REFUSED:
         print(
             f"mcpx_torch {command}: not served by the PyTorch port yet (ROADMAP Queue A {REFUSED[command]})",

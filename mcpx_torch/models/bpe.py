@@ -28,7 +28,7 @@ constrained decoding stays exact on this vocab.
 
 Train/regenerate the committed artifact (deterministic corpus, ~1 min):
 
-    python -m mcpx_torch.models.bpe mcpx/models/bpe_vocab.json
+    python -m mcpx_torch.models.bpe mcpx_torch/models/bpe_vocab.json
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from __future__ import annotations
 import base64
 import json
 import os
+from collections import Counter
 from typing import Iterable, Optional
 
 PAD_ID = 256
@@ -126,3 +127,119 @@ class BPETokenizer:
         out = list(self._surfaces)
         out += [None] * (self.vocab_size - len(out))
         return out
+
+
+# --------------------------------------------------------------- training
+def train_bpe(texts: Iterable[str], n_merges: int, min_freq: int = 2) -> list[bytes]:
+    """Classic byte-pair merging over whitespace-chunked words (leading
+    whitespace stays attached to its word, GPT-style, so learned tokens can
+    span the space before a word). Returns the learned multi-byte surfaces
+    in merge order — which is also their id order, making the artifact
+    reproducible byte-for-byte from the same corpus."""
+    import re
+
+    words: Counter = Counter()
+    for t in texts:
+        for m in re.finditer(rb"\s*\S+", t.encode("utf-8")):
+            w = m.group(0)
+            words[tuple(w[i : i + 1] for i in range(len(w)))] += 1
+
+    merges: list[bytes] = []
+    for _ in range(n_merges):
+        pairs: Counter = Counter()
+        for w, c in words.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += c
+        if not pairs:
+            break
+        (a, b), freq = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        if freq < min_freq:
+            break
+        merged = a + b
+        merges.append(merged)
+        new_words: Counter = Counter()
+        for w, c in words.items():
+            out: list[bytes] = []
+            i = 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(merged)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            new_words[tuple(out)] += c
+        words = new_words
+    return merges
+
+
+def default_corpus() -> list[str]:
+    """Deterministic training corpus shaped like the serving workload: the
+    planner's fixed header, per-service prompt lines for the synthetic 1k
+    registry (with telemetry features), intents, and grammar-wire plan
+    JSONs. Everything derives from seeded generators so retraining
+    reproduces the committed artifact exactly."""
+    import random
+
+    from mcpx_torch.planner.llm import _PROMPT_HEADER
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    rng = random.Random(1234)
+    records = synth_registry(1000, seed=0)
+    texts: list[str] = [_PROMPT_HEADER * 50]
+    for s in records:
+        ins = ",".join(sorted(s.input_schema))
+        outs = ",".join(sorted(s.output_schema))
+        feat = (
+            f" err={rng.random():.2f} p50={rng.uniform(4, 90):.0f}"
+            f" c={s.cost_profile.get('cost', 1.0):g}"
+        )
+        texts.append(f"{s.name} in:{ins} out:{outs}{feat}\n")
+    for _ in range(600):
+        texts.append(f"Intent: {intent_for(records, rng)}\nJSON:\n")
+    for _ in range(400):
+        steps = []
+        picks = rng.sample(records, rng.randint(1, 4))
+        for i, s in enumerate(picks):
+            nxt = [p.name for p in picks[i + 1 : i + 2]]
+            steps.append(
+                {
+                    "s": s.name,
+                    "in": sorted(s.input_schema),
+                    "next": nxt,
+                }
+            )
+        texts.append(json.dumps({"steps": steps}, separators=(",", ":")))
+    return texts
+
+
+def train_default(out_path: str, vocab_total: int = 4096) -> dict:
+    """Train on the default corpus targeting ``vocab_total`` ids and write
+    the artifact. The merge loop stops early when no pair clears min_freq
+    (the committed artifact lands at n_real=3017 → vocab 3072 after MXU
+    rounding), so treat ``vocab_total`` as a ceiling, not a guarantee —
+    size embeddings from ``BPETokenizer.vocab_size``."""
+    n_merges = vocab_total - 256 - _N_SPECIAL
+    merges = train_bpe(default_corpus(), n_merges=n_merges, min_freq=2)
+    blob = {
+        "format": "mcpx-bpe-v1",
+        "tokens": [base64.b64encode(m).decode("ascii") for m in merges],
+    }
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(blob, f)
+    return blob
+
+
+if __name__ == "__main__":
+    import sys
+
+    out = sys.argv[1] if len(sys.argv) > 1 else _DEFAULT_VOCAB
+    total = int(sys.argv[2]) if len(sys.argv) > 2 else 4096
+    blob = train_default(out, total)
+    tok = BPETokenizer(out)
+    sample = 'auth-fetch-0001 in:query out:status err=0.01 p50=12 c=0.5'
+    ids = tok.encode(sample)
+    print(
+        f"wrote {out}: {len(blob['tokens'])} merges, vocab {tok.vocab_size}, "
+        f"sample compression {len(sample.encode('utf-8'))}B -> {len(ids)} tokens"
+    )

@@ -1,0 +1,175 @@
+"""Supervised planning corpus: serving-prompt → teacher-plan token pairs.
+
+The reference's planner quality comes from a remote pretrained LLM
+(reference ``control_plane.py:69-73``); this framework's in-tree model has
+to be *taught* to plan. The corpus pairs the EXACT serving prompt (same
+renderer, retrieval shortlist, token-exact clamp as ``planner/llm.py``)
+with the deterministic schema-chaining teacher's plan serialised in the
+grammar wire shape (``Plan.to_steps_json``) — so teacher-forcing
+distributions line up token-for-token with what the grammar-constrained
+decoder will sample at serving time.
+
+Design points:
+  - prompts are built by ``planner.llm.build_prompt_ids`` / ``render_prompt``
+    (shared code, not a re-implementation) over a retrieval shortlist from
+    the real ``RetrievalIndex`` — any drift between training and serving
+    prompts is a bug class this module structurally avoids;
+  - the teacher is ``HeuristicPlanner`` (lexical intent↔schema overlap +
+    schema chaining) over the same shortlist the prompt shows — exactly the
+    mapping the model must learn: *pick the prompt lines whose tags the
+    intent mentions, wire them output→input*;
+  - examples are packed [prompt | target | EOS] into fixed-length rows with
+    a loss mask over target positions only (next-token CE elsewhere would
+    teach the model to parrot registry lines).
+
+The PyTorch port's copy of ``mcpx/models/corpus.py``: the same rows from
+the same seeds, built with the port's own retrieval index, teacher, prompt
+renderer and synthetic registry. The corpus is host work: ``device`` is
+only where the retrieval index would place a device table, which it does
+at ``RetrievalConfig.device_threshold`` rows and above, far beyond a
+corpus registry, so a 1k-service corpus never touches the card.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import random
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from mcpx_torch.core.config import PlannerConfig, RetrievalConfig
+from mcpx_torch.planner.base import PlanContext
+from mcpx_torch.planner.heuristic import HeuristicPlanner
+from mcpx_torch.planner.llm import build_prompt_ids
+from mcpx_torch.planner.quality import plan_quality
+from mcpx_torch.registry.memory import InMemoryRegistry
+from mcpx_torch.retrieval.index import RetrievalIndex
+from mcpx_torch.utils.synth import intent_for, synth_registry
+
+
+@dataclass
+class CorpusConfig:
+    n_examples: int = 4096
+    registry_size: int = 1000
+    seed: int = 0
+    # Intent/shortlist draws default to ``seed`` but can differ: the
+    # registry is a deployment artifact (the model serves THIS registry),
+    # while fresh intent draws extend coverage without changing it.
+    intent_seed: "int | None" = None
+    # Serving-parity knobs (bench.py's planner/engine geometry): 6-way
+    # shortlist, 128-token prompt budget (the BPE prefill bucket).
+    shortlist_top_k: int = 6
+    prompt_budget: int = 128
+    # Row length: prompt budget + decode budget headroom. Examples whose
+    # packed length exceeds this are dropped (counted in ``n_dropped``).
+    seq_len: int = 192
+    # Vary how many services an intent mentions (teacher plans then span
+    # 1..max_intent_services nodes, fan-out/fan-in included).
+    max_intent_services: int = 4
+    # Drop examples whose teacher plan covers less than this fraction of the
+    # intent's content words (quality.plan_quality coverage): a student
+    # trained on under-covering targets learns to under-cover (VERDICT r4
+    # weak #2). With coverage-greedy retrieval the teacher covers ~1.0, so
+    # this is a guard against regressions, not a crutch.
+    min_teacher_coverage: float = 0.9
+
+
+@dataclass
+class Corpus:
+    tokens: np.ndarray  # [N, L] int32, PAD-padded rows: prompt|target|EOS
+    loss_mask: np.ndarray  # [N, L] bool — True where the NEXT-token label
+    # is a target position (CE is computed on shifted logits; see train.py)
+    seq_lens: np.ndarray  # [N] int32 — prompt+target+EOS length per row
+    prompt_lens: np.ndarray  # [N] int32
+    texts: list[str] = field(default_factory=list)  # target JSON per row
+    intents: list[str] = field(default_factory=list)
+    n_dropped: int = 0  # rows over seq_len
+    n_filtered: int = 0  # rows under min_teacher_coverage
+    teacher_coverage: float = 1.0  # mean coverage of KEPT rows
+
+
+async def build_corpus(tokenizer, cfg: CorpusConfig | None = None, *, device=None) -> Corpus:
+    """Generate the corpus with the serving stack's own components."""
+    cfg = cfg or CorpusConfig()
+    rng = random.Random(cfg.seed if cfg.intent_seed is None else cfg.intent_seed)
+    records = synth_registry(cfg.registry_size, seed=cfg.seed)
+    registry = InMemoryRegistry()
+    for r in records:
+        await registry.put(r)
+    index = RetrievalIndex(RetrievalConfig(), device=device)
+    await index.refresh(registry)
+    teacher = HeuristicPlanner(
+        PlannerConfig(kind="heuristic", shortlist_top_k=cfg.shortlist_top_k)
+    )
+    by_name = {r.name: r for r in records}
+
+    pad = tokenizer.pad_id
+    rows: list[tuple[list[int], int]] = []
+    texts: list[str] = []
+    intents: list[str] = []
+    dropped = 0
+    filtered = 0
+    coverages: list[float] = []
+    for _ in range(cfg.n_examples):
+        n_mention = rng.randint(1, cfg.max_intent_services)
+        intent = intent_for(records, rng, n_services=n_mention)
+        names = await index.shortlist(intent, cfg.shortlist_top_k)
+        shortlist = [by_name[n] for n in names]
+        context = PlanContext(
+            registry=registry, shortlist=[s.name for s in shortlist]
+        )
+        plan = await teacher.plan(intent, context)
+        # Coverage is measured unconditionally so a filter-disabled run
+        # still reports the real teacher coverage (the regression signal
+        # this field exists for); only the DROP is gated on the threshold.
+        q = plan_quality(plan, intent, by_name)
+        if q["coverage"] < cfg.min_teacher_coverage:
+            filtered += 1
+            continue
+        coverages.append(q["coverage"])
+        target_text = plan.to_steps_json()
+        prefix_ids, suffix_ids, _kept = build_prompt_ids(
+            tokenizer, intent, shortlist, context, cfg.prompt_budget
+        )
+        prompt_ids = prefix_ids + suffix_ids
+        target_ids = tokenizer.encode(target_text, bos=False, eos=True)
+        total = len(prompt_ids) + len(target_ids)
+        if total > cfg.seq_len:
+            dropped += 1
+            continue
+        rows.append((prompt_ids + target_ids, len(prompt_ids)))
+        texts.append(target_text)
+        intents.append(intent)
+
+    N, L = len(rows), cfg.seq_len
+    tokens = np.full((N, L), pad, np.int32)
+    loss_mask = np.zeros((N, L), bool)
+    seq_lens = np.zeros((N,), np.int32)
+    prompt_lens = np.zeros((N,), np.int32)
+    for i, (ids, p_len) in enumerate(rows):
+        tokens[i, : len(ids)] = ids
+        # Shifted-CE convention: logits at position t predict token t+1, so
+        # the mask marks positions t whose LABEL tokens[t+1] is part of the
+        # target (the first target token is predicted from the prompt's
+        # last position).
+        loss_mask[i, p_len - 1 : len(ids) - 1] = True
+        seq_lens[i] = len(ids)
+        prompt_lens[i] = p_len
+    return Corpus(
+        tokens=tokens,
+        loss_mask=loss_mask,
+        seq_lens=seq_lens,
+        prompt_lens=prompt_lens,
+        texts=texts,
+        intents=intents,
+        n_dropped=dropped,
+        n_filtered=filtered,
+        teacher_coverage=(
+            sum(coverages) / len(coverages) if coverages else 1.0
+        ),
+    )
+
+
+def build_corpus_sync(tokenizer, cfg: CorpusConfig | None = None, *, device=None) -> Corpus:
+    return asyncio.run(build_corpus(tokenizer, cfg, device=device))

@@ -195,24 +195,36 @@ def forward(
     x = embed_tokens(params["embed"], tokens, cfg)
     b_idx = torch.arange(B, device=tokens.device)[:, None]
     for i in range(cfg.n_layers):
-        w = layer_weights(params, i, cfg)
-        h = rms_norm(x, w["pre_attn_norm"], cfg.norm_eps)
-        q, k, v = qkv(h, w)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        kv_cache["k"][i][b_idx, positions] = k.to(kv_cache["k"].dtype)
-        kv_cache["v"][i][b_idx, positions] = v.to(kv_cache["v"].dtype)
-        qg = q.reshape(B, T, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
-        attn = _attend(qg, kv_cache["k"][i], kv_cache["v"][i], mask)
-        attn = attn.reshape(B, T, cfg.n_heads * cfg.head_dim)
-        wo = w["wo"].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
-        x = x + torch.matmul(attn, wo)
-        h = rms_norm(x, w["pre_mlp_norm"], cfg.norm_eps)
-        x = x + mlp(h, w)
+
+        def attend(qg, k, v, i=i):
+            kv_cache["k"][i][b_idx, positions] = k.to(kv_cache["k"].dtype)
+            kv_cache["v"][i][b_idx, positions] = v.to(kv_cache["v"].dtype)
+            return _attend(qg, kv_cache["k"][i], kv_cache["v"][i], mask)
+
+        x = _layer(x, layer_weights(params, i, cfg), cfg, positions, attend)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_at is not None:
         x = x[torch.arange(B, device=x.device), logits_at.long()]  # [B, D]
     return unembed(x, params["embed"]), kv_cache
+
+
+def _layer(
+    x: torch.Tensor, w: dict[str, torch.Tensor], cfg: GemmaConfig, positions: torch.Tensor, attend
+) -> torch.Tensor:
+    """One decoder layer over [B, T, D]. ``attend(qg, k, v)`` takes the
+    roped queries [B, T, K, G, hd] and this chunk's roped keys and values
+    [B, T, K, hd] and returns the attention [B, T, K, G, hd]."""
+    B, T = x.shape[:2]
+    h = rms_norm(x, w["pre_attn_norm"], cfg.norm_eps)
+    q, k, v = qkv(h, w)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    qg = q.reshape(B, T, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    attn = attend(qg, k, v).reshape(B, T, cfg.n_heads * cfg.head_dim)
+    wo = w["wo"].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
+    x = x + torch.matmul(attn, wo)
+    h = rms_norm(x, w["pre_mlp_norm"], cfg.norm_eps)
+    return x + mlp(h, w)
 
 
 # -------------------------------------------------------------- entrypoints
@@ -238,3 +250,24 @@ def prefill(
         params, cfg, tokens, positions, kv_cache, causal & valid,
         logits_at=(seq_lens - 1) if last_only else None,
     )
+
+
+def train_forward(params: Params, cfg: GemmaConfig, tokens: torch.Tensor, seq_lens: torch.Tensor) -> torch.Tensor:
+    """Logits [B, T, V] of a padded [B, T] batch without a KV cache, for
+    training: what ``prefill`` gives over a fresh cache of exactly ``T``
+    slots (the reference trainer's loss, ``mcpx/models/train.py``), with the
+    same mask (causal, and keys at or past ``seq_lens`` masked out). Each
+    layer attends over its own keys and values, so nothing is written in
+    place and autograd can differentiate it."""
+    B, T = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(T, device=dev).expand(B, T)
+    s = torch.arange(T, device=dev)
+    mask = (s[None, None, :] <= positions[:, :, None]) & (s[None, None, :] < seq_lens.long().to(dev)[:, None, None])
+    dtype = torch_dtype(cfg.dtype)
+    x = embed_tokens(params["embed"], tokens, cfg)
+    for i in range(cfg.n_layers):
+        x = _layer(x, layer_weights(params, i, cfg), cfg, positions,
+                   lambda qg, k, v: _attend(qg, k.to(dtype), v.to(dtype), mask))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, params["embed"])

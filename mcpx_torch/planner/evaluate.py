@@ -1,0 +1,127 @@
+"""Offline planner evaluation: serve a checkpoint, score plan quality.
+
+The PyTorch port of ``mcpx/planner/evaluate.py``: one protocol shared by the
+``eval-planner`` CLI, ``chip_smoke.py`` and tests, with the reference's eval
+geometry (decode budget, shortlist width, registry seed), so they measure the
+same thing. The reference's ``use_pallas`` and ``interpret`` give way to
+``device``: on CUDA every forward attends through the port's CUDA kernel (there
+is no plain route on the card), on the CPU through its plain PyTorch version."""
+
+from __future__ import annotations
+
+import random
+
+
+async def evaluate_planner(
+    *,
+    checkpoint: str,
+    size: str = "test",
+    vocab: str = "bpe",
+    registry_size: int = 1000,
+    registry_seed: int = 0,
+    n_intents: int = 48,
+    seed: int = 1234,
+    shortlist_top_k: int = 6,
+    device=None,
+    constrain_names: str = "registry",
+    quantize: str = "none",
+) -> dict:
+    """Serve ``checkpoint`` through the real control plane (engine +
+    retrieval shortlist + grammar-constrained decode) against a synthetic
+    registry and return mean plan-quality + ``llm_share``. ``device`` is
+    where the control plane runs (None: CUDA, raising without a card).
+    ``constrain_names`` picks the serving grammar tier: "registry" (default —
+    one trie over all names, best batching) or "shortlist" (trie over only
+    the prompt's shortlist — the tightest constraint; a tiny model that
+    drifts to on-topic but non-shortlist names is forced back onto the
+    prompt's candidates, at the serving cost of per-shortlist grammars
+    splitting decode batches)."""
+    from mcpx_torch.core.config import MCPXConfig, PlannerConfig
+    from mcpx_torch.models.gemma.quant import is_quantized
+    from mcpx_torch.planner.heuristic import HeuristicPlanner
+    from mcpx_torch.planner.quality import mean_quality, node_f1, plan_quality
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    cfg = MCPXConfig.from_dict(
+        {
+            "model": {
+                "size": size,
+                "vocab": vocab,
+                "max_seq_len": 2048,
+                "checkpoint_path": checkpoint,
+                # "int8": serve the checkpoint weight-only quantized
+                # (models/gemma/quant.py) — the eval that shows whether
+                # plan quality survives int8 serving.
+                "quantize": quantize,
+            },
+            "engine": {
+                # The training corpus geometry (models/corpus.py): 128-token
+                # prompt budget + 64-token target budget (seq_len 192).
+                # Serving with less than the corpus's decode budget CLIPS the
+                # model: ~70% of teacher-grade plans run past 40 tokens, and
+                # the grammar's distance-to-accept steering then closes plans
+                # early — silently costing coverage and edges.
+                "max_batch_size": 16,
+                "max_decode_len": 64,
+                "kv_page_size": 64,
+                "max_pages_per_seq": 4,
+                "temperature": 0.0,
+                "warmup_compile": False,
+            },
+            "planner": {
+                "kind": "llm",
+                "max_plan_retries": 0,
+                "shortlist_top_k": shortlist_top_k,
+                "constrain_names": constrain_names,
+                # Eval measures the MODEL's raw emissions: serving-path
+                # normalization (dataflow rewiring/pruning) would mask
+                # imitation errors — pruning a model's bad edge must show
+                # up as incoherence here, not vanish.
+                "prune_dataflow_free_edges": False,
+            },
+        }
+    )
+    cp = build_control_plane(cfg, device=device)
+    records = synth_registry(registry_size, seed=registry_seed)
+    by_name = {r.name: r for r in records}
+    for rec in records:
+        await cp.registry.put(rec)
+    rng = random.Random(seed)
+    rows: list[dict] = []
+    origins: dict[str, int] = {}
+    f1s: list[float] = []
+    # Imitation-fidelity reference: the schema-chaining teacher the model
+    # was trained to imitate (models/corpus.py), planning over the SAME
+    # deterministic retrieval shortlist the served request used.
+    teacher = HeuristicPlanner(
+        PlannerConfig(kind="heuristic", shortlist_top_k=shortlist_top_k)
+    )
+    engine = cp.planner.engine
+    try:
+        await cp.startup()
+        for _ in range(n_intents):
+            intent = intent_for(records, rng, n_services=rng.randint(2, 4))
+            plan, _ms = await cp.plan(intent, use_cache=False)
+            origin = plan.origin or "unknown"
+            origins[origin] = origins.get(origin, 0) + 1
+            rows.append(plan_quality(plan, intent, by_name))
+            if origin == "llm":
+                # Fidelity is only meaningful for MODEL output: a fallback
+                # plan comes from the same schema-chaining algorithm as the
+                # teacher, so scoring it would award a broken checkpoint
+                # (llm_share 0) a perfect node_f1.
+                reference = await teacher.plan(intent, await cp._context(intent))
+                f1s.append(node_f1(plan, reference))
+        # How the weights were actually served — callers (the CLI, the
+        # smoke) echo this instead of re-deriving it from their own knobs.
+        served = "int8" if is_quantized(engine._params) else "none"
+    finally:
+        if engine.state != "closed":
+            await engine.aclose()
+    out = mean_quality(rows)
+    out["llm_share"] = origins.get("llm", 0) / max(1, sum(origins.values()))
+    out["node_f1"] = sum(f1s) / len(f1s) if f1s else 0.0
+    out["node_f1_n"] = len(f1s)
+    out["quantize"] = served
+    return out

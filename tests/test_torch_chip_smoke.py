@@ -6,7 +6,8 @@ exposition parser, its latency attribution against the reference bench's,
 and the phase itself on a CPU control plane), the mixed, speculation and
 heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines, and
 the int8, overload, chaos, observatory, 100k-registry (at a small size) and
-SentencePiece phases on CPU control planes."""
+SentencePiece phases on CPU control planes, and the offline phase (corpus,
+training, evaluation) with its margin helpers on the CPU."""
 
 import os
 import sys
@@ -532,3 +533,51 @@ def test_cluster_phase_runs_on_cpu_control_planes():
     assert 0 < run["warm_prefill_tokens"] < run["warm_prompt_tokens"] and run["restored_host_pages"] > 0
     assert {"kill", "resteer", "drain", "rejoin"} <= set(run["journal_counts"])
     assert run["retriever"] == "ShardedRetrievalIndex" and run["shards"] == [500, 500]
+
+
+def test_offline_phase_runs_on_the_cpu():
+    """Phase 23 at a small size on the CPU (48 rows over 120 services, the
+    test preset in the big run's place, 2 intents a tier): the corpus, the
+    parity run (the CPU against itself), the loss-drop gate, the big run's
+    gates and the evaluations at every tier; quality is gated on the card
+    only, against the reference's figures at its full protocol."""
+    out = chip_smoke.offline_phase("cpu", "cpu", n_examples=48, registry_size=120, parity_steps=2, test_steps=30,
+                                   big="test", big_steps=3, eval_intents=2, eval_registry=120, serve_trained=False)
+    assert out["train_test"]["final_loss"] < 0.7 * out["train_test"]["first_loss"]
+    big = out["train_big"]
+    assert big["n_params"] == 672384 and big["flop_per_step"] == 6 * 672384 * 8 * 192 and len(big["losses"]) == 3
+    assert set(out["eval_test"]) == set(chip_smoke.EVAL_REFERENCE)
+    for tier, q in out["eval_test"].items():
+        assert q["n"] == 2 and q["llm_share"] == 1.0 and q["quantize"] == chip_smoke.EVAL_REFERENCE[tier]["quantize"]
+        assert q["least_margin"] > 0 and all(t["margin"] < chip_smoke.NEAR_TIE for t in q["near_ties"])
+
+
+def test_stream_margin_is_masked_margin_at_every_position():
+    """``stream_margin``'s one prefill over a whole greedy stream gives, at
+    each position, what ``masked_margin``'s prefill of the stream's head
+    gives, and ``recording_margins`` puts the engine's method back."""
+    import asyncio
+
+    from mcpx_torch.engine.engine import InferenceEngine
+
+    real = InferenceEngine.generate
+
+    async def go():
+        engine = InferenceEngine(chip_smoke.config("test", chip_smoke.CKPT, 8), device="cpu")
+        await engine.start()
+        try:
+            prompt = engine.tokenizer.encode("Intent: fetch the user then score it\nJSON:")
+            recorded: list = []
+            with chip_smoke.recording_margins(recorded):
+                res = await engine.generate(prompt)
+            assert InferenceEngine.generate is real
+            least, at = chip_smoke.stream_margin(engine, prompt, {}, res.token_ids)
+            each = [chip_smoke.masked_margin(engine, prompt, {}, res.token_ids, k) for k in range(len(res.token_ids))]
+            return recorded, (least, at), each, res
+        finally:
+            await engine.aclose()
+
+    recorded, (least, at), each, res = asyncio.run(go())
+    assert recorded == [(least, at, res.text)]
+    assert at == min(range(len(each)), key=each.__getitem__)
+    assert abs(least - each[at]) < 1e-4

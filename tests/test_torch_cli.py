@@ -1,8 +1,10 @@
 """The port's CLI (``python -m mcpx_torch.cli``), held on the CPU: the
 reference's four CLI tests (``tests/test_cli.py``) mirrored on the port,
 with the control plane on ``device="cpu"``; ``gen-registry`` writes the
-reference's file byte for byte; and each reference command the port does not
-serve yet is refused by name with a non-zero exit."""
+reference's file byte for byte; the offline commands (``train-planner``,
+``eval-planner``, ``bench report``) are served with the reference's
+arguments and output; and ``lint``, not served yet, is refused by name
+with a non-zero exit."""
 
 import argparse
 import asyncio
@@ -117,22 +119,68 @@ def test_explain_cli_defaults_to_newest_trace(tmp_path, capsys):
     assert "error" in json.loads(capsys.readouterr().out.splitlines()[-1])
 
 
+EVAL_KEYS = {"coverage", "relevance", "coherence", "score", "n", "n_with_edges", "llm_share", "node_f1",
+             "node_f1_n", "quantize"}
+
+
 @pytest.mark.parametrize(
     "argv",
     [
-        ["train-planner", "--steps", "4"],
-        ["eval-planner", "--intents", "2"],
-        ["bench", "report", "BENCH_r01.json", "--format", "json"],
+        ["train-planner", "--device", "cpu", "--steps", "3", "--examples", "32", "--registry", "60"],
+        ["eval-planner", "--device", "cpu", "--intents", "2"],
+        ["bench", "report", "BENCH_r01.json", "BENCH_r11.json", "BENCH_r12.json", "--format", "json"],
         ["lint", "mcpx_torch", "--format", "json"],
     ],
     ids=lambda a: " ".join(a[:2]) if a[0] == "bench" else a[0],
 )
-def test_unported_commands_are_refused_by_name(argv, capsys):
+def test_unported_commands_are_refused_by_name(argv, capsys, tmp_path, monkeypatch):
+    """The reference's commands the port did not serve: ``lint`` is still
+    refused by name with exit 2; the offline commands are served now, with
+    the reference's arguments (``--device`` for ``--platform``) and output.
+    ``train-planner`` writes a checkpoint the reference's ``load_npz``
+    reads; ``eval-planner`` prints one JSON line with the reference's keys;
+    ``bench report`` prints the reference's report."""
     command = " ".join(argv[:2]) if argv[0] == "bench" else argv[0]
-    assert main(argv) == 2
-    err = capsys.readouterr().err
-    assert f"mcpx_torch {command}: not served" in err and REFUSED[command] in err
-    assert REFUSED[command].startswith(("item 6", "item 7"))
+    monkeypatch.chdir(ROOT)
+    if command in REFUSED:
+        assert main(argv) == 2
+        err = capsys.readouterr().err
+        assert f"mcpx_torch {command}: not served" in err and REFUSED[command] in err
+        assert REFUSED[command].startswith("item 7")
+        return
+    if command == "train-planner":
+        from mcpx.models.train import load_npz as jload_npz
+
+        out = tmp_path / "planner.npz"
+        assert main(argv + ["--out", str(out)]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        assert lines[0].startswith("corpus: 32 rows (dropped 0, filtered 0, teacher coverage 1.000) in ")
+        assert lines[1].startswith("step 0/3 loss ") and lines[-2].startswith("trained 3 steps in ")
+        assert lines[-1] == f"wrote {out}"
+        params = jload_npz(str(out))
+        assert params["layers"]["wq"].shape == (2, 128, 4, 32) and str(params["embed"].dtype) == "bfloat16"
+    elif command == "eval-planner":
+        assert main(argv) == 0
+        lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+        assert len(lines) == 1
+        out = json.loads(lines[0])
+        assert set(out) == EVAL_KEYS and out["n"] == 2 and out["quantize"] == "none"
+    else:
+        assert main(argv) == 0
+        port = capsys.readouterr().out
+        assert jmain(argv) == 0
+        assert port == capsys.readouterr().out and json.loads(port)["verdict"]
+
+
+def test_train_planner_default_out_stays_out_of_the_reference_package(monkeypatch):
+    """The reference's default ``--out`` is its committed checkpoint; the
+    port's is a file in the working directory, and the device the card."""
+    from mcpx_torch.cli import main as cli
+
+    parsed = {}
+    monkeypatch.setattr(cli, "cmd_train_planner", lambda args: parsed.update(vars(args)) or 0)
+    assert cli.main(["train-planner"]) == 0
+    assert parsed["out"] == "planner_test_bpe.npz" and parsed["device"] is None
 
 
 def test_module_entry_point_runs_and_refuses():

@@ -690,3 +690,31 @@ def test_a_closed_engine_leaves_nothing_allocated(cuda):
     assert footprint > 0 and first.state == second.state == "closed"
     assert abs(used2 - used1) <= 0.02 * footprint, (used1, used2)
     assert abs(after2 - after1) <= 0.02 * footprint, (after1, after2, base)
+
+
+@pytest.mark.cuda
+def test_a_training_step_on_the_card_matches_the_cpu(cuda):
+    """Three test-width training steps from the committed checkpoint in
+    float32 (the first at lr 0, as optax's schedule), on the card and on the
+    CPU over the same rows: the losses within 1e-4 relative, the weights
+    within 1e-4, and the card's run leaves TF32 off."""
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.corpus import CorpusConfig, build_corpus_sync
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.gemma.params import load_npz
+    from mcpx_torch.models.train import TrainConfig, flatten_params, train
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tok = BPETokenizer()
+    corpus = build_corpus_sync(tok, CorpusConfig(n_examples=48, registry_size=120, seed=3), device=cuda)
+    cfg = GemmaConfig.named("test", vocab_size=tok.vocab_size)
+    tcfg = TrainConfig(steps=3, batch_size=8, warmup_steps=1, log_every=1)
+    runs = {d: train(cfg, corpus, tcfg, device=d, init=load_npz(chip_smoke.CKPT, "cpu", torch.float32))
+            for d in (cuda, "cpu")}
+    (p_card, r_card), (p_cpu, r_cpu) = runs[cuda], runs["cpu"]
+    for (_, a), (_, b) in zip(r_card["loss_log"], r_cpu["loss_log"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (r_card["loss_log"], r_cpu["loss_log"])
+    flat_card, flat_cpu = flatten_params(p_card), flatten_params(p_cpu)
+    assert all(flat_card[k].device.type == "cuda" for k in flat_card)
+    for k, v in flat_cpu.items():
+        torch.testing.assert_close(flat_card[k].cpu(), v, rtol=0, atol=1e-4)

@@ -42,7 +42,8 @@ def _forbidden(module: str) -> bool:
 
 def test_walk_covers_every_module_of_the_port():
     """The walk sees every module, the int8, scheduler, resilience,
-    default-off telemetry, config-surface and cluster ones among them."""
+    default-off telemetry, config-surface, cluster and offline ones among
+    them."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in (
         "models/gemma/quant.py", "scheduler/admission.py", "scheduler/fairness.py",
@@ -52,7 +53,8 @@ def test_walk_covers_every_module_of_the_port():
         "telemetry/mirror.py", "utils/redis_client.py", "planner/mock.py", "registry/file.py",
         "registry/redis_backend.py", "models/sp_model.py", "ops/__init__.py", "cli/__init__.py",
         "cli/__main__.py", "cli/main.py", "cluster/__init__.py", "cluster/pool.py", "cluster/replica.py",
-        "cluster/routing.py", "cluster/sharding.py",
+        "cluster/routing.py", "cluster/sharding.py", "planner/quality.py", "planner/evaluate.py",
+        "models/corpus.py", "models/train.py", "models/gemma/convert.py", "cli/bench_report.py",
     ):
         assert f"mcpx_torch/{module}" in rel, module
 
