@@ -158,6 +158,22 @@ Phases, one line each (every number beside the card's name and power limit):
      checkpoint, 48 intents at the registry and shortlist tiers and int8,
      each within 0.05 of the reference's own CPU quality (``eval_test``,
      with the plans whose least top-2 margin is a near-tie);
+ 24. the parallel package (``parallel_phase``), every mesh a virtual mesh
+     of the card (one device at every coordinate: the ring's algebra in
+     full, its hops no-ops; no multi-card number): ring attention at 2b's
+     attention shape (K 1, G 8, hd 256, B 2, T 4096) on seq meshes of 2, 4
+     and 8 and data 2 x seq 4 against the dense ``_attend``, float32 within
+     2e-5, bf16's worst error, each route's ms and peak bytes
+     (``ring_attention_2b``); an engine on a ``data=4`` mesh serving /plan
+     prompts over a 64-service shortlist with ring prefill off, then at
+     their bucket, then a repeat, then a short prompt: the test preset in
+     float32 on the committed checkpoint, plans byte for byte
+     (``ring_serve_test``), and the 2b preset in bf16, near-ties explained
+     (``ring_serve_2b``), with a float32 one-cohort probe, ring within 1e-3
+     of dense (``ring_probe_2b``); phase 20's table on a ``model=2`` mesh,
+     shortlists equal (``retrieval_mesh``); phase 23's parity training on a
+     ``data=2`` and a hybrid mesh against none, losses within 1e-5
+     (``train_dp_test``); its wall time (``parallel``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -3447,10 +3463,12 @@ async def sp_phase(size: str, checkpoint: str, n_intents: int, card: str, batch:
 
 
 async def config_surface(card: str, sizes=(("test", CKPT, 16), ("2b", "", 8)), n: int = REGISTRY_N,
-                         batch: int = 64, device=None, threshold: int = 65536) -> list:
+                         batch: int = 64, device=None, threshold: int = 65536, keep: "dict | None" = None) -> list:
     """Phase 20 (``registry_index``, then ``registry_100k_<size>`` for each
     width on the one index, then ``registry_snapshot`` and
-    ``registry_sharded``) in a temporary directory the phase removes."""
+    ``registry_sharded``) in a temporary directory the phase removes.
+    ``keep``, when given, receives the built index and the intents of the
+    snapshot checks (``index``, ``intents``) for phase 24."""
     import tempfile
 
     from mcpx_torch.utils.synth import intent_for
@@ -3465,6 +3483,8 @@ async def config_surface(card: str, sizes=(("test", CKPT, 16), ("2b", "", 8)), n
         snap = os.path.join(d, "index.snap")
         await snapshot_phase(index, intents, card, snap, device=device)
         await sharded_phase(index, intents, card, snap, device=device)
+        if keep is not None:
+            keep.update(index=index, intents=intents)
         return runs
 
 
@@ -3770,7 +3790,7 @@ EVAL_REFERENCE = {
 EVAL_TOLERANCE = 0.05
 
 
-def timed_train(size: str, corpus, tcfg, device, init=None) -> tuple:
+def timed_train(size: str, corpus, tcfg, device, init=None, mesh=None) -> tuple:
     """``models.train.train`` at ``size`` (the BPE vocab), with the wall
     time at each logged step: ``log_fn`` runs after the step's loss is read
     back, so consecutive stamps bracket the steps between them. Returns
@@ -3782,7 +3802,7 @@ def timed_train(size: str, corpus, tcfg, device, init=None) -> tuple:
     cfg = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
     stamps: list = []
     t0 = time.monotonic()
-    params, report = train(cfg, corpus, tcfg, device=device, init=init,
+    params, report = train(cfg, corpus, tcfg, device=device, init=init, mesh=mesh,
                            log_fn=lambda _m: stamps.append(time.monotonic()))
     return params, report, stamps, time.monotonic() - t0
 
@@ -3956,6 +3976,441 @@ def offline_phase(card: str, device="cuda", *, n_examples: int = 512, registry_s
     return out
 
 
+# ------------------------------------------------------------ parallel (phase 24)
+RING_MESHES = {"seq2": dict(seq=2), "seq4": dict(seq=4), "seq8": dict(seq=8), "data2xseq4": dict(data=2, seq=4)}
+RING_TOL = 2e-5  # the reference test's float32 limit (tests/test_ring_attention.py)
+RING_TOP_K = 64  # services a long /plan prompt lists
+SHORT_PROMPT = "plan. JSON:"
+
+
+def dense_attention(q, k, v, seq_lens):
+    """The port's ``_attend`` under the causal and right-padding mask the ring
+    derives from ``seq_lens`` (the reference test's ``dense_reference``)."""
+    from mcpx_torch.models.gemma.model import _attend
+
+    B, T = q.shape[:2]
+    pos = torch.arange(T, device=q.device)
+    mask = (pos[None, None, :] <= pos[None, :, None]) & (pos[None, None, :] < seq_lens.long()[:, None, None])
+    return _attend(q, k, v, mask.expand(B, T, T))
+
+
+def route_run(fn, dev: torch.device, iters: int = 3) -> tuple:
+    """(output, ms a call, peak bytes above what was allocated before) of
+    ``fn``: one call, then ``iters`` timed ones. On the card the time is
+    between CUDA events and the peak ``max_memory_allocated``; on the CPU
+    host ms and no peak."""
+    out = fn()
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return out, (time.perf_counter() - t) * 1e3 / iters, None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b) / iters, torch.cuda.max_memory_allocated() - base
+
+
+def excess(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """Largest ``|got - want| - (atol + rtol |want|)``: at or below 0 where
+    ``allclose`` holds."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def ring_attention_check(card: str, dev: torch.device, T: int = 4096, B: int = 2, K: int = 1, G: int = 8,
+                         hd: int = 256) -> dict:
+    """``ring_attention_2b``: the ring on virtual seq meshes of the card
+    (``RING_MESHES``) against the dense ``_attend`` at 2b's attention shape,
+    float32 within ``RING_TOL`` on valid positions; bf16 ring and dense
+    against that float32 dense, worst error printed. Times and peak bytes
+    of each route."""
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.parallel.ring_attention import ring_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the float32 limit is the reference's, without TF32
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd), np.float32)).to(dev)
+    k = torch.from_numpy(rng.standard_normal((B, T, K, hd), np.float32)).to(dev)
+    v = torch.from_numpy(rng.standard_normal((B, T, K, hd), np.float32)).to(dev)
+    lens_np = np.concatenate([[T, 3], rng.integers(1, T + 1, max(B - 2, 0))])[:B]
+    lens = torch.from_numpy(lens_np).to(dev)
+    valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    bf = [t.bfloat16() for t in (q, k, v)]
+    dense, dense_ms, dense_peak = route_run(lambda: dense_attention(q, k, v, lens), dev)
+    dense16, dense16_ms, _ = route_run(lambda: dense_attention(*bf, lens), dev)
+    routes = {"dense": dict(ms=dense_ms, peak_bytes=dense_peak, ms_bf16=dense16_ms,
+                            bf16_max_abs_err=float((dense16.float() - dense)[valid].abs().max()))}
+    bad = []
+    for name, kw in RING_MESHES.items():
+        mesh = make_mesh(**kw, devices=[dev] * math.prod(kw.values()))
+        out, ms, peak = route_run(lambda: ring_attention(q, k, v, lens, mesh), dev)
+        out16, ms16, _ = route_run(lambda: ring_attention(*bf, lens, mesh), dev)
+        over = excess(out[valid], dense[valid], RING_TOL, RING_TOL)
+        routes[name] = dict(ms=ms, peak_bytes=peak, max_abs_err=float((out - dense)[valid].abs().max()),
+                            allclose_excess=over, ms_bf16=ms16,
+                            bf16_max_abs_err=float((out16.float() - dense)[valid].abs().max()))
+        if over > 0 or not bool(torch.isfinite(out).all()) or out.dtype != v.dtype:
+            bad.append(name)
+    stats = dict(B=B, T=T, K=K, G=G, head_dim=hd, seq_lens=lens_np.tolist(), rtol=RING_TOL, atol=RING_TOL,
+                 dense_scores_bytes=B * T * K * G * T * 4, routes=routes)
+    emit("ring_attention_2b", card, **stats)
+    if bad:
+        raise SystemExit(f"ring_attention: meshes {bad} leave the dense route beyond rtol = atol = {RING_TOL}")
+    return stats
+
+
+def ring_config(size: str, checkpoint: str, batch: int):
+    """Phases 5-6's settings with room for /plan prompts over a
+    ``RING_TOP_K``-service shortlist (about 450 tokens at the BPE vocab: the
+    512 bucket and the decode budget in 12 pages of 64 tokens, where the
+    serving phases' 4 pages would clamp the list), and the prefix cache
+    off for the cohort passes, so that a repeat is a full prefill again
+    (``ring_serve``'s radix pass turns it on). The seq view is armed here;
+    the threshold is set to the long prompts' bucket once their length is
+    known."""
+    cfg = config(size, checkpoint, batch)
+    cfg.engine.max_pages_per_seq = 12
+    cfg.engine.prefix_cache = False
+    cfg.engine.ring_prefill_min_tokens = 1
+    cfg.retrieval.top_k = cfg.planner.shortlist_top_k = RING_TOP_K
+    cfg.validate()
+    return cfg
+
+
+async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, float32: bool, batch: int = 64,
+                     device=None) -> tuple[dict, list, object]:
+    """``ring_serve_<size>``: an engine on a virtual ``data=4`` mesh of its
+    own device (its data coordinates viewed as a seq axis of 4), behind a
+    control plane over ``synth_registry(1000, seed=0)``. The burst's long
+    /plan prompts served as one cohort on the dense route (the engine as
+    ``ring_prefill_min_tokens=0`` builds it: no seq view), then with the
+    seq view back and the threshold at their bucket, then that burst once
+    more (which must capture nothing), then one short prompt alone, then,
+    with the prefix cache on, the longest prompt alone declaring its pages
+    as a shared head, whose cold radix build is a full prefill from 0.
+    Fails unless the dense pass rang nowhere, the plans are valid and equal
+    the dense pass's (byte for byte at test in float32; at 2b a differing
+    stream must be a near-tie), the ring counter equals the full prefills
+    at or over the threshold in the ring pass and in the radix build, the
+    short prompt stays dense, the radix-built row's tokens equal its dense
+    ones (or are a near-tie at 2b), the ragged kernel ran, and a mesh
+    naming another device is refused. Returns (stats, the long prompts'
+    ids, the engine's seq mesh)."""
+    from mcpx_torch.core.errors import EngineError
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.planner.llm import LLMPlanner
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    dev = torch.device("cuda" if device is None else device)
+    cfg = ring_config(size, checkpoint, batch)
+    model_cfg = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
+    if float32:
+        model_cfg = dataclasses.replace(model_cfg, dtype="float32")
+    other = torch.device("cuda", 1) if dev.type == "cuda" else torch.device("meta")
+    try:
+        InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=make_mesh(data=2, devices=[dev, other]))
+        raise SystemExit(f"ring_serve_{size}: a mesh naming {other} was not refused")
+    except EngineError as e:
+        refusal = str(e)
+    engine = InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=make_mesh(data=4, devices=[dev] * 4))
+    cp = build_control_plane(cfg, planner=LLMPlanner(engine, cfg.planner), device=dev)
+    records = synth_registry(1000, seed=0)
+    for rec in records:
+        await cp.registry.put(rec)
+    ecfg = engine.config.engine
+    prefills: list = []  # (width, ring) of every full prefill
+    real_prefill, real_generate = engine._dense_prefill, engine.generate
+    calls: dict = {}
+
+    def counting(tokens_d, lens_d, table_d, ring=False):
+        prefills.append((int(tokens_d.shape[1]), ring))
+        return real_prefill(tokens_d, lens_d, table_d, ring=ring)
+
+    async def recording(prompt_ids, **kw):
+        res = await real_generate(prompt_ids, **kw)
+        calls[tuple(prompt_ids)] = ({"temperature": 0.0, **kw}, res)
+        return res
+
+    async def burst(intents: list) -> tuple:
+        calls.clear()
+        with one_cohort(engine, len(intents)):
+            results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
+        for p, _ in results:
+            p.validate()
+        return [p for p, _ in results], dict(calls)
+
+    def rings() -> int:
+        return int(engine.metrics.ring_prefills._only().value)
+
+    try:
+        await cp.startup()
+        engine._dense_prefill, engine.generate = counting, recording
+        rng = random.Random(0)
+        intents = [intent_for(records, rng) for _ in range(n_intents)]
+        seq_mesh = engine._seq_mesh
+        if seq_mesh is None:
+            raise SystemExit(f"ring_serve_{size}: the engine armed no seq view on {engine._mesh}")
+        await idle(engine)
+        # The dense pass: the engine as ``ring_prefill_min_tokens=0`` leaves
+        # it (no seq view), so no prefill can take the ring route.
+        engine._seq_mesh, ecfg.ring_prefill_min_tokens = None, 0
+        r_dense = rings()
+        dense_plans, dense_calls = await burst(intents)
+        dense_prefills, dense_rings = list(prefills), rings() - r_dense
+        lengths = sorted(len(p) for p in dense_calls)
+        long_T = max(w for w, _ in dense_prefills)
+        await idle(engine)
+        engine._seq_mesh, ecfg.ring_prefill_min_tokens = seq_mesh, long_T
+        prefills.clear()
+        q0, r0 = engine.queue_stats(), rings()
+        sync()
+        reset_kernel_launches()
+        t0 = time.monotonic()
+        ring_plans, ring_calls = await burst(intents)
+        wall = time.monotonic() - t0
+        sync()
+        launches = kernel_launches()
+        q1 = engine.queue_stats()
+        repeat_plans, _ = await burst(intents)
+        q2 = engine.queue_stats()
+        served_prefills, ring_count = list(prefills), rings() - r0
+        prefills.clear()
+        await idle(engine)
+        short = await real_generate(engine.tokenizer.encode(SHORT_PROMPT), max_new_tokens=24)
+        short_prefills, short_rings = list(prefills), rings() - r0 - ring_count
+        prompts = sorted(ring_calls)
+        # The radix build: the longest prompt declares its pages (as many as
+        # leave a bucket and the decode budget) as a shared head; the tree is
+        # empty, so the head is a full prefill from 0 at the head's bucket,
+        # and the rest of the row a suffix prefill through the ragged kernel.
+        await idle(engine)
+        psz, head = ecfg.kv_page_size, max(prompts, key=len)
+        room = ecfg.max_pages_per_seq * psz - engine._prefill_buckets[0] - ecfg.max_decode_len
+        head_len = min(len(head) - 1, room) // psz * psz
+        radix_T = min(b for b in engine._prefill_buckets if b >= head_len)
+        ecfg.prefix_cache, ecfg.ring_prefill_min_tokens = True, radix_T
+        prefills.clear()
+        r_radix = rings()
+        head_kw = {**dense_calls[head][0], "shared_prefix_len": head_len}
+        radix = await real_generate(list(head), **head_kw)
+        radix_prefills, radix_rings = list(prefills), rings() - r_radix
+        if prompts != sorted(dense_calls):
+            raise SystemExit(f"ring_serve_{size}: the two passes rendered different prompts")
+        differ = [i for i, (a, b) in enumerate(zip(dense_plans, ring_plans)) if a.to_json() != b.to_json()]
+        ties = greedy_differences(f"ring_serve_{size}", size, card, engine,
+                                  {i: (list(p), *dense_calls[p]) for i, p in enumerate(prompts)},
+                                  {i: (list(p), *ring_calls[p]) for i, p in enumerate(prompts)})
+        radix_ties = greedy_differences(f"ring_serve_{size} radix", size, card, engine,
+                                        {0: (list(head), *dense_calls[head])}, {0: (list(head), head_kw, radix)})
+    finally:
+        engine._dense_prefill, engine.generate = real_prefill, real_generate
+        await cp.aclose()
+    if dev.type == "cuda":
+        check_tickets(f"ring_serve_{size}")
+    expected = sum(1 for w, _ in served_prefills if w >= long_T)
+    stats = dict(
+        model=size, dtype=model_cfg.dtype, intents=n_intents, shortlist=RING_TOP_K, prompt_tokens=lengths,
+        threshold=long_T, seq_mesh=dict(seq_mesh.shape), dense_full_prefills=dense_prefills,
+        dense_ring_prefills=dense_rings, full_prefills=served_prefills,
+        ring_prefills=ring_count, expected_ring_prefills=expected, short_prompt_tokens=len(
+            engine.tokenizer.encode(SHORT_PROMPT)), short_prefills=short_prefills, short_rings=short_rings,
+        short_tokens=len(short.token_ids), radix_head_tokens=head_len, radix_threshold=radix_T,
+        radix_full_prefills=radix_prefills, radix_ring_prefills=radix_rings,
+        radix_tokens_equal=radix.token_ids == dense_calls[head][1].token_ids, radix_near_ties=radix_ties,
+        plans_differing=differ, near_ties=ties,
+        repeat_equal=[p.to_json() for p in repeat_plans] == [p.to_json() for p in ring_plans],
+        wall_s=wall, plans_per_s=n_intents / wall, launches=launches,
+        **loop_counts(engine, q0, q1, n_intents), repeat_captures=q2["captures"] - q1["captures"],
+        other_device_refused=refusal,
+    )
+    emit(f"ring_serve_{size}", card, **stats)
+    no_new_captures(f"ring_serve_{size} repeat", q1, q2)
+    if dense_rings or any(r for _, r in dense_prefills) or not dense_prefills:
+        raise SystemExit(f"ring_serve_{size}: the dense pass rang: {dense_rings} ring prefills, {dense_prefills}")
+    if radix_rings != 1 or radix_prefills != [(radix_T, True)]:
+        raise SystemExit(f"ring_serve_{size}: the radix build did not ring once: {radix_rings}, {radix_prefills}")
+    if radix_ties and max(radix_ties) >= NEAR_TIE:
+        raise SystemExit(f"ring_serve_{size}: the radix-built row differs, not a near-tie ({radix_ties})")
+    if ring_count != expected or expected <= 0 or any(r != (w >= long_T) for w, r in served_prefills):
+        raise SystemExit(f"ring_serve_{size}: {ring_count} ring prefills for {served_prefills} at threshold {long_T}")
+    if short_rings or any(r for _, r in short_prefills) or not short_prefills:
+        raise SystemExit(f"ring_serve_{size}: the short prompt rang or never prefilled: {short_prefills}")
+    if launches.get("ragged_paged_attention", 0) <= 0 and dev.type == "cuda":
+        raise SystemExit(f"ring_serve_{size}: the ragged kernel never ran after the ring prefill")
+    if size == "test" and (differ or not stats["repeat_equal"]):
+        raise SystemExit(f"ring_serve_{size}: ring plans differ from the dense route's at {differ}")
+    if ties and max(ties) >= NEAR_TIE or differ and not ties:
+        raise SystemExit(f"ring_serve_{size}: plans differ at {differ}, not near-ties ({ties})")
+    return stats, [list(p) for p in prompts], seq_mesh
+
+
+def ring_probe(size: str, card: str, prompts: list, T: int, mesh, dev: torch.device, limit: float = 1e-3) -> dict:
+    """``ring_probe_<size>``: the long prompts as one cohort of width ``T``
+    at ``size``
+    with random weights from seed 0 in float32, ring prefill over ``mesh``
+    against dense prefill: last-token logits within ``limit`` (the forward
+    check's); then both routes in bf16 (the same weights cast), each one's
+    worst error against the float32 dense logits."""
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.gemma.model import init_kv_cache, prefill
+    from mcpx_torch.models.gemma.params import load_or_init
+    from mcpx_torch.parallel.ring_attention import ring_prefill
+
+    tok = BPETokenizer()
+    tokens = torch.full((len(prompts), T), tok.pad_id, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts])
+    tokens, lens = tokens.to(dev), lens.to(dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(GemmaConfig.named(size, vocab_size=tok.vocab_size), dtype=dtype)
+        params, _ = load_or_init(dataclasses.replace(cfg, dtype="float32"), device=dev, seed=0)
+        if dtype == "bfloat16":
+            params = {k: {kk: vv.bfloat16() for kk, vv in v.items()} if isinstance(v, dict) else v.bfloat16()
+                      for k, v in params.items()}
+        with torch.inference_mode():
+            dense, _ = prefill(params, cfg, tokens, lens, init_kv_cache(cfg, len(prompts), T, device=dev),
+                               last_only=True)
+            ring, _ = ring_prefill(params, cfg, tokens, lens, mesh, init_kv_cache(cfg, len(prompts), T, device=dev),
+                                   last_only=True)
+        out[dtype] = (dense.float(), ring.float())
+        del params
+        gc.collect()
+    ref = out["float32"][0]
+    stats = dict(model=size, rows=len(prompts), width=T, seq_mesh=dict(mesh.shape),
+                 float32_ring_vs_dense=float((out["float32"][1] - ref).abs().max()), limit=limit,
+                 bf16_dense_vs_float32=float((out["bfloat16"][0] - ref).abs().max()),
+                 bf16_ring_vs_float32=float((out["bfloat16"][1] - ref).abs().max()),
+                 finite=all(bool(torch.isfinite(t).all()) for pair in out.values() for t in pair))
+    emit(f"ring_probe_{size}", card, **stats)
+    if not stats["finite"] or stats["float32_ring_vs_dense"] > limit:
+        raise SystemExit(f"ring_probe_{size}: ring logits leave the dense route's: {stats}")
+    return stats
+
+
+async def retrieval_mesh(index, intents: list, card: str, device=None, rounds: int = 4) -> dict:
+    """``retrieval_mesh``: phase 20's table (``index``, unmeshed on its
+    device) saved and loaded into an index on a virtual ``model=2`` mesh of
+    that device: two row shards, each ranked there, merged on the host.
+    Every intent's shortlist must equal the unmeshed index's; both rankings
+    timed on an idle card, p50 and p99."""
+    import tempfile
+
+    from mcpx_torch.core.config import PlannerConfig
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.retrieval.index import RetrievalIndex, RowShards
+
+    dev = torch.device("cuda" if device is None else device)
+    k = PlannerConfig().shortlist_top_k
+    meshed = RetrievalIndex(index.config, device=dev, mesh=make_mesh(model=2, devices=[dev] * 2))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "index.snap")
+        index.save(path)
+        t0 = time.monotonic()
+        meshed.load(path)
+        load_s = time.monotonic() - t0
+    differ = [i for i in intents if await meshed.shortlist(i, k) != await index.shortlist(i, k)]
+    probes = [index.embedder.embed(i) for i in intents]
+    timed = {"meshed": [], "unmeshed": []}
+    for _ in range(rounds):
+        for q in probes:
+            t = time.perf_counter()
+            meshed._device_topk(q, k)
+            t1 = time.perf_counter()
+            index._device_topk(q, k)
+            timed["meshed"].append((t1 - t) * 1e3)
+            timed["unmeshed"].append((time.perf_counter() - t1) * 1e3)
+    table = meshed._table
+    parts = table.parts if isinstance(table, RowShards) else []
+    stats = dict(rows=index.size, mesh=dict(meshed._mesh.shape), shards=[int(p.shape[0]) for p in parts],
+                 shard_devices=sorted({str(p.device) for p in parts}), load_s=load_s, intents=len(intents),
+                 differing=differ[:3], rank_ms={name: quantiles_ms(v) for name, v in timed.items()})
+    emit("retrieval_mesh", card, **stats)
+    if differ or len(parts) != 2 or stats["shard_devices"] != [str(index._table.device)]:
+        raise SystemExit(f"retrieval_mesh: shortlists differ from the unmeshed index's or shards misplaced: {stats}")
+    return stats
+
+
+def train_dp(card: str, device=None, *, n_examples: int = 512, steps: int = 20, batch: int = 24,
+             registry_size: int = 1000) -> dict:
+    """``train_dp_test``: phase 23's parity geometry (the test preset in
+    float32 from the committed checkpoint, batch 24, lr 3e-3, warmup 5)
+    with ``mesh=None``, on a virtual ``data=2`` mesh and on a hybrid
+    (dcn_data 2, data 2) mesh of the device: every step's loss within 1e-5
+    relative of the unmeshed run's (the CPU parity test's limit)."""
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.corpus import CorpusConfig, build_corpus_sync
+    from mcpx_torch.models.gemma.params import load_npz
+    from mcpx_torch.models.train import TrainConfig, _batch_shards, flatten_params
+    from mcpx_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+
+    dev = torch.device("cuda" if device is None else device)
+    corpus = build_corpus_sync(BPETokenizer(), CorpusConfig(n_examples=n_examples, registry_size=registry_size,
+                                                            seed=0), device=dev)
+    tcfg = TrainConfig(steps=steps, batch_size=batch, lr=3e-3, warmup_steps=5, log_every=1)
+    meshes = {"none": None, "data2": make_mesh(data=2, devices=[dev] * 2),
+              "hybrid2x2x1": make_hybrid_mesh(2, 2, 1, devices=[dev] * 4)}
+    runs = {}
+    for name, mesh in meshes.items():
+        params, report, stamps, _ = timed_train("test", corpus, tcfg, dev, init=load_npz(CKPT, "cpu", torch.float32),
+                                                mesh=mesh)
+        runs[name] = dict(params=flatten_params(params), losses=[x for _, x in report["loss_log"]],
+                          shards=len(_batch_shards(mesh, batch)), step_ms=per_step_ms(stamps, steps - 1),
+                          eval_token_accuracy=report.get("eval_token_accuracy"))
+    base = runs["none"]
+    out = {}
+    for name, r in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], base["losses"]))
+        err = max(float((r["params"][k] - base["params"][k]).abs().max()) for k in base["params"])
+        out[name] = dict(shards=r["shards"], losses=r["losses"], max_rel_loss_err=rel, max_abs_param_err=err,
+                         step_ms=r["step_ms"], eval_token_accuracy=r["eval_token_accuracy"])
+    stats = dict(model="test", dtype="float32", batch=batch, steps=steps, rtol=1e-5, runs=out)
+    emit("train_dp_test", card, **stats)
+    bad = [n for n, r in out.items() if len(r["losses"]) != steps or r["max_rel_loss_err"] > 1e-5]
+    if bad or out["data2"]["shards"] != 2 or out["hybrid2x2x1"]["shards"] != 4:
+        raise SystemExit(f"train_dp_test: runs {bad} leave the unmeshed losses beyond 1e-5 relative: {stats}")
+    return stats
+
+
+def parallel_phase(card: str, index=None, intents: list = (), device=None, *, T: int = 4096, big: str = "2b",
+                   n_test: int = 8, n_big: int = 8, batch: int = 64, n_examples: int = 512, registry_size: int = 1000,
+                   train_steps: int = 20, train_batch: int = 24) -> dict:
+    """Phase 24, the parallel package on ``device`` (the card unless the
+    caller asks for the CPU): ``ring_attention_2b``; ``ring_serve_test``
+    (float32, the committed checkpoint); ``ring_serve_<big>`` (random bf16
+    weights) with its float32 ``ring_probe_<big>``; ``retrieval_mesh`` on
+    phase 20's ``index`` and ``intents`` when given; ``train_dp_test``.
+    Returns each line's stats and the phase's wall seconds."""
+    dev = torch.device("cuda" if device is None else device)
+    t0 = time.monotonic()
+    out = {"ring_attention": ring_attention_check(card, dev, T=T)}
+    out["ring_serve_test"], _, _ = asyncio.run(ring_serve("test", CKPT, n_test, card, float32=True, batch=batch,
+                                                          device=dev))
+    out[f"ring_serve_{big}"], prompts, seq_mesh = asyncio.run(
+        ring_serve(big, "", n_big, card, float32=False, batch=batch, device=dev))
+    out["ring_probe"] = ring_probe(big, card, prompts, out[f"ring_serve_{big}"]["threshold"], seq_mesh, dev)
+    if index is not None:
+        out["retrieval_mesh"] = asyncio.run(retrieval_mesh(index, list(intents), card, device=dev))
+    out["train_dp_test"] = train_dp(card, dev, n_examples=n_examples, steps=train_steps, batch=train_batch,
+                                    registry_size=registry_size)
+    out["wall_s"] = time.monotonic() - t0
+    emit("parallel", card, wall_s=out["wall_s"])
+    return out
+
+
 def n_bytes_of(engine) -> int:
     from mcpx_torch.models.gemma.params import n_bytes
 
@@ -4045,13 +4500,15 @@ def main(argv: list[str]) -> int:
              timed("tier_2b", asyncio.run, tier_phase("2b", "", card))]
     for size in ("test", "2b"):
         timed(f"tier_roundtrip_{size}", tier_roundtrip, size, card)
-    surface = timed("registry_100k", asyncio.run, config_surface(card))
+    table: dict = {}
+    surface = timed("registry_100k", asyncio.run, config_surface(card, keep=table))
     sp = timed("sp_2b", asyncio.run, sp_phase("2b", "", 8, card))
     clusters = [
         timed("cluster_test", asyncio.run, cluster_phase("test", CKPT, 16, card, trained, trained_plans)),
         timed("cluster_2b", asyncio.run, cluster_phase("2b", "", 8, card, full, full_plans)),
     ]
     offline = timed("offline", offline_phase, card)
+    parallel = timed("parallel", parallel_phase, card, table["index"], table["intents"])
     emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
@@ -4059,7 +4516,8 @@ def main(argv: list[str]) -> int:
         mx[m] for mx in (trained_mixed, full_mixed) for m in ("drain", "hetero")
     ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero] + [
         t[m] for t in tiers for m in ("single", "tiered", "thrash", "chaos")
-    ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs, *surface, sp, offline["train_serve_test"]]
+    ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs, *surface, sp, offline["train_serve_test"],
+         parallel["ring_serve_test"], parallel["ring_serve_2b"]]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

@@ -3,11 +3,12 @@
 The PyTorch port of ``mcpx/cluster/sharding.py``. At 100k services the
 ``[N, d]`` embedding table stops being a thing every replica should hold
 whole next to its model weights. The sharded index splits the table into
-contiguous row ranges — one shard per replica by default — places each on
-the index's device (on CUDA on the index's own stream, as the unsharded
-table is placed), ranks each with the parent's ``_device_topk`` (score
-descending, row ascending on ties) and merges the per-shard (score,
-global_row) candidates on the host: k floats + k ints per shard.
+contiguous row ranges — one shard per replica by default — places each as
+the parent places a table (on the index's device, on CUDA on the index's own
+stream; under a mesh its rows split again over the ``model`` axis), ranks
+each with the parent's ``_device_topk`` (score descending, row ascending on
+ties) and merges the per-shard (score, global_row) candidates on the host:
+k floats + k ints per shard.
 
 The merge is exact: the global top-k is always contained in the union of
 shard-local top-ks (every global winner is a winner of its own shard), so
@@ -40,10 +41,11 @@ class ShardedRetrievalIndex(RetrievalIndex):
         n_shards: int = 2,
         embedder=None,
         device: "torch.device | str | None" = None,
+        mesh=None,
     ) -> None:
-        super().__init__(config, embedder=embedder, device=device)
+        super().__init__(config, embedder=embedder, device=device, mesh=mesh)
         self.n_shards = max(1, int(n_shards))
-        self._shards: list[torch.Tensor] = []  # per-shard device tables
+        self._shards: list = []  # per-shard device tables (or their RowShards under a mesh)
         self._offsets: list[int] = []  # global row of each shard's row 0
 
     # ------------------------------------------------------------- placement

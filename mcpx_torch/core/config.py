@@ -10,11 +10,10 @@ application factory, never at import.
 A copy of the reference package's config tree, so the same dicts load in
 both packages. The port reads what its slices serve (the HTTP server, the
 engine, the planner, the scheduler, resilience and telemetry, its
-default-off parts included, retrieval and the cluster layer); the engine
-refuses by name the one option of a part not ported yet
-(``engine.ring_prefill_min_tokens``), and fields the port has no use for
-(the mesh, ``use_pallas`` and ``interpret``: the tensor's device picks the
-attention route) are accepted and ignored.
+default-off parts included, retrieval, the cluster layer and ring
+prefill). ``engine.data_axis`` and ``engine.model_axis`` feed the engine's
+``_mesh_axes`` over its one device; ``use_pallas`` and ``interpret`` are
+accepted and ignored (the tensor's device picks the attention route).
 """
 
 from __future__ import annotations
@@ -148,10 +147,10 @@ class KVTierConfig:
 
 @dataclass
 class EngineConfig:
-    # Mesh axis sizes. 0 = auto: cover every visible device (TP over the
-    # largest head-dividing factor, keeping a data axis >= 2 when possible —
-    # 2x4 on a v5e-8 with 8-head Gemma-2B). Explicit values are clamped to
-    # the device count.
+    # Mesh axis sizes. 0 = auto: cover every device of the engine (TP over
+    # the largest head-dividing factor, keeping a data axis >= 2 when
+    # possible). Explicit values are clamped to the device count; the
+    # port's engine has one device, so its built mesh is 1 x 1.
     data_axis: int = 0
     model_axis: int = 0
     kv_page_size: int = 16  # tokens per KV page
@@ -232,12 +231,13 @@ class EngineConfig:
     admit_max_wait_s: float = 0.15
     max_decode_len: int = 512
     # Long-prompt routing: full prefills whose padded length reaches this
-    # threshold run as sequence-parallel RING prefill (ppermute ring over
-    # the mesh's data devices re-viewed as a seq axis) instead of one
-    # dense [B, T, S]-masked pass. 0 disables. Requires a data axis >= 2;
-    # buckets not divisible by the seq axis fall back to dense. Planner
-    # prompts are short by design (retrieval shortlists, SURVEY.md §5), so
-    # this serves the long-context /plan tail, not the common case.
+    # threshold run as sequence-parallel RING prefill (K/V blocks passed
+    # around the engine mesh's seq axis, or its data devices viewed as one)
+    # instead of one dense [B, T, S]-masked pass. 0 disables. Needs a seq
+    # or data axis >= 2, which on one card is a virtual mesh passed to the
+    # engine (InferenceEngine(mesh=...)); buckets not divisible by the seq
+    # axis stay dense. Planner prompts are short by design, so this serves
+    # the long-context /plan tail, not the common case.
     ring_prefill_min_tokens: int = 0
     # Sampling defaults: temperature matches the reference planner call,
     # control_plane.py:72.

@@ -115,9 +115,15 @@ whose dequantized temporaries come from the graph's pool), the embedding
 gathered and the unembedding scaled per row; the KV pools stay in the
 model's dtype, so attention still goes through the ragged kernel.
 
-Left out for later slices: ring prefill and multi-GPU; their metric series
-exist and stay at 0. A config that asks for ``ring_prefill_min_tokens`` is
-refused at construction.
+The mesh (``parallel/mesh.py``): ``mesh=None`` builds ``_mesh_axes`` over
+the engine's one device (1 x 1, as the reference on one chip); an injected
+mesh must be a virtual mesh of the engine's own device (TP/DP serving over
+several cards is ROADMAP Queue A item 5b), on which the weights stay whole.
+Long-prompt ring prefill (``engine.ring_prefill_min_tokens``): a full
+prefill whose bucket reaches the threshold and divides the seq axis runs
+``parallel.ring_attention.ring_prefill`` over ``_seq_mesh`` (an injected
+seq axis, else the data devices viewed as one), eagerly as dense prefill
+runs; ``metrics.ring_prefills`` counts the serving ones.
 
 The device is explicit: ``device=None`` means CUDA and raises when CUDA is
 absent; tests pass ``device="cpu"``. The tensors' device decides the
@@ -172,6 +178,8 @@ from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import init_kv_cache, prefill, torch_dtype
 from mcpx_torch.models.gemma.params import load_or_init
 from mcpx_torch.models.tokenizer import make_tokenizer
+from mcpx_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, is_virtual, make_mesh
+from mcpx_torch.parallel.ring_attention import ring_prefill
 from mcpx_torch.planner.grammar import (
     _DIST_INF,
     PlanGrammar,
@@ -607,15 +615,23 @@ class InferenceEngine:
         *,
         device: "torch.device | str | None" = None,
         metrics: Optional[Metrics] = None,
+        mesh=None,
     ) -> None:
         self.config = config or MCPXConfig()
         ecfg = self.config.engine
-        if ecfg.ring_prefill_min_tokens > 0:
-            raise EngineError("engine.ring_prefill_min_tokens > 0: not served by the PyTorch port yet")
         # Weight-only int8 (models/gemma/quant.py): the forwards dequantize
         # one layer at a time; the costs bill one byte a weight.
         self._quantized = self.config.model.quantize == "int8"
         self.device = resolve_device(device)
+        if mesh is not None and not is_virtual(mesh, self.device):
+            raise EngineError(
+                f"{mesh}: the engine serves a mesh of its own device ({self.device}) only; TP/DP "
+                "serving over several cards is ROADMAP Queue A item 5b"
+            )
+        # The serving mesh (built in _setup when not injected) and its seq
+        # view for ring prefill (None: every full prefill is dense).
+        self._mesh = mesh
+        self._seq_mesh = None
         self.tokenizer = make_tokenizer(self.config.model.vocab)
         self.model_cfg = model_cfg or GemmaConfig.named(
             self.config.model.size,
@@ -1342,12 +1358,55 @@ class InferenceEngine:
         return torch.where(feasible, finishable, legal)
 
     # --------------------------------------------------------------- worker
+    def _mesh_axes(self, n_devices: int) -> tuple[int, int]:
+        """(data, model) axis sizes, the reference's rule. Config 0 = auto:
+        cover every device, TP over the largest head-dividing factor, but
+        keep a data axis of at least 2 when possible. Explicit axes are
+        clamped to the device count; an axis left at 0 beside an explicit
+        one absorbs the remaining devices."""
+        ecfg = self.config.engine
+        if ecfg.model_axis > 0 or ecfg.data_axis > 0:
+            if ecfg.model_axis > 0:
+                model = min(ecfg.model_axis, n_devices)
+                data = (
+                    min(ecfg.data_axis, max(1, n_devices // model))
+                    if ecfg.data_axis > 0
+                    else max(1, n_devices // model)
+                )
+            else:
+                data = min(ecfg.data_axis, n_devices)
+                model = max(1, n_devices // data)
+            return data, model
+        model = math.gcd(n_devices, self.model_cfg.n_heads)
+        if model == n_devices and model > 1:
+            # Leave a data axis: shrink model by its smallest prime factor.
+            spf = next(p for p in range(2, model + 1) if model % p == 0)
+            model //= spf
+        return n_devices // model, model
+
     def _setup(self) -> None:
         ecfg = self.config.engine
+        if self._mesh is None:
+            # The engine's device list is its one explicit device.
+            data, model = self._mesh_axes(1)
+            self._mesh = make_mesh(data=data, model=model, devices=[self.device] * (data * model))
         self._params, source = load_or_init(
             self.model_cfg, self.config.model.checkpoint_path, device=self.device,
-            quantize=self.config.model.quantize,
+            quantize=self.config.model.quantize, mesh=self._mesh,
         )
+        # Long-prompt routing: an injected mesh with a seq axis is used as it
+        # is; otherwise the data devices are viewed again as a seq axis, in
+        # the same order. Armed only when routing can trigger.
+        self._seq_mesh = None
+        if ecfg.ring_prefill_min_tokens > 0:
+            n_data = self._mesh.shape.get(DATA_AXIS, 1)
+            if self._mesh.shape.get(SEQ_AXIS, 1) > 1:
+                self._seq_mesh = self._mesh
+            elif n_data > 1:
+                self._seq_mesh = make_mesh(
+                    data=1, seq=n_data, model=self._mesh.shape.get(MODEL_AXIS, 1),
+                    devices=list(self._mesh.devices.flat),
+                )
         log.info("weights: %s on %s", source, self.device)
         self._paged_kv = init_paged_kv(
             self.model_cfg, self._allocator.n_pages, ecfg.kv_page_size, self.device
@@ -1883,7 +1942,12 @@ class InferenceEngine:
             if n > 0:
                 self._suffix_prefill(up(tokens), lens, up(np.asarray([n], np.int64)), up(table))
             else:
-                self._dense_prefill(up(tokens), lens, up(table))
+                # Long shared heads are the prime ring workload: routed as
+                # any full prefill.
+                ring = self._ring_ok(T)
+                if ring:
+                    self.metrics.ring_prefills.inc()
+                self._dense_prefill(up(tokens), lens, up(table), ring=ring)
         except BaseException:
             cache.rollback(node)
             raise
@@ -1901,9 +1965,19 @@ class InferenceEngine:
         self._prefix_cache.max_nodes = max(0, self.config.engine.prefix_cache_entries)
         self._prefix_cache.evict(need_tokens)
 
-    def _dense_prefill(self, tokens_d, lens_d, table_d) -> torch.Tensor:
+    def _ring_ok(self, T: int) -> bool:
+        """True when a ``T``-token full prefill takes the ring route: the
+        threshold is met, a seq mesh exists, and the bucket divides the seq
+        axis. A pure predicate: the metric counts at the serving call sites."""
+        if self._seq_mesh is None or T < self.config.engine.ring_prefill_min_tokens:
+            return False
+        return T % self._seq_mesh.shape[SEQ_AXIS] == 0
+
+    def _dense_prefill(self, tokens_d, lens_d, table_d, ring: bool = False) -> torch.Tensor:
         """Full prefill of [A, T] prompts from position 0, its K/V scattered
-        into the page pools; returns each row's last-token logits."""
+        into the page pools; returns each row's last-token logits. ``ring``:
+        the causal pass runs as ring attention over ``_seq_mesh`` (no
+        [A, T, T] mask or score matrix exists), with the same contract."""
         A, T = tokens_d.shape
         cfg = self.model_cfg
         self._pf_entry = self.costs.record("prefill", (A, T), lambda: forward_cost(
@@ -1911,7 +1985,12 @@ class InferenceEngine:
             quantized=self._quantized,
         ))
         dense = init_kv_cache(self.model_cfg, A, T, device=self.device)
-        last, dense = prefill(self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True)
+        if ring:
+            last, dense = ring_prefill(
+                self._params, self.model_cfg, tokens_d, lens_d, self._seq_mesh, dense, last_only=True
+            )
+        else:
+            last, dense = prefill(self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True)
         commit_prefill_to_pages(self._paged_kv, dense, table_d, lens_d, self.config.engine.kv_page_size)
         return last
 
@@ -2419,7 +2498,10 @@ class InferenceEngine:
             if bool(positions.any()):
                 last_logits = self._suffix_prefill(tokens_d, lens_d, pos_d, table_d)
             else:
-                last_logits = self._dense_prefill(tokens_d, lens_d, table_d)
+                ring = self._ring_ok(tokens.shape[1])
+                if ring:
+                    self.metrics.ring_prefills.inc()
+                last_logits = self._dense_prefill(tokens_d, lens_d, table_d, ring=ring)
             # The prefill writing this cohort's inserted nodes is launched:
             # later launches on the stream run after it, so they may read them.
             cache.seal()

@@ -184,22 +184,27 @@ def forward(
     positions: torch.Tensor,
     kv_cache: KVCache,
     mask: torch.Tensor,
+    attend_fn=None,
     logits_at: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Forward over a [B, T] chunk against a dense [L, B, S, K, hd] cache.
     ``positions`` [B, T] are absolute and double as cache write slots;
-    ``mask`` is [B, T, S] (True = attend). ``logits_at`` [B]: unembed only
-    that position per row -> [B, V]. The cache is updated in place and
-    returned."""
+    ``mask`` is [B, T, S] (True = attend). ``attend_fn(qg, k_cache,
+    v_cache, mask)`` swaps the attention op over the layer's cache after
+    this chunk's K/V are written into it (ring attention for
+    sequence-parallel prefill); ``mask`` reaches only it. ``logits_at`` [B]:
+    unembed only that position per row -> [B, V]. The cache is updated in
+    place and returned."""
     B, T = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg)
     b_idx = torch.arange(B, device=tokens.device)[:, None]
+    attend_fn = attend_fn or _attend
     for i in range(cfg.n_layers):
 
         def attend(qg, k, v, i=i):
             kv_cache["k"][i][b_idx, positions] = k.to(kv_cache["k"].dtype)
             kv_cache["v"][i][b_idx, positions] = v.to(kv_cache["v"].dtype)
-            return _attend(qg, kv_cache["k"][i], kv_cache["v"][i], mask)
+            return attend_fn(qg, kv_cache["k"][i], kv_cache["v"][i], mask)
 
         x = _layer(x, layer_weights(params, i, cfg), cfg, positions, attend)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -8,7 +8,8 @@ the same keys and layouts. A quantized tree (``quant.py``: ``{"int8",
 "scale"}`` leaves) carries across as it is: its int8 codes and f32 scales
 keep their types whatever ``dtype`` asks. ``load_or_init`` reads an
 ``.npz`` checkpoint through it, or draws random weights from a seed, in
-int8 with ``quantize="int8"``.
+int8 with ``quantize="int8"``, and with ``mesh`` places the tree by
+``param_pspecs`` (``quant_pspecs`` for int8).
 """
 
 from __future__ import annotations
@@ -102,14 +103,37 @@ def load_or_init(
     device: "torch.device | str" = "cpu",
     seed: int = 0,
     quantize: str = "none",
+    mesh=None,
 ) -> tuple[Params, str]:
     """(params, "checkpoint" | "random"): an ``.npz`` checkpoint cast to
     ``cfg.dtype``, or random weights drawn from ``seed``. With
     ``quantize="int8"`` the checkpoint is quantized after it is loaded, and
     the random path quantizes each leaf as it is created, so its
-    full-precision tree never exists."""
+    full-precision tree never exists. ``mesh``: the tree placed with
+    ``shard_pytree`` under ``param_pspecs`` (``quant_pspecs`` for int8). Only
+    a virtual mesh of ``device`` is served, on which every leaf stays whole;
+    a mesh of other devices raises (ROADMAP Queue A item 5b)."""
     if quantize not in ("none", "int8"):
         raise EngineError(f"unknown quantize mode {quantize!r}")
+    if mesh is not None:
+        from mcpx_torch.parallel.mesh import is_virtual
+
+        if not is_virtual(mesh, device):
+            raise EngineError(
+                f"load_or_init on {mesh}: weights are placed on a mesh of their own device ({device}) only; "
+                "sharding them over several cards is ROADMAP Queue A item 5b"
+            )
+    params, source = _load_or_init(cfg, checkpoint_path, device, seed, quantize)
+    if mesh is None:
+        return params, source
+    from mcpx_torch.models.gemma.quant import quant_pspecs
+    from mcpx_torch.parallel.mesh import param_pspecs, shard_pytree
+
+    specs = quant_pspecs(cfg, mesh) if quantize == "int8" else param_pspecs(cfg, mesh)
+    return shard_pytree(params, specs, mesh), source
+
+
+def _load_or_init(cfg: GemmaConfig, checkpoint_path: str, device, seed: int, quantize: str) -> tuple[Params, str]:
     if checkpoint_path:
         path = os.path.abspath(checkpoint_path)
         if not os.path.exists(path):

@@ -128,6 +128,27 @@ def unembed(x: torch.Tensor, embed: Any, subset: Optional[torch.Tensor] = None) 
     return torch.matmul(x.float(), w.float().t())
 
 
+def quant_pspecs(cfg, mesh) -> Params:
+    """Spec tree matching the QUANTIZED parameter structure: int8 leaves keep
+    ``param_pspecs``'s layout; scales drop the sharding on the contraction
+    axes (their keepdims-1 dims)."""
+    from mcpx_torch.parallel.mesh import param_pspecs
+
+    base = param_pspecs(cfg, mesh)
+
+    def q(name: str, spec):
+        if name not in _CONTRACT_AXES:
+            return spec
+        axes = _CONTRACT_AXES[name]
+        return {"int8": spec, "scale": tuple(None if i in axes else s for i, s in enumerate(spec))}
+
+    return {
+        "embed": q("embed", base["embed"]),
+        "layers": {k: q(k, v) for k, v in base["layers"].items()},
+        "final_norm": base["final_norm"],
+    }
+
+
 def leaf_quantizer(name: str, w: torch.Tensor) -> Any:
     """Per-leaf transform for ``init_params(leaf_transform=...)``: quantize
     the named weight as it is created, so the full-precision tree never

@@ -21,7 +21,14 @@ corpus (``models/corpus.py``), step for step as the reference does:
     asks for the CPU), and matmuls run in full float32: the port never turns
     on TF32 (``torch.backends.cuda.matmul.allow_tf32`` stays False);
   - no host sync a step: the losses stay device tensors, one is read back per
-    ``log_every`` tick and the reported ones at the end.
+    ``log_every`` tick and the reported ones at the end;
+  - ``mesh`` (``parallel/mesh.py``) is data parallelism on a virtual mesh of
+    ``device``: each batch splits over ``batch_axes(mesh)`` by the
+    reference's per-axis divisibility rule, each shard's backward adds its
+    gradients into the parameters', and one clip and one AdamW step follow.
+    Each shard's loss divides by the *whole* batch's mask sum, so the sum of
+    the shards' losses and gradients is the unsharded step's. A mesh of other
+    devices is refused (ROADMAP Queue A item 5b).
 
 Random init draws from the port's generator (``init_params``), not the
 reference's ``jax.random``; pass ``init`` to start both from one tree.
@@ -48,6 +55,7 @@ from mcpx_torch.device import resolve_device
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import Params, init_params, torch_dtype, train_forward
 from mcpx_torch.models.gemma.params import _tensor, load_npz  # noqa: F401  (load_npz reads save_npz's files)
+from mcpx_torch.parallel.mesh import batch_axes, indices_map, is_virtual
 
 
 @dataclass
@@ -80,13 +88,34 @@ def lr_schedule(tcfg: TrainConfig):
     return at
 
 
-def _loss(params: Params, cfg: GemmaConfig, tokens, seq_lens, loss_mask) -> torch.Tensor:
+def _loss(params: Params, cfg: GemmaConfig, tokens, seq_lens, loss_mask, denom=None) -> torch.Tensor:
+    """Masked next-token cross entropy summed over the rows and divided by
+    ``denom``: by default this batch's mask sum (at least 1); a data-parallel
+    shard passes the whole batch's."""
     logits = train_forward(params, cfg, tokens, seq_lens)  # [B, L, V] f32
     labels = tokens[:, 1:].long()
     lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
     ll = torch.gather(lp, -1, labels[..., None])[..., 0]
     m = loss_mask[:, :-1].float()
-    return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return -(ll * m).sum() / (torch.clamp(m.sum(), min=1.0) if denom is None else denom)
+
+
+def _batch_shards(mesh, n_rows: int) -> list[slice]:
+    """The row blocks of an ``n_rows`` batch: the whole batch without a
+    mesh; else split over every batch axis of the mesh that still divides,
+    outer first (the reference's per-axis rule), one block per distinct
+    slice."""
+    if mesh is None:
+        return [slice(0, n_rows)]
+    axes: list[str] = []
+    ways = 1
+    for a in batch_axes(mesh):
+        if n_rows % (ways * mesh.shape[a]) == 0:
+            axes.append(a)
+            ways *= mesh.shape[a]
+    blocks = {rows.indices(n_rows)[:2] for (rows,) in indices_map((n_rows,), (tuple(axes) if axes else None,),
+                                                                  mesh).values()}
+    return [slice(lo, hi) for lo, hi in sorted(blocks)]
 
 
 def _leaves(params: Params, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -124,13 +153,17 @@ def train(
 ) -> tuple[Params, dict]:
     """Train and return (float32 params, report). ``corpus`` is a
     ``models.corpus.Corpus``; ``init`` warm-starts from existing params (a
-    tree of tensors, cast to float32 on ``device``). ``mesh`` is refused: the
-    port trains on one device (ROADMAP Queue A item 5 ports the mesh)."""
-    if mesh is not None:
-        raise EngineError("train(mesh=...): the PyTorch port trains on one device; "
-                          "data parallelism over a mesh waits for ROADMAP Queue A item 5 (multi-GPU)")
+    tree of tensors, cast to float32 on ``device``). ``mesh`` shards each
+    batch over its data axes (data parallelism; the parameters and the
+    optimizer state stay on ``device``). Only a virtual mesh of ``device`` is
+    served; a mesh of other devices raises (ROADMAP Queue A item 5b)."""
     tcfg = tcfg or TrainConfig()
     dev = resolve_device(device)
+    if mesh is not None and not is_virtual(mesh, dev):
+        raise EngineError(
+            f"train on {mesh}: data parallelism runs on a mesh of the training device ({dev}) only; "
+            "shards on several cards are ROADMAP Queue A item 5b"
+        )
     cfg = dataclasses.replace(model_cfg, dtype="float32")
     rng = np.random.default_rng(tcfg.seed)
 
@@ -171,17 +204,23 @@ def train(
     first_loss = None
     tail_losses: "deque" = deque(maxlen=20)
     loss_log: list[tuple[int, float]] = []
+    shards = _batch_shards(mesh, B)
     for step in range(tcfg.steps):
         take = takes_d[step]
-        loss = _loss(params, cfg, tokens[take], seq_lens[take], loss_mask[take])
+        tk, sl, lm = tokens[take], seq_lens[take], loss_mask[take]
+        denom = torch.clamp(lm[:, :-1].float().sum(), min=1.0)
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        loss = None
+        for rows in shards:
+            part = _loss(params, cfg, tk[rows], sl[rows], lm[rows], denom)
+            part.backward()  # each shard's gradients add into the parameters'
+            part = part.detach()
+            loss = part if loss is None else loss + part
         _clip_by_global_norm([t.grad for _, t in leaves], tcfg.clip_norm)
         lr = sched(step)
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
-        loss = loss.detach()
         if first_loss is None:
             first_loss = loss
         tail_losses.append(loss)

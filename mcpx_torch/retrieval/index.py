@@ -14,6 +14,13 @@ is waited on. The coverage-greedy picks and ``scores_for`` read the host
 mirror. ``save``/``load`` write and read the reference's snapshot file
 (table, names, per-record words), so a snapshot crosses between the two
 packages.
+
+Under a mesh (``parallel/mesh.py``) the device table's rows are split over
+the ``model`` axis when they divide, as the reference shards them: each row
+shard is ranked on its own, and the shards' candidates are merged on the
+host by (-score, row), so the shortlist equals the unmeshed one's, ties
+lowest row first. Only a virtual mesh of the index's device is served; a
+mesh of other devices is refused (ROADMAP Queue A item 5b).
 """
 
 from __future__ import annotations
@@ -27,11 +34,25 @@ import numpy as np
 import torch
 
 from mcpx_torch.core.config import RetrievalConfig
+from mcpx_torch.core.errors import EngineError
 from mcpx_torch.device import resolve_device
+from mcpx_torch.parallel.mesh import MODEL_AXIS, indices_map, is_virtual
 from mcpx_torch.registry.base import RegistryBackend
 from mcpx_torch.retrieval.embed import HashedNGramEmbedder
 
 _WORD_RE = re.compile(r"[a-z0-9]+")
+
+
+class RowShards:
+    """A device table split by rows: ``parts[i]`` holds the global rows from
+    ``offsets[i]`` on."""
+
+    def __init__(self, offsets: list[int], parts: list[torch.Tensor]) -> None:
+        self.offsets, self.parts = offsets, parts
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return sum(int(p.shape[0]) for p in self.parts), int(self.parts[0].shape[1])
 
 
 class RetrievalIndex:
@@ -41,17 +62,28 @@ class RetrievalIndex:
         *,
         embedder: Optional[HashedNGramEmbedder] = None,
         device: "torch.device | str | None" = None,
+        mesh=None,
     ) -> None:
         """``device``: where a device table lives (the control plane's
         resolved device; the factory passes it). ``None`` is CUDA, as for
         every entry point of the port; it is only touched when ``compute``
-        puts the table on the device."""
+        puts the table on the device. ``mesh``: the table's rows split over
+        its ``model`` axis where they divide; only a virtual mesh of
+        ``device`` is served (a mesh of other devices raises, ROADMAP Queue A
+        item 5b)."""
         self.config = config or RetrievalConfig()
         self.embedder = embedder or HashedNGramEmbedder(self.config.embed_dim)
         self.device = torch.device("cuda" if device is None else device)
+        if mesh is not None and not is_virtual(mesh, self.device):
+            raise EngineError(
+                f"RetrievalIndex on {mesh}: row shards live on the index's own device ({self.device}) only; "
+                "shards on several cards are ROADMAP Queue A item 5b"
+            )
+        self._mesh = mesh
         self._lock = asyncio.Lock()
         self._names: list[str] = []
-        self._table: Optional[torch.Tensor] = None  # [N, d] float32 on the device
+        # [N, d] float32 on the device, or its RowShards under a mesh.
+        self._table: "Optional[torch.Tensor | RowShards]" = None
         self._table_np: Optional[np.ndarray] = None  # [N, d] host mirror
         self._stream: "Optional[torch.cuda.Stream]" = None  # the index's own, on CUDA
         self._version: int = -1
@@ -107,12 +139,9 @@ class RetrievalIndex:
             return False
         return n_rows >= self.config.device_threshold
 
-    def _place(self, table: np.ndarray) -> torch.Tensor:
-        """The table as float32 on the index's device, copied once per
-        refresh; on CUDA on the index's stream, which the copy finishes on
-        before this returns. A device without a card raises here."""
-        resolve_device(self.device)
-        host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
+    def _copy(self, host: torch.Tensor) -> torch.Tensor:
+        """``host`` copied to the index's device; on CUDA on the index's
+        stream, which the copy finishes on before this returns."""
         if self.device.type != "cuda":
             return host.to(self.device)
         if self._stream is None:
@@ -121,6 +150,23 @@ class RetrievalIndex:
             placed = host.pin_memory().to(self.device, non_blocking=True)
         self._stream.synchronize()
         return placed
+
+    def _place(self, table: np.ndarray) -> "torch.Tensor | RowShards":
+        """The table as float32 on the index's device, copied once per
+        refresh. Under a mesh its rows split over ``model`` when they
+        divide (the reference's ``P(model, None)``), one part per distinct
+        row block. A device without a card raises here."""
+        resolve_device(self.device)
+        host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
+        if self._mesh is None:
+            return self._copy(host)
+        m = self._mesh.shape.get(MODEL_AXIS, 1)
+        spec = (MODEL_AXIS if m > 1 and table.shape[0] % m == 0 else None, None)
+        blocks = sorted({idx[0].indices(table.shape[0])[:2] for idx in indices_map(table.shape, spec,
+                                                                                    self._mesh).values()})
+        if len(blocks) == 1:
+            return self._copy(host)
+        return RowShards([lo for lo, _ in blocks], [self._copy(host[lo:hi]) for lo, hi in blocks])
 
     # ---------------------------------------------------------------- query
     async def shortlist(self, intent: str, k: int) -> list[str]:
@@ -184,20 +230,30 @@ class RetrievalIndex:
         if torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("retrieval scores in strict fp32; torch.backends.cuda.matmul.allow_tf32 is on")
         table = self._table if table is None else table
+        if isinstance(table, RowShards):
+            # Each shard ranked on its device, merged by (-score, row): the
+            # k best overall are among the shards' own k best.
+            merged = []
+            for off, part in zip(table.offsets, table.parts):
+                scores, idx = self._device_topk(q, min(k, int(part.shape[0])), part)
+                merged += [(-s, off + i) for s, i in zip(scores, idx)]
+            merged.sort()
+            return [-s for s, _ in merged[:k]], [i for _, i in merged[:k]]
         cuda = table.device.type == "cuda"
+        stream = self._stream
         take = min(k + 1, table.shape[0])
-        with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
             scores = torch.mv(table, torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(table.device))
             vals, idx = torch.topk(scores, take)
             vals, idx = vals.to("cpu", non_blocking=cuda), idx.to("cpu", non_blocking=cuda)
             if cuda:
                 done = torch.cuda.Event()
-                done.record(self._stream)
+                done.record(stream)
         if cuda:
             done.synchronize()
         top = sorted(zip((-vals).tolist(), idx.tolist()))
         if take > k and top[k - 1][0] == top[k][0]:
-            with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():
+            with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
                 vals, idx = torch.sort(scores, descending=True, stable=True)
                 return vals[:k].tolist(), idx[:k].tolist()
         return [-v for v, _ in top[:k]], [i for _, i in top[:k]]

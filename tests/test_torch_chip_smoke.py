@@ -581,3 +581,43 @@ def test_stream_margin_is_masked_margin_at_every_position():
     assert recorded == [(least, at, res.text)]
     assert at == min(range(len(each)), key=each.__getitem__)
     assert abs(least - each[at]) < 1e-4
+
+
+def test_parallel_phase_runs_on_the_cpu():
+    """Phase 24 at a small size on the CPU (``cpu`` coordinates in every
+    virtual mesh, the test preset in the big run's place, T 256, 4 intents a
+    burst, a 300-service table, 3 training steps at batch 8): every line's
+    gates, among them the float32 plans byte for byte against a dense pass
+    that rang nowhere, the ring count, and the radix build's ring."""
+    import asyncio
+    import random
+
+    from mcpx_torch.core.config import RetrievalConfig
+    from mcpx_torch.registry.memory import InMemoryRegistry
+    from mcpx_torch.retrieval.index import RetrievalIndex
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    async def table():
+        registry, records = InMemoryRegistry(), synth_registry(300, seed=0)
+        for rec in records:
+            await registry.put(rec)
+        index = RetrievalIndex(RetrievalConfig(compute="device"), device="cpu")
+        await index.refresh(registry)
+        rng = random.Random(0)
+        return index, [intent_for(records, rng) for _ in range(8)]
+
+    index, intents = asyncio.run(table())
+    out = chip_smoke.parallel_phase("cpu", index, intents, device="cpu", T=256, big="test", n_test=4, n_big=4,
+                                    batch=8, n_examples=48, registry_size=120, train_steps=3, train_batch=8)
+    assert set(out["ring_attention"]["routes"]) == {"dense", *chip_smoke.RING_MESHES}
+    st = out["ring_serve_test"]  # the big run's, at the test preset in bf16 here
+    assert st["ring_prefills"] == st["expected_ring_prefills"] > 0 and st["short_rings"] == 0
+    assert st["dense_ring_prefills"] == 0 and st["dense_full_prefills"]
+    assert not any(ring for _, ring in st["dense_full_prefills"])
+    assert st["radix_ring_prefills"] == 1 and st["radix_full_prefills"] == [(st["radix_threshold"], True)]
+    assert st["threshold"] > max(w for w, _ in st["short_prefills"]) and st["repeat_captures"] == 0
+    assert st["seq_mesh"] == {"data": 1, "seq": 4, "model": 1} and "item 5b" in st["other_device_refused"]
+    assert out["ring_probe"]["float32_ring_vs_dense"] <= 1e-3
+    assert out["retrieval_mesh"]["shards"] == [150, 150] and not out["retrieval_mesh"]["differing"]
+    assert {n: r["shards"] for n, r in out["train_dp_test"]["runs"].items()} == {"none": 1, "data2": 2,
+                                                                                 "hybrid2x2x1": 4}

@@ -494,6 +494,42 @@ def test_sharded_shortlists_match_reference(compute, n_shards):
             assert asyncio.run(port.shortlist(intent, k)) == asyncio.run(ref.shortlist(intent, k)), (intent, k)
 
 
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_sharded_index_on_a_mesh_ranks_as_the_reference(n_shards):
+    """``ShardedRetrievalIndex(mesh=)``: each registry shard's rows split
+    again over ``model`` where they divide (150 rows over 2; 100 over 2),
+    shortlists equal to the reference's meshed sharded index and to the
+    port's unmeshed one."""
+    from mcpx.parallel.mesh import make_mesh as jmake_mesh
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.retrieval.index import RowShards
+
+    async def build(index, registry, records):
+        for rec in records:
+            await registry.put(rec)
+        await index.refresh(registry)
+        return index
+
+    kw = dict(compute="device", shortlist_mode="topk")
+    ref = asyncio.run(build(JSharded(JRetrievalConfig(**kw), n_shards=n_shards, mesh=jmake_mesh(data=4, model=2)),
+                            JRegistry(), jsynth(300, seed=0)))
+    port = asyncio.run(build(
+        ShardedRetrievalIndex(RetrievalConfig(**kw), n_shards=n_shards, device="cpu",
+                              mesh=make_mesh(data=4, model=2, devices=["cpu"] * 8)),
+        InMemoryRegistry(), synth_registry(300, seed=0),
+    ))
+    plain = asyncio.run(build(ShardedRetrievalIndex(RetrievalConfig(**kw), n_shards=n_shards, device="cpu"),
+                              InMemoryRegistry(), synth_registry(300, seed=0)))
+    assert port.shard_sizes == ref.shard_sizes == plain.shard_sizes
+    assert all(isinstance(s, RowShards) and len(s.parts) == 2 for s in port._shards)
+    rng = random.Random(1)
+    for _ in range(12):
+        intent = intent_for(jsynth(300, seed=0), rng)
+        for k in (1, 5, 12):
+            got = asyncio.run(port.shortlist(intent, k))
+            assert got == asyncio.run(ref.shortlist(intent, k)) == asyncio.run(plain.shortlist(intent, k)), (intent, k)
+
+
 @pytest.mark.parametrize("compute", ["host", "device"])
 def test_sharded_merge_is_exact_on_random_tables(compute):
     """Seeded random tables, ties included: the shard merge equals the

@@ -443,9 +443,11 @@ def test_options_the_port_does_not_serve_are_refused(section, key, value):
     """The options the port does not serve yet are refused by name; the
     heterogeneous slab and speculative decoding are served (speculation on
     the heterogeneous slab, where its drafter has the stacked grammars), and
-    so are the tiered KV cache (its spill tier and governor under the tree)
-    and weight-only int8 (an int8 tree after start-up,
-    ``tests/test_torch_quant.py``)."""
+    so are the tiered KV cache (its spill tier and governor under the tree),
+    weight-only int8 (an int8 tree after start-up,
+    ``tests/test_torch_quant.py``) and ring prefill (on a virtual mesh the
+    data coordinates become the seq view; ``tests/test_torch_ring_routing.py``
+    serves it)."""
     cfg = {"model": {"size": "test", "max_seq_len": 256}, "engine": {}}
     if section is None:
         assert InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu").config.engine.draft_mode == "prompt"
@@ -460,6 +462,14 @@ def test_options_the_port_does_not_serve_are_refused(section, key, value):
     if key == "quantize":
         eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")
         assert eng._quantized and eng.config.model.quantize == "int8"
+        return
+    if key == "ring_prefill_min_tokens":
+        from mcpx_torch.parallel.mesh import make_mesh
+
+        eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu", mesh=make_mesh(data=2, devices=["cpu"] * 2))
+        eng._setup()
+        assert eng._seq_mesh.shape == {"data": 1, "seq": 2, "model": 1}
+        assert eng._ring_ok(512) and not eng._ring_ok(256)
         return
     if key == "kv_tier":
         eng = InferenceEngine(MCPXConfig.from_dict(cfg), device="cpu")

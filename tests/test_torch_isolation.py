@@ -23,6 +23,7 @@ from mcpx_torch.cluster import EnginePool
 from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.engine.engine import InferenceEngine
+from mcpx_torch.parallel import make_mesh
 from mcpx_torch.server.factory import build_control_plane
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,8 +43,8 @@ def _forbidden(module: str) -> bool:
 
 def test_walk_covers_every_module_of_the_port():
     """The walk sees every module, the int8, scheduler, resilience,
-    default-off telemetry, config-surface, cluster and offline ones among
-    them."""
+    default-off telemetry, config-surface, cluster, offline and parallel
+    ones among them."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in (
         "models/gemma/quant.py", "scheduler/admission.py", "scheduler/fairness.py",
@@ -55,6 +56,7 @@ def test_walk_covers_every_module_of_the_port():
         "cli/__main__.py", "cli/main.py", "cluster/__init__.py", "cluster/pool.py", "cluster/replica.py",
         "cluster/routing.py", "cluster/sharding.py", "planner/quality.py", "planner/evaluate.py",
         "models/corpus.py", "models/train.py", "models/gemma/convert.py", "cli/bench_report.py",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/ring_attention.py",
     ):
         assert f"mcpx_torch/{module}" in rel, module
 
@@ -119,6 +121,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         EnginePool(cfg)
     with pytest.raises(EngineError, match="CUDA is not available"):
         build_control_plane(MCPXConfig.from_dict({"planner": {"kind": "heuristic"}}))
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        make_mesh()
 
 
 OPTIONAL = ("aiohttp", "prometheus_client", "redis")

@@ -7,7 +7,10 @@ scores its device table with ``einsum`` and ``lax.top_k``; ``"host"`` and
 ``"auto"`` below the threshold score the numpy mirror in both packages.
 Held here: the score vectors within 1e-6 of the reference's, the shortlists
 equal in both modes, exact ties lowest index first, snapshots that cross
-between the packages, and the factory's snapshot load and rebuild.
+between the packages, and the factory's snapshot load and rebuild; under a
+mesh (a virtual CPU mesh against the reference's on the conftest's 8
+devices) the table's rows split over ``model`` where they divide, with the
+same shortlists.
 """
 
 import asyncio
@@ -115,6 +118,67 @@ def test_exact_ties_come_out_lowest_index_first(tmp_path, k):
     vals, idx = port._device_topk(q, k)
     assert idx == [int(i) for i in np.asarray(ref_idx)] == [2, 4, 6, 9, 7][:k]
     assert vals == sorted(vals, reverse=True)
+
+
+@pytest.mark.parametrize("model", [2, 4, 8], ids=["model2", "model4", "model8_replicates"])
+def test_meshed_index_ranks_as_the_reference_and_the_unmeshed_index(tmp_path, model):
+    """``RetrievalIndex(mesh=)``: 300 rows split over ``model`` 2 and 4 (one
+    row shard per coordinate, ranked there, merged by (-score, row)), and
+    kept whole where 8 does not divide them; shortlists in both modes equal
+    the reference's meshed index's and the unmeshed port's, a snapshot
+    reloads onto the mesh, and ties come out lowest row first."""
+    from mcpx.parallel.mesh import make_mesh as jmake_mesh
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.retrieval.index import RowShards
+
+    for mode in ("residual", "topk"):
+        kw = {"compute": "device", "shortlist_mode": mode}
+        ref = asyncio.run(_built(JIndex(JRetrievalConfig(**kw), mesh=jmake_mesh(data=1, model=model)),
+                                 JRegistry(), jsynth(N_SERVICES, seed=0)))
+        mesh = make_mesh(model=model, devices=["cpu"] * model)
+        port = asyncio.run(_built(RetrievalIndex(RetrievalConfig(**kw), device="cpu", mesh=mesh),
+                                  InMemoryRegistry(), synth_registry(N_SERVICES, seed=0)))
+        plain = asyncio.run(_built(RetrievalIndex(RetrievalConfig(**kw), device="cpu"),
+                                   InMemoryRegistry(), synth_registry(N_SERVICES, seed=0)))
+        if N_SERVICES % model == 0:
+            assert isinstance(port._table, RowShards) and len(port._table.parts) == model
+            assert port._table.offsets == list(range(0, N_SERVICES, N_SERVICES // model))
+        else:
+            assert isinstance(port._table, torch.Tensor) and port._table.shape[0] == N_SERVICES
+        for intent in _intents():
+            got = asyncio.run(port.shortlist(intent, K))
+            assert got == asyncio.run(ref.shortlist(intent, K)) == asyncio.run(plain.shortlist(intent, K)), intent
+            q = port.embedder.embed(intent)
+            (vals, idx), (pvals, pidx) = port._device_topk(q, K), plain._device_topk(q, K)
+            assert idx == pidx  # a part's product may round its last bit apart from the whole table's
+            np.testing.assert_allclose(vals, pvals, rtol=0, atol=1e-6)
+    path = str(tmp_path / "meshed.snap")
+    port.save(path)
+    loaded = RetrievalIndex(RetrievalConfig(compute="device", shortlist_mode="topk"), device="cpu", mesh=mesh)
+    loaded.load(path)
+    assert type(loaded._table) is type(port._table)
+    for intent in _intents():
+        assert asyncio.run(loaded.shortlist(intent, K)) == asyncio.run(plain.shortlist(intent, K))
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(16, 16)).astype(np.float32) * 0.1
+    table[[2, 9, 13]] = np.ones(16, np.float32)  # one best vector in several row shards
+    ties = RetrievalIndex(RetrievalConfig(compute="device", embed_dim=16), device="cpu",
+                          mesh=make_mesh(model=4, devices=["cpu"] * 4))
+    ties._table = ties._place(table)
+    for k in (1, 2, 3, 4):
+        assert ties._device_topk(np.ones(16, np.float32) / 4, k)[1][:3] == [2, 9, 13][:k]
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["index", "sharded_index"])
+def test_a_mesh_of_another_device_is_refused(sharded):
+    """Row shards live on the index's own device: a mesh naming another
+    device raises at construction, for the sharded index too."""
+    from mcpx_torch.cluster.sharding import ShardedRetrievalIndex
+    from mcpx_torch.parallel.mesh import make_mesh
+
+    cls = ShardedRetrievalIndex if sharded else RetrievalIndex
+    with pytest.raises(EngineError, match="item 5b"):
+        cls(RetrievalConfig(compute="device"), device="cpu", mesh=make_mesh(model=2, devices=["cpu", "meta"]))
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])

@@ -224,7 +224,71 @@ def test_checkpoint_that_does_not_fit_is_refused(tmp_path):
         load_or_init(GemmaConfig.named("test", vocab_size=3072), str(path))
 
 
-def test_mesh_is_refused(corpora):
-    with pytest.raises(EngineError, match="item 5"):
-        train(GemmaConfig.named("test", vocab_size=V), corpora[0], TrainConfig(steps=1), device="cpu",
-              mesh=object())
+def _assert_same_run(report, params, jreport, jparams):
+    """The parity test's tolerances: every step's loss within 1e-5
+    relative, the weights within 1e-4, the eval token accuracy equal."""
+    assert [s for s, _ in report["loss_log"]] == [s for s, _ in jreport["loss_log"]]
+    for (_, a), (_, b) in zip(report["loss_log"], jreport["loss_log"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (report["loss_log"], jreport["loss_log"])
+    assert report["eval_token_accuracy"] == jreport["eval_token_accuracy"]
+    got, want = _np(params), _np(jparams)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4, err_msg=k)
+
+
+def test_mesh_is_refused(corpora, shared_init):
+    """Served since the parallel package: ``train(mesh=data 2)`` on a virtual
+    CPU mesh matches the reference's ``train(mesh=make_mesh(data=2,
+    model=1))`` and the port's ``mesh=None`` step for step (each batch split
+    in two, each half's loss over the whole batch's mask sum)."""
+    from mcpx.parallel.mesh import make_mesh as jmake_mesh
+    from mcpx_torch.parallel.mesh import make_mesh
+
+    port_corpus, ref_corpus = corpora
+    tcfg = dict(steps=6, batch_size=8, warmup_steps=2, log_every=1)
+    jparams, jreport = jtrain(JGemmaConfig.named("test", vocab_size=V), ref_corpus, JTrainConfig(**tcfg),
+                              init=jax.tree.map(jnp.asarray, shared_init), mesh=jmake_mesh(data=2, model=1))
+    meshed, report = train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg),
+                           device="cpu", init=params_from_numpy(shared_init),
+                           mesh=make_mesh(data=2, devices=["cpu"] * 2))
+    plain, plain_report = train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg),
+                                device="cpu", init=params_from_numpy(shared_init))
+    _assert_same_run(report, meshed, jreport, jax.tree.map(np.asarray, jparams))
+    _assert_same_run(report, meshed, plain_report, plain)
+
+
+@pytest.mark.parametrize("batch", [8, 6], ids=["divides", "drops_data"])
+def test_hybrid_mesh_trains_as_a_flat_one(corpora, shared_init, batch):
+    """The reference's hybrid recipe (``tests/test_sharding.py``): a
+    (dcn_data 2, data 2, model 2) mesh against a flat data-8 one, and against
+    the reference's hybrid run. At batch 6 the per-axis rule keeps the
+    dcn_data split (6 % 2) and drops data (6 % 4), and the flat mesh does not
+    split at all (6 % 8)."""
+    from mcpx.parallel.mesh import make_hybrid_mesh as jmake_hybrid_mesh
+    from mcpx_torch.models.train import _batch_shards
+    from mcpx_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+
+    port_corpus, ref_corpus = corpora
+    tcfg = dict(steps=4, batch_size=batch, warmup_steps=1, log_every=1)
+    cpu8 = ["cpu"] * 8
+    hybrid, flat = make_hybrid_mesh(2, 2, 2, devices=cpu8), make_mesh(data=8, devices=cpu8)
+    assert len(_batch_shards(hybrid, batch)) == (4 if batch == 8 else 2)
+    assert len(_batch_shards(flat, batch)) == (8 if batch == 8 else 1)
+    runs = [train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg), device="cpu",
+                  init=params_from_numpy(shared_init), mesh=m) for m in (hybrid, flat)]
+    jparams, jreport = jtrain(JGemmaConfig.named("test", vocab_size=V), ref_corpus, JTrainConfig(**tcfg),
+                              init=jax.tree.map(jnp.asarray, shared_init), mesh=jmake_hybrid_mesh(2, 2, 2))
+    (h_params, h_report), (f_params, f_report) = runs
+    _assert_same_run(h_report, h_params, f_report, f_params)
+    _assert_same_run(h_report, h_params, jreport, jax.tree.map(np.asarray, jparams))
+
+
+@pytest.mark.parametrize("devices", [["cpu", "meta"], ["meta", "meta"]], ids=["meta_beside", "meta_only"])
+def test_a_mesh_of_another_device_is_refused(corpora, devices):
+    """Data parallelism runs on a virtual mesh of the training device only:
+    a mesh naming another device raises before any step."""
+    from mcpx_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(EngineError, match="item 5b"):
+        train(GemmaConfig.named("test", vocab_size=V), corpora[0], TrainConfig(steps=1, batch_size=2),
+              device="cpu", mesh=make_mesh(data=2, devices=devices))
