@@ -1,15 +1,16 @@
 """CLI: ``python -m mcpx_torch.cli`` — serve the port's control plane, read a
 running server's traces, bundles, explanations, usage and SLO budgets,
 validate plans, generate registries, train and evaluate the planner model,
-and report on the bench series.
+report on the bench series, and lint the port's tree.
 
 The PyTorch port's copy of ``mcpx/cli/main.py``, with the reference's
 arguments and output. ``serve``, ``train-planner`` and ``eval-planner`` take
 ``--device`` (default: the GPU; they raise without one) where the reference
 takes ``--platform``; ``serve`` needs aiohttp. ``train-planner`` writes
 ``planner_test_bpe.npz`` in the working directory by default, never into the
-reference package's committed checkpoint. ``lint`` is not ported yet: it is
-refused by name, naming the ROADMAP item that ports it, and exits 2.
+reference package's committed checkpoint. ``lint`` runs the port's mcpxlint
+(``mcpx_torch/analysis/``) against the port's own baseline,
+``mcpx_torch/analysis/baseline.json``.
 """
 
 from __future__ import annotations
@@ -18,14 +19,8 @@ import argparse
 import json
 import sys
 
+from mcpx_torch.analysis.baseline import DEFAULT_BASELINE
 from mcpx_torch.core.config import MCPXConfig
-
-# Commands of the reference CLI that the port refuses, and the ROADMAP
-# (Queue A) item that ports each.
-REFUSED = {
-    "lint": "item 7, static analysis",
-}
-
 
 def _load_config(args: argparse.Namespace) -> MCPXConfig:
     if args.config:
@@ -339,6 +334,24 @@ def _url_option(p: argparse.ArgumentParser) -> None:
     p.add_argument("--url", default="http://127.0.0.1:8000", help="server base URL (default: %(default)s)")
 
 
+def cmd_lint(args: argparse.Namespace) -> int:
+    """Run mcpxlint (mcpx_torch/analysis/) over the given paths and diff
+    against the port's baseline. Non-zero exit on any new finding or stale
+    baseline entry: the check tests/test_torch_mcpxlint.py gates on."""
+    from mcpx_torch.analysis.cli import run_lint
+
+    return run_lint(
+        args.paths,
+        baseline=args.baseline,
+        update_baseline=args.update_baseline,
+        fmt=args.format,
+        rules=args.rule or None,
+        changed=args.changed,
+        fix=args.fix,
+        fix_dry_run=args.dry_run,
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="mcpx_torch")
     parser.add_argument("--config", help="JSON config file")
@@ -448,18 +461,35 @@ def main(argv: list[str] | None = None) -> int:
                            help="exit 1 when any tracked metric regressed beyond its noise band")
     p_breport.set_defaults(func=cmd_bench_report)
 
-    # A refused command parses whatever follows it, so its refusal names the
-    # command whatever arguments it was given.
-    sub.add_parser("lint", help=f"not served by the PyTorch port yet (ROADMAP {REFUSED['lint']})")
+    p_lint = sub.add_parser("lint", help="static analysis (mcpxlint): async-safety + CUDA hot-path rules")
+    p_lint.add_argument("paths", nargs="+", help="files or directories to scan")
+    p_lint.add_argument(
+        "--baseline", default=DEFAULT_BASELINE,
+        help="baseline file of grandfathered findings (default: %(default)s)",
+    )
+    p_lint.add_argument(
+        "--update-baseline", action="store_true", help="rewrite the baseline from the current findings and exit 0"
+    )
+    p_lint.add_argument(
+        "--format", choices=["text", "json", "sarif"], default="text",
+        help="report format (json includes run telemetry for CI; sarif is "
+        "SARIF 2.1.0 for code-scanning/editor tooling)",
+    )
+    p_lint.add_argument(
+        "--rule", action="append", metavar="RULE_ID", help="run only this rule (repeatable; default: all)"
+    )
+    p_lint.add_argument(
+        "--changed", action="store_true",
+        help="report only files modified vs HEAD (staged/unstaged/"
+        "untracked); interprocedural passes still see the full path set",
+    )
+    p_lint.add_argument(
+        "--fix", action="store_true",
+        help="rewrite mechanical findings in place (unused/duplicate "
+        "suppression ids, blank-line runs) and exit 0",
+    )
+    p_lint.add_argument("--dry-run", action="store_true", help="with --fix: print the unified diff without writing files")
+    p_lint.set_defaults(func=cmd_lint)
 
-    args, extra = parser.parse_known_args(argv)
-    command = args.command
-    if command in REFUSED:
-        print(
-            f"mcpx_torch {command}: not served by the PyTorch port yet (ROADMAP Queue A {REFUSED[command]})",
-            file=sys.stderr,
-        )
-        return 2
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     return args.func(args)

@@ -202,25 +202,31 @@ from mcpx_torch.telemetry.costs import (
 )
 from mcpx_torch.telemetry.flight import WorkerProfiler
 from mcpx_torch.telemetry.metrics import Metrics
+from mcpx_torch.utils.ownership import owned_by
 
 log = logging.getLogger("mcpx_torch.engine")
 
 # One engine's device work at a time in the process. Engines in one process
 # (a replica pool) each run a worker thread; every worker iteration's device
 # work, its setup and shutdown, and every CUDA-graph capture hold this lock.
-# The card runs their kernels on one stream in turn anyway; the lock keeps
-# two threads out of PyTorch's and cuBLAS's host-side launch paths at once,
-# which corrupted device memory at the 2b width on an H100 (an illegal
-# memory access or a device-side assert), and makes a capture's launch
-# record hold that capture's launches alone. Re-entrant: a capture happens
+# The card runs their kernels on one stream in turn anyway. Two engines
+# capturing at once no longer need it (captures take ``_CAPTURE_LOCK``);
+# that they serve correctly without it is not shown, nor whether they would
+# serve faster (ROADMAP Queue C and P9). Re-entrant: a capture happens
 # inside an iteration.
 DEVICE_LOCK = threading.RLock()
+
+# One CUDA-graph capture at a time in the process, held from capture_begin
+# to capture_end: a capture's launch record (``captured_launches``) counts
+# what every thread records into graphs, and PyTorch's default CUDA
+# generator, registered with every graph, keeps one capture state.
+_CAPTURE_LOCK = threading.Lock()
 
 # Capturing streams of closed engines, for the next engines to take: PyTorch
 # keeps a 32 MiB cuBLAS workspace for every (handle, stream) a thread has run
 # a product on, so a new stream for every engine (a pool's every rejoin)
 # would add one each time.
-_SPARE_STREAMS: list = []
+_SPARE_STREAMS: list = []  # mcpx: owner[DEVICE_LOCK]
 
 
 def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -235,7 +241,7 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
 
 
 @dataclasses.dataclass
-class GenerateRequest:
+class GenerateRequest:  # mcpx: request-payload
     prompt_ids: list[int]
     max_new_tokens: int
     constrained: bool
@@ -318,6 +324,16 @@ class GenerateResult:
     bill: Optional[dict] = None
 
 
+# The engine's lifecycle: the legal transitions out of each state.
+_ENGINE_STATES: dict[str, tuple[str, ...]] = {
+    "cold": ("warming",),
+    "warming": ("ready", "failed", "closed"),
+    "ready": ("closed",),
+    "failed": ("closed",),
+    "closed": (),
+}
+
+
 def _bucket(n: int, buckets: tuple[int, ...]) -> int:
     for b in buckets:
         if n <= b:
@@ -325,6 +341,7 @@ def _bucket(n: int, buckets: tuple[int, ...]) -> int:
     raise EngineError(f"length {n} exceeds largest bucket {buckets[-1]}")
 
 
+@owned_by("engine-worker")
 class _Slab:
     """The persistent decode batch. Host side: the request and page
     bookkeeping per row, and ``gen``, each row's generation counter, bumped
@@ -653,11 +670,11 @@ class InferenceEngine:
         # Decode cost totals {flops, bytes, wall_s} of the segments
         # harvested while a resident row was traced: the residency delta
         # source of the engine.decode span's roofline. Worker thread only.
-        self._seg_cost_totals = {"flops": 0.0, "bytes": 0.0, "wall_s": 0.0}
+        self._seg_cost_totals = {"flops": 0.0, "bytes": 0.0, "wall_s": 0.0}  # mcpx: owner[engine-worker]
         # Worker-loop profiler (telemetry/flight.py). None = no clock reads
         # on the loop; the worker re-reads the field every iteration, so a
         # profiler can be attached to, or detached from, a live engine.
-        self._profiler: Optional[WorkerProfiler] = (
+        self._profiler: Optional[WorkerProfiler] = (  # mcpx: owner[engine-worker, atomic]
             WorkerProfiler() if self.config.telemetry.flight.profile_worker else None
         )
         # The profiler the current iteration read: every lap and carve of
@@ -673,30 +690,31 @@ class InferenceEngine:
         # the executed totals. _ledger_totals is what was handed out
         # (swapped in whole: ledger_totals() reads it cross-thread).
         self._ledger_seen: Optional[dict] = None
-        self._ledger_totals: dict = {"flops": 0, "bytes": 0, "by_executable": {}}
+        self._ledger_totals: dict = {"flops": 0, "bytes": 0, "by_executable": {}}  # mcpx: owner[engine-worker, atomic]
         # Prefix-cache counters already published to the metrics (the cache
         # itself stays metrics-free; the worker folds deltas).
-        self._prefix_seen = {"hits": 0, "misses": 0, "evictions": 0, "matched_tokens": 0}
+        self._prefix_seen = {"hits": 0, "misses": 0, "evictions": 0, "matched_tokens": 0}  # mcpx: owner[engine-worker]
         self.state = "cold"
+        self._state_lock = threading.Lock()
         self._queue: "queue.Queue[Optional[GenerateRequest]]" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._started = threading.Event()
         self._stop = False
-        self._startup_error: Optional[BaseException] = None
-        self._params = None
-        self._paged_kv: Optional[dict] = None
+        self._startup_error: Optional[BaseException] = None  # mcpx: owner[engine-worker, atomic]
+        self._params = None  # mcpx: owner[engine-worker]
+        self._paged_kv: Optional[dict] = None  # mcpx: owner[engine-worker]
         self._slab: Optional[_Slab] = None
         # Grammar tables by pad bucket (state rows, columns), made at first
         # use and kept: captured windows read them at their addresses.
-        self._tables: dict[tuple[int, int], _Tables] = {}
+        self._tables: dict[tuple[int, int], _Tables] = {}  # mcpx: owner[engine-worker]
         # The heterogeneous slab's grammar slots (seeded in _setup: slot 0
         # the trivial grammar, slot 1 the generic plan grammar), the rows
         # holding each, and the stacked tables by shape (slots, state
         # rows, columns), made at first use and kept, as _tables are.
-        self._trivial_grammar = build_trivial_grammar(self.tokenizer)
-        self._dfa_slots: list[Optional[PlanGrammar]] = []
-        self._dfa_slot_refs: list[int] = []
-        self._stacks: dict[tuple[int, int, int], _Stack] = {}
+        self._trivial_grammar = build_trivial_grammar(self.tokenizer)  # mcpx: owner[engine-worker]
+        self._dfa_slots: list[Optional[PlanGrammar]] = []  # mcpx: owner[engine-worker]
+        self._dfa_slot_refs: list[int] = []  # mcpx: owner[engine-worker, atomic]
+        self._stacks: dict[tuple[int, int, int], _Stack] = {}  # mcpx: owner[engine-worker]
         self._spec_degraded_logged = False
         # Captured windows by key (CUDA only), the kernel launches each
         # replay runs, and the captures made per key. The window's
@@ -708,12 +726,12 @@ class InferenceEngine:
         # The kernel launches this engine's worker thread made, replays
         # included (``own_launches``): the process-wide counts less other
         # engines'.
-        self._launches: dict[str, int] = dict.fromkeys(kernel_launches(), 0)
+        self._launches: dict[str, int] = dict.fromkeys(kernel_launches(), 0)  # mcpx: owner[engine-worker, atomic]
         self._capture_stream = None
         self._graph_pool = None
         self._tickets_held = False
-        self._seq_counter = 0
-        self._last_admit_t = 0.0
+        self._seq_counter = 0  # mcpx: owner[engine-worker]
+        self._last_admit_t = 0.0  # mcpx: owner[engine-worker]
         # The cost entry of the last prefill run (worker thread only): the
         # admission's engine.prefill spans read it.
         self._pf_entry = None
@@ -739,7 +757,7 @@ class InferenceEngine:
         # count their drafts (every proposal, forced ones included, as the
         # reference's speculative counters do) in drafted and accepted, and
         # spec_verify counts those windows: the verify path's dispatches.
-        self._stats = {
+        self._stats = {  # mcpx: owner[engine-worker, atomic]
             "admissions": 0, "segments": 0, "windows": 0, "decode_forwards": 0,
             "live_forwards": 0, "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
             "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
@@ -747,23 +765,23 @@ class InferenceEngine:
         }
         # Speculative drafted and accepted tokens by row class (worker
         # writes, queue_stats reads; swapped in whole).
-        self._spec_totals = {
+        self._spec_totals = {  # mcpx: owner[engine-worker, atomic]
             "drafted_constrained": 0, "accepted_constrained": 0, "drafted_free": 0, "accepted_free": 0,
         }
         # Dispatched segments awaiting harvest, oldest first.
-        self._inflight: "deque[_Inflight]" = deque()
+        self._inflight: "deque[_Inflight]" = deque()  # mcpx: owner[engine-worker]
         # The all-done flag ring (made in _setup): windows issued so far,
         # and the first window whose flag may end a segment (flags from
         # before an admission are stale).
-        self._window_seq = 0
+        self._window_seq = 0  # mcpx: owner[engine-worker]
         self._flags_from = 0
         self._flag_host: Optional[torch.Tensor] = None
         self._flag_np: Optional[np.ndarray] = None
         self._flag_events: list = []
         # Service-time EWMA (s) of retired requests: the locality sort's
         # deadline slack.
-        self._ewma_service_s = 0.0
-        self._allocator = PageAllocator(
+        self._ewma_service_s = 0.0  # mcpx: owner[engine-worker, atomic]
+        self._allocator = PageAllocator(  # mcpx: owner[engine-worker]
             n_pages=max(2, ecfg.max_batch_size * ecfg.max_pages_per_seq + 1),
             page_size=ecfg.kv_page_size,
             max_pages_per_seq=ecfg.max_pages_per_seq,
@@ -772,8 +790,8 @@ class InferenceEngine:
         # per-tenant governor under the radix tree; None when off, and the
         # tree is then the single-tier one. Worker thread only after start;
         # other threads read their counters.
-        self._spill_tier: Optional[HostSpillTier] = None
-        self._governor: Optional[CacheGovernor] = None
+        self._spill_tier: Optional[HostSpillTier] = None  # mcpx: owner[engine-worker, atomic]
+        self._governor: Optional[CacheGovernor] = None  # mcpx: owner[engine-worker, atomic]
         if ecfg.kv_tier.enabled:
             chaos = None
             if ecfg.kv_tier.chaos_profile:
@@ -788,20 +806,20 @@ class InferenceEngine:
             )
             if ecfg.kv_tier.governor:
                 self._governor = CacheGovernor(ecfg.kv_tier.tenant_weights)
-        self._prefix_cache = RadixPrefixCache(
+        self._prefix_cache = RadixPrefixCache(  # mcpx: owner[engine-worker, atomic]
             self._allocator, ecfg.kv_page_size, max_nodes=max(0, ecfg.prefix_cache_entries),
             spill=self._spill_tier, governor=self._governor,
         )
         # Declared shared-prefix heads served (token tuple -> tenant), an LRU
         # of 64: the warm-restart snapshot records them.
-        self._declared_heads: "OrderedDict[tuple, str]" = OrderedDict()
+        self._declared_heads: "OrderedDict[tuple, str]" = OrderedDict()  # mcpx: owner[engine-worker]
         # Snapshot heads waiting for their lazy rebuild (when a snapshot's
         # ids restored but its KV could not): (ids, tenant), each consumed
         # by the first request it prefixes.
-        self._warm_heads: list[tuple[tuple, str]] = []
+        self._warm_heads: list[tuple[tuple, str]] = []  # mcpx: owner[engine-worker]
         # Spill counters already published to the metrics (delta fold, as
         # _prefix_seen).
-        self._spill_seen = {
+        self._spill_seen = {  # mcpx: owner[engine-worker]
             "spills": 0, "readmits": 0, "destructive_evictions": 0, "host_evictions": 0, "denied_readmits": 0,
         }
         # Readmits whose host-to-device copy may still read its pinned
@@ -841,32 +859,48 @@ class InferenceEngine:
         self._draft_free_mask[self.tokenizer.eos_id] = False
 
     # ------------------------------------------------------------- lifecycle
+    def _transition(self, to: str) -> bool:
+        """Move the lifecycle state machine to ``to`` iff legal from the
+        current state (``_ENGINE_STATES``); returns whether the transition
+        happened. The lock makes check-and-set atomic across the event loop
+        (start/aclose) and any coalescing start() callers: a close that
+        lands mid-start wins and stays won."""
+        with self._state_lock:
+            if to in _ENGINE_STATES.get(self.state, ()):
+                self.state = to
+                return True
+            return False
+
     async def start(self) -> None:
         """Load the weights onto the device and start the worker thread.
-        Concurrent callers wait for the one start in flight."""
+        Concurrent callers wait for the one start in flight. All state
+        writes go through the guarded ``_transition``: exactly one caller
+        wins cold->warming (and starts the worker thread), and a concurrent
+        aclose() cannot be overwritten back to "ready"."""
         if self.state == "ready":
             return
         if self.state in ("closed", "failed"):
             raise EngineError(f"engine not startable (state={self.state})")
-        if self.state == "cold":
-            self.state = "warming"
+        if self._transition("warming"):
             self._thread = threading.Thread(target=self._worker, daemon=True, name="mcpx-torch-engine")
             self._thread.start()
         while not self._started.is_set():
             await asyncio.sleep(0.02)
         if self._startup_error is not None:
-            self.state = "failed"
+            self._transition("failed")
             raise EngineError(f"engine startup failed: {self._startup_error}")
-        if self.state == "warming":
-            self.state = "ready"
+        self._transition("ready")
         if self.state != "ready":
+            # A concurrent aclose() closed the engine mid-start; the
+            # transition above lost, and this caller must not serve.
             raise EngineError(f"engine not startable (state={self.state})")
         # From here every new executable key is a capture in the serving
         # path: the sentinel logs it at WARNING.
         self.costs.arm()
 
     async def aclose(self) -> None:
-        self.state = "closed"
+        with self._state_lock:
+            self.state = "closed"  # terminal from any state, races included
         self._stop = True
         self._queue.put(None)
         if self._thread is not None:
@@ -880,7 +914,7 @@ class InferenceEngine:
                 and self.config.engine.kv_tier.snapshot_path
                 and self._started.is_set()
                 and self._startup_error is None
-                and self._params is not None
+                and self._params is not None  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
             ):
                 # A clean close writes the warm-restart snapshot before the
                 # pools drop; the tier's drain completes the copies in
@@ -894,17 +928,17 @@ class InferenceEngine:
             if tier is not None:
                 # Copies in flight and host runs drop after the snapshot:
                 # no pinned buffer outlives the engine.
-                tier.reset()
+                tier.reset()  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
                 self._readmit_holds.clear()
             # Nothing of the engine stays on the card, even while a
             # reference to the closed engine lives on (a replica pool's
             # killed slot): weights, pools, slab, grammar tables, masks,
             # generator, flag ring, capturing stream and graph pool.
-            self._params = None
-            self._paged_kv = None
+            self._params = None  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
+            self._paged_kv = None  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
             self._slab = None
-            self._tables.clear()
-            self._stacks.clear()
+            self._tables.clear()  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
+            self._stacks.clear()  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
             self._unconstrained_mask = self._draft_free_mask = None
             self._generator = None
             self._flag_host = self._flag_np = None
@@ -915,7 +949,7 @@ class InferenceEngine:
             self._capture_stream = self._graph_pool = None
             if tier is not None:
                 # The tree's spilled nodes lost their runs with the reset.
-                self._prefix_cache.drop_all()
+                self._prefix_cache.drop_all()  # mcpx: ignore[thread-ownership] - worker joined (guard above); cached KV dies with the pools
 
     # ------------------------------------------------------------------ api
     async def generate(
@@ -998,12 +1032,13 @@ class InferenceEngine:
         ones). The worker applies it between segments, as it applies every
         change to the tree; with no worker running it applies at once."""
         if self._thread is None or not self._thread.is_alive():
-            return self._drop_unpinned()
+            return self._drop_unpinned()  # mcpx: ignore[thread-ownership] - no worker thread runs (not started, closed, or driven by hand): the caller is the only thread touching the tree
         loop = asyncio.get_running_loop()
         fut: "asyncio.Future[int]" = loop.create_future()
         self._queue.put(_DropUnpinnedOp(fut, loop))
         return await fut
 
+    @owned_by("engine-worker")
     def _drop_unpinned(self) -> int:
         cache = self._prefix_cache
         cache.max_nodes = 0
@@ -1478,12 +1513,12 @@ class InferenceEngine:
             self._record_window(key)
             self._capture(key, lambda: self._window(slab, key, dfa), serving=False)
 
-    def _worker(self) -> None:
+    def _worker(self) -> None:  # mcpx: thread-entry[engine-worker]
         count_into(self._launches)
         try:
             with torch.inference_mode(), DEVICE_LOCK:
                 self._setup()
-        except BaseException as e:  # surfaced by start()
+        except BaseException as e:  # mcpx: ignore[broad-except] - stored as _startup_error, surfaced via start() and /healthz
             self._startup_error = e
             self._started.set()
             return
@@ -2023,6 +2058,7 @@ class InferenceEngine:
         psz, elt = self.config.engine.kv_page_size, self._paged_kv["k"].element_size()
         return lambda: spill_copy_cost(self.model_cfg, pages=n_pages, page_size=psz, elt_bytes=elt)
 
+    @owned_by("engine-worker")
     def _spill_gather(self, pages: list[int]) -> tuple:
         """The tier's gather: ``pages`` of both pools copied into a fresh
         device tensor (the run as it is now: a later write to the freed
@@ -2046,6 +2082,7 @@ class InferenceEngine:
         event.record()
         return k_host, v_host, event, (k_dev, v_dev, idx)
 
+    @owned_by("engine-worker")
     def _spill_readmit(self, k_host: torch.Tensor, v_host: torch.Tensor, pages: list[int]) -> None:
         """The tier's readmit: a landed run copied to the device without
         blocking, then into ``pages`` of the pools in place (a pool is never
@@ -2106,7 +2143,7 @@ class InferenceEngine:
         only."""
         try:
             total = 0.0
-            for i, leaf in enumerate(_tree_leaves(self._params)):
+            for i, leaf in enumerate(_tree_leaves(self._params)):  # mcpx: ignore[thread-ownership] - worker thread (setup) or post-join teardown (aclose guard)
                 total += (i + 1.0) * float(leaf.abs().float().sum())
             return total
         except Exception:  # no fingerprint: no KV restore
@@ -2123,7 +2160,7 @@ class InferenceEngine:
         path = os.path.expanduser(ecfg.kv_tier.snapshot_path)
         tier = self._spill_tier
         cache = self._prefix_cache
-        tier.drain()
+        tier.drain()  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); blocking shutdown drain
         nodes_out: list[dict] = []
         arrays: dict[str, np.ndarray] = {}
         budget = tier.host_bytes or (256 << 20)
@@ -2141,8 +2178,8 @@ class InferenceEngine:
                     k, v = child.host.k, child.host.v
                 elif child.pages:
                     idx = torch.as_tensor(child.pages, dtype=torch.int64, device=self.device)
-                    k = self._paged_kv["k"].index_select(2, idx).cpu()
-                    v = self._paged_kv["v"].index_select(2, idx).cpu()
+                    k = self._paged_kv["k"].index_select(2, idx).cpu()  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); teardown read
+                    v = self._paged_kv["v"].index_select(2, idx).cpu()  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); teardown read
                 else:
                     continue
                 nbytes = nbytes_of(k) + nbytes_of(v)
@@ -2164,7 +2201,10 @@ class InferenceEngine:
             **self._snapshot_meta(),
             "fingerprint": self._params_fingerprint(),
             "governor": self._governor.snapshot() if self._governor is not None else {},
-            "declared_heads": [{"ids": [int(t) for t in k], "tenant": t} for k, t in self._declared_heads.items()],
+            "declared_heads": [
+                {"ids": [int(t) for t in k], "tenant": t}
+                for k, t in self._declared_heads.items()  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); teardown read
+            ],
             "nodes": nodes_out,
         }
         chaos = tier.chaos
@@ -2179,7 +2219,9 @@ class InferenceEngine:
         os.replace(path + ".tmp", path)
         log.info(
             "KV snapshot saved: %d runs, %.1f MiB, %d declared heads -> %s",
-            len(nodes_out), total / (1 << 20), len(self._declared_heads), path,
+            len(nodes_out), total / (1 << 20),
+            len(self._declared_heads),  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); teardown read
+            path,
         )
 
     def _load_snapshot(self) -> None:
@@ -2813,7 +2855,7 @@ class InferenceEngine:
         if self.device.type != "cuda":
             self._window(slab, key, dfa)
             return
-        graph = self._graphs.get(key)
+        graph = self._graphs.get(key)  # mcpx: ignore[jit-static-branch] - homogeneous-mode debt: per-request temperature/constrained ARE trace statics here, bounded by the slab-wide compat triple (one config per occupancy, drain-to-switch); hetero_batch moves both into per-row device state
         if graph is None:
             self._capture(key, lambda: self._window(slab, key, dfa), serving=True)
             return
@@ -2843,8 +2885,8 @@ class InferenceEngine:
         the engine's generator registered, so each replay draws anew; so has
         every heterogeneous window's, whose temperature is per-row data. A
         failed capture raises EngineError; there is no eager retry. The
-        whole of it holds ``DEVICE_LOCK``, so the launch record holds this
-        capture's launches alone."""
+        capture itself holds ``_CAPTURE_LOCK``, so its launch record holds
+        its own launches alone whether or not ``DEVICE_LOCK`` is held."""
         with DEVICE_LOCK:
             stream = self._capture_stream
             main = torch.cuda.current_stream(self.device)
@@ -2863,17 +2905,26 @@ class InferenceEngine:
                 graph = torch.cuda.CUDAGraph()
                 if key[1][0] in ("sampled", "rows"):
                     graph.register_generator_state(self._generator)
-                before = captured_launches()
-                with torch.cuda.graph(
-                    graph, pool=self._graph_pool, stream=stream, capture_error_mode="thread_local"
-                ):
-                    fn()
+                # capture_begin/capture_end, not the ``torch.cuda.graph``
+                # context: its entry synchronizes the whole device, illegal
+                # while another thread's stream is capturing (the call
+                # raises "operation not permitted when stream is capturing"
+                # and the other capture is invalidated). The capturing
+                # stream already waits on the worker's stream above.
+                with _CAPTURE_LOCK, torch.cuda.stream(stream):
+                    before = captured_launches()
+                    graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+                    try:
+                        fn()
+                    finally:
+                        graph.capture_end()
+                    launches = {k: n - before[k] for k, n in captured_launches().items()}
             except Exception as e:
                 raise EngineError(f"capture of the decode window {key} failed: {e}") from e
             finally:
                 main.wait_stream(stream)
-            self._graphs[key] = graph
-            self._graph_launches[key] = {k: n - before[k] for k, n in captured_launches().items()}
+            self._graphs[key] = graph  # mcpx: ignore[jit-static-branch] - homogeneous-mode debt: per-request temperature/constrained ARE trace statics here, bounded by the slab-wide compat triple (one config per occupancy, drain-to-switch); hetero_batch moves both into per-row device state
+            self._graph_launches[key] = launches
             self._captures[key] = self._captures.get(key, 0) + 1
             self._stats["captures" if serving else "warmup_captures"] += 1
 
@@ -2929,6 +2980,7 @@ class InferenceEngine:
         self._stats["windows"] += n_win
         self._stats["decode_forwards"] += n_win * key[5]
 
+    @owned_by("engine-worker")
     def _fast_forward(self, slab: _Slab, dfa, chunk: int, cur, pos, st, e, done, prev):
         """One forward of the fast-forward body: ``cur`` plus, for
         constrained rows, the chain of grammar-forced tokens after it, then
@@ -3004,6 +3056,7 @@ class InferenceEngine:
         e2 = e1 + torch.where(newly_done, 0, 1)
         return (nxt, pos + adv, st_next, e2, newly_done, prev2), None
 
+    @owned_by("engine-worker")
     def _draft_forward(self, slab: _Slab, dfa, chunk: int, cur, pos, st, e, done, prev):
         """One forward of the prompt-draft body (constrained, greedy):
           1. the continuation after the last (prev, cur) bigram match in the
@@ -3109,6 +3162,7 @@ class InferenceEngine:
         accepted_n = (acc & ~forced_t).long().sum()
         return (nxt, pos + adv, st_next, e2, newly_done, prev2), torch.stack([drafted, accepted_n])
 
+    @owned_by("engine-worker")
     def _hetero_forward(self, slab: _Slab, sdfa, chunk: int, cur, pos, st, e, done, prev):
         """One forward of the heterogeneous body: each row's ``cur`` plus,
         for constrained rows, the chain of tokens its grammar slot forces
@@ -3179,6 +3233,7 @@ class InferenceEngine:
         e2 = e1 + torch.where(newly_done, 0, 1)
         return (nxt, pos + adv, st_next, e2, newly_done, prev), None
 
+    @owned_by("engine-worker")
     def _spec_forward(self, slab: _Slab, sdfa, chunk: int, cur, pos, st, e, done, prev):
         """One forward of the speculative body (``chunk`` = K + 1):
           1. draft: the drafter proposes up to K tokens a row through the

@@ -44,8 +44,8 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 # capture recorded to LAUNCHES with ``count_replay``. Several engines may
 # launch from their worker threads at once: the counts, the thread's own
 # count (``count_into``) and the ticket registry below change under _LOCK.
-LAUNCHES = {"ragged_paged_attention": 0}
-CAPTURED = {"ragged_paged_attention": 0}
+LAUNCHES = {"ragged_paged_attention": 0}  # mcpx: owner[_LOCK]
+CAPTURED = {"ragged_paged_attention": 0}  # mcpx: owner[_LOCK]
 _LOCK = threading.Lock()
 _THREAD = threading.local()
 
@@ -75,9 +75,12 @@ def count_into(counts: Optional[dict[str, int]]) -> None:
     _THREAD.counts = counts
 
 
-def _count(table: dict[str, int], launches: dict[str, int]) -> None:
-    own = getattr(_THREAD, "counts", None) if table is LAUNCHES else None
+def _count(captured: bool, launches: dict[str, int]) -> None:
+    """Add ``launches`` to CAPTURED (calls recorded into a graph) or to
+    LAUNCHES and this thread's own count."""
+    own = None if captured else getattr(_THREAD, "counts", None)
     with _LOCK:
+        table = CAPTURED if captured else LAUNCHES
         for k, n in launches.items():
             table[k] += n
             if own is not None:
@@ -86,7 +89,7 @@ def _count(table: dict[str, int], launches: dict[str, int]) -> None:
 
 def count_replay(launches: dict[str, int]) -> None:
     """One replay of a captured graph ran ``launches`` (by kernel name)."""
-    _count(LAUNCHES, launches)
+    _count(False, launches)
 
 
 # ---------------------------------------------------------------- plain
@@ -214,8 +217,8 @@ def _lib() -> ctypes.CDLL:
 # A CUDA graph captured on a stream bakes in the address of that stream's
 # buffer: ``hold_tickets`` sizes it for the largest launch the graphs will
 # hold and keeps it from being replaced until ``release_tickets``.
-_TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
-_HELD: dict[tuple[torch.device, int], int] = {}
+_TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}  # mcpx: owner[_LOCK]
+_HELD: dict[tuple[torch.device, int], int] = {}  # mcpx: owner[_LOCK]
 
 
 def ticket_count(B: int, S: int, K: int, G: int) -> int:
@@ -325,7 +328,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     )
     if rc != 0:
         raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")
-    _count(CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES, {"ragged_paged_attention": 1})
+    _count(torch.cuda.is_current_stream_capturing(), {"ragged_paged_attention": 1})
     return out
 
 

@@ -22,6 +22,7 @@ import torch
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import torch_dtype
+from mcpx_torch.utils.ownership import owned_by
 
 
 @dataclass
@@ -35,9 +36,12 @@ class PageStats:
         return 1.0 - self.free_pages / max(1, self.total_pages)
 
 
+@owned_by("engine-worker")
 class PageAllocator:
     """Free-list page allocator; page 0 is reserved as the null page.
-    Single-writer by construction: the engine worker thread owns it."""
+    Single-writer by construction: the engine worker thread owns it, and
+    the ``owned_by`` marks (class + mutators) let mcpxlint's
+    thread-ownership pass prove no other thread can reach a mutation."""
 
     def __init__(self, n_pages: int, page_size: int, max_pages_per_seq: int) -> None:
         if n_pages < 2:
@@ -55,6 +59,7 @@ class PageAllocator:
     def pages_needed(self, n_tokens: int) -> int:
         return max(1, -(-n_tokens // self.page_size))
 
+    @owned_by("engine-worker")
     def allocate(self, seq_id: int, n_tokens: int) -> list[int]:
         """Allocate pages to hold ``n_tokens``; returns the page list."""
         if seq_id in self._seq_pages:
@@ -70,6 +75,7 @@ class PageAllocator:
         self._seq_pages[seq_id] = pages
         return list(pages)
 
+    @owned_by("engine-worker")
     def extend(self, seq_id: int, n_tokens_total: int) -> list[int]:
         """Grow a sequence's page list to cover ``n_tokens_total``; returns
         the (possibly unchanged) full page list."""
@@ -87,6 +93,7 @@ class PageAllocator:
             pages.append(self._free.pop())
         return list(pages)
 
+    @owned_by("engine-worker")
     def split(self, src_id: int, dst_id: int, n_head_pages: int) -> list[int]:
         """Move ownership of ``src_id``'s FIRST ``n_head_pages`` pages to a
         new sequence ``dst_id``; returns them. No device work — page ids are
@@ -108,6 +115,7 @@ class PageAllocator:
         self._seq_pages[src_id] = pages[n_head_pages:]
         return list(self._seq_pages[dst_id])
 
+    @owned_by("engine-worker")
     def free(self, seq_id: int) -> None:
         pages = self._seq_pages.pop(seq_id, None)
         if pages is None:

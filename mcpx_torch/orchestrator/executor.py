@@ -172,7 +172,7 @@ class Orchestrator:
             nt.started_at = asyncio.get_event_loop().time()
             with tracing.span(f"node:{node.name}", service=node.service) as nsp:
                 return await self._attempt_chain(node, results, payload, nt, nsp, budget)
-        except Exception as e:  # per-node isolation boundary: the error lands in the result
+        except Exception as e:  # mcpx: ignore[broad-except] - per-node isolation boundary; error lands in the result envelope, never swallowed
             nt.status = "failed"
             nt.finished_at = asyncio.get_event_loop().time()
             return False, f"internal error running node '{node.name}': {e}"

@@ -109,7 +109,7 @@ class Scheduler:
             return False
         try:
             return bool(self._slo_burning())
-        except Exception:  # a broken budget read must never refuse a grant; degrades to the blind ladder
+        except Exception:  # mcpx: ignore[broad-except] - a broken budget read must never refuse a grant; degrades to the blind ladder
             return False
 
     # ------------------------------------------------------------- context
@@ -159,7 +159,7 @@ class Scheduler:
         if self._engine_stats is not None:
             try:
                 eng = float(self._engine_stats().get("eta_s", 0.0))
-            except Exception:  # an estimator must never raise; degrades to 0 on the admission hot path
+            except Exception:  # mcpx: ignore[broad-except] - an estimator must never raise; degrades to 0 on the admission hot path
                 eng = 0.0
         return max(own, eng)
 

@@ -202,7 +202,7 @@ def build_app(cp: ControlPlane) -> web.Application:
                     return _json_error(500, f"{type(e).__name__}: {e}")
                 finally:
                     if limited:
-                        inflight["n"] -= 1
+                        inflight["n"] -= 1  # mcpx: ignore[async-shared-mutation] - balanced dec of the inc above; int ops don't yield, so no lost update on one loop
                 status = "ok" if resp.status < 400 else "error"
                 http_status = resp.status
                 resp.headers["X-Trace-Id"] = trace_id
@@ -213,7 +213,7 @@ def build_app(cp: ControlPlane) -> web.Application:
             provenance.end(prov_token)
             if root is not None:
                 root.set(status=status)
-            elapsed_s = time.monotonic() - t0
+            elapsed_s = time.monotonic() - t0  # mcpx: ignore[span-across-await-blocking] - the latency metric must exist when tracing is disabled or the trace unsampled
             if bill is not None:
                 ledger_mod.deactivate(bill_token)
                 bill.finalize(status=status, total_ms=elapsed_s * 1e3)
@@ -604,11 +604,11 @@ def build_app(cp: ControlPlane) -> web.Application:
             loop = asyncio.get_running_loop()
             profile["prof"] = await loop.run_in_executor(profiler_thread, _start_trace)
             started = True
-        except Exception as e:  # profiler state errors -> client as 409
+        except Exception as e:  # mcpx: ignore[broad-except] - profiler state errors -> client as 409
             return _json_error(409, f"could not start trace: {e}")
         finally:
             # Always resolves the reservation, cancellation included.
-            profile["dir"] = trace_dir if started else None
+            profile["dir"] = trace_dir if started else None  # mcpx: ignore[async-shared-mutation] - resolving this handler's own reservation; racers were 409'd by it
         return web.json_response({"profiling": "started", "dir": trace_dir})
 
     async def profile_stop(request: web.Request) -> web.Response:
@@ -623,12 +623,12 @@ def build_app(cp: ControlPlane) -> web.Application:
             loop = asyncio.get_running_loop()
             await loop.run_in_executor(profiler_thread, _stop_trace, profile["prof"], trace_dir)
             stopped = True
-        except Exception as e:  # error -> client as 500
+        except Exception as e:  # mcpx: ignore[broad-except] - error -> client as 500
             return _json_error(500, f"could not stop trace: {e}")
         finally:
             # On failure the profiler's state is unknown: keep it active
             # rather than wedge both endpoints behind 409s.
-            profile["dir"] = None if stopped else trace_dir
+            profile["dir"] = None if stopped else trace_dir  # mcpx: ignore[async-shared-mutation] - resolving this handler's own reservation; racers were 409'd by it
             if stopped:
                 profile["prof"] = None
         return web.json_response({"profiling": "stopped", "dir": trace_dir})

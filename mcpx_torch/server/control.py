@@ -189,7 +189,7 @@ class ControlPlane:
                     if sp is not None:
                         sp.set(cache="hit", origin=cached.origin)
                     provenance.emit("plan", "plan-cache hit (local tier)", origin=cached.origin or "unknown")
-                    return cached, (time.monotonic() - t0) * 1e3
+                    return cached, (time.monotonic() - t0) * 1e3  # mcpx: ignore[span-across-await-blocking] - latency_ms is a client response field, served with tracing off too
             if use_cache and self.redis_plan_cache is not None:
                 # Second tier: shared across replicas/restarts, independent of
                 # the local LRU (plan_cache_size=0 disables only the local
@@ -203,7 +203,7 @@ class ControlPlane:
                     if sp is not None:
                         sp.set(cache="redis_hit", origin=shared.origin)
                     provenance.emit("plan", "plan-cache hit (redis tier)", origin=shared.origin or "unknown")
-                    return shared, (time.monotonic() - t0) * 1e3
+                    return shared, (time.monotonic() - t0) * 1e3  # mcpx: ignore[span-across-await-blocking] - latency_ms is a client response field, served with tracing off too
             if use_cache and (local_tier or self.redis_plan_cache is not None):
                 self.plan_cache_stats["misses"] += 1
                 self.metrics.plan_cache.labels(result="miss").inc()
@@ -237,7 +237,7 @@ class ControlPlane:
                 self._cache_put(key, plan)
             if use_cache and not degraded and self.redis_plan_cache is not None:
                 self._redis_cache_write(intent, version, plan)
-            return plan, (time.monotonic() - t0) * 1e3
+            return plan, (time.monotonic() - t0) * 1e3  # mcpx: ignore[span-across-await-blocking] - latency_ms is a client response field, served with tracing off too
 
     # ------------------------------------------------------------ provenance
     def _emit_plan_provenance(
@@ -252,7 +252,7 @@ class ControlPlane:
         if sf is not None and context.shortlist:
             try:
                 scores = sf(intent, list(context.shortlist))
-            except Exception:  # a record without scores, never a failed plan
+            except Exception:  # mcpx: ignore[broad-except] - provenance must never fail a plan; the record just loses its scores
                 scores = {}
         provenance.emit(
             "plan",
@@ -275,7 +275,7 @@ class ControlPlane:
             return None
         try:
             qs = engine.queue_stats()
-        except Exception:  # a record without tier signals, never a failed plan
+        except Exception:  # mcpx: ignore[broad-except] - provenance must never fail a plan; the record just loses tier signals
             return None
         return {"spills": int(qs.get("prefix_spills", 0)), "readmits": int(qs.get("prefix_readmits", 0))}
 

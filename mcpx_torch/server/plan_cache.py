@@ -72,7 +72,7 @@ class RedisPlanCache:
             return None
         try:
             return Plan.from_wire(json.loads(raw))
-        except Exception:  # ANY malformed entry is a miss:
+        except Exception:  # mcpx: ignore[broad-except] - ANY malformed entry is a miss:
             # valid-JSON-wrong-shape (e.g. {"nodes": 5}, a different build's
             # schema) raises TypeError and friends, not just
             # PlanValidationError — none of them may fail the plan request.

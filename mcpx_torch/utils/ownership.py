@@ -1,16 +1,15 @@
-"""Runtime-inert thread-ownership annotations.
+"""Runtime-inert thread-ownership annotations read by mcpxlint.
 
-Copy of ``mcpx/utils/ownership.py``: the marks are kept so a later lint pass
-over the port can read them as mcpxlint reads the reference's.
+Copy of ``mcpx/utils/ownership.py``, read by the port's own analyzer: the
+``thread-ownership`` and ``loop-confinement`` passes
+(mcpx_torch/analysis/rules/ownership_rules.py, loop_rules.py) prove every
+mutation of marked state is reachable only from the owning thread's entry
+points.
 
 The engine's single-writer invariants (the worker thread owns the slab,
-the radix prefix tree and the page allocator — SURVEY.md §5) used to live
-only in comments. These decorators make them machine-checkable: the
-``thread-ownership`` pass (mcpx/analysis/rules/ownership_rules.py) proves
-every mutation is reachable only from the owning thread's entry points.
-
-At runtime both decorators only tag the callable and return it unchanged —
-zero overhead on the hot path.
+the radix prefix tree and the page allocator) are declared here, not only
+in comments. At runtime both decorators only tag the callable and return
+it unchanged — zero overhead on the hot path.
 
     @owned_by("engine-worker")      # this callable mutates engine-worker
     def insert(self, ...): ...      # state: callers must be worker-only
@@ -21,8 +20,10 @@ zero overhead on the hot path.
 Field-level ownership is declared with a trailing comment on the
 assignment (``self._x = ...  # mcpx: owner[<thread>]``, optionally
 ``owner[<thread>, atomic]`` for GIL-atomic cross-thread reads — angle
-brackets here keep the doc example from parsing as a declaration); see
-docs/static-analysis.md for the full annotation reference.
+brackets here keep the doc example from parsing as a declaration); on a
+module-level assignment the comment names the module's lock that guards
+the state instead (``owner[<lock>]``). mcpx_torch/analysis/README.md has
+the full annotation reference.
 """
 
 from __future__ import annotations

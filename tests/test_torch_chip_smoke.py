@@ -6,8 +6,9 @@ exposition parser, its latency attribution against the reference bench's,
 and the phase itself on a CPU control plane), the mixed, speculation and
 heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines, and
 the int8, overload, chaos, observatory, 100k-registry (at a small size) and
-SentencePiece phases on CPU control planes, and the offline phase (corpus,
-training, evaluation) with its margin helpers on the CPU."""
+SentencePiece phases on CPU control planes, the offline phase (corpus,
+training, evaluation) with its margin helpers on the CPU, and the lint
+phase's gate on a small tree."""
 
 import os
 import sys
@@ -621,3 +622,29 @@ def test_parallel_phase_runs_on_the_cpu():
     assert out["retrieval_mesh"]["shards"] == [150, 150] and not out["retrieval_mesh"]["differing"]
     assert {n: r["shards"] for n, r in out["train_dp_test"]["runs"].items()} == {"none": 1, "data2": 2,
                                                                                  "hybrid2x2x1": 4}
+
+
+def test_lint_phase_gates_on_new_and_stale_findings(tmp_path, capsys):
+    """Phase 25 over a small tree laid out like the repository (its own
+    ``mcpx_torch/`` and baseline): clean, then failing on a new finding,
+    then on a stale baseline entry once the finding is gone."""
+    import json
+    import pytest
+
+    pkg = tmp_path / "mcpx_torch"
+    (pkg / "analysis").mkdir(parents=True)
+    (pkg / "mod.py").write_text("def ok():\n    return 1\n")
+    out = chip_smoke.lint_phase("cpu", root=str(tmp_path))
+    assert (out["findings"], out["new"], out["stale"], out["files"]) == (0, 0, 0, 1)
+    assert len(out["slowest_rules"]) == 5 and out["seconds"] > 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "lint"
+    (pkg / "mod.py").write_text("import time\n\n\nasync def f():\n    time.sleep(1)\n")
+    with pytest.raises(SystemExit, match="async-blocking"):
+        chip_smoke.lint_phase("cpu", root=str(tmp_path))
+    (pkg / "analysis" / "baseline.json").write_text(json.dumps({"version": 1, "entries": [
+        {"path": "mcpx_torch/mod.py", "line": 5, "rule": "async-blocking", "message": ""},
+    ]}))
+    assert chip_smoke.lint_phase("cpu", root=str(tmp_path))["baselined"] == 1
+    (pkg / "mod.py").write_text("def ok():\n    return 1\n")
+    with pytest.raises(SystemExit, match="stale"):
+        chip_smoke.lint_phase("cpu", root=str(tmp_path))

@@ -3,8 +3,8 @@ reference's four CLI tests (``tests/test_cli.py``) mirrored on the port,
 with the control plane on ``device="cpu"``; ``gen-registry`` writes the
 reference's file byte for byte; the offline commands (``train-planner``,
 ``eval-planner``, ``bench report``) are served with the reference's
-arguments and output; and ``lint``, not served yet, is refused by name
-with a non-zero exit."""
+arguments and output; and ``lint`` is served too: the port's mcpxlint
+over the port's tree, clean against the port's baseline."""
 
 import argparse
 import asyncio
@@ -18,7 +18,7 @@ from aiohttp import ClientSession
 from aiohttp.test_utils import TestServer
 
 from mcpx.cli.main import main as jmain
-from mcpx_torch.cli.main import REFUSED, _load_config, main
+from mcpx_torch.cli.main import _load_config, main
 from mcpx_torch.server.app import build_app
 from mcpx_torch.server.factory import build_control_plane
 
@@ -134,19 +134,20 @@ EVAL_KEYS = {"coverage", "relevance", "coherence", "score", "n", "n_with_edges",
     ids=lambda a: " ".join(a[:2]) if a[0] == "bench" else a[0],
 )
 def test_unported_commands_are_refused_by_name(argv, capsys, tmp_path, monkeypatch):
-    """The reference's commands the port did not serve: ``lint`` is still
-    refused by name with exit 2; the offline commands are served now, with
-    the reference's arguments (``--device`` for ``--platform``) and output.
-    ``train-planner`` writes a checkpoint the reference's ``load_npz``
-    reads; ``eval-planner`` prints one JSON line with the reference's keys;
-    ``bench report`` prints the reference's report."""
+    """The reference's commands the port once refused are all served now,
+    with the reference's arguments (``--device`` for ``--platform``) and
+    output. ``train-planner`` writes a checkpoint the reference's
+    ``load_npz`` reads; ``eval-planner`` prints one JSON line with the
+    reference's keys; ``bench report`` prints the reference's report;
+    ``lint`` scans the port's tree and prints the reference's JSON report,
+    exit 0 against the port's baseline (mcpx_torch/analysis/baseline.json)."""
     command = " ".join(argv[:2]) if argv[0] == "bench" else argv[0]
     monkeypatch.chdir(ROOT)
-    if command in REFUSED:
-        assert main(argv) == 2
-        err = capsys.readouterr().err
-        assert f"mcpx_torch {command}: not served" in err and REFUSED[command] in err
-        assert REFUSED[command].startswith("item 7")
+    if command == "lint":
+        assert main(argv) == 0
+        payload = json.loads(capsys.readouterr().out)
+        assert payload["exit"] == 0 and payload["new"] == [] and payload["stale_baseline"] == []
+        assert not payload["baseline_missing"] and payload["files_scanned"] > 100
         return
     if command == "train-planner":
         from mcpx.models.train import load_npz as jload_npz
@@ -185,11 +186,13 @@ def test_train_planner_default_out_stays_out_of_the_reference_package(monkeypatc
 
 def test_module_entry_point_runs_and_refuses():
     """``python -m mcpx_torch.cli``: the package's ``__main__`` runs the CLI
-    (and importing it runs nothing)."""
+    (and importing it runs nothing); ``lint mcpx_torch``, once refused, is
+    served and exits 0 against the port's baseline."""
     ok = subprocess.run([sys.executable, "-m", "mcpx_torch.cli", "validate", "-"], input='{"nodes": [{"name": "a"}]}',
                         capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert ok.returncode == 0 and json.loads(ok.stdout)["valid"]
-    refused = subprocess.run([sys.executable, "-m", "mcpx_torch.cli", "lint", "x"], capture_output=True, text=True,
-                             timeout=120, cwd=ROOT)
-    assert refused.returncode == 2 and "lint" in refused.stderr
+    served = subprocess.run([sys.executable, "-m", "mcpx_torch.cli", "lint", "mcpx_torch"], capture_output=True,
+                            text=True, timeout=120, cwd=ROOT)
+    assert served.returncode == 0, served.stdout + served.stderr
+    assert "0 new finding(s)" in served.stdout and "0 stale baseline entries" in served.stdout
     import mcpx_torch.cli.__main__  # noqa: F401

@@ -15,12 +15,16 @@ the retrieval index's device table: its ranking against host numpy, exact
 ties, and its own stream beside a busy default stream. The last hold the
 engines of a replica pool sharing the card: two engines started together
 capture as one started alone, serving from two worker threads leaves the
-ticket buffers at 0 and their own launches add up to the process's, and a
-closed engine leaves nothing allocated."""
+ticket buffers at 0 and their own launches add up to the process's, a
+closed engine leaves nothing allocated, and two 2b engines start and serve
+from two worker threads with the device lock replaced by one that locks
+nothing, token for token as each serves alone. The last shows which calls
+of another thread break a thread's CUDA-graph capture."""
 
 import asyncio
 import os
 import random
+import subprocess
 import sys
 import time
 
@@ -718,3 +722,205 @@ def test_a_training_step_on_the_card_matches_the_cpu(cuda):
     assert all(flat_card[k].device.type == "cuda" for k in flat_card)
     for k, v in flat_cpu.items():
         torch.testing.assert_close(flat_card[k].cpu(), v, rtol=0, atol=1e-4)
+
+
+class _NoLock:
+    """Stands in for ``engine.DEVICE_LOCK``: a re-entrant lock that locks
+    nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def acquire(self, *args, **kwargs):
+        return True
+
+    def release(self):
+        pass
+
+
+# Counters of a burst's schedule: when streams differ, whether the engine
+# took another path through the burst (admissions, suffix prefills, drafts).
+_BURST_COUNTERS = (
+    "admissions", "prefill_tokens", "suffix_prefills", "segments", "windows",
+    "decode_forwards", "spec_verify", "captures", "replays",
+)
+
+
+@pytest.mark.cuda
+def test_two_2b_engines_serve_at_once_without_the_device_lock(cuda, monkeypatch):
+    """ROADMAP Queue C: two engines at the ``cluster_2b`` shapes (2b at full
+    width, random weights, batch 64) start together and serve bursts from
+    their two worker threads at once with ``engine.DEVICE_LOCK`` replaced by
+    a lock that locks nothing. No CUDA error, and every burst's token
+    streams equal, token for token, those of the same engine serving alone
+    with the lock. Each burst is one admission cohort from an emptied tree;
+    the locked runs are made twice and must agree, so that a difference
+    belongs to the lock-free run. A failure names every differing stream
+    with the locked stream's top-2 margin at the first differing token and
+    both runs' schedule counters."""
+    from mcpx_torch.engine import engine as eng
+
+    real_lock = eng.DEVICE_LOCK
+    n, rounds, budget = 16, 3, 64
+
+    async def burst(engine, prompts):
+        await chip_smoke.idle(engine)
+        left = await engine.drop_unpinned()
+        q0 = engine.queue_stats()
+        with chip_smoke.one_cohort(engine, len(prompts)):
+            res = await asyncio.gather(*(engine.generate(p, max_new_tokens=budget) for p in prompts))
+        q1 = engine.queue_stats()
+        counters = {k: q1[k] - q0[k] for k in _BURST_COUNTERS}
+        return [r.token_ids for r in res], {"tree_nodes_left": left, **counters}
+
+    def differences(pair, prompts, free, alone):
+        """(round, engine, request, position, locked stream's margin there)
+        of every stream that differs from the locked run's."""
+        out = []
+        for r, got in enumerate(free):
+            for j, ((streams, _), (want, _)) in enumerate(zip(got, alone)):
+                for i, (s, w) in enumerate(zip(streams, want)):
+                    if s == w:
+                        continue
+                    k = next((x for x, (a, b) in enumerate(zip(s, w)) if a != b), min(len(s), len(w)))
+                    margin = chip_smoke.masked_margin(pair[j], prompts[j][i], {"max_new_tokens": budget}, w, k)
+                    out.append((r, j, i, k, margin))
+        return out
+
+    async def go():
+        monkeypatch.setattr(eng, "DEVICE_LOCK", _NoLock())
+        pair = [eng.InferenceEngine(chip_smoke.config("2b", "", 64), device=cuda) for _ in range(2)]
+        tok = pair[0].tokenizer
+        prompts = [
+            [tok.encode(f"engine {j}, intent {i}: fetch the user record, then enrich it. JSON:") for i in range(n)]
+            for j in range(2)
+        ]
+        try:
+            await asyncio.gather(*(e.start() for e in pair))
+            free = []
+            for _ in range(rounds):
+                free.append(await asyncio.gather(*(burst(e, p) for e, p in zip(pair, prompts))))
+                torch.cuda.synchronize()
+            monkeypatch.setattr(eng, "DEVICE_LOCK", real_lock)
+            alone = [await burst(e, p) for e, p in zip(pair, prompts)]
+            again = [await burst(e, p) for e, p in zip(pair, prompts)]
+            torch.cuda.synchronize()
+            diffs = differences(pair, prompts, free, alone)
+        finally:
+            monkeypatch.setattr(eng, "DEVICE_LOCK", real_lock)
+            await asyncio.gather(*(e.aclose() for e in pair))
+        return free, alone, again, diffs
+
+    free, alone, again, diffs = asyncio.run(go())
+    assert all(len(s) > 0 for streams, _ in alone for s in streams)
+    assert [s for s, _ in again] == [s for s, _ in alone], (
+        f"the locked runs differ from each other: {[c for _, c in alone]} {[c for _, c in again]}"
+    )
+    counters = {
+        "locked": [c for _, c in alone],
+        "lock_free": [[c for _, c in got] for got in free],
+    }
+    print(f"two engines lock-free: {len(diffs)} differing streams of {rounds * 2 * n}: {diffs} {counters}")
+    assert not diffs, f"streams differ from the locked runs (round, engine, request, token, margin): {diffs} {counters}"
+
+
+# One thread holds a CUDA-graph capture open on a stream of its own while
+# another thread makes one call; prints whether each survived.
+_CAPTURE_PROBE = r"""
+import sys, threading
+import torch
+
+call = sys.argv[1]
+dev = torch.device("cuda")
+x = torch.zeros(1 << 20, device=dev)
+torch.cuda.synchronize()
+stream, graph = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
+started, held, res = threading.Event(), threading.Event(), {}
+
+def first_line(e):
+    return str(e).splitlines()[0][:100]
+
+def capture():
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        started.set()
+        try:
+            y = x
+            for _ in range(200):
+                y = y * 1.0001 + 1
+            held.wait(5)
+        finally:
+            try:
+                graph.capture_end()
+                res["capture"] = "ok"
+            except RuntimeError as e:
+                res["capture"] = first_line(e)
+
+def other():
+    started.wait()
+    try:
+        if call == "synchronize":
+            torch.cuda.synchronize()
+        elif call == "graph_context":
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), capture_error_mode="thread_local"):
+                torch.zeros(4, device=dev).add_(1)
+        elif call == "empty_cache":
+            torch.cuda.empty_cache()
+        elif call == "capture_begin":
+            s2, g2 = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
+            with torch.cuda.stream(s2):
+                g2.capture_begin(capture_error_mode="thread_local")
+                torch.zeros(4, device=dev).add_(1)
+                g2.capture_end()
+        elif call == "malloc":
+            torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+        elif call == "event_synchronize":
+            e = torch.cuda.Event()
+            e.record()
+            e.synchronize()
+        elif call == "eager_item":
+            (torch.ones(1 << 20, device=dev) * 2).sum().item()
+        res["call"] = "ok"
+    except RuntimeError as e:
+        res["call"] = first_line(e)
+    finally:
+        held.set()
+
+threads = [threading.Thread(target=capture), threading.Thread(target=other)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(f"capture={res.get('capture')}|call={res.get('call')}")
+"""
+
+
+@pytest.mark.cuda
+def test_what_another_thread_may_do_while_a_graph_captures(cuda):
+    """Why the engine captures with ``capture_begin``/``capture_end`` and
+    never synchronizes the device on a serving path: while one thread's
+    stream captures in thread-local mode, another thread's device-wide
+    synchronize, and the entry of a ``torch.cuda.graph`` context (which
+    synchronizes the device), raise and invalidate that capture; an
+    allocator flush, a capture on another stream, a 1 GiB allocation, an
+    event synchronize and an eager ``.item()`` leave it whole. Each call
+    runs in a process of its own: a broken capture may poison the context."""
+    breaks = ("synchronize", "graph_context")
+    whole = ("empty_cache", "capture_begin", "malloc", "event_synchronize", "eager_item")
+    seen = {}
+    for call in breaks + whole:
+        proc = subprocess.run(
+            [sys.executable, "-c", _CAPTURE_PROBE, call], capture_output=True, text=True, timeout=120
+        )
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("capture=")]
+        seen[call] = lines[0] if lines else f"died rc={proc.returncode}: {proc.stderr[-300:]}"
+    print(f"capture probe: {seen}")
+    for call in breaks:
+        assert "operation not permitted when stream is capturing" in seen[call], (call, seen[call])
+        assert "capture=ok" not in seen[call], (call, seen[call])
+    for call in whole:
+        assert seen[call] == "capture=ok|call=ok", (call, seen[call])

@@ -43,8 +43,8 @@ def _forbidden(module: str) -> bool:
 
 def test_walk_covers_every_module_of_the_port():
     """The walk sees every module, the int8, scheduler, resilience,
-    default-off telemetry, config-surface, cluster, offline and parallel
-    ones among them."""
+    default-off telemetry, config-surface, cluster, offline, parallel and
+    static-analysis ones among them."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in (
         "models/gemma/quant.py", "scheduler/admission.py", "scheduler/fairness.py",
@@ -57,6 +57,9 @@ def test_walk_covers_every_module_of_the_port():
         "cluster/routing.py", "cluster/sharding.py", "planner/quality.py", "planner/evaluate.py",
         "models/corpus.py", "models/train.py", "models/gemma/convert.py", "cli/bench_report.py",
         "parallel/__init__.py", "parallel/mesh.py", "parallel/ring_attention.py",
+        "analysis/__init__.py", "analysis/core.py", "analysis/callgraph.py", "analysis/dataflow.py",
+        "analysis/project.py", "analysis/cli.py", "analysis/fix.py", "analysis/rules/torch_rules.py",
+        "analysis/rules/graph_contract_rules.py", "analysis/rules/ownership_rules.py",
     ):
         assert f"mcpx_torch/{module}" in rel, module
 
