@@ -74,7 +74,8 @@ Phases, one line each (every number beside the card's name and power limit):
      that plans are replanned around them with the plan's prompt prefix
      pinned, the executions run in rounds (``Lockstep``); the reference
      bench's replan probe, warm against cold; and the pass again with the
-     telemetry store reset, equal to the first at test (see
+     telemetry store reset, equal to the first at test but for the tools'
+     measured latency in replan prompts (``p50=``, host noise; see
      ``execute_phase``);
  11. mixed traffic (``mixed_test``, ``mixed_2b``), on the serving engines
      after phase 9: the reference bench's five request classes by direct
@@ -164,13 +165,19 @@ Phases, one line each (every number beside the card's name and power limit):
      attention shape (K 1, G 8, hd 256, B 2, T 4096) on seq meshes of 2, 4
      and 8 and data 2 x seq 4 against the dense ``_attend``, float32 within
      2e-5, bf16's worst error, each route's ms and peak bytes
-     (``ring_attention_2b``); an engine on a ``data=4`` mesh serving /plan
+     (``ring_attention_2b``); an engine on a ``seq=4`` mesh serving /plan
      prompts over a 64-service shortlist with ring prefill off, then at
      their bucket, then a repeat, then a short prompt: the test preset in
      float32 on the committed checkpoint, plans byte for byte
      (``ring_serve_test``), and the 2b preset in bf16, near-ties explained
-     (``ring_serve_2b``), with a float32 one-cohort probe, ring within 1e-3
-     of dense (``ring_probe_2b``); phase 20's table on a ``model=2`` mesh,
+     (``ring_serve_2b``); both again in float32 on a ``data=4`` mesh (its
+     data coordinates viewed as the seq axis, the ring through the sharded
+     forward; the dense route's prefill splits the rows in 4 blocks, so the
+     ring is also held against a pass with the prefill's rows whole, and
+     the blocked pass against that one: ``ring_serve_data4_*``); a
+     one-cohort probe, the ring, the ring through the ``data=4`` layout and
+     the blocked dense prefill within 1e-3 of dense in float32, and each
+     route's bf16 error (``ring_probe_2b``); phase 20's table on a ``model=2`` mesh,
      shortlists equal (``retrieval_mesh``); phase 23's parity training on a
      ``data=2`` and a hybrid mesh against none, losses within 1e-5
      (``train_dp_test``); its wall time (``parallel``);
@@ -180,6 +187,21 @@ Phases, one line each (every number beside the card's name and power limit):
      entries against the port's baseline (``mcpx_torch/analysis/
      baseline.json``), the scan's seconds and its five slowest rules;
      fails on any new finding or stale entry;
+ 26. TP/DP serving (``tp_serve_test``, ``tp_serve_2b``): the burst's /plan
+     intents (16 on the committed checkpoint, 8 at 2b on random weights,
+     batch 64, greedy, float32 both) on the unmeshed engine and on one whose
+     mesh is a virtual ``data=2, model=2`` mesh of the card, each model
+     shard launching the ragged kernel over its own query heads for each
+     row block; plans/s, p50, kernel launches a decode forward (the meshed
+     engine's ``n_layers x 2 x 2``), captures on a repeat (0) and peak
+     allocated bytes of both; plans byte for byte equal at test, token
+     streams equal at 2b but where the unmeshed run's masked top-2 margin
+     at the first differing token is under 1e-4; each shard's kernel launch
+     at its row blocks and pool views against the plain version, the
+     served MQA layout and a GQA one whose second view starts at an offset
+     (``kernel_at_shards``; ``tp_phase``). The mesh's
+     four coordinates are one card: its times are the shard loop's cost,
+     not a multi-card speed-up;
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -704,10 +726,20 @@ def loop_counts(engine, q0: dict, q1: dict, n_plans: int) -> dict:
     d = {k: q1[k] - q0[k] for k in LOOP_COUNTERS}
     tick = max(1, engine.config.engine.decode_steps_per_tick)
     return dict(
-        **d, replay_launches=d["replays"] * engine.model_cfg.n_layers * tick,
+        **d, replay_launches=d["replays"] * launches_per_forward(engine) * tick,
         tokens_per_live_forward=d["decode_tokens"] / max(1, d["live_forwards"]),
         live_forwards_per_plan=d["live_forwards"] / n_plans,
     )
+
+
+def launches_per_forward(engine, batch: int = 0) -> int:
+    """Ragged-kernel launches of one decode forward over ``batch`` rows (the
+    slab's): one a layer, on a meshed engine one a layer for each attention
+    shard and row block."""
+    layout, n = engine._layout, engine.model_cfg.n_layers
+    if layout is None:
+        return n
+    return n * len(layout.attn) * len(layout.rows(batch or engine.config.engine.max_batch_size))
 
 
 def no_new_captures(where: str, q0: dict, q1: dict) -> None:
@@ -858,7 +890,7 @@ def _dense_logits(engine, ids: list, last_only: bool):
     cache = init_kv_cache(engine.model_cfg, 1, t.shape[1], device=dev)
     with torch.inference_mode():
         logits, _ = prefill(engine._params, engine.model_cfg, t, torch.tensor([t.shape[1]], device=dev), cache,
-                            last_only=last_only)
+                            last_only=last_only, layout=engine._layout)
     return logits[0].float().cpu().numpy()
 
 
@@ -1449,6 +1481,71 @@ def kernel_at_pages(engine, width: int, live: int, where: str) -> float:
                 if bool((out[b, ql:] != 0).any()):
                     raise SystemExit(f"{where}: row {b} pads are not exact zeros")
     return worst
+
+
+def kernel_at_shards(engine, width: int, live: int, where: str) -> dict:
+    """``kernel_at_pages`` for a meshed engine: on seeded batches at its
+    geometry and dtype (the slab's rows, its window width, its pages; the
+    property-test mix and ``live`` live rows), each row block of its layout
+    and each attention shard's query heads (``[Bd, S, K', G', hd]``) against
+    that shard's ``pool_shards`` views, launched as ``decode_chunk_paged``
+    launches them, against the plain version on the same views; and the
+    same with ``n_kv_heads`` set to the model axis (GQA, so that a shard's
+    pool view starts at an offset). Fails on a disagreement beyond
+    ATOL/RTOL, a pad that is not an exact zero, or a pool view that is not
+    its shard's leading-dim range. Returns the largest absolute error of
+    each model and the views' (KV-head range, byte offset); None off the
+    card."""
+    if engine.device.type != "cuda":
+        return None
+    from mcpx_torch.engine.kernels.paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_reference,
+    )
+    from mcpx_torch.engine.kv_cache import pool_shards
+    from mcpx_torch.models.gemma.model import torch_dtype
+    from mcpx_torch.parallel.mesh import ServeLayout
+
+    mc, ecfg = engine.model_cfg, engine.config.engine
+    B, dtype = ecfg.max_batch_size, torch_dtype(mc.dtype)
+    layouts = {"served": engine._layout,
+               "gqa": ServeLayout(engine._mesh, dataclasses.replace(mc, n_kv_heads=engine._layout.model))}
+    out = {"dtype": mc.dtype, "row_blocks": [list(r) for r in engine._layout.rows(B)]}
+    for name, layout in layouts.items():
+        K, H = layout.cfg.n_kv_heads, layout.cfg.n_heads
+        worst, views = 0.0, []
+        for seed, rows in ((0, None if width >= 3 else live), (1, live), (2, live)):
+            q, kp, vp, table, starts, q_lens = mixed_batch(
+                seed, B, width, K, H // K, mc.head_dim, mc.n_layers, ecfg.kv_page_size,
+                ecfg.max_pages_per_seq, dtype, rows,
+            )
+            heads = q.reshape(B, width, H, mc.head_dim)
+            pools = pool_shards({"k": kp, "v": vp}, layout)
+            for a, (pk, pv) in zip(layout.attn, pools):
+                (h0, h1), (k0, k1) = a.heads, a.kv
+                offset = pk.data_ptr() - kp.data_ptr()
+                if offset != k0 * kp[0].numel() * kp.element_size() or not pk.is_contiguous():
+                    raise SystemExit(f"{where}: {name} shard {a} pool view at byte {offset} is not its heads'")
+                if seed == 0:
+                    views.append([[k0, k1], offset])
+                qs = heads[:, :, h0:h1].reshape(B, width, k1 - k0, a.groups, mc.head_dim).contiguous()
+                for r0, r1 in layout.rows(B):
+                    args = (qs[r0:r1], pk, pv, table[r0:r1], starts[r0:r1], q_lens[r0:r1])
+                    for layer in (0, mc.n_layers - 1):
+                        got = ragged_paged_attention(*args, layer)
+                        torch.cuda.synchronize()
+                        ref = ragged_paged_attention_reference(*args, layer)
+                        err = (got.float() - ref.float()).abs()
+                        worst = max(worst, float(err.max()))
+                        if bool((err > ATOL + RTOL * ref.float().abs()).any()):
+                            raise SystemExit(f"{where}: {name} shard {a} rows {r0}:{r1} disagree with the plain "
+                                             f"version (max {worst})")
+                        for b, ql in enumerate(q_lens[r0:r1].tolist()):
+                            if bool((got[b, ql:] != 0).any()):
+                                raise SystemExit(f"{where}: {name} shard {a} row {r0 + b} pads are not exact zeros")
+        out[name] = {"max_abs_err": worst, "attention_shards": len(layout.attn), "kv_heads": K,
+                     "pool_views": views}
+    return out
 
 
 async def observatory_burst(cp, intents: list, tracer, gens: list, bills: list) -> tuple[list, list, list]:
@@ -2822,6 +2919,35 @@ def rendered_exclusion(plan) -> str:
     return next((n.service for n in plan.nodes if n.service in rendered), rendered[0])
 
 
+def latency_blind(tok, prompt_ids) -> str:
+    """A prompt's text with every rendered tool latency (``p50=<ms>``)
+    replaced by ``p50=_``: in-process tools answer in host noise."""
+    return re.sub(r"p50=\d+", "p50=_", tok.decode(prompt_ids or []))
+
+
+def latency_flip(tok, runs1: list, runs2: list, served1: dict, served2: dict, margin) -> dict | None:
+    """Why one call of ``execute_phase`` differs between its passes, when
+    the first of its executions whose prompt differs does so in the tools'
+    latency alone (``latency_blind``), every execution before it is equal,
+    and a plan differs from there on: that execution, the first whose plan
+    differs, and pass 1's masked top-2 margin (``margin(prompt_ids, kw,
+    toks, k)``) at the first token where the two plans' streams part. Else
+    None (unexplained). ``runs*``: the call's executed plans as (JSON,
+    prompt ids); ``served*``: prompt ids -> (generate's arguments, result)."""
+    k = next((j for j, (a, b) in enumerate(zip(runs1, runs2)) if a[1] != b[1]), None)
+    if k is None or runs1[:k] != runs2[:k]:
+        return None
+    if latency_blind(tok, runs1[k][1]) != latency_blind(tok, runs2[k][1]):
+        return None
+    j = next((j for j in range(k, min(len(runs1), len(runs2))) if runs1[j][0] != runs2[j][0]), None)
+    if j is None:
+        return None
+    (kw, res1), (_, res2) = served1[tuple(runs1[j][1])], served2[tuple(runs2[j][1])]
+    t1, t2 = res1.token_ids, res2.token_ids
+    at = next((t for t, (x, y) in enumerate(zip(t1, t2)) if x != y), min(len(t1), len(t2)))
+    return {"prompt_differs_at": k, "plan_differs_at": j, "token": at, "margin": margin(runs1[j][1], kw, t1, at)}
+
+
 def common_prefix(a: list, b: list) -> int:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
 
@@ -2866,13 +2992,16 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
     replans that prefill no fewer tokens than cold ones or run no suffix
     prefill, a pin or pinned tree node left after a pass, a capture in
     pass 2, and at test any difference between the two passes in graph,
-    results, errors, status, replans or the plans executed.
+    results, errors, status, replans or the plans executed and their
+    prompts that ``latency_flip`` does not explain. The tools' measured
+    latency (``p50=``) is host noise of about half a millisecond and renders
+    as 0 or 1 by chance, so a replan's prompt may differ between the passes
+    in it alone (``latency_blind``), and its plan, and what follows in that
+    call, may then differ where pass 1's pick was a near-tie.
     A replan inside ``plan_and_execute`` renders the telemetry its
     services gained in the execution (``err=``, ``p50=``), as the
     reference's does, so its prompt parts from the original at the first
-    such line: the line reports how many tokens each shares. The tools'
-    latency is recorded as 0, what they are designed to cost, not the host
-    noise around a call."""
+    such line: the line reports how many tokens each shares."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for, synth_registry
@@ -2888,15 +3017,6 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
     failing: set = set()
     transport, calls = failing_transport(records, failing)
     cp = build_control_plane(cfg, transport=transport, device=device)
-    # The tools answer in process at zero latency. What the executor times
-    # around a call is host noise of about half a millisecond, which renders
-    # in a replan's prompt as p50=0 or p50=1 by chance and so parts the two
-    # passes' prompts (a card run's passes differed so at test): the store
-    # records the tools' designed latency, 0.
-    record = cp.telemetry.record
-    cp.telemetry.record = lambda service, *, latency_ms, ok, cost=0.0: record(
-        service, latency_ms=0.0, ok=ok, cost=cost
-    )
     for rec in records:
         await cp.registry.put(rec)
     cuda = cp.planner.engine.device.type == "cuda"
@@ -2914,12 +3034,20 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
             """Before a round of executions: the engine idle, its trailing
             segments harvested, and a full collection done, so that no tool
             call is timed across another thread's turn or the collector
-            (the round's wall times are reported; the latency the store
-            keeps is the tools' designed 0)."""
+            (the store records each call's measured latency)."""
             await idle(engine)
             await asyncio.sleep(0.02)
             gc.collect()
 
+        served: dict = {}  # prompt ids -> (generate's arguments, result), this pass's
+        real_generate = engine.generate
+
+        async def recording(prompt_ids, **kw):
+            res = await real_generate(prompt_ids, **kw)
+            served[tuple(prompt_ids)] = ({"temperature": 0.0, **kw}, res)
+            return res
+
+        engine.generate = recording
         lockstep = cp.orchestrator = Lockstep(cp.orchestrator, settle)
         firsts = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents[::2]))
         failing.update(p.nodes[0].service for p, _ in firsts)
@@ -2931,6 +3059,7 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
             await idle(engine)
             cp.telemetry.reset()
             await engine.drop_unpinned()
+            served.clear()
             q0 = engine.queue_stats()
             sync()
             reset_kernel_launches()
@@ -2983,8 +3112,8 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
             )
             if bad_plans:
                 raise SystemExit(f"execute_{size}: a replan named a service that failed before: {bad_plans[:2]}")
-            plans = [[(p.to_json(), p.prompt_ids) for p, _ in runs] for runs in executed]
-            return stats, outs, plans
+            plans = [[(p.to_json(), list(p.prompt_ids or [])) for p, _ in runs] for runs in executed]
+            return stats, outs, plans, dict(served)
 
         async def replan_probe(warm: bool, exclusion) -> dict:
             """The reference bench's replan sample (bench.py ``timed_replan``,
@@ -3031,25 +3160,31 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
             out.update(cold=await replan_probe(False, exclusion), warm=await replan_probe(True, exclusion))
             return out
 
-        pass1, outs1, plans1 = await run_pass()
+        pass1, outs1, plans1, served1 = await run_pass()
         probe = await probe_rounds(rendered_exclusion)
         bench_probe = await probe_rounds(lambda plan: plan.nodes[0].service)
-        pass2, outs2, plans2 = await run_pass()
+        pass2, outs2, plans2, served2 = await run_pass()
         keys = ("graph", "results", "errors", "status", "replans")
+
+        def blind(runs: list) -> list:
+            return [(j, latency_blind(tok, ids)) for j, ids in runs]
+
         differ = [
             i for i, (a, b) in enumerate(zip(outs1, outs2))
-            if any(a[k] != b[k] for k in keys) or plans1[i] != plans2[i]
+            if any(a[k] != b[k] for k in keys) or blind(plans1[i]) != blind(plans2[i])
         ]
+        flips = {i: latency_flip(tok, plans1[i], plans2[i], served1, served2,
+                                 lambda *a: masked_margin(engine, *a)) for i in differ}
 
         def first_difference(i: int) -> dict:
             """The first plan of call ``i`` that differs between the passes:
             its index, whether the plan or only its prompt differs, and the
             two prompts from 40 characters before they part."""
-            k = next((k for k, (a, b) in enumerate(zip(plans1[i], plans2[i])) if a != b), None)
+            b1, b2 = blind(plans1[i]), blind(plans2[i])
+            k = next((k for k, (a, b) in enumerate(zip(b1, b2)) if a != b), None)
             if k is None:
-                return {"executions": [len(plans1[i]), len(plans2[i])]}
-            (j1, ids1), (j2, ids2) = plans1[i][k], plans2[i][k]
-            t1, t2 = tok.decode(ids1 or []), tok.decode(ids2 or [])
+                return {"executions": [len(b1), len(b2)]}
+            (j1, t1), (j2, t2) = b1[k], b2[k]
             at = max(0, next((c for c, (x, y) in enumerate(zip(t1, t2)) if x != y), min(len(t1), len(t2))) - 40)
             return {"execution": k, "plan_differs": j1 != j2, "prompts": [t1[at:at + 120], t2[at:at + 120]]}
 
@@ -3059,9 +3194,10 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
             replan_probe_first_service=bench_probe, pass2=pass2, pass_differ=differ,
             differing=[
                 {**{k: [o[k] if k != "graph" else [n["service"] for n in o[k]["nodes"]] for o in (outs1[i], outs2[i])]
-                    for k in keys}, "first_difference": first_difference(i)}
+                    for k in keys}, "first_difference": first_difference(i), "latency_flip": flips[i]}
                 for i in differ
             ],
+            latency_flips=sum(f is not None for f in flips.values()), near_tie=NEAR_TIE,
         )
         emit(f"execute_{size}", card, **stats)
         if pass1["replans"] <= 0 or pass2["replans"] <= 0:
@@ -3077,10 +3213,13 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
                 raise SystemExit(f"execute_{size}: pins left after a pass: {p['pins_left']} {p['pinned_nodes_left']}")
         if pass2["captures"]:
             raise SystemExit(f"execute_{size}: the repeat captured {pass2['captures']} windows")
-        if size == "test" and differ:
-            raise SystemExit(f"execute_{size}: the two passes differ at {differ}")
+        unexplained = [i for i, f in flips.items() if f is None or f["margin"] >= NEAR_TIE]
+        if size == "test" and unexplained:
+            raise SystemExit(f"execute_{size}: the two passes differ at {unexplained}, not a near-tie after a "
+                             f"replan prompt that differs in the tools' latency alone: {[flips[i] for i in unexplained]}")
         return stats
     finally:
+        vars(cp.planner.engine).pop("generate", None)
         await cp.aclose()
 
 
@@ -4102,19 +4241,29 @@ def ring_config(size: str, checkpoint: str, batch: int):
 
 
 async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, float32: bool, batch: int = 64,
-                     device=None) -> tuple[dict, list, object]:
-    """``ring_serve_<size>``: an engine on a virtual ``data=4`` mesh of its
-    own device (its data coordinates viewed as a seq axis of 4), behind a
-    control plane over ``synth_registry(1000, seed=0)``. The burst's long
-    /plan prompts served as one cohort on the dense route (the engine as
+                     device=None, mesh_shape: dict = None) -> tuple[dict, list, object]:
+    """``ring_serve_<size>``: an engine on a virtual ``seq=4`` mesh of its
+    own device (``mesh_shape``; ``ring_serve_data4_<size>`` on ``data=4``,
+    whose data coordinates the engine views as a seq axis), behind a control
+    plane over ``synth_registry(1000, seed=0)``. The burst's long /plan
+    prompts served as one cohort on the dense route (the engine as
     ``ring_prefill_min_tokens=0`` builds it: no seq view), then with the
     seq view back and the threshold at their bucket, then that burst once
     more (which must capture nothing), then one short prompt alone, then,
     with the prefix cache on, the longest prompt alone declaring its pages
     as a shared head, whose cold radix build is a full prefill from 0.
-    Fails unless the dense pass rang nowhere, the plans are valid and equal
-    the dense pass's (byte for byte at test in float32; at 2b a differing
-    stream must be a near-tie), the ring counter equals the full prefills
+    On ``seq=4`` the two routes differ only in the attention of a full
+    prefill. On ``data=4`` the dense route's prefill also splits the
+    cohort's rows over ``data`` while the ring keeps them whole (its data
+    coordinates are the seq axis), so the burst runs once more on the dense
+    route with each prefill's rows whole (``whole``: the layout's
+    ``model_only()`` for the prefill, the decode windows as served): the
+    ring is held against that pass, and the blocked dense pass against it
+    too (``blocking_*``: what the row split alone changes).
+    Fails unless the dense passes rang nowhere, the plans are valid and equal
+    the dense pass's with the ring's row blocks (byte for byte at test in
+    float32, the blocked pass's too; at 2b a differing stream must be a
+    near-tie), the ring counter equals the full prefills
     at or over the threshold in the ring pass and in the radix build, the
     short prompt stays dense, the radix-built row's tokens equal its dense
     ones (or are a near-tie at 2b), the ragged kernel ran, and a mesh
@@ -4131,6 +4280,9 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
     from mcpx_torch.utils.synth import intent_for, synth_registry
 
     dev = torch.device("cuda" if device is None else device)
+    mesh_shape = dict(seq=4) if mesh_shape is None else mesh_shape
+    tag = "" if mesh_shape == {"seq": 4} else "".join(f"{k}{v}_" for k, v in mesh_shape.items())
+    name = f"ring_serve_{tag}{size}"
     cfg = ring_config(size, checkpoint, batch)
     model_cfg = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
     if float32:
@@ -4138,10 +4290,10 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
     other = torch.device("cuda", 1) if dev.type == "cuda" else torch.device("meta")
     try:
         InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=make_mesh(data=2, devices=[dev, other]))
-        raise SystemExit(f"ring_serve_{size}: a mesh naming {other} was not refused")
+        raise SystemExit(f"{name}: a mesh naming {other} was not refused")
     except EngineError as e:
         refusal = str(e)
-    engine = InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=make_mesh(data=4, devices=[dev] * 4))
+    engine = InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=make_mesh(**mesh_shape, devices=[dev] * 4))
     cp = build_control_plane(cfg, planner=LLMPlanner(engine, cfg.planner), device=dev)
     records = synth_registry(1000, seed=0)
     for rec in records:
@@ -4150,10 +4302,17 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
     prefills: list = []  # (width, ring) of every full prefill
     real_prefill, real_generate = engine._dense_prefill, engine.generate
     calls: dict = {}
+    prefill_layout: list = []  # the layout a full prefill runs on in place of the engine's
 
     def counting(tokens_d, lens_d, table_d, ring=False):
         prefills.append((int(tokens_d.shape[1]), ring))
-        return real_prefill(tokens_d, lens_d, table_d, ring=ring)
+        if not prefill_layout:
+            return real_prefill(tokens_d, lens_d, table_d, ring=ring)
+        served, engine._layout = engine._layout, prefill_layout[0]
+        try:
+            return real_prefill(tokens_d, lens_d, table_d, ring=ring)
+        finally:
+            engine._layout = served
 
     async def recording(prompt_ids, **kw):
         res = await real_generate(prompt_ids, **kw)
@@ -4178,7 +4337,7 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
         intents = [intent_for(records, rng) for _ in range(n_intents)]
         seq_mesh = engine._seq_mesh
         if seq_mesh is None:
-            raise SystemExit(f"ring_serve_{size}: the engine armed no seq view on {engine._mesh}")
+            raise SystemExit(f"{name}: the engine armed no seq view on {engine._mesh}")
         await idle(engine)
         # The dense pass: the engine as ``ring_prefill_min_tokens=0`` leaves
         # it (no seq view), so no prefill can take the ring route.
@@ -4203,6 +4362,18 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
         repeat_plans, _ = await burst(intents)
         q2 = engine.queue_stats()
         served_prefills, ring_count = list(prefills), rings() - r0
+        whole_plans, whole_calls, whole_prefills, whole_rings = None, dense_calls, [], 0
+        if engine._layout is not None:
+            # The dense route with each prefill's rows whole, as the ring's.
+            await idle(engine)
+            engine._seq_mesh, ecfg.ring_prefill_min_tokens = None, 0
+            prefill_layout.append(engine._layout.model_only())
+            prefills.clear()
+            r_whole = rings()
+            whole_plans, whole_calls = await burst(intents)
+            whole_prefills, whole_rings = list(prefills), rings() - r_whole
+            prefill_layout.clear()
+            engine._seq_mesh, ecfg.ring_prefill_min_tokens = seq_mesh, long_T
         prefills.clear()
         await idle(engine)
         short = await real_generate(engine.tokenizer.encode(SHORT_PROMPT), max_new_tokens=24)
@@ -4220,22 +4391,36 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
         ecfg.prefix_cache, ecfg.ring_prefill_min_tokens = True, radix_T
         prefills.clear()
         r_radix = rings()
-        head_kw = {**dense_calls[head][0], "shared_prefix_len": head_len}
+        head_kw = {**whole_calls[head][0], "shared_prefix_len": head_len}
         radix = await real_generate(list(head), **head_kw)
         radix_prefills, radix_rings = list(prefills), rings() - r_radix
-        if prompts != sorted(dense_calls):
-            raise SystemExit(f"ring_serve_{size}: the two passes rendered different prompts")
-        differ = [i for i, (a, b) in enumerate(zip(dense_plans, ring_plans)) if a.to_json() != b.to_json()]
-        ties = greedy_differences(f"ring_serve_{size}", size, card, engine,
-                                  {i: (list(p), *dense_calls[p]) for i, p in enumerate(prompts)},
-                                  {i: (list(p), *ring_calls[p]) for i, p in enumerate(prompts)})
-        radix_ties = greedy_differences(f"ring_serve_{size} radix", size, card, engine,
-                                        {0: (list(head), *dense_calls[head])}, {0: (list(head), head_kw, radix)})
+        if prompts != sorted(dense_calls) or prompts != sorted(whole_calls):
+            raise SystemExit(f"{name}: the passes rendered different prompts")
+
+        def differing(a: list, b: list) -> list:
+            return [i for i, (x, y) in enumerate(zip(a, b)) if x.to_json() != y.to_json()]
+
+        def streams(calls_of: dict) -> dict:
+            return {i: (list(p), *calls_of[p]) for i, p in enumerate(prompts)}
+
+        differ = differing(dense_plans, ring_plans)
+        if whole_plans is None:
+            ties = greedy_differences(name, size, card, engine, streams(dense_calls), streams(ring_calls))
+            blocking_differ, blocking_ties = [], []
+        else:
+            # Blocked against whole first: its near_tie lines are the row
+            # split's alone; then the ring against the pass with its blocks.
+            blocking_differ = differing(dense_plans, whole_plans)
+            blocking_ties = greedy_differences(f"{name} blocking", size, card, engine, streams(dense_calls),
+                                               streams(whole_calls))
+            ties = greedy_differences(name, size, card, engine, streams(whole_calls), streams(ring_calls))
+        radix_ties = greedy_differences(f"{name} radix", size, card, engine,
+                                        {0: (list(head), *whole_calls[head])}, {0: (list(head), head_kw, radix)})
     finally:
         engine._dense_prefill, engine.generate = real_prefill, real_generate
         await cp.aclose()
     if dev.type == "cuda":
-        check_tickets(f"ring_serve_{size}")
+        check_tickets(name)
     expected = sum(1 for w, _ in served_prefills if w >= long_T)
     stats = dict(
         model=size, dtype=model_cfg.dtype, intents=n_intents, shortlist=RING_TOP_K, prompt_tokens=lengths,
@@ -4245,31 +4430,38 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
             engine.tokenizer.encode(SHORT_PROMPT)), short_prefills=short_prefills, short_rings=short_rings,
         short_tokens=len(short.token_ids), radix_head_tokens=head_len, radix_threshold=radix_T,
         radix_full_prefills=radix_prefills, radix_ring_prefills=radix_rings,
-        radix_tokens_equal=radix.token_ids == dense_calls[head][1].token_ids, radix_near_ties=radix_ties,
-        plans_differing=differ, near_ties=ties,
+        radix_tokens_equal=radix.token_ids == whole_calls[head][1].token_ids, radix_near_ties=radix_ties,
+        row_blocks=None if engine._layout is None else len(engine._layout.rows(n_intents)),
+        whole_full_prefills=whole_prefills, whole_ring_prefills=whole_rings,
+        plans_differing_from_blocked=differ,
+        plans_differing=differ if whole_plans is None else differing(whole_plans, ring_plans), near_ties=ties,
+        blocking_plans_differing=blocking_differ, blocking_near_ties=blocking_ties,
         repeat_equal=[p.to_json() for p in repeat_plans] == [p.to_json() for p in ring_plans],
         wall_s=wall, plans_per_s=n_intents / wall, launches=launches,
         **loop_counts(engine, q0, q1, n_intents), repeat_captures=q2["captures"] - q1["captures"],
         other_device_refused=refusal,
     )
-    emit(f"ring_serve_{size}", card, **stats)
-    no_new_captures(f"ring_serve_{size} repeat", q1, q2)
+    emit(name, card, **stats)
+    no_new_captures(f"{name} repeat", q1, q2)
     if dense_rings or any(r for _, r in dense_prefills) or not dense_prefills:
-        raise SystemExit(f"ring_serve_{size}: the dense pass rang: {dense_rings} ring prefills, {dense_prefills}")
+        raise SystemExit(f"{name}: the dense pass rang: {dense_rings} ring prefills, {dense_prefills}")
+    if whole_plans is not None and (whole_rings or any(r for _, r in whole_prefills) or not whole_prefills):
+        raise SystemExit(f"{name}: the whole-row dense pass rang: {whole_rings} ring prefills, {whole_prefills}")
     if radix_rings != 1 or radix_prefills != [(radix_T, True)]:
-        raise SystemExit(f"ring_serve_{size}: the radix build did not ring once: {radix_rings}, {radix_prefills}")
+        raise SystemExit(f"{name}: the radix build did not ring once: {radix_rings}, {radix_prefills}")
     if radix_ties and max(radix_ties) >= NEAR_TIE:
-        raise SystemExit(f"ring_serve_{size}: the radix-built row differs, not a near-tie ({radix_ties})")
+        raise SystemExit(f"{name}: the radix-built row differs, not a near-tie ({radix_ties})")
     if ring_count != expected or expected <= 0 or any(r != (w >= long_T) for w, r in served_prefills):
-        raise SystemExit(f"ring_serve_{size}: {ring_count} ring prefills for {served_prefills} at threshold {long_T}")
+        raise SystemExit(f"{name}: {ring_count} ring prefills for {served_prefills} at threshold {long_T}")
     if short_rings or any(r for _, r in short_prefills) or not short_prefills:
-        raise SystemExit(f"ring_serve_{size}: the short prompt rang or never prefilled: {short_prefills}")
+        raise SystemExit(f"{name}: the short prompt rang or never prefilled: {short_prefills}")
     if launches.get("ragged_paged_attention", 0) <= 0 and dev.type == "cuda":
-        raise SystemExit(f"ring_serve_{size}: the ragged kernel never ran after the ring prefill")
-    if size == "test" and (differ or not stats["repeat_equal"]):
-        raise SystemExit(f"ring_serve_{size}: ring plans differ from the dense route's at {differ}")
-    if ties and max(ties) >= NEAR_TIE or differ and not ties:
-        raise SystemExit(f"ring_serve_{size}: plans differ at {differ}, not near-ties ({ties})")
+        raise SystemExit(f"{name}: the ragged kernel never ran after the ring prefill")
+    if size == "test" and (differ or blocking_differ or stats["plans_differing"] or not stats["repeat_equal"]):
+        raise SystemExit(f"{name}: ring plans differ from the dense route's at {differ}, the blocked dense "
+                         f"pass's from the whole one's at {blocking_differ}")
+    if ties and max(ties) >= NEAR_TIE or stats["plans_differing"] and not ties:
+        raise SystemExit(f"{name}: plans differ at {stats['plans_differing']}, not near-ties ({ties})")
     return stats, [list(p) for p in prompts], seq_mesh
 
 
@@ -4278,12 +4470,18 @@ def ring_probe(size: str, card: str, prompts: list, T: int, mesh, dev: torch.dev
     at ``size``
     with random weights from seed 0 in float32, ring prefill over ``mesh``
     against dense prefill: last-token logits within ``limit`` (the forward
-    check's); then both routes in bf16 (the same weights cast), each one's
-    worst error against the float32 dense logits."""
+    check's), and so the ring through the sharded forward of a virtual
+    ``data=4`` mesh's layout (``sharded_ring``: the batch whole, as
+    ``ring_serve_data4_*``'s ring route runs it) and the dense prefill with
+    the rows split in blocks over that layout (``blocked``, its dense
+    route); then the four routes in bf16 (the same weights cast), each
+    one's worst error against the float32 dense logits and the other three's
+    against the bf16 dense logits."""
     from mcpx_torch.models.bpe import BPETokenizer
     from mcpx_torch.models.gemma.config import GemmaConfig
     from mcpx_torch.models.gemma.model import init_kv_cache, prefill
     from mcpx_torch.models.gemma.params import load_or_init
+    from mcpx_torch.parallel.mesh import ServeLayout, make_mesh
     from mcpx_torch.parallel.ring_attention import ring_prefill
 
     tok = BPETokenizer()
@@ -4304,17 +4502,29 @@ def ring_probe(size: str, card: str, prompts: list, T: int, mesh, dev: torch.dev
                                last_only=True)
             ring, _ = ring_prefill(params, cfg, tokens, lens, mesh, init_kv_cache(cfg, len(prompts), T, device=dev),
                                    last_only=True)
-        out[dtype] = (dense.float(), ring.float())
+            layout = ServeLayout(make_mesh(data=4, devices=[dev] * 4), cfg)
+            sharded_ring, _ = ring_prefill(params, cfg, tokens, lens, mesh,
+                                           init_kv_cache(cfg, len(prompts), T, device=dev), last_only=True,
+                                           layout=layout)
+            blocked, _ = prefill(params, cfg, tokens, lens, init_kv_cache(cfg, len(prompts), T, device=dev),
+                                 last_only=True, layout=layout)
+        out[dtype] = {"dense": dense.float(), "ring": ring.float(), "sharded_ring": sharded_ring.float(),
+                      "blocked": blocked.float()}
         del params
         gc.collect()
-    ref = out["float32"][0]
-    stats = dict(model=size, rows=len(prompts), width=T, seq_mesh=dict(mesh.shape),
-                 float32_ring_vs_dense=float((out["float32"][1] - ref).abs().max()), limit=limit,
-                 bf16_dense_vs_float32=float((out["bfloat16"][0] - ref).abs().max()),
-                 bf16_ring_vs_float32=float((out["bfloat16"][1] - ref).abs().max()),
-                 finite=all(bool(torch.isfinite(t).all()) for pair in out.values() for t in pair))
+    f32, b16 = out["float32"], out["bfloat16"]
+
+    def err(a, b) -> float:
+        return float((a - b).abs().max())
+
+    routes = ("ring", "sharded_ring", "blocked")
+    stats = dict(model=size, rows=len(prompts), width=T, seq_mesh=dict(mesh.shape), layout_mesh={"data": 4},
+                 **{f"float32_{r}_vs_dense": err(f32[r], f32["dense"]) for r in routes}, limit=limit,
+                 **{f"bf16_{r}_vs_float32": err(b16[r], f32["dense"]) for r in ("dense", *routes)},
+                 **{f"bf16_{r}_vs_dense": err(b16[r], b16["dense"]) for r in routes},
+                 finite=all(bool(torch.isfinite(t).all()) for by in out.values() for t in by.values()))
     emit(f"ring_probe_{size}", card, **stats)
-    if not stats["finite"] or stats["float32_ring_vs_dense"] > limit:
+    if not stats["finite"] or max(stats[f"float32_{r}_vs_dense"] for r in routes) > limit:
         raise SystemExit(f"ring_probe_{size}: ring logits leave the dense route's: {stats}")
     return stats
 
@@ -4409,7 +4619,8 @@ def parallel_phase(card: str, index=None, intents: list = (), device=None, *, T:
     """Phase 24, the parallel package on ``device`` (the card unless the
     caller asks for the CPU): ``ring_attention_2b``; ``ring_serve_test``
     (float32, the committed checkpoint); ``ring_serve_<big>`` (random bf16
-    weights) with its float32 ``ring_probe_<big>``; ``retrieval_mesh`` on
+    weights); both again on ``data=4`` in float32 (``ring_serve_data4_*``);
+    the float32 and bf16 ``ring_probe_<big>``; ``retrieval_mesh`` on
     phase 20's ``index`` and ``intents`` when given; ``train_dp_test``.
     Returns each line's stats and the phase's wall seconds."""
     dev = torch.device("cuda" if device is None else device)
@@ -4419,6 +4630,9 @@ def parallel_phase(card: str, index=None, intents: list = (), device=None, *, T:
                                                           device=dev))
     out[f"ring_serve_{big}"], prompts, seq_mesh = asyncio.run(
         ring_serve(big, "", n_big, card, float32=False, batch=batch, device=dev))
+    for size, checkpoint, n in (("test", CKPT, n_test), (big, "", n_big)):
+        out[f"ring_serve_data4_{size}"], _, _ = asyncio.run(ring_serve(
+            size, checkpoint, n, card, float32=True, batch=batch, device=dev, mesh_shape=dict(data=4)))
     out["ring_probe"] = ring_probe(big, card, prompts, out[f"ring_serve_{big}"]["threshold"], seq_mesh, dev)
     if index is not None:
         out["retrieval_mesh"] = asyncio.run(retrieval_mesh(index, list(intents), card, device=dev))
@@ -4426,6 +4640,152 @@ def parallel_phase(card: str, index=None, intents: list = (), device=None, *, T:
                                     registry_size=registry_size)
     out["wall_s"] = time.monotonic() - t0
     emit("parallel", card, wall_s=out["wall_s"])
+    return out
+
+
+TP_MESH = dict(data=2, model=2)
+TP_MARGIN = 1e-4  # float32 sum reordering: a differing 2b stream's unmeshed margin must be under this
+
+
+async def tp_serve(size: str, checkpoint: str, n_intents: int, card: str, *, batch: int = 64,
+                   device=None, registry_size: int = 1000) -> dict:
+    """``tp_serve_<size>``: the burst's /plan intents served by the unmeshed
+    engine (``plain``) and by one on a virtual ``data=2, model=2`` mesh of
+    its own device (``tp``: the weights laid out shard-major, every forward
+    run for each row block over ``data`` in turn with each model shard's
+    heads, ``d_ff`` columns and vocabulary, the kernel launched once a
+    layer per attention shard and row block), both in float32 from the same
+    weights, each behind a control plane over
+    ``synth_registry(registry_size, seed=0)``. Each engine serves the burst as one cohort from an emptied
+    tree, then once more. Prints both arms' plans/s, p50, kernel launches a
+    decode forward, captures on the repeat and peak allocated bytes (from
+    before startup to the repeat's end, less what the card held before).
+    Fails unless every plan is valid, both arms render the same prompts, the
+    plans are equal byte for byte at test and at 2b every differing token
+    stream's unmeshed masked top-2 margin at its first differing token is
+    under ``TP_MARGIN``, each arm launched the kernel ``launches_per_forward``
+    times a decode forward (the meshed arm's layout splitting both axes),
+    the repeats captured nothing, and on the card each shard's launch at
+    its row blocks and pool views agrees with the plain version
+    (``kernel_at_shards``). Returns both arms' stats."""
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.planner.llm import LLMPlanner
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    dev = torch.device("cuda" if device is None else device)
+    model_cfg = dataclasses.replace(GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size), dtype="float32")
+    records = synth_registry(registry_size, seed=0)
+    rng = random.Random(0)
+    intents = [intent_for(records, rng) for _ in range(n_intents)]
+    name = f"tp_serve_{size}"
+    out, calls, plans, engines, cps = {}, {}, {}, {}, []
+    try:
+        for arm in ("plain", "tp"):
+            mesh = None if arm == "plain" else make_mesh(**TP_MESH, devices=[dev] * 4)
+            cfg = config(size, checkpoint, batch)
+            base = settled_memory() if dev.type == "cuda" else 0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            engine = engines[arm] = InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=mesh)
+            cp = build_control_plane(cfg, planner=LLMPlanner(engine, cfg.planner), device=dev)
+            cps.append(cp)
+            for rec in records:
+                await cp.registry.put(rec)
+            await cp.startup()
+            seen, real_generate = calls.setdefault(arm, {}), engine.generate
+
+            async def recording(prompt_ids, _real=real_generate, _seen=seen, **kw):
+                res = await _real(prompt_ids, **kw)
+                _seen[tuple(prompt_ids)] = ({"temperature": 0.0, **kw}, res)
+                return res
+
+            engine.generate = recording
+            await idle(engine)
+            await engine.drop_unpinned()
+            q0 = engine.queue_stats()
+            sync()
+            reset_kernel_launches()
+            t0 = time.monotonic()
+            with one_cohort(engine, n_intents):
+                timed = await timed_plans(cp, intents)
+            wall = time.monotonic() - t0
+            sync()
+            launches = kernel_launches()
+            q1 = engine.queue_stats()
+            with one_cohort(engine, n_intents):
+                await timed_plans(cp, intents)
+            sync()
+            q2 = engine.queue_stats()
+            for p, _ in timed:
+                p.validate()
+            plans[arm] = [p.to_json() for p, _ in timed]
+            lat = sorted(ms for _, ms in timed)
+            decode_launches = launches["ragged_paged_attention"] - (q1["suffix_prefill_launches"]
+                                                                    - q0["suffix_prefill_launches"])
+            forwards = q1["decode_forwards"] - q0["decode_forwards"]
+            layout = engine._layout
+            out[arm] = dict(
+                model=size, arm=arm, dtype=model_cfg.dtype, intents=n_intents,
+                mesh=None if mesh is None else dict(mesh.shape),
+                attention_shards=1 if layout is None else len(layout.attn),
+                row_blocks=1 if layout is None else len(layout.rows(batch)),
+                sharded_leaves=[] if layout is None else sorted(layout.sharded),
+                wall_s=wall, plans_per_s=n_intents / wall, p50_ms=nearest_rank(lat, 0.5), max_ms=lat[-1],
+                launches=launches,
+                launches_per_forward=decode_launches / max(1, forwards),
+                expected_launches_per_forward=launches_per_forward(engine, batch),
+                suffix_prefill_launches=q1["suffix_prefill_launches"] - q0["suffix_prefill_launches"],
+                **loop_counts(engine, q0, q1, n_intents), repeat_captures=q2["captures"] - q1["captures"],
+                peak_allocated_bytes=(torch.cuda.max_memory_allocated() - base) if dev.type == "cuda" else 0,
+                weight_bytes=n_bytes_of(engine), capture_keys=[repr(k) for k in engine.capture_counts()],
+            )
+            if layout is not None:
+                width = engine._spec_k() + 1 if engine.config.engine.hetero_batch else engine._spec_chunk(True)
+                out[arm]["shard_kernel"] = kernel_at_shards(engine, width, n_intents, name)
+        prompts = sorted(calls["plain"])
+        if prompts != sorted(calls["tp"]):
+            raise SystemExit(f"{name}: the two arms rendered different prompts")
+        differ = [i for i, (a, b) in enumerate(zip(plans["plain"], plans["tp"])) if a != b]
+        margins = greedy_differences(name, size, card, engines["plain"],
+                                     {i: (list(p), *calls["plain"][p]) for i, p in enumerate(prompts)},
+                                     {i: (list(p), *calls["tp"][p]) for i, p in enumerate(prompts)})
+    finally:
+        for cp in cps:
+            await cp.aclose()
+    if dev.type == "cuda":
+        check_tickets(name)
+    tp, plain = out["tp"], out["plain"]
+    emit(name, card, plain=plain, tp=tp, plans_differing=differ, margins=margins, margin_limit=TP_MARGIN,
+         plans_per_s_ratio=tp["plans_per_s"] / plain["plans_per_s"],
+         peak_bytes_ratio=tp["peak_allocated_bytes"] / max(1, plain["peak_allocated_bytes"]))
+    for st in (plain, tp):
+        no_new_captures(f"{name} {st['arm']} repeat", {"captures": 0}, {"captures": st["repeat_captures"]})
+        if dev.type == "cuda" and st["launches_per_forward"] != st["expected_launches_per_forward"]:
+            raise SystemExit(f"{name} {st['arm']}: {st['launches_per_forward']} launches a decode forward, "
+                             f"expected {st['expected_launches_per_forward']}")
+    if tp["attention_shards"] != TP_MESH["model"] or tp["row_blocks"] != TP_MESH["data"]:
+        raise SystemExit(f"{name}: the mesh split {tp['attention_shards']} x {tp['row_blocks']}, not {TP_MESH}")
+    if size == "test" and differ:
+        raise SystemExit(f"{name}: plans {differ} differ from the unmeshed engine's")
+    if any(m >= TP_MARGIN for m in margins):
+        raise SystemExit(f"{name}: a differing stream is no float32 near-tie: margins {margins}")
+    return {"plain": plain, "tp": tp}
+
+
+def tp_phase(card: str, device=None, *, n_test: int = 16, n_big: int = 8, big: str = "2b", batch: int = 64) -> dict:
+    """Phase 26: ``tp_serve_test`` on the committed checkpoint and
+    ``tp_serve_<big>`` on random weights. Returns each line's arms and the
+    phase's wall seconds."""
+    t0 = time.monotonic()
+    out = {"test": asyncio.run(tp_serve("test", CKPT, n_test, card, batch=batch, device=device)),
+           big: asyncio.run(tp_serve(big, "", n_big, card, batch=batch, device=device))}
+    out["wall_s"] = time.monotonic() - t0
+    emit("tp", card, wall_s=out["wall_s"])
     return out
 
 
@@ -4550,6 +4910,7 @@ def main(argv: list[str]) -> int:
     offline = timed("offline", offline_phase, card)
     parallel = timed("parallel", parallel_phase, card, table["index"], table["intents"])
     timed("lint", lint_phase, card)
+    tp = timed("tp_serve", tp_phase, card)
     emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
@@ -4558,7 +4919,10 @@ def main(argv: list[str]) -> int:
     ] + [sp[m] for sp in specs for m in ("off", "on")] + [hetero] + [
         t[m] for t in tiers for m in ("single", "tiered", "thrash", "chaos")
     ] + [int8_test, int8_2b, trained_obs, full_obs, spec_obs, *surface, sp, offline["train_serve_test"],
-         parallel["ring_serve_test"], parallel["ring_serve_2b"]]
+         parallel["ring_serve_test"], parallel["ring_serve_2b"], parallel["ring_serve_data4_test"],
+         parallel["ring_serve_data4_2b"]] + [
+        tp[size][arm] for size in ("test", "2b") for arm in ("plain", "tp")
+    ]
     for name in KERNELS:
         for st in runs:
             if st["launches"][name] <= 0:

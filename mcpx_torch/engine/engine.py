@@ -117,8 +117,22 @@ model's dtype, so attention still goes through the ragged kernel.
 
 The mesh (``parallel/mesh.py``): ``mesh=None`` builds ``_mesh_axes`` over
 the engine's one device (1 x 1, as the reference on one chip); an injected
-mesh must be a virtual mesh of the engine's own device (TP/DP serving over
-several cards is ROADMAP Queue A item 5b), on which the weights stay whole.
+mesh must be a virtual mesh of the engine's own device (peer copies and
+collectives over several cards are ROADMAP Queue A item 5c). On it the
+engine serves TP/DP as the reference's per-coordinate program
+(``parallel.mesh.ServeLayout``, ``_layout``): the weights are laid out
+shard-major (``params.shard_major``), and every forward it dispatches (dense
+and suffix prefill, the decode windows, drafting, verify, and the
+projections around ring prefill) runs each row block over ``data`` in turn,
+each model shard projecting its heads, launching the ragged kernel over them
+against its KV-head view of the pools, and adding its partial outputs after
+``wo`` and ``w_down`` to the others' in shard order; the logits are joined
+in vocabulary order before the grammar mask and the sampler read them. A
+forward so launches the kernel ``n_layers`` times per attention shard and
+row block. Captured windows key on the layout. The cost registry bills the
+whole mesh's work once (``forward_cost`` from the model's shapes), and the
+span rooflines' peaks count the mesh's distinct devices, not its
+coordinates: one card's on a virtual mesh.
 Long-prompt ring prefill (``engine.ring_prefill_min_tokens``): a full
 prefill whose bucket reaches the threshold and divides the seq axis runs
 ``parallel.ring_attention.ring_prefill`` over ``_seq_mesh`` (an injected
@@ -175,10 +189,18 @@ from mcpx_torch.engine.sampling import (
 from mcpx_torch.engine.speculative import advance_drafter_state, draft_window
 from mcpx_torch.engine.spill import HostSpillTier, SpillChaos, nbytes_of
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.model import init_kv_cache, prefill, torch_dtype
+from mcpx_torch.models.gemma.model import init_kv_cache, prefill, torch_dtype, whole_embed
 from mcpx_torch.models.gemma.params import load_or_init
 from mcpx_torch.models.tokenizer import make_tokenizer
-from mcpx_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, is_virtual, make_mesh
+from mcpx_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+    ServeLayout,
+    is_virtual,
+    make_mesh,
+    serve_layout,
+)
 from mcpx_torch.parallel.ring_attention import ring_prefill
 from mcpx_torch.planner.grammar import (
     _DIST_INF,
@@ -210,10 +232,13 @@ log = logging.getLogger("mcpx_torch.engine")
 # (a replica pool) each run a worker thread; every worker iteration's device
 # work, its setup and shutdown, and every CUDA-graph capture hold this lock.
 # The card runs their kernels on one stream in turn anyway. Two engines
-# capturing at once no longer need it (captures take ``_CAPTURE_LOCK``);
-# that they serve correctly without it is not shown, nor whether they would
-# serve faster (ROADMAP Queue C and P9). Re-entrant: a capture happens
-# inside an iteration.
+# capturing at once no longer need it (captures take ``_CAPTURE_LOCK``).
+# Two 2b engines serving without it gave the locked runs' token streams in
+# 20 of 20 full runs of the card test file since that test waits for an
+# idle engine (one earlier run differed, cause unknown); that does not show
+# they serve correctly without it, nor whether they would serve faster
+# (ROADMAP Queue C and P9). Re-entrant: a capture happens inside an
+# iteration.
 DEVICE_LOCK = threading.RLock()
 
 # One CUDA-graph capture at a time in the process, held from capture_begin
@@ -643,12 +668,14 @@ class InferenceEngine:
         if mesh is not None and not is_virtual(mesh, self.device):
             raise EngineError(
                 f"{mesh}: the engine serves a mesh of its own device ({self.device}) only; TP/DP "
-                "serving over several cards is ROADMAP Queue A item 5b"
+                "serving over several cards is ROADMAP Queue A item 5c"
             )
-        # The serving mesh (built in _setup when not injected) and its seq
-        # view for ring prefill (None: every full prefill is dense).
+        # The serving mesh (built in _setup when not injected), its seq
+        # view for ring prefill (None: every full prefill is dense) and the
+        # layout every forward runs on (None: nothing splits on the mesh).
         self._mesh = mesh
         self._seq_mesh = None
+        self._layout: Optional[ServeLayout] = None  # mcpx: owner[engine-worker]
         self.tokenizer = make_tokenizer(self.config.model.vocab)
         self.model_cfg = model_cfg or GemmaConfig.named(
             self.config.model.size,
@@ -1429,6 +1456,7 @@ class InferenceEngine:
             self.model_cfg, self.config.model.checkpoint_path, device=self.device,
             quantize=self.config.model.quantize, mesh=self._mesh,
         )
+        self._layout = serve_layout(self._mesh, self.model_cfg)
         # Long-prompt routing: an injected mesh with a seq axis is used as it
         # is; otherwise the data devices are viewed again as a seq axis, in
         # the same order. Armed only when routing can trigger.
@@ -1473,10 +1501,13 @@ class InferenceEngine:
         self._generator.manual_seed(time.time_ns() & 0x7FFFFFFF)
         cuda = self.device.type == "cuda"
         if cuda:
-            # The span rooflines' denominators: one card's datasheet peaks.
+            # The span rooflines' denominators: the datasheet peaks of the
+            # mesh's distinct cards (one on a virtual mesh, whatever its
+            # coordinates).
             pk = device_peaks()
-            self._peak_flops_total = pk["flops_per_chip"]
-            self._peak_bytes_total = pk["hbm_bytes_s_per_chip"]
+            n_cards = len(self._mesh.distinct_devices())
+            self._peak_flops_total = pk["flops_per_chip"] * n_cards
+            self._peak_bytes_total = pk["hbm_bytes_s_per_chip"] * n_cards
         self._flag_host = torch.zeros((FLAG_SLOTS,), dtype=torch.bool, pin_memory=cuda)
         self._flag_np = self._flag_host.numpy()
         self._flag_events = [torch.cuda.Event() if cuda else None for _ in range(FLAG_SLOTS)]
@@ -2022,10 +2053,13 @@ class InferenceEngine:
         dense = init_kv_cache(self.model_cfg, A, T, device=self.device)
         if ring:
             last, dense = ring_prefill(
-                self._params, self.model_cfg, tokens_d, lens_d, self._seq_mesh, dense, last_only=True
+                self._params, self.model_cfg, tokens_d, lens_d, self._seq_mesh, dense, last_only=True,
+                layout=self._layout,
             )
         else:
-            last, dense = prefill(self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True)
+            last, dense = prefill(
+                self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True, layout=self._layout
+            )
         commit_prefill_to_pages(self._paged_kv, dense, table_d, lens_d, self.config.engine.kv_page_size)
         return last
 
@@ -2046,7 +2080,7 @@ class InferenceEngine:
         n0 = kernel_launches()["ragged_paged_attention"]
         last, _ = decode_chunk_paged(
             self._params, self.model_cfg, tokens_d, pos_d, table_d, self._paged_kv,
-            logits_at=lens_d - 1, q_lens=lens_d,
+            logits_at=lens_d - 1, q_lens=lens_d, layout=self._layout,
         )
         self._stats["suffix_prefills"] += 1
         self._stats["suffix_prefill_launches"] += kernel_launches()["ragged_paged_attention"] - n0
@@ -2803,8 +2837,14 @@ class InferenceEngine:
         or the temperature and top-k, constants of the graph; ``("rows",
         ...)`` where temperature is per-row data, with the speculative
         draft mode), the window width, the batch, the grammar-table bucket
-        (the stack's shape, heterogeneous) and the forwards. The key is also
-        the ``window`` executable's signature in ``costs``."""
+        (the stack's shape, heterogeneous) and the forwards, then on a mesh
+        the layout's signature. The key is also the ``window`` executable's
+        signature in ``costs``."""
+        key, dfa = self._window_body(slab)
+        return (key if self._layout is None else key + (self._layout.signature(),)), dfa
+
+    def _window_body(self, slab: _Slab) -> tuple[tuple, Optional[tuple]]:
+        """``_window_plan``'s key without the layout, and its tables."""
         ecfg = self.config.engine
         forwards = max(1, ecfg.decode_steps_per_tick)
         if slab.hetero:
@@ -2869,7 +2909,7 @@ class InferenceEngine:
         cost is ``telemetry.costs.window_cost`` of the body at the key's
         width, batch, grammar columns and forwards."""
         cfg, ecfg = self.model_cfg, self.config.engine
-        body, _temp, chunk, B, bucket, forwards = key
+        body, _temp, chunk, B, bucket, forwards = key[:6]
         self.costs.record("window", key, lambda: window_cost(
             cfg, body, batch=B, width=chunk, context=ecfg.max_pages_per_seq * ecfg.kv_page_size,
             columns=bucket[-1] if bucket is not None else cfg.vocab_size, forwards=forwards,
@@ -3030,7 +3070,7 @@ class InferenceEngine:
         adv = torch.where(done, 0, 1) + adv_extra
         logits, _ = decode_chunk_paged(
             self._params, self.model_cfg, chunk_toks, pos, d["page_table"], self._paged_kv,
-            logits_at=torch.clamp(adv - 1, min=0), q_lens=adv,
+            logits_at=torch.clamp(adv - 1, min=0), q_lens=adv, layout=self._layout,
         )
         if dfa is not None:
             trans, _mask, _dist, active_ids, eos_cols, _inv = dfa
@@ -3130,6 +3170,7 @@ class InferenceEngine:
         logits_c, _ = decode_chunk_paged(
             self._params, self.model_cfg, chunk_toks, pos, d["page_table"], self._paged_kv,
             active_cols=active_ids, q_lens=torch.where(done, 0, 1 + p_use_t.long().sum(dim=1)),
+            layout=self._layout,
         )
 
         # 4. Verify: the budget mask of _budget_mask at every slot.
@@ -3211,7 +3252,7 @@ class InferenceEngine:
         adv = torch.where(done, 0, 1) + adv_extra
         logits, _ = decode_chunk_paged(
             self._params, self.model_cfg, chunk_toks, pos, d["page_table"], self._paged_kv,
-            logits_at=torch.clamp(adv - 1, min=0), q_lens=adv,
+            logits_at=torch.clamp(adv - 1, min=0), q_lens=adv, layout=self._layout,
         )
         act_rows = sactive[dfa_id]  # [B, C]
         mask = self._stacked_budget_mask(sdfa, dfa_id, st1, budgets - e1 - 1)
@@ -3261,7 +3302,7 @@ class InferenceEngine:
         budgets, buf, h = d["budgets"], d["out_buf"], d["hstate"]
         temp_v, cons_v, dfa_id = d["temp"], d["cons"], d["dfa"]
         strans, smask, _sdist, sactive, seos, sdist_succ, sinv = sdfa
-        embed = self._params["embed"]
+        embed = whole_embed(self._params, self._layout)
         b_idx = torch.arange(B, device=self.device)
         j_ar = torch.arange(K, device=self.device)
 
@@ -3275,7 +3316,7 @@ class InferenceEngine:
         n_drafted = p_use.long().sum(dim=1)
         logits_w, _ = decode_chunk_paged(
             self._params, self.model_cfg, window, pos, d["page_table"], self._paged_kv,
-            q_lens=torch.where(done, 0, 1 + n_drafted),
+            q_lens=torch.where(done, 0, 1 + n_drafted), layout=self._layout,
         )  # [B, K+1, V]
         V = logits_w.shape[-1]
         col_of = sinv[dfa_id]  # [B, V] token -> column, -1 inactive

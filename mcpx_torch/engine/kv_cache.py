@@ -155,13 +155,22 @@ class PageAllocator:
 def init_paged_kv(
     cfg: GemmaConfig, n_pages: int, page_size: int, device="cpu", dtype: str | None = None
 ) -> dict[str, torch.Tensor]:
-    """Device page pools: ``[K, L, N_pages, page_size, head_dim]``."""
+    """Device page pools: ``[K, L, N_pages, page_size, head_dim]``. A model
+    shard's KV heads are a leading-dim view of them (``pool_shards``)."""
     d = torch_dtype(dtype or cfg.dtype)
     shape = (cfg.n_kv_heads, cfg.n_layers, n_pages, page_size, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=d, device=device),
         "v": torch.zeros(shape, dtype=d, device=device),
     }
+
+
+def pool_shards(paged: dict[str, torch.Tensor], layout) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(k, v) pool views of each of ``layout``'s attention shards: the
+    leading-dim range ``[k0:k1]`` of the KV heads it reads, contiguous since
+    the pools are KV-head-major (the whole pools when the heads stay
+    whole, as MQA's do)."""
+    return [(paged["k"][a.kv[0]:a.kv[1]], paged["v"][a.kv[0]:a.kv[1]]) for a in layout.attn]
 
 
 def commit_prefill_to_pages(
@@ -172,7 +181,8 @@ def commit_prefill_to_pages(
     page_size: int,
 ) -> dict[str, torch.Tensor]:
     """Scatter a dense prefill cache ``[L, B, T, K, hd]`` into the page pools
-    (in place; the pools are returned).
+    (in place; the pools are returned). The write fills every model
+    shard's view of the pools (``pool_shards``) at once.
 
     ``page_table`` is [B, Pmax] int32 (0 = null page). Chunks beyond a
     sequence's pages are routed to the reserved null page 0, which is never

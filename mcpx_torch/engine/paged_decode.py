@@ -9,6 +9,15 @@ int8 weights each layer is dequantized inside the layer loop, the
 embedding rows are gathered as int8 with their scales, and the unembedding
 (compact or not) scales its fp32 output; the KV pools stay in the model's
 dtype.
+
+On a ``parallel.mesh.ServeLayout`` (``layout=``) the forward is the
+reference's per-coordinate program (``models/gemma/model.py``): for each
+row block over ``data`` in turn, each model shard scatters its K/V heads
+into its leading-dim view of the pools (``kv_cache.pool_shards``; MQA's one
+KV head is written once) and launches the ragged kernel on its own query
+heads against that view, and the shards' partial outputs are summed after
+``wo`` and ``w_down``. A forward so launches the kernel ``n_layers`` times
+per attention shard and row block.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import Any, Optional
 
 import torch
 
+from mcpx_torch.engine.kv_cache import pool_shards
 from mcpx_torch.engine.kernels.paged_attention import (
     paged_attention_chunk,
     ragged_paged_attention,
@@ -25,11 +35,15 @@ from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import (
     apply_rope,
     embed_tokens,
+    embed_tokens_sharded,
     layer_weights,
     mlp,
     qkv,
     rms_norm,
+    shard_layer_weights,
+    sharded_layer,
     unembed,
+    unembed_sharded,
 )
 
 
@@ -44,6 +58,7 @@ def decode_chunk_paged(
     logits_at: Optional[torch.Tensor] = None,  # [B] chunk slot per row
     active_cols: Optional[torch.Tensor] = None,  # [C] token ids: compact unembed
     q_lens: Optional[torch.Tensor] = None,  # [B] live window slots per row
+    layout=None,  # parallel.mesh.ServeLayout: the sharded forward
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """S new tokens per row in one forward. Query i of row b is written at
     cache position ``positions[b] + i`` and sees the cache through it.
@@ -55,6 +70,17 @@ def decode_chunk_paged(
     the draft verifier's input); else with ``logits_at``, ([B, V], pools)
     at one slot per row. ``active_cols`` takes precedence over
     ``logits_at``. The pools are updated in place."""
+    if layout is not None:
+        blocks = layout.rows(tokens.shape[0])
+        outs = [
+            _decode_block(
+                params, cfg, tokens[r0:r1], positions[r0:r1], page_table[r0:r1], paged_kv,
+                None if logits_at is None else logits_at[r0:r1], active_cols,
+                None if q_lens is None else q_lens[r0:r1], layout,
+            )
+            for r0, r1 in blocks
+        ]
+        return (outs[0] if len(outs) == 1 else torch.cat(outs)), paged_kv
     B, S = tokens.shape
     K, L, N, psz, hd = paged_kv["k"].shape
     p_max = page_table.shape[1]
@@ -100,3 +126,45 @@ def decode_chunk_paged(
     if logits_at is not None:
         x = x[torch.arange(B, device=dev), logits_at.long()]  # [B, D]
     return unembed(x, params["embed"]), paged_kv
+
+
+def _decode_block(params, cfg, tokens, positions, page_table, paged_kv, logits_at, active_cols, q_lens, layout):
+    """One row block of ``decode_chunk_paged`` on ``layout``'s model shards:
+    the same slots, pages and kernel arguments as the unmeshed forward, each
+    attention shard's over its KV-head view of the pools."""
+    B, S = tokens.shape
+    K, L, N, psz, hd = paged_kv["k"].shape
+    p_max = page_table.shape[1]
+    dev = tokens.device
+    x = embed_tokens_sharded(params, tokens, cfg, layout)
+    pos_mat = positions.long()[:, None] + torch.arange(S, device=dev)
+    chunk = pos_mat // psz
+    page = torch.gather(page_table.long(), 1, chunk.clamp(max=p_max - 1))
+    page = torch.where(chunk < p_max, page, torch.zeros_like(page))
+    flat_idx = page * psz + pos_mat % psz
+    pools = pool_shards(paged_kv, layout)
+    table32 = page_table.to(torch.int32).contiguous()
+    start32 = positions.to(torch.int32).contiguous()
+    qlen32 = None if q_lens is None else q_lens.to(torch.int32).contiguous()
+
+    for i in range(cfg.n_layers):
+
+        def write_kv(a, k, v, i=i):
+            pk, pv = (paged_kv["k"], paged_kv["v"]) if a is None else pools[a]
+            kh = pk.shape[0]
+            pk.view(kh, L, N * psz, hd)[:, i, flat_idx] = k.permute(2, 0, 1, 3).to(pk.dtype)
+            pv.view(kh, L, N * psz, hd)[:, i, flat_idx] = v.permute(2, 0, 1, 3).to(pv.dtype)
+
+        def attend(a, qg, i=i):
+            pk, pv = pools[a]
+            if qlen32 is not None:
+                return ragged_paged_attention(qg, pk, pv, table32, start32, qlen32, i)
+            return paged_attention_chunk(qg, pk, pv, table32, start32, i)
+
+        x = sharded_layer(x, shard_layer_weights(params, layout, i, cfg), cfg, pos_mat, layout, write_kv, attend)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if active_cols is not None:
+        return unembed_sharded(x, params, layout, subset=active_cols)
+    if logits_at is not None:
+        x = x[torch.arange(B, device=dev), logits_at.long()]
+    return unembed_sharded(x, params, layout)

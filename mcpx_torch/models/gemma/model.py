@@ -11,6 +11,16 @@ layer is dequantized inside that loop, one layer at a time. Numerics follow the 
 fp32 with scale ``1 + w``; half-split RoPE; tanh-approximate GeLU; the
 embedding scaled by ``sqrt(d_model)`` cast to the activation dtype first;
 attention logits and softmax in fp32; the tied unembedding with fp32 output.
+
+On a ``parallel.mesh.ServeLayout`` (``layout=``; weights laid out by
+``params.shard_major``) the forward is the reference's per-coordinate
+program, run for each row block over ``data`` in turn: each model shard
+projects its query heads (and its KV heads where they split) and its
+``d_ff`` columns, the partial outputs after ``wo`` and ``w_down`` are summed
+over the shards in shard order (in fp32 for a bf16 model, as a psum), the
+embedding reads each token from the vocabulary shard that holds it, and the
+unembedding's shards give the logits of their vocabulary range, joined in
+vocabulary order.
 """
 
 from __future__ import annotations
@@ -22,7 +32,14 @@ import torch
 import torch.nn.functional as F
 
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.quant import _CONTRACT_AXES, dequant_layer, embed_lookup, unembed
+from mcpx_torch.models.gemma.quant import (
+    _CONTRACT_AXES,
+    _dequant,
+    _is_qleaf,
+    dequant_layer,
+    embed_lookup,
+    unembed,
+)
 
 Params = dict[str, Any]
 KVCache = dict[str, torch.Tensor]
@@ -186,6 +203,7 @@ def forward(
     mask: torch.Tensor,
     attend_fn=None,
     logits_at: Optional[torch.Tensor] = None,
+    layout=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Forward over a [B, T] chunk against a dense [L, B, S, K, hd] cache.
     ``positions`` [B, T] are absolute and double as cache write slots;
@@ -194,7 +212,10 @@ def forward(
     this chunk's K/V are written into it (ring attention for
     sequence-parallel prefill); ``mask`` reaches only it. ``logits_at`` [B]:
     unembed only that position per row -> [B, V]. The cache is updated in
-    place and returned."""
+    place and returned. ``layout``: the sharded forward (module docstring),
+    ``attend_fn`` called per attention shard on its heads of the cache."""
+    if layout is not None:
+        return _forward_sharded(params, cfg, tokens, positions, kv_cache, mask, attend_fn, logits_at, layout)
     B, T = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg)
     b_idx = torch.arange(B, device=tokens.device)[:, None]
@@ -232,6 +253,167 @@ def _layer(
     return x + mlp(h, w)
 
 
+# ------------------------------------------------------------ model shards
+def _shard(leaf: Any, name: str, layout, m: int, i: Optional[int] = None, dtype=None) -> Any:
+    """Model shard ``m``'s block of a leaf laid out by ``params.shard_major``
+    (the whole leaf where ``layout`` does not split it), at layer ``i`` when
+    given, dequantized to ``dtype`` when given on an int8 leaf."""
+    dim = layout.sharded.get(name)
+
+    def pick(t, split):
+        t = t if i is None else t[i]
+        return t[m] if split else t
+
+    if _is_qleaf(leaf):
+        q = pick(leaf["int8"], dim is not None)
+        s = pick(leaf["scale"], dim is not None and dim not in _CONTRACT_AXES[name])
+        return {"int8": q, "scale": s} if dtype is None else _dequant(q, s, dtype)
+    return pick(leaf, dim is not None)
+
+
+def shard_layer_weights(params: Params, layout, i: int, cfg: GemmaConfig) -> list[dict[str, torch.Tensor]]:
+    """Layer ``i``'s weights for each of ``layout``'s model shards:
+    contiguous views of the shard-major leaves, dequantized on int8 weights;
+    a leaf kept whole is sliced (and dequantized) once and shared."""
+    dtype = torch_dtype(cfg.dtype)
+    out: list[dict[str, torch.Tensor]] = [{} for _ in range(layout.model)]
+    for name, leaf in params["layers"].items():
+        if name in layout.sharded:
+            for m, w in enumerate(out):
+                w[name] = _shard(leaf, name, layout, m, i, dtype)
+        else:
+            whole = _shard(leaf, name, layout, 0, i, dtype)
+            for w in out:
+                w[name] = whole
+    return out
+
+
+def whole_embed(params: Params, layout) -> Any:
+    """The [V, D] embedding (or its int8 leaf) of a tree laid out for
+    ``layout``: its vocabulary shards are consecutive rows, so this is a
+    view."""
+    e = params["embed"]
+    if layout is None or "embed" not in layout.sharded:
+        return e
+    if _is_qleaf(e):
+        return {k: v.flatten(0, 1) for k, v in e.items()}
+    return e.flatten(0, 1)
+
+
+def _vocab_shards(params: Params, layout):
+    """(start, stop, block) of each distinct vocabulary shard of the
+    embedding."""
+    e = params["embed"]
+    if layout.n_vocab == 1:
+        return [(0, layout.cfg.vocab_size, e)]
+    return [(v0, v1, _shard(e, "embed", layout, m)) for m, (v0, v1) in enumerate(layout.vocab)]
+
+
+def embed_tokens_sharded(params: Params, tokens: torch.Tensor, cfg: GemmaConfig, layout) -> torch.Tensor:
+    """``embed_tokens`` with the table split over the vocabulary: each token's
+    row comes from the shard that holds it (a select, so exact)."""
+    dtype = torch_dtype(cfg.dtype)
+    x = None
+    for v0, v1, block in _vocab_shards(params, layout):
+        rows = embed_lookup(block, (tokens.long() - v0).clamp(0, v1 - v0 - 1), dtype)
+        held = ((tokens >= v0) & (tokens < v1))[..., None]
+        x = rows if x is None else torch.where(held, rows, x)
+    return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+
+
+def unembed_sharded(x: torch.Tensor, params: Params, layout, subset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``quant.unembed`` by vocabulary shard: each shard's [.., V/M] logits,
+    joined in vocabulary order; with ``subset`` [C], each shard's logits of
+    the subset columns it holds, selected into [.., C]."""
+    shards = _vocab_shards(params, layout)
+    if subset is None:
+        parts = [unembed(x, block) for _, _, block in shards]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    out = None
+    for v0, v1, block in shards:
+        part = unembed(x, block, subset=(subset.long() - v0).clamp(0, v1 - v0 - 1))
+        held = (subset >= v0) & (subset < v1)
+        out = part if out is None else torch.where(held, part, out)
+    return out
+
+
+def _psum(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The model shards' partial outputs summed in shard order, in fp32 for
+    a lower-precision model (one shard's output as it is)."""
+    if len(parts) == 1:
+        return parts[0]
+    acc = parts[0].float()
+    for p in parts[1:]:
+        acc = acc + p.float()
+    return acc.to(parts[0].dtype)
+
+
+def sharded_layer(
+    x: torch.Tensor, ws: list[dict[str, torch.Tensor]], cfg: GemmaConfig, positions: torch.Tensor, layout,
+    write_kv, attend,
+) -> torch.Tensor:
+    """One decoder layer over [B, T, D] as ``layout``'s model shards compute
+    it, ``ws`` their weights (``shard_layer_weights``). ``write_kv(a, k, v)``
+    stores roped keys and values [B, T, K', hd] of attention shard ``a``
+    (None: every KV head, projected once where they do not split);
+    ``attend(a, qg)`` returns shard ``a``'s attention [B, T, K', G', hd]."""
+    B, T = x.shape[:2]
+    h = rms_norm(x, ws[0]["pre_attn_norm"], cfg.norm_eps)
+
+    def kv(w):
+        k = apply_rope(torch.einsum("btd,dkh->btkh", h, w["wk"]), positions, cfg.rope_theta)
+        return k, torch.einsum("btd,dkh->btkh", h, w["wv"])
+
+    if not layout.kv_split:
+        write_kv(None, *kv(ws[0]))
+    parts = []
+    for a, shard in enumerate(layout.attn):
+        w = ws[a]
+        q = apply_rope(torch.einsum("btd,dkh->btkh", h, w["wq"]), positions, cfg.rope_theta)
+        if layout.kv_split:
+            write_kv(a, *kv(w))
+        qg = q.reshape(B, T, shard.kv[1] - shard.kv[0], shard.groups, cfg.head_dim).contiguous()
+        attn = attend(a, qg).reshape(B, T, -1)
+        parts.append(torch.matmul(attn, w["wo"].reshape(-1, cfg.d_model)))
+    x = x + _psum(parts)
+    h = rms_norm(x, ws[0]["pre_mlp_norm"], cfg.norm_eps)
+    return x + _psum([mlp(h, ws[f]) for f in range(layout.n_ff)])
+
+
+def _forward_sharded(params, cfg, tokens, positions, kv_cache, mask, attend_fn, logits_at, layout):
+    """``forward`` on ``layout``: each row block over ``data`` in turn, its
+    rows of the cache written through views."""
+    B, T = tokens.shape
+    blocks = layout.rows(B)
+    attend_fn = attend_fn or _attend
+    K = cfg.n_kv_heads
+    outs = []
+    for r0, r1 in blocks:
+        rows = slice(r0, r1)
+        toks, pos = tokens[rows], positions[rows]
+        msk = mask if len(blocks) == 1 else mask[rows]
+        b_idx = torch.arange(r1 - r0, device=tokens.device)[:, None]
+        x = embed_tokens_sharded(params, toks, cfg, layout)
+        for i in range(cfg.n_layers):
+            ck, cv = kv_cache["k"][i, rows], kv_cache["v"][i, rows]
+
+            def write_kv(a, k, v, ck=ck, cv=cv, pos=pos, b_idx=b_idx):
+                k0, k1 = (0, K) if a is None else layout.attn[a].kv
+                ck[b_idx, pos, k0:k1] = k.to(ck.dtype)
+                cv[b_idx, pos, k0:k1] = v.to(cv.dtype)
+
+            def attend(a, qg, ck=ck, cv=cv, msk=msk):
+                k0, k1 = layout.attn[a].kv
+                return attend_fn(qg, ck[:, :, k0:k1], cv[:, :, k0:k1], msk)
+
+            x = sharded_layer(x, shard_layer_weights(params, layout, i, cfg), cfg, pos, layout, write_kv, attend)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if logits_at is not None:
+            x = x[torch.arange(r1 - r0, device=x.device), logits_at[rows].long()]
+        outs.append(unembed_sharded(x, params, layout))
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)), kv_cache
+
+
 # -------------------------------------------------------------- entrypoints
 def prefill(
     params: Params,
@@ -240,10 +422,12 @@ def prefill(
     seq_lens: torch.Tensor,
     kv_cache: KVCache,
     last_only: bool = False,
+    layout=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Prefill a padded [B, T] batch; ``seq_lens`` [B] masks right-padding.
     Returns logits [B, T, V] (or [B, V], each row's last valid position,
-    with ``last_only``) and the filled cache."""
+    with ``last_only``) and the filled cache. ``layout``: the sharded
+    forward."""
     B, T = tokens.shape
     S = kv_cache["k"].shape[2]
     dev = tokens.device
@@ -253,7 +437,7 @@ def prefill(
     valid = s[None, None, :] < seq_lens.long().to(dev)[:, None, None]
     return forward(
         params, cfg, tokens, positions, kv_cache, causal & valid,
-        logits_at=(seq_lens - 1) if last_only else None,
+        logits_at=(seq_lens - 1) if last_only else None, layout=layout,
     )
 
 

@@ -8,8 +8,9 @@ the same keys and layouts. A quantized tree (``quant.py``: ``{"int8",
 "scale"}`` leaves) carries across as it is: its int8 codes and f32 scales
 keep their types whatever ``dtype`` asks. ``load_or_init`` reads an
 ``.npz`` checkpoint through it, or draws random weights from a seed, in
-int8 with ``quantize="int8"``, and with ``mesh`` places the tree by
-``param_pspecs`` (``quant_pspecs`` for int8).
+int8 with ``quantize="int8"``, and with ``mesh`` lays every leaf that
+``param_pspecs`` (``quant_pspecs`` for int8) splits over ``model`` out
+shard-major (``shard_major``).
 """
 
 from __future__ import annotations
@@ -109,10 +110,10 @@ def load_or_init(
     ``cfg.dtype``, or random weights drawn from ``seed``. With
     ``quantize="int8"`` the checkpoint is quantized after it is loaded, and
     the random path quantizes each leaf as it is created, so its
-    full-precision tree never exists. ``mesh``: the tree placed with
-    ``shard_pytree`` under ``param_pspecs`` (``quant_pspecs`` for int8). Only
-    a virtual mesh of ``device`` is served, on which every leaf stays whole;
-    a mesh of other devices raises (ROADMAP Queue A item 5b)."""
+    full-precision tree never exists. ``mesh``: a virtual mesh of
+    ``device``, whose model shards' leaves are laid out by ``shard_major``
+    (the same weights, each shard's block a contiguous view); a mesh of
+    other devices raises (ROADMAP Queue A item 5c)."""
     if quantize not in ("none", "int8"):
         raise EngineError(f"unknown quantize mode {quantize!r}")
     if mesh is not None:
@@ -121,16 +122,56 @@ def load_or_init(
         if not is_virtual(mesh, device):
             raise EngineError(
                 f"load_or_init on {mesh}: weights are placed on a mesh of their own device ({device}) only; "
-                "sharding them over several cards is ROADMAP Queue A item 5b"
+                "sharding them over several cards is ROADMAP Queue A item 5c"
             )
     params, source = _load_or_init(cfg, checkpoint_path, device, seed, quantize)
     if mesh is None:
         return params, source
-    from mcpx_torch.models.gemma.quant import quant_pspecs
-    from mcpx_torch.parallel.mesh import param_pspecs, shard_pytree
+    from mcpx_torch.parallel.mesh import ServeLayout
 
-    specs = quant_pspecs(cfg, mesh) if quantize == "int8" else param_pspecs(cfg, mesh)
-    return shard_pytree(params, specs, mesh), source
+    return shard_major(params, ServeLayout(mesh, cfg)), source
+
+
+def _shard_major_leaf(t: torch.Tensor, dim: int, n: int, stacked: bool) -> torch.Tensor:
+    """``t`` with dimension ``dim`` split in ``n`` and the shard index moved
+    in front of each layer's block: ``[L, n, *block]`` for a layer-stacked
+    leaf, ``[n, *block]`` otherwise. Rewritten in place one layer at a time
+    (a split of the first dimension of a layer is already in that order), so
+    the reordering needs one layer's block of memory beside the tree."""
+    x = t if stacked else t[None]
+    d = dim - 1 if stacked else dim
+    per = x.shape[1:][d] // n
+    block = x.shape[1:][:d] + (per,) + x.shape[1:][d + 1:]
+    if d > 0:
+        for i in range(x.shape[0]):
+            x[i].view(-1).copy_(x[i].unflatten(d, (n, per)).movedim(d, 0).reshape(-1))
+    y = x.view(x.shape[0], n, *block)
+    return y if stacked else y[0]
+
+
+def shard_major(params: Params, layout) -> Params:
+    """The tree laid out for ``layout``'s model shards: every leaf split over
+    ``model`` (``layout.sharded``) becomes ``[L, M, *block]`` (``embed``:
+    ``[M, V/M, D]``), so shard ``m``'s block of layer ``i`` is the
+    contiguous view ``leaf[i, m]``. An int8 leaf's scales follow its codes
+    where they are split too (``quant_pspecs``), else stay whole. The
+    tensors are reordered in place; other leaves are returned as they are."""
+    from mcpx_torch.models.gemma.quant import _CONTRACT_AXES
+
+    n = layout.model
+    out: Params = {**params, "layers": dict(params["layers"])}
+    for name, dim in layout.sharded.items():
+        stacked = name != "embed"
+        node = out["layers"] if stacked else out
+        leaf = node[name]
+        if _is_qleaf(leaf):
+            scale = leaf["scale"]
+            if dim not in _CONTRACT_AXES[name]:
+                scale = _shard_major_leaf(scale, dim, n, stacked)
+            node[name] = {"int8": _shard_major_leaf(leaf["int8"], dim, n, stacked), "scale": scale}
+        else:
+            node[name] = _shard_major_leaf(leaf, dim, n, stacked)
+    return out
 
 
 def _load_or_init(cfg: GemmaConfig, checkpoint_path: str, device, seed: int, quantize: str) -> tuple[Params, str]:

@@ -28,7 +28,7 @@ corpus (``models/corpus.py``), step for step as the reference does:
     gradients into the parameters', and one clip and one AdamW step follow.
     Each shard's loss divides by the *whole* batch's mask sum, so the sum of
     the shards' losses and gradients is the unsharded step's. A mesh of other
-    devices is refused (ROADMAP Queue A item 5b).
+    devices is refused (ROADMAP Queue A item 5c).
 
 Random init draws from the port's generator (``init_params``), not the
 reference's ``jax.random``; pass ``init`` to start both from one tree.
@@ -156,13 +156,13 @@ def train(
     tree of tensors, cast to float32 on ``device``). ``mesh`` shards each
     batch over its data axes (data parallelism; the parameters and the
     optimizer state stay on ``device``). Only a virtual mesh of ``device`` is
-    served; a mesh of other devices raises (ROADMAP Queue A item 5b)."""
+    served; a mesh of other devices raises (ROADMAP Queue A item 5c)."""
     tcfg = tcfg or TrainConfig()
     dev = resolve_device(device)
     if mesh is not None and not is_virtual(mesh, dev):
         raise EngineError(
             f"train on {mesh}: data parallelism runs on a mesh of the training device ({dev}) only; "
-            "shards on several cards are ROADMAP Queue A item 5b"
+            "shards on several cards are ROADMAP Queue A item 5c"
         )
     cfg = dataclasses.replace(model_cfg, dtype="float32")
     rng = np.random.default_rng(tcfg.seed)

@@ -239,3 +239,127 @@ def shard_pytree(tree: Any, specs: Any, mesh: Mesh) -> Any:
 def is_virtual(mesh: Mesh, device: "torch.device | str") -> bool:
     """Every coordinate of ``mesh`` is ``device``."""
     return mesh.distinct_devices() == [canonical(device)]
+
+
+def _model_dim(spec: Spec) -> Optional[int]:
+    """The dimension a spec shards over ``model``, or None."""
+    for d, entry in enumerate(spec):
+        if entry == MODEL_AXIS or (isinstance(entry, tuple) and MODEL_AXIS in entry):
+            return d
+    return None
+
+
+class AttnShard:
+    """One model shard's attention: its query heads ``heads``, the KV heads
+    ``kv`` they read (a leading-dim range of the page pools), and the query
+    heads per KV head in the shard (``groups``), so its queries are
+    ``[B, T, kv[1] - kv[0], groups, hd]``."""
+
+    def __init__(self, heads: tuple[int, int], kv: tuple[int, int], groups: int) -> None:
+        self.heads, self.kv, self.groups = heads, kv, groups
+
+    def __repr__(self) -> str:
+        return f"AttnShard(heads={self.heads}, kv={self.kv}, groups={self.groups})"
+
+
+class ServeLayout:
+    """What each coordinate of a ``(data, model)`` mesh computes of a Gemma
+    forward, as ``param_pspecs`` and ``data_pspec`` place it (the ranges come
+    from ``indices_map``, so they agree with the spec trees):
+
+      - ``heads``, ``kv_heads``, ``ff``, ``vocab``: per model coordinate,
+        its ``(start, stop)`` of the query heads, KV heads, ``d_ff`` columns
+        and vocabulary (the whole range where a dimension does not divide);
+      - ``sharded``: leaf name -> the dimension split over ``model``
+        (``quant_pspecs`` splits an int8 leaf's codes the same way, and its
+        scales unless that dimension is contracted);
+      - ``attn``: the distinct attention shards (one when the heads stay
+        whole), ``kv_split`` whether each projects and writes KV heads of
+        its own (else the KV heads are projected once and every shard reads
+        the ones its query heads belong to, as MQA keeps them whole);
+        ``n_ff`` and ``n_vocab``: the distinct MLP and vocabulary shards;
+      - ``rows(B)``: the distinct row blocks of a batch of ``B`` over
+        ``data`` (one block when ``B`` does not divide).
+
+    On a virtual mesh every block is computed in turn on the one device."""
+
+    def __init__(self, mesh: Mesh, cfg: GemmaConfig, split_rows: bool = True) -> None:
+        self.mesh, self.cfg, self.split_rows = mesh, cfg, split_rows
+        self.data = mesh.shape.get(DATA_AXIS, 1)
+        self.model = mesh.shape.get(MODEL_AXIS, 1)
+        specs = param_pspecs(cfg, mesh)
+        L, D, H, K, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.heads = self._ranges((L, D, H, hd), specs["layers"]["wq"], 2)
+        self.kv_heads = self._ranges((L, D, K, hd), specs["layers"]["wk"], 2)
+        self.ff = self._ranges((L, D, cfg.d_ff), specs["layers"]["w_gate"], 2)
+        self.vocab = self._ranges((cfg.vocab_size, D), specs["embed"], 0)
+        leaves = {"embed": specs["embed"], **specs["layers"]}
+        self.sharded = {k: d for k, s in leaves.items() if (d := _model_dim(s)) is not None}
+        self.kv_split = len(set(self.kv_heads)) > 1
+        self.n_ff = len(set(self.ff))
+        self.n_vocab = len(set(self.vocab))
+        G = cfg.q_per_kv
+        if len(set(self.heads)) == 1:
+            self.attn = (AttnShard((0, H), (0, K), G),)
+        elif self.kv_split:
+            self.attn = tuple(AttnShard(h, k, G) for h, k in zip(self.heads, self.kv_heads))
+        else:
+            n = H // self.model
+            if G % n:
+                raise ConfigError(
+                    f"{self.model} model shards of {H} query heads in groups of {G}: a shard's heads "
+                    "straddle KV heads"
+                )
+            self.attn = tuple(AttnShard(h, (h[0] // G, h[0] // G + 1), n) for h in self.heads)
+        self._rows: dict[int, tuple[tuple[int, int], ...]] = {}
+        self._model_only: Optional[ServeLayout] = None
+
+    def _ranges(self, shape: tuple[int, ...], spec: Spec, dim: int) -> tuple[tuple[int, int], ...]:
+        pos = self.mesh.axis_names.index(MODEL_AXIS) if MODEL_AXIS in self.mesh.axis_names else None
+        out: dict[int, tuple[int, int]] = {}
+        for coord, idx in indices_map(shape, spec, self.mesh).items():
+            out.setdefault(0 if pos is None else coord[pos], idx[dim].indices(shape[dim])[:2])
+        return tuple(out[m] for m in range(self.model))
+
+    @property
+    def trivial(self) -> bool:
+        """Nothing splits: every forward is the unmeshed one."""
+        return not self.sharded and (self.data == 1 or not self.split_rows)
+
+    def model_only(self) -> "ServeLayout":
+        """The same model shards with the batch kept whole (ring prefill's
+        data coordinates are its seq axis)."""
+        if not self.split_rows:
+            return self
+        if self._model_only is None:
+            self._model_only = ServeLayout(self.mesh, self.cfg, split_rows=False)
+        return self._model_only
+
+    def rows(self, batch: int) -> tuple[tuple[int, int], ...]:
+        """The distinct ``(start, stop)`` row blocks of a ``batch``-row array
+        under ``data_pspec``, in data order."""
+        if batch not in self._rows:
+            blocks: list[tuple[int, int]] = []
+            if self.split_rows:
+                for idx in indices_map((batch,), data_pspec(self.mesh, batch), self.mesh).values():
+                    r = idx[0].indices(batch)[:2]
+                    if r not in blocks:
+                        blocks.append(r)
+            self._rows[batch] = tuple(sorted(blocks)) or ((0, batch),)
+        return self._rows[batch]
+
+    def signature(self) -> tuple:
+        """What a captured window bakes in of the layout."""
+        return ("mesh", self.data if self.split_rows else 1, self.model)
+
+    def __repr__(self) -> str:
+        return (f"ServeLayout(data={self.data}, model={self.model}, attn={self.attn}, n_ff={self.n_ff}, "
+                f"n_vocab={self.n_vocab})")
+
+
+def serve_layout(mesh: Optional[Mesh], cfg: GemmaConfig) -> Optional[ServeLayout]:
+    """The layout of ``mesh``, or None when nothing splits on it."""
+    if mesh is None:
+        return None
+    layout = ServeLayout(mesh, cfg)
+    return None if layout.trivial else layout

@@ -148,11 +148,15 @@ def ring_prefill(
     mesh: Mesh,
     kv_cache: Optional[KVCache] = None,
     last_only: bool = False,
+    layout=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Sequence-parallel prefill: ``model.prefill``'s contract with the
     attention op swapped for ring attention. The [B, T, S] mask is never
     built; the returned cache is the standard dense [L, B, T, K, hd] one.
-    ``last_only`` returns [B, V] logits at each row's last valid position."""
+    ``last_only`` returns [B, V] logits at each row's last valid position.
+    ``layout`` (``parallel.mesh.ServeLayout``): the projections around the
+    ring run per model shard, each shard's heads through a ring of their
+    own; the batch stays whole (the data coordinates are the seq axis)."""
     B, T = tokens.shape
     if kv_cache is None:
         kv_cache = init_kv_cache(cfg, B, T, device=tokens.device, dtype=cfg.dtype)
@@ -170,5 +174,6 @@ def ring_prefill(
     return forward(
         params, cfg, tokens, positions, kv_cache, placeholder, attend,
         logits_at=(lens - 1) if last_only else None,
+        layout=None if layout is None else layout.model_only(),
     )
 

@@ -20,7 +20,7 @@ the ``model`` axis when they divide, as the reference shards them: each row
 shard is ranked on its own, and the shards' candidates are merged on the
 host by (-score, row), so the shortlist equals the unmeshed one's, ties
 lowest row first. Only a virtual mesh of the index's device is served; a
-mesh of other devices is refused (ROADMAP Queue A item 5b).
+mesh of other devices is refused (ROADMAP Queue A item 5c).
 """
 
 from __future__ import annotations
@@ -70,14 +70,14 @@ class RetrievalIndex:
         puts the table on the device. ``mesh``: the table's rows split over
         its ``model`` axis where they divide; only a virtual mesh of
         ``device`` is served (a mesh of other devices raises, ROADMAP Queue A
-        item 5b)."""
+        item 5c)."""
         self.config = config or RetrievalConfig()
         self.embedder = embedder or HashedNGramEmbedder(self.config.embed_dim)
         self.device = torch.device("cuda" if device is None else device)
         if mesh is not None and not is_virtual(mesh, self.device):
             raise EngineError(
                 f"RetrievalIndex on {mesh}: row shards live on the index's own device ({self.device}) only; "
-                "shards on several cards are ROADMAP Queue A item 5b"
+                "shards on several cards are ROADMAP Queue A item 5c"
             )
         self._mesh = mesh
         self._lock = asyncio.Lock()

@@ -7,8 +7,8 @@ and the phase itself on a CPU control plane), the mixed, speculation and
 heterogeneous ``/plan`` phases and the tiered-KV phase on CPU engines, and
 the int8, overload, chaos, observatory, 100k-registry (at a small size) and
 SentencePiece phases on CPU control planes, the offline phase (corpus,
-training, evaluation) with its margin helpers on the CPU, and the lint
-phase's gate on a small tree."""
+training, evaluation) with its margin helpers on the CPU, the lint
+phase's gate on a small tree, and the TP/DP phase on CPU engines."""
 
 import os
 import sys
@@ -45,7 +45,9 @@ def test_attention_bound_counts_live_queries_and_visible_positions():
 def test_execute_phase_prompt_checks():
     """``extends_block`` accepts a replan prompt that keeps the original's
     services block and adds an Avoid line, and refuses one whose block
-    changed; ``common_prefix`` and ``nearest_rank`` as the line reports them."""
+    changed; ``latency_blind`` makes two prompts that differ only in a
+    rendered tool latency equal, and no others; ``common_prefix`` and
+    ``nearest_rank`` as the line reports them."""
     from mcpx_torch.models.tokenizer import make_tokenizer
 
     tok = make_tokenizer("bpe")
@@ -57,10 +59,56 @@ def test_execute_phase_prompt_checks():
     assert chip_smoke.extends_block(tok, original, warm)
     assert not chip_smoke.extends_block(tok, original, changed)
     assert not chip_smoke.extends_block(tok, original, original)  # no Avoid line
+    slow = tok.encode(head.replace("a-svc in:x out:y", "a-svc in:x out:y err=1.00 p50=1") + "\nJSON:")
+    fast = tok.encode(head.replace("a-svc in:x out:y", "a-svc in:x out:y err=1.00 p50=0") + "\nJSON:")
+    assert slow != fast and chip_smoke.latency_blind(tok, slow) == chip_smoke.latency_blind(tok, fast)
+    assert "p50=_" in chip_smoke.latency_blind(tok, slow)
+    assert chip_smoke.latency_blind(tok, changed) != chip_smoke.latency_blind(tok, warm)
     assert chip_smoke.common_prefix([1, 2, 3], [1, 2, 4]) == 2
     assert chip_smoke.common_prefix([1, 2], [1, 2, 4]) == 2
     lat = sorted(float(i) for i in range(1, 17))
     assert (chip_smoke.nearest_rank(lat, 0.5), chip_smoke.nearest_rank(lat, 0.99)) == (8.0, 16.0)
+
+
+def test_latency_flip_explains_only_a_latency_differing_replan():
+    """``latency_flip`` explains a call whose passes part at a replan prompt
+    that differs in the tools' latency alone, every execution before it
+    equal: it names that execution, the first differing plan and the first
+    differing token, and asks pass 1's margin there; a prompt that differs
+    otherwise, a plan that differs under an equal prompt, or an earlier
+    execution that differs is unexplained (None)."""
+    from types import SimpleNamespace
+
+    from mcpx_torch.models.tokenizer import make_tokenizer
+
+    tok = make_tokenizer("bpe")
+    head = "Compose a service DAG.\nServices:\na-svc in:x out:y"
+    first = tok.encode(head + "\nJSON:")
+    fast = tok.encode(head + " err=1.00 p50=0\nJSON:")
+    slow = tok.encode(head + " err=1.00 p50=1\nJSON:")
+    other = tok.encode(head + " err=0.50 p50=0\nJSON:")
+    kw = {"temperature": 0.0, "constrained": True}
+    served1 = {tuple(first): (kw, SimpleNamespace(token_ids=[1, 2])),
+               tuple(fast): (kw, SimpleNamespace(token_ids=[5, 6, 7]))}
+    served2 = {tuple(first): (kw, SimpleNamespace(token_ids=[1, 2])),
+               tuple(slow): (kw, SimpleNamespace(token_ids=[5, 9])),
+               tuple(other): (kw, SimpleNamespace(token_ids=[5, 9])),
+               tuple(fast): (kw, SimpleNamespace(token_ids=[5, 9]))}
+    asked = []
+
+    def margin(*args):
+        asked.append(args)
+        return 2e-4
+
+    runs1 = [("a", first), ("b", fast)]
+    flip = chip_smoke.latency_flip(tok, runs1, [("a", first), ("c", slow)], served1, served2, margin)
+    assert flip == {"prompt_differs_at": 1, "plan_differs_at": 1, "token": 1, "margin": 2e-4}
+    assert asked == [(fast, kw, [5, 6, 7], 1)]
+    assert chip_smoke.latency_flip(tok, runs1, [("a", first), ("c", other)], served1, served2, margin) is None
+    assert chip_smoke.latency_flip(tok, runs1, [("a", first), ("c", fast)], served1, served2, margin) is None
+    assert chip_smoke.latency_flip(tok, runs1, [("x", first), ("c", slow)], served1, served2, margin) is None
+    assert chip_smoke.latency_flip(tok, runs1, [("a", first), ("b", slow)], served1, served2, margin) is None
+    assert len(asked) == 1
 
 
 def test_failing_transport_fails_every_endpoint_of_a_failing_service():
@@ -589,7 +637,9 @@ def test_parallel_phase_runs_on_the_cpu():
     virtual mesh, the test preset in the big run's place, T 256, 4 intents a
     burst, a 300-service table, 3 training steps at batch 8): every line's
     gates, among them the float32 plans byte for byte against a dense pass
-    that rang nowhere, the ring count, and the radix build's ring."""
+    that rang nowhere, the ring count, and the radix build's ring, on a
+    ``seq=4`` mesh and on a ``data=4`` one in float32 (there also against
+    the dense pass with the prefill's rows whole)."""
     import asyncio
     import random
 
@@ -617,8 +667,17 @@ def test_parallel_phase_runs_on_the_cpu():
     assert not any(ring for _, ring in st["dense_full_prefills"])
     assert st["radix_ring_prefills"] == 1 and st["radix_full_prefills"] == [(st["radix_threshold"], True)]
     assert st["threshold"] > max(w for w, _ in st["short_prefills"]) and st["repeat_captures"] == 0
-    assert st["seq_mesh"] == {"data": 1, "seq": 4, "model": 1} and "item 5b" in st["other_device_refused"]
+    assert st["seq_mesh"] == {"data": 1, "seq": 4, "model": 1} and "item 5c" in st["other_device_refused"]
+    assert st["row_blocks"] is None and st["whole_full_prefills"] == [] and st["blocking_plans_differing"] == []
+    d4 = out["ring_serve_data4_test"]  # the data coordinates viewed as the seq axis
+    assert d4["seq_mesh"] == {"data": 1, "seq": 4, "model": 1} and d4["row_blocks"] == 4
+    assert d4["ring_prefills"] == d4["expected_ring_prefills"] > 0 and d4["radix_ring_prefills"] == 1
+    assert d4["whole_ring_prefills"] == 0 and d4["whole_full_prefills"]
+    assert not any(ring for _, ring in d4["whole_full_prefills"] + d4["dense_full_prefills"])
+    assert d4["plans_differing"] == d4["blocking_plans_differing"] == [] and d4["repeat_captures"] == 0
     assert out["ring_probe"]["float32_ring_vs_dense"] <= 1e-3
+    assert out["ring_probe"]["float32_blocked_vs_dense"] <= 1e-3
+    assert out["ring_probe"]["float32_sharded_ring_vs_dense"] <= 1e-3
     assert out["retrieval_mesh"]["shards"] == [150, 150] and not out["retrieval_mesh"]["differing"]
     assert {n: r["shards"] for n, r in out["train_dp_test"]["runs"].items()} == {"none": 1, "data2": 2,
                                                                                  "hybrid2x2x1": 4}
@@ -648,3 +707,23 @@ def test_lint_phase_gates_on_new_and_stale_findings(tmp_path, capsys):
     (pkg / "mod.py").write_text("def ok():\n    return 1\n")
     with pytest.raises(SystemExit, match="stale"):
         chip_smoke.lint_phase("cpu", root=str(tmp_path))
+
+
+def test_tp_phase_runs_on_cpu_engines():
+    """Phase 26's ``tp_serve`` at a small size on the CPU (4 intents over
+    60 services, batch 8, the committed checkpoint in float32, ``cpu``
+    coordinates): the
+    meshed arm splits both axes and its weights, its plans equal the
+    unmeshed arm's, the launch count each arm expects is ``n_layers`` per
+    attention shard and row block, and the repeats capture nothing."""
+    import asyncio
+
+    out = asyncio.run(chip_smoke.tp_serve("test", chip_smoke.CKPT, 4, "cpu", batch=8, device="cpu", registry_size=60))
+    plain, tp = out["plain"], out["tp"]
+    assert tp["mesh"] == {"data": 2, "model": 2} and plain["mesh"] is None
+    assert (tp["attention_shards"], tp["row_blocks"]) == (2, 2) and (plain["attention_shards"], plain["row_blocks"]) == (1, 1)
+    assert tp["expected_launches_per_forward"] == 2 * 2 * 2 and plain["expected_launches_per_forward"] == 2
+    assert set(tp["sharded_leaves"]) == {"embed", "wq", "wo", "w_gate", "w_up", "w_down"}
+    assert tp["weight_bytes"] == plain["weight_bytes"] and tp["repeat_captures"] == plain["repeat_captures"] == 0
+    for k in ("decode_forwards", "live_forwards", "decode_tokens"):
+        assert tp[k] == plain[k], k

@@ -19,7 +19,11 @@ ticket buffers at 0 and their own launches add up to the process's, a
 closed engine leaves nothing allocated, and two 2b engines start and serve
 from two worker threads with the device lock replaced by one that locks
 nothing, token for token as each serves alone. The last shows which calls
-of another thread break a thread's CUDA-graph capture."""
+of another thread break a thread's CUDA-graph capture. Before the pool
+tests, TP/DP on a virtual ``data=2, model=2`` mesh of the card: each
+model shard's launch over its query heads and its view of the pools
+against the plain version, the sharded 2b forward against the unmeshed one
+in float32, and a meshed 2b engine's peak memory against an unmeshed one's."""
 
 import asyncio
 import os
@@ -583,6 +587,131 @@ def test_retrieval_table_on_the_card_ranks_as_the_host_and_keeps_its_stream(cuda
     torch.cuda.synchronize()
 
 
+def _tp_mesh(cuda):
+    from mcpx_torch.parallel.mesh import make_mesh
+
+    return make_mesh(data=2, model=2, devices=[cuda] * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(8, 1), (8, 4)], ids=["mqa_2b", "gqa"])
+def test_each_model_shard_launches_the_kernel_over_its_heads(cuda, heads):
+    """bf16, 2b's head width: each attention shard of a ``model=2`` layout
+    launches the kernel once on its query heads against its leading-dim
+    view of the pools (the whole pools for MQA, KV heads 2-3 at an offset
+    for GQA), within one bf16 ulp of the plain version on the same views
+    and of the unsharded launch's heads."""
+    from mcpx_torch.engine.kv_cache import pool_shards
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel.mesh import ServeLayout
+
+    H, K = heads
+    cfg = GemmaConfig(n_heads=H, n_kv_heads=K, head_dim=256, d_ff=256, d_model=256)
+    layout = ServeLayout(_tp_mesh(cuda), cfg)
+    assert len(layout.attn) == 2
+    case = mixed_case(3, B=8, S=5, K=K, G=H // K, hd=256, psz=64, p_max=4)
+    q, kp, vp, table, starts, q_lens = _on_card(case, cuda, torch.bfloat16)
+    whole = tk.ragged_paged_attention(q, kp, vp, table, starts, q_lens, 1).reshape(8, 5, H, 256)
+    pools = pool_shards({"k": kp, "v": vp}, layout)
+    for a, (pk, pv) in zip(layout.attn, pools):
+        (h0, h1), (k0, k1) = a.heads, a.kv
+        assert pk.is_contiguous() and pk.data_ptr() == kp.data_ptr() + k0 * kp[0].numel() * kp.element_size()
+        qs = q.reshape(8, 5, H, 256)[:, :, h0:h1].reshape(8, 5, k1 - k0, a.groups, 256).contiguous()
+        n0 = tk.kernel_launches()["ragged_paged_attention"]
+        out = tk.ragged_paged_attention(qs, pk, pv, table, starts, q_lens, 1)
+        torch.cuda.synchronize()
+        assert tk.kernel_launches()["ragged_paged_attention"] == n0 + 1
+        ref = tk.ragged_paged_attention_reference(qs, pk, pv, table, starts, q_lens, 1)
+        for want in (ref, whole[:, :, h0:h1].reshape(out.shape)):
+            np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
+    assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+
+
+@pytest.mark.cuda
+def test_the_sharded_2b_forward_matches_the_unmeshed_one(cuda):
+    """2b at full width in float32 (random weights from seed 0): a prefill,
+    its commit to pages and one ragged paged forward (drafted, decode and
+    idle rows) on the ``data=2, model=2`` layout, within the float32 forward
+    check's 2e-5 of the unmeshed forward, with ``n_layers x 2 x 2`` kernel
+    launches."""
+    import dataclasses
+
+    from mcpx_torch.engine.kv_cache import commit_prefill_to_pages, init_paged_kv
+    from mcpx_torch.engine.paged_decode import decode_chunk_paged
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.gemma.model import init_kv_cache, prefill
+    from mcpx_torch.models.gemma.params import load_or_init
+    from mcpx_torch.parallel.mesh import serve_layout
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(GemmaConfig.named("2b", vocab_size=3072, max_seq_len=512), dtype="float32")
+    mesh = _tp_mesh(cuda)
+    layout = serve_layout(mesh, cfg)
+    gen = torch.Generator().manual_seed(0)
+    B, T, psz, pmax = 4, 64, 64, 4
+    tokens = torch.randint(0, 3000, (B, T), generator=gen).to(cuda)
+    lens = torch.tensor([64, 17, 40, 5], device=cuda)
+    chunk = torch.randint(0, 3000, (B, 8), generator=gen).to(cuda)
+    q_lens = torch.tensor([8, 1, 3, 0], dtype=torch.int32, device=cuda)
+    table = torch.arange(1, B * pmax + 1, dtype=torch.int32, device=cuda).reshape(B, pmax)
+    outs = []
+    for lay in (None, layout):
+        params, _ = load_or_init(cfg, device=cuda, seed=0, mesh=None if lay is None else mesh)
+        pools = init_paged_kv(cfg, B * pmax + 1, psz, cuda)
+        dense = init_kv_cache(cfg, B, T, device=cuda)
+        with torch.inference_mode():
+            first, dense = prefill(params, cfg, tokens, lens, dense, last_only=True, layout=lay)
+            commit_prefill_to_pages(pools, dense, table, lens, psz)
+            n0 = tk.kernel_launches()["ragged_paged_attention"]
+            logits, _ = decode_chunk_paged(params, cfg, chunk, lens, table, pools,
+                                           logits_at=(q_lens.long() - 1).clamp(min=0), q_lens=q_lens, layout=lay)
+            torch.cuda.synchronize()
+            n = tk.kernel_launches()["ragged_paged_attention"] - n0
+        outs.append((first.cpu(), logits.cpu(), pools["k"].cpu(), n))
+        del params, pools, dense
+    (f0, l0, k0, n_plain), (f1, l1, k1, n_tp) = outs
+    assert n_plain == cfg.n_layers and n_tp == cfg.n_layers * 2 * 2
+    err = max(float((a - b).abs().max()) for a, b in ((f0, f1), (l0, l1), (k0, k1)))
+    print(f"sharded 2b forward: max abs err {err}")
+    assert bool(torch.isfinite(l1).all()) and l1.shape == (B, 3072)
+    assert err <= 2e-5, err
+
+
+@pytest.mark.cuda
+def test_a_meshed_2b_engine_peaks_within_two_percent_of_an_unmeshed_one(cuda):
+    """A 2b engine at ``chip_smoke``'s serving settings (bf16, random
+    weights, batch 64), started and serving a burst, unmeshed and on the
+    ``data=2, model=2`` mesh: its peak allocated bytes (from before its
+    start to the burst's end, less what the card held before) within 2% of
+    the unmeshed engine's, and its weights laid out shard-major."""
+    import gc
+
+    from mcpx_torch.engine.engine import InferenceEngine
+
+    def settled():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    async def run(mesh):
+        base = settled()
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine(chip_smoke.config("2b", "", 64), device=cuda, mesh=mesh)
+        await engine.start()
+        await _serve_few(engine, 8)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        sharded = engine._layout is not None and engine._params["layers"]["wq"].dim() == 5
+        await engine.aclose()
+        return peak, sharded
+
+    plain, _ = asyncio.run(run(None))
+    meshed, sharded = asyncio.run(run(_tp_mesh(cuda)))
+    print(f"2b engine peak allocated bytes: unmeshed {plain}, data=2 x model=2 {meshed}")
+    assert sharded
+    assert abs(meshed - plain) <= 0.02 * plain, (plain, meshed)
+
+
 def _pool_config(hetero: bool = False):
     from mcpx_torch.core.config import MCPXConfig
 
@@ -665,9 +794,12 @@ def test_a_closed_engine_leaves_nothing_allocated(cuda):
     its engine until the rejoin), a second engine serving the same requests
     allocates what the first did, and once it closes too the card holds
     what it held after the first closed, within 2% of an engine's
-    footprint: nothing accumulates from one engine to the next. (The first
-    close may leave process caches an engine's thread filled, such as
-    cuBLAS's workspaces; the next engine reuses them.)"""
+    footprint: nothing accumulates from one engine to the next. What the
+    first close may leave is stream state the process keeps
+    (``test_a_closed_engine_keeps_only_stream_state``). Prints the
+    readings and the sizes and owners of the blocks each close leaves; when the second
+    close leaves a block, a third engine runs under the allocator's history
+    (Python stacks) and the stacks of what its close leaves are printed."""
     import gc
 
     from mcpx_torch.engine.engine import InferenceEngine
@@ -686,14 +818,97 @@ def test_a_closed_engine_leaves_nothing_allocated(cuda):
         return engine, used
 
     base = allocated()
+    kept0 = _active_blocks()
     first, used1 = asyncio.run(run())
     after1 = allocated()
+    kept1 = _active_blocks()
     second, used2 = asyncio.run(run())
     after2 = allocated()
+    left = [b for a, b in _active_blocks().items() if a not in kept1]
+    stacks = []
+    if left:
+        kept2 = _active_blocks()
+        torch.cuda.memory._record_memory_history(stacks="python")
+        try:
+            asyncio.run(run())
+            allocated()
+            stacks = [(b["size"], _frames(b)) for a, b in _active_blocks().items() if a not in kept2]
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+    print(f"closed engines: base {base} used {used1} {used2} after {after1} {after2}; first close left "
+          f"{[(b['size'], _owner(b)) for a, b in kept1.items() if a not in kept0]}, second "
+          f"{[(b['size'], _owner(b)) for b in left]}; "
+          f"a third close under the allocator's history left {stacks}")
     footprint = used1 - after1
     assert footprint > 0 and first.state == second.state == "closed"
     assert abs(used2 - used1) <= 0.02 * footprint, (used1, used2)
     assert abs(after2 - after1) <= 0.02 * footprint, (after1, after2, base)
+
+
+def _active_blocks() -> dict:
+    """The allocator's active blocks by address."""
+    return {b["address"]: b for seg in torch.cuda.memory._snapshot()["segments"] for b in seg["blocks"]
+            if b["state"] == "active_allocated"}
+
+
+def _frames(block: dict, n: int = 8) -> list:
+    return [f"{f['filename']}:{f['line']} {f['name']}" for f in block.get("frames", [])[:n]]
+
+
+CUBLAS_WORKSPACE_BYTES = 32 * 2**20  # PyTorch's default cuBLAS workspace on sm_90 (``:4096:8``)
+
+
+def _owner(block: dict) -> str:
+    """Who holds an allocator block a closed engine left: the kernel
+    wrapper's ticket registry (a stream's ticket buffer), PyTorch's cuBLAS
+    workspace (32 MiB, allocated under a product; without a recorded stack,
+    only its size is known), or nobody known."""
+    if any(t.data_ptr() == block["address"] for t in tk._TICKETS.values()):
+        return "ticket buffer"
+    frames = block.get("frames", [])
+    if block["size"] == CUBLAS_WORKSPACE_BYTES and not frames:
+        return "a cuBLAS workspace's size, no stack recorded"
+    if block["size"] == CUBLAS_WORKSPACE_BYTES and frames[0]["name"] == "einsum":
+        return "cuBLAS workspace"
+    return "unknown"
+
+
+@pytest.mark.cuda
+def test_a_closed_engine_keeps_only_stream_state(cuda):
+    """One engine started, serving and closed under the allocator's history
+    (Python stacks): every block its close leaves belongs to a stream the
+    process keeps, not to the engine. Those are the kernel wrapper's ticket
+    buffer of each stream the kernel ran on (``paged_attention._TICKETS``,
+    kept for the stream, a 512-byte block at this batch) and PyTorch's
+    cuBLAS workspace of each (handle, stream) that ran a product (32 MiB);
+    the streams are the worker thread's and the capturing one, which
+    ``engine._SPARE_STREAMS`` hands to the next engine. In a process whose
+    earlier engines left those already, the close leaves none. Prints each
+    block's size, owner and stack."""
+    import gc
+
+    from mcpx_torch.engine.engine import InferenceEngine
+
+    async def run():
+        engine = InferenceEngine(_pool_config(hetero=True), device=cuda)
+        await engine.start()
+        await _serve_few(engine)
+        await engine.aclose()
+
+    gc.collect()
+    torch.cuda.synchronize()
+    kept = _active_blocks()
+    torch.cuda.memory._record_memory_history(stacks="python")
+    try:
+        asyncio.run(run())
+        gc.collect()
+        torch.cuda.synchronize()
+        left = [b for a, b in _active_blocks().items() if a not in kept]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    print(f"a closed engine left {[(b['size'], _owner(b), _frames(b)) for b in left]}")
+    assert [_owner(b) for b in left if _owner(b) == "unknown"] == [], [(b["size"], _frames(b)) for b in left]
+    assert sum(_owner(b) == "cuBLAS workspace" for b in left) <= 2
 
 
 @pytest.mark.cuda

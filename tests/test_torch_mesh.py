@@ -153,7 +153,9 @@ def test_batch_axes_and_hybrid_mesh():
 
 def test_shard_pytree_keeps_weights_whole_on_a_virtual_mesh():
     """Every leaf of a virtual mesh is the tensor itself (no copy, never a
-    duplicate), int8 leaves too; ``load_or_init(mesh=)`` does the same."""
+    duplicate), int8 leaves too. ``load_or_init(mesh=)`` holds the same
+    values, the leaves split over ``model`` laid out shard-major
+    (``params.shard_major``): put back in their dimension, equal."""
     cfg = GemmaConfig(vocab_size=384, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=96,
                       dtype="float32")
     params, _ = load_or_init(cfg, seed=3)
@@ -163,8 +165,18 @@ def test_shard_pytree_keeps_weights_whole_on_a_virtual_mesh():
     assert set(flat) == set(got) and all(got[k] is flat[k] for k in flat)
     meshed, _ = load_or_init(cfg, seed=3, mesh=mesh, quantize="int8")
     plain, _ = load_or_init(cfg, seed=3, quantize="int8")
+    layout = tmesh.ServeLayout(mesh, cfg)
+    assert set(layout.sharded) == {"embed", "wq", "wo", "w_gate", "w_up", "w_down"}  # K 2 does not divide 4
     for k, v in _leaves(plain).items():
-        assert torch.equal(_leaves(meshed)[k], v), k
+        parts = k.split("/")
+        part = parts[-1] if parts[-1] in ("int8", "scale") else ""
+        name = parts[-2] if part else parts[-1]
+        dim = layout.sharded.get(name)
+        got_k = _leaves(meshed)[k]
+        if dim is not None and (part == "int8" or dim not in _CONTRACT_AXES[name]):
+            lead = 0 if name == "embed" else 1
+            got_k = got_k.movedim(lead, dim).flatten(dim, dim + 1)
+        assert torch.equal(got_k, v), k
 
 
 def test_shard_pytree_places_blocks_over_distinct_devices():
@@ -186,7 +198,7 @@ def test_weights_on_another_device_are_refused():
     cfg = GemmaConfig(vocab_size=384, d_model=64, n_layers=1, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64,
                       dtype="float32")
     for devices in (["cpu", "meta"], [torch.device("cuda", 1)] * 2):
-        with pytest.raises(EngineError, match="item 5b"):
+        with pytest.raises(EngineError, match="item 5c"):
             load_or_init(cfg, seed=0, device="cpu", mesh=tmesh.make_mesh(model=2, devices=devices))
 
 

@@ -122,7 +122,7 @@ def test_a_default_engine_builds_a_one_by_one_mesh_and_never_rings():
 
 @pytest.mark.parametrize("devices", [["cpu", "meta"], [torch.device("cuda", 1)] * 2], ids=["meta", "cuda1"])
 def test_a_mesh_of_another_device_is_refused(devices):
-    with pytest.raises(EngineError, match="item 5b"):
+    with pytest.raises(EngineError, match="item 5c"):
         InferenceEngine(MCPXConfig.from_dict(_cfg_dict(256)), model_cfg=MODEL_F32,
                         mesh=make_mesh(data=2, devices=devices), device="cpu")
 

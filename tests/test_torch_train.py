@@ -289,6 +289,6 @@ def test_a_mesh_of_another_device_is_refused(corpora, devices):
     a mesh naming another device raises before any step."""
     from mcpx_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(EngineError, match="item 5b"):
+    with pytest.raises(EngineError, match="item 5c"):
         train(GemmaConfig.named("test", vocab_size=V), corpora[0], TrainConfig(steps=1, batch_size=2),
               device="cpu", mesh=make_mesh(data=2, devices=devices))
