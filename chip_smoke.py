@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--cards N]
 
 Phases, one line each (every number beside the card's name and power limit):
   1. device: the card as nvidia-smi reports it;
@@ -202,6 +202,28 @@ Phases, one line each (every number beside the card's name and power limit):
      (``kernel_at_shards``; ``tp_phase``). The mesh's
      four coordinates are one card: its times are the shard loop's cost,
      not a multi-card speed-up;
+ 27. across cards (``cross_card_phase``), with two or more visible cards
+     (on one it prints ``cross_card`` with ``ran: false``; ``--cards N``
+     fails with fewer than N): the kernel on each card against its plain
+     version there (``cross_kernel``); float32 weights on meshes of
+     distinct cards (``data=2`` and ``model=2`` over cards 0-1, ``data=2,
+     model=2`` over 0-3) against the same mesh shape virtual on card 0, one
+     decode forward and one dense prefill: logits, every card's pools and
+     dense cache bit for bit, the launches on each card and the transfers a
+     forward (``cross_forward_*``, the test preset, 2b at 4 layers, and the
+     7b preset's widths at 2 layers on ``model=4``, its 16 KV heads split
+     over the cards, and 2b int8 at 4 layers on the widest mesh); phase
+     26's bursts on each mesh against the unmeshed engine, windows eager
+     (``cross_serve_test``, with an engine that builds its ``data=2`` mesh
+     over cards 0-1 from explicit axes, ``cross_serve_2b``, and
+     ``cross_serve_int8_test`` on ``model=2`` against the unmeshed int8
+     engine); phase 24's ring serving on ``data=2`` over cards 0-1, the
+     ring held against the dense route (``cross_ring_serve_data2_test``);
+     phase 20's table in row shards on two cards (``retrieval_mesh_cards``);
+     the ring on ``seq=4`` cards against dense (``cross_ring``); phase 23's
+     parity training on ``data=2`` cards (``train_dp_cards``). Its serving
+     launches count in the kernels line; its plans/s are first numbers,
+     with nothing to compare them with;
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -514,7 +536,8 @@ def check_tickets(where: str) -> None:
     """The kernel's ticket counters are all 0 between launches."""
     from mcpx_torch.engine.kernels.paged_attention import ticket_counters
 
-    torch.cuda.synchronize()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
     left = sum(int(t.abs().sum()) for t in ticket_counters())
     if left:
         raise SystemExit(f"{where}: ticket counters not reset ({left})")
@@ -1239,7 +1262,8 @@ async def settle_profile() -> None:
 
 def sync() -> None:
     if torch.cuda.is_available():
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 @contextlib.contextmanager
@@ -4241,10 +4265,11 @@ def ring_config(size: str, checkpoint: str, batch: int):
 
 
 async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, float32: bool, batch: int = 64,
-                     device=None, mesh_shape: dict = None) -> tuple[dict, list, object]:
+                     device=None, mesh_shape: dict = None, devices: list = None) -> tuple[dict, list, object]:
     """``ring_serve_<size>``: an engine on a virtual ``seq=4`` mesh of its
     own device (``mesh_shape``; ``ring_serve_data4_<size>`` on ``data=4``,
-    whose data coordinates the engine views as a seq axis), behind a control
+    whose data coordinates the engine views as a seq axis; with
+    ``devices``, a mesh of those cards, ``cross_ring_serve_*``), behind a control
     plane over ``synth_registry(1000, seed=0)``. The burst's long /plan
     prompts served as one cohort on the dense route (the engine as
     ``ring_prefill_min_tokens=0`` builds it: no seq view), then with the
@@ -4267,13 +4292,14 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
     at or over the threshold in the ring pass and in the radix build, the
     short prompt stays dense, the radix-built row's tokens equal its dense
     ones (or are a near-tie at 2b), the ragged kernel ran, and a mesh
-    naming another device is refused. Returns (stats, the long prompts'
+    naming a device that holds no data is refused. Returns (stats, the long prompts'
     ids, the engine's seq mesh)."""
     from mcpx_torch.core.errors import EngineError
     from mcpx_torch.engine.engine import InferenceEngine
     from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
     from mcpx_torch.models.bpe import BPETokenizer
     from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel import transfer
     from mcpx_torch.parallel.mesh import make_mesh
     from mcpx_torch.planner.llm import LLMPlanner
     from mcpx_torch.server.factory import build_control_plane
@@ -4282,18 +4308,20 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
     dev = torch.device("cuda" if device is None else device)
     mesh_shape = dict(seq=4) if mesh_shape is None else mesh_shape
     tag = "" if mesh_shape == {"seq": 4} else "".join(f"{k}{v}_" for k, v in mesh_shape.items())
-    name = f"ring_serve_{tag}{size}"
+    name = f"{'cross_' if devices else ''}ring_serve_{tag}{size}"
     cfg = ring_config(size, checkpoint, batch)
     model_cfg = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
     if float32:
         model_cfg = dataclasses.replace(model_cfg, dtype="float32")
-    other = torch.device("cuda", 1) if dev.type == "cuda" else torch.device("meta")
+    # A device that can hold no data: a card past the visible ones, or meta.
+    other = torch.device("cuda", torch.cuda.device_count()) if dev.type == "cuda" else torch.device("meta")
     try:
         InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=make_mesh(data=2, devices=[dev, other]))
         raise SystemExit(f"{name}: a mesh naming {other} was not refused")
     except EngineError as e:
         refusal = str(e)
-    engine = InferenceEngine(cfg, model_cfg=model_cfg, device=dev, mesh=make_mesh(**mesh_shape, devices=[dev] * 4))
+    engine = InferenceEngine(cfg, model_cfg=model_cfg, device=dev,
+                             mesh=make_mesh(**mesh_shape, devices=devices or [dev] * math.prod(mesh_shape.values())))
     cp = build_control_plane(cfg, planner=LLMPlanner(engine, cfg.planner), device=dev)
     records = synth_registry(1000, seed=0)
     for rec in records:
@@ -4353,11 +4381,12 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
         q0, r0 = engine.queue_stats(), rings()
         sync()
         reset_kernel_launches()
+        transfer.reset_counts()
         t0 = time.monotonic()
         ring_plans, ring_calls = await burst(intents)
         wall = time.monotonic() - t0
         sync()
-        launches = kernel_launches()
+        launches, ring_moves = kernel_launches(), transfer.counts()
         q1 = engine.queue_stats()
         repeat_plans, _ = await burst(intents)
         q2 = engine.queue_stats()
@@ -4439,7 +4468,8 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
         repeat_equal=[p.to_json() for p in repeat_plans] == [p.to_json() for p in ring_plans],
         wall_s=wall, plans_per_s=n_intents / wall, launches=launches,
         **loop_counts(engine, q0, q1, n_intents), repeat_captures=q2["captures"] - q1["captures"],
-        other_device_refused=refusal,
+        other_device_refused=refusal, cards=None if not devices else [str(d) for d in seq_mesh.distinct_devices()],
+        ring_transfers=ring_moves,
     )
     emit(name, card, **stats)
     no_new_captures(f"{name} repeat", q1, q2)
@@ -4529,12 +4559,15 @@ def ring_probe(size: str, card: str, prompts: list, T: int, mesh, dev: torch.dev
     return stats
 
 
-async def retrieval_mesh(index, intents: list, card: str, device=None, rounds: int = 4) -> dict:
+async def retrieval_mesh(index, intents: list, card: str, device=None, rounds: int = 4, mesh=None,
+                         name: str = "retrieval_mesh") -> dict:
     """``retrieval_mesh``: phase 20's table (``index``, unmeshed on its
     device) saved and loaded into an index on a virtual ``model=2`` mesh of
-    that device: two row shards, each ranked there, merged on the host.
-    Every intent's shortlist must equal the unmeshed index's; both rankings
-    timed on an idle card, p50 and p99."""
+    that device (or on ``mesh``, its first coordinate that device): two row
+    shards, each ranked on its coordinate's device, merged on the host.
+    Every intent's shortlist must equal the unmeshed index's, and each shard
+    must live on the mesh's device for it; both rankings timed on an idle
+    card, p50 and p99."""
     import tempfile
 
     from mcpx_torch.core.config import PlannerConfig
@@ -4543,7 +4576,8 @@ async def retrieval_mesh(index, intents: list, card: str, device=None, rounds: i
 
     dev = torch.device("cuda" if device is None else device)
     k = PlannerConfig().shortlist_top_k
-    meshed = RetrievalIndex(index.config, device=dev, mesh=make_mesh(model=2, devices=[dev] * 2))
+    mesh = make_mesh(model=2, devices=[dev] * 2) if mesh is None else mesh
+    meshed = RetrievalIndex(index.config, device=dev, mesh=mesh)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "index.snap")
         index.save(path)
@@ -4566,19 +4600,20 @@ async def retrieval_mesh(index, intents: list, card: str, device=None, rounds: i
     stats = dict(rows=index.size, mesh=dict(meshed._mesh.shape), shards=[int(p.shape[0]) for p in parts],
                  shard_devices=sorted({str(p.device) for p in parts}), load_s=load_s, intents=len(intents),
                  differing=differ[:3], rank_ms={name: quantiles_ms(v) for name, v in timed.items()})
-    emit("retrieval_mesh", card, **stats)
-    if differ or len(parts) != 2 or stats["shard_devices"] != [str(index._table.device)]:
-        raise SystemExit(f"retrieval_mesh: shortlists differ from the unmeshed index's or shards misplaced: {stats}")
+    emit(name, card, **stats)
+    if differ or len(parts) != 2 or [str(p.device) for p in parts] != [str(d) for d in mesh.devices.flat]:
+        raise SystemExit(f"{name}: shortlists differ from the unmeshed index's or shards misplaced: {stats}")
     return stats
 
 
 def train_dp(card: str, device=None, *, n_examples: int = 512, steps: int = 20, batch: int = 24,
-             registry_size: int = 1000) -> dict:
+             registry_size: int = 1000, meshes: dict = None, line: str = "train_dp_test") -> dict:
     """``train_dp_test``: phase 23's parity geometry (the test preset in
     float32 from the committed checkpoint, batch 24, lr 3e-3, warmup 5)
     with ``mesh=None``, on a virtual ``data=2`` mesh and on a hybrid
-    (dcn_data 2, data 2) mesh of the device: every step's loss within 1e-5
-    relative of the unmeshed run's (the CPU parity test's limit)."""
+    (dcn_data 2, data 2) mesh of the device (or on ``meshes``, by name):
+    every step's loss within 1e-5 relative of the unmeshed run's (the CPU
+    parity test's limit), every meshed run's batch split."""
     from mcpx_torch.models.bpe import BPETokenizer
     from mcpx_torch.models.corpus import CorpusConfig, build_corpus_sync
     from mcpx_torch.models.gemma.params import load_npz
@@ -4589,8 +4624,8 @@ def train_dp(card: str, device=None, *, n_examples: int = 512, steps: int = 20, 
     corpus = build_corpus_sync(BPETokenizer(), CorpusConfig(n_examples=n_examples, registry_size=registry_size,
                                                             seed=0), device=dev)
     tcfg = TrainConfig(steps=steps, batch_size=batch, lr=3e-3, warmup_steps=5, log_every=1)
-    meshes = {"none": None, "data2": make_mesh(data=2, devices=[dev] * 2),
-              "hybrid2x2x1": make_hybrid_mesh(2, 2, 1, devices=[dev] * 4)}
+    meshes = {"none": None, **(meshes or {"data2": make_mesh(data=2, devices=[dev] * 2),
+                                          "hybrid2x2x1": make_hybrid_mesh(2, 2, 1, devices=[dev] * 4)})}
     runs = {}
     for name, mesh in meshes.items():
         params, report, stamps, _ = timed_train("test", corpus, tcfg, dev, init=load_npz(CKPT, "cpu", torch.float32),
@@ -4605,11 +4640,13 @@ def train_dp(card: str, device=None, *, n_examples: int = 512, steps: int = 20, 
         err = max(float((r["params"][k] - base["params"][k]).abs().max()) for k in base["params"])
         out[name] = dict(shards=r["shards"], losses=r["losses"], max_rel_loss_err=rel, max_abs_param_err=err,
                          step_ms=r["step_ms"], eval_token_accuracy=r["eval_token_accuracy"])
-    stats = dict(model="test", dtype="float32", batch=batch, steps=steps, rtol=1e-5, runs=out)
-    emit("train_dp_test", card, **stats)
+    stats = dict(model="test", dtype="float32", batch=batch, steps=steps, rtol=1e-5, runs=out,
+                 devices={n: None if m is None else [str(d) for d in m.distinct_devices()] for n, m in meshes.items()})
+    emit(line, card, **stats)
     bad = [n for n, r in out.items() if len(r["losses"]) != steps or r["max_rel_loss_err"] > 1e-5]
-    if bad or out["data2"]["shards"] != 2 or out["hybrid2x2x1"]["shards"] != 4:
-        raise SystemExit(f"train_dp_test: runs {bad} leave the unmeshed losses beyond 1e-5 relative: {stats}")
+    want = {n: math.prod(m.shape[a] for a in ("dcn_data", "data") if a in m.shape) for n, m in meshes.items() if m}
+    if bad or any(out[n]["shards"] != k for n, k in want.items()):
+        raise SystemExit(f"{line}: runs {bad} leave the unmeshed losses beyond 1e-5 relative: {stats}")
     return stats
 
 
@@ -4789,6 +4826,408 @@ def tp_phase(card: str, device=None, *, n_test: int = 16, n_big: int = 8, big: s
     return out
 
 
+# ------------------------------------------------------------ cross-card
+CROSS_MESHES = {"data2": dict(data=2), "model2": dict(model=2), "data2_model2": dict(data=2, model=2)}
+CROSS_TOL = 1e-5  # a float32 gap between a mesh of cards and its virtual mesh, where not bit for bit
+
+
+def card_lines() -> list[str]:
+    """Each visible card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return [line.strip() for line in out]
+
+
+def cards_of(shape: dict) -> list[torch.device]:
+    """Cards 0..n-1 for a mesh of ``shape``'s n coordinates."""
+    return [torch.device("cuda", i) for i in range(math.prod(shape.values()))]
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def kernel_on_cards(card: str, n: int) -> dict:
+    """``cross_kernel``: on each of cards 0..n-1, the ragged kernel at the
+    kernel phase's shapes (``CELLS``, seed 0, first and last layer) against
+    its plain version on that card, launched from this thread, whose current
+    device stays card 0 (the wrapper launches under the tensors' card).
+    Fails on a disagreement beyond ATOL/RTOL, a pad that is not an exact
+    zero, or a launch that is not counted on its card."""
+    from mcpx_torch.engine.kernels.paged_attention import (
+        launches_by_card,
+        ragged_paged_attention,
+        ragged_paged_attention_reference,
+    )
+
+    out = {}
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        before, worst = launches_by_card().get(i, 0), 0.0
+        for cell, G, hd, L, live, psz, pmax in CELLS:
+            batch = [t.to(dev) for t in cell_batch(0, G, hd, L, live, psz, pmax)]
+            for layer in (0, L - 1):
+                got = ragged_paged_attention(*batch, layer)
+                torch.cuda.synchronize(dev)
+                ref = ragged_paged_attention_reference(*batch, layer)
+                err = (got.float() - ref.float()).abs()
+                worst = max(worst, float(err.max()))
+                if got.device != dev or bool((err > ATOL + RTOL * ref.float().abs()).any()):
+                    raise SystemExit(f"cross_kernel: {cell} on {dev} disagrees with the plain version ({worst})")
+                for b, ql in enumerate(batch[5].tolist()):
+                    if bool((got[b, ql:] != 0).any()):
+                        raise SystemExit(f"cross_kernel: {cell} on {dev} row {b} pads are not exact zeros")
+        launched = launches_by_card().get(i, 0) - before
+        if launched != 2 * len(CELLS) or torch.cuda.current_device() != 0:
+            raise SystemExit(f"cross_kernel: {launched} launches counted on {dev}, expected {2 * len(CELLS)}")
+        out[str(dev)] = dict(max_abs_err=worst, launches=launched)
+    stats = dict(cells=[c[0] for c in CELLS], atol=ATOL, rtol=RTOL, by_card=out, cards=card_lines())
+    emit("cross_kernel", card, **stats)
+    return stats
+
+
+def _whole(tree, layout, key: str, dim: int, ref: torch.Tensor) -> tuple[bool, float]:
+    """(bit for bit, largest difference) of a pool or dense cache laid out
+    on ``layout`` against ``ref``, the same tensor of the virtual mesh:
+    every device's copy against its KV heads (dimension ``dim``) of
+    ``ref``, the data replicas each."""
+    from mcpx_torch.parallel.transfer import trees
+
+    equal, worst = True, 0.0
+    for dev, t in trees(tree, layout).items():
+        k0, k1 = layout.kv_range(dev)
+        want = ref.narrow(dim, k0, k1 - k0)
+        got = t[key].to(ref.device)
+        equal = equal and bool(torch.equal(got, want))
+        worst = max(worst, float((got - want).abs().max()))
+    return equal, worst
+
+
+def cross_forward(size: str, shape: dict, card: str, *, n_layers: int = 0, seed: int = 0, B: int = 8,
+                  S: int = 4, T: int = 16, name: str = "", quantize: str = "none") -> dict:
+    """``cross_forward_<size>_<mesh>``: float32 random weights (``seed``)
+    laid out on a mesh of ``shape`` over distinct cards and on the same mesh
+    shape virtual on card 0, one ragged decode forward (decode, drafted and
+    idle rows, one logit row each) over the same pools and one dense
+    prefill of ``T`` tokens: the logits, every card's pools after the
+    forward's writes (each data replica of its KV heads) and every card's
+    dense cache, bit for bit (else within ``CROSS_TOL``); the kernel's
+    launches of the decode forward on each card (``n_layers`` for each
+    attention shard and row block it computes) and the forward's transfers
+    and bytes (``parallel.transfer``: equal on both meshes). ``quantize``:
+    int8 weights, each card's codes with the scales they dequantize with."""
+    from mcpx_torch.engine.kernels.paged_attention import launches_by_card
+    from mcpx_torch.engine.kv_cache import init_paged_kv
+    from mcpx_torch.engine.paged_decode import decode_chunk_paged
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.models.gemma.model import init_kv_cache, prefill
+    from mcpx_torch.models.gemma.params import load_or_init
+    from mcpx_torch.parallel import transfer
+    from mcpx_torch.parallel.mesh import ServeLayout, make_mesh
+
+    cfg = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
+    cfg = dataclasses.replace(cfg, dtype="float32", n_layers=n_layers or cfg.n_layers)
+    dev0, n = torch.device("cuda", 0), math.prod(shape.values())
+    name = name or (f"cross_forward_{size}_{'_'.join(f'{k}{v}' for k, v in shape.items())}"
+                    + ("_int8" if quantize == "int8" else ""))
+    psz, p_max = 64, 4
+    n_pages = B * p_max + 1
+    gen = torch.Generator(device=dev0)
+    gen.manual_seed(seed)
+    pool_shape = (cfg.n_kv_heads, cfg.n_layers, n_pages, psz, cfg.head_dim)
+    pools = {k: torch.randn(pool_shape, generator=gen, device=dev0) for k in ("k", "v")}
+    rng = random.Random(seed)
+    pages = list(range(1, n_pages))
+    rng.shuffle(pages)
+    table = torch.tensor(pages[: B * p_max], dtype=torch.int32, device=dev0).reshape(B, p_max)
+    q_lens = torch.tensor(([S, 1, 2, 0] + [rng.randint(0, S) for _ in range(B)])[:B], dtype=torch.int32, device=dev0)
+    starts = torch.tensor([rng.randint(0, p_max * psz - S - 1) for _ in range(B)], dtype=torch.int32, device=dev0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev0)
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev0)
+    lens = torch.tensor([T - (b % 5) for b in range(B)], dtype=torch.int32, device=dev0)
+    res = {}
+    for arm, devices in (("virtual", [dev0] * n), ("cards", cards_of(shape))):
+        layout = ServeLayout(make_mesh(**shape, devices=devices), cfg)
+        params, _ = load_or_init(cfg, seed=seed, device=dev0, mesh=layout.mesh, quantize=quantize)
+        paged = init_paged_kv(cfg, n_pages, psz, dev0, layout=layout)
+        for dev, t in transfer.trees(paged, layout).items():
+            k0, k1 = layout.kv_range(dev)
+            for k in ("k", "v"):
+                t[k].copy_(pools[k][k0:k1])
+        sync_all()
+        transfer.reset_counts()
+        before = launches_by_card()
+        logits, paged = decode_chunk_paged(params, cfg, tokens, starts, table, paged,
+                                           logits_at=(q_lens.long() - 1).clamp(min=0), q_lens=q_lens, layout=layout)
+        sync_all()
+        counts, after = transfer.counts(), launches_by_card()
+        dense_logits, dense = prefill(params, cfg, prompt, lens, init_kv_cache(cfg, B, T, device=dev0, layout=layout),
+                                      last_only=True, layout=layout)
+        sync_all()
+        res[arm] = dict(layout=layout, logits=logits, paged=paged, dense_logits=dense_logits, dense=dense,
+                        counts=counts, by_card={i: after.get(i, 0) - before.get(i, 0) for i in after})
+        del params
+    v, c = res["virtual"], res["cards"]
+    checks = {"logits": (bool(torch.equal(c["logits"], v["logits"])), float((c["logits"] - v["logits"]).abs().max())),
+              "dense_logits": (bool(torch.equal(c["dense_logits"], v["dense_logits"])),
+                               float((c["dense_logits"] - v["dense_logits"]).abs().max()))}
+    for k in ("k", "v"):
+        checks[f"pools_{k}"] = _whole(c["paged"], c["layout"], k, 0, v["paged"][k])
+        checks[f"dense_{k}"] = _whole(c["dense"], c["layout"], k, 3, v["dense"][k])
+    layout = c["layout"]
+    want = {}
+    for (d, m), dev in layout.coords().items():
+        if m < len(layout.attn) and d < len(layout.rows(B)):
+            want[dev.index] = want.get(dev.index, 0) + cfg.n_layers
+    stats = dict(model=size, n_layers=cfg.n_layers, mesh=shape, dtype="float32", quantize=quantize, rows=B, width=S,
+                 attention_shards=len(layout.attn), kv_split=layout.kv_split, row_blocks=len(layout.rows(B)),
+                 bit_equal={k: eq for k, (eq, _) in checks.items()}, max_abs_diff={k: d for k, (_, d) in checks.items()},
+                 launches_by_card=c["by_card"], expected_launches_by_card=want,
+                 transfers_per_forward=c["counts"]["transfers"], bytes_per_forward=c["counts"]["bytes"],
+                 virtual_transfers_per_forward=v["counts"]["transfers"], tol=CROSS_TOL)
+    emit(name, card, **stats, cards=card_lines())
+    if any(d > CROSS_TOL or d != d for _, d in checks.values()):
+        raise SystemExit(f"{name}: the cards' forward leaves the virtual mesh's beyond {CROSS_TOL}: {stats}")
+    if {i: n for i, n in c["by_card"].items() if n} != want:
+        raise SystemExit(f"{name}: kernel launches by card {c['by_card']}, expected {want}")
+    if c["counts"] != v["counts"] or c["counts"]["forwards"] != 1:
+        raise SystemExit(f"{name}: transfers {c['counts']} on cards, {v['counts']} on the virtual mesh")
+    return stats
+
+
+async def cross_serve(size: str, checkpoint: str, n_intents: int, card: str, meshes: dict, *, batch: int = 64,
+                      registry_size: int = 1000, axes: dict = None, quantize: str = "none") -> dict:
+    """``cross_serve_<size>``: the burst's /plan intents (phase 26's, float32)
+    served by the unmeshed engine on card 0 (``plain``) and by one engine on
+    each mesh of ``meshes`` over distinct cards (its windows eager), and on
+    each ``axes`` arm by one that builds its own mesh over the visible cards
+    from explicit ``engine.data_axis`` and ``model_axis`` (``(data,
+    model)``; the mesh it built must be cards ``0..data*model-1``), each
+    behind a control plane, as one cohort from an emptied tree and then once
+    more; ``quantize="int8"`` (``cross_serve_int8_<size>``) serves every arm
+    int8. Prints each arm's plans/s, p50, kernel launches a decode forward
+    and by card, the transfers and bytes a forward, the windows run eagerly,
+    captures on the repeat and peak allocated bytes on each card. Fails
+    unless every plan is valid, every arm renders the plain arm's prompts,
+    the plans are equal byte for byte at test and at 2b every differing
+    stream's unmeshed masked top-2 margin is under ``TP_MARGIN``, each meshed
+    arm launched ``launches_per_forward`` a decode forward, ran its windows
+    eagerly and captured nothing."""
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, launches_by_card, reset_kernel_launches
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel import transfer
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.planner.llm import LLMPlanner
+    from mcpx_torch.server.factory import build_control_plane
+    from mcpx_torch.utils.synth import intent_for, synth_registry
+
+    dev0, n_cards = torch.device("cuda", 0), torch.cuda.device_count()
+    model_cfg = dataclasses.replace(GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size), dtype="float32")
+    records = synth_registry(registry_size, seed=0)
+    rng = random.Random(0)
+    intents = [intent_for(records, rng) for _ in range(n_intents)]
+    name = f"cross_serve_{'int8_' if quantize == 'int8' else ''}{size}"
+    axes = axes or {}
+    arms = {"plain": None, **{k: make_mesh(**shape, devices=cards_of(shape)) for k, shape in meshes.items()},
+            **{k: None for k in axes}}
+    meshes = {**meshes, **{k: dict(data=d, model=m) for k, (d, m) in axes.items()}}
+    out, calls, plans, engines, cps = {}, {}, {}, {}, []
+    try:
+        for arm, mesh in arms.items():
+            cfg = config(size, checkpoint, batch)
+            cfg.model.quantize = quantize
+            if arm in axes:
+                cfg.engine.data_axis, cfg.engine.model_axis = axes[arm]
+            sync_all()
+            gc.collect()
+            base = [torch.cuda.memory_allocated(i) for i in range(n_cards)]
+            for i in range(n_cards):
+                torch.cuda.reset_peak_memory_stats(i)
+            engine = engines[arm] = InferenceEngine(cfg, model_cfg=model_cfg, device=dev0, mesh=mesh)
+            cp = build_control_plane(cfg, planner=LLMPlanner(engine, cfg.planner), device=dev0)
+            cps.append(cp)
+            for rec in records:
+                await cp.registry.put(rec)
+            await cp.startup()
+            if arm in axes and (engine._mesh.distinct_devices() != cards_of(meshes[arm]) or not engine._layout.cross):
+                raise SystemExit(f"{name} {arm}: engine.data_axis/model_axis {axes[arm]} built {engine._mesh}")
+            seen, real_generate = calls.setdefault(arm, {}), engine.generate
+
+            async def recording(prompt_ids, _real=real_generate, _seen=seen, **kw):
+                res = await _real(prompt_ids, **kw)
+                _seen[tuple(prompt_ids)] = ({"temperature": 0.0, **kw}, res)
+                return res
+
+            engine.generate = recording
+            await idle(engine)
+            await engine.drop_unpinned()
+            q0 = engine.queue_stats()
+            sync_all()
+            reset_kernel_launches()
+            transfer.reset_counts()
+            t0 = time.monotonic()
+            with one_cohort(engine, n_intents):
+                timed = await timed_plans(cp, intents)
+            wall = time.monotonic() - t0
+            sync_all()
+            launches, by_card, moved = kernel_launches(), launches_by_card(), transfer.counts()
+            q1 = engine.queue_stats()
+            with one_cohort(engine, n_intents):
+                await timed_plans(cp, intents)
+            sync_all()
+            q2 = engine.queue_stats()
+            for p, _ in timed:
+                p.validate()
+            plans[arm] = [p.to_json() for p, _ in timed]
+            lat = sorted(ms for _, ms in timed)
+            decode_launches = launches["ragged_paged_attention"] - (q1["suffix_prefill_launches"]
+                                                                    - q0["suffix_prefill_launches"])
+            forwards = q1["decode_forwards"] - q0["decode_forwards"]
+            layout = engine._layout
+            mesh = engine._mesh if engine._layout is not None else None
+            out[arm] = dict(
+                model=size, arm=arm, dtype=model_cfg.dtype, quantize=quantize, intents=n_intents,
+                mesh=None if mesh is None else dict(mesh.shape), built_from_axes=arm in axes,
+                cards=None if mesh is None else [str(d) for d in mesh.distinct_devices()],
+                attention_shards=1 if layout is None else len(layout.attn),
+                row_blocks=1 if layout is None else len(layout.rows(batch)),
+                wall_s=wall, plans_per_s=n_intents / wall, p50_ms=nearest_rank(lat, 0.5), max_ms=lat[-1],
+                launches=launches, launches_by_card=by_card,
+                launches_per_forward=decode_launches / max(1, forwards),
+                expected_launches_per_forward=launches_per_forward(engine, batch),
+                transfers_per_forward=moved["transfers"] / max(1, moved["forwards"]),
+                bytes_per_forward=moved["bytes"] / max(1, moved["forwards"]), sharded_forwards=moved["forwards"],
+                eager_windows=q1["eager_windows"] - q0["eager_windows"],
+                **loop_counts(engine, q0, q1, n_intents), repeat_captures=q2["captures"] - q1["captures"],
+                repeat_eager_windows=q2["eager_windows"] - q1["eager_windows"],
+                peak_allocated_bytes_by_card={i: torch.cuda.max_memory_allocated(i) - base[i] for i in range(n_cards)},
+            )
+        prompts = sorted(calls["plain"])
+        differ, margins = {}, {}
+        for arm in meshes:
+            if prompts != sorted(calls[arm]):
+                raise SystemExit(f"{name}: {arm} rendered other prompts than the unmeshed engine")
+            differ[arm] = [i for i, (a, b) in enumerate(zip(plans["plain"], plans[arm])) if a != b]
+            margins[arm] = greedy_differences(f"{name} {arm}", size, card, engines["plain"],
+                                              {i: (list(p), *calls["plain"][p]) for i, p in enumerate(prompts)},
+                                              {i: (list(p), *calls[arm][p]) for i, p in enumerate(prompts)})
+    finally:
+        for cp in cps:
+            await cp.aclose()
+    check_tickets(name)
+    emit(name, card, **out, plans_differing=differ, margins=margins, margin_limit=TP_MARGIN, cards=card_lines(),
+         plans_per_s_ratio={arm: out[arm]["plans_per_s"] / out["plain"]["plans_per_s"] for arm in meshes})
+    for arm in meshes:
+        st = out[arm]
+        if st["launches_per_forward"] != st["expected_launches_per_forward"]:
+            raise SystemExit(f"{name} {arm}: {st['launches_per_forward']} launches a decode forward, expected "
+                             f"{st['expected_launches_per_forward']}")
+        if st["captures"] or st["repeat_captures"] or st["eager_windows"] <= 0 or st["replays"]:
+            raise SystemExit(f"{name} {arm}: a mesh of cards captured or replayed a window, or ran none eagerly: {st}")
+        if size == "test" and differ[arm]:
+            raise SystemExit(f"{name} {arm}: plans {differ[arm]} differ from the unmeshed engine's")
+        if any(m >= TP_MARGIN for m in margins[arm]):
+            raise SystemExit(f"{name} {arm}: a differing stream is no float32 near-tie: {margins[arm]}")
+    return out
+
+
+def ring_on_cards(card: str, n: int, T: int = 4096, B: int = 2, K: int = 1, G: int = 8, hd: int = 256) -> dict:
+    """``cross_ring``: ring attention at 2b's attention shape on a ``seq``
+    mesh of ``n`` distinct cards (each hop a peer copy) against the dense
+    ``_attend`` on card 0, float32 within ``RING_TOL`` on valid positions,
+    with both routes' ms."""
+    from mcpx_torch.parallel.mesh import make_mesh
+    from mcpx_torch.parallel.ring_attention import ring_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd), np.float32)).to(dev)
+    k = torch.from_numpy(rng.standard_normal((B, T, K, hd), np.float32)).to(dev)
+    v = torch.from_numpy(rng.standard_normal((B, T, K, hd), np.float32)).to(dev)
+    lens = torch.tensor([T, 3][:B], device=dev)
+    valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    mesh = make_mesh(seq=n, devices=cards_of({"seq": n}))
+    dense, dense_ms, _ = route_run(lambda: dense_attention(q, k, v, lens), dev)
+    ring, ring_ms, _ = route_run(lambda: ring_attention(q, k, v, lens, mesh), dev)
+    sync_all()
+    over = excess(ring[valid], dense[valid], RING_TOL, RING_TOL)
+    stats = dict(B=B, T=T, K=K, G=G, head_dim=hd, seq=n, devices=[str(d) for d in mesh.distinct_devices()],
+                 max_abs_err=float((ring - dense)[valid].abs().max()), allclose_excess=over, rtol=RING_TOL,
+                 atol=RING_TOL, ring_ms=ring_ms, dense_ms=dense_ms, cards=card_lines())
+    emit("cross_ring", card, **stats)
+    if over > 0 or not bool(torch.isfinite(ring).all()):
+        raise SystemExit(f"cross_ring: the ring over {n} cards leaves the dense route: {stats}")
+    return stats
+
+
+def cross_card_phase(card: str, need: int = 0, index=None, intents: list = (), *, n_test: int = 16,
+                     n_big: int = 8, big: str = "2b", batch: int = 64) -> dict:
+    """Phase 27, the cross-card half of the parallel package: with two or
+    more visible cards, ``cross_kernel``, ``cross_forward_*`` (test at full
+    depth, ``big`` at 4 layers, on every mesh of ``CROSS_MESHES`` the cards
+    allow, and int8 on the widest of them; the 7b preset's widths at 2
+    layers on ``model=4``, its KV heads split over the cards),
+    ``cross_serve_test`` (with an engine that builds its ``data=2`` mesh
+    from its explicit axes), ``cross_serve_<big>``, ``cross_serve_int8_test``
+    on ``model=2``, ``cross_ring_serve_data2_test`` (the engine's ring
+    prefill over its data cards viewed as a seq axis, held against its
+    dense route), ``retrieval_mesh_cards`` on phase 20's table,
+    ``cross_ring`` and ``train_dp_cards``. With fewer cards than ``need`` it fails; with one
+    card it prints that it did not run and passes nothing. Returns each
+    line's stats, the phase's launches and wall seconds."""
+    n = torch.cuda.device_count()
+    if n < need:
+        raise SystemExit(f"cross_card: {n} card(s) visible, --cards asks for {need}")
+    if n < 2:
+        emit("cross_card", card, ran=False, cards_visible=n, reason="the cross-card checks need two or more cards")
+        return {"ran": False, "launches": 0}
+    t0 = time.monotonic()
+    meshes = {k: v for k, v in CROSS_MESHES.items() if math.prod(v.values()) <= n}
+    out = {"ran": True, "kernel": kernel_on_cards(card, n)}
+    for size, layers in (("test", 0), (big, 4)):
+        for mesh_name, shape in meshes.items():
+            out[f"forward_{size}_{mesh_name}"] = cross_forward(size, shape, card, n_layers=layers)
+    widest = list(meshes.values())[-1]
+    out["forward_int8"] = cross_forward(big, widest, card, n_layers=4, quantize="int8")
+    if n >= 4:
+        out["forward_7b"] = cross_forward("7b", dict(model=4), card, n_layers=2, name="cross_forward_7b_model4")
+    # The serving arms' launches: what the main path launched on the cards.
+    launched = 0
+    for size, checkpoint, k, kw in (("test", CKPT, n_test, dict(axes={"axes_data2": (2, 1)})),
+                                    (big, "", n_big, {}),
+                                    ("test", CKPT, n_test, dict(quantize="int8"))):
+        st = asyncio.run(cross_serve(size, checkpoint, k, card, meshes if not kw.get("quantize") else
+                                     {"model2": dict(model=2)}, batch=batch, **kw))
+        out[f"serve_{'int8_' if kw.get('quantize') else ''}{size}"] = st
+        launched += sum(st[arm]["launches"]["ragged_paged_attention"] for arm in st)
+    st, _, _ = asyncio.run(ring_serve("test", CKPT, 8, card, float32=True, batch=batch, mesh_shape=dict(data=2),
+                                      devices=cards_of({"data": 2})))
+    out["ring_serve"] = st
+    launched += st["launches"].get("ragged_paged_attention", 0)
+    if index is not None:
+        from mcpx_torch.parallel.mesh import make_mesh
+
+        out["retrieval"] = asyncio.run(retrieval_mesh(index, list(intents), card, mesh=make_mesh(
+            model=2, devices=cards_of({"model": 2})), name="retrieval_mesh_cards"))
+    out["ring"] = ring_on_cards(card, 4 if n >= 4 else 2)
+    from mcpx_torch.parallel.mesh import make_mesh
+
+    out["train"] = train_dp(card, line="train_dp_cards",
+                            meshes={"data2_cards": make_mesh(data=2, devices=cards_of({"data": 2}))})
+    out["launches"] = launched
+    out["wall_s"] = time.monotonic() - t0
+    emit("cross_card", card, ran=True, cards_visible=n, meshes=list(meshes), wall_s=out["wall_s"],
+         launches=launched, cards=card_lines())
+    return out
+
+
 def n_bytes_of(engine) -> int:
     from mcpx_torch.models.gemma.params import n_bytes
 
@@ -4824,9 +5263,17 @@ def main(argv: list[str]) -> int:
         help="after each serving phase, serve its requests once more under "
         "torch.profiler and print device time by kernel and the idle share",
     )
+    ap.add_argument(
+        "--cards", type=int, default=0, metavar="N",
+        help="fail unless at least N cards are visible (phase 27 runs on two or more)",
+    )
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: {torch.cuda.device_count()} card(s) visible, --cards asks for {args.cards}",
+              file=sys.stderr)
         return 2
     from mcpx_torch.engine.kernels import build
 
@@ -4911,6 +5358,7 @@ def main(argv: list[str]) -> int:
     parallel = timed("parallel", parallel_phase, card, table["index"], table["intents"])
     timed("lint", lint_phase, card)
     tp = timed("tp_serve", tp_phase, card)
+    cross = timed("cross_card", cross_card_phase, card, args.cards, table["index"], table["intents"])
     emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
@@ -4947,8 +5395,9 @@ def main(argv: list[str]) -> int:
             # gates its own launches).
             # So do phase 23's evaluations (one request at a time, windows
             # captured as they first run), gated in ``offline_phase``.
+            # And phase 27's serving arms on the cards (eager windows).
             "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl] + clusters
-                            + list(offline["eval_test"].values())),
+                            + list(offline["eval_test"].values())) + cross["launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -116,23 +116,31 @@ gathered and the unembedding scaled per row; the KV pools stay in the
 model's dtype, so attention still goes through the ragged kernel.
 
 The mesh (``parallel/mesh.py``): ``mesh=None`` builds ``_mesh_axes`` over
-the engine's one device (1 x 1, as the reference on one chip); an injected
-mesh must be a virtual mesh of the engine's own device (peer copies and
-collectives over several cards are ROADMAP Queue A item 5c). On it the
-engine serves TP/DP as the reference's per-coordinate program
-(``parallel.mesh.ServeLayout``, ``_layout``): the weights are laid out
-shard-major (``params.shard_major``), and every forward it dispatches (dense
-and suffix prefill, the decode windows, drafting, verify, and the
-projections around ring prefill) runs each row block over ``data`` in turn,
-each model shard projecting its heads, launching the ragged kernel over them
-against its KV-head view of the pools, and adding its partial outputs after
-``wo`` and ``w_down`` to the others' in shard order; the logits are joined
-in vocabulary order before the grammar mask and the sampler read them. A
-forward so launches the kernel ``n_layers`` times per attention shard and
-row block. Captured windows key on the layout. The cost registry bills the
-whole mesh's work once (``forward_cost`` from the model's shapes), and the
-span rooflines' peaks count the mesh's distinct devices, not its
-coordinates: one card's on a virtual mesh.
+the engine's one device (1 x 1, as the reference on one chip), or, with
+``engine.data_axis`` or ``model_axis`` explicit on CUDA, over the visible
+cards, the engine's own first. An injected mesh is a virtual mesh (one
+device at every coordinate) or a distinct card at each, its first
+coordinate the engine's device (the control card: the slab, page tables and
+sampler live there). On it the engine serves TP/DP as the reference's
+per-coordinate program (``parallel.mesh.ServeLayout``, ``_layout``): the
+weights are laid out shard-major (``params.shard_major``; on cards each
+card holds its shard's blocks, ``params.on_cards``), and every forward it
+dispatches (dense and suffix prefill, the decode windows, drafting, verify,
+and the projections around ring prefill) runs each row block over ``data``
+at its data coordinate, each model shard projecting its heads on its card,
+launching the ragged kernel over them against its card's KV-head pools, and
+its partial outputs after ``wo`` and ``w_down`` summed with the others' in
+shard order; the logits are joined in vocabulary order on the control card
+before the grammar mask and the sampler read them. What crosses between
+coordinates goes through ``parallel/transfer.py`` (each KV write mirrored to
+every data replica of its heads); on a virtual mesh every copy is the tensor
+itself. A forward so launches the kernel ``n_layers`` times per attention
+shard and row block. Captured windows key on the layout; on a mesh of cards
+the windows run eagerly (``queue_stats()["eager_windows"]``: a CUDA graph
+captures one card's stream), and the KV tier is refused. The cost registry
+bills the whole mesh's work once (``forward_cost`` from the model's
+shapes), and the span rooflines' peaks count the mesh's distinct devices,
+not its coordinates: one card's on a virtual mesh.
 Long-prompt ring prefill (``engine.ring_prefill_min_tokens``): a full
 prefill whose bucket reaches the threshold and divides the seq axis runs
 ``parallel.ring_attention.ring_prefill`` over ``_seq_mesh`` (an injected
@@ -197,11 +205,13 @@ from mcpx_torch.parallel.mesh import (
     MODEL_AXIS,
     SEQ_AXIS,
     ServeLayout,
-    is_virtual,
+    canonical,
     make_mesh,
     serve_layout,
+    serving_devices,
 )
 from mcpx_torch.parallel.ring_attention import ring_prefill
+from mcpx_torch.parallel.transfer import join_streams
 from mcpx_torch.planner.grammar import (
     _DIST_INF,
     PlanGrammar,
@@ -665,17 +675,24 @@ class InferenceEngine:
         # one layer at a time; the costs bill one byte a weight.
         self._quantized = self.config.model.quantize == "int8"
         self.device = resolve_device(device)
-        if mesh is not None and not is_virtual(mesh, self.device):
-            raise EngineError(
-                f"{mesh}: the engine serves a mesh of its own device ({self.device}) only; TP/DP "
-                "serving over several cards is ROADMAP Queue A item 5c"
-            )
+        if mesh is not None:
+            serving_devices(mesh)
+            first = canonical(mesh.devices.flat[0])
+            if first != canonical(self.device):
+                raise EngineError(f"{mesh}: the mesh's first coordinate, {first}, is not the engine's device "
+                                  f"({self.device}), where its slab and sampler live")
         # The serving mesh (built in _setup when not injected), its seq
         # view for ring prefill (None: every full prefill is dense) and the
         # layout every forward runs on (None: nothing splits on the mesh).
         self._mesh = mesh
         self._seq_mesh = None
         self._layout: Optional[ServeLayout] = None  # mcpx: owner[engine-worker]
+        # On a mesh of several cards the decode windows run eagerly (chosen
+        # in _setup from the mesh: a CUDA graph captures one card's
+        # stream), and the drafter's [V, D] embedding is joined on the
+        # control card at its first use.
+        self._eager_windows = False  # mcpx: owner[engine-worker]
+        self._draft_embed = None  # mcpx: owner[engine-worker]
         self.tokenizer = make_tokenizer(self.config.model.vocab)
         self.model_cfg = model_cfg or GemmaConfig.named(
             self.config.model.size,
@@ -789,6 +806,7 @@ class InferenceEngine:
             "live_forwards": 0, "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
             "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
             "captures": 0, "warmup_captures": 0, "replays": 0, "prefix_pins": 0, "spec_verify": 0,
+            "eager_windows": 0,
         }
         # Speculative drafted and accepted tokens by row class (worker
         # writes, queue_stats reads; swapped in whole).
@@ -963,6 +981,7 @@ class InferenceEngine:
             # generator, flag ring, capturing stream and graph pool.
             self._params = None  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
             self._paged_kv = None  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
+            self._draft_embed = None  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
             self._slab = None
             self._tables.clear()  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
             self._stacks.clear()  # mcpx: ignore[thread-ownership] - worker joined (guard above); teardown
@@ -1449,14 +1468,26 @@ class InferenceEngine:
     def _setup(self) -> None:
         ecfg = self.config.engine
         if self._mesh is None:
-            # The engine's device list is its one explicit device.
-            data, model = self._mesh_axes(1)
-            self._mesh = make_mesh(data=data, model=model, devices=[self.device] * (data * model))
+            # Explicit axes on CUDA span the visible cards, the engine's own
+            # first; auto axes keep its one device (the reference's auto
+            # spans every chip: a declared difference).
+            cards = [self.device]
+            if self.device.type == "cuda" and (ecfg.data_axis > 0 or ecfg.model_axis > 0):
+                cards += [c for c in (torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+                          if c != self.device]
+            data, model = self._mesh_axes(len(cards))
+            self._mesh = make_mesh(data=data, model=model, devices=cards[:data * model])
+        self._layout = serve_layout(self._mesh, self.model_cfg)
+        self._eager_windows = self._layout is not None and self._layout.cross
+        if self._eager_windows and self._spill_tier is not None:
+            raise EngineError(
+                f"engine.kv_tier on {self._mesh}: the KV tier's copies and snapshots run on one card's pools; "
+                "on a mesh of several cards it is not served (ROADMAP Queue A item 5c)"
+            )
         self._params, source = load_or_init(
             self.model_cfg, self.config.model.checkpoint_path, device=self.device,
             quantize=self.config.model.quantize, mesh=self._mesh,
         )
-        self._layout = serve_layout(self._mesh, self.model_cfg)
         # Long-prompt routing: an injected mesh with a seq axis is used as it
         # is; otherwise the data devices are viewed again as a seq axis, in
         # the same order. Armed only when routing can trigger.
@@ -1472,7 +1503,7 @@ class InferenceEngine:
                 )
         log.info("weights: %s on %s", source, self.device)
         self._paged_kv = init_paged_kv(
-            self.model_cfg, self._allocator.n_pages, ecfg.kv_page_size, self.device
+            self.model_cfg, self._allocator.n_pages, ecfg.kv_page_size, self.device, layout=self._layout
         )
         # The draft buffer holds a row's prompt suffix: the largest prefill
         # bucket within page capacity.
@@ -1522,7 +1553,7 @@ class InferenceEngine:
         if cuda:
             self._capture_stream = _capture_stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
-            if ecfg.warmup_compile:
+            if ecfg.warmup_compile and not self._eager_windows:
                 self._warm_windows()
 
     def _warm_windows(self) -> None:
@@ -2050,7 +2081,7 @@ class InferenceEngine:
             cfg, batch=A, width=T, context=T, unembed_rows=A, unembed_cols=cfg.vocab_size,
             quantized=self._quantized,
         ))
-        dense = init_kv_cache(self.model_cfg, A, T, device=self.device)
+        dense = init_kv_cache(self.model_cfg, A, T, device=self.device, layout=self._layout)
         if ring:
             last, dense = ring_prefill(
                 self._params, self.model_cfg, tokens_d, lens_d, self._seq_mesh, dense, last_only=True,
@@ -2060,7 +2091,8 @@ class InferenceEngine:
             last, dense = prefill(
                 self._params, self.model_cfg, tokens_d, lens_d, dense, last_only=True, layout=self._layout
             )
-        commit_prefill_to_pages(self._paged_kv, dense, table_d, lens_d, self.config.engine.kv_page_size)
+        commit_prefill_to_pages(self._paged_kv, dense, table_d, lens_d, self.config.engine.kv_page_size,
+                                layout=self._layout)
         return last
 
     def _suffix_prefill(self, tokens_d, lens_d, pos_d, table_d) -> torch.Tensor:
@@ -2892,8 +2924,9 @@ class InferenceEngine:
         captured graph, capturing it first when the key is new (that first
         run is the capture's warm-up, eager on the capturing stream)."""
         self._record_window(key)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._eager_windows:
             self._window(slab, key, dfa)
+            self._stats["eager_windows"] += self._eager_windows
             return
         graph = self._graphs.get(key)  # mcpx: ignore[jit-static-branch] - homogeneous-mode debt: per-request temperature/constrained ARE trace statics here, bounded by the slab-wide compat triple (one config per occupancy, drain-to-switch); hetero_batch moves both into per-row device state
         if graph is None:
@@ -2993,6 +3026,7 @@ class InferenceEngine:
             n_win += 1
         if spec:
             self._stats["spec_verify"] += n_win
+        join_streams(self._layout)
         packed = torch.cat([d["out_buf"].reshape(-1), d["emitted"], d["done"].long(), d["counts"], d["acc_rows"]])
         event = None
         if self.device.type == "cuda":
@@ -3302,7 +3336,9 @@ class InferenceEngine:
         budgets, buf, h = d["budgets"], d["out_buf"], d["hstate"]
         temp_v, cons_v, dfa_id = d["temp"], d["cons"], d["dfa"]
         strans, smask, _sdist, sactive, seos, sdist_succ, sinv = sdfa
-        embed = whole_embed(self._params, self._layout)
+        if self._draft_embed is None:
+            self._draft_embed = whole_embed(self._params, self._layout)
+        embed = self._draft_embed
         b_idx = torch.arange(B, device=self.device)
         j_ar = torch.arange(K, device=self.device)
 

@@ -46,6 +46,9 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 # count (``count_into``) and the ticket registry below change under _LOCK.
 LAUNCHES = {"ragged_paged_attention": 0}  # mcpx: owner[_LOCK]
 CAPTURED = {"ragged_paged_attention": 0}  # mcpx: owner[_LOCK]
+# Launches made outside a graph, by card index (a replay's are counted by
+# kernel name only): what each card of a mesh launched.
+BY_CARD: dict[int, int] = {}  # mcpx: owner[_LOCK]
 _LOCK = threading.Lock()
 _THREAD = threading.local()
 
@@ -59,6 +62,14 @@ def reset_kernel_launches() -> None:
     with _LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        BY_CARD.clear()
+
+
+def launches_by_card() -> dict[int, int]:
+    """The kernel's launches outside CUDA graphs since the last reset, by
+    card index."""
+    with _LOCK:
+        return dict(BY_CARD)
 
 
 def captured_launches() -> dict[str, int]:
@@ -75,9 +86,10 @@ def count_into(counts: Optional[dict[str, int]]) -> None:
     _THREAD.counts = counts
 
 
-def _count(captured: bool, launches: dict[str, int]) -> None:
+def _count(captured: bool, launches: dict[str, int], card: Optional[int] = None) -> None:
     """Add ``launches`` to CAPTURED (calls recorded into a graph) or to
-    LAUNCHES and this thread's own count."""
+    LAUNCHES and this thread's own count (and, for a launch on ``card``, to
+    BY_CARD)."""
     own = None if captured else getattr(_THREAD, "counts", None)
     with _LOCK:
         table = CAPTURED if captured else LAUNCHES
@@ -85,6 +97,8 @@ def _count(captured: bool, launches: dict[str, int]) -> None:
             table[k] += n
             if own is not None:
                 own[k] = own.get(k, 0) + n
+        if card is not None and not captured:
+            BY_CARD[card] = BY_CARD.get(card, 0) + sum(launches.values())
 
 
 def count_replay(launches: dict[str, int]) -> None:
@@ -301,34 +315,37 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     p_max = page_table.shape[1]
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise EngineError("ragged_paged_attention: q and the pools must start on 16-byte boundaries")
-    lib = _lib()
-    smem = lib.mcpx_ragged_paged_attention_smem(B, S, K, G, hd, psz, p_max, dtype)
-    if smem > SMEM_LIMIT:
-        raise EngineError(f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})")
-    n_split = lib.mcpx_ragged_paged_attention_splits(B, S, K, G, p_max, psz)
-    n_tiles, t_rows = -(-S * G // TILE_ROWS), min(S * G, TILE_ROWS)
-    out = torch.empty_like(q)
-    # fp32 scratch: the per-split unnormalised accumulators [B*K*tiles,
-    # n_split, t_rows, hd], then their (max, sum) [B*K*tiles, n_split, 2,
-    # t_rows]. The kernel keeps n_split at 1 once the tiles fill the card,
-    # so a wide prefill needs about twice its output here.
-    blocks = B * K * n_tiles * n_split
-    n_acc = blocks * t_rows * hd
-    scratch = torch.empty(n_acc + blocks * 2 * t_rows, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    # Held until the launch is enqueued: another thread may replace the
-    # stream's buffer meanwhile, and a freed buffer's memory is handed to
-    # the next allocation on the stream, which would then run before it.
-    tickets = _tickets(q.device, stream, ticket_count(B, S, K, G))
-    rc = lib.mcpx_ragged_paged_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 4 * n_acc, tickets.data_ptr(),
-        B, S, K, G, hd, L, N, psz, p_max, layer, dtype, stream,
-    )
-    if rc != 0:
-        raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")
-    _count(torch.cuda.is_current_stream_capturing(), {"ragged_paged_attention": 1})
+    # The launcher reads the current device for its SM count and its
+    # shared-memory grant: q's card, whatever the calling thread's device.
+    with torch.cuda.device(q.device):
+        lib = _lib()
+        smem = lib.mcpx_ragged_paged_attention_smem(B, S, K, G, hd, psz, p_max, dtype)
+        if smem > SMEM_LIMIT:
+            raise EngineError(f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})")
+        n_split = lib.mcpx_ragged_paged_attention_splits(B, S, K, G, p_max, psz)
+        n_tiles, t_rows = -(-S * G // TILE_ROWS), min(S * G, TILE_ROWS)
+        out = torch.empty_like(q)
+        # fp32 scratch: the per-split unnormalised accumulators [B*K*tiles,
+        # n_split, t_rows, hd], then their (max, sum) [B*K*tiles, n_split, 2,
+        # t_rows]. The kernel keeps n_split at 1 once the tiles fill the card,
+        # so a wide prefill needs about twice its output here.
+        blocks = B * K * n_tiles * n_split
+        n_acc = blocks * t_rows * hd
+        scratch = torch.empty(n_acc + blocks * 2 * t_rows, dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        # Held until the launch is enqueued: another thread may replace the
+        # stream's buffer meanwhile, and a freed buffer's memory is handed to
+        # the next allocation on the stream, which would then run before it.
+        tickets = _tickets(q.device, stream, ticket_count(B, S, K, G))
+        rc = lib.mcpx_ragged_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+            start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * n_acc, tickets.data_ptr(),
+            B, S, K, G, hd, L, N, psz, p_max, layer, dtype, stream,
+        )
+        if rc != 0:
+            raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")
+        _count(torch.cuda.is_current_stream_capturing(), {"ragged_paged_attention": 1}, q.device.index)
     return out
 
 

@@ -21,7 +21,8 @@ import torch
 
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.model import torch_dtype
+from mcpx_torch.models.gemma.model import kv_at, torch_dtype
+from mcpx_torch.parallel.transfer import kv_tree, send, trees
 from mcpx_torch.utils.ownership import owned_by
 
 
@@ -153,24 +154,32 @@ class PageAllocator:
 
 # ------------------------------------------------------------------- device
 def init_paged_kv(
-    cfg: GemmaConfig, n_pages: int, page_size: int, device="cpu", dtype: str | None = None
+    cfg: GemmaConfig, n_pages: int, page_size: int, device="cpu", dtype: str | None = None, layout=None
 ) -> dict[str, torch.Tensor]:
     """Device page pools: ``[K, L, N_pages, page_size, head_dim]``. A model
-    shard's KV heads are a leading-dim view of them (``pool_shards``)."""
+    shard's KV heads are a leading-dim view of them (``pool_shards``). On a
+    ``layout`` of several devices, each holds all ``N_pages`` pages of the
+    KV heads its coordinates read (``transfer.kv_tree``), replicated over
+    ``data`` as the reference's pools are."""
     d = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.n_kv_heads, cfg.n_layers, n_pages, page_size, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=d, device=device),
-        "v": torch.zeros(shape, dtype=d, device=device),
-    }
+
+    def zeros(k_heads, dev):
+        shape = (k_heads, cfg.n_layers, n_pages, page_size, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=d, device=dev), "v": torch.zeros(shape, dtype=d, device=dev)}
+
+    return kv_tree(layout, device, cfg.n_kv_heads, zeros)
 
 
 def pool_shards(paged: dict[str, torch.Tensor], layout) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """(k, v) pool views of each of ``layout``'s attention shards: the
-    leading-dim range ``[k0:k1]`` of the KV heads it reads, contiguous since
-    the pools are KV-head-major (the whole pools when the heads stay
-    whole, as MQA's do)."""
-    return [(paged["k"][a.kv[0]:a.kv[1]], paged["v"][a.kv[0]:a.kv[1]]) for a in layout.attn]
+    leading-dim range of the KV heads it reads, contiguous since the pools
+    are KV-head-major (the whole pools when the heads stay whole, as MQA's
+    do), of data coordinate 0's cards on a layout of cards."""
+    out = []
+    for a, shard in enumerate(layout.attn):
+        k, v, base = kv_at(paged, layout, (0, a))
+        out.append((k[shard.kv[0] - base:shard.kv[1] - base], v[shard.kv[0] - base:shard.kv[1] - base]))
+    return out
 
 
 def commit_prefill_to_pages(
@@ -179,6 +188,7 @@ def commit_prefill_to_pages(
     page_table: torch.Tensor,
     seq_lens: torch.Tensor,
     page_size: int,
+    layout=None,
 ) -> dict[str, torch.Tensor]:
     """Scatter a dense prefill cache ``[L, B, T, K, hd]`` into the page pools
     (in place; the pools are returned). The write fills every model
@@ -187,8 +197,16 @@ def commit_prefill_to_pages(
     ``page_table`` is [B, Pmax] int32 (0 = null page). Chunks beyond a
     sequence's pages are routed to the reserved null page 0, which is never
     read (positions are masked at attention time), so the duplicate writes
-    that land there are harmless.
+    that land there are harmless. On a ``layout`` (``init_paged_kv``'s),
+    each device's dense cache (every row, its KV heads) goes into its own
+    pools, the page table sent there from the control device.
     """
+    if layout is not None:
+        for dev, pools in trees(paged, layout).items():
+            coord = next(c for c, x in layout.coords().items() if x == dev)
+            commit_prefill_to_pages(pools, trees(dense, layout)[dev], send(page_table, (0, 0), coord, layout),
+                                    seq_lens, page_size)
+        return paged
     L, B, T, K, hd = dense["k"].shape
     n_chunks = T // page_size
     if T % page_size:

@@ -12,12 +12,13 @@ dtype.
 
 On a ``parallel.mesh.ServeLayout`` (``layout=``) the forward is the
 reference's per-coordinate program (``models/gemma/model.py``): for each
-row block over ``data`` in turn, each model shard scatters its K/V heads
-into its leading-dim view of the pools (``kv_cache.pool_shards``; MQA's one
-KV head is written once) and launches the ragged kernel on its own query
-heads against that view, and the shards' partial outputs are summed after
+row block over ``data`` at its data coordinate, each model shard scatters
+its K/V heads into its card's pools, and into every other data replica's
+(``transfer.homes``; MQA's one KV head is projected once), and launches the
+ragged kernel on its card over its own query heads against its leading-dim
+view of those pools, and the shards' partial outputs are summed after
 ``wo`` and ``w_down``. A forward so launches the kernel ``n_layers`` times
-per attention shard and row block.
+per attention shard and row block, each on its card.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from typing import Any, Optional
 
 import torch
 
-from mcpx_torch.engine.kv_cache import pool_shards
 from mcpx_torch.engine.kernels.paged_attention import (
     paged_attention_chunk,
     ragged_paged_attention,
@@ -36,6 +36,7 @@ from mcpx_torch.models.gemma.model import (
     apply_rope,
     embed_tokens,
     embed_tokens_sharded,
+    kv_at,
     layer_weights,
     mlp,
     qkv,
@@ -45,6 +46,7 @@ from mcpx_torch.models.gemma.model import (
     unembed,
     unembed_sharded,
 )
+from mcpx_torch.parallel.transfer import Inputs, count_forward, homes, send, tree_at
 
 
 def decode_chunk_paged(
@@ -71,15 +73,18 @@ def decode_chunk_paged(
     at one slot per row. ``active_cols`` takes precedence over
     ``logits_at``. The pools are updated in place."""
     if layout is not None:
-        blocks = layout.rows(tokens.shape[0])
-        outs = [
-            _decode_block(
-                params, cfg, tokens[r0:r1], positions[r0:r1], page_table[r0:r1], paged_kv,
-                None if logits_at is None else logits_at[r0:r1], active_cols,
-                None if q_lens is None else q_lens[r0:r1], layout,
+        count_forward()
+        S = tokens.shape[1]
+        pos_mat = positions.long()[:, None] + torch.arange(S, device=tokens.device)
+        outs = []
+        for d, (r0, r1) in enumerate(layout.rows(tokens.shape[0])):
+            inp = Inputs(
+                layout, (0, 0), tokens=tokens[r0:r1], positions=pos_mat[r0:r1], start=positions[r0:r1],
+                table=page_table[r0:r1], q_lens=None if q_lens is None else q_lens[r0:r1],
+                logits_at=None if logits_at is None else logits_at[r0:r1], cols=active_cols,
             )
-            for r0, r1 in blocks
-        ]
+            outs.append(_decode_block(params, cfg, d, inp, paged_kv, layout, logits_at is not None,
+                                      active_cols is not None, q_lens is not None))
         return (outs[0] if len(outs) == 1 else torch.cat(outs)), paged_kv
     B, S = tokens.shape
     K, L, N, psz, hd = paged_kv["k"].shape
@@ -128,43 +133,56 @@ def decode_chunk_paged(
     return unembed(x, params["embed"]), paged_kv
 
 
-def _decode_block(params, cfg, tokens, positions, page_table, paged_kv, logits_at, active_cols, q_lens, layout):
-    """One row block of ``decode_chunk_paged`` on ``layout``'s model shards:
-    the same slots, pages and kernel arguments as the unmeshed forward, each
-    attention shard's over its KV-head view of the pools."""
-    B, S = tokens.shape
-    K, L, N, psz, hd = paged_kv["k"].shape
-    p_max = page_table.shape[1]
-    dev = tokens.device
-    x = embed_tokens_sharded(params, tokens, cfg, layout)
-    pos_mat = positions.long()[:, None] + torch.arange(S, device=dev)
-    chunk = pos_mat // psz
-    page = torch.gather(page_table.long(), 1, chunk.clamp(max=p_max - 1))
+def _slots(views: dict, p_max: int, psz: int) -> torch.Tensor:
+    """Each query's slot in the flattened [N*Psz] pool view, from a row
+    block's ``positions`` and ``table`` on one card (a slot past the table
+    width goes to the null page)."""
+    pos = views["positions"].long()
+    chunk = pos // psz
+    page = torch.gather(views["table"].long(), 1, chunk.clamp(max=p_max - 1))
     page = torch.where(chunk < p_max, page, torch.zeros_like(page))
-    flat_idx = page * psz + pos_mat % psz
-    pools = pool_shards(paged_kv, layout)
-    table32 = page_table.to(torch.int32).contiguous()
-    start32 = positions.to(torch.int32).contiguous()
-    qlen32 = None if q_lens is None else q_lens.to(torch.int32).contiguous()
+    return page * psz + pos % psz
+
+
+def _decode_block(params, cfg, d, inp, paged_kv, layout, at_slot: bool, compact: bool, ragged: bool):
+    """Row block ``d`` of ``decode_chunk_paged`` on ``layout``'s model shards
+    (``inp``: its ``transfer.Inputs``): the same slots, pages and kernel
+    arguments as the unmeshed forward, each attention shard's kernel
+    launched on its card over its KV-head view of that card's pools, each
+    KV write mirrored to every data replica of its heads."""
+    red = (d, 0)
+    B, S = inp.at(red)["tokens"].shape
+    _, L, N, psz, hd = kv_at(paged_kv, layout, red)[0].shape
+    p_max = inp.at(red)["table"].shape[1]
+    x = embed_tokens_sharded(params, cfg, layout, d, inp)
 
     for i in range(cfg.n_layers):
 
-        def write_kv(a, k, v, i=i):
-            pk, pv = (paged_kv["k"], paged_kv["v"]) if a is None else pools[a]
-            kh = pk.shape[0]
-            pk.view(kh, L, N * psz, hd)[:, i, flat_idx] = k.permute(2, 0, 1, 3).to(pk.dtype)
-            pv.view(kh, L, N * psz, hd)[:, i, flat_idx] = v.permute(2, 0, 1, 3).to(pv.dtype)
+        def write_kv(a, src, k, v, i=i):
+            h0 = 0 if a is None else layout.attn[a].kv[0]
+            for dst, (k0, k1), fresh in homes(layout, a):
+                kk = send(k[:, :, k0 - h0:k1 - h0], src, dst, layout)
+                vv = send(v[:, :, k0 - h0:k1 - h0], src, dst, layout)
+                slots = inp.derive(dst, "slots", lambda views: _slots(views, p_max, psz))
+                if fresh:
+                    pk, pv, base = kv_at(paged_kv, layout, dst)
+                    kh = k1 - k0
+                    pk[k0 - base:k1 - base].view(kh, L, N * psz, hd)[:, i, slots] = kk.permute(2, 0, 1, 3).to(pk.dtype)
+                    pv[k0 - base:k1 - base].view(kh, L, N * psz, hd)[:, i, slots] = vv.permute(2, 0, 1, 3).to(pv.dtype)
 
         def attend(a, qg, i=i):
-            pk, pv = pools[a]
-            if qlen32 is not None:
-                return ragged_paged_attention(qg, pk, pv, table32, start32, qlen32, i)
-            return paged_attention_chunk(qg, pk, pv, table32, start32, i)
+            c = (d, a)
+            pk, pv, base = kv_at(paged_kv, layout, c)
+            k0, k1 = layout.attn[a].kv
+            pk, pv, views = pk[k0 - base:k1 - base], pv[k0 - base:k1 - base], inp.at(c)
+            if ragged:
+                return ragged_paged_attention(qg, pk, pv, views["table"], views["start"], views["q_lens"], i)
+            return paged_attention_chunk(qg, pk, pv, views["table"], views["start"], i)
 
-        x = sharded_layer(x, shard_layer_weights(params, layout, i, cfg), cfg, pos_mat, layout, write_kv, attend)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if active_cols is not None:
-        return unembed_sharded(x, params, layout, subset=active_cols)
-    if logits_at is not None:
-        x = x[torch.arange(B, device=dev), logits_at.long()]
-    return unembed_sharded(x, params, layout)
+        x = sharded_layer(x, shard_layer_weights(params, layout, i, cfg, d), cfg, layout, d, inp, write_kv, attend)
+    x = rms_norm(x, tree_at(params, layout, red)["final_norm"], cfg.norm_eps)
+    if compact:
+        return unembed_sharded(x, params, layout, d, inp, subset=True)
+    if at_slot:
+        x = x[torch.arange(B, device=x.device), inp.at(red)["logits_at"].long()]
+    return unembed_sharded(x, params, layout, d, inp)

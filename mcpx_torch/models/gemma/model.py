@@ -13,14 +13,17 @@ embedding scaled by ``sqrt(d_model)`` cast to the activation dtype first;
 attention logits and softmax in fp32; the tied unembedding with fp32 output.
 
 On a ``parallel.mesh.ServeLayout`` (``layout=``; weights laid out by
-``params.shard_major``) the forward is the reference's per-coordinate
-program, run for each row block over ``data`` in turn: each model shard
-projects its query heads (and its KV heads where they split) and its
-``d_ff`` columns, the partial outputs after ``wo`` and ``w_down`` are summed
-over the shards in shard order (in fp32 for a bf16 model, as a psum), the
-embedding reads each token from the vocabulary shard that holds it, and the
-unembedding's shards give the logits of their vocabulary range, joined in
-vocabulary order.
+``params.shard_major``, and spread by ``params.on_cards`` on a mesh of
+cards) the forward is the reference's per-coordinate program, each row
+block over ``data`` at its data coordinate ``d``: each model shard projects
+its query heads (and its KV heads where they split) and its ``d_ff`` columns
+on its card, the partial outputs after ``wo`` and ``w_down`` are summed at
+the block's reducing coordinate ``(d, 0)`` in shard order (in fp32 for a
+bf16 model, as a psum), the embedding reads each token from the vocabulary
+shard that holds it, and the unembedding's shards give the logits of their
+vocabulary range, joined in vocabulary order on the control card. What
+crosses between coordinates goes through ``parallel/transfer.py``; on a
+virtual mesh every copy is the tensor itself.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from mcpx_torch.models.gemma.quant import (
     embed_lookup,
     unembed,
 )
+from mcpx_torch.parallel.transfer import Inputs, count_forward, homes, join, kv_tree, reduce, send, tree_at, trees
 
 Params = dict[str, Any]
 KVCache = dict[str, torch.Tensor]
@@ -121,10 +125,17 @@ def init_params(
     }
 
 
-def init_kv_cache(cfg: GemmaConfig, batch: int, max_len: int, device="cpu", dtype=None) -> KVCache:
+def init_kv_cache(cfg: GemmaConfig, batch: int, max_len: int, device="cpu", dtype=None, layout=None) -> KVCache:
+    """A dense [L, B, S, K, hd] cache; on a ``layout`` of several devices,
+    one on each (``transfer.kv_tree``) over the KV heads its coordinates
+    read, every row of the batch."""
     d = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=d, device=device), "v": torch.zeros(shape, dtype=d, device=device)}
+
+    def zeros(k_heads, dev):
+        shape = (cfg.n_layers, batch, max_len, k_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=d, device=dev), "v": torch.zeros(shape, dtype=d, device=dev)}
+
+    return kv_tree(layout, device, cfg.n_kv_heads, zeros)
 
 
 # ------------------------------------------------------------------- pieces
@@ -257,12 +268,14 @@ def _layer(
 def _shard(leaf: Any, name: str, layout, m: int, i: Optional[int] = None, dtype=None) -> Any:
     """Model shard ``m``'s block of a leaf laid out by ``params.shard_major``
     (the whole leaf where ``layout`` does not split it), at layer ``i`` when
-    given, dequantized to ``dtype`` when given on an int8 leaf."""
+    given, dequantized to ``dtype`` when given on an int8 leaf. ``leaf`` is
+    from the tree shard ``m``'s coordinate reads (``transfer.tree_at``)."""
     dim = layout.sharded.get(name)
+    j = layout.local(m)
 
     def pick(t, split):
         t = t if i is None else t[i]
-        return t[m] if split else t
+        return t[j] if split else t
 
     if _is_qleaf(leaf):
         q = pick(leaf["int8"], dim is not None)
@@ -271,146 +284,192 @@ def _shard(leaf: Any, name: str, layout, m: int, i: Optional[int] = None, dtype=
     return pick(leaf, dim is not None)
 
 
-def shard_layer_weights(params: Params, layout, i: int, cfg: GemmaConfig) -> list[dict[str, torch.Tensor]]:
-    """Layer ``i``'s weights for each of ``layout``'s model shards:
-    contiguous views of the shard-major leaves, dequantized on int8 weights;
-    a leaf kept whole is sliced (and dequantized) once and shared."""
+def shard_layer_weights(params: Params, layout, i: int, cfg: GemmaConfig, d: int = 0) -> list[dict[str, torch.Tensor]]:
+    """Layer ``i``'s weights for each of ``layout``'s model shards at data
+    coordinate ``d``: shard ``m``'s blocks of the split leaves, contiguous
+    views of its card's tree, dequantized on int8 weights; the leaves kept
+    whole go to shard 0 alone, whose coordinate reduces the shards'
+    outputs and computes what does not split."""
     dtype = torch_dtype(cfg.dtype)
     out: list[dict[str, torch.Tensor]] = [{} for _ in range(layout.model)]
-    for name, leaf in params["layers"].items():
-        if name in layout.sharded:
-            for m, w in enumerate(out):
+    for m, w in enumerate(out):
+        for name, leaf in tree_at(params, layout, (d, m))["layers"].items():
+            if name in layout.sharded or m == 0:
                 w[name] = _shard(leaf, name, layout, m, i, dtype)
-        else:
-            whole = _shard(leaf, name, layout, 0, i, dtype)
-            for w in out:
-                w[name] = whole
     return out
 
 
 def whole_embed(params: Params, layout) -> Any:
     """The [V, D] embedding (or its int8 leaf) of a tree laid out for
     ``layout``: its vocabulary shards are consecutive rows, so this is a
-    view."""
-    e = params["embed"]
-    if layout is None or "embed" not in layout.sharded:
+    view on a virtual mesh; on several devices, the shards of data
+    coordinate 0 copied to the control device and joined there."""
+    if layout is None:
+        return params["embed"]
+    e = tree_at(params, layout, (0, 0))["embed"]
+    if "embed" not in layout.sharded:
         return e
+    if len(trees(params, layout)) == 1:
+        return {k: v.flatten(0, 1) for k, v in e.items()} if _is_qleaf(e) else e.flatten(0, 1)
+    blocks = [_shard(tree_at(params, layout, (0, m))["embed"], "embed", layout, m) for m in range(layout.model)]
     if _is_qleaf(e):
-        return {k: v.flatten(0, 1) for k, v in e.items()}
-    return e.flatten(0, 1)
+        return {k: torch.cat([b[k].to(layout.control) for b in blocks]) for k in e}
+    return torch.cat([b.to(layout.control) for b in blocks])
 
 
-def _vocab_shards(params: Params, layout):
-    """(start, stop, block) of each distinct vocabulary shard of the
-    embedding."""
-    e = params["embed"]
+def _vocab_shards(params: Params, layout, d: int):
+    """(model coordinate, start, stop, block) of each distinct vocabulary
+    shard of the embedding at data coordinate ``d``."""
     if layout.n_vocab == 1:
-        return [(0, layout.cfg.vocab_size, e)]
-    return [(v0, v1, _shard(e, "embed", layout, m)) for m, (v0, v1) in enumerate(layout.vocab)]
+        return [(0, 0, layout.cfg.vocab_size, tree_at(params, layout, (d, 0))["embed"])]
+    return [(m, v0, v1, _shard(tree_at(params, layout, (d, m))["embed"], "embed", layout, m))
+            for m, (v0, v1) in enumerate(layout.vocab)]
 
 
-def embed_tokens_sharded(params: Params, tokens: torch.Tensor, cfg: GemmaConfig, layout) -> torch.Tensor:
-    """``embed_tokens`` with the table split over the vocabulary: each token's
-    row comes from the shard that holds it (a select, so exact)."""
+def embed_tokens_sharded(params: Params, cfg: GemmaConfig, layout, d: int, inp) -> torch.Tensor:
+    """``embed_tokens`` of row block ``d`` (``inp``: its ``transfer.
+    Inputs``) with the table split over the vocabulary: each vocabulary
+    shard gathers the rows it holds, and each token's row is selected from
+    the shard that holds it at the reducing coordinate ``(d, 0)`` (exact)."""
     dtype = torch_dtype(cfg.dtype)
+    red = (d, 0)
     x = None
-    for v0, v1, block in _vocab_shards(params, layout):
-        rows = embed_lookup(block, (tokens.long() - v0).clamp(0, v1 - v0 - 1), dtype)
-        held = ((tokens >= v0) & (tokens < v1))[..., None]
-        x = rows if x is None else torch.where(held, rows, x)
+    for m, v0, v1, block in _vocab_shards(params, layout, d):
+        toks = inp.at((d, m))["tokens"]
+        rows = send(embed_lookup(block, (toks.long() - v0).clamp(0, v1 - v0 - 1), dtype), (d, m), red, layout)
+        if x is None:
+            x = rows
+        else:
+            held = inp.at(red)["tokens"]
+            x = torch.where(((held >= v0) & (held < v1))[..., None], rows, x)
     return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
 
 
-def unembed_sharded(x: torch.Tensor, params: Params, layout, subset: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``quant.unembed`` by vocabulary shard: each shard's [.., V/M] logits,
-    joined in vocabulary order; with ``subset`` [C], each shard's logits of
-    the subset columns it holds, selected into [.., C]."""
-    shards = _vocab_shards(params, layout)
-    if subset is None:
-        parts = [unembed(x, block) for _, _, block in shards]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+def unembed_sharded(x: torch.Tensor, params: Params, layout, d: int, inp, subset: bool = False) -> torch.Tensor:
+    """``quant.unembed`` of row block ``d``'s final activations ``x`` (at
+    ``(d, 0)``) by vocabulary shard, on the control card: each shard's
+    [.., V/M] logits joined in vocabulary order; with ``subset`` (``inp``'s
+    ``cols`` [C] token ids), each shard's logits of the subset columns it
+    holds, selected into [.., C]."""
+    red, ctrl = (d, 0), (0, 0)
+    parts = []
+    for m, v0, v1, block in _vocab_shards(params, layout, d):
+        xm = send(x, red, (d, m), layout)
+        cols = (inp.at((d, m))["cols"].long() - v0).clamp(0, v1 - v0 - 1) if subset else None
+        parts.append(((d, m), v0, v1, unembed(xm, block, subset=cols)))
+    if not subset:
+        return join([(c, p) for c, _, _, p in parts], ctrl, layout)
     out = None
-    for v0, v1, block in shards:
-        part = unembed(x, block, subset=(subset.long() - v0).clamp(0, v1 - v0 - 1))
-        held = (subset >= v0) & (subset < v1)
-        out = part if out is None else torch.where(held, part, out)
+    for c, v0, v1, p in parts:
+        p = send(p, c, ctrl, layout)
+        if out is None:
+            out = p
+        else:
+            cols = inp.at(ctrl)["cols"]
+            out = torch.where((cols >= v0) & (cols < v1), p, out)
     return out
 
 
-def _psum(parts: list[torch.Tensor]) -> torch.Tensor:
-    """The model shards' partial outputs summed in shard order, in fp32 for
-    a lower-precision model (one shard's output as it is)."""
-    if len(parts) == 1:
-        return parts[0]
-    acc = parts[0].float()
-    for p in parts[1:]:
-        acc = acc + p.float()
-    return acc.to(parts[0].dtype)
-
-
 def sharded_layer(
-    x: torch.Tensor, ws: list[dict[str, torch.Tensor]], cfg: GemmaConfig, positions: torch.Tensor, layout,
-    write_kv, attend,
+    x: torch.Tensor, ws: list[dict[str, torch.Tensor]], cfg: GemmaConfig, layout, d: int, inp, write_kv, attend,
 ) -> torch.Tensor:
-    """One decoder layer over [B, T, D] as ``layout``'s model shards compute
-    it, ``ws`` their weights (``shard_layer_weights``). ``write_kv(a, k, v)``
-    stores roped keys and values [B, T, K', hd] of attention shard ``a``
-    (None: every KV head, projected once where they do not split);
+    """One decoder layer of row block ``d`` over [B, T, D] as ``layout``'s
+    model shards compute it, ``ws`` their weights (``shard_layer_weights``).
+    ``x`` lives at the reducing coordinate ``(d, 0)``, which norms it, sends
+    the normed activations to each shard and sums their partial outputs
+    after ``wo`` and ``w_down`` in shard order. ``inp`` is the block's
+    ``transfer.Inputs`` (``positions`` at every coordinate).
+    ``write_kv(a, src, k, v)`` stores the roped keys and values [B, T, K',
+    hd] that attention shard ``a`` projected at ``src`` (None: every KV
+    head, projected once at ``(d, 0)`` where they do not split);
     ``attend(a, qg)`` returns shard ``a``'s attention [B, T, K', G', hd]."""
     B, T = x.shape[:2]
+    red = (d, 0)
     h = rms_norm(x, ws[0]["pre_attn_norm"], cfg.norm_eps)
+    sent = {red: h}
 
-    def kv(w):
-        k = apply_rope(torch.einsum("btd,dkh->btkh", h, w["wk"]), positions, cfg.rope_theta)
-        return k, torch.einsum("btd,dkh->btkh", h, w["wv"])
+    def h_at(c):
+        if c not in sent:
+            sent[c] = send(h, red, c, layout)
+        return sent[c]
+
+    def kv(w, c):
+        pos = inp.at(c)["positions"]
+        k = apply_rope(torch.einsum("btd,dkh->btkh", h_at(c), w["wk"]), pos, cfg.rope_theta)
+        return k, torch.einsum("btd,dkh->btkh", h_at(c), w["wv"])
 
     if not layout.kv_split:
-        write_kv(None, *kv(ws[0]))
+        write_kv(None, red, *kv(ws[0], red))
     parts = []
     for a, shard in enumerate(layout.attn):
-        w = ws[a]
-        q = apply_rope(torch.einsum("btd,dkh->btkh", h, w["wq"]), positions, cfg.rope_theta)
+        c, w = (d, a), ws[a]
+        q = apply_rope(torch.einsum("btd,dkh->btkh", h_at(c), w["wq"]), inp.at(c)["positions"], cfg.rope_theta)
         if layout.kv_split:
-            write_kv(a, *kv(w))
+            write_kv(a, c, *kv(w, c))
         qg = q.reshape(B, T, shard.kv[1] - shard.kv[0], shard.groups, cfg.head_dim).contiguous()
         attn = attend(a, qg).reshape(B, T, -1)
-        parts.append(torch.matmul(attn, w["wo"].reshape(-1, cfg.d_model)))
-    x = x + _psum(parts)
-    h = rms_norm(x, ws[0]["pre_mlp_norm"], cfg.norm_eps)
-    return x + _psum([mlp(h, ws[f]) for f in range(layout.n_ff)])
+        parts.append((c, torch.matmul(attn, w["wo"].reshape(-1, cfg.d_model))))
+    x = x + reduce(parts, red, layout)
+    h2 = rms_norm(x, ws[0]["pre_mlp_norm"], cfg.norm_eps)
+    parts = [((d, f), mlp(send(h2, red, (d, f), layout), ws[f])) for f in range(layout.n_ff)]
+    return x + reduce(parts, red, layout)
+
+
+def kv_at(kv: KVCache, layout, coord) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(k, v, first KV head) of the cache or pools coordinate ``coord``
+    writes and reads: its device's (``transfer.tree_at``)."""
+    card = layout.card(*coord)
+    t = trees(kv, layout)[card]
+    return t["k"], t["v"], layout.kv_range(card)[0]
 
 
 def _forward_sharded(params, cfg, tokens, positions, kv_cache, mask, attend_fn, logits_at, layout):
-    """``forward`` on ``layout``: each row block over ``data`` in turn, its
-    rows of the cache written through views."""
+    """``forward`` on ``layout``: each row block over ``data`` at its data
+    coordinate, its rows of each card's cache written through views and
+    mirrored to every data replica (``transfer.homes``); the logits joined
+    on the control card."""
+    count_forward()
     B, T = tokens.shape
     blocks = layout.rows(B)
     attend_fn = attend_fn or _attend
-    K = cfg.n_kv_heads
+    ctrl = (0, 0)
     outs = []
-    for r0, r1 in blocks:
+    for d, (r0, r1) in enumerate(blocks):
         rows = slice(r0, r1)
-        toks, pos = tokens[rows], positions[rows]
+        inp = Inputs(layout, ctrl, tokens=tokens[rows], positions=positions[rows],
+                     logits_at=None if logits_at is None else logits_at[rows])
         msk = mask if len(blocks) == 1 else mask[rows]
-        b_idx = torch.arange(r1 - r0, device=tokens.device)[:, None]
-        x = embed_tokens_sharded(params, toks, cfg, layout)
+        masks: dict = {}
+        x = embed_tokens_sharded(params, cfg, layout, d, inp)
         for i in range(cfg.n_layers):
-            ck, cv = kv_cache["k"][i, rows], kv_cache["v"][i, rows]
 
-            def write_kv(a, k, v, ck=ck, cv=cv, pos=pos, b_idx=b_idx):
-                k0, k1 = (0, K) if a is None else layout.attn[a].kv
-                ck[b_idx, pos, k0:k1] = k.to(ck.dtype)
-                cv[b_idx, pos, k0:k1] = v.to(cv.dtype)
+            def write_kv(a, src, k, v, i=i):
+                h0 = 0 if a is None else layout.attn[a].kv[0]
+                for dst, (k0, k1), fresh in homes(layout, a):
+                    kk = send(k[:, :, k0 - h0:k1 - h0], src, dst, layout)
+                    vv = send(v[:, :, k0 - h0:k1 - h0], src, dst, layout)
+                    pos = inp.derive(dst, "pos", lambda views: views["positions"].long())
+                    if fresh:
+                        ck, cv, base = kv_at(kv_cache, layout, dst)
+                        b_idx = inp.derive(dst, "b_idx", lambda _v: torch.arange(r1 - r0, device=pos.device)[:, None])
+                        ck[i, rows][b_idx, pos, k0 - base:k1 - base] = kk.to(ck.dtype)
+                        cv[i, rows][b_idx, pos, k0 - base:k1 - base] = vv.to(cv.dtype)
 
-            def attend(a, qg, ck=ck, cv=cv, msk=msk):
+            def attend(a, qg, i=i):
+                c = (d, a)
+                ck, cv, base = kv_at(kv_cache, layout, c)
                 k0, k1 = layout.attn[a].kv
-                return attend_fn(qg, ck[:, :, k0:k1], cv[:, :, k0:k1], msk)
+                if c not in masks:
+                    masks[c] = send(msk, ctrl, c, layout)
+                return attend_fn(qg, ck[i, rows][:, :, k0 - base:k1 - base], cv[i, rows][:, :, k0 - base:k1 - base],
+                                 masks[c])
 
-            x = sharded_layer(x, shard_layer_weights(params, layout, i, cfg), cfg, pos, layout, write_kv, attend)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = sharded_layer(x, shard_layer_weights(params, layout, i, cfg, d), cfg, layout, d, inp, write_kv,
+                              attend)
+        x = rms_norm(x, tree_at(params, layout, (d, 0))["final_norm"], cfg.norm_eps)
         if logits_at is not None:
-            x = x[torch.arange(r1 - r0, device=x.device), logits_at[rows].long()]
-        outs.append(unembed_sharded(x, params, layout))
+            x = x[torch.arange(r1 - r0, device=x.device), inp.at((d, 0))["logits_at"].long()]
+        outs.append(unembed_sharded(x, params, layout, d, inp))
     return (outs[0] if len(outs) == 1 else torch.cat(outs)), kv_cache
 
 
@@ -429,7 +488,7 @@ def prefill(
     with ``last_only``) and the filled cache. ``layout``: the sharded
     forward."""
     B, T = tokens.shape
-    S = kv_cache["k"].shape[2]
+    S = (kv_cache["k"] if layout is None else kv_at(kv_cache, layout, (0, 0))[0]).shape[2]
     dev = tokens.device
     positions = torch.arange(T, device=dev).expand(B, T)
     s = torch.arange(S, device=dev)

@@ -25,6 +25,7 @@ from mcpx_torch.core.errors import EngineError
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import Params, init_params, param_shapes, torch_dtype
 from mcpx_torch.models.gemma.quant import _is_qleaf, leaf_quantizer, quantize_params
+from mcpx_torch.parallel.transfer import OnCards
 
 
 def _tensor(arr: Any, bf16_bits: bool) -> torch.Tensor:
@@ -110,26 +111,65 @@ def load_or_init(
     ``cfg.dtype``, or random weights drawn from ``seed``. With
     ``quantize="int8"`` the checkpoint is quantized after it is loaded, and
     the random path quantizes each leaf as it is created, so its
-    full-precision tree never exists. ``mesh``: a virtual mesh of
-    ``device``, whose model shards' leaves are laid out by ``shard_major``
-    (the same weights, each shard's block a contiguous view); a mesh of
-    other devices raises (ROADMAP Queue A item 5c)."""
+    full-precision tree never exists. ``mesh``: its model shards' leaves
+    are laid out by ``shard_major`` (the same weights, each shard's block a
+    contiguous view); on a mesh of cards, whose first coordinate is
+    ``device``, the weights are made there and spread by ``on_cards``."""
     if quantize not in ("none", "int8"):
         raise EngineError(f"unknown quantize mode {quantize!r}")
+    layout = None
     if mesh is not None:
-        from mcpx_torch.parallel.mesh import is_virtual
+        from mcpx_torch.parallel.mesh import ServeLayout, canonical
 
-        if not is_virtual(mesh, device):
+        layout = ServeLayout(mesh, cfg)
+        if layout.control != canonical(device):
             raise EngineError(
-                f"load_or_init on {mesh}: weights are placed on a mesh of their own device ({device}) only; "
-                "sharding them over several cards is ROADMAP Queue A item 5c"
+                f"load_or_init on {mesh}: the mesh's first coordinate, {layout.control}, is not the device the "
+                f"weights are made on ({device})"
             )
     params, source = _load_or_init(cfg, checkpoint_path, device, seed, quantize)
-    if mesh is None:
+    if layout is None:
         return params, source
-    from mcpx_torch.parallel.mesh import ServeLayout
+    params = shard_major(params, layout)
+    return (on_cards(params, layout) if layout.cross else params), source
 
-    return shard_major(params, ServeLayout(mesh, cfg)), source
+
+def on_cards(params: Params, layout):
+    """A shard-major tree (``shard_major``) spread over ``layout``'s cards,
+    as a ``transfer.OnCards``: card ``(d, m)`` holds model shard ``m``'s
+    block of every split leaf (``[L, 1, *block]``; an int8 leaf's codes and
+    the scales it dequantizes with) and, for ``m == 0``, every leaf that is
+    not split, which only the reducing coordinate reads. Each block is a
+    copy, so the whole tree can go once this returns; the data replicas of
+    a shard hold equal copies."""
+    from mcpx_torch.models.gemma.quant import _CONTRACT_AXES
+
+    def copy(t: torch.Tensor, card) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype, device=card).copy_(t, non_blocking=True)
+
+    def block(t: torch.Tensor, m: int, stacked: bool) -> torch.Tensor:
+        return t[:, m:m + 1] if stacked else t[m:m + 1]
+
+    cards = {}
+    for (d, m), card in sorted(layout.coords().items()):
+        tree: Params = {"layers": {}}
+        nodes = [("embed", params["embed"], tree), ("final_norm", params["final_norm"], tree)]
+        nodes += [(name, leaf, tree["layers"]) for name, leaf in params["layers"].items()]
+        for name, leaf, node in nodes:
+            dim, stacked = layout.sharded.get(name), name != "embed"
+            if dim is None:
+                if m == 0:
+                    node[name] = ({k: copy(v, card) for k, v in leaf.items()} if _is_qleaf(leaf)
+                                  else copy(leaf, card))
+                continue
+            if _is_qleaf(leaf):
+                scale = leaf["scale"]
+                scale = scale if dim in _CONTRACT_AXES[name] else block(scale, m, stacked)
+                node[name] = {"int8": copy(block(leaf["int8"], m, stacked), card), "scale": copy(scale, card)}
+            else:
+                node[name] = copy(block(leaf, m, stacked), card)
+        cards[card] = tree
+    return OnCards(cards)
 
 
 def _shard_major_leaf(t: torch.Tensor, dim: int, n: int, stacked: bool) -> torch.Tensor:
@@ -191,8 +231,12 @@ def _load_or_init(cfg: GemmaConfig, checkpoint_path: str, device, seed: int, qua
 
 
 def n_bytes(params: Optional[Params]) -> int:
+    """The bytes of a tree's leaves (of every card's tree of a
+    ``transfer.OnCards``)."""
     if params is None:
         return 0
+    if isinstance(params, OnCards):
+        return sum(n_bytes(t) for t in params.trees.values())
     total = 0
     for v in params.values():
         total += n_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()

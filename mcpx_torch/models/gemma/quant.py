@@ -25,6 +25,8 @@ from typing import Any, Optional
 
 import torch
 
+from mcpx_torch.parallel.transfer import OnCards
+
 Params = dict[str, Any]
 
 # Contraction axes of each weight's serving product (model.py): scales
@@ -72,6 +74,10 @@ def _is_qleaf(node: Any) -> bool:
 
 
 def is_quantized(params: Params) -> bool:
+    """Whether the weights are int8 (any card's tree of a
+    ``transfer.OnCards``)."""
+    if isinstance(params, OnCards):
+        return any(is_quantized(t) for t in params.trees.values())
     return _is_qleaf(params.get("embed"))
 
 

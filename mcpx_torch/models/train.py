@@ -22,13 +22,16 @@ corpus (``models/corpus.py``), step for step as the reference does:
     on TF32 (``torch.backends.cuda.matmul.allow_tf32`` stays False);
   - no host sync a step: the losses stay device tensors, one is read back per
     ``log_every`` tick and the reported ones at the end;
-  - ``mesh`` (``parallel/mesh.py``) is data parallelism on a virtual mesh of
-    ``device``: each batch splits over ``batch_axes(mesh)`` by the
-    reference's per-axis divisibility rule, each shard's backward adds its
-    gradients into the parameters', and one clip and one AdamW step follow.
-    Each shard's loss divides by the *whole* batch's mask sum, so the sum of
-    the shards' losses and gradients is the unsharded step's. A mesh of other
-    devices is refused (ROADMAP Queue A item 5c).
+  - ``mesh`` (``parallel/mesh.py``) is data parallelism: each batch splits
+    over ``batch_axes(mesh)`` by the reference's per-axis divisibility rule,
+    and each shard runs its forward and backward on the device of its first
+    coordinate. On a virtual mesh of ``device`` the shards' backwards add
+    their gradients into the parameters' in turn; on a mesh of cards each
+    card holds a float32 replica of the parameters, its gradients are copied
+    to ``device`` and added there in replica order, and the replicas take
+    the stepped parameters back. One clip and one AdamW step follow, on
+    ``device``. Each shard's loss divides by the *whole* batch's mask sum,
+    so the sum of the shards' losses and gradients is the unsharded step's.
 
 Random init draws from the port's generator (``init_params``), not the
 reference's ``jax.random``; pass ``init`` to start both from one tree.
@@ -55,7 +58,8 @@ from mcpx_torch.device import resolve_device
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import Params, init_params, torch_dtype, train_forward
 from mcpx_torch.models.gemma.params import _tensor, load_npz  # noqa: F401  (load_npz reads save_npz's files)
-from mcpx_torch.parallel.mesh import batch_axes, indices_map, is_virtual
+from mcpx_torch.parallel.mesh import batch_axes, canonical, indices_map, serving_devices
+from mcpx_torch.parallel.transfer import copy_into, copy_to
 
 
 @dataclass
@@ -105,17 +109,24 @@ def _batch_shards(mesh, n_rows: int) -> list[slice]:
     mesh; else split over every batch axis of the mesh that still divides,
     outer first (the reference's per-axis rule), one block per distinct
     slice."""
+    return [rows for rows, _ in _shard_devices(mesh, n_rows)]
+
+
+def _shard_devices(mesh, n_rows: int) -> list[tuple[slice, Optional[torch.device]]]:
+    """``_batch_shards``' blocks in order, each with the device of the first
+    mesh coordinate that holds it (None without a mesh)."""
     if mesh is None:
-        return [slice(0, n_rows)]
+        return [(slice(0, n_rows), None)]
     axes: list[str] = []
     ways = 1
     for a in batch_axes(mesh):
         if n_rows % (ways * mesh.shape[a]) == 0:
             axes.append(a)
             ways *= mesh.shape[a]
-    blocks = {rows.indices(n_rows)[:2] for (rows,) in indices_map((n_rows,), (tuple(axes) if axes else None,),
-                                                                  mesh).values()}
-    return [slice(lo, hi) for lo, hi in sorted(blocks)]
+    blocks: dict[tuple[int, int], torch.device] = {}
+    for coord, (rows,) in indices_map((n_rows,), (tuple(axes) if axes else None,), mesh).items():
+        blocks.setdefault(rows.indices(n_rows)[:2], mesh.devices[coord])
+    return [(slice(lo, hi), blocks[(lo, hi)]) for lo, hi in sorted(blocks)]
 
 
 def _leaves(params: Params, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -155,15 +166,15 @@ def train(
     ``models.corpus.Corpus``; ``init`` warm-starts from existing params (a
     tree of tensors, cast to float32 on ``device``). ``mesh`` shards each
     batch over its data axes (data parallelism; the parameters and the
-    optimizer state stay on ``device``). Only a virtual mesh of ``device`` is
-    served; a mesh of other devices raises (ROADMAP Queue A item 5c)."""
+    optimizer state stay on ``device``, the mesh's first coordinate, and
+    each other card of the mesh holds a replica)."""
     tcfg = tcfg or TrainConfig()
     dev = resolve_device(device)
-    if mesh is not None and not is_virtual(mesh, dev):
-        raise EngineError(
-            f"train on {mesh}: data parallelism runs on a mesh of the training device ({dev}) only; "
-            "shards on several cards are ROADMAP Queue A item 5c"
-        )
+    if mesh is not None:
+        serving_devices(mesh)
+        if canonical(mesh.devices.flat[0]) != canonical(dev):
+            raise EngineError(f"train on {mesh}: the mesh's first coordinate, {mesh.devices.flat[0]}, is not the "
+                              f"training device ({dev})")
     cfg = dataclasses.replace(model_cfg, dtype="float32")
     rng = np.random.default_rng(tcfg.seed)
 
@@ -204,23 +215,47 @@ def train(
     first_loss = None
     tail_losses: "deque" = deque(maxlen=20)
     loss_log: list[tuple[int, float]] = []
-    shards = _batch_shards(mesh, B)
+    home = canonical(dev)
+    shards = [(rows, canonical(d or dev)) for rows, d in _shard_devices(mesh, B)]
+    # Each device the shards run on holds a float32 replica of the
+    # parameters: the training device's is ``params`` itself, each other
+    # card's a copy refreshed after every step.
+    replicas = {home: params}
+    for d in dict.fromkeys(d for _, d in shards):
+        if d != home:
+            replicas[d] = _map(params, lambda t, d=d: copy_to(t.detach(), d).requires_grad_(True))
     for step in range(tcfg.steps):
         take = takes_d[step]
         tk, sl, lm = tokens[take], seq_lens[take], loss_mask[take]
         denom = torch.clamp(lm[:, :-1].float().sum(), min=1.0)
-        opt.zero_grad(set_to_none=True)
+        for rep in replicas.values():
+            for _, t in _leaves(rep):
+                t.grad = None
         loss = None
-        for rows in shards:
-            part = _loss(params, cfg, tk[rows], sl[rows], lm[rows], denom)
-            part.backward()  # each shard's gradients add into the parameters'
-            part = part.detach()
+        for rows, d in shards:
+            # Each shard's backward adds its gradients into its replica's.
+            part = _loss(replicas[d], cfg, copy_to(tk[rows], d), copy_to(sl[rows], d), copy_to(lm[rows], d),
+                         copy_to(denom, d))
+            part.backward()
+            part = copy_to(part.detach(), home)
             loss = part if loss is None else loss + part
+        # The other replicas' gradients join the parameters' in replica
+        # order, as the backwards on one device accumulate them.
+        for rep in replicas.values():
+            if rep is not params:
+                for (_, t), (_, r) in zip(leaves, _leaves(rep)):
+                    g = copy_to(r.grad, home)
+                    t.grad = g if t.grad is None else t.grad + g
         _clip_by_global_norm([t.grad for _, t in leaves], tcfg.clip_norm)
         lr = sched(step)
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
+        with torch.no_grad():
+            for rep in replicas.values():
+                if rep is not params:
+                    for (_, t), (_, r) in zip(leaves, _leaves(rep)):
+                        copy_into(r, t)
         if first_loss is None:
             first_loss = loss
         tail_losses.append(loss)

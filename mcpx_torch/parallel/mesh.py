@@ -29,7 +29,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from mcpx_torch.core.errors import ConfigError
+from mcpx_torch.core.errors import ConfigError, EngineError
 from mcpx_torch.device import resolve_device
 from mcpx_torch.models.gemma.config import GemmaConfig
 
@@ -43,10 +43,12 @@ Spec = tuple  # per dimension: None, an axis name, or a tuple of axis names
 
 def canonical(device: "torch.device | str") -> torch.device:
     """``device`` with a CUDA index made explicit, so ``cuda`` and ``cuda:0``
-    compare equal."""
+    compare equal (and ``cpu:0`` as ``cpu``, the host's first device)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
+    if dev.type == "cpu" and dev.index == 0:
+        return torch.device("cpu")
     return dev
 
 
@@ -236,9 +238,30 @@ def shard_pytree(tree: Any, specs: Any, mesh: Mesh) -> Any:
     return place(tree, specs, mesh)
 
 
-def is_virtual(mesh: Mesh, device: "torch.device | str") -> bool:
-    """Every coordinate of ``mesh`` is ``device``."""
-    return mesh.distinct_devices() == [canonical(device)]
+def serving_devices(mesh: Mesh) -> list[torch.device]:
+    """The distinct devices of a mesh an entry point serves, in coordinate
+    order (``canonical``). A mesh is one device at every coordinate (a
+    virtual mesh, on one card or the CPU) or a distinct device at each:
+    CUDA cards, or indexed host devices ``cpu:0..n-1`` (as the reference's
+    tests' host devices; each copy between them is a real one). ``meta``
+    holds no data and a card that is not visible cannot hold any, so both
+    raise, naming the device."""
+    devices = list(dict.fromkeys(canonical(d) for d in mesh.devices.flat))
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for d in devices:
+        if d.type == "meta":
+            raise EngineError(f"{mesh}: device meta holds no data; a mesh's coordinates must be cards or the CPU")
+        if d.type == "cuda" and d.index >= visible:
+            raise EngineError(f"{mesh}: device {d} is not visible ({visible} CUDA device(s) visible)")
+    if len(devices) > 1:
+        if len({d.type for d in devices}) > 1:
+            raise EngineError(f"{mesh}: a mesh over several devices takes CUDA cards or host devices, not both")
+        if len(devices) != mesh.devices.size:
+            raise EngineError(
+                f"{mesh}: {len(devices)} devices at {mesh.devices.size} coordinates; a mesh is one device at "
+                "every coordinate or a distinct device at each"
+            )
+    return devices
 
 
 def _model_dim(spec: Spec) -> Optional[int]:
@@ -279,14 +302,35 @@ class ServeLayout:
         the ones its query heads belong to, as MQA keeps them whole);
         ``n_ff`` and ``n_vocab``: the distinct MLP and vocabulary shards;
       - ``rows(B)``: the distinct row blocks of a batch of ``B`` over
-        ``data`` (one block when ``B`` does not divide).
+        ``data`` (one block when ``B`` does not divide); block ``j`` runs at
+        data coordinate ``j``;
+      - ``card(d, m)``: the device of coordinate ``(d, m)`` (the first
+        coordinate of any other axis); ``cross``: whether the coordinates
+        are distinct devices, cards or host devices (``serving_devices``),
+        else every coordinate is the one device of a virtual mesh.
+        Coordinate ``(0, 0)`` is the control card: the engine's slab, page
+        tables and sampler live there.
 
-    On a virtual mesh every block is computed in turn on the one device."""
+    On a virtual mesh every block is computed in turn on the one device; on
+    cards each coordinate computes on its own (``parallel/transfer.py``)."""
 
     def __init__(self, mesh: Mesh, cfg: GemmaConfig, split_rows: bool = True) -> None:
         self.mesh, self.cfg, self.split_rows = mesh, cfg, split_rows
         self.data = mesh.shape.get(DATA_AXIS, 1)
         self.model = mesh.shape.get(MODEL_AXIS, 1)
+        self.devices = serving_devices(mesh)
+        self.cross = len(self.devices) > 1
+        at = [0] * len(mesh.axis_names)
+        self._cards: dict[tuple[int, int], torch.device] = {}
+        for d in range(self.data):
+            for m in range(self.model):
+                if DATA_AXIS in mesh.shape:
+                    at[mesh.axis_names.index(DATA_AXIS)] = d
+                if MODEL_AXIS in mesh.shape:
+                    at[mesh.axis_names.index(MODEL_AXIS)] = m
+                self._cards[(d, m)] = canonical(mesh.devices[tuple(at)])
+        self._local = {m: sorted({m2 for (_, m2), c in self._cards.items() if c == self._cards[(0, m)]}).index(m)
+                       for m in range(self.model)}
         specs = param_pspecs(cfg, mesh)
         L, D, H, K, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.heads = self._ranges((L, D, H, hd), specs["layers"]["wq"], 2)
@@ -320,6 +364,33 @@ class ServeLayout:
         for coord, idx in indices_map(shape, spec, self.mesh).items():
             out.setdefault(0 if pos is None else coord[pos], idx[dim].indices(shape[dim])[:2])
         return tuple(out[m] for m in range(self.model))
+
+    def card(self, d: int, m: int) -> torch.device:
+        """The device of coordinate ``(d, m)``."""
+        return self._cards[(d, m)]
+
+    def coords(self) -> dict[tuple[int, int], torch.device]:
+        """Each ``(data, model)`` coordinate's device."""
+        return dict(self._cards)
+
+    @property
+    def control(self) -> torch.device:
+        return self._cards[(0, 0)]
+
+    def local(self, m: int) -> int:
+        """Model shard ``m``'s index among the shards its device's tree holds
+        (``transfer.tree_at``): every shard on a virtual mesh's device, one
+        on each card (``params.on_cards``)."""
+        return self._local[m]
+
+    def kv_range(self, card: torch.device) -> Optional[tuple[int, int]]:
+        """The KV heads ``card``'s pools hold: the span of the attention
+        shards of its coordinates (every head on a virtual mesh), None when
+        it computes no attention."""
+        spans = [self.attn[m].kv for (d, m), c in self._cards.items() if c == card and m < len(self.attn)]
+        if not spans:
+            return None
+        return min(s[0] for s in spans), max(s[1] for s in spans)
 
     @property
     def trivial(self) -> bool:

@@ -7,8 +7,9 @@ process as the reference's ``shard_map`` is:
     global positions ``[i*Tl, (i+1)*Tl)``, its queries on its coordinate's
     device;
   - each shard keeps its queries resident and passes its K/V block on to the
-    next seq shard's device (``.to(device, non_blocking=True)``, the
-    reference's ``ppermute``); the last step makes no hop;
+    next seq shard's device (``transfer.copy_to``, a counted
+    ``.to(device, non_blocking=True)``, the reference's ``ppermute``); the
+    last step makes no hop;
   - softmax is accumulated online (running max and sum in float32), so no
     shard ever holds the full [T, T] scores;
   - causality and right padding come from *global* positions; no [B, T, S]
@@ -32,8 +33,9 @@ import torch
 
 from mcpx_torch.core.errors import ConfigError
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.model import KVCache, Params, forward, init_kv_cache
-from mcpx_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, _axis, indices_map
+from mcpx_torch.models.gemma.model import KVCache, Params, forward, init_kv_cache, kv_at
+from mcpx_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, _axis, canonical, indices_map
+from mcpx_torch.parallel.transfer import copy_to
 
 _NEG = -1e30
 
@@ -96,7 +98,7 @@ def _run_ring(bodies: list, devices: list) -> list:
                 out[i], done = stop.value, True
         if done:
             return out
-        incoming = [tuple(t.to(devices[i], non_blocking=True) for t in sent[i - 1]) for i in range(n)]
+        incoming = [tuple(copy_to(t, devices[i]) for t in sent[i - 1]) for i in range(n)]
 
 
 def ring_attention(q, k, v, seq_lens, mesh: Mesh) -> torch.Tensor:
@@ -126,17 +128,16 @@ def ring_attention(q, k, v, seq_lens, mesh: Mesh) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
     for ring in rings.values():
         coords = sorted(ring, key=lambda c: c[s_pos])
-        devices = [mesh.devices[c] for c in coords]
+        devices = [canonical(mesh.devices[c]) for c in coords]
         bodies = []
         for dev, c in zip(devices, coords):
             idx = ring[c]
             bodies.append(_ring_block_attend(
-                q[idx].to(dev, non_blocking=True), k[idx[:4]].to(dev, non_blocking=True),
-                v[idx[:4]].to(dev, non_blocking=True), seq_lens[idx[0]].to(dev, non_blocking=True),
-                idx=c[s_pos], n_shards=n, block_len=T // n,
+                copy_to(q[idx], dev), copy_to(k[idx[:4]], dev), copy_to(v[idx[:4]], dev),
+                copy_to(seq_lens[idx[0]], dev), idx=c[s_pos], n_shards=n, block_len=T // n,
             ))
         for c, res in zip(coords, _run_ring(bodies, devices)):
-            out[ring[c]] = res.to(v.dtype).to(q.device, non_blocking=True)
+            out[ring[c]] = copy_to(res.to(v.dtype), q.device)
     return out
 
 
@@ -158,10 +159,12 @@ def ring_prefill(
     ring run per model shard, each shard's heads through a ring of their
     own; the batch stays whole (the data coordinates are the seq axis)."""
     B, T = tokens.shape
+    layout = None if layout is None else layout.model_only()
     if kv_cache is None:
-        kv_cache = init_kv_cache(cfg, B, T, device=tokens.device, dtype=cfg.dtype)
-    if kv_cache["k"].shape[2] != T:
-        raise ConfigError(f"ring_prefill requires cache length == T ({kv_cache['k'].shape[2]} != {T})")
+        kv_cache = init_kv_cache(cfg, B, T, device=tokens.device, dtype=cfg.dtype, layout=layout)
+    width = (kv_cache["k"] if layout is None else kv_at(kv_cache, layout, (0, 0))[0]).shape[2]
+    if width != T:
+        raise ConfigError(f"ring_prefill requires cache length == T ({width} != {T})")
     dev = tokens.device
     positions = torch.arange(T, device=dev).expand(B, T)
     lens = seq_lens.to(dev)
@@ -174,6 +177,6 @@ def ring_prefill(
     return forward(
         params, cfg, tokens, positions, kv_cache, placeholder, attend,
         logits_at=(lens - 1) if last_only else None,
-        layout=None if layout is None else layout.model_only(),
+        layout=layout,
     )
 

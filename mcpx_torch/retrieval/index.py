@@ -19,8 +19,9 @@ Under a mesh (``parallel/mesh.py``) the device table's rows are split over
 the ``model`` axis when they divide, as the reference shards them: each row
 shard is ranked on its own, and the shards' candidates are merged on the
 host by (-score, row), so the shortlist equals the unmeshed one's, ties
-lowest row first. Only a virtual mesh of the index's device is served; a
-mesh of other devices is refused (ROADMAP Queue A item 5c).
+lowest row first. On a mesh of cards each row shard lives on the card of
+its first coordinate and is ranked there, on a stream of the index's own
+on that card.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 from mcpx_torch.core.config import RetrievalConfig
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.device import resolve_device
-from mcpx_torch.parallel.mesh import MODEL_AXIS, indices_map, is_virtual
+from mcpx_torch.parallel.mesh import MODEL_AXIS, canonical, indices_map, serving_devices
 from mcpx_torch.registry.base import RegistryBackend
 from mcpx_torch.retrieval.embed import HashedNGramEmbedder
 
@@ -68,24 +69,24 @@ class RetrievalIndex:
         resolved device; the factory passes it). ``None`` is CUDA, as for
         every entry point of the port; it is only touched when ``compute``
         puts the table on the device. ``mesh``: the table's rows split over
-        its ``model`` axis where they divide; only a virtual mesh of
-        ``device`` is served (a mesh of other devices raises, ROADMAP Queue A
-        item 5c)."""
+        its ``model`` axis where they divide, each row shard on its
+        coordinate's device: a virtual mesh of ``device``, or distinct cards
+        whose first coordinate is ``device``."""
         self.config = config or RetrievalConfig()
         self.embedder = embedder or HashedNGramEmbedder(self.config.embed_dim)
         self.device = torch.device("cuda" if device is None else device)
-        if mesh is not None and not is_virtual(mesh, self.device):
-            raise EngineError(
-                f"RetrievalIndex on {mesh}: row shards live on the index's own device ({self.device}) only; "
-                "shards on several cards are ROADMAP Queue A item 5c"
-            )
+        if mesh is not None:
+            serving_devices(mesh)
+            if canonical(mesh.devices.flat[0]) != canonical(self.device):
+                raise EngineError(f"RetrievalIndex on {mesh}: the mesh's first coordinate, {mesh.devices.flat[0]}, "
+                                  f"is not the index's device ({self.device})")
         self._mesh = mesh
         self._lock = asyncio.Lock()
         self._names: list[str] = []
         # [N, d] float32 on the device, or its RowShards under a mesh.
         self._table: "Optional[torch.Tensor | RowShards]" = None
         self._table_np: Optional[np.ndarray] = None  # [N, d] host mirror
-        self._stream: "Optional[torch.cuda.Stream]" = None  # the index's own, on CUDA
+        self._streams: dict[torch.device, "torch.cuda.Stream"] = {}  # the index's own, one a card
         self._version: int = -1
         # Coverage-greedy shortlist support (see ``shortlist``): per-record
         # word sets and an inverted word -> row-ids index over schema text.
@@ -139,34 +140,49 @@ class RetrievalIndex:
             return False
         return n_rows >= self.config.device_threshold
 
-    def _copy(self, host: torch.Tensor) -> torch.Tensor:
-        """``host`` copied to the index's device; on CUDA on the index's
-        stream, which the copy finishes on before this returns."""
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._stream):
-            placed = host.pin_memory().to(self.device, non_blocking=True)
-        self._stream.synchronize()
+    @property
+    def _stream(self) -> "Optional[torch.cuda.Stream]":
+        """The index's own stream on its device, once a table was placed there."""
+        return self._streams.get(canonical(self.device))
+
+    def _stream_of(self, device: torch.device) -> "torch.cuda.Stream":
+        device = canonical(device)
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
+
+    def _copy(self, host: torch.Tensor, device: Optional[torch.device] = None) -> torch.Tensor:
+        """``host`` copied to ``device`` (the index's by default); on CUDA on
+        the index's stream there, which the copy finishes on before this
+        returns."""
+        device = self.device if device is None else device
+        if device.type != "cuda":
+            return host.to(device)
+        stream = self._stream_of(device)
+        with torch.cuda.stream(stream):
+            placed = host.pin_memory().to(device, non_blocking=True)
+        stream.synchronize()
         return placed
 
     def _place(self, table: np.ndarray) -> "torch.Tensor | RowShards":
         """The table as float32 on the index's device, copied once per
         refresh. Under a mesh its rows split over ``model`` when they
         divide (the reference's ``P(model, None)``), one part per distinct
-        row block. A device without a card raises here."""
+        row block, on the device of its first coordinate. A device without a
+        card raises here."""
         resolve_device(self.device)
         host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
         if self._mesh is None:
             return self._copy(host)
         m = self._mesh.shape.get(MODEL_AXIS, 1)
         spec = (MODEL_AXIS if m > 1 and table.shape[0] % m == 0 else None, None)
-        blocks = sorted({idx[0].indices(table.shape[0])[:2] for idx in indices_map(table.shape, spec,
-                                                                                    self._mesh).values()})
+        blocks: dict[tuple[int, int], torch.device] = {}
+        for coord, idx in indices_map(table.shape, spec, self._mesh).items():
+            blocks.setdefault(idx[0].indices(table.shape[0])[:2], self._mesh.devices[coord])
         if len(blocks) == 1:
             return self._copy(host)
-        return RowShards([lo for lo, _ in blocks], [self._copy(host[lo:hi]) for lo, hi in blocks])
+        return RowShards([lo for lo, _ in sorted(blocks)], [self._copy(host[lo:hi], blocks[(lo, hi)])
+                                                           for lo, hi in sorted(blocks)])
 
     # ---------------------------------------------------------------- query
     async def shortlist(self, intent: str, k: int) -> list[str]:
@@ -240,7 +256,7 @@ class RetrievalIndex:
             merged.sort()
             return [-s for s, _ in merged[:k]], [i for _, i in merged[:k]]
         cuda = table.device.type == "cuda"
-        stream = self._stream
+        stream = self._stream_of(table.device) if cuda else None
         take = min(k + 1, table.shape[0])
         with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
             scores = torch.mv(table, torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(table.device))

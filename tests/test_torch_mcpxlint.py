@@ -951,7 +951,7 @@ def test_engine_ownership_annotations_are_live():
     assert proj.index.classes["mcpx_torch.engine.engine._Slab"].owner == "engine-worker"
     assert proj.index.functions["mcpx_torch.engine.kv_cache.PageAllocator.free"].owner == "engine-worker"
     pa = "mcpx_torch.engine.kernels.paged_attention"
-    assert {name for (mod, name) in own.guarded if mod == pa} == {"LAUNCHES", "CAPTURED", "_TICKETS", "_HELD"}
+    assert {name for (mod, name) in own.guarded if mod == pa} == {"LAUNCHES", "CAPTURED", "BY_CARD", "_TICKETS", "_HELD"}
     assert own.guarded[("mcpx_torch.engine.engine", "_SPARE_STREAMS")][0] == "DEVICE_LOCK"
 
 

@@ -197,8 +197,9 @@ def test_shard_pytree_places_blocks_over_distinct_devices():
 def test_weights_on_another_device_are_refused():
     cfg = GemmaConfig(vocab_size=384, d_model=64, n_layers=1, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64,
                       dtype="float32")
-    for devices in (["cpu", "meta"], [torch.device("cuda", 1)] * 2):
-        with pytest.raises(EngineError, match="item 5c"):
+    for devices, named in ((["cpu", "meta"], "device meta holds no data"),
+                           ([torch.device("cuda", 1)] * 2, "device cuda:1 is not visible")):
+        with pytest.raises(EngineError, match=named):
             load_or_init(cfg, seed=0, device="cpu", mesh=tmesh.make_mesh(model=2, devices=devices))
 
 

@@ -177,7 +177,7 @@ def test_a_mesh_of_another_device_is_refused(sharded):
     from mcpx_torch.parallel.mesh import make_mesh
 
     cls = ShardedRetrievalIndex if sharded else RetrievalIndex
-    with pytest.raises(EngineError, match="item 5c"):
+    with pytest.raises(EngineError, match="device meta holds no data"):
         cls(RetrievalConfig(compute="device"), device="cpu", mesh=make_mesh(model=2, devices=["cpu", "meta"]))
 
 

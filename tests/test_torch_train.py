@@ -285,10 +285,10 @@ def test_hybrid_mesh_trains_as_a_flat_one(corpora, shared_init, batch):
 
 @pytest.mark.parametrize("devices", [["cpu", "meta"], ["meta", "meta"]], ids=["meta_beside", "meta_only"])
 def test_a_mesh_of_another_device_is_refused(corpora, devices):
-    """Data parallelism runs on a virtual mesh of the training device only:
-    a mesh naming another device raises before any step."""
+    """A mesh naming ``meta``, which holds no data, raises before any
+    step."""
     from mcpx_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(EngineError, match="item 5c"):
+    with pytest.raises(EngineError, match="device meta holds no data"):
         train(GemmaConfig.named("test", vocab_size=V), corpora[0], TrainConfig(steps=1, batch_size=2),
               device="cpu", mesh=make_mesh(data=2, devices=devices))
