@@ -221,9 +221,21 @@ Phases, one line each (every number beside the card's name and power limit):
      ring held against the dense route (``cross_ring_serve_data2_test``);
      phase 20's table in row shards on two cards (``retrieval_mesh_cards``);
      the ring on ``seq=4`` cards against dense (``cross_ring``); phase 23's
-     parity training on ``data=2`` cards (``train_dp_cards``). Its serving
-     launches count in the kernels line; its plans/s are first numbers,
-     with nothing to compare them with;
+     parity training on ``data=2`` cards (``train_dp_cards``); the KV tier
+     on cards (``cross_tier_*``): phase 14's tiered stream (3 rounds, batch
+     4, 16-token pages, a cap of 512 resident tokens, float32) at test (64
+     prompts) on ``data=2``, ``model=2`` and 2 x 2 and at 2b (full width
+     and depth, 16 prompts) on 2 x 2, each against the unmeshed tiered
+     engine: tokens and
+     tier counters equal, the token hit rate, the tier's copies by card
+     (``transfer.counts()``), and a warm restart from the meshed engine's
+     snapshot into an unmeshed engine and into a meshed one with equal
+     prefill ratios; and the tier's copies held bit for bit on cards
+     (``cross_tier_roundtrip_2b_data2``, and the 7b preset's widths at 2
+     layers on ``model=4``: every card's pages and the kernel over them
+     against the clone, and against the plain version within ATOL/RTOL).
+     Its serving launches count in the kernels line; its plans/s are first
+     numbers, with nothing to compare them with;
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -2672,6 +2684,14 @@ def tier_batch(seed: int, kind: str, G: int, hd: int, L: int, psz: int, pmax: in
     return q, kp, vp, table, as_i32(starts), as_i32(q_lens)
 
 
+class RunNode:
+    """A tree node's stand-in for the tier's copies held alone: ``n_tokens``
+    tokens, spilled to ``host``."""
+
+    def __init__(self, n_tokens: int):
+        self.tokens, self.tenant, self.host = tuple(range(n_tokens)), "default", None
+
+
 def tier_roundtrip(size: str, card: str, run_pages=(4, 7, 8)) -> dict:
     """The tier's two copies held against the truth, bit for bit, at the
     tier geometry and ``size``'s full width, through the engine's own copy
@@ -2729,10 +2749,6 @@ def tier_roundtrip(size: str, card: str, run_pages=(4, 7, 8)) -> dict:
     with torch.cuda.graph(graph, stream=side):
         window()
 
-    class Node:
-        def __init__(self, n_tokens: int):
-            self.tokens, self.tenant, self.host = tuple(range(n_tokens)), "default", None
-
     def overwrite(pages_i):  # as the next prefill writes freed pages
         for k in ("k", "v"):
             pools[k].index_copy_(2, pages_i, torch.randn(
@@ -2748,7 +2764,7 @@ def tier_roundtrip(size: str, card: str, run_pages=(4, 7, 8)) -> dict:
     # launch (lazy module loading) and a new pinned block (cudaHostAlloc)
     # wait for the device, so a first spill would land before its poll.
     for n in run_pages:
-        node = Node(n * psz)
+        node = RunNode(n * psz)
         tier.begin_cycle()
         tier.spill(node, list(range(1, n + 1)))
         overwrite(torch.arange(1, n + 1, device="cuda"))
@@ -2765,7 +2781,7 @@ def tier_roundtrip(size: str, card: str, run_pages=(4, 7, 8)) -> dict:
             src_i, dst_i = torch.tensor(src, device="cuda"), torch.tensor(dst, device="cuda")
             settle()
             truth = [pools[k].index_select(2, src_i).clone() for k in ("k", "v")]
-            node = Node(n * psz)
+            node = RunNode(n * psz)
             tier.begin_cycle()
             torch.cuda._sleep(50_000_000)  # the gather waits behind this: in flight
             if not tier.spill(node, src):
@@ -5167,6 +5183,343 @@ def ring_on_cards(card: str, n: int, T: int = 4096, B: int = 2, K: int = 1, G: i
     return stats
 
 
+async def cross_tier(size: str, checkpoint: str, card: str, arms=(), *, n_prompts: int = 64, rounds: int = 3,
+                     device=None, devices=None) -> dict:
+    """``cross_tier_<size>``: phase 14's tiered stream (``tier_phase``'s
+    *tiered* mode at ``tier_config``'s geometry: ``n_prompts`` prompts one at
+    a time, ``rounds`` times, a resident cap of 512 tokens, float32) on the
+    unmeshed engine (``plain``) and on an engine on each mesh of ``arms``
+    (names of ``CROSS_MESHES``) over distinct cards, whose tier spills and
+    readmits through each card's pools (``parallel.transfer.gather_run``,
+    ``readmit_run``); each meshed engine's clean close writes a snapshot,
+    restored into an unmeshed engine and into one on the same mesh, each
+    serving the first prompt from it. Prints each arm's token hit rate, tier
+    counters, tier copies and bytes (``transfer.counts()``), launches by
+    card, windows and seconds, and each restore's prefill ratio (the cold
+    page-aligned first prompt's tokens over the warm request's prefill).
+    Fails unless each arm's tier counters equal the plain arm's, its tokens
+    equal them (at 2b a differing stream must be a float32 near-tie: the
+    plain engine's masked top-2 margin under ``TP_MARGIN``), it spilled and
+    readmitted with one tier copy counted on each card a copy read or wrote,
+    ran its windows eagerly, launched the kernel on every card (on the
+    card), both restores served the arm's first output from readmitted runs
+    with equal prefill, below the cold prompt's, and every host tier is
+    empty after ``aclose``. ``device`` and ``devices`` (``torch.device("cpu",
+    i)``) make a CPU rehearsal on host devices."""
+    import shutil
+    import tempfile
+
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, launches_by_card, reset_kernel_launches
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel import transfer
+    from mcpx_torch.parallel.mesh import make_mesh
+
+    t_phase = time.monotonic()
+    cuda = device is None
+    dev0 = torch.device("cuda", 0) if cuda else torch.device(device)
+    pool = devices or [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    model_cfg = dataclasses.replace(GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size), dtype="float32")
+    name = f"cross_tier_{size}"
+    snap_dir = tempfile.mkdtemp(prefix="mcpx-cross-tier-")
+
+    def mesh_of(arm: str):
+        shape = CROSS_MESHES[arm]
+        return make_mesh(**shape, devices=pool[:math.prod(shape.values())])
+
+    async def start(mesh, snapshot: str = ""):
+        cfg = tier_config(size, checkpoint, enabled=True, snapshot=snapshot)
+        engine = InferenceEngine(cfg, model_cfg=model_cfg, device=dev0, mesh=mesh)
+        await engine.start()
+        return engine
+
+    async def close(engine, where: str) -> None:
+        tier = engine._spill_tier
+        await engine.aclose()
+        if tier.host_bytes_used or tier.host_tokens or tier.pending_copies():
+            raise SystemExit(f"{name} {where}: the host tier is not empty after aclose: {tier.stats()}")
+
+    async def drive(engine, stream: list) -> list:
+        outs = []
+        for p in stream:
+            r = await engine.generate(p, max_new_tokens=2, constrained=False, temperature=0.0)
+            outs.append(r.token_ids)
+        await idle(engine)
+        return outs
+
+    async def run(engine, prompts: list) -> tuple[dict, list]:
+        c0, q0 = engine.prefix_cache_stats(), engine.queue_stats()
+        sync()
+        reset_kernel_launches()
+        transfer.reset_counts()
+        t0 = time.monotonic()
+        outs = [await drive(engine, prompts) for _ in range(rounds)]
+        sync()
+        wall = time.monotonic() - t0
+        launches, by_card, moved = kernel_launches(), launches_by_card(), transfer.counts()
+        c1, q1 = engine.prefix_cache_stats(), engine.queue_stats()
+        prefilled = q1["prefill_tokens"] - q0["prefill_tokens"]
+        matched = c1["matched_tokens"] - c0["matched_tokens"]
+        layout = engine._layout
+        reads = 1 if layout is None else len({layout.kv_range(layout.card(0, m)) for m in range(layout.model)} - {None})
+        line = dict(
+            model=size, dtype="float32", requests=len(prompts) * rounds, rounds=rounds, seconds=wall,
+            requests_per_s=len(prompts) * rounds / wall, token_hit_rate=matched / max(1, matched + prefilled),
+            prefill_tokens=prefilled, matched_tokens=matched, **{k: c1["tier"][k] for k in TIER_SPILL},
+            tier_copies=moved["tier_copies"], tier_bytes=moved["tier_bytes"], gather_cards=reads,
+            readmit_cards=1 if layout is None else len(layout.devices), launches=launches,
+            launches_by_card=by_card, eager_windows=q1["eager_windows"] - q0["eager_windows"],
+            captures=q1["captures"] - q0["captures"],
+        )
+        return line, outs
+
+    async def warm(mesh, snapshot: str, prompt: list) -> tuple[dict, list]:
+        engine = await start(mesh, snapshot)
+        try:
+            restored = engine.prefix_cache_stats()["spilled_nodes"]
+            q0 = engine.queue_stats()
+            sync()
+            reset_kernel_launches()
+            out = (await drive(engine, [prompt]))[0]
+            sync()
+            launched = kernel_launches()["ragged_paged_attention"]
+            prefill = engine.queue_stats()["prefill_tokens"] - q0["prefill_tokens"]
+            readmits = engine.prefix_cache_stats()["tier"]["readmits"]
+        finally:
+            await close(engine, "warm restart")
+        cold = (len(prompt) // 16) * 16
+        return dict(restored_runs=restored, readmits=readmits, warm_first_prefill_tokens=prefill,
+                    cold_first_prefill_tokens=cold, warm_restart_prefill_ratio=cold / prefill if prefill else None,
+                    launches=launched), out
+
+    lines: dict = {}
+    problems: list = []
+    try:
+        plain = await start(None)
+        try:
+            prompts = tier_prompts(plain.tokenizer, n_prompts)
+            lines["plain"], want = await run(plain, prompts)
+            for arm in arms:
+                snap = os.path.join(snap_dir, f"{arm}.snap")
+                engine = await start(mesh_of(arm), snap)
+                try:
+                    line, outs = await run(engine, prompts)
+                    cards = [str(d) for d in engine._mesh.distinct_devices()]
+                finally:
+                    await close(engine, arm)
+                differ = []
+                for r, (got_r, want_r) in enumerate(zip(outs, want)):
+                    for i, (a, b) in enumerate(zip(got_r, want_r)):
+                        if a != b:
+                            k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+                            differ.append({"round": r + 1, "prompt": i, "position": k, "margin": masked_margin(
+                                plain, prompts[i], {"constrained": False}, b, k)})
+                restores = {}
+                for where, m in (("plain", None), ("meshed", mesh_of(arm))):
+                    path = os.path.join(snap_dir, f"{arm}-{where}.snap")
+                    shutil.copy(snap, path)
+                    shutil.copy(snap + ".npz", path + ".npz")
+                    restores[where], first = await warm(m, path, prompts[0])
+                    restores[where]["first_equal"] = first == outs[0][0]
+                line.update(arm=arm, mesh=CROSS_MESHES[arm], cards=cards, streams_differing=differ,
+                            warm_restart=restores)
+                lines[arm] = line
+                counters = ("prefill_tokens", "matched_tokens") + TIER_SPILL
+                if any(line[k] != lines["plain"][k] for k in counters):
+                    problems.append(f"{arm}: tier counters {[(k, line[k], lines['plain'][k]) for k in counters]}")
+                if differ and (size == "test" or any(d["margin"] >= TP_MARGIN for d in differ)):
+                    problems.append(f"{arm}: token streams differ from the unmeshed engine's: {differ}")
+                if line["spills"] <= 0 or line["readmits"] <= 0:
+                    problems.append(f"{arm}: no spill or readmit")
+                if line["tier_copies"] != line["spills"] * line["gather_cards"] + line["readmits"] * line["readmit_cards"]:
+                    problems.append(f"{arm}: {line['tier_copies']} tier copies counted")
+                if line["captures"] or line["eager_windows"] <= 0:
+                    problems.append(f"{arm}: a mesh of cards captured a window or ran none eagerly")
+                if cuda and sorted(line["launches_by_card"]) != sorted(torch.device(c).index for c in cards):
+                    problems.append(f"{arm}: the kernel did not launch on every card: {line['launches_by_card']}")
+                p, m = restores["plain"], restores["meshed"]
+                if not (p["first_equal"] and m["first_equal"] and p["restored_runs"] > 0 and p["readmits"] > 0
+                        and m["readmits"] > 0 and p["warm_first_prefill_tokens"] == m["warm_first_prefill_tokens"]
+                        < p["cold_first_prefill_tokens"]):
+                    problems.append(f"{arm}: warm restarts {restores}")
+        finally:
+            await close(plain, "plain")
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    for arm, line in lines.items():
+        emit(f"{name}_{arm}", card, **line, cards_line=card_lines() if cuda else None)
+    out = dict(lines, launches=sum(lines[a]["launches"].get("ragged_paged_attention", 0) for a in lines),
+               seconds=time.monotonic() - t_phase)
+    emit(name, card, arms=list(arms), launches=out["launches"], seconds=out["seconds"],
+         token_hit_rate={a: lines[a]["token_hit_rate"] for a in lines},
+         warm_restart_prefill_ratio={a: {w: lines[a]["warm_restart"][w]["warm_restart_prefill_ratio"]
+                                         for w in ("plain", "meshed")} for a in arms})
+    if problems:
+        raise SystemExit(f"{name}: {problems}")
+    return out
+
+
+def cross_tier_roundtrip(card: str, size: str, shape: dict, *, n_layers: int = 0, run_pages=(4, 7, 8),
+                         name: str = "", devices=None) -> dict:
+    """``cross_tier_roundtrip_*``: ``tier_roundtrip``'s copies on a mesh of
+    ``shape`` over distinct cards, at ``size``'s widths (``n_layers`` to cut
+    depth) in bf16, through the engine's own copy functions on an unstarted
+    engine whose per-card pools are filled from a seed (each card its KV
+    heads of one pool pair, every data replica alike). For each run length:
+    a device sleep queued on every card, so the copies are in flight; the
+    run cloned (the truth), spilled, and overwritten at once on every card;
+    ``poll()`` until it lands (its longest call printed); the host run must
+    equal the clone; readmitted into other pages, every card's pages must
+    equal its heads of the clone, the pools' addresses kept; and on every
+    card ``ragged_paged_attention`` over a table naming the readmitted pages
+    must give exactly its output over the clone in a pool of its own, and
+    agree with the plain version there within ATOL/RTOL (the worst error
+    printed). These comparison launches do not count as
+    serving launches. ``devices`` (``torch.device("cpu", i)``) make a CPU
+    rehearsal on host devices, where the copies are ready at once and the
+    plain version stands for the kernel."""
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kernels.paged_attention import ragged_paged_attention, ragged_paged_attention_reference
+    from mcpx_torch.engine.kv_cache import init_paged_kv
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel.mesh import make_mesh, serve_layout
+    from mcpx_torch.parallel.transfer import pools_on
+
+    t0 = time.monotonic()
+    mesh_name = "_".join(f"{k}{v}" for k, v in shape.items())
+    name = name or f"cross_tier_roundtrip_{size}_{mesh_name}"
+    mc = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
+    mc = dataclasses.replace(mc, dtype="bfloat16", n_layers=n_layers or mc.n_layers)
+    devices = (devices or cards_of(shape))[:math.prod(shape.values())]
+    cuda = devices[0].type == "cuda"
+    dev0 = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    engine = InferenceEngine(tier_config(size, "", enabled=True), model_cfg=mc, device=dev0,
+                             mesh=make_mesh(**shape, devices=devices))
+    layout = engine._layout = serve_layout(engine._mesh, mc)
+    psz, pmax = engine.config.engine.kv_page_size, engine.config.engine.max_pages_per_seq
+    K, L, hd, G = mc.n_kv_heads, mc.n_layers, mc.head_dim, mc.n_heads // mc.n_kv_heads
+    n_pages = engine._allocator.n_pages
+    gen = torch.Generator(device=dev0)
+    gen.manual_seed(0)
+    whole = {k: torch.randn((K, L, n_pages, psz, hd), generator=gen, device=dev0).to(torch.bfloat16) for k in "kv"}
+    engine._paged_kv = init_paged_kv(mc, n_pages, psz, dev0, layout=layout)
+    homes = pools_on(engine._paged_kv, layout)
+    for _dev, (k0, k1), pool in homes:
+        for k in "kv":
+            pool[k].copy_(whole[k][k0:k1])
+    ptrs = {(str(dev), k): pool[k].data_ptr() for dev, _, pool in homes for k in "kv"}
+    tier = engine._spill_tier
+    tier.bind(engine._spill_gather, engine._spill_readmit, 2 * K * L * hd * 2)
+    S = 16
+
+    def overwrite(ids: dict) -> None:  # as the next prefill writes freed pages, on every card
+        for dev, (k0, k1), pool in homes:
+            for k in "kv":
+                pool[k].index_copy_(2, ids[dev], torch.randn((k1 - k0, L, len(ids[dev]), psz, hd), device=dev).to(
+                    torch.bfloat16))
+
+    def page_ids(pages: list[int]) -> dict:
+        # Made before a copy is held in flight: a tensor made from a list
+        # waits for its card's queue.
+        return {dev: torch.tensor(pages, device=dev) for dev, _, _ in homes}
+
+    def settle() -> None:
+        sync()
+        engine._prune_readmit_holds()
+
+    for n in run_pages:  # first-time calls (a kernel's loading, new pinned blocks) wait for the device
+        node = RunNode(n * psz)
+        tier.begin_cycle()
+        tier.spill(node, list(range(1, n + 1)))
+        overwrite(page_ids(list(range(1, n + 1))))
+        tier.drain()
+        tier.readmit(node, list(range(1, n + 1)))
+        settle()
+    rng = random.Random(0)
+    cases = []
+    for n in run_pages:
+        free = list(range(1, n_pages))
+        rng.shuffle(free)
+        src, dst = free[:n], free[n:2 * n]
+        settle()
+        src_ids, dst_ids = page_ids(src), page_ids(dst)
+        truth = {k: whole[k].index_select(2, src_ids[dev0]) for k in "kv"}
+        for dev, (k0, k1), pool in homes:  # the pools hold the truth at ``src`` on every card
+            for k in "kv":
+                pool[k].index_copy_(2, src_ids[dev], truth[k][k0:k1].to(dev))
+        settle()
+        node = RunNode(n * psz)
+        tier.begin_cycle()
+        for dev, _, _ in homes if cuda else ():
+            with torch.cuda.device(dev):
+                torch.cuda._sleep(50_000_000)  # the gather waits behind this: in flight
+        if not tier.spill(node, src):
+            raise SystemExit(f"{name}: spill refused")
+        overwrite(src_ids)
+        polls, worst_ms, in_flight = 0, 0.0, None
+        while not tier.readmit_usable(node):
+            t = time.perf_counter()
+            tier.poll()
+            worst_ms = max(worst_ms, (time.perf_counter() - t) * 1e3)
+            if in_flight is None:
+                in_flight = tier.pending_copies() == 1
+            polls += 1
+            time.sleep(0.001)
+        landed = all(torch.equal(getattr(node.host, k), truth[k].cpu()) for k in "kv")
+        pinned = node.host.k.is_pinned() and node.host.v.is_pinned() or not cuda
+        tier.begin_cycle()
+        if not tier.readmit(node, dst):
+            raise SystemExit(f"{name}: readmit refused")
+        by_card = {}
+        for dev, (k0, k1), pool in homes:
+            dst_i = dst_ids[dev]
+            pages_equal = all(torch.equal(pool[k].index_select(2, dst_i), truth[k][k0:k1].to(dev)) for k in "kv")
+            clone = {k: torch.zeros((k1 - k0, L, n + 1, psz, hd), dtype=torch.bfloat16, device=dev) for k in "kv"}
+            for k in "kv":
+                clone[k][:, :, 1:] = truth[k][k0:k1].to(dev)
+            live_t = torch.zeros((4, pmax), dtype=torch.int32, device=dev)
+            clone_t = torch.zeros_like(live_t)
+            live_t[:, :n] = dst_i.to(torch.int32)
+            clone_t[:, :n] = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+            end = n * psz
+            starts = torch.tensor([end - S, end - 1, end - 8, 0], dtype=torch.int32, device=dev)
+            q_lens = torch.tensor([S, 1, 8, 0], dtype=torch.int32, device=dev)
+            q = torch.randn((4, S, k1 - k0, G, hd), device=dev).to(torch.bfloat16)
+            kernel_equal, worst = True, 0.0
+            for layer in (0, L - 1):
+                got = ragged_paged_attention(q, pool["k"], pool["v"], live_t, starts, q_lens, layer)
+                on_clone = ragged_paged_attention(q, clone["k"], clone["v"], clone_t, starts, q_lens, layer)
+                ref = ragged_paged_attention_reference(q, pool["k"], pool["v"], live_t, starts, q_lens, layer)
+                kernel_equal = kernel_equal and bool(torch.equal(got, on_clone))
+                err = (got.float() - ref.float()).abs()
+                worst = max(worst, float(err.max()))
+                if bool((err > ATOL + RTOL * ref.float().abs()).any()):
+                    raise SystemExit(f"{name}: the kernel over {dev}'s readmitted pages leaves the plain version")
+            by_card[str(dev)] = dict(heads=[k0, k1], pages_equal=pages_equal, kernel_equal=kernel_equal,
+                                     max_abs_err=worst)
+        sync()
+        case = dict(pages=n, tokens=n * psz, in_flight_at_first_poll=in_flight, polls=polls, max_poll_ms=worst_ms,
+                    landed_equal=landed, pinned=pinned, by_card=by_card,
+                    pools_kept={(str(dev), k): pool[k].data_ptr() for dev, _, pool in homes for k in "kv"} == ptrs)
+        cases.append(case)
+        if not ((in_flight or not cuda) and landed and pinned and case["pools_kept"]
+                and all(c["pages_equal"] and c["kernel_equal"] for c in by_card.values())):
+            raise SystemExit(f"{name}: {case}")
+    if cuda:
+        check_tickets(name)
+    out = dict(model=size, n_layers=L, mesh=shape, K=K, hd=hd, page_size=psz, cases=cases, spills=tier.spills,
+               readmits=tier.readmits, host_bytes_after=tier.host_bytes_used,
+               max_poll_ms=max(c["max_poll_ms"] for c in cases),
+               max_abs_err=max(c["max_abs_err"] for case in cases for c in case["by_card"].values()),
+               seconds=time.monotonic() - t0, cards=card_lines() if cuda else None)
+    emit(name, card, **out)
+    if tier.host_bytes_used or tier.pending_copies():
+        raise SystemExit(f"{name}: host tier not empty: {tier.stats()}")
+    return out
+
+
 def cross_card_phase(card: str, need: int = 0, index=None, intents: list = (), *, n_test: int = 16,
                      n_big: int = 8, big: str = "2b", batch: int = 64) -> dict:
     """Phase 27, the cross-card half of the parallel package: with two or
@@ -5179,9 +5532,13 @@ def cross_card_phase(card: str, need: int = 0, index=None, intents: list = (), *
     on ``model=2``, ``cross_ring_serve_data2_test`` (the engine's ring
     prefill over its data cards viewed as a seq axis, held against its
     dense route), ``retrieval_mesh_cards`` on phase 20's table,
-    ``cross_ring`` and ``train_dp_cards``. With fewer cards than ``need`` it fails; with one
-    card it prints that it did not run and passes nothing. Returns each
-    line's stats, the phase's launches and wall seconds."""
+    ``cross_ring`` and ``train_dp_cards``; the KV tier on cards:
+    ``cross_tier_test`` on ``data=2``, ``model=2`` and 2 x 2,
+    ``cross_tier_<big>`` at full width and depth on 2 x 2, and
+    ``cross_tier_roundtrip_<big>_data2`` and (four cards)
+    ``cross_tier_roundtrip_7b_model4``. With fewer cards than ``need`` it
+    fails; with one card it prints that it did not run and passes nothing.
+    Returns each line's stats, the phase's launches and wall seconds."""
     n = torch.cuda.device_count()
     if n < need:
         raise SystemExit(f"cross_card: {n} card(s) visible, --cards asks for {need}")
@@ -5211,6 +5568,20 @@ def cross_card_phase(card: str, need: int = 0, index=None, intents: list = (), *
                                       devices=cards_of({"data": 2})))
     out["ring_serve"] = st
     launched += st["launches"].get("ragged_paged_attention", 0)
+    # The KV tier on cards: its serving launches count too.
+    tier_copies = 0
+    # At 2b on 2 x 2 an eager request costs about 1.1 s (PR 19), so its
+    # stream is cut to 16 prompts x 3 rounds (still 3.5 times the cap).
+    for size, checkpoint, arms, k in (("test", CKPT, ("data2", "model2", "data2_model2"), 64),
+                                      (big, "", ("data2_model2",), 16)):
+        st = asyncio.run(cross_tier(size, checkpoint, card, [a for a in arms if a in meshes], n_prompts=k))
+        out[f"tier_{size}"] = st
+        launched += st["launches"]
+        tier_copies += sum(st[a]["tier_copies"] for a in st if isinstance(st[a], dict))
+    out["tier_roundtrip_data2"] = cross_tier_roundtrip(card, big, dict(data=2))
+    if n >= 4:
+        out["tier_roundtrip_7b"] = cross_tier_roundtrip(card, "7b", dict(model=4), n_layers=2,
+                                                        name="cross_tier_roundtrip_7b_model4")
     if index is not None:
         from mcpx_torch.parallel.mesh import make_mesh
 
@@ -5224,7 +5595,7 @@ def cross_card_phase(card: str, need: int = 0, index=None, intents: list = (), *
     out["launches"] = launched
     out["wall_s"] = time.monotonic() - t0
     emit("cross_card", card, ran=True, cards_visible=n, meshes=list(meshes), wall_s=out["wall_s"],
-         launches=launched, cards=card_lines())
+         launches=launched, tier_copies=tier_copies, cards=card_lines())
     return out
 
 

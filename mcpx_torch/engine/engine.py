@@ -102,7 +102,12 @@ gather into a fresh device tensor, then a copy to the host completed by an
 event the worker polls, never waits on); a match against a spilled run
 copies it back into fresh pages in place, before the prefill that reads
 them. Both copies run on the worker's stream, so device order protects the
-pages, and neither rebinds a pool. A clean ``aclose`` writes the resident
+pages, and neither rebinds a pool. On a mesh of cards
+(``parallel.transfer.gather_run``/``readmit_run``) the gather reads each
+KV-head span from data coordinate 0's card into its slice of one host run
+in the unmeshed layout, and the readmit writes each span into every data
+replica of it, on each card's stream; a run lands once every card's copy
+has passed. A clean ``aclose`` writes the resident
 and spilled runs, the declared heads and the governor's weights to
 ``snapshot_path``; the next engine restores them as spilled nodes (or, when
 its weights differ, the declared heads as ids to rebuild on first use).
@@ -137,7 +142,7 @@ every data replica of its heads); on a virtual mesh every copy is the tensor
 itself. A forward so launches the kernel ``n_layers`` times per attention
 shard and row block. Captured windows key on the layout; on a mesh of cards
 the windows run eagerly (``queue_stats()["eager_windows"]``: a CUDA graph
-captures one card's stream), and the KV tier is refused. The cost registry
+captures one card's stream). The cost registry
 bills the whole mesh's work once (``forward_cost`` from the model's
 shapes), and the span rooflines' peaks count the mesh's distinct devices,
 not its coordinates: one card's on a virtual mesh.
@@ -198,7 +203,7 @@ from mcpx_torch.engine.speculative import advance_drafter_state, draft_window
 from mcpx_torch.engine.spill import HostSpillTier, SpillChaos, nbytes_of
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import init_kv_cache, prefill, torch_dtype, whole_embed
-from mcpx_torch.models.gemma.params import load_or_init
+from mcpx_torch.models.gemma.params import leaf_blocks, load_or_init
 from mcpx_torch.models.tokenizer import make_tokenizer
 from mcpx_torch.parallel.mesh import (
     DATA_AXIS,
@@ -211,7 +216,7 @@ from mcpx_torch.parallel.mesh import (
     serving_devices,
 )
 from mcpx_torch.parallel.ring_attention import ring_prefill
-from mcpx_torch.parallel.transfer import join_streams
+from mcpx_torch.parallel.transfer import gather_run, join_streams, pools_on, readmit_run
 from mcpx_torch.planner.grammar import (
     _DIST_INF,
     PlanGrammar,
@@ -867,8 +872,9 @@ class InferenceEngine:
         self._spill_seen = {  # mcpx: owner[engine-worker]
             "spills": 0, "readmits": 0, "destructive_evictions": 0, "host_evictions": 0, "denied_readmits": 0,
         }
-        # Readmits whose host-to-device copy may still read its pinned
-        # source: (event, source tensors), dropped once the event passes.
+        # Readmits whose host-to-device copies may still read their pinned
+        # source: (events, one for each card written; source tensors),
+        # dropped once every event passes.
         self._readmit_holds: "deque[tuple[Any, tuple]]" = deque()
         self._prefill_buckets = tuple(
             b
@@ -1479,11 +1485,6 @@ class InferenceEngine:
             self._mesh = make_mesh(data=data, model=model, devices=cards[:data * model])
         self._layout = serve_layout(self._mesh, self.model_cfg)
         self._eager_windows = self._layout is not None and self._layout.cross
-        if self._eager_windows and self._spill_tier is not None:
-            raise EngineError(
-                f"engine.kv_tier on {self._mesh}: the KV tier's copies and snapshots run on one card's pools; "
-                "on a mesh of several cards it is not served (ROADMAP Queue A item 5c)"
-            )
         self._params, source = load_or_init(
             self.model_cfg, self.config.model.checkpoint_path, device=self.device,
             quantize=self.config.model.quantize, mesh=self._mesh,
@@ -1546,7 +1547,7 @@ class InferenceEngine:
             # The tier's device copies, and its per-token KV footprint
             # (2 pools x K x L x hd x itemsize) for the spill decision.
             mc = self.model_cfg
-            kv_bytes_per_token = 2 * mc.n_kv_heads * mc.n_layers * mc.head_dim * self._paged_kv["k"].element_size()
+            kv_bytes_per_token = 2 * mc.n_kv_heads * mc.n_layers * mc.head_dim * self._kv_itemsize()
             self._spill_tier.bind(self._spill_gather, self._spill_readmit, kv_bytes_per_token)
             if ecfg.kv_tier.snapshot_path:
                 self._load_snapshot()
@@ -2119,67 +2120,56 @@ class InferenceEngine:
         return last
 
     # ------------------------------------------ tiered KV cache: page copies
+    def _kv_itemsize(self) -> int:
+        """Bytes of one element of the KV pools (every card's alike)."""
+        return pools_on(self._paged_kv, self._layout)[0][2]["k"].element_size()
+
     def _copy_cost(self, n_pages: int):
-        """The cost function of one tier copy of ``n_pages`` pages."""
-        psz, elt = self.config.engine.kv_page_size, self._paged_kv["k"].element_size()
+        """The cost function of one tier copy of ``n_pages`` pages: the
+        unmeshed run's bytes, billed once whatever the cards it touches."""
+        psz, elt = self.config.engine.kv_page_size, self._kv_itemsize()
         return lambda: spill_copy_cost(self.model_cfg, pages=n_pages, page_size=psz, elt_bytes=elt)
 
     @owned_by("engine-worker")
     def _spill_gather(self, pages: list[int]) -> tuple:
-        """The tier's gather: ``pages`` of both pools copied into a fresh
-        device tensor (the run as it is now: a later write to the freed
-        pages is ordered after this copy on the stream), then into pinned
-        host tensors without blocking, with an event recorded after that
-        copy. Returns (k, v, event, what the copy reads); on the CPU the
-        gathered tensors themselves, ready at once. Counted in ``costs`` as
-        ``spill_gather`` by the bytes it moves (eager: never a capture)."""
+        """The tier's gather (``parallel.transfer.gather_run``): ``pages`` of
+        both pools copied into a fresh device tensor on each card it reads
+        (the run as it is now: a later write to the freed pages is ordered
+        after this copy on that card's stream), then into the KV-head slices
+        of pinned host tensors without blocking, with an event recorded
+        after the copies on each card. Returns (k, v, events, what the
+        copies read); on the CPU the gathered tensors themselves, ready at
+        once. Counted in ``costs`` as ``spill_gather`` by the bytes it moves
+        (eager: never a capture)."""
         n = len(pages)
         self.costs.record("spill_gather", (n,), self._copy_cost(n))
-        idx = self._upload(np.asarray(pages, np.int64))
-        k_dev = self._paged_kv["k"].index_select(2, idx)
-        v_dev = self._paged_kv["v"].index_select(2, idx)
-        if self.device.type != "cuda":
-            return k_dev, v_dev, None, None
-        k_host = torch.empty(k_dev.shape, dtype=k_dev.dtype, pin_memory=True)
-        v_host = torch.empty(v_dev.shape, dtype=v_dev.dtype, pin_memory=True)
-        k_host.copy_(k_dev, non_blocking=True)
-        v_host.copy_(v_dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return k_host, v_host, event, (k_dev, v_dev, idx)
+        return gather_run(self._paged_kv, self._layout, pages)
 
     @owned_by("engine-worker")
     def _spill_readmit(self, k_host: torch.Tensor, v_host: torch.Tensor, pages: list[int]) -> None:
-        """The tier's readmit: a landed run copied to the device without
-        blocking, then into ``pages`` of the pools in place (a pool is never
-        rebound: captured windows read them at their addresses), ahead of
-        the prefill that reads them on the same stream. The pinned source
-        is held until an event after the copy has passed. The run must
-        cover exactly ``pages``: the reference pads both copies to a page
-        bucket whose pad lanes drop, the port copies the run as it is."""
+        """The tier's readmit (``parallel.transfer.readmit_run``): a landed
+        run copied without blocking to every card whose pools hold its heads
+        (each data replica), then into ``pages`` of the pools in place (a
+        pool is never rebound: captured windows read them at their
+        addresses), ahead of the prefill that reads them on each card's
+        stream. The pinned source is held until the event after the copies
+        on every card has passed. The run must cover exactly ``pages``: the
+        reference pads both copies to a page bucket whose pad lanes drop,
+        the port copies the run as it is."""
         n = len(pages)
         if k_host.shape[2] != n or v_host.shape != k_host.shape:
             raise EngineError(f"readmit of a {tuple(k_host.shape)} run into {n} pages")
         self.costs.record("spill_readmit", (n,), self._copy_cost(n))
-        idx = self._upload(np.asarray(pages, np.int64))
-        if self.device.type != "cuda":
-            self._paged_kv["k"].index_copy_(2, idx, k_host)
-            self._paged_kv["v"].index_copy_(2, idx, v_host)
-            return
         self._prune_readmit_holds()
-        k_dev = k_host.to(self.device, non_blocking=True)
-        v_dev = v_host.to(self.device, non_blocking=True)
-        self._paged_kv["k"].index_copy_(2, idx, k_dev)
-        self._paged_kv["v"].index_copy_(2, idx, v_dev)
-        event = torch.cuda.Event()
-        event.record()
-        self._readmit_holds.append((event, (k_host, v_host)))
+        events = readmit_run(self._paged_kv, self._layout, k_host, v_host, pages)
+        if events:
+            self._readmit_holds.append((events, (k_host, v_host)))
 
     def _prune_readmit_holds(self) -> None:
         """Release the pinned sources of readmits whose copies are done
         (an ``event.query()`` each, never a wait)."""
         holds = self._readmit_holds
-        while holds and holds[0][0].query():
+        while holds and all(e.query() for e in holds[0][0]):
             holds.popleft()
 
     # --------------------------------- tiered KV cache: warm-restart snapshot
@@ -2205,12 +2195,14 @@ class InferenceEngine:
         computed under: the position-weighted fp32 abs-sum over the leaves
         in ``jax.tree_util.tree_leaves`` order (sorted dict keys at every
         level), so the same weights give the same number in both packages
-        (within the restore's 1e-3 relative tolerance). Snapshot path
-        only."""
+        and on every layout (within the restore's 1e-3 relative tolerance):
+        each leaf is read exactly once, through the blocks that hold it on
+        a mesh of cards (``params.leaf_blocks``). Snapshot path only."""
         try:
             total = 0.0
-            for i, leaf in enumerate(_tree_leaves(self._params)):  # mcpx: ignore[thread-ownership] - worker thread (setup) or post-join teardown (aclose guard)
-                total += (i + 1.0) * float(leaf.abs().float().sum())
+            blocks = leaf_blocks(self._params, self._layout)  # mcpx: ignore[thread-ownership] - worker thread (setup) or post-join teardown (aclose guard)
+            for i, parts in enumerate(blocks):
+                total += (i + 1.0) * sum(float(b.abs().float().sum()) for b in parts)
             return total
         except Exception:  # no fingerprint: no KV restore
             log.debug("params fingerprint unavailable", exc_info=True)
@@ -2243,9 +2235,9 @@ class InferenceEngine:
                 if child.host is not None and child.host.ready:
                     k, v = child.host.k, child.host.v
                 elif child.pages:
-                    idx = torch.as_tensor(child.pages, dtype=torch.int64, device=self.device)
-                    k = self._paged_kv["k"].index_select(2, idx).cpu()  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); teardown read
-                    v = self._paged_kv["v"].index_select(2, idx).cpu()  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); teardown read
+                    k, v, events, _src = gather_run(self._paged_kv, self._layout, child.pages)  # mcpx: ignore[thread-ownership] - worker joined (aclose guard); teardown read
+                    for e in events:
+                        e.synchronize()
                 else:
                     continue
                 nbytes = nbytes_of(k) + nbytes_of(v)
@@ -3573,16 +3565,6 @@ def _resolve(future: "asyncio.Future", result: Any, error: Optional[BaseExceptio
         future.set_exception(error)
     else:
         future.set_result(result)
-
-
-def _tree_leaves(tree: Any) -> list:
-    """The leaves of a nested parameter tree in ``jax.tree_util.tree_leaves``
-    order: dict keys sorted, lists in order, None empty."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for x in tree for leaf in _tree_leaves(x)]
-    return [] if tree is None else [tree]
 
 
 def _raw_bytes(t: torch.Tensor) -> np.ndarray:

@@ -14,19 +14,22 @@ are written in place (and captured CUDA graphs read them at their
 addresses), where the reference's functional arrays give a snapshot for
 free:
 
-  - **Spill.** The engine's gather copies the run's pages out of the pools
-    into a fresh device tensor (the snapshot no later pool write can
-    touch), copies that into a pinned host tensor without blocking, and
-    records an event after the copy; the pages are freed at once, and any
-    later write to them is ordered after the gather on the worker's stream.
-    Until its event has passed a run keeps the pinned tensor, the device
-    gather and the event (``HostRun``); ``poll()`` completes it by
-    ``event.query()`` and never waits. ``drain()`` waits, at shutdown and
-    for the snapshot only.
-  - **Readmit.** The engine's readmit copies the pinned run to the device
-    and into freshly allocated pages in place (never rebinding a pool),
-    before the prefill that reads them; its own hold keeps the pinned
-    source referenced until an event after the copy has passed.
+  - **Spill.** The engine's gather (``parallel.transfer.gather_run``)
+    copies the run's pages out of the pools into a fresh device tensor (the
+    snapshot no later pool write can touch), copies that into a pinned host
+    tensor without blocking, and records an event after the copy on each
+    card it read (on a mesh of cards, data coordinate 0's card of each
+    KV-head span); the pages are freed at once, and any later write to them
+    is ordered after the gather on that card's stream. Until every event
+    has passed a run keeps the pinned tensor, the device gathers and the
+    events (``HostRun``); ``poll()`` completes it by ``event.query()`` and
+    never waits. ``drain()`` waits, at shutdown and for the snapshot only.
+  - **Readmit.** The engine's readmit (``parallel.transfer.readmit_run``)
+    copies the pinned run to each card whose pools hold its heads and into
+    freshly allocated pages in place (never rebinding a pool), before the
+    prefill that reads them; its own hold keeps the pinned source
+    referenced until an event after the copy on every such card has
+    passed.
   - **Bounds.** A pinned-host byte budget and a per-admission-cycle copy
     budget in tokens (both directions share it) cap what the tier moves;
     past them it degrades to destructive eviction, counted
@@ -39,7 +42,9 @@ free:
     ``random.Random(seed)`` in the reference's call order, so a seeded
     profile gives the reference's counts.
 
-On the CPU a run's handles are plain CPU tensors, ready at once (no event).
+A host run keeps the unmeshed layout whatever the mesh, so the budgets,
+the accounting and the snapshots do not depend on it. On the CPU a run's
+handles are plain CPU tensors, ready at once (no event).
 The tier itself imports neither torch nor numpy at module level: the
 engine binds the device copies, and the tests bind numpy stubs.
 """
@@ -118,10 +123,11 @@ class SpillChaos:
 class HostRun:
     """One spilled KV page run, ``[K, L, pages, page_size, hd]`` per pool.
     While the device-to-host copy is in flight ``ready`` is False, ``k``/``v``
-    are the pinned host tensors the copy is filling, ``event`` was recorded
-    after the copy and ``src`` holds the device gather it reads; ``poll()``
-    drops the last two once the event has passed. ``ready_at`` delays
-    usability past landing (chaos copy-latency spikes)."""
+    are the pinned host tensors the copy is filling, ``events`` were
+    recorded after the copy, one on each card it read, and ``src`` holds the
+    device gathers it reads; ``poll()`` drops the last two once every event
+    has passed. ``ready_at`` delays usability past landing (chaos
+    copy-latency spikes)."""
 
     k: Any
     v: Any
@@ -130,7 +136,7 @@ class HostRun:
     tenant: str
     ready: bool = False
     ready_at: float = 0.0
-    event: Any = None
+    events: tuple = ()
     src: Any = None
 
 
@@ -166,9 +172,10 @@ class HostSpillTier:
     flight, the budgets and the accounting. The device copies are bound by
     the engine through ``bind()``:
 
-      - ``gather(pages) -> (k, v, event, src)``: the run's host tensors, the
-        event after their copy (None when they are ready at once) and what
-        the copy reads (kept until the event passes);
+      - ``gather(pages) -> (k, v, events, src)``: the run's host tensors,
+        the events after their copy, one for each card it read (none when
+        they are ready at once), and what the copy reads (kept until every
+        event passes);
       - ``readmit(k, v, pages)``: copy a landed run into ``pages``.
     """
 
@@ -259,8 +266,8 @@ class HostSpillTier:
             self.chaos_alloc_failures += 1
             self.denied_spills += 1
             return False
-        k_h, v_h, event, src = self._gather(pages)
-        run = HostRun(k=k_h, v=v_h, n_tokens=n, nbytes=est, tenant=node.tenant, event=event, src=src)
+        k_h, v_h, events, src = self._gather(pages)
+        run = HostRun(k=k_h, v=v_h, n_tokens=n, nbytes=est, tenant=node.tenant, events=events, src=src)
         node.host = run
         self._pending.append((node, run))
         self.host_tokens += n
@@ -289,23 +296,23 @@ class HostSpillTier:
         true_bytes = nbytes_of(run.k) + nbytes_of(run.v)
         self.host_bytes_used += true_bytes - run.nbytes
         run.nbytes = true_bytes
-        run.event = None
+        run.events = ()
         run.src = None
         run.ready = True
 
     @owned_by("engine-worker")
     def poll(self) -> None:
-        """Complete the device-to-host copies whose events have passed (a
-        non-blocking ``query()`` each; worker, once per iteration, a no-op
-        when nothing is in flight). A chaos latency spike keeps a landed
-        run unusable until ``ready_at``."""
+        """Complete the device-to-host copies whose events have all passed
+        (a non-blocking ``query()`` each; worker, once per iteration, a
+        no-op when nothing is in flight). A chaos latency spike keeps a
+        landed run unusable until ``ready_at``."""
         if not self._pending:
             return
         still: list[tuple[Any, HostRun]] = []
         for node, run in self._pending:
             if node.host is not run:
                 continue  # dropped (host eviction or reset) while in flight
-            if run.event is not None and not run.event.query():
+            if not all(e.query() for e in run.events):
                 still.append((node, run))
                 continue
             self._land(run)
@@ -320,8 +327,8 @@ class HostSpillTier:
         for node, run in self._pending:
             if node.host is not run:
                 continue
-            if run.event is not None:
-                run.event.synchronize()
+            for e in run.events:
+                e.synchronize()
             self._land(run)
             run.ready_at = 0.0
         self._pending = []

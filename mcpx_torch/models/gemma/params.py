@@ -25,7 +25,7 @@ from mcpx_torch.core.errors import EngineError
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import Params, init_params, param_shapes, torch_dtype
 from mcpx_torch.models.gemma.quant import _is_qleaf, leaf_quantizer, quantize_params
-from mcpx_torch.parallel.transfer import OnCards
+from mcpx_torch.parallel.transfer import OnCards, tree_at
 
 
 def _tensor(arr: Any, bf16_bits: bool) -> torch.Tensor:
@@ -170,6 +170,49 @@ def on_cards(params: Params, layout):
                 node[name] = copy(block(leaf, m, stacked), card)
         cards[card] = tree
     return OnCards(cards)
+
+
+def _tree_leaves(tree: Any) -> list:
+    """The leaves of a nested parameter tree in ``jax.tree_util.tree_leaves``
+    order: dict keys sorted, lists in order, None empty."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in _tree_leaves(x)]
+    return [] if tree is None else [tree]
+
+
+def leaf_blocks(params: Any, layout) -> list[list[torch.Tensor]]:
+    """Every leaf of the weights in ``_tree_leaves`` order, each as the
+    tensors that hold its elements exactly once: the leaf itself in a plain
+    tree (unmeshed, or a virtual mesh's shard-major one), and on a mesh of
+    cards (``on_cards``) data coordinate 0's model shards' blocks of a split
+    leaf (an int8 leaf's codes, and its scales where they split too) and
+    shard 0's copy of one that is not split."""
+    from mcpx_torch.models.gemma.quant import _CONTRACT_AXES
+
+    if not isinstance(params, OnCards):
+        return [[leaf] for leaf in _tree_leaves(params)]
+    shards = [tree_at(params, layout, (0, m)) for m in range(layout.model)]
+    out: list[list[torch.Tensor]] = []
+
+    def walk(node: Any, path: tuple) -> None:
+        if isinstance(node, dict) and not _is_qleaf(node):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+            return
+        for sub in (("int8", "scale") if _is_qleaf(node) else (None,)):
+            dim = layout.sharded.get(path[-1])
+            split = dim is not None and not (sub == "scale" and dim in _CONTRACT_AXES[path[-1]])
+            blocks = []
+            for tree in (shards if split else shards[:1]):
+                for k in path + ((sub,) if sub else ()):
+                    tree = tree[k]
+                blocks.append(tree)
+            out.append(blocks)
+
+    walk(shards[0], ())
+    return out
 
 
 def _shard_major_leaf(t: torch.Tensor, dim: int, n: int, stacked: bool) -> torch.Tensor:

@@ -33,12 +33,20 @@ What crosses, per row block ``d`` of a forward (``models/gemma/model.py``,
 Outside the forward, ``copy_to`` moves a tensor between two devices: each
 hop of ring attention (``parallel/ring_attention.py``) and a training
 replica's batch rows, gradients and stepped parameters
-(``models/train.py``).
+(``models/train.py``). The KV tier's two copies (``engine/spill.py``) move a
+run of pages between the pools and host memory: ``gather_run`` reads each
+distinct KV-head span from data coordinate 0's card into its slice of one
+host run, ``readmit_run`` writes each span's slice into every card whose
+pools hold those heads. The host run keeps the unmeshed layout ``[K, L, n,
+page_size, head_dim]``, so host budgets and snapshots do not depend on the
+mesh; unmeshed and on a virtual mesh each copy is the one pool pair's.
 
 Counts: every move between two distinct coordinates of a forward counts one
 transfer of the tensor's bytes, whether or not their devices differ, so a
 virtual mesh counts what the same mesh of cards copies; ``copy_to`` counts
-the copies it makes. ``counts()`` also holds the sharded forwards run; a
+the copies it makes. ``counts()`` also holds the sharded forwards run, and
+the tier's copies on their own keys (``tier_copies``: one for each device a
+copy reads or writes; ``tier_bytes``: the K and V bytes moved there); a
 captured graph's replays run no Python and count nothing.
 """
 
@@ -52,7 +60,7 @@ import torch
 Coord = tuple[int, int]
 
 _LOCK = threading.Lock()
-_COUNTS = {"forwards": 0, "transfers": 0, "bytes": 0}  # mcpx: owner[_LOCK]
+_COUNTS = {"forwards": 0, "transfers": 0, "bytes": 0, "tier_copies": 0, "tier_bytes": 0}  # mcpx: owner[_LOCK]
 
 
 def reset_counts() -> None:
@@ -62,16 +70,16 @@ def reset_counts() -> None:
 
 
 def counts() -> dict[str, int]:
-    """Sharded forwards run, and the transfers and bytes they moved, since
-    the last ``reset_counts``."""
+    """Sharded forwards run, the transfers and bytes they moved, and the KV
+    tier's copies and bytes, since the last ``reset_counts``."""
     with _LOCK:
         return dict(_COUNTS)
 
 
-def _add(key: str, n: int, nbytes: int = 0) -> None:
+def _add(key: str, n: int, nbytes: int = 0, bytes_key: str = "bytes") -> None:
     with _LOCK:
         _COUNTS[key] += n
-        _COUNTS["bytes"] += nbytes
+        _COUNTS[bytes_key] += nbytes
 
 
 def count_forward() -> None:
@@ -235,3 +243,104 @@ def join_streams(layout) -> None:
     for dev in layout.devices:
         if dev != layout.control:
             main.wait_stream(torch.cuda.current_stream(dev))
+
+
+def pools_on(paged: Any, layout) -> list[tuple[torch.device, tuple[int, int], dict]]:
+    """Each device's pool pair with the KV heads ``(k0, k1)`` it holds: the
+    one pair over every head unmeshed or on a virtual mesh, else each card's
+    (``kv_tree``), every data replica of its heads."""
+    if layout is None or not layout.cross:
+        return [(paged["k"].device, (0, paged["k"].shape[0]), paged)]
+    return [(dev, layout.kv_range(dev), t) for dev, t in paged.trees.items()]
+
+
+def _readers(paged: Any, layout) -> list[tuple[torch.device, tuple[int, int], dict]]:
+    """For each distinct KV-head span, in head order, the pools of the first
+    card that holds it: data coordinate 0's. The spans tile every head."""
+    if layout is None or not layout.cross:
+        return pools_on(paged, layout)
+    out: dict[tuple[int, int], tuple] = {}
+    for m in range(layout.model):
+        dev = layout.card(0, m)
+        span = layout.kv_range(dev)
+        if span is not None and span not in out:
+            out[span] = (dev, span, paged.trees[dev])
+    spans = sorted(out)
+    if spans[0][0] != 0 or any(a[1] != b[0] for a, b in zip(spans, spans[1:])):
+        raise ValueError(f"the KV-head spans {spans} of data coordinate 0 do not tile the heads")
+    return [out[s] for s in spans]
+
+
+def _page_ids(pages: list[int], devices: list[torch.device]) -> dict[torch.device, torch.Tensor]:
+    """A run's page ids on each device: one int64 host tensor (pinned where
+    a card reads it, so no upload waits for the card's queue) copied once to
+    each. The allocator's ids are global, the same on every card. Page 0,
+    the null page that idle rows and pad slots write, differs between data
+    replicas and never belongs to a run."""
+    if 0 in pages:
+        raise ValueError(f"a KV tier run names page 0 (the null page): {pages}")
+    host = torch.tensor(pages, dtype=torch.int64)
+    if any(d.type == "cuda" for d in devices):
+        host = host.pin_memory()
+    return {d: host if host.device == d else host.to(d, non_blocking=True) for d in devices}
+
+
+def _record(dev: torch.device) -> Any:
+    """An event after the work issued so far on ``dev``'s current stream."""
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return event
+
+
+def gather_run(paged: Any, layout, pages: list[int]) -> tuple:
+    """The KV tier's gather of ``pages``: each distinct KV-head span read
+    from data coordinate 0's card into a fresh device tensor (the run as it
+    is now: a later write to the freed pages is ordered after this read on
+    that card's current stream) and copied without blocking into its slice
+    of one pinned host tensor per pool, in the unmeshed layout ``[K, L, n,
+    page_size, head_dim]``. Returns ``(k, v, events, src)``: one event per
+    card read, recorded after its copies, and what the copies read (kept
+    until every event has passed). On the CPU the host run is ready at once
+    (no event); one span's gather is the tensor itself."""
+    readers = _readers(paged, layout)
+    ids = _page_ids(pages, [dev for dev, _, _ in readers])
+    parts = [(dev, span, pool["k"].index_select(2, ids[dev]), pool["v"].index_select(2, ids[dev]))
+             for dev, span, pool in readers]
+    _add("tier_copies", len(parts), sum(_nbytes(k) + _nbytes(v) for _, _, k, v in parts), "tier_bytes")
+    if readers[0][0].type != "cuda":
+        if len(parts) == 1:
+            return parts[0][2], parts[0][3], (), None
+        return torch.cat([p[2] for p in parts]), torch.cat([p[3] for p in parts]), (), None
+    k0_part = parts[0][2]
+    shape = (readers[-1][1][1],) + tuple(k0_part.shape[1:])
+    k_host = torch.empty(shape, dtype=k0_part.dtype, pin_memory=True)
+    v_host = torch.empty(shape, dtype=k0_part.dtype, pin_memory=True)
+    events = []
+    for dev, (h0, h1), k_dev, v_dev in parts:
+        k_host[h0:h1].copy_(k_dev, non_blocking=True)
+        v_host[h0:h1].copy_(v_dev, non_blocking=True)
+        events.append(_record(dev))
+    return k_host, v_host, tuple(events), (parts, ids)
+
+
+def readmit_run(paged: Any, layout, k_host: torch.Tensor, v_host: torch.Tensor, pages: list[int]) -> tuple:
+    """The KV tier's readmit: each device's KV-head slice of the host run
+    ``[K, L, n, page_size, head_dim]`` copied without blocking to every
+    device whose pools hold those heads (each data replica, as a KV write's
+    ``homes``) and into ``pages`` there in place (``index_copy_``: a pool is
+    never rebound), on that card's current stream, ahead of what it issues
+    next. Returns one event per card written, recorded after its copies:
+    the host run must stay referenced until each has passed (none on the
+    CPU)."""
+    targets = pools_on(paged, layout)
+    ids = _page_ids(pages, [dev for dev, _, _ in targets])
+    events, nbytes = [], 0
+    for dev, (h0, h1), pool in targets:
+        for name, host in (("k", k_host), ("v", v_host)):
+            part = host if (h0, h1) == (0, host.shape[0]) else host[h0:h1]
+            pool[name].index_copy_(2, ids[dev], part if part.device == dev else part.to(dev, non_blocking=True))
+            nbytes += _nbytes(part)
+        if dev.type == "cuda":
+            events.append(_record(dev))
+    _add("tier_copies", len(targets), nbytes, "tier_bytes")
+    return tuple(events)

@@ -727,3 +727,27 @@ def test_tp_phase_runs_on_cpu_engines():
     assert tp["weight_bytes"] == plain["weight_bytes"] and tp["repeat_captures"] == plain["repeat_captures"] == 0
     for k in ("decode_forwards", "live_forwards", "decode_tokens"):
         assert tp[k] == plain[k], k
+
+
+def test_cross_tier_phase_runs_on_host_devices():
+    """Phase 27's ``cross_tier`` on a 2 x 2 mesh of host devices (8 prompts x
+    3 rounds, the committed checkpoint in float32; the card runs 64): the
+    unmeshed arm's tokens and tier counters, one tier copy counted on each
+    device a copy touched, and both warm restarts from the meshed engine's
+    snapshot serving its first output with equal prefill."""
+    import asyncio
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = asyncio.run(chip_smoke.cross_tier("test", chip_smoke.CKPT, "cpu", ["data2_model2"], n_prompts=8,
+                                                device="cpu", devices=[torch.device("cpu", i) for i in range(4)]))
+    finally:
+        torch.set_num_threads(n)
+    plain, arm = out["plain"], out["data2_model2"]
+    assert arm["cards"] == ["cpu", "cpu:1", "cpu:2", "cpu:3"] and not arm["streams_differing"]
+    assert arm["spills"] == plain["spills"] > 0 and arm["readmits"] == plain["readmits"] > 0
+    assert (arm["gather_cards"], arm["readmit_cards"]) == (1, 4)
+    assert arm["tier_copies"] == arm["spills"] + 4 * arm["readmits"]
+    ratios = {w: r["warm_restart_prefill_ratio"] for w, r in arm["warm_restart"].items()}
+    assert ratios["plain"] == ratios["meshed"] > 1

@@ -116,7 +116,7 @@ def test_decode_forward_transfers_equal_the_layouts_count(shape):
                                         layout=lay)
         outs.append((transfer.counts(), logits, pk))
     (none, *_), (got, *_) = outs
-    assert none == {"forwards": 0, "transfers": 0, "bytes": 0}
+    assert none == {"forwards": 0, "transfers": 0, "bytes": 0, "tier_copies": 0, "tier_bytes": 0}
     want = _expected_decode(layout, cfg, B, S, p_max)
     assert (got["forwards"], got["transfers"], got["bytes"]) == (1, *want)
     for a, b in zip(outs[0][1:], outs[1][1:]):

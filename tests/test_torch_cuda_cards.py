@@ -4,7 +4,8 @@ thread's, the capture question (what a CUDA graph captured on one card
 makes of work on a second), a ``data=2, model=2`` forward on four cards bit
 for bit against the same mesh shape virtual on card 0, a radix-shared page
 read from the other data replica, engines on two cards (ring prefill over
-them, int8 weights, a mesh built from explicit axes), retrieval row shards,
+them, int8 weights, a mesh built from explicit axes, the KV tier), the KV
+tier's round trip of a GQA run split over two cards, retrieval row shards,
 the ring and data-parallel training on cards. They import neither JAX nor the reference
 package:
 
@@ -326,18 +327,155 @@ def test_an_engine_on_two_cards_serves_the_unmeshed_tokens(cards, arm):
     assert (rings > 0) == (arm == "ring")
 
 
+def _tier_cfg():
+    return _engine_cfg(max_pages_per_seq=16, max_decode_len=8, prefix_cache_entries=4096, warmup_compile=False,
+                       kv_tier={"enabled": True, "host_mb": 256.0, "copy_tokens_per_cycle": 4096})
+
+
 @pytest.mark.cuda
-def test_the_kv_tier_is_refused_on_a_mesh_of_cards(cards):
-    """The KV tier's copies and snapshots run on one card's pools: an engine
-    on a mesh of cards with the tier on fails its start by name."""
-    from mcpx_torch.core.errors import EngineError
+def test_a_tiered_engine_on_data2_cards_serves_the_unmeshed_stream(cards):
+    """The KV tier on a ``data=2`` mesh of cards 0-1 (the committed
+    checkpoint in float32, 16 prompts of up to 128 tokens one at a time, 3
+    rounds, through a resident cap of 512 tokens): the unmeshed tiered
+    engine's tokens and tier counters exactly, spills and readmits through
+    each card's pools (one tier copy counted on each card a copy touched:
+    the gather reads card 0, the readmit writes both), the kernel launched
+    on both cards, windows eager, and no host byte left after ``aclose``."""
     from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel import transfer
     from mcpx_torch.parallel.mesh import make_mesh
 
-    cfg = _engine_cfg(kv_tier={"enabled": True})
-    eng = InferenceEngine(cfg, device=cards[0], mesh=make_mesh(data=2, devices=cards[:2]))
-    with pytest.raises(EngineError, match="kv_tier"):
-        asyncio.run(eng.start())
+    model_cfg = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072, max_seq_len=512), dtype="float32")
+
+    async def stream(mesh):
+        eng = InferenceEngine(_tier_cfg(), model_cfg=model_cfg, device=cards[0], mesh=mesh)
+        await eng.start()
+        tier = eng._spill_tier
+        try:
+            tok = eng.tokenizer
+            prompts = [tok.encode(f"tier workload {i}: " + "compose rank fetch join " * 12)[:128] for i in range(16)]
+            transfer.reset_counts()
+            tk.reset_kernel_launches()
+            outs = []
+            for _ in range(3):
+                for p in prompts:
+                    outs.append((await eng.generate(p, max_new_tokens=2, constrained=False, temperature=0.0)).token_ids)
+            for d in cards[:2]:
+                torch.cuda.synchronize(d)
+            st = eng.prefix_cache_stats()
+            counts = {k: st[k] for k in ("hits", "misses", "matched_tokens", "evictions", "nodes")}
+            counts.update({k: st["tier"][k] for k in ("spills", "readmits", "destructive_evictions",
+                                                      "denied_readmits", "host_tokens", "host_bytes")})
+            return outs, counts, transfer.counts(), tk.launches_by_card(), eng.queue_stats()
+        finally:
+            await asyncio.wait_for(eng.aclose(), 120)
+            assert tier.host_bytes_used == 0 and tier.pending_copies() == 0
+
+    want, want_counts, _, _, _ = asyncio.run(asyncio.wait_for(stream(None), 600))
+    got, counts, moved, by_card, stats = asyncio.run(asyncio.wait_for(stream(make_mesh(data=2, devices=cards[:2])),
+                                                                      600))
+    print(f"tier on data=2 cards: {counts}, tier copies {moved['tier_copies']}, launches by card {by_card}")
+    assert got == want and counts == want_counts
+    assert counts["spills"] > 0 and counts["readmits"] > 0 and counts["destructive_evictions"] == 0
+    assert moved["tier_copies"] == counts["spills"] + 2 * counts["readmits"]
+    assert by_card.get(0, 0) > 0 and by_card.get(1, 0) > 0
+    assert stats["captures"] == 0 and stats["eager_windows"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pages", [4, 7])
+def test_the_gqa_tier_round_trip_holds_on_every_card(cards, n_pages):
+    """Two KV heads split over a ``model=2`` mesh of cards 0-1 (the test
+    widths, bf16): a run spilled while a device sleep holds the copies in
+    flight lands as the clone, bit for bit, in one host run joining both
+    cards' heads; after its pages are overwritten on both cards and it is
+    readmitted into other pages, each card's pages equal its head of the
+    clone, and the kernel over them on each card gives exactly its output
+    over the clone."""
+    import time
+
+    from mcpx_torch.engine.engine import InferenceEngine
+    from mcpx_torch.engine.kv_cache import init_paged_kv
+    from mcpx_torch.models.gemma.config import GemmaConfig
+    from mcpx_torch.parallel import transfer
+    from mcpx_torch.parallel.mesh import make_mesh, serve_layout
+
+    mc = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072), n_kv_heads=2, dtype="bfloat16")
+    eng = InferenceEngine(_tier_cfg(), model_cfg=mc, device=cards[0], mesh=make_mesh(model=2, devices=cards[:2]))
+    layout = eng._layout = serve_layout(eng._mesh, mc)
+    psz, n_all = 16, eng._allocator.n_pages
+    gen = torch.Generator(device=cards[0]).manual_seed(n_pages)
+    whole = {k: torch.randn((2, 2, n_all, psz, 32), generator=gen, device=cards[0]).to(torch.bfloat16) for k in "kv"}
+    eng._paged_kv = init_paged_kv(mc, n_all, psz, cards[0], layout=layout)
+    homes = transfer.pools_on(eng._paged_kv, layout)
+    assert [span for _, span, _ in homes] == [(0, 1), (1, 2)]
+    for _dev, (k0, k1), pool in homes:
+        for k in "kv":
+            pool[k].copy_(whole[k][k0:k1])
+    tier = eng._spill_tier
+    tier.bind(eng._spill_gather, eng._spill_readmit, 2 * 2 * 2 * 32 * 2)
+    src, dst = list(range(3, 3 + n_pages)), list(range(40, 40 + n_pages))
+    truth = {k: whole[k].index_select(2, torch.tensor(src, device=cards[0])).clone() for k in "kv"}
+
+    class Node:
+        def __init__(self, n_tokens):
+            self.tokens, self.tenant, self.host = tuple(range(n_tokens)), "default", None
+
+    # First-time calls on each card (pinned blocks of the run's size,
+    # kernels) before the timed run, and its page ids and the values that
+    # overwrite them made beforehand: a tensor made from a list, or a
+    # kernel's first launch on a card, waits for that card's queue.
+    spare = list(range(50, 50 + n_pages))
+    warm = Node(n_pages * psz)
+    assert tier.spill(warm, spare)
+    tier.drain()
+    assert tier.readmit(warm, spare)
+    src_ids = {dev: torch.tensor(src, device=dev) for dev, _, _ in homes}
+    fresh = {dev: torch.randn((1, 2, n_pages, psz, 32), device=dev).to(torch.bfloat16) for dev, _, _ in homes}
+    for d in cards[:2]:
+        torch.cuda.synchronize(d)
+    eng._prune_readmit_holds()
+    node = Node(n_pages * psz)
+    for d in cards[:2]:
+        with torch.cuda.device(d):
+            torch.cuda._sleep(200_000_000)
+    assert tier.spill(node, src)
+    assert len(node.host.events) == 2
+    for dev, (k0, k1), pool in homes:  # the next prefill writes the freed pages at once
+        for k in "kv":
+            pool[k].index_copy_(2, src_ids[dev], fresh[dev])
+    tier.poll()
+    assert tier.pending_copies() == 1
+    deadline = time.monotonic() + 30
+    while not tier.readmit_usable(node) and time.monotonic() < deadline:
+        tier.poll()
+        time.sleep(0.001)
+    assert node.host.k.is_pinned() and all(torch.equal(getattr(node.host, k), truth[k].cpu()) for k in "kv")
+    assert tier.readmit(node, dst)
+    for dev, (k0, k1), pool in homes:
+        dst_i = torch.tensor(dst, device=dev)
+        for k in "kv":
+            assert torch.equal(pool[k].index_select(2, dst_i), truth[k][k0:k1].to(dev)), (dev, k)
+        clone = {k: torch.zeros((1, 2, n_pages + 1, psz, 32), dtype=torch.bfloat16, device=dev) for k in "kv"}
+        for k in "kv":
+            clone[k][:, :, 1:] = truth[k][k0:k1].to(dev)
+        live_t = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+        clone_t = torch.zeros_like(live_t)
+        live_t[:, :n_pages] = dst_i.to(torch.int32)
+        clone_t[:, :n_pages] = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)
+        end = n_pages * psz
+        q = torch.randn((2, 8, 1, 2, 32), device=dev).to(torch.bfloat16)
+        starts = torch.tensor([end - 8, end - 1], dtype=torch.int32, device=dev)
+        q_lens = torch.tensor([8, 1], dtype=torch.int32, device=dev)
+        for layer in range(2):
+            a = tk.ragged_paged_attention(q, pool["k"], pool["v"], live_t, starts, q_lens, layer)
+            b = tk.ragged_paged_attention(q, clone["k"], clone["v"], clone_t, starts, q_lens, layer)
+            assert torch.equal(a, b), (dev, layer)
+    for d in cards[:2]:
+        torch.cuda.synchronize(d)
+    eng._prune_readmit_holds()
+    assert tier.host_bytes_used == 0 and not eng._readmit_holds
 
 
 @pytest.mark.cuda

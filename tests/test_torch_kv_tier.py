@@ -120,7 +120,7 @@ class StubDevice:
             def synchronize(self):
                 pass
 
-        return k, v, Event(), None
+        return k, v, (Event(),), None
 
     def readmit(self, k, v, pages):
         self.readmitted.append(list(pages))
