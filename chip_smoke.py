@@ -236,6 +236,21 @@ Phases, one line each (every number beside the card's name and power limit):
      against the clone, and against the plain version within ATOL/RTOL).
      Its serving launches count in the kernels line; its plans/s are first
      numbers, with nothing to compare them with;
+ 28. one-token decode (``decode_step_test``, ``decode_step_2b``), at each
+     preset's full width and depth on random weights from seed 0:
+     ``decode_step_paged`` for 8 steps over 8 rows at ragged mid-page
+     starts, on pools prefilled by ``commit_prefill_to_pages``, in bf16 and
+     in float32, each against ``decode_chunk_paged`` over the same 8 tokens
+     from a clone of the pools (logits and pools; float32 within 2e-5; bf16
+     against the same two through the plain version, whose products at 8
+     and 64 rows round apart: the kernel may add at most ATOL to that
+     difference); the kernel launched ``n_layers`` times a step; every bf16
+     S=1 launch held against the plain version on its inputs within one
+     bf16 ulp at each query head's scale, and again with every other row
+     idle, whose outputs must be exact zeros; ``decode_step`` on the dense
+     cache in float32 against ``prefill``'s logits within 2e-4; the ms of a
+     step (50 eager steps, and replays of a captured graph) and the
+     kernel's row at the step's shape (``decode_step_phase``);
 then the kernels line, the card line and the result line. ``--profile`` adds,
 after each serving phase of 5 and 6 and each mode of 7, one more pass of its
 requests under ``torch.profiler`` with the device time by kernel and the
@@ -5599,6 +5614,276 @@ def cross_card_phase(card: str, need: int = 0, index=None, intents: list = (), *
     return out
 
 
+# ------------------------------------------------------------ one-token decode
+DECODE_STARTS = (37, 100, 63, 5, 130, 90, 17, 185)  # ragged, mid-page; the last crosses into page 4
+STEP_TOL = 2e-5  # float32: the reference test's chunk = S steps limit
+PREFILL_TOL = 2e-4  # float32: the reference test's step decode = prefill limit
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each ``|x|`` (bf16 keeps 8 significant bits)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def ulps_against(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """``|out - ref|`` in bf16 ulps at two scales: each query head's output
+    vector's largest ``|ref|`` (``head``, the one-ulp gate) and each
+    element's own (``element``; an output near 0 from cancelling values
+    counts many ulps there)."""
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    if not diff.numel():
+        return dict(head=0.0, element=0.0)
+    return dict(
+        head=float((diff / bf16_ulp(b.abs().amax(-1, keepdim=True))).max()),
+        element=float((diff / bf16_ulp(torch.maximum(a.abs(), b.abs()))).max()),
+    )
+
+
+@contextlib.contextmanager
+def attention_as(make):
+    """The attention wrapper replaced by ``make(wrapper)`` in the block,
+    for every caller (``paged_attention_chunk`` looks it up at each call)."""
+    from mcpx_torch.engine.kernels import paged_attention as pa
+
+    real = pa.ragged_paged_attention
+    pa.ragged_paged_attention = make(real)
+    try:
+        yield
+    finally:
+        pa.ragged_paged_attention = real
+
+
+def recorder(recs: list):
+    """A ``make`` for ``attention_as``: every call goes to the wrapper (the
+    kernel on CUDA tensors, the plain version on CPU ones) and is recorded
+    with copies of what it read (the query, the layer's pages, the page
+    table, starts, ``q_lens``) and of its output, to hold against the plain
+    version afterwards."""
+
+    def make(real):
+        def record(q, k_pages, v_pages, page_table, start_pos, q_lens, layer=0):
+            res = real(q, k_pages, v_pages, page_table, start_pos, q_lens, layer)
+            recs.append(dict(
+                q=q.clone(), k=k_pages[:, layer:layer + 1].clone(), v=v_pages[:, layer:layer + 1].clone(),
+                table=page_table.clone(), start=start_pos.clone(), q_lens=q_lens.clone(), out=res.clone(),
+            ))
+            return res
+
+        return record
+
+    return make
+
+
+def plain_version(real):
+    """A ``make`` for ``attention_as``: the plain version on every tensor,
+    CUDA ones too."""
+    from mcpx_torch.engine.kernels.paged_attention import ragged_paged_attention_reference
+
+    return ragged_paged_attention_reference
+
+
+def step_arm(cfg, params, dev, *, steps: int, psz: int = 64, pmax: int = 4, route=None,
+             record: list = None) -> tuple[dict, dict]:
+    """``steps`` ``decode_step_paged`` calls over ``len(DECODE_STARTS)`` rows
+    whose prompts (random tokens, ragged lengths) were prefilled and
+    committed to pages by ``commit_prefill_to_pages``, then
+    ``decode_chunk_paged`` over the same tokens from a clone of those
+    pools, both under ``attention_as(route)`` when given; the steps'
+    attention calls are recorded into ``record`` when given. The kernel
+    launch counter is set to 0 just before the steps and read just after
+    them. Returns (summary, the tensors: step and chunk logits, the step's
+    inputs and pools)."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kv_cache import commit_prefill_to_pages, init_paged_kv
+    from mcpx_torch.engine.paged_decode import decode_chunk_paged, decode_step_paged
+    from mcpx_torch.models.gemma.model import init_kv_cache, prefill
+
+    B, T = len(DECODE_STARTS), 3 * psz
+    gen = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=gen).to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, steps), generator=gen).to(dev)
+    lens = torch.tensor(DECODE_STARTS, dtype=torch.int32, device=dev)
+    table = (torch.randperm(B * pmax, generator=gen) + 1).to(torch.int32).reshape(B, pmax).to(dev)
+    pools = init_paged_kv(cfg, B * pmax + 1, psz, device=dev)
+    dense = init_kv_cache(cfg, B, T, device=dev)
+    _, dense = prefill(params, cfg, prompt, lens, dense, last_only=True)
+    commit_prefill_to_pages(pools, dense, table, lens, psz)
+    del dense
+    clone = {k: v.clone() for k, v in pools.items()}
+    sync()
+    reset_kernel_launches()
+    with attention_as(route) if route else contextlib.nullcontext():
+        with attention_as(recorder(record)) if record is not None else contextlib.nullcontext():
+            step = torch.stack([decode_step_paged(params, cfg, tokens[:, j], lens + j, table, pools)[0]
+                                for j in range(steps)], 1)
+            sync()
+        launches = kernel_launches()["ragged_paged_attention"]
+        chunk, clone = decode_chunk_paged(params, cfg, tokens, lens, table, clone)
+    # bf16: the two run the kernel (and the products) at different S.
+    tol = ATOL if cfg.dtype == "bfloat16" else STEP_TOL
+    pairs = [(step, chunk)] + [(pools[k].float(), clone[k].float()) for k in ("k", "v")]
+    summary = dict(
+        launches=launches, finite=bool(torch.isfinite(step).all()), shape=list(step.shape), tol=tol,
+        logits_err=float((step - chunk).abs().max()), excess=max(excess(a, b, tol, tol) for a, b in pairs),
+        pools_err=max(float((a - b).abs().max()) for a, b in pairs[1:]),
+    )
+    return summary, dict(step=step, chunk=chunk, tokens=tokens, lens=lens, table=table, pools=pools)
+
+
+def kernel_at_steps(recs: list) -> dict:
+    """Each recorded S=1 launch against the plain version on its inputs
+    (worst absolute error, and bf16 ulps at the scales of ``ulps_against``);
+    on the card, each launched again with every other row idle, whose
+    outputs must be exact zeros and whose live rows hold to the plain
+    version as well."""
+    from mcpx_torch.engine.kernels.paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_reference,
+    )
+
+    worst = dict(head=0.0, element=0.0)
+    worst_abs = 0.0
+    idle_ok = True
+    for r in recs:
+        ref = ragged_paged_attention_reference(r["q"], r["k"], r["v"], r["table"], r["start"], r["q_lens"], 0)
+        outs = [(r["out"], ref)]
+        if r["q"].device.type == "cuda":
+            idle = r["q_lens"].clone()
+            idle[1::2] = 0
+            out = ragged_paged_attention(r["q"], r["k"], r["v"], r["table"], r["start"], idle, 0)
+            idle_ok &= bool((out[1::2] == 0).all())
+            outs.append((out[0::2], ref[0::2]))
+        for o, w in outs:
+            worst = {k: max(v, ulps_against(o, w)[k]) for k, v in worst.items()}
+            worst_abs = max(worst_abs, float((o.float() - w.float()).abs().max()))
+    return dict(checked=len(recs), ulps=worst, max_abs_err=worst_abs, idle_rows_zero=idle_ok)
+
+
+def decode_step_phase(card: str, size: str, device=None, *, steps: int = 8, iters: int = 50) -> dict:
+    """Phase 28: one-token decode at ``size``'s full width and depth (random
+    weights from seed 0). ``decode_step_paged`` for ``steps`` steps over 8
+    rows at ragged mid-page starts, in bf16 and in float32, each against
+    ``decode_chunk_paged`` over the same tokens, with ``n_layers`` kernel
+    launches a step on the card. Float32: logits and pools within 2e-5. Bf16:
+    the same steps and chunk through the plain version (``plain_version``)
+    measure what bf16 products at 8 and 64 rows give apart; the kernel
+    route's worst logit and pool differences may exceed the plain route's
+    by at most the kernel check's ATOL, and a greedy pick may differ only
+    at a chunk top-2 margin under the plain route's difference. Every S=1
+    launch of the bf16 steps within one bf16 ulp of the plain version at
+    each query head's scale, idle rows exact zeros; ``decode_step`` on the
+    dense cache in float32 against ``prefill``'s logits within 2e-4; the ms
+    of a step (CUDA events over ``iters`` eager steps, and over replays of
+    a graph of 20) and the kernel's row at the step's shape."""
+    from mcpx_torch.device import resolve_device
+    from mcpx_torch.engine.paged_decode import decode_step_paged
+    from mcpx_torch.models.bpe import BPETokenizer
+    from mcpx_torch.models.gemma import GemmaConfig
+    from mcpx_torch.models.gemma.params import load_or_init
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    base = GemmaConfig.named(size, vocab_size=BPETokenizer().vocab_size)
+    out: dict = {"size": size, "rows": len(DECODE_STARTS), "steps": steps, "layers": base.n_layers}
+    recs: list = []
+    arms = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params, _ = load_or_init(cfg, seed=0, device=dev)
+        arm, t = step_arm(cfg, params, dev, steps=steps, record=recs if dtype == "bfloat16" else None)
+        if dtype == "bfloat16":
+            # In bf16 the steps' and the chunk's products run at M = 8 and
+            # 64 rows and round apart; the same forward through the plain
+            # version gives the yardstick of that difference.
+            plain, _ = step_arm(cfg, params, dev, steps=steps, route=plain_version)
+            top2 = t["chunk"].float().topk(2, dim=-1).values
+            flips = t["step"].argmax(-1) != t["chunk"].argmax(-1)
+            arm.update(
+                plain_logits_err=plain["logits_err"], plain_pools_err=plain["pools_err"],
+                greedy_flips=int(flips.sum()),
+                flip_margins=[float(m) for m in (top2[..., 0] - top2[..., 1])[flips].tolist()],
+            )
+            if on_card:
+                pos = t["lens"] + steps
+                step = lambda: decode_step_paged(params, cfg, t["tokens"][:, 0], pos, t["table"], t["pools"])  # noqa: E731
+                out["step_ms"], out["step_device_ms"] = time_ms(step, iters=iters), graph_ms(step)
+                out["kernel_row"] = step_kernel_row(f"{size}/decode_step", cfg, recs[0], t["pools"])
+        else:
+            out["dense"] = dense_step_check(cfg, params, dev)
+        arms[dtype] = arm
+        del t, params
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    out["arms"] = arms
+    out["kernel"] = kernel_at_steps(recs)
+    del recs
+    if "kernel_row" in out:
+        out["kernel_row"]["max_abs_err"] = out["kernel"]["max_abs_err"]
+    out["launches"] = sum(a["launches"] for a in arms.values())
+    emit(f"decode_step_{size}", card, **{k: v for k, v in out.items() if k != "kernel_row"})
+    want = steps * base.n_layers if on_card else 0
+    for dtype, a in arms.items():
+        if a["launches"] != want:
+            raise SystemExit(f"decode_step_{size} {dtype}: {a['launches']} kernel launches, not {want}")
+        if not a["finite"] or a["shape"] != [len(DECODE_STARTS), steps, base.vocab_size]:
+            raise SystemExit(f"decode_step_{size} {dtype}: steps not finite or misshapen: {a}")
+    f32, bf16 = arms["float32"], arms["bfloat16"]
+    if f32["excess"] > 0:
+        raise SystemExit(f"decode_step_{size} float32: steps disagree with the chunk forward: {f32}")
+    # bf16: the kernel may add no more than the kernel check's ATOL to the
+    # forward's own step-against-chunk difference (the plain route's), and a
+    # greedy pick may differ only where the chunk's top-2 margin is under it.
+    if (bf16["logits_err"] > bf16["plain_logits_err"] + ATOL or bf16["pools_err"] > bf16["plain_pools_err"] + ATOL
+            or any(m >= bf16["plain_logits_err"] for m in bf16["flip_margins"])):
+        raise SystemExit(f"decode_step_{size} bfloat16: steps disagree with the chunk forward: {bf16}")
+    k = out["kernel"]
+    if k["checked"] != steps * base.n_layers or k["ulps"]["head"] > 1.0 or not k["idle_rows_zero"]:
+        raise SystemExit(f"decode_step_{size}: an S=1 launch disagrees with the plain version: {k}")
+    d = out["dense"]
+    if not d["finite"] or d["excess"] > 0:
+        raise SystemExit(f"decode_step_{size}: decode_step disagrees with prefill: {d}")
+    return out
+
+
+def step_kernel_row(cell: str, cfg, rec: dict, pools: dict) -> dict:
+    """The kernel phase's row (``kernel_times``, ``attention_bound``) at a
+    recorded S=1 launch's query, page table and starts, over every layer of
+    ``pools``."""
+    q, kp, vp = rec["q"], pools["k"], pools["v"]
+    times = kernel_times(q, kp, vp, rec["table"], rec["start"], rec["q_lens"], cfg.n_layers)
+    bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, rec["table"], rec["start"], rec["q_lens"])
+    return dict(
+        cell=cell, B=q.shape[0], S=1, K=cfg.n_kv_heads, G=cfg.q_per_kv, hd=cfg.head_dim, L=cfg.n_layers,
+        page_size=kp.shape[3], max_pages=rec["table"].shape[1], live_rows=q.shape[0], dtype="bfloat16",
+        atol=ATOL, rtol=RTOL, **times, bound_ms=bound_ms, bound_by=bound_by, ms_over_bound=times["ms"] / bound_ms,
+        device_ms_over_bound=times["device_ms"] / bound_ms, bytes=nbytes, flops=flops,
+    )
+
+
+def dense_step_check(cfg, params, dev, B: int = 4, T: int = 16) -> dict:
+    """``decode_step`` on the dense cache against ``prefill``: one token
+    prefilled, the rest stepped one at a time, every position's logits
+    against the full prefill's within 2e-4."""
+    from mcpx_torch.models.gemma import decode_step, init_kv_cache, prefill
+
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(1)).to(dev)
+    full, _ = prefill(params, cfg, tokens, torch.full((B,), T, device=dev), init_kv_cache(cfg, B, T, device=dev))
+    first, cache = prefill(params, cfg, tokens[:, :1], torch.ones(B, dtype=torch.long, device=dev),
+                           init_kv_cache(cfg, B, T, device=dev))
+    got = [first[:, 0]]
+    for t in range(1, T):
+        lg, cache = decode_step(params, cfg, tokens[:, t], torch.full((B,), t, device=dev), cache)
+        got.append(lg)
+    got = torch.stack(got, 1)
+    return dict(max_abs_err=float((got - full).abs().max()), excess=excess(got, full, PREFILL_TOL, PREFILL_TOL),
+                finite=bool(torch.isfinite(got).all()), tol=PREFILL_TOL, B=B, T=T)
+
+
 def n_bytes_of(engine) -> int:
     from mcpx_torch.models.gemma.params import n_bytes
 
@@ -5730,6 +6015,8 @@ def main(argv: list[str]) -> int:
     timed("lint", lint_phase, card)
     tp = timed("tp_serve", tp_phase, card)
     cross = timed("cross_card", cross_card_phase, card, args.cards, table["index"], table["intents"])
+    decode_steps = [timed(f"decode_step_{size}", decode_step_phase, card, size) for size in ("test", "2b")]
+    rows += [d["kernel_row"] for d in decode_steps]
     emit("phase_seconds", card, **seconds, total=sum(seconds.values()))
     runs = [trained, full, *trained_modes, *full_modes, trained_tel, full_tel] + [
         r[m] for r in (trained_pfx, full_pfx) for m in ("off", "on")
@@ -5766,9 +6053,11 @@ def main(argv: list[str]) -> int:
             # gates its own launches).
             # So do phase 23's evaluations (one request at a time, windows
             # captured as they first run), gated in ``offline_phase``.
-            # And phase 27's serving arms on the cards (eager windows).
+            # And phase 27's serving arms on the cards (eager windows), and
+            # phase 28's decode steps (gated there: n_layers a step).
             "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl] + clusters
-                            + list(offline["eval_test"].values())) + cross["launches"],
+                            + list(offline["eval_test"].values())) + cross["launches"]
+            + sum(d["launches"] for d in decode_steps),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

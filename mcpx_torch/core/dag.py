@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional
+from typing import Any, Iterable, Mapping, Optional
 
 from mcpx_torch.core.errors import MCPXError
 
@@ -302,6 +302,9 @@ class Plan:
             raise PlanValidationError([f"cycle detected involving nodes: {', '.join(stuck)}"])
         return generations
 
+    def predecessors(self, name: str) -> list[str]:
+        return [e.src for e in self.edges if e.dst == name]
+
     def node(self, name: str) -> DagNode:
         for n in self.nodes:
             if n.name == name:
@@ -353,3 +356,13 @@ class Plan:
             succ[e.src].append(e.dst)
         steps = [{"s": n.name, "in": sorted(n.inputs), "next": succ[n.name]} for n in self.nodes]
         return json.dumps({"steps": steps}, separators=(",", ":"))
+
+
+def linear_plan(service_names: Iterable[str], intent: str = "") -> Plan:
+    """Convenience: a linear chain DAG over ``service_names`` in order."""
+    names = list(service_names)
+    nodes = [DagNode(name=n) for n in names]
+    edges = [DagEdge(src=a, dst=b) for a, b in zip(names, names[1:])]
+    plan = Plan(nodes=nodes, edges=edges, intent=intent)
+    plan.validate()
+    return plan

@@ -8,6 +8,8 @@ return partial-failure responses instead of aborting.
 
 from __future__ import annotations
 
+from typing import Any, Optional
+
 
 class MCPXError(Exception):
     """Base class for all framework errors."""
@@ -15,6 +17,28 @@ class MCPXError(Exception):
 
 class RegistryError(MCPXError):
     """Service registry lookup/storage failure."""
+
+
+class ExecutionError(MCPXError):
+    """A DAG execution failed (possibly partially).
+
+    Carries whatever results/errors/trace were accumulated before the failure
+    so callers can return a structured partial-failure response rather than
+    discarding work (fixes reference bug B5, ``control_plane.py:130``).
+    """
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        results: Optional[dict[str, Any]] = None,
+        errors: Optional[dict[str, str]] = None,
+        trace: Any = None,
+    ) -> None:
+        super().__init__(message)
+        self.results = results or {}
+        self.errors = errors or {}
+        self.trace = trace
 
 
 class PlannerError(MCPXError):

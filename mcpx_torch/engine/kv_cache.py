@@ -219,3 +219,34 @@ def commit_prefill_to_pages(
         chunks = chunks.permute(4, 0, 1, 2, 3, 5).reshape(K, L, B * n_chunks, page_size, hd)
         pool[:, :, dest] = chunks.to(pool.dtype)
     return paged
+
+
+def write_decode_kv(
+    paged: dict[str, torch.Tensor],
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+) -> dict[str, torch.Tensor]:
+    """Write one decode step's K/V ``[L, B, K, hd]`` at ``positions`` [B], in
+    place (the pools are returned, never rebound).
+
+    The target page is ``page_table[b, pos // page_size]``, slot
+    ``pos % page_size``. As the reference's gather and ``mode="drop"``
+    scatter: a position past the table's width reads its last column, and
+    a page id outside the pool is dropped, not clamped (negative indices
+    count from the end, as there)."""
+    n_pages, page_size = paged["k"].shape[2], paged["k"].shape[3]
+    p_max = page_table.shape[1]
+    pos = positions.long()
+    chunk = pos // page_size
+    chunk = torch.where(chunk < 0, chunk + p_max, chunk).clamp(0, p_max - 1)
+    pages = torch.gather(page_table.long(), 1, chunk[:, None])[:, 0]  # [B]
+    pages = torch.where(pages < 0, pages + n_pages, pages)
+    keep = (pages >= 0) & (pages < n_pages)
+    pages, slot = pages[keep], (pos % page_size)[keep]
+    for name, new in (("k", k_new), ("v", v_new)):
+        pool = paged[name]
+        # [L, B, K, hd] -> [K, L, B, hd], the pool's [K, L, (page, slot), hd]
+        pool[:, :, pages, slot] = new[:, keep].permute(2, 0, 1, 3).to(pool.dtype)
+    return paged

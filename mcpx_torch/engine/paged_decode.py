@@ -186,3 +186,23 @@ def _decode_block(params, cfg, d, inp, paged_kv, layout, at_slot: bool, compact:
     if at_slot:
         x = x[torch.arange(B, device=x.device), inp.at(red)["logits_at"].long()]
     return unembed_sharded(x, params, layout, d, inp)
+
+
+def decode_step_paged(
+    params: dict[str, Any],
+    cfg: GemmaConfig,
+    tokens: torch.Tensor,  # [B]
+    positions: torch.Tensor,  # [B] slot this token is written to
+    page_table: torch.Tensor,  # [B, Pmax] int32
+    paged_kv: dict[str, torch.Tensor],  # k/v: [K, L, N, Psz, hd]
+    *,
+    layout=None,  # parallel.mesh.ServeLayout: the sharded forward
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One decode step for the whole batch; returns ([B, V] logits, pools),
+    the pools updated in place. The S=1 case of ``decode_chunk_paged``, so
+    one forward body serves both: each layer launches the kernel with one
+    query a row (``paged_attention``'s case)."""
+    logits, pools = decode_chunk_paged(
+        params, cfg, tokens[:, None], positions, page_table, paged_kv, layout=layout
+    )
+    return logits[:, 0], pools

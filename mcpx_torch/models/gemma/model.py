@@ -500,6 +500,24 @@ def prefill(
     )
 
 
+def decode_step(
+    params: Params,
+    cfg: GemmaConfig,
+    token: torch.Tensor,
+    cur_index: torch.Tensor,
+    kv_cache: KVCache,
+    layout=None,
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step: ``token`` [B] is written at each row's slot
+    ``cur_index`` [B] and attends to cache[0..cur_index]. Returns logits
+    [B, V] and the cache, updated in place. ``layout``: the sharded
+    forward."""
+    S = (kv_cache["k"] if layout is None else kv_at(kv_cache, layout, (0, 0))[0]).shape[2]
+    positions = cur_index.long()[:, None]  # [B, 1]
+    mask = torch.arange(S, device=token.device)[None, None, :] <= positions[:, :, None]  # [B, 1, S]
+    logits, kv_cache = forward(params, cfg, token[:, None], positions, kv_cache, mask, layout=layout)
+    return logits[:, 0], kv_cache
+
 def train_forward(params: Params, cfg: GemmaConfig, tokens: torch.Tensor, seq_lens: torch.Tensor) -> torch.Tensor:
     """Logits [B, T, V] of a padded [B, T] batch without a KV cache, for
     training: what ``prefill`` gives over a fresh cache of exactly ``T``

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mcpx_torch.core.errors import EngineError
+from mcpx_torch.device import resolve_device
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import Params, init_params, param_shapes, torch_dtype
 from mcpx_torch.models.gemma.quant import _is_qleaf, leaf_quantizer, quantize_params
@@ -102,13 +103,14 @@ def load_or_init(
     cfg: GemmaConfig,
     checkpoint_path: str = "",
     *,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
     seed: int = 0,
     quantize: str = "none",
     mesh=None,
 ) -> tuple[Params, str]:
-    """(params, "checkpoint" | "random"): an ``.npz`` checkpoint cast to
-    ``cfg.dtype``, or random weights drawn from ``seed``. With
+    """(params, "checkpoint" | "random") on ``device`` (None: CUDA, which
+    raises without a card, as every entry point): an ``.npz`` checkpoint
+    cast to ``cfg.dtype``, or random weights drawn from ``seed``. With
     ``quantize="int8"`` the checkpoint is quantized after it is loaded, and
     the random path quantizes each leaf as it is created, so its
     full-precision tree never exists. ``mesh``: its model shards' leaves
@@ -117,6 +119,7 @@ def load_or_init(
     ``device``, the weights are made there and spread by ``on_cards``."""
     if quantize not in ("none", "int8"):
         raise EngineError(f"unknown quantize mode {quantize!r}")
+    device = resolve_device(device)
     layout = None
     if mesh is not None:
         from mcpx_torch.parallel.mesh import ServeLayout, canonical

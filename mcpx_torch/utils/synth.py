@@ -22,26 +22,61 @@ _KEYS = [
     "address", "score", "status", "report", "features", "vector", "summary",
 ]
 
-def synth_registry(n: int, seed: int = 0, local: bool = True) -> list[ServiceRecord]:
-    """``n`` services named ``<domain>-<verb>-<i>``. The RNG draw order
-    (both key counts, then both samples) is the reference package's: the
-    committed BPE vocab and checkpoint were fitted to these registries."""
+_OOD_VERBS = ["Get", "Set", "Sync", "Push", "Resolve", "Compute", "Reconcile", "Emit"]
+_OOD_NOUNS = [
+    "Invoice", "Customer", "Ledger", "Shipment", "Session", "Voucher",
+    "Manifest", "Quota", "Dunning", "Waybill", "Escrow", "Tranche",
+    "Chargeback", "Remittance", "Accrual", "Folio", "Consignment", "Lien",
+    "Novation", "Subrogation",
+]
+_OOD_KEYS = [
+    "invoiceId", "custRef", "ledgerRow", "sku", "sessionKey", "waybillNo",
+    "escrowAcct", "trancheId", "folioRef", "accrualTs", "manifestHash",
+    "quotaCeil", "dunningStage", "lienPos",
+]
+
+
+def _build_registry(
+    n: int,
+    seed: int,
+    local: bool,
+    *,
+    primary: list[str],
+    secondary: list[str],
+    keys: list[str],
+    name_fmt: str,
+    description_fmt: str,
+    interleaved_draws: bool = False,
+) -> list[ServiceRecord]:
+    """One record-construction loop for every naming universe, so the in-
+    and out-of-distribution registries keep the same chaining structure
+    (key-sample sizes, cost ranges, fallback rate).
+
+    The RNG draw order is the reference package's: the committed BPE vocab
+    and checkpoint were fitted to these registries. The two universes draw
+    in different orders (in-distribution: both key counts, then both
+    samples; out-of-distribution: count and sample interleaved), and
+    ``interleaved_draws`` picks the second."""
     rng = random.Random(seed)
     records: list[ServiceRecord] = []
     for i in range(n):
-        a = _DOMAINS[i % len(_DOMAINS)]
-        b = _VERBS[(i // len(_DOMAINS)) % len(_VERBS)]
-        name = f"{a}-{b}-{i:04d}"
-        n_in = rng.randint(1, 3)
-        n_out = rng.randint(1, 2)
-        input_keys = rng.sample(_KEYS, n_in)
-        output_keys = rng.sample(_KEYS, n_out)
+        a = primary[i % len(primary)]
+        b = secondary[(i // len(primary)) % len(secondary)]
+        name = name_fmt.format(a=a, b=b, i=i)
+        if interleaved_draws:
+            input_keys = rng.sample(keys, rng.randint(1, 3))
+            output_keys = rng.sample(keys, rng.randint(1, 2))
+        else:
+            n_in = rng.randint(1, 3)
+            n_out = rng.randint(1, 2)
+            input_keys = rng.sample(keys, n_in)
+            output_keys = rng.sample(keys, n_out)
         scheme = "local" if local else "http"
         records.append(
             ServiceRecord(
                 name=name,
                 endpoint=f"{scheme}://{name}",
-                description=f"{b}s {a} data for downstream composition",
+                description=description_fmt.format(a=a, b=b),
                 input_schema={k: "str" for k in input_keys},
                 output_schema={k: "str" for k in output_keys},
                 cost_profile={
@@ -53,6 +88,38 @@ def synth_registry(n: int, seed: int = 0, local: bool = True) -> list[ServiceRec
             )
         )
     return records
+
+
+def synth_registry(n: int, seed: int = 0, local: bool = True) -> list[ServiceRecord]:
+    """``n`` services named ``<domain>-<verb>-<i>``."""
+    return _build_registry(
+        n,
+        seed,
+        local,
+        primary=_DOMAINS,
+        secondary=_VERBS,
+        keys=_KEYS,
+        name_fmt="{a}-{b}-{i:04d}",
+        description_fmt="{b}s {a} data for downstream composition",
+    )
+
+
+def synth_registry_ood(n: int, seed: int = 0, local: bool = True) -> list[ServiceRecord]:
+    """An out-of-distribution registry: camelCase product-style naming from a
+    token universe disjoint from ``synth_registry``'s, the workload the
+    committed BPE vocab was not fitted to. Same chaining structure as
+    ``synth_registry`` (the shared ``_build_registry`` loop)."""
+    return _build_registry(
+        n,
+        seed,
+        local,
+        primary=_OOD_NOUNS,
+        secondary=_OOD_VERBS,
+        keys=_OOD_KEYS,
+        name_fmt="{b}{a}Svc{i:04d}",
+        description_fmt="{b}s the {a} aggregate for composition",
+        interleaved_draws=True,
+    )
 
 
 def intent_for(records: list[ServiceRecord], rng: random.Random, n_services: int = 3) -> str:

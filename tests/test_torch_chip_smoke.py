@@ -751,3 +751,41 @@ def test_cross_tier_phase_runs_on_host_devices():
     assert arm["tier_copies"] == arm["spills"] + 4 * arm["readmits"]
     ratios = {w: r["warm_restart_prefill_ratio"] for w, r in arm["warm_restart"].items()}
     assert ratios["plain"] == ratios["meshed"] > 1
+
+
+def test_decode_step_phase_runs_on_the_cpu(capsys):
+    """Phase 28 at the test preset on the CPU's plain path: both arms' steps
+    equal the chunk forward (the plain route is the kernel route there), no
+    launch is counted off the card, every layer's S=1 call is recorded and
+    held to the plain version, the dense ``decode_step`` matches
+    ``prefill``, and the phase prints its line; the attention wrapper is
+    restored after the recording and the plain route."""
+    import json
+
+    from mcpx_torch.engine.kernels import paged_attention as pa
+
+    real = pa.ragged_paged_attention
+    out = chip_smoke.decode_step_phase("cpu", "test", device="cpu", steps=3)
+    assert pa.ragged_paged_attention is real
+    assert out["launches"] == 0 and out["kernel"]["checked"] == 3 * 2 and out["kernel"]["idle_rows_zero"]
+    for dtype, arm in out["arms"].items():
+        assert arm["shape"] == [len(chip_smoke.DECODE_STARTS), 3, 3072] and arm["finite"], dtype
+        assert arm["excess"] <= 0, dtype
+    bf16 = out["arms"]["bfloat16"]
+    assert bf16["logits_err"] == bf16["plain_logits_err"] and bf16["greedy_flips"] == 0
+    assert out["dense"]["finite"] and out["dense"]["excess"] <= 0 and "kernel_row" not in out
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "decode_step_test" and line["arms"]["float32"]["launches"] == 0
+
+
+def test_ulps_against_reads_two_scales():
+    """One bf16 ulp is 2**-7 in [1, 2): an output of 1 + 2**-7 against 1 is
+    one ulp at both scales; an element of 0.001 off by 2**-16 is two ulps
+    of itself (2**-17 in [2**-10, 2**-9)) and a fraction of one at its
+    head's scale."""
+    one = torch.tensor([[1.0 + 2.0**-7, 0.001 + 2.0**-16]])
+    ref = torch.tensor([[1.0, 0.001]])
+    u = chip_smoke.ulps_against(one, ref)
+    assert u["head"] == 1.0 and u["element"] == 2.0
+    assert chip_smoke.ulps_against(ref, ref) == {"head": 0.0, "element": 0.0}
+    assert float(chip_smoke.bf16_ulp(torch.tensor(3.0))) == 2.0**-6

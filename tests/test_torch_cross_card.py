@@ -104,8 +104,8 @@ def test_decode_forward_transfers_equal_the_layouts_count(shape):
     mesh = make_mesh(data=shape[0], model=shape[1], devices=CPU8)
     layout = ServeLayout(mesh, cfg)
     assert len(layout.attn) == shape[1] and len(layout.rows(B)) == shape[0] and not layout.cross
-    plain, _ = load_or_init(cfg, seed=4)
-    meshed, _ = load_or_init(cfg, seed=4, mesh=mesh)
+    plain, _ = load_or_init(cfg, seed=4, device="cpu")
+    meshed, _ = load_or_init(cfg, seed=4, mesh=mesh, device="cpu")
     tokens, positions, table, q_lens, pools = _case(cfg, B, S, p_max, psz)
     at = (q_lens.long() - 1).clamp(min=0)
     outs = []
@@ -137,8 +137,8 @@ def test_dense_forward_counts_one_forward_and_mirrors_every_row():
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 384, (B, T)))
     positions = torch.arange(T).expand(B, T)
     mask = (torch.arange(T)[None, None, :] <= positions[:, :, None])
-    plain, _ = load_or_init(cfg, seed=5)
-    meshed, _ = load_or_init(cfg, seed=5, mesh=mesh)
+    plain, _ = load_or_init(cfg, seed=5, device="cpu")
+    meshed, _ = load_or_init(cfg, seed=5, mesh=mesh, device="cpu")
     caches = []
     for params, lay in ((plain, None), (meshed, layout)):
         transfer.reset_counts()
@@ -275,7 +275,7 @@ def test_a_forward_on_host_devices_is_bit_equal_to_the_virtual_mesh(shape, quant
     for arm, devices in (("virtual", CPU8), ("host", HOST4)):
         layout = ServeLayout(make_mesh(data=data, model=model, devices=devices), cfg)
         assert layout.cross == (arm == "host")
-        params, _ = load_or_init(cfg, seed=6, quantize=quantize, mesh=layout.mesh)
+        params, _ = load_or_init(cfg, seed=6, quantize=quantize, mesh=layout.mesh, device="cpu")
         paged = init_paged_kv(cfg, pools["k"].shape[2], psz, "cpu", layout=layout)
         for dev, t in transfer.trees(paged, layout).items():
             k0, k1 = layout.kv_range(dev)

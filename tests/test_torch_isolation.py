@@ -9,7 +9,9 @@ its own), and the control plane serves ``/plan`` and ``/plan_and_execute``,
 traced, renders its metrics, admits through the scheduler, executes through
 the resilience facade over the chaos transport, and serves an int8 engine
 with telemetry's default-off parts on (its mirror refusing to sync without
-redis, by name), with all three blocked."""
+redis, by name), with all three blocked; ``chip_smoke.py`` imports, and
+every port module and name it imports and the package exports resolve,
+with all three, JAX and the reference package blocked."""
 
 import ast
 import os
@@ -267,5 +269,62 @@ print("ok")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [sys.executable, "-c", script], capture_output=True, text=True, cwd=ROOT, env=env, timeout=300
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
+def _smoke_imports() -> dict:
+    """Every ``mcpx_torch`` module ``chip_smoke.py`` imports, anywhere in
+    it, with the names it takes from each."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    out: dict = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and (node.module or "").startswith("mcpx_torch"):
+            out.setdefault(node.module, set()).update(a.name for a in node.names)
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.startswith("mcpx_torch"):
+                    out.setdefault(a.name, set())
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def test_chip_smoke_imports_and_package_exports_resolve_with_the_cards_missing_packages_blocked():
+    """What the GPU machine lacks (aiohttp, prometheus_client, redis) and JAX
+    and the reference package blocked: ``chip_smoke.py`` imports, every
+    module and name it imports from the port resolves, and so do the
+    package exports (``from mcpx_torch.core import Plan, MCPXConfig``, the
+    server's ``ControlPlane``, telemetry's ``Metrics`` and tracer, the
+    model's ``decode_step``); only the server's ``build_app`` needs
+    aiohttp, and only when it is asked for."""
+    imports = _smoke_imports()
+    assert "mcpx_torch.engine.paged_decode" in imports and len(imports) > 30
+    script = f"""
+import importlib, sys
+for name in {OPTIONAL!r} + ("jax", "mcpx"):
+    sys.modules[name] = None
+sys.path.insert(0, {ROOT!r})
+import chip_smoke
+for mod, names in {imports!r}.items():
+    m = importlib.import_module(mod)
+    for n in names:
+        if not hasattr(m, n):
+            importlib.import_module(mod + "." + n)
+from mcpx_torch.core import ExecutionError, MCPXConfig, Plan
+from mcpx_torch.core.dag import linear_plan
+from mcpx_torch.server import ControlPlane
+from mcpx_torch.telemetry import Metrics, Span, TraceRecord, Tracer
+from mcpx_torch.retrieval import HashedNGramEmbedder, RetrievalIndex
+from mcpx_torch.models import ByteTokenizer, make_tokenizer
+from mcpx_torch.models.gemma import GemmaConfig, decode_step, forward, init_kv_cache, init_params, prefill
+assert "aiohttp" not in sys.modules or sys.modules["aiohttp"] is None
+try:
+    from mcpx_torch.server import build_app
+except ImportError:
+    print("ok")
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, cwd=ROOT, env=env, timeout=120
     )
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

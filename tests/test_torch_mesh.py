@@ -158,13 +158,13 @@ def test_shard_pytree_keeps_weights_whole_on_a_virtual_mesh():
     (``params.shard_major``): put back in their dimension, equal."""
     cfg = GemmaConfig(vocab_size=384, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=96,
                       dtype="float32")
-    params, _ = load_or_init(cfg, seed=3)
+    params, _ = load_or_init(cfg, seed=3, device="cpu")
     mesh = tmesh.make_mesh(data=2, model=4, devices=CPU8)
     placed = tmesh.shard_pytree(params, tmesh.param_pspecs(cfg, mesh), mesh)
     flat, got = _leaves(params), _leaves(placed)
     assert set(flat) == set(got) and all(got[k] is flat[k] for k in flat)
-    meshed, _ = load_or_init(cfg, seed=3, mesh=mesh, quantize="int8")
-    plain, _ = load_or_init(cfg, seed=3, quantize="int8")
+    meshed, _ = load_or_init(cfg, seed=3, mesh=mesh, quantize="int8", device="cpu")
+    plain, _ = load_or_init(cfg, seed=3, quantize="int8", device="cpu")
     layout = tmesh.ServeLayout(mesh, cfg)
     assert set(layout.sharded) == {"embed", "wq", "wo", "w_gate", "w_up", "w_down"}  # K 2 does not divide 4
     for k, v in _leaves(plain).items():

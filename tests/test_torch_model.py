@@ -68,12 +68,12 @@ def test_init_params_layout_matches_reference():
     jcfg = JConfig(vocab_size=384, d_model=64, n_layers=3, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=96)
     tcfg = GemmaConfig(**dataclasses.asdict(jcfg))
     ref = jax.eval_shape(lambda: jm.init_params(jcfg, jax.random.PRNGKey(0)))
-    params, source = load_or_init(tcfg, seed=3)
+    params, source = load_or_init(tcfg, seed=3, device="cpu")
     assert source == "random"
     assert tuple(params["embed"].shape) == ref["embed"].shape
     for k, v in ref["layers"].items():
         assert tuple(params["layers"][k].shape) == v.shape, k
-    again, _ = load_or_init(tcfg, seed=3)
+    again, _ = load_or_init(tcfg, seed=3, device="cpu")
     assert torch.equal(params["layers"]["wq"], again["layers"]["wq"])  # seeded
 
 

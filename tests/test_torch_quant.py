@@ -254,7 +254,7 @@ def test_int8_decode_chunk_paged_matches_reference(small_q, compact):
 @pytest.fixture(scope="module")
 def f32_params():
     cfg = GemmaConfig(dtype="float32", max_seq_len=64)
-    params, _ = load_or_init(cfg, seed=0)
+    params, _ = load_or_init(cfg, seed=0, device="cpu")
     return cfg, params
 
 
@@ -273,7 +273,7 @@ def test_streaming_init_matches_posthoc_quantize(f32_params):
     created; the tree equals ``quantize_params`` of the full-precision init
     from the same seed exactly (the same eager arithmetic on both paths)."""
     cfg, params = f32_params
-    stream, source = load_or_init(cfg, seed=0, quantize="int8")
+    stream, source = load_or_init(cfg, seed=0, quantize="int8", device="cpu")
     assert source == "random"
     posthoc = _flat(quant.quantize_params(params))
     stream = _flat(stream)
@@ -302,7 +302,7 @@ def test_bytes_at_rest_halved():
     q = quant.quantized_param_bytes(cfg)
     assert q < 0.62 * bf16, (q, bf16)  # int8 + f32 scales + norms
     # The counted bytes are what a quantized tree holds.
-    params, _ = load_or_init(dataclasses.replace(cfg, dtype="bfloat16"), seed=0, quantize="int8")
+    params, _ = load_or_init(dataclasses.replace(cfg, dtype="bfloat16"), seed=0, quantize="int8", device="cpu")
     assert n_bytes(params) == q
 
 
@@ -344,7 +344,7 @@ def test_validate_rejects_unknown_quantize():
     with pytest.raises(ConfigError, match="quantize"):
         MCPXConfig.from_dict({"model": {"quantize": "int4"}})
     with pytest.raises(EngineError, match="quantize"):
-        load_or_init(GemmaConfig(), quantize="int4")
+        load_or_init(GemmaConfig(), quantize="int4", device="cpu")
 
 
 # ------------------------------------------------------------ /plan parity

@@ -135,7 +135,7 @@ def test_ring_requires_seq_axis_and_divisibility():
         ring_attention(q[:, :6], k[:, :6], k[:, :6], sl, mesh)
     cfg = GemmaConfig(vocab_size=64, d_model=16, n_layers=1, n_heads=2, n_kv_heads=1, head_dim=8, d_ff=16,
                       dtype="float32")
-    params, _ = load_or_init(cfg, seed=0)
+    params, _ = load_or_init(cfg, seed=0, device="cpu")
     with pytest.raises(ConfigError, match="cache length == T"):
         ring_prefill(params, cfg, torch.zeros((1, 8), dtype=torch.long), torch.tensor([8]), mesh,
                      tm.init_kv_cache(cfg, 1, 16))

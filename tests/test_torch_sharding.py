@@ -41,7 +41,7 @@ from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.engine.engine import InferenceEngine
 from mcpx_torch.engine.paged_decode import decode_chunk_paged
 from mcpx_torch.models.gemma.config import GemmaConfig
-from mcpx_torch.models.gemma.model import forward, init_kv_cache, prefill
+from mcpx_torch.models.gemma.model import decode_step, init_kv_cache, prefill
 from mcpx_torch.models.gemma.params import load_or_init, params_from_numpy, shard_major
 from mcpx_torch.models.gemma.quant import _CONTRACT_AXES, _is_qleaf, quantize_params
 from mcpx_torch.parallel.mesh import ServeLayout, data_pspec, make_mesh, param_pspecs
@@ -77,15 +77,6 @@ def _port(jparams):
     return params_from_numpy(jax.tree.map(np.asarray, jparams), dtype=torch.float32)
 
 
-def _decode_step(params, cfg, token, cur, cache, layout):
-    """The reference's ``decode_step`` through the port's ``forward``."""
-    S = cache["k"].shape[2]
-    positions = cur[:, None]
-    mask = torch.arange(S)[None, None, :] <= positions[:, :, None]
-    logits, cache = forward(params, cfg, token[:, None], positions, cache, mask, layout=layout)
-    return logits[:, 0]
-
-
 @pytest.mark.parametrize(
     "data,model,B,T,key", [(2, 4, 4, 6, 1), (1, 8, 2, 5, 2)], ids=["2x4", "1x8"]
 )
@@ -114,7 +105,7 @@ def test_tp_dp_logits_match_single_device(cfgs, jparams, data, model, B, T, key)
     for name, lay in (("unmeshed", None), ("sharded", layout)):
         params = _port(jparams) if lay is None else shard_major(_port(jparams), lay)
         logits, cache = prefill(params, cfg, toks, lens, init_kv_cache(cfg, B, S), layout=lay)
-        step = _decode_step(params, cfg, torch.tensor(np.asarray(nxt)), torch.full((B,), T), cache, lay)
+        step, _ = decode_step(params, cfg, torch.tensor(np.asarray(nxt)), torch.full((B,), T), cache, layout=lay)
         got[name] = (logits.numpy(), step.numpy())
     for name, (logits, step) in got.items():
         np.testing.assert_allclose(logits, np.asarray(want), rtol=1e-5, atol=1e-5, err_msg=name)
@@ -168,8 +159,8 @@ def test_shard_major_blocks_are_contiguous_views(quantize):
     mesh = make_mesh(data=2, model=2, devices=CPU8)
     layout = ServeLayout(mesh, cfg)
     assert set(layout.sharded) == {"embed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
-    plain, _ = load_or_init(cfg, seed=5, quantize=quantize)
-    meshed, _ = load_or_init(cfg, seed=5, quantize=quantize, mesh=mesh)
+    plain, _ = load_or_init(cfg, seed=5, quantize=quantize, device="cpu")
+    meshed, _ = load_or_init(cfg, seed=5, quantize=quantize, mesh=mesh, device="cpu")
     ranges = {"embed": layout.vocab, "wq": layout.heads, "wo": layout.heads, "wk": layout.kv_heads,
               "wv": layout.kv_heads, "w_gate": layout.ff, "w_up": layout.ff, "w_down": layout.ff}
     for name, whole in {"embed": plain["embed"], **plain["layers"]}.items():
@@ -220,8 +211,8 @@ def test_decode_chunk_paged_per_shard_matches_unmeshed(quantize, kv_heads, shape
                       d_ff=256, dtype="float32")
     mesh = make_mesh(data=shape[0], model=shape[1], devices=CPU8)
     layout = ServeLayout(mesh, cfg)
-    plain, _ = load_or_init(cfg, seed=2, quantize=quantize)
-    meshed, _ = load_or_init(cfg, seed=2, quantize=quantize, mesh=mesh)
+    plain, _ = load_or_init(cfg, seed=2, quantize=quantize, device="cpu")
+    meshed, _ = load_or_init(cfg, seed=2, quantize=quantize, mesh=mesh, device="cpu")
     (tokens, positions, table, q_lens), pools = _paged_case(3, cfg)
     cols = torch.tensor([0, 7, 100, 191, 192, 200, 383])
     for kw in ({"logits_at": (q_lens.long() - 1).clamp(min=0)}, {}, {"active_cols": cols}):

@@ -163,7 +163,7 @@ def test_train_forward_logits_equal_prefill():
     differentiates."""
     cfg = GemmaConfig(vocab_size=384, d_model=64, n_layers=3, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=96,
                       dtype="float32")
-    params, _ = load_or_init(cfg, seed=1)
+    params, _ = load_or_init(cfg, seed=1, device="cpu")
     gen = torch.Generator().manual_seed(0)
     tokens = torch.randint(0, 384, (3, 24), generator=gen)
     lens = torch.tensor([24, 9, 1])
@@ -217,11 +217,11 @@ def test_npz_files_read_bit_equal_across_packages(tmp_path, shared_init):
 
 def test_checkpoint_that_does_not_fit_is_refused(tmp_path):
     """A test-preset checkpoint at vocab 384 loaded for vocab 3072."""
-    params, _ = load_or_init(GemmaConfig.named("test", vocab_size=384), seed=0)
+    params, _ = load_or_init(GemmaConfig.named("test", vocab_size=384), seed=0, device="cpu")
     path = tmp_path / "ck.npz"
     save_npz(str(path), params)
     with pytest.raises(EngineError, match="does not fit"):
-        load_or_init(GemmaConfig.named("test", vocab_size=3072), str(path))
+        load_or_init(GemmaConfig.named("test", vocab_size=3072), str(path), device="cpu")
 
 
 def _assert_same_run(report, params, jreport, jparams):
