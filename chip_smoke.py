@@ -755,9 +755,11 @@ async def serve(
 
 
 async def idle(engine) -> None:
-    """Wait until no row is resident and nothing is queued: config flips
-    between runs land on an idle slab."""
-    while engine.queue_stats()["active_rows"] or engine.queue_stats()["queue_depth"]:
+    """Wait until no row is resident, nothing is queued and no segment is
+    in flight: config flips between runs land on an idle slab, and a
+    profiler detached after it has seen the burst's last device wait (the
+    harvest of the segment dispatched beside the last rows' retirement)."""
+    while any(engine.queue_stats().get(k, 0) for k in ("active_rows", "queue_depth", "inflight_segments")):
         await asyncio.sleep(0.05)
 
 
@@ -1498,6 +1500,12 @@ OBS_ARMS = {
     "all": ("ledger", "slo", "provenance", "flight"),
 }
 SLO_OBJECTIVES = ("latency_p99", "availability", "plan_quality")
+# The engine's counts of the worker's blocking waits, by site: the early
+# exit's flag reads and the harvest, each with and without an event.
+WAIT_SITES = {
+    "flag": "flag_waits", "flag_no_event": "flag_reads_no_event",
+    "harvest": "harvest_waits", "harvest_no_event": "harvests_no_event",
+}
 
 
 def kernel_at_pages(engine, width: int, live: int, where: str) -> float:
@@ -1751,10 +1759,13 @@ async def observatory_phase(cp, intents: list, burst_plans: list, name: str, car
             for b in bills:  # completion order
                 flops += b.flops
                 nbytes += b.hbm_bytes
+            snap = prof.snapshot()
             runs[arm].append(dict(
                 plans=[p.to_json() for p in plans], wall_s=wall, plans_per_s=len(intents) / wall,
                 p50_ms=statistics.median(lat), captures=q1["captures"] - q0["captures"],
-                sync_waits=prof.snapshot()["phases"]["sync"]["count"],
+                sync_waits=snap["phases"]["sync"]["count"],
+                waits={site: q1[key] - q0[key] for site, key in WAIT_SITES.items()},
+                profiled_admits=snap["phases"]["admit"]["count"],
                 bills=(flops, nbytes), ledger_totals=(lt1["flops"] - lt0["flops"], lt1["bytes"] - lt0["bytes"]),
                 costs=(c1["flops_executed"] - c0["flops_executed"], c1["bytes_executed"] - c0["bytes_executed"]),
                 engine_bills=[(r.generated_tokens, r.bill) for r in gens],
@@ -1804,6 +1815,13 @@ async def observatory_phase(cp, intents: list, burst_plans: list, name: str, car
         max_abs_err=max_abs_err, atol=ATOL, rtol=RTOL,
     )
     emit(f"observatory_{name}", card, **stats)
+    # Each run's blocking waits: the profiler's ``sync`` count beside the
+    # engine's own count by site (with and without an event to wait on),
+    # and the admissions the profiler saw.
+    emit(f"observatory_{name}_waits", card, runs=[
+        dict(arm=arm, run=k, sync=r["sync_waits"], **r["waits"], profiled_admits=r["profiled_admits"])
+        for k in range(3) for arm in OBS_ARMS for r in runs[arm][k : k + 1]
+    ])
     want = [p.to_json() for p in burst_plans]
     off_plans = runs["off"][0]["plans"]
     spec_plane = engine.config.engine.hetero_batch and engine._spec_k() > 0
@@ -1844,6 +1862,30 @@ async def observatory_phase(cp, intents: list, burst_plans: list, name: str, car
     if launches.get("ragged_paged_attention", 0) <= 0 and engine.device.type == "cuda":
         raise SystemExit(f"observatory_{name}: the ragged kernel was not launched")
     return stats
+
+
+def observatory_rounds(card: str, n: int) -> int:
+    """Phase 19 alone (``--observatory N``): on a fresh control plane at
+    test and then at 2b, the first burst and then ``observatory_phase`` N
+    times, each printing its runs' waits; a round whose gate fails is
+    printed and the next goes on. Returns 1 if any round failed."""
+    failures: list = []
+
+    async def rounds(cp, intents, plans, size: str) -> None:
+        for i in range(n):
+            try:
+                await observatory_phase(cp, intents, plans, size, card)
+            except SystemExit as e:
+                failures.append(f"{size} round {i}: {e}")
+                emit("observatory_round_failed", card, model=size, round=i, reason=str(e))
+
+    for size, checkpoint, n_intents in (("test", CKPT, 16), ("2b", "", 8)):
+        asyncio.run(serve(
+            size, checkpoint, n_intents, card, batch=64,
+            after=lambda cp, recs, intents, plans, st, size=size: rounds(cp, intents, plans, size),
+        ))
+    emit("observatory_rounds", card, rounds=n, failures=failures)
+    return 1 if failures else 0
 
 
 # ------------------------------------------------------------ execute path
@@ -5923,6 +5965,11 @@ def main(argv: list[str]) -> int:
         "--cards", type=int, default=0, metavar="N",
         help="fail unless at least N cards are visible (phase 27 runs on two or more)",
     )
+    ap.add_argument(
+        "--observatory", type=int, default=0, metavar="N",
+        help="run only phase 19 (the observatory), N rounds at test and at 2b, print each run's "
+        "blocking waits by site, and exit (1 if a round failed); prints no kernels line",
+    )
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU", file=sys.stderr)
@@ -5943,6 +5990,8 @@ def main(argv: list[str]) -> int:
          per_kernel_s={k: v["seconds"] for k, v in build.build_log.items()})
 
     seconds: dict = {"build": time.monotonic() - t0}
+    if args.observatory:
+        return observatory_rounds(card, args.observatory)
 
     def timed(name: str, fn, *a, **kw):
         """``fn(*a, **kw)``, its wall seconds added to ``seconds[name]``."""

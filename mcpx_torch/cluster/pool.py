@@ -85,7 +85,7 @@ log = logging.getLogger("mcpx_torch.cluster")
 # its other keys come from the first ready replica).
 _SUMMED = (
     "queue_depth", "active_rows", "resident_grammars", "prefix_host_pages", "prefix_spills",
-    "prefix_readmits", "prefix_destructive_evictions",
+    "prefix_readmits", "prefix_destructive_evictions", "inflight_segments",
 )
 _AVERAGED = (
     "service_ewma_s", "prefix_token_hit_rate", "spec_accept_rate", "spec_accept_rate_constrained",

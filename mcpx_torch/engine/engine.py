@@ -806,12 +806,19 @@ class InferenceEngine:
         # count their drafts (every proposal, forced ones included, as the
         # reference's speculative counters do) in drafted and accepted, and
         # spec_verify counts those windows: the verify path's dispatches.
+        # The worker's blocking device waits by site: flag_waits the
+        # early-exit reads of an all-done flag that waited on its copy's
+        # event, harvest_waits the segments retired after waiting on theirs;
+        # flag_reads_no_event and harvests_no_event the same reads made with
+        # no event to wait on (the CPU). They count whether or not a profiler
+        # is attached.
         self._stats = {  # mcpx: owner[engine-worker, atomic]
             "admissions": 0, "segments": 0, "windows": 0, "decode_forwards": 0,
             "live_forwards": 0, "drafted": 0, "accepted": 0, "retired": 0, "decode_tokens": 0,
             "prefill_tokens": 0, "suffix_prefills": 0, "suffix_prefill_launches": 0,
             "captures": 0, "warmup_captures": 0, "replays": 0, "prefix_pins": 0, "spec_verify": 0,
-            "eager_windows": 0,
+            "eager_windows": 0, "flag_waits": 0, "flag_reads_no_event": 0, "harvest_waits": 0,
+            "harvests_no_event": 0,
         }
         # Speculative drafted and accepted tokens by row class (worker
         # writes, queue_stats reads; swapped in whole).
@@ -1219,6 +1226,9 @@ class InferenceEngine:
             **extra,
             "queue_depth": depth,
             "active_rows": active,
+            # Segments dispatched and not yet harvested: the worker's last
+            # device waits of a burst come after its rows have retired.
+            "inflight_segments": len(self._inflight),  # mcpx: ignore[thread-ownership] - len() of a deque is one GIL-atomic read
             "service_ewma_s": svc,
             "eta_s": eta,
             "kernel_launches": kernel_launches(),
@@ -1599,6 +1609,17 @@ class InferenceEngine:
                 self._drain_queue(
                     pending, block=not pending and slab.n_active == 0 and not self._inflight
                 )
+                swapped = self._profiler
+                if swapped is not prof:
+                    # Attached or detached while the drain waited for work:
+                    # the work that woke the worker is served under the
+                    # profiler attached now, so one attached before a burst
+                    # sees all of it, whenever in the idle poll it arrives.
+                    if prof is not None:
+                        prof.lap("drain")
+                    prof = self._iter_prof = swapped
+                    if prof is not None:
+                        prof.loop_tick()
                 # The ledger switches here, after the (possibly blocking)
                 # drain, so the requests that woke the worker are billed:
                 # switched on, it bills from the cost registry's totals as
@@ -2837,6 +2858,9 @@ class InferenceEngine:
             event.synchronize()
             if prof is not None:
                 prof.carve("sync", t_sync)
+            self._stats["flag_waits"] += 1
+        else:
+            self._stats["flag_reads_no_event"] += 1
         return bool(self._flag_np[slot])
 
     def _note_window(self, all_done: torch.Tensor) -> None:
@@ -3394,6 +3418,9 @@ class InferenceEngine:
                 rec.event.synchronize()
                 if prof is not None:
                     prof.carve("sync", t_sync)
+                self._stats["harvest_waits"] += 1
+            else:
+                self._stats["harvests_no_event"] += 1
             flat = rec.host.numpy()
             buf = flat[:n_buf].reshape(B, W1)
             e = flat[n_buf : n_buf + B]

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from mcpx_torch.core.errors import EngineError
+from mcpx_torch.device import resolve_device
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.model import kv_at, torch_dtype
 from mcpx_torch.parallel.transfer import kv_tree, send, trees
@@ -154,9 +155,10 @@ class PageAllocator:
 
 # ------------------------------------------------------------------- device
 def init_paged_kv(
-    cfg: GemmaConfig, n_pages: int, page_size: int, device="cpu", dtype: str | None = None, layout=None
+    cfg: GemmaConfig, n_pages: int, page_size: int, device=None, dtype: str | None = None, layout=None
 ) -> dict[str, torch.Tensor]:
-    """Device page pools: ``[K, L, N_pages, page_size, head_dim]``. A model
+    """Device page pools: ``[K, L, N_pages, page_size, head_dim]`` on
+    ``device`` (None is CUDA, raising without a card). A model
     shard's KV heads are a leading-dim view of them (``pool_shards``). On a
     ``layout`` of several devices, each holds all ``N_pages`` pages of the
     KV heads its coordinates read (``transfer.kv_tree``), replicated over
@@ -164,6 +166,7 @@ def init_paged_kv(
     d = torch_dtype(dtype or cfg.dtype)
 
     def zeros(k_heads, dev):
+        dev = resolve_device(dev)
         shape = (k_heads, cfg.n_layers, n_pages, page_size, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=d, device=dev), "v": torch.zeros(shape, dtype=d, device=dev)}
 

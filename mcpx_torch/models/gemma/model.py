@@ -34,6 +34,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from mcpx_torch.core.errors import EngineError
+from mcpx_torch.device import resolve_device
 from mcpx_torch.models.gemma.config import GemmaConfig
 from mcpx_torch.models.gemma.quant import (
     _CONTRACT_AXES,
@@ -81,17 +83,25 @@ def param_shapes(cfg: GemmaConfig) -> dict[str, tuple[int, ...]]:
 def init_params(
     cfg: GemmaConfig,
     generator: torch.Generator,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
     leaf_transform=None,
 ) -> Params:
     """Random-init parameters in ``cfg.dtype``, layer-stacked: normal draws
     scaled by 1/sqrt(fan_in) from ``generator`` (a seeded ``torch.Generator``
-    on ``device``); norms start at zero (scale 1). ``leaf_transform(name,
+    on ``device``: None is CUDA, raising without a card; a generator on
+    another device raises rather than being moved); norms start at zero
+    (scale 1). ``leaf_transform(name,
     tensor)`` is applied to each leaf as it is created (``quant.
     leaf_quantizer`` for int8 serving), so the untransformed tree never
     exists at once. The draws differ from the reference package's
     ``jax.random`` ones; carry weights across with ``params_from_numpy``
     where equality matters."""
+    device = resolve_device(device)
+    gen_dev = generator.device
+    if gen_dev.type != device.type or (
+        gen_dev.index is not None and device.index is not None and gen_dev.index != device.index
+    ):
+        raise EngineError(f"init_params: the generator is on {gen_dev}, the parameters go to {device}")
     dtype = torch_dtype(cfg.dtype)
     t = leaf_transform or (lambda _name, w: w)
     shapes = param_shapes(cfg)
@@ -125,13 +135,15 @@ def init_params(
     }
 
 
-def init_kv_cache(cfg: GemmaConfig, batch: int, max_len: int, device="cpu", dtype=None, layout=None) -> KVCache:
-    """A dense [L, B, S, K, hd] cache; on a ``layout`` of several devices,
-    one on each (``transfer.kv_tree``) over the KV heads its coordinates
-    read, every row of the batch."""
+def init_kv_cache(cfg: GemmaConfig, batch: int, max_len: int, device=None, dtype=None, layout=None) -> KVCache:
+    """A dense [L, B, S, K, hd] cache on ``device`` (None is CUDA, raising
+    without a card); on a ``layout`` of several devices, one on each
+    (``transfer.kv_tree``) over the KV heads its coordinates read, every
+    row of the batch."""
     d = torch_dtype(dtype or cfg.dtype)
 
     def zeros(k_heads, dev):
+        dev = resolve_device(dev)
         shape = (cfg.n_layers, batch, max_len, k_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=d, device=dev), "v": torch.zeros(shape, dtype=d, device=dev)}
 

@@ -38,12 +38,14 @@ def _tensor(arr: Any, bf16_bits: bool) -> torch.Tensor:
 
 def params_from_numpy(
     tree: dict[str, Any],
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
     dtype: "torch.dtype | str | None" = None,
 ) -> Params:
-    """Numpy parameter tree -> nested dict of tensors on ``device``, cast to
-    ``dtype`` (None keeps each array's own type). The ``int8`` and ``scale``
-    leaves of a quantized weight are never cast."""
+    """Numpy parameter tree -> nested dict of tensors on ``device`` (None is
+    CUDA, raising without a card), cast to ``dtype`` (None keeps each
+    array's own type). The ``int8`` and ``scale`` leaves of a quantized
+    weight are never cast."""
+    device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = torch_dtype(dtype)
     out: Params = {}
@@ -94,7 +96,10 @@ def _check_shapes(params: Params, cfg: GemmaConfig, path: str) -> None:
         raise EngineError(f"checkpoint {path} does not fit model config: {problems[:4]}")
 
 
-def load_npz(path: str, device="cpu", dtype=None) -> Params:
+def load_npz(path: str, device=None, dtype=None) -> Params:
+    """An ``.npz`` parameter file (``params_from_numpy``'s tree) on
+    ``device``: None is CUDA, raising without a card."""
+    device = resolve_device(device)
     with np.load(path) as z:
         return params_from_numpy({k: z[k] for k in z.files}, device, dtype)
 

@@ -109,7 +109,7 @@ CFG = GemmaConfig.named("test", vocab_size=3072)
 
 
 def _params():
-    return init_params(CFG, torch.Generator().manual_seed(0))
+    return init_params(CFG, torch.Generator().manual_seed(0), device="cpu")
 
 
 def test_analytic_flops_of_a_paged_forward_match_the_flop_counter(monkeypatch):
@@ -148,7 +148,7 @@ def test_analytic_flops_of_a_dense_prefill_match_the_flop_counter():
     lens = torch.tensor([64, 17, 40, 5])
     counter = FlopCounterMode(display=False)
     with counter, torch.inference_mode():
-        prefill(params, CFG, tokens, lens, init_kv_cache(CFG, A, T), last_only=True)
+        prefill(params, CFG, tokens, lens, init_kv_cache(CFG, A, T, device="cpu"), last_only=True)
     flops, _ = port_costs.forward_cost(
         CFG, batch=A, width=T, context=T, unembed_rows=A, unembed_cols=CFG.vocab_size,
     )

@@ -142,7 +142,8 @@ def test_dense_forward_counts_one_forward_and_mirrors_every_row():
     caches = []
     for params, lay in ((plain, None), (meshed, layout)):
         transfer.reset_counts()
-        logits, cache = forward(params, cfg, tokens, positions, init_kv_cache(cfg, B, T), mask, layout=lay)
+        cache0 = init_kv_cache(cfg, B, T, device="cpu")
+        logits, cache = forward(params, cfg, tokens, positions, cache0, mask, layout=lay)
         caches.append((transfer.counts()["forwards"], logits, cache))
     assert caches[0][0] == 0 and caches[1][0] == 1
     np.testing.assert_allclose(caches[1][1].numpy(), caches[0][1].numpy(), rtol=1e-5, atol=1e-5)
@@ -179,7 +180,7 @@ def test_params_placed_on_cpu_and_meta_match_the_reference_blocks(preset, shape)
     cfg = dataclasses.replace(GemmaConfig.named(preset), **small, dtype="float32")
     jp = jinit_params(jcfg, jax.random.PRNGKey(0)) if preset == "test" else None
     if jp is not None:
-        params = params_from_numpy(jax.tree.map(np.asarray, jp))
+        params = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     else:  # 7b's widths: every leaf a broadcast view, no memory behind it
         shapes = param_shapes(cfg)
         params = {k: torch.zeros(()).expand(shapes[k]) for k in ("embed", "final_norm")}
@@ -285,7 +286,7 @@ def test_a_forward_on_host_devices_is_bit_equal_to_the_virtual_mesh(shape, quant
         logits, paged = decode_chunk_paged(params, cfg, tokens, positions, table, paged,
                                            logits_at=(q_lens.long() - 1).clamp(min=0), q_lens=q_lens, layout=layout)
         counts = transfer.counts()
-        dense_logits, dense = prefill(params, cfg, prompt, lens, init_kv_cache(cfg, B, T, layout=layout),
+        dense_logits, dense = prefill(params, cfg, prompt, lens, init_kv_cache(cfg, B, T, layout=layout, device="cpu"),
                                       last_only=True, layout=layout)
         commit_prefill_to_pages(paged, dense, table, lens, psz, layout=layout)
         res[arm] = dict(layout=layout, params=params, logits=logits, dense_logits=dense_logits, paged=paged,

@@ -50,7 +50,7 @@ def numpy_params(cfg, seed: int) -> dict:
 
 
 def both(tree: dict):
-    return params_from_numpy(tree), {
+    return params_from_numpy(tree, device="cpu"), {
         "embed": jnp.asarray(tree["embed"]), "final_norm": jnp.asarray(tree["final_norm"]),
         "layers": {k: jnp.asarray(v) for k, v in tree["layers"].items()},
     }
@@ -164,7 +164,8 @@ def test_decode_step_paged_on_a_virtual_mesh_matches_unmeshed():
     tok = torch.tensor([5, 17, 200, 383])
     outs = []
     # shard_major lays the leaves out in place: each arm gets its own tree.
-    for params, lay in ((params_from_numpy(tree), None), (shard_major(params_from_numpy(tree), layout), layout)):
+    whole = params_from_numpy(tree, device="cpu")
+    for params, lay in ((whole, None), (shard_major(params_from_numpy(tree, device="cpu"), layout), layout)):
         pk = {k: torch.from_numpy(v.copy()) for k, v in pools.items()}
         logits, pk = decode_step_paged(params, cfg, tok, pos, table, pk, layout=lay)
         outs.append((logits, pk["k"], pk["v"]))
@@ -187,8 +188,8 @@ def test_decode_step_matches_prefill(dense):
     cfg, _, params, _ = dense
     B, T, S = 2, 10, 16
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (B, T)))
-    full, _ = prefill(params, cfg, tokens, torch.tensor([T, T]), init_kv_cache(cfg, B, S))
-    step, cache = prefill(params, cfg, tokens[:, :1], torch.tensor([1, 1]), init_kv_cache(cfg, B, S))
+    full, _ = prefill(params, cfg, tokens, torch.tensor([T, T]), init_kv_cache(cfg, B, S, device="cpu"))
+    step, cache = prefill(params, cfg, tokens[:, :1], torch.tensor([1, 1]), init_kv_cache(cfg, B, S, device="cpu"))
     got = [step[:, 0]]
     for t in range(1, T):
         lg, cache = decode_step(params, cfg, tokens[:, t], torch.tensor([t, t]), cache)
@@ -206,7 +207,9 @@ def test_decode_step_matches_the_reference(dense):
     tokens = rng.integers(0, 256, (B, T)).astype(np.int32)
     lens = np.array([6, 2, 4], np.int32)
     _, jcache = jprefill(jparams, jcfg, jnp.asarray(tokens), jnp.asarray(lens), jinit_kv_cache(jcfg, B, S))
-    _, tcache = prefill(tparams, cfg, torch.from_numpy(tokens), torch.from_numpy(lens), init_kv_cache(cfg, B, S))
+    _, tcache = prefill(
+        tparams, cfg, torch.from_numpy(tokens), torch.from_numpy(lens), init_kv_cache(cfg, B, S, device="cpu")
+    )
     for t in range(4):
         tok = rng.integers(0, 256, (B,)).astype(np.int32)
         idx = lens + t

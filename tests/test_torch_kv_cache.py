@@ -56,7 +56,7 @@ def test_init_paged_kv_layout_matches_reference():
     jcfg = JConfig(n_layers=3, n_kv_heads=2, head_dim=16, n_heads=4)
     tcfg = GemmaConfig(n_layers=3, n_kv_heads=2, head_dim=16, n_heads=4)
     ref = jinit(jcfg, 7, 4)
-    out = init_paged_kv(tcfg, 7, 4)
+    out = init_paged_kv(tcfg, 7, 4, device="cpu")
     assert tuple(out["k"].shape) == ref["k"].shape == (2, 3, 7, 4, 16)
     assert out["k"].dtype == torch.bfloat16
 

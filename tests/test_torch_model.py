@@ -51,9 +51,9 @@ def test_apply_rope_matches_reference_half_split():
 def test_params_from_numpy_carries_both_tree_forms():
     with np.load(CKPT) as z:
         flat = {k: z[k] for k in z.files}
-    from_npz = params_from_numpy(flat)
+    from_npz = params_from_numpy(flat, device="cpu")
     nested = jax.tree.map(np.asarray, jload_npz(CKPT))
-    from_jax = params_from_numpy(nested)
+    from_jax = params_from_numpy(nested, device="cpu")
     assert from_npz["layers"]["wq"].dtype == torch.bfloat16
     assert tuple(from_npz["layers"]["wq"].shape) == (2, 128, 4, 32)
     for key in ("embed", "final_norm"):
@@ -85,7 +85,7 @@ def test_prefill_logits_match_reference_on_checkpoint(dtype, tol):
     jcfg = dataclasses.replace(JConfig.named("test", vocab_size=3072), dtype=dtype)
     tcfg = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072), dtype=dtype)
     jparams = jax.tree.map(lambda a: a.astype(jnp.dtype(dtype)), jload_npz(CKPT))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     rng = np.random.default_rng(2)
     B, T = 3, 64
     tokens = rng.integers(0, 3000, (B, T)).astype(np.int32)
@@ -96,13 +96,13 @@ def test_prefill_logits_match_reference_on_checkpoint(dtype, tol):
     )
     out, _ = tm.prefill(
         tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(lens),
-        tm.init_kv_cache(tcfg, B, T), last_only=True,
+        tm.init_kv_cache(tcfg, B, T, device="cpu"), last_only=True,
     )
     ref = np.asarray(ref)
     np.testing.assert_allclose(out.numpy(), ref, rtol=tol, atol=tol)
     assert out.argmax(-1).tolist() == ref.argmax(-1).tolist()
     full, cache = tm.prefill(
-        tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(lens), tm.init_kv_cache(tcfg, B, T)
+        tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(lens), tm.init_kv_cache(tcfg, B, T, device="cpu")
     )
     assert tuple(full.shape) == (B, T, 3072) and full.dtype == torch.float32
     np.testing.assert_allclose(full[torch.arange(B), torch.from_numpy(lens).long() - 1].numpy(), out.numpy(), rtol=1e-5, atol=1e-5)

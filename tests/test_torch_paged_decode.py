@@ -32,7 +32,7 @@ def setup():
     jcfg = dataclasses.replace(JConfig.named("test", vocab_size=3072), dtype="float32")
     tcfg = dataclasses.replace(GemmaConfig.named("test", vocab_size=3072), dtype="float32")
     jparams = jax.tree.map(lambda a: a.astype(jnp.float32), jload_npz(CKPT))
-    return jcfg, tcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jcfg, tcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def case(seed, B=5, S=8, psz=16, p_max=4):

@@ -94,7 +94,7 @@ def _numpy_params(cfg, seed: int, dtype=np.float32) -> dict:
 
 
 def _port_tree(jtree) -> dict:
-    return params_from_numpy(jax.tree.map(np.asarray, jtree))
+    return params_from_numpy(jax.tree.map(np.asarray, jtree), device="cpu")
 
 
 def _flat(tree, prefix=""):
@@ -125,7 +125,7 @@ def test_quantize_params_is_bit_equal_to_reference(width):
         dtype = jnp.bfloat16
     tree = _numpy_params(jcfg, 3, dtype)
     ref = _flat(jax.tree.map(np.asarray, jq.quantize_params(jax.tree.map(jnp.asarray, tree))))
-    got = _flat(quant.quantize_params(params_from_numpy(tree)))
+    got = _flat(quant.quantize_params(params_from_numpy(tree, device="cpu")))
     assert sorted(ref) == sorted(got)
     for name, r in ref.items():
         g = got[name]
@@ -182,7 +182,7 @@ def test_quantized_param_bytes_equal_reference(size):
 
 def test_params_from_numpy_keeps_int8_and_scale_leaves():
     jtree = jq.quantize_params(jax.tree.map(jnp.asarray, _numpy_params(SMALL, 7)))
-    tree = params_from_numpy(jax.tree.map(np.asarray, jtree), dtype="bfloat16")
+    tree = params_from_numpy(jax.tree.map(np.asarray, jtree), dtype="bfloat16", device="cpu")
     assert quant.is_quantized(tree)
     assert tree["embed"]["int8"].dtype == torch.int8 and tree["embed"]["scale"].dtype == torch.float32
     assert tree["layers"]["wq"]["int8"].dtype == torch.int8
@@ -205,11 +205,11 @@ def test_int8_forward_and_prefill_match_reference(small_q):
     lens = np.array([9, 5], np.int32)
     ref, ref_kv = jm.prefill(jtree, SMALL, jnp.asarray(tokens), jnp.asarray(lens), jm.init_kv_cache(SMALL, B, S))
     got, got_kv = tm.prefill(tree, cfg, torch.from_numpy(tokens), torch.from_numpy(lens),
-                             tm.init_kv_cache(cfg, B, S))
+                             tm.init_kv_cache(cfg, B, S, device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=F32_TOL, atol=F32_TOL)
     np.testing.assert_allclose(got_kv["k"].numpy(), np.asarray(ref_kv["k"]), rtol=F32_TOL, atol=F32_TOL)
     last, _ = tm.prefill(tree, cfg, torch.from_numpy(tokens), torch.from_numpy(lens),
-                         tm.init_kv_cache(cfg, B, S), last_only=True)
+                         tm.init_kv_cache(cfg, B, S, device="cpu"), last_only=True)
     np.testing.assert_allclose(last.numpy(), got.numpy()[np.arange(B), lens - 1], rtol=F32_TOL, atol=F32_TOL)
     # forward at absolute positions past a filled cache.
     pos = np.array([[9, 10, 11], [5, 6, 7]], np.int32)
@@ -287,8 +287,8 @@ def test_prefill_logits_close_to_full_precision(f32_params):
     B, T, S = 2, 12, 16
     tokens = torch.randint(0, 255, (B, T), generator=torch.Generator().manual_seed(1))
     lens = torch.full((B,), T)
-    ref, _ = tm.prefill(params, cfg, tokens, lens, tm.init_kv_cache(cfg, B, S))
-    got, _ = tm.prefill(quant.quantize_params(params), cfg, tokens, lens, tm.init_kv_cache(cfg, B, S))
+    ref, _ = tm.prefill(params, cfg, tokens, lens, tm.init_kv_cache(cfg, B, S, device="cpu"))
+    got, _ = tm.prefill(quant.quantize_params(params), cfg, tokens, lens, tm.init_kv_cache(cfg, B, S, device="cpu"))
     # int8 weights: logits agree to a few percent of the logit scale, and
     # greedy next-token choices rarely differ on random weights.
     assert float((ref - got).abs().max() / ref.abs().max()) < 0.05

@@ -529,14 +529,15 @@ def test_llm_plan_and_execute_bf16_difference_is_a_near_tie(llm_runs_bf16):
     prefix = ids + toks[:k]
     jcfg, tcfg = _model_cfg(JGemmaConfig, "bfloat16"), _model_cfg(GemmaConfig, "bfloat16")
     jparams = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jload_npz(CKPT))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     n = len(prefix)
     jl, _ = jm.prefill(
         jparams, jcfg, jnp.asarray([prefix], jnp.int32), jnp.asarray([n], jnp.int32),
         jm.init_kv_cache(jcfg, 1, n), last_only=True,
     )
     tl, _ = tm.prefill(
-        tparams, tcfg, torch.tensor([prefix]), torch.tensor([n]), tm.init_kv_cache(tcfg, 1, n), last_only=True
+        tparams, tcfg, torch.tensor([prefix]), torch.tensor([n]), tm.init_kv_cache(tcfg, 1, n, device="cpu"),
+        last_only=True,
     )
     active, allowed = _allowed(grammar, toks[:k], budget)
     cols = active[allowed]

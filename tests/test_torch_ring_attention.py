@@ -99,7 +99,7 @@ def test_ring_prefill_matches_both_references(f32_params):
     valid positions, and ``last_only``."""
     jcfg, tree = f32_params
     cfg = dataclasses.replace(GemmaConfig.named("test"), dtype="float32")
-    params = params_from_numpy(tree)
+    params = params_from_numpy(tree, device="cpu")
     B, T = 2, 64
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, 255, (B, T)).astype(np.int32)
@@ -111,7 +111,7 @@ def test_ring_prefill_matches_both_references(f32_params):
     mesh = make_mesh(seq=8, devices=CPU8)
     tt, tl = torch.from_numpy(tokens).long(), torch.from_numpy(seq_lens)
     logits, cache = ring_prefill(params, cfg, tt, tl, mesh)
-    dlogits, dcache = tm.prefill(params, cfg, tt, tl, tm.init_kv_cache(cfg, B, T))
+    dlogits, dcache = tm.prefill(params, cfg, tt, tl, tm.init_kv_cache(cfg, B, T, device="cpu"))
     valid = np.arange(T)[None, :] < seq_lens[:, None]
     assert logits.shape == (B, T, cfg.vocab_size)
     np.testing.assert_allclose(logits.numpy()[valid], np.asarray(jlogits)[valid], rtol=1e-4, atol=1e-4)
@@ -120,7 +120,7 @@ def test_ring_prefill_matches_both_references(f32_params):
         got = cache[name].numpy()[:, valid]
         np.testing.assert_allclose(got, np.asarray(jcache[name])[:, valid], rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(got, dcache[name].numpy()[:, valid], rtol=1e-5, atol=1e-5)
-    last, _ = ring_prefill(params, cfg, tt, tl, mesh, tm.init_kv_cache(cfg, B, T), last_only=True)
+    last, _ = ring_prefill(params, cfg, tt, tl, mesh, tm.init_kv_cache(cfg, B, T, device="cpu"), last_only=True)
     torch.testing.assert_close(last, logits[torch.arange(B), tl.long() - 1], rtol=0, atol=1e-5)
 
 
@@ -138,4 +138,4 @@ def test_ring_requires_seq_axis_and_divisibility():
     params, _ = load_or_init(cfg, seed=0, device="cpu")
     with pytest.raises(ConfigError, match="cache length == T"):
         ring_prefill(params, cfg, torch.zeros((1, 8), dtype=torch.long), torch.tensor([8]), mesh,
-                     tm.init_kv_cache(cfg, 1, 16))
+                     tm.init_kv_cache(cfg, 1, 16, device="cpu"))

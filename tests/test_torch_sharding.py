@@ -74,7 +74,7 @@ def jparams(cfgs):
 
 
 def _port(jparams):
-    return params_from_numpy(jax.tree.map(np.asarray, jparams), dtype=torch.float32)
+    return params_from_numpy(jax.tree.map(np.asarray, jparams), dtype=torch.float32, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -104,7 +104,7 @@ def test_tp_dp_logits_match_single_device(cfgs, jparams, data, model, B, T, key)
     got = {}
     for name, lay in (("unmeshed", None), ("sharded", layout)):
         params = _port(jparams) if lay is None else shard_major(_port(jparams), lay)
-        logits, cache = prefill(params, cfg, toks, lens, init_kv_cache(cfg, B, S), layout=lay)
+        logits, cache = prefill(params, cfg, toks, lens, init_kv_cache(cfg, B, S, device="cpu"), layout=lay)
         step, _ = decode_step(params, cfg, torch.tensor(np.asarray(nxt)), torch.full((B,), T), cache, layout=lay)
         got[name] = (logits.numpy(), step.numpy())
     for name, (logits, step) in got.items():

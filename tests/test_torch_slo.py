@@ -6,9 +6,13 @@ ladder against the blind one, and the end-to-end overload: seeded slow
 traffic through each package's app burns the latency budget, the flight
 recorder's ``slo_burn`` detector trips at the same sample in both, its
 bundle is valid and carries the SLO and usage state, and ``GET /slo``
-shows the burn."""
+shows the burn. The overload runs each app on one injected clock (its
+latency clock, the tracker's and the recorder's), which only the chaos
+latency moves, so no wall time or host load enters what is compared."""
 
 import asyncio
+import importlib
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -227,7 +231,28 @@ GRAPH = {
 }
 
 
-async def _overload(pkg: str, tmp_path) -> dict:
+def _one_clock(monkeypatch, pkg: str) -> FakeClock:
+    """One clock for a package's overload run: the latency its app records
+    (the middleware's ``time.monotonic``) reads it, and only the chaos's
+    injected latency moves it (its sleeps advance the clock and yield), so
+    a baseline request takes 0 ms and a chaos one exactly 250 ms however
+    loaded the host is. ``_overload`` gives the same clock to the SLO
+    tracker and the flight recorder."""
+    p, clock = PKGS[pkg], FakeClock()
+
+    def proxy(module, **over):
+        return SimpleNamespace(**{**{k: getattr(module, k) for k in dir(module) if not k.startswith("__")}, **over})
+
+    async def sleep(delay, result=None):
+        clock.advance(delay)
+        return await asyncio.sleep(0, result)
+
+    monkeypatch.setattr(importlib.import_module(p.app.__module__), "time", proxy(time, monotonic=clock))
+    monkeypatch.setattr(importlib.import_module(p.chaos[1].__module__), "asyncio", proxy(asyncio, sleep=sleep))
+    return clock
+
+
+async def _overload(pkg: str, tmp_path, clock: FakeClock) -> dict:
     p = PKGS[pkg]
     local = p.local()
     local.register("svc", _Svc())
@@ -245,6 +270,7 @@ async def _overload(pkg: str, tmp_path) -> dict:
         },
     })
     cp = p.build(config, transport=transport)
+    cp.slo._clock = cp.flight._clock = clock
     profile_cls, chaos_cls = p.chaos
     chaos = chaos_cls(transport, profile_cls.from_dict({"seed": 7, "endpoints": {"local://svc": {"latency_ms": 250}}}))
     client = TestClient(TestServer(p.app(cp)))
@@ -286,9 +312,9 @@ async def _overload(pkg: str, tmp_path) -> dict:
         await client.close()
 
 
-def test_overload_trips_slo_burn_bundle_and_endpoint(tmp_path):
-    ref = asyncio.run(_overload("reference", tmp_path))
-    port = asyncio.run(_overload("port", tmp_path))
+def test_overload_trips_slo_burn_bundle_and_endpoint(tmp_path, monkeypatch):
+    ref = asyncio.run(_overload("reference", tmp_path, _one_clock(monkeypatch, "reference")))
+    port = asyncio.run(_overload("port", tmp_path, _one_clock(monkeypatch, "port")))
     assert port["baseline"] == ref["baseline"] == 0.0
     assert port["trips"] == 1 and port["active"], port["status"]
     assert port["tripped_at"] == ref["tripped_at"]

@@ -74,7 +74,7 @@ def test_twelve_steps_match_the_reference_from_one_init(corpora, shared_init):
     jparams, jreport = jtrain(JGemmaConfig.named("test", vocab_size=V), ref_corpus, JTrainConfig(**tcfg),
                               init=jax.tree.map(jnp.asarray, shared_init))
     params, report = train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg),
-                           device="cpu", init=params_from_numpy(shared_init))
+                           device="cpu", init=params_from_numpy(shared_init, device="cpu"))
     assert set(report) == set(jreport)
     assert [s for s, _ in report["loss_log"]] == [s for s, _ in jreport["loss_log"]] == list(range(12))
     for (_, a), (_, b) in zip(report["loss_log"], jreport["loss_log"]):
@@ -95,7 +95,7 @@ def test_first_update_has_lr_zero_and_leaves_the_weights(corpora, shared_init):
     port_corpus, ref_corpus = corpora
     tcfg = dict(steps=1, batch_size=8, warmup_steps=3, log_every=1)
     params, _ = train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg), device="cpu",
-                      init=params_from_numpy(shared_init))
+                      init=params_from_numpy(shared_init, device="cpu"))
     jparams, _ = jtrain(JGemmaConfig.named("test", vocab_size=V), ref_corpus, JTrainConfig(**tcfg),
                         init=jax.tree.map(jnp.asarray, shared_init))
     init = _np(shared_init)
@@ -144,7 +144,7 @@ def test_norm_leaves_are_not_decayed(corpora, shared_init):
             "layers": {**shared_init["layers"], "pre_attn_norm": shared_init["layers"]["pre_attn_norm"] + 0.25}}
     tcfg = dict(steps=4, batch_size=8, warmup_steps=1, log_every=1, lr=0.5, weight_decay=0.1)
     params, report = train(GemmaConfig.named("test", vocab_size=V), blank, TrainConfig(**tcfg), device="cpu",
-                           init=params_from_numpy(init))
+                           init=params_from_numpy(init, device="cpu"))
     jparams, _ = jtrain(JGemmaConfig.named("test", vocab_size=V), jblank, JTrainConfig(**tcfg),
                         init=jax.tree.map(jnp.asarray, init))
     assert report["first_loss"] == 0.0
@@ -168,7 +168,7 @@ def test_train_forward_logits_equal_prefill():
     tokens = torch.randint(0, 384, (3, 24), generator=gen)
     lens = torch.tensor([24, 9, 1])
     logits = tm.train_forward(params, cfg, tokens, lens)
-    ref, _ = tm.prefill(params, cfg, tokens, lens, tm.init_kv_cache(cfg, 3, 24))
+    ref, _ = tm.prefill(params, cfg, tokens, lens, tm.init_kv_cache(cfg, 3, 24, device="cpu"))
     assert logits.shape == (3, 24, 384)
     torch.testing.assert_close(logits, ref, rtol=0, atol=1e-6)
     leaf = params["layers"]["wq"].clone().requires_grad_(True)
@@ -190,7 +190,7 @@ def test_npz_files_read_bit_equal_across_packages(tmp_path, shared_init):
     """A file each package writes, the other reads bit for bit (bfloat16
     under ``bf16:`` keys, and float32); the committed checkpoint survives
     the port's load and save exactly."""
-    params = params_from_numpy(shared_init)
+    params = params_from_numpy(shared_init, device="cpu")
     for dtype in ("bfloat16", "float32"):
         port, ref = tmp_path / f"port-{dtype}.npz", tmp_path / f"ref-{dtype}.npz"
         save_npz(str(port), params, dtype=dtype)
@@ -199,7 +199,7 @@ def test_npz_files_read_bit_equal_across_packages(tmp_path, shared_init):
             assert a.files == b.files
             for k in a.files:
                 assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
-        from_ref = flatten_params(load_npz(str(ref)))
+        from_ref = flatten_params(load_npz(str(ref), device="cpu"))
         from_port = jax.tree.map(np.asarray, jload_npz(str(port)))
         for k, v in flatten_params(from_port).items():
             t = from_ref[k]
@@ -207,7 +207,7 @@ def test_npz_files_read_bit_equal_across_packages(tmp_path, shared_init):
             bits = (t.view(torch.int16).numpy().view(np.uint16) if dtype == "bfloat16" else t.numpy())
             np.testing.assert_array_equal(np.asarray(v).view(bits.dtype), bits, err_msg=k)
     again = tmp_path / "again.npz"
-    save_npz(str(again), load_npz(CKPT))
+    save_npz(str(again), load_npz(CKPT, device="cpu"))
     with np.load(CKPT) as a, np.load(again) as b:
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
@@ -249,10 +249,10 @@ def test_mesh_is_refused(corpora, shared_init):
     jparams, jreport = jtrain(JGemmaConfig.named("test", vocab_size=V), ref_corpus, JTrainConfig(**tcfg),
                               init=jax.tree.map(jnp.asarray, shared_init), mesh=jmake_mesh(data=2, model=1))
     meshed, report = train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg),
-                           device="cpu", init=params_from_numpy(shared_init),
+                           device="cpu", init=params_from_numpy(shared_init, device="cpu"),
                            mesh=make_mesh(data=2, devices=["cpu"] * 2))
     plain, plain_report = train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg),
-                                device="cpu", init=params_from_numpy(shared_init))
+                                device="cpu", init=params_from_numpy(shared_init, device="cpu"))
     _assert_same_run(report, meshed, jreport, jax.tree.map(np.asarray, jparams))
     _assert_same_run(report, meshed, plain_report, plain)
 
@@ -275,7 +275,7 @@ def test_hybrid_mesh_trains_as_a_flat_one(corpora, shared_init, batch):
     assert len(_batch_shards(hybrid, batch)) == (4 if batch == 8 else 2)
     assert len(_batch_shards(flat, batch)) == (8 if batch == 8 else 1)
     runs = [train(GemmaConfig.named("test", vocab_size=V), port_corpus, TrainConfig(**tcfg), device="cpu",
-                  init=params_from_numpy(shared_init), mesh=m) for m in (hybrid, flat)]
+                  init=params_from_numpy(shared_init, device="cpu"), mesh=m) for m in (hybrid, flat)]
     jparams, jreport = jtrain(JGemmaConfig.named("test", vocab_size=V), ref_corpus, JTrainConfig(**tcfg),
                               init=jax.tree.map(jnp.asarray, shared_init), mesh=jmake_hybrid_mesh(2, 2, 2))
     (h_params, h_report), (f_params, f_report) = runs
