@@ -17,8 +17,10 @@ Phases, one line each (every number beside the card's name and power limit):
      the plain version's and one PyTorch library call's (a yardstick the
      port never calls), each by back-to-back eager calls (``ms``, host work
      included) and as device time by CUDA-graph replays (``device_ms``),
-     and the least time the card could take (``bound_ms``). The attention
-     kernel's ticket counters must be back at 0 after the phase;
+     and the least time the card could take (``bound_ms``), and the design
+     (``warpgroup`` or ``mma_sync``), grid and split count the launch takes.
+     The attention kernel's ticket counters must be back at 0 after the
+     phase;
   4. forward check: prefill plus one paged decode forward of the trained
      checkpoint in float32, on the card (through the kernel) against the CPU
      (plain path), at 64-token and at 16-token pages;
@@ -50,8 +52,9 @@ Phases, one line each (every number beside the card's name and power limit):
      its intents (8 x 4 on the trained checkpoint, 4 x 4 at 2b), 16 in
      flight, with the radix prefix cache off and then on (a live flip on an
      idle slab). Every plan valid, the same plans in both modes, tree hits
-     and suffix prefills through the kernel, and fewer prefill tokens per
-     request with the cache on;
+     and suffix prefills through the kernel, each launch of them on the
+     warpgroup design (``launches``' ``by_design``, which every serving
+     line prints), and fewer prefill tokens per request with the cache on;
   9. telemetry (``telemetry_test``, ``telemetry_2b``), on the same engines:
      the burst's intents once more, from an emptied tree and as one cohort
      as the burst ran, with a fresh ``Tracer`` (every trace
@@ -523,6 +526,7 @@ def kernel_times(q, kp, vp, table, starts, q_lens, L) -> dict:
 
 def kernel_phase(card: str) -> list[dict]:
     from mcpx_torch.engine.kernels.paged_attention import (
+        launch_plan,
         ragged_paged_attention,
         ragged_paged_attention_reference,
     )
@@ -546,9 +550,11 @@ def kernel_phase(card: str) -> list[dict]:
         q, kp, vp, table, starts, q_lens = cell_batch(0, G, hd, L, live, psz, pmax)
         times = kernel_times(q, kp, vp, table, starts, q_lens, L)
         bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, table, starts, q_lens)
+        plan = launch_plan(q, kp, table)
         row = dict(
             cell=cell, B=q.shape[0], S=q.shape[1], K=1, G=G, hd=hd, L=L, page_size=psz, max_pages=pmax,
-            live_rows=int((q_lens > 0).sum()), dtype="bfloat16", max_abs_err=worst,
+            live_rows=int((q_lens > 0).sum()), dtype="bfloat16",
+            **{k: plan[k] for k in ("design", "grid", "n_split", "tile_rows")}, max_abs_err=worst,
             atol=ATOL, rtol=RTOL, **times, bound_ms=bound_ms, bound_by=bound_by,
             ms_over_bound=times["ms"] / bound_ms,
             device_ms_over_bound=times["device_ms"] / bound_ms, bytes=nbytes, flops=flops,
@@ -557,6 +563,16 @@ def kernel_phase(card: str) -> list[dict]:
         rows.append(row)
     check_tickets("kernel phase")
     return rows
+
+
+def launch_counts() -> dict:
+    """The kernel's launches since the last reset, by kernel name, and the
+    same launches by design under ``by_design`` (``kernel_designs()``:
+    ``warpgroup`` for the multi-tile bf16 windows, ``mma_sync`` for the
+    rest), so that a serving line shows which design its prefills took."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_designs, kernel_launches
+
+    return {**kernel_launches(), "by_design": kernel_designs()}
 
 
 def check_tickets(where: str) -> None:
@@ -674,7 +690,7 @@ async def serve(
     the stats carry the weights' bytes and the repeat's ``graph_window``.
     The lines are ``serve_<size>`` and ``graph_window_<size>``, or ``name``
     and ``graph_window_<name>``."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.models.gemma.params import n_bytes
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.telemetry.flight import WorkerProfiler
@@ -711,7 +727,7 @@ async def serve(
         finally:
             engine._profiler = None
         wall = time.monotonic() - t0
-        launches = kernel_launches()
+        launches = launch_counts()
         await settle_profile()
         lat = sorted(r.total_ms for r in recs)
         for p in plans:
@@ -997,7 +1013,7 @@ async def serve_modes(
     also fails unless drafting accepts tokens and takes fewer live forwards;
     random weights copy nothing, so the prompt lookup has no match to
     propose from (the counts are printed all the same)."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
 
     engine = cp.planner.engine
     ecfg = engine.config.engine
@@ -1032,7 +1048,7 @@ async def serve_modes(
             t0 = time.monotonic()
             results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
             wall = time.monotonic() - t0
-            launches = kernel_launches()
+            launches = launch_counts()
             engine.generate = real_generate
             plans = [p for p, _ in results]
             lat = sorted(ms for _, ms in results)
@@ -1118,7 +1134,7 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
     line and fails unless every plan is valid, the two modes give the same
     plans, the cache hits, suffix prefills run through the kernel, and the
     prefill tokens per request fall with the cache on."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.utils.synth import intent_for
 
     engine = cp.planner.engine
@@ -1143,7 +1159,7 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
         t0 = time.monotonic()
         results = await asyncio.gather(*(one(i) for i in intents))
         wall = time.monotonic() - t0
-        launches = kernel_launches()
+        launches = launch_counts()
         q1, c1 = engine.queue_stats(), engine.prefix_cache_stats()
         plans = [p for p, _ in results]
         lat = sorted(ms for _, ms in results)
@@ -1175,6 +1191,11 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
         raise SystemExit(f"serve_prefix_{size}: plans differ between the modes at {differ}")
     if on["hits"] <= 0 or on["suffix_prefills"] <= 0 or on["suffix_prefill_launches"] <= 0:
         raise SystemExit(f"serve_prefix_{size}: no reuse through the kernel: {on}")
+    # Suffix prefills are bf16 windows of 64 or more queries: on the card
+    # each of their launches takes the warpgroup design.
+    by_design = on["launches"]["by_design"]
+    if torch.cuda.is_available() and by_design["warpgroup"] < on["suffix_prefill_launches"]:
+        raise SystemExit(f"serve_prefix_{size}: suffix prefills missed the warpgroup design: {by_design} {on}")
     if not on["prefill_tokens_per_request"] < off["prefill_tokens_per_request"]:
         raise SystemExit(f"serve_prefix_{size}: the cache did not cut prefill tokens: {off} {on}")
     return {"off": off, "on": on}
@@ -1408,7 +1429,7 @@ async def telemetry_phase(cp, intents: list, burst_plans: list, size: str, card:
     planner's time outside the engine, the worker profile, the achieved
     rates, the HBM gauges, and the burst's p50 with telemetry on and off in
     three interleaved pairs (printed only: bursts spread about 60%)."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.telemetry.costs import device_peaks, rounded_roofline, update_hbm_gauges
     from mcpx_torch.telemetry.flight import WorkerProfiler
     from mcpx_torch.telemetry.tracing import Tracer
@@ -1436,7 +1457,7 @@ async def telemetry_phase(cp, intents: list, burst_plans: list, size: str, card:
         cp.tracer, engine._profiler = prev
     await settle_profile()
     profile = prof.snapshot()
-    launches = kernel_launches()
+    launches = launch_counts()
     q1 = engine.queue_stats()
     c1 = engine.costs.snapshot()["totals"]
     update_hbm_gauges(cp.metrics)
@@ -1698,7 +1719,7 @@ async def observatory_phase(cp, intents: list, burst_plans: list, name: str, car
     import shutil
     import tempfile
 
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.telemetry.flight import WorkerProfiler, build_flight_recorder, validate_bundle
     from mcpx_torch.telemetry.ledger import UsageLedger
     from mcpx_torch.telemetry.provenance import ProvenanceRecorder, build_explanation, validate_explanation
@@ -1774,7 +1795,7 @@ async def observatory_phase(cp, intents: list, burst_plans: list, name: str, car
                 explanations=[validate_explanation(build_explanation(r)) for r in recs],
                 decisions=sum(len(build_explanation(r)["decisions"]) for r in recs),
             ))
-        launches = kernel_launches()
+        launches = launch_counts()
         q_end = engine.queue_stats()
         samples = flight.samples if flight is not None else 0
         if flight is not None:
@@ -1964,7 +1985,7 @@ async def mixed_phase(cp, size: str, card: str, n: int = 96) -> dict:
     run captures nothing, every constrained output walks its grammar and,
     at test, the greedy rows are the same token for token in both modes
     (at 2b each difference is printed with its top-2 margin)."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
 
     engine = cp.planner.engine
     ecfg = engine.config.engine
@@ -1985,7 +2006,7 @@ async def mixed_phase(cp, size: str, card: str, n: int = 96) -> dict:
             t0 = time.monotonic()
             served = await serve_stream(engine, classes, "mixed", range(n), budget, concurrency)
             wall = time.monotonic() - t0
-            launches = kernel_launches()
+            launches = launch_counts()
             q1 = engine.queue_stats()
             hol = [res.queue_ms for _, _, res in served.values()]
             stats = dict(
@@ -2131,7 +2152,7 @@ async def serve_hetero(
     path ran; then ``after(cp, intents, plans)`` on the same control plane
     when given. Returns (stats, what ``after`` returned). ``batch`` and
     ``device`` shrink it for a CPU rehearsal."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for, synth_registry
 
@@ -2155,7 +2176,7 @@ async def serve_hetero(
         with one_cohort(engine, n_intents):
             results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
         wall = time.monotonic() - t0
-        launches = kernel_launches()
+        launches = launch_counts()
         q1 = engine.queue_stats()
         plans = [p for p, _ in results]
         for p in plans:
@@ -2197,7 +2218,7 @@ async def int8_phase(
     against bf16 (each from its own engine's ``graph_window``). Then, on the
     same control plane, ``after(cp)`` when given. ``batch`` and ``device``
     shrink it for a CPU rehearsal."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.models.gemma.config import GemmaConfig
     from mcpx_torch.models.gemma.params import n_bytes
     from mcpx_torch.models.gemma.quant import is_quantized, quantized_param_bytes
@@ -2236,7 +2257,7 @@ async def int8_phase(
             results = await asyncio.gather(*(cp.plan(i, use_cache=False) for i in intents))
         sync()
         wall = time.monotonic() - t0
-        launches = kernel_launches()
+        launches = launch_counts()
         q1 = engine.queue_stats()
         plans = [p for p, _ in results]
         for p in plans:
@@ -2298,7 +2319,7 @@ async def overload_phase(cp, records, size: str, card: str, plans_per_s: float, 
     error, the overload engaged (some shed or degraded), no degraded plan
     sits in the plan cache, and no pin or queued request is left."""
     from mcpx_torch.core.config import SchedulerConfig
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.scheduler import Scheduler, ShedError
     from mcpx_torch.utils.synth import intent_for
 
@@ -2355,7 +2376,7 @@ async def overload_phase(cp, records, size: str, card: str, plans_per_s: float, 
     finally:
         cp.scheduler, cp.config.scheduler = None, prev_scfg
     sync()
-    launches = kernel_launches()
+    launches = launch_counts()
     await idle(engine)
     q1 = engine.queue_stats()
     served = sorted(lat["admitted"] + lat["degraded"])
@@ -2569,7 +2590,7 @@ async def tier_phase(size: str, checkpoint: str, card: str, n_prompts: int = 64,
     import tempfile
 
     from mcpx_torch.engine.engine import InferenceEngine
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.telemetry.flight import WorkerProfiler
 
     t_phase = time.monotonic()
@@ -2611,7 +2632,7 @@ async def tier_phase(size: str, checkpoint: str, card: str, n_prompts: int = 64,
         wall = time.monotonic() - t0
         engine._profiler = None
         sync()
-        launches = kernel_launches()
+        launches = launch_counts()
         await settle_profile()
         q1, c1 = engine.queue_stats(), engine.prefix_cache_stats()
         n = sum(len(s) for s in streams)
@@ -2661,7 +2682,7 @@ async def tier_phase(size: str, checkpoint: str, card: str, n_prompts: int = 64,
         t0 = time.monotonic()
         warm = (await drive(engine, [prompts[0]]))[0]
         warm_ms = (time.monotonic() - t0) * 1e3
-        warm_launches = kernel_launches()["ragged_paged_attention"]
+        warm_launches = launch_counts()["ragged_paged_attention"]
         warm_prefill = engine.queue_stats()["prefill_tokens"] - q0["prefill_tokens"]
         warm_readmits = engine.prefix_cache_stats()["tier"]["readmits"]
         await close(engine, "warm")
@@ -3099,7 +3120,7 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
     services gained in the execution (``err=``, ``p50=``), as the
     reference's does, so its prompt parts from the original at the first
     such line: the line reports how many tokens each shares."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for, synth_registry
 
@@ -3170,7 +3191,7 @@ async def execute_phase(size: str, checkpoint: str, n_intents: int, card: str, b
             results = await lockstep.run(one(i) for i in intents)
             wall = time.monotonic() - t0
             sync()
-            launches = kernel_launches()
+            launches = launch_counts()
             await idle(engine)  # the unpins ride the queue: drained here
             q1 = engine.queue_stats()
             pinned_nodes = await engine.drop_unpinned()
@@ -3449,7 +3470,7 @@ async def registry_phase(size: str, checkpoint: str, n_intents: int, card: str, 
     and naming only registry services; the device ranking equal to the
     host's on every intent but near-ties (printed); the kernel launched in
     the burst and its tickets back at 0."""
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.server.factory import build_control_plane
     from mcpx_torch.utils.synth import intent_for
 
@@ -3501,7 +3522,7 @@ async def registry_phase(size: str, checkpoint: str, n_intents: int, card: str, 
             t0 = time.monotonic()
             served = await timed_plans(cp, intents)
             wall = time.monotonic() - t0
-            launches = kernel_launches()
+            launches = launch_counts()
             if cuda:
                 check_tickets(f"registry_100k_{size}")
             q1 = engine.queue_stats()
@@ -3650,7 +3671,7 @@ async def sp_phase(size: str, checkpoint: str, n_intents: int, card: str, batch:
     launched."""
     import tempfile
 
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.models.sp_model import tiny_model
     from mcpx_torch.models.tokenizer import SentencePieceTokenizer
     from mcpx_torch.server.factory import build_control_plane
@@ -3679,7 +3700,7 @@ async def sp_phase(size: str, checkpoint: str, n_intents: int, card: str, batch:
             t0 = time.monotonic()
             served = await timed_plans(cp, intents)
             wall = time.monotonic() - t0
-            launches = kernel_launches()
+            launches = launch_counts()
             plans = [p for p, _ in served]
             lat = sorted(ms for _, ms in served)
             q1 = engine.queue_stats()
@@ -3945,7 +3966,7 @@ async def cluster_phase(size: str, checkpoint: str, n_intents: int, card: str, s
             mem_after_drain_rejoin = settled_memory() if cuda else 0
             await idle(pool)
             sync()
-            launches = kernel_launches()
+            launches = launch_counts()
             own = pool.replica_launches()
             own_delta = {i: own[i]["ragged_paged_attention"] - own0[i].get("ragged_paged_attention", 0) for i in own}
             global_delta = launches["ragged_paged_attention"] - n0["ragged_paged_attention"]
@@ -4100,7 +4121,7 @@ def offline_phase(card: str, device="cuda", *, n_examples: int = 512, registry_s
     committed checkpoint's plan quality at each tier (``eval_test``)."""
     import tempfile
 
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.models.bpe import BPETokenizer
     from mcpx_torch.models.corpus import CorpusConfig, build_corpus_sync
     from mcpx_torch.models.gemma.config import GemmaConfig
@@ -4213,7 +4234,7 @@ def offline_phase(card: str, device="cuda", *, n_examples: int = 512, registry_s
             q = asyncio.run(evaluate_planner(
                 checkpoint=CKPT, n_intents=eval_intents, registry_size=eval_registry, device=device,
                 constrain_names=ref["constrain_names"], quantize=ref["quantize"]))
-        launches = kernel_launches()
+        launches = launch_counts()
         near = [dict(plan=i, margin=m, position=k, text=t) for i, (m, k, t) in enumerate(margins) if m < NEAR_TIE]
         evals[tier] = dict(**q, launches=launches, seconds=time.monotonic() - t1, near_ties=near,
                            least_margin=min((m for m, _, _ in margins), default=math.nan))
@@ -4369,7 +4390,7 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
     ids, the engine's seq mesh)."""
     from mcpx_torch.core.errors import EngineError
     from mcpx_torch.engine.engine import InferenceEngine
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.models.bpe import BPETokenizer
     from mcpx_torch.models.gemma.config import GemmaConfig
     from mcpx_torch.parallel import transfer
@@ -4459,7 +4480,7 @@ async def ring_serve(size: str, checkpoint: str, n_intents: int, card: str, *, f
         ring_plans, ring_calls = await burst(intents)
         wall = time.monotonic() - t0
         sync()
-        launches, ring_moves = kernel_launches(), transfer.counts()
+        launches, ring_moves = launch_counts(), transfer.counts()
         q1 = engine.queue_stats()
         repeat_plans, _ = await burst(intents)
         q2 = engine.queue_stats()
@@ -4779,7 +4800,7 @@ async def tp_serve(size: str, checkpoint: str, n_intents: int, card: str, *, bat
     its row blocks and pool views agrees with the plain version
     (``kernel_at_shards``). Returns both arms' stats."""
     from mcpx_torch.engine.engine import InferenceEngine
-    from mcpx_torch.engine.kernels.paged_attention import kernel_launches, reset_kernel_launches
+    from mcpx_torch.engine.kernels.paged_attention import reset_kernel_launches
     from mcpx_torch.models.bpe import BPETokenizer
     from mcpx_torch.models.gemma.config import GemmaConfig
     from mcpx_torch.parallel.mesh import make_mesh
@@ -4825,7 +4846,7 @@ async def tp_serve(size: str, checkpoint: str, n_intents: int, card: str, *, bat
                 timed = await timed_plans(cp, intents)
             wall = time.monotonic() - t0
             sync()
-            launches = kernel_launches()
+            launches = launch_counts()
             q1 = engine.queue_stats()
             with one_cohort(engine, n_intents):
                 await timed_plans(cp, intents)
@@ -6107,6 +6128,12 @@ def main(argv: list[str]) -> int:
             "launches": sum(st["launches"][name] for st in runs + [trained_ovl, full_ovl] + clusters
                             + list(offline["eval_test"].values())) + cross["launches"]
             + sum(d["launches"] for d in decode_steps),
+            # The same runs' launches by design (phase 27's and 28's apart).
+            "serving_launches_by_design": {
+                design: sum(st["launches"].get("by_design", {}).get(design, 0) for st in runs
+                            + [trained_ovl, full_ovl] + clusters + list(offline["eval_test"].values()))
+                for design in ("warpgroup", "mma_sync")
+            },
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

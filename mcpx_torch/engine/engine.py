@@ -179,6 +179,7 @@ from mcpx_torch.core.config import MCPXConfig
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.device import resolve_device
 from mcpx_torch.engine.kernels.paged_attention import (
+    captured_designs,
     captured_launches,
     count_into,
     count_replay,
@@ -771,6 +772,7 @@ class InferenceEngine:
         # stream's ticket buffer is held are made in _setup.
         self._graphs: dict[tuple, "torch.cuda.CUDAGraph"] = {}
         self._graph_launches: dict[tuple, dict[str, int]] = {}
+        self._graph_designs: dict[tuple, dict[str, int]] = {}  # the same launches by design
         self._captures: dict[tuple, int] = {}
         # The kernel launches this engine's worker thread made, replays
         # included (``own_launches``): the process-wide counts less other
@@ -1739,6 +1741,7 @@ class InferenceEngine:
             self._inflight.clear()
         self._graphs.clear()
         self._graph_launches.clear()
+        self._graph_designs.clear()
         if self._tickets_held:
             release_tickets(self.device, self._capture_stream.cuda_stream)
             self._tickets_held = False
@@ -2949,7 +2952,7 @@ class InferenceEngine:
             self._capture(key, lambda: self._window(slab, key, dfa), serving=True)
             return
         graph.replay()
-        count_replay(self._graph_launches[key])
+        count_replay(self._graph_launches[key], self._graph_designs[key])
         self._stats["replays"] += 1
 
     def _record_window(self, key: tuple) -> None:
@@ -3001,19 +3004,21 @@ class InferenceEngine:
                 # and the other capture is invalidated). The capturing
                 # stream already waits on the worker's stream above.
                 with _CAPTURE_LOCK, torch.cuda.stream(stream):
-                    before = captured_launches()
+                    before, before_designs = captured_launches(), captured_designs()
                     graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
                     try:
                         fn()
                     finally:
                         graph.capture_end()
                     launches = {k: n - before[k] for k, n in captured_launches().items()}
+                    designs = {k: n - before_designs[k] for k, n in captured_designs().items()}
             except Exception as e:
                 raise EngineError(f"capture of the decode window {key} failed: {e}") from e
             finally:
                 main.wait_stream(stream)
             self._graphs[key] = graph  # mcpx: ignore[jit-static-branch] - homogeneous-mode debt: per-request temperature/constrained ARE trace statics here, bounded by the slab-wide compat triple (one config per occupancy, drain-to-switch); hetero_batch moves both into per-row device state
             self._graph_launches[key] = launches
+            self._graph_designs[key] = designs
             self._captures[key] = self._captures.get(key, 0) + 1
             self._stats["captures" if serving else "warmup_captures"] += 1
 

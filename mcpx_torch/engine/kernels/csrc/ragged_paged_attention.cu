@@ -16,56 +16,96 @@
 //
 // What bounds it on the H100. The least time is bytes / 3.35 TB/s: each
 // live row's visible K and V positions once, plus q and out. The products
-// need far fewer operations than the tensor cores could do in that time
-// (2b shape: 3.8 us of bytes against 0.26 us of bf16 operations). At the
-// serving shapes, though, a launch moves only a few MB over few live rows,
-// so what sets its time is the longest dependent chain of one block: page
-// lookups, copy latency, the products of its tiles, the softmax, and the
-// merge. One block per (row, kv-head) would leave most SMs idle on a batch
-// with few live rows, and products on CUDA cores out of shared memory cost
-// two shared loads per FMA. The design shortens the chain:
+// need fewer operations than the tensor cores could do in that time (2b
+// prefill cohort: about 1.9 GFLOP, 2 us at the bf16 peak, against 4.2 us of
+// bytes). At the serving shapes, though, a launch moves only a few MB, so
+// what sets its time is the longest dependent chain of one block: page
+// lookups, copy latency, the products, the softmax and, where positions are
+// split, the merge.
+//
+// Two designs, chosen by shape alone (`kernel_design` in paged_attention.py;
+// one CUDA-graph key serves any phase mix):
+//   * warpgroup: bf16 windows of more than one 64-row query tile (S*G > 64:
+//     suffix and tier prefill) at hd 32, 64, 128 or 256 and Psz 8, 16, 32 or
+//     64. Every other window (decode, fast-forward, verify, one-token steps,
+//     float32, hd % 16 == 8 such as hd 24 and 40, other page sizes) takes
+//     mma_sync. Each head_dim is an instantiation; 32 and 256 are the
+//     presets'.
+//   * mma_sync: the Ampere-style design below, which wins on one-tile
+//     windows: wgmma's 64-row tiles would waste 7/8 of each tile on decode
+//     rows.
+//
+// The warpgroup design. One block per (row, kv-head, 64 query rows) and,
+// where the blocks fill less than half the SMs and the table names more
+// than 256 positions, per split of at least 256; the serving shapes (the
+// 16-row S 128 cohorts, the B 4 tier rows over 256 positions) do not
+// split, so they write no fp32 partial. 256 threads: a consumer warpgroup
+// and a producer warpgroup, of which one warp reads the page ids and loads
+// K and V by TMA, in stages of 64 positions (one page at Psz 64, four at
+// Psz 16) viewed through a tensor map of the pool as [K*L*N*Psz, hd] rows
+// in boxes of Psz rows by min(hd, 64) columns, swizzled (128 or 64 bytes)
+// as wgmma reads them; pages past the block's positions load rows past the
+// pool, which TMA fills with zeros. Stages signal completion on mbarriers,
+// in a ring of as many stages as shared memory holds. q is loaded once, by
+// the consumers' cp.async, into the same layout. Per stage the consumers
+// compute S = q K^T as wgmma m64n64k16 from shared memory, mask only where
+// the positions reach past the first live row's limit, run the online
+// softmax on the accumulator fragments, round P to bf16 in registers and
+// issue o += P V as one wgmma m64n{hd}k16 a 16-position k-step, P the
+// register operand and V read transposed through its descriptor; past the
+// last live row's limit they only wait and release. ptxas allocates every
+// thread of a kernel the registers its launch bounds leave (setmaxnreg
+// does not raise that), so hd 256, whose accumulator alone is 128
+// registers a thread, runs one block an SM at up to 255, and the narrower
+// head_dims two at 128; two blocks' consumer warpgroups then share an SM's
+// tensor cores. (Two consumer warpgroups a block sharing each stage, at
+// 168 registers, spilled and serialized every hd-256 wgmma and ran 2b's
+// tier and p16 prefill 1.3x slower.) Blocks run tile-major, a row's last
+// (longest) tiles first. The tensor maps are encoded on the host through
+// cudaGetDriverEntryPoint and cached per (device, pool, shape) under the
+// launcher's mutex; they pass as __grid_constant__ parameters.
+// What bounds it: latency, not bytes. At 2b prefill about half the time is
+// the launch, q, the first stage's copy and the stores, the rest the chain
+// of the heaviest blocks' stages. Each of a row's blocks reads the row's K
+// and V again, from L2. At the tier rows (8 or 16 blocks), launch latency.
+//
+// The mma_sync design:
 //   * Query tiles. A window's S*G query rows (the GQA group folded in) are
 //     cut into tiles of kMaxRows = 64 rows, so one launch serves any window
-//     the reference kernel does: decode and fast-forward windows are one
-//     tile, a suffix prefill at S = 256, G = 8 is 32. Each tile sees only
-//     positions below start + (its last live query) + 1, so the causal
-//     rule skips whole chunks for the early tiles of a prefill row.
+//     the reference kernel does. Each tile sees only positions below start
+//     + (its last live query) + 1, so the causal rule skips whole chunks
+//     for the early tiles of a prefill row.
 //   * Split positions (flash-decoding). The grid is (B*K*n_tiles, n_split).
 //     Block c of a live tile attends positions [c*span, (c+1)*span), span
 //     a multiple of kChunk; a block past the tile's last visible position
-//     computes nothing. Short spans keep each block's chain short: at 2b
-//     width a 64-row tile over 256 positions is about 17 MFLOP, tens of
-//     microseconds for one SM's mma.sync, and even at the test width a
-//     block walking a whole row pays a dependent chain of address math and
-//     softmax per tile. The split count falls as the tiles alone fill the
-//     card (about two blocks an SM): n_split = cdiv(Pmax*Psz, span) with
-//     span the least multiple of kChunk that keeps B*K*n_tiles*n_split
-//     near 2 * SMs, never above cdiv(Pmax*Psz, kChunk) splits. Decode
-//     windows (one tile a row) keep one split per kChunk; a wide prefill
-//     cohort falls to one split, which also bounds the fp32 scratch to
-//     twice the output. Tile and split counts depend on shapes (and the
-//     card's SM count) only, so one launch serves any phase mix.
-//   * Combine in the same launch. Block 0 writes the zeros of an idle row's
-//     tiles and of tiles that hold only pads. Each block of a live tile
-//     with work writes its partial (m, l, unnormalised acc) in fp32 to
-//     scratch, fences, and takes a ticket on the tile's counter; every
-//     block of the tile takes one, empty ones too. The block that draws the
-//     last ticket merges the partials in split order (so the output does
-//     not depend on block timing), writes the tile's rows (zeros for pads)
-//     and resets the counter to 0. It keeps 16 loads of the partials in
-//     flight a thread, since one block reads them all. The counters assume
-//     that launches sharing them run one after another, so the wrapper
-//     keeps one buffer per stream. A second combine launch would cost host
-//     time per layer on an engine the host already holds back.
+//     computes nothing. Short spans keep each block's chain short. The
+//     split count falls as the tiles alone fill the card (about two blocks
+//     an SM): n_split = cdiv(Pmax*Psz, span) with span the least multiple
+//     of kChunk that keeps B*K*n_tiles*n_split near 2 * SMs, never above
+//     cdiv(Pmax*Psz, kChunk) splits. Decode windows (one tile a row) keep
+//     one split per kChunk. Tile and split counts depend on shapes (and
+//     the card's SM count) only.
+//   * Combine in the same launch (both designs). Block 0 writes the zeros
+//     of an idle row's tiles and of tiles that hold only pads. Each block
+//     of a live tile with work writes its partial (m, l, unnormalised acc)
+//     in fp32 to scratch, fences, and takes a ticket on the tile's counter;
+//     every block of the tile takes one, empty ones too. The block that
+//     draws the last ticket merges the partials in split order (so the
+//     output does not depend on block timing), writes the tile's rows
+//     (zeros for pads) and resets the counter to 0. It keeps 16 loads of
+//     the partials in flight a thread, since one block reads them all. The
+//     counters assume that launches sharing them run one after another, so
+//     the wrapper keeps one buffer per stream. A second combine launch
+//     would cost host time per layer on an engine the host already holds
+//     back.
 //   * Asynchronous copies. The block computes its positions' pool offsets
 //     once, a thread a position, from the page table. K and V arrive by
 //     cp.async.cg (16 B a lane, a warp a position, zero-filled past the
 //     visible end) into a ring of two stages of kTile positions: both are
 //     in flight at once, and a stage is refilled with the tile after next
-//     as soon as it has been computed, so a copy lands while the tile
-//     before it is computed. q is loaded once per block. Tiles are
-//     XOR-swizzled in 16-byte chunks so that ldmatrix and 128-bit loads
-//     read without bank conflicts.
+//     as soon as it has been computed. q is loaded once per block. Tiles
+//     are XOR-swizzled in 16-byte chunks so that ldmatrix and 128-bit
+//     loads read without bank conflicts.
 //   * Tensor cores (bf16). Both products run as mma.sync m16n8k16 with
 //     fragments from ldmatrix (.trans for V) and fp32 accumulators in
 //     registers. The live query rows (q_len*G) are padded up to a multiple
@@ -74,16 +114,13 @@
 //     the plain version rounds its weights to V's type. A head_dim with
 //     hd % 16 == 8 is zero-padded in shared memory to a whole k-step.
 //     A warp takes a 16-row tile whole (scores, softmax, and up to 128
-//     head_dim columns of P.V); two warps share it at hd 256. Redundant
-//     scores cost more than idle warps: the time of a tile is the
-//     instruction time of the warps that run it.
-//     mma.sync rather than wgmma: the work is bound by bytes, and wgmma's
-//     64-row tiles would waste 7/8 of each tile on decode rows.
+//     head_dim columns of P.V); two warps share it at hd 256.
 //   * fp32 keeps its products on CUDA cores (no TF32), so it matches the
 //     plain fp32 version to summation order; it shares the split, the
 //     combine and the copy pipeline.
 //   * The launch attribute for dynamic shared memory is set once per
 //     instantiation and size, not on every launch.
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +128,7 @@
 #include <algorithm>
 #include <mutex>
 #include <type_traits>
+#include <vector>
 
 namespace {
 
@@ -223,6 +261,19 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Barriers for `merge`: the whole block, or the kT consumer threads of a
+// warp-specialised block (named barrier `id`; 0 is __syncthreads').
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+template <int kT>
+struct NamedSync {
+  int id;
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kT) : "memory");
+  }
+};
+
 struct Args {
   const void* q;
   const void* k_pages;
@@ -303,11 +354,11 @@ __device__ __forceinline__ void load_tile(const Args& a, const Layout& lay, unsi
 }
 
 // Tile rows [from, rows) are exact zeros: a warp a row, 16 bytes a lane.
-template <typename T>
+template <typename T, int kT = kThreads>
 __device__ void zero_rows(const Args& a, const Block& blk, int from) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nvec = a.hd * (int)sizeof(T) / 16;
-  for (int r = from + warp; r < blk.rows; r += kWarps) {
+  for (int r = from + warp; r < blk.rows; r += kT / 32) {
     uint4* dst = reinterpret_cast<uint4*>(static_cast<T*>(a.out) + blk.at(a, r));
     for (int v = lane; v < nvec; v += 32) dst[v] = make_uint4(0u, 0u, 0u, 0u);
   }
@@ -596,22 +647,24 @@ struct SimtRows {
 // The last block of a split row merges the splits that had work, in split
 // order, skipping those whose l is 0, and writes the whole window. Every
 // (m, l) load is in flight at once; then each thread starts its columns'
-// loads from every split before it uses one.
-template <typename T>
-__device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, const Block& blk,
-                      int nwork, const float* part, const float* ml) {
+// loads from every split before it uses one. Threads [0, kT) run it,
+// `ws` holds (3 * nsplit + 1) * prows floats, and `sync` is their barrier
+// (__syncthreads, or the consumers' named barrier in the warpgroup design).
+template <typename T, int kT, typename Sync>
+__device__ void merge(const Args& a, float* ws, int prows, const Block& blk, int nwork,
+                      const float* part, const float* ml, Sync sync) {
   const int rows = a.trows, ns = a.nsplit;
-  float* m_s = reinterpret_cast<float*>(smem + lay.w);  // [rows, ns]: each split's max
-  float* l_s = m_s + (size_t)lay.rows * ns;              // [rows, ns]: each split's sum
-  float* w_s = l_s + (size_t)lay.rows * ns;              // [rows, ns]: e^(m_i - m*), 0 if l_i = 0
-  float* sum_s = w_s + (size_t)lay.rows * ns;            // [rows]: sum_i l_i e^(m_i - m*)
-  for (int e = threadIdx.x; e < blk.live * nwork; e += kThreads) {
+  float* m_s = ws;                                  // [rows, ns]: each split's max
+  float* l_s = m_s + (size_t)prows * ns;            // [rows, ns]: each split's sum
+  float* w_s = l_s + (size_t)prows * ns;            // [rows, ns]: e^(m_i - m*), 0 if l_i = 0
+  float* sum_s = w_s + (size_t)prows * ns;          // [rows]: sum_i l_i e^(m_i - m*)
+  for (int e = threadIdx.x; e < blk.live * nwork; e += kT) {
     const int r = e / nwork, c = e - r * nwork;
     m_s[r * ns + c] = __ldcg(ml + (size_t)c * 2 * rows + r);
     l_s[r * ns + c] = __ldcg(ml + (size_t)c * 2 * rows + rows + r);
   }
-  __syncthreads();
-  for (int r = threadIdx.x; r < blk.live; r += kThreads) {
+  sync();
+  for (int r = threadIdx.x; r < blk.live; r += kT) {
     float mx = kNegInf;
     for (int c = 0; c < nwork; ++c)
       if (l_s[r * ns + c] > 0.f) mx = fmaxf(mx, m_s[r * ns + c]);
@@ -624,7 +677,7 @@ __device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, con
     }
     sum_s[r] = sum;
   }
-  __syncthreads();
+  sync();
   // Element e = r * nv + v (row r, 4-column group v) sits at float4 e of
   // every split's [rows, hd] partial. A thread takes kElems elements a pass
   // and starts their loads from kBatch splits before it uses one.
@@ -632,7 +685,7 @@ __device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, con
   const int nv = a.hd / 4, n = blk.live * nv;
   const float4* src = reinterpret_cast<const float4*>(part);
   const size_t split = (size_t)rows * nv;
-  for (int e0 = threadIdx.x; e0 < n; e0 += kElems * kThreads) {
+  for (int e0 = threadIdx.x; e0 < n; e0 += kElems * kT) {
     float4 acc[kElems];
 #pragma unroll
     for (int i = 0; i < kElems; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -642,13 +695,13 @@ __device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, con
       for (int i = 0; i < kElems; ++i)
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          const int e = e0 + i * kThreads;
+          const int e = e0 + i * kT;
           x[i][j] = e < n && c0 + j < nwork ? __ldcg(src + (c0 + j) * split + e)
                                              : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
       for (int i = 0; i < kElems; ++i) {
-        const int e = e0 + i * kThreads;
+        const int e = e0 + i * kT;
         if (e < n) {
           const float* wr = w_s + (e / nv) * ns;
 #pragma unroll
@@ -666,7 +719,7 @@ __device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, con
     }
 #pragma unroll
     for (int i = 0; i < kElems; ++i) {
-      const int e = e0 + i * kThreads;
+      const int e = e0 + i * kT;
       if (e < n) {
         const int r = e / nv, v = e - r * nv;
         const float lv = sum_s[r], den = fmaxf(lv, 1e-30f);
@@ -677,7 +730,7 @@ __device__ void merge(const Args& a, const Layout& lay, unsigned char* smem, con
       }
     }
   }
-  zero_rows<T>(a, blk, blk.live);
+  zero_rows<T, kT>(a, blk, blk.live);
 }
 
 // Attend positions [blk.c0, blk.c1) of the tile (at most a span): q once,
@@ -776,8 +829,468 @@ ragged_paged_attention_kernel(const Args a) {
   __syncthreads();
   if (!last) return;
   __threadfence();
-  merge<T>(a, lay, smem, blk, nwork, part, ml);
+  merge<T, kThreads>(a, reinterpret_cast<float*>(smem + lay.w), lay.rows, blk, nwork, part, ml,
+                     BlockSync());
   if (threadIdx.x == 0) a.tickets[bkt] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// The warpgroup design: bf16 windows of more than one 64-row query tile
+// (suffix and tier prefill), at the head_dims and page sizes `kernel_design`
+// (paged_attention.py) routes here. See "Two designs" in the note above.
+
+constexpr int kWgRows = 64;      // query rows a block: one consumer warpgroup
+constexpr int kWgPos = 64;       // positions a stage: the n of q K^T, the k of P V
+constexpr int kWgThreads = 256;  // the consumer warpgroup, then the producer's
+static_assert(kWgPos == kChunk, "a split's span is a whole number of stages");
+
+template <int HD>
+struct Wg {
+  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 256, "the instantiated head_dims");
+  // Blocks an SM: registers cap ptxas at 65,536 / (kWgThreads * kMinBlocks)
+  // a thread for the whole kernel (setmaxnreg does not raise what it
+  // allocates), and hd 256 needs more than 128 beside its accumulator.
+  static constexpr int kMinBlocks = HD > 128 ? 1 : 2;
+  static constexpr int kCols = HD < 64 ? HD : 64;  // columns a swizzled row: a TMA box's width
+  static constexpr int kRowBytes = kCols * 2;      // 64 (64-byte swizzle) or 128 (128-byte)
+  static constexpr int kBlocks = HD / kCols;       // column blocks of a tile
+  static constexpr int kStages = HD > 64 ? 2 : 4;  // as many as kMinBlocks blocks' shared memory holds
+  static constexpr int kQBytes = kWgRows * HD * 2;
+  static constexpr int kTileBytes = kWgPos * HD * 2;  // K (or V) of one stage
+  static constexpr int kHead = 1024;                  // the barriers and the ticket flag
+  static constexpr int kBody = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma descriptor: 128B, 64B swizzle
+};
+
+// Dynamic shared memory of a block: alignment slack, head, and the larger
+// of the tiles and the merge's workspace (which reuses them).
+template <int HD>
+size_t wg_smem(int nsplit) {
+  const size_t ws = sizeof(float) * kWgRows * (3 * (size_t)nsplit + 1);
+  return 1024 + Wg<HD>::kHead + std::max((size_t)Wg<HD>::kBody, ws);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Until the phase of parity `parity` has completed. A wait that has not
+// completed after 2^26 polls (seconds) traps: a fault shows as a failed
+// launch, never as a card that hangs.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+// A box of the pool (column x, row y) into shared memory; `bar` counts its bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of `d` across a wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, and the tile's swizzle.
+template <int HD>
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (Wg<HD>::kLayout << 62);
+}
+
+#define MCPX_F8(i)                                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MCPX_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define MCPX_R32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MCPX_R64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define MCPX_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, " \
+  "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, " \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+  "%126, %127}"
+
+// d (64 x N, fp32) = or += A (64 x 16, shared) * B (16 x N, shared, K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MCPX_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MCPX_F8(0), MCPX_F8(8), MCPX_F8(16), MCPX_F8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " MCPX_R16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : MCPX_F8(0), MCPX_F8(8)
+      : "l"(a), "l"(b), "r"(acc));
+}
+// d (64 x N, fp32) += A (64 x 16, registers) * B (16 x N, shared, N-major:
+// transposed), N = head_dim: one product covers the whole accumulator.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " MCPX_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : MCPX_F8(0), MCPX_F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MCPX_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MCPX_F8(0), MCPX_F8(8), MCPX_F8(16), MCPX_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MCPX_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : MCPX_F8(0), MCPX_F8(8), MCPX_F8(16), MCPX_F8(24), MCPX_F8(32), MCPX_F8(40), MCPX_F8(48),
+        MCPX_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " MCPX_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : MCPX_F8(0), MCPX_F8(8), MCPX_F8(16), MCPX_F8(24), MCPX_F8(32), MCPX_F8(40), MCPX_F8(48),
+        MCPX_F8(56), MCPX_F8(64), MCPX_F8(72), MCPX_F8(80), MCPX_F8(88), MCPX_F8(96), MCPX_F8(104),
+        MCPX_F8(112), MCPX_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef MCPX_F8
+#undef MCPX_R16
+#undef MCPX_R32
+#undef MCPX_R64
+#undef MCPX_R128
+
+// The producer warp: for each stage, each lane one (page, column block) box
+// of K and of V. A page past the block's positions (or past the table)
+// loads rows beyond the pools, which TMA fills with zeros, so a stage
+// always lands whole and holds no stale or unset value. The page table
+// entry of stage t + 1 is read before stage t's wait.
+template <int HD>
+__device__ __forceinline__ void wg_produce(const CUtensorMap* km, const CUtensorMap* vm,
+                                           const Args& a, const Block& blk, uint32_t base, int nt) {
+  using W = Wg<HD>;
+  const int lane = threadIdx.x % 32;
+  const int pg = lane / W::kBlocks, cb = lane % W::kBlocks;
+  const bool mine = pg < kWgPos / a.psz;
+  const int past = a.K * a.L * a.N * a.psz;  // the first row past the pools
+  const uint32_t full = base, empty = base + 8 * W::kStages;
+  const uint32_t ks = base + W::kHead + W::kQBytes, vs = ks + W::kStages * W::kTileBytes;
+  const uint32_t off = cb * (kWgPos * W::kRowBytes) + pg * a.psz * W::kRowBytes;
+  auto row_of = [&](int t) {
+    const int page = (blk.c0 + t * kWgPos) / a.psz + pg;
+    if (!mine || t >= nt || page * a.psz >= blk.c1) return past;
+    return ((blk.kh * a.L + a.layer) * a.N + a.page_table[(size_t)blk.b * a.pmax + page]) * a.psz;
+  };
+  int row = row_of(0);
+  for (int t = 0; t < nt; ++t) {
+    const int s = t % W::kStages, next = row_of(t + 1);
+    if (t >= W::kStages) mbar_wait(empty + 8 * s, (t / W::kStages - 1) & 1);
+    if (lane == 0) mbar_expect_tx(full + 8 * s, 2 * W::kTileBytes);
+    __syncwarp();
+    if (mine) {
+      tma_load(ks + s * W::kTileBytes + off, km, cb * W::kCols, row, full + 8 * s);
+      tma_load(vs + s * W::kTileBytes + off, vm, cb * W::kCols, row, full + 8 * s);
+    }
+    row = next;
+  }
+}
+
+// Byte offset of 16-byte chunk `ch` of q's tile row `row` in the layout TMA
+// gives K (column blocks of the block's rows, swizzled), which wgmma reads.
+template <int HD>
+__device__ __forceinline__ uint32_t wg_chunk(int row, int ch) {
+  using W = Wg<HD>;
+  constexpr int kPer = W::kCols / 8;  // chunks a swizzled row
+  const int sw = W::kRowBytes == 128 ? (row & 7) : ((row >> 1) & 3);
+  return (ch / kPer) * (kWgRows * W::kRowBytes) + row * W::kRowBytes + (((ch % kPer) ^ sw) << 4);
+}
+
+// The tile's query rows into shared memory by cp.async (every chunk in
+// flight at once, no registers), zeros past `blk.live`; the caller waits.
+template <int HD>
+__device__ __forceinline__ void wg_load_q(const Args& a, const Block& blk, unsigned char* qs) {
+  constexpr int kChunks = HD / 8;
+  const bf16* q = static_cast<const bf16*>(a.q);
+#pragma unroll
+  for (int i = 0; i < kWgRows * kChunks / 128; ++i) {
+    const int e = threadIdx.x + i * 128, r = e / kChunks, ch = e % kChunks;
+    const bool valid = r < blk.live;
+    cp_async16(qs + wg_chunk<HD>(r, ch), valid ? q + blk.at(a, r) + ch * 8 : q, valid);
+  }
+  cp_commit();
+}
+
+// One stage for the consumer warpgroup: S = q K^T (HD / 16 k-steps), the
+// mask (`masked`: only where the positions reach past the first live row's
+// limit), the online softmax on the fragments, then o += P V with P rounded
+// to bf16 as the A operand from registers and V read transposed. Lane l of
+// warp w holds rows 16w + l/4 and + 8, columns 8j + 2(l%4) + {0,1}.
+template <int HD, int N = kWgPos>
+__device__ __forceinline__ void wg_stage(float (&o)[HD / 2],
+                                         float (&m)[2], float (&l)[2], uint32_t qs, uint32_t ks,
+                                         uint32_t vs, int pos0, bool masked, int lim0, int lim1,
+                                         float scale) {
+  using W = Wg<HD>;
+  const int lane = threadIdx.x % 32;
+  float s[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int cb = kk * 16 / W::kCols, within = kk * 16 % W::kCols * 2;
+    wgmma_ss(s, wg_desc<HD>(qs + cb * kWgRows * W::kRowBytes + within, 16, 8 * W::kRowBytes),
+             wg_desc<HD>(ks + cb * kWgPos * W::kRowBytes + within, 16, 8 * W::kRowBytes), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+
+  // Column 8j + e of this lane is visible to row r while 8j + e < lim_r - col0.
+  const int col0 = pos0 + 2 * (lane & 3), d0 = lim0 - col0, d1 = lim1 - col0;
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = !masked || 8 * j + e < d0 ? s[4 * j + e] * scale : kNegInf;
+      s[4 * j + 2 + e] = !masked || 8 * j + e < d1 ? s[4 * j + 2 + e] * scale : kNegInf;
+      mx0 = fmaxf(mx0, s[4 * j + e]);
+      mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
+    }
+  const float mn0 = fmaxf(m[0], quad_max(mx0)), mn1 = fmaxf(m[1], quad_max(mx1));
+  const float al0 = __expf(m[0] - mn0), al1 = __expf(m[1] - mn1);
+  m[0] = mn0;
+  m[1] = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = s[4 * j + e] <= kNegInf * 0.5f ? 0.f : __expf(s[4 * j + e] - mn0);
+      s[4 * j + 2 + e] = s[4 * j + 2 + e] <= kNegInf * 0.5f ? 0.f : __expf(s[4 * j + 2 + e] - mn1);
+      sum0 += s[4 * j + e];
+      sum1 += s[4 * j + 2 + e];
+    }
+  l[0] = l[0] * al0 + sum0;
+  l[1] = l[1] * al1 + sum1;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[4 * j] *= al0;
+    o[4 * j + 1] *= al0;
+    o[4 * j + 2] *= al1;
+    o[4 * j + 3] *= al1;
+  }
+  uint32_t p[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_rs(o, p[kk],
+             wg_desc<HD>(vs + kk * 16 * W::kRowBytes, kWgPos * W::kRowBytes, 8 * W::kRowBytes));
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(o);
+}
+
+// The consumer warpgroup: q once, then every stage the producer loads
+// (past its last live row's limit it only waits and releases), then either
+// the output rows (one split) or the partial state, a ticket and, in the
+// last block, the merge.
+template <int HD>
+__device__ __forceinline__ void wg_consume(const Args& a, const Block& blk, unsigned char* smem,
+                                           uint32_t base, int nt, int c, int nwork, int bkt) {
+  using W = Wg<HD>;
+  using Sync = NamedSync<128>;  // the consumer warpgroup's own barrier
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t full = base, empty = base + 8 * W::kStages;
+  const uint32_t qs = base + W::kHead, ks = qs + W::kQBytes, vs = ks + W::kStages * W::kTileBytes;
+  float o[HD / 2];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int r0 = warp * 16 + lane / 4;  // this lane's rows r0 and r0 + 8
+  const int lim0 = blk.limit(r0, a.G), lim1 = blk.limit(r0 + 8, a.G);
+  const int first = blk.limit(0, a.G), last = blk.limit(blk.live - 1, a.G);
+  if (nt > 0) {
+    wg_load_q<HD>(a, blk, smem + W::kHead);
+    cp_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    Sync{1}();
+  }
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const int s = t % W::kStages, pos0 = blk.c0 + t * kWgPos;
+    mbar_wait(full + 8 * s, (t / W::kStages) & 1);
+    if (pos0 < last)
+      wg_stage<HD>(o, m, l, qs, ks + s * W::kTileBytes, vs + s * W::kTileBytes, pos0,
+                   pos0 + kWgPos > first, lim0, lim1, blk.scale);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+  const float ls[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  bf16* out = static_cast<bf16*>(a.out);
+  if (a.nsplit == 1) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = r0 + 8 * u;
+      if (r >= blk.live) continue;
+      const float den = fmaxf(ls[u], 1e-30f);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out + blk.at(a, r));
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const float x = o[4 * j + 2 * u], y = o[4 * j + 2 * u + 1];
+        dst[4 * j + (lane & 3)] = ls[u] > 0.f ? pack_bf16(x / den, y / den) : 0u;
+      }
+    }
+    // The tile's pad rows: exact zeros, 16 bytes a thread.
+    const int from = blk.live;
+    for (int e = tid; e < (blk.rows - from) * (HD / 8); e += 128)
+      reinterpret_cast<uint4*>(out + blk.at(a, from + e / (HD / 8)))[e % (HD / 8)] =
+          make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  float* part = a.part + (size_t)bkt * a.nsplit * a.trows * HD;
+  float* ml = a.ml + (size_t)bkt * a.nsplit * 2 * a.trows;
+  if (nt > 0) {
+    float* mine = part + (size_t)c * a.trows * HD;
+    float* mml = ml + (size_t)c * 2 * a.trows;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = r0 + 8 * u;
+      if (r >= blk.live) continue;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(mine + (size_t)r * HD + 8 * j + 2 * (lane & 3)) =
+            make_float2(o[4 * j + 2 * u], o[4 * j + 2 * u + 1]);
+      if ((lane & 3) == 0) {
+        mml[r] = m[u];
+        mml[a.trows + r] = ls[u];
+      }
+    }
+  }
+  // Every block of a live tile takes a ticket, empty ones too; the last
+  // one merges, in split order, and resets the counter.
+  int* flag = reinterpret_cast<int*>(smem + 512);
+  __threadfence();
+  Sync{1}();
+  if (tid == 0) *flag = atomicAdd(a.tickets + bkt, 1) == a.nsplit - 1;
+  Sync{1}();
+  if (!*flag) return;
+  __threadfence();
+  merge<bf16, 128>(a, reinterpret_cast<float*>(smem + W::kHead), kWgRows, blk, nwork, part, ml,
+                   Sync{1});
+  if (tid == 0) a.tickets[bkt] = 0;
+}
+
+
+// Grid (B*K*n_tiles, n_split) with 64-row tiles; 256 threads: the consumer
+// warpgroup, then the producer warpgroup, of which one warp issues the
+// loads. The roles meet at no barrier after the set-up.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, Wg<HD>::kMinBlocks)
+    ragged_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const Args a) {
+  using W = Wg<HD>;
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const int bkt = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
+  // Tile-major, the last tiles first: a causal row's last tiles see the
+  // most positions, so where the blocks take more than one wave the
+  // longest start first.
+  const int nbk = gridDim.x / a.ntiles, bk = bkt % nbk;
+  Block blk;
+  blk.b = bk / a.K;
+  blk.kh = bk - blk.b * a.K;
+  blk.start = a.start_pos[blk.b];
+  const int qn = min(max(a.q_lens[blk.b], 0), a.S);
+  blk.row0 = (a.ntiles - 1 - bkt / nbk) * kWgRows;
+  blk.rows = min(kWgRows, a.S * a.G - blk.row0);
+  blk.live = min(max(qn * a.G - blk.row0, 0), blk.rows);
+  blk.total = a.pmax * a.psz;
+  blk.lim = blk.live > 0
+                ? max(min(blk.start + (blk.row0 + blk.live - 1) / a.G + 1, blk.total), 0)
+                : 0;
+  blk.scale = rsqrtf((float)HD);
+  if (blk.live == 0) {  // an idle row or a tile of pads: block 0 writes its zeros
+    if (c == 0) zero_rows<bf16>(a, blk, 0);
+    return;
+  }
+  const int nwork = cdiv(blk.lim, a.span);
+  blk.c0 = c * a.span;
+  blk.c1 = min(blk.lim, blk.c0 + a.span);
+  const int nt = c < nwork ? cdiv(blk.c1 - blk.c0, kWgPos) : 0;  // stages this block loads
+  if (nt > 0) {
+    if (tid == 0) {
+      for (int s = 0; s < W::kStages; ++s) {
+        mbar_init(base + 8 * s, 1);                   // full: the producer's arrival
+        mbar_init(base + 8 * (W::kStages + s), 4);  // empty: each consumer warp's
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  if (tid >= 128) {
+    if (tid < 160 && nt > 0) wg_produce<HD>(&kmap, &vmap, a, blk, base, nt);
+  } else {
+    wg_consume<HD>(a, blk, smem, base, nt, c, nwork, bkt);
+  }
 }
 
 // SMs of the current device, read once per device.
@@ -793,47 +1306,69 @@ int sm_count() {
   return cached[dev];
 }
 
-// Query tiles a window, splits a tile and the positions a split attends,
-// from the shapes: as many splits of kChunk positions as the table names,
-// fewer once the (row, kv-head, tile) blocks alone make about two an SM.
+enum Design { kMmaSync = 0, kWarpgroup = 1 };
+
+// Query tiles a window, rows a tile, splits a tile and the positions a
+// split attends, from the shapes. mma_sync: 64-row tiles, as many splits of
+// kChunk positions as the table names, fewer once the (row, kv-head, tile)
+// blocks alone make about two an SM. warpgroup: 64-row tiles, split only
+// while the blocks fill less than half the SMs (counting one an SM) and only
+// into spans of at least kWgMinSpan positions: a split of one or two stages
+// costs more in partials and merge than it saves (measured at the B 4 tier
+// rows, 256 positions a row; longer rows gain from it).
 struct Grid {
   int ntiles, trows, nsplit, span;
 };
 
-Grid grid_of(int B, int S, int K, int G, int pmax, int psz) {
+constexpr int kWgMinSpan = 4 * kWgPos;
+
+Grid grid_of(int design, int B, int S, int K, int G, int pmax, int psz) {
   Grid g;
-  g.ntiles = cdiv(S * G, kMaxRows);
-  g.trows = std::min(S * G, kMaxRows);
-  const int total = pmax * psz, work = B * K * g.ntiles;
-  const int want =
-      std::max(1, std::min(cdiv(total, kChunk), cdiv(2 * sm_count(), std::max(work, 1))));
+  const bool wg = design == kWarpgroup;
+  const int rows = wg ? kWgRows : kMaxRows;
+  g.ntiles = cdiv(S * G, rows);
+  g.trows = std::min(S * G, rows);
+  const int total = pmax * psz, work = std::max(B * K * g.ntiles, 1);
+  const int fill = wg ? sm_count() / (2 * work) : cdiv(2 * sm_count(), work);
+  const int want = std::max(1, std::min(cdiv(total, wg ? kWgMinSpan : kChunk), fill));
   g.span = cdiv(cdiv(total, want), kChunk) * kChunk;
   g.nsplit = cdiv(total, g.span);
   return g;
 }
 
-template <typename T, int kPairs, bool kWide>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_layout(a.trows, a.hd, a.nsplit, a.span, (int)sizeof(T)).total;
-  // The attribute is set once per device and size for this instantiation
-  // (it only grows), not on every launch. Several host threads launch at
-  // once (engines in one process): the check and the set are one step, or
-  // a smaller size set last would shrink the limit a larger launch needs.
-  static size_t granted[64] = {};
-  static std::mutex granting;
+// The launcher's mutex: several host threads launch at once (engines in one
+// process). It guards the shared-memory grants and the tensor-map cache.
+std::mutex launching;
+
+// The attribute for dynamic shared memory is set once per device and size
+// for an instantiation (it only grows), not on every launch; the check and
+// the set are one step under `launching`, or a smaller size set last would
+// shrink the limit a larger launch needs.
+template <typename K>
+cudaError_t grant(K kernel, size_t (&granted)[64], size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> hold(granting);
-    if (smem > granted[dev]) {
-      err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, kPairs, kWide>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      granted[dev] = smem;
-    }
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(launching);
+  if (smem > granted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    granted[dev] = smem;
   }
+  return cudaSuccess;
+}
+
+size_t mma_smem(const Grid& g, int hd, int elt) {
+  return smem_layout(g.trows, hd, g.nsplit, g.span, elt).total;
+}
+
+template <typename T, int kPairs, bool kWide>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  static size_t granted[64] = {};
+  const size_t smem = smem_layout(a.trows, a.hd, a.nsplit, a.span, (int)sizeof(T)).total;
+  const cudaError_t err = grant(ragged_paged_attention_kernel<T, kPairs, kWide>, granted, smem);
+  if (err != cudaSuccess) return (int)err;
   ragged_paged_attention_kernel<T, kPairs, kWide>
       <<<dim3(B * a.K * a.ntiles, a.nsplit), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -845,35 +1380,132 @@ int launch(const Args& a, int B, cudaStream_t stream) {
                                          : launch<T, kPairs, false>(a, B, stream);
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda at build).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+constexpr int kMapError = 10000;  // + CUresult: an encode the driver refused
+
+// The tensor map of a pool viewed as [K*L*N*Psz, hd] bf16 rows, in boxes of
+// Psz rows by min(hd, 64) columns, swizzled as wgmma reads them. Encoded
+// once per (device, pool pointer, shape) and kept: the engine never
+// rebinds its pools, so a map captured into a CUDA graph stays valid.
+// Under `launching`.
+int pool_map(const void* pool, long long rows, int hd, int psz, CUtensorMap* map) {
+  struct Entry {
+    int dev;
+    const void* pool;
+    long long rows;
+    int hd, psz;
+    CUtensorMap map;
+  };
+  static std::vector<Entry> cache;
+  static EncodeTiled encode = nullptr;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  for (const Entry& e : cache)
+    if (e.dev == dev && e.pool == pool && e.rows == rows && e.hd == hd && e.psz == psz) {
+      *map = e.map;
+      return 0;
+    }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                           &found);
+#else
+    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const int cols = hd < 64 ? hd : 64;
+  const cuuint64_t dims[2] = {(cuuint64_t)hd, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)hd * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)psz};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(pool), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return kMapError + (int)r;
+  if (cache.size() >= 256) cache.clear();  // pools come and go in tests; the engine keeps its own
+  cache.push_back(Entry{dev, pool, rows, hd, psz, *map});
+  return 0;
+}
+
+template <int HD>
+int launch_wg(const Args& a, int B, cudaStream_t stream) {
+  static size_t granted[64] = {};
+  const size_t smem = wg_smem<HD>(a.nsplit);
+  const long long rows = (long long)a.K * a.L * a.N * a.psz;
+  CUtensorMap km, vm;
+  {
+    std::lock_guard<std::mutex> hold(launching);
+    int err = pool_map(a.k_pages, rows, HD, a.psz, &km);
+    if (err == 0) err = pool_map(a.v_pages, rows, HD, a.psz, &vm);
+    if (err != 0) return err;
+  }
+  const cudaError_t err = grant(ragged_wgmma_kernel<HD>, granted, smem);
+  if (err != cudaSuccess) return (int)err;
+  ragged_wgmma_kernel<HD><<<dim3(B * a.K * a.ntiles, a.nsplit), kWgThreads, smem, stream>>>(km, vm, a);
+  return (int)cudaGetLastError();
+}
+
+// Whether the warpgroup design takes these shapes: bf16, a head_dim it is
+// instantiated for, pages that tile a 64-position stage in whole 8-row
+// swizzle atoms, and pool rows a 32-bit TMA coordinate reaches. The route
+// itself is `kernel_design` in paged_attention.py.
+bool wg_takes(int hd, int psz, int dtype, long long pool_rows) {
+  return dtype == 1 && (hd == 32 || hd == 64 || hd == 128 || hd == 256) &&
+         (psz == 8 || psz == 16 || psz == 32 || psz == 64) && pool_rows < (1LL << 31);
+}
+
+size_t smem_of(int design, const Grid& g, int hd, int dtype) {
+  if (design == kWarpgroup) switch (hd) {
+      case 32: return wg_smem<32>(g.nsplit);
+      case 64: return wg_smem<64>(g.nsplit);
+      case 128: return wg_smem<128>(g.nsplit);
+      default: return wg_smem<256>(g.nsplit);
+    }
+  return mma_smem(g, hd, dtype == 1 ? 2 : 4);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Splits a query tile (tiles a window: cdiv(S*G, 64)): the scratch holds
-// B*K*tiles*splits partials and the tickets B*K*tiles counters.
-int mcpx_ragged_paged_attention_splits(int B, int S, int K, int G, int pmax, int psz) {
-  return grid_of(B, S, K, G, pmax, psz).nsplit;
+// design: 0 = mma_sync, 1 = warpgroup; dtype: 0 = float32, 1 = bfloat16.
+// Fills plan[0..3] = tiles a window, rows a tile, splits a tile, positions
+// a split; returns the dynamic shared memory one block needs (the wrapper
+// refuses shapes above the card's per-block limit before launching). The
+// scratch holds B*K*tiles*splits partials, the tickets B*K*tiles counters.
+size_t mcpx_ragged_paged_attention_plan(int B, int S, int K, int G, int hd, int psz, int pmax,
+                                        int dtype, int design, int* plan) {
+  const Grid g = grid_of(design, B, S, K, G, pmax, psz);
+  plan[0] = g.ntiles, plan[1] = g.trows, plan[2] = g.nsplit, plan[3] = g.span;
+  return smem_of(design, g, hd, dtype);
 }
 
-// Dynamic shared memory one block needs; the wrapper refuses shapes above
-// the card's per-block limit before launching.
-size_t mcpx_ragged_paged_attention_smem(int B, int S, int K, int G, int hd, int psz, int pmax,
-                                        int dtype) {
-  const Grid g = grid_of(B, S, K, G, pmax, psz);
-  return smem_layout(g.trows, hd, g.nsplit, g.span, dtype == 1 ? 2 : 4).total;
-}
-
-// dtype: 0 = float32, 1 = bfloat16. part [B*K*tiles, n_split, trows, hd]
-// and ml [B*K*tiles, n_split, 2, trows] are fp32 scratch (any contents),
-// trows = min(S*G, 64); tickets [B*K*tiles] int32 must be zero and are left
-// zero. Returns cudaGetLastError() after the launch (0 = launched).
-// Enqueues on `stream`; does not synchronise.
+// part [B*K*tiles, n_split, trows, hd] and ml [B*K*tiles, n_split, 2,
+// trows] are fp32 scratch (any contents; unused by a warpgroup launch of
+// one split); tickets [B*K*tiles] int32 must be zero and are left zero.
+// Returns cudaGetLastError() after the launch (0 = launched), a CUDA error
+// before it, or kMapError + a CUresult. Enqueues on `stream`; does not
+// synchronise.
 int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                 const void* page_table, const void* start_pos,
                                 const void* q_lens, void* out, void* part, void* ml,
                                 void* tickets, int B, int S, int K, int G, int hd, int L, int N,
-                                int psz, int pmax, int layer, int dtype, void* stream) {
+                                int psz, int pmax, int layer, int dtype, int design, void* stream) {
   if (B == 0 || K == 0 || S == 0) return 0;
+  if (design == kWarpgroup && !wg_takes(hd, psz, dtype, (long long)K * L * N * psz))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k_pages = k_pages;
@@ -887,9 +1519,15 @@ int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* 
   a.tickets = static_cast<int*>(tickets);
   a.S = S, a.K = K, a.G = G, a.hd = hd, a.L = L, a.N = N;
   a.psz = psz, a.pmax = pmax, a.layer = layer;
-  const Grid g = grid_of(B, S, K, G, pmax, psz);
+  const Grid g = grid_of(design, B, S, K, G, pmax, psz);
   a.ntiles = g.ntiles, a.trows = g.trows, a.nsplit = g.nsplit, a.span = g.span;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (design == kWarpgroup) switch (hd) {
+      case 32: return launch_wg<32>(a, B, st);
+      case 64: return launch_wg<64>(a, B, st);
+      case 128: return launch_wg<128>(a, B, st);
+      default: return launch_wg<256>(a, B, st);
+    }
   if (dtype != 1) return launch<float, kWidePairs>(a, B, st);  // kPairs unused by fp32
   // The narrow build while two warps of kNarrowPairs pairs cover head_dim.
   return hd <= 2 * 16 * kNarrowPairs ? launch<bf16, kNarrowPairs>(a, B, st)

@@ -32,10 +32,13 @@ from mcpx_torch.core.errors import EngineError
 from mcpx_torch.engine.kernels import build
 
 NEG_INF = -1e30
-TILE_ROWS = 64  # query rows (S * G, the GQA group folded in) one block holds
+TILE_ROWS = 64  # query rows (S * G, the GQA group folded in) a block holds, in both designs
+WARPGROUP_HEAD_DIMS = (32, 64, 128, 256)  # the warpgroup design's instantiations
+WARPGROUP_PAGE_SIZES = (8, 16, 32, 64)  # whole 8-row swizzle atoms tiling a 64-position stage
 MAX_HEAD_DIM = 256
 MAX_PAGE_SIZE = 64
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+DESIGN_CODES = {"mma_sync": 0, "warpgroup": 1}
 
 # Launch counts by kernel name: the wrapper adds one where it launches the
 # kernel and nowhere else (the plain path never counts). A call made while
@@ -46,6 +49,10 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 # count (``count_into``) and the ticket registry below change under _LOCK.
 LAUNCHES = {"ragged_paged_attention": 0}  # mcpx: owner[_LOCK]
 CAPTURED = {"ragged_paged_attention": 0}  # mcpx: owner[_LOCK]
+# The same launches by the kernel's design (``kernel_design``), outside
+# graphs and replays included, and as recorded into graphs.
+DESIGNS = dict.fromkeys(DESIGN_CODES, 0)  # mcpx: owner[_LOCK]
+CAPTURED_DESIGNS = dict.fromkeys(DESIGN_CODES, 0)  # mcpx: owner[_LOCK]
 # Launches made outside a graph, by card index (a replay's are counted by
 # kernel name only): what each card of a mesh launched.
 BY_CARD: dict[int, int] = {}  # mcpx: owner[_LOCK]
@@ -62,7 +69,23 @@ def reset_kernel_launches() -> None:
     with _LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        for k in DESIGNS:
+            DESIGNS[k] = 0
         BY_CARD.clear()
+
+
+def kernel_designs() -> dict[str, int]:
+    """The kernel's launches since the last reset by design: ``warpgroup``
+    (the multi-tile bf16 windows) and ``mma_sync`` (every other); replays
+    of captured graphs included where ``count_replay`` is given them."""
+    with _LOCK:
+        return dict(DESIGNS)
+
+
+def captured_designs() -> dict[str, int]:
+    """Calls recorded into CUDA graphs so far, by design."""
+    with _LOCK:
+        return dict(CAPTURED_DESIGNS)
 
 
 def launches_by_card() -> dict[int, int]:
@@ -86,10 +109,13 @@ def count_into(counts: Optional[dict[str, int]]) -> None:
     _THREAD.counts = counts
 
 
-def _count(captured: bool, launches: dict[str, int], card: Optional[int] = None) -> None:
-    """Add ``launches`` to CAPTURED (calls recorded into a graph) or to
-    LAUNCHES and this thread's own count (and, for a launch on ``card``, to
-    BY_CARD)."""
+def _count(
+    captured: bool, launches: dict[str, int], card: Optional[int] = None,
+    designs: Optional[dict[str, int]] = None,
+) -> None:
+    """Add ``launches`` (and ``designs``, the same launches by design) to
+    CAPTURED (calls recorded into a graph) or to LAUNCHES and this thread's
+    own count (and, for a launch on ``card``, to BY_CARD)."""
     own = None if captured else getattr(_THREAD, "counts", None)
     with _LOCK:
         table = CAPTURED if captured else LAUNCHES
@@ -97,13 +123,17 @@ def _count(captured: bool, launches: dict[str, int], card: Optional[int] = None)
             table[k] += n
             if own is not None:
                 own[k] = own.get(k, 0) + n
+        by_design = CAPTURED_DESIGNS if captured else DESIGNS
+        for k, n in (designs or {}).items():
+            by_design[k] += n
         if card is not None and not captured:
             BY_CARD[card] = BY_CARD.get(card, 0) + sum(launches.values())
 
 
-def count_replay(launches: dict[str, int]) -> None:
-    """One replay of a captured graph ran ``launches`` (by kernel name)."""
-    _count(False, launches)
+def count_replay(launches: dict[str, int], designs: Optional[dict[str, int]] = None) -> None:
+    """One replay of a captured graph ran ``launches`` (by kernel name) and,
+    by design, ``designs``."""
+    _count(False, launches, designs=designs)
 
 
 # ---------------------------------------------------------------- plain
@@ -168,6 +198,7 @@ def ragged_n_pages(start, qn, page_size: int, p_max: int):
 
 # ---------------------------------------------------------------- kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAP_ERROR = 10000  # the launcher's code for a refused tensor map: 10000 + CUresult
 
 
 def _check(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int) -> None:
@@ -206,20 +237,62 @@ def _check(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int) -> No
         raise EngineError(f"ragged_paged_attention: layer {layer} outside [0, {L})")
 
 
+def kernel_design(S: int, G: int, hd: int, page_size: int, dtype: torch.dtype, pool_rows: int) -> str:
+    """Which of the kernel's two designs serves a [B, S, K, G, hd] window
+    over pools of ``pool_rows`` = K*L*N*Psz rows: ``warpgroup`` (wgmma, TMA,
+    a producer warp beside a consumer warpgroup) for bf16 windows of more
+    than one 64-row query tile at the head_dims it is built for, pages that
+    tile its 64-position stages in whole swizzle atoms, and rows a 32-bit
+    TMA coordinate reaches; ``mma_sync`` for every other (one-tile windows,
+    float32, hd 24 or 40, ...). Shapes alone decide, never data, an option
+    or the environment, so one captured graph serves any mix of rows."""
+    if (
+        dtype == torch.bfloat16 and S * G > TILE_ROWS and hd in WARPGROUP_HEAD_DIMS
+        and page_size in WARPGROUP_PAGE_SIZES and pool_rows < 2**31
+    ):
+        return "warpgroup"
+    return "mma_sync"
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("ragged_paged_attention")
     if not getattr(lib, "_mcpx_bound", False):
         fn = lib.mcpx_ragged_paged_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        smem = lib.mcpx_ragged_paged_attention_smem
-        smem.restype = ctypes.c_size_t
-        smem.argtypes = [ctypes.c_int] * 8
-        splits = lib.mcpx_ragged_paged_attention_splits
-        splits.restype = ctypes.c_int
-        splits.argtypes = [ctypes.c_int] * 6
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        plan = lib.mcpx_ragged_paged_attention_plan
+        plan.restype = ctypes.c_size_t
+        plan.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
         lib._mcpx_bound = True
     return lib
+
+
+def _plan(q: torch.Tensor, k_pages: torch.Tensor, p_max: int) -> tuple[str, list[int], int]:
+    """(design, [tiles a window, rows a tile, splits a tile, positions a
+    split], dynamic shared memory a block) of a launch over these shapes,
+    from the kernel's own rule on the current device."""
+    B, S, K, G, hd = q.shape
+    _, L, N, psz, _ = k_pages.shape
+    design = kernel_design(S, G, hd, psz, q.dtype, K * L * N * psz)
+    grid = (ctypes.c_int * 4)()
+    smem = _lib().mcpx_ragged_paged_attention_plan(
+        B, S, K, G, hd, psz, p_max, _DTYPES[q.dtype], DESIGN_CODES[design], grid
+    )
+    return design, list(grid), int(smem)
+
+
+def launch_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor) -> dict:
+    """What a launch over these shapes runs on q's card: its design, grid
+    (blocks by splits), query tiles a window, rows a tile, splits a tile,
+    positions a split and shared memory a block. Needs the built kernel
+    (the card)."""
+    with torch.cuda.device(q.device):
+        design, (tiles, rows, n_split, span), smem = _plan(q, k_pages, page_table.shape[1])
+    B, K = q.shape[0], q.shape[2]
+    return dict(
+        design=design, grid=[B * K * tiles, n_split], tiles=tiles, tile_rows=rows,
+        n_split=n_split, span=span, smem=smem,
+    )
 
 
 # One int32 ticket counter per (row, kv-head, query tile), per (device,
@@ -319,18 +392,18 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
     # shared-memory grant: q's card, whatever the calling thread's device.
     with torch.cuda.device(q.device):
         lib = _lib()
-        smem = lib.mcpx_ragged_paged_attention_smem(B, S, K, G, hd, psz, p_max, dtype)
+        design, (n_tiles, t_rows, n_split, _), smem = _plan(q, k_pages, p_max)
         if smem > SMEM_LIMIT:
             raise EngineError(f"ragged_paged_attention: needs {smem} B of shared memory (> {SMEM_LIMIT})")
-        n_split = lib.mcpx_ragged_paged_attention_splits(B, S, K, G, p_max, psz)
-        n_tiles, t_rows = -(-S * G // TILE_ROWS), min(S * G, TILE_ROWS)
         out = torch.empty_like(q)
         # fp32 scratch: the per-split unnormalised accumulators [B*K*tiles,
         # n_split, t_rows, hd], then their (max, sum) [B*K*tiles, n_split, 2,
-        # t_rows]. The kernel keeps n_split at 1 once the tiles fill the card,
-        # so a wide prefill needs about twice its output here.
+        # t_rows]. A warpgroup launch of one split writes its rows directly
+        # and needs none.
         blocks = B * K * n_tiles * n_split
         n_acc = blocks * t_rows * hd
+        if design == "warpgroup" and n_split == 1:
+            n_acc = blocks = 0
         scratch = torch.empty(n_acc + blocks * 2 * t_rows, dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # Held until the launch is enqueued: another thread may replace the
@@ -341,11 +414,18 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
             start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             scratch.data_ptr() + 4 * n_acc, tickets.data_ptr(),
-            B, S, K, G, hd, L, N, psz, p_max, layer, dtype, stream,
+            B, S, K, G, hd, L, N, psz, p_max, layer, dtype, DESIGN_CODES[design], stream,
         )
+        if rc >= _MAP_ERROR:
+            raise EngineError(
+                f"ragged_paged_attention: the driver refused the pools' tensor map (CUresult {rc - _MAP_ERROR})"
+            )
         if rc != 0:
             raise EngineError(f"ragged_paged_attention: CUDA launch failed (cudaError {rc})")
-        _count(torch.cuda.is_current_stream_capturing(), {"ragged_paged_attention": 1}, q.device.index)
+        _count(
+            torch.cuda.is_current_stream_capturing(), {"ragged_paged_attention": 1}, q.device.index,
+            {design: 1},
+        )
     return out
 
 

@@ -116,15 +116,27 @@ def _on_card(case, cuda, dtype):
     return q.to(dtype), kp.to(dtype), vp.to(dtype), table, starts, q_lens
 
 
+def _design(args):
+    """The design a launch over these tensors takes (``kernel_design``)."""
+    q, kp = args[0], args[1]
+    _, S, K, G, hd = q.shape
+    _, L, N, psz, _ = kp.shape
+    return tk.kernel_design(S, G, hd, psz, q.dtype, K * L * N * psz)
+
+
 def _check_case(case, cuda, dtype, atol, layers=(0, 1)):
     """Kernel against plain on one case: within `atol`, one launch a call,
-    pads and idle rows exactly 0, and the ticket counters left at 0."""
+    counted under the design the shapes route to, pads and idle rows
+    exactly 0, and the ticket counters left at 0. Returns the worst error
+    in bf16 ulps of each query head's largest output (``ulps_against``)."""
     args = _on_card(case, cuda, dtype)
+    design, worst = _design(args), 0.0
     for layer in layers:
-        n0 = tk.kernel_launches()["ragged_paged_attention"]
+        n0, d0 = tk.kernel_launches()["ragged_paged_attention"], tk.kernel_designs()[design]
         out = tk.ragged_paged_attention(*args, layer)
         torch.cuda.synchronize()
         assert tk.kernel_launches()["ragged_paged_attention"] == n0 + 1
+        assert tk.kernel_designs()[design] == d0 + 1
         ref = tk.ragged_paged_attention_reference(*args, layer)
         np.testing.assert_allclose(
             out.float().cpu().numpy(), ref.float().cpu().numpy(), rtol=atol, atol=atol
@@ -132,6 +144,18 @@ def _check_case(case, cuda, dtype, atol, layers=(0, 1)):
         for b, ql in enumerate(case[5]):
             assert bool((out[b, ql:] == 0).all())
         assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+        worst = max(worst, chip_smoke.ulps_against(out, ref)["head"])
+    return worst
+
+
+# bf16 multi-tile windows on the warpgroup design: the worst error allowed,
+# in bf16 ulps of each query head's largest output. Both designs round P to
+# bf16 at the running max, the plain version its normalised weights, so
+# neither stays within one ulp at prefill width: on these tests' inputs the
+# mma_sync design reaches 2.0 and the warpgroup design 2.0625, both at an
+# absolute 0.015625 (NVIDIA H100 80GB HBM3). Every case also passes the
+# file's atol = rtol = 2e-2.
+HEAD_ULPS_WG = 2.5
 
 
 @pytest.mark.cuda
@@ -160,10 +184,14 @@ def test_cuda_kernel_many_pages_per_split(cuda, dtype, atol, geometry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
 @pytest.mark.parametrize("hd", [24, 40])
-def test_cuda_kernel_padded_head_dim(cuda, dtype, atol, hd):
-    """hd % 16 == 8: the bf16 path zero-pads the last k-step in shared memory."""
+@pytest.mark.parametrize("S", [8, 64])
+def test_cuda_kernel_padded_head_dim(cuda, dtype, atol, hd, S):
+    """hd % 16 == 8: the bf16 path zero-pads the last k-step in shared
+    memory. At S 64 (S*G 256, four query tiles) these widths stay on the
+    mma_sync design: wgmma takes whole 16-column k-steps only."""
     for seed in range(2):
-        case = mixed_case(seed, B=6, S=8, K=1, G=4, hd=hd, psz=16, p_max=6)
+        case = mixed_case(seed, B=6, S=S, K=1, G=4, hd=hd, psz=16, p_max=6)
+        assert _design(_on_card(case, cuda, dtype)) == "mma_sync"
         _check_case(case, cuda, dtype, atol)
 
 
@@ -195,14 +223,17 @@ def test_cuda_kernel_repeats_bit_identical(cuda, dtype, atol):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_two_streams_keep_their_own_counters(cuda):
+@pytest.mark.parametrize("kind", ["decode", "split"])
+def test_cuda_kernel_two_streams_keep_their_own_counters(cuda, kind):
     """Launches on two streams of one device may overlap; each stream has
     its own ticket counters, so every output equals that of a launch alone
-    and every counter is back at 0."""
-    cases = [
-        _on_card(mixed_case(seed, B=8, S=8, K=1, G=8, hd=256, psz=64, p_max=4), cuda, torch.bfloat16)
-        for seed in (0, 1)
-    ]
+    and every counter is back at 0: one-tile windows (mma_sync) and split
+    tier cohorts (warpgroup)."""
+    make = {
+        "decode": lambda seed: mixed_case(seed, B=8, S=8, K=1, G=8, hd=256, psz=64, p_max=4),
+        "split": lambda seed: tier_split_case(seed, "prefill"),
+    }[kind]
+    cases = [_on_card(make(seed), cuda, torch.bfloat16) for seed in (0, 1)]
     alone = [tk.ragged_paged_attention(*args, 1) for args in cases]
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
     for s in streams:
@@ -218,38 +249,88 @@ def test_cuda_kernel_two_streams_keep_their_own_counters(cuda):
     assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("shape", [(4, 32), (8, 256)])
-@pytest.mark.parametrize("S", [64, 128])
-def test_cuda_kernel_prefill_width(cuda, dtype, atol, shape, S):
-    """Suffix-prefill windows (S*G of 256 to 1,024 rows, cut into query
-    tiles) at both head-dim builds: starts at page offsets, idle rows
-    beside prefill rows."""
-    G, hd = shape
-    for seed in range(2):
-        _check_case(prefill_case(seed, S=S, G=G, hd=hd), cuda, dtype, atol)
+# (G, hd): the presets' (test 4 x 32, 2b 8 x 256) and every head_dim the
+# warpgroup design is built for, at G 1, 4 and 8.
+PREFILL_SHAPES = [(4, 32), (8, 256), (1, 64), (4, 64), (8, 128), (1, 256), (8, 32)]
+PAGES = [(64, 4), (16, 16)]  # (Psz, Pmax): the serving and the execute phases' tables
+
+
+def _wg_ulps(dtype, worst, args):
+    """bf16 windows on the warpgroup design stay within HEAD_ULPS_WG."""
+    if dtype == torch.bfloat16 and _design(args) == "warpgroup":
+        assert worst <= HEAD_ULPS_WG, worst
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("shape", [(4, 32), (8, 256)])
-def test_cuda_kernel_prefill_off_page_starts(cuda, dtype, atol, shape):
-    """Starts inside a page: a tile's visible end and the split boundaries
-    fall mid-page."""
-    G, hd = shape
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+@pytest.mark.parametrize("S", [64, 128, 256])
+@pytest.mark.parametrize("pages", PAGES)
+def test_cuda_kernel_prefill_width(cuda, dtype, atol, shape, S, pages):
+    """Suffix-prefill windows (S*G of 64 to 2,048 rows, cut into query
+    tiles) at every head_dim of the warpgroup design and both presets': idle
+    rows and ragged q_lens beside full ones (pad-only tiles write exact
+    zeros), starts at page offsets, 64- and 16-token pages. bf16 windows
+    of more than one 64-row tile take the warpgroup design."""
+    (G, hd), (psz, p_max) = shape, pages
     for seed in range(2):
-        case = prefill_case(seed, S=128, G=G, hd=hd, starts=(5, 37, 70, 127))
-        _check_case(case, cuda, dtype, atol)
+        case = prefill_case(seed, S=S, G=G, hd=hd, psz=psz, p_max=p_max)
+        args = _on_card(case, cuda, dtype)
+        if dtype == torch.bfloat16:
+            assert _design(args) == ("warpgroup" if S * G > tk.TILE_ROWS else "mma_sync")
+        _wg_ulps(dtype, _check_case(case, cuda, dtype, atol), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+@pytest.mark.parametrize("pages", PAGES)
+def test_cuda_kernel_prefill_off_page_starts(cuda, dtype, atol, shape, pages):
+    """Starts inside a page: a tile's visible end, a stage's causal
+    diagonal and the split boundaries fall mid-page."""
+    (G, hd), (psz, p_max) = shape, pages
+    for seed in range(2):
+        case = prefill_case(seed, S=128, G=G, hd=hd, psz=psz, p_max=p_max, starts=(5, 37, 70, 127))
+        _wg_ulps(dtype, _check_case(case, cuda, dtype, atol), _on_card(case, cuda, dtype))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
 @pytest.mark.parametrize("B", [2, 64])
 def test_cuda_kernel_widest_window(cuda, dtype, atol, B):
-    """S*G = 2,048 (S 256, G 8, hd 256) in one launch: a small batch keeps
-    several splits a tile, a full one falls to one split."""
-    _check_case(prefill_case(0, B=B, S=256, G=8, hd=256, starts=(0,), idle=1), cuda, dtype, atol)
+    """S*G = 2,048 (S 256, G 8, hd 256) in one launch: 32 query tiles of
+    64 rows a row (mma_sync, float32: a small batch keeps several splits a
+    tile, a full one falls to one split; warpgroup, bf16: one split, the
+    table names only 256 positions)."""
+    case = prefill_case(0, B=B, S=256, G=8, hd=256, starts=(0,), idle=1)
+    _wg_ulps(dtype, _check_case(case, cuda, dtype, atol), _on_card(case, cuda, dtype))
+
+
+def tier_split_case(seed, kind):
+    """The tier phases' B 4 cohort (G 8, hd 256, 16-token pages) over a
+    table of 64 pages (1,024 positions), where the warpgroup design splits
+    positions: ``prefill`` rows of S 64 starting at 64-112 and past 500
+    (ragged q_len, one row idle), ``mixed`` rows of q_len S, 1, between
+    and 0 at random starts."""
+    if kind == "prefill":
+        return prefill_case(seed, B=4, S=64, G=8, hd=256, psz=16, p_max=64, starts=(64, 80, 112, 520), idle=1)
+    return mixed_case(seed, B=4, S=64, K=1, G=8, hd=256, psz=16, p_max=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("kind", ["prefill", "mixed"])
+def test_cuda_kernel_split_tier_cohort(cuda, dtype, atol, kind):
+    """A B 4 tier-shaped cohort over long rows: the warpgroup design splits
+    each tile's positions (more than one split) and merges the partials in
+    the same launch; tickets back at 0."""
+    for seed in range(2):
+        case = tier_split_case(seed, kind)
+        args = _on_card(case, cuda, dtype)
+        if dtype == torch.bfloat16:
+            plan = tk.launch_plan(args[0], args[1], args[3])
+            assert plan["design"] == "warpgroup" and plan["n_split"] > 1, plan
+        _wg_ulps(dtype, _check_case(case, cuda, dtype, atol), args)
 
 
 @pytest.mark.cuda
@@ -266,11 +347,30 @@ def test_cuda_kernel_verify_shape(cuda, dtype, atol, shape, live):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
-def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol):
-    args = _on_card(prefill_case(3, S=128, G=8, hd=256), cuda, dtype)
+@pytest.mark.parametrize("kind", ["cohort", "split"])
+def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol, kind):
+    """Three launches back to back, then three replays of a CUDA graph that
+    captured the launch, give the same bits (the split cohort's merge runs
+    in split order), with the ticket counters at 0 afterwards."""
+    case = prefill_case(3, S=128, G=8, hd=256) if kind == "cohort" else tier_split_case(3, "prefill")
+    args = _on_card(case, cuda, dtype)
     outs = [tk.ragged_paged_attention(*args, 0) for _ in range(3)]
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tk.ragged_paged_attention(*args, 0)  # sizes the stream's ticket buffer before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = tk.ragged_paged_attention(*args, 0)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, outs[0])
     assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
 
 

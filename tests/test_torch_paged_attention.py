@@ -108,12 +108,21 @@ def test_split_merge_matches_reference_kernel_interpret(seed, chunk):
         assert np.all(out[b, ql:].numpy() == 0.0), (seed, chunk, b)
 
 
-def _grid(B, S, K, G, p_max, psz, sms=132):
+def _grid(B, S, K, G, p_max, psz, sms=132, design="mma_sync"):
     """The kernel's query tiles and splits (``grid_of`` in the CUDA source)
-    on a card with ``sms`` SMs: (tile rows, positions a split attends)."""
-    tiles, total = -(-S * G // tk.TILE_ROWS), p_max * psz
-    want = max(1, min(-(-total // 64), -(-2 * sms // max(1, B * K * tiles))))
-    return tk.TILE_ROWS, -(-(-(-total // want)) // 64) * 64
+    on a card with ``sms`` SMs: (tile rows, positions a split attends).
+    mma_sync: 64-row tiles, splits of 64 positions until the blocks make
+    about two an SM; warpgroup: split only while the blocks fill less than
+    half the SMs, into spans of at least 256 positions; 64-row tiles in
+    both."""
+    rows = tk.TILE_ROWS
+    tiles, total = -(-S * G // rows), p_max * psz
+    work = max(1, B * K * tiles)
+    if design == "warpgroup":
+        want = max(1, min(-(-total // 256), sms // (2 * work)))
+    else:
+        want = max(1, min(-(-total // 64), -(-2 * sms // work)))
+    return rows, -(-(-(-total // want)) // 64) * 64
 
 
 def _tile_split_and_merge(q, kp, vp, table, starts, q_lens, layer, tile_rows, span):
@@ -177,18 +186,20 @@ def _prefill_reference(S, G):
 
 @pytest.mark.parametrize("S", [64, 128])
 @pytest.mark.parametrize("G", [4, 8])
-@pytest.mark.parametrize("span", ["grid", "table"])
+@pytest.mark.parametrize("span", ["grid", "table", "warpgroup"])
 def test_query_tiles_match_reference_kernel_interpret(S, G, span):
     """Prefill width (S*G of 256 to 1,024 rows): cutting the window into
-    64-row query tiles, each with its own causal limit and splits, and
-    merging as the CUDA kernel does gives the reference kernel's output
-    (interpret mode) and the plain version's, fp32 to 2e-5; pads and idle
-    rows stay exact zeros. `grid` takes the kernel's own split count for
-    this batch on a 132-SM card, `table` one split over the whole table."""
+    query tiles, each with its own causal limit and splits, and merging as
+    the CUDA kernel does gives the reference kernel's output (interpret
+    mode) and the plain version's, fp32 to 2e-5; pads and idle rows stay
+    exact zeros. `grid` takes the mma_sync design's 64-row tiles and split
+    count for this batch on a 132-SM card, `table` 64-row tiles and one
+    split over the whole table, `warpgroup` the warpgroup design's tiles and
+    split rule."""
     case, ref = _prefill_reference(S, G)
     q, kp, vp, table, starts, q_lens = case
     psz, p_max = kp.shape[3], table.shape[1]
-    tile_rows, size = _grid(6, S, 1, G, p_max, psz)
+    tile_rows, size = _grid(6, S, 1, G, p_max, psz, design="warpgroup" if span == "warpgroup" else "mma_sync")
     if span == "table":
         size = p_max * psz
     args = as_torch(*case)
@@ -199,6 +210,70 @@ def test_query_tiles_match_reference_kernel_interpret(S, G, span):
     np.testing.assert_allclose(plain.numpy(), ref, **TOL)
     for b, ql in enumerate(q_lens):
         assert np.all(out[b, ql:].numpy() == 0.0) and np.all(plain[b, ql:].numpy() == 0.0)
+
+
+def _warpgroup_case(kind):
+    """The warpgroup design's domain at shapes the cases above miss, with
+    numpy draws: ``hd256`` (G 8, hd 256, 16-token pages), ``off_page``
+    (16-token pages, starts inside a page), ``idle_beside_full`` (q_len 0
+    rows beside rows at q_len S: whole pad-only tiles), ``split`` (a B 4
+    cohort over 64 pages, where the design splits positions)."""
+    if kind == "hd256":
+        return prefill_case(1, B=3, S=64, G=8, hd=256, psz=16, p_max=16, idle=1)
+    if kind == "off_page":
+        return prefill_case(2, B=4, S=128, G=4, hd=32, psz=16, p_max=16, starts=(5, 37, 70, 127), idle=1)
+    if kind == "idle_beside_full":
+        case = list(prefill_case(3, B=4, S=64, G=4, hd=32, psz=16, p_max=16, idle=0))
+        case[5] = np.asarray([64, 0, 64, 0], np.int32)
+        return tuple(case)
+    return prefill_case(4, B=4, S=64, G=8, hd=32, psz=16, p_max=64, starts=(64, 80, 112, 520), idle=1)
+
+
+@pytest.mark.parametrize("kind", ["hd256", "off_page", "idle_beside_full", "split"])
+def test_warpgroup_tiles_match_reference_kernel_interpret(kind):
+    """The plain version and the warpgroup design's tile and split
+    arithmetic (its tiles, its split rule on a 132-SM card) against the
+    reference kernel in interpret mode, fp32 to 2e-5, at the design's
+    domain shapes; pads and idle rows exact zeros. The split case does
+    split (more than one span of positions)."""
+    case = _warpgroup_case(kind)
+    q, kp, vp, table, starts, q_lens = case
+    B, S, K, G, hd = q.shape
+    psz, p_max = kp.shape[3], table.shape[1]
+    assert tk.kernel_design(S, G, hd, psz, torch.bfloat16, kp.size // hd) == "warpgroup"
+    ref = np.asarray(jref.ragged_paged_attention(*(jnp.asarray(a) for a in case), 1, interpret=True))
+    args = as_torch(*case)
+    plain = tk.ragged_paged_attention_reference(*args, 1)
+    np.testing.assert_allclose(plain.numpy(), ref, **TOL)
+    tile_rows, size = _grid(B, S, K, G, p_max, psz, design="warpgroup")
+    assert (size < p_max * psz) == (kind == "split")
+    out = _tile_split_and_merge(*args, 1, tile_rows, size)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    for b, ql in enumerate(q_lens):
+        assert np.all(out[b, ql:].numpy() == 0.0) and np.all(plain[b, ql:].numpy() == 0.0)
+
+
+def test_routing_pins_each_kernel_phase_shape_to_its_design():
+    """The route is shapes alone: each of chip_smoke's kernel-phase cells
+    (bf16) takes the design named here: the suffix- and tier-prefill
+    windows (S*G of 256 to 1,024 rows) the warpgroup design, every one-tile
+    window mma_sync. float32 and hd % 16 == 8 stay on mma_sync; so do page
+    sizes that do not tile a 64-position stage in 8-row atoms."""
+    import chip_smoke
+
+    shapes = {None: (64, 8), "prefill": (16, 128), "tier_prefill": (4, 64), "tier_decode": (4, 1)}
+    for cell, G, hd, L, live, psz, pmax in chip_smoke.CELLS:
+        B, S = shapes.get(live, (64, 5) if isinstance(live, tuple) else (64, 8))
+        rows = L * (B * pmax + 1) * psz
+        want = "warpgroup" if live in ("prefill", "tier_prefill") else "mma_sync"
+        assert tk.kernel_design(S, G, hd, psz, torch.bfloat16, rows) == want, cell
+        assert tk.kernel_design(S, G, hd, psz, torch.float32, rows) == "mma_sync", cell
+    assert tk.kernel_design(128, 4, 40, 16, torch.bfloat16, 4096) == "mma_sync"
+    assert tk.kernel_design(128, 4, 24, 64, torch.bfloat16, 4096) == "mma_sync"
+    assert tk.kernel_design(128, 4, 32, 4, torch.bfloat16, 4096) == "mma_sync"
+    assert tk.kernel_design(128, 4, 32, 16, torch.bfloat16, 2**31) == "mma_sync"
+    assert tk.kernel_design(16, 4, 32, 16, torch.bfloat16, 4096) == "mma_sync"  # S*G 64: one tile
+    assert tk.kernel_design(17, 4, 32, 16, torch.bfloat16, 4096) == "warpgroup"
 
 
 def test_ragged_n_pages_matches_reference():
