@@ -18,7 +18,9 @@ Phases, one line each (every number beside the card's name and power limit):
      port never calls), each by back-to-back eager calls (``ms``, host work
      included) and as device time by CUDA-graph replays (``device_ms``),
      and the least time the card could take (``bound_ms``), and the design
-     (``warpgroup`` or ``mma_sync``), grid and split count the launch takes.
+     (``warpgroup``, ``rowwise`` or ``mma_sync``), grid, split count and
+     span the launch takes, each cell's launches counted under the design
+     its shapes route to.
      The attention kernel's ticket counters must be back at 0 after the
      phase;
   4. forward check: prefill plus one paged decode forward of the trained
@@ -53,8 +55,10 @@ Phases, one line each (every number beside the card's name and power limit):
      flight, with the radix prefix cache off and then on (a live flip on an
      idle slab). Every plan valid, the same plans in both modes, tree hits
      and suffix prefills through the kernel, each launch of them on the
-     warpgroup design (``launches``' ``by_design``, which every serving
-     line prints), and fewer prefill tokens per request with the cache on;
+     warpgroup design and every other (the decode windows) on the design
+     one-tile windows route to, ``rowwise`` on the card (``launches``'
+     ``by_design``, which every serving line prints), and fewer prefill
+     tokens per request with the cache on;
   9. telemetry (``telemetry_test``, ``telemetry_2b``), on the same engines:
      the burst's intents once more, from an emptied tree and as one cohort
      as the burst ran, with a fresh ``Tracer`` (every trace
@@ -526,6 +530,7 @@ def kernel_times(q, kp, vp, table, starts, q_lens, L) -> dict:
 
 def kernel_phase(card: str) -> list[dict]:
     from mcpx_torch.engine.kernels.paged_attention import (
+        kernel_designs,
         launch_plan,
         ragged_paged_attention,
         ragged_paged_attention_reference,
@@ -534,6 +539,7 @@ def kernel_phase(card: str) -> list[dict]:
     rows = []
     for cell, G, hd, L, live, psz, pmax in CELLS:
         worst = 0.0
+        before = kernel_designs()
         for seed in range(3):
             q, kp, vp, table, starts, q_lens = cell_batch(seed, G, hd, L, live, psz, pmax)
             for layer in (0, L - 1):
@@ -548,13 +554,17 @@ def kernel_phase(card: str) -> list[dict]:
                     if bool((out[b, ql:] != 0).any()):
                         raise SystemExit(f"{cell}: row {b} pads are not exact zeros")
         q, kp, vp, table, starts, q_lens = cell_batch(0, G, hd, L, live, psz, pmax)
+        plan = launch_plan(q, kp, table)
+        # The six checked launches ran on the design the shapes route to.
+        counted = {k: n - before[k] for k, n in kernel_designs().items()}
+        if counted[plan["design"]] != 6 or sum(counted.values()) != 6:
+            raise SystemExit(f"{cell}: launches {counted}, not 6 on {plan['design']}")
         times = kernel_times(q, kp, vp, table, starts, q_lens, L)
         bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, table, starts, q_lens)
-        plan = launch_plan(q, kp, table)
         row = dict(
             cell=cell, B=q.shape[0], S=q.shape[1], K=1, G=G, hd=hd, L=L, page_size=psz, max_pages=pmax,
             live_rows=int((q_lens > 0).sum()), dtype="bfloat16",
-            **{k: plan[k] for k in ("design", "grid", "n_split", "tile_rows")}, max_abs_err=worst,
+            **{k: plan[k] for k in ("design", "grid", "n_split", "span", "tile_rows")}, max_abs_err=worst,
             atol=ATOL, rtol=RTOL, **times, bound_ms=bound_ms, bound_by=bound_by,
             ms_over_bound=times["ms"] / bound_ms,
             device_ms_over_bound=times["device_ms"] / bound_ms, bytes=nbytes, flops=flops,
@@ -568,8 +578,9 @@ def kernel_phase(card: str) -> list[dict]:
 def launch_counts() -> dict:
     """The kernel's launches since the last reset, by kernel name, and the
     same launches by design under ``by_design`` (``kernel_designs()``:
-    ``warpgroup`` for the multi-tile bf16 windows, ``mma_sync`` for the
-    rest), so that a serving line shows which design its prefills took."""
+    ``warpgroup`` for the multi-tile bf16 windows, ``rowwise`` for the
+    one-tile bf16 windows, ``mma_sync`` for the rest), so that a serving
+    line shows which design its prefills and windows took."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_designs, kernel_launches
 
     return {**kernel_launches(), "by_design": kernel_designs()}
@@ -1192,13 +1203,37 @@ async def prefix_reuse(cp, records, size: str, n_unique: int, reps: int, card: s
     if on["hits"] <= 0 or on["suffix_prefills"] <= 0 or on["suffix_prefill_launches"] <= 0:
         raise SystemExit(f"serve_prefix_{size}: no reuse through the kernel: {on}")
     # Suffix prefills are bf16 windows of 64 or more queries: on the card
-    # each of their launches takes the warpgroup design.
+    # each of their launches takes the warpgroup design. Every other launch
+    # of either mode is a one-tile window: each takes the design its shapes
+    # route to.
     by_design = on["launches"]["by_design"]
     if torch.cuda.is_available() and by_design["warpgroup"] < on["suffix_prefill_launches"]:
         raise SystemExit(f"serve_prefix_{size}: suffix prefills missed the warpgroup design: {by_design} {on}")
+    for st in (off, on):
+        one_tile_gate(f"serve_prefix_{size}", engine, st["launches"]["by_design"])
     if not on["prefill_tokens_per_request"] < off["prefill_tokens_per_request"]:
         raise SystemExit(f"serve_prefix_{size}: the cache did not cut prefill tokens: {off} {on}")
     return {"off": off, "on": on}
+
+
+def one_tile_gate(name: str, engine, by_design: dict) -> None:
+    """On the card, a serving run's launches that are not multi-tile
+    (``warpgroup``) are one-tile windows over the engine's pools, 1 to
+    ``speculate_k`` queries wide: each must have taken a design
+    ``kernel_design`` routes one of those widths to, and where that is
+    ``rowwise`` (bf16 at the presets' widths), some must have."""
+    from mcpx_torch.engine.kernels.paged_attention import kernel_design
+    from mcpx_torch.parallel.transfer import pools_on
+
+    if not torch.cuda.is_available():
+        return
+    cfg, pool = engine.model_cfg, pools_on(engine._paged_kv, engine._layout)[0][2]["k"]
+    K, L, N, psz, hd = pool.shape
+    widths = range(1, max(engine.config.engine.speculate_k, 1) + 1)
+    routed = {kernel_design(S, cfg.q_per_kv, hd, psz, pool.dtype, K * L * N * psz) for S in widths}
+    missed = {k: n for k, n in by_design.items() if k not in routed | {"warpgroup"} and n}
+    if missed or ("rowwise" in routed and by_design.get("rowwise", 0) <= 0):
+        raise SystemExit(f"{name}: one-tile windows missed the designs {sorted(routed)}: {by_design}")
 
 
 # ------------------------------------------------------------ telemetry
@@ -5916,14 +5951,18 @@ def decode_step_phase(card: str, size: str, device=None, *, steps: int = 8, iter
 def step_kernel_row(cell: str, cfg, rec: dict, pools: dict) -> dict:
     """The kernel phase's row (``kernel_times``, ``attention_bound``) at a
     recorded S=1 launch's query, page table and starts, over every layer of
-    ``pools``."""
+    ``pools``, with the launch's design, grid and span."""
+    from mcpx_torch.engine.kernels.paged_attention import launch_plan
+
     q, kp, vp = rec["q"], pools["k"], pools["v"]
     times = kernel_times(q, kp, vp, rec["table"], rec["start"], rec["q_lens"], cfg.n_layers)
     bound_ms, bound_by, nbytes, flops = attention_bound(q, kp, rec["table"], rec["start"], rec["q_lens"])
+    plan = launch_plan(q, kp, rec["table"])
     return dict(
         cell=cell, B=q.shape[0], S=1, K=cfg.n_kv_heads, G=cfg.q_per_kv, hd=cfg.head_dim, L=cfg.n_layers,
         page_size=kp.shape[3], max_pages=rec["table"].shape[1], live_rows=q.shape[0], dtype="bfloat16",
-        atol=ATOL, rtol=RTOL, **times, bound_ms=bound_ms, bound_by=bound_by, ms_over_bound=times["ms"] / bound_ms,
+        **{k: plan[k] for k in ("design", "grid", "n_split", "span")}, atol=ATOL, rtol=RTOL, **times,
+        bound_ms=bound_ms, bound_by=bound_by, ms_over_bound=times["ms"] / bound_ms,
         device_ms_over_bound=times["device_ms"] / bound_ms, bytes=nbytes, flops=flops,
     )
 
@@ -6132,7 +6171,7 @@ def main(argv: list[str]) -> int:
             "serving_launches_by_design": {
                 design: sum(st["launches"].get("by_design", {}).get(design, 0) for st in runs
                             + [trained_ovl, full_ovl] + clusters + list(offline["eval_test"].values()))
-                for design in ("warpgroup", "mma_sync")
+                for design in ("warpgroup", "rowwise", "mma_sync")
             },
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (

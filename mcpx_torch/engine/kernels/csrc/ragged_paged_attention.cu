@@ -23,17 +23,22 @@
 // lookups, copy latency, the products, the softmax and, where positions are
 // split, the merge.
 //
-// Two designs, chosen by shape alone (`kernel_design` in paged_attention.py;
+// Three designs, chosen by shape alone (`kernel_design` in paged_attention.py;
 // one CUDA-graph key serves any phase mix):
 //   * warpgroup: bf16 windows of more than one 64-row query tile (S*G > 64:
 //     suffix and tier prefill) at hd 32, 64, 128 or 256 and Psz 8, 16, 32 or
-//     64. Every other window (decode, fast-forward, verify, one-token steps,
-//     float32, hd % 16 == 8 such as hd 24 and 40, other page sizes) takes
-//     mma_sync. Each head_dim is an instantiation; 32 and 256 are the
-//     presets'.
-//   * mma_sync: the Ampere-style design below, which wins on one-tile
-//     windows: wgmma's 64-row tiles would waste 7/8 of each tile on decode
-//     rows.
+//     64. Each head_dim is an instantiation; 32 and 256 are the presets'.
+//   * rowwise: bf16 windows of one query tile (S*G <= 64: decode,
+//     fast-forward, verify, one-token steps) at the same head_dims and page
+//     sizes, but for windows of 8 rows or fewer at hd 256 (2b's one-token
+//     steps), which mma_sync ran as fast or faster. Its wgmma tiles
+//     hold 64 rows, of which an S 1 window fills 4
+//     or 8 (test, 2b) and the 2b serving window (S 8 x G 8) all 64; no
+//     one-tile launch is bound by the tensor cores' rate (each runs 10-419x
+//     above its bytes bound on the chain of its blocks), so the empty rows
+//     cost no time that counts.
+//   * mma_sync: the Ampere-style design below, for every other window
+//     (float32, hd % 16 == 8 such as hd 24 and 40, other page sizes).
 //
 // The warpgroup design. One block per (row, kv-head, 64 query rows) and,
 // where the blocks fill less than half the SMs and the table names more
@@ -69,6 +74,41 @@
 // of the heaviest blocks' stages. Each of a row's blocks reads the row's K
 // and V again, from L2. At the tier rows (8 or 16 blocks), launch latency.
 //
+// The rowwise design. What bounds a one-tile launch is the chain of one
+// block, neither bytes (a 2b decode window needs 3 us of them) nor the
+// launch (an empty kernel on the parent's grid: 1.0-1.2 us in a CUDA graph).
+// Measured before it was designed, on scratch copies of the mma_sync
+// kernel: one split over the whole table, written straight to the output
+// (no partial, no ticket), ran 1.1-1.8x slower than four splits and a
+// merge, since its chain is eight serial 32-position tiles; the warpgroup
+// design on these windows ran 0.55-0.97x of the mma_sync one (64-position
+// stages by TMA, wgmma). So: one block per (row, kv head) over the whole
+// table up to 256 positions, so the serving tables write no partial and
+// take no ticket. Two consumer warpgroups (256 threads) split the block's
+// 64-position stages between them, warpgroup w taking stages w, w + 2, ...,
+// each with its own (m, l, acc) through the warpgroup design's q K^T,
+// softmax and P V over the tile's 64 rows (the live S*G rows, zeros past
+// them). Warp t < kBufs reads stage t's page ids beside start_pos and q_len
+// (no read waits on another before the copies) and loads the stage by TMA,
+// every buffer's at once: a 256-position table whole at hd up to 128, three
+// of its four stages at hd 256, whose fourth stage then loads into the
+// first buffer once the warpgroup that read it is done. Each stage has an
+// mbarrier of its own, used once, so a warpgroup that runs ahead never
+// mistakes an earlier phase for its stage.
+// A block of one split whose stages all stay loaded (every serving table:
+// 256 positions at hd up to 128, 192 at hd 256) runs its softmax as the
+// plain version does (rw_exact): the rows' max and sum first, then q K^T
+// again and P = e^(s - M) / L rounded to bf16; online rescaling, which
+// rounds P against a running max, turned a 2b plan served from the prefix
+// cache away from the same plan served without it. Other blocks rescale
+// online. The warpgroups then merge in shared memory in warpgroup order
+// (the output does not depend on timing), and warpgroup 0 writes the rows
+// with one reciprocal a row. Past 256 positions the grid splits into spans of
+// 256-2,048 positions (while B*K blocks stay within one an SM) that merge
+// through the tickets as the other designs' splits do. At 2b's S 1 rows
+// (4 or 8 blocks) what remains is one SM's load rate: 256 KB of K and V a
+// block.
+//
 // The mma_sync design:
 //   * Query tiles. A window's S*G query rows (the GQA group folded in) are
 //     cut into tiles of kMaxRows = 64 rows, so one launch serves any window
@@ -85,7 +125,7 @@
 //     cdiv(Pmax*Psz, kChunk) splits. Decode windows (one tile a row) keep
 //     one split per kChunk. Tile and split counts depend on shapes (and
 //     the card's SM count) only.
-//   * Combine in the same launch (both designs). Block 0 writes the zeros
+//   * Combine in the same launch (every design). Block 0 writes the zeros
 //     of an idle row's tiles and of tiles that hold only pads. Each block
 //     of a live tile with work writes its partial (m, l, unnormalised acc)
 //     in fp32 to scratch, fences, and takes a ticket on the tile's counter;
@@ -837,7 +877,7 @@ ragged_paged_attention_kernel(const Args a) {
 // ---------------------------------------------------------------------------
 // The warpgroup design: bf16 windows of more than one 64-row query tile
 // (suffix and tier prefill), at the head_dims and page sizes `kernel_design`
-// (paged_attention.py) routes here. See "Two designs" in the note above.
+// (paged_attention.py) routes here. See "Three designs" in the note above.
 
 constexpr int kWgRows = 64;      // query rows a block: one consumer warpgroup
 constexpr int kWgPos = 64;       // positions a stage: the n of q K^T, the k of P V
@@ -1073,15 +1113,12 @@ __device__ __forceinline__ void wg_load_q(const Args& a, const Block& blk, unsig
 // mask (`masked`: only where the positions reach past the first live row's
 // limit), the online softmax on the fragments, then o += P V with P rounded
 // to bf16 as the A operand from registers and V read transposed. Lane l of
-// warp w holds rows 16w + l/4 and + 8, columns 8j + 2(l%4) + {0,1}.
+// warp w holds rows 16w + l/4 and + 8, columns 8j + 2(l%4) + {0,1}. Its
+// steps are apart so that the rowwise design can run q K^T twice: once for
+// the rows' max and sum, once for P normalised as the plain version does.
 template <int HD, int N = kWgPos>
-__device__ __forceinline__ void wg_stage(float (&o)[HD / 2],
-                                         float (&m)[2], float (&l)[2], uint32_t qs, uint32_t ks,
-                                         uint32_t vs, int pos0, bool masked, int lim0, int lim1,
-                                         float scale) {
+__device__ __forceinline__ void wg_scores(float (&s)[N / 2], uint32_t qs, uint32_t ks) {
   using W = Wg<HD>;
-  const int lane = threadIdx.x % 32;
-  float s[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
   wgmma_fence();
@@ -1094,16 +1131,34 @@ __device__ __forceinline__ void wg_stage(float (&o)[HD / 2],
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
+}
 
-  // Column 8j + e of this lane is visible to row r while 8j + e < lim_r - col0.
+// The scaled scores, NEG_INF where a row may not see the position: column
+// 8j + e of this lane is visible to row r while 8j + e < lim_r - col0.
+template <int N = kWgPos>
+__device__ __forceinline__ void wg_mask(float (&s)[N / 2], int pos0, bool masked, int lim0, int lim1,
+                                        float scale) {
+  const int lane = threadIdx.x % 32;
   const int col0 = pos0 + 2 * (lane & 3), d0 = lim0 - col0, d1 = lim1 - col0;
-  float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       s[4 * j + e] = !masked || 8 * j + e < d0 ? s[4 * j + e] * scale : kNegInf;
       s[4 * j + 2 + e] = !masked || 8 * j + e < d1 ? s[4 * j + 2 + e] * scale : kNegInf;
+    }
+}
+
+template <int HD, int N = kWgPos>
+__device__ __forceinline__ void wg_softmax(float (&o)[HD / 2], float (&m)[2], float (&l)[2],
+                                           float (&s)[N / 2], uint32_t (&p)[N / 16][4], int pos0,
+                                           bool masked, int lim0, int lim1, float scale) {
+  wg_mask<N>(s, pos0, masked, lim0, lim1, scale);
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
       mx0 = fmaxf(mx0, s[4 * j + e]);
       mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
     }
@@ -1130,7 +1185,6 @@ __device__ __forceinline__ void wg_stage(float (&o)[HD / 2],
     o[4 * j + 2] *= al1;
     o[4 * j + 3] *= al1;
   }
-  uint32_t p[N / 16][4];
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
@@ -1138,6 +1192,11 @@ __device__ __forceinline__ void wg_stage(float (&o)[HD / 2],
     p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
     p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
+}
+
+template <int HD, int N = kWgPos>
+__device__ __forceinline__ void wg_pv(float (&o)[HD / 2], const uint32_t (&p)[N / 16][4], uint32_t vs) {
+  using W = Wg<HD>;
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
@@ -1147,6 +1206,18 @@ __device__ __forceinline__ void wg_stage(float (&o)[HD / 2],
   wgmma_commit();
   wgmma_wait();
   fence_regs(o);
+}
+
+template <int HD, int N = kWgPos>
+__device__ __forceinline__ void wg_stage(float (&o)[HD / 2],
+                                         float (&m)[2], float (&l)[2], uint32_t qs, uint32_t ks,
+                                         uint32_t vs, int pos0, bool masked, int lim0, int lim1,
+                                         float scale) {
+  float s[N / 2];
+  uint32_t p[N / 16][4];
+  wg_scores<HD, N>(s, qs, ks);
+  wg_softmax<HD, N>(o, m, l, s, p, pos0, masked, lim0, lim1, scale);
+  wg_pv<HD, N>(o, p, vs);
 }
 
 // The consumer warpgroup: q once, then every stage the producer loads
@@ -1293,6 +1364,394 @@ __global__ void __launch_bounds__(kWgThreads, Wg<HD>::kMinBlocks)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The rowwise design: bf16 windows of one query tile (S*G <= 64: decode,
+// fast-forward, verify and one-token steps), at the warpgroup design's head
+// dims and page sizes. See "Three designs" in the note above.
+
+constexpr int kRwMinSpan = 4 * kWgPos;    // positions a block covers before the grid splits
+constexpr int kRwMaxStages = 32;          // stages a block at most: one mbarrier each
+constexpr int kRwMaxSpan = kRwMaxStages * kWgPos;
+
+template <int HD>
+struct Rw {
+  using W = Wg<HD>;
+  // Consumer warpgroups a block, each over every other stage with its own
+  // (m, l, acc). (Four at hd 32 and 64, 512 threads a block, ran within 2%
+  // of two; hd 256's accumulator leaves registers for two.)
+  static constexpr int kWGs = 2;
+  static constexpr int kThreads = 128 * kWGs;
+  // Stage buffers, all loading from the start: a 256-position table whole,
+  // three stages at hd 256 (64 KB each beside 32 KB of q).
+  static constexpr int kBufs = HD > 128 ? 3 : 4;
+  // A barrier per stage (from 0), the ticket flag (at 512), and each
+  // warpgroup's rows' (max, sum) for the exact softmax (from 1024).
+  static constexpr int kHead = 2048;
+  static constexpr int kBody = W::kQBytes + 2 * kBufs * W::kTileBytes;
+  // The other warpgroups' accumulators, then their (m, l), for the merge
+  // inside the block, over q and the stages once every stage is done.
+  static constexpr int kXo = (kWGs - 1) * 128 * (HD / 2) * 4;
+  static constexpr int kXchg = kXo + (kWGs - 1) * kWgRows * 2 * 4;
+  static_assert(kXchg <= kBody, "the merge's exchange fits over q and the stages");
+  static_assert(8 * kRwMaxStages <= 512, "the barriers end before the ticket flag");
+  static_assert(kWGs * 2 * kWgRows * 4 <= 1024, "the warpgroups' (max, sum) fit the head");
+};
+
+// Dynamic shared memory of a block: alignment slack, head, and the larger
+// of the tiles and the split merge's workspace (which reuses them).
+template <int HD>
+size_t rw_smem(int nsplit) {
+  const size_t ws = sizeof(float) * kWgRows * (3 * (size_t)nsplit + 1);
+  return 1024 + Rw<HD>::kHead + std::max((size_t)Rw<HD>::kBody, ws);
+}
+
+// The page id this lane of an issuing warp loads from for stage t of the
+// positions from c0 (a lane a (page, column block) box). A lane or page
+// past the stage or the table reads a clamped entry, which rw_issue does
+// not use: the read has no condition, so it issues with the kernel's first.
+template <int HD>
+__device__ __forceinline__ int rw_page(const Args& a, int b, int c0, int t) {
+  const int pg = min((int)(threadIdx.x % 32) / Wg<HD>::kBlocks, kWgPos / a.psz - 1);
+  const int page = min((c0 + t * kWgPos) / a.psz + pg, a.pmax - 1);
+  return __ldg(a.page_table + (size_t)b * a.pmax + page);
+}
+
+// Stage t (64 positions from blk.c0 + 64 t) into buffer t % kBufs, on
+// barrier t, by the calling warp: each lane one (page, column block) box of
+// K and of V from page `id` (rw_page's). A page at or past c1 loads rows past the pools,
+// which TMA fills with zeros, so a stage always lands whole.
+template <int HD>
+__device__ __forceinline__ void rw_issue(const CUtensorMap* km, const CUtensorMap* vm, const Args& a,
+                                         const Block& blk, uint32_t base, int t, int id) {
+  using W = Wg<HD>;
+  using R = Rw<HD>;
+  const int lane = threadIdx.x % 32, pg = lane / W::kBlocks, cb = lane % W::kBlocks;
+  const bool mine = pg < kWgPos / a.psz;
+  const uint32_t bar = base + 8 * t;
+  const uint32_t ks = base + R::kHead + W::kQBytes + (t % R::kBufs) * W::kTileBytes;
+  const uint32_t vs = ks + R::kBufs * W::kTileBytes;
+  const uint32_t off = cb * (kWgPos * W::kRowBytes) + pg * a.psz * W::kRowBytes;
+  const int page = (blk.c0 + t * kWgPos) / a.psz + pg;
+  const int row = page * a.psz < blk.c1 ? ((blk.kh * a.L + a.layer) * a.N + id) * a.psz
+                                        : a.K * a.L * a.N * a.psz;
+  if (lane == 0) mbar_expect_tx(bar, 2 * W::kTileBytes);
+  __syncwarp();
+  if (mine) {
+    tma_load(ks + off, km, cb * W::kCols, row, bar);
+    tma_load(vs + off, vm, cb * W::kCols, row, bar);
+  }
+}
+
+// The tile's query rows (64, zeros past blk.live) by cp.async, every
+// thread's chunks in flight at once; the caller waits.
+template <int HD, int kT>
+__device__ __forceinline__ void rw_load_q(const Args& a, const Block& blk, unsigned char* qs) {
+  constexpr int kChunks = HD / 8;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = threadIdx.x; e < kWgRows * kChunks; e += kT) {
+    const int r = e / kChunks, ch = e % kChunks;
+    const bool valid = r < blk.live;
+    cp_async16(qs + wg_chunk<HD>(r, ch), valid ? q + blk.at(a, r) + ch * 8 : q, valid);
+  }
+  cp_commit();
+}
+
+// The softmax of a block of one split whose stages all stay loaded, as
+// the plain version computes it: the rows' max M and sum L over every
+// position first (q K^T over the warpgroup's stages, the two warpgroups'
+// (max, sum) merged through shared memory in warpgroup order), then q K^T
+// again and P = e^(s - M) / L rounded to bf16 before P V. Online rescaling
+// rounds P against a running max and divides after P V, so its bf16
+// rounding differs from the plain version's; a prompt token fast-forwarded
+// through a decode window over cached pages then leaves other hidden states
+// than the dense prefill of the same tokens, and a 2b plan served from the
+// prefix cache differed from the plan served without it. Leaves o
+// normalised, m = M and ls = 1/2 in both warpgroups, so that the merge
+// after it adds their o with equal weights and divides by their sum. `ex`
+// holds [kWGs][max, sum][64 rows].
+template <int HD>
+__device__ __forceinline__ void rw_exact(float (&o)[HD / 2], float (&m)[2], float (&ls)[2], float* ex,
+                                         uint32_t base, uint32_t qs, uint32_t ks, uint32_t vs,
+                                         const Block& blk, int nt, int lim0, int lim1, int first) {
+  using W = Wg<HD>;
+  using R = Rw<HD>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4;
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  float s[kWgPos / 2];
+  float l[2] = {0.f, 0.f};
+  for (int t = wg; t < nt; t += R::kWGs) {
+    const int pos0 = blk.c0 + t * kWgPos;
+    mbar_wait(base + 8 * t, 0);
+    wg_scores<HD>(s, qs, ks + (t % R::kBufs) * W::kTileBytes);
+    wg_mask(s, pos0, pos0 + kWgPos > first, lim0, lim1, blk.scale);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kWgPos / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) mx[u] = fmaxf(mx[u], fmaxf(s[4 * j + 2 * u], s[4 * j + 2 * u + 1]));
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float mn = fmaxf(m[u], quad_max(mx[u]));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kWgPos / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[4 * j + 2 * u + e];
+          sum += x <= kNegInf * 0.5f ? 0.f : __expf(x - mn);
+        }
+      l[u] = l[u] * __expf(m[u] - mn) + sum;
+      m[u] = mn;
+    }
+  }
+  // Each warpgroup's (max, sum) of its rows, then both warpgroups' merged.
+  const float lq[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  if ((lane & 3) == 0)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      ex[wg * 2 * kWgRows + r0 + 8 * u] = m[u];
+      ex[wg * 2 * kWgRows + kWgRows + r0 + 8 * u] = lq[u];
+    }
+  __syncthreads();
+  float inv[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    float mx = kNegInf, sum = 0.f;
+    for (int g = 0; g < R::kWGs; ++g)
+      if (ex[g * 2 * kWgRows + kWgRows + r0 + 8 * u] > 0.f) mx = fmaxf(mx, ex[g * 2 * kWgRows + r0 + 8 * u]);
+    for (int g = 0; g < R::kWGs; ++g) {
+      const float lg = ex[g * 2 * kWgRows + kWgRows + r0 + 8 * u];
+      sum += lg > 0.f ? lg * __expf(ex[g * 2 * kWgRows + r0 + 8 * u] - mx) : 0.f;
+    }
+    m[u] = mx;
+    inv[u] = sum > 0.f ? 1.f / sum : 0.f;
+    ls[u] = sum > 0.f ? 0.5f : 0.f;
+  }
+  for (int t = wg; t < nt; t += R::kWGs) {
+    const int pos0 = blk.c0 + t * kWgPos;
+    uint32_t p[kWgPos / 16][4];
+    wg_scores<HD>(s, qs, ks + (t % R::kBufs) * W::kTileBytes);
+    wg_mask(s, pos0, pos0 + kWgPos > first, lim0, lim1, blk.scale);
+#pragma unroll
+    for (int j = 0; j < kWgPos / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = i / 2;
+        const float x = s[4 * j + i];
+        s[4 * j + i] = x <= kNegInf * 0.5f ? 0.f : __expf(x - m[u]) * inv[u];
+      }
+#pragma unroll
+    for (int kk = 0; kk < kWgPos / 16; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wg_pv<HD>(o, p, vs + (t % R::kBufs) * W::kTileBytes);
+  }
+}
+
+// Grid (B*K, n_split): one block per (row, kv head) and split of `span`
+// positions (one split at the serving tables). Warp t < kBufs reads the page
+// ids of stage t beside start and q_len and loads it by TMA, every buffer's
+// at once; q arrives by cp.async meanwhile. Warpgroup w computes stages w, w +
+// kWGs, ... with wg_stage (the warpgroup design's products and softmax over
+// the tile's 64 rows) and refills each buffer it has finished. The
+// warpgroups' states then merge in shared memory in warpgroup order, and
+// warpgroup 0 writes the rows (one split) or the block's partial, whose
+// splits merge as the other designs' do.
+template <int HD>
+__global__ void __launch_bounds__(Rw<HD>::kThreads, 1)
+    ragged_rowwise_kernel(const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, const Args a) {
+  using W = Wg<HD>;
+  using R = Rw<HD>;
+  extern __shared__ unsigned char rw_smem_raw[];
+  unsigned char* smem = rw_smem_raw + ((1024 - (smem_u32(rw_smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const int bk = blockIdx.x, c = blockIdx.y, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, tw = tid % 128;
+  Block blk;
+  blk.b = bk / a.K;
+  blk.kh = bk - blk.b * a.K;
+  blk.c0 = c * a.span;
+  const int id = rw_page<HD>(a, blk.b, blk.c0, min(warp, R::kBufs - 1));
+  blk.start = a.start_pos[blk.b];
+  const int qn = min(max(a.q_lens[blk.b], 0), a.S);
+  blk.row0 = 0;
+  blk.rows = a.S * a.G;
+  blk.live = min(max(qn * a.G, 0), blk.rows);
+  blk.total = a.pmax * a.psz;
+  blk.lim = blk.live > 0 ? max(min(blk.start + qn, blk.total), 0) : 0;
+  blk.scale = rsqrtf((float)HD);
+  if (blk.live == 0) {  // an idle row: block 0 writes its zeros
+    if (c == 0) zero_rows<bf16, R::kThreads>(a, blk, 0);
+    return;
+  }
+  const int nwork = cdiv(blk.lim, a.span);
+  blk.c1 = min(blk.lim, blk.c0 + a.span);
+  const int nt = c < nwork ? cdiv(blk.c1 - blk.c0, kWgPos) : 0;  // stages this block computes
+  // One split whose stages all stay loaded: the exact softmax (rw_exact).
+  const bool exact = a.nsplit == 1 && nt <= R::kBufs;
+
+  float o[HD / 2];
+  float m[2] = {kNegInf, kNegInf}, ls[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  const int r0 = (warp % 4) * 16 + lane / 4;  // this lane's rows r0 and r0 + 8
+  float* xo = reinterpret_cast<float*>(smem + R::kHead);  // [kWGs - 1][HD / 8][128] float4
+  float* xml = xo + R::kXo / 4;                            // [kWGs - 1][m, l][64 rows]
+  if (nt > 0) {
+    const uint32_t qs = base + R::kHead, ks = qs + W::kQBytes, vs = ks + R::kBufs * W::kTileBytes;
+    if (warp < R::kBufs && warp < nt) {
+      // Barrier t is initialised before anything waits on or loads into it:
+      // the first stages' by their issuing warps, the refills' by warp 0.
+      if (lane == 0) mbar_init(base + 8 * warp, 1);
+      if (warp == 0 && R::kBufs + lane < nt) mbar_init(base + 8 * (R::kBufs + lane), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      __syncwarp();
+      rw_issue<HD>(&kmap, &vmap, a, blk, base, warp, id);
+    }
+    rw_load_q<HD, R::kThreads>(a, blk, smem + R::kHead);
+    cp_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int lim0 = blk.limit(r0, a.G), lim1 = blk.limit(r0 + 8, a.G), first = blk.limit(0, a.G);
+    if (exact) {
+      rw_exact<HD>(o, m, ls, reinterpret_cast<float*>(smem + 1024), base, qs, ks, vs, blk, nt, lim0, lim1,
+                   first);
+    } else {
+      float l[2] = {0.f, 0.f};
+      for (int t = wg; t < nt; t += R::kWGs) {
+        const int s = t % R::kBufs, pos0 = blk.c0 + t * kWgPos;
+        const bool refill = t + R::kBufs < nt && warp == 4 * wg;
+        const int next = refill ? rw_page<HD>(a, blk.b, blk.c0, t + R::kBufs) : 0;
+        mbar_wait(base + 8 * t, 0);  // every barrier serves one stage: phase 0
+        wg_stage<HD>(o, m, l, qs, ks + s * W::kTileBytes, vs + s * W::kTileBytes, pos0,
+                     pos0 + kWgPos > first, lim0, lim1, blk.scale);
+        if (t + R::kBufs < nt) {
+          // Every warp of this warpgroup is done with buffer s: its first warp refills it.
+          asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+          if (refill) rw_issue<HD>(&kmap, &vmap, a, blk, base, t + R::kBufs, next);
+        }
+      }
+      ls[0] = quad_sum(l[0]);
+      ls[1] = quad_sum(l[1]);
+    }
+
+    // The warpgroups' states merge in warpgroup order: each other warpgroup
+    // leaves its accumulator and (m, l) over q and the stages, and warpgroup 0
+    // rescales all of them to the rows' largest max and sums them.
+    __syncthreads();  // every warpgroup is done with q and the stages
+    if (wg > 0) {
+      float4* dst = reinterpret_cast<float4*>(xo) + (size_t)(wg - 1) * (HD / 8) * 128 + tw;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        dst[j * 128] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+      if ((lane & 3) == 0)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          xml[(wg - 1) * 2 * kWgRows + r0 + 8 * u] = m[u];
+          xml[(wg - 1) * 2 * kWgRows + kWgRows + r0 + 8 * u] = ls[u];
+        }
+    }
+    __syncthreads();
+    if (wg == 0) {
+      float mx[2], w[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        mx[u] = ls[u] > 0.f ? m[u] : kNegInf;
+        for (int g = 1; g < R::kWGs; ++g)
+          if (xml[(g - 1) * 2 * kWgRows + kWgRows + r0 + 8 * u] > 0.f)
+            mx[u] = fmaxf(mx[u], xml[(g - 1) * 2 * kWgRows + r0 + 8 * u]);
+        w[u] = ls[u] > 0.f ? __expf(m[u] - mx[u]) : 0.f;
+        ls[u] *= w[u];
+        m[u] = mx[u];
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= w[0];
+        o[4 * j + 1] *= w[0];
+        o[4 * j + 2] *= w[1];
+        o[4 * j + 3] *= w[1];
+      }
+      for (int g = 1; g < R::kWGs; ++g) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float lg = xml[(g - 1) * 2 * kWgRows + kWgRows + r0 + 8 * u];
+          w[u] = lg > 0.f ? __expf(xml[(g - 1) * 2 * kWgRows + r0 + 8 * u] - mx[u]) : 0.f;
+          ls[u] += lg * w[u];
+        }
+        const float4* src = reinterpret_cast<const float4*>(xo) + (size_t)(g - 1) * (HD / 8) * 128 + tw;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const float4 x = src[j * 128];
+          o[4 * j] += w[0] * x.x;
+          o[4 * j + 1] += w[0] * x.y;
+          o[4 * j + 2] += w[1] * x.z;
+          o[4 * j + 3] += w[1] * x.w;
+        }
+      }
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(a.out);
+  if (a.nsplit == 1) {
+    if (wg == 0) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = r0 + 8 * u;
+        if (r >= blk.live) continue;
+        // One reciprocal a row: a division a value (a software sequence on
+        // the card) cost 2b's 128 values a thread about 10,000 cycles.
+        const float inv = __frcp_rn(fmaxf(ls[u], 1e-30f));
+        uint32_t* dst = reinterpret_cast<uint32_t*>(out + blk.at(a, r));
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const float x = o[4 * j + 2 * u], y = o[4 * j + 2 * u + 1];
+          dst[4 * j + (lane & 3)] = ls[u] > 0.f ? pack_bf16(x * inv, y * inv) : 0u;
+        }
+      }
+    } else {  // the window's pad rows: exact zeros, 16 bytes a thread
+      for (int e = tid - 128; e < (blk.rows - blk.live) * (HD / 8); e += R::kThreads - 128)
+        reinterpret_cast<uint4*>(out + blk.at(a, blk.live + e / (HD / 8)))[e % (HD / 8)] =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  // Split: this block's partial state (m, l and the unnormalised acc of the
+  // live rows), then a ticket; the last block of the row merges in split order.
+  float* part = a.part + (size_t)bk * a.nsplit * a.trows * HD;
+  float* ml = a.ml + (size_t)bk * a.nsplit * 2 * a.trows;
+  if (nt > 0 && wg == 0) {
+    float* mine = part + (size_t)c * a.trows * HD;
+    float* mml = ml + (size_t)c * 2 * a.trows;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = r0 + 8 * u;
+      if (r >= blk.live) continue;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(mine + (size_t)r * HD + 8 * j + 2 * (lane & 3)) =
+            make_float2(o[4 * j + 2 * u], o[4 * j + 2 * u + 1]);
+      if ((lane & 3) == 0) {
+        mml[r] = m[u];
+        mml[a.trows + r] = ls[u];
+      }
+    }
+  }
+  int* flag = reinterpret_cast<int*>(smem + 512);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(a.tickets + bk, 1) == a.nsplit - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  merge<bf16, R::kThreads>(a, reinterpret_cast<float*>(smem + R::kHead), kWgRows, blk, nwork, part, ml,
+                           BlockSync());
+  if (tid == 0) a.tickets[bk] = 0;
+}
+
 // SMs of the current device, read once per device.
 int sm_count() {
   static int cached[64] = {};
@@ -1306,7 +1765,7 @@ int sm_count() {
   return cached[dev];
 }
 
-enum Design { kMmaSync = 0, kWarpgroup = 1 };
+enum Design { kMmaSync = 0, kWarpgroup = 1, kRowwise = 2 };
 
 // Query tiles a window, rows a tile, splits a tile and the positions a
 // split attends, from the shapes. mma_sync: 64-row tiles, as many splits of
@@ -1315,7 +1774,10 @@ enum Design { kMmaSync = 0, kWarpgroup = 1 };
 // while the blocks fill less than half the SMs (counting one an SM) and only
 // into spans of at least kWgMinSpan positions: a split of one or two stages
 // costs more in partials and merge than it saves (measured at the B 4 tier
-// rows, 256 positions a row; longer rows gain from it).
+// rows, 256 positions a row; longer rows gain from it). rowwise: one tile
+// of the window's rows, one split of the whole table up to kRwMinSpan
+// positions; a longer table splits while the blocks stay within one an SM,
+// into spans of kRwMinSpan to kRwMaxSpan.
 struct Grid {
   int ntiles, trows, nsplit, span;
 };
@@ -1324,6 +1786,16 @@ constexpr int kWgMinSpan = 4 * kWgPos;
 
 Grid grid_of(int design, int B, int S, int K, int G, int pmax, int psz) {
   Grid g;
+  if (design == kRowwise) {
+    const int total = pmax * psz, work = std::max(B * K, 1);
+    const int want = std::max(cdiv(total, kRwMaxSpan),
+                              std::max(1, std::min(cdiv(total, kRwMinSpan), sm_count() / work)));
+    g.ntiles = 1;
+    g.trows = S * G;
+    g.span = cdiv(cdiv(total, want), kChunk) * kChunk;
+    g.nsplit = cdiv(total, g.span);
+    return g;
+  }
   const bool wg = design == kWarpgroup;
   const int rows = wg ? kWgRows : kMaxRows;
   g.ntiles = cdiv(S * G, rows);
@@ -1439,29 +1911,46 @@ int pool_map(const void* pool, long long rows, int hd, int psz, CUtensorMap* map
   return 0;
 }
 
+// The pools' tensor maps (pool_map), under `launching`.
+int pool_maps(const Args& a, int hd, CUtensorMap* km, CUtensorMap* vm) {
+  const long long rows = (long long)a.K * a.L * a.N * a.psz;
+  std::lock_guard<std::mutex> hold(launching);
+  const int err = pool_map(a.k_pages, rows, hd, a.psz, km);
+  return err != 0 ? err : pool_map(a.v_pages, rows, hd, a.psz, vm);
+}
+
 template <int HD>
 int launch_wg(const Args& a, int B, cudaStream_t stream) {
   static size_t granted[64] = {};
   const size_t smem = wg_smem<HD>(a.nsplit);
-  const long long rows = (long long)a.K * a.L * a.N * a.psz;
   CUtensorMap km, vm;
-  {
-    std::lock_guard<std::mutex> hold(launching);
-    int err = pool_map(a.k_pages, rows, HD, a.psz, &km);
-    if (err == 0) err = pool_map(a.v_pages, rows, HD, a.psz, &vm);
-    if (err != 0) return err;
-  }
+  const int map_err = pool_maps(a, HD, &km, &vm);
+  if (map_err != 0) return map_err;
   const cudaError_t err = grant(ragged_wgmma_kernel<HD>, granted, smem);
   if (err != cudaSuccess) return (int)err;
   ragged_wgmma_kernel<HD><<<dim3(B * a.K * a.ntiles, a.nsplit), kWgThreads, smem, stream>>>(km, vm, a);
   return (int)cudaGetLastError();
 }
 
-// Whether the warpgroup design takes these shapes: bf16, a head_dim it is
-// instantiated for, pages that tile a 64-position stage in whole 8-row
-// swizzle atoms, and pool rows a 32-bit TMA coordinate reaches. The route
-// itself is `kernel_design` in paged_attention.py.
-bool wg_takes(int hd, int psz, int dtype, long long pool_rows) {
+template <int HD>
+int launch_rw(const Args& a, int B, cudaStream_t stream) {
+  static size_t granted[64] = {};
+  const size_t smem = rw_smem<HD>(a.nsplit);
+  CUtensorMap km, vm;
+  const int map_err = pool_maps(a, HD, &km, &vm);
+  if (map_err != 0) return map_err;
+  const cudaError_t err = grant(ragged_rowwise_kernel<HD>, granted, smem);
+  if (err != cudaSuccess) return (int)err;
+  ragged_rowwise_kernel<HD><<<dim3(B * a.K, a.nsplit), Rw<HD>::kThreads, smem, stream>>>(km, vm, a);
+  return (int)cudaGetLastError();
+}
+
+// Whether the warpgroup and rowwise designs take these shapes: bf16, a
+// head_dim they are instantiated for, pages that tile a 64-position stage in
+// whole 8-row swizzle atoms, and pool rows a 32-bit TMA coordinate reaches;
+// rowwise also one query tile. The route itself is `kernel_design` in
+// paged_attention.py.
+bool tma_takes(int hd, int psz, int dtype, long long pool_rows) {
   return dtype == 1 && (hd == 32 || hd == 64 || hd == 128 || hd == 256) &&
          (psz == 8 || psz == 16 || psz == 32 || psz == 64) && pool_rows < (1LL << 31);
 }
@@ -1473,6 +1962,12 @@ size_t smem_of(int design, const Grid& g, int hd, int dtype) {
       case 128: return wg_smem<128>(g.nsplit);
       default: return wg_smem<256>(g.nsplit);
     }
+  if (design == kRowwise) switch (hd) {
+      case 32: return rw_smem<32>(g.nsplit);
+      case 64: return rw_smem<64>(g.nsplit);
+      case 128: return rw_smem<128>(g.nsplit);
+      default: return rw_smem<256>(g.nsplit);
+    }
   return mma_smem(g, hd, dtype == 1 ? 2 : 4);
 }
 
@@ -1480,7 +1975,7 @@ size_t smem_of(int design, const Grid& g, int hd, int dtype) {
 
 extern "C" {
 
-// design: 0 = mma_sync, 1 = warpgroup; dtype: 0 = float32, 1 = bfloat16.
+// design: 0 = mma_sync, 1 = warpgroup, 2 = rowwise; dtype: 0 = float32, 1 = bfloat16.
 // Fills plan[0..3] = tiles a window, rows a tile, splits a tile, positions
 // a split; returns the dynamic shared memory one block needs (the wrapper
 // refuses shapes above the card's per-block limit before launching). The
@@ -1493,8 +1988,8 @@ size_t mcpx_ragged_paged_attention_plan(int B, int S, int K, int G, int hd, int 
 }
 
 // part [B*K*tiles, n_split, trows, hd] and ml [B*K*tiles, n_split, 2,
-// trows] are fp32 scratch (any contents; unused by a warpgroup launch of
-// one split); tickets [B*K*tiles] int32 must be zero and are left zero.
+// trows] are fp32 scratch (any contents; unused by a warpgroup or rowwise
+// launch of one split); tickets [B*K*tiles] int32 must be zero and are left zero.
 // Returns cudaGetLastError() after the launch (0 = launched), a CUDA error
 // before it, or kMapError + a CUresult. Enqueues on `stream`; does not
 // synchronise.
@@ -1504,8 +1999,9 @@ int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* 
                                 void* tickets, int B, int S, int K, int G, int hd, int L, int N,
                                 int psz, int pmax, int layer, int dtype, int design, void* stream) {
   if (B == 0 || K == 0 || S == 0) return 0;
-  if (design == kWarpgroup && !wg_takes(hd, psz, dtype, (long long)K * L * N * psz))
+  if (design != kMmaSync && !tma_takes(hd, psz, dtype, (long long)K * L * N * psz))
     return (int)cudaErrorInvalidValue;
+  if (design == kRowwise && S * G > kWgRows) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k_pages = k_pages;
@@ -1527,6 +2023,12 @@ int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* 
       case 64: return launch_wg<64>(a, B, st);
       case 128: return launch_wg<128>(a, B, st);
       default: return launch_wg<256>(a, B, st);
+    }
+  if (design == kRowwise) switch (hd) {
+      case 32: return launch_rw<32>(a, B, st);
+      case 64: return launch_rw<64>(a, B, st);
+      case 128: return launch_rw<128>(a, B, st);
+      default: return launch_rw<256>(a, B, st);
     }
   if (dtype != 1) return launch<float, kWidePairs>(a, B, st);  // kPairs unused by fp32
   // The narrow build while two warps of kNarrowPairs pairs cover head_dim.

@@ -32,13 +32,13 @@ from mcpx_torch.core.errors import EngineError
 from mcpx_torch.engine.kernels import build
 
 NEG_INF = -1e30
-TILE_ROWS = 64  # query rows (S * G, the GQA group folded in) a block holds, in both designs
-WARPGROUP_HEAD_DIMS = (32, 64, 128, 256)  # the warpgroup design's instantiations
+TILE_ROWS = 64  # query rows (S * G, the GQA group folded in) a block holds, in every design
+WARPGROUP_HEAD_DIMS = (32, 64, 128, 256)  # the warpgroup and rowwise designs' instantiations
 WARPGROUP_PAGE_SIZES = (8, 16, 32, 64)  # whole 8-row swizzle atoms tiling a 64-position stage
 MAX_HEAD_DIM = 256
 MAX_PAGE_SIZE = 64
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-DESIGN_CODES = {"mma_sync": 0, "warpgroup": 1}
+DESIGN_CODES = {"mma_sync": 0, "warpgroup": 1, "rowwise": 2}
 
 # Launch counts by kernel name: the wrapper adds one where it launches the
 # kernel and nowhere else (the plain path never counts). A call made while
@@ -76,8 +76,9 @@ def reset_kernel_launches() -> None:
 
 def kernel_designs() -> dict[str, int]:
     """The kernel's launches since the last reset by design: ``warpgroup``
-    (the multi-tile bf16 windows) and ``mma_sync`` (every other); replays
-    of captured graphs included where ``count_replay`` is given them."""
+    (the multi-tile bf16 windows), ``rowwise`` (the one-tile bf16 windows)
+    and ``mma_sync`` (every other); replays of captured graphs included
+    where ``count_replay`` is given them."""
     with _LOCK:
         return dict(DESIGNS)
 
@@ -238,19 +239,29 @@ def _check(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int) -> No
 
 
 def kernel_design(S: int, G: int, hd: int, page_size: int, dtype: torch.dtype, pool_rows: int) -> str:
-    """Which of the kernel's two designs serves a [B, S, K, G, hd] window
-    over pools of ``pool_rows`` = K*L*N*Psz rows: ``warpgroup`` (wgmma, TMA,
-    a producer warp beside a consumer warpgroup) for bf16 windows of more
-    than one 64-row query tile at the head_dims it is built for, pages that
-    tile its 64-position stages in whole swizzle atoms, and rows a 32-bit
-    TMA coordinate reaches; ``mma_sync`` for every other (one-tile windows,
-    float32, hd 24 or 40, ...). Shapes alone decide, never data, an option
-    or the environment, so one captured graph serves any mix of rows."""
+    """Which of the kernel's three designs serves a [B, S, K, G, hd] window
+    over pools of ``pool_rows`` = K*L*N*Psz rows. bf16 windows at the
+    head_dims the TMA designs are built for, pages that tile their
+    64-position stages in whole swizzle atoms, and rows a 32-bit TMA
+    coordinate reaches take ``warpgroup`` (wgmma, a producer warp beside a
+    consumer warpgroup, 64 query rows a block) where they hold more than one
+    64-row query tile, and ``rowwise`` (one block a row, its positions split
+    among warpgroups inside the block) where they hold one, but for windows
+    of at most 8 rows at hd 256 (2b's one-token steps): a rowwise block
+    streams 256 KB of K and V through one SM and runs its products over
+    64-row tiles of which 8 rows live, and mma_sync's 64-position splits
+    ran them as fast or faster (PR 24, ``kernel_ab.py``). ``mma_sync``
+    serves every other window (float32, hd 24 or 40, 4-token pages, ...).
+    Shapes alone decide, never data, an option or the environment, so one
+    captured graph serves any mix of rows."""
     if (
-        dtype == torch.bfloat16 and S * G > TILE_ROWS and hd in WARPGROUP_HEAD_DIMS
+        dtype == torch.bfloat16 and hd in WARPGROUP_HEAD_DIMS
         and page_size in WARPGROUP_PAGE_SIZES and pool_rows < 2**31
     ):
-        return "warpgroup"
+        if S * G > TILE_ROWS:
+            return "warpgroup"
+        if not (S * G <= 8 and hd > 128):
+            return "rowwise"
     return "mma_sync"
 
 
@@ -398,11 +409,11 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
         out = torch.empty_like(q)
         # fp32 scratch: the per-split unnormalised accumulators [B*K*tiles,
         # n_split, t_rows, hd], then their (max, sum) [B*K*tiles, n_split, 2,
-        # t_rows]. A warpgroup launch of one split writes its rows directly
-        # and needs none.
+        # t_rows]. A warpgroup or rowwise launch of one split writes its rows
+        # directly and needs none.
         blocks = B * K * n_tiles * n_split
         n_acc = blocks * t_rows * hd
-        if design == "warpgroup" and n_split == 1:
+        if design != "mma_sync" and n_split == 1:
             n_acc = blocks = 0
         scratch = torch.empty(n_acc + blocks * 2 * t_rows, dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream

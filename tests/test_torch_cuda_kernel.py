@@ -97,6 +97,20 @@ def verify_case(seed, B=64, S=5, K=1, G=4, hd=32, psz=64, p_max=4, live=32):
     return q, kp, vp, table, np.asarray(starts, np.int32), np.asarray(q_lens, np.int32)
 
 
+def rowwise_case(seed, B=8, S=8, G=4, hd=32, psz=16, p_max=16):
+    """One-tile windows: rows at q_len S, 1, 0, S and 1 (then random in
+    0..S), starting at 0, at the table's end (the last query sees every
+    position), at random, S before the end and at 0; distinct random pages
+    (``mixed_case``'s draws)."""
+    rng = random.Random(seed)
+    q, kp, vp, table, _, _ = mixed_case(seed, B=B, S=S, K=1, G=G, hd=hd, psz=psz, p_max=p_max)
+    total = psz * p_max
+    q_lens = ([S, 1, 0, S, 1] + [rng.randint(0, S) for _ in range(B)])[:B]
+    starts = ([0, total - 1, rng.randint(0, total - 1), total - S, 0]
+              + [rng.randint(0, total - S) for _ in range(B)])[:B]
+    return q, kp, vp, table, np.asarray(starts, np.int32), np.asarray(q_lens, np.int32)
+
+
 def as_torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
@@ -148,13 +162,13 @@ def _check_case(case, cuda, dtype, atol, layers=(0, 1)):
     return worst
 
 
-# bf16 multi-tile windows on the warpgroup design: the worst error allowed,
-# in bf16 ulps of each query head's largest output. Both designs round P to
-# bf16 at the running max, the plain version its normalised weights, so
-# neither stays within one ulp at prefill width: on these tests' inputs the
-# mma_sync design reaches 2.0 and the warpgroup design 2.0625, both at an
-# absolute 0.015625 (NVIDIA H100 80GB HBM3). Every case also passes the
-# file's atol = rtol = 2e-2.
+# bf16 windows on the warpgroup and rowwise designs: the worst error
+# allowed, in bf16 ulps of each query head's largest output. Every design
+# rounds P to bf16 at the running max, the plain version its normalised
+# weights, so none stays within one ulp at prefill width: on these tests'
+# inputs the mma_sync design reaches 2.0 and the warpgroup design 2.0625,
+# both at an absolute 0.015625 (NVIDIA H100 80GB HBM3). Every case also
+# passes the file's atol = rtol = 2e-2.
 HEAD_ULPS_WG = 2.5
 
 
@@ -223,15 +237,17 @@ def test_cuda_kernel_repeats_bit_identical(cuda, dtype, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["decode", "split"])
+@pytest.mark.parametrize("kind", ["decode", "split", "rowwise_split"])
 def test_cuda_kernel_two_streams_keep_their_own_counters(cuda, kind):
     """Launches on two streams of one device may overlap; each stream has
     its own ticket counters, so every output equals that of a launch alone
-    and every counter is back at 0: one-tile windows (mma_sync) and split
-    tier cohorts (warpgroup)."""
+    and every counter is back at 0: one-tile windows (rowwise, one split),
+    split tier cohorts (warpgroup) and one-tile windows over a 2,048-position
+    table (rowwise, split)."""
     make = {
         "decode": lambda seed: mixed_case(seed, B=8, S=8, K=1, G=8, hd=256, psz=64, p_max=4),
         "split": lambda seed: tier_split_case(seed, "prefill"),
+        "rowwise_split": lambda seed: rowwise_case(seed, B=4, S=8, G=8, hd=256, psz=16, p_max=128),
     }[kind]
     cases = [_on_card(make(seed), cuda, torch.bfloat16) for seed in (0, 1)]
     alone = [tk.ragged_paged_attention(*args, 1) for args in cases]
@@ -256,8 +272,8 @@ PAGES = [(64, 4), (16, 16)]  # (Psz, Pmax): the serving and the execute phases' 
 
 
 def _wg_ulps(dtype, worst, args):
-    """bf16 windows on the warpgroup design stay within HEAD_ULPS_WG."""
-    if dtype == torch.bfloat16 and _design(args) == "warpgroup":
+    """bf16 windows on the warpgroup and rowwise designs stay within HEAD_ULPS_WG."""
+    if dtype == torch.bfloat16 and _design(args) in ("warpgroup", "rowwise"):
         assert worst <= HEAD_ULPS_WG, worst
 
 
@@ -271,13 +287,14 @@ def test_cuda_kernel_prefill_width(cuda, dtype, atol, shape, S, pages):
     tiles) at every head_dim of the warpgroup design and both presets': idle
     rows and ragged q_lens beside full ones (pad-only tiles write exact
     zeros), starts at page offsets, 64- and 16-token pages. bf16 windows
-    of more than one 64-row tile take the warpgroup design."""
+    of more than one 64-row tile take the warpgroup design, of one the
+    rowwise design."""
     (G, hd), (psz, p_max) = shape, pages
     for seed in range(2):
         case = prefill_case(seed, S=S, G=G, hd=hd, psz=psz, p_max=p_max)
         args = _on_card(case, cuda, dtype)
         if dtype == torch.bfloat16:
-            assert _design(args) == ("warpgroup" if S * G > tk.TILE_ROWS else "mma_sync")
+            assert _design(args) == ("warpgroup" if S * G > tk.TILE_ROWS else "rowwise")
         _wg_ulps(dtype, _check_case(case, cuda, dtype, atol), args)
 
 
@@ -342,17 +359,67 @@ def test_cuda_kernel_verify_shape(cuda, dtype, atol, shape, live):
     the test and the 2b widths."""
     G, hd = shape
     for seed in range(2):
-        _check_case(verify_case(seed, G=G, hd=hd, live=live), cuda, dtype, atol)
+        case = verify_case(seed, G=G, hd=hd, live=live)
+        _wg_ulps(dtype, _check_case(case, cuda, dtype, atol), _on_card(case, cuda, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 5, 8])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("psz", [8, 16, 32, 64])
+def test_cuda_kernel_rowwise_windows(cuda, S, G, hd, psz):
+    """One-tile bf16 windows (S*G <= 64) on the rowwise design over a
+    256-position table, one split (8 rows or fewer at hd 256 on mma_sync):
+    idle rows, q_len 1 to S, starts at 0 and at the table's end; against
+    the plain version within atol = rtol = 2e-2 and HEAD_ULPS_WG, pads and
+    idle rows exact zeros, tickets at 0."""
+    want = "mma_sync" if S * G <= 8 and hd > 128 else "rowwise"
+    for seed in range(2):
+        case = rowwise_case(seed, S=S, G=G, hd=hd, psz=psz, p_max=256 // psz)
+        args = _on_card(case, cuda, torch.bfloat16)
+        plan = tk.launch_plan(args[0], args[1], args[3])
+        assert plan["design"] == want and (want != "rowwise" or plan["n_split"] == 1), plan
+        _wg_ulps(torch.bfloat16, _check_case(case, cuda, torch.bfloat16, 2e-2), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", [64, 256, 1024, 2048])
+@pytest.mark.parametrize("shape", [(1, 4, 32), (8, 4, 32), (5, 1, 64), (5, 8, 128), (1, 8, 256), (8, 8, 256)])
+def test_cuda_kernel_rowwise_tables(cuda, positions, shape):
+    """Tables of 64 to 2,048 positions (16-token pages) at B 6: past 256
+    positions the rowwise design splits each row's positions over blocks
+    and merges their partials in the same launch; rows at the table's end
+    see every position. Windows of 8 rows or fewer at hd 256 route to
+    mma_sync and hold all the same."""
+    S, G, hd = shape
+    for seed in range(2):
+        case = rowwise_case(seed, B=6, S=S, G=G, hd=hd, psz=16, p_max=positions // 16)
+        args = _on_card(case, cuda, torch.bfloat16)
+        plan = tk.launch_plan(args[0], args[1], args[3])
+        if S * G <= 8 and hd > 128:
+            assert plan["design"] == "mma_sync", plan
+        else:
+            assert plan["design"] == "rowwise" and (plan["n_split"] > 1) == (positions > 256), plan
+        _wg_ulps(torch.bfloat16, _check_case(case, cuda, torch.bfloat16, 2e-2), args)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("kind", ["cohort", "split"])
+@pytest.mark.parametrize("kind", ["cohort", "split", "rowwise", "rowwise_split"])
 def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol, kind):
     """Three launches back to back, then three replays of a CUDA graph that
     captured the launch, give the same bits (the split cohort's merge runs
-    in split order), with the ticket counters at 0 afterwards."""
-    case = prefill_case(3, S=128, G=8, hd=256) if kind == "cohort" else tier_split_case(3, "prefill")
+    in split order, the rowwise design's warpgroups merge in warpgroup
+    order), with the ticket counters at 0 afterwards: prefill cohorts
+    (warpgroup) and one-tile windows over 256 and 2,048 positions
+    (rowwise, the second split)."""
+    case = {
+        "cohort": lambda: prefill_case(3, S=128, G=8, hd=256),
+        "split": lambda: tier_split_case(3, "prefill"),
+        "rowwise": lambda: rowwise_case(3, S=8, G=8, hd=256, psz=64, p_max=4),
+        "rowwise_split": lambda: rowwise_case(3, B=4, S=5, G=4, hd=32, psz=16, p_max=128),
+    }[kind]()
     args = _on_card(case, cuda, dtype)
     outs = [tk.ragged_paged_attention(*args, 0) for _ in range(3)]
     torch.cuda.synchronize()

@@ -257,23 +257,120 @@ def test_routing_pins_each_kernel_phase_shape_to_its_design():
     """The route is shapes alone: each of chip_smoke's kernel-phase cells
     (bf16) takes the design named here: the suffix- and tier-prefill
     windows (S*G of 256 to 1,024 rows) the warpgroup design, every one-tile
-    window mma_sync. float32 and hd % 16 == 8 stay on mma_sync; so do page
-    sizes that do not tile a 64-position stage in 8-row atoms."""
+    window (decode, fast-forward, verify, tier decode) the rowwise design,
+    and so do phase 28's one-token steps. float32 and hd % 16 == 8 stay on
+    mma_sync, in one tile or more; so do page sizes that do not tile a
+    64-position stage in 8-row atoms and pools past a 32-bit TMA row."""
     import chip_smoke
 
     shapes = {None: (64, 8), "prefill": (16, 128), "tier_prefill": (4, 64), "tier_decode": (4, 1)}
     for cell, G, hd, L, live, psz, pmax in chip_smoke.CELLS:
         B, S = shapes.get(live, (64, 5) if isinstance(live, tuple) else (64, 8))
         rows = L * (B * pmax + 1) * psz
-        want = "warpgroup" if live in ("prefill", "tier_prefill") else "mma_sync"
+        want = "warpgroup" if live in ("prefill", "tier_prefill") else "rowwise"
+        if live == "tier_decode" and hd == 256:
+            want = "mma_sync"  # 8 rows at hd 256: see below
         assert tk.kernel_design(S, G, hd, psz, torch.bfloat16, rows) == want, cell
         assert tk.kernel_design(S, G, hd, psz, torch.float32, rows) == "mma_sync", cell
-    assert tk.kernel_design(128, 4, 40, 16, torch.bfloat16, 4096) == "mma_sync"
-    assert tk.kernel_design(128, 4, 24, 64, torch.bfloat16, 4096) == "mma_sync"
-    assert tk.kernel_design(128, 4, 32, 4, torch.bfloat16, 4096) == "mma_sync"
-    assert tk.kernel_design(128, 4, 32, 16, torch.bfloat16, 2**31) == "mma_sync"
-    assert tk.kernel_design(16, 4, 32, 16, torch.bfloat16, 4096) == "mma_sync"  # S*G 64: one tile
+    # decode_step_paged at B 8, 64-token pages: test's S 1 rows on rowwise;
+    # 8 rows or fewer at hd 256 (2b's S 1) stay on mma_sync, which ran them
+    # as fast or faster; 16 rows there take rowwise.
+    assert tk.kernel_design(1, 4, 32, 64, torch.bfloat16, 2 * 33 * 64) == "rowwise"
+    assert tk.kernel_design(1, 8, 256, 64, torch.bfloat16, 18 * 33 * 64) == "mma_sync"
+    assert tk.kernel_design(2, 8, 256, 64, torch.bfloat16, 18 * 33 * 64) == "rowwise"
+    assert tk.kernel_design(8, 1, 128, 64, torch.bfloat16, 4096) == "rowwise"
+    for S in (1, 8, 128):
+        assert tk.kernel_design(S, 4, 40, 16, torch.bfloat16, 4096) == "mma_sync"
+        assert tk.kernel_design(S, 4, 24, 64, torch.bfloat16, 4096) == "mma_sync"
+        assert tk.kernel_design(S, 4, 32, 4, torch.bfloat16, 4096) == "mma_sync"
+        assert tk.kernel_design(S, 4, 32, 16, torch.bfloat16, 2**31) == "mma_sync"
+    assert tk.kernel_design(16, 4, 32, 16, torch.bfloat16, 4096) == "rowwise"  # S*G 64: one tile
     assert tk.kernel_design(17, 4, 32, 16, torch.bfloat16, 4096) == "warpgroup"
+
+
+def _rowwise_grid(B, K, p_max, psz, sms=132):
+    """The rowwise design's span (``grid_of`` in the CUDA source) on a card
+    with ``sms`` SMs: the whole table up to 256 positions; a longer one
+    splits while the B*K row blocks stay within one an SM, into spans of
+    256 to 2,048 positions."""
+    total = p_max * psz
+    want = max(-(-total // 2048), max(1, min(-(-total // 256), sms // max(1, B * K))))
+    return -(-(-(-total // want)) // 64) * 64
+
+
+def _rowwise_split_and_merge(q, kp, vp, table, starts, q_lens, layer, span, groups):
+    """The rowwise design's arithmetic in plain PyTorch (fp32): a block per
+    (row, kv head) and split of ``span`` positions; inside it, 64-position
+    stage t goes to warpgroup t % ``groups``, which keeps its own (m, l,
+    unnormalised acc) over its stages; the warpgroups merge in warpgroup
+    order (l == 0 skipped, rescaled to the largest m), then the splits in
+    split order, writing acc / l where l > 0 and exact zeros elsewhere."""
+    B, S, K, G, hd = q.shape
+    rows = S * G
+    k = tk._gather_pages(kp, table, layer).float()
+    v = tk._gather_pages(vp, table, layer).float()
+    P = k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(B, K, rows, hd)
+    s = torch.einsum("bkrh,bkph->bkrp", qf, k) * (1.0 / math.sqrt(hd))
+    qn = q_lens.long().clamp(0, S)
+    row_q = torch.arange(rows) // G
+    vis = torch.clamp(starts.long()[:, None] + row_q[None, :] + 1, max=P)
+    live = row_q[None, :] < qn[:, None]
+    mask = (torch.arange(P)[None, None, :] < vis[:, :, None]) & live[:, :, None]
+    s = torch.where(mask[:, None], s, torch.full_like(s, tk.NEG_INF))
+    pos = torch.arange(P)
+
+    def merged(parts):
+        m, l, acc = (torch.stack(x) for x in zip(*parts))
+        m_star = torch.where(l > 0, m, torch.full_like(m, tk.NEG_INF)).max(0).values
+        w = torch.where(l > 0, torch.exp(m - m_star), torch.zeros_like(m))
+        return m_star, (l * w).sum(0), (w[..., None] * acc).sum(0)
+
+    splits = []
+    for c0 in range(0, P, span):
+        groups_parts = []
+        for g in range(groups):
+            mine = (pos >= c0) & (pos < c0 + span) & (((pos - c0) // 64) % groups == g)
+            sc = torch.where(mine, s, torch.full_like(s, tk.NEG_INF))
+            m = sc.max(-1).values
+            p = torch.where(sc <= tk.NEG_INF / 2, torch.zeros_like(sc), torch.exp(sc - m[..., None]))
+            groups_parts.append((m, p.sum(-1), torch.einsum("bkrp,bkph->bkrh", p, v)))
+        splits.append(merged(groups_parts))
+    _, total, acc = merged(splits)
+    out = torch.where(total[..., None] > 0, acc / torch.clamp(total, min=1e-30)[..., None], torch.zeros_like(acc))
+    return out.reshape(B, K, S, G, hd).permute(0, 2, 1, 3, 4)
+
+
+# (B, S, G, hd, Psz, Pmax): the serving window, a verify window, a
+# two-token window at hd 256, and 1,024- and 2,048-position tables, where
+# the rowwise design splits.
+ROWWISE_CASES = {
+    "serve": (6, 8, 4, 32, 64, 4), "verify": (6, 5, 4, 64, 32, 8), "step_hd256": (4, 2, 8, 256, 16, 16),
+    "long1024": (4, 8, 4, 32, 64, 16), "long2048": (4, 1, 8, 128, 64, 32),
+}
+
+
+@pytest.mark.parametrize("kind", list(ROWWISE_CASES))
+def test_rowwise_split_matches_reference_kernel_interpret(kind):
+    """The rowwise design's split between its two warpgroups inside a block
+    and among blocks of a long table, merged in fixed order as the CUDA
+    kernel does,
+    gives the reference kernel's output (interpret mode) and the plain
+    version's, fp32 to 2e-5; pads and idle rows exact zeros. The serving
+    tables take one split; the long ones split."""
+    B, S, G, hd, psz, p_max = ROWWISE_CASES[kind]
+    case = mixed_case(len(kind), B=B, S=S, K=1, G=G, hd=hd, psz=psz, p_max=p_max)
+    assert tk.kernel_design(S, G, hd, psz, torch.bfloat16, case[1].size // hd) == "rowwise"
+    span = _rowwise_grid(B, 1, p_max, psz)
+    assert (span < p_max * psz) == kind.startswith("long")
+    ref = np.asarray(jref.ragged_paged_attention(*(jnp.asarray(a) for a in case), 1, interpret=True))
+    args = as_torch(*case)
+    out = _rowwise_split_and_merge(*args, 1, span, 2)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    np.testing.assert_allclose(tk.ragged_paged_attention_reference(*args, 1).numpy(), ref, **TOL)
+    for b, ql in enumerate(case[5]):
+        assert np.all(out[b, ql:].numpy() == 0.0)
 
 
 def test_ragged_n_pages_matches_reference():
