@@ -18,7 +18,7 @@ Phases, one line each (every number beside the card's name and power limit):
      port never calls), each by back-to-back eager calls (``ms``, host work
      included) and as device time by CUDA-graph replays (``device_ms``),
      and the least time the card could take (``bound_ms``), and the design
-     (``warpgroup``, ``rowwise`` or ``mma_sync``), grid, split count and
+     (``warpgroup``, ``rowwise``, ``narrow`` or ``mma_sync``), grid, split count and
      span the launch takes, each cell's launches counted under the design
      its shapes route to.
      The attention kernel's ticket counters must be back at 0 after the
@@ -56,8 +56,9 @@ Phases, one line each (every number beside the card's name and power limit):
      idle slab). Every plan valid, the same plans in both modes, tree hits
      and suffix prefills through the kernel, each launch of them on the
      warpgroup design and every other (the decode windows) on the design
-     one-tile windows route to, ``rowwise`` on the card (``launches``'
-     ``by_design``, which every serving line prints), and fewer prefill
+     one-tile windows route to, ``rowwise`` on the card and ``narrow`` for
+     2b's one-token windows (``launches``' ``by_design``, which every
+     serving line prints), and fewer prefill
      tokens per request with the cache on;
   9. telemetry (``telemetry_test``, ``telemetry_2b``), on the same engines:
      the burst's intents once more, from an emptied tree and as one cohort
@@ -579,7 +580,8 @@ def launch_counts() -> dict:
     """The kernel's launches since the last reset, by kernel name, and the
     same launches by design under ``by_design`` (``kernel_designs()``:
     ``warpgroup`` for the multi-tile bf16 windows, ``rowwise`` for the
-    one-tile bf16 windows, ``mma_sync`` for the rest), so that a serving
+    one-tile bf16 windows, ``narrow`` for those of at most 8 rows at hd
+    256, ``mma_sync`` for the rest), so that a serving
     line shows which design its prefills and windows took."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_designs, kernel_launches
 
@@ -1220,8 +1222,9 @@ def one_tile_gate(name: str, engine, by_design: dict) -> None:
     """On the card, a serving run's launches that are not multi-tile
     (``warpgroup``) are one-tile windows over the engine's pools, 1 to
     ``speculate_k`` queries wide: each must have taken a design
-    ``kernel_design`` routes one of those widths to, and where that is
-    ``rowwise`` (bf16 at the presets' widths), some must have."""
+    ``kernel_design`` routes one of those widths to (``rowwise``, and
+    ``narrow`` for 2b's one-token windows, in bf16), and where that is
+    ``rowwise``, some must have."""
     from mcpx_torch.engine.kernels.paged_attention import kernel_design
     from mcpx_torch.parallel.transfer import pools_on
 
@@ -6171,7 +6174,7 @@ def main(argv: list[str]) -> int:
             "serving_launches_by_design": {
                 design: sum(st["launches"].get("by_design", {}).get(design, 0) for st in runs
                             + [trained_ovl, full_ovl] + clusters + list(offline["eval_test"].values()))
-                for design in ("warpgroup", "rowwise", "mma_sync")
+                for design in ("warpgroup", "rowwise", "narrow", "mma_sync")
             },
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: headline[k] for k in (

@@ -38,10 +38,15 @@ BUILD = (
 PRESETS = (("test", 4, 32, 2), ("2b", 8, 256, 18))  # (cell prefix, G, hd, L)
 # (cell, G, hd, L, kind, B, S, Psz, Pmax) beside chip_smoke's CELLS:
 # ``step`` is phase 28's one-token step (B 8, S 1, 64-token pages, starts
-# DECODE_STARTS); ``long`` four rows at the end of a 1,024- or
-# 2,048-position table of 16-token pages, S 1 (decode) or S 8 (a window),
-# every query live: the long-context tables where positions split.
+# DECODE_STARTS); ``serve`` the engine's decode window of width 1 at the
+# serving geometry (B 64, 64-token pages, 4 a row) with the serving bursts'
+# live rows (16 at test, 8 at 2b; ``mixed_batch``); ``long`` four rows at
+# the end of a 1,024- or 2,048-position table of 16-token pages, S 1
+# (decode) or S 8 (a window), every query live: the long-context tables
+# where positions split.
 EXTRA = [(f"{size}/decode_step", G, hd, L, "step", 8, 1, 64, 4) for size, G, hd, L in PRESETS] + [
+    (f"{size}/serve_s1", G, hd, L, "serve", 64, 1, 64, 4) for size, G, hd, L in PRESETS
+] + [
     (f"{size}/long{n}_s{S}", G, hd, L, "long", 4, S, 16, n // 16)
     for size, G, hd, L in PRESETS for n in (1024, 2048) for S in (1, 8)
 ]
@@ -50,9 +55,13 @@ EXTRA = [(f"{size}/decode_step", G, hd, L, "step", 8, 1, 64, 4) for size, G, hd,
 def extra_batch(cs, seed: int, G: int, hd: int, L: int, kind: str, B: int, S: int, psz: int, pmax: int):
     """An ``EXTRA`` row's batch: random distinct pages (``mixed_batch``),
     q_len S on every row, starts DECODE_STARTS (``step``) or within 64
-    positions of the table's end (``long``)."""
+    positions of the table's end (``long``); or ``mixed_batch``'s serving
+    mix (``serve``: 8 live rows at hd 256, 16 otherwise, as the kernel
+    phase's serve_mix cells)."""
     import torch
 
+    if kind == "serve":
+        return cs.mixed_batch(seed, B, S, 1, G, hd, L, psz, pmax, torch.bfloat16, live=8 if hd == 256 else 16)
     q, kp, vp, table, _, _ = cs.mixed_batch(seed, B, S, 1, G, hd, L, psz, pmax, torch.bfloat16, live=B)
     rng = random.Random(seed)
     total = psz * pmax

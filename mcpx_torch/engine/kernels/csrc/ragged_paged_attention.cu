@@ -23,22 +23,25 @@
 // lookups, copy latency, the products, the softmax and, where positions are
 // split, the merge.
 //
-// Three designs, chosen by shape alone (`kernel_design` in paged_attention.py;
+// Four designs, chosen by shape alone (`kernel_design` in paged_attention.py;
 // one CUDA-graph key serves any phase mix):
 //   * warpgroup: bf16 windows of more than one 64-row query tile (S*G > 64:
 //     suffix and tier prefill) at hd 32, 64, 128 or 256 and Psz 8, 16, 32 or
 //     64. Each head_dim is an instantiation; 32 and 256 are the presets'.
 //   * rowwise: bf16 windows of one query tile (S*G <= 64: decode,
 //     fast-forward, verify, one-token steps) at the same head_dims and page
-//     sizes, but for windows of 8 rows or fewer at hd 256 (2b's one-token
-//     steps), which mma_sync ran as fast or faster. Its wgmma tiles
-//     hold 64 rows, of which an S 1 window fills 4
-//     or 8 (test, 2b) and the 2b serving window (S 8 x G 8) all 64; no
-//     one-tile launch is bound by the tensor cores' rate (each runs 10-419x
-//     above its bytes bound on the chain of its blocks), so the empty rows
-//     cost no time that counts.
+//     sizes, but for windows of 8 rows or fewer at hd 256. Its wgmma tiles
+//     hold 64 rows, of which an S 1 window fills 4 (test) and the 2b
+//     serving window (S 8 x G 8) all 64; no one-tile launch is bound by the
+//     tensor cores' rate (each runs 10-419x above its bytes bound on the
+//     chain of its blocks), so the empty rows cost no time that counts.
+//   * narrow: bf16 windows of 8 rows or fewer at hd 256 (2b's one-token
+//     steps: decode windows of width 1, tier decode, decode_step_paged) at
+//     the same page sizes, at every table length up to 32,768 positions.
 //   * mma_sync: the Ampere-style design below, for every other window
-//     (float32, hd % 16 == 8 such as hd 24 and 40, other page sizes).
+//     (float32, hd % 16 == 8 such as hd 24 and 40, other page sizes). Its
+//     float32 windows serve the parity and mesh phases, not the bf16
+//     serving path.
 //
 // The warpgroup design. One block per (row, kv-head, 64 query rows) and,
 // where the blocks fill less than half the SMs and the table names more
@@ -106,8 +109,44 @@
 // with one reciprocal a row. Past 256 positions the grid splits into spans of
 // 256-2,048 positions (while B*K blocks stay within one an SM) that merge
 // through the tickets as the other designs' splits do. At 2b's S 1 rows
-// (4 or 8 blocks) what remains is one SM's load rate: 256 KB of K and V a
-// block.
+// (4 or 8 blocks) one SM's load rate held it back (256 KB of K and V a
+// block over 64-row tiles of which 8 live), so those rows take narrow.
+//
+// The narrow design. 8 query rows at hd 256 move about 1 KB of K and V a
+// position and need 8 KFLOP of it: far below the tensor cores' ridge, so
+// what sets a launch's time is how many SMs stream the table and how long
+// one block's chain is. A thread-block cluster a (row, kv head): block c
+// attends a span of 64 * 2^k positions, the least that cuts the table into
+// at most 16 blocks (4 of 64 at the serving tables, 16 of 64 or 128 at
+// 1,024 or 2,048), whatever the batch: idle rows' blocks return at once.
+// (Spans of 16 and 32 ran the serving window of 64 rows 1.65x and 1.2x
+// slower: more blocks to schedule, more to exchange.)
+// Warps 0 and 4 read the page ids of the first two loads with no condition
+// and issue them by TMA, a box (min(Psz, span) rows by 64 columns, 128-byte
+// swizzle) a lane, into two buffers of up to 128 positions, each load on an
+// mbarrier of its own, initialised at entry before any load; longer spans
+// refill the buffers K round by K round, then V round by V round. Both
+// products run as mma.sync m16n8k16 with the 8 query rows on n, so no row
+// of a tile is wasted: pass 1, S^T = K q^T, warp w an m-tile of 16
+// positions, q^T's fragments in registers, scaled and masked into the
+// block's scores in shared memory; warp r takes row r's max and sum over
+// the block and pushes them into every block of the cluster (distributed
+// shared memory), each block arrives once on every block's statistics
+// mbarrier and waits on its own, and every block reduces the same values by
+// the same shuffle tree to the row's M and L. Pass 2, P = e^(s - M) / L
+// rounded to bf16 as the plain version rounds its weights (the exact
+// softmax the rowwise design's one-split blocks run, without computing
+// q K^T twice), then O^T = V^T P^T, warp w over head_dim columns [32 w, 32
+// w + 32), V transposed by ldmatrix, P by ldmatrix from shared memory. The
+// outputs are normalised already: each block pushes its values to the
+// block that owns their share of head_dim and arrives on its outputs
+// mbarrier; the owner waits, sums them in rank order (so the output does
+// not depend on timing) and writes them. A block waits only for writes
+// into its own shared memory, so none waits for the others to leave, and
+// no block reads another's. (Timed with kernel_ab.py, a build that
+// exchanged through cluster barriers and remote reads ran 1.1-2.0 us
+// longer a launch.) No partial goes to device memory, no ticket is drawn, and
+// nothing reads every split through one SM.
 //
 // The mma_sync design:
 //   * Query tiles. A window's S*G query rows (the GQA group folded in) are
@@ -125,7 +164,8 @@
 //     cdiv(Pmax*Psz, kChunk) splits. Decode windows (one tile a row) keep
 //     one split per kChunk. Tile and split counts depend on shapes (and
 //     the card's SM count) only.
-//   * Combine in the same launch (every design). Block 0 writes the zeros
+//   * Combine in the same launch (every design; narrow in its cluster, the
+//     others through device memory as follows). Block 0 writes the zeros
 //     of an idle row's tiles and of tiles that hold only pads. Each block
 //     of a live tile with work writes its partial (m, l, unnormalised acc)
 //     in fp32 to scratch, fences, and takes a ticket on the tile's counter;
@@ -160,6 +200,7 @@
 //     combine and the copy pipeline.
 //   * The launch attribute for dynamic shared memory is set once per
 //     instantiation and size, not on every launch.
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -259,6 +300,11 @@ __device__ __forceinline__ void cp_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
@@ -1752,6 +1798,376 @@ __global__ void __launch_bounds__(Rw<HD>::kThreads, 1)
   if (tid == 0) a.tickets[bk] = 0;
 }
 
+// ---------------------------------------------------------------------------
+// The narrow design: bf16 windows of at most 8 query rows at hd 256 (2b's
+// one-token steps), at every table length. See "Four designs" in the note
+// above.
+
+namespace cg = cooperative_groups;
+
+constexpr int kNwRows = 8;         // query rows a window at most: the n of every mma.sync
+constexpr int kNwHd = 256;         // the head_dim it is built for
+constexpr int kNwThreads = 256;    // 8 warps: warp r also takes query row r's statistics
+constexpr int kNwRound = 128;      // positions a buffer holds: one 16-position m-tile a warp
+constexpr int kNwMinSpan = 64;     // positions a block at least
+constexpr int kNwMaxCluster = 16;  // blocks a row at most: one cluster (above 8, non-portable)
+constexpr int kNwMaxSpan = 2048;   // positions a block at most: its scores stay in shared memory
+// A barrier a load (from 0), the cluster's statistics and outputs barriers
+// (512, 520), every block's (m, l) of each row as pushed to this block
+// (1024: [16 blocks][8 rows][m, l]).
+constexpr int kNwHead = 2048;
+constexpr int kNwMaxLoads = 2 * kNwMaxSpan / kNwRound;  // a block's K rounds, then its V rounds
+constexpr int kNwORow = kNwHd + 4;                      // floats a row of the output exchange
+constexpr int kNwQRow = kNwHd * 2 + 16;                 // bytes a row of q: ldmatrix rows in distinct banks
+static_assert(kNwThreads / 32 == kNwRows, "a warp a query row");
+static_assert(kNwThreads == kNwRows * kNwHd / 8, "a thread a 16-byte chunk of q");
+static_assert(8 * kNwMaxLoads <= 512, "the barriers end before the statistics");
+static_assert(kNwMaxCluster <= 32, "a lane a block of the cluster");
+static_assert(1024 + kNwMaxCluster * kNwRows * 2 * 4 <= kNwHead, "the statistics inbox fits the head");
+
+// Positions a buffer holds, floats a row of the scores, bf16 a row of P,
+// floats a row of the outputs pushed to a block (its share of head_dim).
+__host__ __device__ inline int nw_buf(int span) { return span < kNwRound ? span : kNwRound; }
+__host__ __device__ inline int nw_srow(int span) { return span + 4; }
+__host__ __device__ inline int nw_prow(int span) { return nw_buf(span) + 8; }
+__host__ __device__ inline int nw_ocol(int cs) { return 4 * cdiv(kNwHd / 4, cs) + 4; }
+
+// Dynamic shared memory of a block: alignment slack, head, two buffers (K
+// or V of a round), the block's scores, one round's P, q, and the outputs
+// the cluster's blocks push to it ([cs][8 rows][nw_ocol]; one block a row
+// writes its rows over the buffers instead).
+size_t nw_smem(int span, int cs) {
+  return 1024 + kNwHead + 2 * (size_t)nw_buf(span) * kNwHd * 2 +
+         sizeof(float) * kNwRows * nw_srow(span) + 2 * kNwRows * nw_prow(span) + kNwRows * kNwQRow +
+         (cs > 1 ? sizeof(float) * cs * kNwRows * nw_ocol(cs) : 0);
+}
+
+// The cluster's block `rank`'s address of this block's shared address `addr`.
+__device__ __forceinline__ uint32_t nw_mapa(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// One arrival, releasing this thread's (and, through a block barrier before
+// it, the block's) earlier writes, on block `rank`'s barrier at `bar`.
+__device__ __forceinline__ void nw_arrive(uint32_t bar, int rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(nw_mapa(bar, rank))
+               : "memory");
+}
+// Until this block's barrier `bar` completes phase 0, acquiring what the
+// arrivals released (their writes into this block's shared memory); traps
+// after 2^26 polls, as mbar_wait.
+__device__ __forceinline__ void nw_wait(uint32_t bar) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// The page id holding position p of row b (a clamped entry past the table,
+// which nw_issue does not use): read with no condition.
+__device__ __forceinline__ int nw_page(const Args& a, int b, int p) {
+  return __ldg(a.page_table + (size_t)b * a.pmax + min(p / a.psz, a.pmax - 1));
+}
+
+// Box t of load i (K round i, or V round i - nr) into buffer i % 2 on
+// barrier i: the bx rows from the round's position (t / 4) * bx of page
+// `id`, column block t % 4, swizzled as ldmatrix reads them; rows past the
+// table load rows past the pools, which TMA fills with zeros. A buffer is
+// [4 column blocks][buf positions][128 bytes].
+__device__ __forceinline__ void nw_issue(const CUtensorMap* km, const CUtensorMap* vm, const Args& a,
+                                         const Block& blk, uint32_t base, int i, int nr, int t, int bx,
+                                         int buf, int id) {
+  const int j = i < nr ? i : i - nr, rb = t >> 2, cb = t & 3;
+  const int p = blk.c0 + j * kNwRound + rb * bx;
+  const int row = p < blk.total ? ((blk.kh * a.L + a.layer) * a.N + id) * a.psz + p % a.psz
+                                : a.K * a.L * a.N * a.psz;
+  const uint32_t dst = base + kNwHead + (i & 1) * buf * kNwHd * 2 + cb * buf * 128 + rb * bx * 128;
+  tma_load(dst, i < nr ? km : vm, cb * 64, row, base + 8 * i);
+}
+
+// Grid (B*K, n_split) in clusters of (1, n_split): block c of row (b, kv
+// head) attends positions [c * span, (c + 1) * span) through the row's last
+// live query. Its barriers are initialised first, before any load. Warps 0
+// and 4 read the page ids of the first two loads (K of the first round,
+// then V, or K of the second) beside start_pos and q_len, and issue their
+// load by TMA, a box a lane; q arrives by cp.async, a 16-byte chunk a
+// thread. Pass 1: warp w computes S^T = K q^T for the round's m-tile w as
+// mma.sync m16n8k16, the 8 query rows on n (q^T's fragments from shared
+// memory into registers once), scaled and masked into the block's scores.
+// Warp r then takes row r's max and sum and lane q pushes them into block
+// q's shared memory; each block arrives on every block's statistics
+// barrier, waits on its own, and reduces the rows' (m, l) in its own
+// shared memory by one shuffle tree (the same M and L in every block).
+// Pass 2: P = e^(s - M) / L rounded to bf16 as the plain version rounds its
+// weights, then O^T = V^T P^T, warp w over head_dim columns [32 w, 32 w +
+// 32) (V transposed by ldmatrix). The outputs, already normalised, are
+// pushed to the block that owns their share of head_dim, which waits on
+// its outputs barrier and sums them in rank order. A block only ever waits
+// for writes into its own shared memory, so none waits for the others to
+// leave: the cluster barrier at the start (arrived at once, waited on
+// before the first push) only makes sure every block's barriers exist.
+__global__ void __launch_bounds__(kNwThreads, 2)
+    ragged_narrow_kernel(const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap, const Args a) {
+  extern __shared__ unsigned char nw_smem_raw[];
+  unsigned char* smem = nw_smem_raw + ((1024 - (smem_u32(nw_smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const int bk = blockIdx.x, c = blockIdx.y, cs = a.nsplit;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int span = a.span, buf = nw_buf(span), bx = min(a.psz, span);
+  const int ii = warp >> 2;  // warps 0 and 4 issue loads 0 and 1 (and refill buffers 0 and 1)
+  const uint32_t stats_bar = base + 512, out_bar = base + 520;
+  if ((warp & 3) == 0 && lane == 0) {
+    // The first two loads' barriers (a block without work leaves them
+    // unused), and the cluster's statistics and outputs barriers: one
+    // arrival from each block.
+    mbar_init(base + 8 * ii, 1);
+    if (ii == 0 && cs > 1) {
+      mbar_init(stats_bar, cs);
+      mbar_init(out_bar, cs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (cs > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  Block blk;
+  blk.b = bk / a.K;
+  blk.kh = bk - blk.b * a.K;
+  blk.c0 = c * span;
+  blk.row0 = 0;
+  blk.rows = a.S * a.G;
+  blk.total = a.pmax * a.psz;
+  blk.start = a.start_pos[blk.b];
+  const int qn = min(max(a.q_lens[blk.b], 0), a.S);
+  // Load 1 is K of the second round where a block holds two, which only a
+  // span past one round allows; else V of the first. An issuing lane
+  // takes boxes lane and lane + 32.
+  const int j1 = span > kNwRound ? 1 : 0, p1 = blk.c0 + ii * j1 * kNwRound;
+  int id0 = 0, id1 = 0;
+  if ((warp & 3) == 0) {
+    id0 = nw_page(a, blk.b, p1 + (lane >> 2) * bx);
+    id1 = nw_page(a, blk.b, p1 + ((lane + 32) >> 2) * bx);
+  }
+  float* ss = reinterpret_cast<float*>(smem + kNwHead + 2 * buf * kNwHd * 2);  // [8][srow] scores
+  bf16* ps = reinterpret_cast<bf16*>(ss + kNwRows * nw_srow(span));            // [8][prow] P
+  unsigned char* qs = reinterpret_cast<unsigned char*>(ps + kNwRows * nw_prow(span));  // [8][kNwQRow] q
+  float* oin = reinterpret_cast<float*>(qs + kNwRows * kNwQRow);  // [cs][8][ocol] pushed outputs
+  {  // q's rows by cp.async, zeros past the window's rows
+    const int r = tid >> 5, ch = tid & 31;
+    const bf16* q = static_cast<const bf16*>(a.q);
+    cp_async16(qs + r * kNwQRow + ch * 16, r < blk.rows ? q + blk.at(a, r) + ch * 8 : q, r < blk.rows);
+    cp_commit();
+  }
+  blk.live = min(qn * a.G, blk.rows);
+  blk.lim = blk.live > 0 ? max(min(blk.start + qn, blk.total), 0) : 0;
+  blk.scale = rsqrtf((float)kNwHd);
+  if (blk.live == 0) {  // an idle row: block 0 writes its zeros (every block of the cluster returns)
+    if (c == 0) zero_rows<bf16, kNwThreads>(a, blk, 0);
+    cp_wait<0>();
+    if (cs > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    return;
+  }
+  blk.c1 = min(blk.lim, blk.c0 + span);
+  const int n = max(blk.c1 - blk.c0, 0), nr = cdiv(n, kNwRound), nl = 2 * nr;
+  // Boxes of load i: its round's positions, whole m-tiles, in rows of bx.
+  auto boxes = [&](int i) {
+    const int j = i < nr ? i : i - nr;
+    return cdiv(cdiv(min(kNwRound, n - j * kNwRound), 16) * 16, bx) * 4;
+  };
+  // Load i into buffer i % 2, once it is free, by warp 4 (i % 2): lane 0
+  // counts its bytes on barrier i, each lane issues its boxes.
+  auto refill = [&](int i) {
+    if (i >= nl || warp != 4 * (i & 1)) return;
+    if (lane == 0) mbar_expect_tx(base + 8 * i, boxes(i) * bx * 128);
+    const int j = i < nr ? i : i - nr;
+    for (int t = lane; t < boxes(i); t += 32)
+      nw_issue(&kmap, &vmap, a, blk, base, i, nr, t, bx, buf,
+               nw_page(a, blk.b, blk.c0 + j * kNwRound + (t >> 2) * bx));
+  };
+  if ((warp & 3) == 0 && ii < nl) {
+    // Warp 4 ii initialises the barriers of its refills (ii + 2, ii + 4,
+    // ...), then issues load ii; every barrier is initialised before
+    // anything waits on it (the block barrier after q's copy).
+    if (lane == 0) {
+      if (ii + 2 < nl) {
+        for (int i = ii + 2; i < nl; i += 2) mbar_init(base + 8 * i, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
+      mbar_expect_tx(base + 8 * ii, boxes(ii) * bx * 128);
+    }
+    __syncwarp();
+    if (ii == 1 && j1 == 1 && nr == 1) {  // load 1 is V of the first round
+      id0 = nw_page(a, blk.b, blk.c0 + (lane >> 2) * bx);
+      id1 = nw_page(a, blk.b, blk.c0 + ((lane + 32) >> 2) * bx);
+    }
+    for (int t = lane; t < boxes(ii); t += 32)
+      nw_issue(&kmap, &vmap, a, blk, base, ii, nr, t, bx, buf, t < 32 ? id0 : id1);
+  }
+
+  float* sin = reinterpret_cast<float*>(smem + 1024);  // [16 blocks][8 rows][m, l] pushed here
+  const int srow = nw_srow(span), prow = nw_prow(span);
+  const int lim0 = blk.limit(2 * t4, a.G), lim1 = blk.limit(2 * t4 + 1, a.G);
+  cp_wait<0>();
+  __syncthreads();  // q landed; every barrier initialised
+  // q^T's fragments (the B operand of S^T = K q^T: row g, columns 16 kk +
+  // 2 t4 (+ 8)), two k-steps an ldmatrix, for the warps that hold an m-tile.
+  uint32_t qf[kNwHd / 16][2];
+  if (16 * warp < min(n, kNwRound)) {
+#pragma unroll
+    for (int k2 = 0; k2 < kNwHd / 32; ++k2) {
+      uint32_t x[4];
+      ldsm_x4(x, smem_u32(qs) + (lane & 7) * kNwQRow + (4 * k2 + (lane >> 3)) * 16);
+      qf[2 * k2][0] = x[0];
+      qf[2 * k2][1] = x[1];
+      qf[2 * k2 + 1][0] = x[2];
+      qf[2 * k2 + 1][1] = x[3];
+    }
+  }
+  // Pass 1: the scores, an m-tile (16 positions) a warp and round.
+  for (int j = 0; j < nr; ++j) {
+    const int m = min(kNwRound, n - j * kNwRound);
+    mbar_wait(base + 8 * j, 0);  // every barrier serves one load: phase 0
+    if (16 * warp < m) {
+      const int pos = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const uint32_t rowk = base + kNwHead + (j & 1) * buf * kNwHd * 2 + pos * 128;
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < kNwHd / 16; ++kk) {
+        const int ch = 2 * kk + (lane >> 4);  // K's 16-byte chunk: column block ch / 8
+        uint32_t ka[4];
+        ldsm_x4(ka, rowk + (ch >> 3) * buf * 128 + (((ch & 7) ^ (pos & 7)) << 4));
+        mma_bf16(s[kk & 1], ka, qf[kk][0], qf[kk][1]);
+      }
+      // Lane holds positions g and g + 8 of the tile for query rows 2 t4 and 2 t4 + 1.
+      const int p0 = blk.c0 + j * kNwRound + 16 * warp + g;
+      float* dst = ss + j * kNwRound + 16 * warp + g;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        dst[2 * t4 * srow + 8 * u] = p0 + 8 * u < lim0 ? (s[0][2 * u] + s[1][2 * u]) * blk.scale : kNegInf;
+        dst[(2 * t4 + 1) * srow + 8 * u] =
+            p0 + 8 * u < lim1 ? (s[0][2 * u + 1] + s[1][2 * u + 1]) * blk.scale : kNegInf;
+      }
+    }
+    __syncthreads();  // every warp is done with buffer j % 2
+    refill(j + 2);
+  }
+  // Warp r takes query row r: the block's max and sum over its
+  // positions, then (lane q, block q) the row's M over the cluster's blocks
+  // with l > 0 and L = sum l e^(m - M), by the same shuffle tree in every
+  // block (so every block has the same M and L).
+  const float* sr = ss + warp * srow;
+  float M = kNegInf, L = 0.f;
+  for (int p = lane; p < n; p += 32) M = fmaxf(M, sr[p]);
+  M = warp_max(M);
+  for (int p = lane; p < n; p += 32) L += sr[p] <= kNegInf * 0.5f ? 0.f : expf(sr[p] - M);
+  L = warp_sum(L);
+  cg::cluster_group cluster = cg::this_cluster();
+  if (cs > 1) {
+    // Every block's barriers exist (the cluster barrier arrived at entry).
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    if (lane < cs)
+      *reinterpret_cast<float2*>(cluster.map_shared_rank(sin, lane) + (c * kNwRows + warp) * 2) =
+          make_float2(M, L);
+    __syncthreads();
+    if (tid < cs) nw_arrive(stats_bar, tid);
+    nw_wait(stats_bar);
+    float m = kNegInf, l = 0.f;
+    if (lane < cs) {
+      const float2 x = *reinterpret_cast<const float2*>(sin + (lane * kNwRows + warp) * 2);
+      m = x.x;
+      l = x.y;
+    }
+    M = warp_max(l > 0.f ? m : kNegInf);
+    L = warp_sum(l > 0.f ? l * expf(m - M) : 0.f);
+  }
+  const float inv = L > 0.f ? 1.f / L : 0.f;
+  // Pass 2: P of the round (zeros past the block's positions; warp r row r),
+  // then O^T += V^T P^T over head_dim columns [32 w, 32 w + 32) of warp w.
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int j = 0; j < nr; ++j) {
+    const int m = min(kNwRound, n - j * kNwRound), m16 = cdiv(m, 16) * 16;
+    for (int p = lane; p < m16; p += 32) {
+      const float x = p < m ? sr[j * kNwRound + p] : kNegInf;
+      ps[warp * prow + p] = __float2bfloat16(x <= kNegInf * 0.5f ? 0.f : expf(x - M) * inv);
+    }
+    mbar_wait(base + 8 * (nr + j), 0);
+    __syncthreads();
+    const uint32_t vb = base + kNwHead + ((nr + j) & 1) * buf * kNwHd * 2;
+    const uint32_t pb = smem_u32(ps) + (lane & 7) * prow * 2 + ((lane >> 3) & 1) * 16;
+    for (int ks = 0; ks < m16 / 16; ++ks) {
+      uint32_t pf[2];
+      ldsm_x2(pf, pb + ks * 32);
+      const int pos = 16 * ks + (lane & 7) + ((lane >> 4) & 1) * 8;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int ch = 2 * (2 * warp + i) + ((lane >> 3) & 1);  // V's chunk of 16-column tile 2 w + i
+        uint32_t va[4];
+        ldsm_x4_t(va, vb + (ch >> 3) * buf * 128 + pos * 128 + (((ch & 7) ^ (pos & 7)) << 4));
+        mma_bf16(acc[i], va, pf[0], pf[1]);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer (nr + j) % 2 and with P
+    refill(nr + j + 2);
+  }
+  bf16* out = static_cast<bf16*>(a.out);
+  if (cs == 1) {  // the block's rows (by head_dim, fp32) over the buffers, then out
+    float* os = reinterpret_cast<float*>(smem + kNwHead);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          os[(2 * t4 + e) * kNwORow + 16 * (2 * warp + i) + g + 8 * u] = acc[i][2 * u + e];
+    __syncthreads();
+    for (int e = tid; e < blk.rows * (kNwHd / 4); e += kNwThreads) {
+      const int r = e / (kNwHd / 4), v = e - r * (kNwHd / 4);
+      const float4 o = r < blk.live ? *reinterpret_cast<const float4*>(os + r * kNwORow + 4 * v)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      store4(out + blk.at(a, r) + 4 * v, o);
+    }
+    return;
+  }
+  // Block q owns float4 columns [q * 64 / cs, (q + 1) * 64 / cs) of every
+  // row: each value goes to its owner's [this block][row][column].
+  const int ocol = nw_ocol(cs);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int h = 16 * (2 * warp + i) + g + 8 * u, q = ((h >> 2) * cs + cs - 1) / (kNwHd / 4);
+      float* dst = cluster.map_shared_rank(oin, q) + c * kNwRows * ocol + h - 4 * (q * (kNwHd / 4) / cs);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) dst[(2 * t4 + e) * ocol] = acc[i][2 * u + e];
+    }
+  __syncthreads();
+  if (tid < cs) nw_arrive(out_bar, tid);
+  nw_wait(out_bar);
+  // This block's share: at most 8 rows by 64 / cs float4 columns, a
+  // thread an output, summed over the blocks in rank order.
+  const int v0 = c * (kNwHd / 4) / cs, nv = (c + 1) * (kNwHd / 4) / cs - v0;
+  const int r = tid / nv, v = tid - r * nv;
+  if (r < blk.rows) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < blk.live)
+      for (int q = 0; q < cs; ++q) {
+        const float4 x = *reinterpret_cast<const float4*>(oin + (q * kNwRows + r) * ocol + 4 * v);
+        o.x += x.x;
+        o.y += x.y;
+        o.z += x.z;
+        o.w += x.w;
+      }
+    store4(out + blk.at(a, r) + 4 * (v0 + v), o);
+  }
+}
+
 // SMs of the current device, read once per device.
 int sm_count() {
   static int cached[64] = {};
@@ -1765,7 +2181,7 @@ int sm_count() {
   return cached[dev];
 }
 
-enum Design { kMmaSync = 0, kWarpgroup = 1, kRowwise = 2 };
+enum Design { kMmaSync = 0, kWarpgroup = 1, kRowwise = 2, kNarrow = 3 };
 
 // Query tiles a window, rows a tile, splits a tile and the positions a
 // split attends, from the shapes. mma_sync: 64-row tiles, as many splits of
@@ -1777,7 +2193,11 @@ enum Design { kMmaSync = 0, kWarpgroup = 1, kRowwise = 2 };
 // rows, 256 positions a row; longer rows gain from it). rowwise: one tile
 // of the window's rows, one split of the whole table up to kRwMinSpan
 // positions; a longer table splits while the blocks stay within one an SM,
-// into spans of kRwMinSpan to kRwMaxSpan.
+// into spans of kRwMinSpan to kRwMaxSpan. narrow: one tile of the window's
+// rows; the least span of kNwMinSpan times a power of two that splits the
+// table into at most kNwMaxCluster blocks (one cluster a row), whatever
+// the batch: idle rows' blocks return at once, and at the serving tables
+// (256 positions) a block's 64 positions load in one step.
 struct Grid {
   int ntiles, trows, nsplit, span;
 };
@@ -1786,6 +2206,15 @@ constexpr int kWgMinSpan = 4 * kWgPos;
 
 Grid grid_of(int design, int B, int S, int K, int G, int pmax, int psz) {
   Grid g;
+  if (design == kNarrow) {
+    const int total = pmax * psz;
+    g.ntiles = 1;
+    g.trows = S * G;
+    g.span = kNwMinSpan;
+    while (g.span * kNwMaxCluster < total) g.span *= 2;
+    g.nsplit = cdiv(total, g.span);
+    return g;
+  }
   if (design == kRowwise) {
     const int total = pmax * psz, work = std::max(B * K, 1);
     const int want = std::max(cdiv(total, kRwMaxSpan),
@@ -1861,16 +2290,16 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 constexpr int kMapError = 10000;  // + CUresult: an encode the driver refused
 
 // The tensor map of a pool viewed as [K*L*N*Psz, hd] bf16 rows, in boxes of
-// Psz rows by min(hd, 64) columns, swizzled as wgmma reads them. Encoded
-// once per (device, pool pointer, shape) and kept: the engine never
-// rebinds its pools, so a map captured into a CUDA graph stays valid.
-// Under `launching`.
-int pool_map(const void* pool, long long rows, int hd, int psz, CUtensorMap* map) {
+// `box` rows (Psz; the narrow design's min(Psz, span)) by min(hd, 64)
+// columns, swizzled as wgmma and ldmatrix read them. Encoded once per
+// (device, pool pointer, shape) and kept: the engine never rebinds its
+// pools, so a map captured into a CUDA graph stays valid. Under `launching`.
+int pool_map(const void* pool, long long rows, int hd, int box, CUtensorMap* map) {
   struct Entry {
     int dev;
     const void* pool;
     long long rows;
-    int hd, psz;
+    int hd, box;
     CUtensorMap map;
   };
   static std::vector<Entry> cache;
@@ -1879,7 +2308,7 @@ int pool_map(const void* pool, long long rows, int hd, int psz, CUtensorMap* map
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   for (const Entry& e : cache)
-    if (e.dev == dev && e.pool == pool && e.rows == rows && e.hd == hd && e.psz == psz) {
+    if (e.dev == dev && e.pool == pool && e.rows == rows && e.hd == hd && e.box == box) {
       *map = e.map;
       return 0;
     }
@@ -1899,24 +2328,24 @@ int pool_map(const void* pool, long long rows, int hd, int psz, CUtensorMap* map
   const int cols = hd < 64 ? hd : 64;
   const cuuint64_t dims[2] = {(cuuint64_t)hd, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)hd * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)psz};
+  const cuuint32_t boxes[2] = {(cuuint32_t)cols, (cuuint32_t)box};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(pool), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return kMapError + (int)r;
   if (cache.size() >= 256) cache.clear();  // pools come and go in tests; the engine keeps its own
-  cache.push_back(Entry{dev, pool, rows, hd, psz, *map});
+  cache.push_back(Entry{dev, pool, rows, hd, box, *map});
   return 0;
 }
 
-// The pools' tensor maps (pool_map), under `launching`.
-int pool_maps(const Args& a, int hd, CUtensorMap* km, CUtensorMap* vm) {
+// The pools' tensor maps (pool_map) in boxes of `box` rows, under `launching`.
+int pool_maps(const Args& a, int hd, int box, CUtensorMap* km, CUtensorMap* vm) {
   const long long rows = (long long)a.K * a.L * a.N * a.psz;
   std::lock_guard<std::mutex> hold(launching);
-  const int err = pool_map(a.k_pages, rows, hd, a.psz, km);
-  return err != 0 ? err : pool_map(a.v_pages, rows, hd, a.psz, vm);
+  const int err = pool_map(a.k_pages, rows, hd, box, km);
+  return err != 0 ? err : pool_map(a.v_pages, rows, hd, box, vm);
 }
 
 template <int HD>
@@ -1924,7 +2353,7 @@ int launch_wg(const Args& a, int B, cudaStream_t stream) {
   static size_t granted[64] = {};
   const size_t smem = wg_smem<HD>(a.nsplit);
   CUtensorMap km, vm;
-  const int map_err = pool_maps(a, HD, &km, &vm);
+  const int map_err = pool_maps(a, HD, a.psz, &km, &vm);
   if (map_err != 0) return map_err;
   const cudaError_t err = grant(ragged_wgmma_kernel<HD>, granted, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1937,11 +2366,51 @@ int launch_rw(const Args& a, int B, cudaStream_t stream) {
   static size_t granted[64] = {};
   const size_t smem = rw_smem<HD>(a.nsplit);
   CUtensorMap km, vm;
-  const int map_err = pool_maps(a, HD, &km, &vm);
+  const int map_err = pool_maps(a, HD, a.psz, &km, &vm);
   if (map_err != 0) return map_err;
   const cudaError_t err = grant(ragged_rowwise_kernel<HD>, granted, smem);
   if (err != cudaSuccess) return (int)err;
   ragged_rowwise_kernel<HD><<<dim3(B * a.K, a.nsplit), Rw<HD>::kThreads, smem, stream>>>(km, vm, a);
+  return (int)cudaGetLastError();
+}
+
+// A narrow launch: a cluster of the row's n_split blocks (above 8 only
+// where the card allows non-portable cluster sizes, set once per device).
+int launch_nw(const Args& a, int B, cudaStream_t stream) {
+  static size_t granted[64] = {};
+  static bool wide[64] = {};
+  if (a.span > kNwMaxSpan || a.nsplit > kNwMaxCluster) return (int)cudaErrorInvalidValue;
+  const size_t smem = nw_smem(a.span, a.nsplit);
+  CUtensorMap km, vm;
+  const int map_err = pool_maps(a, kNwHd, std::min(a.psz, a.span), &km, &vm);
+  if (map_err != 0) return map_err;
+  cudaError_t err = grant(ragged_narrow_kernel, granted, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (a.nsplit > 8) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    std::lock_guard<std::mutex> hold(launching);
+    if (!wide[dev]) {
+      err = cudaFuncSetAttribute(ragged_narrow_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return (int)err;
+      wide[dev] = true;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * a.K, a.nsplit);
+  cfg.blockDim = dim3(kNwThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = a.nsplit;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ragged_narrow_kernel, km, vm, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1962,6 +2431,7 @@ size_t smem_of(int design, const Grid& g, int hd, int dtype) {
       case 128: return wg_smem<128>(g.nsplit);
       default: return wg_smem<256>(g.nsplit);
     }
+  if (design == kNarrow) return nw_smem(g.span, g.nsplit);
   if (design == kRowwise) switch (hd) {
       case 32: return rw_smem<32>(g.nsplit);
       case 64: return rw_smem<64>(g.nsplit);
@@ -1975,7 +2445,7 @@ size_t smem_of(int design, const Grid& g, int hd, int dtype) {
 
 extern "C" {
 
-// design: 0 = mma_sync, 1 = warpgroup, 2 = rowwise; dtype: 0 = float32, 1 = bfloat16.
+// design: 0 = mma_sync, 1 = warpgroup, 2 = rowwise, 3 = narrow; dtype: 0 = float32, 1 = bfloat16.
 // Fills plan[0..3] = tiles a window, rows a tile, splits a tile, positions
 // a split; returns the dynamic shared memory one block needs (the wrapper
 // refuses shapes above the card's per-block limit before launching). The
@@ -1989,7 +2459,8 @@ size_t mcpx_ragged_paged_attention_plan(int B, int S, int K, int G, int hd, int 
 
 // part [B*K*tiles, n_split, trows, hd] and ml [B*K*tiles, n_split, 2,
 // trows] are fp32 scratch (any contents; unused by a warpgroup or rowwise
-// launch of one split); tickets [B*K*tiles] int32 must be zero and are left zero.
+// launch of one split and by every narrow launch); tickets [B*K*tiles]
+// int32 must be zero and are left zero (a narrow launch takes none: null).
 // Returns cudaGetLastError() after the launch (0 = launched), a CUDA error
 // before it, or kMapError + a CUresult. Enqueues on `stream`; does not
 // synchronise.
@@ -2002,6 +2473,7 @@ int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* 
   if (design != kMmaSync && !tma_takes(hd, psz, dtype, (long long)K * L * N * psz))
     return (int)cudaErrorInvalidValue;
   if (design == kRowwise && S * G > kWgRows) return (int)cudaErrorInvalidValue;
+  if (design == kNarrow && (hd != kNwHd || S * G > kNwRows)) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k_pages = k_pages;
@@ -2024,6 +2496,7 @@ int mcpx_ragged_paged_attention(const void* q, const void* k_pages, const void* 
       case 128: return launch_wg<128>(a, B, st);
       default: return launch_wg<256>(a, B, st);
     }
+  if (design == kNarrow) return launch_nw(a, B, st);
   if (design == kRowwise) switch (hd) {
       case 32: return launch_rw<32>(a, B, st);
       case 64: return launch_rw<64>(a, B, st);

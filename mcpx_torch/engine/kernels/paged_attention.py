@@ -38,7 +38,9 @@ WARPGROUP_PAGE_SIZES = (8, 16, 32, 64)  # whole 8-row swizzle atoms tiling a 64-
 MAX_HEAD_DIM = 256
 MAX_PAGE_SIZE = 64
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-DESIGN_CODES = {"mma_sync": 0, "warpgroup": 1, "rowwise": 2}
+NARROW_ROWS = 8  # query rows (S * G) of the narrow design's windows at most
+NARROW_MAX_POSITIONS = 16 * 2048  # a table the narrow design takes: 16 blocks of 2,048 positions
+DESIGN_CODES = {"mma_sync": 0, "warpgroup": 1, "rowwise": 2, "narrow": 3}
 
 # Launch counts by kernel name: the wrapper adds one where it launches the
 # kernel and nowhere else (the plain path never counts). A call made while
@@ -76,9 +78,10 @@ def reset_kernel_launches() -> None:
 
 def kernel_designs() -> dict[str, int]:
     """The kernel's launches since the last reset by design: ``warpgroup``
-    (the multi-tile bf16 windows), ``rowwise`` (the one-tile bf16 windows)
-    and ``mma_sync`` (every other); replays of captured graphs included
-    where ``count_replay`` is given them."""
+    (the multi-tile bf16 windows), ``rowwise`` (the one-tile bf16 windows),
+    ``narrow`` (those of at most 8 rows at hd 256) and ``mma_sync`` (every
+    other); replays of captured graphs included where ``count_replay`` is
+    given them."""
     with _LOCK:
         return dict(DESIGNS)
 
@@ -236,21 +239,29 @@ def _check(q, k_pages, v_pages, page_table, start_pos, q_lens, layer: int) -> No
         )
     if not 0 <= layer < L:
         raise EngineError(f"ragged_paged_attention: layer {layer} outside [0, {L})")
+    positions = page_table.shape[1] * psz
+    if kernel_design(S, G, hd, psz, q.dtype, K * L * k_pages.shape[2] * psz) == "narrow" and (
+        positions > NARROW_MAX_POSITIONS
+    ):
+        raise EngineError(
+            f"ragged_paged_attention: unsupported shape: a table of {positions} positions "
+            f"(the narrow design takes at most {NARROW_MAX_POSITIONS})"
+        )
 
 
 def kernel_design(S: int, G: int, hd: int, page_size: int, dtype: torch.dtype, pool_rows: int) -> str:
-    """Which of the kernel's three designs serves a [B, S, K, G, hd] window
+    """Which of the kernel's four designs serves a [B, S, K, G, hd] window
     over pools of ``pool_rows`` = K*L*N*Psz rows. bf16 windows at the
     head_dims the TMA designs are built for, pages that tile their
     64-position stages in whole swizzle atoms, and rows a 32-bit TMA
     coordinate reaches take ``warpgroup`` (wgmma, a producer warp beside a
     consumer warpgroup, 64 query rows a block) where they hold more than one
-    64-row query tile, and ``rowwise`` (one block a row, its positions split
-    among warpgroups inside the block) where they hold one, but for windows
-    of at most 8 rows at hd 256 (2b's one-token steps): a rowwise block
-    streams 256 KB of K and V through one SM and runs its products over
-    64-row tiles of which 8 rows live, and mma_sync's 64-position splits
-    ran them as fast or faster (PR 24, ``kernel_ab.py``). ``mma_sync``
+    64-row query tile; ``narrow`` (a cluster of blocks a row, 64 or more
+    positions a block, the 8 rows on the n of mma.sync) where they hold at
+    most 8 rows at hd 256 (2b's one-token steps), which a 64-row tile would
+    mostly waste and one SM a row could not stream fast enough; and
+    ``rowwise`` (one block a row, its positions split among warpgroups
+    inside the block) where they hold one tile otherwise. ``mma_sync``
     serves every other window (float32, hd 24 or 40, 4-token pages, ...).
     Shapes alone decide, never data, an option or the environment, so one
     captured graph serves any mix of rows."""
@@ -260,8 +271,9 @@ def kernel_design(S: int, G: int, hd: int, page_size: int, dtype: torch.dtype, p
     ):
         if S * G > TILE_ROWS:
             return "warpgroup"
-        if not (S * G <= 8 and hd > 128):
-            return "rowwise"
+        if S * G <= NARROW_ROWS and hd > 128:
+            return "narrow"
+        return "rowwise"
     return "mma_sync"
 
 
@@ -410,21 +422,22 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, start_pos, q_lens, l
         # fp32 scratch: the per-split unnormalised accumulators [B*K*tiles,
         # n_split, t_rows, hd], then their (max, sum) [B*K*tiles, n_split, 2,
         # t_rows]. A warpgroup or rowwise launch of one split writes its rows
-        # directly and needs none.
+        # directly and needs none; a narrow launch merges its splits inside
+        # a cluster and needs none, nor tickets.
         blocks = B * K * n_tiles * n_split
         n_acc = blocks * t_rows * hd
-        if design != "mma_sync" and n_split == 1:
+        if design == "narrow" or (design != "mma_sync" and n_split == 1):
             n_acc = blocks = 0
         scratch = torch.empty(n_acc + blocks * 2 * t_rows, dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # Held until the launch is enqueued: another thread may replace the
         # stream's buffer meanwhile, and a freed buffer's memory is handed to
         # the next allocation on the stream, which would then run before it.
-        tickets = _tickets(q.device, stream, ticket_count(B, S, K, G))
+        tickets = None if design == "narrow" else _tickets(q.device, stream, ticket_count(B, S, K, G))
         rc = lib.mcpx_ragged_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
             start_pos.data_ptr(), q_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.data_ptr() + 4 * n_acc, tickets.data_ptr(),
+            scratch.data_ptr() + 4 * n_acc, None if tickets is None else tickets.data_ptr(),
             B, S, K, G, hd, L, N, psz, p_max, layer, dtype, DESIGN_CODES[design], stream,
         )
         if rc >= _MAP_ERROR:

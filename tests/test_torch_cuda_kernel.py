@@ -162,8 +162,8 @@ def _check_case(case, cuda, dtype, atol, layers=(0, 1)):
     return worst
 
 
-# bf16 windows on the warpgroup and rowwise designs: the worst error
-# allowed, in bf16 ulps of each query head's largest output. Every design
+# bf16 windows on the warpgroup, rowwise and narrow designs: the worst
+# error allowed, in bf16 ulps of each query head's largest output. Every design
 # rounds P to bf16 at the running max, the plain version its normalised
 # weights, so none stays within one ulp at prefill width: on these tests'
 # inputs the mma_sync design reaches 2.0 and the warpgroup design 2.0625,
@@ -211,8 +211,11 @@ def test_cuda_kernel_padded_head_dim(cuda, dtype, atol, hd, S):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
-def test_cuda_kernel_all_idle_batch_is_zero(cuda, dtype, atol):
-    case = list(mixed_case(0, B=8, S=8, K=1, G=8, hd=256, psz=64, p_max=4))
+@pytest.mark.parametrize("S", [8, 1])
+def test_cuda_kernel_all_idle_batch_is_zero(cuda, dtype, atol, S):
+    """Every row idle: exact zeros, at S 8 (rowwise in bf16) and S 1 (the
+    narrow design in bf16: 8 rows at hd 256, a cluster of 4 blocks a row)."""
+    case = list(mixed_case(0, B=8, S=S, K=1, G=8, hd=256, psz=64, p_max=4))
     case[5] = np.zeros_like(case[5])
     args = _on_card(case, cuda, dtype)
     out = tk.ragged_paged_attention(*args, 1)
@@ -237,17 +240,20 @@ def test_cuda_kernel_repeats_bit_identical(cuda, dtype, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["decode", "split", "rowwise_split"])
+@pytest.mark.parametrize("kind", ["decode", "split", "rowwise_split", "narrow"])
 def test_cuda_kernel_two_streams_keep_their_own_counters(cuda, kind):
     """Launches on two streams of one device may overlap; each stream has
     its own ticket counters, so every output equals that of a launch alone
     and every counter is back at 0: one-tile windows (rowwise, one split),
     split tier cohorts (warpgroup) and one-tile windows over a 2,048-position
-    table (rowwise, split)."""
+    table (rowwise, split). One-token 2b windows over 2,048 positions
+    (narrow) take no ticket: their clusters merge in shared memory, and
+    overlapping launches give the same bits."""
     make = {
         "decode": lambda seed: mixed_case(seed, B=8, S=8, K=1, G=8, hd=256, psz=64, p_max=4),
         "split": lambda seed: tier_split_case(seed, "prefill"),
         "rowwise_split": lambda seed: rowwise_case(seed, B=4, S=8, G=8, hd=256, psz=16, p_max=128),
+        "narrow": lambda seed: rowwise_case(seed, B=4, S=1, G=8, hd=256, psz=16, p_max=128),
     }[kind]
     cases = [_on_card(make(seed), cuda, torch.bfloat16) for seed in (0, 1)]
     alone = [tk.ragged_paged_attention(*args, 1) for args in cases]
@@ -272,8 +278,8 @@ PAGES = [(64, 4), (16, 16)]  # (Psz, Pmax): the serving and the execute phases' 
 
 
 def _wg_ulps(dtype, worst, args):
-    """bf16 windows on the warpgroup and rowwise designs stay within HEAD_ULPS_WG."""
-    if dtype == torch.bfloat16 and _design(args) in ("warpgroup", "rowwise"):
+    """bf16 windows on the warpgroup, rowwise and narrow designs stay within HEAD_ULPS_WG."""
+    if dtype == torch.bfloat16 and _design(args) in ("warpgroup", "rowwise", "narrow"):
         assert worst <= HEAD_ULPS_WG, worst
 
 
@@ -370,11 +376,11 @@ def test_cuda_kernel_verify_shape(cuda, dtype, atol, shape, live):
 @pytest.mark.parametrize("psz", [8, 16, 32, 64])
 def test_cuda_kernel_rowwise_windows(cuda, S, G, hd, psz):
     """One-tile bf16 windows (S*G <= 64) on the rowwise design over a
-    256-position table, one split (8 rows or fewer at hd 256 on mma_sync):
+    256-position table, one split (8 rows or fewer at hd 256 on narrow):
     idle rows, q_len 1 to S, starts at 0 and at the table's end; against
     the plain version within atol = rtol = 2e-2 and HEAD_ULPS_WG, pads and
     idle rows exact zeros, tickets at 0."""
-    want = "mma_sync" if S * G <= 8 and hd > 128 else "rowwise"
+    want = "narrow" if S * G <= 8 and hd > 128 else "rowwise"
     for seed in range(2):
         case = rowwise_case(seed, S=S, G=G, hd=hd, psz=psz, p_max=256 // psz)
         args = _on_card(case, cuda, torch.bfloat16)
@@ -391,14 +397,14 @@ def test_cuda_kernel_rowwise_tables(cuda, positions, shape):
     positions the rowwise design splits each row's positions over blocks
     and merges their partials in the same launch; rows at the table's end
     see every position. Windows of 8 rows or fewer at hd 256 route to
-    mma_sync and hold all the same."""
+    narrow, which splits every table over a cluster a row."""
     S, G, hd = shape
     for seed in range(2):
         case = rowwise_case(seed, B=6, S=S, G=G, hd=hd, psz=16, p_max=positions // 16)
         args = _on_card(case, cuda, torch.bfloat16)
         plan = tk.launch_plan(args[0], args[1], args[3])
         if S * G <= 8 and hd > 128:
-            assert plan["design"] == "mma_sync", plan
+            assert plan["design"] == "narrow" and plan["n_split"] == narrow_grid(positions // 16, 16)[1], plan
         else:
             assert plan["design"] == "rowwise" and (plan["n_split"] > 1) == (positions > 256), plan
         _wg_ulps(torch.bfloat16, _check_case(case, cuda, torch.bfloat16, 2e-2), args)
@@ -406,19 +412,23 @@ def test_cuda_kernel_rowwise_tables(cuda, positions, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("kind", ["cohort", "split", "rowwise", "rowwise_split"])
+@pytest.mark.parametrize("kind", ["cohort", "split", "rowwise", "rowwise_split", "narrow", "narrow_long"])
 def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol, kind):
     """Three launches back to back, then three replays of a CUDA graph that
     captured the launch, give the same bits (the split cohort's merge runs
     in split order, the rowwise design's warpgroups merge in warpgroup
-    order), with the ticket counters at 0 afterwards: prefill cohorts
-    (warpgroup) and one-tile windows over 256 and 2,048 positions
-    (rowwise, the second split)."""
+    order, the narrow design's cluster in rank order), with the ticket
+    counters at 0 afterwards: prefill cohorts (warpgroup), one-tile windows
+    over 256 and 2,048 positions (rowwise, the second split) and one-token
+    2b windows over 256 and 2,048 positions (narrow, 4 and 16 blocks a
+    row)."""
     case = {
         "cohort": lambda: prefill_case(3, S=128, G=8, hd=256),
         "split": lambda: tier_split_case(3, "prefill"),
         "rowwise": lambda: rowwise_case(3, S=8, G=8, hd=256, psz=64, p_max=4),
         "rowwise_split": lambda: rowwise_case(3, B=4, S=5, G=4, hd=32, psz=16, p_max=128),
+        "narrow": lambda: rowwise_case(3, S=1, G=8, hd=256, psz=64, p_max=4),
+        "narrow_long": lambda: rowwise_case(3, B=4, S=1, G=8, hd=256, psz=16, p_max=128),
     }[kind]()
     args = _on_card(case, cuda, dtype)
     outs = [tk.ragged_paged_attention(*args, 0) for _ in range(3)]
@@ -439,6 +449,50 @@ def test_cuda_kernel_prefill_repeats_bit_identical(cuda, dtype, atol, kind):
         torch.cuda.synchronize()
         assert torch.equal(captured, outs[0])
     assert all(int(t.abs().sum()) == 0 for t in tk.ticket_counters())
+
+
+def narrow_grid(p_max, psz):
+    """The narrow design's (span, n_split) (``grid_of`` in the CUDA source,
+    emulated by ``tests/test_torch_paged_attention.py``): 64 positions a
+    block times the least power of two that cuts the table into at most 16
+    blocks, whatever the batch."""
+    total, span = p_max * psz, 64
+    while span * 16 < total:
+        span *= 2
+    return span, -(-total // span)
+
+
+# (B, S, G, Psz, Pmax) at hd 256: 2b's one-token step (decode_step_paged),
+# its tier decode rows, 1,024- and 2,048-position tables (the CPU
+# emulation's shapes), then 8-token pages, 4 and 1 query heads, a
+# two-token window, a 64-position table (one block a row, no cluster
+# exchange) and a 4,096-position table (a block over two rounds).
+NARROW_SHAPES = [
+    (8, 1, 8, 64, 4), (4, 1, 8, 16, 16), (4, 1, 8, 16, 64), (4, 1, 8, 16, 128),
+    (6, 1, 8, 8, 32), (6, 1, 4, 32, 8), (6, 2, 4, 64, 4), (6, 8, 1, 16, 16), (6, 1, 8, 16, 4),
+    (4, 1, 8, 64, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", NARROW_SHAPES)
+def test_cuda_kernel_narrow_windows(cuda, shape):
+    """Windows of at most 8 query rows at hd 256 on the narrow design: the
+    launch plan names it with the grid the CPU emulation assumes (a block
+    per row and split, the table's splits in one cluster); against the
+    plain version within atol = rtol = 2e-2 and HEAD_ULPS_WG, idle rows,
+    q_len 1 to S, starts at 0, at the table's end and across pages, pads and
+    idle rows exact zeros."""
+    B, S, G, psz, p_max = shape
+    span, n_split = narrow_grid(p_max, psz)
+    for seed in range(2):
+        case = rowwise_case(seed, B=B, S=S, G=G, hd=256, psz=psz, p_max=p_max)
+        args = _on_card(case, cuda, torch.bfloat16)
+        plan = tk.launch_plan(args[0], args[1], args[3])
+        assert (plan["design"], plan["grid"], plan["span"], plan["tiles"], plan["tile_rows"]) == (
+            "narrow", [B, n_split], span, 1, S * G
+        ), plan
+        _wg_ulps(torch.bfloat16, _check_case(case, cuda, torch.bfloat16, 2e-2), args)
 
 
 # ------------------------------------------------ the captured decode window

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing in ``mcpx_torch``, ``chip_smoke.py`` or
-``kernel_ab.py`` imports JAX or the reference package, the package imports and builds a CPU
+"""The port stands alone: nothing in ``mcpx_torch``, ``chip_smoke.py``,
+``kernel_ab.py`` or ``kernel_stamps.py`` imports JAX or the reference package, the package imports and builds a CPU
 control plane with both blocked, and its entry points never drop to the CPU
 on their own (a replica pool's engines neither). The GPU machine has no aiohttp, prometheus_client or redis:
 only ``mcpx_torch.server.app`` imports aiohttp at module level (the HTTP
@@ -32,7 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources() -> list[str]:
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_ab.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "kernel_ab.py", "kernel_stamps.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "mcpx_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

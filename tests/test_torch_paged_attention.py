@@ -16,7 +16,7 @@ from mcpx.engine.kernels import paged_attention as jref
 from mcpx_torch.core.errors import EngineError
 from mcpx_torch.engine.kernels import build
 from mcpx_torch.engine.kernels import paged_attention as tk
-from tests.test_torch_cuda_kernel import as_torch, mixed_case, prefill_case
+from tests.test_torch_cuda_kernel import as_torch, mixed_case, narrow_grid, prefill_case
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -256,11 +256,13 @@ def test_warpgroup_tiles_match_reference_kernel_interpret(kind):
 def test_routing_pins_each_kernel_phase_shape_to_its_design():
     """The route is shapes alone: each of chip_smoke's kernel-phase cells
     (bf16) takes the design named here: the suffix- and tier-prefill
-    windows (S*G of 256 to 1,024 rows) the warpgroup design, every one-tile
-    window (decode, fast-forward, verify, tier decode) the rowwise design,
-    and so do phase 28's one-token steps. float32 and hd % 16 == 8 stay on
-    mma_sync, in one tile or more; so do page sizes that do not tile a
-    64-position stage in 8-row atoms and pools past a 32-bit TMA row."""
+    windows (S*G of 256 to 1,024 rows) the warpgroup design, the one-tile
+    windows (decode, fast-forward, verify, tier decode) the rowwise design
+    but for those of at most 8 rows at hd 256 (2b's tier decode), which
+    take the narrow design, and so do phase 28's one-token steps. float32
+    and hd % 16 == 8 stay on mma_sync, in one tile or more; so do page sizes
+    that do not tile a 64-position stage in 8-row atoms and pools past a
+    32-bit TMA row."""
     import chip_smoke
 
     shapes = {None: (64, 8), "prefill": (16, 128), "tier_prefill": (4, 64), "tier_decode": (4, 1)}
@@ -269,14 +271,18 @@ def test_routing_pins_each_kernel_phase_shape_to_its_design():
         rows = L * (B * pmax + 1) * psz
         want = "warpgroup" if live in ("prefill", "tier_prefill") else "rowwise"
         if live == "tier_decode" and hd == 256:
-            want = "mma_sync"  # 8 rows at hd 256: see below
+            want = "narrow"  # 8 rows at hd 256: see below
         assert tk.kernel_design(S, G, hd, psz, torch.bfloat16, rows) == want, cell
         assert tk.kernel_design(S, G, hd, psz, torch.float32, rows) == "mma_sync", cell
     # decode_step_paged at B 8, 64-token pages: test's S 1 rows on rowwise;
-    # 8 rows or fewer at hd 256 (2b's S 1) stay on mma_sync, which ran them
-    # as fast or faster; 16 rows there take rowwise.
+    # 8 rows or fewer at hd 256 (2b's S 1, and G 4 or 1 there) on narrow,
+    # in bf16 only; 16 rows there take rowwise.
     assert tk.kernel_design(1, 4, 32, 64, torch.bfloat16, 2 * 33 * 64) == "rowwise"
-    assert tk.kernel_design(1, 8, 256, 64, torch.bfloat16, 18 * 33 * 64) == "mma_sync"
+    assert tk.kernel_design(1, 8, 256, 64, torch.bfloat16, 18 * 33 * 64) == "narrow"
+    assert tk.kernel_design(1, 8, 256, 64, torch.float32, 18 * 33 * 64) == "mma_sync"
+    for S, G in ((1, 4), (2, 4), (8, 1), (1, 1)):
+        assert tk.kernel_design(S, G, 256, 16, torch.bfloat16, 4096) == "narrow"
+    assert tk.kernel_design(1, 8, 128, 16, torch.bfloat16, 4096) == "rowwise"
     assert tk.kernel_design(2, 8, 256, 64, torch.bfloat16, 18 * 33 * 64) == "rowwise"
     assert tk.kernel_design(8, 1, 128, 64, torch.bfloat16, 4096) == "rowwise"
     for S in (1, 8, 128):
@@ -371,6 +377,86 @@ def test_rowwise_split_matches_reference_kernel_interpret(kind):
     np.testing.assert_allclose(tk.ragged_paged_attention_reference(*args, 1).numpy(), ref, **TOL)
     for b, ql in enumerate(case[5]):
         assert np.all(out[b, ql:].numpy() == 0.0)
+
+
+def _narrow_split_and_merge(q, kp, vp, table, starts, q_lens, layer, span):
+    """The narrow design's arithmetic in plain PyTorch: a block per (row,
+    kv head) and split of ``span`` positions through the row's last live
+    query; each block's (m, l) of every query row over its positions, the
+    row's M (the largest m of the blocks with l > 0) and L = sum l e^(m - M)
+    in block order; P = e^(s - M) / L cast to the value dtype as the plain
+    version casts its weights; each block's P V over its positions, summed
+    in block order. Rows with L = 0 (pads, idle rows) come out zeros."""
+    B, S, K, G, hd = q.shape
+    rows = S * G
+    k = tk._gather_pages(kp, table, layer).float()
+    v = tk._gather_pages(vp, table, layer)
+    P = k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(B, K, rows, hd)
+    s = torch.einsum("bkrh,bkph->bkrp", qf, k) * (1.0 / math.sqrt(hd))
+    qn = q_lens.long().clamp(0, S)
+    row_q = torch.arange(rows) // G
+    vis = torch.clamp(starts.long()[:, None] + row_q[None, :] + 1, max=P)
+    live = row_q[None, :] < qn[:, None]
+    mask = (torch.arange(P)[None, None, :] < vis[:, :, None]) & live[:, :, None]
+    s = torch.where(mask[:, None], s, torch.full_like(s, tk.NEG_INF))
+    lim = torch.where(qn > 0, torch.clamp(starts.long() + qn, max=P), torch.zeros_like(qn))  # [B]
+    pos = torch.arange(P)
+    blocks = [(pos[None, :] >= c0) & (pos[None, :] < torch.clamp(lim[:, None], max=c0 + span))
+              for c0 in range(0, P, span)]  # [B, P] each
+    stats = []
+    for mine in blocks:
+        sc = torch.where(mine[:, None, None, :], s, torch.full_like(s, tk.NEG_INF))
+        m = sc.max(-1).values
+        e = torch.where(sc <= tk.NEG_INF / 2, torch.zeros_like(sc), torch.exp(sc - m[..., None]))
+        stats.append((m, e.sum(-1)))
+    M = torch.full_like(stats[0][0], tk.NEG_INF)
+    for m, l in stats:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    L = torch.zeros_like(M)
+    for m, l in stats:
+        L = L + torch.where(l > 0, l * torch.exp(m - M), torch.zeros_like(l))
+    inv = torch.where(L > 0, 1.0 / torch.clamp(L, min=1e-30), torch.zeros_like(L))
+    p = torch.where(s <= tk.NEG_INF / 2, torch.zeros_like(s), torch.exp(s - M[..., None]) * inv[..., None])
+    p = p.to(v.dtype)
+    out = torch.zeros(B, K, rows, hd, dtype=torch.float32)
+    for mine in blocks:
+        pc = torch.where(mine[:, None, None, :], p, torch.zeros_like(p))
+        out = out + torch.einsum("bkrp,bkph->bkrh", pc, v).float()
+    return out.to(q.dtype).reshape(B, K, S, G, hd).permute(0, 2, 1, 3, 4)
+
+
+# (B, S, G, hd, Psz, Pmax) at L 2: 2b's one-token step (decode_step_paged),
+# its tier decode rows, and 1,024- and 2,048-position tables.
+NARROW_CASES = {
+    "decode_step": (8, 1, 8, 256, 64, 4), "tier_decode": (4, 1, 8, 256, 16, 16),
+    "long1024": (4, 1, 8, 256, 16, 64), "long2048": (4, 1, 8, 256, 16, 128),
+}
+
+
+@pytest.mark.parametrize("kind", list(NARROW_CASES))
+def test_narrow_split_matches_reference_kernel_interpret(kind):
+    """The narrow design's split of a row's positions over a cluster of
+    blocks, its row statistics merged in block order before P is formed and
+    rounded, and its outputs summed in block order, give the reference
+    kernel's output (interpret mode) and the plain version's, fp32 to 2e-5;
+    pads and idle rows exact zeros. Every table splits (2 to 16 blocks a
+    row), rows are idle and starts cross pages."""
+    B, S, G, hd, psz, p_max = NARROW_CASES[kind]
+    case = mixed_case(len(kind), B=B, S=S, K=1, G=G, hd=hd, psz=psz, p_max=p_max)
+    assert tk.kernel_design(S, G, hd, psz, torch.bfloat16, case[1].size // hd) == "narrow"
+    assert 0 in case[5] and len({int(s) // psz for s in case[4]}) > 1
+    span, n_split = narrow_grid(p_max, psz)
+    assert 2 <= n_split <= 16 and span % 16 == 0
+    ref = np.asarray(jref.ragged_paged_attention(*(jnp.asarray(a) for a in case), 1, interpret=True))
+    args = as_torch(*case)
+    out = _narrow_split_and_merge(*args, 1, span)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    plain = tk.ragged_paged_attention_reference(*args, 1)
+    np.testing.assert_allclose(plain.numpy(), ref, **TOL)
+    for b, ql in enumerate(case[5]):
+        assert np.all(out[b, ql:].numpy() == 0.0) and np.all(plain[b, ql:].numpy() == 0.0)
 
 
 def test_ragged_n_pages_matches_reference():
